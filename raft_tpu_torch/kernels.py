@@ -1,0 +1,181 @@
+"""Build, bind and count the port's hand-written CUDA kernels.
+
+Each kernel is one CUDA C++ source in ``csrc/`` with a plain C interface.
+``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles it into a shared
+library under ``build/raft_tpu_torch/`` at first use (``build_all``
+starts one nvcc per source, all at once); ``ctypes`` loads it. A launcher
+takes raw device pointers (``tensor.data_ptr()``) and PyTorch's current
+stream, launches without synchronizing, and returns ``cudaGetLastError``
+— which ``Kernel.launched`` turns into an exception.
+
+Every kernel counts its launches in ``Kernel.launches``: a wrapper adds
+one where it launches its kernel and nowhere else, so a run can show
+that its main path went through the kernels. Nothing here is imported
+from or built at module import; the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "raft_tpu_torch")
+ARCH = "arch=compute_90a,code=sm_90a"
+
+# C signatures of the launchers (every pointer and the stream are
+# c_void_p so ctypes never truncates them to 32 bits).
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "canon_memo": {
+        "canon_memo": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P,
+                       _P, _P, _P],
+    },
+    "probe_runs": {
+        "probe_runs": [_P, _I, _P, _P, _P, _I, _P],
+    },
+    "compact_append": {
+        "compact_indices": [_P, _I, _P, _I, _I, _P, _P, _I, _P],
+        "append_rows": [_P, _P, _I, _P, _I, _I, _P, _L, _P],
+    },
+    "merge_runs": {
+        "merge_runs": [_P, _L, _P, _L, _P, _L, _P],
+    },
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+class Kernel:
+    """One CUDA source: its build, its ctypes library, its launch count."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.source = os.path.join(CSRC, f"{name}.cu")
+        self.library = os.path.join(BUILD_DIR, f"lib{name}.so")
+        self.launches = 0
+        self._lib = None
+
+    def stale(self) -> bool:
+        if not os.path.exists(self.library):
+            return True
+        newest = max(os.path.getmtime(self.source),
+                     os.path.getmtime(os.path.join(CSRC, "common.cuh")))
+        return os.path.getmtime(self.library) < newest
+
+    def compile_cmd(self) -> list[str]:
+        return [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
+                "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", self.library,
+                self.source]
+
+    def start_build(self):
+        """Start nvcc for this source (None when the library is fresh)."""
+        if not self.stale():
+            return None
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        return subprocess.Popen(self.compile_cmd(), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    @property
+    def lib(self):
+        if self._lib is None:
+            proc = self.start_build()
+            if proc is not None:
+                out, _ = proc.communicate()
+                if proc.returncode:
+                    raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
+            lib = ctypes.CDLL(self.library)
+            for fn, args in _SIGNATURES[self.name].items():
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = ctypes.c_int
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            lib.rt_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launched(self, rc: int) -> None:
+        """Count one launch and raise if the launcher reported an error."""
+        if rc:
+            msg = self.lib.rt_error_string(rc).decode()
+            raise RuntimeError(f"{self.name}: CUDA launch failed: {msg} ({rc})")
+        self.launches += 1
+
+
+CANON_MEMO = Kernel("canon_memo")
+PROBE_RUNS = Kernel("probe_runs")
+COMPACT_APPEND = Kernel("compact_append")
+MERGE_RUNS = Kernel("merge_runs")
+ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS)
+
+
+def build_all() -> dict[str, str]:
+    """Compile every stale kernel source at once (one nvcc each) and
+    load them all. Returns {kernel name: compiler output} (``-Xptxas -v``
+    register and shared-memory reports); raises on the first failure."""
+    procs = {k.name: (k, k.start_build()) for k in ALL}
+    logs = {}
+    failed = []
+    for name, (k, proc) in procs.items():
+        if proc is None:
+            logs[name] = "(up to date)"
+            continue
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode:
+            failed.append(f"nvcc failed for {k.source}:\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for k in ALL:
+        k.lib  # noqa: B018 - load and bind
+    return logs
+
+
+def launch_counts() -> dict[str, int]:
+    return {k.name: k.launches for k in ALL}
+
+
+def reset_counts() -> None:
+    for k in ALL:
+        k.launches = 0
+
+
+def route(t: torch.Tensor) -> str:
+    """Which version a wrapper runs for tensor ``t``: "cuda" launches the
+    kernel, "cpu" runs the plain PyTorch version; any other device
+    raises (there is no silent fallback)."""
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def require(t: torch.Tensor, dtype, name: str, ndim: int | None = None,
+            shape: tuple | None = None) -> None:
+    """Validate a kernel argument before its pointer is passed on."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if ndim is not None and t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+
+
+def stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream

@@ -1,0 +1,63 @@
+"""Branchless message-bag kernels, batched over leading dimensions.
+
+Counterpart of ``raft_tpu/ops/bag.py``. The bag is a function record ->
+delivery count (``Raft.tla:55-58``); ``Discard`` decrements the count but
+the record stays in the domain (``Raft.tla:164-167``), so slots are never
+freed. Encoding: (hi, lo) key words + a count lane per slot, slots kept in
+lexicographic (hi, lo) order with unused slots (EMPTY, EMPTY, 0) last.
+
+Every function takes the slot axis LAST and broadcasts over the leading
+dimensions, so one call serves a whole [chunk, bindings] grid.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .packing import EMPTY
+
+
+def bag_put(hi, lo, cnt, khi, klo):
+    """Add one delivery of the key (khi, klo) — TLA+
+    ``_SendNoRestriction`` (``Raft.tla:129-132``): increment if the record
+    is in the domain, else shift-insert it at its lexicographic rank.
+
+    hi/lo/cnt: [..., M]; khi/klo: [...]. Returns (hi, lo, cnt, existed,
+    overflow); overflow is set when an insert found no free slot."""
+    khi = khi.unsqueeze(-1)
+    klo = klo.unsqueeze(-1)
+    eq = (hi == khi) & (lo == klo)
+    existed = eq.any(-1)
+    cnt_inc = cnt + eq.to(cnt.dtype)
+    have_empty = (hi == EMPTY).any(-1)
+    less = (hi < khi) | ((hi == khi) & (lo < klo))
+    pos = less.sum(-1, keepdim=True)
+    M = hi.shape[-1]
+    lane = torch.arange(M, dtype=torch.int64, device=hi.device)
+
+    def ins(w, k):
+        return torch.where(
+            lane < pos, w, torch.where(lane == pos, k, torch.roll(w, 1, -1))
+        )
+
+    one = torch.ones_like(cnt[..., :1])
+    e = existed.unsqueeze(-1)
+    hi2 = torch.where(e, hi, ins(hi, khi))
+    lo2 = torch.where(e, lo, ins(lo, klo))
+    cnt2 = torch.where(e, cnt_inc, ins(cnt, one))
+    overflow = (~existed) & (~have_empty)
+    return hi2, lo2, cnt2, existed, overflow
+
+
+def bag_count(hi, lo, cnt, khi, klo):
+    """Delivery count of a key (0 if not in the domain)."""
+    eq = (hi == khi.unsqueeze(-1)) & (lo == klo.unsqueeze(-1))
+    return torch.where(eq, cnt, 0).sum(-1)
+
+
+def bag_discard_at(cnt, slot):
+    """``Discard`` (``Raft.tla:164-167``): one fewer delivery at ``slot``
+    ([...] indices into the last axis of cnt [..., M])."""
+    M = cnt.shape[-1]
+    lane = torch.arange(M, dtype=torch.int64, device=cnt.device)
+    return cnt - (lane == slot.unsqueeze(-1)).to(cnt.dtype)
