@@ -1,6 +1,6 @@
 """On-card smoke test of raft_tpu_torch, the PyTorch/CUDA port.
 
-    python chip_smoke.py [--depth N]
+    python chip_smoke.py
 
 Needs one CUDA card; exits non-zero (printing no result) without one.
 Phases, each of which fails the run on any mismatch:
@@ -17,16 +17,15 @@ Phases, each of which fails the run on any mismatch:
      violation — with every kernel's launch count read around that run;
   5. an injected NoCommit invariant: the violation's depth, gid and
      trace on the card equal the CPU run's;
-  6. the kernel table as one JSON line, the card's name and power limit,
+  6. where the time goes: the same entry point to depth 20 once untimed
+     by a tracer (wall per chunk) and once under torch.profiler (device
+     time per chunk by kernel group, the device's busy share);
+  7. the kernel table as one JSON line, the card's name and power limit,
      and the result line.
-
-``--depth N`` caps phase 4 (for quick checks; counts are then asserted
-only at the pinned depths 20 and 26).
 """
 
 from __future__ import annotations
 
-import argparse
 import itertools
 import json
 import os
@@ -64,14 +63,23 @@ INVARIANT
     NoLogDivergence
 """
 
-# (distinct, total, depth, terminal) of Raft.cfg: exhausted, and the
-# counts at the two depth caps pinned from the reference's dense path
+# (distinct, total, depth, terminal) of Raft.cfg: exhausted, and at depth
+# 20 (the sample and trace runs), pinned from the reference's dense path
 EXHAUSTED = (8_664_032, 30_708_266, 48, 19_514)
-PINNED = {20: (250_016, 719_677, 20, 20), 26: (1_736_014, 5_367_030, 26, 622)}
+DEPTH20 = (250_016, 719_677, 20, 20)
 
 MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
-ALU_OPS = 67e12  # H100 SXM non-tensor-core float32 rate, used for 32-bit ALU ops
+# H100 SXM 32-bit integer ops/s: 64 INT32 lanes per SM, half the 128 FP32
+# lanes behind the 67 TFLOP/s float32 rate (an upper rate, so a lower bound)
+INT32_OPS = 33.5e12
 CHUNK = 4096
+# device kernel names of each hand-written kernel (csrc/*.cu)
+KERNEL_NAMES = {
+    "canon_memo": ("canon_memo_kernel", "memo_insert_kernel"),
+    "probe_runs": ("probe_runs_kernel",),
+    "compact_append": ("ct_count", "ct_scan", "ct_scatter", "ct_fill", "append_rows_kernel"),
+    "merge_runs": ("merge_runs_kernel",),
+}
 
 
 def fail(msg: str):
@@ -121,11 +129,63 @@ def exact(torch, a, b) -> float:
     return max(d, 1.0)
 
 
+def probe_sectors(torch, q, runs, int64_max):
+    """Replays probe_runs' lower-bound searches (its early exit at the
+    first hit included) with torch ops on the queries' device: returns
+    (fresh [n], distinct 32-byte sectors of the runs the searches read,
+    search steps)."""
+    fresh = q != int64_max
+    sectors = steps = 0
+    for r in runs:
+        n = r.numel()
+        lo, hi = torch.zeros_like(q), torch.full_like(q, n)
+        touched = []
+        while True:
+            a = fresh & (lo < hi)
+            if not bool(a.any()):
+                break
+            mid = (lo + hi) >> 1
+            touched.append(mid[a] >> 2)
+            steps += int(a.sum())
+            less = r[mid.clamp(max=n - 1)] < q
+            lo = torch.where(a & less, mid + 1, lo)
+            hi = torch.where(a & ~less, mid, hi)
+        fin = fresh & (lo < n)
+        touched.append(lo[fin] >> 2)
+        sectors += torch.unique(torch.cat(touched)).numel()
+        fresh = fresh & ~(fin & (r[lo.clamp(max=n - 1)] == q))
+    return fresh, sectors, steps
+
+
+def device_time(torch, prof) -> tuple[float, dict] | None:
+    """(busy ms, ms by kernel group) of the CUDA activity in a trace, or
+    None where the tracer saw no device activity."""
+    spans, groups = [], {}
+    for ev in prof.events():
+        us = ev.time_range.elapsed_us()
+        if ev.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        g = next((k for k, names in KERNEL_NAMES.items()
+                  if any(n in ev.name for n in names)), None)
+        if g is None:
+            g = "torch sort" if "sort" in ev.name.lower() else "other torch"
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    if not spans:
+        return None
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy / 1e3, groups
+
+
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--depth", type=int, default=None,
-                    help="cap the main-path run (default: exhaust Raft.cfg)")
-    args = ap.parse_args()
     t_start = time.perf_counter()
 
     import torch
@@ -147,7 +207,7 @@ def main() -> int:
         probe_runs, probe_runs_plain,
     )
     from raft_tpu_torch.models.raft import RaftModel, RaftParams
-    from raft_tpu_torch.ops.hashing import INT64_MAX
+    from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
     from raft_tpu_torch.ops.packing import EMPTY
     from raft_tpu_torch.ops.symmetry import permute_states
     from raft_tpu_torch.utils.cfg import parse_cfg
@@ -189,9 +249,9 @@ def main() -> int:
     t = time.perf_counter()
     setup20, bfs20, res20 = run_check("Raft.cfg", text=RAFT_CFG, device="cuda",
                                       chunk=CHUNK, max_depth=20)
-    check((res20.distinct, res20.total, res20.depth, res20.terminal) == PINNED[20],
+    check((res20.distinct, res20.total, res20.depth, res20.terminal) == DEPTH20,
           f"depth-20 sample run counts {res20.distinct}/{res20.total}/{res20.depth}/"
-          f"{res20.terminal} != {PINNED[20]}")
+          f"{res20.terminal} != {DEPTH20}")
     model = setup20.model
     canon = bfs20.canon
     VC = bfs20.VC
@@ -226,12 +286,15 @@ def main() -> int:
     check(hits[0] < VC // 2 and min(hits[2:]) > VC // 2, f"memo hits per pass {hits}")
     occ = (st_base[:, model.layout.sl("msg_hi")] != EMPTY).sum().item()
     K, P = canon._K, canon.P
-    # fmix32 pairs: raw hash (K lanes + 3 per occupied slot) for every lane,
-    # P * (K + 3 per occupied slot) for every missed lane; ~12 ALU ops each
+    # the timed pass is cold (every lane misses): fmix32 pairs over the raw
+    # hash (K lanes + 3 per occupied slot) and P permuted hashes of every
+    # lane; ~12 integer ops each
     cold_ops = 2 * 12 * ((VC * K + 3 * occ) * (1 + P))
-    # each input read once (states, valid, memo), each output written once
-    # (fps, memo)
-    cold_bytes = st_base.numel() * 4 + VC + 2 * memo_k.numel() * 8 + VC * 8
+    # the VL view lanes of each state and the valid mask read once, each
+    # memo row the lanes map to read once and written once (16 B), the
+    # fps written once
+    slots = torch.unique(memo_slot(canon.raw_fingerprints(st_base), memo_k.shape[0])).numel()
+    cold_bytes = VC * canon.VL * 4 + VC + 2 * slots * 16 + VC * 8
     reset = lambda: memo_k.fill_(INT64_MAX)  # noqa: E731
     rows["canon_memo"] = dict(
         ms=time_ms(torch, lambda: canon.fingerprints_memo_cuda(st_base, valid, memo_k),
@@ -239,8 +302,8 @@ def main() -> int:
         plain_ms=time_ms(torch, lambda: canon.fingerprints_memo_plain(st_base, valid, memo_k),
                          iters=5, setup=reset),
         warm_ms=time_ms(torch, lambda: canon.fingerprints_memo_cuda(st_base, valid, memo_k)),
-        bound_ms=max(cold_bytes / MEM_BPS, cold_ops / ALU_OPS) * 1e3,
-        bound_by="operations" if cold_ops / ALU_OPS > cold_bytes / MEM_BPS else "bytes",
+        bound_ms=max(cold_bytes / MEM_BPS, cold_ops / INT32_OPS) * 1e3,
+        bound_by="operations" if cold_ops / INT32_OPS > cold_bytes / MEM_BPS else "bytes",
         library_ms=None, max_abs_err=max(errs),
     )
 
@@ -263,14 +326,22 @@ def main() -> int:
     err = exact(torch, pk, pp)
     check(err == 0.0, "probe_runs differs from its plain version")
     check(0.45 * VC < (~pk).sum().item() < 0.55 * VC, "probe_runs: about half present")
-    run_bytes = sum(r.numel() for r in runs) * 8
-    probe_bytes = VC * 8 + run_bytes + VC
+    # the queries read and the flags written once, plus the distinct
+    # 32-byte sectors of the runs that the searches of these queries read;
+    # ~6 integer ops per search step
+    fresh, sectors, steps = probe_sectors(torch, q, runs, INT64_MAX)
+    check(torch.equal(fresh, pk), "probe_runs differs from the replayed searches")
+    probe_bytes = VC * 8 + VC + sectors * 32
+    probe_ops = 6 * steps
     rows["probe_runs"] = dict(
         ms=time_ms(torch, lambda: probe_runs(q, runs), iters=50),
         plain_ms=time_ms(torch, lambda: probe_runs_plain(q, runs), iters=20),
         library_ms=time_ms(torch, lambda: torch.searchsorted(seen, q), iters=50),
-        bound_ms=probe_bytes / MEM_BPS * 1e3, bound_by="bytes", max_abs_err=err,
+        bound_ms=max(probe_bytes / MEM_BPS, probe_ops / INT32_OPS) * 1e3,
+        bound_by="operations" if probe_ops / INT32_OPS > probe_bytes / MEM_BPS else "bytes",
+        max_abs_err=err,
     )
+    print(f"[3] probe_runs: {sectors} sectors of the runs read by {steps} search steps")
 
     # compact_append: the [C*A] valid mask -> worklist, then a row append
     # at a cursor just below capacity so the overflow fires
@@ -335,24 +406,23 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     t = time.perf_counter()
-    setup, bfs, res = run_check("Raft.cfg", text=RAFT_CFG, device="cuda", chunk=CHUNK,
-                                max_depth=args.depth)
+    setup, bfs, res = run_check("Raft.cfg", text=RAFT_CFG, device="cuda", chunk=CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = kernels.launch_counts()
     got = (res.distinct, res.total, res.depth, res.terminal)
+    chunks = sum(-(-n // CHUNK) for n in res.depth_counts)
     print(f"[4] Raft.cfg: distinct={res.distinct} total={res.total} depth={res.depth} "
-          f"terminal={res.terminal} exhausted={res.exhausted} in {wall:.1f} s "
-          f"({res.distinct / wall:.0f} distinct/s), peak device memory "
+          f"terminal={res.terminal} exhausted={res.exhausted} in {wall:.2f} s "
+          f"({res.distinct / wall:.0f} distinct/s, {chunks} chunks, "
+          f"{wall * 1e3 / chunks:.2f} ms/chunk), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, memo hits {bfs.memo_hits}")
     print(json.dumps({"launches": launches}))
     check(res.violation is None, f"unexpected violation {res.violation}")
-    if args.depth is None:
-        check(res.exhausted and got == EXHAUSTED, f"exhaustion counts {got} != {EXHAUSTED}")
-    elif args.depth in PINNED:
-        check(got == PINNED[args.depth], f"depth-{args.depth} counts {got} != {PINNED[args.depth]}")
+    check(res.exhausted and got == EXHAUSTED, f"exhaustion counts {got} != {EXHAUSTED}")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was never launched on the main path")
+    check(launches["probe_runs"] == chunks, f"{launches['probe_runs']} probes != {chunks} chunks")
 
     # ---- 5. an injected violation: card vs CPU ----
     def no_commit_run(device):
@@ -370,7 +440,39 @@ def main() -> int:
     print(f"[5] NoCommit violated at depth {vg.violation.depth}, gid "
           f"{vg.violation.global_id}, {len(vg.trace)}-state trace: card == CPU")
 
-    # ---- 6. results ----
+    # ---- 6. where the time goes: depth 20 untraced, then traced ----
+    from torch.profiler import ProfilerActivity, profile
+
+    def depth20():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, r = run_check("Raft.cfg", text=RAFT_CFG, device="cuda", chunk=CHUNK,
+                            max_depth=20)
+        torch.cuda.synchronize()
+        check((r.distinct, r.total, r.depth, r.terminal) == DEPTH20, "depth-20 counts")
+        return time.perf_counter() - t, sum(-(-n // CHUNK) for n in r.depth_counts[:-1])
+
+    wall20, chunks20 = depth20()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced20, _ = depth20()
+    trace = {"chunks": chunks20, "wall_ms_per_chunk": wall20 * 1e3 / chunks20,
+             "traced_wall_ms_per_chunk": traced20 * 1e3 / chunks20}
+    dt = device_time(torch, prof)
+    if dt is None:
+        trace["device"] = "not measured: the tracer saw no device activity"
+    else:
+        busy, groups = dt
+        trace.update({
+            "device_ms_per_chunk": busy / chunks20,
+            "device_busy_share_untraced": busy / (wall20 * 1e3),
+            "device_busy_share_traced": busy / (traced20 * 1e3),
+            "device_ms_per_chunk_by_group": {
+                k: v / chunks20 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
+        })
+    print(f"[6] depth 20: {chunks20} chunks, {trace['wall_ms_per_chunk']:.3f} ms/chunk wall")
+    print(json.dumps({"trace": trace}))
+
+    # ---- 7. results ----
     meta = {
         "canon_memo": ("raft_tpu_torch/csrc/canon_memo.cu", "raft_tpu/ops/symmetry.py:1230"),
         "probe_runs": ("raft_tpu_torch/csrc/probe_runs.cu", "raft_tpu/checker/util.py:21"),
@@ -386,7 +488,7 @@ def main() -> int:
          "library_ms": r["library_ms"]}
         for k, r in rows.items()
     ]
-    print(f"[6] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[7] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -25,7 +25,6 @@ class CheckResult:
     states_per_sec: float
     exhausted: bool = True  # False if stopped by max_depth/time budget
     trace: list[tuple[str, dict]] | None = None  # (action label, decoded state)
-    metrics: list[dict] | None = None  # per-wave metrics
     # per-action [enabled, fired, new-distinct] in ACTION_NAMES rank order
     coverage: list[list[int]] | None = None
     exit_cause: str | None = None

@@ -174,7 +174,7 @@ class DeviceBFS:
     # ---------------- the chunk pipeline ----------------
     # Four stage methods, as in the reference (_st_expand -> _st_canon ->
     # _st_dedup -> _st_finish); _chunk_step composes them without a host
-    # sync, and checker/profile.py times them one at a time.
+    # sync.
 
     def _st_expand(self, frontier, cursor: int, fcount: int):
         """Stages 1-2: expand the chunk at ``cursor`` and compact its
@@ -316,6 +316,21 @@ class DeviceBFS:
             ladder[tt] = merged
         return ladder
 
+    def _wave_carries(self):
+        """Fresh device carries of the wave loop: (next_buf, jparent,
+        jcand, viol, stats, cov), sized to the current capacities."""
+        dev, W = self.device, self.W
+        i32 = dict(dtype=torch.int32, device=dev)
+        n_inv = max(1, len(self.invariants))
+        return (
+            torch.zeros((self.FCAP + self.VC, W), **i32),
+            torch.zeros(self.JCAP + self.VC, **i32),
+            torch.zeros(self.JCAP + self.VC, **i32),
+            torch.full((n_inv,), I32_MAX, dtype=torch.int64, device=dev),
+            torch.zeros(6, dtype=torch.int64, device=dev),
+            torch.zeros((self.n_actions, 3), dtype=torch.int64, device=dev),
+        )
+
     # ---------------- capacity growth ----------------
 
     def _maybe_grow(self, ncount, frontier, next_buf, jparent, jcand, jcount):
@@ -342,10 +357,9 @@ class DeviceBFS:
     # ---------------- host loop ----------------
 
     def run(self, max_depth: int | None = None, verbose: bool = False,
-            time_budget_s: float | None = None,
-            collect_metrics: bool = False) -> CheckResult:
+            time_budget_s: float | None = None) -> CheckResult:
         model, dev = self.model, self.device
-        C, W = self.chunk, self.W
+        W = self.W
         t0 = time.perf_counter()
         exhausted = True
         exit_cause = None
@@ -371,18 +385,11 @@ class DeviceBFS:
         depth_counts = [n0]
         cov_h = np.zeros((self.n_actions, 3), np.int64)
 
-        i32 = dict(dtype=torch.int32, device=dev)
-        frontier = torch.zeros((self.FCAP + self.VC, W), **i32)
+        frontier = torch.zeros((self.FCAP + self.VC, W), dtype=torch.int32, device=dev)
         frontier[:n0] = torch.from_numpy(init_d).to(dev)
-        next_buf = torch.zeros((self.FCAP + self.VC, W), **i32)
-        jparent = torch.zeros(self.JCAP + self.VC, **i32)
-        jcand = torch.zeros(self.JCAP + self.VC, **i32)
-        n_inv = max(1, len(self.invariants))
-        viol = torch.full((n_inv,), I32_MAX, dtype=torch.int64, device=dev)
-        stats = torch.zeros(6, dtype=torch.int64, device=dev)
-        cov = torch.zeros((self.n_actions, 3), dtype=torch.int64, device=dev)
+        next_buf, jparent, jcand, viol, stats, cov = self._wave_carries()
+        n_inv = viol.numel()
         memo = self._memo.reset(dev)
-        metrics: list[dict] | None = [] if collect_metrics else None
 
         while fcount and violation is None:
             if max_depth is not None and depth >= max_depth:
@@ -397,7 +404,6 @@ class DeviceBFS:
                 raise CapacityOverflow(
                     "seen-set capacity overflow; raise max_seen_cap",
                     bits=self.SEEN_OVF_BIT, what=("seen",))
-            tw = time.perf_counter()
             ladder = self._run_wave(frontier, next_buf, jparent, jcand, viol,
                                     stats, memo, cov, fcount, base_gid)
             # the wave's one host read: stats, violations and coverage
@@ -432,24 +438,14 @@ class DeviceBFS:
                     break
             base_gid = n0 + int(stats_h[1]) - ncount
             frontier, next_buf = next_buf, frontier
-            prev_fcount, fcount = fcount, ncount
+            fcount = ncount
             frontier, next_buf, jparent, jcand = self._maybe_grow(
                 ncount, frontier, next_buf, jparent, jcand, scount - n0)
-            if metrics is not None or verbose:
+            if verbose:
                 el = time.perf_counter() - t0
-                wm = {
-                    "depth": depth, "frontier": prev_fcount, "new": ncount,
-                    "distinct": distinct, "generated": wave_gen,
-                    "generated_total": total, "terminal": terminal,
-                    "canon_memo_hits": int(stats_h[5]),
-                    "wave_s": time.perf_counter() - tw, "elapsed_s": el,
-                }
-                if metrics is not None:
-                    metrics.append(wm)
-                if verbose:
-                    print(f"depth {depth}: frontier {ncount}, distinct {distinct}, "
-                          f"total {total}, {distinct / el:.0f} distinct/s",
-                          file=sys.stderr)
+                print(f"depth {depth}: frontier {ncount}, distinct {distinct}, "
+                      f"total {total}, {distinct / el:.0f} distinct/s",
+                      file=sys.stderr)
 
         self._jparent, self._jcand = jparent, jcand
         self._jcount = int(stats[1].item())
@@ -466,7 +462,6 @@ class DeviceBFS:
             depth_counts=depth_counts, violation=violation, terminal=terminal,
             seconds=dt, states_per_sec=distinct / dt if dt > 0 else 0.0,
             exhausted=exhausted and violation is None, trace=trace,
-            metrics=metrics,
             coverage=[[int(x) for x in row] for row in cov_h] if self.n_actions else None,
             exit_cause=exit_cause,
         )

@@ -13,6 +13,10 @@ from raft_tpu.ops import bag as jbag
 from raft_tpu_torch.ops import bag as tbag
 from raft_tpu_torch.ops.packing import EMPTY
 
+# one intra-op thread: tier-1 runs several test workers side by side, and
+# torch's default thread pool per worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def _bags(seed, B=300, M=12):
     """Sorted (hi, lo) bags with distinct keys, empties last, and one key

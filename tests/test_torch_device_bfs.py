@@ -14,6 +14,10 @@ from raft_tpu_torch.models.raft import RaftModel, RaftParams as TorchRaftParams
 
 from test_expand_sparse import DenseShim
 
+# one intra-op thread: tier-1 runs several test workers side by side, and
+# torch's default thread pool per worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 INV = ("LeaderHasAllAckedValues", "NoLogDivergence")
 SMALL = dict(frontier_cap=1 << 13, journal_cap=1 << 14, max_seen_cap=1 << 20,
              canon_memo_cap=1 << 12, device="cpu")
@@ -28,9 +32,9 @@ def _torch_run(kw, invariants=INV, depth=None, chunk=256, **caps):
 def test_counts_match_reference_and_oracle():
     # tests/test_checker.py:40's parameters
     kw = dict(n_servers=2, n_values=2, max_elections=2, max_restarts=1, msg_slots=24)
-    res = _torch_run(kw, depth=8, chunk=512)
+    res = _torch_run(kw, depth=8)
     ref = JaxDeviceBFS(DenseShim(cached_model(RaftParams(**kw))), invariants=INV,
-                       chunk=512, frontier_cap=1 << 13, journal_cap=1 << 14).run(max_depth=8)
+                       chunk=256, frontier_cap=1 << 13, journal_cap=1 << 14).run(max_depth=8)
     ores = RaftOracle(2, 2, 2, 1).bfs(invariants=INV, symmetry=True, max_depth=8)
     assert res.violation is None and ref.violation is None and ores["violation"] is None
     assert (res.distinct, res.total, res.depth, res.terminal) == (

@@ -9,12 +9,16 @@ import sys
 import pytest
 import torch
 
+# one intra-op thread: tier-1 runs several test workers side by side, and
+# torch's default thread pool per worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "raft_tpu_torch", "raft_tpu_torch.__main__", "raft_tpu_torch.convert",
     "raft_tpu_torch.kernels", "raft_tpu_torch.ops.symmetry",
     "raft_tpu_torch.models.registry", "raft_tpu_torch.checker.device_bfs",
-    "raft_tpu_torch.checker.profile", "raft_tpu_torch.utils.pprint",
+    "raft_tpu_torch.utils.pprint",
 ]
 
 

@@ -104,7 +104,6 @@ def test_merge_runs(dev, target):
 
 def test_wave_loop_has_no_host_sync(dev):
     from raft_tpu_torch.checker.device_bfs import DeviceBFS
-    from raft_tpu_torch.checker.profile import _carries
 
     model = RaftModel(RaftParams(n_servers=3, n_values=1, max_elections=2,
                                  max_restarts=0, msg_slots=16))
@@ -116,13 +115,13 @@ def test_wave_loop_has_no_host_sync(dev):
     assert fcount > bfs.chunk  # several chunks, the last one partial
     frontier = torch.zeros((bfs.FCAP + bfs.VC, bfs.W), dtype=torch.int32, device=dev)
     frontier[:fcount] = bfs.frontier_rows
-    c = _carries(bfs)
+    next_buf, jparent, jcand, viol, stats, cov = bfs._wave_carries()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")  # any host sync inside the wave raises
     try:
-        ladder = bfs._run_wave(frontier, c["next_buf"], c["jparent"], c["jcand"], c["viol"],
-                               c["stats"], bfs._memo.table, c["cov"], fcount, 0)
+        ladder = bfs._run_wave(frontier, next_buf, jparent, jcand, viol, stats,
+                               bfs._memo.table, cov, fcount, 0)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert int(c["stats"][0]) > 0 and any(r is not None for r in ladder)
+    assert int(stats[0]) > 0 and any(r is not None for r in ladder)

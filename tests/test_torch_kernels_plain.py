@@ -17,6 +17,10 @@ from raft_tpu_torch.checker.util import (
 )
 from raft_tpu_torch.convert import fps_from_u64
 
+# one intra-op thread: tier-1 runs several test workers side by side, and
+# torch's default thread pool per worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 

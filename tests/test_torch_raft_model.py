@@ -16,6 +16,10 @@ from raft_tpu_torch.models.raft import RaftModel as TorchRaftModel
 
 from conftest import collect_states
 
+# one intra-op thread: tier-1 runs several test workers side by side, and
+# torch's default thread pool per worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 VARIANTS = {
     "core": RaftParams(n_servers=3, n_values=1, max_elections=2, max_restarts=1,
                        msg_slots=16),

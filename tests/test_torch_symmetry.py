@@ -19,6 +19,10 @@ from raft_tpu_torch.ops.symmetry import Canonicalizer, permute_states
 
 from conftest import collect_states
 
+# one intra-op thread: tier-1 runs several test workers side by side, and
+# torch's default thread pool per worker oversubscribes the CPU
+torch.set_num_threads(1)
+
 PARAMS = {
     2: dict(n_servers=2, n_values=2, max_elections=2, max_restarts=1, msg_slots=24),
     3: dict(n_servers=3, n_values=1, max_elections=2, max_restarts=0, msg_slots=16),
