@@ -11,12 +11,24 @@ Phases, each of which fails the run on any mismatch:
      main path's shapes, compared exactly (integers), with CUDA-event
      times of the kernel, the plain version and, where one exists, a
      single PyTorch library call, beside the kernel's bound;
+     The Raft expand kernels (raft_guard, raft_apply, raft_fold) are
+     held the same way on a chunk of the depth-20 Raft.cfg frontier and
+     on chunks of reachable RaftFsync and FlexibleRaft states, and
+     torch.sort (the run emit, still a library call) is timed beside its
+     bound;
   4. the main path: standard-raft Raft.cfg (inline text) checked through
      the function the CLI calls, on cuda, to exhaustion — 8,664,032
      distinct / 30,708,266 total / depth 48 / 19,514 terminal, no
-     violation — with every kernel's launch count read around that run;
-  5. an injected NoCommit invariant: the violation's depth, gid and
-     trace on the card equal the CPU run's;
+     violation — with every kernel's launch count read around that run,
+     the three expand kernels launched once per chunk and the plain
+     ``RaftModel.expand`` never called;
+  5. FlexibleRaft with quorums that need not intersect (3 servers,
+     ElectionQuorumSize 2, ReplicationQuorumSize 1): the
+     LeaderHasAllAckedValues violation, its gid, depth and trace on the
+     card equal the CPU run's;
+  5b. RaftFsync (3 servers, the reference cfg's fsync policy) to depth
+     24: counts, depth counts and coverage on the card equal the CPU
+     run's;
   6. where the time goes: the same entry point to depth 20 once untimed
      by a tracer (wall per chunk) and once under torch.profiler (device
      time per chunk by kernel group, the device's busy share);
@@ -63,6 +75,24 @@ INVARIANT
     NoLogDivergence
 """
 
+# FlexibleRaft with 3 servers: ElectionQuorumSize + ReplicationQuorumSize
+# <= 3, so the quorums need not intersect and an acked value can be lost.
+# (The published FlexibleRaft.cfg has 5 servers, which need the S >= 5
+# symmetry canon the port does not have yet.)
+FLEX_CFG = RAFT_CFG.replace(
+    "    MaxRestarts = 0\n",
+    "    MaxRestarts = 0\n    ElectionQuorumSize = 2\n    ReplicationQuorumSize = 1\n")
+
+# RaftFsync with 3 servers and the fsync policy of the reference cfg
+# (RaftFsync.cfg:24-26)
+FSYNC_CFG = RAFT_CFG.replace(
+    "    MaxElections = 2\n    MaxRestarts = 0\n",
+    "    MaxElections = 1\n    MaxRestarts = 1\n"
+    "    LeaderFsyncBeforeAppendEntries = FALSE\n"
+    "    LeaderFsyncBeforeIncludeInQuorum = TRUE\n"
+    "    FollowerFsyncBeforeReply = TRUE\n")
+FSYNC_DEPTH = 24
+
 # (distinct, total, depth, terminal) of Raft.cfg: exhausted, and at depth
 # 20 (the sample and trace runs), pinned from the reference's dense path
 EXHAUSTED = (8_664_032, 30_708_266, 48, 19_514)
@@ -79,7 +109,13 @@ KERNEL_NAMES = {
     "probe_runs": ("probe_runs_kernel",),
     "compact_append": ("ct_count", "ct_scan", "ct_scatter", "ct_fill", "append_rows_kernel"),
     "merge_runs": ("merge_runs_kernel",),
+    "raft_guard": ("raft_guard_kernel",),
+    "raft_apply": ("raft_apply_kernel",),
+    "raft_fold": ("raft_fold_lanes", "raft_fold_viol"),
 }
+# state fields the invariants of the cfgs here read (NoLogDivergence,
+# LeaderHasAllAckedValues): the part of a row raft_fold must load
+INVARIANT_FIELDS = ("currentTerm", "state", "log_term", "log_value", "commitIndex", "acked")
 
 
 def fail(msg: str):
@@ -157,6 +193,115 @@ def probe_sectors(torch, q, runs, int64_max):
     return fresh, sectors, steps
 
 
+def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
+    """raft_guard, raft_apply and raft_fold against their plain versions
+    on one chunk of CHUNK states drawn from ``pool`` (reachable states of
+    ``bfs``'s model), at the engine's worklist width, exactly; the fold
+    gets the chunk's real new lanes (canonical fingerprints deduplicated
+    against ``bfs``'s seen run). With ``timed``, also the CUDA-event
+    times of each kernel and its plain version and the bounds. Returns
+    {kernel: row}."""
+    from raft_tpu_torch.checker.util import I32_MAX, compact_indices
+    from raft_tpu_torch.models.raft import (
+        R_ACCEPT_AE, R_HANDLE_RVREQ, R_REJECT_AE, SPEC_LEN,
+    )
+    from raft_tpu_torch.ops.expand import (
+        raft_apply, raft_apply_plain, raft_fold, raft_fold_plain, raft_guard,
+        raft_guard_plain,
+    )
+    from raft_tpu_torch.ops.hashing import INT64_MAX
+
+    model, dev = bfs.model, bfs.device
+    C, VC, A, W = CHUNK, bfs.VC, model.A, model.layout.W
+    S, M = model.p.n_servers, model.p.msg_slots
+    K = len(model.ACTION_NAMES)
+    batch = torch.from_numpy(np.ascontiguousarray(pool[rng.integers(0, len(pool), C)])).to(dev)
+    zcov = lambda: torch.zeros((K, 3), dtype=torch.int64, device=dev)  # noqa: E731
+    errs = []
+    for n_live in (C - 1000, C):  # a dead chunk tail, then a full chunk
+        cov_k, cov_p = zcov(), zcov()
+        gk = raft_guard(model, batch, n_live, cov_k)
+        gp = raft_guard_plain(model, batch, n_live, cov_p)
+        errs += [exact(torch, a, b) for a, b in zip(gk, gp)] + [exact(torch, cov_k, cov_p)]
+    valid, rank, _ovf, scal = gk
+    sel, n_valid = compact_indices(valid.reshape(-1), VC, C * A)
+    check(int(n_valid) <= VC, f"{int(n_valid)} valid lanes exceed the {VC}-lane worklist")
+    flatc = raft_apply(model, batch, sel)
+    errs.append(exact(torch, flatc, raft_apply_plain(model, batch, sel)))
+    memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    fps, _ = bfs.canon.fingerprints_memo(flatc, sel < C * A, memo)
+    new = bfs._st_dedup(fps, [bfs._seen])
+    jcount = torch.tensor([123_456], dtype=torch.int64, device=dev)
+    invs = bfs.invariants
+    fold_args = dict(cov=None, sel=sel, valid=valid, rank=rank)
+    outs = []
+    for fold in (raft_fold, raft_fold_plain):
+        viol = torch.full((len(invs),), I32_MAX, dtype=torch.int64, device=dev)
+        fold_args["cov"] = zcov()
+        fold(model, flatc, new, jcount, viol, invs, **fold_args)
+        outs.append((viol, fold_args["cov"]))
+    errs += [exact(torch, outs[0][0], outs[1][0]), exact(torch, outs[0][1], outs[1][1])]
+    err = max(errs)
+    check(err == 0.0, f"{model.name}: raft_guard/raft_apply/raft_fold differ from their "
+          "plain versions")
+    n_new = int(new.sum())
+    print(f"[3] {model.name}: raft_guard, raft_apply, raft_fold exact on {C} states "
+          f"({int(n_valid)} valid lanes, {n_new} new, first bad journal index "
+          f"{outs[0][0].tolist()})")
+    if not timed:
+        return {}
+    # bounds. guard: the state rows read, valid/rank/ovf written; its
+    # operations at least 3 per bag slot (two equality compares and an
+    # order compare) for every put a valid lane makes (RequestVote makes
+    # S - 1, RequestVotePair, AppendEntries and a replying message one)
+    rv = torch.tensor([b[0] == "RequestVote" for b in model.bindings], device=dev)
+    one_put = torch.tensor([b[0] in ("RequestVotePair", "AppendEntries") for b in model.bindings],
+                           device=dev)
+    puts = (valid & rv).sum() * (S - 1) + (valid & one_put).sum() + (
+        valid & ((rank == R_HANDLE_RVREQ) | (rank == R_REJECT_AE) | (rank == R_ACCEPT_AE))).sum()
+    guard_bytes = C * W * 4 + C * A * 6 + (SPEC_LEN + 4 * A) * 4
+    guard_ops = 3 * M * int(puts)
+    # apply: the worklist and each source row read once, the block written
+    n_src = torch.unique(sel[sel < C * A] // A).numel()
+    apply_bytes = VC * 4 + n_src * W * 4 + VC * W * 4
+    # fold: new read for every lane; a lane that is not new stops there,
+    # so only the new lanes read sel, then the valid and rank it points
+    # at, and the invariants' fields of their rows
+    inv_lanes = sum(model.layout.fields[f].size for f in INVARIANT_FIELDS)
+    fold_bytes = VC + n_new * (4 + 1 + 4 + 4 * inv_lanes)
+    cov, viol = zcov(), torch.full((len(invs),), I32_MAX, dtype=torch.int64, device=dev)
+    rows = {
+        "raft_guard": dict(
+            ms=time_ms(torch, lambda: raft_guard(model, batch, C, cov), iters=50),
+            plain_ms=time_ms(torch, lambda: raft_guard_plain(model, batch, C, cov), iters=5),
+            bound_ms=max(guard_bytes / MEM_BPS, guard_ops / INT32_OPS) * 1e3,
+            bound_by="operations" if guard_ops / INT32_OPS > guard_bytes / MEM_BPS else "bytes",
+            puts=int(puts)),
+        "raft_apply": dict(
+            ms=time_ms(torch, lambda: raft_apply(model, batch, sel), iters=50),
+            plain_ms=time_ms(torch, lambda: raft_apply_plain(model, batch, sel), iters=5),
+            bound_ms=apply_bytes / MEM_BPS * 1e3, bound_by="bytes"),
+        "raft_fold": dict(
+            ms=time_ms(torch, lambda: raft_fold(model, flatc, new, jcount, viol, invs, cov=cov,
+                                                sel=sel, valid=valid, rank=rank), iters=50),
+            plain_ms=time_ms(torch, lambda: raft_fold_plain(
+                model, flatc, new, jcount, viol, invs, cov=cov, sel=sel, valid=valid,
+                rank=rank), iters=20),
+            bound_ms=fold_bytes / MEM_BPS * 1e3, bound_by="bytes"),
+    }
+    for r in rows.values():
+        r.update(library_ms=None, max_abs_err=err)
+    # the run emit's torch.sort (PERF.md kernel table row 6) at VC lanes:
+    # keys read once, keys (and the int64 index) written once
+    key_bytes = VC * 8
+    rows["torch_sort"] = dict(
+        keys=VC, sort_ms=time_ms(torch, lambda: torch.sort(fps), iters=50),
+        sort_bound_ms=2 * key_bytes / MEM_BPS * 1e3,
+        sort_idx_ms=time_ms(torch, lambda: torch.sort(fps, stable=True), iters=50),
+        sort_idx_bound_ms=3 * key_bytes / MEM_BPS * 1e3, bound_by="bytes")
+    return rows
+
+
 def device_time(torch, prof) -> tuple[float, dict] | None:
     """(busy ms, ms by kernel group) of the CUDA activity in a trace, or
     None where the tracer saw no device activity."""
@@ -200,13 +345,12 @@ def main() -> int:
         fail(f"cannot import raft_tpu_torch next to chip_smoke.py: {e}")
     from raft_tpu_torch import kernels
     from raft_tpu_torch.__main__ import run_check
-    from raft_tpu_torch.checker.device_bfs import DeviceBFS
     from raft_tpu_torch.checker.lsm import merge_runs, merge_runs_plain
     from raft_tpu_torch.checker.util import (
         append_rows, append_rows_plain, compact_indices, dense_prefix_sel,
         probe_runs, probe_runs_plain,
     )
-    from raft_tpu_torch.models.raft import RaftModel, RaftParams
+    from raft_tpu_torch.models.raft import RaftModel
     from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
     from raft_tpu_torch.ops.packing import EMPTY
     from raft_tpu_torch.ops.symmetry import permute_states
@@ -393,6 +537,16 @@ def main() -> int:
         bound_by="bytes", max_abs_err=err,
     )
     del seen, ladder, runs, present, top, mk, mp, buf_k, buf_p, src, memo_k, memo_p
+
+    # the Raft expand kernels: a chunk of the depth-20 Raft.cfg frontier
+    # (timed), then chunks of reachable RaftFsync and FlexibleRaft states
+    rows.update(expand_kernels(torch, bfs20, pool, rng, timed=True))
+    sort_row = rows.pop("torch_sort")
+    for cfg_name, text, depth in (("RaftFsync.cfg", FSYNC_CFG, FSYNC_DEPTH),
+                                  ("FlexibleRaft.cfg", FLEX_CFG, None)):
+        _, b, r = run_check(cfg_name, text=text, device="cuda", chunk=CHUNK, max_depth=depth)
+        expand_kernels(torch, b, b.frontier_rows.cpu().numpy(), rng, timed=False)
+        del b
     for k, r in rows.items():
         print(f"[3] {k}: exact; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
@@ -404,12 +558,25 @@ def main() -> int:
     # ---- 4. the main path ----
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # the plain expand (under the plain guard and apply) must not run: count
+    # its calls by wrapping the method for the length of the run
+    plain_expand = RaftModel.expand
+    expand_calls = [0]
+
+    def counted_expand(self, states):
+        expand_calls[0] += 1
+        return plain_expand(self, states)
+
+    RaftModel.expand = counted_expand
     kernels.reset_counts()
-    t = time.perf_counter()
-    setup, bfs, res = run_check("Raft.cfg", text=RAFT_CFG, device="cuda", chunk=CHUNK)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = kernels.launch_counts()
+    try:
+        t = time.perf_counter()
+        setup, bfs, res = run_check("Raft.cfg", text=RAFT_CFG, device="cuda", chunk=CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()
+    finally:
+        RaftModel.expand = plain_expand
     got = (res.distinct, res.total, res.depth, res.terminal)
     chunks = sum(-(-n // CHUNK) for n in res.depth_counts)
     print(f"[4] Raft.cfg: distinct={res.distinct} total={res.total} depth={res.depth} "
@@ -423,22 +590,46 @@ def main() -> int:
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was never launched on the main path")
     check(launches["probe_runs"] == chunks, f"{launches['probe_runs']} probes != {chunks} chunks")
+    for k in ("raft_guard", "raft_apply"):
+        check(launches[k] == chunks, f"{launches[k]} {k} launches != {chunks} chunks")
+    # raft_fold: once per chunk, and once for the initial-state check
+    check(launches["raft_fold"] == chunks + 1,
+          f"{launches['raft_fold']} raft_fold launches != {chunks} chunks + 1")
+    check(expand_calls[0] == 0, f"the plain RaftModel.expand ran {expand_calls[0]} times")
+    print(f"[4] raft_guard, raft_apply: one launch per chunk; raft_fold: one per chunk and "
+          f"one for the initial states; RaftModel.expand called {expand_calls[0]} times")
 
-    # ---- 5. an injected violation: card vs CPU ----
-    def no_commit_run(device):
-        m = RaftModel(RaftParams(n_servers=3, n_values=1, max_elections=1,
-                                 max_restarts=0, msg_slots=16))
-        m.invariants["NoCommit"] = lambda s: (m.layout.get(s, "commitIndex") == 0).all(dim=1)
-        return DeviceBFS(m, invariants=("NoCommit",), chunk=256, frontier_cap=1 << 14,
-                         journal_cap=1 << 16, max_seen_cap=1 << 20, canon_memo_cap=1 << 16,
-                         device=device).run()
+    # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
+    def small_run(cfg_name, text, device, depth=None):
+        return run_check(cfg_name, text=text, device=device, chunk=1024, max_depth=depth)[2]
 
-    vg, vc = no_commit_run("cuda"), no_commit_run("cpu")
-    check(vg.violation is not None and vg.violation == vc.violation,
-          f"violation {vg.violation} != {vc.violation}")
-    check(vg.trace == vc.trace, "violation traces differ between the card and the CPU")
-    print(f"[5] NoCommit violated at depth {vg.violation.depth}, gid "
-          f"{vg.violation.global_id}, {len(vg.trace)}-state trace: card == CPU")
+    vg, vc = (small_run("FlexibleRaft.cfg", FLEX_CFG, d) for d in ("cuda", "cpu"))
+    check(vg.violation is not None and vg.violation.invariant == "LeaderHasAllAckedValues",
+          f"FlexibleRaft: expected a LeaderHasAllAckedValues violation, got {vg.violation}")
+    check(vg.violation == vc.violation, f"violation {vg.violation} != {vc.violation}")
+    check(vg.trace == vc.trace and len(vg.trace) == vg.violation.depth + 1,
+          "violation traces differ between the card and the CPU")
+    check((vg.distinct, vg.total, vg.depth_counts) == (vc.distinct, vc.total, vc.depth_counts),
+          "FlexibleRaft counts differ between the card and the CPU")
+    print(f"[5] FlexibleRaft: LeaderHasAllAckedValues violated at depth {vg.violation.depth}, "
+          f"gid {vg.violation.global_id}, {len(vg.trace)}-state trace, {vg.distinct} distinct: "
+          "card == CPU")
+
+    # ---- 5b. RaftFsync to FSYNC_DEPTH: card vs CPU ----
+    t = time.perf_counter()
+    fg = small_run("RaftFsync.cfg", FSYNC_CFG, "cuda", FSYNC_DEPTH)
+    t_card = time.perf_counter() - t
+    t = time.perf_counter()
+    fc = small_run("RaftFsync.cfg", FSYNC_CFG, "cpu", FSYNC_DEPTH)
+    t_cpu = time.perf_counter() - t
+    got = (fg.distinct, fg.total, fg.depth, fg.terminal)
+    check(fg.violation is None and got == (fc.distinct, fc.total, fc.depth, fc.terminal),
+          f"RaftFsync counts {got} != CPU {(fc.distinct, fc.total, fc.depth, fc.terminal)}")
+    check(fg.depth_counts == fc.depth_counts and fg.coverage == fc.coverage,
+          "RaftFsync depth counts or coverage differ between the card and the CPU")
+    print(f"[5b] RaftFsync to depth {FSYNC_DEPTH}: distinct={fg.distinct} total={fg.total} "
+          f"terminal={fg.terminal}, depth counts and coverage: card == CPU "
+          f"(card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
 
     # ---- 6. where the time goes: depth 20 untraced, then traced ----
     from torch.profiler import ProfilerActivity, profile
@@ -480,6 +671,10 @@ def main() -> int:
                            "raft_tpu/checker/util.py:48"),
         "merge_runs": ("raft_tpu_torch/csrc/merge_runs.cu",
                        "raft_tpu/checker/device_bfs.py:285"),
+        "raft_guard": ("raft_tpu_torch/csrc/raft_expand.cu", "raft_tpu/models/base.py:332"),
+        "raft_apply": ("raft_tpu_torch/csrc/raft_expand.cu", "raft_tpu/models/base.py:426"),
+        "raft_fold": ("raft_tpu_torch/csrc/raft_fold.cu",
+                      "raft_tpu/checker/device_bfs.py:501"),
     }
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
@@ -489,6 +684,7 @@ def main() -> int:
         for k, r in rows.items()
     ]
     print(f"[7] total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"torch_sort": sort_row}))
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

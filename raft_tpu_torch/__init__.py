@@ -4,14 +4,16 @@ The package mirrors ``raft_tpu``'s layout so each counterpart is easy to
 find:
 
   ops/       hashing, bit packing, message-bag ops, symmetry
-             canonicalization (with the ``canon_memo`` CUDA kernel)
-  models/    state layout + batched Raft action kernels + invariants,
-             and the cfg -> model registry
+             canonicalization (with the ``canon_memo`` CUDA kernel), and
+             the guard-first expand and the coverage/invariant fold
+             (``raft_guard``, ``raft_apply``, ``raft_fold`` kernels)
+  models/    state layout + batched Raft action kernels + invariants
+             (the kernels' plain versions), and the cfg -> model registry
   checker/   the device-resident BFS engine (``DeviceBFS``), its sorted-
              run seen set (``merge_runs`` kernel) and the dedup / emit
              helpers (``probe_runs`` and ``compact_append`` kernels)
   utils/     TLC ``.cfg`` parser, TLC-style trace printer
-  csrc/      the CUDA C++ sources of the four kernels (``kernels.py``
+  csrc/      the CUDA C++ sources of the seven kernels (``kernels.py``
              builds them with nvcc and binds them through ctypes)
 
 It imports torch and numpy only — never jax and never ``raft_tpu``.

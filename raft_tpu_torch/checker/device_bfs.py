@@ -7,17 +7,21 @@ first-occurrence tie-breaking, coverage and violation reporting.
 Pipeline per chunk of ``chunk`` frontier states (``_chunk_step``, which
 composes ``_st_expand`` (1-2), ``_st_canon`` (3), ``_st_dedup`` (4) and
 ``_st_finish`` (5-7)):
-  1. expand: the batched Raft actions (``models/raft.py``, plain PyTorch)
-  2. compact the valid successor lanes into a dense worklist
-     (``compact_indices``, the compact_append kernel)
+  1. guard: valid/rank/ovf over the [chunk, A] candidate grid, with the
+     chunk's enabled/fired coverage (``model.chunk_guards``; for Raft the
+     raft_guard kernel)
+  2. compact the valid lanes into a dense worklist (``compact_indices``,
+     the compact_append kernel), then apply: successor rows for the
+     worklist lanes only (``model.chunk_apply``; raft_apply)
   3. canonical fingerprints through the canon memo (canon_memo kernel)
   4. dedup: probe the seen run and this wave's ladder runs (probe_runs
      kernel), then first occurrence within the chunk (stable sort)
   5. emit: append the survivors' rows at the device-side cursor of the
      next-frontier buffer, and their (parent gid, candidate) rows at the
      journal cursor (``append_rows``, the compact_append kernel)
-  6. invariants on the worklist, folding the first violating journal
-     index per invariant; per-action coverage
+  6. invariants on the new lanes, folding the first violating journal
+     index per invariant, and the new-distinct coverage
+     (``model.chunk_fold``; raft_fold)
   7. the chunk's new fingerprints as one sorted run, inserted into a
      binary-counter ladder of sorted runs (merge_runs kernel)
 
@@ -98,6 +102,7 @@ class DeviceBFS:
         unknown = [n for n in self.invariants if n not in model.invariants]
         if unknown:
             raise KeyError(f"unknown invariant(s) {unknown}")
+        model.prepare_device(self.device, self.invariants)
         self.chunk = chunk
         self.A = model.A
         self.W = model.layout.W
@@ -126,7 +131,6 @@ class DeviceBFS:
             model, symmetry=symmetry, seed=fingerprint_seed)
         self._memo = CanonMemo(canon_memo_cap)
         self.MCAP = self._memo.MCAP
-        self._arange_c = torch.arange(chunk, device=self.device)
         self._init_distinct: np.ndarray | None = None
         self._jparent = self._jcand = None
         self._jcount = 0
@@ -176,27 +180,22 @@ class DeviceBFS:
     # _st_dedup -> _st_finish); _chunk_step composes them without a host
     # sync.
 
-    def _st_expand(self, frontier, cursor: int, fcount: int):
-        """Stages 1-2: expand the chunk at ``cursor`` and compact its
-        valid lanes into the [VC] worklist (sel[j] = flat lane of the
-        j-th valid successor). Returns (flatc [VC, W], sel64, selv,
-        valid, rank, n_gen, terminal, expand_ovf, compact_ovf)."""
-        C, A, W, VC = self.chunk, self.A, self.W, self.VC
+    def _st_expand(self, frontier, cursor: int, fcount: int, cov):
+        """Stages 1-2: the guard pass over the chunk at ``cursor`` (adding
+        its enabled/fired coverage into ``cov``), compaction of its valid
+        lanes into the [VC] worklist (sel[j] = flat lane of the j-th valid
+        candidate), and the apply pass for the worklist lanes. Returns
+        (flatc [VC, W], sel, selv, valid, rank, n_gen, terminal,
+        expand_ovf, compact_ovf)."""
+        C, A, VC = self.chunk, self.A, self.VC
         batch = frontier[cursor:cursor + C]
-        live = self._arange_c < min(C, fcount - cursor)
-        succs, valid, rank, ovf = self.model.expand(batch)
-        valid = valid & live[:, None]
-        expand_ovf = (valid & ovf).any()
-        n_gen = valid.sum()
-        terminal = (live & ~valid.any(dim=1)).sum()
-
+        valid, rank, _ovf, scal = self.model.chunk_guards(
+            batch, min(C, fcount - cursor), cov)
+        n_gen, terminal, expand_ovf = scal[0], scal[1], scal[2] != 0
         sel, _ = compact_indices(valid.reshape(-1), VC, C * A)
         compact_ovf = n_gen > VC
-        selv = sel < C * A
-        sel64 = sel.to(torch.int64)
-        flatc = succs.reshape(C * A, W).index_select(0, sel64.clamp(max=C * A - 1))
-        flatc = torch.where(selv[:, None], flatc, 0)
-        return (flatc, sel64, selv, valid, rank, n_gen, terminal, expand_ovf,
+        flatc = self.model.chunk_apply(batch, sel)
+        return (flatc, sel, sel < C * A, valid, rank, n_gen, terminal, expand_ovf,
                 compact_ovf)
 
     def _st_canon(self, flatc, selv, memo):
@@ -216,28 +215,15 @@ class DeviceBFS:
 
     def _st_finish(self, next_buf, jparent, jcand, viol, stats, cov, ex, fps,
                    n_hit, new, cursor: int, base_gid: int):
-        """Stages 5-7: per-action coverage, the cursor-append emit, the
-        invariant fold and the stats fold, all in place; returns the
+        """Stages 5-7: the cursor-append emit, the new-distinct coverage
+        and invariant fold, and the stats fold, all in place; returns the
         chunk's new fingerprints as a sorted R0-lane run."""
-        (flatc, sel64, selv, valid, rank, n_gen, terminal, expand_ovf,
+        (flatc, sel, _selv, valid, rank, n_gen, terminal, expand_ovf,
          compact_ovf) = ex
-        C, A, VC = self.chunk, self.A, self.VC
+        A, VC = self.A, self.VC
         dev = self.device
         n_new = new.sum()
-
-        # per-action coverage [enabled, fired, new-distinct] per rank
-        K = self.n_actions
-        if K:
-            rk = torch.where(valid, rank, K).to(torch.int64)
-            fired = torch.zeros(K + 1, dtype=torch.int64, device=dev)
-            fired.scatter_add_(0, rk.reshape(-1), torch.ones_like(rk.reshape(-1)))
-            en = torch.zeros((C, K + 1), dtype=torch.int64, device=dev)
-            en.scatter_(1, rk, 1)
-            flat_rk = torch.where(
-                selv, rk.reshape(-1).index_select(0, sel64.clamp(max=C * A - 1)), K)
-            newk = torch.zeros(K + 1, dtype=torch.int64, device=dev)
-            newk.scatter_add_(0, torch.where(new, flat_rk, K), new.to(torch.int64))
-            cov += torch.stack([en[:, :K].sum(0), fired[:K], newk[:K]], dim=1)
+        sel64 = sel.to(torch.int64)
 
         # emit at the device-side cursors (stats[0] frontier, stats[1]
         # journal); rows past capacity land in the drop region
@@ -250,13 +236,10 @@ class DeviceBFS:
         frontier_ovf = stats[0] + n_new > self.FCAP
         journal_ovf = stats[1] + n_new > self.JCAP
 
-        # invariants on the worklist: first bad journal index
-        if self.invariants:
-            npos = torch.cumsum(new.to(torch.int64), 0) - 1
-            jidx = torch.where(new, stats[1] + npos, I32_MAX)
-            for k, name in enumerate(self.invariants):
-                bad = new & ~self.model.invariants[name](flatc)
-                viol[k] = torch.minimum(viol[k], torch.where(bad, jidx, I32_MAX).min())
+        # new-distinct coverage and invariants on the new lanes: first bad
+        # journal index (the journal cursor before this chunk's append)
+        self.model.chunk_fold(flatc, new, stats[1:2], viol, self.invariants, cov=cov,
+                              sel=sel, valid=valid, rank=rank)
 
         ovf_bits = (expand_ovf.to(torch.int64) + 2 * compact_ovf.to(torch.int64)
                     + 4 * frontier_ovf.to(torch.int64)
@@ -279,7 +262,7 @@ class DeviceBFS:
         count, cumulative generated, cumulative terminal, overflow bits,
         cumulative canon-memo hits]. Returns the chunk's new fingerprints
         as a sorted R0-lane run."""
-        ex = self._st_expand(frontier, cursor, fcount)
+        ex = self._st_expand(frontier, cursor, fcount, cov)
         fps, n_hit = self._st_canon(ex[0], ex[2], memo)
         new = self._st_dedup(fps, runs)
         return self._st_finish(next_buf, jparent, jcand, viol, stats, cov, ex,
@@ -467,21 +450,29 @@ class DeviceBFS:
         )
 
     def _check_init(self, init_d: np.ndarray) -> Violation | None:
+        """The invariants on the initial states, through the fold: every
+        state is new and the journal cursor is 0, so viol[k] is the index
+        of the first state that violates invariant k."""
+        if not self.invariants:
+            return None
         states = torch.from_numpy(init_d).to(self.device)
-        for name in self.invariants:
-            ok = self.model.invariants[name](states).cpu().numpy()
-            bad = np.nonzero(~ok)[0]
-            if len(bad):
-                return Violation(invariant=name, global_id=int(bad[0]), depth=0)
+        viol = torch.full((len(self.invariants),), I32_MAX, dtype=torch.int64,
+                          device=self.device)
+        new = torch.ones(len(init_d), dtype=torch.bool, device=self.device)
+        jcount = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.model.chunk_fold(states, new, jcount, viol, self.invariants)
+        for name, v in zip(self.invariants, viol.cpu().tolist()):
+            if v != I32_MAX:
+                return Violation(invariant=name, global_id=int(v), depth=0)
         return None
 
     # ---------------- trace reconstruction ----------------
 
     def reconstruct_trace(self, violation: Violation) -> list[tuple[str, dict]]:
-        """Parent-pointer replay through the journal, re-expanding each
-        state on the engine's device (``reconstruct_trace`` of the
-        reference, :1821)."""
-        model = self.model
+        """Parent-pointer replay through the journal (``reconstruct_trace``
+        of the reference, :1821): each journalled candidate goes through
+        the guard and a one-lane apply on the engine's device."""
+        model, dev = self.model, self.device
         n0 = len(self._init_distinct)
         jp = self._jparent[: self._jcount].cpu().numpy()
         jc = self._jcand[: self._jcount].cpu().numpy()
@@ -493,12 +484,14 @@ class DeviceBFS:
         chain.reverse()
         state = self._init_distinct[gid]
         out = [("Initial predicate", model.decode(state))]
+        cov = torch.zeros((self.n_actions, 3), dtype=torch.int64, device=dev)
         for cand in chain:
-            batch = torch.from_numpy(np.ascontiguousarray(state[None])).to(self.device)
-            succs, valid, rank, _ovf = model.expand(batch)
+            batch = torch.from_numpy(np.ascontiguousarray(state[None])).to(dev)
+            valid, rank, _ovf, _scal = model.chunk_guards(batch, 1, cov)
             if not bool(valid[0, cand]):
                 raise RuntimeError("journalled candidate not enabled on replay")
-            state = succs[0, cand].cpu().numpy()
+            sel = torch.tensor([cand], dtype=torch.int32, device=dev)
+            state = model.chunk_apply(batch, sel)[0].cpu().numpy()
             out.append((model.action_label(int(rank[0, cand]), cand),
                         model.decode(state)))
         return out

@@ -1,7 +1,9 @@
 """Build, bind and count the port's hand-written CUDA kernels.
 
-Each kernel is one CUDA C++ source in ``csrc/`` with a plain C interface.
-``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles it into a shared
+Each kernel lives in a CUDA C++ source in ``csrc/`` with a plain C
+interface (``raft_guard`` and ``raft_apply`` share ``raft_expand.cu``;
+``*.cuh`` headers are shared device code). ``nvcc -gencode
+arch=compute_90a,code=sm_90a`` compiles each source into a shared
 library under ``build/raft_tpu_torch/`` at first use (``build_all``
 starts one nvcc per source, all at once); ``ctypes`` loads it. A launcher
 takes raw device pointers (``tensor.data_ptr()``) and PyTorch's current
@@ -46,6 +48,15 @@ _SIGNATURES = {
     "merge_runs": {
         "merge_runs": [_P, _L, _P, _L, _P, _L, _P],
     },
+    "raft_expand": {
+        "raft_guard": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
+                       _P, _P, _P],
+        "raft_apply": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P],
+    },
+    "raft_fold": {
+        "raft_fold": [_P, _I, _P, _P, _P, _P, _L, _P, _I, _P, _I, _P, _P, _P,
+                      _P, _P],
+    },
 }
 
 
@@ -61,20 +72,22 @@ def nvcc_path() -> str:
 
 
 class Kernel:
-    """One CUDA source: its build, its ctypes library, its launch count."""
+    """One kernel: its CUDA source (which several kernels may share), its
+    build, its ctypes library and its own launch count."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, source: str | None = None):
         self.name = name
-        self.source = os.path.join(CSRC, f"{name}.cu")
-        self.library = os.path.join(BUILD_DIR, f"lib{name}.so")
+        self.unit = source or name
+        self.source = os.path.join(CSRC, f"{self.unit}.cu")
+        self.library = os.path.join(BUILD_DIR, f"lib{self.unit}.so")
         self.launches = 0
         self._lib = None
 
     def stale(self) -> bool:
         if not os.path.exists(self.library):
             return True
-        newest = max(os.path.getmtime(self.source),
-                     os.path.getmtime(os.path.join(CSRC, "common.cuh")))
+        headers = [os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+        newest = max(os.path.getmtime(f) for f in [self.source, *headers])
         return os.path.getmtime(self.library) < newest
 
     def compile_cmd(self) -> list[str]:
@@ -99,7 +112,7 @@ class Kernel:
                 if proc.returncode:
                     raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
             lib = ctypes.CDLL(self.library)
-            for fn, args in _SIGNATURES[self.name].items():
+            for fn, args in _SIGNATURES[self.unit].items():
                 getattr(lib, fn).argtypes = args
                 getattr(lib, fn).restype = ctypes.c_int
             lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -119,14 +132,19 @@ CANON_MEMO = Kernel("canon_memo")
 PROBE_RUNS = Kernel("probe_runs")
 COMPACT_APPEND = Kernel("compact_append")
 MERGE_RUNS = Kernel("merge_runs")
-ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS)
+RAFT_GUARD = Kernel("raft_guard", source="raft_expand")
+RAFT_APPLY = Kernel("raft_apply", source="raft_expand")
+RAFT_FOLD = Kernel("raft_fold")
+ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, RAFT_GUARD, RAFT_APPLY,
+       RAFT_FOLD)
 
 
 def build_all() -> dict[str, str]:
     """Compile every stale kernel source at once (one nvcc each) and
-    load them all. Returns {kernel name: compiler output} (``-Xptxas -v``
+    load them all. Returns {source name: compiler output} (``-Xptxas -v``
     register and shared-memory reports); raises on the first failure."""
-    procs = {k.name: (k, k.start_build()) for k in ALL}
+    units = {k.unit: k for k in ALL}
+    procs = {u: (k, k.start_build()) for u, k in units.items()}
     logs = {}
     failed = []
     for name, (k, proc) in procs.items():

@@ -15,6 +15,7 @@ and an index ``[C|1, n]``; the helpers select or set along axis 2.
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 
@@ -90,6 +91,69 @@ class Layout:
 
     def zeros(self, batch: tuple[int, ...] = ()) -> np.ndarray:
         return np.zeros(batch + (self.W,), dtype=np.int32)
+
+
+@dataclass(frozen=True)
+class SparseGroup:
+    """One contiguous run of same-named bindings in ``self.bindings``:
+    the unit of the guard-first expansion. ``params`` is the [n, arity]
+    int32 binding table of the group's candidates."""
+
+    name: str
+    off: int  # first candidate index of the group
+    n: int  # candidates in the group
+    params: np.ndarray  # [n, arity] int32
+
+
+class SparseExpandMixin:
+    """Guard-first expansion contract (``SparseExpandMixin`` of the
+    reference, ``raft_tpu/models/base.py:236-489``), split in two:
+
+      guards        valid/rank/ovf over the [C, A] candidate grid, no
+                    successor rows;
+      sparse_apply  successor rows only for a compacted worklist of
+                    flat candidate ids.
+
+    These are the plain PyTorch versions: both sit on the dense
+    ``expand`` (bit-identical to the reference's guard grid by
+    construction, ``raft_tpu/models/base.py:251-263``). The hand-written
+    kernels of ``ops/expand.py`` compute the same values without ever
+    building the [C, A, W] grid. The reference's per-group apply budgets
+    (``sparse_plan``) are a static-shape workaround the port drops: one
+    worklist lane per enabled candidate, so ``apply_ovf`` never fires
+    (the reference's ``valid_per_group=None`` default)."""
+
+    def sparse_groups(self) -> list[SparseGroup]:
+        """Contiguous same-named runs of ``self.bindings`` with their
+        [n, arity] parameter tables (cached)."""
+        if "_sparse_groups" not in self.__dict__:
+            groups, off = [], 0
+            for name, run in itertools.groupby(self.bindings, key=lambda b: b[0]):
+                params = np.asarray([list(b[1]) for b in run], np.int32)
+                n = len(params)
+                groups.append(SparseGroup(name, off, n, params.reshape(n, -1)))
+                off += n
+            names = [g.name for g in groups]
+            if len(set(names)) != len(names):
+                raise ValueError(f"non-contiguous binding groups: {names}")
+            self.__dict__["_sparse_groups"] = groups
+        return self.__dict__["_sparse_groups"]
+
+    def guards(self, states: torch.Tensor):
+        """(valid [C, A] bool, rank [C, A] int32, ovf [C, A] bool) of a
+        [C, W] state batch (``guards1`` of the reference, batched)."""
+        _succs, valid, rank, ovf = self.expand(states)
+        return valid, rank, ovf
+
+    def sparse_apply(self, states: torch.Tensor, sel: torch.Tensor, selv: torch.Tensor):
+        """Successor rows [VC, W] int32 of the flat candidate ids ``sel``
+        (state * A + candidate); lanes where ``selv`` is false (the drop
+        value C * A) get a zeros row — the dense gather ``flatp[sel]`` of
+        the reference's ``sparse_apply``."""
+        C, W = states.shape
+        succs = self.expand(states)[0].reshape(C * self.A, W)
+        rows = succs.index_select(0, sel.to(torch.int64).clamp(0, C * self.A - 1))
+        return torch.where(selv[:, None], rows, 0)
 
 
 class ActionLabelMixin:

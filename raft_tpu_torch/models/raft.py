@@ -22,10 +22,12 @@ import numpy as np
 import torch
 
 from ..ops import bag
+from ..ops.expand import raft_apply, raft_fold, raft_guard
 from ..ops.packing import EMPTY, BitPacker, bits_for
 from .base import (
     ActionLabelMixin,
     Layout,
+    SparseExpandMixin,
     messages_are_valid_kernel,
     onehot_row as orow,
     onehot_set as oset,
@@ -184,7 +186,52 @@ def _sel(cond, a, b):
     return torch.where(cond.reshape(cond.shape + (1,) * (nd - cond.ndim)), a, b)
 
 
-class RaftModel(ActionLabelMixin):
+# ---- the kernels' view of a model (csrc/raft_actions.cuh) ----
+# Order of the int32 spec vector; it mirrors the SP_* enum of
+# raft_actions.cuh, whose kernels refuse a spec of any other length.
+# field offsets (-1 where the layout has no such field)
+SPEC_OFFSETS = (
+    "currentTerm", "state", "votedFor", "votesGranted", "log_term", "log_value",
+    "log_len", "commitIndex", "fsyncIndex", "nextIndex", "matchIndex",
+    "pendingResponse", "msg_hi", "msg_lo", "msg_cnt", "acked", "electionCtr",
+    "restartCtr",
+)
+SPEC_SCALARS = ("S", "V", "L", "M", "W", "A", "K") + SPEC_OFFSETS + (
+    # parameter flags (quorums: -1 = strict majority)
+    "has_fsync", "fsync_leader_before_ae", "fsync_leader_quorum",
+    "fsync_follower_reply", "strict_send_once", "trunc_term_mismatch",
+    "has_pending_response", "election_quorum", "replication_quorum",
+    "max_elections", "max_restarts",
+)
+# message fields, each as (word, shift, mask) after the scalars (MF_* enum)
+MSG_FIELDS = (
+    "mtype", "mterm", "msource", "mdest", "mlastLogTerm", "mlastLogIndex",
+    "mvoteGranted", "mprevLogIndex", "mprevLogTerm", "nentries", "eterm",
+    "evalue", "mcommitIndex", "msuccess", "mmatchIndex",
+)
+SPEC_LEN = len(SPEC_SCALARS) + 3 * len(MSG_FIELDS)
+# action groups (G_* enum); a candidate row is (group, p0, p1, rank)
+GROUP_IDS = {
+    "Restart": 0, "Timeout": 1, "RequestVotePair": 2, "RequestVote": 3,
+    "BecomeLeader": 4, "ClientRequest": 5, "AdvanceCommitIndex": 6,
+    "AppendEntries": 7, "AdvanceFsyncIndex": 8, "HandleMessage": 9,
+}
+GROUP_RANKS = {
+    "Restart": R_RESTART, "Timeout": R_TIMEOUT, "RequestVotePair": R_REQUESTVOTE,
+    "RequestVote": R_REQUESTVOTE, "BecomeLeader": R_BECOMELEADER,
+    "ClientRequest": R_CLIENTREQUEST, "AdvanceCommitIndex": R_ADVANCECOMMIT,
+    "AppendEntries": R_APPENDENTRIES, "AdvanceFsyncIndex": R_ADVANCEFSYNC,
+    # the six receipt disjuncts: R_UPDATETERM + 0..5 in Next order
+    "HandleMessage": R_UPDATETERM,
+}
+# invariants the kernels evaluate (INV_* enum)
+INVARIANT_IDS = {
+    "MessagesAreValid": 0, "NoLogDivergence": 1, "LeaderHasAllAckedValues": 2,
+    "CommittedEntriesReachMajority": 3, "TestInv": 4,
+}
+
+
+class RaftModel(SparseExpandMixin, ActionLabelMixin):
     """Batched successor/invariant kernels for one (spec, constants) pair."""
 
     name = "Raft"
@@ -774,6 +821,73 @@ class RaftModel(ActionLabelMixin):
         rank = torch.cat([o[2].to(torch.int32) for o in outs], dim=1)
         ovf = torch.cat([o[3] for o in outs], dim=1)
         return succs, valid, rank, ovf
+
+    # ---------------- the engine's chunk entry points ----------------
+    # DeviceBFS expands and folds a chunk only through these, so the choice
+    # of kernels stays with the model (as the reference's engine calls
+    # ``model.guards1`` and ``model.sparse_apply``). Each routes by tensor
+    # device: the hand-written kernel for a CUDA tensor, its plain version
+    # for a CPU one (ops/expand.py).
+    chunk_guards = raft_guard
+    chunk_apply = raft_apply
+    chunk_fold = raft_fold
+
+    def prepare_device(self, device, invariants) -> None:
+        """Fail before a run, not inside it, where the kernels on
+        ``device`` cannot evaluate one of ``invariants``."""
+        if torch.device(device).type == "cuda":
+            self.kernel_spec(device, tuple(invariants))
+
+    # ---------------- the kernels' spec ----------------
+
+    def kernel_spec(self, dev, invariants: tuple[str, ...] = ()):
+        """(spec int32 [SPEC_LEN], cand int32 [A, 4], inv int32
+        [len(invariants)]) on ``dev``, built once per device and
+        invariant tuple: everything the hand-written kernels read about
+        this model (field offsets, message-field locations, parameter
+        flags, the candidate table, invariant ids). Raises KeyError for
+        an invariant the kernels do not evaluate."""
+        missing = [n for n in invariants if n not in INVARIANT_IDS]
+        if missing:
+            raise KeyError(
+                f"invariant(s) {missing} have no kernel predicate "
+                f"(csrc/raft_actions.cuh evaluates {sorted(INVARIANT_IDS)})")
+        dev = torch.device(dev)
+        key = ("kernel_spec", str(dev), tuple(invariants))
+        hit = self._consts.get(key)
+        if hit is not None:
+            return hit
+        p, lay = self.p, self.layout
+        off = {n: (lay.fields[n].offset if n in lay.fields else -1)
+               for n in SPEC_OFFSETS}
+        flags = dict(
+            has_fsync=p.has_fsync, fsync_leader_before_ae=p.fsync_leader_before_ae,
+            fsync_leader_quorum=p.fsync_leader_quorum,
+            fsync_follower_reply=p.fsync_follower_reply,
+            strict_send_once=p.strict_send_once,
+            trunc_term_mismatch=p.trunc_term_mismatch,
+            has_pending_response=p.has_pending_response,
+            election_quorum=-1 if p.election_quorum is None else p.election_quorum,
+            replication_quorum=(-1 if p.replication_quorum is None
+                                else p.replication_quorum),
+            max_elections=p.max_elections, max_restarts=p.max_restarts,
+        )
+        vals = dict(S=p.n_servers, V=p.n_values, L=p.max_log, M=p.msg_slots,
+                    W=lay.W, A=self.A, K=len(self.ACTION_NAMES), **off, **flags)
+        spec = [int(vals[n]) for n in SPEC_SCALARS]
+        for name in MSG_FIELDS:
+            spec += list(self.packer.locate(name))
+        assert len(spec) == SPEC_LEN
+        cand = []
+        for g in self.sparse_groups():
+            for row in g.params:
+                args = list(row) + [0] * (2 - len(row))
+                cand.append([GROUP_IDS[g.name], *args, GROUP_RANKS[g.name]])
+        hit = tuple(
+            torch.tensor(v, dtype=torch.int32, device=dev)
+            for v in (spec, cand, [INVARIANT_IDS[n] for n in invariants]))
+        self._consts[key] = hit
+        return hit
 
     # ---------------- initial states ----------------
 

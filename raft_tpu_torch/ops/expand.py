@@ -1,0 +1,174 @@
+"""The guard-first Raft expand and the coverage/invariant fold of a chunk.
+
+Three kernels (``csrc/raft_expand.cu``, ``csrc/raft_fold.cu``, with the
+actions and invariants in ``csrc/raft_actions.cuh``), each with its
+plain PyTorch version beside it:
+
+  ``raft_guard``  valid/rank/ovf over the [C, A] candidate grid, the
+                  chunk scalars (n_gen, terminal, expand_ovf) and the
+                  enabled/fired coverage — ``guards1`` of
+                  ``raft_tpu/models/base.py:332`` as the sparse branch of
+                  ``raft_tpu/checker/device_bfs.py:346-376`` uses it, with
+                  the coverage of ``:436-452``;
+  ``raft_apply``  successor rows of a compacted worklist —
+                  ``sparse_apply`` of ``raft_tpu/models/base.py:426``;
+  ``raft_fold``   the new-distinct coverage and the first bad journal
+                  index per invariant — ``device_bfs.py:453-460,501-506``.
+
+A wrapper runs the plain version for CPU tensors and launches the kernel
+for CUDA tensors (it raises rather than fall back). The kernels read the
+model through ``RaftModel.kernel_spec``; the plain versions through the
+model's ``guards``/``sparse_apply``/``invariants``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..checker.util import I32_MAX
+
+
+# ---------------- raft_guard ----------------
+
+
+def raft_guard_plain(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
+    """Plain version of ``raft_guard``: the dense guard grid, masked by
+    live (state index < n_live), its chunk scalars and coverage."""
+    C = states.shape[0]
+    K = len(model.ACTION_NAMES)
+    valid, rank, ovf = model.guards(states)
+    live = torch.arange(C, device=states.device) < n_live
+    valid = valid & live[:, None]
+    scal = torch.stack([valid.sum(), (live & ~valid.any(dim=1)).sum(),
+                        (valid & ovf).any().to(torch.int64)])
+    # per-action coverage [enabled, fired] per rank (invalid lanes to bucket K)
+    rk = torch.where(valid, rank, K).to(torch.int64)
+    fired = torch.zeros(K + 1, dtype=torch.int64, device=states.device)
+    fired.scatter_add_(0, rk.reshape(-1), torch.ones_like(rk.reshape(-1)))
+    en = torch.zeros((C, K + 1), dtype=torch.int64, device=states.device)
+    en.scatter_(1, rk, 1)
+    cov[:, :2] += torch.stack([en[:, :K].sum(0), fired[:K]], dim=1)
+    return valid, rank, ovf, scal
+
+
+def raft_guard(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
+    """Guard pass over the [C, A] grid of a [C, W] int32 state batch:
+    returns (valid [C, A] bool — masked by live, the first ``n_live``
+    states —, rank [C, A] int32, ovf [C, A] bool, scal int64 [3] =
+    (n_gen, terminal, expand_ovf)) and adds the per-rank enabled and
+    fired counts into ``cov[:, 0]`` and ``cov[:, 1]`` (int64 [K, 3], in
+    place). No successor row is built."""
+    if kernels.route(states) == "cpu":
+        return raft_guard_plain(model, states, n_live, cov)
+    k = kernels.RAFT_GUARD
+    C, W = states.shape
+    A, K = model.A, len(model.ACTION_NAMES)
+    kernels.require(states, torch.int32, "states", shape=(C, model.layout.W))
+    kernels.require(cov, torch.int64, "cov", shape=(K, 3))
+    spec, cand, _ = model.kernel_spec(states.device)
+    dev = states.device
+    valid = torch.empty((C, A), dtype=torch.bool, device=dev)
+    rank = torch.empty((C, A), dtype=torch.int32, device=dev)
+    ovf = torch.empty((C, A), dtype=torch.bool, device=dev)
+    scal = torch.empty(3, dtype=torch.int64, device=dev)
+    rc = k.lib.raft_guard(states.data_ptr(), C, n_live, spec.data_ptr(), spec.numel(),
+                          cand.data_ptr(), A, W, K, model.p.n_servers, model.p.msg_slots,
+                          valid.data_ptr(), rank.data_ptr(), ovf.data_ptr(), scal.data_ptr(),
+                          cov.data_ptr(), kernels.stream(dev))
+    k.launched(rc)
+    return valid, rank, ovf, scal
+
+
+# ---------------- raft_apply ----------------
+
+
+def raft_apply_plain(model, states: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``raft_apply``: the model's ``sparse_apply``."""
+    return model.sparse_apply(states, sel, sel < states.shape[0] * model.A)
+
+
+def raft_apply(model, states: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Successor rows [VC, W] int32 of the worklist ``sel`` (int32 [VC]
+    flat candidate ids state * A + candidate; the drop value C * A gives
+    a zeros row)."""
+    if kernels.route(states) == "cpu":
+        return raft_apply_plain(model, states, sel)
+    k = kernels.RAFT_APPLY
+    C, W = states.shape
+    kernels.require(states, torch.int32, "states", shape=(C, model.layout.W))
+    kernels.require(sel, torch.int32, "sel", ndim=1)
+    spec, cand, _ = model.kernel_spec(states.device)
+    VC = sel.numel()
+    flatc = torch.empty((VC, W), dtype=torch.int32, device=states.device)
+    rc = k.lib.raft_apply(states.data_ptr(), C, sel.data_ptr(), VC, spec.data_ptr(),
+                          spec.numel(), cand.data_ptr(), W, flatc.data_ptr(),
+                          kernels.stream(states.device))
+    k.launched(rc)
+    return flatc
+
+
+# ---------------- raft_fold ----------------
+
+
+def raft_fold_plain(model, flatc, new, jcount, viol, invariants, cov=None, sel=None,
+                    valid=None, rank=None) -> None:
+    """Plain version of ``raft_fold`` (the reference's formulas)."""
+    if cov is not None:
+        K = cov.shape[0]
+        n_flat = rank.numel()
+        sel64 = sel.to(torch.int64).clamp(0, n_flat - 1)
+        rk = torch.where(valid.reshape(-1), rank.reshape(-1), K).to(torch.int64)
+        flat_rk = torch.where(sel < n_flat, rk.index_select(0, sel64), K)
+        newk = torch.zeros(K + 1, dtype=torch.int64, device=flatc.device)
+        newk.scatter_add_(0, torch.where(new, flat_rk, K), new.to(torch.int64))
+        cov[:, 2] += newk[:K]
+    if invariants and new.numel():
+        npos = torch.cumsum(new.to(torch.int64), 0) - 1
+        jidx = torch.where(new, jcount.reshape(()) + npos, I32_MAX)
+        for k, name in enumerate(invariants):
+            bad = new & ~model.invariants[name](flatc)
+            viol[k] = torch.minimum(viol[k], torch.where(bad, jidx, I32_MAX).min())
+
+
+def raft_fold(model, flatc, new, jcount, viol, invariants, cov=None, sel=None, valid=None,
+              rank=None) -> None:
+    """Fold one worklist into the run's accumulators, in place.
+
+    flatc [VC, W] int32 rows, new [VC] bool (the lanes that are new
+    distinct states), jcount a one-element int64 tensor (the journal
+    cursor before this chunk's append): for each invariant k of
+    ``invariants``, viol[k] (int64) becomes min(viol[k], jcount + the
+    number of new lanes before the first new lane that violates it).
+    With ``cov`` (int64 [K, 3]) given, cov[rank[sel[j]], 2] += 1 for each
+    new lane j whose candidate is a valid lane (sel [VC] int32 into the
+    flattened valid [C, A] bool / rank [C, A] int32)."""
+    if kernels.route(flatc) == "cpu":
+        return raft_fold_plain(model, flatc, new, jcount, viol, invariants, cov, sel,
+                               valid, rank)
+    k = kernels.RAFT_FOLD
+    dev = flatc.device
+    kernels.require(flatc, torch.int32, "flatc", ndim=2)
+    kernels.require(new, torch.bool, "new", shape=(flatc.shape[0],))
+    kernels.require(jcount, torch.int64, "jcount", shape=(1,))
+    kernels.require(viol, torch.int64, "viol")
+    if viol.numel() < len(invariants):
+        raise ValueError("viol needs one lane per invariant")
+    spec, _, inv = model.kernel_spec(dev, tuple(invariants))
+    n_flat = 0
+    if cov is not None:
+        kernels.require(cov, torch.int64, "cov", shape=(len(model.ACTION_NAMES), 3))
+        kernels.require(sel, torch.int32, "sel", shape=(flatc.shape[0],))
+        kernels.require(valid, torch.bool, "valid")
+        kernels.require(rank, torch.int32, "rank", shape=tuple(valid.shape))
+        n_flat = valid.numel()
+    first_bad = torch.empty(max(1, len(invariants)), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = k.lib.raft_fold(flatc.data_ptr(), flatc.shape[0], new.data_ptr(), ptr(sel),
+                         ptr(valid), ptr(rank), n_flat, spec.data_ptr(), spec.numel(),
+                         inv.data_ptr(), len(invariants), first_bad.data_ptr(),
+                         jcount.data_ptr(), viol.data_ptr(), ptr(cov), kernels.stream(dev))
+    k.launched(rc)

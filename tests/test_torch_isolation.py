@@ -16,7 +16,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "raft_tpu_torch", "raft_tpu_torch.__main__", "raft_tpu_torch.convert",
-    "raft_tpu_torch.kernels", "raft_tpu_torch.ops.symmetry",
+    "raft_tpu_torch.kernels", "raft_tpu_torch.ops.symmetry", "raft_tpu_torch.ops.expand",
     "raft_tpu_torch.models.registry", "raft_tpu_torch.checker.device_bfs",
     "raft_tpu_torch.utils.pprint",
 ]

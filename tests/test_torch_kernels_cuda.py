@@ -1,5 +1,5 @@
-"""The four CUDA kernels against their plain PyTorch versions on the card,
-at small shapes (exact equality: integers). Needs a CUDA card and nvcc;
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+small shapes (exact equality: integers). Needs a CUDA card and nvcc;
 skips elsewhere. Run on the card with:
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda --noconftest
@@ -8,6 +8,9 @@ skips elsewhere. Run on the card with:
 need and a machine with only the port's dependencies lacks.)
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -16,8 +19,12 @@ from raft_tpu_torch.checker.util import (
     append_rows, append_rows_plain, compact_indices, dense_prefix_sel, probe_runs,
     probe_runs_plain,
 )
-from raft_tpu_torch.models.raft import RaftModel, RaftParams
+from raft_tpu_torch.models.raft import R_ACCEPT_AE, R_CLIENTREQUEST, RaftModel, RaftParams
+from raft_tpu_torch.ops.expand import (
+    raft_apply, raft_apply_plain, raft_fold, raft_fold_plain, raft_guard, raft_guard_plain,
+)
 from raft_tpu_torch.ops.hashing import INT64_MAX
+from raft_tpu_torch.ops.packing import EMPTY
 
 pytestmark = pytest.mark.cuda
 
@@ -125,3 +132,205 @@ def test_wave_loop_has_no_host_sync(dev):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert int(stats[0]) > 0 and any(r is not None for r in ladder)
+
+
+# the three parameter sets one RaftModel serves (as tests/test_torch_raft_model.py)
+VARIANTS = {
+    "core": RaftParams(n_servers=3, n_values=1, max_elections=2, max_restarts=1,
+                       msg_slots=16),
+    "fsync": RaftParams(n_servers=3, n_values=1, max_elections=1, max_restarts=1,
+                        msg_slots=16, strict_send_once=True, has_pending_response=False,
+                        trunc_term_mismatch=True, has_fsync=True,
+                        fsync_leader_before_ae=False, fsync_leader_quorum=True,
+                        fsync_follower_reply=True),
+    "flexible": RaftParams(n_servers=3, n_values=2, max_elections=2, max_restarts=0,
+                           msg_slots=16, election_quorum=2, replication_quorum=2,
+                           strict_send_once=True, has_pending_response=False,
+                           trunc_term_mismatch=True),
+}
+INV = ("LeaderHasAllAckedValues", "NoLogDivergence")
+
+
+def edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
+    """Reachable states ``st`` and edge cases built from them: copies with
+    three random lanes set to small values (out-of-range indices,
+    negative counts); copies whose message bag is full (so puts
+    overflow); copies with every log at max_log and no value acked (so
+    ClientRequest and the append of an accepted request overflow); and
+    copies whose servers are scrambled (random roles, terms, logs,
+    commit indices, match indices and acks) with a bag of random records
+    of all four message types, their fields over their whole bit width."""
+    rng = np.random.default_rng(seed)
+    lay, p = model.layout, model.p
+    S, L, V = p.n_servers, p.max_log, p.n_values
+    hs, ls, cs = lay.sl("msg_hi"), lay.sl("msg_lo"), lay.sl("msg_cnt")
+    pert = st.copy()
+    for r in pert:
+        r[rng.integers(0, lay.W, 3)] = rng.integers(-1, 6, 3)
+    full = st[:64].copy()
+    for r in full:
+        keys = set(zip(r[hs].tolist(), r[ls].tolist())) - {(EMPTY, EMPTY)}
+        while len(keys) < p.msg_slots:
+            keys.add((0, int(rng.integers(0, 1 << 26))))
+        keys = sorted(keys)[: p.msg_slots]
+        r[hs] = [k[0] for k in keys]
+        r[ls] = [k[1] for k in keys]
+        r[cs] = rng.integers(0, 3, p.msg_slots)
+    maxlog = st[:64].copy()
+    maxlog[:, lay.sl("log_len")] = L
+    maxlog[:, lay.sl("acked")] = 0
+    scr = st[:64].copy()
+    for r in scr:
+        r[lay.sl("state")] = rng.integers(0, 3, S)
+        r[lay.sl("currentTerm")] = rng.integers(1, 3, S)
+        r[lay.sl("log_len")] = rng.integers(0, L + 1, S)
+        r[lay.sl("log_term")] = rng.integers(1, 3, S * L)
+        r[lay.sl("log_value")] = rng.integers(0, V + 1, S * L)
+        r[lay.sl("commitIndex")] = rng.integers(0, L + 1, S)
+        r[lay.sl("matchIndex")] = rng.integers(0, L + 1, S * S)
+        r[lay.sl("acked")] = rng.integers(0, 3, V)
+        keys = set()
+        for _ in range(int(rng.integers(1, p.msg_slots // 2))):
+            vals = {f: int(rng.integers(0, 1 << bits))
+                    for f, (_, bits) in model.packer.fields.items()}
+            keys.add(model.packer.pack(**{**vals, "mtype": int(rng.integers(1, 5))}))
+        keys = sorted(keys)
+        bag = np.full((3, p.msg_slots), EMPTY)
+        bag[2] = 0
+        bag[:, :len(keys)] = [[k[0] for k in keys], [k[1] for k in keys],
+                              rng.integers(0, 3, len(keys))]
+        r[hs], r[ls], r[cs] = bag
+    return np.ascontiguousarray(np.concatenate([st, pert, full, maxlog, scr]).astype(np.int32))
+
+
+def _edge_states(model, dev, seed):
+    """``edge_rows`` of reachable states (the frontiers of depths 3 to 7
+    of the port's BFS on the card), on the card."""
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+
+    parts = []
+    for depth in range(3, 8):
+        bfs = DeviceBFS(model, chunk=256, frontier_cap=4096, max_seen_cap=1 << 20,
+                        canon_memo_cap=1 << 12, device=dev)
+        bfs.run(max_depth=depth)
+        parts.append(bfs.frontier_rows.cpu().numpy())
+    return torch.from_numpy(edge_rows(model, np.concatenate(parts)[:400], seed)).to(dev)
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_raft_guard_apply_fold(dev, name):
+    model = RaftModel(VARIANTS[name])
+    states = _edge_states(model, dev, seed=len(name))
+    C, A = states.shape[0], model.A
+    K = len(model.ACTION_NAMES)
+    n_live = C - 7  # an all-dead chunk tail
+    cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
+    cov_p = cov_k.clone()
+    gk = raft_guard(model, states, n_live, cov_k)
+    gp = raft_guard_plain(model, states, n_live, cov_p)
+    for a, b in zip(gk, gp):
+        assert torch.equal(a, b)
+    assert torch.equal(cov_k, cov_p)
+    valid, rank, ovf, _ = gk
+    # the edge states overflow a full bag, and a log at max_log both on a
+    # ClientRequest and on an accepted append (ac_ovf)
+    for r in (R_CLIENTREQUEST, R_ACCEPT_AE):
+        assert bool((valid & ovf & (rank == r)).any()), r
+    assert not valid[n_live:].any()
+    # the worklist: every valid lane, then drop lanes; and lanes of
+    # disabled candidates too (their rows equal the dense expand's)
+    sel, n = compact_indices(valid.reshape(-1), int(valid.sum()) + 300, C * A)
+    other = torch.randint(0, C * A, (500,), device=dev, dtype=torch.int32)
+    for s in (sel, other, sel[:0]):
+        s = s.contiguous()
+        fk, fp = raft_apply(model, states, s), raft_apply_plain(model, states, s)
+        assert fk.shape == (s.numel(), model.layout.W) and torch.equal(fk, fp)
+    flatc = raft_apply(model, states, sel)
+    new = (torch.rand(sel.numel(), device=dev) < 0.7) & (sel < C * A)
+    jcount = torch.tensor([777], dtype=torch.int64, device=dev)
+    invs = tuple(model.invariants)
+    for s, nw in ((sel, new), (sel[:0], new[:0])):
+        vk = torch.full((len(invs),), 2**31 - 1, dtype=torch.int64, device=dev)
+        vp, ck, cp = vk.clone(), cov_k.clone(), cov_k.clone()
+        fc = flatc[: s.numel()].contiguous()
+        raft_fold(model, fc, nw, jcount, vk, invs, cov=ck, sel=s, valid=valid, rank=rank)
+        raft_fold_plain(model, fc, nw, jcount, vp, invs, cov=cp, sel=s, valid=valid,
+                        rank=rank)
+        assert torch.equal(vk, vp) and torch.equal(ck, cp)
+
+
+def test_raft_guard_apply_wide_rows(dev):
+    """A bag of 320 slots (rows over 1,000 lanes): the guard's RequestVote
+    scratch and the apply's rows per block are sized from the model, so
+    neither refuses it, and both still equal their plain versions."""
+    model = RaftModel(dataclasses.replace(VARIANTS["core"], msg_slots=320))
+    init = np.repeat(model.init_states(), 64, axis=0)
+    states = torch.from_numpy(edge_rows(model, init, seed=11)).to(dev)
+    C, A = states.shape[0], model.A
+    assert model.layout.W > 1000
+    K = len(model.ACTION_NAMES)
+    cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
+    cov_p = cov_k.clone()
+    gk = raft_guard(model, states, C, cov_k)
+    gp = raft_guard_plain(model, states, C, cov_p)
+    for a, b in zip(gk, gp):
+        assert torch.equal(a, b)
+    assert torch.equal(cov_k, cov_p)
+    valid = gk[0]
+    assert bool(valid.any())
+    sel, _ = compact_indices(valid.reshape(-1), int(valid.sum()) + 5, C * A)
+    assert torch.equal(raft_apply(model, states, sel), raft_apply_plain(model, states, sel))
+
+
+def test_raft_fold_finds_first_bad_lane(dev):
+    model = RaftModel(VARIANTS["core"])
+    states = _edge_states(model, dev, seed=5)
+    # lane 301: a leader with a current term whose log lacks an acked value
+    lay = model.layout
+    bad = states[0].clone()
+    bad[lay.sl("state")] = torch.tensor([2, 0, 0], dtype=torch.int32)
+    bad[lay.sl("currentTerm")] = 2
+    bad[lay.sl("log_value")] = 0
+    bad[lay.sl("acked")] = 2
+    states[301] = bad
+    invs = tuple(model.invariants)
+    new = torch.ones(states.shape[0], dtype=torch.bool, device=dev)
+    new[::3] = False
+    jcount = torch.tensor([10], dtype=torch.int64, device=dev)
+    vk = torch.full((len(invs),), 2**31 - 1, dtype=torch.int64, device=dev)
+    vp = vk.clone()
+    raft_fold(model, states, new, jcount, vk, invs)
+    raft_fold_plain(model, states, new, jcount, vp, invs)
+    assert torch.equal(vk, vp)
+    k = invs.index("LeaderHasAllAckedValues")
+    assert int(vk[k]) <= 10 + int(new[:301].sum())
+
+
+def test_unknown_invariant_raises_on_the_card(dev):
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+
+    model = RaftModel(VARIANTS["core"])
+    model.invariants["NoCommit"] = lambda s: (model.layout.get(s, "commitIndex") == 0).all(1)
+    with pytest.raises(KeyError, match="no kernel predicate"):
+        DeviceBFS(model, invariants=("NoCommit",), chunk=64, frontier_cap=64, device=dev)
+
+
+def test_violation_trace_replay_card_equals_cpu(dev):
+    """FlexibleRaft with quorums that need not intersect: the violation,
+    its gid and depth, and the trace replayed through one-lane
+    guard/apply launches equal the CPU run's."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+
+    p = RaftParams(n_servers=3, n_values=1, max_elections=2, max_restarts=0, msg_slots=16,
+                   election_quorum=2, replication_quorum=1, strict_send_once=True,
+                   has_pending_response=False, trunc_term_mismatch=True)
+    caps = dict(chunk=256, frontier_cap=1 << 13, journal_cap=1 << 14, max_seen_cap=1 << 20,
+                canon_memo_cap=1 << 12)
+    before = kernels.RAFT_APPLY.launches
+    rg = DeviceBFS(RaftModel(p), invariants=INV, device=dev, **caps).run()
+    rc = DeviceBFS(RaftModel(p), invariants=INV, device="cpu", **caps).run()
+    assert rg.violation is not None and rg.violation == rc.violation
+    assert rg.trace == rc.trace and len(rg.trace) == rg.violation.depth + 1
+    assert (rg.distinct, rg.total, rg.depth_counts) == (rc.distinct, rc.total, rc.depth_counts)
+    assert kernels.RAFT_APPLY.launches > before

@@ -116,4 +116,5 @@ def test_wrappers_route_by_device():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.require(torch.zeros(3), torch.float32, "x")
     assert set(kernels.launch_counts()) == {
-        "canon_memo", "probe_runs", "compact_append", "merge_runs"}
+        "canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
+        "raft_apply", "raft_fold"}
