@@ -10,28 +10,39 @@ Phases, each of which fails the run on any mismatch:
   3. each kernel against its plain PyTorch version on the card, at the
      main path's shapes, compared exactly (integers), with CUDA-event
      times of the kernel, the plain version and, where one exists, a
-     single PyTorch library call, beside the kernel's bound;
-     The Raft expand kernels (raft_guard, raft_apply, raft_fold) are
-     held the same way on a chunk of the depth-20 Raft.cfg frontier and
-     on chunks of reachable RaftFsync and FlexibleRaft states, and
-     torch.sort (the run emit, still a library call) is timed beside its
-     bound;
+     single PyTorch library call, beside the kernel's bound. The Raft
+     expand kernels (raft_guard, raft_apply, raft_fold) are held the same
+     way on a chunk of the depth-20 Raft.cfg frontier and on chunks of
+     reachable RaftFsync, FlexibleRaft and five-server states; chunk_sort
+     on a chunk of the Raft.cfg path and of the five-server path;
+     canon_tiered (memo cold and warm) and canon_signatures on a chunk of
+     the depth-9 five-server frontier, canon_signatures on the Raft.cfg
+     chunk too;
   4. the main path: standard-raft Raft.cfg (inline text) checked through
      the function the CLI calls, on cuda, to exhaustion — 8,664,032
      distinct / 30,708,266 total / depth 48 / 19,514 terminal, no
-     violation — with every kernel's launch count read around that run,
-     the three expand kernels launched once per chunk and the plain
-     ``RaftModel.expand`` never called;
+     violation — with every kernel's launch count read around that run:
+     each kernel of the path launched, the per-chunk kernels once per
+     chunk, and neither the plain ``RaftModel.expand`` nor a torch sort
+     called (both counted by wrapping them for the length of the run);
+  4b. five-server Raft with SYMMETRY (BASELINE.json's second
+     configuration, msg_slots 64) to RAFT5_DEPTH through the same
+     function, held the same way (canon_tiered in canon_memo's place),
+     its depth counts equal to the reference's pinned ones through depth
+     11; distinct/s and peak device memory reported;
   5. FlexibleRaft with quorums that need not intersect (3 servers,
      ElectionQuorumSize 2, ReplicationQuorumSize 1): the
      LeaderHasAllAckedValues violation, its gid, depth and trace on the
      card equal the CPU run's;
   5b. RaftFsync (3 servers, the reference cfg's fsync policy) to depth
-     24: counts, depth counts and coverage on the card equal the CPU
-     run's;
-  6. where the time goes: the same entry point to depth 20 once untimed
-     by a tracer (wall per chunk) and once under torch.profiler (device
-     time per chunk by kernel group, the device's busy share);
+     24, and 5c. five-server FlexibleRaft at the published quorums to
+     FLEX5_DEPTH: counts, depth counts and coverage on the card equal the
+     CPU run's;
+  6. where the time goes: Raft.cfg to depth 20 and five-server Raft to
+     the pinned depth 11 (its distinct, total, depth counts and coverage
+     equal to the reference's), each once untraced (wall per chunk) and
+     once under torch.profiler (device time per chunk by kernel group,
+     the device's busy share);
   7. the kernel table as one JSON line, the card's name and power limit,
      and the result line.
 """
@@ -93,6 +104,53 @@ FSYNC_CFG = RAFT_CFG.replace(
     "    FollowerFsyncBeforeReply = TRUE\n")
 FSYNC_DEPTH = 24
 
+# BASELINE.json's second configuration (scripts/bench_rows.py row 2):
+# standard-raft with 5 servers, 5 values, MaxElections 4, MaxRestarts 0
+RAFT5_CFG = RAFT_CFG.replace(
+    "\\* standard-raft/Raft.cfg", "\\* standard-raft/Raft.tla, 5 servers (BASELINE.json)").replace(
+    "    v1 = v1\n    Server = { n1, n2, n3 }\n    Value = { v1 }\n",
+    "    n4 = n4\n    n5 = n5\n    v1 = v1\n    v2 = v2\n    v3 = v3\n    v4 = v4\n"
+    "    v5 = v5\n    Server = { n1, n2, n3, n4, n5 }\n    Value = { v1, v2, v3, v4, v5 }\n",
+).replace("    MaxElections = 2\n", "    MaxElections = 4\n")
+RAFT5_SLOTS = 64  # W = 334 lanes, A = 129 candidates
+# five servers enable about 16 actions per state (15.6 on average at depth
+# 8, 17 at most), so a wave overflows the engine's default worklist of 16
+# lanes per state and is redone at 32 (VC = 131,072; the redone chunks
+# count as chunks). The frontier may grow to 26,497,024 rows of 1,336 B,
+# the seen run and the journal to 2^26 (depth 14 adds about 25M states)
+RAFT5_CAPS = dict(max_frontier_cap=26_497_024, max_seen_cap=1 << 26, max_journal_cap=1 << 26)
+# the reference's dense DeviceBFS through depth 11 (scripts/pin_raft5_counts.py;
+# the same distinct and total as BENCH_ROWS.json row2 records)
+RAFT5_PIN = dict(
+    depth_counts=[1, 1, 3, 10, 39, 159, 697, 3031, 12903, 52642, 203798, 743095],
+    distinct=1_016_379, total=4_152_443,
+    coverage=[[0, 0, 0], [52283, 261304, 39599], [174, 174, 173], [111, 470, 425],
+              [0, 0, 0], [111, 404, 245], [269535, 1917037, 395174],
+              [271648, 1704842, 438985], [177083, 268189, 141756], [1, 1, 1],
+              [19, 20, 19], [1, 1, 1]],
+)
+# the depth of the five-server run (phase 4b; it goes past the pinned
+# depth, whose counts it is held to), of the sample for phase 3, and of
+# the five-server FlexibleRaft card-vs-CPU run (phase 5c). Device memory,
+# not time, bounds RAFT5_DEPTH: depth 14 takes about 6 s and 68 GiB at
+# peak on one H100 80GB (its 24,815,622-row frontier, 33 GB, is held
+# twice), and depth 15's frontier (about 3x as many rows, some 100 GB)
+# would not fit once
+RAFT5_DEPTH = 14
+RAFT5_SAMPLE_DEPTH = 9
+FLEX5_DEPTH = 9
+# FlexibleRaft at the published quorums (FlexibleRaft.cfg: 5 servers,
+# ElectionQuorumSize 3, ReplicationQuorumSize 4) with 2 values,
+# MaxElections 2 and MaxRestarts 0
+FLEX5_CFG = RAFT5_CFG.replace(
+    "standard-raft/Raft.tla, 5 servers (BASELINE.json)",
+    "flexible-raft/FlexibleRaft.tla, the published quorums").replace(
+    "    v3 = v3\n    v4 = v4\n    v5 = v5\n", "").replace(
+    "    Value = { v1, v2, v3, v4, v5 }\n", "    Value = { v1, v2 }\n").replace(
+    "    MaxElections = 4\n    MaxRestarts = 0\n",
+    "    MaxElections = 2\n    MaxRestarts = 0\n    ElectionQuorumSize = 3\n"
+    "    ReplicationQuorumSize = 4\n")
+
 # (distinct, total, depth, terminal) of Raft.cfg: exhausted, and at depth
 # 20 (the sample and trace runs), pinned from the reference's dense path
 EXHAUSTED = (8_664_032, 30_708_266, 48, 19_514)
@@ -112,10 +170,23 @@ KERNEL_NAMES = {
     "raft_guard": ("raft_guard_kernel",),
     "raft_apply": ("raft_apply_kernel",),
     "raft_fold": ("raft_fold_lanes", "raft_fold_viol"),
+    "chunk_sort": ("cs_tile_sort", "cs_merge", "cs_flags", "cs_emit"),
+    "canon_tiered": ("canon_tiered_kernel", "ct_memo_insert"),
+    "canon_signatures": ("canon_signatures_kernel",),
 }
+# the kernels each path launches (canon_signatures serves the checks only)
+RAFT3_PATH = ("canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
+              "raft_apply", "raft_fold", "chunk_sort")
+RAFT5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in RAFT3_PATH)
 # state fields the invariants of the cfgs here read (NoLogDivergence,
 # LeaderHasAllAckedValues): the part of a row raft_fold must load
 INVARIANT_FIELDS = ("currentTerm", "state", "log_term", "log_value", "commitIndex", "acked")
+
+
+def setup_servers(text: str) -> list[str]:
+    from raft_tpu_torch.utils.cfg import parse_cfg
+
+    return parse_cfg("x.cfg", text=text).server_like("Server")
 
 
 def fail(msg: str):
@@ -230,7 +301,7 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
     errs.append(exact(torch, flatc, raft_apply_plain(model, batch, sel)))
     memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
     fps, _ = bfs.canon.fingerprints_memo(flatc, sel < C * A, memo)
-    new = bfs._st_dedup(fps, [bfs._seen])
+    new, _ = bfs._st_dedup(fps, [bfs._seen])
     jcount = torch.tensor([123_456], dtype=torch.int64, device=dev)
     invs = bfs.invariants
     fold_args = dict(cov=None, sel=sel, valid=valid, rank=rank)
@@ -302,6 +373,234 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
     return rows
 
 
+def chunk_lanes(torch, bfs, pool, rng):
+    """One chunk of CHUNK states drawn from ``pool`` through the engine's
+    own stages: the successor rows and their valid mask (guard, compact,
+    apply), their canonical fingerprints (a fresh 2^21-row memo) and
+    their fresh flags against ``bfs``'s seen run."""
+    from raft_tpu_torch.checker.util import probe_runs
+    from raft_tpu_torch.ops.hashing import INT64_MAX
+
+    dev = bfs.device
+    batch = torch.from_numpy(np.ascontiguousarray(pool[rng.integers(0, len(pool), CHUNK)])).to(dev)
+    cov = torch.zeros((len(bfs.model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
+    ex = bfs._st_expand(batch, 0, CHUNK, cov)
+    flatc, selv = ex[0], ex[2]
+    check(not bool(ex[8]), "the sampled chunk overflows its worklist")
+    memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    fps, _ = bfs._st_canon(flatc, selv, memo)
+    return flatc, selv, fps, probe_runs(fps, [bfs._seen])
+
+
+def chunk_sort_row(torch, fps, fresh, run_len, timed: bool) -> dict:
+    """chunk_sort against its plain version (the two torch.sort calls it
+    replaces) on one chunk, exactly; with ``timed`` the times, torch.sort
+    with the index as the library call, and the bound: keys (8 B) and
+    fresh (1 B) read once, new (1 B) and the run (8 B) written once."""
+    from raft_tpu_torch.checker.util import chunk_sort, chunk_sort_plain
+    from raft_tpu_torch.ops.hashing import INT64_MAX
+
+    nk, rk = chunk_sort(fps, fresh, run_len)
+    np_, rp = chunk_sort_plain(fps, fresh, run_len)
+    err = max(exact(torch, nk, np_), exact(torch, rk, rp))
+    check(err == 0.0, "chunk_sort differs from its plain version")
+    n = fps.numel()
+    print(f"[3] chunk_sort exact on {n} lanes ({int(nk.sum())} new, "
+          f"{int((fps == INT64_MAX).sum())} at the sentinel)")
+    if not timed:
+        return {}
+    return dict(
+        ms=time_ms(torch, lambda: chunk_sort(fps, fresh, run_len), iters=50),
+        plain_ms=time_ms(torch, lambda: chunk_sort_plain(fps, fresh, run_len), iters=50),
+        library_ms=time_ms(torch, lambda: torch.sort(fps, stable=True), iters=50),
+        bound_ms=(n * 8 + n + n + run_len * 8) / MEM_BPS * 1e3, bound_by="bytes",
+        max_abs_err=err, lanes=n)
+
+
+def tier_pairs(torch, canon, states):
+    """Per lane of ``states``, counted from its data: the fmix32 pairs of
+    its signatures, of one hash of its view (the raw key, or one permuted
+    hash: K non-bag lanes + 3 words per occupied slot) and the number of
+    its admissible permutations."""
+    lay, S, R = canon.layout, canon.S, 3
+    occ = (states[:, lay.sl("msg_hi")] != 1 << 30).sum(1)
+    kinds = [f.kind for f in lay.fields.values() if f.offset < canon.VL]
+    ps_lanes = sum(f.size for f in lay.fields.values()
+                   if f.kind == "per_server" and f.offset < canon.VL)
+    n_val, n_bm, n_pair = (kinds.count(k) for k in
+                           ("per_server_val", "server_bitmask", "per_server_pair"))
+    NF = len(canon._host["fields"])  # the message server fields
+    per_state = (ps_lanes + S * kinds.count("per_server") + 2 * S * (n_val + n_bm)
+                 + (S + 2 * S * (S - 1)) * n_pair + R * (S * n_val + S * S * n_bm
+                                                         + 2 * S * S * n_pair + S))
+    sig = per_state + occ * (3 + NF + R * (3 + 2 * NF))
+    ssig = canon.signatures_plain(states)[:, canon._tensors(states.device)["inv"]]
+    n_adm = (ssig[..., 1:] >= ssig[..., :-1]).all(dim=-1).sum(1)
+    return sig, canon._K + 3 * occ, n_adm
+
+
+def tiered_rows(torch, canon, flatc, selv, timed: bool) -> dict:
+    """canon_tiered (memo cold, then warm) and canon_signatures against
+    their plain versions on one chunk's successor rows, exactly; with
+    ``timed`` their times and bounds (operations: ~12 integer ops per
+    fmix32 of the two streams of every pair tier_pairs counts; bytes: the
+    view lanes read once, each memo row the lanes map to read and written
+    once, the outputs written once)."""
+    from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
+
+    dev = flatc.device
+    memo_k = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    memo_p = memo_k.clone()
+    errs, hits = [], []
+    for _ in range(2):  # cold, then warm
+        fk, hk = canon.fingerprints_memo_cuda(flatc, selv, memo_k)
+        fp, hp = canon.fingerprints_memo_plain(flatc, selv, memo_p)
+        errs += [exact(torch, fk, fp), exact(torch, memo_k, memo_p)]
+        check(int(hk) == int(hp), f"canon_tiered hit counts {int(hk)} != {int(hp)}")
+        hits.append(int(hk))
+    sk, sp = canon.signatures(flatc), canon.signatures_plain(flatc)
+    err_sig = exact(torch, sk, sp)
+    check(max(errs) == 0.0, "canon_tiered differs from its plain version")
+    check(err_sig == 0.0, "canon_signatures differs from its plain version")
+    n = int(selv.sum())
+    sig, one_hash, n_adm = tier_pairs(torch, canon, flatc)
+    adm = n_adm[selv]
+    print(f"[3] canon_tiered, canon_signatures exact on {flatc.shape[0]} lanes ({n} valid; "
+          f"memo hits cold {hits[0]}, warm {hits[1]}); admissible permutations per valid "
+          f"lane: mean {adm.double().mean().item():.3f}, max {int(adm.max())}, "
+          f"{int((adm > 1).sum())} lanes with ties")
+    if not timed:
+        return {}
+    B, VL = flatc.shape[0], canon.VL
+    slots = torch.unique(memo_slot(canon.raw_fingerprints(flatc[selv]), memo_k.shape[0])).numel()
+    io_bytes = B * VL * 4 + B + 2 * slots * 16 + B * 8
+    # every lane hashes its raw key; a cold valid lane also its signatures
+    # and one permuted hash per admissible permutation; canon_signatures
+    # computes every lane's signatures
+    raw_ops = 24 * int(one_hash.sum())
+    cold_ops = raw_ops + 24 * int((sig + one_hash * n_adm)[selv].sum())
+    sig_ops = 24 * int(sig.sum())
+    reset = lambda: memo_k.fill_(INT64_MAX)  # noqa: E731
+    return {
+        "canon_tiered": dict(
+            ms=time_ms(torch, lambda: canon.fingerprints_memo_cuda(flatc, selv, memo_k),
+                       setup=reset),
+            plain_ms=time_ms(torch, lambda: canon.fingerprints_memo_plain(flatc, selv, memo_k),
+                             iters=3, setup=reset),
+            warm_ms=time_ms(torch, lambda: canon.fingerprints_memo_cuda(flatc, selv, memo_k)),
+            bound_ms=max(io_bytes / MEM_BPS, cold_ops / INT32_OPS) * 1e3,
+            bound_by="operations" if cold_ops / INT32_OPS > io_bytes / MEM_BPS else "bytes",
+            warm_bound_ms=max(io_bytes / MEM_BPS, raw_ops / INT32_OPS) * 1e3, library_ms=None,
+            max_abs_err=max(errs), lanes=B),
+        "canon_signatures": dict(
+            ms=time_ms(torch, lambda: canon.signatures(flatc)),
+            plain_ms=time_ms(torch, lambda: canon.signatures_plain(flatc), iters=3),
+            bound_ms=max((B * VL * 4 + B * canon.S * 8) / MEM_BPS, sig_ops / INT32_OPS) * 1e3,
+            bound_by="operations" if sig_ops / INT32_OPS > (B * VL * 4 + B * canon.S * 8)
+            / MEM_BPS else "bytes",
+            library_ms=None, max_abs_err=err_sig, lanes=B),
+    }
+
+
+def counted_run(torch, cfg_name, text, **kw):
+    """run_check on the card with every kernel's count set to 0 just
+    before and read just after, the plain RaftModel.expand and torch's
+    sorts counted by wrapping them for the length of the run. Returns
+    (setup, bfs, res, wall s, launches, expand calls, sort calls)."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.__main__ import run_check
+    from raft_tpu_torch.models.raft import RaftModel
+
+    calls = {"expand": 0, "sort": 0}
+    saved = {"expand": RaftModel.expand, "sort": (torch.sort, torch.argsort, torch.Tensor.sort,
+                                                    torch.Tensor.argsort)}
+
+    def counting(fn, key):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    RaftModel.expand = counting(saved["expand"], "expand")
+    torch.sort, torch.argsort = (counting(f, "sort") for f in saved["sort"][:2])
+    torch.Tensor.sort, torch.Tensor.argsort = (counting(f, "sort") for f in saved["sort"][2:])
+    kernels.reset_counts()
+    try:
+        t = time.perf_counter()
+        setup, bfs, res = run_check(cfg_name, text=text, device="cuda", chunk=CHUNK, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = kernels.launch_counts()
+    finally:
+        RaftModel.expand = saved["expand"]
+        torch.sort, torch.argsort = saved["sort"][:2]
+        torch.Tensor.sort, torch.Tensor.argsort = saved["sort"][2:]
+    return setup, bfs, res, wall, launches, calls["expand"], calls["sort"]
+
+
+def check_path(launches, path, chunks, expand_calls, sort_calls, name):
+    """Every kernel of ``path`` launched, the per-chunk kernels once per
+    chunk, the canon and the fold once more for the initial states, and
+    neither the plain expand nor a torch sort on the path."""
+    for k in path:
+        check(launches[k] > 0, f"{name}: kernel {k} was never launched on the path")
+    for k in ("probe_runs", "raft_guard", "raft_apply", "chunk_sort"):
+        check(launches[k] == chunks, f"{name}: {launches[k]} {k} launches != {chunks} chunks")
+    check(launches["raft_fold"] == chunks + 1,
+          f"{name}: {launches['raft_fold']} raft_fold launches != {chunks} chunks + 1")
+    canon = path[0]
+    check(launches[canon] == chunks + 1,
+          f"{name}: {launches[canon]} {canon} launches != {chunks} chunks + 1")
+    for k in set(KERNEL_NAMES) - set(path):
+        check(launches[k] == 0, f"{name}: {k} launched off its path")
+    check(expand_calls == 0, f"{name}: the plain RaftModel.expand ran {expand_calls} times")
+    check(sort_calls == 0, f"{name}: torch sorted {sort_calls} times on the chunk path")
+    print(f"[{name}] raft_guard, raft_apply, probe_runs, chunk_sort: one launch per chunk; "
+          f"{canon}, raft_fold: one per chunk and one for the initial states; "
+          f"RaftModel.expand called {expand_calls} times, torch sorts {sort_calls}")
+
+
+def trace_run(torch, cfg_name, text, depth, want, **kw) -> dict:
+    """The CLI's function to ``depth`` once untraced (wall per chunk) and
+    once under torch.profiler (device time per chunk by kernel group, the
+    device's busy share); both runs' (distinct, total, depth, terminal)
+    must equal ``want``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.__main__ import run_check
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, b, r = run_check(cfg_name, text=text, device="cuda", chunk=CHUNK, max_depth=depth,
+                            **kw)
+        torch.cuda.synchronize()
+        got = (r.distinct, r.total, r.depth, r.terminal)
+        check(got == want, f"{cfg_name} depth-{depth} counts {got} != {want}")
+        chunks = sum(-(-n // CHUNK) for n in r.depth_counts[:-1]) + b.redone_chunks
+        return time.perf_counter() - t, chunks, r
+
+    wall, chunks, res = run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced, _, _ = run()
+    trace = {"depth": depth, "chunks": chunks, "wall_ms_per_chunk": wall * 1e3 / chunks,
+             "traced_wall_ms_per_chunk": traced * 1e3 / chunks,
+             "distinct_per_s_untraced": res.distinct / wall}
+    dt = device_time(torch, prof)
+    if dt is None:
+        trace["device"] = "not measured: the tracer saw no device activity"
+    else:
+        busy, groups = dt
+        trace.update({
+            "device_ms_per_chunk": busy / chunks,
+            "device_busy_share_untraced": busy / (wall * 1e3),
+            "device_busy_share_traced": busy / (traced * 1e3),
+            "device_ms_per_chunk_by_group": {
+                k: v / chunks for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
+        })
+    return trace, res
+
+
 def device_time(torch, prof) -> tuple[float, dict] | None:
     """(busy ms, ms by kernel group) of the CUDA activity in a trace, or
     None where the tracer saw no device activity."""
@@ -350,7 +649,6 @@ def main() -> int:
         append_rows, append_rows_plain, compact_indices, dense_prefix_sel,
         probe_runs, probe_runs_plain,
     )
-    from raft_tpu_torch.models.raft import RaftModel
     from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
     from raft_tpu_torch.ops.packing import EMPTY
     from raft_tpu_torch.ops.symmetry import permute_states
@@ -539,7 +837,8 @@ def main() -> int:
     del seen, ladder, runs, present, top, mk, mp, buf_k, buf_p, src, memo_k, memo_p
 
     # the Raft expand kernels: a chunk of the depth-20 Raft.cfg frontier
-    # (timed), then chunks of reachable RaftFsync and FlexibleRaft states
+    # (timed), then chunks of reachable RaftFsync, FlexibleRaft and
+    # five-server states
     rows.update(expand_kernels(torch, bfs20, pool, rng, timed=True))
     sort_row = rows.pop("torch_sort")
     for cfg_name, text, depth in (("RaftFsync.cfg", FSYNC_CFG, FSYNC_DEPTH),
@@ -547,38 +846,50 @@ def main() -> int:
         _, b, r = run_check(cfg_name, text=text, device="cuda", chunk=CHUNK, max_depth=depth)
         expand_kernels(torch, b, b.frontier_rows.cpu().numpy(), rng, timed=False)
         del b
+
+    # chunk_sort on a chunk of the Raft.cfg main path (timed); canon_tiered,
+    # canon_signatures and chunk_sort on a chunk of the five-server frontier
+    # at depth RAFT5_SAMPLE_DEPTH (timed)
+    flatc3, _, fps3, fresh3 = chunk_lanes(torch, bfs20, pool, rng)
+    rows["chunk_sort"] = chunk_sort_row(torch, fps3, fresh3, bfs20.R0, timed=True)
+    # the signatures are defined for any server count: canon_signatures on
+    # the Raft.cfg chunk too (its canon stays canon_memo's full-S! min)
+    check(exact(torch, canon.signatures(flatc3), canon.signatures_plain(flatc3)) == 0.0,
+          "canon_signatures differs from its plain version at three servers")
+    print(f"[3] canon_signatures exact on the Raft.cfg chunk ({flatc3.shape[0]} lanes)")
+    del flatc3
+    del bfs20
+    t = time.perf_counter()
+    _, bfs5s, r5s = run_check("Raft.cfg", text=RAFT5_CFG, device="cuda", chunk=CHUNK,
+                              msg_slots=RAFT5_SLOTS, max_depth=RAFT5_SAMPLE_DEPTH,
+                              caps=RAFT5_CAPS)
+    check(r5s.depth_counts == RAFT5_PIN["depth_counts"][:RAFT5_SAMPLE_DEPTH + 1],
+          f"five-server sample depth counts {r5s.depth_counts}")
+    pool5 = bfs5s.frontier_rows.cpu().numpy()
+    print(f"[3] sampled the depth-{RAFT5_SAMPLE_DEPTH} five-server frontier ({len(pool5)} "
+          f"states) in {time.perf_counter() - t:.1f} s")
+    expand_kernels(torch, bfs5s, pool5, rng, timed=False)
+    flatc5, selv5, fps5, fresh5 = chunk_lanes(torch, bfs5s, pool5, rng)
+    rows.update(tiered_rows(torch, bfs5s.canon, flatc5, selv5, timed=True))
+    sort5 = chunk_sort_row(torch, fps5, fresh5, bfs5s.R0, timed=True)
+    del bfs5s, flatc5
     for k, r in rows.items():
         print(f"[3] {k}: exact; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               + (f"; warm (all hits) {r['warm_ms']:.4f} ms" if "warm_ms" in r else "")
+              + (f", bound {r['warm_bound_ms']:.4f} ms" if "warm_bound_ms" in r else "")
               + (f"; append_rows {r['rows_ms']:.4f} ms vs plain {r['rows_plain_ms']:.4f}"
                  f" ms, bound {r['rows_bound_ms']:.4f} ms" if "rows_ms" in r else ""))
+    print(json.dumps({"chunk_sort_five_servers": sort5}))
 
     # ---- 4. the main path ----
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    # the plain expand (under the plain guard and apply) must not run: count
-    # its calls by wrapping the method for the length of the run
-    plain_expand = RaftModel.expand
-    expand_calls = [0]
-
-    def counted_expand(self, states):
-        expand_calls[0] += 1
-        return plain_expand(self, states)
-
-    RaftModel.expand = counted_expand
-    kernels.reset_counts()
-    try:
-        t = time.perf_counter()
-        setup, bfs, res = run_check("Raft.cfg", text=RAFT_CFG, device="cuda", chunk=CHUNK)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = kernels.launch_counts()
-    finally:
-        RaftModel.expand = plain_expand
+    setup, bfs, res, wall, launches, expand_calls, sort_calls = counted_run(
+        torch, "Raft.cfg", RAFT_CFG)
     got = (res.distinct, res.total, res.depth, res.terminal)
-    chunks = sum(-(-n // CHUNK) for n in res.depth_counts)
+    chunks = sum(-(-n // CHUNK) for n in res.depth_counts) + bfs.redone_chunks
     print(f"[4] Raft.cfg: distinct={res.distinct} total={res.total} depth={res.depth} "
           f"terminal={res.terminal} exhausted={res.exhausted} in {wall:.2f} s "
           f"({res.distinct / wall:.0f} distinct/s, {chunks} chunks, "
@@ -587,21 +898,40 @@ def main() -> int:
     print(json.dumps({"launches": launches}))
     check(res.violation is None, f"unexpected violation {res.violation}")
     check(res.exhausted and got == EXHAUSTED, f"exhaustion counts {got} != {EXHAUSTED}")
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was never launched on the main path")
-    check(launches["probe_runs"] == chunks, f"{launches['probe_runs']} probes != {chunks} chunks")
-    for k in ("raft_guard", "raft_apply"):
-        check(launches[k] == chunks, f"{launches[k]} {k} launches != {chunks} chunks")
-    # raft_fold: once per chunk, and once for the initial-state check
-    check(launches["raft_fold"] == chunks + 1,
-          f"{launches['raft_fold']} raft_fold launches != {chunks} chunks + 1")
-    check(expand_calls[0] == 0, f"the plain RaftModel.expand ran {expand_calls[0]} times")
-    print(f"[4] raft_guard, raft_apply: one launch per chunk; raft_fold: one per chunk and "
-          f"one for the initial states; RaftModel.expand called {expand_calls[0]} times")
+    check_path(launches, RAFT3_PATH, chunks, expand_calls, sort_calls, "4")
+    del bfs
+
+    # ---- 4b. five-server Raft with SYMMETRY to RAFT5_DEPTH ----
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, bfs5, res5, wall5, launches5, expand5, sort5_calls = counted_run(
+        torch, "Raft.cfg", RAFT5_CFG, msg_slots=RAFT5_SLOTS, max_depth=RAFT5_DEPTH,
+        caps=RAFT5_CAPS)
+    chunks5 = sum(-(-n // CHUNK) for n in res5.depth_counts[:-1]) + bfs5.redone_chunks
+    peak5 = torch.cuda.max_memory_allocated()
+    print(f"[4b] five-server Raft: distinct={res5.distinct} total={res5.total} "
+          f"depth={res5.depth} in {wall5:.2f} s ({res5.distinct / wall5:.0f} distinct/s, "
+          f"{chunks5} chunks, {bfs5.redone_chunks} of them redone after a worklist overflow, "
+          f"{wall5 * 1e3 / chunks5:.2f} ms/chunk), peak device memory "
+          f"{peak5 / 2**30:.2f} GiB, frontier {res5.depth_counts[-1]} rows of "
+          f"{bfs5.W * 4} B, memo hits {bfs5.memo_hits}")
+    print(json.dumps({"five_server_run": {
+        "depth_counts": res5.depth_counts, "distinct": res5.distinct, "total": res5.total,
+        "seconds": wall5, "distinct_per_s": res5.distinct / wall5, "chunks": chunks5,
+        "redone_chunks": bfs5.redone_chunks, "lanes_per_state": bfs5.VC // CHUNK,
+        "peak_device_bytes": peak5, "launches": launches5}}))
+    check(res5.violation is None and res5.depth == RAFT5_DEPTH,
+          f"five-server run: violation {res5.violation}, depth {res5.depth}")
+    pin = RAFT5_PIN["depth_counts"]
+    check(res5.depth_counts[:len(pin)] == pin,
+          f"five-server depth counts {res5.depth_counts[:len(pin)]} != the reference's {pin}")
+    check_path(launches5, RAFT5_PATH, chunks5, expand5, sort5_calls, "4b")
+    del bfs5
 
     # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
-    def small_run(cfg_name, text, device, depth=None):
-        return run_check(cfg_name, text=text, device=device, chunk=1024, max_depth=depth)[2]
+    def small_run(cfg_name, text, device, depth=None, **kw):
+        return run_check(cfg_name, text=text, device=device, chunk=1024, max_depth=depth,
+                         **kw)[2]
 
     vg, vc = (small_run("FlexibleRaft.cfg", FLEX_CFG, d) for d in ("cuda", "cpu"))
     check(vg.violation is not None and vg.violation.invariant == "LeaderHasAllAckedValues",
@@ -615,53 +945,46 @@ def main() -> int:
           f"gid {vg.violation.global_id}, {len(vg.trace)}-state trace, {vg.distinct} distinct: "
           "card == CPU")
 
-    # ---- 5b. RaftFsync to FSYNC_DEPTH: card vs CPU ----
-    t = time.perf_counter()
-    fg = small_run("RaftFsync.cfg", FSYNC_CFG, "cuda", FSYNC_DEPTH)
-    t_card = time.perf_counter() - t
-    t = time.perf_counter()
-    fc = small_run("RaftFsync.cfg", FSYNC_CFG, "cpu", FSYNC_DEPTH)
-    t_cpu = time.perf_counter() - t
-    got = (fg.distinct, fg.total, fg.depth, fg.terminal)
-    check(fg.violation is None and got == (fc.distinct, fc.total, fc.depth, fc.terminal),
-          f"RaftFsync counts {got} != CPU {(fc.distinct, fc.total, fc.depth, fc.terminal)}")
-    check(fg.depth_counts == fc.depth_counts and fg.coverage == fc.coverage,
-          "RaftFsync depth counts or coverage differ between the card and the CPU")
-    print(f"[5b] RaftFsync to depth {FSYNC_DEPTH}: distinct={fg.distinct} total={fg.total} "
-          f"terminal={fg.terminal}, depth counts and coverage: card == CPU "
-          f"(card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
-
-    # ---- 6. where the time goes: depth 20 untraced, then traced ----
-    from torch.profiler import ProfilerActivity, profile
-
-    def depth20():
-        torch.cuda.synchronize()
+    # ---- 5b. RaftFsync to FSYNC_DEPTH, 5c. five-server FlexibleRaft to
+    # FLEX5_DEPTH: card vs CPU ----
+    for tag, cfg_name, text, depth, kw in (
+            ("5b", "RaftFsync.cfg", FSYNC_CFG, FSYNC_DEPTH, {}),
+            ("5c", "FlexibleRaft.cfg", FLEX5_CFG, FLEX5_DEPTH,
+             dict(msg_slots=RAFT5_SLOTS, caps=RAFT5_CAPS))):
         t = time.perf_counter()
-        _, _, r = run_check("Raft.cfg", text=RAFT_CFG, device="cuda", chunk=CHUNK,
-                            max_depth=20)
-        torch.cuda.synchronize()
-        check((r.distinct, r.total, r.depth, r.terminal) == DEPTH20, "depth-20 counts")
-        return time.perf_counter() - t, sum(-(-n // CHUNK) for n in r.depth_counts[:-1])
+        fg = small_run(cfg_name, text, "cuda", depth, **kw)
+        t_card = time.perf_counter() - t
+        t = time.perf_counter()
+        fc = small_run(cfg_name, text, "cpu", depth, **kw)
+        t_cpu = time.perf_counter() - t
+        got = (fg.distinct, fg.total, fg.depth, fg.terminal)
+        check(fg.violation is None and fc.violation is None
+              and got == (fc.distinct, fc.total, fc.depth, fc.terminal),
+              f"{cfg_name} counts {got} != CPU {(fc.distinct, fc.total, fc.depth, fc.terminal)}")
+        check(fg.depth_counts == fc.depth_counts and fg.coverage == fc.coverage,
+              f"{cfg_name} depth counts or coverage differ between the card and the CPU")
+        print(f"[{tag}] {cfg_name} ({len(setup_servers(text))} servers) to depth {depth}: "
+              f"distinct={fg.distinct} total={fg.total} terminal={fg.terminal}, depth counts "
+              f"and coverage: card == CPU (card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
 
-    wall20, chunks20 = depth20()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced20, _ = depth20()
-    trace = {"chunks": chunks20, "wall_ms_per_chunk": wall20 * 1e3 / chunks20,
-             "traced_wall_ms_per_chunk": traced20 * 1e3 / chunks20}
-    dt = device_time(torch, prof)
-    if dt is None:
-        trace["device"] = "not measured: the tracer saw no device activity"
-    else:
-        busy, groups = dt
-        trace.update({
-            "device_ms_per_chunk": busy / chunks20,
-            "device_busy_share_untraced": busy / (wall20 * 1e3),
-            "device_busy_share_traced": busy / (traced20 * 1e3),
-            "device_ms_per_chunk_by_group": {
-                k: v / chunks20 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])},
-        })
-    print(f"[6] depth 20: {chunks20} chunks, {trace['wall_ms_per_chunk']:.3f} ms/chunk wall")
-    print(json.dumps({"trace": trace}))
+    # ---- 6. where the time goes: Raft.cfg to depth 20 and five-server Raft
+    # to the pinned depth, each untraced, then traced ----
+    traces = {}
+    traces["raft"], _ = trace_run(torch, "Raft.cfg", RAFT_CFG, 20, DEPTH20)
+    pin_depth = len(RAFT5_PIN["depth_counts"]) - 1
+    traces["raft5"], r5 = trace_run(
+        torch, "Raft.cfg", RAFT5_CFG, pin_depth,
+        (RAFT5_PIN["distinct"], RAFT5_PIN["total"], pin_depth, 0),
+        msg_slots=RAFT5_SLOTS, caps=RAFT5_CAPS)
+    check(r5.depth_counts == RAFT5_PIN["depth_counts"] and r5.coverage == RAFT5_PIN["coverage"],
+          "five-server depth counts or coverage at the pinned depth differ from the reference's")
+    print(f"[6] Raft.cfg depth 20: {traces['raft']['chunks']} chunks, "
+          f"{traces['raft']['wall_ms_per_chunk']:.3f} ms/chunk wall; five-server Raft depth "
+          f"{pin_depth}: distinct, total, depth counts and coverage equal the reference's, "
+          f"{traces['raft5']['chunks']} chunks, {traces['raft5']['wall_ms_per_chunk']:.3f} "
+          "ms/chunk wall")
+    print(json.dumps({"trace": traces["raft"]}))
+    print(json.dumps({"trace_five_servers": traces["raft5"]}))
 
     # ---- 7. results ----
     meta = {
@@ -675,10 +998,20 @@ def main() -> int:
         "raft_apply": ("raft_tpu_torch/csrc/raft_expand.cu", "raft_tpu/models/base.py:426"),
         "raft_fold": ("raft_tpu_torch/csrc/raft_fold.cu",
                       "raft_tpu/checker/device_bfs.py:501"),
+        "chunk_sort": ("raft_tpu_torch/csrc/chunk_sort.cu",
+                       "raft_tpu/checker/device_bfs.py:413"),
+        "canon_tiered": ("raft_tpu_torch/csrc/canon_tiered.cu",
+                         "raft_tpu/ops/symmetry.py:1081"),
+        "canon_signatures": ("raft_tpu_torch/csrc/canon_tiered.cu",
+                             "raft_tpu/ops/symmetry.py:581"),
     }
+    # launches: each kernel's count on the path that runs it (Raft.cfg's
+    # for the kernels both paths share); canon_signatures serves the checks
+    path_launches = {**{k: launches[k] for k in RAFT3_PATH},
+                     "canon_tiered": launches5["canon_tiered"], "canon_signatures": 0}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
-         "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": path_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]}
         for k, r in rows.items()

@@ -5,24 +5,26 @@ exploration semantics: identical distinct sets, gid numbering,
 first-occurrence tie-breaking, coverage and violation reporting.
 
 Pipeline per chunk of ``chunk`` frontier states (``_chunk_step``, which
-composes ``_st_expand`` (1-2), ``_st_canon`` (3), ``_st_dedup`` (4) and
-``_st_finish`` (5-7)):
+composes ``_st_expand`` (1-2), ``_st_canon`` (3), ``_st_dedup`` (4 and
+the run of 7) and ``_st_finish`` (5-6)):
   1. guard: valid/rank/ovf over the [chunk, A] candidate grid, with the
      chunk's enabled/fired coverage (``model.chunk_guards``; for Raft the
      raft_guard kernel)
   2. compact the valid lanes into a dense worklist (``compact_indices``,
      the compact_append kernel), then apply: successor rows for the
      worklist lanes only (``model.chunk_apply``; raft_apply)
-  3. canonical fingerprints through the canon memo (canon_memo kernel)
+  3. canonical fingerprints through the canon memo (canon_memo kernel;
+     canon_tiered from five servers)
   4. dedup: probe the seen run and this wave's ladder runs (probe_runs
-     kernel), then first occurrence within the chunk (stable sort)
+     kernel), then first occurrence within the chunk and the chunk's
+     sorted run of new fingerprints from one stable sort (chunk_sort)
   5. emit: append the survivors' rows at the device-side cursor of the
      next-frontier buffer, and their (parent gid, candidate) rows at the
      journal cursor (``append_rows``, the compact_append kernel)
   6. invariants on the new lanes, folding the first violating journal
      index per invariant, and the new-distinct coverage
      (``model.chunk_fold``; raft_fold)
-  7. the chunk's new fingerprints as one sorted run, inserted into a
+  7. the chunk's run of new fingerprints (from stage 4) inserted into a
      binary-counter ladder of sorted runs (merge_runs kernel)
 
 The reference runs a wave as one ``lax.while_loop``; here the host runs a
@@ -44,13 +46,13 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops.hashing import INT64_MAX, sort_fps, sort_fps_with_idx
+from ..ops.hashing import INT64_MAX
 from ..ops.symmetry import Canonicalizer
 from .bfs import CheckResult, Violation
 from .lsm import CanonMemo, merge_many, merge_runs, pow2_at_least
 from .util import (
-    GROWTH, HEADROOM, I32_MAX, append_rows, compact_indices, next_cap,
-    probe_runs,
+    GROWTH, HEADROOM, I32_MAX, append_rows, chunk_sort, compact_indices,
+    next_cap, probe_runs,
 )
 
 
@@ -69,7 +71,9 @@ class DeviceBFS:
     journal (see the module docstring). Capacities as in the reference:
       frontier_cap     per-wave distinct states (frontier buffer rows)
       journal_cap      total distinct states beyond Init (trace journal)
-      valid_per_state  compaction budget: worklist lanes per state
+      valid_per_state  compaction budget: worklist lanes per state (a
+                       wave whose worklist overflows is redone with it
+                       doubled, up to A: the reference's grow_for_overflow)
       max_*_cap        growth bounds (frontier/journal grow between
                        waves; the seen run grows through its size ladder)
     ``device`` defaults to ``cuda`` and raises without a card."""
@@ -112,20 +116,11 @@ class DeviceBFS:
         self.MAX_FCAP = max(max_frontier_cap, frontier_cap)
         self.MAX_SCAP = max(max_seen_cap, seen_cap)
         self.MAX_JCAP = max(max_journal_cap, journal_cap)
-        self.VC = min(chunk * self.A, chunk * valid_per_state)
         if chunk > frontier_cap or frontier_cap % chunk:
             raise ValueError("frontier_cap must be a multiple of chunk")
-        # seen-run geometry: one sorted run whose size climbs a x4 ladder
-        # from max(R0, 2^18) to TOPSZ (the reference's single-run design)
-        self.R0 = pow2_at_least(self.VC)
         self.TOPSZ = pow2_at_least(self.MAX_SCAP)
-        sizes = []
-        s = min(max(self.R0, 1 << 18), self.TOPSZ)
-        while s < self.TOPSZ:
-            sizes.append(s)
-            s <<= 2
-        sizes.append(self.TOPSZ)
-        self._seen_sizes = sizes
+        self._set_worklist(valid_per_state)
+        self.redone_chunks = 0  # chunks of waves redone after a worklist overflow
         self._seen: torch.Tensor | None = None
         self.canon = Canonicalizer.for_model(
             model, symmetry=symmetry, seed=fingerprint_seed)
@@ -135,6 +130,21 @@ class DeviceBFS:
         self._jparent = self._jcand = None
         self._jcount = 0
         self.frontier_rows: torch.Tensor | None = None  # last wave's states
+
+    def _set_worklist(self, valid_per_state: int) -> None:
+        """Worklist geometry: VC lanes per chunk, the R0-lane run of a
+        chunk's new fingerprints, and the seen run's size ladder (one
+        sorted run climbing x4 from max(R0, 2^18) to TOPSZ, the
+        reference's single-run design)."""
+        self.VC = self.chunk * min(self.A, valid_per_state)
+        self.R0 = pow2_at_least(self.VC)
+        sizes = []
+        s = min(max(self.R0, 1 << 18), self.TOPSZ)
+        while s < self.TOPSZ:
+            sizes.append(s)
+            s <<= 2
+        sizes.append(self.TOPSZ)
+        self._seen_sizes = sizes
 
     # ---------------- seen run ----------------
 
@@ -205,23 +215,18 @@ class DeviceBFS:
 
     def _st_dedup(self, fps, runs):
         """Stage 4: fresh against the seen run and this wave's ladder
-        runs, then the first occurrence within the chunk."""
-        fresh = probe_runs(fps, runs)
-        rf, order = sort_fps_with_idx(fps)
-        first_s = torch.ones(self.VC, dtype=torch.bool, device=self.device)
-        first_s[1:] = rf[1:] != rf[:-1]
-        first = torch.empty_like(first_s).scatter_(0, order, first_s)
-        return fresh & first
+        runs, then the first occurrence within the chunk and the chunk's
+        new fingerprints as one sorted R0-lane run, from one stable sort
+        (``chunk_sort``). Returns (new, new_run)."""
+        return chunk_sort(fps, probe_runs(fps, runs), self.R0)
 
-    def _st_finish(self, next_buf, jparent, jcand, viol, stats, cov, ex, fps,
-                   n_hit, new, cursor: int, base_gid: int):
-        """Stages 5-7: the cursor-append emit, the new-distinct coverage
-        and invariant fold, and the stats fold, all in place; returns the
-        chunk's new fingerprints as a sorted R0-lane run."""
+    def _st_finish(self, next_buf, jparent, jcand, viol, stats, cov, ex, n_hit,
+                   new, cursor: int, base_gid: int):
+        """Stages 5-6: the cursor-append emit, the new-distinct coverage
+        and invariant fold, and the stats fold, all in place."""
         (flatc, sel, _selv, valid, rank, n_gen, terminal, expand_ovf,
          compact_ovf) = ex
         A, VC = self.A, self.VC
-        dev = self.device
         n_new = new.sum()
         sel64 = sel.to(torch.int64)
 
@@ -248,13 +253,6 @@ class DeviceBFS:
         stats += torch.stack([n_new, n_new, n_gen, terminal, zero, n_hit])
         stats[4:5] |= ovf_bits
 
-        # the chunk's new fingerprints as one sorted R0-lane run
-        new_run = sort_fps(torch.where(new, fps, INT64_MAX))
-        if self.R0 > VC:
-            pad = torch.full((self.R0 - VC,), INT64_MAX, dtype=torch.int64, device=dev)
-            new_run = torch.cat([new_run, pad])
-        return new_run
-
     def _chunk_step(self, frontier, next_buf, jparent, jcand, viol, stats,
                     memo, cov, cursor: int, fcount: int, base_gid: int, runs):
         """One chunk of the current wave; every carry is updated in place
@@ -264,9 +262,10 @@ class DeviceBFS:
         as a sorted R0-lane run."""
         ex = self._st_expand(frontier, cursor, fcount, cov)
         fps, n_hit = self._st_canon(ex[0], ex[2], memo)
-        new = self._st_dedup(fps, runs)
-        return self._st_finish(next_buf, jparent, jcand, viol, stats, cov, ex,
-                               fps, n_hit, new, cursor, base_gid)
+        new, new_run = self._st_dedup(fps, runs)
+        self._st_finish(next_buf, jparent, jcand, viol, stats, cov, ex, n_hit, new,
+                        cursor, base_gid)
+        return new_run
 
     def _run_wave(self, frontier, next_buf, jparent, jcand, viol, stats, memo,
                   cov, fcount: int, base_gid: int):
@@ -316,26 +315,56 @@ class DeviceBFS:
 
     # ---------------- capacity growth ----------------
 
-    def _maybe_grow(self, ncount, frontier, next_buf, jparent, jcand, jcount):
-        """Between waves: enlarge any buffer the next wave could outgrow
-        (frontier speculatively by HEADROOM, journal exactly)."""
-        W, dev = self.W, self.device
+    def _rows(self, n: int) -> torch.Tensor:
+        return torch.zeros((n, self.W), dtype=torch.int32, device=self.device)
+
+    def _grow_journal(self, jparent, jcand, new: int):
+        z = torch.zeros(new + self.VC - jparent.numel(), dtype=torch.int32,
+                        device=self.device)
+        return torch.cat([jparent, z]), torch.cat([jcand, z])
+
+    def _next_buffers(self, bufs: list, ncount: int, jparent, jcand, jcount: int):
+        """Between waves: the wave's output becomes the next frontier, and
+        any buffer the next wave could outgrow is enlarged first (frontier
+        speculatively by HEADROOM, journal exactly). ``bufs`` is [frontier,
+        next_buf], emptied here so that the caller holds no reference: a
+        grown frontier never coexists with the dead input rows, and at
+        most the live rows and the two new buffers are held at once.
+        Returns (frontier, next_buf, jparent, jcand)."""
+        frontier, next_buf = bufs
+        bufs.clear()
         if ncount * self.HEADROOM > self.FCAP and self.FCAP < self.MAX_FCAP:
             new = next_cap(ncount * self.HEADROOM, self.FCAP, self.MAX_FCAP,
                            self.GROWTH, self.chunk)
-            pad = new - self.FCAP
-            frontier = torch.cat(
-                [frontier, torch.zeros((pad, W), dtype=torch.int32, device=dev)])
-            next_buf = torch.zeros((new + self.VC, W), dtype=torch.int32, device=dev)
+            del frontier  # the wave's input rows are dead
+            frontier = self._rows(new + self.VC)
+            frontier[:ncount] = next_buf[:ncount]
+            del next_buf
+            next_buf = self._rows(new + self.VC)
             self.FCAP = new
+        else:
+            frontier, next_buf = next_buf, frontier
         if jcount + ncount * self.HEADROOM > self.JCAP and self.JCAP < self.MAX_JCAP:
             new = next_cap(jcount + ncount * self.HEADROOM, self.JCAP,
                            self.MAX_JCAP, self.GROWTH, 1)
-            z = torch.zeros(new - self.JCAP, dtype=torch.int32, device=dev)
-            jparent = torch.cat([jparent, z])
-            jcand = torch.cat([jcand, z])
+            jparent, jcand = self._grow_journal(jparent, jcand, new)
             self.JCAP = new
         return frontier, next_buf, jparent, jcand
+
+    def _widen_worklist(self, bufs: list, jparent, jcand, fcount: int):
+        """Double the worklist lanes per state (up to A) after a wave
+        whose worklist overflowed, and size the buffers to the new VC; the
+        wave is then redone. ``bufs`` as in ``_next_buffers``."""
+        frontier, next_buf = bufs
+        bufs.clear()
+        self._set_worklist(2 * (self.VC // self.chunk))
+        del next_buf  # the overflowed wave's output is dropped
+        grown = self._rows(self.FCAP + self.VC)
+        grown[:fcount] = frontier[:fcount]
+        del frontier
+        jparent, jcand = self._grow_journal(jparent, jcand, self.JCAP)
+        self.redone_chunks += -(-fcount // self.chunk)
+        return grown, self._rows(self.FCAP + self.VC), jparent, jcand
 
     # ---------------- host loop ----------------
 
@@ -373,6 +402,7 @@ class DeviceBFS:
         next_buf, jparent, jcand, viol, stats, cov = self._wave_carries()
         n_inv = viol.numel()
         memo = self._memo.reset(dev)
+        self.redone_chunks = 0
 
         while fcount and violation is None:
             if max_depth is not None and depth >= max_depth:
@@ -387,12 +417,25 @@ class DeviceBFS:
                 raise CapacityOverflow(
                     "seen-set capacity overflow; raise max_seen_cap",
                     bits=self.SEEN_OVF_BIT, what=("seen",))
+            before = (stats.clone(), viol.clone(), cov.clone())
             ladder = self._run_wave(frontier, next_buf, jparent, jcand, viol,
                                     stats, memo, cov, fcount, base_gid)
             # the wave's one host read: stats, violations and coverage
             snap = torch.cat([stats, viol, cov.reshape(-1)]).cpu().numpy()
             stats_h, viol_h = snap[:6], snap[6:6 + n_inv]
             ncount, ovf_bits = int(stats_h[0]), int(stats_h[4])
+            if ovf_bits & 2 and not ovf_bits & 1 and self.VC < self.chunk * self.A:
+                # the worklist overflowed: redo the wave with it doubled
+                for t, b in zip((stats, viol, cov), before):
+                    t.copy_(b)
+                bufs = [frontier, next_buf]
+                del frontier, next_buf, ladder
+                frontier, next_buf, jparent, jcand = self._widen_worklist(
+                    bufs, jparent, jcand, fcount)
+                if verbose:
+                    print(f"depth {depth + 1}: worklist overflow, redone with "
+                          f"{self.VC // self.chunk} lanes per state", file=sys.stderr)
+                continue
             if ovf_bits:
                 raise CapacityOverflow(
                     f"device BFS capacity overflow (bits={ovf_bits:04b}: "
@@ -420,10 +463,11 @@ class DeviceBFS:
                         invariant=name, global_id=n0 + int(viol_h[k]), depth=depth)
                     break
             base_gid = n0 + int(stats_h[1]) - ncount
-            frontier, next_buf = next_buf, frontier
             fcount = ncount
-            frontier, next_buf, jparent, jcand = self._maybe_grow(
-                ncount, frontier, next_buf, jparent, jcand, scount - n0)
+            bufs = [frontier, next_buf]
+            del frontier, next_buf, ladder
+            frontier, next_buf, jparent, jcand = self._next_buffers(
+                bufs, ncount, jparent, jcand, scount - n0)
             if verbose:
                 el = time.perf_counter() - t0
                 print(f"depth {depth}: frontier {ncount}, distinct {distinct}, "

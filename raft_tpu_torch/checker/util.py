@@ -2,10 +2,13 @@
 of the chunk pipeline.
 
 Counterpart of ``raft_tpu/checker/util.py`` plus the lane-compaction and
-dedup steps of ``raft_tpu/checker/device_bfs.py``. Two kernels live here:
+dedup steps of ``raft_tpu/checker/device_bfs.py``. Three kernels live here:
 
   ``probe_runs``      (csrc/probe_runs.cu) membership of each fingerprint
                       in a set of sorted runs, folded with "fresh";
+  ``chunk_sort``      (csrc/chunk_sort.cu) one stable sort of the chunk's
+                      fingerprints: the first-occurrence dedup and the
+                      chunk's sorted run of new fingerprints;
   ``compact_append``  (csrc/compact_append.cu) with two entry points:
                       ``compact_indices`` (mask -> dense worklist) and
                       ``append_rows`` (cursor append into a buffer with a
@@ -23,12 +26,13 @@ import ctypes
 import torch
 
 from .. import kernels
-from ..ops.hashing import INT64_MAX
+from ..ops.hashing import INT64_MAX, sort_fps, sort_fps_with_idx
 
 GROWTH = 4  # enlarge factor per growth step
 HEADROOM = 3  # grow when the next wave could need more than cap/HEADROOM
 I32_MAX = 2**31 - 1  # "no violation" sentinel in journal folds
 MAX_RUNS = 32  # runs one probe_runs launch takes (csrc/probe_runs.cu)
+CHUNK_SORT_TILE = 2048  # pairs one chunk_sort block sorts (csrc/chunk_sort.cu)
 
 
 def next_cap(needed: int, cap: int, max_cap: int, growth: int, unit: int) -> int:
@@ -83,6 +87,56 @@ def probe_runs(fps: torch.Tensor, runs) -> torch.Tensor:
                           out.data_ptr(), fps.numel(), kernels.stream(fps.device))
     k.launched(rc)
     return out
+
+
+# ---------------- chunk_sort ----------------
+
+
+def chunk_sort_plain(fps: torch.Tensor, fresh: torch.Tensor, run_len: int):
+    """Plain version of ``chunk_sort``: the reference's two sorts
+    (``device_bfs.py:413-420`` first occurrence, ``:495`` run emit)."""
+    rf, order = sort_fps_with_idx(fps)
+    first_s = torch.ones_like(fresh)
+    first_s[1:] = rf[1:] != rf[:-1]
+    new = fresh & torch.empty_like(first_s).scatter_(0, order, first_s)
+    run = sort_fps(torch.where(new, fps, INT64_MAX))
+    if run_len > run.numel():
+        pad = torch.full((run_len - run.numel(),), INT64_MAX, dtype=torch.int64,
+                         device=fps.device)
+        run = torch.cat([run, pad])
+    return new, run
+
+
+def chunk_sort(fps: torch.Tensor, fresh: torch.Tensor, run_len: int):
+    """First occurrence and the sorted run of a chunk's fingerprints.
+
+    ``fps`` is enc int64 [n], ``fresh`` bool [n] (not in any seen run).
+    Returns ``(new, run)``: new[i] = fresh[i] and no lane before i holds
+    fps[i]; run = the fingerprints of the new lanes ascending, padded
+    with INT64_MAX to ``run_len`` (>= n) lanes."""
+    if run_len < fps.numel():
+        raise ValueError("chunk_sort: run_len must be at least len(fps)")
+    if kernels.route(fps) == "cpu":
+        return chunk_sort_plain(fps, fresh, run_len)
+    k = kernels.CHUNK_SORT
+    n = fps.numel()
+    kernels.require(fps, torch.int64, "fps", ndim=1)
+    kernels.require(fresh, torch.bool, "fresh", shape=(n,))
+    np_ = CHUNK_SORT_TILE
+    while np_ < n:
+        np_ <<= 1
+    dev = fps.device
+    keys = torch.empty((2, np_), dtype=torch.int64, device=dev)
+    idx = torch.empty((2, np_), dtype=torch.int32, device=dev)
+    blk = torch.empty(max(1, -(-n // 1024)), dtype=torch.int32, device=dev)
+    new = torch.empty(n, dtype=torch.bool, device=dev)
+    run = torch.empty(run_len, dtype=torch.int64, device=dev)
+    rc = k.lib.chunk_sort(fps.data_ptr(), fresh.data_ptr(), n, np_, keys[0].data_ptr(),
+                          idx[0].data_ptr(), keys[1].data_ptr(), idx[1].data_ptr(),
+                          blk.data_ptr(), new.data_ptr(), run.data_ptr(), run_len,
+                          kernels.stream(dev))
+    k.launched(rc)
+    return new, run
 
 
 # ---------------- compact_append: indices ----------------

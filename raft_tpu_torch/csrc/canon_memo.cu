@@ -20,13 +20,16 @@
 // A second launch lets only each slot's winner write its whole row (key and
 // value) and release the claim, so no row is ever torn: CUDA promises no
 // 16-byte single-copy atomicity, and the reference writes key+value in one
-// row scatter. Memo hit counts can differ from the reference (it also
+// row scatter (rt_memo_lane and rt_memo_insert_lane of common.cuh, shared
+// with canon_tiered). Memo hit counts can differ from the reference (it also
 // dedups equal raw keys inside a chunk); fingerprints cannot.
 //
 // Tables: the host (ops/symmetry.py Canonicalizer._kernel_tables) packs
 // the static per-permutation tables into one u32 buffer, staged into
 // shared memory per block; the block's state rows are staged too (row
-// stride VL+1 so threads hit distinct banks).
+// stride VL+1 so threads hit distinct banks), as many rows per block as
+// rt_rows_per_block (common.cuh) sizes from VL: 64 at Raft.cfg's 189 lanes,
+// down to 32 for wide rows.
 //
 // Bound: bytes at the main path's shapes (65,536 state rows of 192 lanes
 // read, the 2^21-row memo read and written once each), ahead of the
@@ -35,7 +38,7 @@
 // shared memory (coalesced loads) and skips the permutations on a hit.
 #include "common.cuh"
 
-#define CANON_THREADS 64
+#define CANON_THREADS_MAX 128  // rt_rows_per_block's most rows per block
 #define MAX_FIELDS 4
 #define EMPTY_WORD (1 << 30)
 
@@ -171,14 +174,8 @@ __device__ uint64_t canon_hash(const Params& p, const Tables& T, const int* v) {
   return best;
 }
 
-__device__ __forceinline__ int memo_slot(uint64_t raw, int mcap) {
-  uint32_t hi = (uint32_t)(raw >> 32), lo = (uint32_t)raw;
-  uint32_t idx = rt_mix32(lo ^ (rt_mix32(hi + RT_KB) + RT_KA));
-  return (int)(idx & (uint32_t)(mcap - 1));
-}
-
 template <int P>
-__global__ void __launch_bounds__(CANON_THREADS)
+__global__ void __launch_bounds__(CANON_THREADS_MAX)
 canon_memo_kernel(Params p, const uint32_t* __restrict__ gtab, int tab_words,
                   const int* __restrict__ states, int B, int W,
                   const bool* __restrict__ valid, const long long* __restrict__ memo,
@@ -187,63 +184,21 @@ canon_memo_kernel(Params p, const uint32_t* __restrict__ gtab, int tab_words,
                   unsigned long long* __restrict__ n_hit) {
   extern __shared__ uint32_t smem[];
   uint32_t* tab = smem;
-  int* srow = (int*)(smem + tab_words);
   for (int e = threadIdx.x; e < tab_words; e += blockDim.x) tab[e] = gtab[e];
-  const int VL = p.VL, stride = VL + 1;
-  const long long base = (long long)blockIdx.x * blockDim.x;
-  for (int e = threadIdx.x; e < blockDim.x * VL; e += blockDim.x) {
-    int r = e / VL, c = e - r * VL;
-    long long row = base + r;
-    srow[r * stride + c] = row < B ? states[row * W + c] : 0;
-  }
+  const int* v = rt_stage_rows((int*)(smem + tab_words), states, B, W, p.VL);
   __syncthreads();
   const Tables T = carve(tab, p);
-  const long long b = base + threadIdx.x;
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = b < B;
-  const int* v = srow + threadIdx.x * stride;
-
-  bool hit = false;
-  long long fp = RT_ENC_MAX, raw_enc = RT_ENC_MAX;
-  int slot = -1;
-  if (active) {
-    const uint64_t raw = raw_hash(p, T, v);
-    raw_enc = rt_enc(raw);
-    const bool ok = valid[b];
-    if (!p.sym) {
-      fp = ok ? raw_enc : RT_ENC_MAX;
-    } else if (ok) {
-      int s = memo_slot(raw, mcap);
-      hit = memo[2 * (long long)s] == raw_enc && raw_enc != RT_ENC_MAX;
-      if (hit) {
-        fp = memo[2 * (long long)s + 1];
-      } else {
-        fp = rt_enc(canon_hash<P>(p, T, v));
-        slot = s;
-        atomicMax(&claim[s], (int)b);
-      }
-    }
-  }
-  unsigned hits = __ballot_sync(0xffffffffu, hit);
-  if ((threadIdx.x & 31) == 0 && hits) atomicAdd(n_hit, (unsigned long long)__popc(hits));
-  if (active) {
-    fps[b] = fp;
-    raw_out[b] = raw_enc;
-    slot_out[b] = slot;
-  }
+  rt_memo_lane(active, p.sym != 0, valid, b, active ? raw_hash(p, T, v) : 0ull, memo, mcap,
+               claim, fps, raw_out, slot_out, n_hit, [&] { return canon_hash<P>(p, T, v); });
 }
 
-// the claimed slot's winner writes its whole row, then releases the claim
 __global__ void memo_insert_kernel(long long* __restrict__ memo, int* __restrict__ claim,
                                    const long long* __restrict__ fps,
                                    const long long* __restrict__ raw,
                                    const int* __restrict__ slot, int B) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int s = slot[b];
-  if (s < 0 || claim[s] != b) return;
-  memo[2 * (long long)s] = raw[b];
-  memo[2 * (long long)s + 1] = fps[b];
-  claim[s] = -1;
+  rt_memo_insert_lane(memo, claim, fps, raw, slot, B);
 }
 
 template <int P>
@@ -251,12 +206,12 @@ static cudaError_t launch(const Params& p, const uint32_t* tab, int tab_words, c
                           int B, int W, const bool* valid, long long* memo, int mcap, int* claim,
                           long long* fps, long long* raw, int* slot, unsigned long long* n_hit,
                           cudaStream_t s) {
-  size_t smem = (size_t)tab_words * 4 + (size_t)CANON_THREADS * (p.VL + 1) * 4;
-  cudaError_t e = cudaFuncSetAttribute(canon_memo_kernel<P>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int nt;
+  size_t smem;
+  cudaError_t e = rt_rows_per_block((const void*)canon_memo_kernel<P>, (size_t)tab_words * 4,
+                                    p.VL, &nt, &smem);
   if (e != cudaSuccess) return e;
-  int grid = (B + CANON_THREADS - 1) / CANON_THREADS;
-  canon_memo_kernel<P><<<grid, CANON_THREADS, smem, s>>>(
+  canon_memo_kernel<P><<<(B + nt - 1) / nt, nt, smem, s>>>(
       p, tab, tab_words, states, B, W, valid, memo, mcap, claim, fps, raw, slot, n_hit);
   return cudaGetLastError();
 }

@@ -38,6 +38,10 @@ _SIGNATURES = {
         "canon_memo": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                        _P, _P, _P],
     },
+    "canon_tiered": {
+        "canon_tiered": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+        "canon_signatures": [_P, _P, _I, _P, _I, _I, _P, _P],
+    },
     "probe_runs": {
         "probe_runs": [_P, _I, _P, _P, _P, _I, _P],
     },
@@ -47,6 +51,9 @@ _SIGNATURES = {
     },
     "merge_runs": {
         "merge_runs": [_P, _L, _P, _L, _P, _L, _P],
+    },
+    "chunk_sort": {
+        "chunk_sort": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "raft_expand": {
         "raft_guard": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
@@ -135,8 +142,11 @@ MERGE_RUNS = Kernel("merge_runs")
 RAFT_GUARD = Kernel("raft_guard", source="raft_expand")
 RAFT_APPLY = Kernel("raft_apply", source="raft_expand")
 RAFT_FOLD = Kernel("raft_fold")
+CHUNK_SORT = Kernel("chunk_sort")
+CANON_TIERED = Kernel("canon_tiered")
+CANON_SIGNATURES = Kernel("canon_signatures", source="canon_tiered")
 ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, RAFT_GUARD, RAFT_APPLY,
-       RAFT_FOLD)
+       RAFT_FOLD, CHUNK_SORT, CANON_TIERED, CANON_SIGNATURES)
 
 
 def build_all() -> dict[str, str]:

@@ -82,6 +82,24 @@ def test_frontier_overflow_raises():
     assert e.value.bits & 4 and "frontier" in e.value.what
 
 
+def test_worklist_overflow_redoes_the_wave():
+    # 2 worklist lanes per state overflow at the first wave; each such wave
+    # is redone with the lanes doubled (the reference's grow_for_overflow),
+    # and the run ends exactly as one that never overflowed
+    kw = dict(n_servers=3, n_values=1, max_elections=2, max_restarts=0, msg_slots=48)
+    runs = []
+    for vps in (2, 16):
+        bfs = DeviceBFS(RaftModel(TorchRaftParams(**kw)), invariants=INV, chunk=64,
+                        **{**SMALL, "valid_per_state": vps})
+        runs.append((bfs, bfs.run(max_depth=8)))
+    (grown, res), (plain, ref) = runs
+    assert grown.redone_chunks > 0 and grown.VC > 2 * grown.chunk
+    assert plain.redone_chunks == 0 and plain.VC == 16 * plain.chunk
+    assert (res.distinct, res.total, res.depth, res.terminal) == (446, 953, 8, ref.terminal)
+    assert res.depth_counts == ref.depth_counts and res.coverage == ref.coverage
+    assert torch.equal(grown.frontier_rows, plain.frontier_rows)
+
+
 def test_cpu_run_leaves_kernel_counts_alone():
     from raft_tpu_torch import kernels
 
@@ -90,3 +108,36 @@ def test_cpu_run_leaves_kernel_counts_alone():
                     msg_slots=8), depth=3)
     assert kernels.launch_counts() == before
     assert torch.get_default_device().type == "cpu"
+
+
+# five servers (BASELINE.json's second configuration, scripts/bench_rows.py
+# row 2) with a bag of 24 slots: through depth 6 at most 6 actions put at
+# most S - 1 = 4 records each, so no bag overflows
+FIVE = dict(n_servers=5, n_values=5, max_elections=4, max_restarts=0, msg_slots=24)
+
+
+def test_five_servers_match_reference():
+    res = _torch_run(FIVE, depth=6, chunk=512)
+    ref = JaxDeviceBFS(DenseShim(cached_model(RaftParams(**FIVE))), invariants=INV,
+                       chunk=512, frontier_cap=1 << 13, journal_cap=1 << 14).run(max_depth=6)
+    assert res.violation is None and ref.violation is None
+    assert (res.distinct, res.total, res.depth, res.terminal) == (
+        ref.distinct, ref.total, ref.depth, ref.terminal)
+    assert res.depth_counts == ref.depth_counts
+    assert res.coverage == ref.coverage
+
+
+@pytest.mark.slow
+def test_five_servers_pinned_depth_counts():
+    # the full-width configuration to the depth chip_smoke.py holds the
+    # card to; the counts come from the reference's dense DeviceBFS
+    # (scripts/pin_raft5_counts.py)
+    from chip_smoke import RAFT5_PIN
+
+    kw = dict(FIVE, msg_slots=64)
+    res = _torch_run(kw, depth=len(RAFT5_PIN["depth_counts"]) - 1, chunk=2048,
+                     frontier_cap=1 << 20, journal_cap=1 << 21, max_seen_cap=1 << 22,
+                     canon_memo_cap=1 << 20)
+    assert res.depth_counts == RAFT5_PIN["depth_counts"]
+    assert (res.distinct, res.total) == (RAFT5_PIN["distinct"], RAFT5_PIN["total"])
+    assert res.coverage == RAFT5_PIN["coverage"]

@@ -16,8 +16,8 @@ import torch
 
 from raft_tpu_torch.checker.lsm import merge_runs, merge_runs_plain
 from raft_tpu_torch.checker.util import (
-    append_rows, append_rows_plain, compact_indices, dense_prefix_sel, probe_runs,
-    probe_runs_plain,
+    append_rows, append_rows_plain, chunk_sort, chunk_sort_plain, compact_indices,
+    dense_prefix_sel, probe_runs, probe_runs_plain,
 )
 from raft_tpu_torch.models.raft import R_ACCEPT_AE, R_CLIENTREQUEST, RaftModel, RaftParams
 from raft_tpu_torch.ops.expand import (
@@ -25,6 +25,7 @@ from raft_tpu_torch.ops.expand import (
 )
 from raft_tpu_torch.ops.hashing import INT64_MAX
 from raft_tpu_torch.ops.packing import EMPTY
+from raft_tpu_torch.ops.symmetry import permute_states
 
 pytestmark = pytest.mark.cuda
 
@@ -42,9 +43,11 @@ def _sorted(dev, n_real, size, gen):
     return torch.cat([torch.sort(v).values, pad])
 
 
-def test_canon_memo(dev):
+@pytest.mark.parametrize("msg_slots", [16, 320])
+def test_canon_memo(dev, msg_slots):
+    # at 320 slots (rows of over 1,000 lanes) the rows per block shrink
     model = RaftModel(RaftParams(n_servers=3, n_values=1, max_elections=2,
-                                 max_restarts=0, msg_slots=16))
+                                 max_restarts=0, msg_slots=msg_slots))
     from raft_tpu_torch.checker.device_bfs import DeviceBFS
 
     bfs = DeviceBFS(model, chunk=256, frontier_cap=4096, max_seen_cap=1 << 20,
@@ -109,15 +112,73 @@ def test_merge_runs(dev, target):
     assert torch.equal(merge_runs(a, a[:0], target), merge_runs_plain(a, a[:0], target))
 
 
-def test_wave_loop_has_no_host_sync(dev):
+@pytest.mark.parametrize("n,run_len", [(0, 0), (0, 16), (1, 1), (2047, 2048), (2048, 2048),
+                                       (5000, 8192), (65536, 65536), (70000, 131072)])
+def test_chunk_sort(dev, n, run_len):
+    # many duplicates (a pool of n / 4 values over the whole int64 range)
+    # and INT64_MAX lanes; fresh is false on the sentinels
+    gen = torch.Generator().manual_seed(n)
+    pool = torch.randint(-(1 << 63), (1 << 63) - 1, (max(1, n // 4),), generator=gen)
+    fps = pool[torch.randint(0, len(pool), (n,), generator=gen)]
+    fps[torch.rand(n, generator=gen) < 0.1] = INT64_MAX
+    fresh = (torch.rand(n, generator=gen) < 0.7) & (fps != INT64_MAX)
+    fps, fresh = fps.to(dev), fresh.to(dev)
+    nk, rk = chunk_sort(fps, fresh, run_len)
+    np_, rp = chunk_sort_plain(fps, fresh, run_len)
+    assert torch.equal(nk, np_) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("n_servers,msg_slots", [(5, 24), (5, 320), (6, 24)])
+def test_canon_tiered(dev, n_servers, msg_slots):
+    """Five and six servers: canon_tiered (memo cold, then warm) and
+    canon_signatures equal their plain versions on reachable states,
+    their server-permuted copies, all-tied Init states and edge rows;
+    at 320 slots (rows of over 1,000 lanes) the rows per block shrink."""
     from raft_tpu_torch.checker.device_bfs import DeviceBFS
 
-    model = RaftModel(RaftParams(n_servers=3, n_values=1, max_elections=2,
-                                 max_restarts=0, msg_slots=16))
+    model = RaftModel(RaftParams(n_servers=n_servers, n_values=2, max_elections=2,
+                                 max_restarts=0, msg_slots=msg_slots))
+    bfs = DeviceBFS(model, chunk=256, frontier_cap=1 << 14, max_seen_cap=1 << 20,
+                    canon_memo_cap=1 << 12, device=dev)
+    init = np.repeat(model.init_states(), 64, axis=0)
+    if msg_slots == 24:
+        bfs.run(max_depth=6)
+        rows = bfs.frontier_rows.cpu().numpy()[:600]
+        sigma = [3, 1, 4, 0, 2] if n_servers == 5 else [3, 1, 5, 0, 2, 4]
+        perm = permute_states(model.layout, model.packer, rows, sigma)
+        parts = [init, rows, perm, edge_rows(model, rows[:100], seed=9)]
+    else:
+        parts = [edge_rows(model, init, seed=9)]
+    states = torch.from_numpy(np.ascontiguousarray(np.concatenate(parts))).to(dev)
+    canon = bfs.canon
+    assert canon.prune
+    valid = torch.rand(states.shape[0], device=dev) < 0.9
+    mk = torch.full((1 << 8, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    mp = mk.clone()
+    for _ in range(2):
+        fk, hk = canon.fingerprints_memo_cuda(states, valid, mk)
+        fp, hp = canon.fingerprints_memo_plain(states, valid, mp)
+        assert torch.equal(fk, fp) and torch.equal(mk, mp) and int(hk) == int(hp)
+    assert torch.equal(canon.signatures(states), canon.signatures_plain(states))
+    fps = canon.fingerprints(states)
+    assert torch.equal(fps, canon.canon_plain(states))
+    if msg_slots == 24:
+        n = len(rows)
+        assert torch.equal(fps[64:64 + n], fps[64 + n:64 + 2 * n])
+
+
+@pytest.mark.parametrize("params,depth", [
+    (dict(n_servers=3, n_values=1, max_elections=2, max_restarts=0, msg_slots=16), 9),
+    (dict(n_servers=5, n_values=5, max_elections=4, max_restarts=0, msg_slots=24), 6),
+], ids=["three", "five"])
+def test_wave_loop_has_no_host_sync(dev, params, depth):
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+
+    model = RaftModel(RaftParams(**params))
     bfs = DeviceBFS(model, invariants=("LeaderHasAllAckedValues", "NoLogDivergence"),
                     chunk=256, frontier_cap=4096, max_seen_cap=1 << 20,
                     canon_memo_cap=1 << 12, device=dev)
-    res = bfs.run(max_depth=9)
+    res = bfs.run(max_depth=depth)
     fcount = res.depth_counts[-1]
     assert fcount > bfs.chunk  # several chunks, the last one partial
     frontier = torch.zeros((bfs.FCAP + bfs.VC, bfs.W), dtype=torch.int32, device=dev)
@@ -147,6 +208,9 @@ VARIANTS = {
                            msg_slots=16, election_quorum=2, replication_quorum=2,
                            strict_send_once=True, has_pending_response=False,
                            trunc_term_mismatch=True),
+    # five servers: RequestVote chains S - 1 = 4 puts, quorum masks of 5 bits
+    "five": RaftParams(n_servers=5, n_values=2, max_elections=2, max_restarts=0,
+                       msg_slots=24),
 }
 INV = ("LeaderHasAllAckedValues", "NoLogDivergence")
 

@@ -117,4 +117,4 @@ def test_wrappers_route_by_device():
         kernels.require(torch.zeros(3), torch.float32, "x")
     assert set(kernels.launch_counts()) == {
         "canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
-        "raft_apply", "raft_fold"}
+        "raft_apply", "raft_fold", "chunk_sort", "canon_tiered", "canon_signatures"}

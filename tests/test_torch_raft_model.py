@@ -32,6 +32,14 @@ VARIANTS = {
                            msg_slots=16, election_quorum=2, replication_quorum=2,
                            strict_send_once=True, has_pending_response=False,
                            trunc_term_mismatch=True),
+    # five servers: RequestVote chains S - 1 = 4 puts; FlexibleRaft at the
+    # published quorums (ElectionQuorumSize 3, ReplicationQuorumSize 4)
+    "five": RaftParams(n_servers=5, n_values=2, max_elections=2, max_restarts=0,
+                       msg_slots=24),
+    "flexible5": RaftParams(n_servers=5, n_values=2, max_elections=2, max_restarts=0,
+                            msg_slots=24, election_quorum=3, replication_quorum=4,
+                            strict_send_once=True, has_pending_response=False,
+                            trunc_term_mismatch=True),
 }
 
 

@@ -90,9 +90,19 @@ def test_permuted_states_share_fingerprints(S):
                            plain.canon_plain(torch.from_numpy(batch)))
 
 
-def test_five_servers_with_symmetry_not_ported():
-    tm = RaftModel(TorchRaftParams(n_servers=5, n_values=1, max_elections=1,
-                                   max_restarts=0, msg_slots=8))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Canonicalizer.for_model(tm, symmetry=True)
-    Canonicalizer.for_model(tm, symmetry=False)  # the raw hash needs no tiers
+def test_five_servers_with_symmetry():
+    # five servers take the signature-admissible min (the reference's
+    # tiers, ``prune``): equal to the JAX reference and orbit-invariant
+    kw = dict(n_servers=5, n_values=1, max_elections=1, max_restarts=0, msg_slots=16)
+    jm = cached_model(RaftParams(**kw))
+    tm = RaftModel(TorchRaftParams(**kw))
+    states = collect_states(oracle_for(jm.p), 4, cap=40)
+    batch = np.stack([jm.encode(s) for s in states]).astype(np.int32)
+    tc = Canonicalizer.for_model(tm, symmetry=True)
+    assert tc.prune and tc.P == 120
+    jc = JaxCanonicalizer.for_model(jm, symmetry=True)
+    got = tc.fingerprints(torch.from_numpy(batch))
+    assert torch.equal(got, fps_from_u64(np.asarray(jax.device_get(jc.fingerprints(batch)))))
+    perm = permute_states(tm.layout, tm.packer, batch, [2, 0, 4, 1, 3])
+    assert torch.equal(tc.fingerprints(torch.from_numpy(perm)), got)
+    assert not Canonicalizer.for_model(tm, symmetry=False).prune  # the raw hash needs no tiers
