@@ -17,7 +17,10 @@ Phases, each of which fails the run on any mismatch:
      on a chunk of the Raft.cfg path and of the five-server path;
      canon_tiered (memo cold and warm) and canon_signatures on a chunk of
      the depth-9 five-server frontier, canon_signatures on the Raft.cfg
-     chunk too;
+     chunk too; sim_pick and raft_sim_check (raft_predicates' simulate
+     entry) on a full-width FLEX5 simulate step, raft_predicates on the
+     FLEX5 walks and a Raft.cfg chunk, hash_rows on that chunk's valid
+     successor rows;
   4. the main path: standard-raft Raft.cfg (inline text) checked through
      the function the CLI calls, on cuda, to exhaustion — 8,664,032
      distinct / 30,708,266 total / depth 48 / 19,514 terminal, no
@@ -43,7 +46,18 @@ Phases, each of which fails the run on any mismatch:
      equal to the reference's), each once untraced (wall per chunk) and
      once under torch.profiler (device time per chunk by kernel group,
      the device's busy share);
-  7. the kernel table as one JSON line, the card's name and power limit,
+  7. simulate: FlexibleRaft's quorum violation (walk, depth, trace) and
+     five-server FlexibleRaft for SMALL_MOVES moves (behaviors, steps,
+     final states, journals) at SMALL_WALKS walks, card against CPU; then
+     five-server FlexibleRaft at the published quorums with SIM_WALKS
+     walks for SIM_MOVES moves through the CLI's function, raft_guard,
+     sim_pick, raft_apply and raft_predicates once per move and no plain
+     expand, and a profiled window of 20 moves;
+  8. liveness: the two-server graph of tests/test_liveness.py (states and
+     edge arrays) card against CPU; then Raft.cfg's constants with
+     PROPERTY ValuesNotStuck through the CLI's function, its graph and
+     verdict, every kernel of the path once per chunk;
+  9. the kernel table as one JSON line, the card's name and power limit,
      and the result line.
 """
 
@@ -151,6 +165,28 @@ FLEX5_CFG = RAFT5_CFG.replace(
     "    MaxElections = 2\n    MaxRestarts = 0\n    ElectionQuorumSize = 3\n"
     "    ReplicationQuorumSize = 4\n")
 
+# simulate (phase 7): FlexibleRaft at the published quorums (FLEX5_CFG) with
+# SIM_WALKS walks of at most SIM_DEPTH steps (the reference README's
+# --sim-depth example) for SIM_MOVES lock-step moves (max_steps =
+# SIM_MOVES * SIM_WALKS transitions); the message slots are the first of
+# SIM_SLOTS under which no chosen lane overflows its bag. The card-vs-CPU
+# runs take SMALL_WALKS walks
+SIM_WALKS = 65_536
+SIM_DEPTH = 50
+SIM_MOVES = 200
+SIM_SLOTS = (64, 80, 96, 112, 128)
+SMALL_WALKS = 1024
+SMALL_MOVES = 100
+# liveness (phase 8): Raft.cfg's constants with PROPERTY ValuesNotStuck
+# (symmetry off: the checker builds the full-state graph), at the first
+# MaxElections of LIVE_ELECTIONS whose graph stays under the checker's
+# 8,000,000-state cap; and the two-server configuration of
+# tests/test_liveness.py for the card-vs-CPU run
+LIVE_ELECTIONS = (2, 1)
+LIVE_CFG = RAFT_CFG + "PROPERTY\n    ValuesNotStuck\n"
+LIVE_SMALL_CFG = LIVE_CFG.replace("    n3 = n3\n", "").replace(
+    "Server = { n1, n2, n3 }", "Server = { n1, n2 }")
+
 # (distinct, total, depth, terminal) of Raft.cfg: exhausted, and at depth
 # 20 (the sample and trace runs), pinned from the reference's dense path
 EXHAUSTED = (8_664_032, 30_708_266, 48, 19_514)
@@ -173,6 +209,9 @@ KERNEL_NAMES = {
     "chunk_sort": ("cs_tile_sort", "cs_merge", "cs_flags", "cs_emit"),
     "canon_tiered": ("canon_tiered_kernel", "ct_memo_insert"),
     "canon_signatures": ("canon_signatures_kernel",),
+    "sim_pick": ("sim_pick_kernel",),
+    "raft_predicates": ("raft_predicates_kernel", "raft_sim_check_kernel"),
+    "hash_rows": ("hash_rows_kernel",),
 }
 # the kernels each path launches (canon_signatures serves the checks only)
 RAFT3_PATH = ("canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
@@ -181,6 +220,15 @@ RAFT5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in RAFT3_PAT
 # state fields the invariants of the cfgs here read (NoLogDivergence,
 # LeaderHasAllAckedValues): the part of a row raft_fold must load
 INVARIANT_FIELDS = ("currentTerm", "state", "log_term", "log_value", "commitIndex", "acked")
+# and the liveness predicate ValueAllOrNothing (raft_predicates)
+LIVENESS_FIELDS = ("electionCtr", "state", "log_value", "log_len")
+# the kernels of the simulate and liveness paths (raft_predicates serves
+# simulate as raft_sim_check, once per step, and the initial check)
+SIM_PATH = ("raft_guard", "sim_pick", "raft_apply", "raft_predicates")
+LIVE_PATH = ("raft_guard", "compact_append", "raft_apply", "hash_rows", "raft_predicates")
+# integer operations of one threefry2x32 block: 20 rounds of an add, a
+# rotate (two shifts and an or) and a xor, and 6 key injections of 3 adds
+THREEFRY_OPS = 20 * 5 + 6 * 3
 
 
 def setup_servers(text: str) -> list[str]:
@@ -502,13 +550,143 @@ def tiered_rows(torch, canon, flatc, selv, timed: bool) -> dict:
     }
 
 
-def counted_run(torch, cfg_name, text, **kw):
-    """run_check on the card with every kernel's count set to 0 just
-    before and read just after, the plain RaftModel.expand and torch's
-    sorts counted by wrapping them for the length of the run. Returns
-    (setup, bfs, res, wall s, launches, expand calls, sort calls)."""
+def field_lanes(model, fields) -> int:
+    return sum(model.layout.fields[f].size for f in set(fields))
+
+
+def sim_rows(torch, model3, rows3, succ3) -> dict:
+    """sim_pick and raft_sim_check against their plain versions on one
+    full-width FLEX5 step (SIM_WALKS walks ten steps from Init, msg_slots
+    RAFT5_SLOTS), raft_predicates on the FLEX5 walks and on the Raft.cfg
+    chunk ``rows3`` (``model3``'s states), hash_rows on the Raft.cfg
+    chunk's valid successor rows ``succ3``, each exactly; their CUDA-event
+    times, plain times and bounds. Returns {kernel: row}."""
+    from raft_tpu_torch.__main__ import load_setup
+    from raft_tpu_torch.checker.simulate import Simulator, sim_pick, sim_pick_plain
+    from raft_tpu_torch.ops import prng
+    from raft_tpu_torch.ops.expand import (
+        raft_predicates, raft_predicates_plain, raft_sim_check, raft_sim_check_plain,
+    )
+    from raft_tpu_torch.ops.hashing import hash_lanes, hash_rows
+
+    setup = load_setup("FlexibleRaft.cfg", text=FLEX5_CFG, msg_slots=RAFT5_SLOTS)
+    model, invs = setup.model, setup.invariants
+    sim = Simulator(model, invs, walks=SIM_WALKS, max_behavior_depth=SIM_DEPTH, seed=1,
+                    device="cuda")
+    sim.start()
+    for _ in range(10):
+        sim.step()
+    R, A, W = SIM_WALKS, model.A, model.layout.W
+    states, dev = sim.states, sim.states.device
+    valid, _rank, ovf, _ = model.chunk_guards(states, R, sim.cov)
+    key, n_init = prng.split(sim.rng)[1], sim.init_pool.shape[0]
+    zstats = lambda: torch.zeros(4, dtype=torch.int64, device=dev)  # noqa: E731
+    sk, sp = zstats(), zstats()
+    pk, pp = sim_pick(valid, ovf, key, n_init, sk), sim_pick_plain(valid, ovf, key, n_init, sp)
+    err_pick = max([exact(torch, a, b) for a, b in zip(pk, pp)] + [exact(torch, sk, sp)])
+    check(err_pick == 0.0, "sim_pick differs from its plain version")
+    chosen, moved, sel, ridx = pk
+    nxt = model.chunk_apply(states, sel)
+    n_moved = int(moved.sum())
+
+    def settle(fn):
+        args = [t.clone() for t in (nxt, sim.depth, sim.journal, sim.jlen)]
+        st = zstats()
+        out = fn(model, states, args[0], moved, chosen, ridx, sim.init_pool, args[1],
+                 SIM_DEPTH, args[2], args[3], invs, st)
+        return list(out) + args + [st[2:]]
+
+    err_check = max(exact(torch, a, b) for a, b in zip(settle(raft_sim_check),
+                                                       settle(raft_sim_check_plain)))
+    check(err_check == 0.0, "raft_sim_check differs from its plain version")
+    names5 = tuple(invs) + tuple(q for _l, _p, q in model.liveness["ValuesNotStuck"])
+    names3 = tuple(q for _l, _p, q in model3.liveness["ValuesNotStuck"]) + (
+        "LeaderHasAllAckedValues", "NoLogDivergence")
+    err_pred = max(exact(torch, raft_predicates(m, r, n), raft_predicates_plain(m, r, n))
+                   for m, r, n in ((model, states, names5), (model3, rows3, names3)))
+    check(err_pred == 0.0, "raft_predicates differs from its plain version")
+    err_hash = exact(torch, hash_rows(succ3), hash_lanes(succ3))
+    check(err_hash == 0.0 and exact(torch, hash_rows(succ3, 7), hash_lanes(succ3, 7)) == 0.0,
+          "hash_rows differs from its plain version")
+    print(f"[3] sim_pick, raft_sim_check exact on a FLEX5 step of {R} walks ({n_moved} moved); "
+          f"raft_predicates exact on the walks ({len(names5)} predicates) and on {len(rows3)} "
+          f"Raft.cfg states ({len(names3)}); hash_rows exact on {len(succ3)} Raft.cfg "
+          "successor rows (families 0 and 7)")
+    # bounds. sim_pick: the valid grid and the chosen lanes' ovf read, four
+    # outputs written; seven threefry blocks a walk
+    pick_bytes = R * A + n_moved + R * (4 + 1 + 4 + 4)
+    pick_ops = 7 * THREEFRY_OPS * R
+    # raft_sim_check: each moved walk's invariant fields read, the per-walk
+    # inputs read and outputs written, a journal entry per moved walk, and
+    # a row read and written per walk that restarts or did not move
+    done = settle(raft_sim_check)[1]
+    copied = int((done | ~moved).sum())
+    check_bytes = (4 * n_moved * field_lanes(model, INVARIANT_FIELDS) + R * (1 + 4 * 5)
+                   + R * (4 + 1 + 4 + 4) + 4 * n_moved + 2 * 4 * W * copied)
+    pred5_bytes = 4 * R * field_lanes(model, INVARIANT_FIELDS + LIVENESS_FIELDS) + len(names5) * R
+    n3 = len(rows3)
+    pred3_bytes = 4 * n3 * field_lanes(model3, INVARIANT_FIELDS + LIVENESS_FIELDS) + len(names3) * n3
+    # hash_rows: the rows read once, 8 bytes written; about 30 operations a
+    # lane (two fmix32 of ~12, the salts' multiply-adds and the xor)
+    nh, Wh = succ3.shape
+    hash_bytes, hash_ops = nh * Wh * 4 + nh * 8, 30 * nh * Wh
+
+    def bound(b, o=0):
+        return max(b / MEM_BPS, o / INT32_OPS) * 1e3, ("operations" if o / INT32_OPS >
+                                                       b / MEM_BPS else "bytes")
+
+    stats = zstats()
+    # the settle updates its inputs in place: each timed call starts from
+    # the step's tensors again (the copy is outside the timed window)
+    base = (nxt, sim.depth, sim.journal, sim.jlen)
+    work = [t.clone() for t in base]
+
+    def reset():
+        for w, t in zip(work, base):
+            w.copy_(t)
+
+    def settle_work(fn):
+        return fn(model, states, work[0], moved, chosen, ridx, sim.init_pool, work[1],
+                  SIM_DEPTH, work[2], work[3], invs, stats)
+
+    rows = {
+        "sim_pick": dict(
+            ms=time_ms(torch, lambda: sim_pick(valid, ovf, key, n_init, stats), iters=50),
+            plain_ms=time_ms(torch, lambda: sim_pick_plain(valid, ovf, key, n_init, stats),
+                             iters=10),
+            max_abs_err=err_pick, walks=R),
+        "raft_predicates": dict(
+            ms=time_ms(torch, lambda: settle_work(raft_sim_check), iters=20, setup=reset),
+            plain_ms=time_ms(torch, lambda: settle_work(raft_sim_check_plain), iters=5,
+                             setup=reset),
+            max_abs_err=max(err_check, err_pred), walks=R,
+            predicates_ms=time_ms(torch, lambda: raft_predicates(model, states, names5), iters=20),
+            predicates_plain_ms=time_ms(torch, lambda: raft_predicates_plain(model, states,
+                                                                             names5), iters=5),
+            predicates_bound_ms=bound(pred5_bytes)[0],
+            raft_cfg_chunk_ms=time_ms(torch, lambda: raft_predicates(model3, rows3, names3),
+                                      iters=50),
+            raft_cfg_chunk_plain_ms=time_ms(torch, lambda: raft_predicates_plain(
+                model3, rows3, names3), iters=20),
+            raft_cfg_chunk_bound_ms=bound(pred3_bytes)[0]),
+        "hash_rows": dict(
+            ms=time_ms(torch, lambda: hash_rows(succ3), iters=50),
+            plain_ms=time_ms(torch, lambda: hash_lanes(succ3), iters=10),
+            max_abs_err=err_hash, rows=nh),
+    }
+    for k, (b, o) in (("sim_pick", (pick_bytes, pick_ops)), ("raft_predicates", (check_bytes, 0)),
+                      ("hash_rows", (hash_bytes, hash_ops))):
+        rows[k]["bound_ms"], rows[k]["bound_by"] = bound(b, o)
+        rows[k]["library_ms"] = None
+    return rows
+
+
+def counted(torch, fn):
+    """``fn()`` on the card with every kernel's count set to 0 just before
+    and read just after, the plain RaftModel.expand and torch's sorts
+    counted by wrapping them for the length of the call. Returns (fn's
+    result, wall s, launches, expand calls, sort calls)."""
     from raft_tpu_torch import kernels
-    from raft_tpu_torch.__main__ import run_check
     from raft_tpu_torch.models.raft import RaftModel
 
     calls = {"expand": 0, "sort": 0}
@@ -527,7 +705,7 @@ def counted_run(torch, cfg_name, text, **kw):
     kernels.reset_counts()
     try:
         t = time.perf_counter()
-        setup, bfs, res = run_check(cfg_name, text=text, device="cuda", chunk=CHUNK, **kw)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = kernels.launch_counts()
@@ -535,7 +713,17 @@ def counted_run(torch, cfg_name, text, **kw):
         RaftModel.expand = saved["expand"]
         torch.sort, torch.argsort = saved["sort"][:2]
         torch.Tensor.sort, torch.Tensor.argsort = saved["sort"][2:]
-    return setup, bfs, res, wall, launches, calls["expand"], calls["sort"]
+    return out, wall, launches, calls["expand"], calls["sort"]
+
+
+def counted_run(torch, cfg_name, text, **kw):
+    """run_check (the CLI's function) through ``counted``. Returns (setup,
+    bfs, res, wall s, launches, expand calls, sort calls)."""
+    from raft_tpu_torch.__main__ import run_check
+
+    out, wall, launches, n_expand, n_sort = counted(
+        torch, lambda: run_check(cfg_name, text=text, device="cuda", chunk=CHUNK, **kw))
+    return (*out, wall, launches, n_expand, n_sort)
 
 
 def check_path(launches, path, chunks, expand_calls, sort_calls, name):
@@ -629,8 +817,199 @@ def device_time(torch, prof) -> tuple[float, dict] | None:
     return busy / 1e3, groups
 
 
+def simulate_phase(torch) -> dict:
+    """Phase 7: simulate on the card against the CPU at SMALL_WALKS walks
+    (FlexibleRaft's quorum violation; five-server FlexibleRaft for
+    SMALL_MOVES moves), then the full-width FLEX5 run through
+    ``run_simulate`` (the CLI's function) with its launch counts, and a
+    profiled window of its steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.__main__ import load_setup, run_simulate
+    from raft_tpu_torch.checker.simulate import Simulator
+
+    t0 = time.perf_counter()
+
+    def small(text, device, moves, slots=None):
+        return run_simulate("FlexibleRaft.cfg", text=text, device=device, msg_slots=slots,
+                            walks=SMALL_WALKS, max_behavior_depth=SIM_DEPTH, seed=0,
+                            max_steps=moves * SMALL_WALKS)
+
+    (_, _, vg), (_, _, vc) = (small(FLEX_CFG, d, SMALL_MOVES) for d in ("cuda", "cpu"))
+    check(vg.violation is not None and vg.violation.invariant == "LeaderHasAllAckedValues",
+          f"simulate FlexibleRaft: expected a LeaderHasAllAckedValues violation, got "
+          f"{vg.violation}")
+    check(vg.violation == vc.violation and vg.trace == vc.trace
+          and (vg.behaviors, vg.steps) == (vc.behaviors, vc.steps),
+          f"simulate FlexibleRaft: card {vg.violation} != CPU {vc.violation}")
+    print(f"[7] simulate FlexibleRaft ({SMALL_WALKS} walks): {vg.violation.invariant} violated "
+          f"by walk {vg.violation.walk} at depth {vg.violation.depth} after {vg.steps} steps, "
+          f"{len(vg.trace)}-state trace: card == CPU")
+    t = time.perf_counter()
+    _, sg, fg = small(FLEX5_CFG, "cuda", SMALL_MOVES, RAFT5_SLOTS)
+    t_card = time.perf_counter() - t
+    t = time.perf_counter()
+    _, sc, fc = small(FLEX5_CFG, "cpu", SMALL_MOVES, RAFT5_SLOTS)
+    t_cpu = time.perf_counter() - t
+    check(fg.violation is None and fc.violation is None
+          and (fg.behaviors, fg.steps) == (fc.behaviors, fc.steps),
+          f"simulate FLEX5: card {(fg.behaviors, fg.steps, fg.violation)} != CPU "
+          f"{(fc.behaviors, fc.steps, fc.violation)}")
+    for a in ("states", "depth", "journal", "jlen"):
+        check(torch.equal(getattr(sg, a).cpu(), getattr(sc, a)), f"simulate FLEX5: {a} differ")
+    print(f"[7] simulate FLEX5 ({SMALL_WALKS} walks, {SMALL_MOVES} moves): behaviors="
+          f"{fg.behaviors} steps={fg.steps}, final states and journals: card == CPU "
+          f"(card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
+    del sg, sc
+
+    # the full-width run: the first message-slot count under which no
+    # chosen lane overflows its bag
+    for slots in SIM_SLOTS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            (setup, sim, res), wall, launches, n_expand, _ = counted(
+                torch, lambda: run_simulate(
+                    "FlexibleRaft.cfg", text=FLEX5_CFG, device="cuda", msg_slots=slots,
+                    walks=SIM_WALKS, max_behavior_depth=SIM_DEPTH, seed=0,
+                    max_steps=SIM_MOVES * SIM_WALKS))
+            break
+        except OverflowError as e:
+            print(f"[7] simulate FLEX5 at msg_slots {slots}: {e}")
+    else:
+        fail(f"simulate FLEX5 overflows every message-slot count of {SIM_SLOTS}")
+    peak = torch.cuda.max_memory_allocated()
+    moves = sim.moves
+    for k in SIM_PATH[:3]:
+        check(launches[k] == moves, f"simulate: {launches[k]} {k} launches != {moves} moves")
+    # raft_predicates: one check and settle per move, one initial check
+    check(launches["raft_predicates"] == moves + 1,
+          f"simulate: {launches['raft_predicates']} raft_predicates launches != {moves} + 1")
+    for k in set(KERNEL_NAMES) - set(SIM_PATH):
+        check(launches[k] == 0, f"simulate: {k} launched off its path")
+    check(n_expand == 0, f"simulate: the plain RaftModel.expand ran {n_expand} times")
+    check(res.violation is None and res.steps >= SIM_MOVES * SIM_WALKS and res.behaviors > 0,
+          f"simulate FLEX5: {res}")
+    check(bool((sim.depth < SIM_DEPTH).all()) and bool((sim.jlen == sim.depth + 1).all()),
+          "simulate FLEX5: walk depths or journal lengths out of range")
+    report = {"msg_slots": slots, "W": setup.model.layout.W, "A": setup.model.A,
+              "walks": SIM_WALKS, "moves": moves, "steps": res.steps,
+              "behaviors": res.behaviors, "seconds": wall, "steps_per_s": res.steps / wall,
+              "wall_ms_per_move": wall * 1e3 / moves, "peak_device_bytes": peak,
+              "launches": launches}
+    print(f"[7] simulate FLEX5 full width: {SIM_WALKS} walks, msg_slots {slots} (W = "
+          f"{report['W']}, A = {report['A']}), {moves} moves, steps={res.steps} behaviors="
+          f"{res.behaviors} in {wall:.2f} s ({res.steps / wall:.0f} steps/s, "
+          f"{report['wall_ms_per_move']:.3f} ms per move), peak device memory "
+          f"{peak / 2**30:.2f} GiB; raft_guard, sim_pick, raft_apply, raft_predicates once per "
+          f"move, RaftModel.expand called {n_expand} times")
+    del sim
+
+    # where a move's time goes: 20 moves untraced, then 20 under the profiler
+    setup = load_setup("FlexibleRaft.cfg", text=FLEX5_CFG, msg_slots=slots)
+    sim = Simulator(setup.model, setup.invariants, walks=SIM_WALKS,
+                    max_behavior_depth=SIM_DEPTH, seed=0, device="cuda")
+    sim.start()
+    for _ in range(10):
+        sim.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        sim.step()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(20):
+            sim.step()
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t
+    report["trace"] = {"moves": 20, "wall_ms_per_move": untraced * 1e3 / 20,
+                       "traced_wall_ms_per_move": traced * 1e3 / 20}
+    dt = device_time(torch, prof)
+    if dt is None:
+        report["trace"]["device"] = "not measured: the tracer saw no device activity"
+    else:
+        busy, groups = dt
+        report["trace"].update({
+            "device_ms_per_move": busy / 20, "device_busy_share_untraced": busy / (untraced * 1e3),
+            "device_ms_per_move_by_group": {
+                k: v / 20 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}})
+    del sim
+    report["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"simulate": report}))
+    print(f"[7] simulate phase {report['phase_s']:.1f} s")
+    return report
+
+
+def liveness_phase(torch) -> dict:
+    """Phase 8: the liveness graph on the card against the CPU on the
+    two-server configuration, then Raft.cfg's constants with PROPERTY
+    ValuesNotStuck through ``run_liveness`` (the CLI's function) with its
+    launch counts."""
+    from raft_tpu_torch.__main__ import run_liveness
+
+    t0 = time.perf_counter()
+    runs = [run_liveness("Raft.cfg", text=LIVE_SMALL_CFG, device=d, chunk=256,
+                         msg_slots=16) for d in ("cuda", "cpu")]
+    (_, cg, rg), (_, cc, rc) = runs
+    check((rg.distinct, rg.total_edges, rg.violation) == (rc.distinct, rc.total_edges, None),
+          f"liveness two servers: card {(rg.distinct, rg.total_edges, rg.violation)} != CPU "
+          f"{(rc.distinct, rc.total_edges, rc.violation)}")
+    for a in ("_esrc", "_edst", "_ecand"):
+        check(np.array_equal(getattr(cg, a), getattr(cc, a)), f"liveness: {a} differ")
+    check(torch.equal(cg._states.cpu(), cc._states), "liveness: graph states differ")
+    print(f"[8] liveness two servers: {rg.distinct} states / {rg.total_edges} edges, "
+          "ValuesNotStuck holds: states and edge arrays card == CPU")
+    del runs, cg, cc
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuts = []
+    for me in LIVE_ELECTIONS:
+        text = LIVE_CFG.replace("    MaxElections = 2\n", f"    MaxElections = {me}\n")
+        t = time.perf_counter()
+        try:
+            (setup, checker, res), wall, launches, n_expand, _ = counted(
+                torch, lambda: run_liveness("Raft.cfg", text=text, device="cuda", chunk=CHUNK))
+            break
+        except OverflowError as e:
+            cuts.append(f"MaxElections {me}: {e} ({time.perf_counter() - t:.1f} s)")
+            print(f"[8] liveness Raft.cfg at MaxElections {me}: {e}")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    else:
+        fail(f"liveness: every MaxElections of {LIVE_ELECTIONS} exceeds the state cap")
+    peak = torch.cuda.max_memory_allocated()
+    chunks = checker.chunks
+    for k in ("compact_append", "raft_apply"):
+        check(launches[k] == chunks, f"liveness: {launches[k]} {k} launches != {chunks} chunks")
+    check(launches["hash_rows"] == chunks + 1,
+          f"liveness: {launches['hash_rows']} hash_rows launches != {chunks} chunks + 1")
+    n_inst = len(setup.model.liveness["ValuesNotStuck"])
+    check(launches["raft_guard"] >= chunks and launches["raft_predicates"] == n_inst,
+          f"liveness: raft_guard {launches['raft_guard']}, raft_predicates "
+          f"{launches['raft_predicates']} launches")
+    for k in set(KERNEL_NAMES) - set(LIVE_PATH):
+        check(launches[k] == 0, f"liveness: {k} launched off its path")
+    check(n_expand == 0, f"liveness: the plain RaftModel.expand ran {n_expand} times")
+    verdict = ("holds" if res.violation is None else
+               f"VIOLATED ({res.violation.instance}; prefix {len(res.violation.prefix) - 1}, "
+               f"loop {len(res.violation.cycle)})")
+    report = {"max_elections": me, "cut": cuts, "states": res.distinct,
+              "edges": res.total_edges, "seconds": wall, "chunks": chunks,
+              "verdict": verdict, "peak_device_bytes": peak, "launches": launches}
+    print(f"[8] liveness Raft.cfg (MaxElections {me}): graph {res.distinct} "
+          f"states / {res.total_edges} edges in {wall:.2f} s ({chunks} chunks), "
+          f"ValuesNotStuck {verdict}; peak device memory {peak / 2**30:.2f} GiB")
+    report["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"liveness": report}))
+    print(f"[8] liveness phase {report['phase_s']:.1f} s")
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    phase_start = {}  # phase -> its start on the host clock
 
     import torch
 
@@ -658,12 +1037,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    phase_start["1"] = time.perf_counter()
     # ---- 1. device ----
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
     print(f"[1] device: {name} (count {count}); nvidia-smi: {smi}")
 
+    phase_start["2"] = time.perf_counter()
     # ---- 2. build ----
     t = time.perf_counter()
     logs = kernels.build_all()
@@ -682,6 +1063,7 @@ def main() -> int:
     check(cfg.constants["MaxElections"] == 2 and cfg.constants["MaxRestarts"] == 0,
           "cfg constants")
 
+    phase_start["3"] = time.perf_counter()
     # ---- 3. kernels against their plain versions ----
     rows = {}
     rng = np.random.default_rng(0)
@@ -850,13 +1232,17 @@ def main() -> int:
     # chunk_sort on a chunk of the Raft.cfg main path (timed); canon_tiered,
     # canon_signatures and chunk_sort on a chunk of the five-server frontier
     # at depth RAFT5_SAMPLE_DEPTH (timed)
-    flatc3, _, fps3, fresh3 = chunk_lanes(torch, bfs20, pool, rng)
+    flatc3, selv3, fps3, fresh3 = chunk_lanes(torch, bfs20, pool, rng)
     rows["chunk_sort"] = chunk_sort_row(torch, fps3, fresh3, bfs20.R0, timed=True)
     # the signatures are defined for any server count: canon_signatures on
     # the Raft.cfg chunk too (its canon stays canon_memo's full-S! min)
     check(exact(torch, canon.signatures(flatc3), canon.signatures_plain(flatc3)) == 0.0,
           "canon_signatures differs from its plain version at three servers")
     print(f"[3] canon_signatures exact on the Raft.cfg chunk ({flatc3.shape[0]} lanes)")
+    # the simulate and liveness kernels: a full-width FLEX5 step, a chunk
+    # of the depth-20 frontier and its valid successor rows
+    rows3 = torch.from_numpy(np.ascontiguousarray(pool[rng.integers(0, len(pool), CHUNK)]))
+    rows.update(sim_rows(torch, model, rows3.to(dev), flatc3[selv3].contiguous()))
     del flatc3
     del bfs20
     t = time.perf_counter()
@@ -882,7 +1268,10 @@ def main() -> int:
               + (f"; append_rows {r['rows_ms']:.4f} ms vs plain {r['rows_plain_ms']:.4f}"
                  f" ms, bound {r['rows_bound_ms']:.4f} ms" if "rows_ms" in r else ""))
     print(json.dumps({"chunk_sort_five_servers": sort5}))
+    print(json.dumps({"simulate_liveness_kernels": {
+        k: rows[k] for k in ("sim_pick", "raft_predicates", "hash_rows")}}))
 
+    phase_start["4"] = time.perf_counter()
     # ---- 4. the main path ----
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -901,6 +1290,7 @@ def main() -> int:
     check_path(launches, RAFT3_PATH, chunks, expand_calls, sort_calls, "4")
     del bfs
 
+    phase_start["4b"] = time.perf_counter()
     # ---- 4b. five-server Raft with SYMMETRY to RAFT5_DEPTH ----
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -928,6 +1318,7 @@ def main() -> int:
     check_path(launches5, RAFT5_PATH, chunks5, expand5, sort5_calls, "4b")
     del bfs5
 
+    phase_start["5"] = time.perf_counter()
     # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
     def small_run(cfg_name, text, device, depth=None, **kw):
         return run_check(cfg_name, text=text, device=device, chunk=1024, max_depth=depth,
@@ -945,6 +1336,7 @@ def main() -> int:
           f"gid {vg.violation.global_id}, {len(vg.trace)}-state trace, {vg.distinct} distinct: "
           "card == CPU")
 
+    phase_start["5b"] = time.perf_counter()
     # ---- 5b. RaftFsync to FSYNC_DEPTH, 5c. five-server FlexibleRaft to
     # FLEX5_DEPTH: card vs CPU ----
     for tag, cfg_name, text, depth, kw in (
@@ -967,6 +1359,7 @@ def main() -> int:
               f"distinct={fg.distinct} total={fg.total} terminal={fg.terminal}, depth counts "
               f"and coverage: card == CPU (card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
 
+    phase_start["6"] = time.perf_counter()
     # ---- 6. where the time goes: Raft.cfg to depth 20 and five-server Raft
     # to the pinned depth, each untraced, then traced ----
     traces = {}
@@ -986,7 +1379,16 @@ def main() -> int:
     print(json.dumps({"trace": traces["raft"]}))
     print(json.dumps({"trace_five_servers": traces["raft5"]}))
 
-    # ---- 7. results ----
+    phase_start["7"] = time.perf_counter()
+    # ---- 7. simulate ----
+    sim_report = simulate_phase(torch)
+
+    phase_start["8"] = time.perf_counter()
+    # ---- 8. liveness ----
+    live_report = liveness_phase(torch)
+
+    phase_start["9"] = time.perf_counter()
+    # ---- 9. results ----
     meta = {
         "canon_memo": ("raft_tpu_torch/csrc/canon_memo.cu", "raft_tpu/ops/symmetry.py:1230"),
         "probe_runs": ("raft_tpu_torch/csrc/probe_runs.cu", "raft_tpu/checker/util.py:21"),
@@ -1004,11 +1406,18 @@ def main() -> int:
                          "raft_tpu/ops/symmetry.py:1081"),
         "canon_signatures": ("raft_tpu_torch/csrc/canon_tiered.cu",
                              "raft_tpu/ops/symmetry.py:581"),
+        "sim_pick": ("raft_tpu_torch/csrc/sim_step.cu", "raft_tpu/checker/simulate.py:66"),
+        "raft_predicates": ("raft_tpu_torch/csrc/raft_predicates.cu",
+                            "raft_tpu/checker/liveness.py:254"),
+        "hash_rows": ("raft_tpu_torch/csrc/hash_rows.cu", "raft_tpu/checker/liveness.py:108"),
     }
     # launches: each kernel's count on the path that runs it (Raft.cfg's
     # for the kernels both paths share); canon_signatures serves the checks
     path_launches = {**{k: launches[k] for k in RAFT3_PATH},
-                     "canon_tiered": launches5["canon_tiered"], "canon_signatures": 0}
+                     "canon_tiered": launches5["canon_tiered"], "canon_signatures": 0,
+                     "sim_pick": sim_report["launches"]["sim_pick"],
+                     "raft_predicates": sim_report["launches"]["raft_predicates"],
+                     "hash_rows": live_report["launches"]["hash_rows"]}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": path_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1016,7 +1425,11 @@ def main() -> int:
          "library_ms": r["library_ms"]}
         for k, r in rows.items()
     ]
-    print(f"[7] total {time.perf_counter() - t_start:.1f} s")
+    check(len(table) == len(KERNEL_NAMES), f"{len(table)} kernels in the table")
+    tags = list(phase_start)
+    phase_s = {t: round(phase_start[n] - phase_start[t], 1) for t, n in zip(tags, tags[1:])}
+    print(json.dumps({"phase_seconds": phase_s}))
+    print(f"[9] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"torch_sort": sort_row}))
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -52,7 +52,7 @@ from .bfs import CheckResult, Violation
 from .lsm import CanonMemo, merge_many, merge_runs, pow2_at_least
 from .util import (
     GROWTH, HEADROOM, I32_MAX, append_rows, chunk_sort, compact_indices,
-    next_cap, probe_runs,
+    next_cap, probe_runs, replay_chain,
 )
 
 
@@ -516,7 +516,6 @@ class DeviceBFS:
         """Parent-pointer replay through the journal (``reconstruct_trace``
         of the reference, :1821): each journalled candidate goes through
         the guard and a one-lane apply on the engine's device."""
-        model, dev = self.model, self.device
         n0 = len(self._init_distinct)
         jp = self._jparent[: self._jcount].cpu().numpy()
         jc = self._jcand[: self._jcount].cpu().numpy()
@@ -526,16 +525,4 @@ class DeviceBFS:
             chain.append(int(jc[gid - n0]))
             gid = int(jp[gid - n0])
         chain.reverse()
-        state = self._init_distinct[gid]
-        out = [("Initial predicate", model.decode(state))]
-        cov = torch.zeros((self.n_actions, 3), dtype=torch.int64, device=dev)
-        for cand in chain:
-            batch = torch.from_numpy(np.ascontiguousarray(state[None])).to(dev)
-            valid, rank, _ovf, _scal = model.chunk_guards(batch, 1, cov)
-            if not bool(valid[0, cand]):
-                raise RuntimeError("journalled candidate not enabled on replay")
-            sel = torch.tensor([cand], dtype=torch.int32, device=dev)
-            state = model.chunk_apply(batch, sel)[0].cpu().numpy()
-            out.append((model.action_label(int(rank[0, cand]), cand),
-                        model.decode(state)))
-        return out
+        return replay_chain(self.model, self.device, self._init_distinct[gid], chain)

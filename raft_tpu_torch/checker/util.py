@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -225,3 +226,24 @@ def append_rows(buf: torch.Tensor, src: torch.Tensor, esel: torch.Tensor,
                            esel.data_ptr(), B, W, count.data_ptr(), cap,
                            kernels.stream(buf.device))
     k.launched(rc)
+
+
+# ---------------- trace replay ----------------
+
+
+def replay_chain(model, device, state: np.ndarray, chain) -> list[tuple[str, dict]]:
+    """The labelled trace of the candidates ``chain`` taken one after the
+    other from ``state`` (a [W] int32 row): each goes through the model's
+    guard and a one-lane apply on ``device`` (the reference's replays
+    through ``_expand1``). Raises if a candidate is not enabled."""
+    out = [("Initial predicate", model.decode(state))]
+    cov = torch.zeros((len(model.ACTION_NAMES), 3), dtype=torch.int64, device=device)
+    for cand in chain:
+        batch = torch.from_numpy(np.ascontiguousarray(state[None])).to(device)
+        valid, rank, _ovf, _scal = model.chunk_guards(batch, 1, cov)
+        if not bool(valid[0, cand]):
+            raise RuntimeError("journalled candidate not enabled on replay")
+        sel = torch.tensor([cand], dtype=torch.int32, device=device)
+        state = model.chunk_apply(batch, sel)[0].cpu().numpy()
+        out.append((model.action_label(int(rank[0, cand]), cand), model.decode(state)))
+    return out

@@ -1,8 +1,9 @@
 // raft_actions.cuh — the Raft action groups and invariants as device code.
 //
 // Replaces raft_tpu/models/raft.py:327-835 (the action kernels behind
-// _expand1 :836, with ops/bag.py and ops/packing.py) and the invariants
-// of raft.py:894-975 plus models/base.py:143 messages_are_valid_kernel.
+// _expand1 :836, with ops/bag.py and ops/packing.py), the invariants of
+// raft.py:894-975 plus models/base.py:143 messages_are_valid_kernel, and
+// the liveness predicate ValueAllOrNothing of raft.py:925-942.
 // It mirrors the port's batched plain version, raft_tpu_torch/models/
 // raft.py, one (state, candidate) pair at a time, for every RaftModel
 // parameter set (Raft, FlexibleRaft, RaftFsync): the layout, message
@@ -71,6 +72,9 @@ enum {
   INV_MESSAGES_ARE_VALID, INV_NO_LOG_DIVERGENCE, INV_LEADER_HAS_ALL_ACKED,
   INV_COMMITTED_REACH_MAJORITY, INV_TEST
 };
+// Liveness predicates: ValueAllOrNothing(v) is PRED_VALUE_AON + v
+// (models/raft.py PRED_VALUE_AON).
+#define PRED_VALUE_AON 16
 
 struct Guard {
   bool valid;
@@ -663,6 +667,31 @@ __device__ __forceinline__ bool ra_invariant(const int* sp, const int* s, int id
     case INV_TEST: return true;
   }
   return true;
+}
+
+// ---- liveness predicates (true = holds) ----
+
+// ValueAllOrNothing(v) — Raft.tla:560-573: TRUE when the last permissible
+// election failed with no leader, else v is on every server's log or on none
+__device__ bool ra_value_all_or_nothing(const int* sp, const int* s, int v) {
+  const int S = FLD(S), L = FLD(L);
+  const int *st = s + FLD(ST), *lv = s + FLD(LV), *ll = s + FLD(LL);
+  int n_have = 0;
+  bool leader = false;
+  for (int i = 0; i < S; ++i) {
+    bool has = false;
+    for (int l = 0; l < L; ++l) has |= l < ll[i] && lv[i * L + l] == v + 1;
+    n_have += has;
+    leader |= st[i] == RA_LEADER;
+  }
+  const bool spent = s[FLD(ECTR)] == FLD(MAX_ELECTIONS);
+  return (spent && !leader) || n_have == S || n_have == 0;
+}
+
+// An invariant id (INV_*) or a liveness predicate id (PRED_VALUE_AON + v).
+__device__ __forceinline__ bool ra_predicate(const int* sp, const int* s, int id) {
+  if (id >= PRED_VALUE_AON) return ra_value_all_or_nothing(sp, s, id - PRED_VALUE_AON);
+  return ra_invariant(sp, s, id);
 }
 
 // Stage the spec vector into shared memory (every thread of the block).

@@ -2,6 +2,7 @@
 
 Each kernel lives in a CUDA C++ source in ``csrc/`` with a plain C
 interface (``raft_guard`` and ``raft_apply`` share ``raft_expand.cu``;
+``raft_predicates.cu`` also holds simulate's ``raft_sim_check`` entry;
 ``*.cuh`` headers are shared device code). ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` compiles each source into a shared
 library under ``build/raft_tpu_torch/`` at first use (``build_all``
@@ -32,7 +33,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 # C signatures of the launchers (every pointer and the stream are
 # c_void_p so ctypes never truncates them to 32 bits).
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 _SIGNATURES = {
     "canon_memo": {
         "canon_memo": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P,
@@ -63,6 +64,17 @@ _SIGNATURES = {
     "raft_fold": {
         "raft_fold": [_P, _I, _P, _P, _P, _P, _L, _P, _I, _P, _I, _P, _P, _P,
                       _P, _P],
+    },
+    "sim_step": {
+        "sim_pick": [_P, _P, _I, _I, _U, _U, _I, _P, _P, _P, _P, _P, _P],
+    },
+    "raft_predicates": {
+        "raft_predicates": [_P, _L, _P, _I, _P, _I, _P, _P],
+        "raft_sim_check": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,
+                           _I, _P, _P, _P, _P],
+    },
+    "hash_rows": {
+        "hash_rows": [_P, _L, _I, _U, _U, _I, _P, _P],
     },
 }
 
@@ -145,8 +157,12 @@ RAFT_FOLD = Kernel("raft_fold")
 CHUNK_SORT = Kernel("chunk_sort")
 CANON_TIERED = Kernel("canon_tiered")
 CANON_SIGNATURES = Kernel("canon_signatures", source="canon_tiered")
+SIM_PICK = Kernel("sim_pick", source="sim_step")
+RAFT_PREDICATES = Kernel("raft_predicates")
+HASH_ROWS = Kernel("hash_rows")
 ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, RAFT_GUARD, RAFT_APPLY,
-       RAFT_FOLD, CHUNK_SORT, CANON_TIERED, CANON_SIGNATURES)
+       RAFT_FOLD, CHUNK_SORT, CANON_TIERED, CANON_SIGNATURES, SIM_PICK, RAFT_PREDICATES,
+       HASH_ROWS)
 
 
 def build_all() -> dict[str, str]:

@@ -17,12 +17,13 @@ are not ported yet.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
 from ..ops import bag
-from ..ops.expand import raft_apply, raft_fold, raft_guard
+from ..ops.expand import raft_apply, raft_fold, raft_guard, raft_predicates, raft_sim_check
 from ..ops.packing import EMPTY, BitPacker, bits_for
 from .base import (
     ActionLabelMixin,
@@ -229,6 +230,9 @@ INVARIANT_IDS = {
     "MessagesAreValid": 0, "NoLogDivergence": 1, "LeaderHasAllAckedValues": 2,
     "CommittedEntriesReachMajority": 3, "TestInv": 4,
 }
+# the liveness predicate ValueAllOrNothing(v) has kernel id PRED_VALUE_AON + v
+# (PRED_VALUE_AON of raft_actions.cuh)
+PRED_VALUE_AON = 16
 
 
 class RaftModel(SparseExpandMixin, ActionLabelMixin):
@@ -292,6 +296,18 @@ class RaftModel(SparseExpandMixin, ActionLabelMixin):
                 s.shape[:-1], dtype=torch.bool, device=s.device
             ),
         }
+        # temporal properties under WF_vars(Next) (checker/liveness.py):
+        # ValuesNotStuck == \A v : []<> ValueAllOrNothing(v) (Raft.tla:567-576),
+        # one (label, P, Q) instance per value, P = None for []<>Q; P and Q
+        # name state predicates of ``self.predicates`` (or invariants)
+        self.predicates = {}
+        self._pred_ids = dict(INVARIANT_IDS)
+        self.liveness = {"ValuesNotStuck": []}
+        for v, vname in enumerate(self.value_names):
+            q = f"ValueAllOrNothing({vname})"
+            self.predicates[q] = partial(self._live_value_all_or_nothing, v)
+            self._pred_ids[q] = PRED_VALUE_AON + v
+            self.liveness["ValuesNotStuck"].append((vname, None, q))
 
     # ---------------- field access helpers ----------------
 
@@ -831,6 +847,10 @@ class RaftModel(SparseExpandMixin, ActionLabelMixin):
     chunk_guards = raft_guard
     chunk_apply = raft_apply
     chunk_fold = raft_fold
+    # simulate (checker/simulate.py) and liveness (checker/liveness.py)
+    # reach the predicates the same way
+    chunk_predicates = raft_predicates
+    sim_check = raft_sim_check
 
     def prepare_device(self, device, invariants) -> None:
         """Fail before a run, not inside it, where the kernels on
@@ -841,17 +861,18 @@ class RaftModel(SparseExpandMixin, ActionLabelMixin):
     # ---------------- the kernels' spec ----------------
 
     def kernel_spec(self, dev, invariants: tuple[str, ...] = ()):
-        """(spec int32 [SPEC_LEN], cand int32 [A, 4], inv int32
+        """(spec int32 [SPEC_LEN], cand int32 [A, 4], ids int32
         [len(invariants)]) on ``dev``, built once per device and
-        invariant tuple: everything the hand-written kernels read about
+        predicate tuple: everything the hand-written kernels read about
         this model (field offsets, message-field locations, parameter
-        flags, the candidate table, invariant ids). Raises KeyError for
-        an invariant the kernels do not evaluate."""
-        missing = [n for n in invariants if n not in INVARIANT_IDS]
+        flags, the candidate table, the kernel ids of the named
+        invariants or liveness predicates). Raises KeyError for a
+        predicate the kernels do not evaluate."""
+        missing = [n for n in invariants if n not in self._pred_ids]
         if missing:
             raise KeyError(
-                f"invariant(s) {missing} have no kernel predicate "
-                f"(csrc/raft_actions.cuh evaluates {sorted(INVARIANT_IDS)})")
+                f"predicate(s) {missing} have no kernel predicate "
+                f"(csrc/raft_actions.cuh evaluates {sorted(self._pred_ids)})")
         dev = torch.device(dev)
         key = ("kernel_spec", str(dev), tuple(invariants))
         hit = self._consts.get(key)
@@ -885,7 +906,7 @@ class RaftModel(SparseExpandMixin, ActionLabelMixin):
                 cand.append([GROUP_IDS[g.name], *args, GROUP_RANKS[g.name]])
         hit = tuple(
             torch.tensor(v, dtype=torch.int32, device=dev)
-            for v in (spec, cand, [INVARIANT_IDS[n] for n in invariants]))
+            for v in (spec, cand, [self._pred_ids[n] for n in invariants]))
         self._consts[key] = hit
         return hit
 
@@ -934,6 +955,24 @@ class RaftModel(SparseExpandMixin, ActionLabelMixin):
         has_v = torch.any(lv[:, :, None, :] == vals[None, None, :, None], dim=3)
         bad = (acked[:, None, :] == ACK_TRUE) & is_lead[:, :, None] & ~has_v
         return ~bad.flatten(1).any(dim=1)
+
+    def _live_value_all_or_nothing(self, v, states):
+        """ValueAllOrNothing(v) — Raft.tla:560-573: TRUE when the last
+        permissible election failed with no leader (progress legitimately
+        impossible), else v must be on EVERY server log or on NONE."""
+        lay, L = self.layout, self.p.max_log
+        ec = lay.get(states, "electionCtr")
+        st = lay.get(states, "state")
+        lv = lay.get(states, "log_value")
+        ll = lay.get(states, "log_len")
+        lanes = torch.arange(L, device=states.device)
+        in_log = lanes < ll[..., None]
+        has_v = torch.any(in_log & (lv == v + 1), dim=2)  # [B, S]
+        all_have = torch.all(has_v, dim=1)
+        none_have = ~torch.any(has_v, dim=1)
+        no_leader = ~torch.any(st == LEADER, dim=1)
+        spent = ec == self.p.max_elections
+        return (spent & no_leader) | all_have | none_have
 
     def _inv_committed_majority(self, states):
         """CommittedEntriesReachMajority — Raft.tla:625-636."""

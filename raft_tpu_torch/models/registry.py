@@ -21,6 +21,7 @@ class CheckSetup:
     symmetry: bool
     server_names: list[str]
     value_names: list[str]
+    properties: tuple[str, ...] = ()  # the cfg's PROPERTY lines
 
 
 def _require_int(cfg: Cfg, name: str) -> int:
@@ -55,6 +56,7 @@ def _setup(cfg: Cfg, params: RaftParams, name: str) -> CheckSetup:
         symmetry=cfg.symmetry is not None,
         server_names=servers,
         value_names=values,
+        properties=tuple(cfg.properties),
     )
 
 

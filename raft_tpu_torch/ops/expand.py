@@ -1,8 +1,9 @@
 """The guard-first Raft expand and the coverage/invariant fold of a chunk.
 
-Three kernels (``csrc/raft_expand.cu``, ``csrc/raft_fold.cu``, with the
-actions and invariants in ``csrc/raft_actions.cuh``), each with its
-plain PyTorch version beside it:
+Four kernels (``csrc/raft_expand.cu``, ``csrc/raft_fold.cu``,
+``csrc/raft_predicates.cu``, with the actions, invariants and liveness
+predicates in ``csrc/raft_actions.cuh``), each with its plain PyTorch
+version beside it:
 
   ``raft_guard``  valid/rank/ovf over the [C, A] candidate grid, the
                   chunk scalars (n_gen, terminal, expand_ovf) and the
@@ -13,12 +14,16 @@ plain PyTorch version beside it:
   ``raft_apply``  successor rows of a compacted worklist —
                   ``sparse_apply`` of ``raft_tpu/models/base.py:426``;
   ``raft_fold``   the new-distinct coverage and the first bad journal
-                  index per invariant — ``device_bfs.py:453-460,501-506``.
+                  index per invariant — ``device_bfs.py:453-460,501-506``;
+  ``raft_predicates``  named predicates over rows (the liveness graph's
+                  ``_eval_kernel``, ``raft_tpu/checker/liveness.py:254``),
+                  and ``raft_sim_check``, a simulate step's invariant
+                  check and settle (``raft_tpu/checker/simulate.py:88-103``).
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors (it raises rather than fall back). The kernels read the
 model through ``RaftModel.kernel_spec``; the plain versions through the
-model's ``guards``/``sparse_apply``/``invariants``.
+model's ``guards``/``sparse_apply``/``invariants``/``predicates``.
 """
 
 from __future__ import annotations
@@ -172,3 +177,110 @@ def raft_fold(model, flatc, new, jcount, viol, invariants, cov=None, sel=None, v
                          inv.data_ptr(), len(invariants), first_bad.data_ptr(),
                          jcount.data_ptr(), viol.data_ptr(), ptr(cov), kernels.stream(dev))
     k.launched(rc)
+
+
+# ---------------- raft_predicates ----------------
+
+
+def raft_predicates_plain(model, rows: torch.Tensor, names) -> torch.Tensor:
+    """Plain version of ``raft_predicates``: the model's invariant or
+    predicate functions, 65,536 rows at a time."""
+    fns = [model.invariants.get(n) or model.predicates[n] for n in names]
+    out = torch.empty((len(names), rows.shape[0]), dtype=torch.bool, device=rows.device)
+    for off in range(0, rows.shape[0], 1 << 16):
+        part = rows[off:off + (1 << 16)]
+        for p, fn in enumerate(fns):
+            out[p, off:off + part.shape[0]] = fn(part)
+    return out
+
+
+def raft_predicates(model, rows: torch.Tensor, names) -> torch.Tensor:
+    """bool [P, N]: predicate ``names[p]`` (an invariant of
+    ``model.invariants`` or a liveness predicate of ``model.predicates``)
+    on each int32 [N, W] row — the batched predicate calls of
+    ``raft_tpu/checker/liveness.py:254``."""
+    names = tuple(names)
+    if kernels.route(rows) == "cpu":
+        return raft_predicates_plain(model, rows, names)
+    k = kernels.RAFT_PREDICATES
+    kernels.require(rows, torch.int32, "rows", ndim=2)
+    if rows.shape[1] != model.layout.W:
+        raise ValueError(f"rows must be [N, {model.layout.W}], got {tuple(rows.shape)}")
+    spec, _, ids = model.kernel_spec(rows.device, names)
+    out = torch.empty((len(names), rows.shape[0]), dtype=torch.bool, device=rows.device)
+    rc = k.lib.raft_predicates(rows.data_ptr(), rows.shape[0], spec.data_ptr(), spec.numel(),
+                               ids.data_ptr(), len(names), out.data_ptr(),
+                               kernels.stream(rows.device))
+    k.launched(rc)
+    return out
+
+
+# ---------------- raft_sim_check (simulate's check and settle) ----------------
+
+NO_WALK = 0x7F7F7F7F7F7F7F7F  # stats[3] when no walk broke an invariant
+
+
+def raft_sim_check_plain(model, states, nxt, moved, chosen, ridx, init_pool, depth,
+                         max_depth: int, journal, jlen, invariants, stats):
+    """Plain version of ``raft_sim_check`` (``raft_tpu/checker/simulate.py:
+    88-103`` and the journal bookkeeping of :169-185)."""
+    R = states.shape[0]
+    inv_bad = torch.full((R,), -1, dtype=torch.int32, device=states.device)
+    for idx in range(len(invariants) - 1, -1, -1):
+        ok = model.invariants[invariants[idx]](nxt)
+        inv_bad = torch.where(~ok & moved, idx, inv_bad).to(torch.int32)
+    nd = depth + moved.to(torch.int32)
+    done = (~moved | (nd >= max_depth)) & (inv_bad < 0)
+    w = torch.arange(R, device=states.device)
+    J = journal.shape[1]
+    app = moved & (jlen < J)
+    journal[w[app], jlen[app].long()] = chosen[app]
+    jlen += app.to(torch.int32)
+    journal[done, 0] = ridx[done]
+    jlen[done] = 1
+    depth.copy_(torch.where(done, 0, nd))
+    nxt.copy_(torch.where(done[:, None], init_pool[ridx.long()],
+                          torch.where(moved[:, None], nxt, states)))
+    bad = torch.nonzero(inv_bad >= 0)
+    stats[2] = done.sum()
+    stats[3] = bad[0, 0] if bad.numel() else NO_WALK
+    return inv_bad, done
+
+
+def raft_sim_check(model, states, nxt, moved, chosen, ridx, init_pool, depth, max_depth: int,
+                   journal, jlen, invariants, stats):
+    """One simulate step's check and settle, after ``raft_apply`` wrote the
+    moved walks' successors into ``nxt`` [R, W] (zeros where a walk did
+    not move). Returns (inv_bad int32 [R]: the first of ``invariants``
+    that the walk's new row breaks, -1 if none or not moved; done bool
+    [R]) and updates in place: ``nxt`` becomes the walks' next rows (a walk
+    that did not move keeps its row of ``states``; a done walk restarts
+    from ``init_pool[ridx]``), ``depth`` [R] int32, the journal int32
+    [R, J] with its lengths ``jlen`` [R] int32 (chosen appended for a
+    moved walk, [ridx] for a done one), stats[2] (done walks) and stats[3]
+    (the lowest walk with inv_bad >= 0, ``NO_WALK`` when none)."""
+    invariants = tuple(invariants)
+    if kernels.route(states) == "cpu":
+        return raft_sim_check_plain(model, states, nxt, moved, chosen, ridx, init_pool, depth,
+                                    max_depth, journal, jlen, invariants, stats)
+    k = kernels.RAFT_PREDICATES
+    R, W = states.shape
+    kernels.require(states, torch.int32, "states", shape=(R, model.layout.W))
+    kernels.require(nxt, torch.int32, "nxt", shape=(R, W))
+    kernels.require(init_pool, torch.int32, "init_pool", ndim=2)
+    for t, name in ((chosen, "chosen"), (ridx, "ridx"), (depth, "depth"), (jlen, "jlen")):
+        kernels.require(t, torch.int32, name, shape=(R,))
+    kernels.require(moved, torch.bool, "moved", shape=(R,))
+    kernels.require(journal, torch.int32, "journal", ndim=2)
+    kernels.require(stats, torch.int64, "stats", shape=(4,))
+    spec, _, inv = model.kernel_spec(states.device, invariants)
+    inv_bad = torch.empty(R, dtype=torch.int32, device=states.device)
+    done = torch.empty(R, dtype=torch.bool, device=states.device)
+    rc = k.lib.raft_sim_check(
+        states.data_ptr(), nxt.data_ptr(), R, moved.data_ptr(), chosen.data_ptr(),
+        ridx.data_ptr(), init_pool.data_ptr(), depth.data_ptr(), max_depth, journal.data_ptr(),
+        journal.shape[1], jlen.data_ptr(), spec.data_ptr(), spec.numel(), inv.data_ptr(),
+        len(invariants), inv_bad.data_ptr(), done.data_ptr(), stats.data_ptr(),
+        kernels.stream(states.device))
+    k.launched(rc)
+    return inv_bad, done

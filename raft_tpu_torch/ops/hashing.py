@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
+
 M32 = 0xFFFFFFFF
 INT64_MAX = (1 << 63) - 1
 
@@ -141,6 +143,24 @@ def hash_lanes_pair(vec: torch.Tensor, seed: int = 0):
 def hash_lanes(vec: torch.Tensor, seed: int = 0) -> torch.Tensor:
     """Hash an int32 [..., K] vector to an enc fingerprint [...]."""
     return combine_pair(*hash_lanes_pair(vec, seed))
+
+
+def hash_rows(rows: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """Full-state enc fingerprints int64 [N] of int32 [N, W] rows: the
+    ``hash_rows`` kernel (csrc/hash_rows.cu) on a CUDA tensor, its plain
+    version ``hash_lanes`` on a CPU one. The liveness graph's dedup hash
+    (``raft_tpu/checker/liveness.py:104,125``)."""
+    if kernels.route(rows) == "cpu":
+        return hash_lanes(rows, seed)
+    k = kernels.HASH_ROWS
+    kernels.require(rows, torch.int32, "rows", ndim=2)
+    N, W = rows.shape
+    sa, sb = seed_salts(seed)
+    out = torch.empty(N, dtype=torch.int64, device=rows.device)
+    rc = k.lib.hash_rows(rows.data_ptr(), N, W, sa, sb, int(bool(seed)), out.data_ptr(),
+                         kernels.stream(rows.device))
+    k.launched(rc)
+    return out
 
 
 def memo_slot(fp: torch.Tensor, mcap: int) -> torch.Tensor:

@@ -224,3 +224,17 @@ def format_trace_tlc(trace, setup, violated: str | None = None) -> str:
         out.append(format_state(setup, st))
         out.append("")
     return "\n".join(out)
+
+
+def format_lasso(violation, setup, tlc: bool = False) -> str:
+    """A temporal counterexample: the prefix to the loop's entry, then the
+    loop (none for a terminal stutter), as the reference's CLI prints it
+    (raft_tpu/__main__.py:766-781). TLC prints the lasso as one behavior
+    with a "Back to state" marker at the loop entry."""
+    out = [format_trace_tlc(violation.prefix, setup, None) if tlc
+           else format_trace(violation.prefix, setup)]
+    if violation.cycle:
+        out.append("-- Back to state: the loop below repeats --" if tlc
+                   else "-- loop (repeats forever) --")
+        out.append(format_trace(violation.cycle, setup))
+    return "\n".join(out)

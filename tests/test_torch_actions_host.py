@@ -28,7 +28,8 @@ import pytest
 import torch
 
 from raft_tpu_torch.models.raft import (
-    GROUP_IDS, INVARIANT_IDS, MSG_FIELDS, SPEC_LEN, SPEC_OFFSETS, SPEC_SCALARS,
+    GROUP_IDS, INVARIANT_IDS, MSG_FIELDS, PRED_VALUE_AON, SPEC_LEN, SPEC_OFFSETS,
+    SPEC_SCALARS,
 )
 
 from test_torch_kernels_cuda import edge_rows
@@ -87,6 +88,9 @@ extern "C" void host_expand(const int* states, int C, const int* spec, const int
 extern "C" void host_invariant(const int* states, int C, const int* spec, int id, bool* ok) {
   for (int c = 0; c < C; ++c) ok[c] = ra_invariant(spec, states + (long long)c * spec[SP_W], id);
 }
+extern "C" void host_predicate(const int* states, int C, const int* spec, int id, bool* ok) {
+  for (int c = 0; c < C; ++c) ok[c] = ra_predicate(spec, states + (long long)c * spec[SP_W], id);
+}
 """
 
 
@@ -107,6 +111,7 @@ def lib(tmp_path_factory):
     P = ctypes.c_void_p
     lib.host_expand.argtypes = [P, ctypes.c_int, P, P, ctypes.c_int, ctypes.c_int, P, P, P, P]
     lib.host_invariant.argtypes = [P, ctypes.c_int, P, ctypes.c_int, P]
+    lib.host_predicate.argtypes = [P, ctypes.c_int, P, ctypes.c_int, P]
     return lib
 
 
@@ -145,6 +150,34 @@ def test_device_invariants_match_reference(lib, name):
         for arr in (states, succs):
             ok = np.zeros(len(arr), bool)
             lib.host_invariant(_ptr(arr), len(arr), _ptr(spec), iid, _ptr(ok))
+            assert np.array_equal(ok, np.asarray(jm.invariants[inv](arr))), inv
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_device_liveness_predicate_matches_reference(lib, name):
+    # ValueAllOrNothing(v) of each value (PRED_VALUE_AON + v) against the
+    # reference's _live_value_all_or_nothing, on reachable and edge rows,
+    # their successors, and rows with the election counter spent; and the
+    # invariant ids through the same entry point
+    jm, tm, batch = _pair(name)
+    states = edge_rows(tm, batch, seed=11)
+    succs = np.ascontiguousarray(np.asarray(jax.device_get(jm.expand(states))[0])
+                                 .reshape(-1, tm.layout.W)[::5])
+    spent = states.copy()
+    spent[:, tm.layout.fields["electionCtr"].offset] = tm.p.max_elections
+    names = [q for _lab, _p, q in tm.liveness["ValuesNotStuck"]]
+    spec, _, ids = (np.ascontiguousarray(t.numpy()) for t in tm.kernel_spec("cpu", names))
+    assert ids.tolist() == [PRED_VALUE_AON + v for v in range(tm.p.n_values)]
+    for arr in (states, succs, spent):
+        for (_lab, _p, jq), pid in zip(jm.liveness["ValuesNotStuck"], ids):
+            ok = np.zeros(len(arr), bool)
+            lib.host_predicate(_ptr(arr), len(arr), _ptr(spec), int(pid), _ptr(ok))
+            want = np.asarray(jq(arr))
+            assert np.array_equal(ok, want)
+            assert want.any() and not want.all()
+        for inv, iid in INVARIANT_IDS.items():
+            ok = np.zeros(len(arr), bool)
+            lib.host_predicate(_ptr(arr), len(arr), _ptr(spec), iid, _ptr(ok))
             assert np.array_equal(ok, np.asarray(jm.invariants[inv](arr))), inv
 
 

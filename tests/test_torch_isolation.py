@@ -18,7 +18,8 @@ MODULES = [
     "raft_tpu_torch", "raft_tpu_torch.__main__", "raft_tpu_torch.convert",
     "raft_tpu_torch.kernels", "raft_tpu_torch.ops.symmetry", "raft_tpu_torch.ops.expand",
     "raft_tpu_torch.models.registry", "raft_tpu_torch.checker.device_bfs",
-    "raft_tpu_torch.utils.pprint",
+    "raft_tpu_torch.utils.pprint", "raft_tpu_torch.ops.prng", "raft_tpu_torch.ops.hashing",
+    "raft_tpu_torch.checker.simulate", "raft_tpu_torch.checker.liveness",
 ]
 
 
@@ -38,6 +39,8 @@ def test_imports_no_jax_and_no_reference():
 def test_default_device_is_cuda_and_raises_without_card():
     from raft_tpu_torch import resolve_device
     from raft_tpu_torch.checker.device_bfs import DeviceBFS
+    from raft_tpu_torch.checker.liveness import LivenessChecker
+    from raft_tpu_torch.checker.simulate import Simulator
     from raft_tpu_torch.models.raft import RaftModel, RaftParams
 
     if torch.cuda.is_available():
@@ -49,4 +52,8 @@ def test_default_device_is_cuda_and_raises_without_card():
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceBFS(model, chunk=64, frontier_cap=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Simulator(model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LivenessChecker(model, ("ValuesNotStuck",))
     assert resolve_device("cpu").type == "cpu"

@@ -398,3 +398,123 @@ def test_violation_trace_replay_card_equals_cpu(dev):
     assert rg.trace == rc.trace and len(rg.trace) == rg.violation.depth + 1
     assert (rg.distinct, rg.total, rg.depth_counts) == (rc.distinct, rc.total, rc.depth_counts)
     assert kernels.RAFT_APPLY.launches > before
+
+
+# ---------------- simulate and liveness kernels ----------------
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_raft_predicates(dev, name):
+    """Every invariant and ValueAllOrNothing(v) of each value on edge rows
+    and their successors, and rows with the election counter spent."""
+    from raft_tpu_torch.ops.expand import raft_predicates, raft_predicates_plain
+
+    model = RaftModel(VARIANTS[name])
+    states = _edge_states(model, dev, seed=3)
+    spent = states.clone()
+    spent[:, model.layout.fields["electionCtr"].offset] = model.p.max_elections
+    names = tuple(model.invariants) + tuple(model.predicates)
+    assert any(n.startswith("ValueAllOrNothing(") for n in names)
+    for rows in (states, spent, states[:0], states[:1]):
+        rows = rows.contiguous()
+        pk, pp = raft_predicates(model, rows, names), raft_predicates_plain(model, rows, names)
+        assert pk.shape == (len(names), rows.shape[0]) and torch.equal(pk, pp)
+
+
+@pytest.mark.parametrize("n_walks,n_cand,n_init", [(1, 5, 1), (300, 37, 1), (1000, 129, 7),
+                                                   (4097, 70, 3)])
+def test_sim_pick(dev, n_walks, n_cand, n_init):
+    from raft_tpu_torch.checker.simulate import sim_pick, sim_pick_plain
+
+    gen = torch.Generator().manual_seed(n_walks)
+    valid = torch.rand((n_walks, n_cand), generator=gen) < 0.1
+    valid[::5] = False  # walks that cannot move
+    valid[1::5, -1] = True  # the last candidate enabled
+    ovf = torch.rand((n_walks, n_cand), generator=gen) < 0.02
+    for key in ((0, 0), (123, 4_000_000_000), (0xFFFFFFFF, 7)):
+        out = []
+        for fn, d in ((sim_pick, dev), (sim_pick_plain, "cpu")):
+            stats = torch.zeros(4, dtype=torch.int64, device=d)
+            res = fn(valid.to(d), ovf.to(d), key, n_init, stats)
+            out.append([t.cpu() for t in res] + [stats[:2].cpu()])
+        for a, b in zip(*out):
+            assert torch.equal(a, b)
+
+
+def test_raft_sim_check(dev):
+    """The check and settle of one simulate step on reachable walks, with
+    walks that did not move, walks at the depth cap, walks that break an
+    invariant and walks whose journal is full."""
+    from raft_tpu_torch.ops.expand import raft_sim_check, raft_sim_check_plain
+
+    model = RaftModel(VARIANTS["core"])
+    states = _edge_states(model, dev, seed=9)
+    R, W = states.shape
+    gen = torch.Generator().manual_seed(1)
+    nxt = states[torch.randperm(R, generator=gen).to(dev)].contiguous()
+    moved = (torch.rand(R, generator=gen) < 0.8).to(dev)
+    nxt[~moved] = 0
+    chosen = torch.randint(0, model.A, (R,), generator=gen, dtype=torch.int32).to(dev)
+    init_pool = states[:3].contiguous()
+    ridx = torch.randint(0, 3, (R,), generator=gen, dtype=torch.int32).to(dev)
+    max_depth = 6
+    depth = torch.randint(0, max_depth, (R,), generator=gen, dtype=torch.int32).to(dev)
+    J = max_depth + 1
+    journal = torch.randint(0, 99, (R, J), generator=gen, dtype=torch.int32).to(dev)
+    jlen = (depth + 1).contiguous()
+    jlen[::11] = J  # a full journal takes no more candidates
+    for invs in (INV, tuple(model.invariants), ()):
+        outs = []
+        for fn in (raft_sim_check, raft_sim_check_plain):
+            args = [t.clone() for t in (nxt, depth, journal, jlen)]
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            res = fn(model, states, args[0], moved, chosen, ridx, init_pool, args[1],
+                     max_depth, args[2], args[3], invs, stats)
+            outs.append(list(res) + args + [stats[2:]])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+        inv_bad, done = outs[0][:2]
+        if invs:
+            assert bool((inv_bad >= 0).any()) and bool(done.any()) and not bool(done.all())
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_hash_rows(dev, seed):
+    from raft_tpu_torch.ops.hashing import hash_lanes, hash_rows
+
+    for W in (1, 31, 32, 33, 192, 334):
+        rows = torch.randint(-(1 << 31), (1 << 31) - 1, (1000, W), dtype=torch.int32)
+        rows[:10] = 0
+        want = hash_lanes(rows, seed)
+        assert torch.equal(hash_rows(rows.to(dev), seed).cpu(), want)
+    assert hash_rows(rows[:0].to(dev), seed).numel() == 0
+
+
+def test_simulate_and_liveness_card_equal_cpu(dev):
+    """Simulation mode (the FlexibleRaft quorum violation) and the liveness
+    graph on the card equal the CPU runs, through the new kernels."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.checker.liveness import LivenessChecker
+    from raft_tpu_torch.checker.simulate import Simulator
+
+    p = RaftParams(n_servers=3, n_values=1, max_elections=2, max_restarts=0, msg_slots=32,
+                   election_quorum=2, replication_quorum=1, strict_send_once=True,
+                   has_pending_response=False, trunc_term_mismatch=True)
+    before = kernels.SIM_PICK.launches
+    runs = [Simulator(RaftModel(p), invariants=INV, walks=16, max_behavior_depth=20, seed=0,
+                      device=d).run(max_steps=5000) for d in (dev, "cpu")]
+    assert runs[0].violation is not None and runs[0].violation == runs[1].violation
+    assert runs[0].trace == runs[1].trace
+    assert (runs[0].behaviors, runs[0].steps) == (runs[1].behaviors, runs[1].steps)
+    assert kernels.SIM_PICK.launches > before
+    small = RaftParams(n_servers=2, n_values=1, max_elections=2, max_restarts=0, msg_slots=16)
+    before = kernels.HASH_ROWS.launches
+    cs = [LivenessChecker(RaftModel(small), ("ValuesNotStuck",), chunk=256, device=d)
+          for d in (dev, "cpu")]
+    rs = [c.run() for c in cs]
+    assert (rs[0].distinct, rs[0].total_edges) == (rs[1].distinct, rs[1].total_edges) == (
+        2224, 3276)
+    for a in ("_esrc", "_edst", "_ecand"):
+        assert np.array_equal(getattr(cs[0], a), getattr(cs[1], a))
+    assert torch.equal(cs[0]._states.cpu(), cs[1]._states)
+    assert rs[0].violation is None and kernels.HASH_ROWS.launches > before
