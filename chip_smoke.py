@@ -17,10 +17,9 @@ Phases, each of which fails the run on any mismatch:
      on a chunk of the Raft.cfg path and of the five-server path;
      canon_tiered (memo cold and warm) and canon_signatures on a chunk of
      the depth-9 five-server frontier, canon_signatures on the Raft.cfg
-     chunk too; sim_pick and raft_sim_check (raft_predicates' simulate
-     entry) on a full-width FLEX5 simulate step, raft_predicates on the
-     FLEX5 walks and a Raft.cfg chunk, hash_rows on that chunk's valid
-     successor rows;
+     chunk too; sim_pick and raft_sim_check on a full-width FLEX5
+     simulate step, raft_predicates on the FLEX5 walks and a Raft.cfg
+     chunk, hash_rows on that chunk's valid successor rows;
   4. the main path: standard-raft Raft.cfg (inline text) checked through
      the function the CLI calls, on cuda, to exhaustion — 8,664,032
      distinct / 30,708,266 total / depth 48 / 19,514 terminal, no
@@ -51,12 +50,16 @@ Phases, each of which fails the run on any mismatch:
      final states, journals) at SMALL_WALKS walks, card against CPU; then
      five-server FlexibleRaft at the published quorums with SIM_WALKS
      walks for SIM_MOVES moves through the CLI's function, raft_guard,
-     sim_pick, raft_apply and raft_predicates once per move and no plain
-     expand, and a profiled window of 20 moves;
+     sim_pick, raft_apply and raft_sim_check once per move, raft_predicates
+     once (the initial states) and no plain expand, and a profiled window
+     of 20 moves;
   8. liveness: the two-server graph of tests/test_liveness.py (states and
-     edge arrays) card against CPU; then Raft.cfg's constants with
-     PROPERTY ValuesNotStuck through the CLI's function, its graph and
-     verdict, every kernel of the path once per chunk;
+     edge arrays) card against CPU; then Raft.cfg's constants at
+     MaxElections LIVE_ELECTIONS with PROPERTY ValuesNotStuck through the
+     CLI's function, its graph and verdict, the per-chunk kernels once per
+     chunk, raft_predicates once per property instance and held exactly
+     against its plain version on the graph's states (the row of the
+     kernel table);
   9. the kernel table as one JSON line, the card's name and power limit,
      and the result line.
 """
@@ -178,11 +181,12 @@ SIM_SLOTS = (64, 80, 96, 112, 128)
 SMALL_WALKS = 1024
 SMALL_MOVES = 100
 # liveness (phase 8): Raft.cfg's constants with PROPERTY ValuesNotStuck
-# (symmetry off: the checker builds the full-state graph), at the first
-# MaxElections of LIVE_ELECTIONS whose graph stays under the checker's
-# 8,000,000-state cap; and the two-server configuration of
+# (symmetry off: the checker builds the full-state graph), cut to
+# MaxElections LIVE_ELECTIONS: at MaxElections 2 the graph passes the
+# checker's 8,000,000-state cap (scripts/liveness_full_graph.py builds it
+# with the cap raised); and the two-server configuration of
 # tests/test_liveness.py for the card-vs-CPU run
-LIVE_ELECTIONS = (2, 1)
+LIVE_ELECTIONS = 1
 LIVE_CFG = RAFT_CFG + "PROPERTY\n    ValuesNotStuck\n"
 LIVE_SMALL_CFG = LIVE_CFG.replace("    n3 = n3\n", "").replace(
     "Server = { n1, n2, n3 }", "Server = { n1, n2 }")
@@ -210,7 +214,8 @@ KERNEL_NAMES = {
     "canon_tiered": ("canon_tiered_kernel", "ct_memo_insert"),
     "canon_signatures": ("canon_signatures_kernel",),
     "sim_pick": ("sim_pick_kernel",),
-    "raft_predicates": ("raft_predicates_kernel", "raft_sim_check_kernel"),
+    "raft_predicates": ("raft_predicates_kernel",),
+    "raft_sim_check": ("raft_sim_check_kernel",),
     "hash_rows": ("hash_rows_kernel",),
 }
 # the kernels each path launches (canon_signatures serves the checks only)
@@ -222,9 +227,9 @@ RAFT5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in RAFT3_PAT
 INVARIANT_FIELDS = ("currentTerm", "state", "log_term", "log_value", "commitIndex", "acked")
 # and the liveness predicate ValueAllOrNothing (raft_predicates)
 LIVENESS_FIELDS = ("electionCtr", "state", "log_value", "log_len")
-# the kernels of the simulate and liveness paths (raft_predicates serves
-# simulate as raft_sim_check, once per step, and the initial check)
-SIM_PATH = ("raft_guard", "sim_pick", "raft_apply", "raft_predicates")
+# the kernels of the simulate and liveness paths (simulate's
+# raft_predicates launch is the initial states' check)
+SIM_PATH = ("raft_guard", "sim_pick", "raft_apply", "raft_sim_check", "raft_predicates")
 LIVE_PATH = ("raft_guard", "compact_append", "raft_apply", "hash_rows", "raft_predicates")
 # integer operations of one threefry2x32 block: 20 rounds of an add, a
 # rotate (two shifts and an or) and a xor, and 6 key injections of 3 adds
@@ -554,13 +559,21 @@ def field_lanes(model, fields) -> int:
     return sum(model.layout.fields[f].size for f in set(fields))
 
 
+def bound(b, o=0) -> tuple[float, str]:
+    """(ms, what bounds it) for ``b`` bytes moved and ``o`` integer ops."""
+    return max(b / MEM_BPS, o / INT32_OPS) * 1e3, ("operations" if o / INT32_OPS >
+                                                   b / MEM_BPS else "bytes")
+
+
 def sim_rows(torch, model3, rows3, succ3) -> dict:
     """sim_pick and raft_sim_check against their plain versions on one
     full-width FLEX5 step (SIM_WALKS walks ten steps from Init, msg_slots
     RAFT5_SLOTS), raft_predicates on the FLEX5 walks and on the Raft.cfg
     chunk ``rows3`` (``model3``'s states), hash_rows on the Raft.cfg
-    chunk's valid successor rows ``succ3``, each exactly; their CUDA-event
-    times, plain times and bounds. Returns {kernel: row}."""
+    chunk's valid successor rows ``succ3``, each exactly; the CUDA-event
+    times, plain times and bounds of sim_pick, raft_sim_check and
+    hash_rows (raft_predicates' row comes from the liveness phase).
+    Returns {kernel: row}."""
     from raft_tpu_torch.__main__ import load_setup
     from raft_tpu_torch.checker.simulate import Simulator, sim_pick, sim_pick_plain
     from raft_tpu_torch.ops import prng
@@ -613,9 +626,9 @@ def sim_rows(torch, model3, rows3, succ3) -> dict:
           f"Raft.cfg states ({len(names3)}); hash_rows exact on {len(succ3)} Raft.cfg "
           "successor rows (families 0 and 7)")
     # bounds. sim_pick: the valid grid and the chosen lanes' ovf read, four
-    # outputs written; seven threefry blocks a walk
+    # outputs written; three threefry blocks a walk
     pick_bytes = R * A + n_moved + R * (4 + 1 + 4 + 4)
-    pick_ops = 7 * THREEFRY_OPS * R
+    pick_ops = 3 * THREEFRY_OPS * R
     # raft_sim_check: each moved walk's invariant fields read, the per-walk
     # inputs read and outputs written, a journal entry per moved walk, and
     # a row read and written per walk that restarts or did not move
@@ -623,17 +636,10 @@ def sim_rows(torch, model3, rows3, succ3) -> dict:
     copied = int((done | ~moved).sum())
     check_bytes = (4 * n_moved * field_lanes(model, INVARIANT_FIELDS) + R * (1 + 4 * 5)
                    + R * (4 + 1 + 4 + 4) + 4 * n_moved + 2 * 4 * W * copied)
-    pred5_bytes = 4 * R * field_lanes(model, INVARIANT_FIELDS + LIVENESS_FIELDS) + len(names5) * R
-    n3 = len(rows3)
-    pred3_bytes = 4 * n3 * field_lanes(model3, INVARIANT_FIELDS + LIVENESS_FIELDS) + len(names3) * n3
     # hash_rows: the rows read once, 8 bytes written; about 30 operations a
     # lane (two fmix32 of ~12, the salts' multiply-adds and the xor)
     nh, Wh = succ3.shape
     hash_bytes, hash_ops = nh * Wh * 4 + nh * 8, 30 * nh * Wh
-
-    def bound(b, o=0):
-        return max(b / MEM_BPS, o / INT32_OPS) * 1e3, ("operations" if o / INT32_OPS >
-                                                       b / MEM_BPS else "bytes")
 
     stats = zstats()
     # the settle updates its inputs in place: each timed call starts from
@@ -655,26 +661,17 @@ def sim_rows(torch, model3, rows3, succ3) -> dict:
             plain_ms=time_ms(torch, lambda: sim_pick_plain(valid, ovf, key, n_init, stats),
                              iters=10),
             max_abs_err=err_pick, walks=R),
-        "raft_predicates": dict(
+        "raft_sim_check": dict(
             ms=time_ms(torch, lambda: settle_work(raft_sim_check), iters=20, setup=reset),
             plain_ms=time_ms(torch, lambda: settle_work(raft_sim_check_plain), iters=5,
                              setup=reset),
-            max_abs_err=max(err_check, err_pred), walks=R,
-            predicates_ms=time_ms(torch, lambda: raft_predicates(model, states, names5), iters=20),
-            predicates_plain_ms=time_ms(torch, lambda: raft_predicates_plain(model, states,
-                                                                             names5), iters=5),
-            predicates_bound_ms=bound(pred5_bytes)[0],
-            raft_cfg_chunk_ms=time_ms(torch, lambda: raft_predicates(model3, rows3, names3),
-                                      iters=50),
-            raft_cfg_chunk_plain_ms=time_ms(torch, lambda: raft_predicates_plain(
-                model3, rows3, names3), iters=20),
-            raft_cfg_chunk_bound_ms=bound(pred3_bytes)[0]),
+            max_abs_err=err_check, walks=R),
         "hash_rows": dict(
             ms=time_ms(torch, lambda: hash_rows(succ3), iters=50),
             plain_ms=time_ms(torch, lambda: hash_lanes(succ3), iters=10),
             max_abs_err=err_hash, rows=nh),
     }
-    for k, (b, o) in (("sim_pick", (pick_bytes, pick_ops)), ("raft_predicates", (check_bytes, 0)),
+    for k, (b, o) in (("sim_pick", (pick_bytes, pick_ops)), ("raft_sim_check", (check_bytes, 0)),
                       ("hash_rows", (hash_bytes, hash_ops))):
         rows[k]["bound_ms"], rows[k]["bound_by"] = bound(b, o)
         rows[k]["library_ms"] = None
@@ -880,11 +877,11 @@ def simulate_phase(torch) -> dict:
         fail(f"simulate FLEX5 overflows every message-slot count of {SIM_SLOTS}")
     peak = torch.cuda.max_memory_allocated()
     moves = sim.moves
-    for k in SIM_PATH[:3]:
+    for k in SIM_PATH[:4]:
         check(launches[k] == moves, f"simulate: {launches[k]} {k} launches != {moves} moves")
-    # raft_predicates: one check and settle per move, one initial check
-    check(launches["raft_predicates"] == moves + 1,
-          f"simulate: {launches['raft_predicates']} raft_predicates launches != {moves} + 1")
+    check(launches["raft_predicates"] == 1,
+          f"simulate: {launches['raft_predicates']} raft_predicates launches != 1 (the "
+          "initial states' check)")
     for k in set(KERNEL_NAMES) - set(SIM_PATH):
         check(launches[k] == 0, f"simulate: {k} launched off its path")
     check(n_expand == 0, f"simulate: the plain RaftModel.expand ran {n_expand} times")
@@ -901,8 +898,8 @@ def simulate_phase(torch) -> dict:
           f"{report['W']}, A = {report['A']}), {moves} moves, steps={res.steps} behaviors="
           f"{res.behaviors} in {wall:.2f} s ({res.steps / wall:.0f} steps/s, "
           f"{report['wall_ms_per_move']:.3f} ms per move), peak device memory "
-          f"{peak / 2**30:.2f} GiB; raft_guard, sim_pick, raft_apply, raft_predicates once per "
-          f"move, RaftModel.expand called {n_expand} times")
+          f"{peak / 2**30:.2f} GiB; raft_guard, sim_pick, raft_apply, raft_sim_check once per "
+          f"move, raft_predicates once, RaftModel.expand called {n_expand} times")
     del sim
 
     # where a move's time goes: 20 moves untraced, then 20 under the profiler
@@ -964,43 +961,48 @@ def liveness_phase(torch) -> dict:
     del runs, cg, cc
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cuts = []
-    for me in LIVE_ELECTIONS:
-        text = LIVE_CFG.replace("    MaxElections = 2\n", f"    MaxElections = {me}\n")
-        t = time.perf_counter()
-        try:
-            (setup, checker, res), wall, launches, n_expand, _ = counted(
-                torch, lambda: run_liveness("Raft.cfg", text=text, device="cuda", chunk=CHUNK))
-            break
-        except OverflowError as e:
-            cuts.append(f"MaxElections {me}: {e} ({time.perf_counter() - t:.1f} s)")
-            print(f"[8] liveness Raft.cfg at MaxElections {me}: {e}")
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-    else:
-        fail(f"liveness: every MaxElections of {LIVE_ELECTIONS} exceeds the state cap")
+    text = LIVE_CFG.replace("    MaxElections = 2\n", f"    MaxElections = {LIVE_ELECTIONS}\n")
+    (setup, checker, res), wall, launches, n_expand, _ = counted(
+        torch, lambda: run_liveness("Raft.cfg", text=text, device="cuda", chunk=CHUNK))
     peak = torch.cuda.max_memory_allocated()
-    chunks = checker.chunks
-    for k in ("compact_append", "raft_apply"):
+    chunks, model = checker.chunks, setup.model
+    for k in ("raft_guard", "compact_append", "raft_apply"):
         check(launches[k] == chunks, f"liveness: {launches[k]} {k} launches != {chunks} chunks")
     check(launches["hash_rows"] == chunks + 1,
           f"liveness: {launches['hash_rows']} hash_rows launches != {chunks} chunks + 1")
-    n_inst = len(setup.model.liveness["ValuesNotStuck"])
-    check(launches["raft_guard"] >= chunks and launches["raft_predicates"] == n_inst,
-          f"liveness: raft_guard {launches['raft_guard']}, raft_predicates "
-          f"{launches['raft_predicates']} launches")
+    q_names = tuple(q for _l, _p, q in model.liveness["ValuesNotStuck"])
+    check(launches["raft_predicates"] == len(q_names),
+          f"liveness: {launches['raft_predicates']} raft_predicates launches != "
+          f"{len(q_names)} property instances")
     for k in set(KERNEL_NAMES) - set(LIVE_PATH):
         check(launches[k] == 0, f"liveness: {k} launched off its path")
     check(n_expand == 0, f"liveness: the plain RaftModel.expand ran {n_expand} times")
     verdict = ("holds" if res.violation is None else
                f"VIOLATED ({res.violation.instance}; prefix {len(res.violation.prefix) - 1}, "
                f"loop {len(res.violation.cycle)})")
-    report = {"max_elections": me, "cut": cuts, "states": res.distinct,
+    check(res.violation is None, f"liveness Raft.cfg: ValuesNotStuck {verdict}")
+    report = {"max_elections": LIVE_ELECTIONS, "states": res.distinct,
               "edges": res.total_edges, "seconds": wall, "chunks": chunks,
               "verdict": verdict, "peak_device_bytes": peak, "launches": launches}
-    print(f"[8] liveness Raft.cfg (MaxElections {me}): graph {res.distinct} "
+    print(f"[8] liveness Raft.cfg (MaxElections {LIVE_ELECTIONS}): graph {res.distinct} "
           f"states / {res.total_edges} edges in {wall:.2f} s ({chunks} chunks), "
           f"ValuesNotStuck {verdict}; peak device memory {peak / 2**30:.2f} GiB")
+    # raft_predicates as the path calls it: one predicate over the graph's
+    # states. Bound: the fields ValueAllOrNothing reads, one bool written
+    from raft_tpu_torch.ops.expand import raft_predicates, raft_predicates_plain
+
+    states = checker._states
+    err = max(exact(torch, raft_predicates(model, states, (q,)),
+                    raft_predicates_plain(model, states, (q,))) for q in q_names)
+    check(err == 0.0, "raft_predicates differs from its plain version on the liveness graph")
+    n = states.shape[0]
+    b, by = bound(4 * n * field_lanes(model, LIVENESS_FIELDS) + n)
+    report["raft_predicates"] = dict(
+        ms=time_ms(torch, lambda: raft_predicates(model, states, q_names[:1]), iters=50),
+        plain_ms=time_ms(torch, lambda: raft_predicates_plain(model, states, q_names[:1]),
+                         iters=10),
+        max_abs_err=err, rows=n, bound_ms=b, bound_by=by, library_ms=None)
+    print(f"[8] raft_predicates exact on the graph's {n} states ({len(q_names)} predicates)")
     report["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"liveness": report}))
     print(f"[8] liveness phase {report['phase_s']:.1f} s")
@@ -1269,7 +1271,7 @@ def main() -> int:
                  f" ms, bound {r['rows_bound_ms']:.4f} ms" if "rows_ms" in r else ""))
     print(json.dumps({"chunk_sort_five_servers": sort5}))
     print(json.dumps({"simulate_liveness_kernels": {
-        k: rows[k] for k in ("sim_pick", "raft_predicates", "hash_rows")}}))
+        k: rows[k] for k in ("sim_pick", "raft_sim_check", "hash_rows")}}))
 
     phase_start["4"] = time.perf_counter()
     # ---- 4. the main path ----
@@ -1386,6 +1388,7 @@ def main() -> int:
     phase_start["8"] = time.perf_counter()
     # ---- 8. liveness ----
     live_report = liveness_phase(torch)
+    rows["raft_predicates"] = live_report.pop("raft_predicates")
 
     phase_start["9"] = time.perf_counter()
     # ---- 9. results ----
@@ -1409,14 +1412,18 @@ def main() -> int:
         "sim_pick": ("raft_tpu_torch/csrc/sim_step.cu", "raft_tpu/checker/simulate.py:66"),
         "raft_predicates": ("raft_tpu_torch/csrc/raft_predicates.cu",
                             "raft_tpu/checker/liveness.py:254"),
+        "raft_sim_check": ("raft_tpu_torch/csrc/raft_predicates.cu",
+                           "raft_tpu/checker/simulate.py:93"),
         "hash_rows": ("raft_tpu_torch/csrc/hash_rows.cu", "raft_tpu/checker/liveness.py:108"),
     }
     # launches: each kernel's count on the path that runs it (Raft.cfg's
-    # for the kernels both paths share); canon_signatures serves the checks
+    # for the kernels both paths share, liveness' for raft_predicates,
+    # whose row is timed there); canon_signatures serves the checks
     path_launches = {**{k: launches[k] for k in RAFT3_PATH},
                      "canon_tiered": launches5["canon_tiered"], "canon_signatures": 0,
                      "sim_pick": sim_report["launches"]["sim_pick"],
-                     "raft_predicates": sim_report["launches"]["raft_predicates"],
+                     "raft_sim_check": sim_report["launches"]["raft_sim_check"],
+                     "raft_predicates": live_report["launches"]["raft_predicates"],
                      "hash_rows": live_report["launches"]["hash_rows"]}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],

@@ -68,47 +68,39 @@ def run_check(cfg_path: str, text: str | None = None, device=None,
 
 def _sim(setup, device=None, walks: int = 128, max_behavior_depth: int = 50, seed: int = 0,
          max_behaviors: int | None = None, max_steps: int | None = None,
-         time_budget_s: float | None = None, verbose: bool = False):
+         verbose: bool = False):
     from .checker.simulate import Simulator
 
     sim = Simulator(setup.model, invariants=setup.invariants, walks=walks,
                     max_behavior_depth=max_behavior_depth, seed=seed, device=device)
-    return sim, sim.run(max_steps=max_steps, time_budget_s=time_budget_s,
-                        max_behaviors=max_behaviors, verbose=verbose)
+    return sim, sim.run(max_steps=max_steps, max_behaviors=max_behaviors, verbose=verbose)
 
 
 def run_simulate(cfg_path: str, text: str | None = None, device=None,
-                 msg_slots: int | None = None, spec: str | None = None,
-                 lenient: bool = False, walks: int = 128, max_behavior_depth: int = 50,
-                 seed: int = 0, max_behaviors: int | None = None,
-                 max_steps: int | None = None, time_budget_s: float | None = None,
-                 verbose: bool = False):
+                 msg_slots: int | None = None, walks: int = 128,
+                 max_behavior_depth: int = 50, seed: int = 0,
+                 max_steps: int | None = None):
     """Parse a cfg, build the model and run simulation mode (``walks``
-    random walks in lock-step). Returns (setup, simulator, result)."""
-    setup = load_setup(cfg_path, text, spec, msg_slots, lenient)
-    sim, res = _sim(setup, device, walks, max_behavior_depth, seed, max_behaviors, max_steps,
-                    time_budget_s, verbose)
+    random walks in lock-step, ``max_steps`` transitions in all). Returns
+    (setup, simulator, result)."""
+    setup = load_setup(cfg_path, text, msg_slots=msg_slots)
+    sim, res = _sim(setup, device, walks, max_behavior_depth, seed, max_steps=max_steps)
     return setup, sim, res
 
 
-def _live(setup, device=None, chunk: int = 4096, properties=None, verbose: bool = False,
-          audit_seed: int | None = None):
+def _live(setup, device=None, chunk: int = 4096, verbose: bool = False):
     from .checker.liveness import LivenessChecker
 
-    checker = LivenessChecker(setup.model, setup.properties if properties is None
-                              else properties, chunk=chunk, device=device)
-    return checker, checker.run(verbose=verbose, audit_seed=audit_seed)
+    checker = LivenessChecker(setup.model, setup.properties, chunk=chunk, device=device)
+    return checker, checker.run(verbose=verbose)
 
 
 def run_liveness(cfg_path: str, text: str | None = None, device=None, chunk: int = 4096,
-                 msg_slots: int | None = None, spec: str | None = None,
-                 lenient: bool = False, properties: tuple[str, ...] | None = None,
-                 verbose: bool = False, audit_seed: int | None = None):
-    """Parse a cfg, build the model and check its temporal properties
-    (``properties``, default the cfg's PROPERTY lines) on the full state
-    graph (symmetry off). Returns (setup, checker, result)."""
-    setup = load_setup(cfg_path, text, spec, msg_slots, lenient)
-    checker, res = _live(setup, device, chunk, properties, verbose, audit_seed)
+                 msg_slots: int | None = None):
+    """Parse a cfg, build the model and check its PROPERTY lines on the
+    full state graph (symmetry off). Returns (setup, checker, result)."""
+    setup = load_setup(cfg_path, text, msg_slots=msg_slots)
+    checker, res = _live(setup, device, chunk)
     return setup, checker, res
 
 

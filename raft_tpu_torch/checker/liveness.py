@@ -99,8 +99,9 @@ class LivenessChecker:
         fps = hash_rows(rows, self._seed)
         return sel.cpu().numpy().astype(np.int64), rows, fps.cpu().numpy()
 
-    def _explore(self):
+    def _explore(self, verbose: bool = False):
         model, dev = self.model, self.device
+        t0 = time.perf_counter()
         B, A = self.chunk, model.A
         cov = torch.zeros((len(model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
         init = model.init_states()
@@ -196,8 +197,25 @@ class LivenessChecker:
             edst_l.append(gid_w)
             ecand_l.append(cands)
             frontier = new_states
+            if verbose:
+                print(f"liveness wave {len(esrc_l)}: {n} states, {len(new_states)} new, "
+                      f"{sum(map(len, esrc_l))} edges, {time.perf_counter() - t0:.1f} s",
+                      file=sys.stderr)
 
-        self._states = torch.cat(state_blocks)
+        # one [n, W] tensor of the graph's rows. The blocks pass through the
+        # host, each freed on the card once copied, so the card never holds
+        # the rows twice (a full graph can fill half of it)
+        W, dtype = init_d.shape[1], init_d.dtype
+        frontier = new_states = init_d = None
+        host = []
+        while state_blocks:
+            host.append(state_blocks.pop(0).cpu())
+        self._states = torch.empty((n, W), dtype=dtype, device=dev)
+        off = 0
+        for block in host:
+            self._states[off:off + len(block)] = block
+            off += len(block)
+        del host
         self._esrc = np.concatenate(esrc_l) if esrc_l else np.zeros(0, np.int64)
         self._edst = np.concatenate(edst_l) if edst_l else np.zeros(0, np.int64)
         self._ecand = np.concatenate(ecand_l) if ecand_l else np.zeros(0, np.int32)
@@ -299,7 +317,7 @@ class LivenessChecker:
 
     def run(self, verbose: bool = False, audit_seed: int | None = None) -> LivenessResult:
         t0 = time.perf_counter()
-        self._explore()
+        self._explore(verbose)
         n = len(self._states)
         if audit_seed is not None:
             self._audit(audit_seed, verbose)

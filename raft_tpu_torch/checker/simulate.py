@@ -100,7 +100,9 @@ def sim_pick(valid, ovf, key, n_init: int, stats):
     moved = torch.empty(R, dtype=torch.bool, device=dev)
     sel = torch.empty(R, dtype=torch.int32, device=dev)
     ridx = torch.empty(R, dtype=torch.int32, device=dev)
-    rc = k.lib.sim_pick(valid.data_ptr(), ovf.data_ptr(), R, A, key[0], key[1], n_init,
+    ku, kr = prng.split(key)
+    ka, kb = prng.split(kr)  # randint's two keys
+    rc = k.lib.sim_pick(valid.data_ptr(), ovf.data_ptr(), R, A, *ku, *ka, *kb, n_init,
                         chosen.data_ptr(), moved.data_ptr(), sel.data_ptr(), ridx.data_ptr(),
                         stats.data_ptr(), kernels.stream(dev))
     k.launched(rc)

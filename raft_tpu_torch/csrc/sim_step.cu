@@ -12,17 +12,20 @@
 //   = jax.random.randint(kr, (R,), 0, n_init)[w] (int64, here int32);
 //   stats[0] += moved, stats[1] |= moved && ovf[w, chosen].
 //
-// (ku, kr) = jax.random.split(key) of the step's key. The draws are jax's
-// threefry2x32 as raft_tpu runs it (ops/prng.py): x64 on, so 64 random bits
-// an element from the counter (0, w) (partitionable threefry), the float64
-// mantissa from their top 52, and randint's two 64-bit draws under the
-// split of kr, combined as (hi mod n) * (2^64 mod n) + (lo mod n), mod n.
+// (ku, kr) = jax.random.split(key) of the step's key, and (ka, kb) =
+// split(kr), randint's two keys, are the same for every walk: the host
+// computes them (ops/prng.split) and passes ku, ka and kb. The draws are
+// jax's threefry2x32 as raft_tpu runs it (ops/prng.py): x64 on, so 64
+// random bits an element from the counter (0, w) (partitionable
+// threefry), the float64 mantissa from their top 52, and randint's two
+// 64-bit draws under ka and kb, combined as (hi mod n) * (2^64 mod n) +
+// (lo mod n), mod n.
 //
 // Design: one warp per walk. The lanes read the walk's valid row 32
 // candidates at a time (coalesced) and count them with a ballot; lane 0
 // draws u and the restart index; a second pass over the ballots finds the
 // k-th enabled candidate. Bound: bytes — the valid row read (twice, the
-// second from cache) and four ints a walk written; the draws are seven
+// second from cache) and four ints a walk written; the draws are three
 // threefry blocks a walk.
 #include "common.cuh"
 
@@ -59,7 +62,8 @@ __device__ __forceinline__ uint64_t sp_bits64(uint32_t k1, uint32_t k2, uint32_t
 }
 
 __global__ void sim_pick_kernel(const bool* __restrict__ valid, const bool* __restrict__ ovf, int R,
-                                int A, uint32_t key1, uint32_t key2, int n_init,
+                                int A, uint32_t ku1, uint32_t ku2, uint32_t ka1, uint32_t ka2,
+                                uint32_t kb1, uint32_t kb2, int n_init,
                                 int* __restrict__ chosen, bool* __restrict__ moved,
                                 int* __restrict__ sel, int* __restrict__ ridx,
                                 unsigned long long* __restrict__ stats) {
@@ -74,18 +78,13 @@ __global__ void sim_pick_kernel(const bool* __restrict__ valid, const bool* __re
   }
   int k = 0;
   if (lane == 0) {
-    uint32_t ku1, ku2, kr1, kr2, a1, a2, b1, b2;
-    sp_threefry(key1, key2, 0u, 0u, &ku1, &ku2);  // (ku, kr) = split(key)
-    sp_threefry(key1, key2, 0u, 1u, &kr1, &kr2);
     const double u = (double)(sp_bits64(ku1, ku2, (uint32_t)w) >> 12) * 0x1p-52;
     k = (int)floor(u * (double)(n > 1 ? n : 1));
-    sp_threefry(kr1, kr2, 0u, 0u, &a1, &a2);  // randint's split of kr
-    sp_threefry(kr1, kr2, 0u, 1u, &b1, &b2);
     const uint64_t span = (uint64_t)n_init;
     uint64_t mult = ((uint64_t)1 << 32) % span;
     mult = (mult * mult) % span;
     const uint64_t off =
-        ((sp_bits64(a1, a2, (uint32_t)w) % span) * mult + sp_bits64(b1, b2, (uint32_t)w) % span) %
+        ((sp_bits64(ka1, ka2, (uint32_t)w) % span) * mult + sp_bits64(kb1, kb2, (uint32_t)w) % span) %
         span;
     ridx[w] = (int)off;
   }
@@ -114,12 +113,13 @@ __global__ void sim_pick_kernel(const bool* __restrict__ valid, const bool* __re
   }
 }
 
-// valid, ovf [R, A] bool; key the step's PRNG key (two u32 words); n_init
-// the restart pool's rows (>= 1); chosen, sel, ridx [R] int32; moved [R]
-// bool; stats [4] int64, of which [0] and [1] are set here. Returns a
-// cudaError_t.
-extern "C" int sim_pick(const bool* valid, const bool* ovf, int R, int A, unsigned key1,
-                        unsigned key2, int n_init, int* chosen, bool* moved, int* sel, int* ridx,
+// valid, ovf [R, A] bool; ku the uniform draw's key, ka and kb randint's
+// two keys (each two u32 words); n_init the restart pool's rows (>= 1);
+// chosen, sel, ridx [R] int32; moved [R] bool; stats [4] int64, of which
+// [0] and [1] are set here. Returns a cudaError_t.
+extern "C" int sim_pick(const bool* valid, const bool* ovf, int R, int A, unsigned ku1,
+                        unsigned ku2, unsigned ka1, unsigned ka2, unsigned kb1, unsigned kb2,
+                        int n_init, int* chosen, bool* moved, int* sel, int* ridx,
                         long long* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (A <= 0 || n_init < 1) return (int)cudaErrorInvalidValue;
@@ -128,7 +128,7 @@ extern "C" int sim_pick(const bool* valid, const bool* ovf, int R, int A, unsign
   if (R <= 0) return 0;
   const long long threads = (long long)R * 32;
   sim_pick_kernel<<<(unsigned)((threads + PICK_THREADS - 1) / PICK_THREADS), PICK_THREADS, 0, s>>>(
-      valid, ovf, R, A, key1, key2, n_init, chosen, moved, sel, ridx,
+      valid, ovf, R, A, ku1, ku2, ka1, ka2, kb1, kb2, n_init, chosen, moved, sel, ridx,
       (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,8 @@
 
 Each kernel lives in a CUDA C++ source in ``csrc/`` with a plain C
 interface (``raft_guard`` and ``raft_apply`` share ``raft_expand.cu``;
-``raft_predicates.cu`` also holds simulate's ``raft_sim_check`` entry;
-``*.cuh`` headers are shared device code). ``nvcc -gencode
+``raft_predicates`` and simulate's ``raft_sim_check`` share
+``raft_predicates.cu``; ``*.cuh`` headers are shared device code). ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` compiles each source into a shared
 library under ``build/raft_tpu_torch/`` at first use (``build_all``
 starts one nvcc per source, all at once); ``ctypes`` loads it. A launcher
@@ -66,7 +66,7 @@ _SIGNATURES = {
                       _P, _P],
     },
     "sim_step": {
-        "sim_pick": [_P, _P, _I, _I, _U, _U, _I, _P, _P, _P, _P, _P, _P],
+        "sim_pick": [_P, _P, _I, _I, _U, _U, _U, _U, _U, _U, _I, _P, _P, _P, _P, _P, _P],
     },
     "raft_predicates": {
         "raft_predicates": [_P, _L, _P, _I, _P, _I, _P, _P],
@@ -159,10 +159,11 @@ CANON_TIERED = Kernel("canon_tiered")
 CANON_SIGNATURES = Kernel("canon_signatures", source="canon_tiered")
 SIM_PICK = Kernel("sim_pick", source="sim_step")
 RAFT_PREDICATES = Kernel("raft_predicates")
+RAFT_SIM_CHECK = Kernel("raft_sim_check", source="raft_predicates")
 HASH_ROWS = Kernel("hash_rows")
 ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, RAFT_GUARD, RAFT_APPLY,
        RAFT_FOLD, CHUNK_SORT, CANON_TIERED, CANON_SIGNATURES, SIM_PICK, RAFT_PREDICATES,
-       HASH_ROWS)
+       RAFT_SIM_CHECK, HASH_ROWS)
 
 
 def build_all() -> dict[str, str]:

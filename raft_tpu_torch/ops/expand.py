@@ -1,6 +1,6 @@
 """The guard-first Raft expand and the coverage/invariant fold of a chunk.
 
-Four kernels (``csrc/raft_expand.cu``, ``csrc/raft_fold.cu``,
+Five kernels (``csrc/raft_expand.cu``, ``csrc/raft_fold.cu``,
 ``csrc/raft_predicates.cu``, with the actions, invariants and liveness
 predicates in ``csrc/raft_actions.cuh``), each with its plain PyTorch
 version beside it:
@@ -16,9 +16,10 @@ version beside it:
   ``raft_fold``   the new-distinct coverage and the first bad journal
                   index per invariant — ``device_bfs.py:453-460,501-506``;
   ``raft_predicates``  named predicates over rows (the liveness graph's
-                  ``_eval_kernel``, ``raft_tpu/checker/liveness.py:254``),
-                  and ``raft_sim_check``, a simulate step's invariant
-                  check and settle (``raft_tpu/checker/simulate.py:88-103``).
+                  ``_eval_kernel``, ``raft_tpu/checker/liveness.py:254``);
+  ``raft_sim_check``  a simulate step's invariant check fused with its
+                  settle (``raft_tpu/checker/simulate.py:88-103``), in
+                  ``raft_predicates``' source, with its own launch count.
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors (it raises rather than fall back). The kernels read the
@@ -263,7 +264,7 @@ def raft_sim_check(model, states, nxt, moved, chosen, ridx, init_pool, depth, ma
     if kernels.route(states) == "cpu":
         return raft_sim_check_plain(model, states, nxt, moved, chosen, ridx, init_pool, depth,
                                     max_depth, journal, jlen, invariants, stats)
-    k = kernels.RAFT_PREDICATES
+    k = kernels.RAFT_SIM_CHECK
     R, W = states.shape
     kernels.require(states, torch.int32, "states", shape=(R, model.layout.W))
     kernels.require(nxt, torch.int32, "nxt", shape=(R, W))

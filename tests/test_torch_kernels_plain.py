@@ -118,4 +118,4 @@ def test_wrappers_route_by_device():
     assert set(kernels.launch_counts()) == {
         "canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
         "raft_apply", "raft_fold", "chunk_sort", "canon_tiered", "canon_signatures",
-        "sim_pick", "raft_predicates", "hash_rows"}
+        "sim_pick", "raft_predicates", "raft_sim_check", "hash_rows"}
