@@ -19,7 +19,11 @@ Phases, each of which fails the run on any mismatch:
      the depth-9 five-server frontier, canon_signatures on the Raft.cfg
      chunk too; sim_pick and raft_sim_check on a full-width FLEX5
      simulate step, raft_predicates on the FLEX5 walks and a Raft.cfg
-     chunk, hash_rows on that chunk's valid successor rows;
+     chunk, hash_rows on that chunk's valid successor rows; the pull
+     kernels (pull_guard, pull_apply, pull_fold, pull_sim_check,
+     pull_predicates) on a chunk of reachable PullRaft states and one of
+     Variant2 states from the card's own BFS frontiers, and on edge rows
+     built from them (full bags, logs at max_log, count-0 records);
   4. the main path: standard-raft Raft.cfg (inline text) checked through
      the function the CLI calls, on cuda, to exhaustion — 8,664,032
      distinct / 30,708,266 total / depth 48 / 19,514 terminal, no
@@ -32,6 +36,14 @@ Phases, each of which fails the run on any mismatch:
      function, held the same way (canon_tiered in canon_memo's place),
      its depth counts equal to the reference's pinned ones through depth
      11; distinct/s and peak device memory reported;
+  4c. the pull family on the main path: the PullRaft stand-in (PULL_CFG,
+     BASELINE.json's fourth configuration) exhausted through the same
+     function with its depth counts, distinct, total, terminal and
+     coverage equal to the reference's (scripts/pin_pull_counts.py) and
+     the pull kernels once per chunk, no Raft expand kernel; Variant2
+     exhausted and held to its pin, and card against CPU at
+     PULL2_SMALL_DEPTH; the deepest journal state's trace replayed through
+     the guard and apply on the card and on the CPU;
   5. FlexibleRaft with quorums that need not intersect (3 servers,
      ElectionQuorumSize 2, ReplicationQuorumSize 1): the
      LeaderHasAllAckedValues violation, its gid, depth and trace on the
@@ -40,11 +52,11 @@ Phases, each of which fails the run on any mismatch:
      24, and 5c. five-server FlexibleRaft at the published quorums to
      FLEX5_DEPTH: counts, depth counts and coverage on the card equal the
      CPU run's;
-  6. where the time goes: Raft.cfg to depth 20 and five-server Raft to
-     the pinned depth 11 (its distinct, total, depth counts and coverage
-     equal to the reference's), each once untraced (wall per chunk) and
-     once under torch.profiler (device time per chunk by kernel group,
-     the device's busy share);
+  6. where the time goes: Raft.cfg to depth 20, five-server Raft to the
+     pinned depth 11 (its distinct, total, depth counts and coverage equal
+     to the reference's) and the PullRaft stand-in's exhaustion, each once
+     untraced (wall per chunk) and once under torch.profiler (device time
+     per chunk by kernel group, the device's busy share);
   7. simulate: FlexibleRaft's quorum violation (walk, depth, trace) and
      five-server FlexibleRaft for SMALL_MOVES moves (behaviors, steps,
      final states, journals) at SMALL_WALKS walks, card against CPU; then
@@ -53,6 +65,12 @@ Phases, each of which fails the run on any mismatch:
      sim_pick, raft_apply and raft_sim_check once per move, raft_predicates
      once (the initial states) and no plain expand, and a profiled window
      of 20 moves;
+  7b. simulate the pull family: the PullRaft stand-in at SMALL_WALKS walks
+     for SMALL_MOVES moves, card against CPU (behaviors, steps, final
+     states, journals); then SIM_WALKS walks of at most SIM_DEPTH steps for
+     PULL_SIM_MOVES moves through the CLI's function, pull_guard,
+     sim_pick, pull_apply and pull_sim_check once per move, pull_predicates
+     once, and a profiled window of 20 moves;
   8. liveness: the two-server graph of tests/test_liveness.py (states and
      edge arrays) card against CPU; then Raft.cfg's constants at
      MaxElections LIVE_ELECTIONS with PROPERTY ValuesNotStuck through the
@@ -119,7 +137,7 @@ FSYNC_CFG = RAFT_CFG.replace(
     "    LeaderFsyncBeforeAppendEntries = FALSE\n"
     "    LeaderFsyncBeforeIncludeInQuorum = TRUE\n"
     "    FollowerFsyncBeforeReply = TRUE\n")
-FSYNC_DEPTH = 24
+FSYNC_DEPTH = 20
 
 # BASELINE.json's second configuration (scripts/bench_rows.py row 2):
 # standard-raft with 5 servers, 5 values, MaxElections 4, MaxRestarts 0
@@ -155,7 +173,7 @@ RAFT5_PIN = dict(
 # would not fit once
 RAFT5_DEPTH = 14
 RAFT5_SAMPLE_DEPTH = 9
-FLEX5_DEPTH = 9
+FLEX5_DEPTH = 8
 # FlexibleRaft at the published quorums (FlexibleRaft.cfg: 5 servers,
 # ElectionQuorumSize 3, ReplicationQuorumSize 4) with 2 values,
 # MaxElections 2 and MaxRestarts 0
@@ -191,6 +209,50 @@ LIVE_CFG = RAFT_CFG + "PROPERTY\n    ValuesNotStuck\n"
 LIVE_SMALL_CFG = LIVE_CFG.replace("    n3 = n3\n", "").replace(
     "Server = { n1, n2, n3 }", "Server = { n1, n2 }")
 
+# PullRaft (BASELINE.json's fourth configuration): PullRaft.cfg as SURVEY.md
+# records it, 3 servers and Value = {v1, v2} with v2 undeclared (the
+# lenient parse declares it), MaxElections 2 and MaxRestarts 0 standing in
+# for constants the repo does not hold (the bounds of Raft.cfg and
+# KRaft.cfg); msg_slots 64, the registry's default (W = 259, A = 85;
+# Variant2 W = 289). PullRaftVariant2.cfg is the same file
+PULL_CFG = RAFT_CFG.replace("\\* standard-raft/Raft.cfg", "\\* pull-raft/PullRaft.cfg").replace(
+    "    Value = { v1 }\n", "    Value = { v1, v2 }\n").replace(
+    "    AppendEntriesRequest = AppendEntriesRequest\n"
+    "    AppendEntriesResponse = AppendEntriesResponse\n",
+    "    PullEntriesRequest = PullEntriesRequest\n"
+    "    PullEntriesResponse = PullEntriesResponse\n"
+    "    LeaderNotifyRequest = LeaderNotifyRequest\n")
+# the reference's dense DeviceBFS on the stand-ins, both exhausted
+# (scripts/pin_pull_counts.py; PullRaft's distinct, depth and terminal are
+# BENCH_ROWS.json row4's)
+PULL_PIN = dict(
+    depth_counts=[1, 1, 3, 7, 18, 40, 86, 169, 323, 592, 1065, 1845, 3108, 5030, 7803, 11545,
+                  16312, 22020, 28460, 35460, 43058, 51341, 60071, 68771, 76855, 83540, 87948,
+                  89698, 88660, 84418, 76490, 64686, 49174, 31696, 16092, 5892, 1366, 152],
+    distinct=1_113_796, total=3_233_465, terminal=10_094,
+    coverage=[[0, 0, 0], [62471, 97414, 19309], [1821, 3664, 1343], [378996, 425610, 55409],
+              [543836, 632662, 156136], [47432, 47472, 43992], [155294, 165664, 20560],
+              [17052, 17052, 13068], [290620, 318364, 137896], [295852, 295852, 46986],
+              [672834, 829818, 328009], [341286, 382840, 274467], [17052, 17052, 16620]],
+)
+PULL2_PIN = dict(
+    depth_counts=[1, 1, 3, 7, 17, 34, 65, 115, 215, 420, 824, 1505, 2575, 4138, 6301, 9210,
+                  13074, 18104, 24297, 31433, 39302, 47954, 57474, 67724, 78471, 89246, 98963,
+                  106289, 110290, 110640, 107502, 101652, 93380, 81642, 65244, 45344, 25884,
+                  11270, 3328, 504],
+    distinct=1_454_442, total=3_993_435, terminal=14_644,
+    coverage=[[0, 0, 0], [59508, 104406, 17177], [1667, 3345, 1185], [489406, 547086, 95287],
+              [767932, 938652, 129244], [17527, 17534, 15577], [186575, 200182, 6874],
+              [24654, 24654, 5628], [340704, 367324, 206270], [310340, 336139, 209761],
+              [804326, 973068, 488482], [413046, 456390, 268444], [24654, 24654, 10512]],
+)
+# the depths of phase 3's frontier samples (near each widest frontier), of
+# the Variant2 card-vs-CPU run, and the pull simulate's moves
+PULL_SAMPLE_DEPTH = 27
+PULL2_SAMPLE_DEPTH = 29
+PULL2_SMALL_DEPTH = 12
+PULL_SIM_MOVES = 100
+
 # (distinct, total, depth, terminal) of Raft.cfg: exhausted, and at depth
 # 20 (the sample and trace runs), pinned from the reference's dense path
 EXHAUSTED = (8_664_032, 30_708_266, 48, 19_514)
@@ -217,11 +279,17 @@ KERNEL_NAMES = {
     "raft_predicates": ("raft_predicates_kernel",),
     "raft_sim_check": ("raft_sim_check_kernel",),
     "hash_rows": ("hash_rows_kernel",),
+    "pull_guard": ("pull_guard_kernel",),
+    "pull_apply": ("pull_apply_kernel",),
+    "pull_fold": ("pull_fold_lanes", "pull_fold_viol"),
+    "pull_predicates": ("pull_predicates_kernel",),
+    "pull_sim_check": ("pull_sim_check_kernel",),
 }
 # the kernels each path launches (canon_signatures serves the checks only)
 RAFT3_PATH = ("canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
               "raft_apply", "raft_fold", "chunk_sort")
 RAFT5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in RAFT3_PATH)
+PULL_PATH = tuple(k.replace("raft_", "pull_") for k in RAFT3_PATH)
 # state fields the invariants of the cfgs here read (NoLogDivergence,
 # LeaderHasAllAckedValues): the part of a row raft_fold must load
 INVARIANT_FIELDS = ("currentTerm", "state", "log_term", "log_value", "commitIndex", "acked")
@@ -231,6 +299,7 @@ LIVENESS_FIELDS = ("electionCtr", "state", "log_value", "log_len")
 # raft_predicates launch is the initial states' check)
 SIM_PATH = ("raft_guard", "sim_pick", "raft_apply", "raft_sim_check", "raft_predicates")
 LIVE_PATH = ("raft_guard", "compact_append", "raft_apply", "hash_rows", "raft_predicates")
+PULL_SIM_PATH = tuple(k.replace("raft_", "pull_") for k in SIM_PATH)
 # integer operations of one threefry2x32 block: 20 rounds of an add, a
 # rotate (two shifts and an or) and a xor, and 6 key injections of 3 adds
 THREEFRY_OPS = 20 * 5 + 6 * 3
@@ -317,41 +386,74 @@ def probe_sectors(torch, q, runs, int64_max):
     return fresh, sectors, steps
 
 
+def family_of(model) -> str:
+    """The kernel-name prefix of a model's family ("raft", "pull")."""
+    return model.KERNELS["guard"].name.rsplit("_", 1)[0]
+
+
+def expand_puts(torch, model, batch, valid, rank):
+    """The message puts the valid lanes of a [C, A] guard grid over the
+    [C, W] rows ``batch`` make, counted from the data: RequestVote makes
+    S - 1 (its chain), RequestVotePair, AppendEntries and
+    SendPullEntriesRequest one, a BecomeLeader of the pull family one per
+    peer it notifies (every peer in Variant2, the peers that did not vote
+    for it in PullRaft), and a message whose receipt replies one."""
+    S, dev = model.p.n_servers, valid.device
+    names = [b[0] for b in model.bindings]
+    mask = lambda groups: torch.tensor([n in groups for n in names], device=dev)  # noqa: E731
+    puts = (valid & mask(("RequestVote",))).sum() * (S - 1)
+    puts = puts + (valid & mask(("RequestVotePair", "AppendEntries",
+                                 "SendPullEntriesRequest"))).sum()
+    if family_of(model) == "raft":
+        from raft_tpu_torch.models.raft import R_ACCEPT_AE, R_HANDLE_RVREQ, R_REJECT_AE
+
+        replies = (R_HANDLE_RVREQ, R_REJECT_AE, R_ACCEPT_AE)
+    else:
+        from raft_tpu_torch.models.pull_raft import R_ACCEPT_PULL, R_HANDLE_RVREQ, R_REJECT_PULL
+
+        replies = (R_HANDLE_RVREQ, R_REJECT_PULL, R_ACCEPT_PULL)
+        off = names.index("BecomeLeader")
+        bl = valid[:, off:off + S]  # BecomeLeader(i) of server i
+        if model.p.variant2:
+            sends = torch.full((S,), S - 1, device=dev)
+        else:
+            vg = model.layout.get(batch, "votesGranted")  # [C, S]
+            bits = (vg.unsqueeze(-1) >> torch.arange(S, device=dev)) & 1  # [C, i, j]
+            sends = (S - 1) - (bits.sum(-1) - torch.diagonal(bits, dim1=1, dim2=2))
+        puts = puts + (bl * sends).sum()
+    return puts + (valid & sum(rank == r for r in replies).bool()).sum()
+
+
 def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
-    """raft_guard, raft_apply and raft_fold against their plain versions
-    on one chunk of CHUNK states drawn from ``pool`` (reachable states of
-    ``bfs``'s model), at the engine's worklist width, exactly; the fold
-    gets the chunk's real new lanes (canonical fingerprints deduplicated
-    against ``bfs``'s seen run). With ``timed``, also the CUDA-event
-    times of each kernel and its plain version and the bounds. Returns
-    {kernel: row}."""
+    """The family's guard, apply and fold kernels (raft_* or pull_*)
+    against their plain versions on one chunk of CHUNK states drawn from
+    ``pool`` (states of ``bfs``'s model), at the engine's worklist width,
+    exactly; the fold gets the chunk's real new lanes (canonical
+    fingerprints deduplicated against ``bfs``'s seen run). With ``timed``,
+    also the CUDA-event times of each kernel and its plain version and the
+    bounds. Returns {kernel: row}."""
     from raft_tpu_torch.checker.util import I32_MAX, compact_indices
-    from raft_tpu_torch.models.raft import (
-        R_ACCEPT_AE, R_HANDLE_RVREQ, R_REJECT_AE, SPEC_LEN,
-    )
-    from raft_tpu_torch.ops.expand import (
-        raft_apply, raft_apply_plain, raft_fold, raft_fold_plain, raft_guard,
-        raft_guard_plain,
-    )
+    from raft_tpu_torch.ops.expand import apply, apply_plain, fold, fold_plain, guard, guard_plain
     from raft_tpu_torch.ops.hashing import INT64_MAX
 
     model, dev = bfs.model, bfs.device
+    fam = family_of(model)
     C, VC, A, W = CHUNK, bfs.VC, model.A, model.layout.W
-    S, M = model.p.n_servers, model.p.msg_slots
+    M = model.p.msg_slots
     K = len(model.ACTION_NAMES)
     batch = torch.from_numpy(np.ascontiguousarray(pool[rng.integers(0, len(pool), C)])).to(dev)
     zcov = lambda: torch.zeros((K, 3), dtype=torch.int64, device=dev)  # noqa: E731
     errs = []
     for n_live in (C - 1000, C):  # a dead chunk tail, then a full chunk
         cov_k, cov_p = zcov(), zcov()
-        gk = raft_guard(model, batch, n_live, cov_k)
-        gp = raft_guard_plain(model, batch, n_live, cov_p)
+        gk = guard(model, batch, n_live, cov_k)
+        gp = guard_plain(model, batch, n_live, cov_p)
         errs += [exact(torch, a, b) for a, b in zip(gk, gp)] + [exact(torch, cov_k, cov_p)]
     valid, rank, _ovf, scal = gk
     sel, n_valid = compact_indices(valid.reshape(-1), VC, C * A)
     check(int(n_valid) <= VC, f"{int(n_valid)} valid lanes exceed the {VC}-lane worklist")
-    flatc = raft_apply(model, batch, sel)
-    errs.append(exact(torch, flatc, raft_apply_plain(model, batch, sel)))
+    flatc = apply(model, batch, sel)
+    errs.append(exact(torch, flatc, apply_plain(model, batch, sel)))
     memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
     fps, _ = bfs.canon.fingerprints_memo(flatc, sel < C * A, memo)
     new, _ = bfs._st_dedup(fps, [bfs._seen])
@@ -359,31 +461,27 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
     invs = bfs.invariants
     fold_args = dict(cov=None, sel=sel, valid=valid, rank=rank)
     outs = []
-    for fold in (raft_fold, raft_fold_plain):
+    for fold_fn in (fold, fold_plain):
         viol = torch.full((len(invs),), I32_MAX, dtype=torch.int64, device=dev)
         fold_args["cov"] = zcov()
-        fold(model, flatc, new, jcount, viol, invs, **fold_args)
+        fold_fn(model, flatc, new, jcount, viol, invs, **fold_args)
         outs.append((viol, fold_args["cov"]))
     errs += [exact(torch, outs[0][0], outs[1][0]), exact(torch, outs[0][1], outs[1][1])]
     err = max(errs)
-    check(err == 0.0, f"{model.name}: raft_guard/raft_apply/raft_fold differ from their "
+    check(err == 0.0, f"{model.name}: {fam}_guard/{fam}_apply/{fam}_fold differ from their "
           "plain versions")
     n_new = int(new.sum())
-    print(f"[3] {model.name}: raft_guard, raft_apply, raft_fold exact on {C} states "
+    print(f"[3] {model.name}: {fam}_guard, {fam}_apply, {fam}_fold exact on {C} states "
           f"({int(n_valid)} valid lanes, {n_new} new, first bad journal index "
           f"{outs[0][0].tolist()})")
     if not timed:
         return {}
     # bounds. guard: the state rows read, valid/rank/ovf written; its
     # operations at least 3 per bag slot (two equality compares and an
-    # order compare) for every put a valid lane makes (RequestVote makes
-    # S - 1, RequestVotePair, AppendEntries and a replying message one)
-    rv = torch.tensor([b[0] == "RequestVote" for b in model.bindings], device=dev)
-    one_put = torch.tensor([b[0] in ("RequestVotePair", "AppendEntries") for b in model.bindings],
-                           device=dev)
-    puts = (valid & rv).sum() * (S - 1) + (valid & one_put).sum() + (
-        valid & ((rank == R_HANDLE_RVREQ) | (rank == R_REJECT_AE) | (rank == R_ACCEPT_AE))).sum()
-    guard_bytes = C * W * 4 + C * A * 6 + (SPEC_LEN + 4 * A) * 4
+    # order compare) for every put a valid lane makes (expand_puts)
+    puts = expand_puts(torch, model, batch, valid, rank)
+    spec_len = model.kernel_spec(dev)[0].numel()
+    guard_bytes = C * W * 4 + C * A * 6 + (spec_len + 4 * A) * 4
     guard_ops = 3 * M * int(puts)
     # apply: the worklist and each source row read once, the block written
     n_src = torch.unique(sel[sel < C * A] // A).numel()
@@ -395,26 +493,28 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
     fold_bytes = VC + n_new * (4 + 1 + 4 + 4 * inv_lanes)
     cov, viol = zcov(), torch.full((len(invs),), I32_MAX, dtype=torch.int64, device=dev)
     rows = {
-        "raft_guard": dict(
-            ms=time_ms(torch, lambda: raft_guard(model, batch, C, cov), iters=50),
-            plain_ms=time_ms(torch, lambda: raft_guard_plain(model, batch, C, cov), iters=5),
+        f"{fam}_guard": dict(
+            ms=time_ms(torch, lambda: guard(model, batch, C, cov), iters=50),
+            plain_ms=time_ms(torch, lambda: guard_plain(model, batch, C, cov), iters=5),
             bound_ms=max(guard_bytes / MEM_BPS, guard_ops / INT32_OPS) * 1e3,
             bound_by="operations" if guard_ops / INT32_OPS > guard_bytes / MEM_BPS else "bytes",
             puts=int(puts)),
-        "raft_apply": dict(
-            ms=time_ms(torch, lambda: raft_apply(model, batch, sel), iters=50),
-            plain_ms=time_ms(torch, lambda: raft_apply_plain(model, batch, sel), iters=5),
+        f"{fam}_apply": dict(
+            ms=time_ms(torch, lambda: apply(model, batch, sel), iters=50),
+            plain_ms=time_ms(torch, lambda: apply_plain(model, batch, sel), iters=5),
             bound_ms=apply_bytes / MEM_BPS * 1e3, bound_by="bytes"),
-        "raft_fold": dict(
-            ms=time_ms(torch, lambda: raft_fold(model, flatc, new, jcount, viol, invs, cov=cov,
+        f"{fam}_fold": dict(
+            ms=time_ms(torch, lambda: fold(model, flatc, new, jcount, viol, invs, cov=cov,
                                                 sel=sel, valid=valid, rank=rank), iters=50),
-            plain_ms=time_ms(torch, lambda: raft_fold_plain(
+            plain_ms=time_ms(torch, lambda: fold_plain(
                 model, flatc, new, jcount, viol, invs, cov=cov, sel=sel, valid=valid,
                 rank=rank), iters=20),
             bound_ms=fold_bytes / MEM_BPS * 1e3, bound_by="bytes"),
     }
     for r in rows.values():
         r.update(library_ms=None, max_abs_err=err)
+    if fam != "raft":
+        return rows
     # the run emit's torch.sort (PERF.md kernel table row 6) at VC lanes:
     # keys read once, keys (and the int64 index) written once
     key_bytes = VC * 8
@@ -678,17 +778,322 @@ def sim_rows(torch, model3, rows3, succ3) -> dict:
     return rows
 
 
+def pull_edge_pool(model, pool, rng) -> np.ndarray:
+    """Edge rows built from 1,024 reachable pull states of ``pool``: their
+    bags filled (free slots take keys that sort first, counts 0 to 2, so
+    puts overflow), every log at max_log with no value acked (so a
+    ClientRequest and an accepted success response overflow it), and every
+    count at 0 (records in the domain that only UpdateTerm can take)."""
+    from raft_tpu_torch.ops.packing import EMPTY
+
+    lay, M, L = model.layout, model.p.msg_slots, model.p.max_log
+    hs, ls, cs = lay.sl("msg_hi"), lay.sl("msg_lo"), lay.sl("msg_cnt")
+    base = pool[rng.integers(0, len(pool), 1024)]
+    full = base.copy()
+    for r in full:
+        keys = set(zip(r[hs].tolist(), r[ls].tolist())) - {(EMPTY, EMPTY)}
+        while len(keys) < M:
+            keys.add((0, int(rng.integers(0, 1 << 20))))
+        keys = sorted(keys)
+        r[hs], r[ls] = [k[0] for k in keys], [k[1] for k in keys]
+        r[cs] = rng.integers(0, 3, M)
+    maxlog = base.copy()
+    maxlog[:, lay.sl("log_len")] = L
+    maxlog[:, lay.sl("acked")] = 0
+    zero = base.copy()
+    zero[:, cs] = 0
+    return np.ascontiguousarray(np.concatenate([full, maxlog, zero]))
+
+
+def step_rows(torch, model, batch, rng, timed: bool) -> dict:
+    """The family's sim_check and predicates kernels against their plain
+    versions on a simulate step over the CHUNK walks ``batch``: the guard,
+    sim_pick and the apply, then the check and settle of the moved walks
+    (random depths below SIM_DEPTH, random journals, some full), and every
+    invariant over the walks' rows; with ``timed`` the times and the bounds.
+    Returns {kernel: row}."""
+    from raft_tpu_torch.checker.simulate import sim_pick
+    from raft_tpu_torch.ops.expand import (
+        apply, guard, predicates, predicates_plain, sim_check, sim_check_plain,
+    )
+
+    fam, dev = family_of(model), batch.device
+    R, W = batch.shape
+    invs = ("LeaderHasAllAckedValues", "NoLogDivergence")
+    cov = torch.zeros((len(model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
+    valid, _rank, ovf, _ = guard(model, batch, R, cov)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    chosen, moved, sel, ridx = sim_pick(valid, ovf, (12345, 678), 1, stats)
+    nxt = apply(model, batch, sel)
+    init_pool = torch.from_numpy(model.init_states()).to(dev)
+    gen = torch.Generator().manual_seed(int(rng.integers(0, 1 << 30)))
+    depth = torch.randint(0, SIM_DEPTH, (R,), generator=gen, dtype=torch.int32).to(dev)
+    J = SIM_DEPTH + 1
+    journal = torch.randint(0, model.A, (R, J), generator=gen, dtype=torch.int32).to(dev)
+    jlen = (depth + 1).contiguous()
+    jlen[::13] = J
+    base = (nxt, depth, journal, jlen)
+    work = [t.clone() for t in base]
+
+    def reset():
+        for w, t in zip(work, base):
+            w.copy_(t)
+
+    def settle(fn):
+        reset()
+        out = fn(model, batch, work[0], moved, chosen, ridx, init_pool, work[1], SIM_DEPTH,
+                 work[2], work[3], invs, stats)
+        return [t.clone() for t in list(out) + work] + [stats[2:].clone()]
+
+    err_check = max(exact(torch, a, b) for a, b in zip(settle(sim_check),
+                                                       settle(sim_check_plain)))
+    check(err_check == 0.0, f"{fam}_sim_check differs from its plain version")
+    names = tuple(model.invariants)
+    err_pred = exact(torch, predicates(model, batch, names), predicates_plain(model, batch, names))
+    check(err_pred == 0.0, f"{fam}_predicates differs from its plain version")
+    n_moved = int(moved.sum())
+    print(f"[3] {model.name}: {fam}_sim_check exact on a step of {R} walks ({n_moved} moved); "
+          f"{fam}_predicates exact on them ({len(names)} invariants)")
+    if not timed:
+        return {}
+    done = settle(sim_check)[1]
+    copied = int((done | ~moved).sum())
+    check_bytes = (4 * n_moved * field_lanes(model, INVARIANT_FIELDS) + R * (1 + 4 * 5)
+                   + R * (4 + 1 + 4 + 4) + 4 * n_moved + 2 * 4 * W * copied)
+    pred_bytes = 4 * R * field_lanes(model, INVARIANT_FIELDS) + R * len(invs)
+    rows = {
+        f"{fam}_sim_check": dict(
+            ms=time_ms(torch, lambda: sim_check(model, batch, work[0], moved, chosen, ridx,
+                                                init_pool, work[1], SIM_DEPTH, work[2], work[3],
+                                                invs, stats), iters=20, setup=reset),
+            plain_ms=time_ms(torch, lambda: sim_check_plain(
+                model, batch, work[0], moved, chosen, ridx, init_pool, work[1], SIM_DEPTH,
+                work[2], work[3], invs, stats), iters=5, setup=reset),
+            max_abs_err=err_check, walks=R),
+        f"{fam}_predicates": dict(
+            ms=time_ms(torch, lambda: predicates(model, batch, invs), iters=50),
+            plain_ms=time_ms(torch, lambda: predicates_plain(model, batch, invs), iters=10),
+            max_abs_err=err_pred, rows=R),
+    }
+    for k, b in ((f"{fam}_sim_check", check_bytes), (f"{fam}_predicates", pred_bytes)):
+        rows[k]["bound_ms"], rows[k]["bound_by"] = bound(b)
+        rows[k]["library_ms"] = None
+    return rows
+
+
+def pull_kernel_rows(torch, rng) -> dict:
+    """Phase 3 for the pull family: pull_guard, pull_apply, pull_fold,
+    pull_sim_check and pull_predicates against their plain versions, exactly,
+    on a CHUNK of reachable states sampled from the card's own BFS frontier
+    of each stand-in (PullRaft at PULL_SAMPLE_DEPTH, timed; Variant2 at
+    PULL2_SAMPLE_DEPTH) and on edge rows built from them. Returns
+    {kernel: row}."""
+    from raft_tpu_torch.__main__ import run_check
+
+    rows = {}
+    for spec, depth, pin in (("PullRaft", PULL_SAMPLE_DEPTH, PULL_PIN),
+                             ("PullRaftVariant2", PULL2_SAMPLE_DEPTH, PULL2_PIN)):
+        timed = spec == "PullRaft"
+        t = time.perf_counter()
+        _, bfs, res = run_check(f"{spec}.cfg", text=PULL_CFG, device="cuda", chunk=CHUNK,
+                                max_depth=depth, lenient=True)
+        check(res.depth_counts == pin["depth_counts"][:depth + 1],
+              f"{spec} sample depth counts {res.depth_counts}")
+        pool = bfs.frontier_rows.cpu().numpy()
+        print(f"[3] sampled the depth-{depth} {spec} frontier ({len(pool)} states) in "
+              f"{time.perf_counter() - t:.1f} s")
+        rows.update(expand_kernels(torch, bfs, pool, rng, timed=timed))
+        expand_kernels(torch, bfs, pull_edge_pool(bfs.model, pool, rng), rng, timed=False)
+        batch = torch.from_numpy(np.ascontiguousarray(
+            pool[rng.integers(0, len(pool), CHUNK)])).to(bfs.device)
+        edge = torch.from_numpy(pull_edge_pool(bfs.model, pool, rng)).to(bfs.device)
+        rows.update(step_rows(torch, bfs.model, batch, rng, timed=timed))
+        step_rows(torch, bfs.model, edge, rng, timed=False)
+        del bfs
+    return rows
+
+
+def pull_main_phase(torch) -> dict:
+    """Phase 4c: the PullRaft stand-in exhausted through ``run_check`` (the
+    CLI's function) with the launch counts of its path and its counts held
+    to PULL_PIN; the deepest journal state's trace replayed on the card and
+    on the CPU; Variant2 exhausted and held to PULL2_PIN, and card against
+    CPU at PULL2_SMALL_DEPTH."""
+    from raft_tpu_torch.checker.util import replay_chain
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    setup, bfs, res, wall, launches, n_expand, n_sort = counted_run(
+        torch, "PullRaft.cfg", PULL_CFG, lenient=True)
+    peak = torch.cuda.max_memory_allocated()
+    chunks = sum(-(-n // CHUNK) for n in res.depth_counts) + bfs.redone_chunks
+    model = setup.model
+    print(f"[4c] PullRaft: distinct={res.distinct} total={res.total} depth={res.depth} "
+          f"terminal={res.terminal} exhausted={res.exhausted} in {wall:.2f} s "
+          f"({res.distinct / wall:.0f} distinct/s, {chunks} chunks, "
+          f"{wall * 1e3 / chunks:.2f} ms/chunk), peak device memory {peak / 2**30:.2f} GiB "
+          f"(W = {model.layout.W}, A = {model.A})")
+    report = {"distinct": res.distinct, "total": res.total, "depth": res.depth,
+              "terminal": res.terminal, "seconds": wall, "distinct_per_s": res.distinct / wall,
+              "chunks": chunks, "ms_per_chunk": wall * 1e3 / chunks, "peak_device_bytes": peak,
+              "launches": launches}
+    check(res.violation is None and res.exhausted, f"PullRaft: {res.violation}, "
+          f"exhausted {res.exhausted}")
+    got = dict(depth_counts=res.depth_counts, distinct=res.distinct, total=res.total,
+               terminal=res.terminal, coverage=res.coverage)
+    check(got == PULL_PIN, f"PullRaft counts {got} != the reference's {PULL_PIN}")
+    check_path(launches, PULL_PATH, chunks, n_expand, n_sort, "4c")
+    # the deepest journal state's trace (no invariant of the stand-in fails)
+    init, chain = bfs.journal_chain(res.distinct - 1)
+    tg, tc = (replay_chain(model, d, init, chain) for d in ("cuda", "cpu"))
+    check(tg == tc and len(tg) == res.depth + 1, "PullRaft: the replayed traces differ")
+    print(f"[4c] PullRaft counts, depth counts and coverage equal the reference's; the "
+          f"{len(tg)}-state trace of gid {res.distinct - 1} (last step "
+          f"{tg[-1][0]}) replays equal on the card and the CPU")
+    del bfs
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    _, bfs2, res2 = run_pull("PullRaftVariant2.cfg", "cuda", None)
+    wall2 = time.perf_counter() - t
+    got2 = dict(depth_counts=res2.depth_counts, distinct=res2.distinct, total=res2.total,
+                terminal=res2.terminal, coverage=res2.coverage)
+    check(res2.violation is None and res2.exhausted and got2 == PULL2_PIN,
+          f"PullRaftVariant2 counts {got2} != the reference's {PULL2_PIN}")
+    del bfs2
+    print(f"[4c] PullRaftVariant2: distinct={res2.distinct} total={res2.total} "
+          f"depth={res2.depth} terminal={res2.terminal} exhausted in {wall2:.2f} s "
+          f"({res2.distinct / wall2:.0f} distinct/s): counts, depth counts and coverage "
+          "equal the reference's")
+    report["variant2"] = {"distinct": res2.distinct, "seconds": wall2}
+    runs = {}
+    for d in ("cuda", "cpu"):
+        t = time.perf_counter()
+        runs[d] = (run_pull("PullRaftVariant2.cfg", d, PULL2_SMALL_DEPTH, chunk=1024)[2],
+                   time.perf_counter() - t)
+    (sg, t_card), (sc, t_cpu) = runs["cuda"], runs["cpu"]
+    check((sg.distinct, sg.total, sg.terminal, sg.depth_counts, sg.coverage)
+          == (sc.distinct, sc.total, sc.terminal, sc.depth_counts, sc.coverage),
+          "PullRaftVariant2: card and CPU differ")
+    print(f"[4c] PullRaftVariant2 to depth {PULL2_SMALL_DEPTH}: distinct={sg.distinct} "
+          f"total={sg.total}, depth counts and coverage: card == CPU (card {t_card:.1f} s, "
+          f"CPU {t_cpu:.1f} s)")
+    report["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"pull_run": report}))
+    return report
+
+
+def run_pull(cfg_name, device, depth, chunk=CHUNK):
+    """run_check (the CLI's function) of the pull stand-in PULL_CFG, parsed
+    leniently (the parse declares its v2)."""
+    from raft_tpu_torch.__main__ import run_check
+
+    return run_check(cfg_name, text=PULL_CFG, device=device, chunk=chunk, max_depth=depth,
+                     lenient=True)
+
+
+def pull_simulate_phase(torch) -> dict:
+    """Phase 7b: the PullRaft stand-in simulated on the card against the
+    CPU at SMALL_WALKS walks for SMALL_MOVES moves, then at SIM_WALKS walks
+    for PULL_SIM_MOVES moves through ``run_simulate`` (the CLI's function)
+    with its launch counts, and a profiled window of its moves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.__main__ import load_setup, run_simulate
+    from raft_tpu_torch.checker.simulate import Simulator
+
+    t0 = time.perf_counter()
+    small = {}
+    for d in ("cuda", "cpu"):
+        t = time.perf_counter()
+        _, sim, res = run_simulate("PullRaft.cfg", text=PULL_CFG, device=d, walks=SMALL_WALKS,
+                                   max_behavior_depth=SIM_DEPTH, seed=0,
+                                   max_steps=SMALL_MOVES * SMALL_WALKS, lenient=True)
+        small[d] = (sim, res, time.perf_counter() - t)
+    (sg, fg, t_card), (sc, fc, t_cpu) = small["cuda"], small["cpu"]
+    check(fg.violation is None and fc.violation is None
+          and (fg.behaviors, fg.steps) == (fc.behaviors, fc.steps),
+          f"simulate PullRaft: card {(fg.behaviors, fg.steps, fg.violation)} != CPU "
+          f"{(fc.behaviors, fc.steps, fc.violation)}")
+    for a in ("states", "depth", "journal", "jlen"):
+        check(torch.equal(getattr(sg, a).cpu(), getattr(sc, a)), f"simulate PullRaft: {a} differ")
+    print(f"[7b] simulate PullRaft ({SMALL_WALKS} walks, {SMALL_MOVES} moves): behaviors="
+          f"{fg.behaviors} steps={fg.steps}, final states and journals: card == CPU "
+          f"(card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
+    del small, sg, sc
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (setup, sim, res), wall, launches, n_expand, _ = counted(
+        torch, lambda: run_simulate("PullRaft.cfg", text=PULL_CFG, device="cuda",
+                                    walks=SIM_WALKS, max_behavior_depth=SIM_DEPTH, seed=0,
+                                    max_steps=PULL_SIM_MOVES * SIM_WALKS, lenient=True))
+    peak = torch.cuda.max_memory_allocated()
+    moves = sim.moves
+    for k in PULL_SIM_PATH[:4]:
+        check(launches[k] == moves, f"simulate PullRaft: {launches[k]} {k} launches != "
+              f"{moves} moves")
+    check(launches["pull_predicates"] == 1,
+          f"simulate PullRaft: {launches['pull_predicates']} pull_predicates launches != 1")
+    for k in set(KERNEL_NAMES) - set(PULL_SIM_PATH):
+        check(launches[k] == 0, f"simulate PullRaft: {k} launched off its path")
+    check(n_expand == 0, f"simulate PullRaft: the plain expand ran {n_expand} times")
+    check(res.violation is None and res.steps >= PULL_SIM_MOVES * SIM_WALKS, f"{res}")
+    report = {"W": setup.model.layout.W, "A": setup.model.A, "walks": SIM_WALKS,
+              "moves": moves, "steps": res.steps, "behaviors": res.behaviors, "seconds": wall,
+              "steps_per_s": res.steps / wall, "wall_ms_per_move": wall * 1e3 / moves,
+              "peak_device_bytes": peak, "launches": launches}
+    print(f"[7b] simulate PullRaft full width: {SIM_WALKS} walks, {moves} moves, "
+          f"steps={res.steps} behaviors={res.behaviors} in {wall:.2f} s "
+          f"({res.steps / wall:.0f} steps/s, {report['wall_ms_per_move']:.3f} ms per move), "
+          f"peak device memory {peak / 2**30:.2f} GiB; pull_guard, sim_pick, pull_apply, "
+          "pull_sim_check once per move, pull_predicates once")
+    del sim
+    setup = load_setup("PullRaft.cfg", text=PULL_CFG, lenient=True)
+    sim = Simulator(setup.model, setup.invariants, walks=SIM_WALKS, max_behavior_depth=SIM_DEPTH,
+                    seed=0, device="cuda")
+    sim.start()
+    for _ in range(10):
+        sim.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(20):
+        sim.step()
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            sim.step()
+        torch.cuda.synchronize()
+    report["trace"] = {"moves": 20, "wall_ms_per_move": untraced * 1e3 / 20}
+    dt = device_time(torch, prof)
+    if dt is None:
+        report["trace"]["device"] = "not measured: the tracer saw no device activity"
+    else:
+        busy, groups = dt
+        report["trace"].update({
+            "device_ms_per_move": busy / 20, "device_busy_share_untraced": busy / (untraced * 1e3),
+            "device_ms_per_move_by_group": {
+                k: v / 20 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}})
+    del sim
+    report["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"pull_simulate": report}))
+    print(f"[7b] pull simulate phase {report['phase_s']:.1f} s")
+    return report
+
+
 def counted(torch, fn):
     """``fn()`` on the card with every kernel's count set to 0 just before
-    and read just after, the plain RaftModel.expand and torch's sorts
+    and read just after, the plain expands (RaftModel's, PullRaftModel's)
+    and torch's sorts
     counted by wrapping them for the length of the call. Returns (fn's
     result, wall s, launches, expand calls, sort calls)."""
     from raft_tpu_torch import kernels
+    from raft_tpu_torch.models.pull_raft import PullRaftModel
     from raft_tpu_torch.models.raft import RaftModel
 
     calls = {"expand": 0, "sort": 0}
-    saved = {"expand": RaftModel.expand, "sort": (torch.sort, torch.argsort, torch.Tensor.sort,
-                                                    torch.Tensor.argsort)}
+    saved = {"expand": (RaftModel.expand, PullRaftModel.expand),
+             "sort": (torch.sort, torch.argsort, torch.Tensor.sort, torch.Tensor.argsort)}
 
     def counting(fn, key):
         def wrapped(*a, **k):
@@ -696,7 +1101,7 @@ def counted(torch, fn):
             return fn(*a, **k)
         return wrapped
 
-    RaftModel.expand = counting(saved["expand"], "expand")
+    RaftModel.expand, PullRaftModel.expand = (counting(f, "expand") for f in saved["expand"])
     torch.sort, torch.argsort = (counting(f, "sort") for f in saved["sort"][:2])
     torch.Tensor.sort, torch.Tensor.argsort = (counting(f, "sort") for f in saved["sort"][2:])
     kernels.reset_counts()
@@ -707,7 +1112,7 @@ def counted(torch, fn):
         wall = time.perf_counter() - t
         launches = kernels.launch_counts()
     finally:
-        RaftModel.expand = saved["expand"]
+        RaftModel.expand, PullRaftModel.expand = saved["expand"]
         torch.sort, torch.argsort = saved["sort"][:2]
         torch.Tensor.sort, torch.Tensor.argsort = saved["sort"][2:]
     return out, wall, launches, calls["expand"], calls["sort"]
@@ -725,28 +1130,31 @@ def counted_run(torch, cfg_name, text, **kw):
 
 def check_path(launches, path, chunks, expand_calls, sort_calls, name):
     """Every kernel of ``path`` launched, the per-chunk kernels once per
-    chunk, the canon and the fold once more for the initial states, and
+    chunk, the canon and the family's fold once more for the initial
+    states, no kernel off the path (another family's among them), and
     neither the plain expand nor a torch sort on the path."""
+    fam = next(k for k in path if k.endswith("_guard")).rsplit("_", 1)[0]
     for k in path:
         check(launches[k] > 0, f"{name}: kernel {k} was never launched on the path")
-    for k in ("probe_runs", "raft_guard", "raft_apply", "chunk_sort"):
+    for k in ("probe_runs", f"{fam}_guard", f"{fam}_apply", "chunk_sort"):
         check(launches[k] == chunks, f"{name}: {launches[k]} {k} launches != {chunks} chunks")
-    check(launches["raft_fold"] == chunks + 1,
-          f"{name}: {launches['raft_fold']} raft_fold launches != {chunks} chunks + 1")
+    fold = f"{fam}_fold"
+    check(launches[fold] == chunks + 1,
+          f"{name}: {launches[fold]} {fold} launches != {chunks} chunks + 1")
     canon = path[0]
     check(launches[canon] == chunks + 1,
           f"{name}: {launches[canon]} {canon} launches != {chunks} chunks + 1")
     for k in set(KERNEL_NAMES) - set(path):
         check(launches[k] == 0, f"{name}: {k} launched off its path")
-    check(expand_calls == 0, f"{name}: the plain RaftModel.expand ran {expand_calls} times")
+    check(expand_calls == 0, f"{name}: the plain expand ran {expand_calls} times")
     check(sort_calls == 0, f"{name}: torch sorted {sort_calls} times on the chunk path")
-    print(f"[{name}] raft_guard, raft_apply, probe_runs, chunk_sort: one launch per chunk; "
-          f"{canon}, raft_fold: one per chunk and one for the initial states; "
-          f"RaftModel.expand called {expand_calls} times, torch sorts {sort_calls}")
+    print(f"[{name}] {fam}_guard, {fam}_apply, probe_runs, chunk_sort: one launch per chunk; "
+          f"{canon}, {fold}: one per chunk and one for the initial states; no kernel off the "
+          f"path; the plain expand called {expand_calls} times, torch sorts {sort_calls}")
 
 
 def trace_run(torch, cfg_name, text, depth, want, **kw) -> dict:
-    """The CLI's function to ``depth`` once untraced (wall per chunk) and
+    """The CLI's function to ``depth`` (None: to exhaustion) once untraced (wall per chunk) and
     once under torch.profiler (device time per chunk by kernel group, the
     device's busy share); both runs' (distinct, total, depth, terminal)
     must equal ``want``."""
@@ -762,7 +1170,9 @@ def trace_run(torch, cfg_name, text, depth, want, **kw) -> dict:
         torch.cuda.synchronize()
         got = (r.distinct, r.total, r.depth, r.terminal)
         check(got == want, f"{cfg_name} depth-{depth} counts {got} != {want}")
-        chunks = sum(-(-n // CHUNK) for n in r.depth_counts[:-1]) + b.redone_chunks
+        # an exhausted run also expands its last frontier
+        waves = r.depth_counts if r.exhausted else r.depth_counts[:-1]
+        chunks = sum(-(-n // CHUNK) for n in waves) + b.redone_chunks
         return time.perf_counter() - t, chunks, r
 
     wall, chunks, res = run()
@@ -1051,7 +1461,7 @@ def main() -> int:
     t = time.perf_counter()
     logs = kernels.build_all()
     build_s = time.perf_counter() - t
-    print(f"[2] built {len(logs)} kernels in {build_s:.1f} s")
+    print(f"[2] built {len(kernels.ALL)} kernels from {len(logs)} sources in {build_s:.1f} s")
     for k, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1261,6 +1671,9 @@ def main() -> int:
     rows.update(tiered_rows(torch, bfs5s.canon, flatc5, selv5, timed=True))
     sort5 = chunk_sort_row(torch, fps5, fresh5, bfs5s.R0, timed=True)
     del bfs5s, flatc5
+    # the pull kernels: chunks of the PullRaft and Variant2 frontiers, and
+    # edge rows
+    rows.update(pull_kernel_rows(torch, rng))
     for k, r in rows.items():
         print(f"[3] {k}: exact; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
@@ -1320,6 +1733,10 @@ def main() -> int:
     check_path(launches5, RAFT5_PATH, chunks5, expand5, sort5_calls, "4b")
     del bfs5
 
+    phase_start["4c"] = time.perf_counter()
+    # ---- 4c. the pull family on the main path ----
+    pull_report = pull_main_phase(torch)
+
     phase_start["5"] = time.perf_counter()
     # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
     def small_run(cfg_name, text, device, depth=None, **kw):
@@ -1373,6 +1790,10 @@ def main() -> int:
         msg_slots=RAFT5_SLOTS, caps=RAFT5_CAPS)
     check(r5.depth_counts == RAFT5_PIN["depth_counts"] and r5.coverage == RAFT5_PIN["coverage"],
           "five-server depth counts or coverage at the pinned depth differ from the reference's")
+    traces["pull"], _ = trace_run(
+        torch, "PullRaft.cfg", PULL_CFG, None,
+        (PULL_PIN["distinct"], PULL_PIN["total"], len(PULL_PIN["depth_counts"]) - 1,
+         PULL_PIN["terminal"]), lenient=True)
     print(f"[6] Raft.cfg depth 20: {traces['raft']['chunks']} chunks, "
           f"{traces['raft']['wall_ms_per_chunk']:.3f} ms/chunk wall; five-server Raft depth "
           f"{pin_depth}: distinct, total, depth counts and coverage equal the reference's, "
@@ -1380,10 +1801,15 @@ def main() -> int:
           "ms/chunk wall")
     print(json.dumps({"trace": traces["raft"]}))
     print(json.dumps({"trace_five_servers": traces["raft5"]}))
+    print(json.dumps({"trace_pull": traces["pull"]}))
 
     phase_start["7"] = time.perf_counter()
     # ---- 7. simulate ----
     sim_report = simulate_phase(torch)
+
+    phase_start["7b"] = time.perf_counter()
+    # ---- 7b. simulate the pull family ----
+    pull_sim_report = pull_simulate_phase(torch)
 
     phase_start["8"] = time.perf_counter()
     # ---- 8. liveness ----
@@ -1415,16 +1841,28 @@ def main() -> int:
         "raft_sim_check": ("raft_tpu_torch/csrc/raft_predicates.cu",
                            "raft_tpu/checker/simulate.py:93"),
         "hash_rows": ("raft_tpu_torch/csrc/hash_rows.cu", "raft_tpu/checker/liveness.py:108"),
+        "pull_guard": ("raft_tpu_torch/csrc/pull_expand.cu", "raft_tpu/models/pull_raft.py:667"),
+        "pull_apply": ("raft_tpu_torch/csrc/pull_expand.cu", "raft_tpu/models/base.py:426"),
+        "pull_fold": ("raft_tpu_torch/csrc/pull_fold.cu", "raft_tpu/checker/device_bfs.py:501"),
+        "pull_sim_check": ("raft_tpu_torch/csrc/pull_predicates.cu",
+                           "raft_tpu/checker/simulate.py:93"),
+        "pull_predicates": ("raft_tpu_torch/csrc/pull_predicates.cu",
+                            "raft_tpu/checker/simulate.py:142"),
     }
     # launches: each kernel's count on the path that runs it (Raft.cfg's
     # for the kernels both paths share, liveness' for raft_predicates,
-    # whose row is timed there); canon_signatures serves the checks
+    # whose row is timed there; the PullRaft stand-in's exhaustion for the
+    # pull expand and fold, its simulate for pull_sim_check and
+    # pull_predicates); canon_signatures serves the checks
     path_launches = {**{k: launches[k] for k in RAFT3_PATH},
                      "canon_tiered": launches5["canon_tiered"], "canon_signatures": 0,
                      "sim_pick": sim_report["launches"]["sim_pick"],
                      "raft_sim_check": sim_report["launches"]["raft_sim_check"],
                      "raft_predicates": live_report["launches"]["raft_predicates"],
-                     "hash_rows": live_report["launches"]["hash_rows"]}
+                     "hash_rows": live_report["launches"]["hash_rows"],
+                     **{k: pull_report["launches"][k] for k in PULL_PATH if k.startswith("pull_")},
+                     **{k: pull_sim_report["launches"][k]
+                        for k in ("pull_sim_check", "pull_predicates")}}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": path_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -2,6 +2,7 @@
 
     python -m raft_tpu_torch path/to/Raft.cfg [--device cuda|cpu] ...
     python -m raft_tpu_torch path/to/FlexibleRaft.cfg --simulate N [--sim-walks R]
+    python -m raft_tpu_torch path/to/PullRaft.cfg --lenient [--simulate N]
 
 Runs the device BFS on ``cuda`` (the default; ``--device cpu`` runs the
 plain PyTorch versions of the kernels instead). ``-deadlock`` semantics
@@ -79,11 +80,11 @@ def _sim(setup, device=None, walks: int = 128, max_behavior_depth: int = 50, see
 def run_simulate(cfg_path: str, text: str | None = None, device=None,
                  msg_slots: int | None = None, walks: int = 128,
                  max_behavior_depth: int = 50, seed: int = 0,
-                 max_steps: int | None = None):
+                 max_steps: int | None = None, lenient: bool = False):
     """Parse a cfg, build the model and run simulation mode (``walks``
     random walks in lock-step, ``max_steps`` transitions in all). Returns
     (setup, simulator, result)."""
-    setup = load_setup(cfg_path, text, msg_slots=msg_slots)
+    setup = load_setup(cfg_path, text, msg_slots=msg_slots, lenient=lenient)
     sim, res = _sim(setup, device, walks, max_behavior_depth, seed, max_steps=max_steps)
     return setup, sim, res
 
@@ -174,7 +175,7 @@ def main(argv=None) -> int:
                     "(their plain PyTorch versions)")
     ap.add_argument("--chunk", type=int, default=4096, help="frontier states per chunk")
     ap.add_argument("--msg-slots", type=int, default=None,
-                    help="message-bag slot count (default 48)")
+                    help="message-bag slot count (default 48; 64 for the pull specs)")
     ap.add_argument("--max-depth", type=int, default=None)
     ap.add_argument("--time-budget", type=float, default=None,
                     help="stop (non-exhausted) after this many seconds")

@@ -512,17 +512,22 @@ class DeviceBFS:
 
     # ---------------- trace reconstruction ----------------
 
-    def reconstruct_trace(self, violation: Violation) -> list[tuple[str, dict]]:
-        """Parent-pointer replay through the journal (``reconstruct_trace``
-        of the reference, :1821): each journalled candidate goes through
-        the guard and a one-lane apply on the engine's device."""
+    def journal_chain(self, gid: int) -> tuple[np.ndarray, list[int]]:
+        """(initial state row, candidates taken) of the journalled state
+        ``gid``, by its parent pointers."""
         n0 = len(self._init_distinct)
         jp = self._jparent[: self._jcount].cpu().numpy()
         jc = self._jcand[: self._jcount].cpu().numpy()
         chain: list[int] = []
-        gid = violation.global_id
         while gid >= n0:
             chain.append(int(jc[gid - n0]))
             gid = int(jp[gid - n0])
         chain.reverse()
-        return replay_chain(self.model, self.device, self._init_distinct[gid], chain)
+        return self._init_distinct[gid], chain
+
+    def reconstruct_trace(self, violation: Violation) -> list[tuple[str, dict]]:
+        """Parent-pointer replay through the journal (``reconstruct_trace``
+        of the reference, :1821): each journalled candidate goes through
+        the guard and a one-lane apply on the engine's device."""
+        init, chain = self.journal_chain(violation.global_id)
+        return replay_chain(self.model, self.device, init, chain)

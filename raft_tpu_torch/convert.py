@@ -2,7 +2,8 @@
 
 State rows need no conversion: both packages lay a state out as the same
 ``int32 [B, W]`` vector with the same field offsets. Parameters cross as
-plain dicts (``dataclasses.asdict`` of the reference's ``RaftParams``),
+plain dicts (``dataclasses.asdict`` of the reference's ``RaftParams`` or
+``PullRaftParams``),
 and fingerprints as numpy arrays: the reference's ``uint64`` values, the
 port's int64 ``u64 ^ (1 << 63)`` encoding (order-preserving; the
 ``U64_MAX`` sentinel becomes ``INT64_MAX``).
@@ -13,17 +14,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.pull_raft import PullRaftParams
 from .models.raft import RaftParams
 
 _SIGN = np.uint64(1 << 63)
 
 
-def params_from_reference(d: dict) -> RaftParams:
-    """The port's ``RaftParams`` from ``dataclasses.asdict`` of the
-    reference's (the two dataclasses have the same fields)."""
+def params_from_reference(d: dict) -> RaftParams | PullRaftParams:
+    """The port's ``RaftParams`` or ``PullRaftParams`` from
+    ``dataclasses.asdict`` of the reference's (each pair of dataclasses has
+    the same fields; a dict with ``variant2`` is the pull family's). The
+    pull family's fleet lanes are not ported: a dict that sets ``fleet`` or
+    ``dyn_consts`` is refused."""
     d = dict(d)
     if "dyn_consts" in d:
         d["dyn_consts"] = tuple(d["dyn_consts"])
+    if "variant2" in d:
+        if d.get("fleet") or d.get("dyn_consts"):
+            raise NotImplementedError(
+                "PullRaft fleet lanes (fleet, dyn_consts) are not ported to raft_tpu_torch")
+        return PullRaftParams(**d)
     return RaftParams(**d)
 
 

@@ -20,6 +20,12 @@
 // copy of the bag's keys: the caller hands it `bag`, 2 * M ints of scratch
 // (sized from the model, so the message slots have no fixed cap).
 //
+// The one-hot helpers, message keys, the bag and the invariants it shares
+// with the other families are in actions_common.cuh; RaftFamily, at the
+// end, is what the kernel drivers (expand_driver.cuh, fold_driver.cuh,
+// predicates_driver.cuh) instantiate for raft_expand.cu, raft_fold.cu and
+// raft_predicates.cu.
+//
 // Bit-identity rules the code keeps (each is a property of the plain
 // version):
 //   - a one-hot read of an out-of-range index gives 0 and a one-hot write
@@ -34,14 +40,8 @@
 //     drops the last slot, and an increment of every equal slot otherwise.
 #pragma once
 
-#include "common.cuh"
+#include "actions_common.cuh"
 
-#define RA_EMPTY (1 << 30)
-#define RA_MAX_K 32  // action ranks (one bit each in the enabled mask)
-
-enum { RA_FOLLOWER = 0, RA_CANDIDATE = 1, RA_LEADER = 2 };
-enum { RA_NIL = 0 };
-enum { RA_ACK_NIL = 0, RA_ACK_FALSE = 1, RA_ACK_TRUE = 2 };
 enum { RA_RVREQ = 1, RA_RVRESP = 2, RA_AEREQ = 3, RA_AERESP = 4 };
 
 // The spec vector (models/raft.py SPEC_SCALARS, then MSG_FIELDS x 3).
@@ -67,102 +67,18 @@ enum {
   G_CLIENT_REQUEST, G_ADVANCE_COMMIT, G_APPEND_ENTRIES, G_ADVANCE_FSYNC,
   G_HANDLE_MESSAGE
 };
-// Invariants (models/raft.py INVARIANT_IDS).
-enum {
-  INV_MESSAGES_ARE_VALID, INV_NO_LOG_DIVERGENCE, INV_LEADER_HAS_ALL_ACKED,
-  INV_COMMITTED_REACH_MAJORITY, INV_TEST
-};
 // Liveness predicates: ValueAllOrNothing(v) is PRED_VALUE_AON + v
 // (models/raft.py PRED_VALUE_AON).
 #define PRED_VALUE_AON 16
 
-struct Guard {
-  bool valid;
-  int rank;
-  bool ovf;
-};
-
-// ---- one-hot reads and writes (0 / no write out of range) ----
-
-__device__ __forceinline__ int ra_at(const int* a, int n, int i) {
-  return (i >= 0 && i < n) ? a[i] : 0;
-}
-__device__ __forceinline__ int ra_at2(const int* a, int n0, int n1, int i, int j) {
-  return (i >= 0 && i < n0 && j >= 0 && j < n1) ? a[i * n1 + j] : 0;
-}
-__device__ __forceinline__ void ra_set(int* a, int n, int i, int v) {
-  if (i >= 0 && i < n) a[i] = v;
-}
-__device__ __forceinline__ void ra_set2(int* a, int n0, int n1, int i, int j, int v) {
-  if (i >= 0 && i < n0 && j >= 0 && j < n1) a[i * n1 + j] = v;
-}
-__device__ __forceinline__ int ra_clamp(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
 // ---- message words ----
 
 __device__ __forceinline__ int ra_unpack(const int* sp, int hi, int lo, int f) {
-  const int* q = sp + SP_MSG + 3 * f;
-  return ((q[0] ? hi : lo) >> q[1]) & q[2];
+  return ra_unpack_q(sp + SP_MSG + 3 * f, hi, lo);
 }
-
-struct Key {
-  long long w[2];  // w[0] = lo, w[1] = hi
-};
 
 __device__ __forceinline__ void ra_pack(const int* sp, Key& k, int f, long long v) {
-  const int* q = sp + SP_MSG + 3 * f;
-  k.w[q[0]] += (long long)((unsigned long long)v << q[1]);
-}
-
-// int32 wraparound of a key (HandleMessage computes in int32)
-__device__ __forceinline__ Key ra_wrap32(Key k) {
-  k.w[0] = (int)k.w[0];
-  k.w[1] = (int)k.w[1];
-  return k;
-}
-
-// ---- the message bag (ops/bag.py) ----
-
-struct Put {
-  bool existed, overflow;
-  int pos;  // lexicographic rank of the key among the slots
-};
-
-__device__ __forceinline__ Put ra_bag_probe(const int* hi, const int* lo, int M, const Key& k) {
-  Put r{false, false, 0};
-  bool have_empty = false;
-  const long long khi = k.w[1], klo = k.w[0];
-  for (int m = 0; m < M; ++m) {
-    const long long h = hi[m], l = lo[m];
-    r.existed |= (h == khi) && (l == klo);
-    have_empty |= h == RA_EMPTY;
-    r.pos += (h < khi) || (h == khi && l < klo);
-  }
-  r.overflow = !r.existed && !have_empty;
-  return r;
-}
-
-// the insert half of bag_put, in place; cnt may be null (a guard's copy)
-__device__ __forceinline__ void ra_bag_insert(int* hi, int* lo, int* cnt, int M, const Key& k,
-                                              const Put& p) {
-  const long long khi = k.w[1], klo = k.w[0];
-  if (p.existed) {
-    if (cnt)
-      for (int m = 0; m < M; ++m) cnt[m] += ((long long)hi[m] == khi && (long long)lo[m] == klo);
-    return;
-  }
-  for (int x = M - 1; x > p.pos; --x) {
-    hi[x] = hi[x - 1];
-    lo[x] = lo[x - 1];
-    if (cnt) cnt[x] = cnt[x - 1];
-  }
-  if (p.pos < M) {
-    hi[p.pos] = (int)khi;
-    lo[p.pos] = (int)klo;
-    if (cnt) cnt[p.pos] = 1;
-  }
+  ra_pack_q(sp + SP_MSG + 3 * f, k, v);
 }
 
 // ---- state helpers ----
@@ -594,79 +510,13 @@ __device__ Guard ra_action(const int* sp, const int* s, int* o, const int* cd, i
   return g;
 }
 
-// ---- invariants (true = holds) ----
-
-// NoLogDivergence — Raft.tla:588-596
-__device__ bool ra_no_log_divergence(const int* sp, const int* s) {
-  const int S = FLD(S), L = FLD(L);
-  const int *ci = s + FLD(CI), *lt = s + FLD(LT), *lv = s + FLD(LV);
-  for (int i = 0; i < S; ++i)
-    for (int j = 0; j < S; ++j) {
-      const int mci = ci[i] < ci[j] ? ci[i] : ci[j];
-      for (int l = 0; l < L; ++l)
-        if (l + 1 <= mci && (lt[i * L + l] != lt[j * L + l] || lv[i * L + l] != lv[j * L + l]))
-          return false;
-    }
-  return true;
-}
-
-// LeaderHasAllAckedValues — Raft.tla:604-620
-__device__ bool ra_leader_has_acked(const int* sp, const int* s) {
-  const int S = FLD(S), L = FLD(L), V = FLD(V);
-  const int *ct = s + FLD(CT), *st = s + FLD(ST), *lv = s + FLD(LV), *ack = s + FLD(ACK);
-  for (int i = 0; i < S; ++i) {
-    bool not_stale = true;
-    for (int j = 0; j < S; ++j) not_stale &= ct[i] >= ct[j];
-    if (!(st[i] == RA_LEADER && not_stale)) continue;
-    for (int v = 0; v < V; ++v) {
-      if (ack[v] != RA_ACK_TRUE) continue;
-      bool has = false;
-      for (int l = 0; l < L; ++l) has |= lv[i * L + l] == v + 1;
-      if (!has) return false;
-    }
-  }
-  return true;
-}
-
-// CommittedEntriesReachMajority — Raft.tla:625-636
-__device__ bool ra_committed_majority(const int* sp, const int* s) {
-  const int S = FLD(S), L = FLD(L);
-  const int *st = s + FLD(ST), *ci = s + FLD(CI), *ll = s + FLD(LL);
-  const int *lt = s + FLD(LT), *lv = s + FLD(LV);
-  bool any_lead = false, ok_exists = false;
-  for (int i = 0; i < S; ++i) {
-    if (!(st[i] == RA_LEADER && ci[i] > 0)) continue;
-    any_lead = true;
-    const int pos = ra_clamp(ci[i] - 1, 0, L - 1);
-    int match = 0;
-    for (int j = 0; j < S; ++j)
-      match += ll[j] >= ci[i] && lt[j * L + pos] == lt[i * L + pos] &&
-               lv[j * L + pos] == lv[i * L + pos];
-    ok_exists |= match >= S / 2 + 1;
-  }
-  return !any_lead || ok_exists;
-}
-
-// MessagesAreValid — MessagePassing.tla:81-83: no self-addressed record
-__device__ bool ra_messages_are_valid(const int* sp, const int* s) {
-  const int M = FLD(M);
-  for (int m = 0; m < M; ++m) {
-    const int hi = s[FLD(HI) + m], lo = s[FLD(LO) + m];
-    if (hi != RA_EMPTY && ra_unpack(sp, hi, lo, MF_MSOURCE) == ra_unpack(sp, hi, lo, MF_MDEST))
-      return false;
-  }
-  return true;
-}
+// ---- invariants (true = holds): actions_common.cuh over Raft's fields ----
 
 __device__ __forceinline__ bool ra_invariant(const int* sp, const int* s, int id) {
-  switch (id) {
-    case INV_MESSAGES_ARE_VALID: return ra_messages_are_valid(sp, s);
-    case INV_NO_LOG_DIVERGENCE: return ra_no_log_divergence(sp, s);
-    case INV_LEADER_HAS_ALL_ACKED: return ra_leader_has_acked(sp, s);
-    case INV_COMMITTED_REACH_MAJORITY: return ra_committed_majority(sp, s);
-    case INV_TEST: return true;
-  }
-  return true;
+  const InvFields f{FLD(S),  FLD(L),  FLD(V),  FLD(M),  FLD(CT),  FLD(ST),  FLD(LT),
+                    FLD(LV), FLD(LL), FLD(CI), FLD(ACK), FLD(HI), FLD(LO),
+                    sp + SP_MSG + 3 * MF_MSOURCE, sp + SP_MSG + 3 * MF_MDEST};
+  return inv_eval(f, s, id);
 }
 
 // ---- liveness predicates (true = holds) ----
@@ -694,9 +544,27 @@ __device__ __forceinline__ bool ra_predicate(const int* sp, const int* s, int id
   return ra_invariant(sp, s, id);
 }
 
-// Stage the spec vector into shared memory (every thread of the block).
-__device__ __forceinline__ void ra_load_spec(int* dst, const int* spec) {
-  for (int t = threadIdx.x; t < SP_LEN; t += blockDim.x) dst[t] = spec[t];
-}
+// The Raft family as the kernel drivers see it: where its spec keeps the
+// sizes, the guard scratch of a state (a slot of 2 * M ints for each
+// RequestVote(i) lane's replay of its S - 1 puts), its actions and its
+// predicates.
+struct RaftFamily {
+  static constexpr int SPEC_LEN = SP_LEN;
+  static constexpr int I_S = SP_S, I_M = SP_M, I_W = SP_W, I_A = SP_A, I_K = SP_K;
+  __host__ __device__ __forceinline__ static int scratch_slots(int S) { return S; }
+  __device__ __forceinline__ static int scratch_slot(const int* cd) {
+    return cd[0] == G_REQUEST_VOTE ? cd[1] : -1;
+  }
+  template <bool WRITE>
+  __device__ __forceinline__ static Guard action(const int* sp, const int* s, int* o, const int* cd, int* bag) {
+    return ra_action<WRITE>(sp, s, o, cd, bag);
+  }
+  __device__ __forceinline__ static bool invariant(const int* sp, const int* s, int id) {
+    return ra_invariant(sp, s, id);
+  }
+  __device__ __forceinline__ static bool predicate(const int* sp, const int* s, int id) {
+    return ra_predicate(sp, s, id);
+  }
+};
 
 #undef FLD

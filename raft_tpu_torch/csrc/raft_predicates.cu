@@ -1,133 +1,11 @@
-// raft_predicates — state predicates of the Raft model over rows, and the
-// simulate step's check and settle.
-//
-// Replaces the batched predicate calls of raft_tpu/checker/liveness.py:254
-// _eval_kernel (ValueAllOrNothing, raft_tpu/models/raft.py:925-942) and the
-// invariant check and restart of raft_tpu/checker/simulate.py:88-103 (the
-// invariants of raft.py:894-975); the predicates themselves are the device
-// code of raft_actions.cuh.
-//
-//   raft_predicates  out[p, n] = predicate ids[p] holds on row n (an
-//                    invariant id or PRED_VALUE_AON + v).
-//   raft_sim_check   per walk w of one simulate step, after raft_apply
-//                    wrote the moved walks' successors into nxt: inv_bad[w]
-//                    = the first of the run's invariants that nxt[w] breaks
-//                    (-1 if none or if w did not move); then the settle:
-//                    the walk's journal gets its chosen candidate, its
-//                    depth advances, done[w] = (!moved || depth >=
-//                    max_depth) && inv_bad < 0, and a done walk restarts
-//                    from init_pool[ridx[w]] (journal [ridx], depth 0). nxt
-//                    becomes the walks' next rows: a walk that did not move
-//                    keeps its row of states. stats[2] = done walks,
-//                    stats[3] = the lowest walk with inv_bad >= 0
-//                    (0x7F7F7F7F7F7F7F7F when none).
-//
-// Design: one thread per row (walk) evaluates its predicates on the row in
-// device memory (they read a few fields, each once); the spec is staged in
-// shared memory. raft_sim_check then copies only the rows that change
-// (walks that did not move or that restart), each block over its own walks
-// with all its threads, coalesced.
-//
-// Bound: bytes — the predicates' fields of each row read once, the outputs
-// written once; raft_sim_check also writes the restarted and kept rows.
+// raft_predicates — state predicates of the Raft model over rows
+// (raft_predicates: the liveness graph's _eval_kernel,
+// raft_tpu/checker/liveness.py:254, with ValueAllOrNothing of
+// raft_tpu/models/raft.py:925-942), and the simulate step's check and
+// settle (raft_sim_check: raft_tpu/checker/simulate.py:88-103): the drivers
+// of predicates_driver.cuh (their contract and design) over the predicates
+// of raft_actions.cuh.
+#include "predicates_driver.cuh"
 #include "raft_actions.cuh"
 
-#define PRED_THREADS 128
-
-__global__ void raft_predicates_kernel(const int* __restrict__ rows, long long N,
-                                       const int* __restrict__ spec, const int* __restrict__ ids,
-                                       int P, bool* __restrict__ out) {
-  __shared__ int sp[SP_LEN];
-  ra_load_spec(sp, spec);
-  __syncthreads();
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int* row = rows + n * sp[SP_W];
-  for (int p = 0; p < P; ++p) out[p * N + n] = ra_predicate(sp, row, ids[p]);
-}
-
-// rows [N, W] int32; ids [P] int32; out [P, N] bool. Returns a cudaError_t.
-extern "C" int raft_predicates(const int* rows, long long N, const int* spec, int spec_len,
-                               const int* ids, int P, bool* out, void* stream) {
-  if (spec_len != SP_LEN) return (int)cudaErrorInvalidValue;
-  if (N <= 0 || P <= 0) return 0;
-  const long long blocks = (N + PRED_THREADS - 1) / PRED_THREADS;
-  raft_predicates_kernel<<<(unsigned)blocks, PRED_THREADS, 0, (cudaStream_t)stream>>>(
-      rows, N, spec, ids, P, out);
-  return (int)cudaGetLastError();
-}
-
-__global__ void raft_sim_check_kernel(const int* __restrict__ states, int* __restrict__ nxt, int R,
-                                      const bool* __restrict__ moved,
-                                      const int* __restrict__ chosen,
-                                      const int* __restrict__ ridx,
-                                      const int* __restrict__ init_pool, int* __restrict__ depth,
-                                      int max_depth, int* __restrict__ journal, int J,
-                                      int* __restrict__ jlen, const int* __restrict__ spec,
-                                      const int* __restrict__ inv_ids, int n_inv,
-                                      int* __restrict__ inv_bad, bool* __restrict__ done,
-                                      unsigned long long* __restrict__ stats) {
-  __shared__ int sp[SP_LEN];
-  __shared__ const int* src[PRED_THREADS];  // the row each copied walk takes
-  __shared__ int dst[PRED_THREADS];         // its walk
-  __shared__ int n_copy, n_done;
-  ra_load_spec(sp, spec);
-  if (threadIdx.x == 0) n_copy = n_done = 0;
-  __syncthreads();
-  const int W = sp[SP_W];
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w < R) {
-    const bool m = moved[w];
-    int bad = -1;
-    if (m)
-      for (int k = 0; k < n_inv && bad < 0; ++k)
-        if (!ra_invariant(sp, nxt + (long long)w * W, inv_ids[k])) bad = k;
-    inv_bad[w] = bad;
-    const int nd = depth[w] + m;
-    const bool d = (!m || nd >= max_depth) && bad < 0;
-    done[w] = d;
-    depth[w] = d ? 0 : nd;
-    int jl = jlen[w];
-    if (m && jl < J) journal[(long long)w * J + jl++] = chosen[w];
-    if (d) {
-      journal[(long long)w * J] = ridx[w];
-      jl = 1;
-    }
-    jlen[w] = jl;
-    if (bad >= 0) atomicMin(&stats[3], (unsigned long long)w);
-    if (d) atomicAdd(&n_done, 1);
-    if (d || !m) {
-      const int slot = atomicAdd(&n_copy, 1);
-      src[slot] = d ? init_pool + (long long)ridx[w] * W : states + (long long)w * W;
-      dst[slot] = w;
-    }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < n_copy * W; t += blockDim.x) {
-    const int r = t / W, c = t - r * W;
-    nxt[(long long)dst[r] * W + c] = src[r][c];
-  }
-  if (threadIdx.x == 0 && n_done) atomicAdd(&stats[2], (unsigned long long)n_done);
-}
-
-// states, nxt [R, W] int32 (nxt updated in place); moved [R] bool; chosen,
-// ridx, depth (in place), jlen (in place), inv_bad [R] int32; init_pool
-// [n_init, W] int32; journal [R, J] int32 (in place); inv_ids [n_inv]
-// int32; done [R] bool; stats [4] int64, of which [2] and [3] are set
-// here. Returns a cudaError_t.
-extern "C" int raft_sim_check(const int* states, int* nxt, int R, const bool* moved,
-                              const int* chosen, const int* ridx, const int* init_pool,
-                              int* depth, int max_depth, int* journal, int J, int* jlen,
-                              const int* spec, int spec_len, const int* inv_ids, int n_inv,
-                              int* inv_bad, bool* done, long long* stats, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (spec_len != SP_LEN || J < 1) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(stats + 2, 0, sizeof(long long), s);
-  if (e == cudaSuccess) e = cudaMemsetAsync(stats + 3, 0x7F, sizeof(long long), s);
-  if (e != cudaSuccess) return (int)e;
-  if (R <= 0) return 0;
-  raft_sim_check_kernel<<<(R + PRED_THREADS - 1) / PRED_THREADS, PRED_THREADS, 0, s>>>(
-      states, nxt, R, moved, chosen, ridx, init_pool, depth, max_depth, journal, J, jlen, spec,
-      inv_ids, n_inv, inv_bad, done, (unsigned long long*)stats);
-  return (int)cudaGetLastError();
-}
+PREDICATE_KERNELS(raft, RaftFamily)

@@ -3,7 +3,8 @@
 Each kernel lives in a CUDA C++ source in ``csrc/`` with a plain C
 interface (``raft_guard`` and ``raft_apply`` share ``raft_expand.cu``;
 ``raft_predicates`` and simulate's ``raft_sim_check`` share
-``raft_predicates.cu``; ``*.cuh`` headers are shared device code). ``nvcc -gencode
+``raft_predicates.cu``; the pull family's ``pull_*`` kernels the same way;
+``*.cuh`` headers are shared device code and kernel drivers). ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` compiles each source into a shared
 library under ``build/raft_tpu_torch/`` at first use (``build_all``
 starts one nvcc per source, all at once); ``ctypes`` loads it. A launcher
@@ -34,6 +35,14 @@ ARCH = "arch=compute_90a,code=sm_90a"
 # C signatures of the launchers (every pointer and the stream are
 # c_void_p so ctypes never truncates them to 32 bits).
 _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+# a family's expand, fold and predicate launchers (csrc/raft_expand.cu and
+# pull_expand.cu, ... share the drivers of csrc/*_driver.cuh, so each
+# family's launchers have the same signatures)
+_GUARD = [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+_APPLY = [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P]
+_FOLD = [_P, _I, _P, _P, _P, _P, _L, _P, _I, _P, _I, _P, _P, _P, _P, _P]
+_PREDICATES = [_P, _L, _P, _I, _P, _I, _P, _P]
+_SIM_CHECK = [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P]
 _SIGNATURES = {
     "canon_memo": {
         "canon_memo": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P,
@@ -56,27 +65,18 @@ _SIGNATURES = {
     "chunk_sort": {
         "chunk_sort": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
-    "raft_expand": {
-        "raft_guard": [_P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-                       _P, _P, _P],
-        "raft_apply": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P],
-    },
-    "raft_fold": {
-        "raft_fold": [_P, _I, _P, _P, _P, _P, _L, _P, _I, _P, _I, _P, _P, _P,
-                      _P, _P],
-    },
     "sim_step": {
         "sim_pick": [_P, _P, _I, _I, _U, _U, _U, _U, _U, _U, _I, _P, _P, _P, _P, _P, _P],
-    },
-    "raft_predicates": {
-        "raft_predicates": [_P, _L, _P, _I, _P, _I, _P, _P],
-        "raft_sim_check": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P,
-                           _I, _P, _P, _P, _P],
     },
     "hash_rows": {
         "hash_rows": [_P, _L, _I, _U, _U, _I, _P, _P],
     },
 }
+for _fam in ("raft", "pull"):
+    _SIGNATURES[f"{_fam}_expand"] = {f"{_fam}_guard": _GUARD, f"{_fam}_apply": _APPLY}
+    _SIGNATURES[f"{_fam}_fold"] = {f"{_fam}_fold": _FOLD}
+    _SIGNATURES[f"{_fam}_predicates"] = {f"{_fam}_predicates": _PREDICATES,
+                                         f"{_fam}_sim_check": _SIM_CHECK}
 
 
 def nvcc_path() -> str:
@@ -139,6 +139,11 @@ class Kernel:
             self._lib = lib
         return self._lib
 
+    @property
+    def fn(self):
+        """The kernel's launcher (the C function named after the kernel)."""
+        return getattr(self.lib, self.name)
+
     def launched(self, rc: int) -> None:
         """Count one launch and raise if the launcher reported an error."""
         if rc:
@@ -161,9 +166,20 @@ SIM_PICK = Kernel("sim_pick", source="sim_step")
 RAFT_PREDICATES = Kernel("raft_predicates")
 RAFT_SIM_CHECK = Kernel("raft_sim_check", source="raft_predicates")
 HASH_ROWS = Kernel("hash_rows")
+PULL_GUARD = Kernel("pull_guard", source="pull_expand")
+PULL_APPLY = Kernel("pull_apply", source="pull_expand")
+PULL_FOLD = Kernel("pull_fold")
+PULL_PREDICATES = Kernel("pull_predicates")
+PULL_SIM_CHECK = Kernel("pull_sim_check", source="pull_predicates")
 ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, RAFT_GUARD, RAFT_APPLY,
        RAFT_FOLD, CHUNK_SORT, CANON_TIERED, CANON_SIGNATURES, SIM_PICK, RAFT_PREDICATES,
-       RAFT_SIM_CHECK, HASH_ROWS)
+       RAFT_SIM_CHECK, HASH_ROWS, PULL_GUARD, PULL_APPLY, PULL_FOLD, PULL_PREDICATES,
+       PULL_SIM_CHECK)
+# each family's kernels by role (models/*.py KERNELS; ops/expand.py launches them)
+RAFT_FAMILY = dict(guard=RAFT_GUARD, apply=RAFT_APPLY, fold=RAFT_FOLD,
+                   predicates=RAFT_PREDICATES, sim_check=RAFT_SIM_CHECK)
+PULL_FAMILY = dict(guard=PULL_GUARD, apply=PULL_APPLY, fold=PULL_FOLD,
+                   predicates=PULL_PREDICATES, sim_check=PULL_SIM_CHECK)
 
 
 def build_all() -> dict[str, str]:

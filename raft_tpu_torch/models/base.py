@@ -22,6 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops import expand as expand_ops
+
 # Field kinds (see raft_tpu/models/base.py for their permutation rules).
 KINDS = (
     "scalar",
@@ -202,6 +204,137 @@ def onehot_set2(arr, i, j, val):
     if isinstance(val, torch.Tensor):
         val = val.unsqueeze(-1).unsqueeze(-1)
     return torch.where(oi & oj, val, arr)
+
+
+def select(cond, a, b):
+    """``where(cond, a, b)`` with cond [C, n] broadcast over the trailing
+    field axes of a/b."""
+    nd = max(a.ndim if isinstance(a, torch.Tensor) else 0,
+             b.ndim if isinstance(b, torch.Tensor) else 0)
+    return torch.where(cond.reshape(cond.shape + (1,) * (nd - cond.ndim)), a, b)
+
+
+def _jax_index(i, n: int):
+    """A traced JAX index into an axis of ``n``: a negative one counts from
+    the end."""
+    return torch.where(i < 0, i + n, i)
+
+
+def jax_take(arr, i):
+    """``arr[i]`` along axis 2 as JAX gathers with a traced index: a
+    negative index counts from the end, then the index is clamped into
+    range (the reference's PullRaft reads ``x[dst]`` this way)."""
+    return onehot_row(arr, _jax_index(i, arr.shape[2]).clamp(0, arr.shape[2] - 1))
+
+
+def jax_set(arr, i, val):
+    """``arr.at[i].set(val)`` along axis 2 as JAX scatters with a traced
+    index: a negative index counts from the end, and the write is dropped
+    where the index is out of range."""
+    return onehot_set(arr, _jax_index(i, arr.shape[2]), val)
+
+
+def jax_set2(arr, i, j, val):
+    """``arr.at[i, j].set(val)`` on axes 2 and 3 as JAX scatters: dropped
+    where either index is out of range."""
+    return onehot_set2(arr, _jax_index(i, arr.shape[2]), _jax_index(j, arr.shape[3]), val)
+
+
+# the invariants every family's kernels evaluate, by kernel id (the INV_*
+# enum of csrc/actions_common.cuh)
+INVARIANT_IDS = {
+    "MessagesAreValid": 0, "NoLogDivergence": 1, "LeaderHasAllAckedValues": 2,
+    "CommittedEntriesReachMajority": 3, "TestInv": 4,
+}
+
+
+class KernelModel:
+    """What a family's batched model shares with the others: field access
+    over a [C, n] grid of (state, binding) pairs, and the hand-written
+    kernels' view of the model.
+
+    Subclass contract: ``layout``, ``bindings``, ``A``, ``ACTION_NAMES``,
+    ``_consts`` (a dict), ``_bind_tables()`` (name -> binding-index list),
+    ``_spec_vector()`` (the int32 spec its actions header reads),
+    ``GROUP_IDS``/``GROUP_RANKS`` (binding group -> kernel group id / rank),
+    ``_pred_ids`` (predicate name -> kernel id), ``ACTIONS_HEADER`` (the
+    csrc header that evaluates them) and ``KERNELS`` (role -> Kernel:
+    guard, apply, fold, predicates, sim_check)."""
+
+    # The engine's chunk entry points. DeviceBFS, Simulator and the
+    # liveness checker expand, fold and check only through these, so the
+    # choice of kernels stays with the model (as the reference's engine
+    # calls ``model.guards1`` and ``model.sparse_apply``). Each routes by
+    # tensor device: the model's hand-written kernel (KERNELS) for a CUDA
+    # tensor, its plain version for a CPU one (ops/expand.py).
+    chunk_guards = expand_ops.guard
+    chunk_apply = expand_ops.apply
+    chunk_fold = expand_ops.fold
+    chunk_predicates = expand_ops.predicates
+    sim_check = expand_ops.sim_check
+
+    def _idx(self, name: str, dev: torch.device) -> torch.Tensor:
+        """Cached [1, n] binding-index tensors (device-resident, so a
+        chunk never uploads them again)."""
+        key = (name, str(dev))
+        t = self._consts.get(key)
+        if t is None:
+            t = torch.tensor(self._bind_tables()[name], dtype=torch.int64, device=dev)[None, :]
+            self._consts[key] = t
+        return t
+
+    def _dec(self, states):
+        """[C, W] -> {field: [C, 1, *shape]} (the binding axis is 1)."""
+        g = self.layout.get
+        return {f: g(states, f).unsqueeze(1) for f in self.layout.fields}
+
+    def _asm(self, d, C: int, n: int, **updates):
+        """Reassemble successor rows [C, n, W] in layout order."""
+        parts = []
+        for name, f in self.layout.fields.items():
+            arr = updates.get(name, d[name])
+            arr = arr.to(torch.int32).expand((C, n) + f.shape)
+            parts.append(arr.reshape(C, n, f.size))
+        return torch.cat(parts, dim=2)
+
+    @staticmethod
+    def _full(C, n, val, dtype, dev):
+        return torch.full((C, n), val, dtype=dtype, device=dev)
+
+    def prepare_device(self, device, invariants) -> None:
+        """Fail before a run, not inside it, where the kernels on
+        ``device`` cannot evaluate one of ``invariants``."""
+        if torch.device(device).type == "cuda":
+            self.kernel_spec(device, tuple(invariants))
+
+    def kernel_spec(self, dev, invariants: tuple[str, ...] = ()):
+        """(spec int32 [spec length], cand int32 [A, 4], ids int32
+        [len(invariants)]) on ``dev``, built once per device and
+        predicate tuple: everything the hand-written kernels read about
+        this model (field offsets, message-field locations, parameter
+        flags, the candidate table of (group, p0, p1, rank) rows, the
+        kernel ids of the named invariants or liveness predicates).
+        Raises KeyError for a predicate the kernels do not evaluate."""
+        missing = [n for n in invariants if n not in self._pred_ids]
+        if missing:
+            raise KeyError(
+                f"predicate(s) {missing} have no kernel predicate "
+                f"(csrc/{self.ACTIONS_HEADER} evaluates {sorted(self._pred_ids)})")
+        dev = torch.device(dev)
+        key = ("kernel_spec", str(dev), tuple(invariants))
+        hit = self._consts.get(key)
+        if hit is not None:
+            return hit
+        cand = []
+        for g in self.sparse_groups():
+            for row in g.params:
+                args = list(row) + [0] * (2 - len(row))
+                cand.append([self.GROUP_IDS[g.name], *args, self.GROUP_RANKS[g.name]])
+        hit = tuple(
+            torch.tensor(v, dtype=torch.int32, device=dev)
+            for v in (self._spec_vector(), cand, [self._pred_ids[n] for n in invariants]))
+        self._consts[key] = hit
+        return hit
 
 
 def messages_are_valid_kernel(layout: Layout, packer):

@@ -23,16 +23,19 @@ import numpy as np
 import torch
 
 from ..ops import bag
-from ..ops.expand import raft_apply, raft_fold, raft_guard, raft_predicates, raft_sim_check
+from .. import kernels
 from ..ops.packing import EMPTY, BitPacker, bits_for
 from .base import (
+    INVARIANT_IDS,
     ActionLabelMixin,
+    KernelModel,
     Layout,
     SparseExpandMixin,
     messages_are_valid_kernel,
     onehot_row as orow,
     onehot_set as oset,
     onehot_set2 as oset2,
+    select as _sel,
 )
 
 # state[i] encoding (CONSTANTS Follower/Candidate/Leader, Raft.tla:38)
@@ -179,14 +182,6 @@ def _build_packer(p: RaftParams) -> BitPacker:
     )
 
 
-def _sel(cond, a, b):
-    """``where(cond, a, b)`` with cond [C, n] broadcast over the trailing
-    field axes of a/b."""
-    nd = max(a.ndim if isinstance(a, torch.Tensor) else 0,
-             b.ndim if isinstance(b, torch.Tensor) else 0)
-    return torch.where(cond.reshape(cond.shape + (1,) * (nd - cond.ndim)), a, b)
-
-
 # ---- the kernels' view of a model (csrc/raft_actions.cuh) ----
 # Order of the int32 spec vector; it mirrors the SP_* enum of
 # raft_actions.cuh, whose kernels refuse a spec of any other length.
@@ -225,20 +220,19 @@ GROUP_RANKS = {
     # the six receipt disjuncts: R_UPDATETERM + 0..5 in Next order
     "HandleMessage": R_UPDATETERM,
 }
-# invariants the kernels evaluate (INV_* enum)
-INVARIANT_IDS = {
-    "MessagesAreValid": 0, "NoLogDivergence": 1, "LeaderHasAllAckedValues": 2,
-    "CommittedEntriesReachMajority": 3, "TestInv": 4,
-}
 # the liveness predicate ValueAllOrNothing(v) has kernel id PRED_VALUE_AON + v
 # (PRED_VALUE_AON of raft_actions.cuh)
 PRED_VALUE_AON = 16
 
 
-class RaftModel(SparseExpandMixin, ActionLabelMixin):
+class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
     """Batched successor/invariant kernels for one (spec, constants) pair."""
 
     name = "Raft"
+    ACTIONS_HEADER = "raft_actions.cuh"
+    KERNELS = kernels.RAFT_FAMILY
+    GROUP_IDS = GROUP_IDS
+    GROUP_RANKS = GROUP_RANKS
 
     def __init__(self, params: RaftParams, server_names=None, value_names=None):
         if params.net_faults or params.fleet:
@@ -311,38 +305,16 @@ class RaftModel(SparseExpandMixin, ActionLabelMixin):
 
     # ---------------- field access helpers ----------------
 
-    def _idx(self, name: str, dev: torch.device) -> torch.Tensor:
-        """Cached [1, n] binding-index tensors (device-resident, so a
-        chunk never uploads them again)."""
-        key = (name, str(dev))
-        t = self._consts.get(key)
-        if t is None:
-            S, V, M = self.p.n_servers, self.p.n_values, self.p.msg_slots
-            vals = {
-                "iota_s": list(range(S)),
-                "ae_i": [ij[0] for ij in self._ae_pairs],
-                "ae_j": [ij[1] for ij in self._ae_pairs],
-                "cr_i": [i for i in range(S) for _ in range(V)],
-                "cr_v": [v for _ in range(S) for v in range(V)],
-                "iota_m": list(range(M)),
-            }[name]
-            t = torch.tensor(vals, dtype=torch.int64, device=dev)[None, :]
-            self._consts[key] = t
-        return t
-
-    def _dec(self, states):
-        """[C, W] -> {field: [C, 1, *shape]} (the binding axis is 1)."""
-        g = self.layout.get
-        return {f: g(states, f).unsqueeze(1) for f in self.layout.fields}
-
-    def _asm(self, d, C: int, n: int, **updates):
-        """Reassemble successor rows [C, n, W] in layout order."""
-        parts = []
-        for name, f in self.layout.fields.items():
-            arr = updates.get(name, d[name])
-            arr = arr.to(torch.int32).expand((C, n) + f.shape)
-            parts.append(arr.reshape(C, n, f.size))
-        return torch.cat(parts, dim=2)
+    def _bind_tables(self) -> dict:
+        S, V, M = self.p.n_servers, self.p.n_values, self.p.msg_slots
+        return {
+            "iota_s": list(range(S)),
+            "ae_i": [ij[0] for ij in self._ae_pairs],
+            "ae_j": [ij[1] for ij in self._ae_pairs],
+            "cr_i": [i for i in range(S) for _ in range(V)],
+            "cr_v": [v for _ in range(S) for v in range(V)],
+            "iota_m": list(range(M)),
+        }
 
     def _pack(self, **vals):
         """Pack a key; a word made of constant fields only comes back as
@@ -361,10 +333,6 @@ class RaftModel(SparseExpandMixin, ActionLabelMixin):
         ll = orow(d["log_len"], i)
         lt = orow(d["log_term"], i)
         return torch.where(ll > 0, orow(lt, torch.clamp(ll - 1, min=0)), 0)
-
-    @staticmethod
-    def _full(C, n, val, dtype, dev):
-        return torch.full((C, n), val, dtype=dtype, device=dev)
 
     # ---------------- action kernels ----------------
     # Each returns (valid [C, n], succ [C, n, W], rank [C, n], ovf [C, n]).
@@ -838,46 +806,11 @@ class RaftModel(SparseExpandMixin, ActionLabelMixin):
         ovf = torch.cat([o[3] for o in outs], dim=1)
         return succs, valid, rank, ovf
 
-    # ---------------- the engine's chunk entry points ----------------
-    # DeviceBFS expands and folds a chunk only through these, so the choice
-    # of kernels stays with the model (as the reference's engine calls
-    # ``model.guards1`` and ``model.sparse_apply``). Each routes by tensor
-    # device: the hand-written kernel for a CUDA tensor, its plain version
-    # for a CPU one (ops/expand.py).
-    chunk_guards = raft_guard
-    chunk_apply = raft_apply
-    chunk_fold = raft_fold
-    # simulate (checker/simulate.py) and liveness (checker/liveness.py)
-    # reach the predicates the same way
-    chunk_predicates = raft_predicates
-    sim_check = raft_sim_check
-
-    def prepare_device(self, device, invariants) -> None:
-        """Fail before a run, not inside it, where the kernels on
-        ``device`` cannot evaluate one of ``invariants``."""
-        if torch.device(device).type == "cuda":
-            self.kernel_spec(device, tuple(invariants))
-
     # ---------------- the kernels' spec ----------------
 
-    def kernel_spec(self, dev, invariants: tuple[str, ...] = ()):
-        """(spec int32 [SPEC_LEN], cand int32 [A, 4], ids int32
-        [len(invariants)]) on ``dev``, built once per device and
-        predicate tuple: everything the hand-written kernels read about
-        this model (field offsets, message-field locations, parameter
-        flags, the candidate table, the kernel ids of the named
-        invariants or liveness predicates). Raises KeyError for a
-        predicate the kernels do not evaluate."""
-        missing = [n for n in invariants if n not in self._pred_ids]
-        if missing:
-            raise KeyError(
-                f"predicate(s) {missing} have no kernel predicate "
-                f"(csrc/raft_actions.cuh evaluates {sorted(self._pred_ids)})")
-        dev = torch.device(dev)
-        key = ("kernel_spec", str(dev), tuple(invariants))
-        hit = self._consts.get(key)
-        if hit is not None:
-            return hit
+    def _spec_vector(self) -> list[int]:
+        """The int32 spec vector of csrc/raft_actions.cuh (SPEC_SCALARS,
+        then (word, shift, mask) of each of MSG_FIELDS)."""
         p, lay = self.p, self.layout
         off = {n: (lay.fields[n].offset if n in lay.fields else -1)
                for n in SPEC_OFFSETS}
@@ -899,16 +832,7 @@ class RaftModel(SparseExpandMixin, ActionLabelMixin):
         for name in MSG_FIELDS:
             spec += list(self.packer.locate(name))
         assert len(spec) == SPEC_LEN
-        cand = []
-        for g in self.sparse_groups():
-            for row in g.params:
-                args = list(row) + [0] * (2 - len(row))
-                cand.append([GROUP_IDS[g.name], *args, GROUP_RANKS[g.name]])
-        hit = tuple(
-            torch.tensor(v, dtype=torch.int32, device=dev)
-            for v in (spec, cand, [self._pred_ids[n] for n in invariants]))
-        self._consts[key] = hit
-        return hit
+        return spec
 
     # ---------------- initial states ----------------
 

@@ -1,8 +1,9 @@
 """Spec registry: maps a TLA+ module name to its lowering builder.
 
 Counterpart of ``raft_tpu/models/registry.py`` for the specs this port
-lowers so far — the three that one ``RaftModel`` serves. Every other spec
-the reference knows raises a "not yet ported" ``CfgError`` (CLI exit 64).
+lowers so far — the three that one ``RaftModel`` serves, and PullRaft and
+PullRaftVariant2 (``PullRaftModel``). Every other spec the reference knows
+raises a "not yet ported" ``CfgError`` (CLI exit 64).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import os
 from dataclasses import dataclass
 
 from ..utils.cfg import Cfg, CfgError
+from .pull_raft import PullRaftModel, PullRaftParams
 from .raft import RaftModel, RaftParams
 
 
@@ -42,10 +44,10 @@ def _require_bool(cfg: Cfg, name: str) -> bool:
     return v
 
 
-def _setup(cfg: Cfg, params: RaftParams, name: str) -> CheckSetup:
+def _setup(cfg: Cfg, params, name: str, model_cls=RaftModel) -> CheckSetup:
     servers = cfg.server_like("Server")
     values = cfg.server_like("Value")
-    model = RaftModel(params, server_names=servers, value_names=values)
+    model = model_cls(params, server_names=servers, value_names=values)
     model.name = name
     unknown = [i for i in cfg.invariants if i not in model.invariants]
     if unknown:
@@ -107,16 +109,43 @@ def build_raft_fsync(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
     return _setup(cfg, params, "RaftFsync")
 
 
+def _build_pull(cfg: Cfg, msg_slots: int | None, variant2: bool) -> CheckSetup:
+    params = PullRaftParams(
+        n_servers=len(cfg.server_like("Server")),
+        n_values=len(cfg.server_like("Value")),
+        max_elections=_require_int(cfg, "MaxElections"),
+        max_restarts=_require_int(cfg, "MaxRestarts"),
+        # pull specs need extra bag headroom: every message type is
+        # send-once, so count-0 records pile up across a behavior
+        msg_slots=msg_slots if msg_slots is not None else 64,
+        variant2=variant2,
+    )
+    return _setup(cfg, params, "PullRaftVariant2" if variant2 else "PullRaft", PullRaftModel)
+
+
+def build_pull_raft(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
+    """pull-raft/PullRaft.tla + PullRaft.cfg (the reference cfg names the
+    undeclared model value `v2`, PullRaft.cfg:9-11: parse it with
+    lenient=True, CLI --lenient, to diagnose and repair)."""
+    return _build_pull(cfg, msg_slots, variant2=False)
+
+
+def build_pull_raft_v2(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
+    """pull-raft/PullRaftVariant2.tla + PullRaftVariant2.cfg (the same cfg
+    bug)."""
+    return _build_pull(cfg, msg_slots, variant2=True)
+
+
 BUILDERS = {
     "Raft": build_raft,
     "FlexibleRaft": build_flexible_raft,
     "RaftFsync": build_raft_fsync,
+    "PullRaft": build_pull_raft,
+    "PullRaftVariant2": build_pull_raft_v2,
 }
 
 # Specs the reference lowers that this port does not yet.
 NOT_YET_PORTED = (
-    "PullRaft",
-    "PullRaftVariant2",
     "KRaft",
     "RaftWithReconfigAddRemove",
     "RaftWithReconfigJointConsensus",

@@ -1,30 +1,37 @@
-"""The guard-first Raft expand and the coverage/invariant fold of a chunk.
+"""The guard-first expand and the coverage/invariant fold of a chunk, for
+every ported spec family.
 
-Five kernels (``csrc/raft_expand.cu``, ``csrc/raft_fold.cu``,
-``csrc/raft_predicates.cu``, with the actions, invariants and liveness
-predicates in ``csrc/raft_actions.cuh``), each with its plain PyTorch
-version beside it:
+Each family's actions, invariants and predicates are device code in its
+``csrc/*_actions.cuh`` (Raft: ``raft_actions.cuh``; PullRaft:
+``pull_actions.cuh``), driven by kernels whose drivers the families
+share (``csrc/expand_driver.cuh``, ``fold_driver.cuh``,
+``predicates_driver.cuh``). A family has five kernels, named after it
+(``raft_*``, ``pull_*``), each with its plain PyTorch version beside it
+here:
 
-  ``raft_guard``  valid/rank/ovf over the [C, A] candidate grid, the
+  ``guard``       valid/rank/ovf over the [C, A] candidate grid, the
                   chunk scalars (n_gen, terminal, expand_ovf) and the
                   enabled/fired coverage — ``guards1`` of
                   ``raft_tpu/models/base.py:332`` as the sparse branch of
                   ``raft_tpu/checker/device_bfs.py:346-376`` uses it, with
                   the coverage of ``:436-452``;
-  ``raft_apply``  successor rows of a compacted worklist —
+  ``apply``       successor rows of a compacted worklist —
                   ``sparse_apply`` of ``raft_tpu/models/base.py:426``;
-  ``raft_fold``   the new-distinct coverage and the first bad journal
+  ``fold``        the new-distinct coverage and the first bad journal
                   index per invariant — ``device_bfs.py:453-460,501-506``;
-  ``raft_predicates``  named predicates over rows (the liveness graph's
-                  ``_eval_kernel``, ``raft_tpu/checker/liveness.py:254``);
-  ``raft_sim_check``  a simulate step's invariant check fused with its
+  ``predicates``  named predicates over rows (the liveness graph's
+                  ``_eval_kernel``, ``raft_tpu/checker/liveness.py:254``,
+                  and simulate's initial check);
+  ``sim_check``   a simulate step's invariant check fused with its
                   settle (``raft_tpu/checker/simulate.py:88-103``), in
-                  ``raft_predicates``' source, with its own launch count.
+                  ``predicates``' source, with its own launch count.
 
-A wrapper runs the plain version for CPU tensors and launches the kernel
-for CUDA tensors (it raises rather than fall back). The kernels read the
-model through ``RaftModel.kernel_spec``; the plain versions through the
-model's ``guards``/``sparse_apply``/``invariants``/``predicates``.
+A wrapper runs the plain version for CPU tensors and launches the model's
+kernel (``model.KERNELS[role]``) for CUDA tensors (it raises rather than
+fall back). The kernels read the model through ``model.kernel_spec``; the
+plain versions through the model's ``guards``/``sparse_apply``/
+``invariants``/``predicates``. ``raft_guard`` and the other ``raft_*``
+names are the same functions (the names the Raft family's callers use).
 """
 
 from __future__ import annotations
@@ -35,11 +42,11 @@ from .. import kernels
 from ..checker.util import I32_MAX
 
 
-# ---------------- raft_guard ----------------
+# ---------------- guard ----------------
 
 
-def raft_guard_plain(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
-    """Plain version of ``raft_guard``: the dense guard grid, masked by
+def guard_plain(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
+    """Plain version of ``guard``: the dense guard grid, masked by
     live (state index < n_live), its chunk scalars and coverage."""
     C = states.shape[0]
     K = len(model.ACTION_NAMES)
@@ -58,7 +65,7 @@ def raft_guard_plain(model, states: torch.Tensor, n_live: int, cov: torch.Tensor
     return valid, rank, ovf, scal
 
 
-def raft_guard(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
+def guard(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
     """Guard pass over the [C, A] grid of a [C, W] int32 state batch:
     returns (valid [C, A] bool — masked by live, the first ``n_live``
     states —, rank [C, A] int32, ovf [C, A] bool, scal int64 [3] =
@@ -66,8 +73,8 @@ def raft_guard(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
     fired counts into ``cov[:, 0]`` and ``cov[:, 1]`` (int64 [K, 3], in
     place). No successor row is built."""
     if kernels.route(states) == "cpu":
-        return raft_guard_plain(model, states, n_live, cov)
-    k = kernels.RAFT_GUARD
+        return guard_plain(model, states, n_live, cov)
+    k = model.KERNELS["guard"]
     C, W = states.shape
     A, K = model.A, len(model.ACTION_NAMES)
     kernels.require(states, torch.int32, "states", shape=(C, model.layout.W))
@@ -78,48 +85,48 @@ def raft_guard(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
     rank = torch.empty((C, A), dtype=torch.int32, device=dev)
     ovf = torch.empty((C, A), dtype=torch.bool, device=dev)
     scal = torch.empty(3, dtype=torch.int64, device=dev)
-    rc = k.lib.raft_guard(states.data_ptr(), C, n_live, spec.data_ptr(), spec.numel(),
-                          cand.data_ptr(), A, W, K, model.p.n_servers, model.p.msg_slots,
-                          valid.data_ptr(), rank.data_ptr(), ovf.data_ptr(), scal.data_ptr(),
-                          cov.data_ptr(), kernels.stream(dev))
+    rc = k.fn(states.data_ptr(), C, n_live, spec.data_ptr(), spec.numel(),
+              cand.data_ptr(), A, W, K, model.p.n_servers, model.p.msg_slots,
+              valid.data_ptr(), rank.data_ptr(), ovf.data_ptr(), scal.data_ptr(),
+              cov.data_ptr(), kernels.stream(dev))
     k.launched(rc)
     return valid, rank, ovf, scal
 
 
-# ---------------- raft_apply ----------------
+# ---------------- apply ----------------
 
 
-def raft_apply_plain(model, states: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``raft_apply``: the model's ``sparse_apply``."""
+def apply_plain(model, states: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``apply``: the model's ``sparse_apply``."""
     return model.sparse_apply(states, sel, sel < states.shape[0] * model.A)
 
 
-def raft_apply(model, states: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+def apply(model, states: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """Successor rows [VC, W] int32 of the worklist ``sel`` (int32 [VC]
     flat candidate ids state * A + candidate; the drop value C * A gives
     a zeros row)."""
     if kernels.route(states) == "cpu":
-        return raft_apply_plain(model, states, sel)
-    k = kernels.RAFT_APPLY
+        return apply_plain(model, states, sel)
+    k = model.KERNELS["apply"]
     C, W = states.shape
     kernels.require(states, torch.int32, "states", shape=(C, model.layout.W))
     kernels.require(sel, torch.int32, "sel", ndim=1)
     spec, cand, _ = model.kernel_spec(states.device)
     VC = sel.numel()
     flatc = torch.empty((VC, W), dtype=torch.int32, device=states.device)
-    rc = k.lib.raft_apply(states.data_ptr(), C, sel.data_ptr(), VC, spec.data_ptr(),
-                          spec.numel(), cand.data_ptr(), W, flatc.data_ptr(),
-                          kernels.stream(states.device))
+    rc = k.fn(states.data_ptr(), C, sel.data_ptr(), VC, spec.data_ptr(),
+              spec.numel(), cand.data_ptr(), W, flatc.data_ptr(),
+              kernels.stream(states.device))
     k.launched(rc)
     return flatc
 
 
-# ---------------- raft_fold ----------------
+# ---------------- fold ----------------
 
 
-def raft_fold_plain(model, flatc, new, jcount, viol, invariants, cov=None, sel=None,
-                    valid=None, rank=None) -> None:
-    """Plain version of ``raft_fold`` (the reference's formulas)."""
+def fold_plain(model, flatc, new, jcount, viol, invariants, cov=None, sel=None,
+               valid=None, rank=None) -> None:
+    """Plain version of ``fold`` (the reference's formulas)."""
     if cov is not None:
         K = cov.shape[0]
         n_flat = rank.numel()
@@ -137,8 +144,8 @@ def raft_fold_plain(model, flatc, new, jcount, viol, invariants, cov=None, sel=N
             viol[k] = torch.minimum(viol[k], torch.where(bad, jidx, I32_MAX).min())
 
 
-def raft_fold(model, flatc, new, jcount, viol, invariants, cov=None, sel=None, valid=None,
-              rank=None) -> None:
+def fold(model, flatc, new, jcount, viol, invariants, cov=None, sel=None, valid=None,
+         rank=None) -> None:
     """Fold one worklist into the run's accumulators, in place.
 
     flatc [VC, W] int32 rows, new [VC] bool (the lanes that are new
@@ -150,9 +157,9 @@ def raft_fold(model, flatc, new, jcount, viol, invariants, cov=None, sel=None, v
     new lane j whose candidate is a valid lane (sel [VC] int32 into the
     flattened valid [C, A] bool / rank [C, A] int32)."""
     if kernels.route(flatc) == "cpu":
-        return raft_fold_plain(model, flatc, new, jcount, viol, invariants, cov, sel,
-                               valid, rank)
-    k = kernels.RAFT_FOLD
+        return fold_plain(model, flatc, new, jcount, viol, invariants, cov, sel, valid,
+                          rank)
+    k = model.KERNELS["fold"]
     dev = flatc.device
     kernels.require(flatc, torch.int32, "flatc", ndim=2)
     kernels.require(new, torch.bool, "new", shape=(flatc.shape[0],))
@@ -173,18 +180,18 @@ def raft_fold(model, flatc, new, jcount, viol, invariants, cov=None, sel=None, v
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    rc = k.lib.raft_fold(flatc.data_ptr(), flatc.shape[0], new.data_ptr(), ptr(sel),
-                         ptr(valid), ptr(rank), n_flat, spec.data_ptr(), spec.numel(),
-                         inv.data_ptr(), len(invariants), first_bad.data_ptr(),
-                         jcount.data_ptr(), viol.data_ptr(), ptr(cov), kernels.stream(dev))
+    rc = k.fn(flatc.data_ptr(), flatc.shape[0], new.data_ptr(), ptr(sel),
+              ptr(valid), ptr(rank), n_flat, spec.data_ptr(), spec.numel(),
+              inv.data_ptr(), len(invariants), first_bad.data_ptr(),
+              jcount.data_ptr(), viol.data_ptr(), ptr(cov), kernels.stream(dev))
     k.launched(rc)
 
 
-# ---------------- raft_predicates ----------------
+# ---------------- predicates ----------------
 
 
-def raft_predicates_plain(model, rows: torch.Tensor, names) -> torch.Tensor:
-    """Plain version of ``raft_predicates``: the model's invariant or
+def predicates_plain(model, rows: torch.Tensor, names) -> torch.Tensor:
+    """Plain version of ``predicates``: the model's invariant or
     predicate functions, 65,536 rows at a time."""
     fns = [model.invariants.get(n) or model.predicates[n] for n in names]
     out = torch.empty((len(names), rows.shape[0]), dtype=torch.bool, device=rows.device)
@@ -195,35 +202,35 @@ def raft_predicates_plain(model, rows: torch.Tensor, names) -> torch.Tensor:
     return out
 
 
-def raft_predicates(model, rows: torch.Tensor, names) -> torch.Tensor:
+def predicates(model, rows: torch.Tensor, names) -> torch.Tensor:
     """bool [P, N]: predicate ``names[p]`` (an invariant of
     ``model.invariants`` or a liveness predicate of ``model.predicates``)
     on each int32 [N, W] row — the batched predicate calls of
     ``raft_tpu/checker/liveness.py:254``."""
     names = tuple(names)
     if kernels.route(rows) == "cpu":
-        return raft_predicates_plain(model, rows, names)
-    k = kernels.RAFT_PREDICATES
+        return predicates_plain(model, rows, names)
+    k = model.KERNELS["predicates"]
     kernels.require(rows, torch.int32, "rows", ndim=2)
     if rows.shape[1] != model.layout.W:
         raise ValueError(f"rows must be [N, {model.layout.W}], got {tuple(rows.shape)}")
     spec, _, ids = model.kernel_spec(rows.device, names)
     out = torch.empty((len(names), rows.shape[0]), dtype=torch.bool, device=rows.device)
-    rc = k.lib.raft_predicates(rows.data_ptr(), rows.shape[0], spec.data_ptr(), spec.numel(),
-                               ids.data_ptr(), len(names), out.data_ptr(),
-                               kernels.stream(rows.device))
+    rc = k.fn(rows.data_ptr(), rows.shape[0], spec.data_ptr(), spec.numel(),
+              ids.data_ptr(), len(names), out.data_ptr(),
+              kernels.stream(rows.device))
     k.launched(rc)
     return out
 
 
-# ---------------- raft_sim_check (simulate's check and settle) ----------------
+# ---------------- sim_check (simulate's check and settle) ----------------
 
 NO_WALK = 0x7F7F7F7F7F7F7F7F  # stats[3] when no walk broke an invariant
 
 
-def raft_sim_check_plain(model, states, nxt, moved, chosen, ridx, init_pool, depth,
-                         max_depth: int, journal, jlen, invariants, stats):
-    """Plain version of ``raft_sim_check`` (``raft_tpu/checker/simulate.py:
+def sim_check_plain(model, states, nxt, moved, chosen, ridx, init_pool, depth,
+                    max_depth: int, journal, jlen, invariants, stats):
+    """Plain version of ``sim_check`` (``raft_tpu/checker/simulate.py:
     88-103`` and the journal bookkeeping of :169-185)."""
     R = states.shape[0]
     inv_bad = torch.full((R,), -1, dtype=torch.int32, device=states.device)
@@ -248,9 +255,9 @@ def raft_sim_check_plain(model, states, nxt, moved, chosen, ridx, init_pool, dep
     return inv_bad, done
 
 
-def raft_sim_check(model, states, nxt, moved, chosen, ridx, init_pool, depth, max_depth: int,
-                   journal, jlen, invariants, stats):
-    """One simulate step's check and settle, after ``raft_apply`` wrote the
+def sim_check(model, states, nxt, moved, chosen, ridx, init_pool, depth, max_depth: int,
+              journal, jlen, invariants, stats):
+    """One simulate step's check and settle, after ``apply`` wrote the
     moved walks' successors into ``nxt`` [R, W] (zeros where a walk did
     not move). Returns (inv_bad int32 [R]: the first of ``invariants``
     that the walk's new row breaks, -1 if none or not moved; done bool
@@ -262,9 +269,9 @@ def raft_sim_check(model, states, nxt, moved, chosen, ridx, init_pool, depth, ma
     (the lowest walk with inv_bad >= 0, ``NO_WALK`` when none)."""
     invariants = tuple(invariants)
     if kernels.route(states) == "cpu":
-        return raft_sim_check_plain(model, states, nxt, moved, chosen, ridx, init_pool, depth,
-                                    max_depth, journal, jlen, invariants, stats)
-    k = kernels.RAFT_SIM_CHECK
+        return sim_check_plain(model, states, nxt, moved, chosen, ridx, init_pool, depth,
+                               max_depth, journal, jlen, invariants, stats)
+    k = model.KERNELS["sim_check"]
     R, W = states.shape
     kernels.require(states, torch.int32, "states", shape=(R, model.layout.W))
     kernels.require(nxt, torch.int32, "nxt", shape=(R, W))
@@ -277,7 +284,7 @@ def raft_sim_check(model, states, nxt, moved, chosen, ridx, init_pool, depth, ma
     spec, _, inv = model.kernel_spec(states.device, invariants)
     inv_bad = torch.empty(R, dtype=torch.int32, device=states.device)
     done = torch.empty(R, dtype=torch.bool, device=states.device)
-    rc = k.lib.raft_sim_check(
+    rc = k.fn(
         states.data_ptr(), nxt.data_ptr(), R, moved.data_ptr(), chosen.data_ptr(),
         ridx.data_ptr(), init_pool.data_ptr(), depth.data_ptr(), max_depth, journal.data_ptr(),
         journal.shape[1], jlen.data_ptr(), spec.data_ptr(), spec.numel(), inv.data_ptr(),
@@ -285,3 +292,11 @@ def raft_sim_check(model, states, nxt, moved, chosen, ridx, init_pool, depth, ma
         kernels.stream(states.device))
     k.launched(rc)
     return inv_bad, done
+
+
+# the Raft family's names for the same functions
+raft_guard, raft_guard_plain = guard, guard_plain
+raft_apply, raft_apply_plain = apply, apply_plain
+raft_fold, raft_fold_plain = fold, fold_plain
+raft_predicates, raft_predicates_plain = predicates, predicates_plain
+raft_sim_check, raft_sim_check_plain = sim_check, sim_check_plain

@@ -47,6 +47,8 @@ def _fmt_msg(setup, rec) -> str:
     for k, v in rec:
         if k in ("msource", "mdest"):
             v = _srv(setup, v)
+        elif k == "mlastCommonEntry" and v is not None:  # PullRaft (index, term)
+            v = f"[index |-> {v[0]}, term |-> {v[1]}]"
         elif k == "mentries" and all(
             isinstance(e, tuple) and len(e) == 2 for e in v
         ):
@@ -85,11 +87,26 @@ def format_state(setup, st: dict) -> str:
                 for i in range(S)
             ),
         )
-    if "votedFor" in st:
+    for name in ("votedFor", "leader"):  # a server or Nil per server
+        if name in st:
+            put(
+                name,
+                _fmt_fun(
+                    (sv(i), "Nil" if st[name][i] is None else sv(st[name][i]))
+                    for i in range(S)
+                ),
+            )
+    if "votesLastEntry" in st:  # PullRaftVariant2: an entry or Nil per voter
         put(
-            "votedFor",
+            "votesLastEntry",
             _fmt_fun(
-                (sv(i), "Nil" if st["votedFor"][i] is None else sv(st["votedFor"][i]))
+                (
+                    sv(i),
+                    _fmt_fun(
+                        (sv(j), "Nil" if e is None else f"[index |-> {e[0]}, term |-> {e[1]}]")
+                        for j, e in enumerate(st["votesLastEntry"][i])
+                    ),
+                )
                 for i in range(S)
             ),
         )

@@ -20,6 +20,10 @@ from raft_tpu_torch.checker.util import (
     dense_prefix_sel, probe_runs, probe_runs_plain,
 )
 from raft_tpu_torch.models.raft import R_ACCEPT_AE, R_CLIENTREQUEST, RaftModel, RaftParams
+from raft_tpu_torch.models.pull_raft import (
+    R_BECOMELEADER as R_PULL_BECOMELEADER, R_CLIENTREQUEST as R_PULL_CLIENTREQUEST,
+    R_REQUESTVOTE as R_PULL_REQUESTVOTE, PullRaftModel, PullRaftParams,
+)
 from raft_tpu_torch.ops.expand import (
     raft_apply, raft_apply_plain, raft_fold, raft_fold_plain, raft_guard, raft_guard_plain,
 )
@@ -265,6 +269,65 @@ def edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
                               rng.integers(0, 3, len(keys))]
         r[hs], r[ls], r[cs] = bag
     return np.ascontiguousarray(np.concatenate([st, pert, full, maxlog, scr]).astype(np.int32))
+
+
+def pull_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
+    """``edge_rows`` of a pull-family model's reachable states ``st``, and
+    three more cases: scrambled rows whose bags hold random records of all
+    five message types (LeaderNotify included), their fields over their
+    whole bit width, counts 0 to 2; the same rows with every log at
+    max_log (so an accepted success response overflows it); and chain
+    rows, where every server is
+    a follower or a candidate holding a majority of votes with an election
+    left, and the bag is full or one or two slots short of full (keys
+    sorted below the real ones), so the S - 1 puts of RequestVote and
+    BecomeLeader overflow partway."""
+    rng = np.random.default_rng(seed)
+    lay, p = model.layout, model.p
+    S, L, V, M = p.n_servers, p.max_log, p.n_values, p.msg_slots
+    hs, ls, cs = lay.sl("msg_hi"), lay.sl("msg_lo"), lay.sl("msg_cnt")
+    scr = st[:64].copy()
+    for r in scr:
+        r[lay.sl("state")] = rng.integers(0, 3, S)
+        r[lay.sl("currentTerm")] = rng.integers(1, 3, S)
+        r[lay.sl("leader")] = rng.integers(0, S + 1, S)
+        r[lay.sl("log_len")] = rng.integers(0, L + 1, S)
+        r[lay.sl("log_term")] = rng.integers(1, 3, S * L)
+        r[lay.sl("log_value")] = rng.integers(0, V + 1, S * L)
+        r[lay.sl("commitIndex")] = rng.integers(0, L + 1, S)
+        r[lay.sl("matchIndex")] = rng.integers(0, L + 1, S * S)
+        r[lay.sl("acked")] = rng.integers(0, 3, V)
+        keys = set()
+        for _ in range(int(rng.integers(1, M // 2))):
+            vals = {f: int(rng.integers(0, 1 << bits))
+                    for f, (_, bits) in model.packer.fields.items()}
+            keys.add(model.packer.pack(**{**vals, "mtype": int(rng.integers(1, 6))}))
+        keys = sorted(keys)
+        bag = np.full((3, M), EMPTY)
+        bag[2] = 0
+        bag[:, :len(keys)] = [[k[0] for k in keys], [k[1] for k in keys],
+                              rng.integers(0, 3, len(keys))]
+        r[hs], r[ls], r[cs] = bag
+    chain = st[:64].copy()
+    for r in chain:
+        roles = rng.integers(0, 2, S)  # followers and candidates
+        r[lay.sl("state")] = roles
+        r[lay.sl("votesGranted")] = [(1 << i) | (1 << (i + 1) % S) for i in range(S)]
+        r[lay.fields["electionCtr"].offset] = 0
+        keys = set(zip(r[hs].tolist(), r[ls].tolist())) - {(EMPTY, EMPTY)}
+        free = int(rng.integers(0, 3))
+        while len(keys) < M - free:
+            keys.add((0, int(rng.integers(0, 1 << 20))))
+        keys = sorted(keys)[: M - free]
+        bag = np.full((3, M), EMPTY)
+        bag[2] = 0
+        bag[:, :len(keys)] = [[k[0] for k in keys], [k[1] for k in keys],
+                              rng.integers(0, 3, len(keys))]
+        r[hs], r[ls], r[cs] = bag
+    full_logs = scr.copy()
+    full_logs[:, lay.sl("log_len")] = L
+    return np.ascontiguousarray(
+        np.concatenate([edge_rows(model, st, seed), scr, full_logs, chain]).astype(np.int32))
 
 
 def _edge_states(model, dev, seed):
@@ -518,3 +581,179 @@ def test_simulate_and_liveness_card_equal_cpu(dev):
         assert np.array_equal(getattr(cs[0], a), getattr(cs[1], a))
     assert torch.equal(cs[0]._states.cpu(), cs[1]._states)
     assert rs[0].violation is None and kernels.HASH_ROWS.launches > before
+
+
+# ---------------- the pull family (PullRaft, PullRaftVariant2) ----------------
+
+PULL_VARIANTS = {
+    "pull": PullRaftParams(n_servers=3, n_values=1, max_elections=2, max_restarts=0,
+                           msg_slots=24),
+    "pull2": PullRaftParams(n_servers=3, n_values=2, max_elections=2, max_restarts=1,
+                            msg_slots=24, variant2=True),
+}
+
+
+def _pull_edge_states(model, dev, seed):
+    """``pull_edge_rows`` of reachable states (the frontiers of depths 3 to
+    8 of the port's BFS on the card), on the card."""
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+
+    parts = []
+    for depth in range(3, 9):
+        bfs = DeviceBFS(model, chunk=256, frontier_cap=4096, max_seen_cap=1 << 20,
+                        canon_memo_cap=1 << 12, device=dev)
+        bfs.run(max_depth=depth)
+        parts.append(bfs.frontier_rows.cpu().numpy())
+    return torch.from_numpy(pull_edge_rows(model, np.concatenate(parts)[:400], seed)).to(dev)
+
+
+@pytest.mark.parametrize("name", list(PULL_VARIANTS))
+def test_pull_guard_apply_fold(dev, name):
+    """pull_guard, pull_apply and pull_fold against their plain versions
+    on reachable and edge rows: a dead chunk tail, every valid lane then
+    drop lanes, lanes of disabled candidates, and the fold with coverage."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.ops.expand import apply, apply_plain, fold, fold_plain, guard, guard_plain
+
+    model = PullRaftModel(PULL_VARIANTS[name])
+    states = _pull_edge_states(model, dev, seed=len(name))
+    C, A = states.shape[0], model.A
+    K = len(model.ACTION_NAMES)
+    n_live = C - 7
+    cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
+    cov_p = cov_k.clone()
+    before = {k.name: k.launches for k in kernels.ALL}
+    gk = guard(model, states, n_live, cov_k)
+    gp = guard_plain(model, states, n_live, cov_p)
+    for a, b in zip(gk, gp):
+        assert torch.equal(a, b)
+    assert torch.equal(cov_k, cov_p)
+    valid, rank, ovf, _ = gk
+    # the edge rows overflow: a RequestVote and a BecomeLeader chain on a
+    # nearly full bag, and a ClientRequest at max_log
+    for r in (R_PULL_REQUESTVOTE, R_PULL_BECOMELEADER, R_PULL_CLIENTREQUEST):
+        assert bool((valid & ovf & (rank == r)).any()), r
+    assert not valid[n_live:].any()
+    sel, n = compact_indices(valid.reshape(-1), int(valid.sum()) + 300, C * A)
+    other = torch.randint(0, C * A, (500,), device=dev, dtype=torch.int32)
+    for s in (sel, other, sel[:0]):
+        s = s.contiguous()
+        fk, fp = apply(model, states, s), apply_plain(model, states, s)
+        assert fk.shape == (s.numel(), model.layout.W) and torch.equal(fk, fp)
+    flatc = apply(model, states, sel)
+    new = (torch.rand(sel.numel(), device=dev) < 0.7) & (sel < C * A)
+    jcount = torch.tensor([777], dtype=torch.int64, device=dev)
+    invs = tuple(model.invariants)
+    vk = torch.full((len(invs),), 2**31 - 1, dtype=torch.int64, device=dev)
+    vp, ck, cp = vk.clone(), cov_k.clone(), cov_k.clone()
+    fold(model, flatc, new, jcount, vk, invs, cov=ck, sel=sel, valid=valid, rank=rank)
+    fold_plain(model, flatc, new, jcount, vp, invs, cov=cp, sel=sel, valid=valid, rank=rank)
+    assert torch.equal(vk, vp) and torch.equal(ck, cp)
+    # the pull kernels ran, and no Raft kernel
+    after = {k.name: k.launches for k in kernels.ALL}
+    for k in ("pull_guard", "pull_apply", "pull_fold"):
+        assert after[k] > before[k], k
+    for k in ("raft_guard", "raft_apply", "raft_fold"):
+        assert after[k] == before[k], k
+
+
+def test_pull_fold_finds_first_bad_lane(dev):
+    from raft_tpu_torch.ops.expand import fold, fold_plain
+
+    model = PullRaftModel(PULL_VARIANTS["pull"])
+    states = _pull_edge_states(model, dev, seed=5)
+    # lane 301: a leader with a current term whose log lacks an acked value
+    lay = model.layout
+    bad = states[0].clone()
+    bad[lay.sl("state")] = torch.tensor([2, 0, 0], dtype=torch.int32)
+    bad[lay.sl("currentTerm")] = 2
+    bad[lay.sl("log_value")] = 0
+    bad[lay.sl("acked")] = 2
+    states[301] = bad
+    invs = tuple(model.invariants)
+    new = torch.ones(states.shape[0], dtype=torch.bool, device=dev)
+    new[::3] = False
+    jcount = torch.tensor([10], dtype=torch.int64, device=dev)
+    vk = torch.full((len(invs),), 2**31 - 1, dtype=torch.int64, device=dev)
+    vp = vk.clone()
+    fold(model, states, new, jcount, vk, invs)
+    fold_plain(model, states, new, jcount, vp, invs)
+    assert torch.equal(vk, vp)
+    k = invs.index("LeaderHasAllAckedValues")
+    assert int(vk[k]) <= 10 + int(new[:301].sum())
+
+
+@pytest.mark.parametrize("name", list(PULL_VARIANTS))
+def test_pull_predicates_and_sim_check(dev, name):
+    """pull_predicates on edge rows (every invariant), and pull_sim_check's
+    check and settle as test_raft_sim_check holds raft_sim_check."""
+    from raft_tpu_torch.ops.expand import (
+        predicates, predicates_plain, sim_check, sim_check_plain,
+    )
+
+    model = PullRaftModel(PULL_VARIANTS[name])
+    states = _pull_edge_states(model, dev, seed=9)
+    names = tuple(model.invariants)
+    for rows in (states, states[:0], states[:1]):
+        rows = rows.contiguous()
+        assert torch.equal(predicates(model, rows, names), predicates_plain(model, rows, names))
+    R = states.shape[0]
+    gen = torch.Generator().manual_seed(1)
+    nxt = states[torch.randperm(R, generator=gen).to(dev)].contiguous()
+    moved = (torch.rand(R, generator=gen) < 0.8).to(dev)
+    nxt[~moved] = 0
+    chosen = torch.randint(0, model.A, (R,), generator=gen, dtype=torch.int32).to(dev)
+    init_pool = states[:3].contiguous()
+    ridx = torch.randint(0, 3, (R,), generator=gen, dtype=torch.int32).to(dev)
+    max_depth = 6
+    depth = torch.randint(0, max_depth, (R,), generator=gen, dtype=torch.int32).to(dev)
+    J = max_depth + 1
+    journal = torch.randint(0, 99, (R, J), generator=gen, dtype=torch.int32).to(dev)
+    jlen = (depth + 1).contiguous()
+    jlen[::11] = J
+    for invs in (INV, names, ()):
+        outs = []
+        for fn in (sim_check, sim_check_plain):
+            args = [t.clone() for t in (nxt, depth, journal, jlen)]
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            res = fn(model, states, args[0], moved, chosen, ridx, init_pool, args[1],
+                     max_depth, args[2], args[3], invs, stats)
+            outs.append(list(res) + args + [stats[2:]])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+
+
+def test_pull_bfs_simulate_and_replay_card_equal_cpu(dev):
+    """PullRaft by BFS (counts, depth counts, coverage), its deepest
+    journal state's trace replayed through one-lane guard/apply launches,
+    and Variant2 by simulation (walks, final states, journals): the card
+    equals the CPU, through the pull kernels."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.checker.bfs import Violation
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+    from raft_tpu_torch.checker.simulate import Simulator
+
+    caps = dict(chunk=256, frontier_cap=1 << 13, journal_cap=1 << 15, max_seen_cap=1 << 20,
+                canon_memo_cap=1 << 12)
+    kernels.reset_counts()
+    runs = [DeviceBFS(PullRaftModel(PULL_VARIANTS["pull"]), invariants=INV, device=d, **caps)
+            for d in (dev, "cpu")]
+    rs = [b.run(max_depth=12) for b in runs]
+    assert (rs[0].distinct, rs[0].total, rs[0].depth_counts, rs[0].coverage) == (
+        rs[1].distinct, rs[1].total, rs[1].depth_counts, rs[1].coverage)
+    deepest = Violation(invariant="deepest journal state", global_id=rs[0].distinct - 1,
+                        depth=rs[0].depth)
+    trace = runs[0].reconstruct_trace(deepest)
+    assert len(trace) == rs[0].depth + 1 and trace == runs[1].reconstruct_trace(deepest)
+    sims = [Simulator(PullRaftModel(PULL_VARIANTS["pull2"]), invariants=INV, walks=64,
+                      max_behavior_depth=30, seed=3, device=d) for d in (dev, "cpu")]
+    ss = [s.run(max_steps=64 * 40) for s in sims]
+    assert (ss[0].behaviors, ss[0].steps, ss[0].violation) == (ss[1].behaviors, ss[1].steps,
+                                                               ss[1].violation)
+    for a in ("states", "depth", "journal", "jlen"):
+        assert torch.equal(getattr(sims[0], a).cpu(), getattr(sims[1], a))
+    counts = kernels.launch_counts()
+    for k in ("pull_guard", "pull_apply", "pull_fold", "pull_predicates", "pull_sim_check"):
+        assert counts[k] > 0, k
+    for k in ("raft_guard", "raft_apply", "raft_fold", "raft_predicates", "raft_sim_check"):
+        assert counts[k] == 0, k

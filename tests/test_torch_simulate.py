@@ -1,6 +1,6 @@
 """Simulation mode of the port (raft_tpu_torch.checker.simulate) against
 the JAX package's Simulator on the CPU: the same walks step for step for
-the same seed (states, depth, chosen candidate, done, restart index,
+the same seed (Raft, and the pull family's PullRaftVariant2) (states, depth, chosen candidate, done, restart index,
 invariant verdicts, journals), the same behaviors and steps, the same
 violation and trace, and the CLI's ``--simulate`` exit codes."""
 
@@ -13,11 +13,13 @@ import pytest
 import torch
 
 from raft_tpu.checker.simulate import Simulator as JaxSimulator
+from raft_tpu.models import pull_raft as jax_pull
 from raft_tpu.models.raft import RaftParams, cached_model
 from raft_tpu.models.registry import build_from_cfg as jax_build
 from raft_tpu.utils.cfg import parse_cfg as jax_parse
 from raft_tpu_torch.checker.simulate import Simulator, sim_pick_plain
 from raft_tpu_torch.convert import params_from_reference
+from raft_tpu_torch.models.pull_raft import PullRaftModel
 from raft_tpu_torch.models.raft import RaftModel
 from raft_tpu_torch.models.registry import build_from_cfg
 from raft_tpu_torch.ops import prng
@@ -31,6 +33,14 @@ torch.set_num_threads(1)
 
 # tests/test_simulate.py's configuration
 PARAMS = RaftParams(n_servers=3, n_values=1, max_elections=2, max_restarts=0, msg_slots=32)
+# the step test's families: (reference model, port model class); the pull
+# family's is tests/test_pull_raft.py's Variant2 with two values and a restart
+FAMILIES = {
+    "raft": (lambda: cached_model(PARAMS), RaftModel),
+    "pull": (lambda: jax_pull.cached_model(jax_pull.PullRaftParams(
+        n_servers=3, n_values=2, max_elections=2, max_restarts=1, msg_slots=48,
+        variant2=True)), PullRaftModel),
+}
 INVS = ("LeaderHasAllAckedValues", "NoLogDivergence")
 WALKS, DEPTH, SEED, BEHAVIORS = 16, 12, 7, 32
 # FlexibleRaft with quorums that need not intersect (3 servers, 2 + 1):
@@ -42,12 +52,14 @@ def _key(k) -> tuple[int, int]:
     return tuple(int(w) for w in np.asarray(k).tolist())
 
 
-def test_steps_equal_reference():
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_steps_equal_reference(family):
     """Drive the reference's jitted step and the port's step side by side
     with the reference's key sequence (``Simulator.run``'s): every
     per-walk output and the port's on-device journals must agree."""
-    jm = cached_model(PARAMS)
-    tm = RaftModel(params_from_reference(dataclasses.asdict(PARAMS)))
+    make_ref, model_cls = FAMILIES[family]
+    jm = make_ref()
+    tm = model_cls(params_from_reference(dataclasses.asdict(jm.p)))
     js = JaxSimulator(jm, invariants=INVS, walks=WALKS, max_behavior_depth=DEPTH, seed=SEED)
     ts = Simulator(tm, invariants=INVS, walks=WALKS, max_behavior_depth=DEPTH, seed=SEED,
                    device="cpu")
