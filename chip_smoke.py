@@ -805,33 +805,21 @@ def pull_edge_pool(model, pool, rng) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([full, maxlog, zero]))
 
 
-def step_rows(torch, model, batch, rng, timed: bool) -> dict:
-    """The family's sim_check and predicates kernels against their plain
-    versions on a simulate step over the CHUNK walks ``batch``: the guard,
-    sim_pick and the apply, then the check and settle of the moved walks
-    (random depths below SIM_DEPTH, random journals, some full), and every
-    invariant over the walks' rows; with ``timed`` the times and the bounds.
-    Returns {kernel: row}."""
-    from raft_tpu_torch.checker.simulate import sim_pick
-    from raft_tpu_torch.ops.expand import (
-        apply, guard, predicates, predicates_plain, sim_check, sim_check_plain,
-    )
+def settle_rows(torch, model, states, nxt, pick, init_pool, depth, journal, jlen, invs,
+                timed: bool, what: str) -> dict:
+    """The family's sim_check against its plain version on one simulate
+    move from the walks ``states`` (``pick`` is sim_pick's (chosen, moved,
+    sel, ridx), ``nxt`` the apply's rows; the settle updates ``depth``,
+    ``journal`` and ``jlen``, so each call starts from copies), and its
+    predicates kernel over the walks' rows for every registered invariant,
+    each exactly; with ``timed`` the times and the bounds. Returns
+    {kernel: row}."""
+    from raft_tpu_torch.ops.expand import predicates, predicates_plain, sim_check, sim_check_plain
 
-    fam, dev = family_of(model), batch.device
-    R, W = batch.shape
-    invs = ("LeaderHasAllAckedValues", "NoLogDivergence")
-    cov = torch.zeros((len(model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
-    valid, _rank, ovf, _ = guard(model, batch, R, cov)
+    fam, dev = family_of(model), states.device
+    R, W = states.shape
+    chosen, moved, _sel, ridx = pick
     stats = torch.zeros(4, dtype=torch.int64, device=dev)
-    chosen, moved, sel, ridx = sim_pick(valid, ovf, (12345, 678), 1, stats)
-    nxt = apply(model, batch, sel)
-    init_pool = torch.from_numpy(model.init_states()).to(dev)
-    gen = torch.Generator().manual_seed(int(rng.integers(0, 1 << 30)))
-    depth = torch.randint(0, SIM_DEPTH, (R,), generator=gen, dtype=torch.int32).to(dev)
-    J = SIM_DEPTH + 1
-    journal = torch.randint(0, model.A, (R, J), generator=gen, dtype=torch.int32).to(dev)
-    jlen = (depth + 1).contiguous()
-    jlen[::13] = J
     base = (nxt, depth, journal, jlen)
     work = [t.clone() for t in base]
 
@@ -839,23 +827,29 @@ def step_rows(torch, model, batch, rng, timed: bool) -> dict:
         for w, t in zip(work, base):
             w.copy_(t)
 
+    def settle_work(fn):
+        return fn(model, states, work[0], moved, chosen, ridx, init_pool, work[1], SIM_DEPTH,
+                  work[2], work[3], invs, stats)
+
     def settle(fn):
         reset()
-        out = fn(model, batch, work[0], moved, chosen, ridx, init_pool, work[1], SIM_DEPTH,
-                 work[2], work[3], invs, stats)
+        out = settle_work(fn)
         return [t.clone() for t in list(out) + work] + [stats[2:].clone()]
 
     err_check = max(exact(torch, a, b) for a, b in zip(settle(sim_check),
                                                        settle(sim_check_plain)))
-    check(err_check == 0.0, f"{fam}_sim_check differs from its plain version")
+    check(err_check == 0.0, f"{fam}_sim_check differs from its plain version ({what})")
     names = tuple(model.invariants)
-    err_pred = exact(torch, predicates(model, batch, names), predicates_plain(model, batch, names))
-    check(err_pred == 0.0, f"{fam}_predicates differs from its plain version")
+    err_pred = exact(torch, predicates(model, states, names),
+                     predicates_plain(model, states, names))
+    check(err_pred == 0.0, f"{fam}_predicates differs from its plain version ({what})")
     n_moved = int(moved.sum())
-    print(f"[3] {model.name}: {fam}_sim_check exact on a step of {R} walks ({n_moved} moved); "
+    print(f"[3] {model.name}: {fam}_sim_check exact on {what} of {R} walks ({n_moved} moved); "
           f"{fam}_predicates exact on them ({len(names)} invariants)")
     if not timed:
         return {}
+    # bounds as raft_sim_check's (sim_rows); the predicates read each
+    # walk's invariant fields and write a flag per invariant
     done = settle(sim_check)[1]
     copied = int((done | ~moved).sum())
     check_bytes = (4 * n_moved * field_lanes(model, INVARIANT_FIELDS) + R * (1 + 4 * 5)
@@ -863,16 +857,13 @@ def step_rows(torch, model, batch, rng, timed: bool) -> dict:
     pred_bytes = 4 * R * field_lanes(model, INVARIANT_FIELDS) + R * len(invs)
     rows = {
         f"{fam}_sim_check": dict(
-            ms=time_ms(torch, lambda: sim_check(model, batch, work[0], moved, chosen, ridx,
-                                                init_pool, work[1], SIM_DEPTH, work[2], work[3],
-                                                invs, stats), iters=20, setup=reset),
-            plain_ms=time_ms(torch, lambda: sim_check_plain(
-                model, batch, work[0], moved, chosen, ridx, init_pool, work[1], SIM_DEPTH,
-                work[2], work[3], invs, stats), iters=5, setup=reset),
+            ms=time_ms(torch, lambda: settle_work(sim_check), iters=20, setup=reset),
+            plain_ms=time_ms(torch, lambda: settle_work(sim_check_plain), iters=5,
+                             setup=reset),
             max_abs_err=err_check, walks=R),
         f"{fam}_predicates": dict(
-            ms=time_ms(torch, lambda: predicates(model, batch, invs), iters=50),
-            plain_ms=time_ms(torch, lambda: predicates_plain(model, batch, invs), iters=10),
+            ms=time_ms(torch, lambda: predicates(model, states, invs), iters=50),
+            plain_ms=time_ms(torch, lambda: predicates_plain(model, states, invs), iters=10),
             max_abs_err=err_pred, rows=R),
     }
     for k, b in ((f"{fam}_sim_check", check_bytes), (f"{fam}_predicates", pred_bytes)):
@@ -881,13 +872,65 @@ def step_rows(torch, model, batch, rng, timed: bool) -> dict:
     return rows
 
 
+def step_rows(torch, model, batch, rng):
+    """settle_rows on a simulate move over the walks ``batch`` (sampled
+    frontier or edge rows): the guard, sim_pick and the apply, then the
+    check and settle of the moved walks at random depths below SIM_DEPTH
+    with random journals, some full."""
+    from raft_tpu_torch.checker.simulate import sim_pick
+    from raft_tpu_torch.ops.expand import apply, guard
+
+    dev = batch.device
+    R = batch.shape[0]
+    cov = torch.zeros((len(model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
+    valid, _rank, ovf, _ = guard(model, batch, R, cov)
+    stats = torch.zeros(4, dtype=torch.int64, device=dev)
+    pick = sim_pick(valid, ovf, (12345, 678), 1, stats)
+    nxt = apply(model, batch, pick[2])
+    init_pool = torch.from_numpy(model.init_states()).to(dev)
+    gen = torch.Generator().manual_seed(int(rng.integers(0, 1 << 30)))
+    depth = torch.randint(0, SIM_DEPTH, (R,), generator=gen, dtype=torch.int32).to(dev)
+    J = SIM_DEPTH + 1
+    journal = torch.randint(0, model.A, (R, J), generator=gen, dtype=torch.int32).to(dev)
+    jlen = (depth + 1).contiguous()
+    jlen[::13] = J
+    settle_rows(torch, model, batch, nxt, pick, init_pool, depth, journal, jlen,
+                ("LeaderHasAllAckedValues", "NoLogDivergence"), False, "a sampled move")
+
+
+def pull_sim_rows(torch) -> dict:
+    """pull_sim_check and pull_predicates at the shape the pull simulate
+    runs them: one move of a PullRaft Simulator of SIM_WALKS walks ten moves
+    from Init (seed 1) with the cfg's invariants, checked exactly and timed
+    (settle_rows). Returns {kernel: row}."""
+    from raft_tpu_torch.__main__ import load_setup
+    from raft_tpu_torch.checker.simulate import Simulator, sim_pick
+    from raft_tpu_torch.ops import prng
+
+    setup = load_setup("PullRaft.cfg", text=PULL_CFG, lenient=True)
+    model = setup.model
+    sim = Simulator(model, setup.invariants, walks=SIM_WALKS, max_behavior_depth=SIM_DEPTH,
+                    seed=1, device="cuda")
+    sim.start()
+    for _ in range(10):
+        sim.step()
+    states = sim.states
+    valid, _rank, ovf, _ = model.chunk_guards(states, SIM_WALKS, sim.cov)
+    stats = torch.zeros(4, dtype=torch.int64, device=states.device)
+    pick = sim_pick(valid, ovf, prng.split(sim.rng)[1], sim.init_pool.shape[0], stats)
+    nxt = model.chunk_apply(states, pick[2])
+    return settle_rows(torch, model, states, nxt, pick, sim.init_pool, sim.depth, sim.journal,
+                       sim.jlen, setup.invariants, True, "a full-width simulate move")
+
+
 def pull_kernel_rows(torch, rng) -> dict:
     """Phase 3 for the pull family: pull_guard, pull_apply, pull_fold,
     pull_sim_check and pull_predicates against their plain versions, exactly,
     on a CHUNK of reachable states sampled from the card's own BFS frontier
-    of each stand-in (PullRaft at PULL_SAMPLE_DEPTH, timed; Variant2 at
-    PULL2_SAMPLE_DEPTH) and on edge rows built from them. Returns
-    {kernel: row}."""
+    of each stand-in (PullRaft at PULL_SAMPLE_DEPTH, the expand kernels
+    timed; Variant2 at PULL2_SAMPLE_DEPTH) and on edge rows built from them;
+    then pull_sim_check and pull_predicates at the pull simulate's own width
+    (pull_sim_rows, timed). Returns {kernel: row}."""
     from raft_tpu_torch.__main__ import run_check
 
     rows = {}
@@ -907,9 +950,10 @@ def pull_kernel_rows(torch, rng) -> dict:
         batch = torch.from_numpy(np.ascontiguousarray(
             pool[rng.integers(0, len(pool), CHUNK)])).to(bfs.device)
         edge = torch.from_numpy(pull_edge_pool(bfs.model, pool, rng)).to(bfs.device)
-        rows.update(step_rows(torch, bfs.model, batch, rng, timed=timed))
-        step_rows(torch, bfs.model, edge, rng, timed=False)
+        step_rows(torch, bfs.model, batch, rng)
+        step_rows(torch, bfs.model, edge, rng)
         del bfs
+    rows.update(pull_sim_rows(torch))
     return rows
 
 

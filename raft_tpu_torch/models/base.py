@@ -337,6 +337,77 @@ class KernelModel:
         return hit
 
 
+# server states and acked[v] values of the Raft family (Raft.tla:38,62-65;
+# PullRaft.tla keeps them)
+FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
+ACK_NIL, ACK_FALSE, ACK_TRUE = 0, 1, 2
+
+
+def raft_invariants(model) -> dict:
+    """The invariants every Raft-family model registers, by name, each
+    mapping states [B, W] -> ok bool [B] (True = invariant holds). The
+    formulas are Raft.tla's; the pull specs repeat them
+    (PullRaft.tla:578-627) over the same field names."""
+    lay, p = model.layout, model.p
+    return {
+        "MessagesAreValid": messages_are_valid_kernel(lay, model.packer),
+        "NoLogDivergence": lambda s: inv_no_log_divergence(lay, p, s),
+        "LeaderHasAllAckedValues": lambda s: inv_leader_has_acked(lay, p, s),
+        "CommittedEntriesReachMajority": lambda s: inv_committed_majority(lay, p, s),
+        "TestInv": lambda s: torch.ones(s.shape[:-1], dtype=torch.bool, device=s.device),
+    }
+
+
+def inv_no_log_divergence(lay: Layout, p, states):
+    """NoLogDivergence — Raft.tla:588-596."""
+    L = p.max_log
+    ci = lay.get(states, "commitIndex")  # [B,S]
+    lt = lay.get(states, "log_term")  # [B,S,L]
+    lv = lay.get(states, "log_value")
+    mci = torch.minimum(ci[:, :, None], ci[:, None, :])  # [B,S,S]
+    lanes = torch.arange(1, L + 1, device=states.device)
+    in_common = lanes <= mci[..., None]  # [B,S,S,L]
+    eq = (lt[:, :, None, :] == lt[:, None, :, :]) & (lv[:, :, None, :] == lv[:, None, :, :])
+    return torch.all((~in_common | eq).flatten(1), dim=1)
+
+
+def inv_leader_has_acked(lay: Layout, p, states):
+    """LeaderHasAllAckedValues — Raft.tla:604-620."""
+    V = p.n_values
+    ct = lay.get(states, "currentTerm")
+    st = lay.get(states, "state")
+    lv = lay.get(states, "log_value")  # [B,S,L]
+    acked = lay.get(states, "acked")  # [B,V]
+    not_stale = torch.all(ct[:, :, None] >= ct[:, None, :], dim=2)  # [B,S]
+    is_lead = (st == LEADER) & not_stale
+    vals = torch.arange(1, V + 1, device=states.device)
+    has_v = torch.any(lv[:, :, None, :] == vals[None, None, :, None], dim=3)
+    bad = (acked[:, None, :] == ACK_TRUE) & is_lead[:, :, None] & ~has_v
+    return ~bad.flatten(1).any(dim=1)
+
+
+def inv_committed_majority(lay: Layout, p, states):
+    """CommittedEntriesReachMajority — Raft.tla:625-636."""
+    S, L = p.n_servers, p.max_log
+    st = lay.get(states, "state")
+    ci = lay.get(states, "commitIndex")
+    ll = lay.get(states, "log_len")
+    lt = lay.get(states, "log_term")
+    lv = lay.get(states, "log_value")
+    lead = (st == LEADER) & (ci > 0)  # [B,S]
+    pos = torch.clamp(ci - 1, 0, L - 1).to(torch.int64)  # [B,S]
+    lt_i = torch.gather(lt, 2, pos[:, :, None])[:, :, 0]  # [B,S]
+    lv_i = torch.gather(lv, 2, pos[:, :, None])[:, :, 0]
+    B = states.shape[0]
+    posj = pos[:, :, None, None].expand(B, S, S, 1)
+    lt_j = torch.gather(lt[:, None].expand(B, S, S, L), 3, posj)[..., 0]
+    lv_j = torch.gather(lv[:, None].expand(B, S, S, L), 3, posj)[..., 0]
+    match = (ll[:, None, :] >= ci[:, :, None]) & (lt_j == lt_i[..., None]) & (
+        lv_j == lv_i[..., None])
+    enough = match.sum(dim=2) >= (S // 2 + 1)  # quorum incl. i
+    return ~torch.any(lead, dim=1) | torch.any(lead & enough, dim=1)
+
+
 def messages_are_valid_kernel(layout: Layout, packer):
     """MessagesAreValid — MessagePassing.tla:81-83: no record in the bag
     domain is self-addressed. Batched over [..., W] states (2-word

@@ -33,7 +33,13 @@ from .. import kernels
 from ..ops import bag
 from ..ops.packing import EMPTY, BitPacker, bits_for
 from .base import (
+    ACK_FALSE,
+    ACK_NIL,
+    ACK_TRUE,
+    CANDIDATE,
+    FOLLOWER,
     INVARIANT_IDS,
+    LEADER,
     ActionLabelMixin,
     KernelModel,
     Layout,
@@ -41,13 +47,11 @@ from .base import (
     jax_set as jset,
     jax_set2 as jset2,
     jax_take as jtake,
-    messages_are_valid_kernel,
+    raft_invariants,
     select as _sel,
 )
 
-FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
 NIL = 0  # leader/votedFor Nil; server i is stored as i+1
-ACK_NIL, ACK_FALSE, ACK_TRUE = 0, 1, 2
 RVREQ, RVRESP, PULLREQ, PULLRESP, NOTIFY = 1, 2, 3, 4, 5
 
 # Next-disjunct order (PullRaft.tla:542-558 == PullRaftVariant2.tla:560-576).
@@ -255,15 +259,7 @@ class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         self.A = len(self.bindings)
         self._consts: dict = {}
 
-        self.invariants = {
-            "MessagesAreValid": messages_are_valid_kernel(self.layout, self.packer),
-            "NoLogDivergence": self._inv_no_log_divergence,
-            "LeaderHasAllAckedValues": self._inv_leader_has_acked,
-            "CommittedEntriesReachMajority": self._inv_committed_majority,
-            "TestInv": lambda s: torch.ones(
-                s.shape[:-1], dtype=torch.bool, device=s.device
-            ),
-        }
+        self.invariants = raft_invariants(self)
         # PullRaft defines no liveness formula (the reference's CLI refuses
         # a PROPERTY line on either pull spec)
         self.predicates: dict = {}
@@ -705,57 +701,6 @@ class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         vec[0, lay.sl("msg_hi")] = EMPTY
         vec[0, lay.sl("msg_lo")] = EMPTY
         return vec
-
-    # ---------------- invariants (PullRaft.tla:578-627) ----------------
-    # Each maps states [B, W] -> ok bool [B] (True = invariant holds); the
-    # formulas are standard Raft's (models/raft.py).
-
-    def _inv_no_log_divergence(self, states):
-        """NoLogDivergence."""
-        lay, L = self.layout, self.p.max_log
-        ci = lay.get(states, "commitIndex")
-        lt = lay.get(states, "log_term")
-        lv = lay.get(states, "log_value")
-        mci = torch.minimum(ci[:, :, None], ci[:, None, :])
-        lanes = torch.arange(1, L + 1, device=states.device)
-        in_common = lanes <= mci[..., None]
-        eq = (lt[:, :, None, :] == lt[:, None, :, :]) & (lv[:, :, None, :] == lv[:, None, :, :])
-        return torch.all((~in_common | eq).flatten(1), dim=1)
-
-    def _inv_leader_has_acked(self, states):
-        """LeaderHasAllAckedValues."""
-        lay, V = self.layout, self.p.n_values
-        ct = lay.get(states, "currentTerm")
-        st = lay.get(states, "state")
-        lv = lay.get(states, "log_value")
-        acked = lay.get(states, "acked")
-        not_stale = torch.all(ct[:, :, None] >= ct[:, None, :], dim=2)
-        is_lead = (st == LEADER) & not_stale
-        vals = torch.arange(1, V + 1, device=states.device)
-        has_v = torch.any(lv[:, :, None, :] == vals[None, None, :, None], dim=3)
-        bad = (acked[:, None, :] == ACK_TRUE) & is_lead[:, :, None] & ~has_v
-        return ~bad.flatten(1).any(dim=1)
-
-    def _inv_committed_majority(self, states):
-        """CommittedEntriesReachMajority."""
-        lay, S, L = self.layout, self.p.n_servers, self.p.max_log
-        st = lay.get(states, "state")
-        ci = lay.get(states, "commitIndex")
-        ll = lay.get(states, "log_len")
-        lt = lay.get(states, "log_term")
-        lv = lay.get(states, "log_value")
-        lead = (st == LEADER) & (ci > 0)
-        pos = torch.clamp(ci - 1, 0, L - 1).to(torch.int64)
-        lt_i = torch.gather(lt, 2, pos[:, :, None])[:, :, 0]
-        lv_i = torch.gather(lv, 2, pos[:, :, None])[:, :, 0]
-        B = states.shape[0]
-        posj = pos[:, :, None, None].expand(B, S, S, 1)
-        lt_j = torch.gather(lt[:, None].expand(B, S, S, L), 3, posj)[..., 0]
-        lv_j = torch.gather(lv[:, None].expand(B, S, S, L), 3, posj)[..., 0]
-        match = (ll[:, None, :] >= ci[:, :, None]) & (lt_j == lt_i[..., None]) & (
-            lv_j == lv_i[..., None])
-        enough = match.sum(dim=2) >= (S // 2 + 1)
-        return ~torch.any(lead, dim=1) | torch.any(lead & enough, dim=1)
 
     # ---------------- host-side decode/encode ----------------
 

@@ -26,22 +26,27 @@ from ..ops import bag
 from .. import kernels
 from ..ops.packing import EMPTY, BitPacker, bits_for
 from .base import (
+    ACK_FALSE,
+    ACK_NIL,
+    ACK_TRUE,
+    CANDIDATE,
+    FOLLOWER,
     INVARIANT_IDS,
+    LEADER,
     ActionLabelMixin,
     KernelModel,
     Layout,
     SparseExpandMixin,
-    messages_are_valid_kernel,
+    raft_invariants,
     onehot_row as orow,
     onehot_set as oset,
     onehot_set2 as oset2,
     select as _sel,
 )
 
-# state[i] encoding (CONSTANTS Follower/Candidate/Leader, Raft.tla:38)
-FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
+# state[i] encoding (CONSTANTS Follower/Candidate/Leader, Raft.tla:38) and
+# acked[v] (Raft.tla:62-65) are base.py's FOLLOWER.. and ACK_NIL..
 NIL = 0  # votedFor Nil (Raft.tla:41); server i is stored as i+1
-ACK_NIL, ACK_FALSE, ACK_TRUE = 0, 1, 2  # acked[v] (Raft.tla:62-65)
 RVREQ, RVRESP, AEREQ, AERESP = 1, 2, 3, 4  # mtype (Raft.tla:44-45)
 
 # Next-disjunct order (Raft.tla:527-539), used for TLC-order tie-breaking.
@@ -281,15 +286,7 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         self.A = len(self.bindings)
         self._consts: dict = {}
 
-        self.invariants = {
-            "MessagesAreValid": messages_are_valid_kernel(self.layout, self.packer),
-            "NoLogDivergence": self._inv_no_log_divergence,
-            "LeaderHasAllAckedValues": self._inv_leader_has_acked,
-            "CommittedEntriesReachMajority": self._inv_committed_majority,
-            "TestInv": lambda s: torch.ones(
-                s.shape[:-1], dtype=torch.bool, device=s.device
-            ),
-        }
+        self.invariants = raft_invariants(self)
         # temporal properties under WF_vars(Next) (checker/liveness.py):
         # ValuesNotStuck == \A v : []<> ValueAllOrNothing(v) (Raft.tla:567-576),
         # one (label, P, Q) instance per value, P = None for []<>Q; P and Q
@@ -849,36 +846,8 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         vec[0, lay.sl("acked")] = ACK_NIL
         return vec
 
-    # ---------------- invariants ----------------
-    # Each maps states [B, W] -> ok bool [B] (True = invariant holds).
-
-    def _inv_no_log_divergence(self, states):
-        """NoLogDivergence — Raft.tla:588-596."""
-        lay, L = self.layout, self.p.max_log
-        ci = lay.get(states, "commitIndex")  # [B,S]
-        lt = lay.get(states, "log_term")  # [B,S,L]
-        lv = lay.get(states, "log_value")
-        mci = torch.minimum(ci[:, :, None], ci[:, None, :])  # [B,S,S]
-        lanes = torch.arange(1, L + 1, device=states.device)
-        in_common = lanes <= mci[..., None]  # [B,S,S,L]
-        eq = (lt[:, :, None, :] == lt[:, None, :, :]) & (
-            lv[:, :, None, :] == lv[:, None, :, :]
-        )
-        return torch.all((~in_common | eq).flatten(1), dim=1)
-
-    def _inv_leader_has_acked(self, states):
-        """LeaderHasAllAckedValues — Raft.tla:604-620."""
-        lay, V = self.layout, self.p.n_values
-        ct = lay.get(states, "currentTerm")
-        st = lay.get(states, "state")
-        lv = lay.get(states, "log_value")  # [B,S,L]
-        acked = lay.get(states, "acked")  # [B,V]
-        not_stale = torch.all(ct[:, :, None] >= ct[:, None, :], dim=2)  # [B,S]
-        is_lead = (st == LEADER) & not_stale
-        vals = torch.arange(1, V + 1, device=states.device)
-        has_v = torch.any(lv[:, :, None, :] == vals[None, None, :, None], dim=3)
-        bad = (acked[:, None, :] == ACK_TRUE) & is_lead[:, :, None] & ~has_v
-        return ~bad.flatten(1).any(dim=1)
+    # ---------------- liveness predicates ----------------
+    # (the invariants are models/base.py's raft_invariants)
 
     def _live_value_all_or_nothing(self, v, states):
         """ValueAllOrNothing(v) — Raft.tla:560-573: TRUE when the last
@@ -897,29 +866,6 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         no_leader = ~torch.any(st == LEADER, dim=1)
         spent = ec == self.p.max_elections
         return (spent & no_leader) | all_have | none_have
-
-    def _inv_committed_majority(self, states):
-        """CommittedEntriesReachMajority — Raft.tla:625-636."""
-        lay, S, L = self.layout, self.p.n_servers, self.p.max_log
-        st = lay.get(states, "state")
-        ci = lay.get(states, "commitIndex")
-        ll = lay.get(states, "log_len")
-        lt = lay.get(states, "log_term")
-        lv = lay.get(states, "log_value")
-        lead = (st == LEADER) & (ci > 0)  # [B,S]
-        pos = torch.clamp(ci - 1, 0, L - 1).to(torch.int64)  # [B,S]
-        lt_i = torch.gather(lt, 2, pos[:, :, None])[:, :, 0]  # [B,S]
-        lv_i = torch.gather(lv, 2, pos[:, :, None])[:, :, 0]
-        B = states.shape[0]
-        posj = pos[:, :, None, None].expand(B, S, S, 1)
-        lt_j = torch.gather(lt[:, None].expand(B, S, S, L), 3, posj)[..., 0]
-        lv_j = torch.gather(lv[:, None].expand(B, S, S, L), 3, posj)[..., 0]
-        match = (ll[:, None, :] >= ci[:, :, None]) & (lt_j == lt_i[..., None]) & (
-            lv_j == lv_i[..., None]
-        )
-        enough = match.sum(dim=2) >= (S // 2 + 1)  # quorum incl. i
-        ok_exists = torch.any(lead & enough, dim=1)
-        return ~torch.any(lead, dim=1) | ok_exists
 
     # ---------------- host-side decode/encode ----------------
 
