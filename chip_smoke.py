@@ -23,7 +23,15 @@ Phases, each of which fails the run on any mismatch:
      kernels (pull_guard, pull_apply, pull_fold, pull_sim_check,
      pull_predicates) on a chunk of reachable PullRaft states and one of
      Variant2 states from the card's own BFS frontiers, and on edge rows
-     built from them (full bags, logs at max_log, count-0 records);
+     built from them (full bags, logs at max_log, count-0 records); the
+     KRaft kernels (kraft_guard, kraft_apply, kraft_fold, kraft_sim_check,
+     kraft_predicates) the same way on a chunk of the KRaft.cfg frontier at
+     its widest wave (depth 33) and on edge rows (responses whose mleader
+     is Nil and not among them), with canon_memo on its successor rows and
+     their server-permuted copies,
+     canon_tiered and canon_signatures on a chunk of five-server KRaft
+     states, and kraft_sim_check and kraft_predicates on one move of a
+     65,536-walk KRaft simulate;
   4. the main path: standard-raft Raft.cfg (inline text) checked through
      the function the CLI calls, on cuda, to exhaustion — 8,664,032
      distinct / 30,708,266 total / depth 48 / 19,514 terminal, no
@@ -44,6 +52,12 @@ Phases, each of which fails the run on any mismatch:
      exhausted and held to its pin, and card against CPU at
      PULL2_SMALL_DEPTH; the deepest journal state's trace replayed through
      the guard and apply on the card and on the CPU;
+  4d. KRaft.cfg on the main path: exhausted through the same function, its
+     depth counts held to the reference's through the pinned depth 30
+     (scripts/pin_kraft_counts.py), exhausted again at twice the chunk with
+     identical final counts, the KRaft kernels once per chunk and no Raft
+     or pull expand kernel, the deepest journal state's trace replayed on
+     the card and the CPU, and card against CPU at KRAFT_SMALL_DEPTH;
   5. FlexibleRaft with quorums that need not intersect (3 servers,
      ElectionQuorumSize 2, ReplicationQuorumSize 1): the
      LeaderHasAllAckedValues violation, its gid, depth and trace on the
@@ -54,7 +68,8 @@ Phases, each of which fails the run on any mismatch:
      CPU run's;
   6. where the time goes: Raft.cfg to depth 20, five-server Raft to the
      pinned depth 11 (its distinct, total, depth counts and coverage equal
-     to the reference's) and the PullRaft stand-in's exhaustion, each once
+     to the reference's), the PullRaft stand-in's exhaustion and KRaft.cfg
+     to its pinned depth 30 (held to the reference's), each once
      untraced (wall per chunk) and once under torch.profiler (device time
      per chunk by kernel group, the device's busy share);
   7. simulate: FlexibleRaft's quorum violation (walk, depth, trace) and
@@ -71,13 +86,18 @@ Phases, each of which fails the run on any mismatch:
      PULL_SIM_MOVES moves through the CLI's function, pull_guard,
      sim_pick, pull_apply and pull_sim_check once per move, pull_predicates
      once, and a profiled window of 20 moves;
+  7c. simulate KRaft.cfg the same way (KRAFT_SIM_MOVES moves), through
+     kraft_guard, sim_pick, kraft_apply and kraft_sim_check;
   8. liveness: the two-server graph of tests/test_liveness.py (states and
      edge arrays) card against CPU; then Raft.cfg's constants at
      MaxElections LIVE_ELECTIONS with PROPERTY ValuesNotStuck through the
      CLI's function, its graph and verdict, the per-chunk kernels once per
      chunk, raft_predicates once per property instance and held exactly
      against its plain version on the graph's states (the row of the
-     kernel table);
+     kernel table); 8b. the same for KRaft: the two-server graph of
+     tests/test_liveness_families.py card against CPU, then KRaft.cfg's
+     constants at MaxElections KRAFT_LIVE_ELECTIONS through kraft_guard,
+     kraft_apply and kraft_predicates;
   9. the kernel table as one JSON line, the card's name and power limit,
      and the result line.
 """
@@ -87,6 +107,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -229,7 +250,7 @@ PULL_PIN = dict(
     depth_counts=[1, 1, 3, 7, 18, 40, 86, 169, 323, 592, 1065, 1845, 3108, 5030, 7803, 11545,
                   16312, 22020, 28460, 35460, 43058, 51341, 60071, 68771, 76855, 83540, 87948,
                   89698, 88660, 84418, 76490, 64686, 49174, 31696, 16092, 5892, 1366, 152],
-    distinct=1_113_796, total=3_233_465, terminal=10_094,
+    distinct=1_113_796, total=3_233_465, terminal=10_094, exhausted=True,
     coverage=[[0, 0, 0], [62471, 97414, 19309], [1821, 3664, 1343], [378996, 425610, 55409],
               [543836, 632662, 156136], [47432, 47472, 43992], [155294, 165664, 20560],
               [17052, 17052, 13068], [290620, 318364, 137896], [295852, 295852, 46986],
@@ -240,7 +261,7 @@ PULL2_PIN = dict(
                   13074, 18104, 24297, 31433, 39302, 47954, 57474, 67724, 78471, 89246, 98963,
                   106289, 110290, 110640, 107502, 101652, 93380, 81642, 65244, 45344, 25884,
                   11270, 3328, 504],
-    distinct=1_454_442, total=3_993_435, terminal=14_644,
+    distinct=1_454_442, total=3_993_435, terminal=14_644, exhausted=True,
     coverage=[[0, 0, 0], [59508, 104406, 17177], [1667, 3345, 1185], [489406, 547086, 95287],
               [767932, 938652, 129244], [17527, 17534, 15577], [186575, 200182, 6874],
               [24654, 24654, 5628], [340704, 367324, 206270], [310340, 336139, 209761],
@@ -252,6 +273,78 @@ PULL_SAMPLE_DEPTH = 27
 PULL2_SAMPLE_DEPTH = 29
 PULL2_SMALL_DEPTH = 12
 PULL_SIM_MOVES = 100
+
+# KRaft.cfg (SURVEY.md:95; the invariant order of tests/test_kraft.py's cfg
+# check): 3 servers, 1 value, MaxElections 2, MaxRestarts 0, VIEW +
+# SYMMETRY, four invariants; msg_slots 80, the registry's default (W = 291,
+# view 289, A = 98)
+KRAFT_CFG = """\
+\\* pull-raft/KRaft.cfg
+CONSTANTS
+    n1 = n1
+    n2 = n2
+    n3 = n3
+    v1 = v1
+    Server = { n1, n2, n3 }
+    Value = { v1 }
+    Unattached = Unattached
+    Voted = Voted
+    Follower = Follower
+    Candidate = Candidate
+    Leader = Leader
+    IllegalState = IllegalState
+    Nil = Nil
+    RequestVoteRequest = RequestVoteRequest
+    RequestVoteResponse = RequestVoteResponse
+    BeginQuorumRequest = BeginQuorumRequest
+    BeginQuorumResponse = BeginQuorumResponse
+    FetchRequest = FetchRequest
+    FetchResponse = FetchResponse
+    MaxElections = 2
+    MaxRestarts = 0
+INIT Init
+NEXT Next
+VIEW view
+SYMMETRY symmServers
+INVARIANT
+    LeaderHasAllAckedValues
+    NoLogDivergence
+    NeverTwoLeadersInSameEpoch
+    NoIllegalState
+"""
+# the reference's dense DeviceBFS on KRaft.cfg through depth 30, its
+# frontier still growing (scripts/pin_kraft_counts.py, 1,551 s on the CPU)
+KRAFT_PIN = dict(
+    depth_counts=[1, 1, 3, 6, 15, 29, 60, 122, 278, 610, 1236, 2306, 4079, 6987, 11740, 19493,
+                  31827, 50575, 77725, 114911, 163171, 223430, 295949, 380243, 476751, 585569,
+                  705921, 837106, 975788, 1115183, 1247236],
+    distinct=7_328_351, total=20_482_286, terminal=1_566, exhausted=False,
+    coverage=[[0, 0, 0], [1755, 3397, 1421], [2464814, 2715741, 249859],
+              [2223036, 2275183, 260216], [47441, 47441, 25831], [543070, 545285, 70524],
+              [2046222, 2257142, 399606], [74449, 74449, 50046], [2432046, 2766572, 1440292],
+              [2032533, 2233086, 315449], [3614552, 4438688, 2188890],
+              [2587898, 3023064, 2236637], [66690, 66690, 66690], [35547, 35547, 22889]],
+)
+# five-server KRaft (the canon_tiered sample of phase 3): KRaft.cfg with
+# servers n1..n5, sampled KRAFT5_SAMPLE_DEPTH levels deep
+KRAFT5_CFG = KRAFT_CFG.replace(
+    "\\* pull-raft/KRaft.cfg", "\\* pull-raft/KRaft.tla, 5 servers").replace(
+    "    n3 = n3\n", "    n3 = n3\n    n4 = n4\n    n5 = n5\n").replace(
+    "{ n1, n2, n3 }", "{ n1, n2, n3, n4, n5 }")
+KRAFT5_SAMPLE_DEPTH = 8
+# the depths of phase 3's sample (the widest wave, 1,473,631 states of the
+# exhaustion's 51 levels) and of the card-vs-CPU run, the KRaft simulate's
+# moves, and the KRaft liveness run's MaxElections (its full-state graph
+# at 2 passes the checker's 8,000,000-state cap: at 1 it has 10,468
+# states, and symmetry reduces MaxElections 2 to 19,841,843)
+KRAFT_SAMPLE_DEPTH = 33
+KRAFT_SMALL_DEPTH = 12
+KRAFT_SIM_MOVES = 100
+KRAFT_LIVE_ELECTIONS = 1
+KRAFT_LIVE_CFG = KRAFT_CFG + "PROPERTY\n    ValuesNotStuck\n"
+# tests/test_liveness_families.py's two-server graph (MaxElections 1)
+KRAFT_LIVE_SMALL_CFG = KRAFT_LIVE_CFG.replace("    n3 = n3\n", "").replace(
+    "{ n1, n2, n3 }", "{ n1, n2 }").replace("MaxElections = 2", "MaxElections = 1")
 
 # (distinct, total, depth, terminal) of Raft.cfg: exhausted, and at depth
 # 20 (the sample and trace runs), pinned from the reference's dense path
@@ -284,22 +377,45 @@ KERNEL_NAMES = {
     "pull_fold": ("pull_fold_lanes", "pull_fold_viol"),
     "pull_predicates": ("pull_predicates_kernel",),
     "pull_sim_check": ("pull_sim_check_kernel",),
+    "kraft_guard": ("kraft_guard_kernel",),
+    "kraft_apply": ("kraft_apply_kernel",),
+    "kraft_fold": ("kraft_fold_lanes", "kraft_fold_viol"),
+    "kraft_predicates": ("kraft_predicates_kernel",),
+    "kraft_sim_check": ("kraft_sim_check_kernel",),
 }
 # the kernels each path launches (canon_signatures serves the checks only)
 RAFT3_PATH = ("canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
               "raft_apply", "raft_fold", "chunk_sort")
 RAFT5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in RAFT3_PATH)
 PULL_PATH = tuple(k.replace("raft_", "pull_") for k in RAFT3_PATH)
+KRAFT_PATH = tuple(k.replace("raft_", "kraft_") for k in RAFT3_PATH)
 # state fields the invariants of the cfgs here read (NoLogDivergence,
-# LeaderHasAllAckedValues): the part of a row raft_fold must load
+# LeaderHasAllAckedValues; KRaft.cfg's also NeverTwoLeadersInSameEpoch and
+# NoIllegalState): the part of a row a family's fold must load
 INVARIANT_FIELDS = ("currentTerm", "state", "log_term", "log_value", "commitIndex", "acked")
+FOLD_FIELDS = {"raft": INVARIANT_FIELDS, "pull": INVARIANT_FIELDS,
+               "kraft": ("currentEpoch", "state", "leader", "log_epoch", "log_value",
+                         "highWatermark", "acked")}
 # and the liveness predicate ValueAllOrNothing (raft_predicates)
 LIVENESS_FIELDS = ("electionCtr", "state", "log_value", "log_len")
 # the kernels of the simulate and liveness paths (simulate's
 # raft_predicates launch is the initial states' check)
 SIM_PATH = ("raft_guard", "sim_pick", "raft_apply", "raft_sim_check", "raft_predicates")
 LIVE_PATH = ("raft_guard", "compact_append", "raft_apply", "hash_rows", "raft_predicates")
-PULL_SIM_PATH = tuple(k.replace("raft_", "pull_") for k in SIM_PATH)
+# the spec families of phases 4c/4d, 7b/7c and (KRaft) 8b: the cfg text,
+# each spec with its pin and phase 3's sample depth (the first spec's
+# kernels timed, its exhaustion the counted main path), the card-vs-CPU
+# run, a second chunk size for a pin that stops short of exhaustion, the
+# full-width simulate's moves, and a five-server cfg for the tiered canon
+PULL_FAM = dict(prefix="pull", tag="4c", sim_tag="7b", cfg=PULL_CFG, lenient=True,
+                specs=(("PullRaft", PULL_PIN, PULL_SAMPLE_DEPTH),
+                       ("PullRaftVariant2", PULL2_PIN, PULL2_SAMPLE_DEPTH)),
+                small=("PullRaftVariant2", PULL2_SMALL_DEPTH), path=PULL_PATH,
+                sim_moves=PULL_SIM_MOVES)
+KRAFT_FAM = dict(prefix="kraft", tag="4d", sim_tag="7c", cfg=KRAFT_CFG, lenient=False,
+                 specs=(("KRaft", KRAFT_PIN, KRAFT_SAMPLE_DEPTH),),
+                 small=("KRaft", KRAFT_SMALL_DEPTH), path=KRAFT_PATH, second_chunk=2 * CHUNK,
+                 sim_moves=KRAFT_SIM_MOVES, five_cfg=KRAFT5_CFG, five_depth=KRAFT5_SAMPLE_DEPTH)
 # integer operations of one threefry2x32 block: 20 rounds of an add, a
 # rotate (two shifts and an or) and a xor, and 6 key injections of 3 adds
 THREEFRY_OPS = 20 * 5 + 6 * 3
@@ -395,19 +511,28 @@ def expand_puts(torch, model, batch, valid, rank):
     """The message puts the valid lanes of a [C, A] guard grid over the
     [C, W] rows ``batch`` make, counted from the data: RequestVote makes
     S - 1 (its chain), RequestVotePair, AppendEntries and
-    SendPullEntriesRequest one, a BecomeLeader of the pull family one per
-    peer it notifies (every peer in Variant2, the peers that did not vote
-    for it in PullRaft), and a message whose receipt replies one."""
+    SendPullEntriesRequest and SendFetchRequest one, a BecomeLeader of the
+    pull family one per peer it notifies (every peer in Variant2, the peers
+    that did not vote for it in PullRaft), KRaft's BecomeLeader S - 1, and a
+    message whose receipt replies one."""
     S, dev = model.p.n_servers, valid.device
     names = [b[0] for b in model.bindings]
     mask = lambda groups: torch.tensor([n in groups for n in names], device=dev)  # noqa: E731
     puts = (valid & mask(("RequestVote",))).sum() * (S - 1)
     puts = puts + (valid & mask(("RequestVotePair", "AppendEntries",
                                  "SendPullEntriesRequest"))).sum()
-    if family_of(model) == "raft":
+    fam = family_of(model)
+    if fam == "raft":
         from raft_tpu_torch.models.raft import R_ACCEPT_AE, R_HANDLE_RVREQ, R_REJECT_AE
 
         replies = (R_HANDLE_RVREQ, R_REJECT_AE, R_ACCEPT_AE)
+    elif fam == "kraft":
+        from raft_tpu_torch.models import kraft as kr
+
+        replies = (kr.K_HANDLE_RVREQ, kr.K_HANDLE_BQREQ, kr.K_REJECT_FETCH,
+                   kr.K_DIVERGING_FETCH, kr.K_ACCEPT_FETCH)
+        puts = puts + (valid & mask(("BecomeLeader",))).sum() * (S - 1) + (
+            valid & mask(("SendFetchRequest",))).sum()
     else:
         from raft_tpu_torch.models.pull_raft import R_ACCEPT_PULL, R_HANDLE_RVREQ, R_REJECT_PULL
 
@@ -489,7 +614,7 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
     # fold: new read for every lane; a lane that is not new stops there,
     # so only the new lanes read sel, then the valid and rank it points
     # at, and the invariants' fields of their rows
-    inv_lanes = sum(model.layout.fields[f].size for f in INVARIANT_FIELDS)
+    inv_lanes = sum(model.layout.fields[f].size for f in FOLD_FIELDS[fam])
     fold_bytes = VC + n_new * (4 + 1 + 4 + 4 * inv_lanes)
     cov, viol = zcov(), torch.full((len(invs),), I32_MAX, dtype=torch.int64, device=dev)
     rows = {
@@ -678,7 +803,7 @@ def sim_rows(torch, model3, rows3, succ3) -> dict:
     from raft_tpu_torch.checker.simulate import Simulator, sim_pick, sim_pick_plain
     from raft_tpu_torch.ops import prng
     from raft_tpu_torch.ops.expand import (
-        raft_predicates, raft_predicates_plain, raft_sim_check, raft_sim_check_plain,
+        predicates, predicates_plain, sim_check, sim_check_plain,
     )
     from raft_tpu_torch.ops.hashing import hash_lanes, hash_rows
 
@@ -709,13 +834,13 @@ def sim_rows(torch, model3, rows3, succ3) -> dict:
                  SIM_DEPTH, args[2], args[3], invs, st)
         return list(out) + args + [st[2:]]
 
-    err_check = max(exact(torch, a, b) for a, b in zip(settle(raft_sim_check),
-                                                       settle(raft_sim_check_plain)))
+    err_check = max(exact(torch, a, b) for a, b in zip(settle(sim_check),
+                                                       settle(sim_check_plain)))
     check(err_check == 0.0, "raft_sim_check differs from its plain version")
     names5 = tuple(invs) + tuple(q for _l, _p, q in model.liveness["ValuesNotStuck"])
     names3 = tuple(q for _l, _p, q in model3.liveness["ValuesNotStuck"]) + (
         "LeaderHasAllAckedValues", "NoLogDivergence")
-    err_pred = max(exact(torch, raft_predicates(m, r, n), raft_predicates_plain(m, r, n))
+    err_pred = max(exact(torch, predicates(m, r, n), predicates_plain(m, r, n))
                    for m, r, n in ((model, states, names5), (model3, rows3, names3)))
     check(err_pred == 0.0, "raft_predicates differs from its plain version")
     err_hash = exact(torch, hash_rows(succ3), hash_lanes(succ3))
@@ -732,7 +857,7 @@ def sim_rows(torch, model3, rows3, succ3) -> dict:
     # raft_sim_check: each moved walk's invariant fields read, the per-walk
     # inputs read and outputs written, a journal entry per moved walk, and
     # a row read and written per walk that restarts or did not move
-    done = settle(raft_sim_check)[1]
+    done = settle(sim_check)[1]
     copied = int((done | ~moved).sum())
     check_bytes = (4 * n_moved * field_lanes(model, INVARIANT_FIELDS) + R * (1 + 4 * 5)
                    + R * (4 + 1 + 4 + 4) + 4 * n_moved + 2 * 4 * W * copied)
@@ -762,8 +887,8 @@ def sim_rows(torch, model3, rows3, succ3) -> dict:
                              iters=10),
             max_abs_err=err_pick, walks=R),
         "raft_sim_check": dict(
-            ms=time_ms(torch, lambda: settle_work(raft_sim_check), iters=20, setup=reset),
-            plain_ms=time_ms(torch, lambda: settle_work(raft_sim_check_plain), iters=5,
+            ms=time_ms(torch, lambda: settle_work(sim_check), iters=20, setup=reset),
+            plain_ms=time_ms(torch, lambda: settle_work(sim_check_plain), iters=5,
                              setup=reset),
             max_abs_err=err_check, walks=R),
         "hash_rows": dict(
@@ -778,12 +903,14 @@ def sim_rows(torch, model3, rows3, succ3) -> dict:
     return rows
 
 
-def pull_edge_pool(model, pool, rng) -> np.ndarray:
-    """Edge rows built from 1,024 reachable pull states of ``pool``: their
-    bags filled (free slots take keys that sort first, counts 0 to 2, so
-    puts overflow), every log at max_log with no value acked (so a
+def edge_pool(model, pool, rng) -> np.ndarray:
+    """Edge rows built from 1,024 reachable states of ``pool``: their bags
+    filled (free slots take keys that sort first, counts 0 to 2, so puts
+    overflow), every log at max_log with no value acked (so a
     ClientRequest and an accepted success response overflow it), and every
-    count at 0 (records in the domain that only UpdateTerm can take)."""
+    count at 0 (records in the domain that only a count-0 rule can take).
+    For a family whose records carry the Nil-able ``mleader`` (KRaft), also
+    copies whose responses name a random leader or Nil."""
     from raft_tpu_torch.ops.packing import EMPTY
 
     lay, M, L = model.layout, model.p.msg_slots, model.p.max_log
@@ -802,7 +929,27 @@ def pull_edge_pool(model, pool, rng) -> np.ndarray:
     maxlog[:, lay.sl("acked")] = 0
     zero = base.copy()
     zero[:, cs] = 0
-    return np.ascontiguousarray(np.concatenate([full, maxlog, zero]))
+    parts = [full, maxlog, zero]
+    pk = model.packer
+    if "mleader" in pk.fields:
+        lead = base.copy()
+        S = model.p.n_servers
+        for r in lead:
+            keys = {}
+            for h, lo_, c in zip(r[hs].tolist(), r[ls].tolist(), r[cs].tolist()):
+                if h == EMPTY:
+                    continue
+                if pk.unpack(h, lo_, "mtype") % 2 == 0:  # the responses (RVResp, FetchResp)
+                    h, lo_ = pk.replace(h, lo_, "mleader", int(rng.integers(0, S + 1)))
+                keys[(int(h), int(lo_))] = c
+            keys = sorted(keys.items())
+            bag = np.full((3, M), EMPTY)
+            bag[2] = 0
+            bag[:, :len(keys)] = [[k[0][0] for k in keys], [k[0][1] for k in keys],
+                                  [k[1] for k in keys]]
+            r[hs], r[ls], r[cs] = bag
+        parts.append(lead)
+    return np.ascontiguousarray(np.concatenate(parts))
 
 
 def settle_rows(torch, model, states, nxt, pick, init_pool, depth, journal, jlen, invs,
@@ -852,9 +999,9 @@ def settle_rows(torch, model, states, nxt, pick, init_pool, depth, journal, jlen
     # walk's invariant fields and write a flag per invariant
     done = settle(sim_check)[1]
     copied = int((done | ~moved).sum())
-    check_bytes = (4 * n_moved * field_lanes(model, INVARIANT_FIELDS) + R * (1 + 4 * 5)
+    check_bytes = (4 * n_moved * field_lanes(model, FOLD_FIELDS[fam]) + R * (1 + 4 * 5)
                    + R * (4 + 1 + 4 + 4) + 4 * n_moved + 2 * 4 * W * copied)
-    pred_bytes = 4 * R * field_lanes(model, INVARIANT_FIELDS) + R * len(invs)
+    pred_bytes = 4 * R * field_lanes(model, FOLD_FIELDS[fam]) + R * len(invs)
     rows = {
         f"{fam}_sim_check": dict(
             ms=time_ms(torch, lambda: settle_work(sim_check), iters=20, setup=reset),
@@ -898,16 +1045,16 @@ def step_rows(torch, model, batch, rng):
                 ("LeaderHasAllAckedValues", "NoLogDivergence"), False, "a sampled move")
 
 
-def pull_sim_rows(torch) -> dict:
-    """pull_sim_check and pull_predicates at the shape the pull simulate
-    runs them: one move of a PullRaft Simulator of SIM_WALKS walks ten moves
-    from Init (seed 1) with the cfg's invariants, checked exactly and timed
-    (settle_rows). Returns {kernel: row}."""
+def family_sim_rows(torch, fam) -> dict:
+    """The family's sim_check and predicates at the shape its simulate
+    runs them: one move of a Simulator of the family's first spec with
+    SIM_WALKS walks ten moves from Init (seed 1) and the cfg's invariants,
+    checked exactly and timed (settle_rows). Returns {kernel: row}."""
     from raft_tpu_torch.__main__ import load_setup
     from raft_tpu_torch.checker.simulate import Simulator, sim_pick
     from raft_tpu_torch.ops import prng
 
-    setup = load_setup("PullRaft.cfg", text=PULL_CFG, lenient=True)
+    setup = load_setup(f"{fam['specs'][0][0]}.cfg", text=fam["cfg"], lenient=fam["lenient"])
     model = setup.model
     sim = Simulator(model, setup.invariants, walks=SIM_WALKS, max_behavior_depth=SIM_DEPTH,
                     seed=1, device="cuda")
@@ -923,176 +1070,249 @@ def pull_sim_rows(torch) -> dict:
                        sim.jlen, setup.invariants, True, "a full-width simulate move")
 
 
-def pull_kernel_rows(torch, rng) -> dict:
-    """Phase 3 for the pull family: pull_guard, pull_apply, pull_fold,
-    pull_sim_check and pull_predicates against their plain versions, exactly,
-    on a CHUNK of reachable states sampled from the card's own BFS frontier
-    of each stand-in (PullRaft at PULL_SAMPLE_DEPTH, the expand kernels
-    timed; Variant2 at PULL2_SAMPLE_DEPTH) and on edge rows built from them;
-    then pull_sim_check and pull_predicates at the pull simulate's own width
-    (pull_sim_rows, timed). Returns {kernel: row}."""
+def canon_memo_rows(torch, bfs, flatc, selv):
+    """canon_memo against its plain version on a chunk's successor rows of
+    ``bfs``'s model and their server-permuted copies (the model's message
+    remap kinds), memo cold then warm, exactly; the permuted rows keep
+    their fingerprints. Prints the cold kernel time."""
+    from raft_tpu_torch.ops.hashing import INT64_MAX
+    from raft_tpu_torch.ops.symmetry import msg_perm_spec, permute_states
+
+    model, canon, dev = bfs.model, bfs.canon, flatc.device
+    base = flatc[selv].cpu().numpy()
+    sigmas = list(itertools.permutations(range(model.p.n_servers)))[1:]
+    perm = np.concatenate([
+        permute_states(model.layout, model.packer, part, np.asarray(sigma),
+                       msg_perm_spec(model))
+        for part, sigma in zip(np.array_split(base, len(sigmas)), sigmas)])
+    rows = torch.from_numpy(np.ascontiguousarray(np.concatenate([base, perm]))).to(dev)
+    valid = torch.ones(rows.shape[0], dtype=torch.bool, device=dev)
+    memo_k = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    memo_p = memo_k.clone()
+    errs = []
+    for _ in range(2):  # cold, then warm
+        fk, hk = canon.fingerprints_memo_cuda(rows, valid, memo_k)
+        fp, hp = canon.fingerprints_memo_plain(rows, valid, memo_p)
+        errs += [exact(torch, fk, fp), exact(torch, memo_k, memo_p), float(int(hk) != int(hp))]
+    n = len(base)
+    check(max(errs) == 0.0, f"{model.name}: canon_memo differs from its plain version")
+    check(torch.equal(fk[:n], fk[n:]), f"{model.name}: permuted states changed their "
+          "fingerprints")
+    ms = time_ms(torch, lambda: canon.fingerprints_memo_cuda(rows[:n], valid[:n], memo_k),
+                 setup=lambda: memo_k.fill_(INT64_MAX))
+    print(f"[3] {model.name}: canon_memo exact on {n} successor rows and their permuted "
+          f"copies (the message remap {canon.spec}); cold {ms:.4f} ms")
+
+
+def family_kernel_rows(torch, rng, fam) -> dict:
+    """Phase 3 for a spec family: its guard, apply, fold, sim_check and
+    predicates against their plain versions, exactly, on a CHUNK of
+    reachable states sampled from the card's own BFS frontier of each of
+    the family's specs (the first one's expand kernels timed) and on edge
+    rows built from them; canon_memo on its successor rows; the family's
+    five-server configuration's canon_tiered and canon_signatures where it
+    has one; then its sim_check and predicates at its simulate's own width
+    (family_sim_rows, timed). Returns {kernel: row}."""
     from raft_tpu_torch.__main__ import run_check
 
     rows = {}
-    for spec, depth, pin in (("PullRaft", PULL_SAMPLE_DEPTH, PULL_PIN),
-                             ("PullRaftVariant2", PULL2_SAMPLE_DEPTH, PULL2_PIN)):
-        timed = spec == "PullRaft"
+    for k, (spec, pin, depth) in enumerate(fam["specs"]):
         t = time.perf_counter()
-        _, bfs, res = run_check(f"{spec}.cfg", text=PULL_CFG, device="cuda", chunk=CHUNK,
-                                max_depth=depth, lenient=True)
-        check(res.depth_counts == pin["depth_counts"][:depth + 1],
+        _, bfs, res = run_family(fam, spec, "cuda", depth)
+        n = min(depth + 1, len(pin["depth_counts"]))
+        check(res.depth_counts[:n] == pin["depth_counts"][:n],
               f"{spec} sample depth counts {res.depth_counts}")
         pool = bfs.frontier_rows.cpu().numpy()
         print(f"[3] sampled the depth-{depth} {spec} frontier ({len(pool)} states) in "
               f"{time.perf_counter() - t:.1f} s")
-        rows.update(expand_kernels(torch, bfs, pool, rng, timed=timed))
-        expand_kernels(torch, bfs, pull_edge_pool(bfs.model, pool, rng), rng, timed=False)
+        rows.update(expand_kernels(torch, bfs, pool, rng, timed=k == 0))
+        edge = edge_pool(bfs.model, pool, rng)
+        expand_kernels(torch, bfs, edge, rng, timed=False)
+        if k == 0:
+            flatc, selv, _fps, _fresh = chunk_lanes(torch, bfs, pool, rng)
+            canon_memo_rows(torch, bfs, flatc, selv)
         batch = torch.from_numpy(np.ascontiguousarray(
             pool[rng.integers(0, len(pool), CHUNK)])).to(bfs.device)
-        edge = torch.from_numpy(pull_edge_pool(bfs.model, pool, rng)).to(bfs.device)
         step_rows(torch, bfs.model, batch, rng)
-        step_rows(torch, bfs.model, edge, rng)
+        step_rows(torch, bfs.model, torch.from_numpy(edge).to(bfs.device), rng)
         del bfs
-    rows.update(pull_sim_rows(torch))
+    if "five_cfg" in fam:
+        t = time.perf_counter()
+        _, bfs, _res = run_check(f"{fam['specs'][0][0]}.cfg", text=fam["five_cfg"],
+                                 device="cuda", chunk=CHUNK, max_depth=fam["five_depth"])
+        pool = bfs.frontier_rows.cpu().numpy()
+        print(f"[3] sampled the depth-{fam['five_depth']} five-server {bfs.model.name} frontier "
+              f"({len(pool)} states) in {time.perf_counter() - t:.1f} s")
+        flatc, selv, _fps, _fresh = chunk_lanes(torch, bfs, pool, rng)
+        tiered_rows(torch, bfs.canon, flatc, selv, timed=False)
+        del bfs
+    rows.update(family_sim_rows(torch, fam))
     return rows
 
 
-def pull_main_phase(torch) -> dict:
-    """Phase 4c: the PullRaft stand-in exhausted through ``run_check`` (the
-    CLI's function) with the launch counts of its path and its counts held
-    to PULL_PIN; the deepest journal state's trace replayed on the card and
-    on the CPU; Variant2 exhausted and held to PULL2_PIN, and card against
-    CPU at PULL2_SMALL_DEPTH."""
+def run_family(fam, spec, device, depth, chunk=CHUNK):
+    """run_check (the CLI's function) of one of the family's specs on its
+    cfg text (the pull stand-in parsed leniently: the parse declares its
+    v2)."""
+    from raft_tpu_torch.__main__ import run_check
+
+    return run_check(f"{spec}.cfg", text=fam["cfg"], device=device, chunk=chunk,
+                     max_depth=depth, lenient=fam["lenient"])
+
+
+def family_main_phase(torch, fam) -> dict:
+    """A spec family on the main path: its first spec exhausted through
+    ``run_check`` (the CLI's function) with the launch counts of its path
+    and its counts held to the pin (all of them where the pin is
+    exhausted, the depth counts through the pinned depth where it is
+    not); the deepest journal state's trace replayed on the card and on
+    the CPU; where the family has a second chunk size, the exhaustion
+    repeated at it with identical final counts (a check of the levels past
+    a pin); the family's other specs exhausted and held to their pins; and
+    card against CPU at a small depth."""
     from raft_tpu_torch.checker.util import replay_chain
 
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    setup, bfs, res, wall, launches, n_expand, n_sort = counted_run(
-        torch, "PullRaft.cfg", PULL_CFG, lenient=True)
-    peak = torch.cuda.max_memory_allocated()
-    chunks = sum(-(-n // CHUNK) for n in res.depth_counts) + bfs.redone_chunks
-    model = setup.model
-    print(f"[4c] PullRaft: distinct={res.distinct} total={res.total} depth={res.depth} "
-          f"terminal={res.terminal} exhausted={res.exhausted} in {wall:.2f} s "
-          f"({res.distinct / wall:.0f} distinct/s, {chunks} chunks, "
-          f"{wall * 1e3 / chunks:.2f} ms/chunk), peak device memory {peak / 2**30:.2f} GiB "
-          f"(W = {model.layout.W}, A = {model.A})")
-    report = {"distinct": res.distinct, "total": res.total, "depth": res.depth,
-              "terminal": res.terminal, "seconds": wall, "distinct_per_s": res.distinct / wall,
-              "chunks": chunks, "ms_per_chunk": wall * 1e3 / chunks, "peak_device_bytes": peak,
-              "launches": launches}
-    check(res.violation is None and res.exhausted, f"PullRaft: {res.violation}, "
-          f"exhausted {res.exhausted}")
-    got = dict(depth_counts=res.depth_counts, distinct=res.distinct, total=res.total,
-               terminal=res.terminal, coverage=res.coverage)
-    check(got == PULL_PIN, f"PullRaft counts {got} != the reference's {PULL_PIN}")
-    check_path(launches, PULL_PATH, chunks, n_expand, n_sort, "4c")
-    # the deepest journal state's trace (no invariant of the stand-in fails)
-    init, chain = bfs.journal_chain(res.distinct - 1)
-    tg, tc = (replay_chain(model, d, init, chain) for d in ("cuda", "cpu"))
-    check(tg == tc and len(tg) == res.depth + 1, "PullRaft: the replayed traces differ")
-    print(f"[4c] PullRaft counts, depth counts and coverage equal the reference's; the "
-          f"{len(tg)}-state trace of gid {res.distinct - 1} (last step "
-          f"{tg[-1][0]}) replays equal on the card and the CPU")
-    del bfs
-    torch.cuda.empty_cache()
-    t = time.perf_counter()
-    _, bfs2, res2 = run_pull("PullRaftVariant2.cfg", "cuda", None)
-    wall2 = time.perf_counter() - t
-    got2 = dict(depth_counts=res2.depth_counts, distinct=res2.distinct, total=res2.total,
-                terminal=res2.terminal, coverage=res2.coverage)
-    check(res2.violation is None and res2.exhausted and got2 == PULL2_PIN,
-          f"PullRaftVariant2 counts {got2} != the reference's {PULL2_PIN}")
-    del bfs2
-    print(f"[4c] PullRaftVariant2: distinct={res2.distinct} total={res2.total} "
-          f"depth={res2.depth} terminal={res2.terminal} exhausted in {wall2:.2f} s "
-          f"({res2.distinct / wall2:.0f} distinct/s): counts, depth counts and coverage "
-          "equal the reference's")
-    report["variant2"] = {"distinct": res2.distinct, "seconds": wall2}
+    tag, t0 = fam["tag"], time.perf_counter()
+    report = {}
+    for k, (spec, pin, _depth) in enumerate(fam["specs"]):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if k == 0:
+            setup, bfs, res, wall, launches, n_expand, n_sort = counted_run(
+                torch, f"{spec}.cfg", fam["cfg"], lenient=fam["lenient"])
+        else:
+            t = time.perf_counter()
+            setup, bfs, res = run_family(fam, spec, "cuda", None)
+            wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        chunks = sum(-(-n // CHUNK) for n in res.depth_counts) + bfs.redone_chunks
+        model = setup.model
+        print(f"[{tag}] {spec}: distinct={res.distinct} total={res.total} depth={res.depth} "
+              f"terminal={res.terminal} exhausted={res.exhausted} in {wall:.2f} s "
+              f"({res.distinct / wall:.0f} distinct/s, {chunks} chunks, "
+              f"{wall * 1e3 / chunks:.2f} ms/chunk), peak device memory "
+              f"{peak / 2**30:.2f} GiB (W = {model.layout.W}, A = {model.A})")
+        run = {"distinct": res.distinct, "total": res.total, "depth": res.depth,
+               "terminal": res.terminal, "seconds": wall, "distinct_per_s": res.distinct / wall,
+               "chunks": chunks, "ms_per_chunk": wall * 1e3 / chunks, "peak_device_bytes": peak}
+        check(res.violation is None and res.exhausted, f"{spec}: {res.violation}, "
+              f"exhausted {res.exhausted}")
+        got = dict(depth_counts=res.depth_counts, distinct=res.distinct, total=res.total,
+                   terminal=res.terminal, coverage=res.coverage)
+        if pin["exhausted"]:
+            check(got == {key: pin[key] for key in got},
+                  f"{spec} counts {got} != the reference's {pin}")
+            held = "counts, depth counts and coverage"
+        else:
+            n_pin = len(pin["depth_counts"])
+            check(res.depth_counts[:n_pin] == pin["depth_counts"],
+                  f"{spec} depth counts {res.depth_counts[:n_pin]} != the reference's")
+            held = f"depth counts through the pinned depth {n_pin - 1}"
+        print(f"[{tag}] {spec}: {held} equal the reference's")
+        if k:
+            report[spec] = run
+            del bfs
+            continue
+        report.update(run, launches=launches, depth_counts=res.depth_counts)
+        check_path(launches, fam["path"], chunks, n_expand, n_sort, tag)
+        # the deepest journal state's trace (no invariant of these cfgs fails)
+        init, chain = bfs.journal_chain(res.distinct - 1)
+        tg, tc = (replay_chain(model, d, init, chain) for d in ("cuda", "cpu"))
+        check(tg == tc and len(tg) == res.depth + 1, f"{spec}: the replayed traces differ")
+        print(f"[{tag}] {spec}: the {len(tg)}-state trace of gid {res.distinct - 1} (last step "
+              f"{tg[-1][0]}) replays equal on the card and the CPU")
+        del bfs
+        if fam.get("second_chunk"):
+            torch.cuda.empty_cache()
+            t = time.perf_counter()
+            _, bfs2, res2 = run_family(fam, spec, "cuda", None, chunk=fam["second_chunk"])
+            wall2 = time.perf_counter() - t
+            got2 = (res2.distinct, res2.total, res2.depth, res2.terminal, res2.depth_counts,
+                    res2.coverage, res2.exhausted)
+            check(got2 == (res.distinct, res.total, res.depth, res.terminal, res.depth_counts,
+                           res.coverage, True),
+                  f"{spec} at chunk {fam['second_chunk']}: {got2[:4]} != "
+                  f"{(res.distinct, res.total, res.depth, res.terminal)}")
+            print(f"[{tag}] {spec} exhausted again at chunk {fam['second_chunk']} in "
+                  f"{wall2:.2f} s: identical distinct, total, depth, terminal, depth counts "
+                  "and coverage")
+            report["second_chunk"] = {"chunk": fam["second_chunk"], "seconds": wall2}
+            del bfs2
+    spec, depth = fam["small"]
     runs = {}
     for d in ("cuda", "cpu"):
         t = time.perf_counter()
-        runs[d] = (run_pull("PullRaftVariant2.cfg", d, PULL2_SMALL_DEPTH, chunk=1024)[2],
-                   time.perf_counter() - t)
+        runs[d] = (run_family(fam, spec, d, depth, chunk=1024)[2], time.perf_counter() - t)
     (sg, t_card), (sc, t_cpu) = runs["cuda"], runs["cpu"]
     check((sg.distinct, sg.total, sg.terminal, sg.depth_counts, sg.coverage)
           == (sc.distinct, sc.total, sc.terminal, sc.depth_counts, sc.coverage),
-          "PullRaftVariant2: card and CPU differ")
-    print(f"[4c] PullRaftVariant2 to depth {PULL2_SMALL_DEPTH}: distinct={sg.distinct} "
-          f"total={sg.total}, depth counts and coverage: card == CPU (card {t_card:.1f} s, "
-          f"CPU {t_cpu:.1f} s)")
+          f"{spec}: card and CPU differ")
+    print(f"[{tag}] {spec} to depth {depth}: distinct={sg.distinct} total={sg.total}, depth "
+          f"counts and coverage: card == CPU (card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
     report["phase_s"] = time.perf_counter() - t0
-    print(json.dumps({"pull_run": report}))
+    print(json.dumps({f"{fam['prefix']}_run": report}))
     return report
 
 
-def run_pull(cfg_name, device, depth, chunk=CHUNK):
-    """run_check (the CLI's function) of the pull stand-in PULL_CFG, parsed
-    leniently (the parse declares its v2)."""
-    from raft_tpu_torch.__main__ import run_check
-
-    return run_check(cfg_name, text=PULL_CFG, device=device, chunk=chunk, max_depth=depth,
-                     lenient=True)
-
-
-def pull_simulate_phase(torch) -> dict:
-    """Phase 7b: the PullRaft stand-in simulated on the card against the
-    CPU at SMALL_WALKS walks for SMALL_MOVES moves, then at SIM_WALKS walks
-    for PULL_SIM_MOVES moves through ``run_simulate`` (the CLI's function)
-    with its launch counts, and a profiled window of its moves."""
+def family_simulate_phase(torch, fam) -> dict:
+    """A spec family simulated: its first spec on the card against the CPU
+    at SMALL_WALKS walks for SMALL_MOVES moves, then at SIM_WALKS walks for
+    the family's moves through ``run_simulate`` (the CLI's function) with
+    its launch counts, and a profiled window of its moves."""
     from torch.profiler import ProfilerActivity, profile
 
     from raft_tpu_torch.__main__ import load_setup, run_simulate
     from raft_tpu_torch.checker.simulate import Simulator
 
-    t0 = time.perf_counter()
+    tag, pre, t0 = fam["sim_tag"], fam["prefix"], time.perf_counter()
+    spec = fam["specs"][0][0]
+    kw = dict(text=fam["cfg"], max_behavior_depth=SIM_DEPTH, seed=0, lenient=fam["lenient"])
     small = {}
     for d in ("cuda", "cpu"):
         t = time.perf_counter()
-        _, sim, res = run_simulate("PullRaft.cfg", text=PULL_CFG, device=d, walks=SMALL_WALKS,
-                                   max_behavior_depth=SIM_DEPTH, seed=0,
-                                   max_steps=SMALL_MOVES * SMALL_WALKS, lenient=True)
+        _, sim, res = run_simulate(f"{spec}.cfg", device=d, walks=SMALL_WALKS,
+                                   max_steps=SMALL_MOVES * SMALL_WALKS, **kw)
         small[d] = (sim, res, time.perf_counter() - t)
     (sg, fg, t_card), (sc, fc, t_cpu) = small["cuda"], small["cpu"]
     check(fg.violation is None and fc.violation is None
           and (fg.behaviors, fg.steps) == (fc.behaviors, fc.steps),
-          f"simulate PullRaft: card {(fg.behaviors, fg.steps, fg.violation)} != CPU "
+          f"simulate {spec}: card {(fg.behaviors, fg.steps, fg.violation)} != CPU "
           f"{(fc.behaviors, fc.steps, fc.violation)}")
     for a in ("states", "depth", "journal", "jlen"):
-        check(torch.equal(getattr(sg, a).cpu(), getattr(sc, a)), f"simulate PullRaft: {a} differ")
-    print(f"[7b] simulate PullRaft ({SMALL_WALKS} walks, {SMALL_MOVES} moves): behaviors="
+        check(torch.equal(getattr(sg, a).cpu(), getattr(sc, a)), f"simulate {spec}: {a} differ")
+    print(f"[{tag}] simulate {spec} ({SMALL_WALKS} walks, {SMALL_MOVES} moves): behaviors="
           f"{fg.behaviors} steps={fg.steps}, final states and journals: card == CPU "
           f"(card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
     del small, sg, sc
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    moves_max = fam["sim_moves"]
     (setup, sim, res), wall, launches, n_expand, _ = counted(
-        torch, lambda: run_simulate("PullRaft.cfg", text=PULL_CFG, device="cuda",
-                                    walks=SIM_WALKS, max_behavior_depth=SIM_DEPTH, seed=0,
-                                    max_steps=PULL_SIM_MOVES * SIM_WALKS, lenient=True))
+        torch, lambda: run_simulate(f"{spec}.cfg", device="cuda", walks=SIM_WALKS,
+                                    max_steps=moves_max * SIM_WALKS, **kw))
     peak = torch.cuda.max_memory_allocated()
     moves = sim.moves
-    for k in PULL_SIM_PATH[:4]:
-        check(launches[k] == moves, f"simulate PullRaft: {launches[k]} {k} launches != "
+    path = tuple(k.replace("raft_", f"{pre}_") for k in SIM_PATH)
+    for k in path[:4]:
+        check(launches[k] == moves, f"simulate {spec}: {launches[k]} {k} launches != "
               f"{moves} moves")
-    check(launches["pull_predicates"] == 1,
-          f"simulate PullRaft: {launches['pull_predicates']} pull_predicates launches != 1")
-    for k in set(KERNEL_NAMES) - set(PULL_SIM_PATH):
-        check(launches[k] == 0, f"simulate PullRaft: {k} launched off its path")
-    check(n_expand == 0, f"simulate PullRaft: the plain expand ran {n_expand} times")
-    check(res.violation is None and res.steps >= PULL_SIM_MOVES * SIM_WALKS, f"{res}")
+    check(launches[f"{pre}_predicates"] == 1,
+          f"simulate {spec}: {launches[f'{pre}_predicates']} {pre}_predicates launches != 1")
+    for k in set(KERNEL_NAMES) - set(path):
+        check(launches[k] == 0, f"simulate {spec}: {k} launched off its path")
+    check(n_expand == 0, f"simulate {spec}: the plain expand ran {n_expand} times")
+    check(res.violation is None and res.steps >= moves_max * SIM_WALKS, f"{res}")
     report = {"W": setup.model.layout.W, "A": setup.model.A, "walks": SIM_WALKS,
               "moves": moves, "steps": res.steps, "behaviors": res.behaviors, "seconds": wall,
               "steps_per_s": res.steps / wall, "wall_ms_per_move": wall * 1e3 / moves,
               "peak_device_bytes": peak, "launches": launches}
-    print(f"[7b] simulate PullRaft full width: {SIM_WALKS} walks, {moves} moves, "
+    print(f"[{tag}] simulate {spec} full width: {SIM_WALKS} walks, {moves} moves, "
           f"steps={res.steps} behaviors={res.behaviors} in {wall:.2f} s "
           f"({res.steps / wall:.0f} steps/s, {report['wall_ms_per_move']:.3f} ms per move), "
-          f"peak device memory {peak / 2**30:.2f} GiB; pull_guard, sim_pick, pull_apply, "
-          "pull_sim_check once per move, pull_predicates once")
+          f"peak device memory {peak / 2**30:.2f} GiB; {pre}_guard, sim_pick, {pre}_apply, "
+          f"{pre}_sim_check once per move, {pre}_predicates once")
     del sim
-    setup = load_setup("PullRaft.cfg", text=PULL_CFG, lenient=True)
+    setup = load_setup(f"{spec}.cfg", text=fam["cfg"], lenient=fam["lenient"])
     sim = Simulator(setup.model, setup.invariants, walks=SIM_WALKS, max_behavior_depth=SIM_DEPTH,
                     seed=0, device="cuda")
     sim.start()
@@ -1120,23 +1340,25 @@ def pull_simulate_phase(torch) -> dict:
                 k: v / 20 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}})
     del sim
     report["phase_s"] = time.perf_counter() - t0
-    print(json.dumps({"pull_simulate": report}))
-    print(f"[7b] pull simulate phase {report['phase_s']:.1f} s")
+    print(json.dumps({f"{pre}_simulate": report}))
+    print(f"[{tag}] {spec} simulate phase {report['phase_s']:.1f} s")
     return report
 
 
 def counted(torch, fn):
     """``fn()`` on the card with every kernel's count set to 0 just before
-    and read just after, the plain expands (RaftModel's, PullRaftModel's)
-    and torch's sorts
-    counted by wrapping them for the length of the call. Returns (fn's
+    and read just after, the plain expands (RaftModel's, PullRaftModel's,
+    KRaftModel's) and torch's sorts counted by wrapping them for the length
+    of the call. Returns (fn's
     result, wall s, launches, expand calls, sort calls)."""
     from raft_tpu_torch import kernels
+    from raft_tpu_torch.models.kraft import KRaftModel
     from raft_tpu_torch.models.pull_raft import PullRaftModel
     from raft_tpu_torch.models.raft import RaftModel
 
+    models = (RaftModel, PullRaftModel, KRaftModel)
     calls = {"expand": 0, "sort": 0}
-    saved = {"expand": (RaftModel.expand, PullRaftModel.expand),
+    saved = {"expand": tuple(m.expand for m in models),
              "sort": (torch.sort, torch.argsort, torch.Tensor.sort, torch.Tensor.argsort)}
 
     def counting(fn, key):
@@ -1145,7 +1367,8 @@ def counted(torch, fn):
             return fn(*a, **k)
         return wrapped
 
-    RaftModel.expand, PullRaftModel.expand = (counting(f, "expand") for f in saved["expand"])
+    for m, f in zip(models, saved["expand"]):
+        m.expand = counting(f, "expand")
     torch.sort, torch.argsort = (counting(f, "sort") for f in saved["sort"][:2])
     torch.Tensor.sort, torch.Tensor.argsort = (counting(f, "sort") for f in saved["sort"][2:])
     kernels.reset_counts()
@@ -1156,7 +1379,8 @@ def counted(torch, fn):
         wall = time.perf_counter() - t
         launches = kernels.launch_counts()
     finally:
-        RaftModel.expand, PullRaftModel.expand = saved["expand"]
+        for m, f in zip(models, saved["expand"]):
+            m.expand = f
         torch.sort, torch.argsort = saved["sort"][:2]
         torch.Tensor.sort, torch.Tensor.argsort = saved["sort"][2:]
     return out, wall, launches, calls["expand"], calls["sort"]
@@ -1249,8 +1473,9 @@ def device_time(torch, prof) -> tuple[float, dict] | None:
         if ev.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
             continue
         spans.append((ev.time_range.start, ev.time_range.end))
+        # a whole-word match: raft_apply_kernel is a substring of kraft's
         g = next((k for k, names in KERNEL_NAMES.items()
-                  if any(n in ev.name for n in names)), None)
+                  if any(re.search(rf"(?<!\w){n}(?!\w)", ev.name) for n in names)), None)
         if g is None:
             g = "torch sort" if "sort" in ev.name.lower() else "other torch"
         groups[g] = groups.get(g, 0.0) + us / 1e3
@@ -1334,7 +1559,7 @@ def simulate_phase(torch) -> dict:
     for k in SIM_PATH[:4]:
         check(launches[k] == moves, f"simulate: {launches[k]} {k} launches != {moves} moves")
     check(launches["raft_predicates"] == 1,
-          f"simulate: {launches['raft_predicates']} raft_predicates launches != 1 (the "
+          f"simulate: {launches['raft_predicates']} predicates launches != 1 (the "
           "initial states' check)")
     for k in set(KERNEL_NAMES) - set(SIM_PATH):
         check(launches[k] == 0, f"simulate: {k} launched off its path")
@@ -1393,73 +1618,96 @@ def simulate_phase(torch) -> dict:
     return report
 
 
-def liveness_phase(torch) -> dict:
-    """Phase 8: the liveness graph on the card against the CPU on the
-    two-server configuration, then Raft.cfg's constants with PROPERTY
-    ValuesNotStuck through ``run_liveness`` (the CLI's function) with its
-    launch counts."""
+# the liveness runs of phases 8 (Raft) and 8b (KRaft): the two-server
+# card-vs-CPU configuration and its message slots, and the big run's cfg
+# text at its MaxElections
+LIVE_RAFT = dict(prefix="raft", tag="8", spec="Raft", small_cfg=LIVE_SMALL_CFG, small_slots=16,
+                 cfg=LIVE_CFG, elections=LIVE_ELECTIONS, small_holds=True)
+LIVE_KRAFT = dict(prefix="kraft", tag="8b", spec="KRaft", small_cfg=KRAFT_LIVE_SMALL_CFG,
+                  small_slots=16, cfg=KRAFT_LIVE_CFG, elections=KRAFT_LIVE_ELECTIONS)
+
+
+def liveness_phase(torch, live) -> dict:
+    """Phase 8 (8b): a family's liveness graph on the card against the CPU
+    on its two-server configuration, then its cfg's constants with
+    PROPERTY ValuesNotStuck at ``live["elections"]`` through
+    ``run_liveness`` (the CLI's function) with its launch counts; the
+    family's predicates kernel held exactly against its plain version on
+    the graph's states and timed there (the Raft row of the kernel
+    table)."""
     from raft_tpu_torch.__main__ import run_liveness
 
-    t0 = time.perf_counter()
-    runs = [run_liveness("Raft.cfg", text=LIVE_SMALL_CFG, device=d, chunk=256,
-                         msg_slots=16) for d in ("cuda", "cpu")]
+    t0, tag, pre, spec = time.perf_counter(), live["tag"], live["prefix"], live["spec"]
+    cfg_name = f"{spec}.cfg"
+    runs = [run_liveness(cfg_name, text=live["small_cfg"], device=d, chunk=256,
+                         msg_slots=live["small_slots"]) for d in ("cuda", "cpu")]
     (_, cg, rg), (_, cc, rc) = runs
-    check((rg.distinct, rg.total_edges, rg.violation) == (rc.distinct, rc.total_edges, None),
-          f"liveness two servers: card {(rg.distinct, rg.total_edges, rg.violation)} != CPU "
-          f"{(rc.distinct, rc.total_edges, rc.violation)}")
+    check((rg.distinct, rg.total_edges, rg.violation) == (rc.distinct, rc.total_edges,
+                                                          rc.violation),
+          f"liveness two servers {spec}: card {(rg.distinct, rg.total_edges, rg.violation)} "
+          f"!= CPU {(rc.distinct, rc.total_edges, rc.violation)}")
     for a in ("_esrc", "_edst", "_ecand"):
-        check(np.array_equal(getattr(cg, a), getattr(cc, a)), f"liveness: {a} differ")
-    check(torch.equal(cg._states.cpu(), cc._states), "liveness: graph states differ")
-    print(f"[8] liveness two servers: {rg.distinct} states / {rg.total_edges} edges, "
-          "ValuesNotStuck holds: states and edge arrays card == CPU")
+        check(np.array_equal(getattr(cg, a), getattr(cc, a)), f"liveness {spec}: {a} differ")
+    check(torch.equal(cg._states.cpu(), cc._states), f"liveness {spec}: graph states differ")
+    small_verdict = "holds" if rg.violation is None else "VIOLATED"
+    check(rg.violation is None or not live.get("small_holds"),
+          f"liveness two-server {spec}: ValuesNotStuck {small_verdict}")
+    print(f"[{tag}] liveness two-server {spec}: {rg.distinct} states / {rg.total_edges} edges, "
+          f"ValuesNotStuck {small_verdict}: states, edge arrays and verdict card == CPU")
     del runs, cg, cc
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    text = LIVE_CFG.replace("    MaxElections = 2\n", f"    MaxElections = {LIVE_ELECTIONS}\n")
+    text = live["cfg"].replace("    MaxElections = 2\n",
+                               f"    MaxElections = {live['elections']}\n")
     (setup, checker, res), wall, launches, n_expand, _ = counted(
-        torch, lambda: run_liveness("Raft.cfg", text=text, device="cuda", chunk=CHUNK))
+        torch, lambda: run_liveness(cfg_name, text=text, device="cuda", chunk=CHUNK))
     peak = torch.cuda.max_memory_allocated()
     chunks, model = checker.chunks, setup.model
-    for k in ("raft_guard", "compact_append", "raft_apply"):
-        check(launches[k] == chunks, f"liveness: {launches[k]} {k} launches != {chunks} chunks")
+    for k in (f"{pre}_guard", "compact_append", f"{pre}_apply"):
+        check(launches[k] == chunks, f"liveness {spec}: {launches[k]} {k} launches != "
+              f"{chunks} chunks")
     check(launches["hash_rows"] == chunks + 1,
-          f"liveness: {launches['hash_rows']} hash_rows launches != {chunks} chunks + 1")
+          f"liveness {spec}: {launches['hash_rows']} hash_rows launches != {chunks} chunks + 1")
     q_names = tuple(q for _l, _p, q in model.liveness["ValuesNotStuck"])
-    check(launches["raft_predicates"] == len(q_names),
-          f"liveness: {launches['raft_predicates']} raft_predicates launches != "
+    check(launches[f"{pre}_predicates"] == len(q_names),
+          f"liveness {spec}: {launches[f'{pre}_predicates']} {pre}_predicates launches != "
           f"{len(q_names)} property instances")
-    for k in set(KERNEL_NAMES) - set(LIVE_PATH):
-        check(launches[k] == 0, f"liveness: {k} launched off its path")
-    check(n_expand == 0, f"liveness: the plain RaftModel.expand ran {n_expand} times")
+    path = tuple(k.replace("raft_", f"{pre}_") for k in LIVE_PATH)
+    for k in set(KERNEL_NAMES) - set(path):
+        check(launches[k] == 0, f"liveness {spec}: {k} launched off its path")
+    check(n_expand == 0, f"liveness {spec}: the plain expand ran {n_expand} times")
     verdict = ("holds" if res.violation is None else
                f"VIOLATED ({res.violation.instance}; prefix {len(res.violation.prefix) - 1}, "
                f"loop {len(res.violation.cycle)})")
-    check(res.violation is None, f"liveness Raft.cfg: ValuesNotStuck {verdict}")
-    report = {"max_elections": LIVE_ELECTIONS, "states": res.distinct,
+    check(res.violation is None, f"liveness {spec}: ValuesNotStuck {verdict}")
+    report = {"max_elections": live["elections"], "states": res.distinct,
               "edges": res.total_edges, "seconds": wall, "chunks": chunks,
-              "verdict": verdict, "peak_device_bytes": peak, "launches": launches}
-    print(f"[8] liveness Raft.cfg (MaxElections {LIVE_ELECTIONS}): graph {res.distinct} "
+              "verdict": verdict, "peak_device_bytes": peak, "launches": launches,
+              "two_server": {"states": rg.distinct, "edges": rg.total_edges,
+                             "verdict": small_verdict}}
+    print(f"[{tag}] liveness {spec} (MaxElections {live['elections']}): graph {res.distinct} "
           f"states / {res.total_edges} edges in {wall:.2f} s ({chunks} chunks), "
           f"ValuesNotStuck {verdict}; peak device memory {peak / 2**30:.2f} GiB")
-    # raft_predicates as the path calls it: one predicate over the graph's
-    # states. Bound: the fields ValueAllOrNothing reads, one bool written
-    from raft_tpu_torch.ops.expand import raft_predicates, raft_predicates_plain
+    # the predicates kernel as the path calls it: one predicate over the
+    # graph's states. Bound: the fields ValueAllOrNothing reads, one bool
+    # written
+    from raft_tpu_torch.ops.expand import predicates, predicates_plain
 
     states = checker._states
-    err = max(exact(torch, raft_predicates(model, states, (q,)),
-                    raft_predicates_plain(model, states, (q,))) for q in q_names)
-    check(err == 0.0, "raft_predicates differs from its plain version on the liveness graph")
+    err = max(exact(torch, predicates(model, states, (q,)),
+                    predicates_plain(model, states, (q,))) for q in q_names)
+    check(err == 0.0, f"{pre}_predicates differs from its plain version on the liveness graph")
     n = states.shape[0]
     b, by = bound(4 * n * field_lanes(model, LIVENESS_FIELDS) + n)
-    report["raft_predicates"] = dict(
-        ms=time_ms(torch, lambda: raft_predicates(model, states, q_names[:1]), iters=50),
-        plain_ms=time_ms(torch, lambda: raft_predicates_plain(model, states, q_names[:1]),
+    report[f"{pre}_predicates"] = dict(
+        ms=time_ms(torch, lambda: predicates(model, states, q_names[:1]), iters=50),
+        plain_ms=time_ms(torch, lambda: predicates_plain(model, states, q_names[:1]),
                          iters=10),
         max_abs_err=err, rows=n, bound_ms=b, bound_by=by, library_ms=None)
-    print(f"[8] raft_predicates exact on the graph's {n} states ({len(q_names)} predicates)")
+    print(f"[{tag}] {pre}_predicates exact on the graph's {n} states ({len(q_names)} predicates)")
     report["phase_s"] = time.perf_counter() - t0
-    print(json.dumps({"liveness": report}))
-    print(f"[8] liveness phase {report['phase_s']:.1f} s")
+    print(json.dumps({f"liveness_{spec}": report}))
+    print(f"[{tag}] liveness {spec} phase {report['phase_s']:.1f} s")
     return report
 
 
@@ -1715,9 +1963,10 @@ def main() -> int:
     rows.update(tiered_rows(torch, bfs5s.canon, flatc5, selv5, timed=True))
     sort5 = chunk_sort_row(torch, fps5, fresh5, bfs5s.R0, timed=True)
     del bfs5s, flatc5
-    # the pull kernels: chunks of the PullRaft and Variant2 frontiers, and
-    # edge rows
-    rows.update(pull_kernel_rows(torch, rng))
+    # the pull and KRaft kernels: chunks of the PullRaft, Variant2 and
+    # KRaft.cfg frontiers, and edge rows
+    rows.update(family_kernel_rows(torch, rng, PULL_FAM))
+    rows.update(family_kernel_rows(torch, rng, KRAFT_FAM))
     for k, r in rows.items():
         print(f"[3] {k}: exact; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
@@ -1779,7 +2028,11 @@ def main() -> int:
 
     phase_start["4c"] = time.perf_counter()
     # ---- 4c. the pull family on the main path ----
-    pull_report = pull_main_phase(torch)
+    pull_report = family_main_phase(torch, PULL_FAM)
+
+    phase_start["4d"] = time.perf_counter()
+    # ---- 4d. KRaft.cfg on the main path ----
+    kraft_report = family_main_phase(torch, KRAFT_FAM)
 
     phase_start["5"] = time.perf_counter()
     # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
@@ -1846,6 +2099,16 @@ def main() -> int:
     print(json.dumps({"trace": traces["raft"]}))
     print(json.dumps({"trace_five_servers": traces["raft5"]}))
     print(json.dumps({"trace_pull": traces["pull"]}))
+    kpin = len(KRAFT_PIN["depth_counts"]) - 1
+    traces["kraft"], rk = trace_run(
+        torch, "KRaft.cfg", KRAFT_CFG, kpin,
+        (KRAFT_PIN["distinct"], KRAFT_PIN["total"], kpin, KRAFT_PIN["terminal"]))
+    check(rk.depth_counts == KRAFT_PIN["depth_counts"] and rk.coverage == KRAFT_PIN["coverage"],
+          "KRaft depth counts or coverage at the pinned depth differ from the reference's")
+    print(f"[6] KRaft.cfg depth {kpin}: distinct, total, depth counts and coverage equal the "
+          f"reference's, {traces['kraft']['chunks']} chunks, "
+          f"{traces['kraft']['wall_ms_per_chunk']:.3f} ms/chunk wall")
+    print(json.dumps({"trace_kraft": traces["kraft"]}))
 
     phase_start["7"] = time.perf_counter()
     # ---- 7. simulate ----
@@ -1853,12 +2116,21 @@ def main() -> int:
 
     phase_start["7b"] = time.perf_counter()
     # ---- 7b. simulate the pull family ----
-    pull_sim_report = pull_simulate_phase(torch)
+    pull_sim_report = family_simulate_phase(torch, PULL_FAM)
+
+    phase_start["7c"] = time.perf_counter()
+    # ---- 7c. simulate KRaft ----
+    kraft_sim_report = family_simulate_phase(torch, KRAFT_FAM)
 
     phase_start["8"] = time.perf_counter()
     # ---- 8. liveness ----
-    live_report = liveness_phase(torch)
+    live_report = liveness_phase(torch, LIVE_RAFT)
     rows["raft_predicates"] = live_report.pop("raft_predicates")
+
+    phase_start["8b"] = time.perf_counter()
+    # ---- 8b. KRaft liveness ----
+    kraft_live_report = liveness_phase(torch, LIVE_KRAFT)
+    kraft_live_report.pop("kraft_predicates")
 
     phase_start["9"] = time.perf_counter()
     # ---- 9. results ----
@@ -1892,12 +2164,21 @@ def main() -> int:
                            "raft_tpu/checker/simulate.py:93"),
         "pull_predicates": ("raft_tpu_torch/csrc/pull_predicates.cu",
                             "raft_tpu/checker/simulate.py:142"),
+        "kraft_guard": ("raft_tpu_torch/csrc/kraft_expand.cu", "raft_tpu/models/kraft.py:857"),
+        "kraft_apply": ("raft_tpu_torch/csrc/kraft_expand.cu", "raft_tpu/models/base.py:426"),
+        "kraft_fold": ("raft_tpu_torch/csrc/kraft_fold.cu",
+                       "raft_tpu/checker/device_bfs.py:501"),
+        "kraft_sim_check": ("raft_tpu_torch/csrc/kraft_predicates.cu",
+                            "raft_tpu/checker/simulate.py:93"),
+        "kraft_predicates": ("raft_tpu_torch/csrc/kraft_predicates.cu",
+                             "raft_tpu/checker/simulate.py:142"),
     }
     # launches: each kernel's count on the path that runs it (Raft.cfg's
     # for the kernels both paths share, liveness' for raft_predicates,
     # whose row is timed there; the PullRaft stand-in's exhaustion for the
     # pull expand and fold, its simulate for pull_sim_check and
-    # pull_predicates); canon_signatures serves the checks
+    # pull_predicates; KRaft.cfg's exhaustion and simulate likewise for the
+    # kraft kernels); canon_signatures serves the checks
     path_launches = {**{k: launches[k] for k in RAFT3_PATH},
                      "canon_tiered": launches5["canon_tiered"], "canon_signatures": 0,
                      "sim_pick": sim_report["launches"]["sim_pick"],
@@ -1906,7 +2187,11 @@ def main() -> int:
                      "hash_rows": live_report["launches"]["hash_rows"],
                      **{k: pull_report["launches"][k] for k in PULL_PATH if k.startswith("pull_")},
                      **{k: pull_sim_report["launches"][k]
-                        for k in ("pull_sim_check", "pull_predicates")}}
+                        for k in ("pull_sim_check", "pull_predicates")},
+                     **{k: kraft_report["launches"][k] for k in KRAFT_PATH
+                        if k.startswith("kraft_")},
+                     **{k: kraft_sim_report["launches"][k]
+                        for k in ("kraft_sim_check", "kraft_predicates")}}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": path_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

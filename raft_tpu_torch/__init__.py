@@ -6,16 +6,18 @@ find:
   ops/       hashing, bit packing, message-bag ops, symmetry
              canonicalization (the ``canon_memo`` CUDA kernel up to four
              servers, ``canon_tiered`` and ``canon_signatures`` from
-             five), and the guard-first expand and the coverage/invariant
-             fold (``raft_guard``, ``raft_apply``, ``raft_fold`` kernels)
-  models/    state layout + batched Raft action kernels + invariants
-             (the kernels' plain versions), and the cfg -> model registry
+             five), and the guard-first expand, the coverage/invariant
+             fold and the predicates of every family (``raft_*``,
+             ``pull_*``, ``kraft_*`` kernels)
+  models/    state layout + batched action kernels + invariants of the
+             Raft, pull and KRaft families (the kernels' plain versions),
+             and the cfg -> model registry
   checker/   the device-resident BFS engine (``DeviceBFS``), its sorted-
              run seen set (``merge_runs`` kernel) and the dedup / emit
              helpers (``probe_runs``, ``chunk_sort`` and
              ``compact_append`` kernels)
   utils/     TLC ``.cfg`` parser, TLC-style trace printer
-  csrc/      the CUDA C++ sources of the ten kernels (``kernels.py``
+  csrc/      the CUDA C++ sources of the 24 kernels (``kernels.py``
              builds them with nvcc and binds them through ctypes)
 
 It imports torch and numpy only — never jax and never ``raft_tpu``.

@@ -3,6 +3,7 @@
     python -m raft_tpu_torch path/to/Raft.cfg [--device cuda|cpu] ...
     python -m raft_tpu_torch path/to/FlexibleRaft.cfg --simulate N [--sim-walks R]
     python -m raft_tpu_torch path/to/PullRaft.cfg --lenient [--simulate N]
+    python -m raft_tpu_torch path/to/KRaft.cfg [--simulate N]
 
 Runs the device BFS on ``cuda`` (the default; ``--device cpu`` runs the
 plain PyTorch versions of the kernels instead). ``-deadlock`` semantics
@@ -175,7 +176,8 @@ def main(argv=None) -> int:
                     "(their plain PyTorch versions)")
     ap.add_argument("--chunk", type=int, default=4096, help="frontier states per chunk")
     ap.add_argument("--msg-slots", type=int, default=None,
-                    help="message-bag slot count (default 48; 64 for the pull specs)")
+                    help="message-bag slot count (default 48; 64 for the pull specs, "
+                    "80 for KRaft)")
     ap.add_argument("--max-depth", type=int, default=None)
     ap.add_argument("--time-budget", type=float, default=None,
                     help="stop (non-exhausted) after this many seconds")

@@ -2,8 +2,8 @@
 
 State rows need no conversion: both packages lay a state out as the same
 ``int32 [B, W]`` vector with the same field offsets. Parameters cross as
-plain dicts (``dataclasses.asdict`` of the reference's ``RaftParams`` or
-``PullRaftParams``),
+plain dicts (``dataclasses.asdict`` of the reference's ``RaftParams``, ``PullRaftParams``
+or ``KRaftParams``),
 and fingerprints as numpy arrays: the reference's ``uint64`` values, the
 port's int64 ``u64 ^ (1 << 63)`` encoding (order-preserving; the
 ``U64_MAX`` sentinel becomes ``INT64_MAX``).
@@ -11,19 +11,23 @@ port's int64 ``u64 ^ (1 << 63)`` encoding (order-preserving; the
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .models.kraft import KRaftParams
 from .models.pull_raft import PullRaftParams
 from .models.raft import RaftParams
 
 _SIGN = np.uint64(1 << 63)
 
 
-def params_from_reference(d: dict) -> RaftParams | PullRaftParams:
-    """The port's ``RaftParams`` or ``PullRaftParams`` from
+def params_from_reference(d: dict) -> RaftParams | PullRaftParams | KRaftParams:
+    """The port's ``RaftParams``, ``PullRaftParams`` or ``KRaftParams`` from
     ``dataclasses.asdict`` of the reference's (each pair of dataclasses has
-    the same fields; a dict with ``variant2`` is the pull family's). The
+    the same fields; a dict with ``variant2`` is the pull family's, one with
+    exactly KRaftParams' five fields KRaft's). The
     pull family's fleet lanes are not ported: a dict that sets ``fleet`` or
     ``dyn_consts`` is refused."""
     d = dict(d)
@@ -34,6 +38,8 @@ def params_from_reference(d: dict) -> RaftParams | PullRaftParams:
             raise NotImplementedError(
                 "PullRaft fleet lanes (fleet, dyn_consts) are not ported to raft_tpu_torch")
         return PullRaftParams(**d)
+    if set(d) == {f.name for f in dataclasses.fields(KRaftParams)}:
+        return KRaftParams(**d)
     return RaftParams(**d)
 
 

@@ -9,7 +9,9 @@
 // otherwise), and the safety invariants that the Raft and PullRaft
 // families define with the same formulas (raft_tpu/models/raft.py:894-975
 // and pull_raft.py:703-760, with models/base.py:143
-// messages_are_valid_kernel). Each family's *_actions.cuh holds its spec
+// messages_are_valid_kernel), with the Leader code as a parameter (KRaft,
+// raft_tpu/models/kraft.py:894-957, repeats them over its own fields), and
+// the liveness predicate ValueAllOrNothing. Each family's *_actions.cuh holds its spec
 // vector, its actions and a Family type for the drivers of
 // expand_driver.cuh, fold_driver.cuh and predicates_driver.cuh.
 #pragma once
@@ -23,11 +25,14 @@ enum { RA_FOLLOWER = 0, RA_CANDIDATE = 1, RA_LEADER = 2 };
 enum { RA_NIL = 0 };
 enum { RA_ACK_NIL = 0, RA_ACK_FALSE = 1, RA_ACK_TRUE = 2 };
 
-// Invariants (models/raft.py INVARIANT_IDS, shared by the families).
+// Invariants (models/base.py INVARIANT_IDS, shared by the families).
 enum {
   INV_MESSAGES_ARE_VALID, INV_NO_LOG_DIVERGENCE, INV_LEADER_HAS_ALL_ACKED,
   INV_COMMITTED_REACH_MAJORITY, INV_TEST
 };
+// Liveness predicates: ValueAllOrNothing(v) is PRED_VALUE_AON + v
+// (models/base.py PRED_VALUE_AON).
+#define PRED_VALUE_AON 16
 
 struct Guard {
   bool valid;
@@ -51,6 +56,29 @@ __device__ __forceinline__ void ra_set2(int* a, int n0, int n1, int i, int j, in
 }
 __device__ __forceinline__ int ra_clamp(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// ---- JAX-indexed reads and writes (a traced index: a read clamps, a
+// write out of range is dropped, a negative index first counts from the
+// end; the pull and KRaft families read message fields this way) ----
+
+__device__ __forceinline__ int jx_index(int i, int n) {  // clamped, from the end if negative
+  if (i < 0) i += n;
+  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+__device__ __forceinline__ bool jx_in(int& i, int n) {  // the write index, or no write
+  if (i < 0) i += n;
+  return i >= 0 && i < n;
+}
+__device__ __forceinline__ int jx_get(const int* a, int n, int i) { return a[jx_index(i, n)]; }
+__device__ __forceinline__ int jx_get2(const int* a, int n0, int n1, int i, int j) {
+  return a[jx_index(i, n0) * n1 + jx_index(j, n1)];
+}
+__device__ __forceinline__ void jx_set(int* a, int n, int i, int v) {
+  if (jx_in(i, n)) a[i] = v;
+}
+__device__ __forceinline__ void jx_set2(int* a, int n0, int n1, int i, int j, int v) {
+  if (jx_in(i, n0) && jx_in(j, n1)) a[i * n1 + j] = v;
 }
 
 // ---- message words ----
@@ -126,15 +154,33 @@ __device__ __forceinline__ void ra_bag_stage(int* bag, const int* hi, const int*
   }
 }
 
+// A bag a chain of puts acts on: the successor's (write) or a guard lane's
+// scratch copy of the state's keys, with no counts (hi, lo, cnt: the
+// bag's field offsets in a row).
+struct ChainBag {
+  int *hi, *lo, *cnt;
+};
+
+__device__ __forceinline__ ChainBag ra_chain_bag(const int* s, int* o, int* bag, int hi, int lo,
+                                                 int cnt, int M, bool write) {
+  if (write) return ChainBag{o + hi, o + lo, o + cnt};
+  ra_bag_stage(bag, s + hi, s + lo, M);
+  return ChainBag{bag, bag + M, nullptr};
+}
+
 // ---- invariants (true = holds) over a family's fields ----
 
 // Where the invariants' fields sit in a row: the sizes, the offsets and
-// the (word, shift, mask) triples of msource and mdest.
+// the (word, shift, mask) triples of msource and mdest, and the family's
+// Leader state code (RA_LEADER for Raft and PullRaft, KRaft's own). The
+// term, commit-index and log-term offsets are the family's fields of that
+// role (KRaft: currentEpoch, highWatermark, log_epoch).
 struct InvFields {
   int S, L, V, M;
   int ct, st, lt, lv, ll, ci, ack, hi, lo;
   const int* msource;
   const int* mdest;
+  int leader;
 };
 
 // NoLogDivergence — Raft.tla:588-596
@@ -158,7 +204,7 @@ __device__ inline bool inv_leader_has_acked(const InvFields& f, const int* s) {
   for (int i = 0; i < S; ++i) {
     bool not_stale = true;
     for (int j = 0; j < S; ++j) not_stale &= ct[i] >= ct[j];
-    if (!(st[i] == RA_LEADER && not_stale)) continue;
+    if (!(st[i] == f.leader && not_stale)) continue;
     for (int v = 0; v < V; ++v) {
       if (ack[v] != RA_ACK_TRUE) continue;
       bool has = false;
@@ -176,7 +222,7 @@ __device__ inline bool inv_committed_majority(const InvFields& f, const int* s) 
   const int *lt = s + f.lt, *lv = s + f.lv;
   bool any_lead = false, ok_exists = false;
   for (int i = 0; i < S; ++i) {
-    if (!(st[i] == RA_LEADER && ci[i] > 0)) continue;
+    if (!(st[i] == f.leader && ci[i] > 0)) continue;
     any_lead = true;
     const int pos = ra_clamp(ci[i] - 1, 0, L - 1);
     int match = 0;
@@ -196,6 +242,25 @@ __device__ inline bool inv_messages_are_valid(const InvFields& f, const int* s) 
       return false;
   }
   return true;
+}
+
+// ValueAllOrNothing(v) — Raft.tla:560-573 (KRaft.tla:867-875): TRUE when
+// the last permissible election failed with no leader (the election
+// counter `ectr` at its bound), else v is on every server's log or on none
+__device__ inline bool inv_value_all_or_nothing(const InvFields& f, const int* s, int ectr,
+                                                int max_elections, int v) {
+  const int S = f.S, L = f.L;
+  const int *st = s + f.st, *lv = s + f.lv, *ll = s + f.ll;
+  int n_have = 0;
+  bool leader = false;
+  for (int i = 0; i < S; ++i) {
+    bool has = false;
+    for (int l = 0; l < L; ++l) has |= l < ll[i] && lv[i * L + l] == v + 1;
+    n_have += has;
+    leader |= st[i] == f.leader;
+  }
+  const bool spent = ectr == max_elections;
+  return (spent && !leader) || n_have == S || n_have == 0;
 }
 
 __device__ inline bool inv_eval(const InvFields& f, const int* s, int id) {

@@ -15,7 +15,10 @@
 //   3. on a miss, the min over all P = S! permutations of the permuted
 //      view's hash: non-bag lanes hash against the permutation's positional
 //      salts (server-valued lanes and bitmasks remapped through the value
-//      tables), message keys get msource/mdest remapped in place;
+//      tables), message keys get their server fields remapped in place by
+//      kind (a plain index u -> perm[u]; a Nil-able one, KRaft's mleader:
+//      0 -> 0, u -> perm[u - 1] + 1; a value naming no server -> 0, as the
+//      reference's one-hot remap sums give, raft_tpu/ops/symmetry.py:887-900);
 //   4. the missed lane claims its memo slot with atomicMax of its index.
 // A second launch lets only each slot's winner write its whole row (key and
 // value) and release the claim, so no row is ever torn: CUDA promises no
@@ -47,7 +50,7 @@ struct Params {
   int hi_off, lo_off, cnt_off, M, sym, n_fields;
   uint32_t ka, kb, wa[3], wb[3], sx[3];
   int VL;
-  int f_word[MAX_FIELDS], f_shift[MAX_FIELDS];
+  int f_word[MAX_FIELDS], f_shift[MAX_FIELDS], f_kind[MAX_FIELDS];  // kind 1: Nil-able
   uint32_t f_mask[MAX_FIELDS];
 };
 
@@ -155,7 +158,11 @@ __device__ uint64_t canon_hash(const Params& p, const Tables& T, const int* v) {
     for (int t = 0; t < P; ++t) {
       uint32_t nw[2] = {w[0], w[1]};
       for (int f = 0; f < p.n_fields; ++f) {
-        uint32_t nv = val[f] < (uint32_t)S ? T.perms[t * S + val[f]] : 0u;
+        uint32_t nv;
+        if (p.f_kind[f])
+          nv = (val[f] >= 1u && val[f] <= (uint32_t)S) ? T.perms[t * S + val[f] - 1] + 1u : 0u;
+        else
+          nv = val[f] < (uint32_t)S ? T.perms[t * S + val[f]] : 0u;
         uint32_t& word = nw[p.f_word[f]];
         word = (word & ~(p.f_mask[f] << p.f_shift[f])) | (nv << p.f_shift[f]);
       }
@@ -233,11 +240,12 @@ extern "C" int canon_memo(const int* hp, int n_hp, const uint32_t* tab, int tab_
   for (int i = 0; i < 3; ++i) p.wb[i] = (uint32_t)hp[k++];
   for (int i = 0; i < 3; ++i) p.sx[i] = (uint32_t)hp[k++];
   p.VL = hp[k++];
-  if (p.n_fields > MAX_FIELDS || n_hp != k + 3 * p.n_fields) return (int)cudaErrorInvalidValue;
+  if (p.n_fields > MAX_FIELDS || n_hp != k + 4 * p.n_fields) return (int)cudaErrorInvalidValue;
   for (int f = 0; f < p.n_fields; ++f) {
     p.f_word[f] = hp[k++];
     p.f_shift[f] = hp[k++];
     p.f_mask[f] = (uint32_t)hp[k++];
+    p.f_kind[f] = hp[k++];
   }
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;

@@ -19,7 +19,7 @@
 //
 // The layout arrives as an int32 spec vector (ops/symmetry.py
 // Canonicalizer.tier_spec): the CT_* header, then per message server field
-// (word, shift, mask), per signature field (kind, offset, size) and per
+// (word, shift, mask, kind: CT_MSG_SERVER or CT_MSG_SERVER_NIL), per signature field (kind, offset, size) and per
 // non-bag view lane (lane, c0, s1, m1, s2, m2): that lane's hash position
 // under a permutation sigma is c0 + sigma[s1] * m1 + sigma[s2] * m2 (a
 // negative s is no term), in group order: plain lanes, server-valued lanes,
@@ -42,6 +42,9 @@ enum {
 };
 // signature field kinds (SIG_KINDS)
 enum { CT_PER_SERVER, CT_PER_SERVER_VAL, CT_BITMASK, CT_PAIR };
+// message server field kinds (MSG_KINDS): a plain index, or 0 = Nil and
+// u = server u - 1 (KRaft's mleader, raft_tpu/ops/symmetry.py:337)
+enum { CT_MSG_SERVER, CT_MSG_SERVER_NIL };
 
 struct CtPair {
   uint32_t a, b;
@@ -111,10 +114,14 @@ __device__ uint64_t ct_hash(const int* sp, const int* v, const int* sigma, bool 
     if (remap) {
       const uint32_t orig[2] = {w[0], w[1]};
       for (int f = 0; f < NF; ++f) {
-        const int word = fd[3 * f], shift = fd[3 * f + 1];
-        const uint32_t mask = (uint32_t)fd[3 * f + 2];
+        const int word = fd[4 * f], shift = fd[4 * f + 1];
+        const uint32_t mask = (uint32_t)fd[4 * f + 2];
         const uint32_t val = (orig[word] >> shift) & mask;
-        const uint32_t nv = val < (uint32_t)S ? (uint32_t)sigma[val] : 0u;
+        uint32_t nv;  // a value naming no server maps to 0 (the reference's one-hot sums)
+        if (fd[4 * f + 3] == CT_MSG_SERVER_NIL)
+          nv = (val >= 1u && val <= (uint32_t)S) ? (uint32_t)sigma[val - 1] + 1u : 0u;
+        else
+          nv = val < (uint32_t)S ? (uint32_t)sigma[val] : 0u;
         w[word] = (w[word] & ~(mask << shift)) | (nv << shift);
       }
     }
@@ -129,18 +136,30 @@ __device__ uint64_t ct_hash(const int* sp, const int* v, const int* sigma, bool 
   return rt_combine(na ^ ba, nb ^ bb);
 }
 
-// add c onto the server a message field value names
+// add c onto the server a message field value names (_scatter_by_server,
+// symmetry.py:747): val for a plain index, val - 1 for a Nil-able one
+// (none when Nil)
 __device__ __forceinline__ void ct_scatter(uint32_t* acc_a, uint32_t* acc_b, CtPair c,
-                                           uint32_t val, int S) {
+                                           uint32_t val, int kind, int S) {
+  if (kind == CT_MSG_SERVER_NIL) {
+    if (val == 0u) return;
+    val -= 1u;
+  }
   if (val < (uint32_t)S) {
     acc_a[val] += c.a;
     acc_b[val] += c.b;
   }
 }
 
-// the signature of the server a message field value names, folded under salt
+// the signature of the server a message field value names, folded under
+// salt (_gather_sig_fold, symmetry.py:769: the index clamped into range,
+// and 0 for a Nil Nil-able field)
 __device__ __forceinline__ CtPair ct_gather_fold(const uint32_t* sa, const uint32_t* sb,
-                                                 uint32_t val, int S, CtPair salt) {
+                                                 uint32_t val, int kind, int S, CtPair salt) {
+  if (kind == CT_MSG_SERVER_NIL) {
+    if (val == 0u) return CtPair{0u, 0u};
+    val -= 1u;
+  }
   const int t = val < (uint32_t)S ? (int)val : S - 1;
   return ct_xmix(sa[t], sb[t], salt);
 }
@@ -150,7 +169,7 @@ __device__ __forceinline__ CtPair ct_rec0(const int* sp, const int* v, int m) {
   const int* fd = sp + sp[CT_OFF_FIELDS];
   uint32_t w[2] = {(uint32_t)v[sp[CT_LO] + m], (uint32_t)v[sp[CT_HI] + m]};
   for (int f = 0; f < sp[CT_NF]; ++f)
-    w[fd[3 * f]] &= ~((uint32_t)fd[3 * f + 2] << fd[3 * f + 1]);
+    w[fd[4 * f]] &= ~((uint32_t)fd[4 * f + 2] << fd[4 * f + 1]);
   const uint32_t x[3] = {w[1], w[0], (uint32_t)v[sp[CT_CNT] + m]};
   uint32_t ra = 0, rb = 0;
   for (int i = 0; i < 3; ++i) {
@@ -238,8 +257,8 @@ __device__ void ct_signatures(const int* sp, const int* v, uint64_t* sig) {
     for (int k = 0; k < NF; ++k) {
       const CtPair s = ct_salt(k, 8);
       const CtPair c{cnt * rt_mix32(rec0.a + s.a), cnt * rt_mix32(rec0.b + s.b)};
-      const uint32_t val = (w[fd[3 * k]] >> fd[3 * k + 1]) & (uint32_t)fd[3 * k + 2];
-      ct_scatter(aa, ab, c, val, S);
+      const uint32_t val = (w[fd[4 * k]] >> fd[4 * k + 1]) & (uint32_t)fd[4 * k + 2];
+      ct_scatter(aa, ab, c, val, fd[4 * k + 3], S);
     }
   }
   for (int i = 0; i < S; ++i) {
@@ -294,8 +313,8 @@ __device__ void ct_signatures(const int* sp, const int* v, uint64_t* sig) {
       CtPair fold[CT_MAX_FIELDS];
       CtPair osum{0u, 0u};
       for (int k = 0; k < NF; ++k) {
-        val[k] = (w[fd[3 * k]] >> fd[3 * k + 1]) & (uint32_t)fd[3 * k + 2];
-        fold[k] = ct_gather_fold(sa, sb, val[k], S, ct_salt(k, 13 + rr));
+        val[k] = (w[fd[4 * k]] >> fd[4 * k + 1]) & (uint32_t)fd[4 * k + 2];
+        fold[k] = ct_gather_fold(sa, sb, val[k], fd[4 * k + 3], S, ct_salt(k, 13 + rr));
         osum.a += fold[k].a;
         osum.b += fold[k].b;
       }
@@ -303,7 +322,7 @@ __device__ void ct_signatures(const int* sp, const int* v, uint64_t* sig) {
         const CtPair s = ct_salt(k, 14 + rr);
         const CtPair c{cnt * rt_mix32(rec0.a + (osum.a - fold[k].a) + s.a),
                        cnt * rt_mix32(rec0.b + (osum.b - fold[k].b) + s.b)};
-        ct_scatter(aa, ab, c, val[k], S);
+        ct_scatter(aa, ab, c, val[k], fd[4 * k + 3], S);
       }
     }
     for (int i = 0; i < S; ++i) {

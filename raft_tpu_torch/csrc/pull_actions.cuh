@@ -68,27 +68,6 @@ enum {
 
 #define PFLD(o) (sp[PS_##o])
 
-// ---- JAX-indexed reads and writes ----
-
-__device__ __forceinline__ int pu_index(int i, int n) {  // clamped, from the end if negative
-  if (i < 0) i += n;
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
-}
-__device__ __forceinline__ bool pu_in(int& i, int n) {  // the write index, or no write
-  if (i < 0) i += n;
-  return i >= 0 && i < n;
-}
-__device__ __forceinline__ int pu_get(const int* a, int n, int i) { return a[pu_index(i, n)]; }
-__device__ __forceinline__ int pu_get2(const int* a, int n0, int n1, int i, int j) {
-  return a[pu_index(i, n0) * n1 + pu_index(j, n1)];
-}
-__device__ __forceinline__ void pu_set(int* a, int n, int i, int v) {
-  if (pu_in(i, n)) a[i] = v;
-}
-__device__ __forceinline__ void pu_set2(int* a, int n0, int n1, int i, int j, int v) {
-  if (pu_in(i, n0) && pu_in(j, n1)) a[i * n1 + j] = v;
-}
-
 // ---- message words ----
 
 __device__ __forceinline__ int pu_unpack(const int* sp, int hi, int lo, int f) {
@@ -103,8 +82,8 @@ __device__ __forceinline__ void pu_pack(const int* sp, Key& k, int f, long long 
 // LastTerm(log[i]) — PullRaft.tla:134
 __device__ __forceinline__ int pu_last_term(const int* sp, const int* s, int i) {
   const int S = PFLD(S), L = PFLD(L);
-  const int ll = pu_get(s + PFLD(LL), S, i);
-  return ll > 0 ? pu_get2(s + PFLD(LT), S, L, i, ll - 1) : 0;
+  const int ll = jx_get(s + PFLD(LL), S, i);
+  return ll > 0 ? jx_get2(s + PFLD(LT), S, L, i, ll - 1) : 0;
 }
 
 // LastCommonEntry — PullRaft.tla:211-226: the highest index k in 1..ll of
@@ -122,20 +101,6 @@ __device__ __forceinline__ void pu_last_common(const int* lt, int L, int ll, int
   *term = best > 0 ? lt[ra_clamp(best - 1, 0, L - 1)] : 0;
 }
 
-// A bag the chain of puts acts on: the successor's (WRITE) or the guard
-// lane's scratch copy of the keys, with no counts.
-struct PuBag {
-  int *hi, *lo, *cnt;
-};
-
-__device__ __forceinline__ PuBag pu_chain_bag(const int* sp, const int* s, int* o, int* bag,
-                                              bool write) {
-  const int M = PFLD(M);
-  if (write) return PuBag{o + PFLD(HI), o + PFLD(LO), o + PFLD(CNT)};
-  ra_bag_stage(bag, s + PFLD(HI), s + PFLD(LO), M);
-  return PuBag{bag, bag + M, nullptr};
-}
-
 // ---- action groups ----
 
 // Restart(i) — PullRaft.tla:258-265 (keeps currentTerm, leader, log);
@@ -144,17 +109,17 @@ template <bool WRITE>
 __device__ bool pu_restart(const int* sp, const int* s, int* o, int i) {
   if (WRITE) {
     const int S = PFLD(S);
-    pu_set(o + PFLD(ST), S, i, RA_FOLLOWER);
-    pu_set(o + PFLD(VG), S, i, 0);
-    for (int k = 0; k < S; ++k) pu_set2(o + PFLD(MI), S, S, i, k, 0);
-    pu_set(o + PFLD(CI), S, i, 0);
+    jx_set(o + PFLD(ST), S, i, RA_FOLLOWER);
+    jx_set(o + PFLD(VG), S, i, 0);
+    for (int k = 0; k < S; ++k) jx_set2(o + PFLD(MI), S, S, i, k, 0);
+    jx_set(o + PFLD(CI), S, i, 0);
     o[PFLD(RCTR)] = s[PFLD(RCTR)] + 1;
     if (PFLD(VARIANT2)) {
-      pu_set(o + PFLD(LEADER), S, i, RA_NIL);
+      jx_set(o + PFLD(LEADER), S, i, RA_NIL);
       for (int k = 0; k < S; ++k) {
-        pu_set2(o + PFLD(VLE_HAS), S, S, i, k, 0);
-        pu_set2(o + PFLD(VLE_IDX), S, S, i, k, 0);
-        pu_set2(o + PFLD(VLE_TERM), S, S, i, k, 0);
+        jx_set2(o + PFLD(VLE_HAS), S, S, i, k, 0);
+        jx_set2(o + PFLD(VLE_IDX), S, S, i, k, 0);
+        jx_set2(o + PFLD(VLE_TERM), S, S, i, k, 0);
       }
     }
   }
@@ -167,13 +132,13 @@ __device__ bool pu_restart(const int* sp, const int* s, int* o, int i) {
 template <bool WRITE>
 __device__ Guard pu_request_vote(const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = PFLD(S), M = PFLD(M);
-  const int st = pu_get(s + PFLD(ST), S, i);
+  const int st = jx_get(s + PFLD(ST), S, i);
   Guard g{s[PFLD(ECTR)] < PFLD(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE),
           PR_REQUESTVOTE, false};
   if (!WRITE && !g.valid) return g;  // ovf is masked by valid
-  const int new_term = pu_get(s + PFLD(CT), S, i) + 1;
-  const int last_t = pu_last_term(sp, s, i), ll = pu_get(s + PFLD(LL), S, i);
-  const PuBag b = pu_chain_bag(sp, s, o, bag, WRITE);
+  const int new_term = jx_get(s + PFLD(CT), S, i) + 1;
+  const int last_t = pu_last_term(sp, s, i), ll = jx_get(s + PFLD(LL), S, i);
+  const ChainBag b = ra_chain_bag(s, o, bag, PFLD(HI), PFLD(LO), PFLD(CNT), M, WRITE);
   bool ovf = false;
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
@@ -192,15 +157,15 @@ __device__ Guard pu_request_vote(const int* sp, const int* s, int* o, int i, int
   }
   g.ovf = ovf && g.valid;
   if (WRITE) {
-    pu_set(o + PFLD(ST), S, i, RA_CANDIDATE);
-    pu_set(o + PFLD(CT), S, i, new_term);
-    pu_set(o + PFLD(VG), S, i, 1 << i);
+    jx_set(o + PFLD(ST), S, i, RA_CANDIDATE);
+    jx_set(o + PFLD(CT), S, i, new_term);
+    jx_set(o + PFLD(VG), S, i, 1 << i);
     o[PFLD(ECTR)] = s[PFLD(ECTR)] + 1;
     if (PFLD(VARIANT2)) {
-      pu_set(o + PFLD(VF), S, i, i + 1);
-      pu_set(o + PFLD(LEADER), S, i, RA_NIL);
+      jx_set(o + PFLD(VF), S, i, i + 1);
+      jx_set(o + PFLD(LEADER), S, i, RA_NIL);
     } else {
-      pu_set(o + PFLD(LEADER), S, i, i + 1);
+      jx_set(o + PFLD(LEADER), S, i, i + 1);
     }
   }
   return g;
@@ -212,16 +177,16 @@ __device__ Guard pu_request_vote(const int* sp, const int* s, int* o, int i, int
 template <bool WRITE>
 __device__ Guard pu_become_leader(const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = PFLD(S), L = PFLD(L), M = PFLD(M);
-  const int vg = pu_get(s + PFLD(VG), S, i);
+  const int vg = jx_get(s + PFLD(VG), S, i);
   int votes = 0;
   for (int k = 0; k < S; ++k) votes += (vg >> k) & 1;
-  Guard g{pu_get(s + PFLD(ST), S, i) == RA_CANDIDATE && 2 * votes > S, PR_BECOMELEADER, false};
+  Guard g{jx_get(s + PFLD(ST), S, i) == RA_CANDIDATE && 2 * votes > S, PR_BECOMELEADER, false};
   if (!WRITE && !g.valid) return g;
   const bool v2 = PFLD(VARIANT2);
-  const int ct = pu_get(s + PFLD(CT), S, i);
-  const int* lt_i = s + PFLD(LT) + pu_index(i, S) * L;
-  const int ll_i = pu_get(s + PFLD(LL), S, i);
-  const PuBag b = pu_chain_bag(sp, s, o, bag, WRITE);
+  const int ct = jx_get(s + PFLD(CT), S, i);
+  const int* lt_i = s + PFLD(LT) + jx_index(i, S) * L;
+  const int ll_i = jx_get(s + PFLD(LL), S, i);
+  const ChainBag b = ra_chain_bag(s, o, bag, PFLD(HI), PFLD(LO), PFLD(CNT), M, WRITE);
   bool ovf = false;
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
@@ -230,10 +195,10 @@ __device__ Guard pu_become_leader(const int* sp, const int* s, int* o, int i, in
     pu_pack(sp, k, PF_MTERM, ct);
     bool send = true;
     if (v2) {
-      const bool has = pu_get2(s + PFLD(VLE_HAS), S, S, i, j) > 0;
+      const bool has = jx_get2(s + PFLD(VLE_HAS), S, S, i, j) > 0;
       int lce_i, lce_t;
-      pu_last_common(lt_i, L, ll_i, pu_get2(s + PFLD(VLE_IDX), S, S, i, j),
-                     pu_get2(s + PFLD(VLE_TERM), S, S, i, j), &lce_i, &lce_t);
+      pu_last_common(lt_i, L, ll_i, jx_get2(s + PFLD(VLE_IDX), S, S, i, j),
+                     jx_get2(s + PFLD(VLE_TERM), S, S, i, j), &lce_i, &lce_t);
       pu_pack(sp, k, PF_MLCHAS, has);
       pu_pack(sp, k, PF_MLCINDEX, has ? lce_i : 0);
       pu_pack(sp, k, PF_MLCTERM, has ? lce_t : 0);
@@ -251,9 +216,9 @@ __device__ Guard pu_become_leader(const int* sp, const int* s, int* o, int i, in
   }
   g.ovf = ovf && g.valid;
   if (WRITE) {
-    pu_set(o + PFLD(ST), S, i, RA_LEADER);
-    for (int k = 0; k < S; ++k) pu_set2(o + PFLD(MI), S, S, i, k, 0);
-    if (v2) pu_set(o + PFLD(LEADER), S, i, i + 1);
+    jx_set(o + PFLD(ST), S, i, RA_LEADER);
+    for (int k = 0; k < S; ++k) jx_set2(o + PFLD(MI), S, S, i, k, 0);
+    if (v2) jx_set(o + PFLD(LEADER), S, i, i + 1);
   }
   return g;
 }
@@ -262,16 +227,16 @@ __device__ Guard pu_become_leader(const int* sp, const int* s, int* o, int i, in
 template <bool WRITE>
 __device__ Guard pu_client_request(const int* sp, const int* s, int* o, int i, int v) {
   const int S = PFLD(S), L = PFLD(L), V = PFLD(V);
-  Guard g{pu_get(s + PFLD(ST), S, i) == RA_LEADER && pu_get(s + PFLD(ACK), V, v) == RA_ACK_NIL,
+  Guard g{jx_get(s + PFLD(ST), S, i) == RA_LEADER && jx_get(s + PFLD(ACK), V, v) == RA_ACK_NIL,
           PR_CLIENTREQUEST, false};
-  const int pos = pu_get(s + PFLD(LL), S, i);
+  const int pos = jx_get(s + PFLD(LL), S, i);
   g.ovf = g.valid && pos >= L;
   if (WRITE) {
     const int posc = ra_clamp(pos, 0, L - 1);
-    pu_set2(o + PFLD(LT), S, L, i, posc, pu_get(s + PFLD(CT), S, i));
-    pu_set2(o + PFLD(LV), S, L, i, posc, v + 1);
-    pu_set(o + PFLD(LL), S, i, pos + 1);
-    pu_set(o + PFLD(ACK), V, v, RA_ACK_FALSE);
+    jx_set2(o + PFLD(LT), S, L, i, posc, jx_get(s + PFLD(CT), S, i));
+    jx_set2(o + PFLD(LV), S, L, i, posc, v + 1);
+    jx_set(o + PFLD(LL), S, i, pos + 1);
+    jx_set(o + PFLD(ACK), V, v, RA_ACK_FALSE);
   }
   return g;
 }
@@ -280,13 +245,13 @@ __device__ Guard pu_client_request(const int* sp, const int* s, int* o, int i, i
 template <bool WRITE>
 __device__ Guard pu_send_pull(const int* sp, const int* s, int* o, int i, int j) {
   const int S = PFLD(S), M = PFLD(M);
-  Guard g{pu_get(s + PFLD(ST), S, i) == RA_FOLLOWER && pu_get(s + PFLD(LEADER), S, i) == j + 1,
+  Guard g{jx_get(s + PFLD(ST), S, i) == RA_FOLLOWER && jx_get(s + PFLD(LEADER), S, i) == j + 1,
           PR_SENDPULL, false};
   if (!WRITE && !g.valid) return g;
   Key k{{0, 0}};
   pu_pack(sp, k, PF_MTYPE, PU_PULLREQ);
-  pu_pack(sp, k, PF_MTERM, pu_get(s + PFLD(CT), S, i));
-  pu_pack(sp, k, PF_MLASTLOGINDEX, pu_get(s + PFLD(LL), S, i));
+  pu_pack(sp, k, PF_MTERM, jx_get(s + PFLD(CT), S, i));
+  pu_pack(sp, k, PF_MLASTLOGINDEX, jx_get(s + PFLD(LL), S, i));
   pu_pack(sp, k, PF_MLASTLOGTERM, pu_last_term(sp, s, i));
   pu_pack(sp, k, PF_MSOURCE, i);
   pu_pack(sp, k, PF_MDEST, j);
@@ -305,9 +270,9 @@ __device__ Guard pu_send_pull(const int* sp, const int* s, int* o, int i, int j)
 __device__ __forceinline__ int pu_new_commit(const int* sp, const int* s, int dst, int src,
                                              int pidx, int ct, int ll, const int* lt) {
   const int S = PFLD(S), L = PFLD(L);
-  const int* mrow = s + PFLD(MI) + pu_index(dst, S) * S;
+  const int* mrow = s + PFLD(MI) + jx_index(dst, S) * S;
   int d_w = dst, s_w = src;
-  const bool wrote = pu_in(d_w, S) && pu_in(s_w, S);
+  const bool wrote = jx_in(d_w, S) && jx_in(s_w, S);
   int max_agree = 0;
   for (int idx = 1; idx <= L; ++idx) {
     int cnt = 0;
@@ -318,7 +283,7 @@ __device__ __forceinline__ int pu_new_commit(const int* sp, const int* s, int ds
     if (2 * cnt > S && idx <= ll) max_agree = idx;
   }
   const int term_at = lt[ra_clamp(max_agree - 1, 0, L - 1)];
-  return (max_agree > 0 && term_at == ct) ? max_agree : pu_get(s + PFLD(CI), S, dst);
+  return (max_agree > 0 && term_at == ct) ? max_agree : jx_get(s + PFLD(CI), S, dst);
 }
 
 // HandleMessage(slot m): the eight receipt disjuncts (UpdateTerm,
@@ -331,17 +296,17 @@ __device__ Guard pu_handle_message(const int* sp, const int* s, int* o, int m) {
   const int S = PFLD(S), L = PFLD(L), M = PFLD(M), V = PFLD(V);
   const bool v2 = PFLD(VARIANT2);
   Guard g{false, -1, false};
-  const int khi = pu_get(s + PFLD(HI), M, m), klo = pu_get(s + PFLD(LO), M, m);
-  const int kcnt = pu_get(s + PFLD(CNT), M, m);
+  const int khi = jx_get(s + PFLD(HI), M, m), klo = jx_get(s + PFLD(LO), M, m);
+  const int kcnt = jx_get(s + PFLD(CNT), M, m);
   if (khi == RA_EMPTY) return g;  // every branch needs a record in the domain
   const int mtype = pu_unpack(sp, khi, klo, PF_MTYPE);
   const int mterm = pu_unpack(sp, khi, klo, PF_MTERM);
   const int src = pu_unpack(sp, khi, klo, PF_MSOURCE);
   const int dst = pu_unpack(sp, khi, klo, PF_MDEST);
-  const int ct = pu_get(s + PFLD(CT), S, dst), st = pu_get(s + PFLD(ST), S, dst);
-  const int ll = pu_get(s + PFLD(LL), S, dst);
-  const int* lt = s + PFLD(LT) + pu_index(dst, S) * L;  // log rows of dst (clamped)
-  const int* lv = s + PFLD(LV) + pu_index(dst, S) * L;
+  const int ct = jx_get(s + PFLD(CT), S, dst), st = jx_get(s + PFLD(ST), S, dst);
+  const int ll = jx_get(s + PFLD(LL), S, dst);
+  const int* lt = s + PFLD(LT) + jx_index(dst, S) * L;  // log rows of dst (clamped)
+  const int* lv = s + PFLD(LV) + jx_index(dst, S) * L;
   const bool recv = kcnt > 0;  // ReceivableMessage (PullRaft.tla:166-172)
   const int mlli = pu_unpack(sp, khi, klo, PF_MLASTLOGINDEX);
   const int mllt = pu_unpack(sp, khi, klo, PF_MLASTLOGTERM);
@@ -353,7 +318,7 @@ __device__ Guard pu_handle_message(const int* sp, const int* s, int* o, int m) {
   const int last_t = ll > 0 ? lt[ra_clamp(ll - 1, 0, L - 1)] : 0;
   const bool rv_logok = mllt > last_t || (mllt == last_t && mlli >= ll);
   const int vote_off = v2 ? PFLD(VF) : PFLD(LEADER);
-  const int vote = pu_get(s + vote_off, S, dst);
+  const int vote = jx_get(s + vote_off, S, dst);
   const bool grant = mterm == ct && rv_logok && (vote == RA_NIL || vote == src + 1);
   bool b_rvreq = recv && mtype == PU_RVREQ && mterm <= ct;
 
@@ -432,38 +397,38 @@ __device__ Guard pu_handle_message(const int* sp, const int* s, int* o, int m) {
 
   if (WRITE) {
     if (b_upd) {
-      pu_set(o + PFLD(CT), S, dst, mterm);
-      pu_set(o + PFLD(ST), S, dst, RA_FOLLOWER);
-      pu_set(o + PFLD(LEADER), S, dst, RA_NIL);
-      if (v2) pu_set(o + PFLD(VF), S, dst, RA_NIL);
+      jx_set(o + PFLD(CT), S, dst, mterm);
+      jx_set(o + PFLD(ST), S, dst, RA_FOLLOWER);
+      jx_set(o + PFLD(LEADER), S, dst, RA_NIL);
+      if (v2) jx_set(o + PFLD(VF), S, dst, RA_NIL);
     }
-    if (b_rvreq && grant) pu_set(o + vote_off, S, dst, src + 1);
+    if (b_rvreq && grant) jx_set(o + vote_off, S, dst, src + 1);
     if (b_rvresp && pu_unpack(sp, khi, klo, PF_MVOTEGRANTED) > 0) {
-      pu_set(o + PFLD(VG), S, dst, pu_get(s + PFLD(VG), S, dst) | (1 << src));
+      jx_set(o + PFLD(VG), S, dst, jx_get(s + PFLD(VG), S, dst) | (1 << src));
       if (v2) {  // votesLastEntry (PullRaftVariant2.tla:339-344)
-        pu_set2(o + PFLD(VLE_HAS), S, S, dst, src, 1);
-        pu_set2(o + PFLD(VLE_IDX), S, S, dst, src, mlli);
-        pu_set2(o + PFLD(VLE_TERM), S, S, dst, src, mllt);
+        jx_set2(o + PFLD(VLE_HAS), S, S, dst, src, 1);
+        jx_set2(o + PFLD(VLE_IDX), S, S, dst, src, mlli);
+        jx_set2(o + PFLD(VLE_TERM), S, S, dst, src, mllt);
       }
     }
     if (b_accept) {
-      pu_set2(o + PFLD(MI), S, S, dst, src, mlli);
-      pu_set(o + PFLD(CI), S, dst, new_ci);
+      jx_set2(o + PFLD(MI), S, S, dst, src, mlli);
+      jx_set(o + PFLD(CI), S, dst, new_ci);
       // acked[v]: FALSE -> TRUE for v committed in (ci, new_ci] (PullRaft.tla:476-479)
-      const int ci = pu_get(s + PFLD(CI), S, dst);
+      const int ci = jx_get(s + PFLD(CI), S, dst);
       for (int v = 0; v < V; ++v) {
         bool committed = false;
         for (int l = 0; l < L; ++l) committed |= l + 1 > ci && l + 1 <= new_ci && lv[l] == v + 1;
         if (s[PFLD(ACK) + v] == RA_ACK_FALSE && committed) o[PFLD(ACK) + v] = RA_ACK_TRUE;
       }
     }
-    if (b_learn) pu_set(o + PFLD(LEADER), S, dst, src + 1);
+    if (b_learn) jx_set(o + PFLD(LEADER), S, dst, src + 1);
     if (b_succ) {
       const int app_pos = ra_clamp(ll, 0, L - 1);
-      pu_set(o + PFLD(CI), S, dst, pu_unpack(sp, khi, klo, PF_MCOMMITINDEX));
-      pu_set2(o + PFLD(LT), S, L, dst, app_pos, pu_unpack(sp, khi, klo, PF_ETERM));
-      pu_set2(o + PFLD(LV), S, L, dst, app_pos, pu_unpack(sp, khi, klo, PF_EVALUE));
-      pu_set(o + PFLD(LL), S, dst, ll + 1);
+      jx_set(o + PFLD(CI), S, dst, pu_unpack(sp, khi, klo, PF_MCOMMITINDEX));
+      jx_set2(o + PFLD(LT), S, L, dst, app_pos, pu_unpack(sp, khi, klo, PF_ETERM));
+      jx_set2(o + PFLD(LV), S, L, dst, app_pos, pu_unpack(sp, khi, klo, PF_EVALUE));
+      jx_set(o + PFLD(LL), S, dst, ll + 1);
     }
     // truncations keep the lanes below the new length and zero the rest:
     // HandleFailPull to mlastCommonEntry.index clamped to Len
@@ -477,10 +442,10 @@ __device__ Guard pu_handle_message(const int* sp, const int* s, int* o, int m) {
       else
         new_ll = (pu_unpack(sp, khi, klo, PF_MLCHAS) > 0 && ll >= mlc_idx) ? mlc_idx : ll;
       for (int l = 0; l < L; ++l) {
-        pu_set2(o + PFLD(LT), S, L, dst, l, l < new_ll ? lt[l] : 0);
-        pu_set2(o + PFLD(LV), S, L, dst, l, l < new_ll ? lv[l] : 0);
+        jx_set2(o + PFLD(LT), S, L, dst, l, l < new_ll ? lt[l] : 0);
+        jx_set2(o + PFLD(LV), S, L, dst, l, l < new_ll ? lv[l] : 0);
       }
-      pu_set(o + PFLD(LL), S, dst, new_ll);
+      jx_set(o + PFLD(LL), S, dst, new_ll);
     }
     if (putb || dropb) o[PFLD(CNT) + m] -= 1;  // the incoming Discard
     if (putb) ra_bag_insert(o + PFLD(HI), o + PFLD(LO), o + PFLD(CNT), M, k, p);
@@ -509,7 +474,7 @@ __device__ Guard pu_action(const int* sp, const int* s, int* o, const int* cd, i
 __device__ __forceinline__ bool pu_invariant(const int* sp, const int* s, int id) {
   const InvFields f{PFLD(S),  PFLD(L),  PFLD(V),  PFLD(M),   PFLD(CT), PFLD(ST), PFLD(LT),
                     PFLD(LV), PFLD(LL), PFLD(CI), PFLD(ACK), PFLD(HI), PFLD(LO),
-                    sp + PS_MSG + 3 * PF_MSOURCE, sp + PS_MSG + 3 * PF_MDEST};
+                    sp + PS_MSG + 3 * PF_MSOURCE, sp + PS_MSG + 3 * PF_MDEST, RA_LEADER};
   return inv_eval(f, s, id);
 }
 

@@ -67,9 +67,6 @@ enum {
   G_CLIENT_REQUEST, G_ADVANCE_COMMIT, G_APPEND_ENTRIES, G_ADVANCE_FSYNC,
   G_HANDLE_MESSAGE
 };
-// Liveness predicates: ValueAllOrNothing(v) is PRED_VALUE_AON + v
-// (models/raft.py PRED_VALUE_AON).
-#define PRED_VALUE_AON 16
 
 // ---- message words ----
 
@@ -512,35 +509,21 @@ __device__ Guard ra_action(const int* sp, const int* s, int* o, const int* cd, i
 
 // ---- invariants (true = holds): actions_common.cuh over Raft's fields ----
 
-__device__ __forceinline__ bool ra_invariant(const int* sp, const int* s, int id) {
-  const InvFields f{FLD(S),  FLD(L),  FLD(V),  FLD(M),  FLD(CT),  FLD(ST),  FLD(LT),
-                    FLD(LV), FLD(LL), FLD(CI), FLD(ACK), FLD(HI), FLD(LO),
-                    sp + SP_MSG + 3 * MF_MSOURCE, sp + SP_MSG + 3 * MF_MDEST};
-  return inv_eval(f, s, id);
+__device__ __forceinline__ InvFields ra_inv_fields(const int* sp) {
+  return InvFields{FLD(S),  FLD(L),  FLD(V),  FLD(M),  FLD(CT),  FLD(ST),  FLD(LT),
+                   FLD(LV), FLD(LL), FLD(CI), FLD(ACK), FLD(HI), FLD(LO),
+                   sp + SP_MSG + 3 * MF_MSOURCE, sp + SP_MSG + 3 * MF_MDEST, RA_LEADER};
 }
 
-// ---- liveness predicates (true = holds) ----
-
-// ValueAllOrNothing(v) — Raft.tla:560-573: TRUE when the last permissible
-// election failed with no leader, else v is on every server's log or on none
-__device__ bool ra_value_all_or_nothing(const int* sp, const int* s, int v) {
-  const int S = FLD(S), L = FLD(L);
-  const int *st = s + FLD(ST), *lv = s + FLD(LV), *ll = s + FLD(LL);
-  int n_have = 0;
-  bool leader = false;
-  for (int i = 0; i < S; ++i) {
-    bool has = false;
-    for (int l = 0; l < L; ++l) has |= l < ll[i] && lv[i * L + l] == v + 1;
-    n_have += has;
-    leader |= st[i] == RA_LEADER;
-  }
-  const bool spent = s[FLD(ECTR)] == FLD(MAX_ELECTIONS);
-  return (spent && !leader) || n_have == S || n_have == 0;
+__device__ __forceinline__ bool ra_invariant(const int* sp, const int* s, int id) {
+  return inv_eval(ra_inv_fields(sp), s, id);
 }
 
 // An invariant id (INV_*) or a liveness predicate id (PRED_VALUE_AON + v).
 __device__ __forceinline__ bool ra_predicate(const int* sp, const int* s, int id) {
-  if (id >= PRED_VALUE_AON) return ra_value_all_or_nothing(sp, s, id - PRED_VALUE_AON);
+  if (id >= PRED_VALUE_AON)
+    return inv_value_all_or_nothing(ra_inv_fields(sp), s, s[FLD(ECTR)], FLD(MAX_ELECTIONS),
+                                    id - PRED_VALUE_AON);
   return ra_invariant(sp, s, id);
 }
 

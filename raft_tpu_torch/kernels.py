@@ -3,7 +3,8 @@
 Each kernel lives in a CUDA C++ source in ``csrc/`` with a plain C
 interface (``raft_guard`` and ``raft_apply`` share ``raft_expand.cu``;
 ``raft_predicates`` and simulate's ``raft_sim_check`` share
-``raft_predicates.cu``; the pull family's ``pull_*`` kernels the same way;
+``raft_predicates.cu``; the pull family's ``pull_*`` and KRaft's
+``kraft_*`` kernels the same way;
 ``*.cuh`` headers are shared device code and kernel drivers). ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` compiles each source into a shared
 library under ``build/raft_tpu_torch/`` at first use (``build_all``
@@ -72,7 +73,7 @@ _SIGNATURES = {
         "hash_rows": [_P, _L, _I, _U, _U, _I, _P, _P],
     },
 }
-for _fam in ("raft", "pull"):
+for _fam in ("raft", "pull", "kraft"):
     _SIGNATURES[f"{_fam}_expand"] = {f"{_fam}_guard": _GUARD, f"{_fam}_apply": _APPLY}
     _SIGNATURES[f"{_fam}_fold"] = {f"{_fam}_fold": _FOLD}
     _SIGNATURES[f"{_fam}_predicates"] = {f"{_fam}_predicates": _PREDICATES,
@@ -171,15 +172,23 @@ PULL_APPLY = Kernel("pull_apply", source="pull_expand")
 PULL_FOLD = Kernel("pull_fold")
 PULL_PREDICATES = Kernel("pull_predicates")
 PULL_SIM_CHECK = Kernel("pull_sim_check", source="pull_predicates")
+KRAFT_GUARD = Kernel("kraft_guard", source="kraft_expand")
+KRAFT_APPLY = Kernel("kraft_apply", source="kraft_expand")
+KRAFT_FOLD = Kernel("kraft_fold")
+KRAFT_PREDICATES = Kernel("kraft_predicates")
+KRAFT_SIM_CHECK = Kernel("kraft_sim_check", source="kraft_predicates")
 ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, RAFT_GUARD, RAFT_APPLY,
        RAFT_FOLD, CHUNK_SORT, CANON_TIERED, CANON_SIGNATURES, SIM_PICK, RAFT_PREDICATES,
        RAFT_SIM_CHECK, HASH_ROWS, PULL_GUARD, PULL_APPLY, PULL_FOLD, PULL_PREDICATES,
-       PULL_SIM_CHECK)
+       PULL_SIM_CHECK, KRAFT_GUARD, KRAFT_APPLY, KRAFT_FOLD, KRAFT_PREDICATES,
+       KRAFT_SIM_CHECK)
 # each family's kernels by role (models/*.py KERNELS; ops/expand.py launches them)
 RAFT_FAMILY = dict(guard=RAFT_GUARD, apply=RAFT_APPLY, fold=RAFT_FOLD,
                    predicates=RAFT_PREDICATES, sim_check=RAFT_SIM_CHECK)
 PULL_FAMILY = dict(guard=PULL_GUARD, apply=PULL_APPLY, fold=PULL_FOLD,
                    predicates=PULL_PREDICATES, sim_check=PULL_SIM_CHECK)
+KRAFT_FAMILY = dict(guard=KRAFT_GUARD, apply=KRAFT_APPLY, fold=KRAFT_FOLD,
+                    predicates=KRAFT_PREDICATES, sim_check=KRAFT_SIM_CHECK)
 
 
 def build_all() -> dict[str, str]:

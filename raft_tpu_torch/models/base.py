@@ -15,6 +15,7 @@ and an index ``[C|1, n]``; the helpers select or set along axis 2.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from dataclasses import dataclass
@@ -206,6 +207,11 @@ def onehot_set2(arr, i, j, val):
     return torch.where(oi & oj, val, arr)
 
 
+def popcount(x, n: int):
+    """Set bits among the low ``n`` of each value."""
+    return ((x.unsqueeze(-1) >> torch.arange(n, device=x.device)) & 1).sum(-1)
+
+
 def select(cond, a, b):
     """``where(cond, a, b)`` with cond [C, n] broadcast over the trailing
     field axes of a/b."""
@@ -301,6 +307,20 @@ class KernelModel:
     def _full(C, n, val, dtype, dev):
         return torch.full((C, n), val, dtype=dtype, device=dev)
 
+    def pack_i32(self, **vals):
+        """Pack a key as int32 words, as the pull and KRaft references'
+        ``_pack`` casts them (a word wraps where a field's value exceeds its
+        width); a word of constant fields only comes back as a 0-d tensor
+        on the device of the tensor-valued fields."""
+        dev = next(v.device for v in vals.values() if isinstance(v, torch.Tensor))
+        vals = {k: v.to(torch.int64) if isinstance(v, torch.Tensor) else v
+                for k, v in vals.items()}
+        return tuple(
+            w.to(torch.int32) if isinstance(w, torch.Tensor)
+            else torch.full((), w, dtype=torch.int32, device=dev)
+            for w in self.packer.pack(**vals)
+        )
+
     def prepare_device(self, device, invariants) -> None:
         """Fail before a run, not inside it, where the kernels on
         ``device`` cannot evaluate one of ``invariants``."""
@@ -341,28 +361,47 @@ class KernelModel:
 # PullRaft.tla keeps them)
 FOLLOWER, CANDIDATE, LEADER = 0, 1, 2
 ACK_NIL, ACK_FALSE, ACK_TRUE = 0, 1, 2
+# the liveness predicate ValueAllOrNothing(v) has kernel id PRED_VALUE_AON + v
+# (PRED_VALUE_AON of csrc/actions_common.cuh)
+PRED_VALUE_AON = 16
 
 
-def raft_invariants(model) -> dict:
+@dataclass(frozen=True)
+class InvFields:
+    """What the shared invariants and ValueAllOrNothing read of a family:
+    the names of its term, commit-index and log-term fields, and the state
+    code of its Leader (the InvFields of csrc/actions_common.cuh)."""
+
+    term: str = "currentTerm"
+    commit: str = "commitIndex"
+    log_term: str = "log_term"
+    leader: int = LEADER
+
+
+RAFT_FIELDS = InvFields()
+
+
+def raft_invariants(model, f: InvFields = RAFT_FIELDS) -> dict:
     """The invariants every Raft-family model registers, by name, each
     mapping states [B, W] -> ok bool [B] (True = invariant holds). The
     formulas are Raft.tla's; the pull specs repeat them
-    (PullRaft.tla:578-627) over the same field names."""
+    (PullRaft.tla:578-627) over the same field names, KRaft
+    (KRaft.tla:894-957) over its own (``f``)."""
     lay, p = model.layout, model.p
     return {
         "MessagesAreValid": messages_are_valid_kernel(lay, model.packer),
-        "NoLogDivergence": lambda s: inv_no_log_divergence(lay, p, s),
-        "LeaderHasAllAckedValues": lambda s: inv_leader_has_acked(lay, p, s),
-        "CommittedEntriesReachMajority": lambda s: inv_committed_majority(lay, p, s),
+        "NoLogDivergence": lambda s: inv_no_log_divergence(lay, p, s, f),
+        "LeaderHasAllAckedValues": lambda s: inv_leader_has_acked(lay, p, s, f),
+        "CommittedEntriesReachMajority": lambda s: inv_committed_majority(lay, p, s, f),
         "TestInv": lambda s: torch.ones(s.shape[:-1], dtype=torch.bool, device=s.device),
     }
 
 
-def inv_no_log_divergence(lay: Layout, p, states):
+def inv_no_log_divergence(lay: Layout, p, states, f: InvFields = RAFT_FIELDS):
     """NoLogDivergence — Raft.tla:588-596."""
     L = p.max_log
-    ci = lay.get(states, "commitIndex")  # [B,S]
-    lt = lay.get(states, "log_term")  # [B,S,L]
+    ci = lay.get(states, f.commit)  # [B,S]
+    lt = lay.get(states, f.log_term)  # [B,S,L]
     lv = lay.get(states, "log_value")
     mci = torch.minimum(ci[:, :, None], ci[:, None, :])  # [B,S,S]
     lanes = torch.arange(1, L + 1, device=states.device)
@@ -371,30 +410,30 @@ def inv_no_log_divergence(lay: Layout, p, states):
     return torch.all((~in_common | eq).flatten(1), dim=1)
 
 
-def inv_leader_has_acked(lay: Layout, p, states):
+def inv_leader_has_acked(lay: Layout, p, states, f: InvFields = RAFT_FIELDS):
     """LeaderHasAllAckedValues — Raft.tla:604-620."""
     V = p.n_values
-    ct = lay.get(states, "currentTerm")
+    ct = lay.get(states, f.term)
     st = lay.get(states, "state")
     lv = lay.get(states, "log_value")  # [B,S,L]
     acked = lay.get(states, "acked")  # [B,V]
     not_stale = torch.all(ct[:, :, None] >= ct[:, None, :], dim=2)  # [B,S]
-    is_lead = (st == LEADER) & not_stale
+    is_lead = (st == f.leader) & not_stale
     vals = torch.arange(1, V + 1, device=states.device)
     has_v = torch.any(lv[:, :, None, :] == vals[None, None, :, None], dim=3)
     bad = (acked[:, None, :] == ACK_TRUE) & is_lead[:, :, None] & ~has_v
     return ~bad.flatten(1).any(dim=1)
 
 
-def inv_committed_majority(lay: Layout, p, states):
+def inv_committed_majority(lay: Layout, p, states, f: InvFields = RAFT_FIELDS):
     """CommittedEntriesReachMajority — Raft.tla:625-636."""
     S, L = p.n_servers, p.max_log
     st = lay.get(states, "state")
-    ci = lay.get(states, "commitIndex")
+    ci = lay.get(states, f.commit)
     ll = lay.get(states, "log_len")
-    lt = lay.get(states, "log_term")
+    lt = lay.get(states, f.log_term)
     lv = lay.get(states, "log_value")
-    lead = (st == LEADER) & (ci > 0)  # [B,S]
+    lead = (st == f.leader) & (ci > 0)  # [B,S]
     pos = torch.clamp(ci - 1, 0, L - 1).to(torch.int64)  # [B,S]
     lt_i = torch.gather(lt, 2, pos[:, :, None])[:, :, 0]  # [B,S]
     lv_i = torch.gather(lv, 2, pos[:, :, None])[:, :, 0]
@@ -406,6 +445,41 @@ def inv_committed_majority(lay: Layout, p, states):
         lv_j == lv_i[..., None])
     enough = match.sum(dim=2) >= (S // 2 + 1)  # quorum incl. i
     return ~torch.any(lead, dim=1) | torch.any(lead & enough, dim=1)
+
+
+def live_value_all_or_nothing(lay: Layout, p, v: int, states, f: InvFields = RAFT_FIELDS):
+    """ValueAllOrNothing(v) — Raft.tla:560-573 (KRaft.tla:867-875): TRUE
+    when the last permissible election failed with no leader (progress
+    legitimately impossible), else v must be on EVERY server log or on
+    NONE."""
+    L = p.max_log
+    ec = lay.get(states, "electionCtr")
+    st = lay.get(states, "state")
+    lv = lay.get(states, "log_value")
+    ll = lay.get(states, "log_len")
+    lanes = torch.arange(L, device=states.device)
+    in_log = lanes < ll[..., None]
+    has_v = torch.any(in_log & (lv == v + 1), dim=2)  # [B, S]
+    all_have = torch.all(has_v, dim=1)
+    none_have = ~torch.any(has_v, dim=1)
+    no_leader = ~torch.any(st == f.leader, dim=1)
+    spent = ec == p.max_elections
+    return (spent & no_leader) | all_have | none_have
+
+
+def values_not_stuck(model, f: InvFields = RAFT_FIELDS) -> None:
+    """Register ValuesNotStuck == \\A v : []<> ValueAllOrNothing(v)
+    (Raft.tla:567-576, KRaft.tla:877-879), the temporal property under
+    WF_vars(Next) of checker/liveness.py: one (label, P, Q) instance per
+    value, P = None for []<>Q, Q naming a state predicate of
+    ``model.predicates`` with kernel id PRED_VALUE_AON + v."""
+    model.liveness = {"ValuesNotStuck": []}
+    for v, vname in enumerate(model.value_names):
+        q = f"ValueAllOrNothing({vname})"
+        model.predicates[q] = functools.partial(
+            live_value_all_or_nothing, model.layout, model.p, v, f=f)
+        model._pred_ids[q] = PRED_VALUE_AON + v
+        model.liveness["ValuesNotStuck"].append((vname, None, q))
 
 
 def messages_are_valid_kernel(layout: Layout, packer):

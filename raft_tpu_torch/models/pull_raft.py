@@ -47,6 +47,7 @@ from .base import (
     jax_set as jset,
     jax_set2 as jset2,
     jax_take as jtake,
+    popcount,
     raft_invariants,
     select as _sel,
 )
@@ -214,11 +215,6 @@ GROUP_RANKS = {
 }
 
 
-def _popcount(x, n: int):
-    """Set bits among the low ``n`` of each value."""
-    return ((x.unsqueeze(-1) >> torch.arange(n, device=x.device)) & 1).sum(-1)
-
-
 class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
     """Batched successor/invariant kernels for one (spec, constants) pair."""
 
@@ -279,19 +275,7 @@ class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
             "iota_m": list(range(M)),
         }
 
-    def _pack(self, **vals):
-        """Pack a key as int32 words, as the reference's ``_pack`` casts
-        them (a word wraps where a field's value exceeds its width); a
-        word of constant fields only comes back as a 0-d tensor on the
-        device of the tensor-valued fields."""
-        dev = next(v.device for v in vals.values() if isinstance(v, torch.Tensor))
-        vals = {k: v.to(torch.int64) if isinstance(v, torch.Tensor) else v
-                for k, v in vals.items()}
-        return tuple(
-            w.to(torch.int32) if isinstance(w, torch.Tensor)
-            else torch.full((), w, dtype=torch.int32, device=dev)
-            for w in self.packer.pack(**vals)
-        )
+    _pack = KernelModel.pack_i32
 
     @staticmethod
     def _last_term(d, i):
@@ -384,7 +368,7 @@ class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         p, S = self.p, self.p.n_servers
         n = i.shape[1]
         vg_i = jtake(d["votesGranted"], i)
-        valid = (jtake(d["state"], i) == CANDIDATE) & (2 * _popcount(vg_i, S) > S)
+        valid = (jtake(d["state"], i) == CANDIDATE) & (2 * popcount(vg_i, S) > S)
         ct_i = jtake(d["currentTerm"], i)
         hi, lo, cnt = d["msg_hi"], d["msg_lo"], d["msg_cnt"]
         ovf = self._full(C, n, False, torch.bool, dev)

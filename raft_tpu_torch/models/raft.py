@@ -17,7 +17,6 @@ are not ported yet.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 
 import numpy as np
 import torch
@@ -33,11 +32,13 @@ from .base import (
     FOLLOWER,
     INVARIANT_IDS,
     LEADER,
+    PRED_VALUE_AON,  # noqa: F401 - the Raft family's predicate ids
     ActionLabelMixin,
     KernelModel,
     Layout,
     SparseExpandMixin,
     raft_invariants,
+    values_not_stuck,
     onehot_row as orow,
     onehot_set as oset,
     onehot_set2 as oset2,
@@ -225,11 +226,6 @@ GROUP_RANKS = {
     # the six receipt disjuncts: R_UPDATETERM + 0..5 in Next order
     "HandleMessage": R_UPDATETERM,
 }
-# the liveness predicate ValueAllOrNothing(v) has kernel id PRED_VALUE_AON + v
-# (PRED_VALUE_AON of raft_actions.cuh)
-PRED_VALUE_AON = 16
-
-
 class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
     """Batched successor/invariant kernels for one (spec, constants) pair."""
 
@@ -288,17 +284,10 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
 
         self.invariants = raft_invariants(self)
         # temporal properties under WF_vars(Next) (checker/liveness.py):
-        # ValuesNotStuck == \A v : []<> ValueAllOrNothing(v) (Raft.tla:567-576),
-        # one (label, P, Q) instance per value, P = None for []<>Q; P and Q
-        # name state predicates of ``self.predicates`` (or invariants)
+        # ValuesNotStuck (Raft.tla:567-576)
         self.predicates = {}
         self._pred_ids = dict(INVARIANT_IDS)
-        self.liveness = {"ValuesNotStuck": []}
-        for v, vname in enumerate(self.value_names):
-            q = f"ValueAllOrNothing({vname})"
-            self.predicates[q] = partial(self._live_value_all_or_nothing, v)
-            self._pred_ids[q] = PRED_VALUE_AON + v
-            self.liveness["ValuesNotStuck"].append((vname, None, q))
+        values_not_stuck(self)
 
     # ---------------- field access helpers ----------------
 
@@ -845,27 +834,6 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         vec[0, lay.sl("msg_lo")] = EMPTY
         vec[0, lay.sl("acked")] = ACK_NIL
         return vec
-
-    # ---------------- liveness predicates ----------------
-    # (the invariants are models/base.py's raft_invariants)
-
-    def _live_value_all_or_nothing(self, v, states):
-        """ValueAllOrNothing(v) — Raft.tla:560-573: TRUE when the last
-        permissible election failed with no leader (progress legitimately
-        impossible), else v must be on EVERY server log or on NONE."""
-        lay, L = self.layout, self.p.max_log
-        ec = lay.get(states, "electionCtr")
-        st = lay.get(states, "state")
-        lv = lay.get(states, "log_value")
-        ll = lay.get(states, "log_len")
-        lanes = torch.arange(L, device=states.device)
-        in_log = lanes < ll[..., None]
-        has_v = torch.any(in_log & (lv == v + 1), dim=2)  # [B, S]
-        all_have = torch.all(has_v, dim=1)
-        none_have = ~torch.any(has_v, dim=1)
-        no_leader = ~torch.any(st == LEADER, dim=1)
-        spent = ec == self.p.max_elections
-        return (spent & no_leader) | all_have | none_have
 
     # ---------------- host-side decode/encode ----------------
 

@@ -1,9 +1,10 @@
 """Spec registry: maps a TLA+ module name to its lowering builder.
 
 Counterpart of ``raft_tpu/models/registry.py`` for the specs this port
-lowers so far — the three that one ``RaftModel`` serves, and PullRaft and
-PullRaftVariant2 (``PullRaftModel``). Every other spec the reference knows
-raises a "not yet ported" ``CfgError`` (CLI exit 64).
+lowers so far — the three that one ``RaftModel`` serves, PullRaft and
+PullRaftVariant2 (``PullRaftModel``) and KRaft (``KRaftModel``). Every other
+spec the reference knows raises a "not yet ported" ``CfgError`` (CLI exit
+64).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import os
 from dataclasses import dataclass
 
 from ..utils.cfg import Cfg, CfgError
+from .kraft import KRaftModel, KRaftParams
 from .pull_raft import PullRaftModel, PullRaftParams
 from .raft import RaftModel, RaftParams
 
@@ -136,17 +138,27 @@ def build_pull_raft_v2(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
     return _build_pull(cfg, msg_slots, variant2=True)
 
 
+def build_kraft(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
+    """pull-raft/KRaft.tla + KRaft.cfg: Kafka KRaft (KIP-595) with five
+    server states + IllegalState, fetch-based replication with correlation,
+    error codes, and the BeginQuorumRequest leadership notify."""
+    # fetch responses carry whole correlation records, so distinct-record
+    # counts run higher than the push-based variants': 80 slots by default
+    params = KRaftParams(**_core(cfg, 80 if msg_slots is None else msg_slots))
+    return _setup(cfg, params, "KRaft", KRaftModel)
+
+
 BUILDERS = {
     "Raft": build_raft,
     "FlexibleRaft": build_flexible_raft,
     "RaftFsync": build_raft_fsync,
     "PullRaft": build_pull_raft,
     "PullRaftVariant2": build_pull_raft_v2,
+    "KRaft": build_kraft,
 }
 
 # Specs the reference lowers that this port does not yet.
 NOT_YET_PORTED = (
-    "KRaft",
     "RaftWithReconfigAddRemove",
     "RaftWithReconfigJointConsensus",
     "KRaftWithReconfig",

@@ -3,11 +3,11 @@ every ported spec family.
 
 Each family's actions, invariants and predicates are device code in its
 ``csrc/*_actions.cuh`` (Raft: ``raft_actions.cuh``; PullRaft:
-``pull_actions.cuh``), driven by kernels whose drivers the families
-share (``csrc/expand_driver.cuh``, ``fold_driver.cuh``,
-``predicates_driver.cuh``). A family has five kernels, named after it
-(``raft_*``, ``pull_*``), each with its plain PyTorch version beside it
-here:
+``pull_actions.cuh``; KRaft: ``kraft_actions.cuh``), driven by kernels
+whose drivers the families share (``csrc/expand_driver.cuh``,
+``fold_driver.cuh``, ``predicates_driver.cuh``). A family has five
+kernels, named after it (``raft_*``, ``pull_*``, ``kraft_*``), each with
+its plain PyTorch version beside it here:
 
   ``guard``       valid/rank/ovf over the [C, A] candidate grid, the
                   chunk scalars (n_gen, terminal, expand_ovf) and the
@@ -30,8 +30,7 @@ A wrapper runs the plain version for CPU tensors and launches the model's
 kernel (``model.KERNELS[role]``) for CUDA tensors (it raises rather than
 fall back). The kernels read the model through ``model.kernel_spec``; the
 plain versions through the model's ``guards``/``sparse_apply``/
-``invariants``/``predicates``. ``raft_guard`` and the other ``raft_*``
-names are the same functions (the names the Raft family's callers use).
+``invariants``/``predicates``.
 """
 
 from __future__ import annotations
@@ -293,10 +292,3 @@ def sim_check(model, states, nxt, moved, chosen, ridx, init_pool, depth, max_dep
     k.launched(rc)
     return inv_bad, done
 
-
-# the Raft family's names for the same functions
-raft_guard, raft_guard_plain = guard, guard_plain
-raft_apply, raft_apply_plain = apply, apply_plain
-raft_fold, raft_fold_plain = fold, fold_plain
-raft_predicates, raft_predicates_plain = predicates, predicates_plain
-raft_sim_check, raft_sim_check_plain = sim_check, sim_check_plain

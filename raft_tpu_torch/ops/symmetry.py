@@ -62,8 +62,15 @@ _C2 = 0xC2B2AE3D27D4EB4F
 BAG_WORDS = 3  # hi, lo, count
 REFINE_ROUNDS = 3  # 1-WL refinement depth of the signatures (wl=3)
 PRUNE_FROM = 5  # layouts with this many servers take the admissible min
-# the server-index fields of a message key (remapped under a permutation)
+# the server fields of a message key and how each remaps under a
+# permutation (the reference's msg_perm_spec, raft_tpu/ops/symmetry.py:
+# 333-343): "server" is a plain index (msource, mdest), "server_nil" is
+# 0 = Nil or i + 1 = server i (KRaft's mleader). The field order is part of
+# the fingerprint (the signatures salt field k by k). "server_bitmask" is
+# not ported yet (the reconfiguration specs are its only users).
 MSG_SERVER_FIELDS = ("msource", "mdest")
+DEFAULT_SPEC = tuple((f, "server") for f in MSG_SERVER_FIELDS)
+MSG_KINDS = {"server": 0, "server_nil": 1}  # codes shared with csrc/canon_*
 # codes shared with csrc/canon_tiers.cuh
 SIG_KINDS = {"per_server": 0, "per_server_val": 1, "server_bitmask": 2,
              "per_server_pair": 3}
@@ -123,12 +130,43 @@ def _psum(p, dim=-1):
     return sum32(p[0], dim), sum32(p[1], dim)
 
 
-def permute_states(layout, packer, states: np.ndarray, sigma) -> np.ndarray:
+def _checked_spec(spec) -> tuple[tuple[str, str], ...]:
+    spec = tuple((str(f), str(k)) for f, k in spec)
+    for _f, kind in spec:
+        if kind not in MSG_KINDS:
+            raise NotImplementedError(f"message remap kind {kind!r} is not ported yet")
+    return spec
+
+
+def msg_perm_spec(model) -> tuple[tuple[str, str], ...]:
+    """The (field, kind) remap pairs of a model's message keys, as the
+    reference's ``Canonicalizer.for_model`` reads them: the model's
+    ``msg_perm_spec``, else its ``msg_server_fields`` (default msource and
+    mdest) as "server", then its ``msg_server_nil_fields`` as
+    "server_nil"."""
+    spec = getattr(model, "msg_perm_spec", None)
+    if spec is None:
+        spec = tuple((f, "server") for f in getattr(model, "msg_server_fields",
+                                                     MSG_SERVER_FIELDS)) + tuple(
+            (f, "server_nil") for f in getattr(model, "msg_server_nil_fields", ()))
+    return _checked_spec(spec)
+
+
+def _remap_np(val, kind, sigma, S):
+    """Message field values under sigma (numpy): a value naming no server
+    maps to 0, as the reference's one-hot sums give."""
+    if kind == "server":
+        return np.where((val >= 0) & (val < S), sigma[np.clip(val, 0, S - 1)], 0)
+    return np.where((val >= 1) & (val <= S), sigma[np.clip(val - 1, 0, S - 1)] + 1, 0)
+
+
+def permute_states(layout, packer, states: np.ndarray, sigma, spec=DEFAULT_SPEC) -> np.ndarray:
     """Apply the server permutation ``sigma`` (old server i -> new index
     sigma[i]) to a [B, W] numpy state batch: server rows move, server
-    values and bitmasks remap, message endpoints remap and the bag slots
-    re-sort. A symmetric canonicalization gives the result the same
-    fingerprint as the input."""
+    values and bitmasks remap, the message fields of ``spec`` ((field,
+    kind) pairs, ``msg_perm_spec``) remap and the bag slots re-sort. A
+    symmetric canonicalization gives the result the same fingerprint as
+    the input."""
     S = layout.n_servers
     sigma = np.asarray(sigma)
     inv = np.argsort(sigma)
@@ -150,9 +188,9 @@ def permute_states(layout, packer, states: np.ndarray, sigma) -> np.ndarray:
     lo = layout.get(out, "msg_lo").copy()
     cnt = layout.get(out, "msg_cnt").copy()
     occ = hi != EMPTY
-    for name in MSG_SERVER_FIELDS:
+    for name, kind in _checked_spec(spec):
         val = packer.unpack(hi, lo, name)
-        hi2, lo2 = packer.replace(hi, lo, name, sigma[val])
+        hi2, lo2 = packer.replace(hi, lo, name, _remap_np(val, kind, sigma, S))
         hi = np.where(occ, hi2, hi)
         lo = np.where(occ, lo2, lo)
     order = np.lexsort((lo, hi), axis=1)
@@ -168,19 +206,22 @@ class Canonicalizer:
 
     ``fingerprints_memo(states, valid, memo)`` is the engine's call; see
     the module docstring. ``fingerprints`` (no memo) serves the initial
-    states and the tests. A message key's server fields are
-    MSG_SERVER_FIELDS, server indices (Raft's msource and mdest)."""
+    states and the tests. A message key's server fields and their kinds
+    are ``spec`` (``msg_perm_spec``)."""
 
     @classmethod
     def for_model(cls, model, symmetry: bool = True, seed: int = 0):
-        return cls(model.layout, model.packer, symmetry=symmetry, seed=seed)
+        return cls(model.layout, model.packer, symmetry=symmetry, seed=seed,
+                   spec=msg_perm_spec(model))
 
-    def __init__(self, layout, packer, symmetry: bool = True, seed: int = 0):
+    def __init__(self, layout, packer, symmetry: bool = True, seed: int = 0,
+                 spec=DEFAULT_SPEC):
         S = layout.n_servers
         VL = layout.view_len
         self.layout, self.packer = layout, packer
         self.symmetry, self.seed = symmetry, seed
         self.S, self.VL = S, VL
+        self.spec = _checked_spec(spec)
         # the permutation set is fixed per layout (the reference's prune)
         self.prune = symmetry and S >= PRUNE_FROM
         if self.prune and S > MAX_TIER_SERVERS:
@@ -273,7 +314,8 @@ class Canonicalizer:
             wb.append(b)
             sx.append(_host_mix64(w_i * _C2 + seed) & M32 if seed else 0)
         hi_sl, lo_sl, cnt_sl = (layout.sl(n) for n in ("msg_hi", "msg_lo", "msg_cnt"))
-        fields = [packer.locate(name) for name in MSG_SERVER_FIELDS]
+        # (word, shift, mask, kind code) of each message server field
+        fields = [(*packer.locate(name), MSG_KINDS[kind]) for name, kind in self.spec]
         self._host = dict(
             lanes=lanes, perms=perms, valmap=valmap,
             pow2=(1 << perms), inv=np.argsort(perms, axis=1),
@@ -356,10 +398,14 @@ class Canonicalizer:
             S = self.S
             T = tb["perms"].shape[0]
             perms = tb["perms"].expand(T, hi.shape[0], -1)  # [T, B, S]
-            for word, shift, mask in h["fields"]:
+            for word, shift, mask, kind in h["fields"]:
                 val = (words[word] >> shift) & mask
-                new = torch.where(val < S, perms.gather(
-                    2, val.clamp(max=S - 1).expand(T, -1, -1)), 0)
+                if kind == MSG_KINDS["server"]:
+                    new = torch.where(val < S, perms.gather(
+                        2, val.clamp(max=S - 1).expand(T, -1, -1)), 0)
+                else:  # server_nil: 0 stays Nil, u maps to sigma[u - 1] + 1
+                    new = torch.where((val >= 1) & (val <= S), perms.gather(
+                        2, (val - 1).clamp(0, S - 1).expand(T, -1, -1)) + 1, 0)
                 nwords[word] = (nwords[word] & ~(mask << shift)) | (new << shift)
         ha = hb = 0
         for w_i, w in enumerate([nwords[1], nwords[0], cnt.unsqueeze(0)]):
@@ -448,7 +494,7 @@ class Canonicalizer:
         cnt = view[:, h["cnt_off"]:h["cnt_off"] + M]
         occ = hi != EMPTY
         zw = [lo, hi]  # packer word order: 0 = lo, 1 = hi
-        for word, shift, mask in h["fields"]:
+        for word, shift, mask, _kind in h["fields"]:
             zw[word] = zw[word] & ~(mask << shift)
         ra = rb = 0
         for w_i, w in enumerate((zw[1], zw[0], cnt)):
@@ -457,11 +503,12 @@ class Canonicalizer:
             rb = rb ^ mix32((mul32(u32(w), KB) + sb) & M32)
         rec0 = (mix32(ra), mix32(rb))
         cnt32 = torch.where(occ, u32(cnt), 0)
-        svals = [((lo, hi)[word] >> shift) & mask for word, shift, mask in h["fields"]]
+        svals = [((lo, hi)[word] >> shift) & mask for word, shift, mask, _k in h["fields"]]
+        kinds = [f[3] for f in h["fields"]]
         for k, val in enumerate(svals):
             ck = _pfold(rec0, _salt(k, 8))
             c = (mul32t(cnt32, ck[0]), mul32t(cnt32, ck[1]))
-            acc = _padd(acc, self._scatter_by_server(c, val, occ))
+            acc = _padd(acc, self._scatter_by_server(c, val, kinds[k], occ))
         sig = (mix32(acc[0]), mix32(acc[1]))
 
         # ---- refinement: fold the neighbours' signatures, round by round
@@ -485,7 +532,7 @@ class Canonicalizer:
                     acc = _padd(acc, _psum((ea, eb)))
             # per record: fold every referenced server's signature, then
             # give each endpoint the fold over the OTHER endpoints
-            folds = [self._gather_sig_fold(sig, val, _salt(k, 13 + rr))
+            folds = [self._gather_sig_fold(sig, val, kinds[k], _salt(k, 13 + rr))
                      for k, val in enumerate(svals)]
             osum = (0, 0)
             for fo in folds:
@@ -494,23 +541,30 @@ class Canonicalizer:
                 sa, sb = _salt(k, 14 + rr)
                 c = (mul32t(cnt32, mix32((rec0[0] + osum[0] - folds[k][0] + sa) & M32)),
                      mul32t(cnt32, mix32((rec0[1] + osum[1] - folds[k][1] + sb) & M32)))
-                acc = _padd(acc, self._scatter_by_server(c, val, occ))
+                acc = _padd(acc, self._scatter_by_server(c, val, kinds[k], occ))
             sig = (mix32((sig[0] + mix32(acc[0])) & M32),
                    mix32((sig[1] + mix32(acc[1])) & M32))
         return combine_pair(*sig)
 
-    def _scatter_by_server(self, c, val, occ):
+    def _scatter_by_server(self, c, val, kind, occ):
         """Sum [B, M] stream-pair contributions of the occupied slots onto
-        the server a message field names -> [B, S] pair."""
+        the server a message field names (by its kind) -> [B, S] pair."""
         srv = torch.arange(self.S, device=val.device)[None, :, None]
-        hit = (val[:, None, :] == srv) & occ[:, None, :]
+        if kind == MSG_KINDS["server"]:
+            hit = val[:, None, :] == srv
+        else:  # server_nil: u > 0 names server u - 1
+            hit = (val[:, None, :] - 1 == srv) & (val[:, None, :] > 0)
+        hit = hit & occ[:, None, :]
         return _psum(_pwhere(hit, (c[0][:, None, :], c[1][:, None, :])))
 
-    def _gather_sig_fold(self, sig, val, salt):
+    def _gather_sig_fold(self, sig, val, kind, salt):
         """The signature of the server a [B, M] message field names, folded
-        under ``salt`` into a per-slot stream pair."""
-        idx = val.clamp(0, self.S - 1)
-        return _pxmix((sig[0].gather(1, idx), sig[1].gather(1, idx)), salt)
+        under ``salt`` into a per-slot stream pair (0 for a Nil
+        server_nil field)."""
+        idx = val if kind == MSG_KINDS["server"] else val - 1
+        idx = idx.clamp(0, self.S - 1)
+        fold = _pxmix((sig[0].gather(1, idx), sig[1].gather(1, idx)), salt)
+        return fold if kind == MSG_KINDS["server"] else _pwhere(val > 0, fold)
 
     def signatures(self, states: torch.Tensor) -> torch.Tensor:
         """enc [B, S] server signatures of a [B, W] int32 batch: the
@@ -602,7 +656,7 @@ class Canonicalizer:
 
     def tier_spec(self) -> np.ndarray:
         """The int32 spec vector of csrc/canon_tiers.cuh: the TIER_HEADER
-        scalars, then per message server field (word, shift, mask), per
+        scalars, then per message server field (word, shift, mask, kind), per
         signature field (kind, offset, size) and per non-bag lane (view
         lane, c0, s1, m1, s2, m2) in group order (plain, val, bm)."""
         h = self._host
@@ -611,7 +665,7 @@ class Canonicalizer:
                if f.kind in SIG_KINDS]
         fields = h["fields"]
         off_fields = len(TIER_HEADER)
-        off_sig = off_fields + 3 * len(fields)
+        off_sig = off_fields + 4 * len(fields)
         off_lanes = off_sig + 3 * len(sig)
         total = off_lanes + 6 * self._K
         hdr = dict(

@@ -8,6 +8,8 @@ the way TLC prints them in error traces, using the cfg's model-value names
 from __future__ import annotations
 
 STATE_NAMES = {0: "Follower", 1: "Candidate", 2: "Leader", 3: "NotMember"}
+# decoded fields whose values name a server (or Nil)
+SERVER_FIELDS = ("msource", "mdest", "mleader")
 
 
 def _srv(setup, i) -> str:
@@ -42,23 +44,27 @@ def _fmt_value(setup, v) -> str:
         return str(v)
 
 
-def _fmt_msg(setup, rec) -> str:
+def _fmt_entries(setup, entries, key: str) -> str:
+    """A log (or a response's entries) of (term or epoch, value) pairs."""
+    return "<<" + ", ".join(
+        f"[{key} |-> {t}, value |-> {_val(setup, val)}]" for t, val in entries) + ">>"
+
+
+def _fmt_msg(setup, rec, key: str = "term") -> str:
+    """A message record (a sorted tuple of (field, value) pairs); ``key``
+    names its entries' term field (KRaft's is ``epoch``)."""
     parts = []
     for k, v in rec:
-        if k in ("msource", "mdest"):
-            v = _srv(setup, v)
+        if k in SERVER_FIELDS:
+            v = "Nil" if v is None else _srv(setup, v)
+        elif k == "correlation":  # KRaft: the FetchRequest a response answers
+            v = _fmt_msg(setup, v, key)
         elif k == "mlastCommonEntry" and v is not None:  # PullRaft (index, term)
             v = f"[index |-> {v[0]}, term |-> {v[1]}]"
         elif k == "mentries" and all(
             isinstance(e, tuple) and len(e) == 2 for e in v
         ):
-            v = (
-                "<<"
-                + ", ".join(
-                    f"[term |-> {t}, value |-> {_val(setup, val)}]" for t, val in v
-                )
-                + ">>"
-            )
+            v = _fmt_entries(setup, v, key)
         else:
             v = _fmt_value(setup, v)
         parts.append(f"{k} |-> {v}")
@@ -66,7 +72,14 @@ def _fmt_msg(setup, rec) -> str:
 
 
 def format_state(setup, st: dict) -> str:
-    S = len(st["currentTerm"])
+    """One decoded state as TLA+ ``/\\ var = value`` lines. The Raft
+    family's term is ``currentTerm``; KRaft's is ``currentEpoch``, its log
+    entries carry an ``epoch``, and its state names are its model's
+    (``STATE_NAMES`` of the setup's model, where it has them)."""
+    term = "currentTerm" if "currentTerm" in st else "currentEpoch"
+    key = "term" if term == "currentTerm" else "epoch"
+    names = getattr(getattr(setup, "model", None), "STATE_NAMES", STATE_NAMES)
+    S = len(st[term])
     sv = lambda i: _srv(setup, i)
     lines = []
     handled: set = set()
@@ -75,15 +88,12 @@ def format_state(setup, st: dict) -> str:
         handled.add(name)
         lines.append(f"/\\ {name} = {text}")
 
-    put(
-        "currentTerm",
-        _fmt_fun((sv(i), st["currentTerm"][i]) for i in range(S)),
-    )
+    put(term, _fmt_fun((sv(i), st[term][i]) for i in range(S)))
     if "state" in st:
         put(
             "state",
             _fmt_fun(
-                (sv(i), STATE_NAMES.get(st["state"][i], st["state"][i]))
+                (sv(i), names.get(st["state"][i], st["state"][i]))
                 for i in range(S)
             ),
         )
@@ -96,6 +106,14 @@ def format_state(setup, st: dict) -> str:
                     for i in range(S)
                 ),
             )
+    if "pendingFetch" in st:  # KRaft: the outstanding FetchRequest or Nil
+        put(
+            "pendingFetch",
+            _fmt_fun(
+                (sv(i), "Nil" if r is None else _fmt_msg(setup, r, key))
+                for i, r in enumerate(st["pendingFetch"])
+            ),
+        )
     if "votesLastEntry" in st:  # PullRaftVariant2: an entry or Nil per voter
         put(
             "votesLastEntry",
@@ -123,21 +141,8 @@ def format_state(setup, st: dict) -> str:
             isinstance(e, tuple) and len(e) == 2
             for row in st["log"] for e in row
         ):
-            put(
-                "log",
-                _fmt_fun(
-                    (
-                        sv(i),
-                        "<<"
-                        + ", ".join(
-                            f"[term |-> {t}, value |-> {_val(setup, v)}]"
-                            for t, v in st["log"][i]
-                        )
-                        + ">>",
-                    )
-                    for i in range(S)
-                ),
-            )
+            put("log", _fmt_fun((sv(i), _fmt_entries(setup, st["log"][i], key))
+                                for i in range(S)))
         else:  # reconfig/KRaft entries carry extra fields — generic form
             put(
                 "log",
@@ -145,17 +150,11 @@ def format_state(setup, st: dict) -> str:
                     (sv(i), _fmt_value(setup, st["log"][i])) for i in range(S)
                 ),
             )
-    if "commitIndex" in st:
-        put(
-            "commitIndex",
-            _fmt_fun((sv(i), st["commitIndex"][i]) for i in range(S)),
-        )
-    if "fsyncIndex" in st:  # RaftFsync (RaftFsync.tla:92)
-        put(
-            "fsyncIndex",
-            _fmt_fun((sv(i), st["fsyncIndex"][i]) for i in range(S)),
-        )
-    for name in ("nextIndex", "matchIndex", "pendingResponse"):
+    # commitIndex, KRaft's highWatermark, RaftFsync's fsyncIndex (RaftFsync.tla:92)
+    for name in ("commitIndex", "highWatermark", "fsyncIndex"):
+        if name in st:
+            put(name, _fmt_fun((sv(i), st[name][i]) for i in range(S)))
+    for name in ("nextIndex", "matchIndex", "endOffset", "pendingResponse"):
         if name not in st:
             continue
         put(
@@ -177,11 +176,14 @@ def format_state(setup, st: dict) -> str:
             ),
         )
     if "messages" in st:
-        msgs = sorted(st["messages"])
+        try:
+            msgs = sorted(st["messages"])
+        except TypeError:  # KRaft records hold None (Nil) beside strings
+            msgs = sorted(st["messages"], key=repr)
         put(
             "messages",
             "("
-            + " @@ ".join(f"{_fmt_msg(setup, m)} :> {c}" for m, c in msgs)
+            + " @@ ".join(f"{_fmt_msg(setup, m, key)} :> {c}" for m, c in msgs)
             + ")",
         )
     if "acked" in st:

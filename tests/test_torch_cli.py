@@ -69,7 +69,7 @@ def test_violation_rc2_prints_trace(tmp_path):
 
 
 def test_unported_spec_rc64_and_missing_file_rc66(tmp_path):
-    cfg = tmp_path / "KRaft.cfg"
+    cfg = tmp_path / "KRaftWithReconfig.cfg"
     cfg.write_text(HEAD + TAIL)
     out = _cli(cfg)
     assert out.returncode == 64 and "not yet ported" in out.stderr

@@ -1,5 +1,5 @@
 """The guard-first expand of the port (raft_tpu_torch/ops/expand.py: the
-plain versions of raft_guard, raft_apply and raft_fold) against the JAX
+plain versions of the Raft family's guard, apply and fold) against the JAX
 reference, bit for bit, for the core, fsync and flexible parameter sets:
 
   - the binding groups (``sparse_groups``) against the reference's;
@@ -30,7 +30,7 @@ from raft_tpu_torch.checker.device_bfs import DeviceBFS
 from raft_tpu_torch.checker.util import I32_MAX, dense_prefix_sel
 from raft_tpu_torch.convert import params_from_reference
 from raft_tpu_torch.models.raft import RaftModel
-from raft_tpu_torch.ops.expand import raft_apply, raft_fold, raft_guard
+from raft_tpu_torch.ops.expand import apply, fold, guard
 
 from test_expand_sparse import DenseShim
 from test_torch_raft_model import VARIANTS, _pair as _make_pair
@@ -75,7 +75,7 @@ def test_guard_matches_dense_reference(name):
     jm, tm, batch, (_succs, valid, rank, ovf) = _pair(name)
     n_live = len(batch) - 5  # an all-dead chunk tail
     cov = torch.zeros((len(tm.ACTION_NAMES), 3), dtype=torch.int64)
-    gv, gr, go, scal = raft_guard(tm, torch.from_numpy(batch), n_live, cov)
+    gv, gr, go, scal = guard(tm, torch.from_numpy(batch), n_live, cov)
     live = np.arange(len(batch)) < n_live
     want_v = valid & live[:, None]
     assert np.array_equal(gv.numpy(), want_v)
@@ -102,7 +102,7 @@ def test_apply_matches_reference_sparse_apply(name):
     plan = jm.sparse_plan(C, len(sel))
     want, apply_ovf = jax.device_get(jax.jit(jm.sparse_apply, static_argnums=3)(
         jnp.asarray(batch), jnp.asarray(sel), jnp.asarray(selv), plan))
-    got = raft_apply(tm, torch.from_numpy(batch), torch.from_numpy(sel)).numpy()
+    got = apply(tm, torch.from_numpy(batch), torch.from_numpy(sel)).numpy()
     assert not apply_ovf
     assert np.array_equal(got, np.asarray(want))
     assert not got[~selv].any() and got[selv].any()
@@ -113,7 +113,7 @@ def test_fold_matches_reference_formulas(name):
     jm, tm, batch, (_succs, valid, rank, _ovf) = _pair(name)
     C, A = batch.shape[0], jm.A
     sel = _worklist(valid, extra_drops=9)
-    flatc = raft_apply(tm, torch.from_numpy(batch), torch.from_numpy(sel))
+    flatc = apply(tm, torch.from_numpy(batch), torch.from_numpy(sel))
     rng = np.random.default_rng(3)
     new = (rng.random(len(sel)) < 0.6) & (sel < C * A)
     jcount = 1234
@@ -130,7 +130,7 @@ def test_fold_matches_reference_formulas(name):
                  for n in invariants]
     cov = torch.zeros((K, 3), dtype=torch.int64)
     viol = torch.full((len(invariants),), I32_MAX, dtype=torch.int64)
-    raft_fold(tm, flatc, torch.from_numpy(new), torch.tensor([jcount]), viol, invariants,
+    fold(tm, flatc, torch.from_numpy(new), torch.tensor([jcount]), viol, invariants,
               cov=cov, sel=torch.from_numpy(sel), valid=torch.from_numpy(valid),
               rank=torch.from_numpy(rank))
     assert viol.tolist() == want_viol

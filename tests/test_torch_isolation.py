@@ -20,7 +20,7 @@ MODULES = [
     "raft_tpu_torch.models.registry", "raft_tpu_torch.checker.device_bfs",
     "raft_tpu_torch.utils.pprint", "raft_tpu_torch.ops.prng", "raft_tpu_torch.ops.hashing",
     "raft_tpu_torch.checker.simulate", "raft_tpu_torch.checker.liveness",
-    "raft_tpu_torch.models.pull_raft",
+    "raft_tpu_torch.models.pull_raft", "raft_tpu_torch.models.kraft",
 ]
 
 

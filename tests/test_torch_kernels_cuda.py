@@ -19,13 +19,14 @@ from raft_tpu_torch.checker.util import (
     append_rows, append_rows_plain, chunk_sort, chunk_sort_plain, compact_indices,
     dense_prefix_sel, probe_runs, probe_runs_plain,
 )
+from raft_tpu_torch.models.kraft import KRaftModel, KRaftParams
 from raft_tpu_torch.models.raft import R_ACCEPT_AE, R_CLIENTREQUEST, RaftModel, RaftParams
 from raft_tpu_torch.models.pull_raft import (
     R_BECOMELEADER as R_PULL_BECOMELEADER, R_CLIENTREQUEST as R_PULL_CLIENTREQUEST,
     R_REQUESTVOTE as R_PULL_REQUESTVOTE, PullRaftModel, PullRaftParams,
 )
 from raft_tpu_torch.ops.expand import (
-    raft_apply, raft_apply_plain, raft_fold, raft_fold_plain, raft_guard, raft_guard_plain,
+    apply, apply_plain, fold, fold_plain, guard, guard_plain,
 )
 from raft_tpu_torch.ops.hashing import INT64_MAX
 from raft_tpu_torch.ops.packing import EMPTY
@@ -330,6 +331,116 @@ def pull_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
         np.concatenate([edge_rows(model, st, seed), scr, full_logs, chain]).astype(np.int32))
 
 
+def kraft_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
+    """Reachable KRaft states ``st`` and edge cases built from them: copies
+    with three random lanes set to small values; copies whose bag is full
+    or one or two slots short of full (keys sorted below the real ones,
+    counts 0 to 2) with every server able to start an election or to
+    become leader, so the RequestVote and BecomeLeader chains overflow
+    partway; copies with every log at max_log and no value acked (a
+    ClientRequest overflows); scrambled copies (random states of all six,
+    epochs, Nil-able leaders and votes, pendingFetch lanes, logs, high
+    watermarks, endOffset rows and acks) whose bags hold random records of
+    all six types, their fields over their whole bit width and ``mleader``
+    Nil or not, plus FetchResponses whose correlation matches a server's
+    pendingFetch (so both CASE chains of MaybeHandleCommonResponse and
+    MaybeTransition run through every arm), and the same rows with every
+    log at max_log (an accepted success response overflows it); and
+    re-delivery rows: a successor of each reply to a FetchRequest with
+    the request's count restored, so its response is already in the bag."""
+    from raft_tpu_torch.models import kraft as kr
+
+    rng = np.random.default_rng(seed)
+    lay, p, pk = model.layout, model.p, model.packer
+    S, L, V, M = p.n_servers, p.max_log, p.n_values, p.msg_slots
+    hs, ls, cs = lay.sl("msg_hi"), lay.sl("msg_lo"), lay.sl("msg_cnt")
+
+    def put_bag(r, keys, free=0):
+        keys = sorted(set(keys))[: M - free]
+        bag = np.full((3, M), EMPTY)
+        bag[2] = 0
+        bag[:, :len(keys)] = [[k[0] for k in keys], [k[1] for k in keys],
+                              rng.integers(0, 3, len(keys))]
+        r[hs], r[ls], r[cs] = bag
+
+    def own_keys(r):
+        return set(zip(r[hs].tolist(), r[ls].tolist())) - {(EMPTY, EMPTY)}
+
+    pert = st.copy()
+    for r in pert:
+        r[rng.integers(0, lay.W, 3)] = rng.integers(-1, 6, 3)
+    chain = st[:64].copy()
+    for r in chain:
+        r[lay.sl("state")] = rng.choice([kr.UNATTACHED, kr.FOLLOWER, kr.CANDIDATE], S)
+        r[lay.sl("votesGranted")] = [(1 << i) | (1 << (i + 1) % S) for i in range(S)]
+        r[lay.fields["electionCtr"].offset] = 0
+        keys = own_keys(r)
+        free = int(rng.integers(0, 3))
+        while len(keys) < M - free:
+            keys.add((0, int(rng.integers(0, 1 << 20))))
+        put_bag(r, keys, free)
+    maxlog = st[:64].copy()
+    maxlog[:, lay.sl("log_len")] = L
+    maxlog[:, lay.sl("acked")] = 0
+    scr = st[:96].copy()
+    for r in scr:
+        r[lay.sl("state")] = rng.integers(0, 6, S)
+        r[lay.sl("currentEpoch")] = rng.integers(1, 4, S)
+        r[lay.sl("votedFor")] = rng.integers(0, S + 1, S)
+        r[lay.sl("leader")] = rng.integers(0, S + 1, S)
+        r[lay.sl("pf_epoch")] = rng.integers(0, 4, S)
+        r[lay.sl("pf_offset")] = rng.integers(0, L + 2, S)
+        r[lay.sl("pf_lastepoch")] = rng.integers(0, 4, S)
+        r[lay.sl("pf_dest")] = rng.integers(0, S + 1, S)
+        r[lay.sl("log_len")] = rng.integers(0, L + 1, S)
+        r[lay.sl("log_epoch")] = rng.integers(1, 4, S * L)
+        r[lay.sl("log_value")] = rng.integers(0, V + 1, S * L)
+        r[lay.sl("highWatermark")] = rng.integers(0, L + 1, S)
+        r[lay.sl("votesGranted")] = rng.integers(0, 1 << S, S)
+        r[lay.sl("endOffset")] = rng.integers(0, L + 2, S * S)
+        r[lay.sl("acked")] = rng.integers(0, 3, V)
+        keys = set()
+        for _ in range(int(rng.integers(1, M // 3))):
+            vals = {f: int(rng.integers(0, 1 << bits)) for f, (_, bits) in pk.fields.items()}
+            keys.add(pk.pack(**{**vals, "mtype": int(rng.integers(1, 7))}))
+        for dst in range(S):  # FetchResponses that match dst's pendingFetch
+            pf = [int(r[lay.sl(f)][dst]) for f in ("pf_epoch", "pf_offset", "pf_lastepoch",
+                                                    "pf_dest")]
+            if pf[0] == 0:
+                continue
+            for _ in range(2):
+                keys.add(pk.pack(
+                    mtype=kr.FETCHRESP, mepoch=int(rng.integers(1, 4)), msource=(pf[3] - 1) % 4,
+                    mdest=dst, mleader=int(rng.integers(0, S + 1)),
+                    merror=int(rng.choice([0, 0, 1, 2, 3])), mresult=int(rng.integers(1, 4)),
+                    cepoch=pf[0], cfetchOffset=pf[1], clastFetchedEpoch=pf[2],
+                    nentries=int(rng.integers(0, 2)), eepoch=int(rng.integers(1, 4)),
+                    evalue=int(rng.integers(1, V + 1)), mhwm=int(rng.integers(0, L + 1)),
+                    mdivergingEpoch=int(rng.integers(0, 4)),
+                    mdivergingEndOffset=int(rng.integers(0, L + 1))))
+        put_bag(r, keys)
+    full_logs = scr.copy()
+    full_logs[:, lay.sl("log_len")] = L
+    # re-delivery: a reply to a FetchRequest with the request's count
+    # restored (the response is then in the bag, count 1)
+    base = np.ascontiguousarray(np.concatenate([st, scr]).astype(np.int32))
+    succs, valid, rank, _ = (x.numpy() for x in model.expand(torch.from_numpy(base)))
+    replies = (kr.K_REJECT_FETCH, kr.K_DIVERGING_FETCH, kr.K_ACCEPT_FETCH)
+    redo = []
+    for c, a in zip(*np.nonzero(valid & np.isin(rank, replies))):
+        m = model.bindings[a][1][0]
+        row = succs[c, a].copy()
+        key = (base[c, hs][m], base[c, ls][m])
+        slot = np.nonzero((row[hs] == key[0]) & (row[ls] == key[1]))[0]
+        row[cs.start + slot[0]] += 1
+        redo.append(row)
+        if len(redo) == 48:
+            break
+    return np.ascontiguousarray(np.concatenate(
+        [st, pert, chain, maxlog, scr, full_logs, *([np.stack(redo)] if redo else [])]
+    ).astype(np.int32))
+
+
 def _edge_states(model, dev, seed):
     """``edge_rows`` of reachable states (the frontiers of depths 3 to 7
     of the port's BFS on the card), on the card."""
@@ -353,8 +464,8 @@ def test_raft_guard_apply_fold(dev, name):
     n_live = C - 7  # an all-dead chunk tail
     cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
     cov_p = cov_k.clone()
-    gk = raft_guard(model, states, n_live, cov_k)
-    gp = raft_guard_plain(model, states, n_live, cov_p)
+    gk = guard(model, states, n_live, cov_k)
+    gp = guard_plain(model, states, n_live, cov_p)
     for a, b in zip(gk, gp):
         assert torch.equal(a, b)
     assert torch.equal(cov_k, cov_p)
@@ -370,9 +481,9 @@ def test_raft_guard_apply_fold(dev, name):
     other = torch.randint(0, C * A, (500,), device=dev, dtype=torch.int32)
     for s in (sel, other, sel[:0]):
         s = s.contiguous()
-        fk, fp = raft_apply(model, states, s), raft_apply_plain(model, states, s)
+        fk, fp = apply(model, states, s), apply_plain(model, states, s)
         assert fk.shape == (s.numel(), model.layout.W) and torch.equal(fk, fp)
-    flatc = raft_apply(model, states, sel)
+    flatc = apply(model, states, sel)
     new = (torch.rand(sel.numel(), device=dev) < 0.7) & (sel < C * A)
     jcount = torch.tensor([777], dtype=torch.int64, device=dev)
     invs = tuple(model.invariants)
@@ -380,8 +491,8 @@ def test_raft_guard_apply_fold(dev, name):
         vk = torch.full((len(invs),), 2**31 - 1, dtype=torch.int64, device=dev)
         vp, ck, cp = vk.clone(), cov_k.clone(), cov_k.clone()
         fc = flatc[: s.numel()].contiguous()
-        raft_fold(model, fc, nw, jcount, vk, invs, cov=ck, sel=s, valid=valid, rank=rank)
-        raft_fold_plain(model, fc, nw, jcount, vp, invs, cov=cp, sel=s, valid=valid,
+        fold(model, fc, nw, jcount, vk, invs, cov=ck, sel=s, valid=valid, rank=rank)
+        fold_plain(model, fc, nw, jcount, vp, invs, cov=cp, sel=s, valid=valid,
                         rank=rank)
         assert torch.equal(vk, vp) and torch.equal(ck, cp)
 
@@ -398,15 +509,15 @@ def test_raft_guard_apply_wide_rows(dev):
     K = len(model.ACTION_NAMES)
     cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
     cov_p = cov_k.clone()
-    gk = raft_guard(model, states, C, cov_k)
-    gp = raft_guard_plain(model, states, C, cov_p)
+    gk = guard(model, states, C, cov_k)
+    gp = guard_plain(model, states, C, cov_p)
     for a, b in zip(gk, gp):
         assert torch.equal(a, b)
     assert torch.equal(cov_k, cov_p)
     valid = gk[0]
     assert bool(valid.any())
     sel, _ = compact_indices(valid.reshape(-1), int(valid.sum()) + 5, C * A)
-    assert torch.equal(raft_apply(model, states, sel), raft_apply_plain(model, states, sel))
+    assert torch.equal(apply(model, states, sel), apply_plain(model, states, sel))
 
 
 def test_raft_fold_finds_first_bad_lane(dev):
@@ -426,8 +537,8 @@ def test_raft_fold_finds_first_bad_lane(dev):
     jcount = torch.tensor([10], dtype=torch.int64, device=dev)
     vk = torch.full((len(invs),), 2**31 - 1, dtype=torch.int64, device=dev)
     vp = vk.clone()
-    raft_fold(model, states, new, jcount, vk, invs)
-    raft_fold_plain(model, states, new, jcount, vp, invs)
+    fold(model, states, new, jcount, vk, invs)
+    fold_plain(model, states, new, jcount, vp, invs)
     assert torch.equal(vk, vp)
     k = invs.index("LeaderHasAllAckedValues")
     assert int(vk[k]) <= 10 + int(new[:301].sum())
@@ -470,7 +581,7 @@ def test_violation_trace_replay_card_equals_cpu(dev):
 def test_raft_predicates(dev, name):
     """Every invariant and ValueAllOrNothing(v) of each value on edge rows
     and their successors, and rows with the election counter spent."""
-    from raft_tpu_torch.ops.expand import raft_predicates, raft_predicates_plain
+    from raft_tpu_torch.ops.expand import predicates, predicates_plain
 
     model = RaftModel(VARIANTS[name])
     states = _edge_states(model, dev, seed=3)
@@ -480,7 +591,7 @@ def test_raft_predicates(dev, name):
     assert any(n.startswith("ValueAllOrNothing(") for n in names)
     for rows in (states, spent, states[:0], states[:1]):
         rows = rows.contiguous()
-        pk, pp = raft_predicates(model, rows, names), raft_predicates_plain(model, rows, names)
+        pk, pp = predicates(model, rows, names), predicates_plain(model, rows, names)
         assert pk.shape == (len(names), rows.shape[0]) and torch.equal(pk, pp)
 
 
@@ -508,7 +619,7 @@ def test_raft_sim_check(dev):
     """The check and settle of one simulate step on reachable walks, with
     walks that did not move, walks at the depth cap, walks that break an
     invariant and walks whose journal is full."""
-    from raft_tpu_torch.ops.expand import raft_sim_check, raft_sim_check_plain
+    from raft_tpu_torch.ops.expand import sim_check, sim_check_plain
 
     model = RaftModel(VARIANTS["core"])
     states = _edge_states(model, dev, seed=9)
@@ -528,7 +639,7 @@ def test_raft_sim_check(dev):
     jlen[::11] = J  # a full journal takes no more candidates
     for invs in (INV, tuple(model.invariants), ()):
         outs = []
-        for fn in (raft_sim_check, raft_sim_check_plain):
+        for fn in (sim_check, sim_check_plain):
             args = [t.clone() for t in (nxt, depth, journal, jlen)]
             stats = torch.zeros(4, dtype=torch.int64, device=dev)
             res = fn(model, states, args[0], moved, chosen, ridx, init_pool, args[1],
@@ -756,4 +867,192 @@ def test_pull_bfs_simulate_and_replay_card_equal_cpu(dev):
     for k in ("pull_guard", "pull_apply", "pull_fold", "pull_predicates", "pull_sim_check"):
         assert counts[k] > 0, k
     for k in ("raft_guard", "raft_apply", "raft_fold", "raft_predicates", "raft_sim_check"):
+        assert counts[k] == 0, k
+
+
+# ---------------- KRaft ----------------
+
+KRAFT_VARIANTS = {
+    "kraft": KRaftParams(n_servers=3, n_values=1, max_elections=2, max_restarts=0,
+                         msg_slots=40),
+    "kraft_restart": KRaftParams(n_servers=3, n_values=2, max_elections=2, max_restarts=1,
+                                 msg_slots=40),
+}
+KRAFT_INV = ("LeaderHasAllAckedValues", "NoLogDivergence", "NeverTwoLeadersInSameEpoch",
+             "NoIllegalState")
+
+
+def _kraft_states(model, dev, depths=range(3, 10)):
+    """Reachable KRaft states (the frontiers of the port's BFS on the card),
+    as numpy rows."""
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+
+    parts = []
+    for depth in depths:
+        bfs = DeviceBFS(model, chunk=256, frontier_cap=1 << 13, max_seen_cap=1 << 20,
+                        canon_memo_cap=1 << 12, device=dev)
+        bfs.run(max_depth=depth)
+        parts.append(bfs.frontier_rows.cpu().numpy()[:120])
+    return np.concatenate(parts)
+
+
+@pytest.mark.parametrize("name", list(KRAFT_VARIANTS))
+def test_kraft_guard_apply_fold(dev, name):
+    """kraft_guard, kraft_apply and kraft_fold against their plain versions
+    on reachable and edge rows: a dead chunk tail, every valid lane then
+    drop lanes, lanes of disabled candidates, and the fold with coverage."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.models import kraft as kr
+
+    model = KRaftModel(KRAFT_VARIANTS[name])
+    states = torch.from_numpy(kraft_edge_rows(model, _kraft_states(model, dev), seed=3)).to(dev)
+    C, A = states.shape[0], model.A
+    K = len(model.ACTION_NAMES)
+    n_live = C - 7
+    cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
+    cov_p = cov_k.clone()
+    before = kernels.launch_counts()
+    gk = guard(model, states, n_live, cov_k)
+    gp = guard_plain(model, states, n_live, cov_p)
+    for a, b in zip(gk, gp):
+        assert torch.equal(a, b)
+    assert torch.equal(cov_k, cov_p)
+    valid, rank, ovf, _ = gk
+    for r in (kr.K_REQUESTVOTE, kr.K_BECOMELEADER, kr.K_CLIENTREQUEST):
+        assert bool((valid & ovf & (rank == r)).any()), r
+    sel, n = compact_indices(valid.reshape(-1), int(valid.sum()) + 300, C * A)
+    other = torch.randint(0, C * A, (500,), device=dev, dtype=torch.int32)
+    for s in (sel, other, sel[:0]):
+        s = s.contiguous()
+        fk, fp = apply(model, states, s), apply_plain(model, states, s)
+        assert fk.shape == (s.numel(), model.layout.W) and torch.equal(fk, fp)
+    flatc = apply(model, states, sel)
+    new = (torch.rand(sel.numel(), device=dev) < 0.7) & (sel < C * A)
+    jcount = torch.tensor([777], dtype=torch.int64, device=dev)
+    invs = tuple(model.invariants)
+    vk = torch.full((len(invs),), 2**31 - 1, dtype=torch.int64, device=dev)
+    vp, ck, cp = vk.clone(), cov_k.clone(), cov_k.clone()
+    fold(model, flatc, new, jcount, vk, invs, cov=ck, sel=sel, valid=valid, rank=rank)
+    fold_plain(model, flatc, new, jcount, vp, invs, cov=cp, sel=sel, valid=valid, rank=rank)
+    assert torch.equal(vk, vp) and torch.equal(ck, cp)
+    after = kernels.launch_counts()
+    for k in ("kraft_guard", "kraft_apply", "kraft_fold"):
+        assert after[k] > before[k], k
+    for k in ("raft_guard", "raft_apply", "raft_fold", "pull_guard", "pull_apply", "pull_fold"):
+        assert after[k] == before[k], k
+
+
+@pytest.mark.parametrize("name", list(KRAFT_VARIANTS))
+def test_kraft_predicates_and_sim_check(dev, name):
+    """kraft_predicates on edge rows (every invariant and ValueAllOrNothing),
+    and kraft_sim_check's check and settle as test_raft_sim_check holds
+    raft_sim_check."""
+    from raft_tpu_torch.ops.expand import predicates, predicates_plain, sim_check, sim_check_plain
+
+    model = KRaftModel(KRAFT_VARIANTS[name])
+    states = torch.from_numpy(kraft_edge_rows(model, _kraft_states(model, dev), seed=9)).to(dev)
+    names = tuple(model.invariants) + tuple(model.predicates)
+    for rows in (states, states[:0], states[:1]):
+        rows = rows.contiguous()
+        assert torch.equal(predicates(model, rows, names), predicates_plain(model, rows, names))
+    R = states.shape[0]
+    gen = torch.Generator().manual_seed(1)
+    nxt = states[torch.randperm(R, generator=gen).to(dev)].contiguous()
+    moved = (torch.rand(R, generator=gen) < 0.8).to(dev)
+    nxt[~moved] = 0
+    chosen = torch.randint(0, model.A, (R,), generator=gen, dtype=torch.int32).to(dev)
+    init_pool = states[:3].contiguous()
+    ridx = torch.randint(0, 3, (R,), generator=gen, dtype=torch.int32).to(dev)
+    max_depth = 6
+    depth = torch.randint(0, max_depth, (R,), generator=gen, dtype=torch.int32).to(dev)
+    J = max_depth + 1
+    journal = torch.randint(0, 99, (R, J), generator=gen, dtype=torch.int32).to(dev)
+    jlen = (depth + 1).contiguous()
+    jlen[::11] = J
+    for invs in (KRAFT_INV, tuple(model.invariants), ()):
+        outs = []
+        for fn in (sim_check, sim_check_plain):
+            args = [t.clone() for t in (nxt, depth, journal, jlen)]
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            res = fn(model, states, args[0], moved, chosen, ridx, init_pool, args[1],
+                     max_depth, args[2], args[3], invs, stats)
+            outs.append(list(res) + args + [stats[2:]])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_servers", [3, 5])
+def test_canon_on_kraft_rows(dev, n_servers):
+    """canon_memo (three servers) and canon_tiered with canon_signatures
+    (five) on KRaft rows, whose records carry the Nil-able mleader: the
+    kernels equal the plain Canonicalizer, and a server permutation keeps
+    the fingerprint."""
+    import itertools
+
+    from raft_tpu_torch.ops.symmetry import Canonicalizer, msg_perm_spec
+
+    model = KRaftModel(KRaftParams(n_servers=n_servers, n_values=1, max_elections=2,
+                                   max_restarts=0, msg_slots=40))
+    base = _kraft_states(model, dev, depths=range(4, 12) if n_servers == 3 else range(4, 9))
+    sigmas = [np.asarray(s) for s in itertools.permutations(range(n_servers))][1::5]
+    perm = np.concatenate([
+        permute_states(model.layout, model.packer, part, sigma, msg_perm_spec(model))
+        for part, sigma in zip(np.array_split(base, len(sigmas)), sigmas)])
+    states = torch.from_numpy(np.concatenate([base, perm])).to(dev)
+    canon = Canonicalizer.for_model(model)
+    valid = torch.rand(states.shape[0], device=dev) < 0.9
+    mk = torch.full((1 << 8, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    mp = mk.clone()
+    for _ in range(2):
+        fk, hk = canon.fingerprints_memo_cuda(states, valid, mk)
+        fp, hp = canon.fingerprints_memo_plain(states, valid, mp)
+        assert torch.equal(fk, fp) and torch.equal(mk, mp) and int(hk) == int(hp)
+    fps = canon.fingerprints(states)
+    assert torch.equal(fps, canon.canon_plain(states))
+    n = len(base)
+    assert torch.equal(fps[:n], fps[n:])
+    if n_servers == 5:
+        assert torch.equal(canon.signatures(states), canon.signatures_plain(states))
+
+
+def test_kraft_bfs_simulate_liveness_card_equal_cpu(dev):
+    """KRaft by BFS (counts, depth counts, coverage, the violation and its
+    trace with a restart allowed), by simulation (walks, final states,
+    journals) and its two-server liveness graph: the card equals the CPU,
+    through the KRaft kernels."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+    from raft_tpu_torch.checker.liveness import LivenessChecker
+    from raft_tpu_torch.checker.simulate import Simulator
+
+    caps = dict(chunk=256, frontier_cap=1 << 13, journal_cap=1 << 15, max_seen_cap=1 << 20,
+                canon_memo_cap=1 << 12)
+    kernels.reset_counts()
+    for name, depth in (("kraft", 11), ("kraft_restart", 8)):
+        rs = [DeviceBFS(KRaftModel(KRAFT_VARIANTS[name]), invariants=KRAFT_INV, device=d,
+                        **caps).run(max_depth=depth) for d in (dev, "cpu")]
+        assert (rs[0].distinct, rs[0].total, rs[0].depth_counts, rs[0].coverage,
+                rs[0].violation, rs[0].trace) == (rs[1].distinct, rs[1].total,
+                                                  rs[1].depth_counts, rs[1].coverage,
+                                                  rs[1].violation, rs[1].trace)
+    assert rs[0].violation is not None  # the restart set reaches IllegalState
+    sims = [Simulator(KRaftModel(KRAFT_VARIANTS["kraft"]), invariants=KRAFT_INV, walks=64,
+                      max_behavior_depth=30, seed=3, device=d) for d in (dev, "cpu")]
+    ss = [s.run(max_steps=64 * 40) for s in sims]
+    assert (ss[0].behaviors, ss[0].steps, ss[0].violation) == (ss[1].behaviors, ss[1].steps,
+                                                               ss[1].violation)
+    for a in ("states", "depth", "journal", "jlen"):
+        assert torch.equal(getattr(sims[0], a).cpu(), getattr(sims[1], a))
+    small = KRaftParams(n_servers=2, n_values=1, max_elections=1, max_restarts=0, msg_slots=16)
+    lv = [LivenessChecker(KRaftModel(small), ("ValuesNotStuck",), chunk=256, device=d)
+          for d in (dev, "cpu")]
+    lr = [c.run() for c in lv]
+    assert (lr[0].distinct, lr[0].total_edges, lr[0].violation) == (
+        lr[1].distinct, lr[1].total_edges, lr[1].violation)
+    assert torch.equal(lv[0]._states.cpu(), lv[1]._states)
+    counts = kernels.launch_counts()
+    for k in ("kraft_guard", "kraft_apply", "kraft_fold", "kraft_predicates", "kraft_sim_check"):
+        assert counts[k] > 0, k
+    for k in ("raft_guard", "raft_apply", "raft_fold", "raft_predicates", "raft_sim_check",
+              "pull_guard", "pull_apply", "pull_fold"):
         assert counts[k] == 0, k

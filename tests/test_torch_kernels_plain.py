@@ -119,4 +119,5 @@ def test_wrappers_route_by_device():
         "canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
         "raft_apply", "raft_fold", "chunk_sort", "canon_tiered", "canon_signatures",
         "sim_pick", "raft_predicates", "raft_sim_check", "hash_rows", "pull_guard",
-        "pull_apply", "pull_fold", "pull_predicates", "pull_sim_check"}
+        "pull_apply", "pull_fold", "pull_predicates", "pull_sim_check", "kraft_guard",
+        "kraft_apply", "kraft_fold", "kraft_predicates", "kraft_sim_check"}

@@ -1,8 +1,9 @@
 """Simulation mode of the port (raft_tpu_torch.checker.simulate) against
 the JAX package's Simulator on the CPU: the same walks step for step for
-the same seed (Raft, and the pull family's PullRaftVariant2) (states, depth, chosen candidate, done, restart index,
-invariant verdicts, journals), the same behaviors and steps, the same
-violation and trace, and the CLI's ``--simulate`` exit codes."""
+the same seed (Raft, the pull family's PullRaftVariant2 and KRaft) (states,
+depth, chosen candidate, done, restart index, invariant verdicts,
+journals), the same behaviors and steps, the same violation and trace, and
+the CLI's ``--simulate`` exit codes."""
 
 import dataclasses
 
@@ -13,12 +14,14 @@ import pytest
 import torch
 
 from raft_tpu.checker.simulate import Simulator as JaxSimulator
+from raft_tpu.models import kraft as jax_kraft
 from raft_tpu.models import pull_raft as jax_pull
 from raft_tpu.models.raft import RaftParams, cached_model
 from raft_tpu.models.registry import build_from_cfg as jax_build
 from raft_tpu.utils.cfg import parse_cfg as jax_parse
 from raft_tpu_torch.checker.simulate import Simulator, sim_pick_plain
 from raft_tpu_torch.convert import params_from_reference
+from raft_tpu_torch.models.kraft import KRaftModel
 from raft_tpu_torch.models.pull_raft import PullRaftModel
 from raft_tpu_torch.models.raft import RaftModel
 from raft_tpu_torch.models.registry import build_from_cfg
@@ -34,12 +37,15 @@ torch.set_num_threads(1)
 # tests/test_simulate.py's configuration
 PARAMS = RaftParams(n_servers=3, n_values=1, max_elections=2, max_restarts=0, msg_slots=32)
 # the step test's families: (reference model, port model class); the pull
-# family's is tests/test_pull_raft.py's Variant2 with two values and a restart
+# family's is tests/test_pull_raft.py's Variant2 with two values and a restart,
+# KRaft's tests/test_kraft.py's second set (two values and a restart)
 FAMILIES = {
     "raft": (lambda: cached_model(PARAMS), RaftModel),
     "pull": (lambda: jax_pull.cached_model(jax_pull.PullRaftParams(
         n_servers=3, n_values=2, max_elections=2, max_restarts=1, msg_slots=48,
         variant2=True)), PullRaftModel),
+    "kraft": (lambda: jax_kraft.cached_model(jax_kraft.KRaftParams(
+        n_servers=3, n_values=2, max_elections=2, max_restarts=1, msg_slots=64)), KRaftModel),
 }
 INVS = ("LeaderHasAllAckedValues", "NoLogDivergence")
 WALKS, DEPTH, SEED, BEHAVIORS = 16, 12, 7, 32
