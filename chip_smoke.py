@@ -31,7 +31,14 @@ Phases, each of which fails the run on any mismatch:
      their server-permuted copies,
      canon_tiered and canon_signatures on a chunk of five-server KRaft
      states, and kraft_sim_check and kraft_predicates on one move of a
-     65,536-walk KRaft simulate;
+     65,536-walk KRaft simulate; the reconfiguration kernels (reconfig_*
+     for RaftWithReconfigAddRemove, joint_* for JointConsensus) the same
+     way on a chunk of each four-server cfg's frontier at a wide wave and
+     on edge rows that take every receipt arm, the snapshot pair and the
+     config appends (tests/test_torch_kernels_cuda.py config_edge_rows),
+     with canon_memo's general path (N-word keys, the server_bitmask
+     kind, up to 24 remap fields) on their successor rows and permuted
+     copies;
   4. the main path: standard-raft Raft.cfg (inline text) checked through
      the function the CLI calls, on cuda, to exhaustion — 8,664,032
      distinct / 30,708,266 total / depth 48 / 19,514 terminal, no
@@ -58,6 +65,17 @@ Phases, each of which fails the run on any mismatch:
      identical final counts, the KRaft kernels once per chunk and no Raft
      or pull expand kernel, the deepest journal state's trace replayed on
      the card and the CPU, and card against CPU at KRAFT_SMALL_DEPTH;
+  4e, 4f. the reconfiguration specs on the main path (ADDREMOVE_CFG,
+     JOINT_CFG: the reference cfgs' four servers, 112 message slots):
+     AddRemove to its LeaderHasAllAckedValues violation at depth 21
+     (RECONFIG_VIOLATION), JointConsensus to depth 18, the deepest its
+     frontier fits in 80 GB; each with its depth counts and coverage held to
+     the reference's (scripts/pin_reconfig_counts.py) through the pinned
+     depth, again at half the chunk with identical results, its family's
+     kernels once per chunk and no other family's expand, the
+     counterexample's (or the deepest journal state's) trace replayed on
+     the card and the CPU, and card against CPU at the reference tests'
+     three-server constants;
   5. FlexibleRaft with quorums that need not intersect (3 servers,
      ElectionQuorumSize 2, ReplicationQuorumSize 1): the
      LeaderHasAllAckedValues violation, its gid, depth and trace on the
@@ -69,7 +87,8 @@ Phases, each of which fails the run on any mismatch:
   6. where the time goes: Raft.cfg to depth 20, five-server Raft to the
      pinned depth 11 (its distinct, total, depth counts and coverage equal
      to the reference's), the PullRaft stand-in's exhaustion and KRaft.cfg
-     to its pinned depth 30 (held to the reference's), each once
+     to its pinned depth 30 (held to the reference's), and the two
+     reconfiguration cfgs to their pinned depths (held likewise), each once
      untraced (wall per chunk) and once under torch.profiler (device time
      per chunk by kernel group, the device's busy share);
   7. simulate: FlexibleRaft's quorum violation (walk, depth, trace) and
@@ -88,6 +107,9 @@ Phases, each of which fails the run on any mismatch:
      once, and a profiled window of 20 moves;
   7c. simulate KRaft.cfg the same way (KRAFT_SIM_MOVES moves), through
      kraft_guard, sim_pick, kraft_apply and kraft_sim_check;
+  7d, 7e. simulate the two reconfiguration cfgs the same way
+     (CONFIG_SIM_MOVES moves), the card against the CPU on their
+     three-server cfgs at CONFIG_SMALL_SIM walks and moves;
   8. liveness: the two-server graph of tests/test_liveness.py (states and
      edge arrays) card against CPU; then Raft.cfg's constants at
      MaxElections LIVE_ELECTIONS with PROPERTY ValuesNotStuck through the
@@ -97,7 +119,10 @@ Phases, each of which fails the run on any mismatch:
      kernel table); 8b. the same for KRaft: the two-server graph of
      tests/test_liveness_families.py card against CPU, then KRaft.cfg's
      constants at MaxElections KRAFT_LIVE_ELECTIONS through kraft_guard,
-     kraft_apply and kraft_predicates;
+     kraft_apply and kraft_predicates; 8c. PROPERTY
+     ReconfigurationCompletes at MaxElections 0: AddRemove's graph card
+     against CPU, JointConsensus' held to the port's CPU run, each through
+     its family's guard, apply and predicates (P and Q);
   9. the kernel table as one JSON line, the card's name and power limit,
      and the result line.
 """
@@ -346,6 +371,117 @@ KRAFT_LIVE_CFG = KRAFT_CFG + "PROPERTY\n    ValuesNotStuck\n"
 KRAFT_LIVE_SMALL_CFG = KRAFT_LIVE_CFG.replace("    n3 = n3\n", "").replace(
     "{ n1, n2, n3 }", "{ n1, n2 }").replace("MaxElections = 2", "MaxElections = 1")
 
+# the reconfiguration specs (phases 3, 4e, 4f, 6, 7d, 7e, 8c): the
+# reference cfgs' four servers (SURVEY.md:91-92) with stand-ins for the
+# constants the repo does not hold (Value = {v1}, MaxElections 1,
+# MaxRestarts 0, MaxValuesPerTerm 1: JointConsensus.cfg's bounds), the
+# three invariants, 112 message slots (the registry's default). AddRemove's
+# MaxClusterSize is absent, as in the reference cfg: the lenient parse
+# repairs it to |Server| = 4
+ADDREMOVE_CFG = """\
+\\* standard-raft/RaftWithReconfigAddRemove.cfg
+CONSTANTS
+    n1 = n1
+    n2 = n2
+    n3 = n3
+    n4 = n4
+    v1 = v1
+    Server = { n1, n2, n3, n4 }
+    Value = { v1 }
+    InitClusterSize = 3
+    MinClusterSize = 2
+    MaxAddReconfigs = 1
+    MaxRemoveReconfigs = 1
+    IncludeThesisBug = FALSE
+    MaxElections = 1
+    MaxRestarts = 0
+    MaxValuesPerTerm = 1
+INIT Init
+NEXT Next
+VIEW view
+SYMMETRY symmServers
+INVARIANT
+    LeaderHasAllAckedValues
+    NoLogDivergence
+    MaxOneReconfigurationAtATime
+"""
+JOINT_CFG = ADDREMOVE_CFG.replace(
+    "RaftWithReconfigAddRemove.cfg", "RaftWithReconfigJointConsensus.cfg").replace(
+    "    MinClusterSize = 2\n    MaxAddReconfigs = 1\n    MaxRemoveReconfigs = 1\n"
+    "    IncludeThesisBug = FALSE\n", "    MaxReconfigs = 2\n    ReconfigType = 2\n")
+
+
+def _three_servers(text: str) -> str:
+    """A four-server reconfiguration cfg at three servers, two of them in
+    the initial cluster."""
+    return text.replace("    n4 = n4\n", "").replace(
+        "{ n1, n2, n3, n4 }", "{ n1, n2, n3 }").replace(
+        "InitClusterSize = 3", "InitClusterSize = 2")
+
+
+# the card-against-CPU runs at the reference tests' three-server constants
+# (tests/test_reconfig_add_remove.py:41-45: MaxClusterSize repaired to 3;
+# tests/test_reconfig_joint.py:35-38: MaxReconfigs 1)
+ADDREMOVE_SMALL_CFG = _three_servers(ADDREMOVE_CFG)
+JOINT_SMALL_CFG = _three_servers(JOINT_CFG).replace("MaxReconfigs = 2", "MaxReconfigs = 1")
+CONFIG_SMALL_DEPTH = 4
+# the liveness runs (phase 8c): PROPERTY ReconfigurationCompletes at
+# MaxElections 0 (tests/test_liveness_families.py:71-75 and :95-99)
+ADDREMOVE_LIVE_CFG = ADDREMOVE_SMALL_CFG.replace("MaxElections = 1", "MaxElections = 0").replace(
+    "MaxRemoveReconfigs = 1", "MaxRemoveReconfigs = 0") + "PROPERTY\n    ReconfigurationCompletes\n"
+JOINT_LIVE_CFG = JOINT_SMALL_CFG.replace("MaxElections = 1", "MaxElections = 0").replace(
+    "ReconfigType = 2", "ReconfigType = 3") + "PROPERTY\n    ReconfigurationCompletes\n"
+# the port's CPU run of JOINT_LIVE_CFG (scripts/pin_reconfig_liveness.py:
+# msg_slots 40, chunk 256, 2,938 s on 8 cores): the JAX checker cannot
+# build this graph (tests/test_liveness_families.py:82-91), and the port's
+# checker equals the JAX one on AddRemove's (tests/test_torch_reconfig_bfs.py)
+JOINT_LIVE_PIN = dict(states=3_141_844, edges=5_873_605, holds=True)
+# the reference's dense DeviceBFS on the four-server cfgs
+# (scripts/pin_reconfig_counts.py): AddRemove through depth 17 (the oracle's
+# depths 0-7: 1, 6, 27, 91, 251, 602, 1294, 2558), JointConsensus through
+# depth 14 (1, 5, 24, 90, 271, 711, 1679, 3712); neither exhausts
+RECONFIG_PIN = dict(
+    depth_counts=[1, 6, 27, 91, 251, 602, 1294, 2558, 4790, 8633, 15210, 26257, 44664, 76025,
+                  131746, 234259, 424063, 770466],
+    distinct=1_740_943, total=4_506_928, terminal=1_399, exhausted=False,
+    coverage=[[0, 0, 0], [644837, 1171904, 398812], [79877, 177232, 27064], [27580, 27580, 17318],
+              [441473, 534410, 210495], [223741, 250225, 128920], [140260, 147788, 20173],
+              [81919, 81920, 28802], [350894, 462959, 120891], [437910, 526175, 336471],
+              [308526, 352201, 233418], [249856, 286265, 121321], [27207, 35403, 10212],
+              [61157, 227577, 52391], [77445, 77492, 14373], [72183, 72195, 7214],
+              [43635, 43637, 5416], [31964, 31964, 7651]],
+)
+JOINT_PIN = dict(
+    depth_counts=[1, 5, 24, 90, 271, 711, 1679, 3712, 8030, 17777, 40720, 93539, 207150, 433257,
+                  855483],
+    distinct=1_662_449, total=4_747_116, terminal=88, exhausted=False,
+    coverage=[[0, 0, 0], [611787, 1193308, 295840], [29395, 68287, 10132], [15721, 15721, 10310],
+              [312857, 357511, 125524], [101322, 112850, 62066], [207333, 280483, 39314],
+              [34619, 34619, 14856], [499821, 795051, 129158], [419004, 516092, 387860],
+              [297878, 326098, 250811], [202970, 222946, 110379], [66867, 205395, 67378],
+              [36368, 36368, 10011], [353691, 410704, 98659], [123905, 123905, 35019],
+              [47759, 47777, 15131]],
+)
+# the card's runs. AddRemove breaks LeaderHasAllAckedValues at depth 21
+# (RECONFIG_VIOLATION: ResetWithSameIdentity empties a voter's log, and a
+# server without the acked value is elected by the old configuration's
+# quorum; the reference's model takes the same 21 steps,
+# tests/test_torch_reconfig_bfs.py), where BFS stops; JointConsensus runs to
+# depth 18, the deepest its frontier fits in 80 GB (depth 19's, some 16 M
+# rows of 4,168 bytes held twice, would not). The frontier buffers grow x4
+# to their caps and are held twice: 12,582,912 rows of 2,940 bytes and
+# 9,502,720 of 4,168 (70.7 and 75.9 GiB at peak). Also the sample depths
+# of phase 3 (a wide wave) and the simulate's moves
+RECONFIG_DEPTH = 21
+RECONFIG_VIOLATION = ("LeaderHasAllAckedValues", 21)
+JOINT_DEPTH = 18
+RECONFIG_SAMPLE_DEPTH = 11
+JOINT_SAMPLE_DEPTH = 10
+RECONFIG_CAPS = dict(max_frontier_cap=12_582_912, max_seen_cap=1 << 26, max_journal_cap=1 << 26)
+JOINT_CAPS = dict(RECONFIG_CAPS, max_frontier_cap=9_502_720)
+CONFIG_SIM_MOVES = 100
+CONFIG_SMALL_SIM = (64, 20)  # the card-against-CPU simulate: walks, moves
+
 # (distinct, total, depth, terminal) of Raft.cfg: exhausted, and at depth
 # 20 (the sample and trace runs), pinned from the reference's dense path
 EXHAUSTED = (8_664_032, 30_708_266, 48, 19_514)
@@ -382,6 +518,11 @@ KERNEL_NAMES = {
     "kraft_fold": ("kraft_fold_lanes", "kraft_fold_viol"),
     "kraft_predicates": ("kraft_predicates_kernel",),
     "kraft_sim_check": ("kraft_sim_check_kernel",),
+    **{f"{fam}_{role}": names for fam in ("reconfig", "joint") for role, names in (
+        ("guard", (f"{fam}_guard_kernel",)), ("apply", (f"{fam}_apply_kernel",)),
+        ("fold", (f"{fam}_fold_lanes", f"{fam}_fold_viol")),
+        ("predicates", (f"{fam}_predicates_kernel",)),
+        ("sim_check", (f"{fam}_sim_check_kernel",)))},
 }
 # the kernels each path launches (canon_signatures serves the checks only)
 RAFT3_PATH = ("canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
@@ -389,6 +530,8 @@ RAFT3_PATH = ("canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_
 RAFT5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in RAFT3_PATH)
 PULL_PATH = tuple(k.replace("raft_", "pull_") for k in RAFT3_PATH)
 KRAFT_PATH = tuple(k.replace("raft_", "kraft_") for k in RAFT3_PATH)
+RECONFIG_PATH = tuple(k.replace("raft_", "reconfig_") for k in RAFT3_PATH)
+JOINT_PATH = tuple(k.replace("raft_", "joint_") for k in RAFT3_PATH)
 # state fields the invariants of the cfgs here read (NoLogDivergence,
 # LeaderHasAllAckedValues; KRaft.cfg's also NeverTwoLeadersInSameEpoch and
 # NoIllegalState): the part of a row a family's fold must load
@@ -396,6 +539,9 @@ INVARIANT_FIELDS = ("currentTerm", "state", "log_term", "log_value", "commitInde
 FOLD_FIELDS = {"raft": INVARIANT_FIELDS, "pull": INVARIANT_FIELDS,
                "kraft": ("currentEpoch", "state", "leader", "log_epoch", "log_value",
                          "highWatermark", "acked")}
+for _fam, _extra in (("reconfig", ("cmem", "cmembers")), ("joint", ("old", "new", "members"))):
+    FOLD_FIELDS[_fam] = ("currentTerm", "state", "commitIndex", "log_len", "acked") + tuple(
+        f"log_{n}" for n in ("term", "cmd", "val", "cid") + _extra)
 # and the liveness predicate ValueAllOrNothing (raft_predicates)
 LIVENESS_FIELDS = ("electionCtr", "state", "log_value", "log_len")
 # the kernels of the simulate and liveness paths (simulate's
@@ -416,6 +562,20 @@ KRAFT_FAM = dict(prefix="kraft", tag="4d", sim_tag="7c", cfg=KRAFT_CFG, lenient=
                  specs=(("KRaft", KRAFT_PIN, KRAFT_SAMPLE_DEPTH),),
                  small=("KRaft", KRAFT_SMALL_DEPTH), path=KRAFT_PATH, second_chunk=2 * CHUNK,
                  sim_moves=KRAFT_SIM_MOVES, five_cfg=KRAFT5_CFG, five_depth=KRAFT5_SAMPLE_DEPTH)
+# the reconfiguration specs: each its own family (AddRemove's reconfig_*,
+# JointConsensus' joint_* kernels), run to a depth, not exhausted, with the
+# card against the CPU at three servers
+RECONFIG_FAM = dict(prefix="reconfig", tag="4e", sim_tag="7d", cfg=ADDREMOVE_CFG, lenient=True,
+                    specs=(("RaftWithReconfigAddRemove", RECONFIG_PIN, RECONFIG_SAMPLE_DEPTH),),
+                    small=("RaftWithReconfigAddRemove", CONFIG_SMALL_DEPTH),
+                    small_cfg=ADDREMOVE_SMALL_CFG, path=RECONFIG_PATH, depth=RECONFIG_DEPTH,
+                    caps=RECONFIG_CAPS, second_chunk=CHUNK // 2, sim_moves=CONFIG_SIM_MOVES,
+                    small_sim=CONFIG_SMALL_SIM, violation=RECONFIG_VIOLATION)
+JOINT_FAM = dict(RECONFIG_FAM, prefix="joint", tag="4f", sim_tag="7e", cfg=JOINT_CFG,
+                 specs=(("RaftWithReconfigJointConsensus", JOINT_PIN, JOINT_SAMPLE_DEPTH),),
+                 small=("RaftWithReconfigJointConsensus", CONFIG_SMALL_DEPTH),
+                 small_cfg=JOINT_SMALL_CFG, path=JOINT_PATH, depth=JOINT_DEPTH, caps=JOINT_CAPS,
+                 violation=None)
 # integer operations of one threefry2x32 block: 20 rounds of an add, a
 # rotate (two shifts and an or) and a xor, and 6 key injections of 3 adds
 THREEFRY_OPS = 20 * 5 + 6 * 3
@@ -513,8 +673,9 @@ def expand_puts(torch, model, batch, valid, rank):
     S - 1 (its chain), RequestVotePair, AppendEntries and
     SendPullEntriesRequest and SendFetchRequest one, a BecomeLeader of the
     pull family one per peer it notifies (every peer in Variant2, the peers
-    that did not vote for it in PullRaft), KRaft's BecomeLeader S - 1, and a
-    message whose receipt replies one."""
+    that did not vote for it in PullRaft), KRaft's BecomeLeader S - 1, a
+    reconfiguration spec's RequestVote one per other member and its
+    SendSnapshot one, and a message whose receipt replies one."""
     S, dev = model.p.n_servers, valid.device
     names = [b[0] for b in model.bindings]
     mask = lambda groups: torch.tensor([n in groups for n in names], device=dev)  # noqa: E731
@@ -522,7 +683,17 @@ def expand_puts(torch, model, batch, valid, rank):
     puts = puts + (valid & mask(("RequestVotePair", "AppendEntries",
                                  "SendPullEntriesRequest"))).sum()
     fam = family_of(model)
-    if fam == "raft":
+    if fam in ("reconfig", "joint"):
+        from raft_tpu_torch.models import config_common as cc
+
+        # RequestVote puts one request per member but itself: recount
+        members = model.layout.get(batch, "config_members")  # [C, S]
+        sizes = ((members.unsqueeze(-1) >> torch.arange(S, device=dev)) & 1).sum(-1)
+        off = names.index("RequestVote")
+        puts = (valid[:, off:off + S] * (sizes - 1).clamp(min=0)).sum() + (
+            valid & mask(("AppendEntries", "SendSnapshot"))).sum()
+        replies = (cc.R_HANDLE_RVREQ, cc.R_REJECT_AE, cc.R_ACCEPT_AE, cc.R_HANDLE_SNAPREQ)
+    elif fam == "raft":
         from raft_tpu_torch.models.raft import R_ACCEPT_AE, R_HANDLE_RVREQ, R_REJECT_AE
 
         replies = (R_HANDLE_RVREQ, R_REJECT_AE, R_ACCEPT_AE)
@@ -910,12 +1081,18 @@ def edge_pool(model, pool, rng) -> np.ndarray:
     ClientRequest and an accepted success response overflow it), and every
     count at 0 (records in the domain that only a count-0 rule can take).
     For a family whose records carry the Nil-able ``mleader`` (KRaft), also
-    copies whose responses name a random leader or Nil."""
+    copies whose responses name a random leader or Nil. A reconfiguration
+    spec's rows are tests/test_torch_kernels_cuda.py's config_edge_rows of
+    them (every receipt arm, snapshots, config appends)."""
     from raft_tpu_torch.ops.packing import EMPTY
 
+    base = pool[rng.integers(0, len(pool), 1024)]
+    if "msg_w0" in model.layout.fields:  # the reconfiguration specs' N-word bags
+        from test_torch_kernels_cuda import config_edge_rows
+
+        return config_edge_rows(model, base, seed=int(rng.integers(0, 1 << 20)))
     lay, M, L = model.layout, model.p.msg_slots, model.p.max_log
     hs, ls, cs = lay.sl("msg_hi"), lay.sl("msg_lo"), lay.sl("msg_cnt")
-    base = pool[rng.integers(0, len(pool), 1024)]
     full = base.copy()
     for r in full:
         keys = set(zip(r[hs].tolist(), r[ls].tolist())) - {(EMPTY, EMPTY)}
@@ -1150,14 +1327,15 @@ def family_kernel_rows(torch, rng, fam) -> dict:
     return rows
 
 
-def run_family(fam, spec, device, depth, chunk=CHUNK):
+def run_family(fam, spec, device, depth, chunk=CHUNK, text=None):
     """run_check (the CLI's function) of one of the family's specs on its
-    cfg text (the pull stand-in parsed leniently: the parse declares its
-    v2)."""
+    cfg text or ``text`` (the pull stand-in and AddRemove parsed
+    leniently: the parse declares PullRaft's v2 and repairs AddRemove's
+    MaxClusterSize), with the family's capacities."""
     from raft_tpu_torch.__main__ import run_check
 
-    return run_check(f"{spec}.cfg", text=fam["cfg"], device=device, chunk=chunk,
-                     max_depth=depth, lenient=fam["lenient"])
+    return run_check(f"{spec}.cfg", text=text or fam["cfg"], device=device, chunk=chunk,
+                     max_depth=depth, lenient=fam["lenient"], caps=fam.get("caps"))
 
 
 def family_main_phase(torch, fam) -> dict:
@@ -1169,7 +1347,9 @@ def family_main_phase(torch, fam) -> dict:
     the CPU; where the family has a second chunk size, the exhaustion
     repeated at it with identical final counts (a check of the levels past
     a pin); the family's other specs exhausted and held to their pins; and
-    card against CPU at a small depth."""
+    card against CPU at a small depth (on the family's small cfg where it
+    has one). A family with a ``depth`` (the reconfiguration specs) runs to
+    that depth, not to exhaustion, with its capacities."""
     from raft_tpu_torch.checker.util import replay_chain
 
     tag, t0 = fam["tag"], time.perf_counter()
@@ -1177,15 +1357,19 @@ def family_main_phase(torch, fam) -> dict:
     for k, (spec, pin, _depth) in enumerate(fam["specs"]):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        depth = fam.get("depth")
         if k == 0:
             setup, bfs, res, wall, launches, n_expand, n_sort = counted_run(
-                torch, f"{spec}.cfg", fam["cfg"], lenient=fam["lenient"])
+                torch, f"{spec}.cfg", fam["cfg"], lenient=fam["lenient"], max_depth=depth,
+                caps=fam.get("caps"))
         else:
             t = time.perf_counter()
-            setup, bfs, res = run_family(fam, spec, "cuda", None)
+            setup, bfs, res = run_family(fam, spec, "cuda", depth)
             wall = time.perf_counter() - t
         peak = torch.cuda.max_memory_allocated()
-        chunks = sum(-(-n // CHUNK) for n in res.depth_counts) + bfs.redone_chunks
+        # an exhausted run also expands its last frontier
+        waves = res.depth_counts if res.exhausted else res.depth_counts[:-1]
+        chunks = sum(-(-n // CHUNK) for n in waves) + bfs.redone_chunks
         model = setup.model
         print(f"[{tag}] {spec}: distinct={res.distinct} total={res.total} depth={res.depth} "
               f"terminal={res.terminal} exhausted={res.exhausted} in {wall:.2f} s "
@@ -1195,8 +1379,12 @@ def family_main_phase(torch, fam) -> dict:
         run = {"distinct": res.distinct, "total": res.total, "depth": res.depth,
                "terminal": res.terminal, "seconds": wall, "distinct_per_s": res.distinct / wall,
                "chunks": chunks, "ms_per_chunk": wall * 1e3 / chunks, "peak_device_bytes": peak}
-        check(res.violation is None and res.exhausted, f"{spec}: {res.violation}, "
-              f"exhausted {res.exhausted}")
+        want_viol = fam.get("violation") if k == 0 else None
+        got_viol = res.violation and (res.violation.invariant, res.violation.depth)
+        check(got_viol == want_viol and (
+            res.exhausted if depth is None else res.depth == depth),
+            f"{spec}: violation {got_viol} (expected {want_viol}), exhausted {res.exhausted}, "
+            f"depth {res.depth}")
         got = dict(depth_counts=res.depth_counts, distinct=res.distinct, total=res.total,
                    terminal=res.terminal, coverage=res.coverage)
         if pin["exhausted"]:
@@ -1214,35 +1402,46 @@ def family_main_phase(torch, fam) -> dict:
             del bfs
             continue
         report.update(run, launches=launches, depth_counts=res.depth_counts)
-        check_path(launches, fam["path"], chunks, n_expand, n_sort, tag)
-        # the deepest journal state's trace (no invariant of these cfgs fails)
-        init, chain = bfs.journal_chain(res.distinct - 1)
+        check_path(launches, fam["path"], chunks, n_expand, n_sort, tag,
+                   replayed=len(res.trace) - 1 if res.violation else 0)
+        # the violation's trace, else the deepest journal state's
+        gid = res.violation.global_id if res.violation else res.distinct - 1
+        init, chain = bfs.journal_chain(gid)
         tg, tc = (replay_chain(model, d, init, chain) for d in ("cuda", "cpu"))
         check(tg == tc and len(tg) == res.depth + 1, f"{spec}: the replayed traces differ")
-        print(f"[{tag}] {spec}: the {len(tg)}-state trace of gid {res.distinct - 1} (last step "
-              f"{tg[-1][0]}) replays equal on the card and the CPU")
+        if res.violation:
+            inv = res.violation.invariant
+            last = torch.from_numpy(model.encode(tc[-1][1])[None])
+            check(tg == res.trace and not bool(model.invariants[inv](last)[0]),
+                  f"{spec}: the counterexample does not replay to a state that breaks {inv}")
+        print(f"[{tag}] {spec}: the {len(tg)}-state trace of gid {gid} (last step "
+              f"{tg[-1][0]}) replays equal on the card and the CPU"
+              + (f", and its last state breaks {res.violation.invariant} on the CPU"
+                 if res.violation else ""))
+        report["violation"] = got_viol and [*got_viol, gid]
         del bfs
         if fam.get("second_chunk"):
             torch.cuda.empty_cache()
             t = time.perf_counter()
-            _, bfs2, res2 = run_family(fam, spec, "cuda", None, chunk=fam["second_chunk"])
+            _, bfs2, res2 = run_family(fam, spec, "cuda", depth, chunk=fam["second_chunk"])
             wall2 = time.perf_counter() - t
             got2 = (res2.distinct, res2.total, res2.depth, res2.terminal, res2.depth_counts,
-                    res2.coverage, res2.exhausted)
+                    res2.coverage, res2.exhausted, res2.violation)
             check(got2 == (res.distinct, res.total, res.depth, res.terminal, res.depth_counts,
-                           res.coverage, True),
+                           res.coverage, res.exhausted, res.violation),
                   f"{spec} at chunk {fam['second_chunk']}: {got2[:4]} != "
                   f"{(res.distinct, res.total, res.depth, res.terminal)}")
-            print(f"[{tag}] {spec} exhausted again at chunk {fam['second_chunk']} in "
-                  f"{wall2:.2f} s: identical distinct, total, depth, terminal, depth counts "
-                  "and coverage")
+            print(f"[{tag}] {spec} run again at chunk {fam['second_chunk']} in "
+                  f"{wall2:.2f} s: identical distinct, total, depth, terminal, depth counts, "
+                  "coverage and violation")
             report["second_chunk"] = {"chunk": fam["second_chunk"], "seconds": wall2}
             del bfs2
     spec, depth = fam["small"]
     runs = {}
     for d in ("cuda", "cpu"):
         t = time.perf_counter()
-        runs[d] = (run_family(fam, spec, d, depth, chunk=1024)[2], time.perf_counter() - t)
+        runs[d] = (run_family(fam, spec, d, depth, chunk=1024, text=fam.get("small_cfg"))[2],
+                   time.perf_counter() - t)
     (sg, t_card), (sc, t_cpu) = runs["cuda"], runs["cpu"]
     check((sg.distinct, sg.total, sg.terminal, sg.depth_counts, sg.coverage)
           == (sc.distinct, sc.total, sc.terminal, sc.depth_counts, sc.coverage),
@@ -1256,7 +1455,8 @@ def family_main_phase(torch, fam) -> dict:
 
 def family_simulate_phase(torch, fam) -> dict:
     """A spec family simulated: its first spec on the card against the CPU
-    at SMALL_WALKS walks for SMALL_MOVES moves, then at SIM_WALKS walks for
+    at SMALL_WALKS walks for SMALL_MOVES moves (a reconfiguration family:
+    its small cfg at its own walks and moves), then at SIM_WALKS walks for
     the family's moves through ``run_simulate`` (the CLI's function) with
     its launch counts, and a profiled window of its moves."""
     from torch.profiler import ProfilerActivity, profile
@@ -1268,10 +1468,12 @@ def family_simulate_phase(torch, fam) -> dict:
     spec = fam["specs"][0][0]
     kw = dict(text=fam["cfg"], max_behavior_depth=SIM_DEPTH, seed=0, lenient=fam["lenient"])
     small = {}
+    walks, moves_small = fam.get("small_sim", (SMALL_WALKS, SMALL_MOVES))
     for d in ("cuda", "cpu"):
         t = time.perf_counter()
-        _, sim, res = run_simulate(f"{spec}.cfg", device=d, walks=SMALL_WALKS,
-                                   max_steps=SMALL_MOVES * SMALL_WALKS, **kw)
+        _, sim, res = run_simulate(f"{spec}.cfg", device=d, walks=walks,
+                                   max_steps=moves_small * walks,
+                                   **dict(kw, text=fam.get("small_cfg", fam["cfg"])))
         small[d] = (sim, res, time.perf_counter() - t)
     (sg, fg, t_card), (sc, fc, t_cpu) = small["cuda"], small["cpu"]
     check(fg.violation is None and fc.violation is None
@@ -1280,7 +1482,7 @@ def family_simulate_phase(torch, fam) -> dict:
           f"{(fc.behaviors, fc.steps, fc.violation)}")
     for a in ("states", "depth", "journal", "jlen"):
         check(torch.equal(getattr(sg, a).cpu(), getattr(sc, a)), f"simulate {spec}: {a} differ")
-    print(f"[{tag}] simulate {spec} ({SMALL_WALKS} walks, {SMALL_MOVES} moves): behaviors="
+    print(f"[{tag}] simulate {spec} ({walks} walks, {moves_small} moves): behaviors="
           f"{fg.behaviors} steps={fg.steps}, final states and journals: card == CPU "
           f"(card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
     del small, sg, sc
@@ -1348,15 +1550,16 @@ def family_simulate_phase(torch, fam) -> dict:
 def counted(torch, fn):
     """``fn()`` on the card with every kernel's count set to 0 just before
     and read just after, the plain expands (RaftModel's, PullRaftModel's,
-    KRaftModel's) and torch's sorts counted by wrapping them for the length
-    of the call. Returns (fn's
+    KRaftModel's, the reconfiguration models') and torch's sorts counted by
+    wrapping them for the length of the call. Returns (fn's
     result, wall s, launches, expand calls, sort calls)."""
     from raft_tpu_torch import kernels
+    from raft_tpu_torch.models.config_common import ConfigRaftCommon
     from raft_tpu_torch.models.kraft import KRaftModel
     from raft_tpu_torch.models.pull_raft import PullRaftModel
     from raft_tpu_torch.models.raft import RaftModel
 
-    models = (RaftModel, PullRaftModel, KRaftModel)
+    models = (RaftModel, PullRaftModel, KRaftModel, ConfigRaftCommon)
     calls = {"expand": 0, "sort": 0}
     saved = {"expand": tuple(m.expand for m in models),
              "sort": (torch.sort, torch.argsort, torch.Tensor.sort, torch.Tensor.argsort)}
@@ -1396,16 +1599,20 @@ def counted_run(torch, cfg_name, text, **kw):
     return (*out, wall, launches, n_expand, n_sort)
 
 
-def check_path(launches, path, chunks, expand_calls, sort_calls, name):
+def check_path(launches, path, chunks, expand_calls, sort_calls, name, replayed=0):
     """Every kernel of ``path`` launched, the per-chunk kernels once per
-    chunk, the canon and the family's fold once more for the initial
-    states, no kernel off the path (another family's among them), and
-    neither the plain expand nor a torch sort on the path."""
+    chunk (the guard and apply also once per step of a counterexample's
+    replayed trace, ``replayed`` steps), the canon and the family's fold
+    once more for the initial states, no kernel off the path (another
+    family's among them), and neither the plain expand nor a torch sort on
+    the path."""
     fam = next(k for k in path if k.endswith("_guard")).rsplit("_", 1)[0]
     for k in path:
         check(launches[k] > 0, f"{name}: kernel {k} was never launched on the path")
-    for k in ("probe_runs", f"{fam}_guard", f"{fam}_apply", "chunk_sort"):
-        check(launches[k] == chunks, f"{name}: {launches[k]} {k} launches != {chunks} chunks")
+    for k, n in (("probe_runs", chunks), ("chunk_sort", chunks),
+                 (f"{fam}_guard", chunks + replayed), (f"{fam}_apply", chunks + replayed)):
+        check(launches[k] == n, f"{name}: {launches[k]} {k} launches != {chunks} chunks"
+              + (f" + {replayed} replayed steps" if replayed else ""))
     fold = f"{fam}_fold"
     check(launches[fold] == chunks + 1,
           f"{name}: {launches[fold]} {fold} launches != {chunks} chunks + 1")
@@ -1416,8 +1623,9 @@ def check_path(launches, path, chunks, expand_calls, sort_calls, name):
         check(launches[k] == 0, f"{name}: {k} launched off its path")
     check(expand_calls == 0, f"{name}: the plain expand ran {expand_calls} times")
     check(sort_calls == 0, f"{name}: torch sorted {sort_calls} times on the chunk path")
-    print(f"[{name}] {fam}_guard, {fam}_apply, probe_runs, chunk_sort: one launch per chunk; "
-          f"{canon}, {fold}: one per chunk and one for the initial states; no kernel off the "
+    print(f"[{name}] {fam}_guard, {fam}_apply, probe_runs, chunk_sort: one launch per chunk"
+          + (f" (the guard and apply also one per replayed step, {replayed})" if replayed else "")
+          + f"; {canon}, {fold}: one per chunk and one for the initial states; no kernel off the "
           f"path; the plain expand called {expand_calls} times, torch sorts {sort_calls}")
 
 
@@ -1711,6 +1919,65 @@ def liveness_phase(torch, live) -> dict:
     return report
 
 
+def reconfig_liveness_phase(torch) -> dict:
+    """Phase 8c: PROPERTY ReconfigurationCompletes. AddRemove at
+    MaxElections 0 (ADDREMOVE_LIVE_CFG) on the card against the CPU
+    (states, edge arrays, verdict), through ``run_liveness`` (the CLI's
+    function) with the card's launch counts; then JointConsensus
+    (JOINT_LIVE_CFG) on the card, held to the port's CPU run
+    (JOINT_LIVE_PIN: scripts/pin_reconfig_liveness.py), through joint_guard,
+    joint_apply and joint_predicates (P and Q once each)."""
+    from raft_tpu_torch.__main__ import run_liveness
+
+    t0, report = time.perf_counter(), {}
+    for pre, spec, text, slots in (
+            ("reconfig", "RaftWithReconfigAddRemove", ADDREMOVE_LIVE_CFG, 32),
+            ("joint", "RaftWithReconfigJointConsensus", JOINT_LIVE_CFG, 40)):
+        torch.cuda.empty_cache()
+        (setup, checker, res), wall, launches, n_expand, _ = counted(
+            torch, lambda: run_liveness(f"{spec}.cfg", text=text, device="cuda", chunk=1024,
+                                        msg_slots=slots, lenient=True))
+        chunks = checker.chunks
+        for k in (f"{pre}_guard", "compact_append", f"{pre}_apply"):
+            check(launches[k] == chunks, f"liveness {spec}: {launches[k]} {k} launches != "
+                  f"{chunks} chunks")
+        check(launches[f"{pre}_predicates"] == 2,
+              f"liveness {spec}: {launches[f'{pre}_predicates']} {pre}_predicates launches "
+              "!= 2 (P and Q)")
+        path = (f"{pre}_guard", "compact_append", f"{pre}_apply", "hash_rows",
+                f"{pre}_predicates")
+        for k in set(KERNEL_NAMES) - set(path):
+            check(launches[k] == 0, f"liveness {spec}: {k} launched off its path")
+        check(n_expand == 0, f"liveness {spec}: the plain expand ran {n_expand} times")
+        check(res.violation is None, f"liveness {spec}: ReconfigurationCompletes violated")
+        got = {"states": res.distinct, "edges": res.total_edges, "holds": True}
+        if pre == "reconfig":
+            t = time.perf_counter()
+            _, cc_, rc_ = run_liveness(f"{spec}.cfg", text=text, device="cpu", chunk=1024,
+                                       msg_slots=slots, lenient=True)
+            t_cpu = time.perf_counter() - t
+            check((rc_.distinct, rc_.total_edges, rc_.violation) == (
+                res.distinct, res.total_edges, res.violation),
+                f"liveness {spec}: card {got} != CPU {(rc_.distinct, rc_.total_edges)}")
+            for a in ("_esrc", "_edst", "_ecand"):
+                check(np.array_equal(getattr(checker, a), getattr(cc_, a)),
+                      f"liveness {spec}: {a} differ")
+            check(torch.equal(checker._states.cpu(), cc_._states),
+                  f"liveness {spec}: graph states differ")
+            held = f"states, edge arrays and verdict: card == CPU (CPU {t_cpu:.1f} s)"
+        else:
+            check(got == JOINT_LIVE_PIN, f"liveness {spec}: {got} != the CPU run's "
+                  f"{JOINT_LIVE_PIN}")
+            held = "states, edges and verdict equal the port's CPU run (JOINT_LIVE_PIN)"
+        report[spec] = dict(got, seconds=wall, chunks=chunks, launches=launches)
+        print(f"[8c] liveness {spec} (MaxElections 0): graph {res.distinct} states / "
+              f"{res.total_edges} edges in {wall:.2f} s ({chunks} chunks), "
+              f"ReconfigurationCompletes holds; {held}")
+    report["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"liveness_reconfiguration": report}))
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_start = {}  # phase -> its start on the host clock
@@ -1721,6 +1988,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
+    sys.path.insert(1, os.path.join(here, "tests"))  # the reconfiguration edge rows
     try:
         import raft_tpu_torch  # noqa: F401
     except ImportError as e:
@@ -1967,6 +2235,8 @@ def main() -> int:
     # KRaft.cfg frontiers, and edge rows
     rows.update(family_kernel_rows(torch, rng, PULL_FAM))
     rows.update(family_kernel_rows(torch, rng, KRAFT_FAM))
+    rows.update(family_kernel_rows(torch, rng, RECONFIG_FAM))
+    rows.update(family_kernel_rows(torch, rng, JOINT_FAM))
     for k, r in rows.items():
         print(f"[3] {k}: exact; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
@@ -2033,6 +2303,12 @@ def main() -> int:
     phase_start["4d"] = time.perf_counter()
     # ---- 4d. KRaft.cfg on the main path ----
     kraft_report = family_main_phase(torch, KRAFT_FAM)
+
+    phase_start["4e"] = time.perf_counter()
+    # ---- 4e, 4f. the reconfiguration specs on the main path ----
+    reconfig_report = family_main_phase(torch, RECONFIG_FAM)
+    phase_start["4f"] = time.perf_counter()
+    joint_report = family_main_phase(torch, JOINT_FAM)
 
     phase_start["5"] = time.perf_counter()
     # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
@@ -2109,6 +2385,19 @@ def main() -> int:
           f"reference's, {traces['kraft']['chunks']} chunks, "
           f"{traces['kraft']['wall_ms_per_chunk']:.3f} ms/chunk wall")
     print(json.dumps({"trace_kraft": traces["kraft"]}))
+    for key, fam in (("reconfig", RECONFIG_FAM), ("joint", JOINT_FAM)):
+        spec, pin, _d = fam["specs"][0]
+        dpin = len(pin["depth_counts"]) - 1
+        traces[key], rr = trace_run(
+            torch, f"{spec}.cfg", fam["cfg"], dpin,
+            (pin["distinct"], pin["total"], dpin, pin["terminal"]), lenient=True,
+            caps=fam["caps"])
+        check(rr.depth_counts == pin["depth_counts"] and rr.coverage == pin["coverage"],
+              f"{spec} depth counts or coverage at the pinned depth differ from the reference's")
+        print(f"[6] {spec} depth {dpin}: distinct, total, depth counts and coverage equal the "
+              f"reference's, {traces[key]['chunks']} chunks, "
+              f"{traces[key]['wall_ms_per_chunk']:.3f} ms/chunk wall")
+        print(json.dumps({f"trace_{key}": traces[key]}))
 
     phase_start["7"] = time.perf_counter()
     # ---- 7. simulate ----
@@ -2122,6 +2411,12 @@ def main() -> int:
     # ---- 7c. simulate KRaft ----
     kraft_sim_report = family_simulate_phase(torch, KRAFT_FAM)
 
+    phase_start["7d"] = time.perf_counter()
+    # ---- 7d, 7e. simulate the reconfiguration specs ----
+    reconfig_sim_report = family_simulate_phase(torch, RECONFIG_FAM)
+    phase_start["7e"] = time.perf_counter()
+    joint_sim_report = family_simulate_phase(torch, JOINT_FAM)
+
     phase_start["8"] = time.perf_counter()
     # ---- 8. liveness ----
     live_report = liveness_phase(torch, LIVE_RAFT)
@@ -2131,6 +2426,10 @@ def main() -> int:
     # ---- 8b. KRaft liveness ----
     kraft_live_report = liveness_phase(torch, LIVE_KRAFT)
     kraft_live_report.pop("kraft_predicates")
+
+    phase_start["8c"] = time.perf_counter()
+    # ---- 8c. ReconfigurationCompletes ----
+    reconfig_liveness_phase(torch)
 
     phase_start["9"] = time.perf_counter()
     # ---- 9. results ----
@@ -2172,6 +2471,17 @@ def main() -> int:
                             "raft_tpu/checker/simulate.py:93"),
         "kraft_predicates": ("raft_tpu_torch/csrc/kraft_predicates.cu",
                              "raft_tpu/checker/simulate.py:142"),
+        **{k: v for fam in ("reconfig", "joint") for k, v in (
+            (f"{fam}_guard", (f"raft_tpu_torch/csrc/{fam}_expand.cu",
+                              "raft_tpu/models/config_common.py:702")),
+            (f"{fam}_apply", (f"raft_tpu_torch/csrc/{fam}_expand.cu",
+                              "raft_tpu/models/base.py:426")),
+            (f"{fam}_fold", (f"raft_tpu_torch/csrc/{fam}_fold.cu",
+                             "raft_tpu/checker/device_bfs.py:501")),
+            (f"{fam}_sim_check", (f"raft_tpu_torch/csrc/{fam}_predicates.cu",
+                                  "raft_tpu/checker/simulate.py:93")),
+            (f"{fam}_predicates", (f"raft_tpu_torch/csrc/{fam}_predicates.cu",
+                                   "raft_tpu/checker/liveness.py:254")))},
     }
     # launches: each kernel's count on the path that runs it (Raft.cfg's
     # for the kernels both paths share, liveness' for raft_predicates,
@@ -2191,7 +2501,13 @@ def main() -> int:
                      **{k: kraft_report["launches"][k] for k in KRAFT_PATH
                         if k.startswith("kraft_")},
                      **{k: kraft_sim_report["launches"][k]
-                        for k in ("kraft_sim_check", "kraft_predicates")}}
+                        for k in ("kraft_sim_check", "kraft_predicates")},
+                     **{k: rep["launches"][k] for rep, path in (
+                         (reconfig_report, RECONFIG_PATH), (joint_report, JOINT_PATH))
+                        for k in path if k.startswith(("reconfig_", "joint_"))},
+                     **{k: rep["launches"][k] for rep, fam in (
+                         (reconfig_sim_report, "reconfig"), (joint_sim_report, "joint"))
+                        for k in (f"{fam}_sim_check", f"{fam}_predicates")}}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": path_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -40,7 +40,11 @@ def load_setup(cfg_path: str, text: str | None = None, spec: str | None = None,
     cfg = parse_cfg(cfg_path, text=text, lenient=lenient)
     for diag in cfg.diagnostics:
         print(f"config warning: {diag}", file=sys.stderr)
-    return build_from_cfg(cfg, spec=spec, msg_slots=msg_slots)
+    n = len(cfg.diagnostics)
+    setup = build_from_cfg(cfg, spec=spec, msg_slots=msg_slots)
+    for diag in cfg.diagnostics[n:]:  # repairs made while building (AddRemove's MaxClusterSize)
+        print(f"config warning: {diag}", file=sys.stderr)
+    return setup
 
 
 def _bfs(setup, device=None, chunk: int = 4096, max_depth: int | None = None,
@@ -98,10 +102,10 @@ def _live(setup, device=None, chunk: int = 4096, verbose: bool = False):
 
 
 def run_liveness(cfg_path: str, text: str | None = None, device=None, chunk: int = 4096,
-                 msg_slots: int | None = None):
+                 msg_slots: int | None = None, lenient: bool = False):
     """Parse a cfg, build the model and check its PROPERTY lines on the
     full state graph (symmetry off). Returns (setup, checker, result)."""
-    setup = load_setup(cfg_path, text, msg_slots=msg_slots)
+    setup = load_setup(cfg_path, text, msg_slots=msg_slots, lenient=lenient)
     checker, res = _live(setup, device, chunk)
     return setup, checker, res
 

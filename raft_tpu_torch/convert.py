@@ -2,8 +2,9 @@
 
 State rows need no conversion: both packages lay a state out as the same
 ``int32 [B, W]`` vector with the same field offsets. Parameters cross as
-plain dicts (``dataclasses.asdict`` of the reference's ``RaftParams``, ``PullRaftParams``
-or ``KRaftParams``),
+plain dicts (``dataclasses.asdict`` of the reference's ``RaftParams``,
+``PullRaftParams``, ``KRaftParams``, ``ReconfigRaftParams`` or
+``JointRaftParams``),
 and fingerprints as numpy arrays: the reference's ``uint64`` values, the
 port's int64 ``u64 ^ (1 << 63)`` encoding (order-preserving; the
 ``U64_MAX`` sentinel becomes ``INT64_MAX``).
@@ -16,20 +17,22 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.joint_raft import JointRaftParams
 from .models.kraft import KRaftParams
 from .models.pull_raft import PullRaftParams
 from .models.raft import RaftParams
+from .models.reconfig_raft import ReconfigRaftParams
 
 _SIGN = np.uint64(1 << 63)
 
 
-def params_from_reference(d: dict) -> RaftParams | PullRaftParams | KRaftParams:
-    """The port's ``RaftParams``, ``PullRaftParams`` or ``KRaftParams`` from
-    ``dataclasses.asdict`` of the reference's (each pair of dataclasses has
-    the same fields; a dict with ``variant2`` is the pull family's, one with
-    exactly KRaftParams' five fields KRaft's). The
-    pull family's fleet lanes are not ported: a dict that sets ``fleet`` or
-    ``dyn_consts`` is refused."""
+def params_from_reference(d: dict):
+    """The port's ``RaftParams``, ``PullRaftParams``, ``KRaftParams``,
+    ``ReconfigRaftParams`` or ``JointRaftParams`` from ``dataclasses.asdict``
+    of the reference's (each pair of dataclasses has the same fields; a
+    dict with ``variant2`` is the pull family's, one with exactly a port
+    dataclass's fields that one's). The pull family's fleet lanes are not
+    ported: a dict that sets ``fleet`` or ``dyn_consts`` is refused."""
     d = dict(d)
     if "dyn_consts" in d:
         d["dyn_consts"] = tuple(d["dyn_consts"])
@@ -38,8 +41,9 @@ def params_from_reference(d: dict) -> RaftParams | PullRaftParams | KRaftParams:
             raise NotImplementedError(
                 "PullRaft fleet lanes (fleet, dyn_consts) are not ported to raft_tpu_torch")
         return PullRaftParams(**d)
-    if set(d) == {f.name for f in dataclasses.fields(KRaftParams)}:
-        return KRaftParams(**d)
+    for cls in (KRaftParams, ReconfigRaftParams, JointRaftParams):
+        if set(d) == {f.name for f in dataclasses.fields(cls)}:
+            return cls(**d)
     return RaftParams(**d)
 
 

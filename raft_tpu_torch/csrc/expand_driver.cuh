@@ -21,9 +21,11 @@
 // fewer where shared memory runs short), so the per-state enabled mask and
 // the terminal count need no cross-block step; it stages its states' rows,
 // the spec and each state's guard scratch (Family::scratch_slots(S) slots
-// of 2 * M ints: the bag copies on which a lane that puts a chain of
-// messages replays its puts; Family::scratch_slot(cd) is a lane's slot, or
-// -1) in shared memory and runs one thread per lane; per-block counts go to
+// of Family::BAG_WORDS * M ints: the key-word copies on which a lane that
+// puts a chain of messages replays its puts — 2 words for the (hi, lo)
+// bags, the most an N-word family takes for its WidePacker bags;
+// Family::scratch_slot(cd) is a lane's slot, or -1) in shared memory and
+// runs one thread per lane; per-block counts go to
 // global memory with one atomic each. apply: a block owns up to 64
 // worklist lanes (fewer where a row is too wide for 64 in shared memory);
 // it copies the lanes' source rows into shared memory (coalesced), each
@@ -75,8 +77,8 @@ __device__ __forceinline__ void guard_body(const int* __restrict__ states, int C
   const int S = spec[F::I_S], M = spec[F::I_M];
   const int slots = F::scratch_slots(S);
   int* rows = smem + F::SPEC_LEN;                    // SPB x W state rows
-  int* bags = rows + SPB * W;                        // SPB x slots x 2M guard scratch
-  unsigned* en_mask = (unsigned*)(bags + SPB * slots * 2 * M);  // SPB enabled-rank masks
+  int* bags = rows + SPB * W;  // SPB x slots x BAG_WORDS * M guard scratch
+  unsigned* en_mask = (unsigned*)(bags + SPB * slots * F::BAG_WORDS * M);  // SPB rank masks
   int* anyv = (int*)(en_mask + SPB);                 // SPB "has a valid lane"
   int* fired = anyv + SPB;                           // K fired counts
   __shared__ int n_gen, any_ovf;
@@ -101,7 +103,7 @@ __device__ __forceinline__ void guard_body(const int* __restrict__ states, int C
     const int c = t / A, a = t - c * A;
     const int* cd = cand + 4 * a;
     const int slot = F::scratch_slot(cd);
-    int* bag = slot >= 0 ? bags + (c * slots + slot) * 2 * M : nullptr;
+    int* bag = slot >= 0 ? bags + (c * slots + slot) * F::BAG_WORDS * M : nullptr;
     const Guard g = F::template action<false>(sp, rows + c * W, nullptr, cd, bag);
     const bool v = g.valid && c0 + c < n_live;
     const long long lane = (long long)(c0 + c) * A + a;
@@ -152,7 +154,7 @@ static int launch_guard(GuardKernel kernel, size_t* opted_in, const int* states,
   cudaError_t e = cudaMemsetAsync(scal, 0, 3 * sizeof(long long), s);
   if (e != cudaSuccess) return (int)e;
   if (C <= 0) return 0;
-  const size_t scr = (size_t)F::scratch_slots(S) * 2 * M;
+  const size_t scr = (size_t)F::scratch_slots(S) * F::BAG_WORDS * M;
   auto smem_of = [&](int spb) {
     return sizeof(int) * (F::SPEC_LEN + (size_t)spb * (W + scr + 2) + K);
   };

@@ -632,6 +632,7 @@ __device__ __forceinline__ bool kr_predicate(const int* sp, const int* s, int id
 // predicates.
 struct KRaftFamily {
   static constexpr int SPEC_LEN = KS_LEN;
+  static constexpr int BAG_WORDS = 2;  // (hi, lo) keys
   static constexpr int I_S = KS_S, I_M = KS_M, I_W = KS_W, I_A = KS_A, I_K = KS_K;
   __host__ __device__ __forceinline__ static int scratch_slots(int S) { return 2 * S; }
   __device__ __forceinline__ static int scratch_slot(const int* cd) {

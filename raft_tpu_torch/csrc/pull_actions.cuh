@@ -484,6 +484,7 @@ __device__ __forceinline__ bool pu_invariant(const int* sp, const int* s, int id
 // and its predicates (the invariants: PullRaft has no liveness formula).
 struct PullFamily {
   static constexpr int SPEC_LEN = PS_LEN;
+  static constexpr int BAG_WORDS = 2;  // (hi, lo) keys
   static constexpr int I_S = PS_S, I_M = PS_M, I_W = PS_W, I_A = PS_A, I_K = PS_K;
   __host__ __device__ __forceinline__ static int scratch_slots(int S) { return 2 * S; }
   __device__ __forceinline__ static int scratch_slot(const int* cd) {

@@ -533,6 +533,7 @@ __device__ __forceinline__ bool ra_predicate(const int* sp, const int* s, int id
 // predicates.
 struct RaftFamily {
   static constexpr int SPEC_LEN = SP_LEN;
+  static constexpr int BAG_WORDS = 2;  // (hi, lo) keys
   static constexpr int I_S = SP_S, I_M = SP_M, I_W = SP_W, I_A = SP_A, I_K = SP_K;
   __host__ __device__ __forceinline__ static int scratch_slots(int S) { return S; }
   __device__ __forceinline__ static int scratch_slot(const int* cd) {

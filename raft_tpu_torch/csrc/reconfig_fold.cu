@@ -1,0 +1,9 @@
+// reconfig_fold — the new-state coverage and the invariant fold of a
+// RaftWithReconfigAddRemove chunk: the drivers of fold_driver.cuh (their contract
+// and design) over the invariants of config_actions.cuh
+// (raft_tpu/models/config_common.py:682-694 with reconfig_raft.py's own),
+// replacing raft_tpu/checker/device_bfs.py:436-460 and :501-506 for it.
+#include "fold_driver.cuh"
+#include "config_actions.cuh"
+
+FOLD_KERNELS(reconfig, ReconfigFamily)

@@ -3,8 +3,9 @@
 Each kernel lives in a CUDA C++ source in ``csrc/`` with a plain C
 interface (``raft_guard`` and ``raft_apply`` share ``raft_expand.cu``;
 ``raft_predicates`` and simulate's ``raft_sim_check`` share
-``raft_predicates.cu``; the pull family's ``pull_*`` and KRaft's
-``kraft_*`` kernels the same way;
+``raft_predicates.cu``; the pull family's ``pull_*``, KRaft's ``kraft_*``
+and the reconfiguration specs' ``reconfig_*`` (AddRemove) and ``joint_*``
+(JointConsensus) kernels the same way;
 ``*.cuh`` headers are shared device code and kernel drivers). ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` compiles each source into a shared
 library under ``build/raft_tpu_torch/`` at first use (``build_all``
@@ -73,7 +74,7 @@ _SIGNATURES = {
         "hash_rows": [_P, _L, _I, _U, _U, _I, _P, _P],
     },
 }
-for _fam in ("raft", "pull", "kraft"):
+for _fam in ("raft", "pull", "kraft", "reconfig", "joint"):
     _SIGNATURES[f"{_fam}_expand"] = {f"{_fam}_guard": _GUARD, f"{_fam}_apply": _APPLY}
     _SIGNATURES[f"{_fam}_fold"] = {f"{_fam}_fold": _FOLD}
     _SIGNATURES[f"{_fam}_predicates"] = {f"{_fam}_predicates": _PREDICATES,
@@ -157,38 +158,32 @@ CANON_MEMO = Kernel("canon_memo")
 PROBE_RUNS = Kernel("probe_runs")
 COMPACT_APPEND = Kernel("compact_append")
 MERGE_RUNS = Kernel("merge_runs")
-RAFT_GUARD = Kernel("raft_guard", source="raft_expand")
-RAFT_APPLY = Kernel("raft_apply", source="raft_expand")
-RAFT_FOLD = Kernel("raft_fold")
 CHUNK_SORT = Kernel("chunk_sort")
 CANON_TIERED = Kernel("canon_tiered")
 CANON_SIGNATURES = Kernel("canon_signatures", source="canon_tiered")
 SIM_PICK = Kernel("sim_pick", source="sim_step")
-RAFT_PREDICATES = Kernel("raft_predicates")
-RAFT_SIM_CHECK = Kernel("raft_sim_check", source="raft_predicates")
 HASH_ROWS = Kernel("hash_rows")
-PULL_GUARD = Kernel("pull_guard", source="pull_expand")
-PULL_APPLY = Kernel("pull_apply", source="pull_expand")
-PULL_FOLD = Kernel("pull_fold")
-PULL_PREDICATES = Kernel("pull_predicates")
-PULL_SIM_CHECK = Kernel("pull_sim_check", source="pull_predicates")
-KRAFT_GUARD = Kernel("kraft_guard", source="kraft_expand")
-KRAFT_APPLY = Kernel("kraft_apply", source="kraft_expand")
-KRAFT_FOLD = Kernel("kraft_fold")
-KRAFT_PREDICATES = Kernel("kraft_predicates")
-KRAFT_SIM_CHECK = Kernel("kraft_sim_check", source="kraft_predicates")
-ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, RAFT_GUARD, RAFT_APPLY,
-       RAFT_FOLD, CHUNK_SORT, CANON_TIERED, CANON_SIGNATURES, SIM_PICK, RAFT_PREDICATES,
-       RAFT_SIM_CHECK, HASH_ROWS, PULL_GUARD, PULL_APPLY, PULL_FOLD, PULL_PREDICATES,
-       PULL_SIM_CHECK, KRAFT_GUARD, KRAFT_APPLY, KRAFT_FOLD, KRAFT_PREDICATES,
-       KRAFT_SIM_CHECK)
-# each family's kernels by role (models/*.py KERNELS; ops/expand.py launches them)
-RAFT_FAMILY = dict(guard=RAFT_GUARD, apply=RAFT_APPLY, fold=RAFT_FOLD,
-                   predicates=RAFT_PREDICATES, sim_check=RAFT_SIM_CHECK)
-PULL_FAMILY = dict(guard=PULL_GUARD, apply=PULL_APPLY, fold=PULL_FOLD,
-                   predicates=PULL_PREDICATES, sim_check=PULL_SIM_CHECK)
-KRAFT_FAMILY = dict(guard=KRAFT_GUARD, apply=KRAFT_APPLY, fold=KRAFT_FOLD,
-                    predicates=KRAFT_PREDICATES, sim_check=KRAFT_SIM_CHECK)
+
+
+def _family(prefix: str) -> dict:
+    """A spec family's five kernels by role (models/*.py KERNELS; ops/expand.py
+    launches them): guard and apply share prefix_expand.cu, predicates and
+    sim_check prefix_predicates.cu, the fold has prefix_fold.cu."""
+    return dict(guard=Kernel(f"{prefix}_guard", source=f"{prefix}_expand"),
+                apply=Kernel(f"{prefix}_apply", source=f"{prefix}_expand"),
+                fold=Kernel(f"{prefix}_fold"),
+                predicates=Kernel(f"{prefix}_predicates"),
+                sim_check=Kernel(f"{prefix}_sim_check", source=f"{prefix}_predicates"))
+
+
+# the Raft family (Raft, FlexibleRaft, RaftFsync), the pull family, KRaft and
+# the reconfiguration specs (AddRemove's reconfig_*, JointConsensus' joint_*)
+RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY = (
+    _family(prefix) for prefix in ("raft", "pull", "kraft", "reconfig", "joint"))
+ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, CHUNK_SORT, CANON_TIERED,
+       CANON_SIGNATURES, SIM_PICK, HASH_ROWS,
+       *(k for fam in (RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY)
+         for k in fam.values()))
 
 
 def build_all() -> dict[str, str]:

@@ -321,6 +321,12 @@ class KernelModel:
             for w in self.packer.pack(**vals)
         )
 
+    @staticmethod
+    def _cand_args(name: str, row) -> list[int]:
+        """The two int32 parameters (p0, p1) of a candidate row of the
+        kernels' table, from the binding's parameters (at most two)."""
+        return list(row) + [0] * (2 - len(row))
+
     def prepare_device(self, device, invariants) -> None:
         """Fail before a run, not inside it, where the kernels on
         ``device`` cannot evaluate one of ``invariants``."""
@@ -348,8 +354,8 @@ class KernelModel:
         cand = []
         for g in self.sparse_groups():
             for row in g.params:
-                args = list(row) + [0] * (2 - len(row))
-                cand.append([self.GROUP_IDS[g.name], *args, self.GROUP_RANKS[g.name]])
+                cand.append([self.GROUP_IDS[g.name], *self._cand_args(g.name, row),
+                             self.GROUP_RANKS[g.name]])
         hit = tuple(
             torch.tensor(v, dtype=torch.int32, device=dev)
             for v in (self._spec_vector(), cand, [self._pred_ids[n] for n in invariants]))
@@ -484,16 +490,31 @@ def values_not_stuck(model, f: InvFields = RAFT_FIELDS) -> None:
 
 def messages_are_valid_kernel(layout: Layout, packer):
     """MessagesAreValid — MessagePassing.tla:81-83: no record in the bag
-    domain is self-addressed. Batched over [..., W] states (2-word
-    BitPacker bags)."""
-    from ..ops.packing import EMPTY
+    domain is self-addressed. Batched over [..., W] states, for the 2-word
+    BitPacker bags (msg_hi/msg_lo) and the N-word WidePacker ones (msg_w*,
+    occupancy read from word 0)."""
+    from ..ops.packing import EMPTY, WidePacker
+
+    wide = msg_word_fields(layout)
 
     def kernel(states):
-        hi = layout.get(states, "msg_hi")
-        lo = layout.get(states, "msg_lo")
-        occ = hi != EMPTY
-        src = packer.unpack(hi, lo, "msource")
-        dst = packer.unpack(hi, lo, "mdest")
+        if isinstance(packer, WidePacker):
+            words = tuple(layout.get(states, n) for n in wide)
+            occ = words[0] != EMPTY
+            src = packer.unpack(words, "msource")
+            dst = packer.unpack(words, "mdest")
+        else:
+            hi = layout.get(states, "msg_hi")
+            lo = layout.get(states, "msg_lo")
+            occ = hi != EMPTY
+            src = packer.unpack(hi, lo, "msource")
+            dst = packer.unpack(hi, lo, "mdest")
         return ~torch.any(occ & (src == dst), dim=-1)
 
     return kernel
+
+
+def msg_word_fields(layout: Layout) -> list[str]:
+    """The names of an N-word bag's key-word fields (kind ``msg_word``) in
+    declaration order, word 0 first; empty for a 2-word bag."""
+    return [f.name for f in layout.fields.values() if f.kind == "msg_word"]

@@ -2,9 +2,10 @@
 
 Counterpart of ``raft_tpu/models/registry.py`` for the specs this port
 lowers so far — the three that one ``RaftModel`` serves, PullRaft and
-PullRaftVariant2 (``PullRaftModel``) and KRaft (``KRaftModel``). Every other
-spec the reference knows raises a "not yet ported" ``CfgError`` (CLI exit
-64).
+PullRaftVariant2 (``PullRaftModel``), KRaft (``KRaftModel``) and the two
+reconfiguration specs (``ReconfigRaftModel``, ``JointRaftModel``). The
+reference's other spec, KRaftWithReconfig, raises a "not yet ported"
+``CfgError`` (CLI exit 64).
 """
 
 from __future__ import annotations
@@ -13,9 +14,11 @@ import os
 from dataclasses import dataclass
 
 from ..utils.cfg import Cfg, CfgError
+from .joint_raft import JointRaftModel, JointRaftParams
 from .kraft import KRaftModel, KRaftParams
 from .pull_raft import PullRaftModel, PullRaftParams
 from .raft import RaftModel, RaftParams
+from .reconfig_raft import ReconfigRaftModel, ReconfigRaftParams
 
 
 @dataclass
@@ -148,6 +151,58 @@ def build_kraft(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
     return _setup(cfg, params, "KRaft", KRaftModel)
 
 
+def build_reconfig_add_remove(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
+    """standard-raft/RaftWithReconfigAddRemove.tla + its cfg. The reference
+    cfg omits the required constant ``MaxClusterSize``
+    (RaftWithReconfigAddRemove.tla:88): a strict parse raises, a lenient
+    one repairs it to |Server| (the physical bound) and records the
+    diagnosis."""
+    servers = cfg.server_like("Server")
+    if "MaxClusterSize" not in cfg.constants:
+        diag = (f"{cfg.path}: required constant MaxClusterSize "
+                "(RaftWithReconfigAddRemove.tla:88) is missing from the cfg; lenient mode "
+                f"repairs this by defaulting it to |Server| = {len(servers)}")
+        if not cfg.lenient:
+            raise CfgError(diag)
+        cfg.diagnostics.append(diag)
+        cfg.constants["MaxClusterSize"] = len(servers)
+    params = ReconfigRaftParams(
+        n_servers=len(servers),
+        n_values=len(cfg.server_like("Value")),
+        init_cluster_size=_require_int(cfg, "InitClusterSize"),
+        max_elections=_require_int(cfg, "MaxElections"),
+        max_restarts=_require_int(cfg, "MaxRestarts"),
+        max_values_per_term=_require_int(cfg, "MaxValuesPerTerm"),
+        max_add_reconfigs=_require_int(cfg, "MaxAddReconfigs"),
+        max_remove_reconfigs=_require_int(cfg, "MaxRemoveReconfigs"),
+        min_cluster_size=_require_int(cfg, "MinClusterSize"),
+        max_cluster_size=_require_int(cfg, "MaxClusterSize"),
+        include_thesis_bug=_require_bool(cfg, "IncludeThesisBug"),
+        # snapshot records embed whole logs and AppendEntries records pile
+        # up per (term, prev, entry): 112 slots by default
+        msg_slots=msg_slots if msg_slots is not None else 112,
+    )
+    return _setup(cfg, params, "RaftWithReconfigAddRemove", ReconfigRaftModel)
+
+
+def build_reconfig_joint(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
+    """standard-raft/RaftWithReconfigJointConsensus.tla + its cfg: joint
+    consensus with dual quorums and the ReconfigType knob
+    (RaftWithReconfigJointConsensus.tla:79-80)."""
+    params = JointRaftParams(
+        n_servers=len(cfg.server_like("Server")),
+        n_values=len(cfg.server_like("Value")),
+        init_cluster_size=_require_int(cfg, "InitClusterSize"),
+        max_elections=_require_int(cfg, "MaxElections"),
+        max_restarts=_require_int(cfg, "MaxRestarts"),
+        max_reconfigs=_require_int(cfg, "MaxReconfigs"),
+        max_values_per_term=_require_int(cfg, "MaxValuesPerTerm"),
+        reconfig_type=_require_int(cfg, "ReconfigType"),
+        msg_slots=msg_slots if msg_slots is not None else 112,
+    )
+    return _setup(cfg, params, "RaftWithReconfigJointConsensus", JointRaftModel)
+
+
 BUILDERS = {
     "Raft": build_raft,
     "FlexibleRaft": build_flexible_raft,
@@ -155,14 +210,12 @@ BUILDERS = {
     "PullRaft": build_pull_raft,
     "PullRaftVariant2": build_pull_raft_v2,
     "KRaft": build_kraft,
+    "RaftWithReconfigAddRemove": build_reconfig_add_remove,
+    "RaftWithReconfigJointConsensus": build_reconfig_joint,
 }
 
 # Specs the reference lowers that this port does not yet.
-NOT_YET_PORTED = (
-    "RaftWithReconfigAddRemove",
-    "RaftWithReconfigJointConsensus",
-    "KRaftWithReconfig",
-)
+NOT_YET_PORTED = ("KRaftWithReconfig",)
 
 
 def build_from_cfg(cfg: Cfg, spec: str | None = None,

@@ -4,7 +4,10 @@ Counterpart of ``raft_tpu/ops/bag.py``. The bag is a function record ->
 delivery count (``Raft.tla:55-58``); ``Discard`` decrements the count but
 the record stays in the domain (``Raft.tla:164-167``), so slots are never
 freed. Encoding: (hi, lo) key words + a count lane per slot, slots kept in
-lexicographic (hi, lo) order with unused slots (EMPTY, EMPTY, 0) last.
+lexicographic (hi, lo) order with unused slots (EMPTY, EMPTY, 0) last; the
+N-word bags of the WidePacker models (``wide_bag_put``) keep their slots in
+lexicographic order of the words from word 0 (the packer's low-bit word),
+unused slots (EMPTY, ..., EMPTY, 0) last.
 
 Every function takes the slot axis LAST and broadcasts over the leading
 dimensions, so one call serves a whole [chunk, bindings] grid.
@@ -47,6 +50,35 @@ def bag_put(hi, lo, cnt, khi, klo):
     cnt2 = torch.where(e, cnt_inc, ins(cnt, one))
     overflow = (~existed) & (~have_empty)
     return hi2, lo2, cnt2, existed, overflow
+
+
+def wide_bag_put(words, cnt, key):
+    """``bag_put`` over N key words (``raft_tpu/ops/bag.py:33``): the
+    lexicographic order puts words[0] first. words: a list of [..., M]
+    tensors; cnt [..., M]; key: a list of N [...] tensors or ints. Returns
+    (words, cnt, existed, overflow)."""
+    ref = words[0]
+    key = [k.unsqueeze(-1) if isinstance(k, torch.Tensor) else k for k in key]
+    eq = torch.ones_like(ref, dtype=torch.bool)
+    less = torch.zeros_like(ref, dtype=torch.bool)
+    tie = torch.ones_like(ref, dtype=torch.bool)
+    for w, k in zip(words, key):
+        eq = eq & (w == k)
+        less = less | (tie & (w < k))
+        tie = tie & (w == k)
+    existed = eq.any(-1)
+    have_empty = (ref == EMPTY).any(-1)
+    pos = less.sum(-1, keepdim=True)
+    lane = torch.arange(ref.shape[-1], dtype=torch.int64, device=ref.device)
+    e = existed.unsqueeze(-1)
+
+    def ins(w, k):
+        k = torch.as_tensor(k, dtype=w.dtype, device=w.device)
+        return torch.where(lane < pos, w, torch.where(lane == pos, k, torch.roll(w, 1, -1)))
+
+    out = [torch.where(e, w, ins(w, k)) for w, k in zip(words, key)]
+    cnt2 = torch.where(e, cnt + eq.to(cnt.dtype), ins(cnt, 1))
+    return out, cnt2, existed, (~existed) & (~have_empty)
 
 
 def bag_count(hi, lo, cnt, khi, klo):

@@ -16,8 +16,13 @@ The hash of a permuted view is never materialized: non-bag lanes hash
 positionally, so a permutation moves positional salts (``_build_direct``
 tables, :490, or ``_dyn_outpos`` arithmetic, :914) and remaps
 server-valued lanes and bitmasks; the message bag hashes as a multiset
-whose server fields are remapped in place (``_bag_streams``, :823): XOR
-over the non-bag lanes, ADDITION mod 2^32 over the occupied bag slots.
+whose server fields are remapped in place by kind (``_bag_streams``, :823:
+a server index, a Nil-able one, a member-set bitmask): XOR over the
+non-bag lanes, ADDITION mod 2^32 over the occupied bag slots, a slot
+hashing its key words in sort order and its count, salted by stream
+index ((hi, lo, count) for the 2-word bags; (w0 .. w{N-1}, count) for the
+reconfiguration specs' N-word bags, :541-560). The S >= 5 canon takes
+2-word bags with plain and Nil-able server fields only.
 
 ``fingerprints_memo`` is the main path. On a CUDA tensor it launches
 ``canon_memo`` (csrc/canon_memo.cu) for S <= 4 and ``canon_tiered``
@@ -59,18 +64,20 @@ from .packing import EMPTY
 
 _MASK64 = (1 << 64) - 1
 _C2 = 0xC2B2AE3D27D4EB4F
-BAG_WORDS = 3  # hi, lo, count
 REFINE_ROUNDS = 3  # 1-WL refinement depth of the signatures (wl=3)
 PRUNE_FROM = 5  # layouts with this many servers take the admissible min
 # the server fields of a message key and how each remaps under a
 # permutation (the reference's msg_perm_spec, raft_tpu/ops/symmetry.py:
 # 333-343): "server" is a plain index (msource, mdest), "server_nil" is
-# 0 = Nil or i + 1 = server i (KRaft's mleader). The field order is part of
-# the fingerprint (the signatures salt field k by k). "server_bitmask" is
-# not ported yet (the reconfiguration specs are its only users).
+# 0 = Nil or i + 1 = server i (KRaft's mleader), "server_bitmask" a set of
+# servers whose bit j moves to bit sigma[j] (the reconfiguration specs'
+# member sets). The field order is part of the fingerprint (the signatures
+# salt field k by k).
 MSG_SERVER_FIELDS = ("msource", "mdest")
 DEFAULT_SPEC = tuple((f, "server") for f in MSG_SERVER_FIELDS)
-MSG_KINDS = {"server": 0, "server_nil": 1}  # codes shared with csrc/canon_*
+MSG_KINDS = {"server": 0, "server_nil": 1, "server_bitmask": 2}  # codes shared with csrc/canon_*
+MAX_MSG_FIELDS = 32  # csrc/canon_memo.cu MAX_FIELDS
+MAX_BAG_WORDS = 8  # csrc/canon_memo.cu MAX_WORDS
 # codes shared with csrc/canon_tiers.cuh
 SIG_KINDS = {"per_server": 0, "per_server_val": 1, "server_bitmask": 2,
              "per_server_pair": 3}
@@ -154,19 +161,40 @@ def msg_perm_spec(model) -> tuple[tuple[str, str], ...]:
 
 def _remap_np(val, kind, sigma, S):
     """Message field values under sigma (numpy): a value naming no server
-    maps to 0, as the reference's one-hot sums give."""
+    maps to 0 and a bitmask keeps only its S low bits, as the reference's
+    one-hot sums give."""
     if kind == "server":
         return np.where((val >= 0) & (val < S), sigma[np.clip(val, 0, S - 1)], 0)
+    if kind == "server_bitmask":
+        return sum(((val >> j) & 1) << int(sigma[j]) for j in range(S))
     return np.where((val >= 1) & (val <= S), sigma[np.clip(val - 1, 0, S - 1)] + 1, 0)
+
+
+def bag_streams(layout) -> tuple[list[str], int]:
+    """(the bag's key-word field names in hash-stream order, the number of
+    packer words): ["msg_hi", "msg_lo"] for a 2-word BitPacker bag (hi is
+    word 1 and sorts first), the msg_word fields for an N-word one (word 0
+    first, as its slots sort). The count is the last stream."""
+    from ..models.base import msg_word_fields
+
+    wide = msg_word_fields(layout)
+    return (wide, len(wide)) if wide else (["msg_hi", "msg_lo"], 2)
+
+
+def stream_of_word(word: int, n_words: int, wide: bool) -> int:
+    """The hash stream of a packer word: a 2-word bag's streams are (hi,
+    lo), its packer words (lo, hi)."""
+    return word if wide else n_words - 1 - word
 
 
 def permute_states(layout, packer, states: np.ndarray, sigma, spec=DEFAULT_SPEC) -> np.ndarray:
     """Apply the server permutation ``sigma`` (old server i -> new index
     sigma[i]) to a [B, W] numpy state batch: server rows move, server
     values and bitmasks remap, the message fields of ``spec`` ((field,
-    kind) pairs, ``msg_perm_spec``) remap and the bag slots re-sort. A
-    symmetric canonicalization gives the result the same fingerprint as
-    the input."""
+    kind) pairs, ``msg_perm_spec``) remap and the bag slots re-sort (an
+    N-word bag lexicographically from word 0). A symmetric
+    canonicalization gives the result the same fingerprint as the
+    input."""
     S = layout.n_servers
     sigma = np.asarray(sigma)
     inv = np.argsort(sigma)
@@ -184,19 +212,21 @@ def permute_states(layout, packer, states: np.ndarray, sigma, spec=DEFAULT_SPEC)
         elif f.kind == "per_server_pair":
             mat = seg.reshape(len(states), S, S)[:, inv][:, :, inv]
             out[:, sl] = mat.reshape(len(states), -1)
-    hi = layout.get(out, "msg_hi").copy()
-    lo = layout.get(out, "msg_lo").copy()
+    names, n_words = bag_streams(layout)
+    wide = names[0] != "msg_hi"
+    streams = [layout.get(out, n).copy() for n in names]
     cnt = layout.get(out, "msg_cnt").copy()
-    occ = hi != EMPTY
+    occ = streams[0] != EMPTY
     for name, kind in _checked_spec(spec):
-        val = packer.unpack(hi, lo, name)
-        hi2, lo2 = packer.replace(hi, lo, name, _remap_np(val, kind, sigma, S))
-        hi = np.where(occ, hi2, hi)
-        lo = np.where(occ, lo2, lo)
-    order = np.lexsort((lo, hi), axis=1)
+        word, shift, mask = packer.locate(name)
+        k = stream_of_word(word, n_words, wide)
+        val = (streams[k] >> shift) & mask
+        new = (streams[k] & ~(mask << shift)) | (_remap_np(val, kind, sigma, S) << shift)
+        streams[k] = np.where(occ, new, streams[k])
+    order = np.lexsort(tuple(streams[::-1]), axis=1)
     take = lambda a: np.take_along_axis(a, order, axis=1)  # noqa: E731
-    out[:, layout.sl("msg_hi")] = take(hi)
-    out[:, layout.sl("msg_lo")] = take(lo)
+    for n, w in zip(names, streams):
+        out[:, layout.sl(n)] = take(w)
     out[:, layout.sl("msg_cnt")] = take(cnt)
     return out
 
@@ -237,15 +267,23 @@ class Canonicalizer:
             (f for f in layout.fields.values() if f.offset < VL),
             key=lambda f: f.offset,
         )
-        bag_kinds = ("msg_hi", "msg_lo", "msg_cnt")
+        bag_kinds = ("msg_hi", "msg_lo", "msg_cnt", "msg_word")
+        stream_names, n_words = bag_streams(layout)
+        wide = stream_names[0] != "msg_hi"
+        if self.prune and (wide or any(k == "server_bitmask" for _f, k in self.spec)):
+            raise NotImplementedError(
+                f"the {S}-server canon (canon_tiered) does not take N-word message bags or "
+                "the server_bitmask message kind")
+        if n_words > MAX_BAG_WORDS or len(self.spec) > MAX_MSG_FIELDS:
+            raise NotImplementedError(
+                f"canon_memo takes at most {MAX_BAG_WORDS} key words and {MAX_MSG_FIELDS} "
+                f"message remap fields (got {n_words} and {len(self.spec)})")
         bag_lanes = set()
         val_lanes, bm_lanes = set(), set()
         for f in view_fields:
             lanes = range(f.offset, f.offset + f.size)
             if f.kind in bag_kinds:
                 bag_lanes |= set(lanes)
-            elif f.kind == "msg_word":
-                raise NotImplementedError("N-word message bags are not ported yet")
             elif f.kind == "per_server_val":
                 val_lanes |= set(lanes)
             elif f.kind == "server_bitmask":
@@ -307,23 +345,29 @@ class Canonicalizer:
 
         valmap = np.zeros((self.P, S + 1), np.int64)
         valmap[:, 1:] = perms + 1
+        # the bag's hash streams: its key words in sort order, then the
+        # count, each salted by its stream index (the reference's
+        # [*words, cnt], symmetry.py:541-560)
         wa, wb, sx = [], [], []
-        for w_i in range(BAG_WORDS):
+        for w_i in range(n_words + 1):
             a, b = _salt(w_i, 20)
             wa.append(a)
             wb.append(b)
             sx.append(_host_mix64(w_i * _C2 + seed) & M32 if seed else 0)
-        hi_sl, lo_sl, cnt_sl = (layout.sl(n) for n in ("msg_hi", "msg_lo", "msg_cnt"))
-        # (word, shift, mask, kind code) of each message server field
+        stream_offs = [layout.fields[n].offset for n in stream_names]
+        cnt_sl = layout.sl("msg_cnt")
+        # (packer word, shift, mask, kind code) of each message server
+        # field, and the stream each field's word hashes in
         fields = [(*packer.locate(name), MSG_KINDS[kind]) for name, kind in self.spec]
         self._host = dict(
             lanes=lanes, perms=perms, valmap=valmap,
             pow2=(1 << perms), inv=np.argsort(perms, axis=1),
             perm=np.stack(salts(op)), raw=np.stack(salts(rp)),
             wa=wa, wb=wb, sx=sx, fields=fields,
-            seed_salts=(sa, sb),
-            hi_off=hi_sl.start, lo_off=lo_sl.start, cnt_off=cnt_sl.start,
-            M=hi_sl.stop - hi_sl.start,
+            field_streams=[stream_of_word(f[0], n_words, wide) for f in fields],
+            seed_salts=(sa, sb), stream_offs=stream_offs,
+            hi_off=stream_offs[0], lo_off=stream_offs[1], cnt_off=cnt_sl.start,
+            M=cnt_sl.stop - cnt_sl.start,
             ka=(K * KA) & M32, kb=(K * KB) & M32,
         )
         self._dev: dict = {}  # per-device tensors (plain path + kernel tables)
@@ -388,27 +432,27 @@ class Canonicalizer:
         remapped through the tables ``tb`` of ``_tables`` (None: raw)."""
         h = self._host
         M = h["M"]
-        hi = view[:, h["hi_off"]:h["hi_off"] + M].to(torch.int64)
-        lo = view[:, h["lo_off"]:h["lo_off"] + M].to(torch.int64)
+        words = [view[:, o:o + M].to(torch.int64) for o in h["stream_offs"]]
         cnt = view[:, h["cnt_off"]:h["cnt_off"] + M].to(torch.int64)
-        occ = hi != EMPTY
-        words = [lo, hi]  # packer word order: 0 = lo, 1 = hi
-        nwords = [lo.unsqueeze(0), hi.unsqueeze(0)]
+        occ = words[0] != EMPTY
+        nwords = [w.unsqueeze(0) for w in words]
         if tb is not None:
             S = self.S
             T = tb["perms"].shape[0]
-            perms = tb["perms"].expand(T, hi.shape[0], -1)  # [T, B, S]
-            for word, shift, mask, kind in h["fields"]:
-                val = (words[word] >> shift) & mask
+            perms = tb["perms"].expand(T, words[0].shape[0], -1)  # [T, B, S]
+            for (_w, shift, mask, kind), k in zip(h["fields"], h["field_streams"]):
+                val = (words[k] >> shift) & mask
                 if kind == MSG_KINDS["server"]:
                     new = torch.where(val < S, perms.gather(
                         2, val.clamp(max=S - 1).expand(T, -1, -1)), 0)
-                else:  # server_nil: 0 stays Nil, u maps to sigma[u - 1] + 1
+                elif kind == MSG_KINDS["server_nil"]:  # 0 stays Nil, u -> sigma[u - 1] + 1
                     new = torch.where((val >= 1) & (val <= S), perms.gather(
                         2, (val - 1).clamp(0, S - 1).expand(T, -1, -1)) + 1, 0)
-                nwords[word] = (nwords[word] & ~(mask << shift)) | (new << shift)
+                else:  # server_bitmask: bit j moves to bit sigma[j]
+                    new = sum(((val >> j) & 1) * tb["pow2"][..., j, None] for j in range(S))
+                nwords[k] = (nwords[k] & ~(mask << shift)) | (new << shift)
         ha = hb = 0
-        for w_i, w in enumerate([nwords[1], nwords[0], cnt.unsqueeze(0)]):
+        for w_i, w in enumerate([*nwords, cnt.unsqueeze(0)]):
             xw = u32(w) ^ h["sx"][w_i]
             ha = ha ^ mix32((mul32(xw, KA) + h["wa"][w_i]) & M32)
             hb = hb ^ mix32((mul32(xw, KB) + h["wb"][w_i]) & M32)
@@ -636,11 +680,12 @@ class Canonicalizer:
         if got is None:
             h = self._host
             S, P, K = self.S, self.P, self._K
-            params = [S, P, K, *self._groups, h["hi_off"], h["lo_off"],
-                      h["cnt_off"], h["M"], int(self.symmetry), len(h["fields"]),
-                      h["ka"], h["kb"], *h["wa"], *h["wb"], *h["sx"], self.VL]
-            for f in h["fields"]:
-                params += list(f)
+            nw = len(h["stream_offs"])
+            params = [S, P, K, *self._groups, h["M"], h["cnt_off"], int(self.symmetry),
+                      len(h["fields"]), nw, self.VL, h["ka"], h["kb"], *h["stream_offs"],
+                      *h["wa"], *h["wb"], *h["sx"]]
+            for (_w, shift, mask, kind), k in zip(h["fields"], h["field_streams"]):
+                params += [k, shift, mask, kind]
             pa, pb, xa, xb = h["perm"]
             rpa, rpb, rxa, rxb = h["raw"]
             buf = np.concatenate([

@@ -50,6 +50,47 @@ def _fmt_entries(setup, entries, key: str) -> str:
         f"[{key} |-> {t}, value |-> {_val(setup, val)}]" for t, val in entries) + ">>"
 
 
+def _fmt_servers(setup, members) -> str:
+    """A set of servers by name."""
+    return "{" + ", ".join(_srv(setup, j) for j in sorted(members)) + "}"
+
+
+def _fmt_config_entry(setup, e) -> str:
+    """A reconfiguration spec's log entry (command, term, value): an
+    AppendCommand's value is a Value; a configuration command's is its id,
+    its member (AddServer/RemoveServer), its old and new sets
+    (OldNewConfig) and its member set."""
+    cmd, term, val = e
+    if cmd == "AppendCommand":
+        v = _val(setup, val)
+    elif len(val) == 2:  # InitCluster / NewConfig: (id, members)
+        v = f"[id |-> {val[0]}, members |-> {_fmt_servers(setup, val[1])}]"
+    elif len(val) == 3:  # AddServer / RemoveServer: (id, member, members)
+        v = (f"[id |-> {val[0]}, member |-> {_srv(setup, val[1])}, "
+             f"members |-> {_fmt_servers(setup, val[2])}]")
+    else:  # OldNewConfig: (id, old, new, members)
+        v = (f"[id |-> {val[0]}, old |-> {_fmt_servers(setup, val[1])}, new |-> "
+             f"{_fmt_servers(setup, val[2])}, members |-> {_fmt_servers(setup, val[3])}]")
+    return f"[command |-> {cmd}, term |-> {term}, value |-> {v}]"
+
+
+def _is_config_log(entries) -> bool:
+    return all(isinstance(e, tuple) and len(e) == 3 and isinstance(e[0], str)
+               for e in entries)
+
+
+def _fmt_config(setup, c) -> str:
+    """A reconfiguration spec's config of a server: (id, members,
+    committed) for AddRemove; (id, jointConsensus, members, old, new,
+    committed) for JointConsensus."""
+    if len(c) == 3:
+        return (f"[id |-> {c[0]}, members |-> {_fmt_servers(setup, c[1])}, committed |-> "
+                f"{_fmt_value(setup, c[2])}]")
+    return (f"[id |-> {c[0]}, jointConsensus |-> {_fmt_value(setup, c[1])}, members |-> "
+            f"{_fmt_servers(setup, c[2])}, old |-> {_fmt_servers(setup, c[3])}, new |-> "
+            f"{_fmt_servers(setup, c[4])}, committed |-> {_fmt_value(setup, c[5])}]")
+
+
 def _fmt_msg(setup, rec, key: str = "term") -> str:
     """A message record (a sorted tuple of (field, value) pairs); ``key``
     names its entries' term field (KRaft's is ``epoch``)."""
@@ -61,6 +102,10 @@ def _fmt_msg(setup, rec, key: str = "term") -> str:
             v = _fmt_msg(setup, v, key)
         elif k == "mlastCommonEntry" and v is not None:  # PullRaft (index, term)
             v = f"[index |-> {v[0]}, term |-> {v[1]}]"
+        elif k in ("mentries", "mlog") and _is_config_log(v):  # reconfiguration entries
+            v = "<<" + ", ".join(_fmt_config_entry(setup, e) for e in v) + ">>"
+        elif k == "mmembers":  # a SnapshotRequest's member set
+            v = _fmt_servers(setup, v)
         elif k == "mentries" and all(
             isinstance(e, tuple) and len(e) == 2 for e in v
         ):
@@ -88,6 +133,8 @@ def format_state(setup, st: dict) -> str:
         handled.add(name)
         lines.append(f"/\\ {name} = {text}")
 
+    if "config" in st:  # the reconfiguration specs
+        put("config", _fmt_fun((sv(i), _fmt_config(setup, c)) for i, c in enumerate(st["config"])))
     put(term, _fmt_fun((sv(i), st[term][i]) for i in range(S)))
     if "state" in st:
         put(
@@ -143,6 +190,10 @@ def format_state(setup, st: dict) -> str:
         ):
             put("log", _fmt_fun((sv(i), _fmt_entries(setup, st["log"][i], key))
                                 for i in range(S)))
+        elif all(_is_config_log(row) for row in st["log"]):
+            put("log", _fmt_fun(
+                (sv(i), "<<" + ", ".join(_fmt_config_entry(setup, e) for e in row) + ">>")
+                for i, row in enumerate(st["log"])))
         else:  # reconfig/KRaft entries carry extra fields — generic form
             put(
                 "log",

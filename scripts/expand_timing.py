@@ -8,9 +8,12 @@ Each ROOT is a checkout (the repo itself, or a parent unpacked with
 given in the order to time them, e.g. parent, change, change, parent.
 Every ROOT runs in a process of its own (the checkouts share the package
 name), which builds that checkout's kernels and times, with CUDA events
-(``chip_smoke.time_ms`` of that checkout): the guard, apply and fold
-kernels on a 4,096-state chunk of the depth-20 Raft.cfg frontier and of
-the depth-27 PullRaft stand-in frontier, and the guard and apply on one
+around ITERS calls issued back to back (the card's time per call, the
+host's launch work hidden behind the queue): the guard, apply and fold
+kernels on a 4,096-state chunk of the depth-20 Raft.cfg frontier, of the
+depth-27 PullRaft stand-in frontier and of the depth-33 KRaft.cfg frontier,
+``canon_memo`` on each chunk's worklist (cold: a fresh 2^21-row memo
+before every call; warm: every lane hits), and the guard and apply on one
 move of a 65,536-walk five-server FlexibleRaft simulate (the shapes of
 ``chip_smoke.py`` phase 3 and its simulate). The inputs come from the
 checkout's own engine with fixed seeds, so every checkout times the same
@@ -37,9 +40,30 @@ from raft_tpu_torch.checker.simulate import Simulator, sim_pick
 from raft_tpu_torch.checker.util import I32_MAX, compact_indices
 from raft_tpu_torch.ops import prng
 from raft_tpu_torch.ops.expand import apply, fold, guard
+from raft_tpu_torch.ops.hashing import INT64_MAX
 
 kernels.build_all()
 out = {"root": ROOT}
+ITERS = 100
+
+
+# mean ms per call of fn (after setup, whose own time is taken off) over
+# ITERS calls queued back to back
+def device_ms(fn, setup=None):
+    def run(f):
+        for _ in range(3):
+            f()
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(ITERS):
+            f()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e) / ITERS
+    if setup is None:
+        return run(fn)
+    return run(lambda: (setup(), fn())) - run(setup)
 
 
 def chunk_times(tag, bfs):
@@ -59,10 +83,15 @@ def chunk_times(tag, bfs):
     viol = torch.full((len(invs),), I32_MAX, dtype=torch.int64, device=dev)
     out[tag] = dict(
         states=len(pool), valid=int(valid.sum()),
-        guard_ms=cs.time_ms(torch, lambda: guard(model, batch, C, cov), iters=50),
-        apply_ms=cs.time_ms(torch, lambda: apply(model, batch, sel), iters=50),
-        fold_ms=cs.time_ms(torch, lambda: fold(model, flatc, new, jcount, viol, invs, cov=cov,
-                                               sel=sel, valid=valid, rank=rank), iters=50))
+        guard_ms=device_ms(lambda: guard(model, batch, C, cov)),
+        apply_ms=device_ms(lambda: apply(model, batch, sel)),
+        fold_ms=device_ms(lambda: fold(model, flatc, new, jcount, viol, invs, cov=cov, sel=sel,
+                                       valid=valid, rank=rank)))
+    memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    canon = lambda: bfs.canon.fingerprints_memo(flatc, new, memo)  # noqa: E731
+    out[tag]["canon_cold_ms"] = device_ms(canon, setup=lambda: memo.fill_(INT64_MAX))
+    canon()
+    out[tag]["canon_warm_ms"] = device_ms(canon)
 
 
 _, b, _ = run_check("Raft.cfg", text=cs.RAFT_CFG, device="cuda", chunk=cs.CHUNK, max_depth=20)
@@ -71,6 +100,10 @@ del b
 _, b, _ = run_check("PullRaft.cfg", text=cs.PULL_CFG, device="cuda", chunk=cs.CHUNK,
                     max_depth=cs.PULL_SAMPLE_DEPTH, lenient=True)
 chunk_times("pull", b)
+del b
+_, b, _ = run_check("KRaft.cfg", text=cs.KRAFT_CFG, device="cuda", chunk=cs.CHUNK,
+                    max_depth=cs.KRAFT_SAMPLE_DEPTH)
+chunk_times("kraft", b)
 del b
 setup = load_setup("FlexibleRaft.cfg", text=cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)
 model = setup.model
@@ -85,8 +118,8 @@ stats = torch.zeros(4, dtype=torch.int64, device=states.device)
 pick = sim_pick(valid, ovf, prng.split(sim.rng)[1], sim.init_pool.shape[0], stats)
 out["flex5_move"] = dict(
     walks=cs.SIM_WALKS, valid=int(valid.sum()),
-    guard_ms=cs.time_ms(torch, lambda: guard(model, states, cs.SIM_WALKS, sim.cov), iters=50),
-    apply_ms=cs.time_ms(torch, lambda: apply(model, states, pick[2]), iters=50))
+    guard_ms=device_ms(lambda: guard(model, states, cs.SIM_WALKS, sim.cov)),
+    apply_ms=device_ms(lambda: apply(model, states, pick[2])))
 print(json.dumps(out))
 """
 

@@ -21,6 +21,8 @@ MODULES = [
     "raft_tpu_torch.utils.pprint", "raft_tpu_torch.ops.prng", "raft_tpu_torch.ops.hashing",
     "raft_tpu_torch.checker.simulate", "raft_tpu_torch.checker.liveness",
     "raft_tpu_torch.models.pull_raft", "raft_tpu_torch.models.kraft",
+    "raft_tpu_torch.models.config_common", "raft_tpu_torch.models.reconfig_raft",
+    "raft_tpu_torch.models.joint_raft", "raft_tpu_torch.ops.bag",
 ]
 
 

@@ -19,8 +19,10 @@ from raft_tpu_torch.checker.util import (
     append_rows, append_rows_plain, chunk_sort, chunk_sort_plain, compact_indices,
     dense_prefix_sel, probe_runs, probe_runs_plain,
 )
+from raft_tpu_torch.models.joint_raft import JointRaftModel, JointRaftParams
 from raft_tpu_torch.models.kraft import KRaftModel, KRaftParams
 from raft_tpu_torch.models.raft import R_ACCEPT_AE, R_CLIENTREQUEST, RaftModel, RaftParams
+from raft_tpu_torch.models.reconfig_raft import ReconfigRaftModel, ReconfigRaftParams
 from raft_tpu_torch.models.pull_raft import (
     R_BECOMELEADER as R_PULL_BECOMELEADER, R_CLIENTREQUEST as R_PULL_CLIENTREQUEST,
     R_REQUESTVOTE as R_PULL_REQUESTVOTE, PullRaftModel, PullRaftParams,
@@ -441,6 +443,99 @@ def kraft_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
     ).astype(np.int32))
 
 
+def config_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
+    """Reachable states ``st`` of a reconfiguration model (its N-word bags)
+    and edge cases built from them: copies with three random lanes set to
+    small values (the snapshot sentinels -1 and -2 among them), half of
+    them with a restart left (restartCtr -1); copies whose
+    bag is full or one or two slots short of full (random keys, counts 0 to
+    2) with every server a member able to start an election, so the
+    RequestVote chains overflow partway; copies with every log at max_log
+    and no value acked (ClientRequest, the config appends and an accepted
+    entry overflow it); scrambled copies (random states, terms, configs,
+    votes, logs of every command with random member sets, nextIndex with
+    the sentinels, matchIndex, pendingResponse and acks) whose bags hold
+    random records of all six types, their fields over their whole bit
+    width, terms near the servers' (so every arm of the receipt fires, a
+    snapshot's embedded log and an accepted entry's config install
+    included); and the same scrambled rows with every count at 0."""
+    rng = np.random.default_rng(seed)
+    lay, p, pk = model.layout, model.p, model.packer
+    S, L, V, M, NW = p.n_servers, p.max_log, p.n_values, p.msg_slots, model.n_words
+    ws = [lay.sl(f"msg_w{k}") for k in range(NW)]
+    cs = lay.sl("msg_cnt")
+
+    def put_bag(r, keys, free=0):
+        keys = sorted(set(keys))[: M - free]
+        bag = np.full((NW + 1, M), EMPTY)
+        bag[NW] = 0
+        if keys:
+            bag[:NW, :len(keys)] = np.array(keys).T
+            bag[NW, :len(keys)] = rng.integers(0, 3, len(keys))
+        for k in range(NW):
+            r[ws[k]] = bag[k]
+        r[cs] = bag[NW]
+
+    def own_keys(r):
+        return set(zip(*(r[w].tolist() for w in ws))) - {(EMPTY,) * NW}
+
+    pert = st.copy()
+    for r in pert:
+        r[rng.integers(0, lay.view_len, 3)] = rng.integers(-2, 6, 3)
+    # a restart budget left (the cfgs here have MaxRestarts 0)
+    pert[::2, lay.fields["restartCtr"].offset] = -1
+    chain = st[:64].copy()
+    for r in chain:
+        r[lay.sl("state")] = rng.choice([0, 1], S)  # Follower or Candidate
+        r[lay.sl("config_members")] = (1 << S) - 1
+        r[lay.fields["electionCtr"].offset] = 0
+        keys = own_keys(r)
+        free = int(rng.integers(0, 3))
+        while len(keys) < M - free:
+            keys.add(tuple(int(x) for x in rng.integers(0, 1 << 20, NW)))
+        put_bag(r, keys, free)
+    maxlog = st[:64].copy()
+    maxlog[:, lay.sl("log_len")] = L
+    maxlog[:, lay.sl("acked")] = 0
+    scr = st[:96].copy()
+    cmds = (1, 2, 3) if "config_joint" in lay.fields else (1, 2, 3, 4)
+    for r in scr:
+        r[lay.sl("state")] = rng.integers(0, 4, S)
+        r[lay.sl("currentTerm")] = rng.integers(0, p.max_term + 1, S)
+        r[lay.sl("votedFor")] = rng.integers(0, S + 1, S)
+        r[lay.sl("votesGranted")] = rng.integers(0, 1 << S, S)
+        r[lay.sl("config_members")] = rng.integers(0, 1 << S, S)
+        r[lay.sl("config_committed")] = rng.integers(0, 2, S)
+        for f in ("config_joint", "config_old", "config_new"):
+            if f in lay.fields:
+                r[lay.sl(f)] = rng.integers(0, 2 if f == "config_joint" else 1 << S, S)
+        r[lay.sl("log_len")] = rng.integers(0, L + 1, S)
+        r[lay.sl("log_term")] = rng.integers(1, p.max_term + 1, S * L)
+        r[lay.sl("log_cmd")] = rng.choice(cmds, S * L)
+        r[lay.sl("log_val")] = rng.integers(0, V + 1, S * L)
+        r[lay.sl("log_cid")] = rng.integers(0, 3, S * L)
+        for name in model.ENTRY_FIELDS[4:]:
+            hi = S + 1 if lay.fields[f"log_{name}"].kind == "per_server_val" else 1 << S
+            r[lay.sl(f"log_{name}")] = rng.integers(0, hi, S * L)
+        r[lay.sl("commitIndex")] = rng.integers(0, L + 1, S)
+        r[lay.sl("nextIndex")] = rng.integers(-2, L + 2, S * S)
+        r[lay.sl("matchIndex")] = rng.integers(0, L + 1, S * S)
+        r[lay.sl("pendingResponse")] = rng.integers(0, 1 << S, S)
+        r[lay.sl("acked")] = rng.integers(0, 3, V)
+        keys = set()
+        for _ in range(int(rng.integers(1, M // 2))):
+            vals = {f: int(rng.integers(0, 1 << bits)) for f, (_, bits) in pk.fields.items()}
+            vals["mtype"] = int(rng.integers(1, 7))
+            vals["mterm"] = int(rng.integers(0, p.max_term + 1))
+            vals["mresult"] = int(rng.integers(1, 5))
+            keys.add(pk.pack(**vals))
+        put_bag(r, keys)
+    zero = scr.copy()
+    zero[:, cs] = 0
+    return np.ascontiguousarray(np.concatenate([st, pert, chain, maxlog, scr, zero]).astype(
+        np.int32))
+
+
 def _edge_states(model, dev, seed):
     """``edge_rows`` of reachable states (the frontiers of depths 3 to 7
     of the port's BFS on the card), on the card."""
@@ -565,13 +660,13 @@ def test_violation_trace_replay_card_equals_cpu(dev):
                    has_pending_response=False, trunc_term_mismatch=True)
     caps = dict(chunk=256, frontier_cap=1 << 13, journal_cap=1 << 14, max_seen_cap=1 << 20,
                 canon_memo_cap=1 << 12)
-    before = kernels.RAFT_APPLY.launches
+    before = kernels.RAFT_FAMILY["apply"].launches
     rg = DeviceBFS(RaftModel(p), invariants=INV, device=dev, **caps).run()
     rc = DeviceBFS(RaftModel(p), invariants=INV, device="cpu", **caps).run()
     assert rg.violation is not None and rg.violation == rc.violation
     assert rg.trace == rc.trace and len(rg.trace) == rg.violation.depth + 1
     assert (rg.distinct, rg.total, rg.depth_counts) == (rc.distinct, rc.total, rc.depth_counts)
-    assert kernels.RAFT_APPLY.launches > before
+    assert kernels.RAFT_FAMILY["apply"].launches > before
 
 
 # ---------------- simulate and liveness kernels ----------------
@@ -1056,3 +1151,186 @@ def test_kraft_bfs_simulate_liveness_card_equal_cpu(dev):
     for k in ("raft_guard", "raft_apply", "raft_fold", "raft_predicates", "raft_sim_check",
               "pull_guard", "pull_apply", "pull_fold"):
         assert counts[k] == 0, k
+
+
+# ---------------- the reconfiguration specs ----------------
+
+CONFIG_VARIANTS = {
+    "reconfig": ReconfigRaftParams(
+        n_servers=3, n_values=1, init_cluster_size=2, max_elections=1, max_restarts=0,
+        max_values_per_term=1, max_add_reconfigs=1, max_remove_reconfigs=1,
+        min_cluster_size=2, max_cluster_size=3, msg_slots=40),
+    "joint": JointRaftParams(
+        n_servers=3, n_values=1, init_cluster_size=2, max_elections=1, max_restarts=0,
+        max_reconfigs=1, max_values_per_term=1, reconfig_type=2, msg_slots=40),
+}
+CONFIG_INV = ("LeaderHasAllAckedValues", "NoLogDivergence", "MaxOneReconfigurationAtATime")
+
+
+def _config_model(name):
+    p = CONFIG_VARIANTS[name]
+    return (JointRaftModel if isinstance(p, JointRaftParams) else ReconfigRaftModel)(p)
+
+
+@pytest.mark.parametrize("name", list(CONFIG_VARIANTS))
+def test_config_guard_apply_fold(dev, name):
+    """reconfig_* / joint_* guard, apply and fold against their plain
+    versions on reachable and edge rows (config_edge_rows): a dead chunk
+    tail, every valid lane then drop lanes and lanes of disabled
+    candidates, and the fold with coverage; no other family's kernel."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.models import config_common as cc
+
+    model = _config_model(name)
+    base = _kraft_states(model, dev, depths=range(3, 9))
+    states = torch.from_numpy(config_edge_rows(model, base, seed=5)).to(dev)
+    C, A = states.shape[0], model.A
+    K = len(model.ACTION_NAMES)
+    cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
+    cov_p = cov_k.clone()
+    before = kernels.launch_counts()
+    gk = guard(model, states, C - 7, cov_k)
+    gp = guard_plain(model, states, C - 7, cov_p)
+    for a, b in zip(gk, gp):
+        assert torch.equal(a, b)
+    assert torch.equal(cov_k, cov_p)
+    valid, rank, ovf, _ = gk
+    for r in (cc.R_REQUESTVOTE, cc.R_CLIENTREQUEST):
+        assert bool((valid & ovf & (rank == r)).any()), r
+    assert set(torch.unique(rank[valid]).tolist()) >= set(range(1, K))  # every disjunct but Restart
+    sel, _n = compact_indices(valid.reshape(-1), int(valid.sum()) + 300, C * A)
+    other = torch.randint(0, C * A, (500,), device=dev, dtype=torch.int32)
+    for s in (sel, other, sel[:0]):
+        s = s.contiguous()
+        fk, fp = apply(model, states, s), apply_plain(model, states, s)
+        assert fk.shape == (s.numel(), model.layout.W) and torch.equal(fk, fp)
+    flatc = apply(model, states, sel)
+    new = (torch.rand(sel.numel(), device=dev) < 0.7) & (sel < C * A)
+    jcount = torch.tensor([777], dtype=torch.int64, device=dev)
+    invs = tuple(model.invariants)
+    vk_, vp_ = (torch.full((len(invs),), 2**31 - 1, dtype=torch.int64, device=dev)
+                for _ in range(2))
+    ck, cp = cov_k.clone(), cov_k.clone()
+    fold(model, flatc, new, jcount, vk_, invs, cov=ck, sel=sel, valid=valid, rank=rank)
+    fold_plain(model, flatc, new, jcount, vp_, invs, cov=cp, sel=sel, valid=valid, rank=rank)
+    assert torch.equal(vk_, vp_) and torch.equal(ck, cp)
+    after = kernels.launch_counts()
+    for k in ("guard", "apply", "fold"):
+        assert after[f"{name}_{k}"] > before[f"{name}_{k}"], k
+    for k in ("raft_guard", "pull_guard", "kraft_guard",
+              "joint_guard" if name == "reconfig" else "reconfig_guard"):
+        assert after[k] == before[k], k
+
+
+@pytest.mark.parametrize("name", list(CONFIG_VARIANTS))
+def test_config_predicates_and_sim_check(dev, name):
+    """The family's predicates kernel on edge rows (every invariant and
+    ReconfigurationCompletes' P and Q), and its sim_check's check and
+    settle, against their plain versions."""
+    from raft_tpu_torch.ops.expand import predicates, predicates_plain, sim_check, sim_check_plain
+
+    model = _config_model(name)
+    base = _kraft_states(model, dev, depths=range(3, 9))
+    states = torch.from_numpy(config_edge_rows(model, base, seed=6)).to(dev)
+    names = tuple(model.invariants) + tuple(model.predicates)
+    for rows in (states, states[:0], states[:1]):
+        rows = rows.contiguous()
+        assert torch.equal(predicates(model, rows, names), predicates_plain(model, rows, names))
+    R = states.shape[0]
+    gen = torch.Generator().manual_seed(2)
+    nxt = states[torch.randperm(R, generator=gen).to(dev)].contiguous()
+    moved = (torch.rand(R, generator=gen) < 0.8).to(dev)
+    nxt[~moved] = 0
+    chosen = torch.randint(0, model.A, (R,), generator=gen, dtype=torch.int32).to(dev)
+    init_pool = states[:3].contiguous()
+    ridx = torch.randint(0, 3, (R,), generator=gen, dtype=torch.int32).to(dev)
+    depth = torch.randint(0, 6, (R,), generator=gen, dtype=torch.int32).to(dev)
+    journal = torch.randint(0, 99, (R, 7), generator=gen, dtype=torch.int32).to(dev)
+    jlen = (depth + 1).contiguous()
+    jlen[::11] = 7
+    for invs in (CONFIG_INV, tuple(model.invariants), ()):
+        outs = []
+        for fn in (sim_check, sim_check_plain):
+            args = [t.clone() for t in (nxt, depth, journal, jlen)]
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            res = fn(model, states, args[0], moved, chosen, ridx, init_pool, args[1], 6,
+                     args[2], args[3], invs, stats)
+            outs.append(list(res) + args + [stats[2:]])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(CONFIG_VARIANTS))
+def test_canon_memo_on_config_rows(dev, name):
+    """canon_memo's general path (N-word bags, the server_bitmask and
+    server_nil kinds, up to 24 remap fields) on reachable reconfiguration
+    rows and their server-permuted copies: the kernel equals the plain
+    Canonicalizer, memo cold and warm, and the permuted rows keep their
+    fingerprints."""
+    import itertools
+
+    from raft_tpu_torch.ops.symmetry import Canonicalizer, msg_perm_spec
+
+    model = _config_model(name)
+    base = _kraft_states(model, dev, depths=range(4, 10))
+    sigmas = [np.asarray(s) for s in itertools.permutations(range(3))][1:]
+    perm = np.concatenate([
+        permute_states(model.layout, model.packer, part, sigma, msg_perm_spec(model))
+        for part, sigma in zip(np.array_split(base, len(sigmas)), sigmas)])
+    states = torch.from_numpy(np.concatenate([base, perm])).to(dev)
+    for symmetry in (True, False):
+        canon = Canonicalizer.for_model(model, symmetry=symmetry)
+        valid = torch.rand(states.shape[0], device=dev) < 0.9
+        mk = torch.full((1 << 8, 2), INT64_MAX, dtype=torch.int64, device=dev)
+        mp = mk.clone()
+        for _ in range(2):
+            fk, hk = canon.fingerprints_memo_cuda(states, valid, mk)
+            fp, hp = canon.fingerprints_memo_plain(states, valid, mp)
+            assert torch.equal(fk, fp) and torch.equal(mk, mp) and int(hk) == int(hp)
+    fps = Canonicalizer.for_model(model).fingerprints(states)
+    n = len(base)
+    assert torch.equal(fps[:n], fps[n:])
+
+
+def test_config_bfs_simulate_liveness_card_equal_cpu(dev):
+    """Both reconfiguration specs by BFS (counts, depth counts, coverage)
+    and by simulation (walks, final states, journals), and AddRemove's
+    ReconfigurationCompletes graph at MaxElections 0 (states, edges,
+    verdict): the card equals the CPU, through the families' kernels."""
+    import dataclasses
+
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+    from raft_tpu_torch.checker.liveness import LivenessChecker
+    from raft_tpu_torch.checker.simulate import Simulator
+
+    caps = dict(chunk=256, frontier_cap=1 << 13, journal_cap=1 << 15, max_seen_cap=1 << 20,
+                canon_memo_cap=1 << 12)
+    kernels.reset_counts()
+    for name in CONFIG_VARIANTS:
+        rs = [DeviceBFS(_config_model(name), invariants=CONFIG_INV, device=d, **caps).run(
+            max_depth=6) for d in (dev, "cpu")]
+        assert (rs[0].distinct, rs[0].total, rs[0].depth_counts, rs[0].coverage,
+                rs[0].violation) == (rs[1].distinct, rs[1].total, rs[1].depth_counts,
+                                     rs[1].coverage, rs[1].violation)
+        sims = [Simulator(_config_model(name), invariants=CONFIG_INV, walks=32,
+                          max_behavior_depth=20, seed=4, device=d) for d in (dev, "cpu")]
+        ss = [s.run(max_steps=32 * 20) for s in sims]
+        assert (ss[0].behaviors, ss[0].steps, ss[0].violation) == (
+            ss[1].behaviors, ss[1].steps, ss[1].violation)
+        for a in ("states", "depth", "journal", "jlen"):
+            assert torch.equal(getattr(sims[0], a).cpu(), getattr(sims[1], a))
+    live = dataclasses.replace(CONFIG_VARIANTS["reconfig"], max_elections=0,
+                               max_remove_reconfigs=0, msg_slots=32)
+    lv = [LivenessChecker(ReconfigRaftModel(live), ("ReconfigurationCompletes",), chunk=256,
+                          device=d) for d in (dev, "cpu")]
+    lr = [c.run() for c in lv]
+    assert (lr[0].distinct, lr[0].total_edges, lr[0].violation) == (
+        lr[1].distinct, lr[1].total_edges, lr[1].violation)
+    assert lr[0].violation is None and lr[0].distinct > 100
+    for a in ("_esrc", "_edst", "_ecand"):
+        assert np.array_equal(getattr(lv[0], a), getattr(lv[1], a))
+    counts = kernels.launch_counts()
+    for fam in CONFIG_VARIANTS:
+        for k in ("guard", "apply", "fold", "predicates", "sim_check"):
+            assert counts[f"{fam}_{k}"] > 0 or (fam, k) == ("joint", "predicates"), (fam, k)

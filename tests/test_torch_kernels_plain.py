@@ -120,4 +120,6 @@ def test_wrappers_route_by_device():
         "raft_apply", "raft_fold", "chunk_sort", "canon_tiered", "canon_signatures",
         "sim_pick", "raft_predicates", "raft_sim_check", "hash_rows", "pull_guard",
         "pull_apply", "pull_fold", "pull_predicates", "pull_sim_check", "kraft_guard",
-        "kraft_apply", "kraft_fold", "kraft_predicates", "kraft_sim_check"}
+        "kraft_apply", "kraft_fold", "kraft_predicates", "kraft_sim_check", "reconfig_guard",
+        "reconfig_apply", "reconfig_fold", "reconfig_predicates", "reconfig_sim_check",
+        "joint_guard", "joint_apply", "joint_fold", "joint_predicates", "joint_sim_check"}

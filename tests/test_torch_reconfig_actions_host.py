@@ -1,0 +1,173 @@
+"""The device code of the reconfiguration kernels (raft_tpu_torch/csrc/
+config_actions.cuh) against the JAX reference, on the CPU.
+
+As tests/test_torch_kraft_actions_host.py does for kraft_actions.cuh: the
+header builds with a host C++ compiler behind the shim of
+tests/test_torch_actions_host.py, and each (state, candidate) pair goes
+through ``ConfigFamily<J>::action<false>`` (the guard, with a RequestVote
+lane's scratch as the kernel gives it) and ``action<true>`` (the apply),
+and each state through ``ConfigFamily<J>::predicate`` (the invariants and
+ReconfigurationCompletes' P and Q); the results must equal the dense
+``jax.vmap(_expand1)``, the reference's invariants and its liveness
+predicates bit for bit (tolerance: none, the values are integers), on
+reachable states and the edge rows of ``config_edge_rows``
+(tests/test_torch_kernels_cuda.py): every HandleMessage arm, the snapshot
+pair, the config appends, ResetWithSameIdentity, RequestVote chains that
+overflow partway and logs at max_log. Skips without g++.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu_torch.models import config_common as cc
+from raft_tpu_torch.models.base import INVARIANT_IDS
+
+from test_torch_actions_host import CSRC, SHIM
+from test_torch_reconfig import PARAMS, _edges, _pair
+
+# one intra-op thread: tier-1 runs several test workers side by side, and
+# torch's default thread pool per worker oversubscribes the CPU
+torch.set_num_threads(1)
+
+DRIVER = """\
+#include <vector>
+#include "config_actions.cuh"
+extern "C" int spec_len() { return CS_LEN; }
+template <bool J>
+static void expand(const int* states, int C, const int* spec, const int* cand, int A, int write,
+                   int* succ, bool* valid, int* rank, bool* ovf) {
+  typedef ConfigFamily<J> F;
+  const int W = spec[CS_W], M = spec[CS_M];
+  std::vector<int> scratch(F::scratch_slots(spec[CS_S]) * F::BAG_WORDS * M);  // one state's
+  for (int c = 0; c < C; ++c)
+    for (int a = 0; a < A; ++a) {
+      const int* s = states + (long long)c * W;
+      int* o = succ + ((long long)c * A + a) * W;
+      const int* cd = cand + 4 * a;
+      Guard g;
+      if (write) {
+        for (int w = 0; w < W; ++w) o[w] = s[w];
+        g = F::template action<true>(spec, s, o, cd, nullptr);
+      } else {
+        const int slot = F::scratch_slot(cd);
+        int* bag = slot >= 0 ? scratch.data() + slot * F::BAG_WORDS * M : nullptr;
+        g = F::template action<false>(spec, s, nullptr, cd, bag);
+      }
+      valid[c * A + a] = g.valid;
+      rank[c * A + a] = g.rank;
+      ovf[c * A + a] = g.ovf;
+    }
+}
+extern "C" void host_expand(int joint, const int* states, int C, const int* spec,
+                            const int* cand, int A, int write, int* succ, bool* valid, int* rank,
+                            bool* ovf) {
+  if (joint) expand<true>(states, C, spec, cand, A, write, succ, valid, rank, ovf);
+  else expand<false>(states, C, spec, cand, A, write, succ, valid, rank, ovf);
+}
+extern "C" void host_predicate(int joint, const int* states, int C, const int* spec, int id,
+                               bool* ok) {
+  for (int c = 0; c < C; ++c) {
+    const int* s = states + (long long)c * spec[CS_W];
+    ok[c] = joint ? JointFamily::predicate(spec, s, id) : ReconfigFamily::predicate(spec, s, id);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler to build the device code for the CPU")
+    d = tmp_path_factory.mktemp("host_config_actions")
+    (d / "cuda_runtime.h").write_text(SHIM)
+    (d / "driver.cpp").write_text(DRIVER)
+    so = d / "libhost_config_actions.so"
+    out = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{d}", f"-I{CSRC}",
+                          "-o", str(so), str(d / "driver.cpp")],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.host_expand.argtypes = [I, P, I, P, P, I, I, P, P, P, P]
+    lib.host_predicate.argtypes = [I, P, I, P, I, P]
+    return lib
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+@pytest.mark.parametrize("name", list(PARAMS))
+def test_device_actions_match_reference(lib, name):
+    _jm, tm, _batch, _dense = _pair(name)
+    assert lib.spec_len() == cc.SPEC_LEN  # the header's CS_*/CF_* enums and SPEC_SCALARS agree
+    states, want = _edges(name)
+    spec, cand, _ = (np.ascontiguousarray(t.numpy()) for t in tm.kernel_spec("cpu"))
+    C, A, W = len(states), tm.A, tm.layout.W
+    joint = int(name == "joint")
+    for write in (0, 1):
+        succ = np.zeros((C, A, W), np.int32)
+        valid, rank, ovf = np.zeros((C, A), bool), np.zeros((C, A), np.int32), np.zeros((C, A), bool)
+        lib.host_expand(joint, _ptr(states), C, _ptr(spec), _ptr(cand), A, write, _ptr(succ),
+                        _ptr(valid), _ptr(rank), _ptr(ovf))
+        for label, w, g in zip(("valid", "rank", "ovf"), want[1:], (valid, rank, ovf)):
+            assert np.array_equal(w, g), (label, write)
+        if write:
+            assert np.array_equal(want[0], succ)
+    # every Next disjunct fires on these rows, and RequestVote's chain,
+    # ClientRequest and an accepted entry overflow
+    assert set(np.unique(want[2][want[1]]).tolist()) == set(range(len(tm.ACTION_NAMES)))
+    hit = want[1] & want[3]
+    for r in (cc.R_REQUESTVOTE, cc.R_CLIENTREQUEST, cc.R_ACCEPT_AE):
+        assert (hit & (want[2] == r)).any(), r
+
+
+@pytest.mark.parametrize("name", list(PARAMS))
+def test_device_predicates_match_reference(lib, name):
+    jm, tm, _batch, _dense = _pair(name)
+    states, want = _edges(name)
+    succs = np.ascontiguousarray(want[0].reshape(-1, tm.layout.W)[::5])
+    spec = np.ascontiguousarray(tm.kernel_spec("cpu")[0].numpy())
+    ids = {n: i for n, i in (dict(INVARIANT_IDS) | cc.CONFIG_PRED_IDS).items()}
+    assert set(jm.invariants) <= set(ids)
+    p_ref, q_ref = jm.liveness["ReconfigurationCompletes"][0][1:]
+    refs = dict(jm.invariants) | {"ReconfigurationCompletes.P": p_ref,
+                                  "ReconfigurationCompletes.Q": q_ref}
+    joint = int(name == "joint")
+    for arr in (states, succs):
+        for pred, iid in ids.items():
+            ok = np.zeros(len(arr), bool)
+            lib.host_predicate(joint, _ptr(arr), len(arr), _ptr(spec), iid, _ptr(ok))
+            assert np.array_equal(ok, np.asarray(refs[pred](arr))), pred
+
+
+@pytest.mark.parametrize("name", list(PARAMS))
+def test_kernel_spec_layout(name):
+    _jm, tm, _batch, _dense = _pair(name)
+    names = ("MaxOneReconfigurationAtATime", "TestInv", "ReconfigurationCompletes.Q")
+    spec, cand, ids = tm.kernel_spec("cpu", names)
+    scal = dict(zip(cc.SPEC_SCALARS, spec.tolist()))
+    lay = tm.layout
+    assert (scal["W"], scal["A"], scal["K"], scal["NW"], scal["L"]) == (
+        lay.W, tm.A, len(tm.ACTION_NAMES), tm.n_words, tm.p.max_log)
+    extra = {f"log_x{k}": f"log_{n}" for k, n in enumerate(tm.ENTRY_FIELDS[4:])}
+    for f in cc.SPEC_OFFSETS:
+        want = lay.fields[extra.get(f, f)].offset if extra.get(f, f) in lay.fields else -1
+        assert scal[f] == want, f
+    # the message triples: the record fields, then e_* and l{k}_* by slot
+    base = len(cc.SPEC_SCALARS)
+    for k, f in enumerate(cc.MSG_FIELDS):
+        assert spec[base + 3 * k: base + 3 * k + 3].tolist() == list(tm.packer.locate(f))
+    e0 = base + 3 * (len(cc.MSG_FIELDS) + cc.ENTRY_SLOTS * (1 + 2))  # lane 2's first slot
+    assert spec[e0:e0 + 3].tolist() == list(tm.packer.locate("l2_term"))
+    assert cand.shape == (tm.A, 4)
+    assert [cc.GROUP_IDS[b[0]] for b in tm.bindings] == cand[:, 0].tolist()
+    assert ids.tolist() == [5, INVARIANT_IDS["TestInv"], 17]
+    with pytest.raises(KeyError, match="no kernel predicate"):
+        tm.kernel_spec("cpu", ("ReconfigurationCompletes",))
