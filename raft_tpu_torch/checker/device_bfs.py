@@ -14,7 +14,9 @@ the run of 7) and ``_st_finish`` (5-6)):
      the compact_append kernel), then apply: successor rows for the
      worklist lanes only (``model.chunk_apply``; raft_apply)
   3. canonical fingerprints through the canon memo (canon_memo kernel;
-     canon_tiered from five servers)
+     canon_tiered from five servers), or, for a model's own canonicalizer
+     without a memo (KRaftWithReconfig), of the compacted lanes directly
+     (the slot_canon kernel)
   4. dedup: probe the seen run and this wave's ladder runs (probe_runs
      kernel), then first occurrence within the chunk and the chunk's
      sorted run of new fingerprints from one stable sort (chunk_sort)
@@ -124,7 +126,11 @@ class DeviceBFS:
         self._seen: torch.Tensor | None = None
         self.canon = Canonicalizer.for_model(
             model, symmetry=symmetry, seed=fingerprint_seed)
-        self._memo = CanonMemo(canon_memo_cap)
+        # the canon memo caches raw view hash -> canonical fingerprint; a
+        # model's own canonicalizer without a memo (KRaftWithReconfig's slot
+        # canon) takes the unmemoized path and allocates no table
+        self._use_memo = canon_memo_cap > 0 and hasattr(self.canon, "fingerprints_memo")
+        self._memo = CanonMemo(canon_memo_cap if self._use_memo else 1)
         self.MCAP = self._memo.MCAP
         self._init_distinct: np.ndarray | None = None
         self._jparent = self._jcand = None
@@ -209,9 +215,13 @@ class DeviceBFS:
                 compact_ovf)
 
     def _st_canon(self, flatc, selv, memo):
-        """Stage 3: canonical fingerprints through the memo (invalid
-        lanes INT64_MAX). Returns (fps, n_memo_hit)."""
-        return self.canon.fingerprints_memo(flatc, selv, memo)
+        """Stage 3: canonical fingerprints of the compacted lanes (invalid
+        lanes INT64_MAX), through the memo where the canonicalizer has one.
+        Returns (fps, n_memo_hit)."""
+        if self._use_memo:
+            return self.canon.fingerprints_memo(flatc, selv, memo)
+        return self.canon.fingerprints(flatc, selv), torch.zeros((), dtype=torch.int64,
+                                                                 device=flatc.device)
 
     def _st_dedup(self, fps, runs):
         """Stage 4: fresh against the seen run and this wave's ladder

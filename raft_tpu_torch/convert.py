@@ -3,8 +3,8 @@
 State rows need no conversion: both packages lay a state out as the same
 ``int32 [B, W]`` vector with the same field offsets. Parameters cross as
 plain dicts (``dataclasses.asdict`` of the reference's ``RaftParams``,
-``PullRaftParams``, ``KRaftParams``, ``ReconfigRaftParams`` or
-``JointRaftParams``),
+``PullRaftParams``, ``KRaftParams``, ``ReconfigRaftParams``,
+``JointRaftParams`` or ``KRaftReconfigParams``),
 and fingerprints as numpy arrays: the reference's ``uint64`` values, the
 port's int64 ``u64 ^ (1 << 63)`` encoding (order-preserving; the
 ``U64_MAX`` sentinel becomes ``INT64_MAX``).
@@ -19,6 +19,7 @@ import torch
 
 from .models.joint_raft import JointRaftParams
 from .models.kraft import KRaftParams
+from .models.kraft_reconfig import KRaftReconfigParams
 from .models.pull_raft import PullRaftParams
 from .models.raft import RaftParams
 from .models.reconfig_raft import ReconfigRaftParams
@@ -28,7 +29,8 @@ _SIGN = np.uint64(1 << 63)
 
 def params_from_reference(d: dict):
     """The port's ``RaftParams``, ``PullRaftParams``, ``KRaftParams``,
-    ``ReconfigRaftParams`` or ``JointRaftParams`` from ``dataclasses.asdict``
+    ``ReconfigRaftParams``, ``JointRaftParams`` or ``KRaftReconfigParams``
+    from ``dataclasses.asdict``
     of the reference's (each pair of dataclasses has the same fields; a
     dict with ``variant2`` is the pull family's, one with exactly a port
     dataclass's fields that one's). The pull family's fleet lanes are not
@@ -41,7 +43,7 @@ def params_from_reference(d: dict):
             raise NotImplementedError(
                 "PullRaft fleet lanes (fleet, dyn_consts) are not ported to raft_tpu_torch")
         return PullRaftParams(**d)
-    for cls in (KRaftParams, ReconfigRaftParams, JointRaftParams):
+    for cls in (KRaftParams, ReconfigRaftParams, JointRaftParams, KRaftReconfigParams):
         if set(d) == {f.name for f in dataclasses.fields(cls)}:
             return cls(**d)
     return RaftParams(**d)

@@ -3,9 +3,10 @@
 Each kernel lives in a CUDA C++ source in ``csrc/`` with a plain C
 interface (``raft_guard`` and ``raft_apply`` share ``raft_expand.cu``;
 ``raft_predicates`` and simulate's ``raft_sim_check`` share
-``raft_predicates.cu``; the pull family's ``pull_*``, KRaft's ``kraft_*``
-and the reconfiguration specs' ``reconfig_*`` (AddRemove) and ``joint_*``
-(JointConsensus) kernels the same way;
+``raft_predicates.cu``; the pull family's ``pull_*``, KRaft's ``kraft_*``,
+the reconfiguration specs' ``reconfig_*`` (AddRemove) and ``joint_*``
+(JointConsensus) and KRaftWithReconfig's ``kreconfig_*`` kernels the same
+way; KRaftWithReconfig's slot canonicalizer is ``slot_canon.cu``;
 ``*.cuh`` headers are shared device code and kernel drivers). ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` compiles each source into a shared
 library under ``build/raft_tpu_torch/`` at first use (``build_all``
@@ -73,8 +74,11 @@ _SIGNATURES = {
     "hash_rows": {
         "hash_rows": [_P, _L, _I, _U, _U, _I, _P, _P],
     },
+    "slot_canon": {
+        "slot_canon": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _U, _U, _I, _P, _P],
+    },
 }
-for _fam in ("raft", "pull", "kraft", "reconfig", "joint"):
+for _fam in ("raft", "pull", "kraft", "reconfig", "joint", "kreconfig"):
     _SIGNATURES[f"{_fam}_expand"] = {f"{_fam}_guard": _GUARD, f"{_fam}_apply": _APPLY}
     _SIGNATURES[f"{_fam}_fold"] = {f"{_fam}_fold": _FOLD}
     _SIGNATURES[f"{_fam}_predicates"] = {f"{_fam}_predicates": _PREDICATES,
@@ -163,6 +167,7 @@ CANON_TIERED = Kernel("canon_tiered")
 CANON_SIGNATURES = Kernel("canon_signatures", source="canon_tiered")
 SIM_PICK = Kernel("sim_pick", source="sim_step")
 HASH_ROWS = Kernel("hash_rows")
+SLOT_CANON = Kernel("slot_canon")
 
 
 def _family(prefix: str) -> dict:
@@ -176,14 +181,16 @@ def _family(prefix: str) -> dict:
                 sim_check=Kernel(f"{prefix}_sim_check", source=f"{prefix}_predicates"))
 
 
-# the Raft family (Raft, FlexibleRaft, RaftFsync), the pull family, KRaft and
+# the Raft family (Raft, FlexibleRaft, RaftFsync), the pull family, KRaft,
 # the reconfiguration specs (AddRemove's reconfig_*, JointConsensus' joint_*)
-RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY = (
-    _family(prefix) for prefix in ("raft", "pull", "kraft", "reconfig", "joint"))
+# and KRaftWithReconfig (kreconfig_*)
+RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY, KRECONFIG_FAMILY = (
+    _family(prefix) for prefix in ("raft", "pull", "kraft", "reconfig", "joint", "kreconfig"))
+FAMILIES = (RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY,
+            KRECONFIG_FAMILY)
 ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, CHUNK_SORT, CANON_TIERED,
-       CANON_SIGNATURES, SIM_PICK, HASH_ROWS,
-       *(k for fam in (RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY)
-         for k in fam.values()))
+       CANON_SIGNATURES, SIM_PICK, HASH_ROWS, SLOT_CANON,
+       *(k for fam in FAMILIES for k in fam.values()))
 
 
 def build_all() -> dict[str, str]:

@@ -1,11 +1,11 @@
 """Spec registry: maps a TLA+ module name to its lowering builder.
 
 Counterpart of ``raft_tpu/models/registry.py`` for the specs this port
-lowers so far — the three that one ``RaftModel`` serves, PullRaft and
-PullRaftVariant2 (``PullRaftModel``), KRaft (``KRaftModel``) and the two
-reconfiguration specs (``ReconfigRaftModel``, ``JointRaftModel``). The
-reference's other spec, KRaftWithReconfig, raises a "not yet ported"
-``CfgError`` (CLI exit 64).
+lowers — all of the reference's: the three that one ``RaftModel`` serves,
+PullRaft and PullRaftVariant2 (``PullRaftModel``), KRaft (``KRaftModel``),
+the two reconfiguration specs (``ReconfigRaftModel``, ``JointRaftModel``)
+and KRaftWithReconfig (``KRaftReconfigModel``). A spec name with no builder
+raises "no lowering registered" (CLI exit 64).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from ..utils.cfg import Cfg, CfgError
 from .joint_raft import JointRaftModel, JointRaftParams
 from .kraft import KRaftModel, KRaftParams
+from .kraft_reconfig import KRaftReconfigModel, KRaftReconfigParams
 from .pull_raft import PullRaftModel, PullRaftParams
 from .raft import RaftModel, RaftParams
 from .reconfig_raft import ReconfigRaftModel, ReconfigRaftParams
@@ -49,8 +50,9 @@ def _require_bool(cfg: Cfg, name: str) -> bool:
     return v
 
 
-def _setup(cfg: Cfg, params, name: str, model_cls=RaftModel) -> CheckSetup:
-    servers = cfg.server_like("Server")
+def _setup(cfg: Cfg, params, name: str, model_cls=RaftModel,
+           servers_from: str = "Server") -> CheckSetup:
+    servers = cfg.server_like(servers_from)
     values = cfg.server_like("Value")
     model = model_cls(params, server_names=servers, value_names=values)
     model.name = name
@@ -203,6 +205,29 @@ def build_reconfig_joint(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
     return _setup(cfg, params, "RaftWithReconfigJointConsensus", JointRaftModel)
 
 
+def build_kraft_reconfig(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
+    """pull-raft/KRaftWithReconfig.tla + its cfg: the dynamic-server
+    universe, lowered to MaxSpawnedServers identity slots over the cfg's
+    Hosts (the cfg prescribes simulation, KRaftWithReconfig.cfg:5). The cfg
+    names the undeclared model value v2 as PullRaft.cfg does (a lenient
+    parse repairs it)."""
+    params = KRaftReconfigParams(
+        n_hosts=len(cfg.server_like("Hosts")),
+        n_values=len(cfg.server_like("Value")),
+        init_cluster_size=_require_int(cfg, "InitClusterSize"),
+        min_cluster_size=_require_int(cfg, "MinClusterSize"),
+        max_cluster_size=_require_int(cfg, "MaxClusterSize"),
+        max_elections=_require_int(cfg, "MaxElections"),
+        max_restarts=_require_int(cfg, "MaxRestarts"),
+        max_values_per_epoch=_require_int(cfg, "MaxValuesPerEpoch"),
+        max_add_reconfigs=_require_int(cfg, "MaxAddReconfigs"),
+        max_remove_reconfigs=_require_int(cfg, "MaxRemoveReconfigs"),
+        max_spawned_servers=_require_int(cfg, "MaxSpawnedServers"),
+        msg_slots=msg_slots if msg_slots is not None else 40,
+    )
+    return _setup(cfg, params, "KRaftWithReconfig", KRaftReconfigModel, servers_from="Hosts")
+
+
 BUILDERS = {
     "Raft": build_raft,
     "FlexibleRaft": build_flexible_raft,
@@ -212,20 +237,13 @@ BUILDERS = {
     "KRaft": build_kraft,
     "RaftWithReconfigAddRemove": build_reconfig_add_remove,
     "RaftWithReconfigJointConsensus": build_reconfig_joint,
+    "KRaftWithReconfig": build_kraft_reconfig,
 }
-
-# Specs the reference lowers that this port does not yet.
-NOT_YET_PORTED = ("KRaftWithReconfig",)
 
 
 def build_from_cfg(cfg: Cfg, spec: str | None = None,
                    msg_slots: int | None = None) -> CheckSetup:
     name = spec or os.path.splitext(os.path.basename(cfg.path))[0]
-    if name in NOT_YET_PORTED:
-        raise CfgError(
-            f"spec {name!r} is not yet ported to raft_tpu_torch (ported: "
-            f"{', '.join(sorted(BUILDERS))}); use the reference: python -m raft_tpu"
-        )
     if name not in BUILDERS:
         raise CfgError(
             f"no lowering registered for spec {name!r} "

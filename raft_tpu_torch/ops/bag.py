@@ -93,3 +93,18 @@ def bag_discard_at(cnt, slot):
     M = cnt.shape[-1]
     lane = torch.arange(M, dtype=torch.int64, device=cnt.device)
     return cnt - (lane == slot.unsqueeze(-1)).to(cnt.dtype)
+
+
+def wide_bag_sort(words, cnt):
+    """Canonicalize an N-word bag: its slots in lexicographic order of the
+    key words, word 0 first, ``cnt`` carried along (``raft_tpu/ops/bag.py:27``,
+    a ``lax.sort`` with the words as its keys). words: a list of [..., M]
+    tensors; cnt [..., M]. A bag's keys are unique and its unused slots
+    identical (EMPTY words, count 0), so the order is unique and a chain of
+    stable sorts from the last word to the first gives it."""
+    order = None
+    for w in reversed(words):
+        key = w if order is None else w.gather(-1, order)
+        step = torch.sort(key, dim=-1, stable=True).indices
+        order = step if order is None else order.gather(-1, step)
+    return [w.gather(-1, order) for w in words], cnt.gather(-1, order)

@@ -241,6 +241,12 @@ class Canonicalizer:
 
     @classmethod
     def for_model(cls, model, symmetry: bool = True, seed: int = 0):
+        """The model's own canonicalizer where it defines one
+        (``make_canonicalizer``: KRaftWithReconfig's data-dependent slot
+        canon, which has ``fingerprints`` and no memo), else this class
+        over the model's layout and message-field kinds."""
+        if hasattr(model, "make_canonicalizer"):
+            return model.make_canonicalizer(symmetry, seed=seed)
         return cls(model.layout, model.packer, symmetry=symmetry, seed=seed,
                    spec=msg_perm_spec(model))
 

@@ -116,11 +116,92 @@ def _fmt_msg(setup, rec, key: str = "term") -> str:
     return "[" + ", ".join(parts) + "]"
 
 
+def _ident(setup, x) -> str:
+    """A KRaftWithReconfig server identity [host, diskId] (or Nil)."""
+    return "Nil" if x is None else f"[host |-> {_srv(setup, x[0])}, diskId |-> {x[1]}]"
+
+
+def _idset(setup, xs) -> str:
+    return "{" + ", ".join(_ident(setup, x) for x in sorted(xs)) + "}"
+
+
+def _id_entry(setup, e) -> str:
+    """A KRaftWithReconfig log entry (command, epoch, value): a Value, an
+    InitClusterCommand's (id, members) or an Add/RemoveServerCommand's (id,
+    server, members)."""
+    cmd, ep, val = e
+    if cmd == "AppendCommand":
+        v = _val(setup, val)
+    elif len(val) == 2:
+        v = f"[id |-> {val[0]}, members |-> {_idset(setup, val[1])}]"
+    else:
+        v = (f"[id |-> {val[0]}, server |-> {_ident(setup, val[1])}, "
+             f"members |-> {_idset(setup, val[2])}]")
+    return f"[command |-> {cmd}, epoch |-> {ep}, value |-> {v}]"
+
+
+def _id_msg(setup, rec) -> str:
+    """A KRaftWithReconfig message record (identities in its server fields,
+    a FetchResponse's correlation a record of its own)."""
+    parts = []
+    for k, v in rec:
+        if k in SERVER_FIELDS:
+            v = _ident(setup, v)
+        elif k == "correlation":
+            v = _id_msg(setup, v)
+        elif k == "mentries":
+            v = "<<" + ", ".join(_id_entry(setup, e) for e in v) + ">>"
+        else:
+            v = _fmt_value(setup, v)
+        parts.append(f"{k} |-> {v}")
+    return "[" + ", ".join(parts) + "]"
+
+
+def format_identity_state(setup, st: dict) -> str:
+    """A KRaftWithReconfig state (its server universe grows: every map is
+    keyed by [host, diskId] identities) as TLA+ ``/\\ var = value`` lines:
+    the servers, their roles and states, the config cache, endOffset over
+    its dynamic domain, the logs with their join and remove commands, the
+    message bag, acked and the counters."""
+    ids = sorted(st["servers"])
+    lines = []
+
+    def put(name, text):
+        lines.append(f"/\\ {name} = {text}")
+
+    def per(name, fmt):
+        put(name, _fmt_fun((_ident(setup, i), fmt(st[name][i])) for i in ids))
+
+    put("servers", _idset(setup, ids))
+    per("role", str)
+    per("state", str)
+    per("currentEpoch", str)
+    per("leader", lambda x: _ident(setup, x))
+    per("votedFor", lambda x: _ident(setup, x))
+    per("config", lambda c: f"[id |-> {c[0]}, members |-> {_idset(setup, c[1])}, "
+                            f"committed |-> {_fmt_value(setup, c[2])}]")
+    per("pendingFetch", lambda r: "Nil" if r is None else _id_msg(setup, r))
+    per("votesGranted", lambda x: _idset(setup, x))
+    per("endOffset", lambda row: _fmt_fun((_ident(setup, j), v) for j, v in sorted(row.items())))
+    per("log", lambda row: "<<" + ", ".join(_id_entry(setup, e) for e in row) + ">>")
+    per("highWatermark", str)
+    msgs = sorted(st["messages"], key=repr)
+    put("messages", "(" + " @@ ".join(f"{_id_msg(setup, m)} :> {c}" for m, c in msgs) + ")")
+    put("acked", _fmt_fun((_val(setup, v), {None: "Nil", False: "FALSE", True: "TRUE"}[a])
+                          for v, a in enumerate(st["_acked"])))
+    for name in ("_electionCtr", "_valueCtr", "_restartCtr", "_addReconfigCtr",
+                 "_removeReconfigCtr", "_diskIdGen"):
+        put(name, _fmt_value(setup, st[name]))
+    return "\n".join(lines)
+
+
 def format_state(setup, st: dict) -> str:
     """One decoded state as TLA+ ``/\\ var = value`` lines. The Raft
     family's term is ``currentTerm``; KRaft's is ``currentEpoch``, its log
     entries carry an ``epoch``, and its state names are its model's
     (``STATE_NAMES`` of the setup's model, where it has them)."""
+    if "servers" in st:  # KRaftWithReconfig's identity-keyed maps
+        return format_identity_state(setup, st)
     term = "currentTerm" if "currentTerm" in st else "currentEpoch"
     key = "term" if term == "currentTerm" else "epoch"
     names = getattr(getattr(setup, "model", None), "STATE_NAMES", STATE_NAMES)

@@ -1334,3 +1334,308 @@ def test_config_bfs_simulate_liveness_card_equal_cpu(dev):
     for fam in CONFIG_VARIANTS:
         for k in ("guard", "apply", "fold", "predicates", "sim_check"):
             assert counts[f"{fam}_{k}"] > 0 or (fam, k) == ("joint", "predicates"), (fam, k)
+
+
+# ---------------- KRaftWithReconfig (kreconfig_* and slot_canon) ----------------
+
+def kreconfig_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
+    """Reachable KRaftWithReconfig states ``st`` and edge cases built from
+    them: copies with three random view lanes set to small values (half
+    with a restart left); copies where every used slot is a voting member
+    able to start an election or to win one, their bags full or one or two
+    slots short (random keys), so the RequestVote and BeginQuorum chains
+    overflow partway; copies with every log at max_log and no value acked
+    (ClientRequest, HandleRemoveRequest, AcceptJoinRequest and an accepted
+    entry overflow it); scrambled copies (random states, roles, epochs,
+    leaders, votes, pending fetches, configs, endOffset rows, logs of every
+    command, hwm and acks) whose bags hold records of all seven types built
+    from the row (a destination slot and its epoch, FetchResponses mostly
+    carrying the destination's own pending fetch as their correlation, joins
+    from observers outside the config), so that every receipt arm fires;
+    and the same scrambled rows with every count at 0."""
+    rng = np.random.default_rng(seed)
+    lay, p, pk = model.layout, model.p, model.packer
+    NS, L, V, M, NW, E = (model.NS, p.max_log, p.n_values, p.msg_slots, model.n_words,
+                          p.max_epoch)
+    ws = [lay.sl(f"msg_w{k}") for k in range(NW)]
+    cs = lay.sl("msg_cnt")
+    off = {n: lay.fields[n].offset for n in lay.fields}
+
+    def put_bag(r, keys, free=0):
+        keys = sorted(set(keys))[: M - free]
+        bag = np.full((NW + 1, M), EMPTY)
+        bag[NW] = 0
+        if keys:
+            bag[:NW, :len(keys)] = np.array(keys).T
+            bag[NW, :len(keys)] = rng.integers(0, 3, len(keys))
+        for k in range(NW):
+            r[ws[k]] = bag[k]
+        r[cs] = bag[NW]
+
+    def own_keys(r):
+        return set(zip(*(r[w].tolist() for w in ws))) - {(EMPTY,) * NW}
+
+    pert = st.copy()
+    for r in pert:
+        r[rng.integers(0, lay.view_len, 3)] = rng.integers(-1, 7, 3)
+    pert[::2, off["restartCtr"]] = 0
+    chain = st[:64].copy()
+    for r in chain:
+        used = r[lay.sl("used")] > 0
+        mask = int(sum(1 << i for i in range(NS) if used[i]))
+        r[lay.sl("role")] = np.where(used, 1, 0)
+        r[lay.sl("state")] = np.where(used, rng.choice([2, 3, 0], NS), 0)
+        r[lay.sl("cfg_members")] = np.where(used, mask, 0)
+        r[lay.sl("votesGranted")] = np.where(rng.random(NS) < 0.5, mask, 0)
+        r[off["electionCtr"]] = 0
+        keys = own_keys(r)
+        free = int(rng.integers(0, 3))
+        while len(keys) < M - free:
+            keys.add(tuple(int(x) for x in rng.integers(0, 1 << 20, NW)))
+        put_bag(r, keys, free)
+    maxlog = st[:64].copy()
+    maxlog[:, lay.sl("log_len")] = L
+    maxlog[:, lay.sl("acked")] = 0
+    maxlog[:, lay.sl("highWatermark")] = L
+    maxlog[:, lay.sl("cfg_committed")] = 1
+    maxlog[:, off["removeCtr"]] = 0
+
+    scr = st[:96].copy()
+    bits = {f: b for f, (_o, b) in pk.fields.items()}
+    for r in scr:
+        used = r[lay.sl("used")] > 0
+        slots = np.flatnonzero(used)
+        mask = int(sum(1 << i for i in slots))
+        g = lambda n: r[lay.sl(n)]  # noqa: E731
+        r[lay.sl("state")] = np.where(used, rng.choice([0, 1, 2, 3, 4, 4, 5, 6, 7], NS), 0)
+        r[lay.sl("role")] = np.where(used, rng.choice([1, 1, 2, 3], NS), 0)
+        r[lay.sl("currentEpoch")] = rng.integers(0, E + 1, NS)
+        r[lay.sl("leader")] = rng.integers(0, NS + 1, NS)
+        r[lay.sl("votedFor")] = rng.integers(0, NS + 1, NS)
+        r[lay.sl("votesGranted")] = rng.integers(0, mask + 1, NS) & mask
+        r[lay.sl("cfg_id")] = rng.integers(0, p.max_cfg_id + 1, NS)
+        r[lay.sl("cfg_members")] = rng.integers(0, mask + 1, NS) & mask
+        r[lay.sl("cfg_committed")] = rng.integers(0, 2, NS)
+        r[lay.sl("eo_dom")] = rng.integers(0, mask + 1, NS) & mask
+        r[lay.sl("endOffset")] = rng.integers(0, L + 1, NS * NS)
+        r[lay.sl("log_len")] = rng.integers(0, L + 1, NS)
+        r[lay.sl("log_cmd")] = rng.choice([1, 2, 2, 3, 4], NS * L)
+        r[lay.sl("log_epoch")] = np.sort(rng.integers(0, E + 1, (NS, L)), axis=1).reshape(-1)
+        r[lay.sl("log_val")] = rng.integers(0, V + 1, NS * L)
+        r[lay.sl("log_cfgid")] = rng.integers(0, p.max_cfg_id + 1, NS * L)
+        r[lay.sl("log_who")] = rng.integers(0, NS + 1, NS * L)
+        r[lay.sl("log_members")] = rng.integers(0, mask + 1, NS * L) & mask
+        r[lay.sl("highWatermark")] = rng.integers(0, L + 1, NS)
+        r[lay.sl("acked")] = rng.integers(0, 3, V)
+        pf = rng.random(NS) < 0.6
+        r[lay.sl("pf_active")] = pf
+        r[lay.sl("pf_epoch")] = np.where(pf, rng.integers(0, E + 1, NS), 0)
+        r[lay.sl("pf_offset")] = np.where(pf, rng.integers(0, L + 1, NS), 0)
+        r[lay.sl("pf_lastepoch")] = np.where(pf, rng.integers(0, E + 1, NS), 0)
+        r[lay.sl("pf_dest")] = np.where(pf, rng.integers(1, NS + 1, NS), 0)
+        r[lay.sl("pf_observer")] = np.where(pf, rng.integers(0, 2, NS), 0)
+        keys = set()
+        for _ in range(int(rng.integers(1, M // 2))):
+            dst = int(rng.choice(slots))
+            src = int(rng.integers(0, NS))
+            ep = int(np.clip(g("currentEpoch")[dst] + rng.choice([-1, 0, 0, 0, 1]), 0, E))
+            vals = {f: int(rng.integers(0, 1 << b)) for f, b in bits.items()}
+            vals.update(mtype=int(rng.integers(1, 8)), mepoch=ep, mdest=dst, msource=src,
+                        merror=int(rng.choice([0, 0, 0, 1, 2, 3, 4, 5])),
+                        mresult=int(rng.choice([1, 1, 2, 3])),
+                        mfetchOffset=int(rng.integers(0, L + 1)),
+                        mlastFetchedEpoch=int(rng.integers(0, E + 1)),
+                        e_cmd=int(rng.integers(1, 5)))
+            if vals["mtype"] == 5 and g("pf_active")[dst] and rng.random() < 0.8:
+                vals.update(cepoch=int(g("pf_epoch")[dst]), cfetchOffset=int(g("pf_offset")[dst]),
+                            clastFetchedEpoch=int(g("pf_lastepoch")[dst]),
+                            cobserver=int(g("pf_observer")[dst]),
+                            msource=int(g("pf_dest")[dst]) - 1)
+            if vals["mtype"] == 4 and rng.random() < 0.5:  # a fetch the leader accepts
+                ll, lt = int(g("log_len")[dst]), g("log_epoch").reshape(NS, L)[dst]
+                k = int(rng.integers(0, ll + 1))
+                vals.update(mfetchOffset=k, mlastFetchedEpoch=int(lt[k - 1]) if k else 0)
+            vals = {f: v & ((1 << bits[f]) - 1) for f, v in vals.items()}
+            if vals["msource"] != vals["mdest"]:
+                keys.add(pk.pack(**vals))
+        put_bag(r, keys)
+    zero = scr.copy()
+    zero[:, cs] = 0
+    return np.ascontiguousarray(np.concatenate([st, pert, chain, maxlog, scr, zero]).astype(
+        np.int32))
+
+
+# the reference tests' SMALLP constants (tests/test_kraft_reconfig.py:199-204)
+# and the 428-state liveness universe (tests/test_liveness_families.py:151-156)
+KRECONFIG_P = dict(n_hosts=3, n_values=1, init_cluster_size=2, min_cluster_size=2,
+                   max_cluster_size=3, max_elections=1, max_restarts=1, max_values_per_epoch=1,
+                   max_add_reconfigs=1, max_remove_reconfigs=1, max_spawned_servers=4,
+                   msg_slots=24)
+KRECONFIG_LIVE_P = dict(KRECONFIG_P, n_hosts=2, max_cluster_size=2, max_restarts=0,
+                        max_spawned_servers=2)
+KRECONFIG_INV = ("NoIllegalState", "NoLogDivergence", "NeverTwoLeadersInSameEpoch",
+                 "LeaderHasAllAckedValues", "StatesMatchRoles")
+
+
+def _kreconfig_model(**kw):
+    from raft_tpu_torch.models.kraft_reconfig import KRaftReconfigModel, KRaftReconfigParams
+
+    return KRaftReconfigModel(KRaftReconfigParams(**dict(KRECONFIG_P, **kw)))
+
+
+def test_kreconfig_guard_apply_fold(dev):
+    """kreconfig_guard, kreconfig_apply and kreconfig_fold against their
+    plain versions on reachable rows (the card's own BFS frontiers, through
+    slot_canon) and kreconfig_edge_rows: a dead chunk tail, every valid lane
+    then drop lanes and lanes of disabled candidates, and the fold with
+    coverage; no other family's kernel and no canon_memo."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.models import kraft_reconfig as kr
+
+    model = _kreconfig_model()
+    base = _kraft_states(model, dev, depths=range(3, 9))
+    states = torch.from_numpy(kreconfig_edge_rows(model, base, seed=5)).to(dev)
+    C, A = states.shape[0], model.A
+    K = len(model.ACTION_NAMES)
+    cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
+    cov_p = cov_k.clone()
+    before = kernels.launch_counts()
+    gk = guard(model, states, C - 7, cov_k)
+    gp = guard_plain(model, states, C - 7, cov_p)
+    for a, b in zip(gk, gp):
+        assert torch.equal(a, b)
+    assert torch.equal(cov_k, cov_p)
+    valid, rank, ovf, _ = gk
+    for r in (kr.KR_REQUESTVOTE, kr.KR_CLIENTREQUEST, kr.KR_ACCEPT_JOIN):
+        assert bool((valid & ovf & (rank == r)).any()), r
+    assert set(torch.unique(rank[valid]).tolist()) == set(range(K))
+    sel, _n = compact_indices(valid.reshape(-1), int(valid.sum()) + 300, C * A)
+    other = torch.randint(0, C * A, (500,), device=dev, dtype=torch.int32)
+    for s in (sel, other, sel[:0]):
+        s = s.contiguous()
+        fk, fp = apply(model, states, s), apply_plain(model, states, s)
+        assert fk.shape == (s.numel(), model.layout.W) and torch.equal(fk, fp)
+    flatc = apply(model, states, sel)
+    new = (torch.rand(sel.numel(), device=dev) < 0.7) & (sel < C * A)
+    jcount = torch.tensor([777], dtype=torch.int64, device=dev)
+    invs = tuple(model.invariants)
+    vk_, vp_ = (torch.full((len(invs),), 2**31 - 1, dtype=torch.int64, device=dev)
+                for _ in range(2))
+    ck, cp = cov_k.clone(), cov_k.clone()
+    fold(model, flatc, new, jcount, vk_, invs, cov=ck, sel=sel, valid=valid, rank=rank)
+    fold_plain(model, flatc, new, jcount, vp_, invs, cov=cp, sel=sel, valid=valid, rank=rank)
+    assert torch.equal(vk_, vp_) and torch.equal(ck, cp)
+    after = kernels.launch_counts()
+    for k in ("guard", "apply", "fold"):
+        assert after[f"kreconfig_{k}"] > before[f"kreconfig_{k}"], k
+    for k in ("raft_guard", "pull_guard", "kraft_guard", "reconfig_guard", "joint_guard",
+              "canon_memo", "canon_tiered"):
+        assert after[k] == before[k], k
+
+
+def test_kreconfig_predicates_and_sim_check(dev):
+    """kreconfig_predicates on edge rows (every invariant and every
+    ValuesNotStuck / ReconfigurationNotStuck predicate), and
+    kreconfig_sim_check's check and settle, against their plain versions."""
+    from raft_tpu_torch.ops.expand import predicates, predicates_plain, sim_check, sim_check_plain
+
+    model = _kreconfig_model()
+    base = _kraft_states(model, dev, depths=range(3, 9))
+    states = torch.from_numpy(kreconfig_edge_rows(model, base, seed=6)).to(dev)
+    names = tuple(model.invariants) + tuple(model.predicates)
+    for rows in (states, states[:0], states[:1]):
+        rows = rows.contiguous()
+        assert torch.equal(predicates(model, rows, names), predicates_plain(model, rows, names))
+    R = states.shape[0]
+    gen = torch.Generator().manual_seed(2)
+    nxt = states[torch.randperm(R, generator=gen).to(dev)].contiguous()
+    moved = (torch.rand(R, generator=gen) < 0.8).to(dev)
+    nxt[~moved] = 0
+    chosen = torch.randint(0, model.A, (R,), generator=gen, dtype=torch.int32).to(dev)
+    init_pool = states[:3].contiguous()
+    ridx = torch.randint(0, 3, (R,), generator=gen, dtype=torch.int32).to(dev)
+    depth = torch.randint(0, 6, (R,), generator=gen, dtype=torch.int32).to(dev)
+    journal = torch.randint(0, 99, (R, 7), generator=gen, dtype=torch.int32).to(dev)
+    jlen = (depth + 1).contiguous()
+    jlen[::11] = 7
+    for invs in (KRECONFIG_INV, tuple(model.invariants), ()):
+        outs = []
+        for fn in (sim_check, sim_check_plain):
+            args = [t.clone() for t in (nxt, depth, journal, jlen)]
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            res = fn(model, states, args[0], moved, chosen, ridx, init_pool, args[1], 6,
+                     args[2], args[3], invs, stats)
+            outs.append(list(res) + args + [stats[2:]])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_values", [1, 2])
+def test_slot_canon(dev, n_values):
+    """slot_canon against its plain version on reachable rows, their
+    successors and edge rows, symmetry on and off, seeds 0 and 3, with and
+    without a valid mask; a host- and value-permuted copy (a pair's
+    remapped, slot-sorted rows) keeps its fingerprint."""
+    from raft_tpu_torch.ops.expand import apply
+
+    model = _kreconfig_model(n_values=n_values)
+    base = _kraft_states(model, dev, depths=range(3, 8))
+    rows = torch.from_numpy(np.concatenate([base, kreconfig_edge_rows(model, base, seed=7)])).to(
+        dev)
+    valid = torch.rand(rows.shape[0], device=dev) < 0.8
+    for symmetry in (True, False):
+        for seed in (0, 3):
+            canon = model.make_canonicalizer(symmetry, seed=seed)
+            for v in (None, valid):
+                fk = canon.fingerprints(rows, v)
+                fp = canon.fingerprints(rows.cpu(), None if v is None else v.cpu())
+                assert torch.equal(fk.cpu(), fp), (symmetry, seed)
+    canon = model.make_canonicalizer(True)
+    reach = torch.from_numpy(base).to(dev)
+    fps = canon.fingerprints(reach)
+    for k in range(canon.P):
+        perm = canon.canon_rows(reach.cpu(), k).to(dev)
+        assert torch.equal(canon.fingerprints(perm), fps), k
+
+
+def test_kreconfig_bfs_simulate_liveness_card_equal_cpu(dev):
+    """KRaftWithReconfig at the SMALLP constants by BFS to depth 5 (counts,
+    depth counts, coverage; symmetry on and off) and by simulation (walks,
+    final states, journals), and the 428-state liveness universe (states,
+    edges, verdict): the card equals the CPU, through the family's kernels
+    and slot_canon."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+    from raft_tpu_torch.checker.liveness import LivenessChecker
+    from raft_tpu_torch.checker.simulate import Simulator
+
+    caps = dict(chunk=256, frontier_cap=1 << 13, journal_cap=1 << 15, max_seen_cap=1 << 20)
+    kernels.reset_counts()
+    for symmetry in (True, False):
+        rs = [DeviceBFS(_kreconfig_model(), invariants=KRECONFIG_INV, symmetry=symmetry,
+                        device=d, **caps).run(max_depth=5) for d in (dev, "cpu")]
+        assert (rs[0].distinct, rs[0].total, rs[0].depth_counts, rs[0].coverage,
+                rs[0].violation) == (rs[1].distinct, rs[1].total, rs[1].depth_counts,
+                                     rs[1].coverage, rs[1].violation)
+    sims = [Simulator(_kreconfig_model(msg_slots=40), invariants=KRECONFIG_INV, walks=32,
+                      max_behavior_depth=20, seed=4, device=d) for d in (dev, "cpu")]
+    ss = [s.run(max_steps=32 * 20) for s in sims]
+    assert (ss[0].behaviors, ss[0].steps, ss[0].violation) == (
+        ss[1].behaviors, ss[1].steps, ss[1].violation)
+    for a in ("states", "depth", "journal", "jlen"):
+        assert torch.equal(getattr(sims[0], a).cpu(), getattr(sims[1], a))
+    from raft_tpu_torch.models.kraft_reconfig import KRaftReconfigModel, KRaftReconfigParams
+
+    props = ("ValuesNotStuck", "ReconfigurationNotStuck")
+    lv = [LivenessChecker(KRaftReconfigModel(KRaftReconfigParams(**KRECONFIG_LIVE_P)), props,
+                          chunk=256, device=d) for d in (dev, "cpu")]
+    lr = [c.run() for c in lv]
+    assert (lr[0].distinct, lr[0].total_edges, lr[0].violation) == (
+        lr[1].distinct, lr[1].total_edges, lr[1].violation)
+    assert lr[0].violation is None and lr[0].distinct == 428
+    for a in ("_esrc", "_edst", "_ecand"):
+        assert np.array_equal(getattr(lv[0], a), getattr(lv[1], a))
+    counts = kernels.launch_counts()
+    for k in ("guard", "apply", "fold", "predicates", "sim_check"):
+        assert counts[f"kreconfig_{k}"] > 0, k
+    assert counts["slot_canon"] > 0 and counts["canon_memo"] == counts["canon_tiered"] == 0
