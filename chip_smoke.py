@@ -482,6 +482,82 @@ JOINT_CAPS = dict(RECONFIG_CAPS, max_frontier_cap=9_502_720)
 CONFIG_SIM_MOVES = 100
 CONFIG_SMALL_SIM = (64, 20)  # the card-against-CPU simulate: walks, moves
 
+# KRaftWithReconfig (phases 3, 4g, 6, 7f, 8d): the reference cfg's constants
+# as SURVEY.md:96 records them (its Value = {v1, v2} names the undeclared v2,
+# which the lenient parse declares), with MaxElections 2 (KRaft.cfg's,
+# SURVEY.md:95) standing in for the value the repo does not record;
+# SYMMETRY symmHostsAndValues, the cfg's five invariants, 40 message slots
+# (the registry's default): NS = 5 identity slots, W = 479, A = 145, 3-word
+# keys, 12 (sigma, tau) canon pairs
+KRAFT_RECONFIG_CFG = """\
+\\* pull-raft/KRaftWithReconfig.cfg
+CONSTANTS
+    n1 = n1
+    n2 = n2
+    n3 = n3
+    v1 = v1
+    Hosts = { n1, n2, n3 }
+    Value = { v1, v2 }
+    InitClusterSize = 3
+    MinClusterSize = 2
+    MaxClusterSize = 4
+    MaxSpawnedServers = 5
+    MaxElections = 2
+    MaxRestarts = 1
+    MaxValuesPerEpoch = 1
+    MaxAddReconfigs = 1
+    MaxRemoveReconfigs = 1
+INIT Init
+NEXT Next
+VIEW view
+SYMMETRY symmHostsAndValues
+INVARIANT
+    LeaderHasAllAckedValues
+    NoLogDivergence
+    NeverTwoLeadersInSameEpoch
+    NoIllegalState
+    StatesMatchRoles
+"""
+# the card-against-CPU runs: manifests/kraft_reconfig_sim.json's constants
+# (the reference tests' SMALLP, tests/test_kraft_reconfig.py:199-204)
+KRECONFIG_SMALL_CFG = KRAFT_RECONFIG_CFG.replace("Value = { v1, v2 }", "Value = { v1 }").replace(
+    "InitClusterSize = 3", "InitClusterSize = 2").replace(
+    "MaxClusterSize = 4", "MaxClusterSize = 3").replace(
+    "MaxSpawnedServers = 5", "MaxSpawnedServers = 4").replace(
+    "MaxElections = 2", "MaxElections = 1")
+KRECONFIG_SMALL_DEPTH = 4
+# the liveness universe of tests/test_liveness_families.py:151-156 (428
+# states) with both of the spec's properties (phase 8d)
+KRECONFIG_LIVE_CFG = KRECONFIG_SMALL_CFG.replace("    n3 = n3\n", "").replace(
+    "{ n1, n2, n3 }", "{ n1, n2 }").replace("MaxClusterSize = 3", "MaxClusterSize = 2").replace(
+    "MaxRestarts = 1", "MaxRestarts = 0").replace(
+    "MaxSpawnedServers = 4", "MaxSpawnedServers = 2") + (
+    "PROPERTY\n    ValuesNotStuck\n    ReconfigurationNotStuck\n")
+KRECONFIG_LIVE_PIN = dict(states=428, edges=544)  # the reference's LivenessChecker
+# the reference's dense DeviceBFS of KRAFT_RECONFIG_CFG through depth 8
+# (scripts/pin_kraft_reconfig_counts.py; the space does not exhaust)
+KRECONFIG_PIN = dict(
+    depth_counts=[1, 9, 65, 406, 2119, 9401, 37413, 139080, 490500],
+    distinct=678_994, total=1_774_806, terminal=0, exhausted=False,
+    coverage=[[45417, 197426, 37258], [123297, 235360, 15798], [137590, 294941, 184433],
+              [74285, 91413, 69947], [7616, 7616, 6153], [74596, 152461, 17659],
+              [147641, 220517, 113073], [4, 4, 4], [46369, 52724, 50257],
+              [2863, 2863, 2732], [5363, 9407, 8134], [107125, 153303, 27140],
+              [17682, 18247, 14991], [0, 0, 0], [57107, 61972, 52657],
+              [40415, 125040, 29371], [15635, 15740, 13834], [1601, 1601, 1583],
+              [300, 300, 297], [31, 31, 31], [44613, 133839, 33641]],
+)
+# the card's BFS depth (4g): depth 11, 23,965,041 distinct in about 10 s,
+# its frontier 16,335,799 rows of 1,916 bytes held twice (depth 12's, about
+# 3x that, would not fit 80 GB); the frontier cap a power of two above it.
+# Phase 3 samples the same, widest, wave; the simulate's moves (7f; the
+# card-against-CPU run takes the manifest's 128 walks)
+KRECONFIG_DEPTH = 11
+KRECONFIG_SAMPLE_DEPTH = 11
+KRECONFIG_CAPS = dict(max_frontier_cap=1 << 24, max_seen_cap=1 << 26, max_journal_cap=1 << 26)
+KRECONFIG_SIM_MOVES = 100
+KRECONFIG_SMALL_SIM = (128, 20)
+
 # (distinct, total, depth, terminal) of Raft.cfg: exhausted, and at depth
 # 20 (the sample and trace runs), pinned from the reference's dense path
 EXHAUSTED = (8_664_032, 30_708_266, 48, 19_514)
@@ -492,6 +568,8 @@ MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 # lanes behind the 67 TFLOP/s float32 rate (an upper rate, so a lower bound)
 INT32_OPS = 33.5e12
 CHUNK = 4096
+# the most frontier rows phase 3 copies to the host from one sampled wave
+POOL_ROWS = 1 << 21
 # device kernel names of each hand-written kernel (csrc/*.cu)
 KERNEL_NAMES = {
     "canon_memo": ("canon_memo_kernel", "memo_insert_kernel"),
@@ -518,7 +596,8 @@ KERNEL_NAMES = {
     "kraft_fold": ("kraft_fold_lanes", "kraft_fold_viol"),
     "kraft_predicates": ("kraft_predicates_kernel",),
     "kraft_sim_check": ("kraft_sim_check_kernel",),
-    **{f"{fam}_{role}": names for fam in ("reconfig", "joint") for role, names in (
+    "slot_canon": ("slot_canon_kernel",),
+    **{f"{fam}_{role}": names for fam in ("reconfig", "joint", "kreconfig") for role, names in (
         ("guard", (f"{fam}_guard_kernel",)), ("apply", (f"{fam}_apply_kernel",)),
         ("fold", (f"{fam}_fold_lanes", f"{fam}_fold_viol")),
         ("predicates", (f"{fam}_predicates_kernel",)),
@@ -532,6 +611,8 @@ PULL_PATH = tuple(k.replace("raft_", "pull_") for k in RAFT3_PATH)
 KRAFT_PATH = tuple(k.replace("raft_", "kraft_") for k in RAFT3_PATH)
 RECONFIG_PATH = tuple(k.replace("raft_", "reconfig_") for k in RAFT3_PATH)
 JOINT_PATH = tuple(k.replace("raft_", "joint_") for k in RAFT3_PATH)
+KRECONFIG_PATH = ("slot_canon",) + tuple(k.replace("raft_", "kreconfig_")
+                                         for k in RAFT3_PATH[1:])
 # state fields the invariants of the cfgs here read (NoLogDivergence,
 # LeaderHasAllAckedValues; KRaft.cfg's also NeverTwoLeadersInSameEpoch and
 # NoIllegalState): the part of a row a family's fold must load
@@ -542,6 +623,9 @@ FOLD_FIELDS = {"raft": INVARIANT_FIELDS, "pull": INVARIANT_FIELDS,
 for _fam, _extra in (("reconfig", ("cmem", "cmembers")), ("joint", ("old", "new", "members"))):
     FOLD_FIELDS[_fam] = ("currentTerm", "state", "commitIndex", "log_len", "acked") + tuple(
         f"log_{n}" for n in ("term", "cmd", "val", "cid") + _extra)
+FOLD_FIELDS["kreconfig"] = ("used", "state", "role", "leader", "currentEpoch", "highWatermark",
+                            "acked") + tuple(f"log_{n}" for n in (
+                                "cmd", "epoch", "val", "cfgid", "who", "members"))
 # and the liveness predicate ValueAllOrNothing (raft_predicates)
 LIVENESS_FIELDS = ("electionCtr", "state", "log_value", "log_len")
 # the kernels of the simulate and liveness paths (simulate's
@@ -576,6 +660,16 @@ JOINT_FAM = dict(RECONFIG_FAM, prefix="joint", tag="4f", sim_tag="7e", cfg=JOINT
                  small=("RaftWithReconfigJointConsensus", CONFIG_SMALL_DEPTH),
                  small_cfg=JOINT_SMALL_CFG, path=JOINT_PATH, depth=JOINT_DEPTH, caps=JOINT_CAPS,
                  violation=None)
+# KRaftWithReconfig: its own family (kreconfig_* and the slot canon), run to a
+# depth, with the card against the CPU at the SMALLP constants, symmetry on
+# and off
+KRECONFIG_FAM = dict(prefix="kreconfig", tag="4g", sim_tag="7f", cfg=KRAFT_RECONFIG_CFG,
+                     lenient=True,
+                     specs=(("KRaftWithReconfig", KRECONFIG_PIN, KRECONFIG_SAMPLE_DEPTH),),
+                     small=("KRaftWithReconfig", KRECONFIG_SMALL_DEPTH),
+                     small_cfg=KRECONFIG_SMALL_CFG, small_nosym=True, path=KRECONFIG_PATH,
+                     depth=KRECONFIG_DEPTH, caps=KRECONFIG_CAPS, second_chunk=CHUNK // 2,
+                     sim_moves=KRECONFIG_SIM_MOVES, small_sim=KRECONFIG_SMALL_SIM, violation=None)
 # integer operations of one threefry2x32 block: 20 rounds of an add, a
 # rotate (two shifts and an or) and a xor, and 6 key injections of 3 adds
 THREEFRY_OPS = 20 * 5 + 6 * 3
@@ -683,7 +777,22 @@ def expand_puts(torch, model, batch, valid, rank):
     puts = puts + (valid & mask(("RequestVotePair", "AppendEntries",
                                  "SendPullEntriesRequest"))).sum()
     fam = family_of(model)
-    if fam in ("reconfig", "joint"):
+    if fam == "kreconfig":
+        from raft_tpu_torch.models import kraft_reconfig as kr
+
+        # RequestVote and BecomeLeader put one request per other member of
+        # the sender's config; SendFetchRequest, StartNewServer and
+        # SendJoinRequest one each
+        members = model.layout.get(batch, "cfg_members")  # [C, NS]
+        sizes = ((members.unsqueeze(-1) >> torch.arange(S, device=dev)) & 1).sum(-1)
+        puts = (valid & mask(("SendFetchRequest", "StartNewServer", "SendJoinRequest"))).sum()
+        for group in ("RequestVote", "BecomeLeader"):
+            off = names.index(group)
+            puts = puts + (valid[:, off:off + S] * (sizes - 1).clamp(min=0)).sum()
+        replies = (kr.KR_HANDLE_RVREQ, kr.KR_REJECT_FETCH, kr.KR_DIVERGING_FETCH,
+                   kr.KR_ACCEPT_FETCH_VOTER, kr.KR_ACCEPT_FETCH_OBSERVER, kr.KR_ACCEPT_JOIN,
+                   kr.KR_REJECT_JOIN)
+    elif fam in ("reconfig", "joint"):
         from raft_tpu_torch.models import config_common as cc
 
         # RequestVote puts one request per member but itself: recount
@@ -751,7 +860,7 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
     flatc = apply(model, batch, sel)
     errs.append(exact(torch, flatc, apply_plain(model, batch, sel)))
     memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
-    fps, _ = bfs.canon.fingerprints_memo(flatc, sel < C * A, memo)
+    fps, _ = bfs._st_canon(flatc, sel < C * A, memo)
     new, _ = bfs._st_dedup(fps, [bfs._seen])
     jcount = torch.tensor([123_456], dtype=torch.int64, device=dev)
     invs = bfs.invariants
@@ -1083,10 +1192,16 @@ def edge_pool(model, pool, rng) -> np.ndarray:
     For a family whose records carry the Nil-able ``mleader`` (KRaft), also
     copies whose responses name a random leader or Nil. A reconfiguration
     spec's rows are tests/test_torch_kernels_cuda.py's config_edge_rows of
-    them (every receipt arm, snapshots, config appends)."""
+    them (every receipt arm, snapshots, config appends), KRaftWithReconfig's
+    its kreconfig_edge_rows (every receipt arm, full bags, logs at max_log,
+    spawned servers' first fetches and joins)."""
     from raft_tpu_torch.ops.packing import EMPTY
 
     base = pool[rng.integers(0, len(pool), 1024)]
+    if family_of(model) == "kreconfig":
+        from test_torch_kernels_cuda import kreconfig_edge_rows
+
+        return kreconfig_edge_rows(model, base, seed=int(rng.integers(0, 1 << 20)))
     if "msg_w0" in model.layout.fields:  # the reconfiguration specs' N-word bags
         from test_torch_kernels_cuda import config_edge_rows
 
@@ -1281,6 +1396,45 @@ def canon_memo_rows(torch, bfs, flatc, selv):
           f"copies (the message remap {canon.spec}); cold {ms:.4f} ms")
 
 
+def slot_canon_rows(torch, bfs, flatc, selv) -> dict:
+    """slot_canon against its plain version (PyTorch on the card) on a
+    chunk's successor rows as the path calls it (the worklist with its
+    valid mask), exactly, symmetry on and off; the valid rows' host- and
+    value-permuted copies (each (sigma, tau) pair's remapped, slot-sorted
+    rows) keep their fingerprints. Timed on the chunk, with its bound: the
+    valid rows' view lanes and the mask read, the fingerprints written,
+    against about 24 INT32 operations a lane of each pair's hash, its
+    M x M x NW bag rank compares and 3 a lane of its view build."""
+    model, dev = bfs.model, flatc.device
+    canon = bfs.canon
+    errs = []
+    for symmetry in (True, False):
+        c = model.make_canonicalizer(symmetry)
+        errs.append(exact(torch, c.fingerprints_cuda(flatc, selv),
+                          torch.where(selv, c.fingerprints_plain(flatc), (1 << 63) - 1)))
+    check(max(errs) == 0.0, "slot_canon differs from its plain version")
+    base = flatc[selv]
+    n = base.shape[0]
+    parts = torch.arange(n, device=dev) % (canon.P - 1) + 1  # each row under one other pair
+    perm = base.clone()
+    for k in range(1, canon.P):
+        pick = parts == k
+        perm[pick] = canon.canon_rows(base[pick], k)
+    check(torch.equal(canon.fingerprints(perm), canon.fingerprints(base)),
+          "slot_canon: permuted copies changed their fingerprints")
+    VL, M, NW = model.layout.view_len, model.p.msg_slots, model.n_words
+    nb = flatc.shape[0]
+    b, by = bound(n * VL * 4 + nb + nb * 8, n * canon.P * (24 * VL + 2 * NW * M * M + 3 * VL))
+    row = dict(ms=time_ms(torch, lambda: canon.fingerprints(flatc, selv), iters=20),
+               plain_ms=time_ms(torch, lambda: canon.fingerprints_plain(base), iters=3),
+               bound_ms=b, bound_by=by, library_ms=None, max_abs_err=max(errs), rows=n,
+               pairs=canon.P)
+    print(f"[3] {model.name}: slot_canon exact on {n} valid successor rows of {nb} lanes "
+          f"(symmetry on, {canon.P} pairs, and off) and their permuted copies; "
+          f"{row['ms']:.4f} ms")
+    return {"slot_canon": row}
+
+
 def family_kernel_rows(torch, rng, fam) -> dict:
     """Phase 3 for a spec family: its guard, apply, fold, sim_check and
     predicates against their plain versions, exactly, on a CHUNK of
@@ -1299,15 +1453,22 @@ def family_kernel_rows(torch, rng, fam) -> dict:
         n = min(depth + 1, len(pin["depth_counts"]))
         check(res.depth_counts[:n] == pin["depth_counts"][:n],
               f"{spec} sample depth counts {res.depth_counts}")
-        pool = bfs.frontier_rows.cpu().numpy()
-        print(f"[3] sampled the depth-{depth} {spec} frontier ({len(pool)} states) in "
-              f"{time.perf_counter() - t:.1f} s")
+        fr = bfs.frontier_rows
+        if fr.shape[0] > POOL_ROWS:  # a wide wave: a random sample of it
+            fr = fr[torch.randperm(fr.shape[0], device=fr.device)[:POOL_ROWS]]
+        pool = fr.cpu().numpy()
+        print(f"[3] sampled the depth-{depth} {spec} frontier ({bfs.frontier_rows.shape[0]} "
+              f"states; {len(pool)} kept) in {time.perf_counter() - t:.1f} s")
+        del fr
         rows.update(expand_kernels(torch, bfs, pool, rng, timed=k == 0))
         edge = edge_pool(bfs.model, pool, rng)
         expand_kernels(torch, bfs, edge, rng, timed=False)
         if k == 0:
             flatc, selv, _fps, _fresh = chunk_lanes(torch, bfs, pool, rng)
-            canon_memo_rows(torch, bfs, flatc, selv)
+            if "fingerprints_memo" in dir(bfs.canon):
+                canon_memo_rows(torch, bfs, flatc, selv)
+            else:  # KRaftWithReconfig's slot canon, timed
+                rows.update(slot_canon_rows(torch, bfs, flatc, selv))
         batch = torch.from_numpy(np.ascontiguousarray(
             pool[rng.integers(0, len(pool), CHUNK)])).to(bfs.device)
         step_rows(torch, bfs.model, batch, rng)
@@ -1437,17 +1598,23 @@ def family_main_phase(torch, fam) -> dict:
             report["second_chunk"] = {"chunk": fam["second_chunk"], "seconds": wall2}
             del bfs2
     spec, depth = fam["small"]
-    runs = {}
-    for d in ("cuda", "cpu"):
-        t = time.perf_counter()
-        runs[d] = (run_family(fam, spec, d, depth, chunk=1024, text=fam.get("small_cfg"))[2],
-                   time.perf_counter() - t)
-    (sg, t_card), (sc, t_cpu) = runs["cuda"], runs["cpu"]
-    check((sg.distinct, sg.total, sg.terminal, sg.depth_counts, sg.coverage)
-          == (sc.distinct, sc.total, sc.terminal, sc.depth_counts, sc.coverage),
-          f"{spec}: card and CPU differ")
-    print(f"[{tag}] {spec} to depth {depth}: distinct={sg.distinct} total={sg.total}, depth "
-          f"counts and coverage: card == CPU (card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
+    small = fam.get("small_cfg") or fam["cfg"]
+    texts = {"": small}
+    if fam.get("small_nosym"):  # and with the SYMMETRY line taken out
+        texts[" (symmetry off)"] = "\n".join(
+            ln for ln in small.splitlines() if not ln.startswith("SYMMETRY")) + "\n"
+    for what, text in texts.items():
+        runs = {}
+        for d in ("cuda", "cpu"):
+            t = time.perf_counter()
+            runs[d] = (run_family(fam, spec, d, depth, chunk=1024, text=text)[2],
+                       time.perf_counter() - t)
+        (sg, t_card), (sc, t_cpu) = runs["cuda"], runs["cpu"]
+        check((sg.distinct, sg.total, sg.terminal, sg.depth_counts, sg.coverage)
+              == (sc.distinct, sc.total, sc.terminal, sc.depth_counts, sc.coverage),
+              f"{spec}{what}: card and CPU differ")
+        print(f"[{tag}] {spec} to depth {depth}{what}: distinct={sg.distinct} total={sg.total}, "
+              f"depth counts and coverage: card == CPU (card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
     report["phase_s"] = time.perf_counter() - t0
     print(json.dumps({f"{fam['prefix']}_run": report}))
     return report
@@ -1556,10 +1723,11 @@ def counted(torch, fn):
     from raft_tpu_torch import kernels
     from raft_tpu_torch.models.config_common import ConfigRaftCommon
     from raft_tpu_torch.models.kraft import KRaftModel
+    from raft_tpu_torch.models.kraft_reconfig import KRaftReconfigModel
     from raft_tpu_torch.models.pull_raft import PullRaftModel
     from raft_tpu_torch.models.raft import RaftModel
 
-    models = (RaftModel, PullRaftModel, KRaftModel, ConfigRaftCommon)
+    models = (RaftModel, PullRaftModel, KRaftModel, ConfigRaftCommon, KRaftReconfigModel)
     calls = {"expand": 0, "sort": 0}
     saved = {"expand": tuple(m.expand for m in models),
              "sort": (torch.sort, torch.argsort, torch.Tensor.sort, torch.Tensor.argsort)}
@@ -1978,6 +2146,60 @@ def reconfig_liveness_phase(torch) -> dict:
     return report
 
 
+def kreconfig_liveness_phase(torch) -> dict:
+    """Phase 8d: KRaftWithReconfig's ValuesNotStuck and
+    ReconfigurationNotStuck on the 428-state universe (KRECONFIG_LIVE_CFG)
+    through ``run_liveness`` (the CLI's function) on the card, with its
+    launch counts (kreconfig_predicates once per property instance), against
+    the CPU (states, edge arrays, verdicts) and the reference's graph size
+    (KRECONFIG_LIVE_PIN); kreconfig_predicates held exactly against its
+    plain version on the graph's states for every instance."""
+    from raft_tpu_torch.__main__ import run_liveness
+    from raft_tpu_torch.ops.expand import predicates, predicates_plain
+
+    t0, spec = time.perf_counter(), "KRaftWithReconfig"
+    kw = dict(text=KRECONFIG_LIVE_CFG, chunk=256, msg_slots=24)
+    (setup, checker, res), wall, launches, n_expand, _ = counted(
+        torch, lambda: run_liveness(f"{spec}.cfg", device="cuda", **kw))
+    model, chunks = setup.model, checker.chunks
+    names = tuple(q for prop in model.liveness.values() for _l, _p, q in prop)
+    for k in ("kreconfig_guard", "compact_append", "kreconfig_apply"):
+        check(launches[k] == chunks, f"liveness {spec}: {launches[k]} {k} launches != "
+              f"{chunks} chunks")
+    check(launches["kreconfig_predicates"] == len(names),
+          f"liveness {spec}: {launches['kreconfig_predicates']} kreconfig_predicates launches "
+          f"!= {len(names)} property instances")
+    path = ("kreconfig_guard", "compact_append", "kreconfig_apply", "hash_rows",
+            "kreconfig_predicates")
+    for k in set(KERNEL_NAMES) - set(path):
+        check(launches[k] == 0, f"liveness {spec}: {k} launched off its path")
+    check(n_expand == 0, f"liveness {spec}: the plain expand ran {n_expand} times")
+    t = time.perf_counter()
+    _, cc, rc = run_liveness(f"{spec}.cfg", device="cpu", **kw)
+    t_cpu = time.perf_counter() - t
+    got = {"states": res.distinct, "edges": res.total_edges}
+    check(got == KRECONFIG_LIVE_PIN and res.violation is None and rc.violation is None
+          and (rc.distinct, rc.total_edges) == (res.distinct, res.total_edges),
+          f"liveness {spec}: card {got} ({res.violation}), CPU {(rc.distinct, rc.total_edges)}"
+          f" ({rc.violation}), the reference's {KRECONFIG_LIVE_PIN}")
+    for a in ("_esrc", "_edst", "_ecand"):
+        check(np.array_equal(getattr(checker, a), getattr(cc, a)), f"liveness {spec}: {a} differ")
+    check(torch.equal(checker._states.cpu(), cc._states), f"liveness {spec}: states differ")
+    err = exact(torch, predicates(model, checker._states, names),
+                predicates_plain(model, checker._states, names))
+    check(err == 0.0, "kreconfig_predicates differs from its plain version on the graph")
+    report = dict(got, seconds=wall, cpu_seconds=t_cpu, chunks=chunks, launches=launches,
+                  instances=list(names))
+    print(f"[8d] liveness {spec}: graph {res.distinct} states / {res.total_edges} edges in "
+          f"{wall:.2f} s ({chunks} chunks), ValuesNotStuck and ReconfigurationNotStuck hold "
+          f"({len(names)} instances, one kreconfig_predicates launch each); states, edge arrays "
+          f"and verdicts card == CPU (CPU {t_cpu:.1f} s) and the reference's graph size; "
+          f"kreconfig_predicates exact on the graph's states")
+    report["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"liveness_kraft_reconfig": report}))
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_start = {}  # phase -> its start on the host clock
@@ -2237,6 +2459,7 @@ def main() -> int:
     rows.update(family_kernel_rows(torch, rng, KRAFT_FAM))
     rows.update(family_kernel_rows(torch, rng, RECONFIG_FAM))
     rows.update(family_kernel_rows(torch, rng, JOINT_FAM))
+    rows.update(family_kernel_rows(torch, rng, KRECONFIG_FAM))
     for k, r in rows.items():
         print(f"[3] {k}: exact; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
@@ -2309,6 +2532,9 @@ def main() -> int:
     reconfig_report = family_main_phase(torch, RECONFIG_FAM)
     phase_start["4f"] = time.perf_counter()
     joint_report = family_main_phase(torch, JOINT_FAM)
+    phase_start["4g"] = time.perf_counter()
+    # ---- 4g. KRaftWithReconfig on the main path ----
+    kreconfig_report = family_main_phase(torch, KRECONFIG_FAM)
 
     phase_start["5"] = time.perf_counter()
     # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
@@ -2398,6 +2624,19 @@ def main() -> int:
               f"reference's, {traces[key]['chunks']} chunks, "
               f"{traces[key]['wall_ms_per_chunk']:.3f} ms/chunk wall")
         print(json.dumps({f"trace_{key}": traces[key]}))
+    kpin = len(KRECONFIG_PIN["depth_counts"]) - 1
+    traces["kreconfig"], rr = trace_run(
+        torch, "KRaftWithReconfig.cfg", KRAFT_RECONFIG_CFG, kpin,
+        (KRECONFIG_PIN["distinct"], KRECONFIG_PIN["total"], kpin, KRECONFIG_PIN["terminal"]),
+        lenient=True)
+    check(rr.depth_counts == KRECONFIG_PIN["depth_counts"]
+          and rr.coverage == KRECONFIG_PIN["coverage"],
+          "KRaftWithReconfig depth counts or coverage at the pinned depth differ from the "
+          "reference's")
+    print(f"[6] KRaftWithReconfig depth {kpin}: distinct, total, depth counts and coverage equal "
+          f"the reference's, {traces['kreconfig']['chunks']} chunks, "
+          f"{traces['kreconfig']['wall_ms_per_chunk']:.3f} ms/chunk wall")
+    print(json.dumps({"trace_kreconfig": traces["kreconfig"]}))
 
     phase_start["7"] = time.perf_counter()
     # ---- 7. simulate ----
@@ -2416,6 +2655,9 @@ def main() -> int:
     reconfig_sim_report = family_simulate_phase(torch, RECONFIG_FAM)
     phase_start["7e"] = time.perf_counter()
     joint_sim_report = family_simulate_phase(torch, JOINT_FAM)
+    phase_start["7f"] = time.perf_counter()
+    # ---- 7f. simulate KRaftWithReconfig (the mode its cfg prescribes) ----
+    kreconfig_sim_report = family_simulate_phase(torch, KRECONFIG_FAM)
 
     phase_start["8"] = time.perf_counter()
     # ---- 8. liveness ----
@@ -2430,6 +2672,10 @@ def main() -> int:
     phase_start["8c"] = time.perf_counter()
     # ---- 8c. ReconfigurationCompletes ----
     reconfig_liveness_phase(torch)
+
+    phase_start["8d"] = time.perf_counter()
+    # ---- 8d. ValuesNotStuck and ReconfigurationNotStuck ----
+    kreconfig_liveness_phase(torch)
 
     phase_start["9"] = time.perf_counter()
     # ---- 9. results ----
@@ -2482,6 +2728,18 @@ def main() -> int:
                                   "raft_tpu/checker/simulate.py:93")),
             (f"{fam}_predicates", (f"raft_tpu_torch/csrc/{fam}_predicates.cu",
                                    "raft_tpu/checker/liveness.py:254")))},
+        "kreconfig_guard": ("raft_tpu_torch/csrc/kreconfig_expand.cu",
+                            "raft_tpu/models/kraft_reconfig.py:1446"),
+        "kreconfig_apply": ("raft_tpu_torch/csrc/kreconfig_expand.cu",
+                            "raft_tpu/models/base.py:426"),
+        "kreconfig_fold": ("raft_tpu_torch/csrc/kreconfig_fold.cu",
+                           "raft_tpu/checker/device_bfs.py:501"),
+        "kreconfig_sim_check": ("raft_tpu_torch/csrc/kreconfig_predicates.cu",
+                                "raft_tpu/checker/simulate.py:93"),
+        "kreconfig_predicates": ("raft_tpu_torch/csrc/kreconfig_predicates.cu",
+                                 "raft_tpu/checker/liveness.py:254"),
+        "slot_canon": ("raft_tpu_torch/csrc/slot_canon.cu",
+                       "raft_tpu/models/kraft_reconfig.py:2059"),
     }
     # launches: each kernel's count on the path that runs it (Raft.cfg's
     # for the kernels both paths share, liveness' for raft_predicates,
@@ -2506,8 +2764,11 @@ def main() -> int:
                          (reconfig_report, RECONFIG_PATH), (joint_report, JOINT_PATH))
                         for k in path if k.startswith(("reconfig_", "joint_"))},
                      **{k: rep["launches"][k] for rep, fam in (
-                         (reconfig_sim_report, "reconfig"), (joint_sim_report, "joint"))
-                        for k in (f"{fam}_sim_check", f"{fam}_predicates")}}
+                         (reconfig_sim_report, "reconfig"), (joint_sim_report, "joint"),
+                         (kreconfig_sim_report, "kreconfig"))
+                        for k in (f"{fam}_sim_check", f"{fam}_predicates")},
+                     **{k: kreconfig_report["launches"][k] for k in KRECONFIG_PATH
+                        if k.startswith(("kreconfig_", "slot_canon"))}}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": path_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -129,7 +129,7 @@ class DeviceBFS:
         # the canon memo caches raw view hash -> canonical fingerprint; a
         # model's own canonicalizer without a memo (KRaftWithReconfig's slot
         # canon) takes the unmemoized path and allocates no table
-        self._use_memo = canon_memo_cap > 0 and hasattr(self.canon, "fingerprints_memo")
+        self._use_memo = hasattr(self.canon, "fingerprints_memo")
         self._memo = CanonMemo(canon_memo_cap if self._use_memo else 1)
         self.MCAP = self._memo.MCAP
         self._init_distinct: np.ndarray | None = None

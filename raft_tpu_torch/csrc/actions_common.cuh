@@ -168,6 +168,66 @@ __device__ __forceinline__ ChainBag ra_chain_bag(const int* s, int* o, int* bag,
   return ChainBag{bag, bag + M, nullptr};
 }
 
+// ---- N-word message keys (ops/packing.py WidePacker) and their bag
+// (ops/bag.py wide_bag_put): word w of slot m at words[w * M + m], the
+// slots in lexicographic order of the words from word 0; a family packs a
+// key's fields at its spec's (word, shift, mask) triples ----
+
+#define NW_MAX_WORDS 8
+
+struct WKey {
+  long long w[NW_MAX_WORDS];
+};
+
+__device__ __forceinline__ WKey nw_key() {
+  WKey k;
+  for (int w = 0; w < NW_MAX_WORDS; ++w) k.w[w] = 0;
+  return k;
+}
+// int32 wraparound of every word (the plain versions pack in int32)
+__device__ __forceinline__ void nw_wrap(WKey& k) {
+  for (int w = 0; w < NW_MAX_WORDS; ++w) k.w[w] = (int)k.w[w];
+}
+
+__device__ Put nw_bag_probe(const int* words, int M, int nw, const WKey& k) {
+  Put r{false, false, 0};
+  bool have_empty = false;
+  for (int m = 0; m < M; ++m) {
+    bool less = false, tie = true;
+    for (int w = 0; w < nw; ++w) {
+      const int x = words[w * M + m], kk = (int)k.w[w];
+      less = less || (tie && x < kk);
+      tie = tie && x == kk;
+    }
+    r.existed |= tie;
+    have_empty |= words[m] == RA_EMPTY;
+    r.pos += less;
+  }
+  r.overflow = !r.existed && !have_empty;
+  return r;
+}
+
+// the insert half of wide_bag_put, in place; cnt may be null (a guard's copy)
+__device__ void nw_bag_insert(int* words, int* cnt, int M, int nw, const WKey& k, const Put& p) {
+  if (p.existed) {
+    if (cnt)
+      for (int m = 0; m < M; ++m) {
+        bool eq = true;
+        for (int w = 0; w < nw; ++w) eq = eq && words[w * M + m] == (int)k.w[w];
+        cnt[m] += eq;
+      }
+    return;
+  }
+  for (int x = M - 1; x > p.pos; --x) {
+    for (int w = 0; w < nw; ++w) words[w * M + x] = words[w * M + x - 1];
+    if (cnt) cnt[x] = cnt[x - 1];
+  }
+  if (p.pos < M) {
+    for (int w = 0; w < nw; ++w) words[w * M + p.pos] = (int)k.w[w];
+    if (cnt) cnt[p.pos] = 1;
+  }
+}
+
 // ---- invariants (true = holds) over a family's fields ----
 
 // Where the invariants' fields sit in a row: the sizes, the offsets and

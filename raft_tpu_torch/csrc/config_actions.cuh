@@ -45,7 +45,7 @@
 
 #include "actions_common.cuh"
 
-#define CR_MAX_WORDS 8  // key words (models/config_common.py MAX_WORDS)
+#define CR_MAX_WORDS NW_MAX_WORDS  // key words (models/config_common.py MAX_WORDS)
 #define CR_MAX_L 8      // log lanes (models/config_common.py MAX_LOG)
 #define CR_SLOTS 7      // entry fields: term, cmd, val, cid, x0, x1, x2
 
@@ -124,10 +124,6 @@ __device__ __forceinline__ int cr_lane(const int* row, int L, int l) {  // clamp
 
 // ---- message keys (ops/packing.py WidePacker) ----
 
-struct WKey {
-  long long w[CR_MAX_WORDS];
-};
-
 __device__ __forceinline__ void cr_pack(const int* sp, WKey& k, int f, long long v) {
   const int* q = sp + CS_MSG + 3 * f;
   k.w[q[0]] += (long long)((unsigned long long)v << q[1]);
@@ -136,57 +132,6 @@ __device__ __forceinline__ void cr_pack(const int* sp, WKey& k, int f, long long
 __device__ __forceinline__ int cr_unpack(const int* sp, const int* kw, int f) {
   const int* q = sp + CS_MSG + 3 * f;
   return (kw[q[0]] >> q[1]) & q[2];
-}
-__device__ __forceinline__ WKey cr_key() {
-  WKey k;
-  for (int w = 0; w < CR_MAX_WORDS; ++w) k.w[w] = 0;
-  return k;
-}
-// int32 wraparound of every word (the plain version packs in int32)
-__device__ __forceinline__ void cr_wrap(WKey& k) {
-  for (int w = 0; w < CR_MAX_WORDS; ++w) k.w[w] = (int)k.w[w];
-}
-
-// ---- the N-word bag (ops/bag.py wide_bag_put); word w of slot m at
-// words[w * M + m] ----
-
-__device__ Put cr_bag_probe(const int* words, int M, int nw, const WKey& k) {
-  Put r{false, false, 0};
-  bool have_empty = false;
-  for (int m = 0; m < M; ++m) {
-    bool less = false, tie = true;
-    for (int w = 0; w < nw; ++w) {
-      const int x = words[w * M + m], kk = (int)k.w[w];
-      less = less || (tie && x < kk);
-      tie = tie && x == kk;
-    }
-    r.existed |= tie;
-    have_empty |= words[m] == RA_EMPTY;
-    r.pos += less;
-  }
-  r.overflow = !r.existed && !have_empty;
-  return r;
-}
-
-// the insert half of wide_bag_put, in place; cnt may be null (a guard's copy)
-__device__ void cr_bag_insert(int* words, int* cnt, int M, int nw, const WKey& k, const Put& p) {
-  if (p.existed) {
-    if (cnt)
-      for (int m = 0; m < M; ++m) {
-        bool eq = true;
-        for (int w = 0; w < nw; ++w) eq = eq && words[w * M + m] == (int)k.w[w];
-        cnt[m] += eq;
-      }
-    return;
-  }
-  for (int x = M - 1; x > p.pos; --x) {
-    for (int w = 0; w < nw; ++w) words[w * M + x] = words[w * M + x - 1];
-    if (cnt) cnt[x] = cnt[x - 1];
-  }
-  if (p.pos < M) {
-    for (int w = 0; w < nw; ++w) words[w * M + p.pos] = (int)k.w[w];
-    if (cnt) cnt[p.pos] = 1;
-  }
 }
 
 // ---- the variants' config hooks ----
@@ -298,18 +243,18 @@ __device__ Guard cr_request_vote(const int* sp, const int* s, int* o, int i, int
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
     if (!cr_bit(members, j)) continue;
-    WKey k = cr_key();
+    WKey k = nw_key();
     cr_pack(sp, k, CF_MTYPE, CR_RVREQ);
     cr_pack(sp, k, CF_MTERM, new_term);
     cr_pack(sp, k, CF_MLASTLOGTERM, last_t);
     cr_pack(sp, k, CF_MLASTLOGINDEX, ll);
     cr_pack(sp, k, CF_MSOURCE, i);
     cr_pack(sp, k, CF_MDEST, j);
-    cr_wrap(k);
-    const Put p = cr_bag_probe(words, M, NW, k);
+    nw_wrap(k);
+    const Put p = nw_bag_probe(words, M, NW, k);
     g.valid = g.valid && !p.existed;
     ovf = ovf || p.overflow;
-    cr_bag_insert(words, cnt, M, NW, k, p);
+    nw_bag_insert(words, cnt, M, NW, k, p);
   }
   g.ovf = ovf && g.valid;
   if (WRITE) {
@@ -389,7 +334,7 @@ __device__ Guard cr_append_entries(const int* sp, const int* s, int* o, int i, i
   const int epos = ra_clamp(ni - 1, 0, L - 1);
   const int ci = s[CFLD(CI) + i];
   const int mci = ci < last_entry ? ci : last_entry;
-  WKey k = cr_key();
+  WKey k = nw_key();
   cr_pack(sp, k, CF_MTYPE, CR_AEREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MPREVLOGINDEX, prev_idx > 0 ? prev_idx : 0);
@@ -399,13 +344,13 @@ __device__ Guard cr_append_entries(const int* sp, const int* s, int* o, int i, i
   cr_pack(sp, k, CF_MSOURCE, i);
   cr_pack(sp, k, CF_MDEST, j);
   for (int e = 0; e < NE; ++e) cr_pack(sp, k, CF_E + e, nent ? cr_log(sp, s, e, i)[epos] : 0);
-  cr_wrap(k);
-  const Put p = cr_bag_probe(s + CFLD(W0), M, NW, k);
+  nw_wrap(k);
+  const Put p = nw_bag_probe(s + CFLD(W0), M, NW, k);
   g.valid = g.valid && (nent > 0 || !p.existed);
   g.ovf = p.overflow && g.valid;
   if (WRITE) {
     o[CFLD(PR) + i] = pr | (1 << j);
-    cr_bag_insert(o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    nw_bag_insert(o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
   return g;
 }
@@ -422,7 +367,7 @@ __device__ Guard cr_send_snapshot(const int* sp, const int* s, int* o, int i, in
           CK_SENDSNAP, false};
   if (!WRITE && !g.valid) return g;
   const int ll = s[CFLD(LL) + i];
-  WKey k = cr_key();
+  WKey k = nw_key();
   cr_pack(sp, k, CF_MTYPE, CR_SNAPREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MCOMMITINDEX, s[CFLD(CI) + i]);
@@ -433,12 +378,12 @@ __device__ Guard cr_send_snapshot(const int* sp, const int* s, int* o, int i, in
   for (int l = 0; l < L; ++l)
     for (int e = 0; e < NE; ++e)
       cr_pack(sp, k, CF_LOG + l * CR_SLOTS + e, l < ll ? cr_log(sp, s, e, i)[l] : 0);
-  cr_wrap(k);
-  const Put p = cr_bag_probe(s + CFLD(W0), M, NW, k);
+  nw_wrap(k);
+  const Put p = nw_bag_probe(s + CFLD(W0), M, NW, k);
   g.ovf = p.overflow && g.valid;
   if (WRITE) {
     o[CFLD(NI) + i * S + j] = CR_PENDING_SNAP_RESPONSE;
-    cr_bag_insert(o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    nw_bag_insert(o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
   return g;
 }
@@ -691,7 +636,7 @@ __device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
   const int mci = cr_unpack(sp, kw, CF_MCOMMITINDEX);
 
   bool putb = false, dropb = false, ovf_extra = false;
-  WKey k = cr_key();
+  WKey k = nw_key();
   // the log rows the receipt installs (accept or snapshot), with their
   // config entry's index and the commit watermark
   int row[CR_SLOTS][CR_MAX_L];
@@ -790,8 +735,8 @@ __device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
   }
   Put p{false, false, 0};
   if (putb) {
-    cr_wrap(k);
-    p = cr_bag_probe(s + CFLD(W0), M, NW, k);
+    nw_wrap(k);
+    p = nw_bag_probe(s + CFLD(W0), M, NW, k);
   }
   g.ovf = (putb && p.overflow) || ovf_extra;
   if (install) cfg_idx = cr_last_cfg<J>(row[E_CMD], L, new_len);
@@ -825,7 +770,7 @@ __device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
       if (mtype == CR_AEREQ) jx_set(o + CFLD(ST), S, dst, in_new ? CR_FOLLOWER : CR_NOTMEMBER);
     }
     o[CFLD(CNT) + m] -= 1;  // the incoming Discard
-    if (putb) cr_bag_insert(o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    if (putb) nw_bag_insert(o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
   return g;
 }

@@ -133,67 +133,16 @@ __device__ __forceinline__ int kc_used_mask(const int* sp, const int* s) {
   return mask;
 }
 
-// ---- message keys (ops/packing.py WidePacker) and the N-word bag ----
+// ---- message keys (actions_common.cuh WKey and the N-word bag) ----
 
-struct KKey {
-  long long w[KC_MAX_WORDS];
-};
-
-__device__ __forceinline__ KKey kc_key() {
-  KKey k;
-  for (int w = 0; w < KC_MAX_WORDS; ++w) k.w[w] = 0;
-  return k;
-}
-__device__ __forceinline__ void kc_pack(const int* sp, KKey& k, int f, long long v) {
+__device__ __forceinline__ void kc_pack(const int* sp, WKey& k, int f, long long v) {
   const int* q = sp + KC_MSG + 3 * f;
   k.w[q[0]] += (long long)((unsigned long long)v << q[1]);
-}
-__device__ __forceinline__ void kc_wrap(KKey& k) {  // int32 wraparound of every word
-  for (int w = 0; w < KC_MAX_WORDS; ++w) k.w[w] = (int)k.w[w];
 }
 // a field of a key given as int words
 __device__ __forceinline__ int kc_unpack(const int* sp, const int* kw, int f) {
   const int* q = sp + KC_MSG + 3 * f;
   return (kw[q[0]] >> q[1]) & q[2];
-}
-
-__device__ Put kc_bag_probe(const int* words, int M, int nw, const KKey& k) {
-  Put r{false, false, 0};
-  bool have_empty = false;
-  for (int m = 0; m < M; ++m) {
-    bool less = false, tie = true;
-    for (int w = 0; w < nw; ++w) {
-      const int x = words[w * M + m], kk = (int)k.w[w];
-      less = less || (tie && x < kk);
-      tie = tie && x == kk;
-    }
-    r.existed |= tie;
-    have_empty |= words[m] == RA_EMPTY;
-    r.pos += less;
-  }
-  r.overflow = !r.existed && !have_empty;
-  return r;
-}
-
-// the insert half of wide_bag_put, in place; cnt may be null (a guard's copy)
-__device__ void kc_bag_insert(int* words, int* cnt, int M, int nw, const KKey& k, const Put& p) {
-  if (p.existed) {
-    if (cnt)
-      for (int m = 0; m < M; ++m) {
-        bool eq = true;
-        for (int w = 0; w < nw; ++w) eq = eq && words[w * M + m] == (int)k.w[w];
-        cnt[m] += eq;
-      }
-    return;
-  }
-  for (int x = M - 1; x > p.pos; --x) {
-    for (int w = 0; w < nw; ++w) words[w * M + x] = words[w * M + x - 1];
-    if (cnt) cnt[x] = cnt[x - 1];
-  }
-  if (p.pos < M) {
-    for (int w = 0; w < nw; ++w) words[w * M + p.pos] = (int)k.w[w];
-    if (cnt) cnt[p.pos] = 1;
-  }
 }
 
 // ---- the transition machine (:599-715) ----
@@ -365,18 +314,18 @@ __device__ Guard kc_request_vote(const int* sp, const int* s, int* o, int i, int
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
     if (!kc_bit(members, j)) continue;
-    KKey k = kc_key();
+    WKey k = nw_key();
     kc_pack(sp, k, KM_MTYPE, KC_RVREQ);
     kc_pack(sp, k, KM_MEPOCH, new_ep);
     kc_pack(sp, k, KM_MLASTLOGEPOCH, last_ep);
     kc_pack(sp, k, KM_MLASTLOGOFFSET, ll);
     kc_pack(sp, k, KM_MSOURCE, i);
     kc_pack(sp, k, KM_MDEST, j);
-    kc_wrap(k);
-    const Put p = kc_bag_probe(words, M, NW, k);
+    nw_wrap(k);
+    const Put p = nw_bag_probe(words, M, NW, k);
     g.valid = g.valid && !p.existed;
     ovf = ovf || p.overflow;
-    kc_bag_insert(words, cnt, M, NW, k, p);
+    nw_bag_insert(words, cnt, M, NW, k, p);
   }
   g.ovf = ovf && g.valid;
   if (WRITE) {
@@ -408,16 +357,16 @@ __device__ Guard kc_become_leader(const int* sp, const int* s, int* o, int i, in
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
     if (!kc_bit(members, j)) continue;
-    KKey k = kc_key();
+    WKey k = nw_key();
     kc_pack(sp, k, KM_MTYPE, KC_BQREQ);
     kc_pack(sp, k, KM_MEPOCH, ep);
     kc_pack(sp, k, KM_MSOURCE, i);
     kc_pack(sp, k, KM_MDEST, j);
-    kc_wrap(k);
-    const Put p = kc_bag_probe(words, M, NW, k);
+    nw_wrap(k);
+    const Put p = nw_bag_probe(words, M, NW, k);
     g.valid = g.valid && !p.existed;
     ovf = ovf || p.overflow;
-    kc_bag_insert(words, cnt, M, NW, k, p);
+    nw_bag_insert(words, cnt, M, NW, k, p);
   }
   g.ovf = ovf && g.valid;
   if (WRITE) {
@@ -470,7 +419,7 @@ __device__ Guard kc_send_fetch(const int* sp, const int* s, int* o, int i, int j
   const int ep = kc_get(sp, s, KC_EP, i), ll = kc_get(sp, s, KC_LL, i);
   const int last_ep = kc_last_epoch(kc_log(sp, s, KE_EPOCH, i), L, ll);
   const int obs = role == KC_R_OBSERVER;
-  KKey k = kc_key();
+  WKey k = nw_key();
   kc_pack(sp, k, KM_MTYPE, KC_FETCHREQ);
   kc_pack(sp, k, KM_MEPOCH, ep);
   kc_pack(sp, k, KM_MFETCHOFFSET, ll);
@@ -478,8 +427,8 @@ __device__ Guard kc_send_fetch(const int* sp, const int* s, int* o, int i, int j
   kc_pack(sp, k, KM_MOBSERVER, obs);
   kc_pack(sp, k, KM_MSOURCE, i);
   kc_pack(sp, k, KM_MDEST, j);
-  kc_wrap(k);
-  const Put p = kc_bag_probe(s + KFD(W0), M, NW, k);
+  nw_wrap(k);
+  const Put p = nw_bag_probe(s + KFD(W0), M, NW, k);
   g.ovf = p.overflow && g.valid;
   if (WRITE) {
     kc_set(sp, o, KC_PF_ACT, i, 1);
@@ -488,7 +437,7 @@ __device__ Guard kc_send_fetch(const int* sp, const int* s, int* o, int i, int j
     kc_set(sp, o, KC_PF_LE, i, last_ep);
     kc_set(sp, o, KC_PF_DEST, i, j + 1);
     kc_set(sp, o, KC_PF_OBS, i, obs);
-    kc_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
+    nw_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
   }
   return g;
 }
@@ -506,13 +455,13 @@ __device__ Guard kc_start_new_server(const int* sp, const int* s, int* o, int h,
   if (!WRITE && !g.valid) return g;
   const int slot = ra_clamp(n_used, 0, S - 1);
   const int disk = s[KFD(DIG)] + 1;
-  KKey k = kc_key();
+  WKey k = nw_key();
   kc_pack(sp, k, KM_MTYPE, KC_FETCHREQ);
   kc_pack(sp, k, KM_MOBSERVER, 1);
   kc_pack(sp, k, KM_MSOURCE, slot);
   kc_pack(sp, k, KM_MDEST, j);
-  kc_wrap(k);
-  const Put p = kc_bag_probe(s + KFD(W0), M, NW, k);
+  nw_wrap(k);
+  const Put p = nw_bag_probe(s + KFD(W0), M, NW, k);
   g.ovf = p.overflow && g.valid;
   if (WRITE) {
     const int old_mask = kc_used_mask(sp, s);
@@ -529,7 +478,7 @@ __device__ Guard kc_start_new_server(const int* sp, const int* s, int* o, int h,
     kc_set(sp, o, KC_PF_DEST, slot, j + 1);
     kc_set(sp, o, KC_PF_OBS, slot, 1);
     o[KFD(DIG)] = disk;
-    kc_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
+    nw_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
   }
   return g;
 }
@@ -544,16 +493,16 @@ __device__ Guard kc_send_join(const int* sp, const int* s, int* o, int i, int j)
               !kc_bit(kc_get(sp, s, KC_CM, i), i) && kc_get(sp, s, KC_LED, i) == j + 1,
           KQ_SENDJOIN, false};
   if (!WRITE && !g.valid) return g;
-  KKey k = kc_key();
+  WKey k = nw_key();
   kc_pack(sp, k, KM_MTYPE, KC_JOINREQ);
   kc_pack(sp, k, KM_MEPOCH, kc_get(sp, s, KC_EP, i));
   kc_pack(sp, k, KM_MDEST, j);
   kc_pack(sp, k, KM_MSOURCE, i);
-  kc_wrap(k);
-  const Put p = kc_bag_probe(s + KFD(W0), M, NW, k);
+  nw_wrap(k);
+  const Put p = nw_bag_probe(s + KFD(W0), M, NW, k);
   g.valid = g.valid && !p.existed;
   g.ovf = p.overflow && g.valid;
-  if (WRITE) kc_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
+  if (WRITE) nw_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
   return g;
 }
 
@@ -617,7 +566,7 @@ __device__ void kc_maybe_switch(const int* sp, const int* s, int* o, int dst,
 // the fields a FetchResponse shares (:1203): the responder's epoch, leader
 // and endpoints, and the request it answers as the correlation (its
 // source and dest implied, swapped)
-__device__ __forceinline__ void kc_pack_fetch_resp(const int* sp, KKey& k, int cur, int leader,
+__device__ __forceinline__ void kc_pack_fetch_resp(const int* sp, WKey& k, int cur, int leader,
                                                    int hwm, int dst, int src, const int* kw) {
   kc_pack(sp, k, KM_MTYPE, KC_FETCHRESP);
   kc_pack(sp, k, KM_MEPOCH, cur);
@@ -660,7 +609,7 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
   bool b_acc_v = false, b_acc_o = false, b_ok = false, b_divr = false, b_err = false;
   bool b_jacc = false, b_jrej = false, b_jrr = false;
   bool put_branch = false, extra_ovf = false;
-  KKey k = kc_key();
+  WKey k = nw_key();
   KSle mh{st, cur, led};
   bool handled = false;
 
@@ -908,8 +857,8 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
   // (MessagePassing.tla:72-79)
   Put p{false, false, 0};
   if (put_branch) {
-    kc_wrap(k);
-    p = kc_bag_probe(s + KFD(W0), M, NW, k);
+    nw_wrap(k);
+    p = nw_bag_probe(s + KFD(W0), M, NW, k);
     if (p.existed && (b_reject || b_div || b_acc_v || b_acc_o)) {
       if (WRITE && b_acc_v) {  // undo the staged AcceptFetchRequestFromVoter writes
         const int W = KFD(W);
@@ -932,7 +881,7 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
   g.ovf = (putb && p.overflow) || ((b_ok || b_jacc) && extra_ovf);
   if (WRITE && g.valid) {
     o[KFD(CNT) + m] -= 1;  // the incoming Discard
-    if (putb) kc_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
+    if (putb) nw_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
   }
   return g;
 }

@@ -83,7 +83,7 @@ class SlotCanonicalizer:
         VIEW prefix is what ``fingerprints`` hashes; the aux lanes are the
         input's)."""
         m = self.model
-        lay, NS, H, V = m.layout, m.NS, m.p.n_hosts, m.p.n_values
+        lay, NS, H = m.layout, m.NS, m.p.n_hosts
         dev = states.device
         sigma = torch.as_tensor(self.sigmas[k], device=dev)
         tau = torch.as_tensor(self.taus[k], device=dev)
@@ -116,9 +116,7 @@ class SlotCanonicalizer:
         put("log_members", gather(self.maskmap(g("log_members"), order)))
         put("endOffset", self.eo_perm(g("endOffset"), order))
         put("log_val", gather(self.valmap(g("log_val"), g("log_cmd"), tau)))
-        acked = g("acked")
-        put("acked", torch.zeros_like(acked).scatter(
-            1, tau.expand(acked.shape[0], V), acked) if self.taus_apply else acked)
+        put("acked", self.tauperm(g("acked"), tau))
 
         # the message bag: remap the occupied keys' fields, re-sort
         pk = m.packer
@@ -141,8 +139,7 @@ class SlotCanonicalizer:
         put("msg_cnt", scnt)
         return out
 
-    # the remap kinds (a test leaves one out to show that it is needed)
-    taus_apply = True
+    # the remap kinds (a test leaves each out to show that it is needed)
 
     @staticmethod
     def slotmap(x, inv):
@@ -170,15 +167,21 @@ class SlotCanonicalizer:
         rows = eo.gather(1, order[:, :, None].expand(-1, NS, NS))
         return rows.gather(2, order[:, None, :].expand(-1, NS, NS))
 
-    def valmap(self, val, cmd, tau):
+    @staticmethod
+    def valmap(val, cmd, tau):
         """tau on an AppendCommand entry's value (value > 0)."""
-        if not self.taus_apply:
-            return val
         t = tau[(val - 1).clamp(0, tau.shape[0] - 1).long()] + 1
         return torch.where((cmd == C_APPEND) & (val > 0), t, val)
 
+    @staticmethod
+    def tauperm(acked, tau):
+        """acked [N, V] through tau: acked'[tau[v]] = acked[v]."""
+        return torch.zeros_like(acked).scatter(1, tau.expand(acked.shape[0], -1), acked)
+
     def fingerprints_plain(self, states: torch.Tensor) -> torch.Tensor:
         VL = self.model.layout.view_len
+        if not states.shape[0]:
+            return torch.empty(0, dtype=torch.int64, device=states.device)
         best = None
         for k in range(self.P):
             fp = hash_lanes(self.canon_rows(states, k)[:, :VL], seed=self.seed)
@@ -219,5 +222,8 @@ class SlotCanonicalizer:
         ``valid`` (bool [N]) the rows where it is false get INT64_MAX."""
         if kernels.route(states) == "cuda":
             return self.fingerprints_cuda(states, valid)
-        fps = self.fingerprints_plain(states)
-        return fps if valid is None else torch.where(valid, fps, INT64_MAX)
+        if valid is None:
+            return self.fingerprints_plain(states)
+        out = torch.full((states.shape[0],), INT64_MAX, dtype=torch.int64)
+        out[valid] = self.fingerprints_plain(states[valid])
+        return out

@@ -1,6 +1,6 @@
 """``python -m raft_tpu_torch`` end to end on the CPU: exit codes 0 (clean),
-2 (violation, trace printed), 5 (no card and no ``--device cpu``), 64 (spec
-not yet ported) and 66 (no file)."""
+2 (violation, trace printed), 5 (no card and no ``--device cpu``), 64 (a
+spec with no lowering, or a cfg a strict parse refuses) and 66 (no file)."""
 
 import json
 import os
@@ -69,11 +69,56 @@ def test_violation_rc2_prints_trace(tmp_path):
 
 
 def test_unported_spec_rc64_and_missing_file_rc66(tmp_path):
-    cfg = tmp_path / "KRaftWithReconfig.cfg"
+    # every spec of the reference is ported: a spec name with no builder
+    # still exits 64
+    cfg = tmp_path / "NoSuchSpec.cfg"
     cfg.write_text(HEAD + TAIL)
     out = _cli(cfg)
-    assert out.returncode == 64 and "not yet ported" in out.stderr
+    assert out.returncode == 64 and "no lowering registered for spec 'NoSuchSpec'" in out.stderr
+    assert "KRaftWithReconfig" in out.stderr  # among the available specs
     assert _cli(tmp_path / "Missing.cfg").returncode == 66
+
+
+KRAFT_RECONFIG_SMALL = """\
+CONSTANTS
+    n1 = n1
+    n2 = n2
+    n3 = n3
+    v1 = v1
+    Hosts = { n1, n2, n3 }
+    Value = { v1, v2 }
+    InitClusterSize = 2
+    MinClusterSize = 2
+    MaxClusterSize = 3
+    MaxSpawnedServers = 4
+    MaxElections = 1
+    MaxRestarts = 1
+    MaxValuesPerEpoch = 1
+    MaxAddReconfigs = 1
+    MaxRemoveReconfigs = 1
+INIT Init
+NEXT Next
+VIEW view
+SYMMETRY symmHostsAndValues
+INVARIANT
+    LeaderHasAllAckedValues
+    NoLogDivergence
+    NeverTwoLeadersInSameEpoch
+    NoIllegalState
+    StatesMatchRoles
+"""
+
+
+def test_kraft_reconfig_strict_rc64_lenient_runs(tmp_path):
+    # the reference cfg's undeclared v2: a strict parse exits 64 naming it,
+    # --lenient declares it and runs (the reference's counts at depth 2)
+    cfg = tmp_path / "KRaftWithReconfig.cfg"
+    cfg.write_text(KRAFT_RECONFIG_SMALL)
+    out = _cli(cfg, "--max-depth", "2")
+    assert out.returncode == 64 and "undeclared model value 'v2'" in out.stderr
+    out = _cli(cfg, "--lenient", "--max-depth", "2", "--msg-slots", "24", "--chunk", "64")
+    assert out.returncode == 0, out.stderr
+    assert "distinct=55 total=76 depth=2" in out.stdout, out.stdout
 
 
 def test_default_device_without_card_rc5(tmp_path):

@@ -23,6 +23,7 @@ MODULES = [
     "raft_tpu_torch.models.pull_raft", "raft_tpu_torch.models.kraft",
     "raft_tpu_torch.models.config_common", "raft_tpu_torch.models.reconfig_raft",
     "raft_tpu_torch.models.joint_raft", "raft_tpu_torch.ops.bag",
+    "raft_tpu_torch.models.kraft_reconfig", "raft_tpu_torch.ops.slot_canon",
 ]
 
 

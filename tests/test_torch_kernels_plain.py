@@ -122,4 +122,6 @@ def test_wrappers_route_by_device():
         "pull_apply", "pull_fold", "pull_predicates", "pull_sim_check", "kraft_guard",
         "kraft_apply", "kraft_fold", "kraft_predicates", "kraft_sim_check", "reconfig_guard",
         "reconfig_apply", "reconfig_fold", "reconfig_predicates", "reconfig_sim_check",
-        "joint_guard", "joint_apply", "joint_fold", "joint_predicates", "joint_sim_check"}
+        "joint_guard", "joint_apply", "joint_fold", "joint_predicates", "joint_sim_check",
+        "slot_canon", "kreconfig_guard", "kreconfig_apply", "kreconfig_fold",
+        "kreconfig_predicates", "kreconfig_sim_check"}
