@@ -131,6 +131,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -1244,6 +1245,40 @@ def edge_pool(model, pool, rng) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate(parts))
 
 
+def kreconfig_arms(torch, model, edge):
+    """KRaftWithReconfig's guard over every row of ``edge`` (edge_pool's
+    rows, kreconfig_forced_rows last) and its apply over every valid lane
+    of the forced rows, each against its plain version, exactly. Fails
+    unless every disjunct of Next is valid on some row and every receipt
+    arm fired on the row built for it: a spawned server's first fetch with
+    mepoch 0, a join of a fresh identity (accepted, and overflowing the
+    leader's log at max_log), the three FetchResponse arms (UnknownMember
+    among them) and the success response that overflows max_log."""
+    from raft_tpu_torch.checker.util import compact_indices
+    from raft_tpu_torch.ops.expand import apply, apply_plain, guard, guard_plain
+    from test_torch_kernels_cuda import kreconfig_forced_rows, kreconfig_missing_arms
+
+    rows = torch.from_numpy(edge).to("cuda")
+    C, A, K = rows.shape[0], model.A, len(model.ACTION_NAMES)
+    covs = [torch.zeros((K, 3), dtype=torch.int64, device=rows.device) for _ in range(2)]
+    gk = guard(model, rows, C, covs[0])
+    gp = guard_plain(model, rows, C, covs[1])
+    errs = [exact(torch, a, b) for a, b in zip(gk, gp)] + [exact(torch, *covs)]
+    n_forced = len(kreconfig_forced_rows(model)[0])
+    mask = gk[0].clone()
+    mask[:C - n_forced] = False
+    sel, n_sel = compact_indices(mask.reshape(-1), int(mask.sum()), C * A)
+    errs.append(exact(torch, apply(model, rows, sel), apply_plain(model, rows, sel)))
+    check(max(errs) == 0.0, "kreconfig_guard/kreconfig_apply differ from their plain versions "
+          "on the edge rows")
+    missing = kreconfig_missing_arms(model, *gk[:3])
+    check(not missing, f"{model.name} edge rows: no lane fired {missing}")
+    print(f"[3] {model.name}: kreconfig_guard exact on all {C} edge rows, kreconfig_apply on "
+          f"the {int(n_sel)} valid lanes of the {n_forced} forced rows; all {K} disjuncts and "
+          "every receipt arm fired (a spawned server's mepoch-0 fetch, a fresh join accepted "
+          "and overflowing max_log, UnknownMember)")
+
+
 def settle_rows(torch, model, states, nxt, pick, init_pool, depth, journal, jlen, invs,
                 timed: bool, what: str) -> dict:
     """The family's sim_check against its plain version on one simulate
@@ -1403,8 +1438,10 @@ def slot_canon_rows(torch, bfs, flatc, selv) -> dict:
     value-permuted copies (each (sigma, tau) pair's remapped, slot-sorted
     rows) keep their fingerprints. Timed on the chunk, with its bound: the
     valid rows' view lanes and the mask read, the fingerprints written,
-    against about 24 INT32 operations a lane of each pair's hash, its
-    M x M x NW bag rank compares and 3 a lane of its view build."""
+    against about 24 INT32 operations a lane of each pair's hash, 3 a lane
+    of its view build and the bag re-sort at the work a sort needs,
+    M x ceil(log2 M) compare-exchanges of NW words (a compare and a select
+    a word), not the kernel's own M x M rank."""
     model, dev = bfs.model, flatc.device
     canon = bfs.canon
     errs = []
@@ -1424,7 +1461,8 @@ def slot_canon_rows(torch, bfs, flatc, selv) -> dict:
           "slot_canon: permuted copies changed their fingerprints")
     VL, M, NW = model.layout.view_len, model.p.msg_slots, model.n_words
     nb = flatc.shape[0]
-    b, by = bound(n * VL * 4 + nb + nb * 8, n * canon.P * (24 * VL + 2 * NW * M * M + 3 * VL))
+    sort_ops = 2 * NW * M * math.ceil(math.log2(M))
+    b, by = bound(n * VL * 4 + nb + nb * 8, n * canon.P * (24 * VL + sort_ops + 3 * VL))
     row = dict(ms=time_ms(torch, lambda: canon.fingerprints(flatc, selv), iters=20),
                plain_ms=time_ms(torch, lambda: canon.fingerprints_plain(base), iters=3),
                bound_ms=b, bound_by=by, library_ms=None, max_abs_err=max(errs), rows=n,
@@ -1454,8 +1492,9 @@ def family_kernel_rows(torch, rng, fam) -> dict:
         check(res.depth_counts[:n] == pin["depth_counts"][:n],
               f"{spec} sample depth counts {res.depth_counts}")
         fr = bfs.frontier_rows
-        if fr.shape[0] > POOL_ROWS:  # a wide wave: a random sample of it
-            fr = fr[torch.randperm(fr.shape[0], device=fr.device)[:POOL_ROWS]]
+        if fr.shape[0] > POOL_ROWS:  # a wide wave: a sample of it from the phase's rng
+            pick = np.sort(rng.choice(fr.shape[0], POOL_ROWS, replace=False))
+            fr = fr[torch.from_numpy(pick).to(fr.device)]
         pool = fr.cpu().numpy()
         print(f"[3] sampled the depth-{depth} {spec} frontier ({bfs.frontier_rows.shape[0]} "
               f"states; {len(pool)} kept) in {time.perf_counter() - t:.1f} s")
@@ -1463,9 +1502,11 @@ def family_kernel_rows(torch, rng, fam) -> dict:
         rows.update(expand_kernels(torch, bfs, pool, rng, timed=k == 0))
         edge = edge_pool(bfs.model, pool, rng)
         expand_kernels(torch, bfs, edge, rng, timed=False)
+        if family_of(bfs.model) == "kreconfig":
+            kreconfig_arms(torch, bfs.model, edge)
         if k == 0:
             flatc, selv, _fps, _fresh = chunk_lanes(torch, bfs, pool, rng)
-            if "fingerprints_memo" in dir(bfs.canon):
+            if bfs._use_memo:
                 canon_memo_rows(torch, bfs, flatc, selv)
             else:  # KRaftWithReconfig's slot canon, timed
                 rows.update(slot_canon_rows(torch, bfs, flatc, selv))
@@ -2624,6 +2665,7 @@ def main() -> int:
               f"reference's, {traces[key]['chunks']} chunks, "
               f"{traces[key]['wall_ms_per_chunk']:.3f} ms/chunk wall")
         print(json.dumps({f"trace_{key}": traces[key]}))
+    phase_start["6g"] = time.perf_counter()  # 4g's column
     kpin = len(KRECONFIG_PIN["depth_counts"]) - 1
     traces["kreconfig"], rr = trace_run(
         torch, "KRaftWithReconfig.cfg", KRAFT_RECONFIG_CFG, kpin,

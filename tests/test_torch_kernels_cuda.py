@@ -1461,8 +1461,148 @@ def kreconfig_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
         put_bag(r, keys)
     zero = scr.copy()
     zero[:, cs] = 0
-    return np.ascontiguousarray(np.concatenate([st, pert, chain, maxlog, scr, zero]).astype(
-        np.int32))
+    forced, _expect = kreconfig_forced_rows(model)
+    return np.ascontiguousarray(np.concatenate([st, pert, chain, maxlog, scr, zero, forced])
+                                .astype(np.int32))
+
+
+def kreconfig_forced_rows(model):
+    """Rows built from Init that fire each receipt arm whatever states the
+    rest of kreconfig_edge_rows was built from, and the ones a sample
+    rarely holds: a spawned server (slot InitClusterSize, its identity's
+    diskId 1, as StartNewServer mints it) whose first fetch (mepoch 0)
+    reaches the leader; a join of that fresh identity accepted by the
+    leader, and again with the leader's log at max_log so that the append
+    overflows; the three FetchResponse arms at a follower whose pending
+    fetch they answer (UnknownMember from a later epoch: the non-success
+    arm that makes it an Observer), again with its log at max_log; the
+    vote request, vote response, BeginQuorum and the four FetchRequest
+    arms; BecomeLeader, SendJoinRequest and HandleRemoveRequest. Returns (rows [F, W] int32, expect): expect lists (row, rank,
+    overflow, what), the disjunct that must be valid on some lane of that
+    row, with an overflow there where ``overflow``."""
+    from raft_tpu_torch.models import kraft_reconfig as kr
+
+    lay, p, pk = model.layout, model.p, model.packer
+    L, M, NW = p.max_log, p.msg_slots, model.n_words
+    ics = p.init_cluster_size
+    s = ics  # the first spawned slot; slot 0 leads epoch 1, slot 1 follows
+    off = {n: lay.fields[n].offset for n in lay.fields}
+    init = model.init_states()[0]
+
+    def row(per=None):
+        """Init with the spawned observer, then per's {(field, slot): value}."""
+        r = init.copy()
+        for f, v in (("used", 1), ("host", 0), ("diskId", 1), ("role", kr.R_OBSERVER),
+                     ("eo_dom", (1 << ics) - 1), ("pf_active", 1), ("pf_dest", 1),
+                     ("pf_observer", 1)):
+            r[off[f] + s] = v
+        r[off["diskIdGen"]] = 1
+        for (f, i), v in (per or {}).items():
+            r[off[f] + i] = v
+        return r
+
+    def fill_log(r, i, n):
+        """Slot i's log: its Init entry, then appends of value 1 in epoch
+        1, to length n."""
+        for k in range(1, n):
+            for f, v in (("cmd", kr.C_APPEND), ("epoch", 1), ("val", 1)):
+                r[off[f"log_{f}"] + i * L + k] = v
+        r[off["log_len"] + i] = n
+
+    def bag(r, *msgs):
+        keys = sorted(pk.pack(**m) for m in msgs)
+        words = np.full((NW, M), EMPTY)
+        if keys:
+            words[:, :len(keys)] = np.array(keys).T
+        for k in range(NW):
+            r[lay.sl(f"msg_w{k}")] = words[k]
+        r[lay.sl("msg_cnt")] = np.where(words[0] != EMPTY, 1, 0)
+        return r
+
+    first_fetch = dict(mtype=kr.FETCHREQ, mepoch=0, mfetchOffset=0, mlastFetchedEpoch=0,
+                       mobserver=1, msource=s, mdest=0)
+    join = dict(mtype=kr.JOINREQ, mepoch=1, msource=s, mdest=0)
+    corr = dict(mtype=kr.FETCHRESP, msource=0, mdest=1, cepoch=1, cfetchOffset=1,
+                clastFetchedEpoch=1, cobserver=0)
+    pending = {("pf_active", 1): 1, ("pf_epoch", 1): 1, ("pf_offset", 1): 1,
+               ("pf_lastepoch", 1): 1, ("pf_dest", 1): 1}
+    resp = (dict(corr, mepoch=1, mleader=1, mresult=kr.R_DIVERGING, mdivergingEpoch=1,
+                 mdivergingEndOffset=1),
+            dict(corr, mepoch=1, mleader=1, mresult=kr.R_OK, nentries=1, e_cmd=kr.C_APPEND,
+                 e_epoch=1, e_val=1, mhwm=1),
+            dict(corr, mepoch=2, mleader=0, mresult=kr.R_NOTOK, merror=kr.E_UNKNOWN_MEMBER))
+    rows, expect = [], []
+
+    def add(r, *exp):
+        expect.extend((len(rows), rk, o, what) for rk, o, what in exp)
+        rows.append(r)
+
+    add(bag(row(), first_fetch,
+            dict(mtype=kr.JOINRESP, mepoch=1, mleader=1, mresult=kr.R_NOTOK,
+                 merror=kr.E_NOTLEADER, msource=1, mdest=s),
+            dict(mtype=kr.JOINREQ, mepoch=1, msource=s, mdest=1)),
+        (kr.KR_REJECT_FETCH, False, "a spawned server's first fetch, mepoch 0"),
+        (kr.KR_HANDLE_REJECT_JOIN, False, "a reject-join response, its Discard arm"),
+        (kr.KR_REJECT_JOIN, False, "a join sent to a follower"))
+    joined = {("currentEpoch", s): 1, ("leader", s): 1, ("pf_active", s): 0,
+              ("pf_dest", s): 0, ("pf_observer", s): 0}
+    add(bag(row(joined), join), (kr.KR_ACCEPT_JOIN, False, "a join of a fresh identity"))
+    r = row({**joined, ("highWatermark", 0): L})
+    fill_log(r, 0, L)
+    add(bag(r, join), (kr.KR_ACCEPT_JOIN, True, "a fresh join at the leader's max_log"))
+    add(bag(row(),
+            dict(mtype=kr.FETCHREQ, mepoch=1, mfetchOffset=1, mlastFetchedEpoch=1, msource=1,
+                 mdest=0),
+            dict(mtype=kr.FETCHREQ, mepoch=1, mfetchOffset=3, mlastFetchedEpoch=1, msource=1,
+                 mdest=0),
+            dict(first_fetch, mepoch=1),
+            dict(mtype=kr.BQREQ, mepoch=1, msource=0, mdest=1),
+            dict(mtype=kr.RVREQ, mepoch=2, mlastLogEpoch=1, mlastLogOffset=1, msource=0,
+                 mdest=1)),
+        (kr.KR_ACCEPT_FETCH_VOTER, False, "a voter's fetch"),
+        (kr.KR_DIVERGING_FETCH, False, "a fetch past the leader's log"),
+        (kr.KR_ACCEPT_FETCH_OBSERVER, False, "an observer's fetch"),
+        (kr.KR_ACCEPT_BQREQ, False, "a BeginQuorum request"),
+        (kr.KR_HANDLE_RVREQ, False, "a vote request"))
+    r = row(pending)
+    fill_log(r, 1, 2)
+    add(bag(r, *resp), (kr.KR_HANDLE_FETCH_DIV, False, "a diverging fetch response"),
+        (kr.KR_HANDLE_FETCH_OK, False, "a success fetch response"),
+        (kr.KR_HANDLE_FETCH_NONSUCCESS, False, "an UnknownMember fetch response"))
+    r = row(pending)
+    fill_log(r, 1, L)
+    add(bag(r, *resp), (kr.KR_HANDLE_FETCH_OK, True, "a success response at max_log"))
+    add(bag(row({("state", 1): kr.CANDIDATE, ("currentEpoch", 1): 2, ("leader", 1): 0,
+                   ("votedFor", 1): 2, ("votesGranted", 1): 3}),
+            dict(mtype=kr.RVRESP, mepoch=2, mvoteGranted=1, msource=0, mdest=1)),
+        (kr.KR_HANDLE_RVRESP, False, "a granted vote"),
+        (kr.KR_BECOMELEADER, False, "a candidate holding a quorum"))
+    # the leader's committed config holds the spawned server too: a remove
+    # above MinClusterSize; the observer knows the leader: its join request
+    add(bag(row({**joined, ("cfg_members", 0): (1 << ics) - 1 | 1 << s})),
+        (kr.KR_SENDJOIN, False, "an observer outside its config"),
+        (kr.KR_HANDLE_REMOVE, False, "a remove above MinClusterSize"))
+    return np.stack(rows).astype(np.int32), expect
+
+
+def kreconfig_missing_arms(model, valid, rank, ovf) -> list:
+    """What the guard's (valid, rank, ovf) [C, A] over kreconfig_edge_rows'
+    rows (the forced rows last) lacks: each disjunct of Next valid on no
+    lane, and each expectation of kreconfig_forced_rows not met on its row.
+    Empty when every disjunct and every receipt arm fired."""
+    forced, expect = kreconfig_forced_rows(model)
+    valid, rank, ovf = (np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                        for x in (valid, rank, ovf))
+    fired = set(np.unique(rank[valid]).tolist())
+    missing = [n for k, n in enumerate(model.ACTION_NAMES) if k not in fired]
+    base = valid.shape[0] - len(forced)
+    for i, rk, o, what in expect:
+        hit = valid[base + i] & (rank[base + i] == rk)
+        if o:
+            hit = hit & ovf[base + i]
+        if not hit.any():
+            missing.append(f"{model.ACTION_NAMES[rk]} ({what})")
+    return missing
 
 
 # the reference tests' SMALLP constants (tests/test_kraft_reconfig.py:199-204)
@@ -1508,7 +1648,10 @@ def test_kreconfig_guard_apply_fold(dev):
     valid, rank, ovf, _ = gk
     for r in (kr.KR_REQUESTVOTE, kr.KR_CLIENTREQUEST):
         assert bool((valid & ovf & (rank == r)).any()), r
-    assert len(set(torch.unique(rank[valid]).tolist())) >= K - 3  # nearly every disjunct
+    # every disjunct, every receipt arm and the AcceptJoin overflow, none
+    # exempt: a guard of all rows (the dead tail above holds the forced rows)
+    gk = guard(model, states, C, torch.zeros_like(cov_k))
+    assert kreconfig_missing_arms(model, *gk[:3]) == []
     sel, _n = compact_indices(valid.reshape(-1), int(valid.sum()) + 300, C * A)
     other = torch.randint(0, C * A, (500,), device=dev, dtype=torch.int32)
     for s in (sel, other, sel[:0]):

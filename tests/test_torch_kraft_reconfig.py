@@ -41,7 +41,7 @@ from raft_tpu_torch.ops.packing import EMPTY
 from raft_tpu_torch.utils.cfg import CfgError, parse_cfg
 from raft_tpu_torch.utils.pprint import format_state, format_trace
 
-from test_torch_kernels_cuda import kreconfig_edge_rows
+from test_torch_kernels_cuda import kreconfig_edge_rows, kreconfig_missing_arms
 
 # one intra-op thread: tier-1 runs several test workers side by side, and
 # torch's default thread pool per worker oversubscribes the CPU
@@ -212,8 +212,9 @@ def test_expand_bit_identical(rows):
     for label, w, g in zip(("succs", "valid", "rank", "ovf"), want, got):
         assert w.shape == g.shape and np.array_equal(w, g), label
     assert want[1].sum() > len(batch)  # the batch really has enabled actions
-    if rows == "edge":  # every disjunct fires, and the puts and appends overflow
+    if rows == "edge":  # every disjunct and receipt arm fires, the puts and appends overflow
         assert set(np.unique(want[2][want[1]]).tolist()) == set(range(len(tm.ACTION_NAMES)))
+        assert kreconfig_missing_arms(tm, *want[1:]) == []
         hit = want[1] & want[3]
         for r in (kr.KR_REQUESTVOTE, kr.KR_BECOMELEADER, kr.KR_CLIENTREQUEST,
                   kr.KR_HANDLE_REMOVE, kr.KR_ACCEPT_JOIN, kr.KR_HANDLE_FETCH_OK):
