@@ -38,7 +38,12 @@ Phases, each of which fails the run on any mismatch:
      config appends (tests/test_torch_kernels_cuda.py config_edge_rows),
      with canon_memo's general path (N-word keys, the server_bitmask
      kind, up to 24 remap fields) on their successor rows and permuted
-     copies;
+     copies; raft_guard and raft_apply with the network-fault groups at
+     Raft.cfg's width (A = 165) on a chunk of its --net-faults frontier
+     (timed) and on edge rows with count-0, -1 and -2 records (both fault
+     groups fire; a count-2 record's duplicate and a count-0 record's
+     faults refused); raft_guard and pull_guard of fleet-packed models on
+     rows whose c_<name> lanes lie below the static maximum (timed);
   4. the main path: standard-raft Raft.cfg (inline text) checked through
      the function the CLI calls, on cuda, to exhaustion — 8,664,032
      distinct / 30,708,266 total / depth 48 / 19,514 terminal, no
@@ -76,6 +81,13 @@ Phases, each of which fails the run on any mismatch:
      counterexample's (or the deepest journal state's) trace replayed on
      the card and the CPU, and card against CPU at the reference tests'
      three-server constants;
+  4h. Raft.cfg with --net-faults (DuplicateMessage and DropMessage) to
+     NF_DEPTH through the same function: the Raft kernels once per chunk,
+     both fault actions fired, its depth counts held to the reference's
+     through the pinned depth 15 (scripts/pin_net_faults_counts.py), again
+     at twice the chunk with identical results, the deepest journal state's
+     trace replayed on the card and the CPU, and card against CPU at the
+     two-server constants of tests/test_net_faults.py;
   5. FlexibleRaft with quorums that need not intersect (3 servers,
      ElectionQuorumSize 2, ReplicationQuorumSize 1): the
      LeaderHasAllAckedValues violation, its gid, depth and trace on the
@@ -88,9 +100,11 @@ Phases, each of which fails the run on any mismatch:
      pinned depth 11 (its distinct, total, depth counts and coverage equal
      to the reference's), the PullRaft stand-in's exhaustion and KRaft.cfg
      to its pinned depth 30 (held to the reference's), and the two
-     reconfiguration cfgs to their pinned depths (held likewise), each once
-     untraced (wall per chunk) and once under torch.profiler (device time
-     per chunk by kernel group, the device's busy share);
+     reconfiguration cfgs to their pinned depths (held likewise), and
+     Raft.cfg with --net-faults to its pinned depth 15 (its depth counts and
+     coverage held to the reference's), each once untraced (wall per
+     chunk) and once under torch.profiler (device time per chunk by kernel
+     group, the device's busy share);
   7. simulate: FlexibleRaft's quorum violation (walk, depth, trace) and
      five-server FlexibleRaft for SMALL_MOVES moves (behaviors, steps,
      final states, journals) at SMALL_WALKS walks, card against CPU; then
@@ -123,8 +137,20 @@ Phases, each of which fails the run on any mismatch:
      ReconfigurationCompletes at MaxElections 0: AddRemove's graph card
      against CPU, JointConsensus' held to the port's CPU run, each through
      its family's guard, apply and predicates (P and Q);
-  9. the kernel table as one JSON line, the card's name and power limit,
-     and the result line.
+  7g. simulate Raft.cfg with --net-faults the same way (NF_SIM_MOVES
+     moves), the card against the CPU at the two-server constants;
+  9. fleet sweeps through run_sweep (the sweep CLI's function) on the
+     card: Raft.cfg's constants at MaxElections {1, 2} exhausted (one packed
+     group; the MaxElections-2 job at Raft.cfg's pinned counts), the PullRaft
+     stand-in at MaxElections {1, 2} (its MaxElections-2 job at the
+     reference's counts), Raft.cfg's at MaxElections {1, 2} x MaxRestarts
+     {0, 1} and a KRaft.cfg job to SWEEP_DEPTH (every job equal to a serial
+     card run of its constants), and manifests/kraft_reconfig_sim.json's
+     simulate group through sweep_main; one model per group, the families'
+     kernels and no plain expand;
+  10. the kernel table as one JSON line (each kernel, and the network-fault
+     and fleet-lane rows of the Raft and pull guards and applies), the
+     card's name and power limit, and the result line.
 """
 
 from __future__ import annotations
@@ -559,6 +585,63 @@ KRECONFIG_CAPS = dict(max_frontier_cap=1 << 24, max_seen_cap=1 << 26, max_journa
 KRECONFIG_SIM_MOVES = 100
 KRECONFIG_SMALL_SIM = (128, 20)
 
+# --net-faults (phases 3, 4h, 6, 7g): Raft.cfg with DuplicateMessage and
+# DropMessage (Raft.tla:508-523, at most max_msg_copies = 2 copies of a
+# record), msg_slots 48 (W = 192, A = 69 + 2 * 48 = 165). The reference's
+# dense DeviceBFS through depth 15 (scripts/pin_net_faults_counts.py: 657.7 s
+# on 8 CPU cores; the space does not exhaust on the CPU; ranks 12 and 13 of
+# the coverage are the two fault actions)
+NF_PIN = dict(
+    depth_counts=[1, 1, 5, 22, 92, 310, 904, 2297, 5481, 12584, 28903, 67769, 163195, 398099,
+                  968953, 2329619],
+    distinct=3_978_235, total=20_966_486, terminal=148, exhausted=False,
+    coverage=[[0, 0, 0], [39552, 79700, 3751], [169165, 173561, 29180],
+              [554408, 558023, 34409], [27387, 27387, 8795], [722340, 878918, 82041],
+              [907938, 1886574, 33460], [1411546, 2633618, 141578], [1081069, 1532433, 97990],
+              [227201, 248510, 35087], [464951, 528912, 96774], [315846, 327277, 85373],
+              [1608177, 5002599, 991413], [1646871, 7088973, 2338383]],
+)
+# the card's BFS depth (4h), the deepest that fits about 30 s and 70 GiB
+# (the frontier grows about 2.4x a level: depth 18's rows of 768 bytes,
+# held twice), with the capacities it needs; phase 3's sample depth; the
+# card-against-CPU runs at tests/test_net_faults.py:18-21's constants (two
+# servers, MaxElections 1, 12 message slots) to NF_SMALL_DEPTH (628 states)
+# and for SMALL_WALKS walks over SMALL_MOVES moves; the simulate's moves
+NF_DEPTH = 18
+NF_CAPS = dict(max_frontier_cap=1 << 25, max_seen_cap=1 << 26, max_journal_cap=1 << 26)
+NF_SAMPLE_DEPTH = 12
+NF_SMALL_CFG = RAFT_CFG.replace("    n3 = n3\n", "").replace(
+    "Server = { n1, n2, n3 }", "Server = { n1, n2 }").replace(
+    "MaxElections = 2", "MaxElections = 1")
+NF_SMALL_DEPTH = 12
+NF_SIM_MOVES = 100
+
+# the sweep (phase 9): fleet manifests run by ``run_sweep`` on the card,
+# DeviceBFS's queue arm. (a) Raft.cfg's constants with MaxElections {1, 2},
+# exhausted: one packed group whose MaxElections-2 job is Raft.cfg itself
+# (EXHAUSTED); (b) the PullRaft stand-in's (PULL_CFG) with MaxElections
+# {1, 2}: its MaxElections-2 job is PULL_PIN; (c) Raft.cfg's with
+# MaxElections {1, 2} x MaxRestarts {0, 1} to SWEEP_DEPTH, each job equal
+# to a serial card run of its own constants, and a KRaft.cfg job (a serial
+# group); (d) manifests/kraft_reconfig_sim.json as it stands (a simulate
+# group) through the sweep CLI
+SWEEP_DEPTH = 16
+
+
+def sweep_manifest(text: str, spec: str, grid: dict, slots: int, jobs=()) -> dict:
+    """A fleet manifest with a cfg text's constants and invariants as its
+    defaults, ``grid`` over them, and extra explicit ``jobs``."""
+    from raft_tpu_torch.utils.cfg import ModelValue, parse_cfg
+
+    cfg = parse_cfg(f"{spec}.cfg", text=text, lenient=True)
+    consts = {k: ([x.name for x in v] if isinstance(v, tuple) else v)
+              for k, v in cfg.constants.items()
+              if not isinstance(v, ModelValue)}  # declarations (n1 = n1) are implied
+    return {"spec": spec, "defaults": {"constants": consts, "invariants": cfg.invariants,
+                                       "msg_slots": slots},
+            "grid": grid, "jobs": list(jobs)}
+
+
 # (distinct, total, depth, terminal) of Raft.cfg: exhausted, and at depth
 # 20 (the sample and trace runs), pinned from the reference's dense path
 EXHAUSTED = (8_664_032, 30_708_266, 48, 19_514)
@@ -671,6 +754,14 @@ KRECONFIG_FAM = dict(prefix="kreconfig", tag="4g", sim_tag="7f", cfg=KRAFT_RECON
                      small_cfg=KRECONFIG_SMALL_CFG, small_nosym=True, path=KRECONFIG_PATH,
                      depth=KRECONFIG_DEPTH, caps=KRECONFIG_CAPS, second_chunk=CHUNK // 2,
                      sim_moves=KRECONFIG_SIM_MOVES, small_sim=KRECONFIG_SMALL_SIM, violation=None)
+# Raft.cfg with --net-faults: the Raft family's kernels on the main path to
+# NF_DEPTH, both fault actions fired, again at twice the chunk, card against
+# CPU at the two-server constants
+NF_FAM = dict(prefix="raft", tag="4h", sim_tag="7g", cfg=RAFT_CFG, lenient=False, net_faults=True,
+              specs=(("Raft", NF_PIN, NF_SAMPLE_DEPTH),), small=("Raft", NF_SMALL_DEPTH),
+              small_cfg=NF_SMALL_CFG, small_slots=12, path=RAFT3_PATH, depth=NF_DEPTH,
+              caps=NF_CAPS, second_chunk=2 * CHUNK, sim_moves=NF_SIM_MOVES, violation=None,
+              must_fire=("DuplicateMessage", "DropMessage"))
 # integer operations of one threefry2x32 block: 20 rounds of an add, a
 # rotate (two shifts and an or) and a xor, and 6 key injections of 3 adds
 THREEFRY_OPS = 20 * 5 + 6 * 3
@@ -1529,15 +1620,108 @@ def family_kernel_rows(torch, rng, fam) -> dict:
     return rows
 
 
-def run_family(fam, spec, device, depth, chunk=CHUNK, text=None):
+def net_fault_kernel_rows(torch, rng) -> dict:
+    """Phase 3 for --net-faults at Raft.cfg's full width (A = 165):
+    raft_guard, raft_apply and raft_fold against their plain versions on a
+    CHUNK of the card's own depth-NF_SAMPLE_DEPTH frontier (timed: the rows
+    ``raft_guard[net_faults]``, ``raft_apply[net_faults]``) and on edge rows
+    (tests/test_torch_kernels_cuda.py's net_fault_rows: count-1 records,
+    count-2 ones whose duplicate is refused, count-0 ones both faults refuse
+    while the record stays, counts out of range), on which both fault
+    groups must fire and the guard's whole grid equal the plain one."""
+    from test_torch_kernels_cuda import net_fault_rows
+
+    from raft_tpu_torch.ops.expand import guard, guard_plain
+    from raft_tpu_torch.ops.packing import EMPTY
+
+    fam, t = NF_FAM, time.perf_counter()
+    _, bfs, res = run_family(fam, "Raft", "cuda", NF_SAMPLE_DEPTH)
+    check(res.depth_counts == NF_PIN["depth_counts"][:NF_SAMPLE_DEPTH + 1],
+          f"net-faults sample depth counts {res.depth_counts}")
+    model = bfs.model
+    check(model.A == 165, f"Raft.cfg with --net-faults has A = {model.A}, not 165")
+    pool = bfs.frontier_rows.cpu().numpy()
+    print(f"[3] sampled the depth-{NF_SAMPLE_DEPTH} Raft.cfg --net-faults frontier ({len(pool)} "
+          f"states) in {time.perf_counter() - t:.1f} s")
+    rows = {f"{k}[net_faults]": r for k, r in expand_kernels(torch, bfs, pool, rng, timed=True)
+            .items() if k in ("raft_guard", "raft_apply")}
+    edge = net_fault_rows(model, pool[rng.integers(0, len(pool), 1024)],
+                          seed=int(rng.integers(0, 1 << 20)))
+    expand_kernels(torch, bfs, edge, rng, timed=False)
+    # the whole edge grid: every row, both fault groups, the counts 0, 1, 2
+    st = torch.from_numpy(edge).to(bfs.device)
+    K = len(model.ACTION_NAMES)
+    covs = [torch.zeros((K, 3), dtype=torch.int64, device=bfs.device) for _ in range(2)]
+    gk, gp = guard(model, st, len(edge), covs[0]), guard_plain(model, st, len(edge), covs[1])
+    check(all(torch.equal(a, b) for a, b in zip(gk, gp)) and torch.equal(*covs),
+          "raft_guard differs from its plain version on the net-fault edge rows")
+    M, lay = model.p.msg_slots, model.layout
+    valid = gk[0].cpu().numpy()
+    dup, drop = valid[:, model.A - 2 * M:model.A - M], valid[:, model.A - M:]
+    occ = edge[:, lay.sl("msg_hi")] != EMPTY
+    cnt = edge[:, lay.sl("msg_cnt")]
+    for c, want in ((0, (False, False)), (1, (True, True)), (2, (False, True))):
+        hit = occ & (cnt == c)
+        check(hit.any() and (dup[hit] == want[0]).all() and (drop[hit] == want[1]).all(),
+              f"net-fault edge rows: count-{c} records (dup, drop) != {want}")
+    check(dup.any() and drop.any(), "a fault group never fired on the edge rows")
+    print(f"[3] Raft.cfg --net-faults: raft_guard exact on all {len(edge)} edge rows (count-0, "
+          f"-1 and -2 records; DuplicateMessage on {int(dup.sum())} lanes, DropMessage on "
+          f"{int(drop.sum())})")
+    del bfs
+    return rows
+
+
+def fleet_kernel_rows(torch, rng) -> dict:
+    """Phase 3 for the fleet lanes: raft_guard (the packed Raft.cfg group of
+    phase 9(c), MaxElections and MaxRestarts lanes) and pull_guard (the
+    packed PullRaft stand-in of 9(b), the MaxElections lane) with
+    raft_apply/pull_apply and the folds against their plain versions on a
+    CHUNK of packed states from the card's own BFS of all the group's jobs
+    at once, their c_<name> lanes redrawn below the static maximum
+    (tests/test_torch_kernels_cuda.py's fleet_rows); the guards timed (the
+    rows ``raft_guard[fleet]`` and ``pull_guard[fleet]``)."""
+    from test_torch_kernels_cuda import fleet_rows
+
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+    from raft_tpu_torch.fleet import build_packed, group_jobs, parse_manifest_obj
+
+    rows = {}
+    for obj, depth in ((sweep_manifest(RAFT_CFG, "Raft", {"MaxElections": [1, 2],
+                                                          "MaxRestarts": [0, 1]}, 48), 14),
+                       (sweep_manifest(PULL_CFG, "PullRaft", {"MaxElections": [1, 2]}, 64),
+                        PULL_SAMPLE_DEPTH)):
+        t = time.perf_counter()
+        (group,) = group_jobs(parse_manifest_obj(obj, "<phase 3>"))
+        model = build_packed(group)
+        bfs = DeviceBFS(model, invariants=group.setups[0].invariants, chunk=CHUNK,
+                        device="cuda", max_frontier_cap=1 << 23)
+        bfs.run(max_depth=depth)  # every job of the group at once (no fleet_select)
+        fr = bfs.frontier_rows
+        if fr.shape[0] > POOL_ROWS:
+            pick = np.sort(rng.choice(fr.shape[0], POOL_ROWS, replace=False))
+            fr = fr[torch.from_numpy(pick).to(fr.device)]
+        pool = fleet_rows(model, fr.cpu().numpy(), seed=int(rng.integers(0, 1 << 20)))
+        fam = family_of(model)
+        print(f"[3] sampled the depth-{depth} packed {model.name} frontier of "
+              f"{len(group.jobs)} jobs ({bfs.frontier_rows.shape[0]} states; lanes "
+              f"{list(group.dyn_consts)} redrawn) in {time.perf_counter() - t:.1f} s")
+        rows[f"{fam}_guard[fleet]"] = expand_kernels(torch, bfs, pool, rng,
+                                                     timed=True)[f"{fam}_guard"]
+        del bfs, fr
+    return rows
+
+
+def run_family(fam, spec, device, depth, chunk=CHUNK, text=None, msg_slots=None):
     """run_check (the CLI's function) of one of the family's specs on its
     cfg text or ``text`` (the pull stand-in and AddRemove parsed
     leniently: the parse declares PullRaft's v2 and repairs AddRemove's
-    MaxClusterSize), with the family's capacities."""
+    MaxClusterSize), with the family's capacities and network faults."""
     from raft_tpu_torch.__main__ import run_check
 
     return run_check(f"{spec}.cfg", text=text or fam["cfg"], device=device, chunk=chunk,
-                     max_depth=depth, lenient=fam["lenient"], caps=fam.get("caps"))
+                     max_depth=depth, lenient=fam["lenient"], caps=fam.get("caps"),
+                     net_faults=fam.get("net_faults", False), msg_slots=msg_slots)
 
 
 def family_main_phase(torch, fam) -> dict:
@@ -1563,7 +1747,7 @@ def family_main_phase(torch, fam) -> dict:
         if k == 0:
             setup, bfs, res, wall, launches, n_expand, n_sort = counted_run(
                 torch, f"{spec}.cfg", fam["cfg"], lenient=fam["lenient"], max_depth=depth,
-                caps=fam.get("caps"))
+                caps=fam.get("caps"), net_faults=fam.get("net_faults", False))
         else:
             t = time.perf_counter()
             setup, bfs, res = run_family(fam, spec, "cuda", depth)
@@ -1599,6 +1783,11 @@ def family_main_phase(torch, fam) -> dict:
                   f"{spec} depth counts {res.depth_counts[:n_pin]} != the reference's")
             held = f"depth counts through the pinned depth {n_pin - 1}"
         print(f"[{tag}] {spec}: {held} equal the reference's")
+        for action in fam.get("must_fire", ()) if k == 0 else ():
+            r = model.ACTION_NAMES.index(action)
+            check(res.coverage[r][1] > 0, f"{spec}: {action} never fired")
+            print(f"[{tag}] {spec}: {action} fired {res.coverage[r][1]} times, "
+                  f"{res.coverage[r][2]} of them to a new state")
         if k:
             report[spec] = run
             del bfs
@@ -1648,7 +1837,8 @@ def family_main_phase(torch, fam) -> dict:
         runs = {}
         for d in ("cuda", "cpu"):
             t = time.perf_counter()
-            runs[d] = (run_family(fam, spec, d, depth, chunk=1024, text=text)[2],
+            runs[d] = (run_family(fam, spec, d, depth, chunk=1024, text=text,
+                                  msg_slots=fam.get("small_slots"))[2],
                        time.perf_counter() - t)
         (sg, t_card), (sc, t_cpu) = runs["cuda"], runs["cpu"]
         check((sg.distinct, sg.total, sg.terminal, sg.depth_counts, sg.coverage)
@@ -1674,14 +1864,16 @@ def family_simulate_phase(torch, fam) -> dict:
 
     tag, pre, t0 = fam["sim_tag"], fam["prefix"], time.perf_counter()
     spec = fam["specs"][0][0]
-    kw = dict(text=fam["cfg"], max_behavior_depth=SIM_DEPTH, seed=0, lenient=fam["lenient"])
+    kw = dict(text=fam["cfg"], max_behavior_depth=SIM_DEPTH, seed=0, lenient=fam["lenient"],
+              net_faults=fam.get("net_faults", False))
     small = {}
     walks, moves_small = fam.get("small_sim", (SMALL_WALKS, SMALL_MOVES))
     for d in ("cuda", "cpu"):
         t = time.perf_counter()
         _, sim, res = run_simulate(f"{spec}.cfg", device=d, walks=walks,
                                    max_steps=moves_small * walks,
-                                   **dict(kw, text=fam.get("small_cfg", fam["cfg"])))
+                                   **dict(kw, text=fam.get("small_cfg", fam["cfg"]),
+                                          msg_slots=fam.get("small_slots")))
         small[d] = (sim, res, time.perf_counter() - t)
     (sg, fg, t_card), (sc, fc, t_cpu) = small["cuda"], small["cpu"]
     check(fg.violation is None and fc.violation is None
@@ -1722,7 +1914,8 @@ def family_simulate_phase(torch, fam) -> dict:
           f"peak device memory {peak / 2**30:.2f} GiB; {pre}_guard, sim_pick, {pre}_apply, "
           f"{pre}_sim_check once per move, {pre}_predicates once")
     del sim
-    setup = load_setup(f"{spec}.cfg", text=fam["cfg"], lenient=fam["lenient"])
+    setup = load_setup(f"{spec}.cfg", text=fam["cfg"], lenient=fam["lenient"],
+                       net_faults=fam.get("net_faults", False))
     sim = Simulator(setup.model, setup.invariants, walks=SIM_WALKS, max_behavior_depth=SIM_DEPTH,
                     seed=0, device="cuda")
     sim.start()
@@ -2241,6 +2434,114 @@ def kreconfig_liveness_phase(torch) -> dict:
     return report
 
 
+def sweep_phase(torch) -> dict:
+    """Phase 9: fleet sweeps on the card through ``run_sweep`` (the
+    function the sweep CLI calls) with every kernel's count read around
+    each: (a) Raft.cfg's constants at MaxElections {1, 2}, exhausted, one
+    packed group, its MaxElections-2 job at Raft.cfg's pinned counts; (b)
+    the PullRaft stand-in at MaxElections {1, 2}, its MaxElections-2 job
+    at the reference's counts; (c) Raft.cfg's at MaxElections {1, 2} x
+    MaxRestarts {0, 1} to SWEEP_DEPTH and a KRaft.cfg job (a serial group),
+    each job equal to a serial card run of its own constants; (d)
+    manifests/kraft_reconfig_sim.json (a simulate group) through the CLI's
+    ``sweep_main``. Each sweep runs one model per group (``precompiles`` =
+    groups), no plain expand and no kernel off its families' paths."""
+    import contextlib
+    import io
+
+    from raft_tpu_torch.__main__ import run_check
+    from raft_tpu_torch.fleet import SweepOptions, parse_manifest_obj, run_sweep
+    from raft_tpu_torch.fleet.cli import sweep_main
+
+    t0, report = time.perf_counter(), {}
+    opts = SweepOptions(device="cuda", chunk=CHUNK)
+
+    def sweep(key, obj, paths, depth=None):
+        torch.cuda.empty_cache()
+        opts.max_depth = depth
+        res, wall, launches, n_expand, n_sort = counted(
+            torch, lambda: run_sweep(parse_manifest_obj(obj, f"<9{key}>"), opts))
+        allowed = set().union(*paths)
+        for k in allowed:
+            check(launches[k] > 0, f"9{key}: {k} was never launched")
+        for k in set(KERNEL_NAMES) - allowed:
+            check(launches[k] == 0, f"9{key}: {k} launched off the sweep's paths")
+        check(n_expand == 0 and n_sort == 0,
+              f"9{key}: the plain expand ran {n_expand} times, torch sorted {n_sort} times")
+        check(res.rc == 0 and res.precompiles == res.groups,
+              f"9{key}: rc {res.rc}, amortization {res.amortization}")
+        jobs = {j.name: j for j in res.jobs}
+        report[key] = {"seconds": wall, "amortization": res.amortization, "launches": launches,
+                       "jobs": [j.to_json() for j in res.jobs]}
+        print(f"[9{key}] {len(jobs)} jobs in {res.groups} groups in {wall:.2f} s: "
+              + "; ".join(f"{n} {j.distinct}/{j.total}/{j.depth}/{j.terminal}"
+                          for n, j in jobs.items()))
+        return jobs
+
+    def serial(text, spec, consts, depth, slots, lenient=False):
+        for k, v in consts.items():
+            text = re.sub(rf"{k} = \d+", f"{k} = {v}", text)
+        r = run_check(f"{spec}.cfg", text=text, device="cuda", chunk=CHUNK, max_depth=depth,
+                      msg_slots=slots, lenient=lenient)[2]
+        return (r.distinct, r.total, r.depth, r.terminal)
+
+    def counts(j):
+        return (j.distinct, j.total, j.depth, j.terminal)
+
+    # (a) Raft.cfg at MaxElections {1, 2}, exhausted
+    jobs = sweep("a", sweep_manifest(RAFT_CFG, "Raft", {"MaxElections": [1, 2]}, 48),
+                 [RAFT3_PATH])
+    check(counts(jobs["Raft-MaxElections=2"]) == EXHAUSTED,
+          f"9a: the MaxElections-2 job {counts(jobs['Raft-MaxElections=2'])} != {EXHAUSTED}")
+    one = serial(RAFT_CFG, "Raft", {"MaxElections": 1}, None, 48)
+    check(counts(jobs["Raft-MaxElections=1"]) == one, f"9a: the MaxElections-1 job != {one}")
+    # (b) the PullRaft stand-in at MaxElections {1, 2}, exhausted
+    jobs = sweep("b", sweep_manifest(PULL_CFG, "PullRaft", {"MaxElections": [1, 2]}, 64),
+                 [PULL_PATH])
+    pin = (PULL_PIN["distinct"], PULL_PIN["total"], len(PULL_PIN["depth_counts"]) - 1,
+           PULL_PIN["terminal"])
+    check(counts(jobs["PullRaft-MaxElections=2"]) == pin,
+          f"9b: the MaxElections-2 job {counts(jobs['PullRaft-MaxElections=2'])} != {pin}")
+    # (c) Raft.cfg at MaxElections {1, 2} x MaxRestarts {0, 1} and a KRaft.cfg
+    # job, to SWEEP_DEPTH, each against a serial run of its constants
+    kraft = sweep_manifest(KRAFT_CFG, "KRaft", {}, 80)["defaults"]
+    obj = sweep_manifest(RAFT_CFG, "Raft", {"MaxElections": [1, 2], "MaxRestarts": [0, 1]}, 48,
+                         jobs=[dict(kraft, name="KRaft.cfg", spec="KRaft")])
+    jobs = sweep("c", obj, [RAFT3_PATH, KRAFT_PATH], depth=SWEEP_DEPTH)
+    for me in (1, 2):
+        for mr in (0, 1):
+            name = f"Raft-MaxElections={me}-MaxRestarts={mr}"
+            want = serial(RAFT_CFG, "Raft", {"MaxElections": me, "MaxRestarts": mr},
+                          SWEEP_DEPTH, 48)
+            check(counts(jobs[name]) == want, f"9c: {name} {counts(jobs[name])} != serial {want}")
+    want = serial(KRAFT_CFG, "KRaft", {}, SWEEP_DEPTH, 80)
+    check(counts(jobs["KRaft.cfg"]) == want, f"9c: the KRaft job != serial {want}")
+    print(f"[9c] every job equals a serial card run of its own constants to depth {SWEEP_DEPTH}")
+    # (d) the repo's simulate manifest through the CLI's sweep_main
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "manifests",
+                        "kraft_reconfig_sim.json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, wall, launches, n_expand, _ = counted(
+            torch, lambda: sweep_main([path, "--json", "--device", "cuda"]))
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    agg = lines[-1]
+    check(rc == 0 and agg["rc"] == 0 and agg["amortization"]["groups"] == 1
+          and agg["amortization"]["precompiles"] == 1
+          and [j["mode"] for j in lines[:-1]] == ["simulate"] * 3
+          and all(j["behaviors"] > 0 for j in lines[:-1]) and n_expand == 0,
+          f"9d: rc {rc}, {agg}")
+    for k in ("kreconfig_guard", "kreconfig_apply", "kreconfig_sim_check", "sim_pick"):
+        check(launches[k] > 0, f"9d: {k} was never launched")
+    report["d"] = {"seconds": wall, "amortization": agg["amortization"], "jobs": lines[:-1]}
+    print(f"[9d] {path}: rc 0, {len(lines) - 1} simulate jobs in one group in {wall:.2f} s: "
+          + "; ".join(f"{j['job']} behaviors={j['behaviors']} steps={j['steps']}"
+                      for j in lines[:-1]))
+    report["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"sweep": report}))
+    return report
+
+
 def main() -> int:
     t_start = time.perf_counter()
     phase_start = {}  # phase -> its start on the host clock
@@ -2501,6 +2802,9 @@ def main() -> int:
     rows.update(family_kernel_rows(torch, rng, RECONFIG_FAM))
     rows.update(family_kernel_rows(torch, rng, JOINT_FAM))
     rows.update(family_kernel_rows(torch, rng, KRECONFIG_FAM))
+    # the network-fault arms at Raft.cfg's width, and the fleet lanes' reads
+    rows.update(net_fault_kernel_rows(torch, rng))
+    rows.update(fleet_kernel_rows(torch, rng))
     for k, r in rows.items():
         print(f"[3] {k}: exact; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
@@ -2576,6 +2880,9 @@ def main() -> int:
     phase_start["4g"] = time.perf_counter()
     # ---- 4g. KRaftWithReconfig on the main path ----
     kreconfig_report = family_main_phase(torch, KRECONFIG_FAM)
+    phase_start["4h"] = time.perf_counter()
+    # ---- 4h. Raft.cfg with --net-faults on the main path ----
+    nf_report = family_main_phase(torch, NF_FAM)
 
     phase_start["5"] = time.perf_counter()
     # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
@@ -2679,6 +2986,18 @@ def main() -> int:
           f"the reference's, {traces['kreconfig']['chunks']} chunks, "
           f"{traces['kreconfig']['wall_ms_per_chunk']:.3f} ms/chunk wall")
     print(json.dumps({"trace_kreconfig": traces["kreconfig"]}))
+    phase_start["6h"] = time.perf_counter()  # 4h's column
+    npin = len(NF_PIN["depth_counts"]) - 1
+    traces["net_faults"], rn = trace_run(
+        torch, "Raft.cfg", RAFT_CFG, npin,
+        (NF_PIN["distinct"], NF_PIN["total"], npin, NF_PIN["terminal"]), net_faults=True)
+    check(rn.depth_counts == NF_PIN["depth_counts"] and rn.coverage == NF_PIN["coverage"],
+          "Raft.cfg --net-faults depth counts or coverage at the pinned depth differ from the "
+          "reference's")
+    print(f"[6] Raft.cfg --net-faults depth {npin}: distinct, total, depth counts and coverage "
+          f"equal the reference's, {traces['net_faults']['chunks']} chunks, "
+          f"{traces['net_faults']['wall_ms_per_chunk']:.3f} ms/chunk wall")
+    print(json.dumps({"trace_net_faults": traces["net_faults"]}))
 
     phase_start["7"] = time.perf_counter()
     # ---- 7. simulate ----
@@ -2700,6 +3019,9 @@ def main() -> int:
     phase_start["7f"] = time.perf_counter()
     # ---- 7f. simulate KRaftWithReconfig (the mode its cfg prescribes) ----
     kreconfig_sim_report = family_simulate_phase(torch, KRECONFIG_FAM)
+    phase_start["7g"] = time.perf_counter()
+    # ---- 7g. simulate Raft.cfg with --net-faults ----
+    family_simulate_phase(torch, NF_FAM)
 
     phase_start["8"] = time.perf_counter()
     # ---- 8. liveness ----
@@ -2720,7 +3042,11 @@ def main() -> int:
     kreconfig_liveness_phase(torch)
 
     phase_start["9"] = time.perf_counter()
-    # ---- 9. results ----
+    # ---- 9. fleet sweeps ----
+    sweep_report = sweep_phase(torch)
+
+    phase_start["10"] = time.perf_counter()
+    # ---- 10. results ----
     meta = {
         "canon_memo": ("raft_tpu_torch/csrc/canon_memo.cu", "raft_tpu/ops/symmetry.py:1230"),
         "probe_runs": ("raft_tpu_torch/csrc/probe_runs.cu", "raft_tpu/checker/util.py:21"),
@@ -2782,6 +3108,16 @@ def main() -> int:
                                  "raft_tpu/checker/liveness.py:254"),
         "slot_canon": ("raft_tpu_torch/csrc/slot_canon.cu",
                        "raft_tpu/models/kraft_reconfig.py:2059"),
+        # the network-fault groups' arms and the fleet lanes' reads in the
+        # Raft and pull kernels
+        "raft_guard[net_faults]": ("raft_tpu_torch/csrc/raft_expand.cu",
+                                   "raft_tpu/models/raft.py:583"),
+        "raft_apply[net_faults]": ("raft_tpu_torch/csrc/raft_expand.cu",
+                                   "raft_tpu/models/raft.py:597"),
+        "raft_guard[fleet]": ("raft_tpu_torch/csrc/raft_expand.cu",
+                              "raft_tpu/models/base.py:217"),
+        "pull_guard[fleet]": ("raft_tpu_torch/csrc/pull_expand.cu",
+                              "raft_tpu/models/pull_raft.py:269"),
     }
     # launches: each kernel's count on the path that runs it (Raft.cfg's
     # for the kernels both paths share, liveness' for raft_predicates,
@@ -2810,7 +3146,12 @@ def main() -> int:
                          (kreconfig_sim_report, "kreconfig"))
                         for k in (f"{fam}_sim_check", f"{fam}_predicates")},
                      **{k: kreconfig_report["launches"][k] for k in KRECONFIG_PATH
-                        if k.startswith(("kreconfig_", "slot_canon"))}}
+                        if k.startswith(("kreconfig_", "slot_canon"))},
+                     # 4h's run; the packed groups of sweeps 9a and 9b
+                     "raft_guard[net_faults]": nf_report["launches"]["raft_guard"],
+                     "raft_apply[net_faults]": nf_report["launches"]["raft_apply"],
+                     "raft_guard[fleet]": sweep_report["a"]["launches"]["raft_guard"],
+                     "pull_guard[fleet]": sweep_report["b"]["launches"]["pull_guard"]}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": path_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -2818,11 +3159,11 @@ def main() -> int:
          "library_ms": r["library_ms"]}
         for k, r in rows.items()
     ]
-    check(len(table) == len(KERNEL_NAMES), f"{len(table)} kernels in the table")
+    check(len(table) == len(KERNEL_NAMES) + 4, f"{len(table)} kernels in the table")
     tags = list(phase_start)
     phase_s = {t: round(phase_start[n] - phase_start[t], 1) for t, n in zip(tags, tags[1:])}
     print(json.dumps({"phase_seconds": phase_s}))
-    print(f"[9] total {time.perf_counter() - t_start:.1f} s")
+    print(f"[10] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"torch_sort": sort_row}))
     print(json.dumps({"kernels": table}))
     print(smi)

@@ -4,11 +4,15 @@
     python -m raft_tpu_torch path/to/FlexibleRaft.cfg --simulate N [--sim-walks R]
     python -m raft_tpu_torch path/to/PullRaft.cfg --lenient [--simulate N]
     python -m raft_tpu_torch path/to/KRaft.cfg [--simulate N]
+    python -m raft_tpu_torch path/to/Raft.cfg --net-faults [--simulate N]
+    python -m raft_tpu_torch sweep MANIFEST.json [--engine tpu] [--device cuda|cpu]
 
 Runs the device BFS on ``cuda`` (the default; ``--device cpu`` runs the
 plain PyTorch versions of the kernels instead). ``-deadlock`` semantics
 are the default: terminal states are reported, not errors. ``--simulate
-N`` runs N random behaviors instead (TLC's ``-simulate``). A cfg's
+N`` runs N random behaviors instead (TLC's ``-simulate``).
+``--net-faults`` adds the Raft family's DuplicateMessage and DropMessage
+actions. ``sweep`` runs a fleet manifest (``fleet/cli.py``). A cfg's
 PROPERTY lines are checked after a clean exhaustive BFS on the full
 state graph (symmetry off); configurations that cannot be checked are
 refused.
@@ -31,9 +35,11 @@ import sys
 
 
 def load_setup(cfg_path: str, text: str | None = None, spec: str | None = None,
-               msg_slots: int | None = None, lenient: bool = False):
+               msg_slots: int | None = None, lenient: bool = False,
+               net_faults: bool = False):
     """Parse a cfg (``text`` overrides reading ``cfg_path``) and build its
-    model: the ``CheckSetup``."""
+    model: the ``CheckSetup`` (``net_faults``: the Raft family's
+    network-fault actions)."""
     from .models.registry import build_from_cfg
     from .utils.cfg import parse_cfg
 
@@ -41,7 +47,7 @@ def load_setup(cfg_path: str, text: str | None = None, spec: str | None = None,
     for diag in cfg.diagnostics:
         print(f"config warning: {diag}", file=sys.stderr)
     n = len(cfg.diagnostics)
-    setup = build_from_cfg(cfg, spec=spec, msg_slots=msg_slots)
+    setup = build_from_cfg(cfg, spec=spec, msg_slots=msg_slots, net_faults=net_faults)
     for diag in cfg.diagnostics[n:]:  # repairs made while building (AddRemove's MaxClusterSize)
         print(f"config warning: {diag}", file=sys.stderr)
     return setup
@@ -63,10 +69,11 @@ def run_check(cfg_path: str, text: str | None = None, device=None,
               chunk: int = 4096, msg_slots: int | None = None,
               max_depth: int | None = None, time_budget_s: float | None = None,
               spec: str | None = None, symmetry: bool = True,
-              lenient: bool = False, verbose: bool = False, caps=None):
+              lenient: bool = False, verbose: bool = False, caps=None,
+              net_faults: bool = False):
     """Parse a cfg, build the model and run the device BFS. Returns
     (setup, checker, result)."""
-    setup = load_setup(cfg_path, text, spec, msg_slots, lenient)
+    setup = load_setup(cfg_path, text, spec, msg_slots, lenient, net_faults)
     checker, res = _bfs(setup, device, chunk, max_depth, time_budget_s, symmetry, verbose,
                         caps)
     return setup, checker, res
@@ -85,11 +92,13 @@ def _sim(setup, device=None, walks: int = 128, max_behavior_depth: int = 50, see
 def run_simulate(cfg_path: str, text: str | None = None, device=None,
                  msg_slots: int | None = None, walks: int = 128,
                  max_behavior_depth: int = 50, seed: int = 0,
-                 max_steps: int | None = None, lenient: bool = False):
+                 max_steps: int | None = None, lenient: bool = False,
+                 net_faults: bool = False):
     """Parse a cfg, build the model and run simulation mode (``walks``
     random walks in lock-step, ``max_steps`` transitions in all). Returns
     (setup, simulator, result)."""
-    setup = load_setup(cfg_path, text, msg_slots=msg_slots, lenient=lenient)
+    setup = load_setup(cfg_path, text, msg_slots=msg_slots, lenient=lenient,
+                       net_faults=net_faults)
     sim, res = _sim(setup, device, walks, max_behavior_depth, seed, max_steps=max_steps)
     return setup, sim, res
 
@@ -172,6 +181,12 @@ def _liveness(setup, args) -> int:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "sweep":
+        # the fleet subcommand: `raft_tpu_torch sweep MANIFEST.json`
+        from .fleet.cli import sweep_main
+
+        return sweep_main(argv[1:])
     ap = argparse.ArgumentParser(prog="raft_tpu_torch")
     ap.add_argument("cfg", help="TLC .cfg file (the spec is inferred from its name)")
     ap.add_argument("--spec", help="spec/module name override")
@@ -196,6 +211,13 @@ def main(argv=None) -> int:
     ap.add_argument("--sim-walks", type=int, default=128,
                     help="parallel walks per device batch in simulation mode")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--net-faults",
+        action="store_true",
+        help="enable the opt-in DuplicateMessage/DropMessage network-"
+        "fault actions (Raft.tla:508-523; Raft family only; duplication "
+        "bounded to max_msg_copies per record)",
+    )
     ap.add_argument("--no-symmetry", action="store_true", help="ignore SYMMETRY")
     ap.add_argument("--trace-format", default="default", choices=["default", "tlc"])
     ap.add_argument("--lenient", action="store_true",
@@ -218,7 +240,7 @@ def main(argv=None) -> int:
     }
     try:
         setup = load_setup(args.cfg, spec=args.spec, msg_slots=args.msg_slots,
-                           lenient=args.lenient)
+                           lenient=args.lenient, net_faults=args.net_faults)
     except FileNotFoundError as e:
         print(f"error: {e}", file=sys.stderr)
         return 66

@@ -503,6 +503,43 @@ class DeviceBFS:
             exit_cause=exit_cause,
         )
 
+    def run_fleet(self, job_names: list[str] | None = None, skip: tuple[str, ...] = (),
+                  telemetry=None, checkpoint_dir: str | None = None, resume: bool = False,
+                  supervise: int | None = None, chaos_by_job: dict | None = None,
+                  **run_kw) -> list:
+        """Fleet queue arm (``run_fleet`` of the reference,
+        ``raft_tpu/checker/device_bfs.py:1594-1669``): run a fleet-bound
+        model's jobs one at a time through THIS engine. ``fleet_select(j)``
+        changes only which job's constants the initial states carry, so
+        every job reuses the engine's kernels and buffers. Jobs named in
+        ``skip`` yield None. Telemetry, checkpoints, chaos and supervision
+        are not ported (their modules are not): passing any raises."""
+        unported = [n for n, v in (("telemetry", telemetry), ("checkpoint_dir", checkpoint_dir),
+                                   ("resume", resume), ("supervise", supervise),
+                                   ("chaos_by_job", chaos_by_job)) if v]
+        if unported:
+            raise NotImplementedError(
+                f"run_fleet: {', '.join(unported)} not ported to raft_tpu_torch (the "
+                "resilience and observability modules are not)")
+        model = self.model
+        J = model.fleet_jobs
+        if J == 0:
+            raise ValueError("run_fleet needs a fleet-bound model (fleet_bind)")
+        names = list(job_names) if job_names else [f"job{j}" for j in range(J)]
+        if len(names) != J:
+            raise ValueError(f"{len(names)} job names for {J} jobs")
+        results = []
+        try:
+            for j, name in enumerate(names):
+                if name in skip:
+                    results.append(None)
+                    continue
+                model.fleet_select(j)
+                results.append(self.run(**run_kw))
+        finally:
+            model.fleet_select(None)
+        return results
+
     def _check_init(self, init_d: np.ndarray) -> Violation | None:
         """The invariants on the initial states, through the fold: every
         state is new and the journal cursor is 0, so viol[k] is the index

@@ -33,15 +33,11 @@ def params_from_reference(d: dict):
     from ``dataclasses.asdict``
     of the reference's (each pair of dataclasses has the same fields; a
     dict with ``variant2`` is the pull family's, one with exactly a port
-    dataclass's fields that one's). The pull family's fleet lanes are not
-    ported: a dict that sets ``fleet`` or ``dyn_consts`` is refused."""
+    dataclass's fields that one's)."""
     d = dict(d)
     if "dyn_consts" in d:
         d["dyn_consts"] = tuple(d["dyn_consts"])
     if "variant2" in d:
-        if d.get("fleet") or d.get("dyn_consts"):
-            raise NotImplementedError(
-                "PullRaft fleet lanes (fleet, dyn_consts) are not ported to raft_tpu_torch")
         return PullRaftParams(**d)
     for cls in (KRaftParams, ReconfigRaftParams, JointRaftParams, KRaftReconfigParams):
         if set(d) == {f.name for f in dataclasses.fields(cls)}:

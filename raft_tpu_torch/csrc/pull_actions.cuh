@@ -4,7 +4,10 @@
 // Replaces raft_tpu/models/pull_raft.py:263-660 (the action kernels behind
 // _expand1 :667, with ops/bag.py and ops/packing.py) and the invariants of
 // pull_raft.py:703-760 plus models/base.py:143 messages_are_valid_kernel
-// (the formulas of actions_common.cuh). It mirrors the port's batched
+// (the formulas of actions_common.cuh), with the fleet lanes of
+// models/base.py:130-232 (Restart and RequestVote read MaxRestarts and
+// MaxElections from the state's c_<name> lane where the spec gives the
+// lane's offset, the static value where it gives -1). It mirrors the port's batched
 // plain version, raft_tpu_torch/models/pull_raft.py, one (state, candidate)
 // pair at a time, for both specs: the layout, message packing and flags
 // come from the model's int32 spec vector (PullRaftModel.kernel_spec).
@@ -49,7 +52,7 @@ enum {
   PS_S, PS_V, PS_L, PS_M, PS_W, PS_A, PS_K,
   PS_CT, PS_ST, PS_LEADER, PS_VF, PS_VLE_HAS, PS_VLE_IDX, PS_VLE_TERM, PS_VG, PS_LT, PS_LV,
   PS_LL, PS_CI, PS_MI, PS_HI, PS_LO, PS_CNT, PS_ACK, PS_ECTR, PS_RCTR,
-  PS_VARIANT2, PS_MAX_ELECTIONS, PS_MAX_RESTARTS,
+  PS_VARIANT2, PS_MAX_ELECTIONS, PS_MAX_RESTARTS, PS_C_MAX_ELECTIONS, PS_C_MAX_RESTARTS,
   PS_MSG
 };
 enum {
@@ -67,6 +70,8 @@ enum {
 };
 
 #define PFLD(o) (sp[PS_##o])
+// a dynamic constant of a state: its fleet lane where the spec names one
+#define PCONST(o) (PFLD(C_##o) >= 0 ? s[PFLD(C_##o)] : PFLD(o))
 
 // ---- message words ----
 
@@ -123,7 +128,7 @@ __device__ bool pu_restart(const int* sp, const int* s, int* o, int i) {
       }
     }
   }
-  return s[PFLD(RCTR)] < PFLD(MAX_RESTARTS);
+  return s[PFLD(RCTR)] < PCONST(MAX_RESTARTS);
 }
 
 // RequestVote(i) — PullRaft.tla:283-298 (leader[i] := i); Variant2
@@ -133,7 +138,7 @@ template <bool WRITE>
 __device__ Guard pu_request_vote(const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = PFLD(S), M = PFLD(M);
   const int st = jx_get(s + PFLD(ST), S, i);
-  Guard g{s[PFLD(ECTR)] < PFLD(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE),
+  Guard g{s[PFLD(ECTR)] < PCONST(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE),
           PR_REQUESTVOTE, false};
   if (!WRITE && !g.valid) return g;  // ovf is masked by valid
   const int new_term = jx_get(s + PFLD(CT), S, i) + 1;
@@ -504,4 +509,5 @@ struct PullFamily {
   }
 };
 
+#undef PCONST
 #undef PFLD

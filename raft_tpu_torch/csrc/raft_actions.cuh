@@ -3,7 +3,11 @@
 // Replaces raft_tpu/models/raft.py:327-835 (the action kernels behind
 // _expand1 :836, with ops/bag.py and ops/packing.py), the invariants of
 // raft.py:894-975 plus models/base.py:143 messages_are_valid_kernel, and
-// the liveness predicate ValueAllOrNothing of raft.py:925-942.
+// the liveness predicate ValueAllOrNothing of raft.py:925-942, with the
+// opt-in network-fault actions of raft.py:583-608 (DuplicateMessage,
+// DropMessage) and the fleet lanes of models/base.py:130-232 (a guard reads
+// MaxElections and MaxRestarts from the state's c_<name> lane where the spec
+// gives the lane's offset, the static value where it gives -1).
 // It mirrors the port's batched plain version, raft_tpu_torch/models/
 // raft.py, one (state, candidate) pair at a time, for every RaftModel
 // parameter set (Raft, FlexibleRaft, RaftFsync): the layout, message
@@ -51,6 +55,7 @@ enum {
   SP_PR, SP_HI, SP_LO, SP_CNT, SP_ACK, SP_ECTR, SP_RCTR,
   SP_HAS_FSYNC, SP_FS_BEFORE_AE, SP_FS_QUORUM, SP_FS_REPLY, SP_STRICT,
   SP_TRUNC_TERM, SP_HAS_PENDING, SP_EQ, SP_RQ, SP_MAX_ELECTIONS, SP_MAX_RESTARTS,
+  SP_NET_FAULTS, SP_MAX_MSG_COPIES, SP_C_MAX_ELECTIONS, SP_C_MAX_RESTARTS,
   SP_MSG
 };
 enum {
@@ -65,7 +70,7 @@ enum {
 enum {
   G_RESTART, G_TIMEOUT, G_REQUEST_VOTE_PAIR, G_REQUEST_VOTE, G_BECOME_LEADER,
   G_CLIENT_REQUEST, G_ADVANCE_COMMIT, G_APPEND_ENTRIES, G_ADVANCE_FSYNC,
-  G_HANDLE_MESSAGE
+  G_HANDLE_MESSAGE, G_DUPLICATE_MESSAGE, G_DROP_MESSAGE
 };
 
 // ---- message words ----
@@ -82,6 +87,10 @@ __device__ __forceinline__ void ra_pack(const int* sp, Key& k, int f, long long 
 
 #define FLD(o) (sp[SP_##o])
 
+// A dynamic constant of a state: its fleet lane s[lane] where the spec names
+// one, the static value otherwise (models/base.py FleetConstMixin._cv).
+#define CONST(o) (FLD(C_##o) >= 0 ? s[FLD(C_##o)] : FLD(o))
+
 // LastTerm(log[i]) — Raft.tla:126
 __device__ __forceinline__ int ra_last_term(const int* sp, const int* s, int i) {
   const int S = FLD(S), L = FLD(L);
@@ -94,7 +103,7 @@ __device__ __forceinline__ int ra_last_term(const int* sp, const int* s, int i) 
 // Restart(i) — Raft.tla:226-235 (RaftFsync.tla:203-218 truncates to fsyncIndex)
 template <bool WRITE>
 __device__ bool ra_restart(const int* sp, const int* s, int* o, int i) {
-  const bool valid = s[FLD(RCTR)] < FLD(MAX_RESTARTS);
+  const bool valid = s[FLD(RCTR)] < CONST(MAX_RESTARTS);
   if (WRITE) {
     const int S = FLD(S), L = FLD(L);
     ra_set(o + FLD(ST), S, i, RA_FOLLOWER);
@@ -125,7 +134,7 @@ template <bool WRITE>
 __device__ bool ra_timeout(const int* sp, const int* s, int* o, int i) {
   const int S = FLD(S);
   const int st = ra_at(s + FLD(ST), S, i);
-  const bool valid = s[FLD(ECTR)] < FLD(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE);
+  const bool valid = s[FLD(ECTR)] < CONST(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE);
   if (WRITE) {
     ra_set(o + FLD(ST), S, i, RA_CANDIDATE);
     ra_set(o + FLD(CT), S, i, ra_at(s + FLD(CT), S, i) + 1);
@@ -181,7 +190,7 @@ template <bool WRITE>
 __device__ Guard ra_request_vote(const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = FLD(S), M = FLD(M);
   const int st = ra_at(s + FLD(ST), S, i);
-  Guard g{s[FLD(ECTR)] < FLD(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE), 0, false};
+  Guard g{s[FLD(ECTR)] < CONST(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE), 0, false};
   const int new_term = ra_at(s + FLD(CT), S, i) + 1;
   const int last_t = ra_last_term(sp, s, i), ll = ra_at(s + FLD(LL), S, i);
   int* bh;
@@ -485,6 +494,28 @@ __device__ Guard ra_handle_message(const int* sp, const int* s, int* o, int m, i
   return g;
 }
 
+// DuplicateMessage(m) — Raft.tla:508-515: one more delivery of a record in
+// the bag's domain, while it has 1 <= count < max_msg_copies (the bound the
+// reference puts on the unbounded TLA+ action).
+template <bool WRITE>
+__device__ bool ra_duplicate_message(const int* sp, const int* s, int* o, int m) {
+  const int M = FLD(M);
+  const int cnt = ra_at(s + FLD(CNT), M, m);
+  if (WRITE) ra_set(o + FLD(CNT), M, m, cnt + 1);
+  return ra_at(s + FLD(HI), M, m) != RA_EMPTY && cnt >= 1 && cnt < FLD(MAX_MSG_COPIES);
+}
+
+// DropMessage(m) — Raft.tla:517-523: one delivery of a receivable record
+// discarded; the domain keeps the record at count 0, as a receipt's Discard
+// does.
+template <bool WRITE>
+__device__ bool ra_drop_message(const int* sp, const int* s, int* o, int m) {
+  const int M = FLD(M);
+  const int cnt = ra_at(s + FLD(CNT), M, m);
+  if (WRITE) ra_set(o + FLD(CNT), M, m, cnt - 1);
+  return ra_at(s + FLD(HI), M, m) != RA_EMPTY && cnt >= 1;
+}
+
 // One candidate (a row of the model's candidate table) of one state; `bag`
 // is the scratch of a RequestVote guard (2 * M ints), unused otherwise.
 template <bool WRITE>
@@ -502,6 +533,8 @@ __device__ Guard ra_action(const int* sp, const int* s, int* o, const int* cd, i
     case G_APPEND_ENTRIES: g = ra_append_entries<WRITE>(sp, s, o, p0, p1); break;
     case G_ADVANCE_FSYNC: g.valid = ra_advance_fsync<WRITE>(sp, s, o, p0); break;
     case G_HANDLE_MESSAGE: return ra_handle_message<WRITE>(sp, s, o, p0, cd[3]);
+    case G_DUPLICATE_MESSAGE: g.valid = ra_duplicate_message<WRITE>(sp, s, o, p0); break;
+    case G_DROP_MESSAGE: g.valid = ra_drop_message<WRITE>(sp, s, o, p0); break;
   }
   if (cd[0] != G_HANDLE_MESSAGE) g.rank = cd[3];
   return g;
@@ -522,7 +555,7 @@ __device__ __forceinline__ bool ra_invariant(const int* sp, const int* s, int id
 // An invariant id (INV_*) or a liveness predicate id (PRED_VALUE_AON + v).
 __device__ __forceinline__ bool ra_predicate(const int* sp, const int* s, int id) {
   if (id >= PRED_VALUE_AON)
-    return inv_value_all_or_nothing(ra_inv_fields(sp), s, s[FLD(ECTR)], FLD(MAX_ELECTIONS),
+    return inv_value_all_or_nothing(ra_inv_fields(sp), s, s[FLD(ECTR)], CONST(MAX_ELECTIONS),
                                     id - PRED_VALUE_AON);
   return ra_invariant(sp, s, id);
 }
@@ -551,4 +584,5 @@ struct RaftFamily {
   }
 };
 
+#undef CONST
 #undef FLD

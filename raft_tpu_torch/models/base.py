@@ -175,6 +175,122 @@ class ActionLabelMixin:
         return f"{name}{binding}"
 
 
+FLEET_JOB = "fleet_job"
+
+
+class FleetConstMixin:
+    """Fleet packing: a config axis embedded in the state vector
+    (``FleetConstMixin`` of ``raft_tpu/models/base.py:130-232``).
+
+    A fleet-packed model (``params.fleet``) carries extra VIEW scalar
+    lanes, added by the lowering's ``_build_layout`` after the message-bag
+    fields and before the first aux field:
+
+      fleet_job   the manifest job a state belongs to; a VIEW lane, so
+                  states of different jobs never dedup against each other;
+      c_<name>    one lane per dynamic constant of ``params.dyn_consts``;
+                  guards read it through ``_cv`` instead of the static
+                  param, so one model serves every constants point of a
+                  group.
+
+    Subclass contract: ``init_states`` ends with ``self._fleet_stamp(vec)``
+    (identity when no table is bound), and every guard that reads a
+    dynamic constant goes through ``_cv`` / ``_cv_batch``; the kernels
+    read the lanes through the spec vector's lane offsets."""
+
+    def fleet_bind(self, table) -> None:
+        """Bind the per-job dynamic-constant table: [J, len(dyn_consts)]
+        ints, row j job j's value of each dynamic constant in
+        ``dyn_consts`` order. The static params must be the element-wise
+        maximum over the table (they size capacity, e.g. ``max_term``)."""
+        table = np.asarray(table, np.int64)
+        dyn = tuple(self.p.dyn_consts)
+        if table.ndim != 2 or table.shape[1] != len(dyn):
+            raise ValueError(f"fleet table must be [J, {len(dyn)}] for dyn_consts {dyn}")
+        for k, name in enumerate(dyn):
+            cap = int(getattr(self.p, name))
+            hi = int(table[:, k].max()) if len(table) else 0
+            if hi > cap:
+                raise ValueError(
+                    f"fleet table {name} max {hi} exceeds static param {cap}"
+                    " (representative params must be the per-constant max)")
+        self._fleet_table = table
+        self._fleet_sel: int | None = None
+
+    @property
+    def fleet_jobs(self) -> int:
+        t = getattr(self, "_fleet_table", None)
+        return 0 if t is None else len(t)
+
+    def fleet_select(self, j: int | None) -> None:
+        """Restrict ``init_states`` stamping to job ``j`` (None: every
+        job); the queue arm runs the jobs one at a time through one
+        engine by re-selecting between runs."""
+        if getattr(self, "_fleet_table", None) is None:
+            raise ValueError("fleet_select before fleet_bind")
+        self._fleet_sel = j
+
+    def fleet_job_of(self, states) -> np.ndarray:
+        """[n] job index of each row of a [n, W] state batch."""
+        return np.asarray(states)[..., self.layout.fields[FLEET_JOB].offset]
+
+    def _fleet_stamp(self, vec: np.ndarray) -> np.ndarray:
+        """Stamp the initial states with the job lane and the constant
+        lanes, one copy per selected job, job-major; identity when no
+        table is bound."""
+        table = getattr(self, "_fleet_table", None)
+        if table is None:
+            return vec
+        lay = self.layout
+        sel = getattr(self, "_fleet_sel", None)
+        out = []
+        for j in range(len(table)) if sel is None else [sel]:
+            v = vec.copy()
+            v[:, lay.fields[FLEET_JOB].offset] = j
+            for k, name in enumerate(self.p.dyn_consts):
+                v[:, lay.fields["c_" + name].offset] = int(table[j, k])
+            out.append(v)
+        return np.concatenate(out, axis=0)
+
+    def _cv(self, d: dict, name: str):
+        """A constant's value in a batched action: the state lane ([C, 1])
+        when fleet-packed, the static param otherwise."""
+        key = "c_" + name
+        if key in self.layout.fields:
+            return d[key]
+        return getattr(self.p, name)
+
+    def _cv_batch(self, states, name: str):
+        """``_cv`` over a [..., W] state batch (the invariants and the
+        liveness predicates)."""
+        return cv_batch(self.layout, self.p, states, name)
+
+    def _lane_offset(self, name: str) -> int:
+        """The offset of constant ``name``'s lane, -1 when static (the
+        kernels' spec vector)."""
+        f = self.layout.fields.get("c_" + name)
+        return -1 if f is None else f.offset
+
+
+def cv_batch(lay: Layout, p, states, name: str):
+    """A constant's value over a [..., W] state batch: its ``c_<name>``
+    lane when the layout has one, the static param otherwise."""
+    key = "c_" + name
+    if key in lay.fields:
+        return lay.get(states, key)
+    return getattr(p, name)
+
+
+def fleet_lanes(lay: Layout, p) -> None:
+    """Add the fleet lanes of ``p`` (``fleet_job``, then ``c_<name>`` per
+    dynamic constant) to a layout: VIEW scalars, so jobs never dedup
+    against each other."""
+    if p.fleet:
+        lay.add(FLEET_JOB, "scalar")
+        for nm in p.dyn_consts:
+            lay.add("c_" + nm, "scalar")
+
+
 def _onehot(arr, i):
     """bool mask [C|1, n, S, 1...] selecting index i along axis 2."""
     S = arr.shape[2]
@@ -469,7 +585,7 @@ def live_value_all_or_nothing(lay: Layout, p, v: int, states, f: InvFields = RAF
     all_have = torch.all(has_v, dim=1)
     none_have = ~torch.any(has_v, dim=1)
     no_leader = ~torch.any(st == f.leader, dim=1)
-    spent = ec == p.max_elections
+    spent = ec == cv_batch(lay, p, states, "max_elections")
     return (spent & no_leader) | all_have | none_have
 
 

@@ -19,7 +19,8 @@ moves ``acked`` out of the VIEW, and piggybacks each voter's last common
 entry on the LeaderNotify (``PullRaftVariant2.tla:361-379``). A log may
 outgrow |Value| entries (stale success responses each append), so
 ``max_log`` has headroom and a log overflow is a hard error (``ovf``).
-Fleet lanes are not ported.
+Fleet lanes (``models/base.py`` FleetConstMixin) let one model serve a
+group of MaxElections/MaxRestarts points.
 """
 
 from __future__ import annotations
@@ -41,12 +42,14 @@ from .base import (
     INVARIANT_IDS,
     LEADER,
     ActionLabelMixin,
+    FleetConstMixin,
     KernelModel,
     Layout,
     SparseExpandMixin,
     jax_set as jset,
     jax_set2 as jset2,
     jax_take as jtake,
+    fleet_lanes,
     popcount,
     raft_invariants,
     select as _sel,
@@ -112,7 +115,7 @@ class PullRaftParams:
     # headroom above |Value| for stale-response appends; 0 means auto
     # (n_values + 4). Overflow is a hard error either way.
     max_log_override: int = 0
-    # Not ported yet: fleet lanes.
+    # Fleet packing (models/base.py FleetConstMixin), as in RaftParams.
     dyn_consts: tuple = ()
     fleet: bool = False
 
@@ -149,6 +152,7 @@ def _build_layout(p: PullRaftParams) -> Layout:
     lay.add("msg_hi", "msg_hi", (M,))
     lay.add("msg_lo", "msg_lo", (M,))
     lay.add("msg_cnt", "msg_cnt", (M,))
+    fleet_lanes(lay, p)  # the fleet config axis, before the first aux field
     # acked is in the VIEW for PullRaft (PullRaft.tla:123), aux for
     # Variant2 (PullRaftVariant2.tla:114)
     lay.add("acked", "aux" if p.variant2 else "scalar", (V,))
@@ -194,6 +198,8 @@ SPEC_OFFSETS = (
 )
 SPEC_SCALARS = ("S", "V", "L", "M", "W", "A", "K") + SPEC_OFFSETS + (
     "variant2", "max_elections", "max_restarts",
+    # the offsets of the fleet lanes the guards read (-1 when static)
+    "c_max_elections", "c_max_restarts",
 )
 # message fields, each as (word, shift, mask) after the scalars (PF_* enum)
 MSG_FIELDS = (
@@ -215,7 +221,7 @@ GROUP_RANKS = {
 }
 
 
-class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
+class PullRaftModel(KernelModel, SparseExpandMixin, FleetConstMixin, ActionLabelMixin):
     """Batched successor/invariant kernels for one (spec, constants) pair."""
 
     name = "PullRaft"
@@ -226,8 +232,6 @@ class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
     GROUP_RANKS = GROUP_RANKS
 
     def __init__(self, params: PullRaftParams, server_names=None, value_names=None):
-        if params.fleet or params.dyn_consts:
-            raise NotImplementedError("fleet lanes are not ported to raft_tpu_torch yet")
         self.p = params
         self.layout = _build_layout(params)
         self.packer = _build_packer(params)
@@ -306,7 +310,7 @@ class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         but clears leader and votesLastEntry."""
         p, S = self.p, self.p.n_servers
         n = i.shape[1]
-        valid = (d["restartCtr"] < p.max_restarts).expand(C, n)
+        valid = (d["restartCtr"] < self._cv(d, "max_restarts")).expand(C, n)
         row0 = torch.zeros((1, 1, S), dtype=torch.int32, device=dev)
         upd = dict(
             state=jset(d["state"], i, FOLLOWER),
@@ -330,7 +334,7 @@ class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         p, S = self.p, self.p.n_servers
         n = i.shape[1]
         st_i = jtake(d["state"], i)
-        valid = (d["electionCtr"] < p.max_elections) & (
+        valid = (d["electionCtr"] < self._cv(d, "max_elections")) & (
             (st_i == FOLLOWER) | (st_i == CANDIDATE))
         new_term = jtake(d["currentTerm"], i) + 1
         last_t = self._last_term(d, i)
@@ -668,7 +672,9 @@ class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         off = {n: (lay.fields[n].offset if n in lay.fields else -1) for n in SPEC_OFFSETS}
         vals = dict(S=p.n_servers, V=p.n_values, L=p.max_log, M=p.msg_slots, W=lay.W,
                     A=self.A, K=len(self.ACTION_NAMES), **off, variant2=p.variant2,
-                    max_elections=p.max_elections, max_restarts=p.max_restarts)
+                    max_elections=p.max_elections, max_restarts=p.max_restarts,
+                    c_max_elections=self._lane_offset("max_elections"),
+                    c_max_restarts=self._lane_offset("max_restarts"))
         spec = [int(vals[n]) for n in SPEC_SCALARS]
         for name in MSG_FIELDS:
             spec += list(self.packer.locate(name))
@@ -684,7 +690,7 @@ class PullRaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         vec[0, lay.sl("currentTerm")] = 1
         vec[0, lay.sl("msg_hi")] = EMPTY
         vec[0, lay.sl("msg_lo")] = EMPTY
-        return vec
+        return self._fleet_stamp(vec)
 
     # ---------------- host-side decode/encode ----------------
 

@@ -10,8 +10,9 @@ disabled candidates — is bit-identical to ``jax.vmap(_expand1)``.
 One ``RaftModel`` serves three specs: standard Raft, FlexibleRaft
 (count-based quorums, strict send-once, no pendingResponse, term-mismatch
 truncation) and RaftFsync (fsyncIndex, split Timeout/RequestVote,
-AdvanceFsyncIndex). Fleet lanes and the opt-in network-fault actions
-are not ported yet.
+AdvanceFsyncIndex), each with the opt-in network-fault actions
+(DuplicateMessage, DropMessage) and fleet lanes (``models/base.py``
+FleetConstMixin).
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ from .base import (
     LEADER,
     PRED_VALUE_AON,  # noqa: F401 - the Raft family's predicate ids
     ActionLabelMixin,
+    FleetConstMixin,
     KernelModel,
     Layout,
     SparseExpandMixin,
+    fleet_lanes,
     raft_invariants,
     values_not_stuck,
     onehot_row as orow,
@@ -119,9 +122,13 @@ class RaftParams:
     fsync_leader_before_ae: bool = False
     fsync_leader_quorum: bool = False
     fsync_follower_reply: bool = False
-    # Not ported yet: network-fault actions and fleet lanes.
+    # Opt-in network-fault actions (Raft.tla:508-523): DuplicateMessage
+    # re-delivers a bag record (at most max_msg_copies copies), DropMessage
+    # discards one delivery.
     net_faults: bool = False
     max_msg_copies: int = 2
+    # Fleet packing (models/base.py FleetConstMixin): the params whose
+    # guards read a per-state lane, and the job + constant lanes.
     dyn_consts: tuple = ()
     fleet: bool = False
 
@@ -155,6 +162,7 @@ def _build_layout(p: RaftParams) -> Layout:
     lay.add("msg_hi", "msg_hi", (M,))
     lay.add("msg_lo", "msg_lo", (M,))
     lay.add("msg_cnt", "msg_cnt", (M,))
+    fleet_lanes(lay, p)  # the fleet config axis: VIEW scalars
     # aux (VIEW-excluded: Raft.tla:60-68,115)
     lay.add("acked", "aux", (V,))
     lay.add("electionCtr", "aux")
@@ -204,6 +212,10 @@ SPEC_SCALARS = ("S", "V", "L", "M", "W", "A", "K") + SPEC_OFFSETS + (
     "fsync_follower_reply", "strict_send_once", "trunc_term_mismatch",
     "has_pending_response", "election_quorum", "replication_quorum",
     "max_elections", "max_restarts",
+    # the network-fault actions: the flag and the copy bound
+    "net_faults", "max_msg_copies",
+    # the offsets of the fleet lanes the guards read (-1 when static)
+    "c_max_elections", "c_max_restarts",
 )
 # message fields, each as (word, shift, mask) after the scalars (MF_* enum)
 MSG_FIELDS = (
@@ -217,7 +229,10 @@ GROUP_IDS = {
     "Restart": 0, "Timeout": 1, "RequestVotePair": 2, "RequestVote": 3,
     "BecomeLeader": 4, "ClientRequest": 5, "AdvanceCommitIndex": 6,
     "AppendEntries": 7, "AdvanceFsyncIndex": 8, "HandleMessage": 9,
+    "DuplicateMessage": 10, "DropMessage": 11,
 }
+# the ranks of the variant's standard groups; the network-fault groups'
+# ranks follow the variant's table (RaftModel.GROUP_RANKS)
 GROUP_RANKS = {
     "Restart": R_RESTART, "Timeout": R_TIMEOUT, "RequestVotePair": R_REQUESTVOTE,
     "RequestVote": R_REQUESTVOTE, "BecomeLeader": R_BECOMELEADER,
@@ -226,25 +241,29 @@ GROUP_RANKS = {
     # the six receipt disjuncts: R_UPDATETERM + 0..5 in Next order
     "HandleMessage": R_UPDATETERM,
 }
-class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
+
+
+class RaftModel(KernelModel, SparseExpandMixin, FleetConstMixin, ActionLabelMixin):
     """Batched successor/invariant kernels for one (spec, constants) pair."""
 
     name = "Raft"
     ACTIONS_HEADER = "raft_actions.cuh"
     KERNELS = kernels.RAFT_FAMILY
     GROUP_IDS = GROUP_IDS
-    GROUP_RANKS = GROUP_RANKS
 
     def __init__(self, params: RaftParams, server_names=None, value_names=None):
-        if params.net_faults or params.fleet:
-            raise NotImplementedError(
-                "network-fault actions and fleet lanes are not ported to "
-                "raft_tpu_torch yet"
-            )
         self.p = params
         self.ACTION_NAMES = (
             list(ACTION_NAMES) if params.has_fsync else list(ACTION_NAMES[:12])
         )
+        self.GROUP_RANKS = dict(GROUP_RANKS)
+        if params.net_faults:
+            # Raft.tla:508-523 (commented out of Next at :540-541): ranks
+            # appended past the variant's table (12, 13; RaftFsync 14, 15)
+            self._r_dup = len(self.ACTION_NAMES)
+            self._r_drop = self._r_dup + 1
+            self.ACTION_NAMES += ["DuplicateMessage", "DropMessage"]
+            self.GROUP_RANKS.update(DuplicateMessage=self._r_dup, DropMessage=self._r_drop)
         self.layout = _build_layout(params)
         self.packer = _build_packer(params)
         S, V, M = params.n_servers, params.n_values, params.msg_slots
@@ -279,6 +298,11 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
                 self.bindings.append(("AdvanceFsyncIndex", (i,)))
         for m in range(M):
             self.bindings.append(("HandleMessage", (m,)))
+        if params.net_faults:
+            for m in range(M):
+                self.bindings.append(("DuplicateMessage", (m,)))
+            for m in range(M):
+                self.bindings.append(("DropMessage", (m,)))
         self.A = len(self.bindings)
         self._consts: dict = {}
 
@@ -328,7 +352,7 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         the log back to fsyncIndex[i])."""
         p, S = self.p, self.p.n_servers
         n = i.shape[1]
-        valid = (d["restartCtr"] < p.max_restarts).expand(C, n)
+        valid = (d["restartCtr"] < self._cv(d, "max_restarts")).expand(C, n)
         row0 = torch.zeros((1, 1, S), dtype=torch.int32, device=dev)
         upd = dict(
             state=oset(d["state"], i, FOLLOWER),
@@ -356,7 +380,7 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         """Timeout(i) — RaftFsync.tla:222-230."""
         n = i.shape[1]
         st_i = orow(d["state"], i)
-        valid = (d["electionCtr"] < self.p.max_elections) & (
+        valid = (d["electionCtr"] < self._cv(d, "max_elections")) & (
             (st_i == FOLLOWER) | (st_i == CANDIDATE)
         )
         succ = self._asm(
@@ -403,7 +427,7 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         S = self.p.n_servers
         n = i.shape[1]
         st_i = orow(d["state"], i)
-        valid = (d["electionCtr"] < self.p.max_elections) & (
+        valid = (d["electionCtr"] < self._cv(d, "max_elections")) & (
             (st_i == FOLLOWER) | (st_i == CANDIDATE)
         )
         new_term = orow(d["currentTerm"], i) + 1
@@ -577,6 +601,36 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         succ = self._asm(d, C, n, **upd)
         return (valid, succ, self._full(C, n, R_APPENDENTRIES, torch.int32, dev),
                 ovf & valid)
+
+    # -------- network-fault actions (opt-in, params.net_faults) --------
+
+    def _duplicate_message(self, d, C, dev):
+        """DuplicateMessage(m) — Raft.tla:508-515: re-deliver a record
+        already in the bag DOMAIN (count + 1), for every slot m at once.
+        The TLA+ form is unbounded; the reference gates it on count <
+        max_msg_copies so the state space stays finite."""
+        p, M = self.p, self.p.msg_slots
+        m = self._idx("iota_m", dev)
+        cnt = d["msg_cnt"]  # [C, 1, M]
+        kcnt = cnt[:, 0]  # slot m = binding m
+        valid = (d["msg_hi"][:, 0] != EMPTY) & (kcnt >= 1) & (kcnt < p.max_msg_copies)
+        oh = (torch.arange(M, device=dev) == m.unsqueeze(-1)).to(cnt.dtype)  # [1, M, M]
+        succ = self._asm(d, C, M, msg_cnt=cnt + oh)
+        return (valid, succ, self._full(C, M, self._r_dup, torch.int32, dev),
+                self._full(C, M, False, torch.bool, dev))
+
+    def _drop_message(self, d, C, dev):
+        """DropMessage(m) — Raft.tla:517-523: Discard one delivery of a
+        receivable record; the DOMAIN keeps the count-0 record, as the
+        receipt's Discard does (ops/bag.py)."""
+        M = self.p.msg_slots
+        m = self._idx("iota_m", dev)
+        cnt = d["msg_cnt"]
+        kcnt = cnt[:, 0]
+        valid = (d["msg_hi"][:, 0] != EMPTY) & (kcnt >= 1)
+        succ = self._asm(d, C, M, msg_cnt=bag.bag_discard_at(cnt, m))
+        return (valid, succ, self._full(C, M, self._r_drop, torch.int32, dev),
+                self._full(C, M, False, torch.bool, dev))
 
     # -------- fused message-receipt kernel (all M slots at once) --------
     # The six receipt disjuncts of Next (Raft.tla:534-539) are mutually
@@ -786,6 +840,9 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         if p.has_fsync:
             outs.append(self._advance_fsync_index(d, I("iota_s"), C, dev))
         outs.append(self._handle_message(d, C, dev))
+        if p.net_faults:
+            outs.append(self._duplicate_message(d, C, dev))
+            outs.append(self._drop_message(d, C, dev))
         valid = torch.cat([o[0] for o in outs], dim=1)
         succs = torch.cat([o[1] for o in outs], dim=1)
         rank = torch.cat([o[2].to(torch.int32) for o in outs], dim=1)
@@ -811,6 +868,9 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
             replication_quorum=(-1 if p.replication_quorum is None
                                 else p.replication_quorum),
             max_elections=p.max_elections, max_restarts=p.max_restarts,
+            net_faults=p.net_faults, max_msg_copies=p.max_msg_copies,
+            c_max_elections=self._lane_offset("max_elections"),
+            c_max_restarts=self._lane_offset("max_restarts"),
         )
         vals = dict(S=p.n_servers, V=p.n_values, L=p.max_log, M=p.msg_slots,
                     W=lay.W, A=self.A, K=len(self.ACTION_NAMES), **off, **flags)
@@ -833,7 +893,7 @@ class RaftModel(KernelModel, SparseExpandMixin, ActionLabelMixin):
         vec[0, lay.sl("msg_hi")] = EMPTY
         vec[0, lay.sl("msg_lo")] = EMPTY
         vec[0, lay.sl("acked")] = ACK_NIL
-        return vec
+        return self._fleet_stamp(vec)
 
     # ---------------- host-side decode/encode ----------------
 

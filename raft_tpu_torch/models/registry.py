@@ -79,12 +79,13 @@ def _core(cfg: Cfg, msg_slots: int | None) -> dict:
     )
 
 
-def build_raft(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
+def build_raft(cfg: Cfg, msg_slots: int | None = None, net_faults: bool = False) -> CheckSetup:
     """standard-raft/Raft.tla + Raft.cfg."""
-    return _setup(cfg, RaftParams(**_core(cfg, msg_slots)), "Raft")
+    return _setup(cfg, RaftParams(**_core(cfg, msg_slots), net_faults=net_faults), "Raft")
 
 
-def build_flexible_raft(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
+def build_flexible_raft(cfg: Cfg, msg_slots: int | None = None,
+                        net_faults: bool = False) -> CheckSetup:
     """flexible-raft/FlexibleRaft.tla: count-based quorums
     (FlexibleRaft.tla:262,296), strictly send-once messaging (:127-151),
     no pendingResponse (:109), term-mismatch truncation (:413-416)."""
@@ -95,11 +96,13 @@ def build_flexible_raft(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
         strict_send_once=True,
         has_pending_response=False,
         trunc_term_mismatch=True,
+        net_faults=net_faults,
     )
     return _setup(cfg, params, "FlexibleRaft")
 
 
-def build_raft_fsync(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
+def build_raft_fsync(cfg: Cfg, msg_slots: int | None = None,
+                     net_faults: bool = False) -> CheckSetup:
     """raft-and-fsync/RaftFsync.tla: fsyncIndex durability (:92), crash
     truncation (:203-218), split Timeout/RequestVote (:222-243),
     AdvanceFsyncIndex (:339) and the three fsync policy constants (:50-52)."""
@@ -112,6 +115,7 @@ def build_raft_fsync(cfg: Cfg, msg_slots: int | None = None) -> CheckSetup:
         fsync_leader_before_ae=_require_bool(cfg, "LeaderFsyncBeforeAppendEntries"),
         fsync_leader_quorum=_require_bool(cfg, "LeaderFsyncBeforeIncludeInQuorum"),
         fsync_follower_reply=_require_bool(cfg, "FollowerFsyncBeforeReply"),
+        net_faults=net_faults,
     )
     return _setup(cfg, params, "RaftFsync")
 
@@ -241,12 +245,25 @@ BUILDERS = {
 }
 
 
+# Spec families whose lowering has the opt-in DuplicateMessage /
+# DropMessage actions (Raft.tla:508-523).
+NET_FAULT_SPECS = ("Raft", "FlexibleRaft", "RaftFsync")
+
+
 def build_from_cfg(cfg: Cfg, spec: str | None = None,
-                   msg_slots: int | None = None) -> CheckSetup:
+                   msg_slots: int | None = None, net_faults: bool = False) -> CheckSetup:
     name = spec or os.path.splitext(os.path.basename(cfg.path))[0]
     if name not in BUILDERS:
         raise CfgError(
             f"no lowering registered for spec {name!r} "
             f"(available: {', '.join(sorted(BUILDERS))})"
         )
+    if net_faults:
+        if name not in NET_FAULT_SPECS:
+            raise CfgError(
+                f"{cfg.path}: --net-faults is only lowered for the Raft "
+                f"family (available: {', '.join(NET_FAULT_SPECS)}), not "
+                f"{name!r}"
+            )
+        return BUILDERS[name](cfg, msg_slots=msg_slots, net_faults=True)
     return BUILDERS[name](cfg, msg_slots=msg_slots)

@@ -94,15 +94,17 @@ extern "C" void host_predicate(const int* states, int C, const int* spec, int id
 """
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_host_lib(tmp_path_factory, driver: str, tag: str):
+    """The device code of ``driver`` (C++ over a csrc/ header) built with
+    the host compiler behind SHIM and loaded, with the argument types of
+    its entry points set (skips without a compiler)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler to build the device code for the CPU")
-    d = tmp_path_factory.mktemp("host_actions")
+    d = tmp_path_factory.mktemp(tag)
     (d / "cuda_runtime.h").write_text(SHIM)
-    (d / "driver.cpp").write_text(DRIVER)
-    so = d / "libhost_actions.so"
+    (d / "driver.cpp").write_text(driver)
+    so = d / f"lib{tag}.so"
     out = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{d}", f"-I{CSRC}",
                           "-o", str(so), str(d / "driver.cpp")],
                          capture_output=True, text=True, timeout=300)
@@ -111,8 +113,14 @@ def lib(tmp_path_factory):
     P = ctypes.c_void_p
     lib.host_expand.argtypes = [P, ctypes.c_int, P, P, ctypes.c_int, ctypes.c_int, P, P, P, P]
     lib.host_invariant.argtypes = [P, ctypes.c_int, P, ctypes.c_int, P]
-    lib.host_predicate.argtypes = [P, ctypes.c_int, P, ctypes.c_int, P]
+    if hasattr(lib, "host_predicate"):
+        lib.host_predicate.argtypes = [P, ctypes.c_int, P, ctypes.c_int, P]
     return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return build_host_lib(tmp_path_factory, DRIVER, "host_actions")
 
 
 def _ptr(a):

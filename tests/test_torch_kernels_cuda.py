@@ -274,6 +274,46 @@ def edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([st, pert, full, maxlog, scr]).astype(np.int32))
 
 
+def net_fault_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
+    """``edge_rows`` of a model with the network-fault actions, and copies
+    of its states whose occupied bag slots have their delivery counts set
+    to -1..3 (count 1: both faults enabled; count max_msg_copies = 2: the
+    duplicate refused; count 0: both refused, the record kept; 3 and -1:
+    out of the reachable range), half of the copies also with a count on an
+    EMPTY slot (no record: both refused)."""
+    rng = np.random.default_rng(seed)
+    lay, M = model.layout, model.p.msg_slots
+    hs, cs = lay.sl("msg_hi"), lay.sl("msg_cnt")
+    cnt = st.copy()
+    for k, r in enumerate(cnt):
+        occ = r[hs] != EMPTY
+        r[cs] = np.where(occ, rng.integers(-1, 4, M), 0)
+        if k % 2 and not occ.all():
+            r[cs.start + int(np.argmin(occ))] = 1
+    # the three counts the faults turn on, each on some row's first slot
+    for k, c in enumerate((0, 1, 2)):
+        cnt[k, cs.start] = c
+    return np.ascontiguousarray(np.concatenate([edge_rows(model, st, seed), cnt]).astype(np.int32))
+
+
+def fleet_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
+    """States of a fleet-packed model with random job lanes and random
+    dynamic-constant lanes (each ``c_<name>`` in 0..its static maximum,
+    so a lane differs from the static value the unpacked guards read),
+    and the election and restart counters over 0..max + 1 (so a guard's
+    comparison with the lane decides it)."""
+    rng = np.random.default_rng(seed)
+    lay, p = model.layout, model.p
+    rows = st.copy()
+    n = len(rows)
+    rows[:, lay.fields["fleet_job"].offset] = rng.integers(0, 4, n)
+    for name in p.dyn_consts:
+        rows[:, lay.fields["c_" + name].offset] = rng.integers(0, getattr(p, name) + 1, n)
+    for ctr, name in (("electionCtr", "max_elections"), ("restartCtr", "max_restarts")):
+        rows[:, lay.fields[ctr].offset] = rng.integers(0, getattr(p, name) + 2, n)
+    return np.ascontiguousarray(rows.astype(np.int32))
+
+
 def pull_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
     """``edge_rows`` of a pull-family model's reachable states ``st``, and
     three more cases: scrambled rows whose bags hold random records of all
@@ -1782,3 +1822,120 @@ def test_kreconfig_bfs_simulate_liveness_card_equal_cpu(dev):
     for k in ("guard", "apply", "fold", "predicates", "sim_check"):
         assert counts[f"kreconfig_{k}"] > 0, k
     assert counts["slot_canon"] > 0 and counts["canon_memo"] == counts["canon_tiered"] == 0
+
+
+# ---------------- network-fault actions and fleet lanes ----------------
+
+NF_VARIANTS = {
+    "core": dataclasses.replace(VARIANTS["core"], net_faults=True),
+    "fsync": dataclasses.replace(VARIANTS["fsync"], net_faults=True),
+}
+
+
+def _guard_apply_equal(model, states, dev):
+    """raft_guard/pull_guard (with coverage) and the apply on every valid
+    lane, on lanes of disabled candidates and on drop lanes, against their
+    plain versions; returns the guard's (valid, rank)."""
+    C, A = states.shape[0], model.A
+    K = len(model.ACTION_NAMES)
+    cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
+    cov_p = cov_k.clone()
+    gk = guard(model, states, C, cov_k)
+    gp = guard_plain(model, states, C, cov_p)
+    for a, b in zip(gk, gp):
+        assert torch.equal(a, b)
+    assert torch.equal(cov_k, cov_p)
+    valid = gk[0]
+    sel, _ = compact_indices(valid.reshape(-1), int(valid.sum()) + 300, C * A)
+    other = torch.randint(0, C * A, (500,), device=dev, dtype=torch.int32)
+    for s in (sel, other):
+        s = s.contiguous()
+        assert torch.equal(apply(model, states, s), apply_plain(model, states, s))
+    return gk[0], gk[1]
+
+
+@pytest.mark.parametrize("name", list(NF_VARIANTS))
+def test_raft_guard_apply_net_faults(dev, name):
+    """DuplicateMessage and DropMessage on the card: count-1 records (both
+    enabled), count-2 records (the duplicate refused), count-0 records (both
+    refused, the record kept) and counts out of range, against the plain
+    version; both fault ranks fire."""
+    model = RaftModel(NF_VARIANTS[name])
+    base = _edge_states(model, dev, seed=2).cpu().numpy()
+    states = torch.from_numpy(net_fault_rows(model, base, seed=4)).to(dev)
+    valid, rank = _guard_apply_equal(model, states, dev)
+    for r in (model._r_dup, model._r_drop):
+        assert bool((valid & (rank == r)).any()), model.ACTION_NAMES[r]
+
+
+@pytest.mark.parametrize("family", ["raft", "pull"])
+def test_guard_apply_fleet_lanes(dev, family):
+    """A packed model's guards read MaxElections and MaxRestarts from the
+    c_<name> lanes: rows whose lanes differ from the static maximum give
+    the plain version's grid and successors (and, for Raft, its
+    ValueAllOrNothing predicate)."""
+    from raft_tpu_torch.ops.expand import predicates, predicates_plain
+
+    if family == "raft":
+        p = dataclasses.replace(VARIANTS["core"], fleet=True,
+                                dyn_consts=("max_elections", "max_restarts"))
+        model = RaftModel(p)
+    else:
+        p = dataclasses.replace(PULL_VARIANTS["pull"], max_restarts=1, fleet=True,
+                                dyn_consts=("max_elections", "max_restarts"))
+        model = PullRaftModel(p)
+    model.fleet_bind([[1, 0], [p.max_elections, p.max_restarts]])
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+
+    bfs = DeviceBFS(model, chunk=256, frontier_cap=4096, max_seen_cap=1 << 20,
+                    canon_memo_cap=1 << 12, device=dev)
+    bfs.run(max_depth=5)
+    states = torch.from_numpy(fleet_rows(model, bfs.frontier_rows.cpu().numpy()[:600],
+                                         seed=6)).to(dev)
+    _guard_apply_equal(model, states, dev)
+    if family == "raft":
+        names = tuple(model.predicates)
+        assert torch.equal(predicates(model, states, names),
+                           predicates_plain(model, states, names))
+
+
+def test_net_faults_and_fleet_runs_card_equal_cpu(dev):
+    """Raft with --net-faults by BFS (counts, depth counts, coverage) and
+    by simulation (walks, final states, journals), and a packed sweep of
+    two jobs whose lanes differ: the card equals the CPU, through the Raft
+    kernels."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+    from raft_tpu_torch.checker.simulate import Simulator
+    from raft_tpu_torch.fleet import SweepOptions, parse_manifest_obj, run_sweep
+
+    p = RaftParams(n_servers=2, n_values=1, max_elections=1, max_restarts=0, msg_slots=12,
+                   net_faults=True)
+    caps = dict(chunk=256, frontier_cap=1 << 13, journal_cap=1 << 15, max_seen_cap=1 << 20,
+                canon_memo_cap=1 << 12)
+    kernels.reset_counts()
+    rs = [DeviceBFS(RaftModel(p), invariants=INV, device=d, **caps).run(max_depth=10)
+          for d in (dev, "cpu")]
+    assert (rs[0].distinct, rs[0].total, rs[0].depth_counts, rs[0].coverage) == (
+        rs[1].distinct, rs[1].total, rs[1].depth_counts, rs[1].coverage)
+    sims = [Simulator(RaftModel(p), invariants=INV, walks=64, max_behavior_depth=30, seed=1,
+                      device=d) for d in (dev, "cpu")]
+    ss = [s.run(max_steps=64 * 40) for s in sims]
+    assert (ss[0].behaviors, ss[0].steps) == (ss[1].behaviors, ss[1].steps)
+    for a in ("states", "depth", "journal", "jlen"):
+        assert torch.equal(getattr(sims[0], a).cpu(), getattr(sims[1], a))
+    counts = kernels.launch_counts()
+    for k in ("raft_guard", "raft_apply", "raft_fold", "raft_sim_check"):
+        assert counts[k] > 0, k
+    mf = parse_manifest_obj({
+        "spec": "Raft",
+        "defaults": {"constants": {"Server": ["s1", "s2", "s3"], "Value": ["v1"],
+                                   "MaxElections": 1, "MaxRestarts": 0},
+                     "invariants": list(INV), "msg_slots": 24},
+        "jobs": [{"name": "a"}, {"name": "b", "constants": {"MaxElections": 2,
+                                                            "MaxRestarts": 1}}]})
+    res = [run_sweep(mf, SweepOptions(device=d, max_depth=8, chunk=256)).to_json()["jobs"]
+           for d in ("cuda", "cpu")]
+    for a, b in zip(*res):
+        a.pop("seconds"), b.pop("seconds")
+    assert res[0] == res[1] and res[0][0]["distinct"] != res[0][1]["distinct"]
