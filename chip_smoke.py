@@ -601,9 +601,11 @@ NF_PIN = dict(
               [227201, 248510, 35087], [464951, 528912, 96774], [315846, 327277, 85373],
               [1608177, 5002599, 991413], [1646871, 7088973, 2338383]],
 )
-# the card's BFS depth (4h), the deepest that fits about 30 s and 70 GiB
-# (the frontier grows about 2.4x a level: depth 18's rows of 768 bytes,
-# held twice), with the capacities it needs; phase 3's sample depth; the
+# the card's BFS depth (4h), the deepest that fits 80 GB: depth 18,
+# 51,989,664 distinct in about 7 s and 50 GiB (its 29,628,803-row frontier of
+# 768-byte rows, in buffers of 2^25 rows held twice); depth 19 would pass the
+# 2^26-lane seen run and add a frontier of some 69 M rows. With the
+# capacities it needs; phase 3's sample depth; the
 # card-against-CPU runs at tests/test_net_faults.py:18-21's constants (two
 # servers, MaxElections 1, 12 message slots) to NF_SMALL_DEPTH (628 states)
 # and for SMALL_WALKS walks over SMALL_MOVES moves; the simulate's moves
@@ -660,8 +662,9 @@ KERNEL_NAMES = {
     "probe_runs": ("probe_runs_kernel",),
     "compact_append": ("ct_count", "ct_scan", "ct_scatter", "ct_fill", "append_rows_kernel"),
     "merge_runs": ("merge_runs_kernel",),
-    "raft_guard": ("raft_guard_kernel",),
-    "raft_apply": ("raft_apply_kernel",),
+    # raft_nf_*: the same kernels built with the network-fault groups
+    "raft_guard": ("raft_guard_kernel", "raft_nf_guard_kernel"),
+    "raft_apply": ("raft_apply_kernel", "raft_nf_apply_kernel"),
     "raft_fold": ("raft_fold_lanes", "raft_fold_viol"),
     "chunk_sort": ("cs_tile_sort", "cs_merge", "cs_flags", "cs_emit"),
     "canon_tiered": ("canon_tiered_kernel", "ct_memo_insert"),
@@ -1647,6 +1650,7 @@ def net_fault_kernel_rows(torch, rng) -> dict:
             .items() if k in ("raft_guard", "raft_apply")}
     edge = net_fault_rows(model, pool[rng.integers(0, len(pool), 1024)],
                           seed=int(rng.integers(0, 1 << 20)))
+    bfs._set_worklist(64)  # full bags of count-1 records enable 2 * M fault lanes a row
     expand_kernels(torch, bfs, edge, rng, timed=False)
     # the whole edge grid: every row, both fault groups, the counts 0, 1, 2
     st = torch.from_numpy(edge).to(bfs.device)

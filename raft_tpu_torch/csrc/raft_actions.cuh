@@ -518,10 +518,23 @@ __device__ bool ra_drop_message(const int* sp, const int* s, int* o, int m) {
 
 // One candidate (a row of the model's candidate table) of one state; `bag`
 // is the scratch of a RequestVote guard (2 * M ints), unused otherwise.
-template <bool WRITE>
+// FAULTS compiles the network-fault groups in; a model without them runs
+// the instantiation without (RaftFamily), whose code the fault arms would
+// otherwise reshape (they cost a five-server guard some 9% when present).
+template <bool WRITE, bool FAULTS>
 __device__ Guard ra_action(const int* sp, const int* s, int* o, const int* cd, int* bag) {
   const int p0 = cd[1], p1 = cd[2];
   Guard g{false, cd[3], false};
+  if constexpr (FAULTS) {
+    if (cd[0] == G_DUPLICATE_MESSAGE) {
+      g.valid = ra_duplicate_message<WRITE>(sp, s, o, p0);
+      return g;
+    }
+    if (cd[0] == G_DROP_MESSAGE) {
+      g.valid = ra_drop_message<WRITE>(sp, s, o, p0);
+      return g;
+    }
+  }
   switch (cd[0]) {
     case G_RESTART: g.valid = ra_restart<WRITE>(sp, s, o, p0); break;
     case G_TIMEOUT: g.valid = ra_timeout<WRITE>(sp, s, o, p0); break;
@@ -533,8 +546,6 @@ __device__ Guard ra_action(const int* sp, const int* s, int* o, const int* cd, i
     case G_APPEND_ENTRIES: g = ra_append_entries<WRITE>(sp, s, o, p0, p1); break;
     case G_ADVANCE_FSYNC: g.valid = ra_advance_fsync<WRITE>(sp, s, o, p0); break;
     case G_HANDLE_MESSAGE: return ra_handle_message<WRITE>(sp, s, o, p0, cd[3]);
-    case G_DUPLICATE_MESSAGE: g.valid = ra_duplicate_message<WRITE>(sp, s, o, p0); break;
-    case G_DROP_MESSAGE: g.valid = ra_drop_message<WRITE>(sp, s, o, p0); break;
   }
   if (cd[0] != G_HANDLE_MESSAGE) g.rank = cd[3];
   return g;
@@ -562,9 +573,10 @@ __device__ __forceinline__ bool ra_predicate(const int* sp, const int* s, int id
 
 // The Raft family as the kernel drivers see it: where its spec keeps the
 // sizes, the guard scratch of a state (a slot of 2 * M ints for each
-// RequestVote(i) lane's replay of its S - 1 puts), its actions and its
-// predicates.
-struct RaftFamily {
+// RequestVote(i) lane's replay of its S - 1 puts), its actions (with the
+// network-fault groups where FAULTS) and its predicates.
+template <bool FAULTS>
+struct RaftFamilyT {
   static constexpr int SPEC_LEN = SP_LEN;
   static constexpr int BAG_WORDS = 2;  // (hi, lo) keys
   static constexpr int I_S = SP_S, I_M = SP_M, I_W = SP_W, I_A = SP_A, I_K = SP_K;
@@ -574,7 +586,7 @@ struct RaftFamily {
   }
   template <bool WRITE>
   __device__ __forceinline__ static Guard action(const int* sp, const int* s, int* o, const int* cd, int* bag) {
-    return ra_action<WRITE>(sp, s, o, cd, bag);
+    return ra_action<WRITE, FAULTS>(sp, s, o, cd, bag);
   }
   __device__ __forceinline__ static bool invariant(const int* sp, const int* s, int id) {
     return ra_invariant(sp, s, id);
@@ -583,6 +595,9 @@ struct RaftFamily {
     return ra_predicate(sp, s, id);
   }
 };
+
+using RaftFamily = RaftFamilyT<false>;
+using RaftFaultFamily = RaftFamilyT<true>;  // RaftModel with net_faults
 
 #undef CONST
 #undef FLD

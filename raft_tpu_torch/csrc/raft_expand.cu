@@ -11,7 +11,13 @@
 // raft_guard by bytes (the state rows read, valid/rank/ovf written) ahead
 // of the bag-slot compares of the lanes that put a message; raft_apply by
 // bytes, the VC x W int32 successor block it writes (50 MB).
+//
+// Each is built twice: raft_guard/raft_apply over RaftFamily, and
+// raft_nf_guard/raft_nf_apply over RaftFaultFamily (the same actions with the
+// network-fault groups, raft.py:583-608), which the raft_guard/raft_apply
+// wrappers launch for a model with net_faults (kernels.Kernel.launcher).
 #include "expand_driver.cuh"
 #include "raft_actions.cuh"
 
 EXPAND_KERNELS(raft, RaftFamily)
+EXPAND_KERNELS(raft_nf, RaftFaultFamily)

@@ -83,6 +83,8 @@ for _fam in ("raft", "pull", "kraft", "reconfig", "joint", "kreconfig"):
     _SIGNATURES[f"{_fam}_fold"] = {f"{_fam}_fold": _FOLD}
     _SIGNATURES[f"{_fam}_predicates"] = {f"{_fam}_predicates": _PREDICATES,
                                          f"{_fam}_sim_check": _SIM_CHECK}
+# raft_expand.cu's second build of the two, with the network-fault groups
+_SIGNATURES["raft_expand"].update(raft_nf_guard=_GUARD, raft_nf_apply=_APPLY)
 
 
 def nvcc_path() -> str:
@@ -149,6 +151,16 @@ class Kernel:
     def fn(self):
         """The kernel's launcher (the C function named after the kernel)."""
         return getattr(self.lib, self.name)
+
+    def launcher(self, variant: str = ""):
+        """The launcher of the kernel, or of a variant its source also builds
+        (``raft_guard`` with ``variant="nf"``: ``raft_nf_guard``, the same
+        kernel with the network-fault groups compiled in). A variant's
+        launches count as the kernel's."""
+        if not variant:
+            return self.fn
+        fam, role = self.name.rsplit("_", 1)
+        return getattr(self.lib, f"{fam}_{variant}_{role}")
 
     def launched(self, rc: int) -> None:
         """Count one launch and raise if the launcher reported an error."""

@@ -389,6 +389,9 @@ class KernelModel:
     # calls ``model.guards1`` and ``model.sparse_apply``). Each routes by
     # tensor device: the model's hand-written kernel (KERNELS) for a CUDA
     # tensor, its plain version for a CPU one (ops/expand.py).
+    # the build of the guard and apply kernels the model runs ("" for the
+    # kernel itself; Kernel.launcher)
+    KERNEL_VARIANT = ""
     chunk_guards = expand_ops.guard
     chunk_apply = expand_ops.apply
     chunk_fold = expand_ops.fold

@@ -264,6 +264,8 @@ class RaftModel(KernelModel, SparseExpandMixin, FleetConstMixin, ActionLabelMixi
             self._r_drop = self._r_dup + 1
             self.ACTION_NAMES += ["DuplicateMessage", "DropMessage"]
             self.GROUP_RANKS.update(DuplicateMessage=self._r_dup, DropMessage=self._r_drop)
+            # raft_guard/raft_apply built with the fault groups (raft_expand.cu)
+            self.KERNEL_VARIANT = "nf"
         self.layout = _build_layout(params)
         self.packer = _build_packer(params)
         S, V, M = params.n_servers, params.n_values, params.msg_slots

@@ -27,7 +27,8 @@ its plain PyTorch version beside it here:
                   ``predicates``' source, with its own launch count.
 
 A wrapper runs the plain version for CPU tensors and launches the model's
-kernel (``model.KERNELS[role]``) for CUDA tensors (it raises rather than
+kernel (``model.KERNELS[role]``; the guard and apply in the build the
+model's ``KERNEL_VARIANT`` names) for CUDA tensors (it raises rather than
 fall back). The kernels read the model through ``model.kernel_spec``; the
 plain versions through the model's ``guards``/``sparse_apply``/
 ``invariants``/``predicates``.
@@ -84,10 +85,10 @@ def guard(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
     rank = torch.empty((C, A), dtype=torch.int32, device=dev)
     ovf = torch.empty((C, A), dtype=torch.bool, device=dev)
     scal = torch.empty(3, dtype=torch.int64, device=dev)
-    rc = k.fn(states.data_ptr(), C, n_live, spec.data_ptr(), spec.numel(),
-              cand.data_ptr(), A, W, K, model.p.n_servers, model.p.msg_slots,
-              valid.data_ptr(), rank.data_ptr(), ovf.data_ptr(), scal.data_ptr(),
-              cov.data_ptr(), kernels.stream(dev))
+    rc = k.launcher(model.KERNEL_VARIANT)(
+        states.data_ptr(), C, n_live, spec.data_ptr(), spec.numel(), cand.data_ptr(), A, W, K,
+        model.p.n_servers, model.p.msg_slots, valid.data_ptr(), rank.data_ptr(), ovf.data_ptr(),
+        scal.data_ptr(), cov.data_ptr(), kernels.stream(dev))
     k.launched(rc)
     return valid, rank, ovf, scal
 
@@ -113,9 +114,9 @@ def apply(model, states: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     spec, cand, _ = model.kernel_spec(states.device)
     VC = sel.numel()
     flatc = torch.empty((VC, W), dtype=torch.int32, device=states.device)
-    rc = k.fn(states.data_ptr(), C, sel.data_ptr(), VC, spec.data_ptr(),
-              spec.numel(), cand.data_ptr(), W, flatc.data_ptr(),
-              kernels.stream(states.device))
+    rc = k.launcher(model.KERNEL_VARIANT)(
+        states.data_ptr(), C, sel.data_ptr(), VC, spec.data_ptr(), spec.numel(),
+        cand.data_ptr(), W, flatc.data_ptr(), kernels.stream(states.device))
     k.launched(rc)
     return flatc
 

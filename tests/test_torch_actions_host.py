@@ -4,7 +4,7 @@ raft_actions.cuh) against the JAX reference, on the CPU.
 The header's action groups and invariants are plain C++ once CUDA's
 qualifiers are defined away, so a host C++ compiler can build them behind
 a small shim header. Each (state, candidate) pair then goes through
-``ra_action<false>`` (the guard: valid/rank/ovf) and ``ra_action<true>``
+``ra_action<false, true>`` (the guard: valid/rank/ovf) and ``ra_action<true, true>``
 (the apply: the successor row), and each state through ``ra_invariant``;
 the results must equal the dense ``jax.vmap(_expand1)`` and the
 reference's invariants bit for bit, for the core, fsync and flexible
@@ -76,9 +76,9 @@ extern "C" void host_expand(const int* states, int C, const int* spec, const int
       Guard g;
       if (write) {
         for (int w = 0; w < W; ++w) o[w] = s[w];
-        g = ra_action<true>(spec, s, o, cand + 4 * a, nullptr);
+        g = ra_action<true, true>(spec, s, o, cand + 4 * a, nullptr);
       } else {
-        g = ra_action<false>(spec, s, nullptr, cand + 4 * a, bag.data());
+        g = ra_action<false, true>(spec, s, nullptr, cand + 4 * a, bag.data());
       }
       valid[c * A + a] = g.valid;
       rank[c * A + a] = g.rank;

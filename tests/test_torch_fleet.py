@@ -5,11 +5,10 @@ Manifest parsing, grouping and the packed layout must equal the
 reference's; the device code's lane reads (csrc/raft_actions.cuh,
 pull_actions.cuh, built for the CPU with g++) must equal the reference's
 dense expand of its own packed model on rows whose lanes differ from the
-static maximum; and every job of a packed run of the port (DeviceBFS on
-the CPU, the queue arm) must equal the reference's dense serial run of
-the same constants (the reference's guard-first path is broken under the
-installed jax, so its DeviceBFS runs through ``DenseShim``). The sweep
-CLI's exit codes follow the reference's.
+static maximum; a packed job's counterexample must be its standalone
+run's; the sweep CLI's exit codes follow the reference's. (Each job of a
+packed run against the reference's serial run of its constants:
+tests/test_torch_fleet_parity.py.)
 """
 
 import dataclasses
@@ -20,9 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu.checker.device_bfs import DeviceBFS as JaxDeviceBFS
 from raft_tpu.fleet import cli as jax_cli
-from raft_tpu.fleet.grouping import build_setup as jax_build_setup, group_jobs as jax_group_jobs
+from raft_tpu.fleet.grouping import group_jobs as jax_group_jobs
 from raft_tpu.fleet.manifest import (
     ManifestError as JaxManifestError, cfg_for_job as jax_cfg_for_job,
     parse_manifest_obj as jax_parse,
@@ -36,8 +34,7 @@ from raft_tpu_torch.fleet import (
 )
 from raft_tpu_torch.fleet.cli import sweep_main
 
-from test_expand_sparse import DenseShim
-from test_fleet import SM_MANIFEST, STD_DEPTH, STD_MANIFEST
+from test_fleet import SM_MANIFEST, STD_MANIFEST
 from test_torch_actions_host import DRIVER as RAFT_DRIVER, _ptr, build_host_lib
 from test_torch_kernels_cuda import fleet_rows
 from test_torch_pull_actions_host import DRIVER as PULL_DRIVER
@@ -77,10 +74,6 @@ EXPLICIT_MANIFEST = {
 WIDE_MANIFEST = dict(STD_MANIFEST, grid={"MaxElections": [1, 2, 4]})
 MANIFESTS = {"std": STD_MANIFEST, "mixed": MIXED_MANIFEST, "explicit": EXPLICIT_MANIFEST,
              "wide": WIDE_MANIFEST}
-# both lanes vary between the two jobs: one packed group, dyn_consts
-# (max_elections, max_restarts)
-LANES_MANIFEST = dict(STD_MANIFEST, grid={}, jobs=[
-    {"name": "me1-mr0"}, {"name": "me2-mr1", "constants": {"MaxElections": 2, "MaxRestarts": 1}}])
 PULL_MANIFEST = {
     "spec": "PullRaft",
     "defaults": {
@@ -89,6 +82,15 @@ PULL_MANIFEST = {
         "invariants": ["NoLogDivergence", "LeaderHasAllAckedValues"],
         "msg_slots": 24,
     },
+    "grid": {"MaxElections": [1, 2]},
+}
+# tests/test_fleet.py's violating grid (test_fleet_violation_trace_parity):
+# single-vote quorums lose an acked value at MaxElections 2
+FLEX_MANIFEST = {
+    "spec": "FlexibleRaft",
+    "defaults": {"constants": {"Server": ["s1", "s2"], "Value": ["v1"], "MaxRestarts": 0,
+                               "ElectionQuorumSize": 1, "ReplicationQuorumSize": 1},
+                 "invariants": ["LeaderHasAllAckedValues"], "msg_slots": 24},
     "grid": {"MaxElections": [1, 2]},
 }
 JOB_FIELDS = ("name", "spec", "constants", "invariants", "symmetry", "msg_slots", "mode",
@@ -215,51 +217,6 @@ def test_lane_reads_match_reference(host_libs, family):
             assert np.array_equal(ok, tm.predicates[names[0]](torch.from_numpy(rows)).numpy())
 
 
-def _reference_serial(obj, depth):
-    """The reference's dense DeviceBFS of each job's own constants."""
-    out = {}
-    mf = jax_parse(obj, "<t>")
-    for job in mf.jobs:
-        s = jax_build_setup(job, mf.path)
-        out[job.name] = JaxDeviceBFS(
-            DenseShim(s.model), invariants=s.invariants, symmetry=s.symmetry, chunk=256,
-            valid_per_state=32, frontier_cap=1 << 12, seen_cap=1 << 14,
-            journal_cap=1 << 14).run(max_depth=depth)
-    return out
-
-
-@pytest.mark.parametrize("which", ["raft", "pull"])
-def test_packed_jobs_equal_reference_serial(which):
-    """Each job of a packed port run (one DeviceBFS, the jobs queued)
-    equals the reference's serial run of its constants at STD_DEPTH:
-    counts, depth counts, coverage; the sweep's JobResults agree."""
-    obj = LANES_MANIFEST if which == "raft" else PULL_MANIFEST
-    mf = parse_manifest_obj(obj, "<t>")
-    (g,) = group_jobs(mf)
-    assert g.kind == "packed" and len(g.dyn_consts) == (2 if which == "raft" else 1)
-    eng = DeviceBFS(build_packed(g), invariants=g.setups[0].invariants,
-                    symmetry=g.setups[0].symmetry, chunk=256, frontier_cap=1 << 12,
-                    journal_cap=1 << 14, max_seen_cap=1 << 20, canon_memo_cap=1 << 12,
-                    device="cpu")
-    names = [j.name for j in g.jobs]
-    got = eng.run_fleet(job_names=names, max_depth=STD_DEPTH)
-    ref = _reference_serial(obj, STD_DEPTH)
-    for name, r in zip(names, got):
-        s = ref[name]
-        assert (r.distinct, r.total, r.depth, r.terminal) == (
-            s.distinct, s.total, s.depth, s.terminal), name
-        assert r.depth_counts == s.depth_counts and r.coverage == s.coverage, name
-    assert got[0].distinct != got[1].distinct  # the lanes really separate the jobs
-    res = run_sweep(mf, SweepOptions(device="cpu", max_depth=STD_DEPTH, chunk=256))
-    assert res.rc == 0 and res.amortization == {
-        "jobs": 2, "groups": 1, "precompiles": 1, "precompile_ratio": 0.5}
-    for jr in res.jobs:
-        s = ref[jr.name]
-        assert (jr.distinct, jr.total, jr.depth, jr.terminal) == (
-            s.distinct, s.total, s.depth, s.terminal)
-        assert jr.exit_cause == "max_depth"
-
-
 def test_serial_and_simulate_groups():
     """A non-packable spec runs as a serial group on one model, and a
     simulate job gives the port Simulator's own result."""
@@ -282,6 +239,26 @@ def test_serial_and_simulate_groups():
     sim = Simulator(setup.model, invariants=setup.invariants, walks=8,
                     max_behavior_depth=50, seed=2, device="cpu").run(max_steps=64)
     assert (by["ksim"].behaviors, by["ksim"].steps) == (sim.behaviors, sim.steps)
+
+
+def test_packed_violation_trace_equals_serial():
+    """A packed job that breaks an invariant reports its standalone run's
+    shortest counterexample: the violation, the action labels and the
+    decoded states (which, as the reference's decode, leave out the fleet
+    lanes)."""
+    mf = parse_manifest_obj(FLEX_MANIFEST, "<t>")
+    (g,) = group_jobs(mf)
+    caps = dict(chunk=256, frontier_cap=1 << 12, journal_cap=1 << 14, max_seen_cap=1 << 20,
+                canon_memo_cap=1 << 12, device="cpu")
+    packed = DeviceBFS(build_packed(g), invariants=g.setups[0].invariants, **caps).run_fleet(
+        job_names=[j.name for j in g.jobs])
+    for r, s in zip(packed, g.setups, strict=True):
+        want = DeviceBFS(s.model, invariants=s.invariants, **caps).run()
+        assert r.violation == want.violation and r.depth_counts == want.depth_counts
+        assert r.trace == want.trace
+    assert packed[0].violation is None and packed[1].violation is not None
+    assert not any(k == "fleet_job" or k.startswith("c_") for _l, st in packed[1].trace
+                   for k in st)
 
 
 def test_sweep_cli_exit_codes_match_reference(tmp_path, capsys):
@@ -308,12 +285,7 @@ def test_sweep_cli_exit_codes_match_reference(tmp_path, capsys):
         assert "ROADMAP.md Queue 1 item" in capsys.readouterr().err, argv
     # a violating job: the sweep's rc is the worst job's (2); --json lines
     flex = tmp_path / "flex.json"
-    flex.write_text(json.dumps({
-        "spec": "FlexibleRaft",
-        "defaults": {"constants": {"Server": ["s1", "s2"], "Value": ["v1"], "MaxRestarts": 0,
-                                   "ElectionQuorumSize": 1, "ReplicationQuorumSize": 1},
-                     "invariants": ["LeaderHasAllAckedValues"], "msg_slots": 24},
-        "grid": {"MaxElections": [1, 2]}}))
+    flex.write_text(json.dumps(FLEX_MANIFEST))
     assert sweep_main([str(flex), "--device", "cpu", "--json", "--chunk", "256"]) == 2
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x]
     assert [x["job"] for x in lines[:-1]] == ["FlexibleRaft-MaxElections=1",
