@@ -383,15 +383,16 @@ class KernelModel:
     csrc header that evaluates them) and ``KERNELS`` (role -> Kernel:
     guard, apply, fold, predicates, sim_check)."""
 
+    # The build of the guard and apply kernels the model runs: "" for the
+    # kernel itself, or a variant its source also builds (Kernel.launcher).
+    KERNEL_VARIANT = ""
+
     # The engine's chunk entry points. DeviceBFS, Simulator and the
     # liveness checker expand, fold and check only through these, so the
     # choice of kernels stays with the model (as the reference's engine
     # calls ``model.guards1`` and ``model.sparse_apply``). Each routes by
     # tensor device: the model's hand-written kernel (KERNELS) for a CUDA
     # tensor, its plain version for a CPU one (ops/expand.py).
-    # the build of the guard and apply kernels the model runs ("" for the
-    # kernel itself; Kernel.launcher)
-    KERNEL_VARIANT = ""
     chunk_guards = expand_ops.guard
     chunk_apply = expand_ops.apply
     chunk_fold = expand_ops.fold
