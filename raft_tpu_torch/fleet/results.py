@@ -39,13 +39,10 @@ class JobResult:
     # simulate mode
     behaviors: int | None = None
     steps: int | None = None
-    skipped: bool = False
 
     def to_json(self) -> dict:
         out = {"job": self.name, "mode": self.mode, "rc": self.rc,
                "seconds": round(self.seconds, 3)}
-        if self.skipped:
-            out["skipped"] = True
         if self.exit_cause is not None:
             out["exit_cause"] = self.exit_cause
         for k in ("distinct", "total", "depth", "terminal", "trace_len", "behaviors", "steps"):
