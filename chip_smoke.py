@@ -38,7 +38,12 @@ Phases, each of which fails the run on any mismatch:
      config appends (tests/test_torch_kernels_cuda.py config_edge_rows),
      with canon_memo's general path (N-word keys, the server_bitmask
      kind, up to 24 remap fields) on their successor rows and permuted
-     copies; raft_guard and raft_apply with the network-fault groups at
+     copies; canon_tiered's general path (memo cold and warm, fingerprint
+     seeds 0 and 0x5EED5EED) and canon_signatures on a chunk of each
+     five-server reconfiguration cfg's frontier (ADDREMOVE5_CFG,
+     JOINT5_CFG: 5- and 7-word keys, member-set fields, log fields of
+     several lanes a server; timed) and on their server-permuted copies;
+     raft_guard and raft_apply with the network-fault groups at
      Raft.cfg's width (A = 165) on a chunk of its --net-faults frontier
      (timed) and on edge rows with count-0, -1 and -2 records (both fault
      groups fire; a count-2 record's duplicate and a count-0 record's
@@ -88,6 +93,17 @@ Phases, each of which fails the run on any mismatch:
      at twice the chunk with identical results, the deepest journal state's
      trace replayed on the card and the CPU, and card against CPU at the
      two-server constants of tests/test_net_faults.py;
+  4i. five-server AddRemove (ADDREMOVE5_CFG) to ADDREMOVE5_DEPTH through
+     the same function: the reconfig_* kernels and canon_tiered (in
+     canon_memo's place) once per chunk, its depth counts held to the
+     reference's through the pinned depth 13 (scripts/pin_reconfig_counts.py
+     --servers 5), the deepest journal state's trace replayed on the card
+     and the CPU; at the pinned depth its depth counts and coverage equal
+     the reference's, once untraced and once traced (device time by kernel
+     group), the same at half the chunk through the port's parity_gate, and
+     its collision_audit (seeds 0 and 0x5EED5EED) passing at AUDIT5_DEPTH;
+     five-server JointConsensus (JOINT5_CFG) card against CPU at
+     JOINT5_SMALL_DEPTH (the card run counted: joint_* and canon_tiered);
   5. FlexibleRaft with quorums that need not intersect (3 servers,
      ElectionQuorumSize 2, ReplicationQuorumSize 1): the
      LeaderHasAllAckedValues violation, its gid, depth and trace on the
@@ -148,9 +164,11 @@ Phases, each of which fails the run on any mismatch:
      card run of its constants), and manifests/kraft_reconfig_sim.json's
      simulate group through sweep_main; one model per group, the families'
      kernels and no plain expand;
-  10. the kernel table as one JSON line (each kernel, and the network-fault
-     and fleet-lane rows of the Raft and pull guards and applies), the
-     card's name and power limit, and the result line.
+  10. the kernel table as one JSON line (each kernel, the network-fault
+     and fleet-lane rows of the Raft and pull guards and applies, and the
+     five-server reconfiguration rows of canon_tiered and
+     canon_signatures), the card's name and power limit, and the result
+     line.
 """
 
 from __future__ import annotations
@@ -509,6 +527,59 @@ JOINT_CAPS = dict(RECONFIG_CAPS, max_frontier_cap=9_502_720)
 CONFIG_SIM_MOVES = 100
 CONFIG_SMALL_SIM = (64, 20)  # the card-against-CPU simulate: walks, moves
 
+# the reconfiguration specs at five servers (phases 3, 4i): the four-server
+# cfgs with n5 added (five voters, the usual production size of a Raft
+# cluster; the reference cfgs stop at four, SURVEY.md:91-92, so these stand
+# in as five-server Raft does). AddRemove's MaxClusterSize is repaired to
+# |Server| = 5 as the four-server cfg's is, and MaxAddReconfigs is 2 so the
+# three-member cluster can grow to all five servers. 112 message slots (W =
+# 929, view 922, A = 232, 5-word keys, 15 remap fields; JointConsensus W =
+# 1,227, view 1,221, A = 307, 7-word keys, 24 fields): canon_tiered's
+# general path
+def _five_servers(text: str) -> str:
+    return text.replace("    n4 = n4\n", "    n4 = n4\n    n5 = n5\n").replace(
+        "{ n1, n2, n3, n4 }", "{ n1, n2, n3, n4, n5 }")
+
+
+ADDREMOVE5_CFG = _five_servers(ADDREMOVE_CFG).replace("MaxAddReconfigs = 1", "MaxAddReconfigs = 2")
+JOINT5_CFG = _five_servers(JOINT_CFG)
+# the reference's dense DeviceBFS on both (scripts/pin_reconfig_counts.py
+# --servers 5 [--joint] --budget 600: AddRemove through depth 13 in 878.2 s,
+# JointConsensus through depth 11 in 787.8 s, on 8 CPU cores; neither
+# exhausts)
+ADDREMOVE5_PIN = dict(
+    depth_counts=[1, 6, 27, 91, 251, 602, 1294, 2558, 4790, 8634, 15221, 26339, 45132, 78190],
+    distinct=183_136, total=458_294, terminal=81, exhausted=False,
+    coverage=[[0, 0, 0], [68123, 114887, 39193], [9736, 20016, 2877], [5376, 5376, 3419],
+              [45366, 53874, 22051], [25193, 27850, 14778], [18025, 19948, 3958],
+              [4831, 4831, 2199], [37512, 50889, 14995], [44306, 52044, 36684],
+              [27309, 29979, 22160], [23583, 26502, 11050], [6020, 12619, 2253],
+              [4388, 14116, 3407], [11239, 11390, 2339], [7973, 7973, 790], [4500, 4500, 536],
+              [1499, 1499, 446]],
+)
+JOINT5_PIN = dict(
+    depth_counts=[1, 5, 24, 90, 271, 711, 1679, 3730, 8300, 19721, 49897, 125912],
+    distinct=210_341, total=511_224, terminal=4, exhausted=False,
+    coverage=[[0, 0, 0], [66911, 120315, 43603], [5960, 13237, 2081], [2873, 2873, 1994],
+              [30965, 36319, 16906], [13564, 14691, 8690], [26044, 36271, 8202],
+              [3108, 3108, 1307], [48373, 90296, 19537], [36182, 41363, 35091],
+              [25031, 27089, 21956], [15299, 16674, 7439], [7543, 47808, 20031],
+              [2548, 2548, 1000], [35669, 46109, 20241], [8685, 8685, 1763], [3837, 3837, 499]],
+)
+# the card's runs: AddRemove to ADDREMOVE5_DEPTH (4i), the deepest that fits
+# 80 GB: depth 20 is 14,318,640 distinct in about 26 s, its 6,742,993-row
+# frontier of 3,716 bytes held twice in buffers of ADDREMOVE5_CAPS's 9 x 2^20
+# rows; depth 21's (about 12.6 M rows) would not fit. Phase 3's sample
+# depths (wide waves: 140,061 and 299,270 states); JointConsensus card
+# against CPU to JOINT5_SMALL_DEPTH (chunk 256); the collision audit's depth
+ADDREMOVE5_DEPTH = 20
+ADDREMOVE5_SAMPLE_DEPTH = 14
+JOINT5_SAMPLE_DEPTH = 12
+ADDREMOVE5_CAPS = dict(max_frontier_cap=9_437_184, max_seen_cap=1 << 26, max_journal_cap=1 << 26)
+JOINT5_SMALL_DEPTH = 5
+AUDIT5_DEPTH = 10
+AUDIT_SEED = 0x5EED5EED  # the collision audit's second hash family
+
 # KRaftWithReconfig (phases 3, 4g, 6, 7f, 8d): the reference cfg's constants
 # as SURVEY.md:96 records them (its Value = {v1, v2} names the undeclared v2,
 # which the lenient parse declares), with MaxElections 2 (KRaft.cfg's,
@@ -698,6 +769,8 @@ PULL_PATH = tuple(k.replace("raft_", "pull_") for k in RAFT3_PATH)
 KRAFT_PATH = tuple(k.replace("raft_", "kraft_") for k in RAFT3_PATH)
 RECONFIG_PATH = tuple(k.replace("raft_", "reconfig_") for k in RAFT3_PATH)
 JOINT_PATH = tuple(k.replace("raft_", "joint_") for k in RAFT3_PATH)
+RECONFIG5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in RECONFIG_PATH)
+JOINT5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in JOINT_PATH)
 KRECONFIG_PATH = ("slot_canon",) + tuple(k.replace("raft_", "kreconfig_")
                                          for k in RAFT3_PATH[1:])
 # state fields the invariants of the cfgs here read (NoLogDivergence,
@@ -741,12 +814,26 @@ RECONFIG_FAM = dict(prefix="reconfig", tag="4e", sim_tag="7d", cfg=ADDREMOVE_CFG
                     small=("RaftWithReconfigAddRemove", CONFIG_SMALL_DEPTH),
                     small_cfg=ADDREMOVE_SMALL_CFG, path=RECONFIG_PATH, depth=RECONFIG_DEPTH,
                     caps=RECONFIG_CAPS, second_chunk=CHUNK // 2, sim_moves=CONFIG_SIM_MOVES,
-                    small_sim=CONFIG_SMALL_SIM, violation=RECONFIG_VIOLATION)
+                    small_sim=CONFIG_SMALL_SIM, violation=RECONFIG_VIOLATION,
+                    five_cfg=ADDREMOVE5_CFG, five_depth=ADDREMOVE5_SAMPLE_DEPTH,
+                    five_tag="addremove5")
 JOINT_FAM = dict(RECONFIG_FAM, prefix="joint", tag="4f", sim_tag="7e", cfg=JOINT_CFG,
                  specs=(("RaftWithReconfigJointConsensus", JOINT_PIN, JOINT_SAMPLE_DEPTH),),
                  small=("RaftWithReconfigJointConsensus", CONFIG_SMALL_DEPTH),
                  small_cfg=JOINT_SMALL_CFG, path=JOINT_PATH, depth=JOINT_DEPTH, caps=JOINT_CAPS,
-                 violation=None)
+                 violation=None, five_cfg=JOINT5_CFG, five_depth=JOINT5_SAMPLE_DEPTH,
+                 five_tag="joint5")
+# five-server AddRemove on the main path (4i): to a depth, its depth counts
+# held to the pin, no second chunk here (the parity gate runs it at the
+# pinned depth) and no card-against-CPU run of its own (five-server
+# JointConsensus takes that, five_reconfig_phase)
+ADDREMOVE5_FAM = dict({k: v for k, v in RECONFIG_FAM.items()
+                       if not k.startswith(("small", "five", "second"))},
+                      tag="4i", cfg=ADDREMOVE5_CFG,
+                      specs=(("RaftWithReconfigAddRemove", ADDREMOVE5_PIN,
+                              ADDREMOVE5_SAMPLE_DEPTH),),
+                      path=RECONFIG5_PATH, depth=ADDREMOVE5_DEPTH, caps=ADDREMOVE5_CAPS,
+                      violation=None)
 # KRaftWithReconfig: its own family (kreconfig_* and the slot canon), run to a
 # depth, with the card against the CPU at the SMALLP constants, symmetry on
 # and off
@@ -1073,23 +1160,37 @@ def chunk_sort_row(torch, fps, fresh, run_len, timed: bool) -> dict:
 def tier_pairs(torch, canon, states):
     """Per lane of ``states``, counted from its data: the fmix32 pairs of
     its signatures, of one hash of its view (the raw key, or one permuted
-    hash: K non-bag lanes + 3 words per occupied slot) and the number of
-    its admissible permutations."""
-    lay, S, R = canon.layout, canon.S, 3
-    occ = (states[:, lay.sl("msg_hi")] != 1 << 30).sum(1)
-    kinds = [f.kind for f in lay.fields.values() if f.offset < canon.VL]
-    ps_lanes = sum(f.size for f in lay.fields.values()
-                   if f.kind == "per_server" and f.offset < canon.VL)
+    hash: K non-bag lanes + NW + 1 streams per occupied slot, NW key words
+    and the count) and the number of its admissible permutations. A
+    signature round folds each record's server fields: one pair a plain or
+    Nil-able field, one a member of a member set, and one more a field for
+    its scatter; the record's hash (NW + 1 pairs) is counted each round."""
+    S, R, h = canon.S, 3, canon._host
+    M, NW = h["M"], len(h["stream_offs"])
+    words = [states[:, o:o + M].to(torch.int64) for o in h["stream_offs"]]
+    occ_m = words[0] != 1 << 30
+    occ = occ_m.sum(1)
+    gathers = torch.zeros_like(occ)
+    for (_w, shift, mask, kind), k in zip(h["fields"], h["field_streams"]):
+        val = (words[k] >> shift) & mask
+        if kind == 2:  # server_bitmask: one pair a member below S
+            val = val & ((1 << S) - 1)
+            pop = sum((val >> q) & 1 for q in range(S))
+        else:
+            pop = torch.ones_like(val)
+        gathers += torch.where(occ_m, pop, 0).sum(1)
+    NF = len(h["fields"])
+    kinds = [kind for kind, _off, _lanes in canon._sig_fields]
+    ps_lanes = sum(len(lanes) for kind, _off, lanes in canon._sig_fields if kind == "per_server")
     n_val, n_bm, n_pair = (kinds.count(k) for k in
                            ("per_server_val", "server_bitmask", "per_server_pair"))
-    NF = len(canon._host["fields"])  # the message server fields
     per_state = (ps_lanes + S * kinds.count("per_server") + 2 * S * (n_val + n_bm)
                  + (S + 2 * S * (S - 1)) * n_pair + R * (S * n_val + S * S * n_bm
                                                          + 2 * S * S * n_pair + S))
-    sig = per_state + occ * (3 + NF + R * (3 + 2 * NF))
+    sig = per_state + occ * (NW + 1 + NF + R * (NW + 1 + NF)) + R * gathers
     ssig = canon.signatures_plain(states)[:, canon._tensors(states.device)["inv"]]
     n_adm = (ssig[..., 1:] >= ssig[..., :-1]).all(dim=-1).sum(1)
-    return sig, canon._K + 3 * occ, n_adm
+    return sig, canon._K + (NW + 1) * occ, n_adm
 
 
 def tiered_rows(torch, canon, flatc, selv, timed: bool) -> dict:
@@ -1492,10 +1593,11 @@ def family_sim_rows(torch, fam) -> dict:
 
 
 def canon_memo_rows(torch, bfs, flatc, selv):
-    """canon_memo against its plain version on a chunk's successor rows of
-    ``bfs``'s model and their server-permuted copies (the model's message
-    remap kinds), memo cold then warm, exactly; the permuted rows keep
-    their fingerprints. Prints the cold kernel time."""
+    """canon_memo (canon_tiered at five servers) against its plain version
+    on a chunk's successor rows of ``bfs``'s model and their
+    server-permuted copies (the model's message remap kinds), memo cold
+    then warm, exactly; the permuted rows keep their fingerprints. Prints
+    the cold kernel time."""
     from raft_tpu_torch.ops.hashing import INT64_MAX
     from raft_tpu_torch.ops.symmetry import msg_perm_spec, permute_states
 
@@ -1516,13 +1618,14 @@ def canon_memo_rows(torch, bfs, flatc, selv):
         fp, hp = canon.fingerprints_memo_plain(rows, valid, memo_p)
         errs += [exact(torch, fk, fp), exact(torch, memo_k, memo_p), float(int(hk) != int(hp))]
     n = len(base)
-    check(max(errs) == 0.0, f"{model.name}: canon_memo differs from its plain version")
+    kernel = "canon_tiered" if canon.prune else "canon_memo"
+    check(max(errs) == 0.0, f"{model.name}: {kernel} differs from its plain version")
     check(torch.equal(fk[:n], fk[n:]), f"{model.name}: permuted states changed their "
           "fingerprints")
     ms = time_ms(torch, lambda: canon.fingerprints_memo_cuda(rows[:n], valid[:n], memo_k),
                  setup=lambda: memo_k.fill_(INT64_MAX))
-    print(f"[3] {model.name}: canon_memo exact on {n} successor rows and their permuted "
-          f"copies (the message remap {canon.spec}); cold {ms:.4f} ms")
+    print(f"[3] {model.name} ({model.p.n_servers} servers): {kernel} exact on {n} successor "
+          f"rows and their permuted copies (the message remap {canon.spec}); cold {ms:.4f} ms")
 
 
 def slot_canon_rows(torch, bfs, flatc, selv) -> dict:
@@ -1576,8 +1679,6 @@ def family_kernel_rows(torch, rng, fam) -> dict:
     five-server configuration's canon_tiered and canon_signatures where it
     has one; then its sim_check and predicates at its simulate's own width
     (family_sim_rows, timed). Returns {kernel: row}."""
-    from raft_tpu_torch.__main__ import run_check
-
     rows = {}
     for k, (spec, pin, depth) in enumerate(fam["specs"]):
         t = time.perf_counter()
@@ -1610,16 +1711,45 @@ def family_kernel_rows(torch, rng, fam) -> dict:
         step_rows(torch, bfs.model, torch.from_numpy(edge).to(bfs.device), rng)
         del bfs
     if "five_cfg" in fam:
-        t = time.perf_counter()
-        _, bfs, _res = run_check(f"{fam['specs'][0][0]}.cfg", text=fam["five_cfg"],
-                                 device="cuda", chunk=CHUNK, max_depth=fam["five_depth"])
-        pool = bfs.frontier_rows.cpu().numpy()
-        print(f"[3] sampled the depth-{fam['five_depth']} five-server {bfs.model.name} frontier "
-              f"({len(pool)} states) in {time.perf_counter() - t:.1f} s")
-        flatc, selv, _fps, _fresh = chunk_lanes(torch, bfs, pool, rng)
-        tiered_rows(torch, bfs.canon, flatc, selv, timed=False)
-        del bfs
+        rows.update(five_canon_rows(torch, rng, fam))
     rows.update(family_sim_rows(torch, fam))
+    return rows
+
+
+def five_canon_rows(torch, rng, fam) -> dict:
+    """canon_tiered and canon_signatures against their plain versions on a
+    chunk of the family's five-server cfg's frontier at its ``five_depth``
+    (a sample of POOL_ROWS rows of a wide wave). For the reconfiguration
+    specs (``five_tag``: canon_tiered's general path) the family's expand
+    kernels are held on the same frontier, and the canon also timed (the rows
+    ``canon_tiered[tag]``, ``canon_signatures[tag]``), checked again under
+    the collision audit's second hash family, and on the valid rows'
+    server-permuted copies, which keep their fingerprints."""
+    from raft_tpu_torch.ops.symmetry import Canonicalizer
+
+    t = time.perf_counter()
+    _, bfs, _res = run_family(fam, fam["specs"][0][0], "cuda", fam["five_depth"],
+                              text=fam["five_cfg"])
+    fr = bfs.frontier_rows
+    if fr.shape[0] > POOL_ROWS:
+        pick = np.sort(rng.choice(fr.shape[0], POOL_ROWS, replace=False))
+        fr = fr[torch.from_numpy(pick).to(fr.device)]
+    pool = fr.cpu().numpy()
+    print(f"[3] sampled the depth-{fam['five_depth']} five-server {bfs.model.name} frontier "
+          f"({bfs.frontier_rows.shape[0]} states) in {time.perf_counter() - t:.1f} s")
+    del fr
+    tag = fam.get("five_tag")
+    if tag:  # the family's expand kernels at five servers too
+        expand_kernels(torch, bfs, pool, rng, timed=False)
+    flatc, selv, _fps, _fresh = chunk_lanes(torch, bfs, pool, rng)
+    if not tag:
+        tiered_rows(torch, bfs.canon, flatc, selv, timed=False)
+        return {}
+    rows = {f"{k}[{tag}]": r for k, r in
+            tiered_rows(torch, bfs.canon, flatc, selv, timed=True).items()}
+    tiered_rows(torch, Canonicalizer.for_model(bfs.model, seed=AUDIT_SEED), flatc, selv,
+                timed=False)
+    canon_memo_rows(torch, bfs, flatc, selv)
     return rows
 
 
@@ -1831,9 +1961,9 @@ def family_main_phase(torch, fam) -> dict:
                   "coverage and violation")
             report["second_chunk"] = {"chunk": fam["second_chunk"], "seconds": wall2}
             del bfs2
-    spec, depth = fam["small"]
+    spec, depth = fam.get("small", (None, None))
     small = fam.get("small_cfg") or fam["cfg"]
-    texts = {"": small}
+    texts = {"": small} if spec else {}
     if fam.get("small_nosym"):  # and with the SYMMETRY line taken out
         texts[" (symmetry off)"] = "\n".join(
             ln for ln in small.splitlines() if not ln.startswith("SYMMETRY")) + "\n"
@@ -1852,6 +1982,96 @@ def family_main_phase(torch, fam) -> dict:
               f"depth counts and coverage: card == CPU (card {t_card:.1f} s, CPU {t_cpu:.1f} s)")
     report["phase_s"] = time.perf_counter() - t0
     print(json.dumps({f"{fam['prefix']}_run": report}))
+    return report
+
+
+def five_reconfig_phase(torch) -> dict:
+    """Phase 4i: five-server AddRemove on the main path (family_main_phase:
+    counted, held to the pin, its trace replayed); at the pinned depth its
+    depth counts and coverage held to the reference's through trace_run
+    (untraced, then traced), the same workload at half the chunk through
+    the port's parity_gate, and the collision audit at AUDIT5_DEPTH; then
+    five-server JointConsensus on the card (counted) against the CPU."""
+    from raft_tpu_torch.__main__ import load_setup
+    from raft_tpu_torch.checker.audit import collision_audit
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+    from raft_tpu_torch.checker.parity import parity_gate
+
+    t0 = time.perf_counter()
+    report = family_main_phase(torch, ADDREMOVE5_FAM)
+    spec, pin, _d = ADDREMOVE5_FAM["specs"][0]
+    dpin = len(pin["depth_counts"]) - 1
+    trace, rp = trace_run(torch, f"{spec}.cfg", ADDREMOVE5_CFG, dpin,
+                          (pin["distinct"], pin["total"], dpin, pin["terminal"]), lenient=True,
+                          caps=ADDREMOVE5_CAPS)
+    check(rp.depth_counts == pin["depth_counts"] and rp.coverage == pin["coverage"],
+          f"five-server {spec} depth counts or coverage at the pinned depth differ from the "
+          "reference's")
+    print(f"[4i] five-server {spec} depth {dpin}: distinct, total, depth counts and coverage "
+          f"equal the reference's, {trace['chunks']} chunks, "
+          f"{trace['wall_ms_per_chunk']:.3f} ms/chunk wall")
+    print(json.dumps({"trace_addremove5": trace}))
+    setup = load_setup(f"{spec}.cfg", text=ADDREMOVE5_CFG, lenient=True)
+    t = time.perf_counter()
+    checkers = tuple(DeviceBFS(setup.model, invariants=setup.invariants, chunk=c,
+                               frontier_cap=c * 16, device="cuda", **ADDREMOVE5_CAPS)
+                     for c in (CHUNK, CHUNK // 2))
+    gate = parity_gate(checkers=checkers, depth=dpin)
+    check(gate.ok and gate.counts[0] == pin["depth_counts"], f"five-server {spec}: {gate}")
+    print(f"[4i] {gate} in {time.perf_counter() - t:.1f} s")
+    del checkers
+    t = time.perf_counter()
+    audit = collision_audit(setup.model, setup.invariants, depth=AUDIT5_DEPTH, chunk=CHUNK,
+                            seeds=(0, AUDIT_SEED), device="cuda")
+    check(audit.ok and audit.counts[0] == pin["depth_counts"][:AUDIT5_DEPTH + 1],
+          f"five-server {spec}: {audit}")
+    print(f"[4i] {audit} in {time.perf_counter() - t:.1f} s")
+    report.update(trace=trace, parity_gate=str(gate), collision_audit=str(audit))
+    # five-server JointConsensus: the card (counted) against the CPU, chunk
+    # 256 (the CPU's plain expand grid grows with the chunk, not the frontier)
+    jspec = "RaftWithReconfigJointConsensus"
+
+    def joint5(device):
+        return run_family(ADDREMOVE5_FAM, jspec, device, JOINT5_SMALL_DEPTH, chunk=256,
+                          text=JOINT5_CFG)[2]
+
+    jg, t_card, jl, n_expand, n_sort = counted(torch, lambda: joint5("cuda"))
+    t = time.perf_counter()
+    jc = joint5("cpu")
+    t_cpu = time.perf_counter() - t
+    got = (jg.distinct, jg.total, jg.terminal, jg.depth_counts, jg.coverage)
+    check(jg.violation is None and got == (jc.distinct, jc.total, jc.terminal, jc.depth_counts,
+                                           jc.coverage),
+          f"five-server {jspec}: card {got[:3]} != CPU {(jc.distinct, jc.total, jc.terminal)}")
+    n_pin = min(len(JOINT5_PIN["depth_counts"]), JOINT5_SMALL_DEPTH + 1)
+    check(jg.depth_counts[:n_pin] == JOINT5_PIN["depth_counts"][:n_pin],
+          f"five-server {jspec} depth counts {jg.depth_counts} != the reference's")
+    for k in JOINT5_PATH:
+        check(jl[k] > 0, f"five-server {jspec}: kernel {k} was never launched")
+    for k in set(KERNEL_NAMES) - set(JOINT5_PATH):
+        check(jl[k] == 0, f"five-server {jspec}: {k} launched off its path")
+    check(n_expand == 0 and n_sort == 0,
+          f"five-server {jspec}: the plain expand ran {n_expand} times, torch sorted {n_sort}")
+    print(f"[4i] five-server {jspec} to depth {JOINT5_SMALL_DEPTH}: distinct={jg.distinct} "
+          f"total={jg.total}, depth counts and coverage: card == CPU == the reference's (card "
+          f"{t_card:.1f} s, {jl['canon_tiered']} canon_tiered launches; CPU {t_cpu:.1f} s)")
+    report["joint5"] = {"distinct": jg.distinct, "total": jg.total, "launches": jl,
+                        "card_s": t_card, "cpu_s": t_cpu}
+    # and at its pinned depth: depth counts and coverage held to the reference's
+    jpin = len(JOINT5_PIN["depth_counts"]) - 1
+    jtrace, rj = trace_run(torch, f"{jspec}.cfg", JOINT5_CFG, jpin,
+                           (JOINT5_PIN["distinct"], JOINT5_PIN["total"], jpin,
+                            JOINT5_PIN["terminal"]), lenient=True, caps=ADDREMOVE5_CAPS)
+    check(rj.depth_counts == JOINT5_PIN["depth_counts"] and rj.coverage == JOINT5_PIN["coverage"],
+          f"five-server {jspec} depth counts or coverage at the pinned depth differ from the "
+          "reference's")
+    print(f"[4i] five-server {jspec} depth {jpin}: distinct, total, depth counts and coverage "
+          f"equal the reference's, {jtrace['chunks']} chunks, "
+          f"{jtrace['wall_ms_per_chunk']:.3f} ms/chunk wall")
+    print(json.dumps({"trace_joint5": jtrace}))
+    report["joint5"]["trace"] = jtrace
+    report["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"addremove5_run": {k: v for k, v in report.items() if k != "launches"}}))
     return report
 
 
@@ -2888,6 +3108,10 @@ def main() -> int:
     # ---- 4h. Raft.cfg with --net-faults on the main path ----
     nf_report = family_main_phase(torch, NF_FAM)
 
+    phase_start["4i"] = time.perf_counter()
+    # ---- 4i. the reconfiguration specs at five servers ----
+    five_report = five_reconfig_phase(torch)
+
     phase_start["5"] = time.perf_counter()
     # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
     def small_run(cfg_name, text, device, depth=None, **kw):
@@ -3122,6 +3346,13 @@ def main() -> int:
                               "raft_tpu/models/base.py:217"),
         "pull_guard[fleet]": ("raft_tpu_torch/csrc/pull_expand.cu",
                               "raft_tpu/models/pull_raft.py:269"),
+        # canon_tiered's general path (N-word keys, member-set fields) at
+        # the five-server reconfiguration shapes
+        **{f"{k}[{tag}]": (meta_src, f"raft_tpu/ops/symmetry.py:{line}")
+           for tag in ("addremove5", "joint5")
+           for k, meta_src, line in (("canon_tiered", "raft_tpu_torch/csrc/canon_tiered.cu", 823),
+                                     ("canon_signatures", "raft_tpu_torch/csrc/canon_tiered.cu",
+                                      581))},
     }
     # launches: each kernel's count on the path that runs it (Raft.cfg's
     # for the kernels both paths share, liveness' for raft_predicates,
@@ -3155,7 +3386,11 @@ def main() -> int:
                      "raft_guard[net_faults]": nf_report["launches"]["raft_guard"],
                      "raft_apply[net_faults]": nf_report["launches"]["raft_apply"],
                      "raft_guard[fleet]": sweep_report["a"]["launches"]["raft_guard"],
-                     "pull_guard[fleet]": sweep_report["b"]["launches"]["pull_guard"]}
+                     "pull_guard[fleet]": sweep_report["b"]["launches"]["pull_guard"],
+                     # 4i's AddRemove run and its JointConsensus card run
+                     "canon_tiered[addremove5]": five_report["launches"]["canon_tiered"],
+                     "canon_tiered[joint5]": five_report["joint5"]["launches"]["canon_tiered"],
+                     "canon_signatures[addremove5]": 0, "canon_signatures[joint5]": 0}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": path_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -3163,7 +3398,7 @@ def main() -> int:
          "library_ms": r["library_ms"]}
         for k, r in rows.items()
     ]
-    check(len(table) == len(KERNEL_NAMES) + 4, f"{len(table)} kernels in the table")
+    check(len(table) == len(KERNEL_NAMES) + 8, f"{len(table)} kernels in the table")
     tags = list(phase_start)
     phase_s = {t: round(phase_start[n] - phase_start[t], 1) for t, n in zip(tags, tags[1:])}
     print(json.dumps({"phase_seconds": phase_s}))

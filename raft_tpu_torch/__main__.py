@@ -5,6 +5,7 @@
     python -m raft_tpu_torch path/to/PullRaft.cfg --lenient [--simulate N]
     python -m raft_tpu_torch path/to/KRaft.cfg [--simulate N]
     python -m raft_tpu_torch path/to/Raft.cfg --net-faults [--simulate N]
+    python -m raft_tpu_torch path/to/Raft.cfg --collision-audit DEPTH --coverage[=strict]
     python -m raft_tpu_torch sweep MANIFEST.json [--engine tpu] [--device cuda|cpu]
 
 Runs the device BFS on ``cuda`` (the default; ``--device cpu`` runs the
@@ -12,7 +13,10 @@ plain PyTorch versions of the kernels instead). ``-deadlock`` semantics
 are the default: terminal states are reported, not errors. ``--simulate
 N`` runs N random behaviors instead (TLC's ``-simulate``).
 ``--net-faults`` adds the Raft family's DuplicateMessage and DropMessage
-actions. ``sweep`` runs a fleet manifest (``fleet/cli.py``). A cfg's
+actions. ``--collision-audit DEPTH`` first explores to DEPTH under two
+fingerprint hash families and requires identical counts
+(``checker/audit.py``); ``--coverage`` prints TLC's per-action table after
+the BFS (``obs/coverage.py``). ``sweep`` runs a fleet manifest (``fleet/cli.py``). A cfg's
 PROPERTY lines are checked after a clean exhaustive BFS on the full
 state graph (symmetry off); configurations that cannot be checked are
 refused.
@@ -21,10 +25,12 @@ Exit codes (the reference's contract, raft_tpu/__main__.py:10-24):
 
     0   clean run, no violations
     2   invariant or temporal property violation found (the trace is printed)
+    3   --coverage=strict: an action never fired
     5   unrecoverable failure (capacity overflow, no CUDA device)
     64  usage/config error (bad flags, bad cfg, spec not yet ported,
         PROPERTY checking refused)
     66  input file not found
+    70  the fingerprint-collision audit failed
 """
 
 from __future__ import annotations
@@ -162,6 +168,18 @@ def _simulate(setup, args) -> int:
     return 0
 
 
+def _print_coverage(setup, res, args) -> int:
+    """TLC-style per-action coverage table (--coverage); returns the strict
+    mode's exit code (3 when an action never fired)."""
+    if args.coverage is None:
+        return 0
+    from .obs import dead_actions, render_coverage_table
+
+    names = getattr(setup.model, "ACTION_NAMES", ())
+    print(render_coverage_table(names, res.coverage))
+    return 3 if args.coverage == "strict" and dead_actions(names, res.coverage) else 0
+
+
 def _liveness(setup, args) -> int:
     from .utils.pprint import format_lasso
 
@@ -218,6 +236,15 @@ def main(argv=None) -> int:
         "fault actions (Raft.tla:508-523; Raft family only; duplication "
         "bounded to max_msg_copies per record)",
     )
+    ap.add_argument("--collision-audit", type=int, default=None, metavar="DEPTH",
+                    help="before the main run, explore to DEPTH under two independent "
+                    "fingerprint hash families and require identical counts (bounds the "
+                    "silent hash-collision risk; exit 70 when they differ)")
+    ap.add_argument("--coverage", nargs="?", const="table", choices=["table", "strict"],
+                    default=None,
+                    help="after the BFS, print a TLC-style per-action coverage table "
+                    "(enabled / fired / new distinct states) with a WARNING line per action "
+                    "that never fired; --coverage=strict also exits 3 when one never fired")
     ap.add_argument("--no-symmetry", action="store_true", help="ignore SYMMETRY")
     ap.add_argument("--trace-format", default="default", choices=["default", "tlc"])
     ap.add_argument("--lenient", action="store_true",
@@ -255,10 +282,29 @@ def main(argv=None) -> int:
         if refusal:
             print(refusal, file=sys.stderr)
             return 64
+    if args.simulate is not None and args.coverage is not None:
+        print("error: --coverage needs the BFS and no --simulate", file=sys.stderr)
+        return 64
+    if args.simulate is not None and args.collision_audit is not None:
+        print("error: --collision-audit needs the BFS and no --simulate (the audit re-runs "
+              "the exhaustive BFS)", file=sys.stderr)
+        return 64
 
     try:
         if args.simulate is not None:
             return _simulate(setup, args)
+        if args.collision_audit is not None:
+            from .checker.audit import collision_audit
+
+            audit = collision_audit(setup.model, invariants=setup.invariants,
+                                    symmetry=setup.symmetry and not args.no_symmetry,
+                                    depth=args.collision_audit, chunk=args.chunk,
+                                    device=args.device, **caps)
+            print(audit, file=sys.stderr)
+            if not audit.ok:
+                print("error: fingerprint-collision audit failed: counts differ between "
+                      "hash families; results would be untrustworthy", file=sys.stderr)
+                return 70
         checker, res = _bfs(setup, device=args.device, chunk=args.chunk,
                             max_depth=args.max_depth, time_budget_s=args.time_budget,
                             symmetry=not args.no_symmetry, verbose=args.verbose, caps=caps)
@@ -271,11 +317,14 @@ def main(argv=None) -> int:
                   f"(depth {res.violation.depth})")
             if res.trace:
                 _print_trace(res.trace, setup, args, res.violation.invariant)
+            _print_coverage(setup, res, args)  # the violation's rc 2 outranks the strict gate
             rc = 2
         else:
             print("no invariant violations")
-        if rc == 0 and setup.properties:
-            rc = _liveness(setup, args)
+            cov_rc = _print_coverage(setup, res, args)
+            if setup.properties:
+                rc = _liveness(setup, args)
+            rc = rc or cov_rc
         if args.json:
             print(json.dumps({
                 "distinct": res.distinct, "total": res.total, "depth": res.depth,

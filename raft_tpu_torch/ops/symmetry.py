@@ -21,8 +21,16 @@ a server index, a Nil-able one, a member-set bitmask): XOR over the
 non-bag lanes, ADDITION mod 2^32 over the occupied bag slots, a slot
 hashing its key words in sort order and its count, salted by stream
 index ((hi, lo, count) for the 2-word bags; (w0 .. w{N-1}, count) for the
-reconfiguration specs' N-word bags, :541-560). The S >= 5 canon takes
-2-word bags with plain and Nil-able server fields only.
+reconfiguration specs' N-word bags, :541-560).
+
+The signatures read a server-valued or member-set field as one lane a
+server (the reference's ``_signatures`` raises on any other size). The
+reconfiguration specs hold such fields with r > 1 lanes a server (a log
+entry's member set or Nil-able server, r log slots), and five of their
+servers take the admissible min: there a field of r lanes a server is
+signed as r one-lane fields, the c-th holding lane c of each server's row
+under the salt offset off + c * S (``split_fields``). Where every such
+field has one lane a server this is the reference's formula, bit for bit.
 
 ``fingerprints_memo`` is the main path. On a CUDA tensor it launches
 ``canon_memo`` (csrc/canon_memo.cu) for S <= 4 and ``canon_tiered``
@@ -81,11 +89,11 @@ MAX_BAG_WORDS = 8  # csrc/canon_memo.cu MAX_WORDS
 # codes shared with csrc/canon_tiers.cuh
 SIG_KINDS = {"per_server": 0, "per_server_val": 1, "server_bitmask": 2,
              "per_server_pair": 3}
-TIER_HEADER = ("S", "VL", "K", "n_plain", "n_val", "n_bm", "hi_off", "lo_off",
+TIER_HEADER = ("S", "VL", "K", "n_plain", "n_val", "n_bm", "n_words", "general",
                "cnt_off", "M", "n_fields", "n_sig", "rounds", "ka", "kb", "seeded",
-               "seed_a", "seed_b", "sx0", "sx1", "sx2", "off_fields", "off_sig",
-               "off_lanes", "len")
+               "seed_a", "seed_b", "off_words", "off_fields", "off_sig", "off_lanes", "len")
 MAX_TIER_SERVERS = 8  # csrc/canon_tiers.cuh CT_MAX_S
+TIER_FAST_FIELDS = 4  # csrc/canon_tiers.cuh CT_FAST_FIELDS: the 2-word path's message fields
 
 
 def _host_mix64(z: int) -> int:
@@ -187,6 +195,26 @@ def stream_of_word(word: int, n_words: int, wide: bool) -> int:
     return word if wide else n_words - 1 - word
 
 
+def split_fields(view_fields, S: int) -> list[tuple[str, int, np.ndarray]]:
+    """The signature fields of a layout's view fields, in offset order:
+    (kind, salt offset, view lanes). A per_server field's lanes are its
+    [S, r] rows, a pair field's its [S, S] matrix; a per_server_val or
+    server_bitmask field of r lanes a server becomes r one-lane fields,
+    the c-th holding lane c of each server's row (off + i * r + c) under
+    the salt offset off + c * S."""
+    out = []
+    for f in view_fields:
+        if f.kind not in SIG_KINDS:
+            continue
+        if f.kind in ("per_server_val", "server_bitmask"):
+            r = f.size // S
+            out += [(f.kind, f.offset + c * S, f.offset + np.arange(S) * r + c)
+                    for c in range(r)]
+        else:
+            out.append((f.kind, f.offset, f.offset + np.arange(f.size)))
+    return out
+
+
 def permute_states(layout, packer, states: np.ndarray, sigma, spec=DEFAULT_SPEC) -> np.ndarray:
     """Apply the server permutation ``sigma`` (old server i -> new index
     sigma[i]) to a [B, W] numpy state batch: server rows move, server
@@ -276,10 +304,6 @@ class Canonicalizer:
         bag_kinds = ("msg_hi", "msg_lo", "msg_cnt", "msg_word")
         stream_names, n_words = bag_streams(layout)
         wide = stream_names[0] != "msg_hi"
-        if self.prune and (wide or any(k == "server_bitmask" for _f, k in self.spec)):
-            raise NotImplementedError(
-                f"the {S}-server canon (canon_tiered) does not take N-word message bags or "
-                "the server_bitmask message kind")
         if n_words > MAX_BAG_WORDS or len(self.spec) > MAX_MSG_FIELDS:
             raise NotImplementedError(
                 f"canon_memo takes at most {MAX_BAG_WORDS} key words and {MAX_MSG_FIELDS} "
@@ -306,6 +330,7 @@ class Canonicalizer:
         self._K = K
         self._groups = (len(ln_plain), len(ln_val), len(ln_bm))
         self._view_fields = view_fields
+        self._sig_fields = split_fields(view_fields, S)
         # hash position of each non-bag lane under a permutation sigma:
         # c0 + sigma[s1] * m1 + sigma[s2] * m2 (s = -1: no term), affine in
         # sigma because permutations move whole server blocks (_dyn_outpos)
@@ -371,8 +396,7 @@ class Canonicalizer:
             perm=np.stack(salts(op)), raw=np.stack(salts(rp)),
             wa=wa, wb=wb, sx=sx, fields=fields,
             field_streams=[stream_of_word(f[0], n_words, wide) for f in fields],
-            seed_salts=(sa, sb), stream_offs=stream_offs,
-            hi_off=stream_offs[0], lo_off=stream_offs[1], cnt_off=cnt_sl.start,
+            seed_salts=(sa, sb), stream_offs=stream_offs, cnt_off=cnt_sl.start,
             M=cnt_sl.stop - cnt_sl.start,
             ka=(K * KA) & M32, kb=(K * KB) & M32,
         )
@@ -501,7 +525,8 @@ class Canonicalizer:
     def signatures_plain(self, states: torch.Tensor) -> torch.Tensor:
         """enc [B, S] permutation-equivariant server signatures of a [B, W]
         (or [B, VL]) batch: ``_signatures`` of the reference (:581) with
-        REFINE_ROUNDS 1-WL rounds. sig(perm(x))[sigma(i)] == sig(x)[i]."""
+        REFINE_ROUNDS 1-WL rounds over the fields of ``split_fields``.
+        sig(perm(x))[sigma(i)] == sig(x)[i]."""
         view = states[:, : self.VL].to(torch.int64)
         S, B, dev = self.S, view.shape[0], view.device
         sr = torch.arange(S, device=dev)
@@ -510,24 +535,23 @@ class Canonicalizer:
 
         # ---- round 0: each server's invariant content ----
         val_f, bm_f, pair_f = [], [], []
-        for f in self._view_fields:
-            off, size = f.offset, f.size
-            seg = view[:, off:off + size]
-            if f.kind == "per_server":
-                rows = seg.reshape(B, S, size // S)
+        for kind, off, lanes in self._sig_fields:
+            seg = view[:, torch.as_tensor(lanes, device=dev)]
+            if kind == "per_server":
+                rows = seg.reshape(B, S, -1)
                 acc = _padd(acc, _pfold(hash_lanes_pair(rows), _salt(off, 0)))
-            elif f.kind == "per_server_val":  # 0 = Nil, i + 1 = server i
+            elif kind == "per_server_val":  # 0 = Nil, i + 1 = server i
                 cat = torch.where(seg == 0, 0, torch.where(seg - 1 == sr, 1, 2))
                 acc = _padd(acc, _pmix(cat, _salt(off, 1)))
                 indeg = ((seg[:, :, None] - 1 == sr) & (seg[:, :, None] > 0)).sum(1)
                 acc = _padd(acc, _pmix(indeg, _salt(off, 2)))
                 val_f.append((off, seg))
-            elif f.kind == "server_bitmask":
+            elif kind == "server_bitmask":
                 bits = (seg[:, :, None] >> sr) & 1  # [B, i, j]: j in set i
                 acc = _padd(acc, _pmix(bits.sum(2) * 2 + ((seg >> sr) & 1), _salt(off, 3)))
                 acc = _padd(acc, _pmix(bits.sum(1), _salt(off, 4)))
                 bm_f.append((off, bits == 1))
-            elif f.kind == "per_server_pair":
+            else:  # per_server_pair
                 mat = seg.reshape(B, S, S)
                 offd = ~torch.eye(S, dtype=torch.bool, device=dev)
                 acc = _padd(acc, _pmix(mat.diagonal(dim1=1, dim2=2), _salt(off, 5)))
@@ -535,25 +559,26 @@ class Canonicalizer:
                 acc = _padd(acc, _psum(_pwhere(offd, _pmix(mat.transpose(1, 2), _salt(off, 7)))))
                 pair_f.append((off, mat))
 
-        # messages, round 0: each record with its server fields zeroed,
-        # folded into the servers it references
+        # messages, round 0: each record with its server fields zeroed
+        # (its key words in stream order, then the count), folded into the
+        # servers it references
         h = self._host
         M = h["M"]
-        lo = view[:, h["lo_off"]:h["lo_off"] + M]
-        hi = view[:, h["hi_off"]:h["hi_off"] + M]
+        words = [view[:, o:o + M] for o in h["stream_offs"]]
         cnt = view[:, h["cnt_off"]:h["cnt_off"] + M]
-        occ = hi != EMPTY
-        zw = [lo, hi]  # packer word order: 0 = lo, 1 = hi
-        for word, shift, mask, _kind in h["fields"]:
-            zw[word] = zw[word] & ~(mask << shift)
+        occ = words[0] != EMPTY
+        zw = list(words)
+        for (_w, shift, mask, _kind), k in zip(h["fields"], h["field_streams"]):
+            zw[k] = zw[k] & ~(mask << shift)
         ra = rb = 0
-        for w_i, w in enumerate((zw[1], zw[0], cnt)):
+        for w_i, w in enumerate([*zw, cnt]):
             sa, sb = _salt(w_i, 21)
             ra = ra ^ mix32((mul32(u32(w), KA) + sa) & M32)
             rb = rb ^ mix32((mul32(u32(w), KB) + sb) & M32)
         rec0 = (mix32(ra), mix32(rb))
         cnt32 = torch.where(occ, u32(cnt), 0)
-        svals = [((lo, hi)[word] >> shift) & mask for word, shift, mask, _k in h["fields"]]
+        svals = [(words[k] >> shift) & mask
+                 for (_w, shift, mask, _kind), k in zip(h["fields"], h["field_streams"])]
         kinds = [f[3] for f in h["fields"]]
         for k, val in enumerate(svals):
             ck = _pfold(rec0, _salt(k, 8))
@@ -598,19 +623,28 @@ class Canonicalizer:
 
     def _scatter_by_server(self, c, val, kind, occ):
         """Sum [B, M] stream-pair contributions of the occupied slots onto
-        the server a message field names (by its kind) -> [B, S] pair."""
+        the servers a message field names (by its kind: one server, none
+        for a Nil Nil-able field, each member of a member set) -> [B, S]
+        pair."""
         srv = torch.arange(self.S, device=val.device)[None, :, None]
         if kind == MSG_KINDS["server"]:
             hit = val[:, None, :] == srv
-        else:  # server_nil: u > 0 names server u - 1
+        elif kind == MSG_KINDS["server_nil"]:  # u > 0 names server u - 1
             hit = (val[:, None, :] - 1 == srv) & (val[:, None, :] > 0)
+        else:  # server_bitmask: every server whose bit is set
+            hit = ((val[:, None, :] >> srv) & 1) == 1
         hit = hit & occ[:, None, :]
         return _psum(_pwhere(hit, (c[0][:, None, :], c[1][:, None, :])))
 
     def _gather_sig_fold(self, sig, val, kind, salt):
-        """The signature of the server a [B, M] message field names, folded
-        under ``salt`` into a per-slot stream pair (0 for a Nil
-        server_nil field)."""
+        """The signatures of the servers a [B, M] message field names,
+        folded under ``salt`` into a per-slot stream pair: the one server's
+        (its index clamped into range), 0 for a Nil Nil-able field, the
+        multiset sum over a member set's servers."""
+        if kind == MSG_KINDS["server_bitmask"]:
+            bits = ((val[:, :, None] >> torch.arange(self.S, device=val.device)) & 1) == 1
+            e = _pxmix(sig, salt)
+            return _psum(_pwhere(bits, (e[0][:, None, :], e[1][:, None, :])))
         idx = val if kind == MSG_KINDS["server"] else val - 1
         idx = idx.clamp(0, self.S - 1)
         fold = _pxmix((sig[0].gather(1, idx), sig[1].gather(1, idx)), salt)
@@ -705,30 +739,57 @@ class Canonicalizer:
             self._dev[key] = got
         return got
 
+    def tier_general(self) -> bool:
+        """Whether csrc/canon_tiers.cuh takes its general path (N-word keys,
+        up to 32 message fields of any kind, fields of r > 1 lanes a server)
+        rather than the 2-word one (hi/lo keys, at most 4 plain or Nil-able
+        message fields, one lane a server)."""
+        h = self._host
+        return (len(h["stream_offs"]) != 2 or len(h["fields"]) > TIER_FAST_FIELDS
+                or any(f[3] == MSG_KINDS["server_bitmask"] for f in h["fields"])
+                or any(f.kind in ("per_server_val", "server_bitmask") and f.size > self.S
+                       for f in self._view_fields))
+
     def tier_spec(self) -> np.ndarray:
         """The int32 spec vector of csrc/canon_tiers.cuh: the TIER_HEADER
-        scalars, then per message server field (word, shift, mask, kind), per
-        signature field (kind, offset, size) and per non-bag lane (view
-        lane, c0, s1, m1, s2, m2) in group order (plain, val, bm)."""
+        scalars; at ``off_words`` the key words' slot offsets in stream
+        order, then the N + 1 stream xors of the seeded bag hash (count
+        last); per message server field (stream, shift, mask, kind); per
+        signature field of ``split_fields`` (kind + 16 * n, salt offset,
+        first lane), n a per_server field's lanes a server or a
+        server-valued or member-set field's lane stride (its lane of server
+        i is first + i * n); per non-bag lane (view lane, c0, s1, m1, s2, m2)
+        in group order (plain, val, bm). Three ints a signature field keep
+        the 2-word layouts' blocks of 32 staged rows at five an SM."""
         h = self._host
         S = self.S
-        sig = [(SIG_KINDS[f.kind], f.offset, f.size) for f in self._view_fields
-               if f.kind in SIG_KINDS]
-        fields = h["fields"]
-        off_fields = len(TIER_HEADER)
+        sig = []
+        for kind, off, lanes in self._sig_fields:
+            if kind == "per_server":
+                n = len(lanes) // S
+            elif kind == "per_server_pair":
+                n = S
+            else:
+                n = int(lanes[1] - lanes[0]) if len(lanes) > 1 else 1
+            sig.append((SIG_KINDS[kind] + 16 * n, off, int(lanes[0])))
+        fields = [(k, shift, mask, kind)
+                  for (_w, shift, mask, kind), k in zip(h["fields"], h["field_streams"])]
+        nw = len(h["stream_offs"])
+        off_words = len(TIER_HEADER)
+        off_fields = off_words + 2 * nw + 1
         off_sig = off_fields + 4 * len(fields)
         off_lanes = off_sig + 3 * len(sig)
         total = off_lanes + 6 * self._K
         hdr = dict(
             S=S, VL=self.VL, K=self._K, n_plain=self._groups[0], n_val=self._groups[1],
-            n_bm=self._groups[2], hi_off=h["hi_off"], lo_off=h["lo_off"],
+            n_bm=self._groups[2], n_words=nw, general=int(self.tier_general()),
             cnt_off=h["cnt_off"], M=h["M"], n_fields=len(fields), n_sig=len(sig),
             rounds=REFINE_ROUNDS, ka=h["ka"], kb=h["kb"], seeded=int(bool(self.seed)),
-            seed_a=h["seed_salts"][0], seed_b=h["seed_salts"][1], sx0=h["sx"][0],
-            sx1=h["sx"][1], sx2=h["sx"][2], off_fields=off_fields, off_sig=off_sig,
-            off_lanes=off_lanes, len=total)
+            seed_a=h["seed_salts"][0], seed_b=h["seed_salts"][1], off_words=off_words,
+            off_fields=off_fields, off_sig=off_sig, off_lanes=off_lanes, len=total)
         vec = np.concatenate([
             np.array([hdr[n] for n in TIER_HEADER], np.int64),
+            np.array(h["stream_offs"] + h["sx"], np.int64),
             np.array(fields, np.int64).reshape(-1), np.array(sig, np.int64).reshape(-1),
             self._lane_desc.reshape(-1)])
         assert len(vec) == total

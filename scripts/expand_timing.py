@@ -13,8 +13,10 @@ host's launch work hidden behind the queue): the guard, apply and fold
 kernels on a 4,096-state chunk of the depth-20 Raft.cfg frontier, of the
 depth-27 PullRaft stand-in frontier and of the depth-33 KRaft.cfg frontier,
 ``canon_memo`` on each chunk's worklist (cold: a fresh 2^21-row memo
-before every call; warm: every lane hits), and the guard and apply on one
-move of a 65,536-walk five-server FlexibleRaft simulate (the shapes of
+before every call; warm: every lane hits), the same on a chunk of the
+depth-9 five-server Raft frontier (its canon ``canon_tiered``, the 2-word
+path, and ``canon_signatures`` on the worklist), and the guard and apply on
+one move of a 65,536-walk five-server FlexibleRaft simulate (the shapes of
 ``chip_smoke.py`` phase 3 and its simulate). The inputs come from the
 checkout's own engine with fixed seeds, so every checkout times the same
 rows when the engines agree (their state counts are printed beside the
@@ -92,6 +94,8 @@ def chunk_times(tag, bfs):
     out[tag]["canon_cold_ms"] = device_ms(canon, setup=lambda: memo.fill_(INT64_MAX))
     canon()
     out[tag]["canon_warm_ms"] = device_ms(canon)
+    if bfs.canon.prune:
+        out[tag]["signatures_ms"] = device_ms(lambda: bfs.canon.signatures(flatc))
 
 
 _, b, _ = run_check("Raft.cfg", text=cs.RAFT_CFG, device="cuda", chunk=cs.CHUNK, max_depth=20)
@@ -104,6 +108,10 @@ del b
 _, b, _ = run_check("KRaft.cfg", text=cs.KRAFT_CFG, device="cuda", chunk=cs.CHUNK,
                     max_depth=cs.KRAFT_SAMPLE_DEPTH)
 chunk_times("kraft", b)
+del b
+_, b, _ = run_check("Raft.cfg", text=cs.RAFT5_CFG, device="cuda", chunk=cs.CHUNK,
+                    msg_slots=cs.RAFT5_SLOTS, max_depth=cs.RAFT5_SAMPLE_DEPTH, caps=cs.RAFT5_CAPS)
+chunk_times("raft5", b)
 del b
 setup = load_setup("FlexibleRaft.cfg", text=cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)
 model = setup.model

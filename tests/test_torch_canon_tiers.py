@@ -170,17 +170,26 @@ def test_positional_salts_match_reference_tables():
 HOST_SRC = """\
 #include "canon_tiers.cuh"
 extern "C" int hdr_len() { return CT_HDR; }
-extern "C" void host_tiers(const int* spec, const int* states, int B, int W, long long* sig,
-                           long long* raw, long long* canon) {
+template <int NW>
+void run(const int* spec, const int* states, int B, int W, long long* sig, long long* raw,
+         long long* canon) {
   const int S = spec[CT_S];
   for (int b = 0; b < B; ++b) {
     const int* v = states + (long long)b * W;
     uint64_t s[CT_MAX_S];
-    ct_signatures(spec, v, s);
+    ct_signatures<NW>(spec, v, s);
     for (int i = 0; i < S; ++i) sig[b * S + i] = rt_enc(s[i]);
-    raw[b] = rt_enc(ct_raw(spec, v));
-    canon[b] = rt_enc(ct_canon(spec, v));
+    raw[b] = rt_enc(ct_raw<NW>(spec, v));
+    canon[b] = rt_enc(ct_canon<NW>(spec, v));
   }
+}
+// the kernel's two builds: the general path (NW = 0) or the 2-word one
+extern "C" void host_tiers(const int* spec, const int* states, int B, int W, long long* sig,
+                           long long* raw, long long* canon) {
+  if (spec[CT_GENERAL])
+    run<0>(spec, states, B, W, sig, raw, canon);
+  else
+    run<2>(spec, states, B, W, sig, raw, canon);
 }
 """
 

@@ -1,6 +1,9 @@
 """``python -m raft_tpu_torch`` end to end on the CPU: exit codes 0 (clean),
-2 (violation, trace printed), 5 (no card and no ``--device cpu``), 64 (a
-spec with no lowering, or a cfg a strict parse refuses) and 66 (no file)."""
+2 (violation, trace printed), 3 (``--coverage=strict`` with an action that
+never fired), 5 (no card and no ``--device cpu``), 64 (a spec with no
+lowering, a cfg a strict parse refuses, ``--coverage`` or
+``--collision-audit`` with ``--simulate``), 66 (no file) and 70 (the
+collision audit's two hash families disagree)."""
 
 import json
 import os
@@ -9,6 +12,10 @@ import sys
 
 import pytest
 import torch
+
+from raft_tpu.obs.coverage import render_coverage_table as ref_render_coverage_table
+from raft_tpu_torch import __main__ as cli
+from raft_tpu_torch.checker import audit
 
 # one intra-op thread: tier-1 runs several test workers side by side, and
 # torch's default thread pool per worker oversubscribes the CPU
@@ -130,3 +137,59 @@ def test_default_device_without_card_rc5(tmp_path):
                          capture_output=True, text=True, cwd=ROOT, timeout=300)
     assert out.returncode == 5 and "no CUDA device" in out.stderr
     assert "distinct=" not in out.stdout
+
+
+def test_coverage_table_and_strict_rc3(tmp_path):
+    # at depth 3 no value is committed yet: AdvanceCommitIndex never fires
+    cfg = tmp_path / "Raft.cfg"
+    cfg.write_text(HEAD + TAIL)
+    out = _cli(cfg, "--max-depth", "3", "--coverage", "--json")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    start = lines.index("Action coverage (cumulative over the run):")
+    table = lines[start:-1]
+    assert "WARNING: action AdvanceCommitIndex never fired" in table
+    # the table is the reference renderer's on the same counts (Raft's 12
+    # Next disjuncts)
+    rows = [ln.split() for ln in table[2:] if not ln.startswith("WARNING")]
+    names, counts = [r[0] for r in rows], [[int(x) for x in r[1:]] for r in rows]
+    assert len(rows) == 12 and names[0] == "Restart"
+    assert "\n".join(table) == ref_render_coverage_table(names, counts)
+    strict = _cli(cfg, "--max-depth", "3", "--coverage=strict")
+    assert strict.returncode == 3, strict.stderr
+    assert strict.stdout.count("never fired") == out.stdout.count("never fired") > 0
+
+
+def test_audit_and_coverage_refuse_simulate_rc64(tmp_path):
+    cfg = tmp_path / "Raft.cfg"
+    cfg.write_text(HEAD + TAIL)
+    for flags in (["--coverage"], ["--coverage=strict"], ["--collision-audit", "3"]):
+        assert cli.main([str(cfg), "--device", "cpu", "--simulate", "4", *flags]) == 64
+
+
+def test_collision_audit_passes_rc0_and_mismatch_rc70(tmp_path, monkeypatch, capsys):
+    cfg = tmp_path / "Raft.cfg"
+    cfg.write_text(HEAD + TAIL)
+    args = [str(cfg), "--device", "cpu", "--chunk", "256", "--msg-slots", "16",
+            "--max-depth", "4", "--collision-audit", "4"]
+    assert cli.main(args) == 0
+    assert "collision audit PASS: depth=4 seeds=(0, 1592614637)" in capsys.readouterr().err
+
+    class SecondFamilyMiscounts(audit.DeviceBFS):
+        """The engine, whose run under the second hash family loses a state
+        at the last depth (as a fingerprint collision would)."""
+
+        def __init__(self, *a, fingerprint_seed=0, **k):
+            super().__init__(*a, fingerprint_seed=fingerprint_seed, **k)
+            self.seed = fingerprint_seed
+
+        def run(self, *a, **k):
+            res = super().run(*a, **k)
+            if self.seed:
+                res.depth_counts[-1] -= 1
+            return res
+
+    monkeypatch.setattr(audit, "DeviceBFS", SecondFamilyMiscounts)
+    assert cli.main(args) == 70
+    err = capsys.readouterr().err
+    assert "collision audit FAIL" in err and "counts differ between hash families" in err

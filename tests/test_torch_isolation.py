@@ -24,6 +24,8 @@ MODULES = [
     "raft_tpu_torch.models.config_common", "raft_tpu_torch.models.reconfig_raft",
     "raft_tpu_torch.models.joint_raft", "raft_tpu_torch.ops.bag",
     "raft_tpu_torch.models.kraft_reconfig", "raft_tpu_torch.ops.slot_canon",
+    "raft_tpu_torch.checker.audit", "raft_tpu_torch.checker.parity", "raft_tpu_torch.obs",
+    "raft_tpu_torch.obs.coverage",
 ]
 
 

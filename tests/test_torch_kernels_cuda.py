@@ -1332,6 +1332,64 @@ def test_canon_memo_on_config_rows(dev, name):
     assert torch.equal(fps[:n], fps[n:])
 
 
+# chip_smoke.py's ADDREMOVE5_CFG and JOINT5_CFG at 24 message slots
+CONFIG5_VARIANTS = {
+    "reconfig": dataclasses.replace(CONFIG_VARIANTS["reconfig"], n_servers=5,
+                                    init_cluster_size=3, max_add_reconfigs=2,
+                                    max_cluster_size=5, msg_slots=24),
+    "joint": dataclasses.replace(CONFIG_VARIANTS["joint"], n_servers=5, init_cluster_size=3,
+                                 max_reconfigs=2, msg_slots=24),
+}
+
+
+@pytest.mark.parametrize("name", list(CONFIG5_VARIANTS))
+def test_canon_tiered_general_path_on_config5_rows(dev, name):
+    """canon_tiered's general path and canon_signatures (5- and 7-word keys,
+    member-set fields, log fields of several lanes a server) on reachable
+    five-server reconfiguration rows, their server-permuted copies and edge
+    rows, at fingerprint seeds 0 and 0x5EED5EED: the kernels equal the
+    plain Canonicalizer, memo cold and warm, and the permuted rows keep
+    their fingerprints; the family's guard, apply and fold at five servers
+    equal their plain versions on the same rows."""
+    import itertools
+
+    from raft_tpu_torch.ops.symmetry import Canonicalizer, msg_perm_spec
+
+    p = CONFIG5_VARIANTS[name]
+    model = (JointRaftModel if isinstance(p, JointRaftParams) else ReconfigRaftModel)(p)
+    base = _kraft_states(model, dev, depths=range(4, 10))
+    sigmas = [np.asarray(s) for s in itertools.permutations(range(5))][1::7]
+    perm = np.concatenate([
+        permute_states(model.layout, model.packer, part, sigma, msg_perm_spec(model))
+        for part, sigma in zip(np.array_split(base, len(sigmas)), sigmas)])
+    edge = config_edge_rows(model, base, seed=8)
+    states = torch.from_numpy(np.concatenate([base, perm, edge])).to(dev)
+    for seed in (0, 0x5EED5EED):
+        canon = Canonicalizer.for_model(model, seed=seed)
+        assert canon.prune and canon.tier_general()
+        valid = torch.rand(states.shape[0], device=dev) < 0.9
+        mk = torch.full((1 << 8, 2), INT64_MAX, dtype=torch.int64, device=dev)
+        mp = mk.clone()
+        for _ in range(2):
+            fk, hk = canon.fingerprints_memo_cuda(states, valid, mk)
+            fp, hp = canon.fingerprints_memo_plain(states, valid, mp)
+            assert torch.equal(fk, fp) and torch.equal(mk, mp) and int(hk) == int(hp)
+        assert torch.equal(canon.signatures(states), canon.signatures_plain(states))
+        fps = canon.fingerprints(states)
+        n = len(base)
+        assert torch.equal(fps[:n], fps[n:2 * n])
+    rows = states[2 * len(base):].contiguous()
+    C, A = rows.shape[0], model.A
+    cov_k = torch.zeros((len(model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
+    cov_p = cov_k.clone()
+    gk, gp = guard(model, rows, C, cov_k), guard_plain(model, rows, C, cov_p)
+    for a, b in zip(gk, gp):
+        assert torch.equal(a, b)
+    assert torch.equal(cov_k, cov_p)
+    sel, _n = compact_indices(gk[0].reshape(-1), int(gk[0].sum()) + 64, C * A)
+    assert torch.equal(apply(model, rows, sel), apply_plain(model, rows, sel))
+
+
 def test_config_bfs_simulate_liveness_card_equal_cpu(dev):
     """Both reconfiguration specs by BFS (counts, depth counts, coverage)
     and by simulation (walks, final states, journals), and AddRemove's

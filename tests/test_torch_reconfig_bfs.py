@@ -9,10 +9,10 @@ the v5 fingerprints (hashv=5, wl=3) of reachable states and random
 successors, whose bags hold AppendEntries and SnapshotRequests with those
 fields, and of their server-permuted copies, must equal the reference
 ``Canonicalizer``'s (with and without symmetry, through the memo too); a
-canon without the bitmask remap splits a permuted pair; the five-server
-canon refuses N-word bags. Then the port's DeviceBFS against the
-reference's dense DeviceBFS (counts, depth counts, terminal, coverage) at
-three servers, and ReconfigurationCompletes on AddRemove at MaxElections 0
+canon without the bitmask remap splits a permuted pair; the canon refuses
+nine servers. Then the port's DeviceBFS against the reference's dense
+DeviceBFS (counts, depth counts, terminal, coverage) at three servers
+(five: tests/test_torch_reconfig5_bfs.py), and ReconfigurationCompletes on AddRemove at MaxElections 0
 (graph, edge arrays, P and Q over the graph, verdict) against the
 reference's LivenessChecker; and the four-server AddRemove counterexample
 the card's BFS finds at depth 21, replayed step by step through the
@@ -117,12 +117,13 @@ def test_fingerprints_without_the_bitmask_remap_differ(name):
     assert not torch.equal(a, b)
 
 
-def test_five_server_canon_refuses_n_word_bags():
-    p = ReconfigRaftParams(n_servers=5, n_values=1, init_cluster_size=3, max_elections=1,
+def test_canon_refuses_nine_servers():
+    # the five-server canon (canon_tiered, CT_MAX_S) takes up to 8 servers
+    p = ReconfigRaftParams(n_servers=9, n_values=1, init_cluster_size=3, max_elections=1,
                            max_restarts=0, max_values_per_term=1, max_add_reconfigs=1,
-                           max_remove_reconfigs=1, min_cluster_size=2, max_cluster_size=5,
+                           max_remove_reconfigs=1, min_cluster_size=2, max_cluster_size=9,
                            msg_slots=8)
-    with pytest.raises(NotImplementedError, match="N-word message bags"):
+    with pytest.raises(NotImplementedError, match="at most 8 servers"):
         Canonicalizer.for_model(ReconfigRaftModel(p))
 
 
