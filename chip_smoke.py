@@ -49,6 +49,9 @@ Phases, each of which fails the run on any mismatch:
      groups fire; a count-2 record's duplicate and a count-0 record's
      faults refused); raft_guard and pull_guard of fleet-packed models on
      rows whose c_<name> lanes lie below the static maximum (timed);
+     owner_route (the sharded engine's owner route) on a chunk of the
+     Raft.cfg path at D = 1, 2, 4 and 8, with the path's route cap and one
+     that overflows at D = 8 (timed at D = 1);
   4. the main path: standard-raft Raft.cfg (inline text) checked through
      the function the CLI calls, on cuda, to exhaustion — 8,664,032
      distinct / 30,708,266 total / depth 48 / 19,514 terminal, no
@@ -104,6 +107,18 @@ Phases, each of which fails the run on any mismatch:
      its collision_audit (seeds 0 and 0x5EED5EED) passing at AUDIT5_DEPTH;
      five-server JointConsensus (JOINT5_CFG) card against CPU at
      JOINT5_SMALL_DEPTH (the card run counted: joint_* and canon_tiered);
+  4j. Raft.cfg by the sharded engine (ShardedBFS, --checker sharded) at
+     D = 1 over NCCL through the CLI's function, exhausted at phase 4's
+     counts and depth counts, its enabled/fired coverage and new-distinct
+     total equal to DeviceBFS's, the path's kernels once per chunk with
+     owner_route among them and two all_to_all_single calls a chunk; a
+     checkpoint at depth SHARD_CKPT_DEPTH resumed to the same counts;
+     two-server Raft checkpointed on the card at D = 1 and resumed on the
+     CPU at D = 2 (gloo) with the counts of the card's uninterrupted run;
+     FlexibleRaft's violation at DeviceBFS's depth with its trace replayed
+     on the card and the CPU; Raft.cfg to depth 20 untraced and under
+     torch.profiler (device ms a chunk by kernel group, the exchange's
+     NCCL kernels and copies among them);
   5. FlexibleRaft with quorums that need not intersect (3 servers,
      ElectionQuorumSize 2, ReplicationQuorumSize 1): the
      LeaderHasAllAckedValues violation, its gid, depth and trace on the
@@ -164,7 +179,8 @@ Phases, each of which fails the run on any mismatch:
      card run of its constants), and manifests/kraft_reconfig_sim.json's
      simulate group through sweep_main; one model per group, the families'
      kernels and no plain expand;
-  10. the kernel table as one JSON line (each kernel, the network-fault
+  10. the kernel table as one JSON line (each kernel, owner_route's row
+     with 4j's launches, the network-fault
      and fleet-lane rows of the Raft and pull guards and applies, and the
      five-server reconfiguration rows of canon_tiered and
      canon_signatures), the card's name and power limit, and the result
@@ -720,6 +736,18 @@ def sweep_manifest(text: str, spec: str, grid: dict, slots: int, jobs=()) -> dic
 EXHAUSTED = (8_664_032, 30_708_266, 48, 19_514)
 DEPTH20 = (250_016, 719_677, 20, 20)
 
+# the sharded engine (phase 4j): Raft.cfg at D = 1 over NCCL with the
+# capacities of DeviceBFS's defaults (so both engines run the same
+# geometry); a checkpoint at SHARD_CKPT_DEPTH resumed on the card; two-
+# server Raft (SHARD_SMALL_CFG) checkpointed on the card at D = 1 at
+# SHARD_SMALL_DEPTH and resumed on the CPU at D = 2 (gloo)
+SHARD_CAPS = dict(frontier_cap=1 << 18, seen_cap=1 << 22, journal_cap=1 << 22,
+                  max_frontier_cap=1 << 22, max_seen_cap=1 << 25, max_journal_cap=1 << 25)
+SHARD_CKPT_DEPTH = 10
+SHARD_SMALL_CFG = RAFT_CFG.replace("    n3 = n3\n", "").replace(
+    "Server = { n1, n2, n3 }", "Server = { n1, n2 }")
+SHARD_SMALL_DEPTH = 8
+
 MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 # H100 SXM 32-bit integer ops/s: 64 INT32 lanes per SM, half the 128 FP32
 # lanes behind the 67 TFLOP/s float32 rate (an upper rate, so a lower bound)
@@ -731,7 +759,8 @@ POOL_ROWS = 1 << 21
 KERNEL_NAMES = {
     "canon_memo": ("canon_memo_kernel", "memo_insert_kernel"),
     "probe_runs": ("probe_runs_kernel",),
-    "compact_append": ("ct_count", "ct_scan", "ct_scatter", "ct_fill", "append_rows_kernel"),
+    "compact_append": ("ct_count", "ct_scan", "ct_scatter", "ct_fill", "append_rows_kernel",
+                       "append_rows_strided_kernel"),
     "merge_runs": ("merge_runs_kernel",),
     # raft_nf_*: the same kernels built with the network-fault groups
     "raft_guard": ("raft_guard_kernel", "raft_nf_guard_kernel"),
@@ -755,6 +784,7 @@ KERNEL_NAMES = {
     "kraft_predicates": ("kraft_predicates_kernel",),
     "kraft_sim_check": ("kraft_sim_check_kernel",),
     "slot_canon": ("slot_canon_kernel",),
+    "owner_route": ("or_hist", "or_scan", "or_rank", "or_fill"),
     **{f"{fam}_{role}": names for fam in ("reconfig", "joint", "kreconfig") for role, names in (
         ("guard", (f"{fam}_guard_kernel",)), ("apply", (f"{fam}_apply_kernel",)),
         ("fold", (f"{fam}_fold_lanes", f"{fam}_fold_viol")),
@@ -765,6 +795,7 @@ KERNEL_NAMES = {
 RAFT3_PATH = ("canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
               "raft_apply", "raft_fold", "chunk_sort")
 RAFT5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in RAFT3_PATH)
+SHARDED_PATH = RAFT3_PATH + ("owner_route",)
 PULL_PATH = tuple(k.replace("raft_", "pull_") for k in RAFT3_PATH)
 KRAFT_PATH = tuple(k.replace("raft_", "kraft_") for k in RAFT3_PATH)
 RECONFIG_PATH = tuple(k.replace("raft_", "reconfig_") for k in RAFT3_PATH)
@@ -1155,6 +1186,59 @@ def chunk_sort_row(torch, fps, fresh, run_len, timed: bool) -> dict:
         library_ms=time_ms(torch, lambda: torch.sort(fps, stable=True), iters=50),
         bound_ms=(n * 8 + n + n + run_len * 8) / MEM_BPS * 1e3, bound_by="bytes",
         max_abs_err=err, lanes=n)
+
+
+def owner_route_rows(torch, bfs, pool, rng) -> dict:
+    """owner_route against its plain version (the reference's routing in
+    torch) on one chunk of the Raft.cfg main path (the depth-20 frontier's
+    successor rows, their canonical fingerprints, the worklist and the
+    guard's ranks), exactly, at D in {1, 2, 4, 8}: with the path's route
+    cap (RC = VC, no overflow) and with one small enough that a block
+    overflows at D = 8. Timed at D = 1, the main path's shape."""
+    from raft_tpu_torch.ops.hashing import INT64_MAX
+    from raft_tpu_torch.parallel.route import owner_route, owner_route_plain
+
+    dev = bfs.device
+    batch = torch.from_numpy(np.ascontiguousarray(pool[rng.integers(0, len(pool), CHUNK)])).to(dev)
+    cov = torch.zeros((len(bfs.model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
+    ex = bfs._st_expand(batch, 0, CHUNK, cov)
+    flatc, sel, selv, _valid, rank = ex[:5]
+    memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    fps, _ = bfs._st_canon(flatc, selv, memo)
+    VC, W = flatc.shape
+    A = bfs.A
+    n_valid = int(selv.sum())
+    small = max(1, n_valid // 8 * 9 // 10)
+    lgid0 = 123_456
+    errs = []
+    for D in (1, 2, 4, 8):
+        for RC in (VC, small):
+            got = owner_route(fps, flatc, sel, rank, lgid0, A, D, RC)
+            want = owner_route_plain(fps, flatc, sel, rank, lgid0, A, D, RC)
+            torch.cuda.synchronize()
+            errs += [exact(torch, g, w) for g, w in zip(got, want)]
+            ovf, routed = int(want[2][0]), int(want[2][1])
+            if RC == VC:
+                check(ovf == 0 and routed == n_valid, f"owner_route D={D}: {routed} of "
+                      f"{n_valid} lanes routed, overflow bits {ovf}")
+            elif D == 8:
+                check(ovf == 4, f"owner_route D=8 RC={small}: no route overflow")
+    check(max(errs) == 0.0, "owner_route differs from its plain version")
+    print(f"[3] owner_route exact at D = 1, 2, 4, 8 on a Raft.cfg chunk ({n_valid} of {VC} lanes "
+          f"valid; RC = {VC} and {small}, the latter overflowing)")
+    # bytes: the VC fingerprints and VC rows of W words read, the D * RC
+    # payload rows of W + 3 words and D * RC fingerprints written; ops: a
+    # u64 modulus and the partition's counting (~40) a lane, an index
+    # computation a written word
+    D, RC = 1, VC
+    bm, by = bound(VC * 8 + VC * W * 4 + D * RC * (W + 3) * 4 + D * RC * 8,
+                   VC * 40 + D * RC * (W + 3))
+    return {"owner_route": dict(
+        ms=time_ms(torch, lambda: owner_route(fps, flatc, sel, rank, lgid0, A, D, RC), iters=50),
+        plain_ms=time_ms(torch, lambda: owner_route_plain(fps, flatc, sel, rank, lgid0, A, D, RC),
+                         iters=10),
+        library_ms=None, bound_ms=bm, bound_by=by, max_abs_err=max(errs), lanes=VC,
+        valid=n_valid)}
 
 
 def tier_pairs(torch, canon, states):
@@ -2298,9 +2382,11 @@ def trace_run(torch, cfg_name, text, depth, want, **kw) -> dict:
     return trace, res
 
 
-def device_time(torch, prof) -> tuple[float, dict] | None:
+def device_time(torch, prof, split_exchange: bool = False) -> tuple[float, dict] | None:
     """(busy ms, ms by kernel group) of the CUDA activity in a trace, or
-    None where the tracer saw no device activity."""
+    None where the tracer saw no device activity. ``split_exchange``: NCCL
+    kernels and device-to-device copies get groups of their own (the
+    sharded engine's exchange)."""
     spans, groups = [], {}
     for ev in prof.events():
         us = ev.time_range.elapsed_us()
@@ -2310,6 +2396,11 @@ def device_time(torch, prof) -> tuple[float, dict] | None:
         # a whole-word match: raft_apply_kernel is a substring of kraft's
         g = next((k for k, names in KERNEL_NAMES.items()
                   if any(re.search(rf"(?<!\w){n}(?!\w)", ev.name) for n in names)), None)
+        if g is None and split_exchange:
+            if "nccl" in ev.name.lower():
+                g = "exchange (nccl)"
+            elif "memcpy dtod" in ev.name.lower():
+                g = "memcpy DtoD"
         if g is None:
             g = "torch sort" if "sort" in ev.name.lower() else "other torch"
         groups[g] = groups.get(g, 0.0) + us / 1e3
@@ -2325,6 +2416,152 @@ def device_time(torch, prof) -> tuple[float, dict] | None:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     return busy / 1e3, groups
+
+
+def sharded_phase(torch, main_res) -> dict:
+    """Phase 4j: Raft.cfg by ShardedBFS at D = 1 over NCCL through the
+    CLI's function (run_sharded_check), exhausted: counts, depth counts
+    and coverage against phase 4's DeviceBFS run ``main_res`` (enabled and
+    fired per action equal; new-distinct per action follows each engine's
+    discovery order and only its total is equal), the path's kernels once
+    per chunk with owner_route among them, two all_to_all_single calls a
+    chunk; a checkpoint at SHARD_CKPT_DEPTH resumed to the same counts;
+    two-server Raft checkpointed on the card at D = 1 and resumed on the
+    CPU at D = 2; FlexibleRaft's violation at DeviceBFS's depth with a
+    trace replayed on the card and the CPU; one profiled run to depth 20
+    (device ms a chunk by kernel group, the exchange among them)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.__main__ import run_check, run_sharded_check
+    from raft_tpu_torch.checker.util import replay_chain
+
+    def sharded(text, devices=1, device="cuda", chunk=CHUNK, cfg="Raft.cfg", **kw):
+        return run_sharded_check(cfg, devices, text=text, device=device, chunk=chunk,
+                                 caps=SHARD_CAPS, **kw)
+
+    a2a = {"calls": 0}
+    real_a2a = dist.all_to_all_single
+
+    def counting_a2a(*a, **k):
+        a2a["calls"] += 1
+        return real_a2a(*a, **k)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.all_to_all_single = counting_a2a
+    try:
+        (_setup, eng, res), wall, launches, n_expand, n_sort = counted(
+            torch, lambda: sharded(RAFT_CFG, collect_metrics=True))
+    finally:
+        dist.all_to_all_single = real_a2a
+    chunks = sum(-(-n // CHUNK) for n in res.depth_counts) + eng.redone_chunks
+    got = (res.distinct, res.total, res.depth, res.terminal)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[4j] Raft.cfg by ShardedBFS, D = {eng.D} over NCCL: distinct={res.distinct} "
+          f"total={res.total} depth={res.depth} terminal={res.terminal} in {wall:.2f} s, the "
+          f"engine's run {res.seconds:.2f} s ({chunks} chunks, {res.seconds * 1e3 / chunks:.3f} "
+          f"ms/chunk), peak device memory "
+          f"{peak / 2**30:.2f} GiB, all_to_all_single calls {a2a['calls']}")
+    check(eng.D == 1 and res.violation_invariant is None and res.exhausted
+          and got == EXHAUSTED, f"sharded exhaustion counts {got} != {EXHAUSTED}")
+    check(res.depth_counts == main_res.depth_counts, "sharded depth counts != DeviceBFS's")
+    check([r[:2] for r in res.coverage] == [r[:2] for r in main_res.coverage],
+          "sharded enabled/fired coverage != DeviceBFS's")
+    check(sum(r[2] for r in res.coverage) == sum(r[2] for r in main_res.coverage),
+          "sharded new-distinct coverage total != DeviceBFS's")
+    differ = sum(a[2] != b[2] for a, b in zip(res.coverage, main_res.coverage))
+    check_path(launches, SHARDED_PATH, chunks, n_expand, n_sort, "4j")
+    check(launches["owner_route"] == chunks,
+          f"4j: {launches['owner_route']} owner_route launches != {chunks} chunks")
+    check(a2a["calls"] == 2 * chunks, f"4j: {a2a['calls']} all_to_all_single calls != 2 x "
+          f"{chunks} chunks")
+    routed = sum(m["a2a_lanes"] for m in res.metrics)
+    print(f"[4j] depth counts equal DeviceBFS's, enabled/fired coverage equal, new-distinct "
+          f"per action differs in {differ} of {len(res.coverage)} actions (fingerprint-ordered "
+          f"emit), total equal; owner_route one launch per chunk, all_to_all_single two; "
+          f"{routed} lanes routed")
+    report = {"launches": launches, "chunks": chunks, "wall_s": wall, "run_s": res.seconds,
+              "ms_per_chunk": res.seconds * 1e3 / chunks, "a2a_calls": a2a["calls"],
+              "a2a_lanes": routed, "peak_device_bytes": peak,
+              "coverage_new_actions_differing": differ}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "raft.npz")
+        t = time.perf_counter()
+        _, _, r1 = sharded(RAFT_CFG, max_depth=SHARD_CKPT_DEPTH, checkpoint_path=ck,
+                           checkpoint_every_s=0.0)
+        _, _, r2 = sharded(RAFT_CFG, resume=ck)
+        check(r1.depth == SHARD_CKPT_DEPTH and not r1.exhausted, "checkpointed run's depth")
+        check(r2.exhausted and (r2.distinct, r2.total, r2.depth, r2.terminal) == EXHAUSTED
+              and r2.depth_counts == main_res.depth_counts,
+              "the resumed sharded run's counts differ from the uninterrupted run's")
+        print(f"[4j] checkpoint at depth {SHARD_CKPT_DEPTH}, resumed: exhausted at the same "
+              f"counts ({time.perf_counter() - t:.1f} s)")
+        cks = os.path.join(tmp, "small.npz")
+        t = time.perf_counter()
+        _, _, sg = sharded(SHARD_SMALL_CFG, chunk=1024)
+        _, _, s1 = sharded(SHARD_SMALL_CFG, chunk=1024, max_depth=SHARD_SMALL_DEPTH,
+                           checkpoint_path=cks, checkpoint_every_s=0.0)
+        _, ec, sc = sharded(SHARD_SMALL_CFG, devices=2, device="cpu", chunk=1024, resume=cks)
+        want = (sg.distinct, sg.total, sg.depth, sg.terminal, sg.depth_counts)
+        check(s1.depth == SHARD_SMALL_DEPTH and ec.D == 2 and sc.exhausted
+              and (sc.distinct, sc.total, sc.depth, sc.terminal, sc.depth_counts) == want,
+              "two-server Raft: the card's D = 1 checkpoint resumed on the CPU at D = 2 "
+              "differs from the card's uninterrupted run")
+        print(f"[4j] two-server Raft checkpointed on the card at D = 1, depth "
+              f"{SHARD_SMALL_DEPTH}, resumed on the CPU at D = 2 (gloo): {sc.distinct} "
+              f"distinct, depth {sc.depth}, equal ({time.perf_counter() - t:.1f} s)")
+
+    _, _, dv = run_check("FlexibleRaft.cfg", text=FLEX_CFG, device="cuda", chunk=1024)
+    fsetup, fe, fv = sharded(FLEX_CFG, chunk=1024, cfg="FlexibleRaft.cfg")
+    check(dv.violation is not None and fv.violation_invariant == dv.violation.invariant
+          and fv.depth == dv.violation.depth and fv.distinct == dv.distinct,
+          f"FlexibleRaft: sharded {fv.violation_invariant} at depth {fv.depth} != DeviceBFS "
+          f"{dv.violation}")
+    init, chain = fe.journal_chain(fe.violation_site)
+    cpu_trace = replay_chain(fsetup.model, torch.device("cpu"), init, chain)
+    check(len(fv.trace) == fv.depth + 1 and fv.trace[0][0] == "Initial predicate"
+          and fv.trace == cpu_trace, "the sharded counterexample does not replay on the CPU")
+    print(f"[4j] FlexibleRaft: {fv.violation_invariant} violated at depth {fv.depth} (DeviceBFS's "
+          f"depth), its {len(fv.trace)}-state trace replayed on the card and the CPU")
+
+    def traced_run():
+        """(the engine's run seconds, the call's, chunks): the call adds
+        the process group's set-up and the model's build."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, e, r = sharded(RAFT_CFG, max_depth=20)
+        torch.cuda.synchronize()
+        check((r.distinct, r.total, r.depth, r.terminal) == DEPTH20, "sharded depth-20 counts")
+        return r.seconds, time.perf_counter() - t, sum(
+            -(-n // CHUNK) for n in r.depth_counts[:-1]) + e.redone_chunks
+
+    wall20, call20, chunks20 = traced_run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced20, _, _ = traced_run()
+    trace = {"depth": 20, "chunks": chunks20, "wall_ms_per_chunk": wall20 * 1e3 / chunks20,
+             "call_s": call20, "traced_wall_ms_per_chunk": traced20 * 1e3 / chunks20,
+             # the host ops with the most self time (the chunk is host-bound)
+             "host_self_ms_per_chunk_top": {
+                 ev.key: ev.self_cpu_time_total / 1e3 / chunks20
+                 for ev in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:15]}}
+    dt = device_time(torch, prof, split_exchange=True)
+    if dt is None:
+        trace["device"] = "not measured: the tracer saw no device activity"
+    else:
+        busy, groups = dt
+        trace.update({
+            "device_ms_per_chunk": busy / chunks20,
+            "device_busy_share_untraced": busy / (wall20 * 1e3),
+            "device_ms_per_chunk_by_group": {
+                k: v / chunks20 for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}})
+    print(json.dumps({"trace_sharded": trace}))
+    report["trace"] = trace
+    print(json.dumps({"sharded_run": {k: v for k, v in report.items() if k != "launches"}}))
+    return report
 
 
 def simulate_phase(torch) -> dict:
@@ -3004,6 +3241,7 @@ def main() -> int:
     rows3 = torch.from_numpy(np.ascontiguousarray(pool[rng.integers(0, len(pool), CHUNK)]))
     rows.update(sim_rows(torch, model, rows3.to(dev), flatc3[selv3].contiguous()))
     del flatc3
+    rows.update(owner_route_rows(torch, bfs20, pool, rng))
     del bfs20
     t = time.perf_counter()
     _, bfs5s, r5s = run_check("Raft.cfg", text=RAFT5_CFG, device="cuda", chunk=CHUNK,
@@ -3059,6 +3297,7 @@ def main() -> int:
     check(res.exhausted and got == EXHAUSTED, f"exhaustion counts {got} != {EXHAUSTED}")
     check_path(launches, RAFT3_PATH, chunks, expand_calls, sort_calls, "4")
     del bfs
+    raft_main = res
 
     phase_start["4b"] = time.perf_counter()
     # ---- 4b. five-server Raft with SYMMETRY to RAFT5_DEPTH ----
@@ -3111,6 +3350,10 @@ def main() -> int:
     phase_start["4i"] = time.perf_counter()
     # ---- 4i. the reconfiguration specs at five servers ----
     five_report = five_reconfig_phase(torch)
+
+    phase_start["4j"] = time.perf_counter()
+    # ---- 4j. Raft.cfg by the sharded engine at D = 1 over NCCL ----
+    sharded_report = sharded_phase(torch, raft_main)
 
     phase_start["5"] = time.perf_counter()
     # ---- 5. FlexibleRaft's quorum violation: card vs CPU ----
@@ -3336,6 +3579,8 @@ def main() -> int:
                                  "raft_tpu/checker/liveness.py:254"),
         "slot_canon": ("raft_tpu_torch/csrc/slot_canon.cu",
                        "raft_tpu/models/kraft_reconfig.py:2059"),
+        "owner_route": ("raft_tpu_torch/csrc/owner_route.cu",
+                        "raft_tpu/parallel/sharded.py:576"),
         # the network-fault groups' arms and the fleet lanes' reads in the
         # Raft and pull kernels
         "raft_guard[net_faults]": ("raft_tpu_torch/csrc/raft_expand.cu",
@@ -3390,7 +3635,9 @@ def main() -> int:
                      # 4i's AddRemove run and its JointConsensus card run
                      "canon_tiered[addremove5]": five_report["launches"]["canon_tiered"],
                      "canon_tiered[joint5]": five_report["joint5"]["launches"]["canon_tiered"],
-                     "canon_signatures[addremove5]": 0, "canon_signatures[joint5]": 0}
+                     "canon_signatures[addremove5]": 0, "canon_signatures[joint5]": 0,
+                     # 4j's exhaustion
+                     "owner_route": sharded_report["launches"]["owner_route"]}
     table = [
         {"name": k, "route": "cuda", "source": meta[k][0], "replaces": meta[k][1],
          "launches": path_launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

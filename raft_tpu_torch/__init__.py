@@ -16,9 +16,13 @@ find:
              run seen set (``merge_runs`` kernel) and the dedup / emit
              helpers (``probe_runs``, ``chunk_sort`` and
              ``compact_append`` kernels)
+  parallel/  the sharded engine (``ShardedBFS`` over torch.distributed,
+             one process a shard) and its ``owner_route`` kernel
+  resilience/ crash-safe, mesh-portable checkpoints and the engines'
+             typed failures
   utils/     TLC ``.cfg`` parser, TLC-style trace printer
-  csrc/      the CUDA C++ sources of the 24 kernels (``kernels.py``
-             builds them with nvcc and binds them through ctypes)
+  csrc/      the CUDA C++ sources of the kernels (``kernels.py`` builds
+             them with nvcc and binds them through ctypes)
 
 It imports torch and numpy only — never jax and never ``raft_tpu``.
 Fingerprints are u64 values in the reference; torch has no unsigned

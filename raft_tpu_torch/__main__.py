@@ -6,6 +6,8 @@
     python -m raft_tpu_torch path/to/KRaft.cfg [--simulate N]
     python -m raft_tpu_torch path/to/Raft.cfg --net-faults [--simulate N]
     python -m raft_tpu_torch path/to/Raft.cfg --collision-audit DEPTH --coverage[=strict]
+    python -m raft_tpu_torch path/to/Raft.cfg --checker sharded --devices N
+    python -m raft_tpu_torch path/to/Raft.cfg --checkpoint run.npz [--resume run.npz]
     python -m raft_tpu_torch sweep MANIFEST.json [--engine tpu] [--device cuda|cpu]
 
 Runs the device BFS on ``cuda`` (the default; ``--device cpu`` runs the
@@ -19,17 +21,24 @@ fingerprint hash families and requires identical counts
 the BFS (``obs/coverage.py``). ``sweep`` runs a fleet manifest (``fleet/cli.py``). A cfg's
 PROPERTY lines are checked after a clean exhaustive BFS on the full
 state graph (symmetry off); configurations that cannot be checked are
-refused.
+refused. ``--checker`` (or ``$CHECKER``) picks the engine: ``tpu``, the
+device BFS (the default), or ``sharded``, the frontier-sharded BFS over
+``--devices`` shards (one process each: NCCL on the cards, gloo CPU
+processes with ``--device cpu``). ``--checkpoint PATH`` saves a resumable
+run (hash-verified, rotated generations) and ``--resume PATH`` continues
+one; a sharded checkpoint resumes on another mesh size unless
+``--no-reshard``.
 
 Exit codes (the reference's contract, raft_tpu/__main__.py:10-24):
 
     0   clean run, no violations
     2   invariant or temporal property violation found (the trace is printed)
     3   --coverage=strict: an action never fired
-    5   unrecoverable failure (capacity overflow, no CUDA device)
-    64  usage/config error (bad flags, bad cfg, spec not yet ported,
-        PROPERTY checking refused)
-    66  input file not found
+    5   unrecoverable failure (capacity overflow, no CUDA device, no intact
+        checkpoint generation)
+    64  usage/config error (bad flags, bad cfg, spec or checker not yet
+        ported, PROPERTY checking refused, checkpoint spec mismatch)
+    66  input file not found (cfg or --resume path)
     70  the fingerprint-collision audit failed
 """
 
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -61,14 +71,38 @@ def load_setup(cfg_path: str, text: str | None = None, spec: str | None = None,
 
 def _bfs(setup, device=None, chunk: int = 4096, max_depth: int | None = None,
          time_budget_s: float | None = None, symmetry: bool = True,
-         verbose: bool = False, caps=None):
+         verbose: bool = False, caps=None, **ckpt_kw):
     from .checker.device_bfs import DeviceBFS
 
     checker = DeviceBFS(setup.model, invariants=setup.invariants,
                         symmetry=setup.symmetry and symmetry, chunk=chunk, device=device,
                         **(caps or {}))
     return checker, checker.run(max_depth=max_depth, verbose=verbose,
-                                time_budget_s=time_budget_s)
+                                time_budget_s=time_budget_s, **ckpt_kw)
+
+
+def run_sharded_check(cfg_path: str, devices: int, text: str | None = None, device=None,
+                      chunk: int = 4096, msg_slots: int | None = None,
+                      max_depth: int | None = None, time_budget_s: float | None = None,
+                      spec: str | None = None, symmetry: bool = True, lenient: bool = False,
+                      verbose: bool = False, caps=None, net_faults: bool = False,
+                      collect_metrics: bool = False, **ckpt_kw):
+    """Parse a cfg and run the sharded BFS on ``devices`` shards (one
+    process each; ``ckpt_kw``: checkpoint_path, checkpoint_every_s,
+    checkpoint_keep, resume, reshard). Returns (setup, rank 0's engine,
+    its ShardedResult)."""
+    from .parallel.launch import CfgModel, run_sharded
+
+    setup = load_setup(cfg_path, text, spec, msg_slots, lenient, net_faults)
+    build = CfgModel(cfg_path, text=text, spec=spec, msg_slots=msg_slots, lenient=lenient,
+                     net_faults=net_faults)
+    engine, res = run_sharded(
+        build, devices, device="cuda" if device is None else device,
+        engine_kw=dict(invariants=setup.invariants, symmetry=setup.symmetry and symmetry,
+                       chunk=chunk, **(caps or {})),
+        run_kw=dict(max_depth=max_depth, verbose=verbose, time_budget_s=time_budget_s,
+                    collect_metrics=collect_metrics, **ckpt_kw))
+    return setup, engine, res
 
 
 def run_check(cfg_path: str, text: str | None = None, device=None,
@@ -198,6 +232,27 @@ def _liveness(setup, args) -> int:
     return 0
 
 
+# the reference's checkers that the port lacks, and the ROADMAP.md Queue 1
+# item that brings each
+UNPORTED_CHECKERS = {"tpu-host": 2, "oracle": 6}
+
+
+def _ckpt_ident(setup, args, n_dev) -> str:
+    """The checkpoint ident the run will have (for ``--resume``'s check
+    before any engine is built)."""
+    from .ops.symmetry import Canonicalizer
+
+    symmetry = setup.symmetry and not args.no_symmetry
+    canon = Canonicalizer.for_model(setup.model, symmetry=symmetry)
+    if args.checker == "sharded":
+        from .parallel.sharded import ckpt_ident
+
+        return ckpt_ident(setup.model, canon, setup.invariants, n_dev)
+    from .checker.device_bfs import ckpt_ident
+
+    return ckpt_ident(setup.model, canon, setup.invariants)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "sweep":
@@ -208,6 +263,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="raft_tpu_torch")
     ap.add_argument("cfg", help="TLC .cfg file (the spec is inferred from its name)")
     ap.add_argument("--spec", help="spec/module name override")
+    ap.add_argument(
+        "--checker",
+        default=os.environ.get("CHECKER", "tpu"),
+        choices=["tpu", "sharded", "tpu-host", "oracle"],
+        help="backend: tpu (single-device BFS), sharded (multi-chip "
+        "frontier-sharded BFS over a device mesh — the `tlc -workers N` "
+        "replacement), tpu-host (device expansion + host dedup, the v1 "
+        "driver), or oracle (pure-Python reference)",
+    )
+    ap.add_argument(
+        "--devices",
+        type=int,
+        default=None,
+        metavar="N",
+        help="mesh size for --checker sharded (default: all visible "
+        "cards; with --device cpu, N gloo CPU processes, default 1)",
+    )
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (hand-written kernels, the default) or cpu "
                     "(their plain PyTorch versions)")
@@ -245,6 +317,27 @@ def main(argv=None) -> int:
                     help="after the BFS, print a TLC-style per-action coverage table "
                     "(enabled / fired / new distinct states) with a WARNING line per action "
                     "that never fired; --coverage=strict also exits 3 when one never fired")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="periodically save resumable run state (tpu and sharded checkers)")
+    ap.add_argument("--checkpoint-every", type=float, default=300.0,
+                    metavar="S", help="seconds between checkpoints")
+    ap.add_argument("--resume", default=None, metavar="PATH",
+                    help="resume a run from a --checkpoint file (tpu and sharded checkers)")
+    ap.add_argument(
+        "--checkpoint-keep",
+        type=int,
+        default=3,
+        metavar="N",
+        help="checkpoint generations to rotate (PATH, PATH.gen1, ...); "
+        "a torn newest generation falls back to the previous intact one",
+    )
+    ap.add_argument(
+        "--no-reshard",
+        action="store_true",
+        help="refuse to resume a sharded checkpoint written on a "
+        "different mesh size (default: re-route the shards by fp mod D "
+        "on load — checkpoints are mesh-portable)",
+    )
     ap.add_argument("--no-symmetry", action="store_true", help="ignore SYMMETRY")
     ap.add_argument("--trace-format", default="default", choices=["default", "tlc"])
     ap.add_argument("--lenient", action="store_true",
@@ -257,8 +350,33 @@ def main(argv=None) -> int:
     except SystemExit as e:
         return 0 if e.code == 0 else 64
 
-    from .checker.device_bfs import CapacityOverflow
+    from .resilience.errors import CapacityOverflow, CheckpointCorrupt, CheckpointMismatch
     from .utils.cfg import CfgError
+
+    if args.checker in UNPORTED_CHECKERS:
+        print(f"error: --checker {args.checker} is not ported to raft_tpu_torch "
+              f"(ROADMAP.md Queue 1 item {UNPORTED_CHECKERS[args.checker]})", file=sys.stderr)
+        return 64
+    sharded = args.checker == "sharded"
+    if args.devices is not None and not sharded:
+        print("error: --devices needs --checker sharded", file=sys.stderr)
+        return 64
+    n_dev = args.devices
+    if sharded:
+        from .parallel.route import MAX_OWNERS
+
+        visible = None
+        if args.device == "cuda":
+            import torch
+
+            visible = torch.cuda.device_count()
+        if n_dev is None:
+            n_dev = visible if visible else 1
+        if n_dev < 1 or n_dev > MAX_OWNERS or (visible is not None and n_dev > visible):
+            print(f"error: --devices {n_dev}: a sharded run takes 1 to {MAX_OWNERS} shards"
+                  + (f", at most the {visible} visible CUDA cards (--device cpu runs N "
+                     "CPU processes)" if visible is not None else ""), file=sys.stderr)
+            return 64
 
     caps = {
         k: v for k in ("frontier_cap", "seen_cap", "journal_cap",
@@ -290,6 +408,34 @@ def main(argv=None) -> int:
               "the exhaustive BFS)", file=sys.stderr)
         return 64
 
+    if args.simulate is not None and (args.checkpoint or args.resume):
+        print("error: --checkpoint/--resume need the BFS and no --simulate", file=sys.stderr)
+        return 64
+    if args.resume is not None and args.simulate is None:
+        # fail fast, before any device work: the file exists, loads and
+        # matches this run's identity
+        from .resilience import ckpt as rckpt
+
+        try:
+            gen, ck_depth = rckpt.validate_resume(
+                args.resume, _ckpt_ident(setup, args, n_dev), keep=args.checkpoint_keep,
+                allow_reshard=sharded and not args.no_reshard)
+        except FileNotFoundError as e:
+            print(f"error: --resume: {e}", file=sys.stderr)
+            return 66
+        except CheckpointCorrupt as e:
+            print(f"error: --resume: {e}", file=sys.stderr)
+            for prob in e.problems:
+                print(f"  {prob}", file=sys.stderr)
+            return 5
+        except CheckpointMismatch as e:
+            print(f"error: --resume: {e}", file=sys.stderr)
+            return 64
+        print(f"resume: validated {args.resume} (generation {gen}, depth {ck_depth})",
+              file=sys.stderr)
+    ckpt_kw = dict(checkpoint_path=args.checkpoint, checkpoint_every_s=args.checkpoint_every,
+                   checkpoint_keep=args.checkpoint_keep, resume=args.resume)
+
     try:
         if args.simulate is not None:
             return _simulate(setup, args)
@@ -305,18 +451,30 @@ def main(argv=None) -> int:
                 print("error: fingerprint-collision audit failed: counts differ between "
                       "hash families; results would be untrustworthy", file=sys.stderr)
                 return 70
-        checker, res = _bfs(setup, device=args.device, chunk=args.chunk,
-                            max_depth=args.max_depth, time_budget_s=args.time_budget,
-                            symmetry=not args.no_symmetry, verbose=args.verbose, caps=caps)
+        if sharded:
+            _, checker, res = run_sharded_check(
+                args.cfg, n_dev, device=args.device, chunk=args.chunk, msg_slots=args.msg_slots,
+                max_depth=args.max_depth, time_budget_s=args.time_budget, spec=args.spec,
+                symmetry=not args.no_symmetry, lenient=args.lenient, verbose=args.verbose,
+                caps=caps, net_faults=args.net_faults, reshard=not args.no_reshard, **ckpt_kw)
+            viol = res.violation_invariant
+            vdepth = res.depth
+        else:
+            checker, res = _bfs(setup, device=args.device, chunk=args.chunk,
+                                max_depth=args.max_depth, time_budget_s=args.time_budget,
+                                symmetry=not args.no_symmetry, verbose=args.verbose, caps=caps,
+                                **ckpt_kw)
+            viol = res.violation.invariant if res.violation else None
+            vdepth = res.violation.depth if res.violation else None
         print(f"distinct={res.distinct} total={res.total} depth={res.depth} "
               f"terminal={res.terminal} time={res.seconds:.2f}s "
-              f"({res.states_per_sec:.0f} distinct/s)")
+              f"({res.states_per_sec:.0f} distinct/s)"
+              + (f" devices={checker.D}" if sharded else ""))
         rc = 0
-        if res.violation is not None:
-            print(f"INVARIANT {res.violation.invariant} VIOLATED "
-                  f"(depth {res.violation.depth})")
+        if viol is not None:
+            print(f"INVARIANT {viol} VIOLATED (depth {vdepth})")
             if res.trace:
-                _print_trace(res.trace, setup, args, res.violation.invariant)
+                _print_trace(res.trace, setup, args, viol)
             _print_coverage(setup, res, args)  # the violation's rc 2 outranks the strict gate
             rc = 2
         else:
@@ -330,13 +488,16 @@ def main(argv=None) -> int:
                 "distinct": res.distinct, "total": res.total, "depth": res.depth,
                 "terminal": res.terminal, "seconds": res.seconds,
                 "exhausted": res.exhausted, "exit_cause": res.exit_cause,
-                "violation": res.violation.invariant if res.violation else None,
-                "device": str(checker.device),
+                "violation": viol, "device": str(checker.device),
+                **({"devices": checker.D} if sharded else {}),
             }))
         return rc
-    except (KeyError, ValueError, NotImplementedError) as e:
+    except (KeyError, ValueError, NotImplementedError) as e:  # CheckpointMismatch too
         print(f"error: {e}", file=sys.stderr)
         return 64
+    except FileNotFoundError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 66
     except (CapacityOverflow, OverflowError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 5

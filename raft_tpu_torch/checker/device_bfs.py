@@ -49,6 +49,8 @@ import torch
 
 from .. import resolve_device
 from ..ops.hashing import INT64_MAX
+from ..resilience import ckpt as rckpt
+from ..resilience.errors import CapacityOverflow  # re-exported: fleet/ and the CLI import it here
 from ..ops.symmetry import Canonicalizer
 from .bfs import CheckResult, Violation
 from .lsm import CanonMemo, merge_many, merge_runs, pow2_at_least
@@ -58,14 +60,14 @@ from .util import (
 )
 
 
-class CapacityOverflow(RuntimeError):
-    """A static buffer bound was exceeded; the run aborts rather than
-    drop states. ``bits`` uses ``DeviceBFS.OVF_NAMES``."""
-
-    def __init__(self, msg: str, bits: int, what: tuple[str, ...] = ()):
-        super().__init__(msg)
-        self.bits = bits
-        self.what = what
+def ckpt_ident(model, canon, invariants) -> str:
+    """The reference's checkpoint ident (``raft_tpu/checker/device_bfs.py:
+    1739``): the model and its parameters, the view width, symmetry, the
+    hash seed and formula (hashv=5, the refinement depth wl) and the
+    invariant set; a checkpoint resumes only under an equal ident."""
+    wl = getattr(canon, "refine_rounds", 1)
+    return (f"{model.name}/{model.p}/W={model.layout.W}/sym={canon.symmetry}"
+            f"/seed={getattr(canon, 'seed', 0)}/hashv=5/wl={wl}/inv={','.join(invariants)}")
 
 
 class DeviceBFS:
@@ -285,28 +287,33 @@ class DeviceBFS:
         is the number of trailing zero bits of k+1, capped at K where the
         top level absorbs by truncating merges (``_wave_step`` of the
         reference, :571-655). Returns the ladder (None = empty level)."""
-        C, R0 = self.chunk, self.R0
-        K = self._wave_geom()
-        topsz = R0 << K
+        C = self.chunk
         # wave-new and overflow lanes restart each wave (zero_ on a view:
         # a device fill, where assigning a Python number would sync)
         stats[0:1].zero_()
         stats[4:5].zero_()
-        ladder: list[torch.Tensor | None] = [None] * (K + 1)
+        ladder: list[torch.Tensor | None] = [None] * (self._wave_geom() + 1)
         for k in range(-(-fcount // C)):
             runs = [self._seen] + [r for r in ladder if r is not None]
             new_run = self._chunk_step(
                 frontier, next_buf, jparent, jcand, viol, stats, memo, cov,
                 k * C, fcount, base_gid, runs)
-            kp1, tt = k + 1, 0
-            while tt < K and kp1 % (1 << (tt + 1)) == 0:
-                tt += 1
-            lower = [r for r in (ladder[:tt] if tt < K else ladder) if r is not None]
-            merged = merge_many([new_run] + lower, R0 << tt if tt < K else topsz)
-            for i in range(tt):
-                ladder[i] = None
-            ladder[tt] = merged
+            self._ladder_push(ladder, new_run, k)
         return ladder
+
+    def _ladder_push(self, ladder, new_run, k: int) -> None:
+        """Chunk k's sorted R0-lane run into the wave's ladder, in place:
+        the merge chain takes the trailing zero bits of k+1 levels; at the
+        top level K = len(ladder) - 1 the merge truncates to R0 << K."""
+        K = len(ladder) - 1
+        kp1, tt = k + 1, 0
+        while tt < K and kp1 % (1 << (tt + 1)) == 0:
+            tt += 1
+        lower = [r for r in (ladder[:tt] if tt < K else ladder) if r is not None]
+        merged = merge_many([new_run] + lower, self.R0 << tt)
+        for i in range(tt):
+            ladder[i] = None
+        ladder[tt] = merged
 
     def _wave_carries(self):
         """Fresh device carries of the wave loop: (next_buf, jparent,
@@ -378,13 +385,46 @@ class DeviceBFS:
 
     # ---------------- host loop ----------------
 
+    # ---------------- checkpoints ----------------
+
+    def _ckpt_ident(self) -> str:
+        return ckpt_ident(self.model, self.canon, self.invariants)
+
+    def _save_checkpoint(self, path, frontier, jparent, jcand, fcount, scount, distinct,
+                         total, terminal, depth, base_gid, gen_prev, depth_counts, coverage):
+        """The resumable state at a wave boundary, in the reference's payload
+        (``_write_checkpoint``, :1774): the frontier rows, the seen
+        fingerprints (uint64, ascending), the journal and the counters."""
+        n0 = len(self._init_distinct)
+        jcount = scount - n0
+        rckpt.save_npz(path, dict(
+            version=1, spec=self._ckpt_ident(), fcount=fcount, scount=scount, jcount=jcount,
+            frontier=frontier[:fcount].cpu().numpy(),
+            seen=rckpt.u64_of_enc(self._seen[:scount].cpu().numpy()),
+            jparent=jparent[:jcount].cpu().numpy(), jcand=jcand[:jcount].cpu().numpy(),
+            distinct=distinct, total=total, terminal=terminal, depth=depth, base_gid=base_gid,
+            gen_prev=gen_prev, depth_counts=np.asarray(depth_counts, dtype=np.int64),
+            coverage=np.asarray(coverage, dtype=np.int64),
+        ), keep=self._ckpt_keep)
+
+    # ---------------- host loop ----------------
+
     def run(self, max_depth: int | None = None, verbose: bool = False,
-            time_budget_s: float | None = None) -> CheckResult:
+            time_budget_s: float | None = None, checkpoint_path: str | None = None,
+            checkpoint_every_s: float = 300.0, checkpoint_keep: int = rckpt.DEFAULT_KEEP,
+            resume: str | None = None) -> CheckResult:
+        """Explore to exhaustion, ``max_depth`` or ``time_budget_s``.
+        ``checkpoint_path`` saves the run at wave boundaries every
+        ``checkpoint_every_s`` seconds (0: every wave), before a capacity
+        abort and at a capped exit, rotating ``checkpoint_keep``
+        generations; ``resume`` continues from such a file (the reference's
+        format: either package's checkpoint loads in the other)."""
         model, dev = self.model, self.device
         W = self.W
         t0 = time.perf_counter()
         exhausted = True
         exit_cause = None
+        self._ckpt_keep = checkpoint_keep
 
         init = model.init_states()
         init_fps = self.canon.fingerprints(torch.from_numpy(init).to(dev)).cpu().numpy()
@@ -399,18 +439,51 @@ class DeviceBFS:
         if n0 > self.FCAP:
             raise ValueError("initial states exceed frontier_cap")
         self._init_distinct = init_d
-        violation = self._check_init(init_d)
-        self._seed_seen(np.sort(init_fps[keep]))
-        fcount = scount = distinct = n0
-        total = len(init)  # pre-dedup, as the reference seeds it
-        terminal = depth = base_gid = gen_prev = 0
-        depth_counts = [n0]
-        cov_h = np.zeros((self.n_actions, 3), np.int64)
+        if resume is not None:
+            ck, _gen, _skipped = rckpt.load_npz(resume, keep=checkpoint_keep)
+            rckpt.check_spec(ck, self._ckpt_ident(), resume)
+            violation = None
+            fcount, scount = int(ck["fcount"]), int(ck["scount"])
+            jcount = int(ck["jcount"])
+            # caps rounded up so the saved rows fit with headroom
+            self.FCAP = next_cap(max(self.FCAP, fcount * self.HEADROOM), self.FCAP,
+                                 self.MAX_FCAP, self.GROWTH, self.chunk)
+            self.JCAP = next_cap(max(self.JCAP, jcount + fcount * self.HEADROOM), self.JCAP,
+                                 self.MAX_JCAP, self.GROWTH, 1)
+            self._seed_seen(rckpt.enc_of_u64(ck["seen"]))
+            rows = (ck["frontier"], ck["jparent"], ck["jcand"])
+            distinct, total = int(ck["distinct"]), int(ck["total"])
+            terminal, depth = int(ck["terminal"]), int(ck["depth"])
+            base_gid, gen_prev = int(ck["base_gid"]), int(ck["gen_prev"])
+            depth_counts = [int(x) for x in ck["depth_counts"]]
+            cov_h = (np.asarray(ck["coverage"], dtype=np.int64) if "coverage" in ck
+                     else np.zeros((self.n_actions, 3), np.int64))
+            stats0 = [0, jcount, gen_prev, terminal, 0, 0]
+        else:
+            violation = self._check_init(init_d)
+            self._seed_seen(np.sort(init_fps[keep]))
+            fcount = scount = distinct = n0
+            total = len(init)  # pre-dedup, as the reference seeds it
+            terminal = depth = base_gid = gen_prev = 0
+            depth_counts = [n0]
+            cov_h = np.zeros((self.n_actions, 3), np.int64)
+            rows = (init_d, np.zeros(0, np.int32), np.zeros(0, np.int32))
+            stats0 = None
 
         frontier = torch.zeros((self.FCAP + self.VC, W), dtype=torch.int32, device=dev)
-        frontier[:n0] = torch.from_numpy(init_d).to(dev)
         next_buf, jparent, jcand, viol, stats, cov = self._wave_carries()
+        for buf, h in zip((frontier, jparent, jcand), rows):
+            buf[:len(h)] = torch.from_numpy(np.ascontiguousarray(h)).to(dev)
+        if stats0 is not None:
+            stats.copy_(torch.tensor(stats0, dtype=torch.int64))
+            cov.copy_(torch.from_numpy(cov_h))
         n_inv = viol.numel()
+        last_ckpt = time.perf_counter()
+
+        def save():
+            self._save_checkpoint(checkpoint_path, frontier, jparent, jcand, fcount, scount,
+                                  distinct, total, terminal, depth, base_gid, gen_prev,
+                                  depth_counts, cov_h)
         memo = self._memo.reset(dev)
         self.redone_chunks = 0
 
@@ -424,9 +497,18 @@ class DeviceBFS:
             # the top ladder level absorbs by truncation, sound only while
             # every real fingerprint fits
             if scount + min(self.FCAP, fcount * self.VC) > self.TOPSZ:
+                if checkpoint_path is not None:
+                    save()
                 raise CapacityOverflow(
                     "seen-set capacity overflow; raise max_seen_cap",
-                    bits=self.SEEN_OVF_BIT, what=("seen",))
+                    bits=self.SEEN_OVF_BIT, what=("seen",),
+                    checkpoint_saved=checkpoint_path is not None)
+            # a wave that could outgrow even the largest frontier may abort:
+            # spill a resumable snapshot first (throttled, as the reference)
+            if (checkpoint_path is not None and fcount * self.HEADROOM > self.MAX_FCAP
+                    and time.perf_counter() - last_ckpt > checkpoint_every_s / 4):
+                save()
+                last_ckpt = time.perf_counter()
             before = (stats.clone(), viol.clone(), cov.clone())
             ladder = self._run_wave(frontier, next_buf, jparent, jcand, viol,
                                     stats, memo, cov, fcount, base_gid)
@@ -447,12 +529,19 @@ class DeviceBFS:
                           f"{self.VC // self.chunk} lanes per state", file=sys.stderr)
                 continue
             if ovf_bits:
+                # the aborted wave touched neither the seen run nor the
+                # frontier nor journal[:jcount]: the wave-start state saves
+                if checkpoint_path is not None:
+                    save()
                 raise CapacityOverflow(
                     f"device BFS capacity overflow (bits={ovf_bits:04b}: "
                     "1=msg-slots 2=valid_per_state 4=frontier_cap "
-                    "8=journal_cap)",
+                    "8=journal_cap)"
+                    + (f"; wave-start checkpoint saved to {checkpoint_path}"
+                       if checkpoint_path is not None else ""),
                     bits=ovf_bits,
-                    what=tuple(n for b, n in self.OVF_NAMES if ovf_bits & b))
+                    what=tuple(n for b, n in self.OVF_NAMES if ovf_bits & b),
+                    checkpoint_saved=checkpoint_path is not None)
             cov_h = snap[6 + n_inv:].reshape(self.n_actions, 3)
             n_gen = int(stats_h[2])
             wave_gen = n_gen - gen_prev
@@ -478,12 +567,18 @@ class DeviceBFS:
             del frontier, next_buf, ladder
             frontier, next_buf, jparent, jcand = self._next_buffers(
                 bufs, ncount, jparent, jcand, scount - n0)
+            if (checkpoint_path is not None and violation is None
+                    and time.perf_counter() - last_ckpt > checkpoint_every_s):
+                save()
+                last_ckpt = time.perf_counter()
             if verbose:
                 el = time.perf_counter() - t0
                 print(f"depth {depth}: frontier {ncount}, distinct {distinct}, "
                       f"total {total}, {distinct / el:.0f} distinct/s",
                       file=sys.stderr)
 
+        if checkpoint_path is not None and violation is None and not exhausted:
+            save()  # a capped exit leaves a resumable snapshot
         self._jparent, self._jcand = jparent, jcand
         self._jcount = int(stats[1].item())
         self.frontier_rows = frontier[:fcount]
@@ -512,15 +607,17 @@ class DeviceBFS:
         model's jobs one at a time through THIS engine. ``fleet_select(j)``
         changes only which job's constants the initial states carry, so
         every job reuses the engine's kernels and buffers. Jobs named in
-        ``skip`` yield None. Telemetry, checkpoints, chaos and supervision
-        are not ported (their modules are not): passing any raises."""
+        ``skip`` yield None. Telemetry (ROADMAP.md Queue 1 item 4) and the
+        per-job checkpoint lineages, chaos and supervision (item 3) are not
+        ported: passing any raises."""
         unported = [n for n, v in (("telemetry", telemetry), ("checkpoint_dir", checkpoint_dir),
                                    ("resume", resume), ("supervise", supervise),
-                                   ("chaos_by_job", chaos_by_job)) if v]
+                                   ("chaos_by_job", chaos_by_job),
+                                   ("checkpoint_path", run_kw.get("checkpoint_path"))) if v]
         if unported:
             raise NotImplementedError(
                 f"run_fleet: {', '.join(unported)} not ported to raft_tpu_torch (the "
-                "resilience and observability modules are not)")
+                "supervisor's per-job lineages and the observability modules are not)")
         model = self.model
         J = model.fleet_jobs
         if J == 0:

@@ -9,10 +9,11 @@ dedup steps of ``raft_tpu/checker/device_bfs.py``. Three kernels live here:
   ``chunk_sort``      (csrc/chunk_sort.cu) one stable sort of the chunk's
                       fingerprints: the first-occurrence dedup and the
                       chunk's sorted run of new fingerprints;
-  ``compact_append``  (csrc/compact_append.cu) with two entry points:
-                      ``compact_indices`` (mask -> dense worklist) and
+  ``compact_append``  (csrc/compact_append.cu) with three entry points:
+                      ``compact_indices`` (mask -> dense worklist),
                       ``append_rows`` (cursor append into a buffer with a
-                      drop region past capacity).
+                      drop region past capacity) and ``append_rows_strided``
+                      (the same from rows of a wider source).
 
 Each wrapper launches its kernel on CUDA tensors and runs the plain
 PyTorch version beside it on CPU tensors. Fingerprints are enc int64
@@ -93,7 +94,8 @@ def probe_runs(fps: torch.Tensor, runs) -> torch.Tensor:
 # ---------------- chunk_sort ----------------
 
 
-def chunk_sort_plain(fps: torch.Tensor, fresh: torch.Tensor, run_len: int):
+def chunk_sort_plain(fps: torch.Tensor, fresh: torch.Tensor, run_len: int,
+                     with_order: bool = False):
     """Plain version of ``chunk_sort``: the reference's two sorts
     (``device_bfs.py:413-420`` first occurrence, ``:495`` run emit)."""
     rf, order = sort_fps_with_idx(fps)
@@ -105,20 +107,24 @@ def chunk_sort_plain(fps: torch.Tensor, fresh: torch.Tensor, run_len: int):
         pad = torch.full((run_len - run.numel(),), INT64_MAX, dtype=torch.int64,
                          device=fps.device)
         run = torch.cat([run, pad])
-    return new, run
+    return (new, run, order.to(torch.int32)) if with_order else (new, run)
 
 
-def chunk_sort(fps: torch.Tensor, fresh: torch.Tensor, run_len: int):
+def chunk_sort(fps: torch.Tensor, fresh: torch.Tensor, run_len: int,
+               with_order: bool = False):
     """First occurrence and the sorted run of a chunk's fingerprints.
 
     ``fps`` is enc int64 [n], ``fresh`` bool [n] (not in any seen run).
     Returns ``(new, run)``: new[i] = fresh[i] and no lane before i holds
     fps[i]; run = the fingerprints of the new lanes ascending, padded
-    with INT64_MAX to ``run_len`` (>= n) lanes."""
+    with INT64_MAX to ``run_len`` (>= n) lanes. ``with_order`` also
+    returns the sort's permutation, int32 [n]: the lanes by fingerprint,
+    ties in lane order (``sort_u64_with_idx``'s index, which the sharded
+    engine emits in; the kernel leaves it in its scratch, no extra work)."""
     if run_len < fps.numel():
         raise ValueError("chunk_sort: run_len must be at least len(fps)")
     if kernels.route(fps) == "cpu":
-        return chunk_sort_plain(fps, fresh, run_len)
+        return chunk_sort_plain(fps, fresh, run_len, with_order)
     k = kernels.CHUNK_SORT
     n = fps.numel()
     kernels.require(fps, torch.int64, "fps", ndim=1)
@@ -137,7 +143,12 @@ def chunk_sort(fps: torch.Tensor, fresh: torch.Tensor, run_len: int):
                           blk.data_ptr(), new.data_ptr(), run.data_ptr(), run_len,
                           kernels.stream(dev))
     k.launched(rc)
-    return new, run
+    if not with_order:
+        return new, run
+    # the merge passes ping-pong between the two scratch halves: after
+    # log2(np / tile) of them the sorted lane index is in half (that % 2)
+    merges = (np_ // CHUNK_SORT_TILE).bit_length() - 1
+    return new, run, idx[merges % 2, :n]
 
 
 # ---------------- compact_append: indices ----------------
@@ -225,6 +236,33 @@ def append_rows(buf: torch.Tensor, src: torch.Tensor, esel: torch.Tensor,
     rc = k.lib.append_rows(buf.data_ptr(), src.data_ptr(), src.shape[0],
                            esel.data_ptr(), B, W, count.data_ptr(), cap,
                            kernels.stream(buf.device))
+    k.launched(rc)
+
+
+def append_rows_strided(buf: torch.Tensor, src: torch.Tensor, esel: torch.Tensor,
+                        count: torch.Tensor, cap: int) -> None:
+    """``append_rows`` from a source whose rows need not be contiguous:
+    ``src`` is a 2-D int32 view with unit column stride (a column range of
+    wider rows, such as the sharded engine's received payload) whose width
+    is ``buf``'s (1 for a 1-D ``buf``). The emit of
+    ``raft_tpu/parallel/sharded.py:_cs_post`` (:661-684)."""
+    W = 1 if buf.ndim == 1 else buf.shape[1]
+    if src.ndim != 2 or src.shape[1] != W or src.stride(1) != 1:
+        raise ValueError("append_rows_strided: src must be [n, W] with unit column stride")
+    if kernels.route(buf) == "cpu":
+        return append_rows_plain(buf, src if buf.ndim == 2 else src[:, 0], esel, count, cap)
+    k = kernels.COMPACT_APPEND
+    kernels.require(buf, torch.int32, "buf")
+    kernels.require(esel, torch.int32, "esel", ndim=1)
+    kernels.require(count, torch.int64, "count")
+    if not src.is_cuda or src.dtype != torch.int32:
+        raise TypeError("append_rows_strided: src must be a CUDA int32 tensor")
+    B = esel.numel()
+    if buf.shape[0] < cap + B:
+        raise ValueError("append_rows_strided: buf needs cap + len(esel) rows")
+    rc = k.lib.append_rows_strided(buf.data_ptr(), src.data_ptr(), src.shape[0], src.stride(0),
+                                   esel.data_ptr(), B, W, count.data_ptr(), cap,
+                                   kernels.stream(buf.device))
     k.launched(rc)
 
 

@@ -92,7 +92,7 @@ def sweep_main(argv=None) -> int:
     except (ManifestError, CfgError) as e:
         print(f"sweep error: {e}", file=sys.stderr)
         return 64
-    except RuntimeError as e:  # no CUDA device, a capacity overflow, a kernel failure
+    except (RuntimeError, OverflowError) as e:  # no CUDA device, a capacity overflow, a kernel failure
         print(f"error: {e}", file=sys.stderr)
         return 5
 

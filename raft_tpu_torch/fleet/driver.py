@@ -34,7 +34,7 @@ ENGINES = ("host", "tpu", "sharded")
 UNPORTED_ENGINES = {
     "host": "the host engine (BFSChecker) is not ported to raft_tpu_torch "
             "(ROADMAP.md Queue 1 item 2)",
-    "sharded": "the sharded engine is not ported to raft_tpu_torch "
+    "sharded": "the sharded engine's fleet arm (run_fleet) is not ported to raft_tpu_torch "
                "(ROADMAP.md Queue 1 item 5)",
 }
 

@@ -6,7 +6,8 @@ interface (``raft_guard`` and ``raft_apply`` share ``raft_expand.cu``;
 ``raft_predicates.cu``; the pull family's ``pull_*``, KRaft's ``kraft_*``,
 the reconfiguration specs' ``reconfig_*`` (AddRemove) and ``joint_*``
 (JointConsensus) and KRaftWithReconfig's ``kreconfig_*`` kernels the same
-way; KRaftWithReconfig's slot canonicalizer is ``slot_canon.cu``;
+way; KRaftWithReconfig's slot canonicalizer is ``slot_canon.cu``, the
+sharded engine's owner route ``owner_route.cu``;
 ``*.cuh`` headers are shared device code and kernel drivers). ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` compiles each source into a shared
 library under ``build/raft_tpu_torch/`` at first use (``build_all``
@@ -61,6 +62,7 @@ _SIGNATURES = {
     "compact_append": {
         "compact_indices": [_P, _I, _P, _I, _I, _P, _P, _I, _P],
         "append_rows": [_P, _P, _I, _P, _I, _I, _P, _L, _P],
+        "append_rows_strided": [_P, _P, _I, _I, _P, _I, _I, _P, _L, _P],
     },
     "merge_runs": {
         "merge_runs": [_P, _L, _P, _L, _P, _L, _P],
@@ -76,6 +78,10 @@ _SIGNATURES = {
     },
     "slot_canon": {
         "slot_canon": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _U, _U, _I, _P, _P],
+    },
+    "owner_route": {
+        "owner_route": [_P, _I, _P, _I, _P, _P, _I, _I, _L, _I, _I, _P, _I, _P, _P, _P, _P,
+                        _P],
     },
 }
 for _fam in ("raft", "pull", "kraft", "reconfig", "joint", "kreconfig"):
@@ -180,6 +186,7 @@ CANON_SIGNATURES = Kernel("canon_signatures", source="canon_tiered")
 SIM_PICK = Kernel("sim_pick", source="sim_step")
 HASH_ROWS = Kernel("hash_rows")
 SLOT_CANON = Kernel("slot_canon")
+OWNER_ROUTE = Kernel("owner_route")
 
 
 def _family(prefix: str) -> dict:
@@ -201,7 +208,7 @@ RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY, KRECONFIG
 FAMILIES = (RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY,
             KRECONFIG_FAMILY)
 ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, CHUNK_SORT, CANON_TIERED,
-       CANON_SIGNATURES, SIM_PICK, HASH_ROWS, SLOT_CANON,
+       CANON_SIGNATURES, SIM_PICK, HASH_ROWS, SLOT_CANON, OWNER_ROUTE,
        *(k for fam in FAMILIES for k in fam.values()))
 
 

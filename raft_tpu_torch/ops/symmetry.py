@@ -267,6 +267,8 @@ class Canonicalizer:
     states and the tests. A message key's server fields and their kinds
     are ``spec`` (``msg_perm_spec``)."""
 
+    refine_rounds = REFINE_ROUNDS  # the wl= of a checkpoint's ident
+
     @classmethod
     def for_model(cls, model, symmetry: bool = True, seed: int = 0):
         """The model's own canonicalizer where it defines one

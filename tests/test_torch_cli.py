@@ -2,8 +2,11 @@
 2 (violation, trace printed), 3 (``--coverage=strict`` with an action that
 never fired), 5 (no card and no ``--device cpu``), 64 (a spec with no
 lowering, a cfg a strict parse refuses, ``--coverage`` or
-``--collision-audit`` with ``--simulate``), 66 (no file) and 70 (the
-collision audit's two hash families disagree)."""
+``--collision-audit`` with ``--simulate``, an unported ``--checker``, a bad
+``--devices``, ``--no-reshard`` against another mesh size), 66 (no file, no
+``--resume`` file) and 70 (the collision audit's two hash families
+disagree); ``--checker tpu`` / ``$CHECKER`` and ``--checker sharded`` on
+gloo CPU processes."""
 
 import json
 import os
@@ -193,3 +196,55 @@ def test_collision_audit_passes_rc0_and_mismatch_rc70(tmp_path, monkeypatch, cap
     assert cli.main(args) == 70
     err = capsys.readouterr().err
     assert "collision audit FAIL" in err and "counts differ between hash families" in err
+
+
+def _summary(out: str) -> str:
+    return next(line for line in out.splitlines() if line.startswith("distinct="))
+
+
+def test_checker_flag_and_env(tmp_path, capsys, monkeypatch):
+    """--checker tpu (and $CHECKER) run DeviceBFS: Raft.cfg's constants to
+    depth 6 give distinct=128 total=252; sharded on two gloo CPU processes
+    gives the same line plus devices=2; the reference's tpu-host and
+    oracle checkers exit 64 naming their ROADMAP.md Queue 1 items."""
+    cfg = tmp_path / "Raft.cfg"
+    cfg.write_text(HEAD + TAIL)
+    args = [str(cfg), "--device", "cpu", "--max-depth", "6", "--chunk", "256"]
+    assert cli.main([*args, "--checker", "tpu"]) == 0
+    line = _summary(capsys.readouterr().out)
+    assert line.startswith("distinct=128 total=252 depth=6 ")
+    monkeypatch.setenv("CHECKER", "tpu")
+    assert cli.main(args) == 0
+    assert _summary(capsys.readouterr().out).startswith("distinct=128 total=252 depth=6 ")
+    monkeypatch.delenv("CHECKER")
+    assert cli.main([*args, "--checker", "sharded", "--devices", "2"]) == 0
+    sline = _summary(capsys.readouterr().out)
+    assert sline.split(" time=")[0] == line.split(" time=")[0]
+    assert sline.endswith(" devices=2")
+    for checker, item in (("tpu-host", 2), ("oracle", 6)):
+        assert cli.main([*args, "--checker", checker]) == 64
+        assert f"Queue 1 item {item}" in capsys.readouterr().err
+
+
+def test_sharded_flag_errors_and_resume_codes(tmp_path, capsys):
+    """--devices 0 and --devices without --checker sharded exit 64, a
+    missing --resume file 66, and --no-reshard refuses a checkpoint of
+    another mesh size with 64, naming both sizes."""
+    cfg = tmp_path / "Raft.cfg"
+    cfg.write_text(HEAD.replace("    n3 = n3\n", "").replace(", n3 }", " }") + TAIL)
+    args = [str(cfg), "--device", "cpu", "--chunk", "256", "--msg-slots", "16"]
+    sharded = [*args, "--checker", "sharded"]
+    assert cli.main([*sharded, "--devices", "0"]) == 64
+    assert cli.main([*args, "--devices", "2"]) == 64
+    assert cli.main([*args, "--resume", str(tmp_path / "none.npz")]) == 66
+    assert cli.main([*sharded, "--resume", str(tmp_path / "none.npz")]) == 66
+    path = str(tmp_path / "run.npz")
+    assert cli.main([*sharded, "--devices", "2", "--max-depth", "3", "--checkpoint", path,
+                     "--checkpoint-every", "0"]) == 0
+    capsys.readouterr()
+    assert cli.main([*sharded, "--devices", "1", "--resume", path, "--no-reshard"]) == 64
+    err = capsys.readouterr().err
+    assert "D=2 mesh" in err and "D=1" in err
+    assert cli.main([*sharded, "--devices", "1", "--resume", path]) == 0
+    out = capsys.readouterr()
+    assert "resume: validated" in out.err and _summary(out.out).endswith(" devices=1")

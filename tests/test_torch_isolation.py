@@ -2,6 +2,7 @@
 raft_tpu, and its entry points default to cuda and refuse to fall back to
 the CPU when no card is visible."""
 
+import functools
 import os
 import subprocess
 import sys
@@ -25,7 +26,9 @@ MODULES = [
     "raft_tpu_torch.models.joint_raft", "raft_tpu_torch.ops.bag",
     "raft_tpu_torch.models.kraft_reconfig", "raft_tpu_torch.ops.slot_canon",
     "raft_tpu_torch.checker.audit", "raft_tpu_torch.checker.parity", "raft_tpu_torch.obs",
-    "raft_tpu_torch.obs.coverage",
+    "raft_tpu_torch.obs.coverage", "raft_tpu_torch.parallel.sharded",
+    "raft_tpu_torch.parallel.launch", "raft_tpu_torch.parallel.route",
+    "raft_tpu_torch.resilience.ckpt", "raft_tpu_torch.resilience.errors",
 ]
 
 
@@ -48,6 +51,7 @@ def test_default_device_is_cuda_and_raises_without_card():
     from raft_tpu_torch.checker.liveness import LivenessChecker
     from raft_tpu_torch.checker.simulate import Simulator
     from raft_tpu_torch.models.raft import RaftModel, RaftParams
+    from raft_tpu_torch.parallel.launch import run_sharded
 
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
@@ -62,4 +66,6 @@ def test_default_device_is_cuda_and_raises_without_card():
         Simulator(model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LivenessChecker(model, ("ValuesNotStuck",))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_sharded(functools.partial(RaftModel, model.p), 1)
     assert resolve_device("cpu").type == "cpu"

@@ -16,8 +16,8 @@ import torch
 
 from raft_tpu_torch.checker.lsm import merge_runs, merge_runs_plain
 from raft_tpu_torch.checker.util import (
-    append_rows, append_rows_plain, chunk_sort, chunk_sort_plain, compact_indices,
-    dense_prefix_sel, probe_runs, probe_runs_plain,
+    append_rows, append_rows_plain, append_rows_strided, chunk_sort, chunk_sort_plain,
+    compact_indices, dense_prefix_sel, probe_runs, probe_runs_plain,
 )
 from raft_tpu_torch.models.joint_raft import JointRaftModel, JointRaftParams
 from raft_tpu_torch.models.kraft import KRaftModel, KRaftParams
@@ -33,6 +33,7 @@ from raft_tpu_torch.ops.expand import (
 from raft_tpu_torch.ops.hashing import INT64_MAX
 from raft_tpu_torch.ops.packing import EMPTY
 from raft_tpu_torch.ops.symmetry import permute_states
+from raft_tpu_torch.parallel.route import owner_route, owner_route_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -133,6 +134,79 @@ def test_chunk_sort(dev, n, run_len):
     nk, rk = chunk_sort(fps, fresh, run_len)
     np_, rp = chunk_sort_plain(fps, fresh, run_len)
     assert torch.equal(nk, np_) and torch.equal(rk, rp)
+
+
+@pytest.mark.parametrize("n", [1, 2047, 5000])
+def test_chunk_sort_order(dev, n):
+    # the sort's permutation (the sharded emit order) equals the plain
+    # stable sort's: (fingerprint, lane) pairs order totally
+    gen = torch.Generator().manual_seed(n)
+    pool = torch.randint(-(1 << 63), (1 << 63) - 1, (max(1, n // 4),), generator=gen)
+    fps = pool[torch.randint(0, len(pool), (n,), generator=gen)]
+    fps[torch.rand(n, generator=gen) < 0.1] = INT64_MAX
+    fresh = fps != INT64_MAX
+    nk, rk, ok = chunk_sort(fps.to(dev), fresh.to(dev), n, with_order=True)
+    np_, rp, op = chunk_sort_plain(fps, fresh, n, with_order=True)
+    assert torch.equal(nk.cpu(), np_) and torch.equal(rk.cpu(), rp) and torch.equal(ok.cpu(), op)
+
+
+@pytest.mark.parametrize("count", [0, 54, 70])
+def test_append_rows_strided(dev, count):
+    gen = torch.Generator().manual_seed(3)
+    pay = torch.randint(0, 1 << 30, (16, 12), generator=gen, dtype=torch.int32)
+    esel, _ = dense_prefix_sel(torch.rand(16, generator=gen) < 0.6, 16, 16)
+    cur = torch.tensor([count], dtype=torch.int64)
+    for lo, hi in ((0, 9), (9, 10), (11, 12)):
+        buf = torch.randint(0, 1 << 30, (64 + 16, hi - lo), generator=gen, dtype=torch.int32)
+        if hi - lo == 1:
+            buf = buf[:, 0].contiguous()
+        bk = buf.to(dev)
+        append_rows_strided(bk, pay.to(dev)[:, lo:hi], esel.to(dev), cur.to(dev), 64)
+        append_rows_strided(buf, pay[:, lo:hi], esel, cur, 64)
+        assert torch.equal(bk.cpu(), buf)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4, 8])
+def test_owner_route(dev, D):
+    rng = np.random.default_rng(D)
+    C, A, W, VC = 64, 20, 33, 700
+    n_valid = 600
+    fps = rng.integers(-(1 << 63), (1 << 63) - 1, VC, dtype=np.int64, endpoint=True)
+    fps[5:20] = fps[3]
+    fps[n_valid:] = INT64_MAX
+    fps[100:110] = INT64_MAX
+    sel = np.full(VC, C * A, np.int32)
+    sel[:n_valid] = np.sort(rng.choice(C * A, n_valid, replace=False))
+    flatc = rng.integers(-(1 << 31), 1 << 31, (VC, W), dtype=np.int64).astype(np.int32)
+    rank = rng.integers(0, 13, (C, A), dtype=np.int64).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (fps, flatc, sel, rank)]
+    for RC in (VC, max(1, n_valid // (2 * D))):  # the default cap, and one that overflows
+        want = owner_route_plain(*args, 12345, A, D, RC)
+        got = owner_route(*[a.to(dev) for a in args], 12345, A, D, RC)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        assert int(want[2][0]) == (4 if RC < VC else 0)
+
+
+def test_sharded_d1_on_the_card_equals_the_cpu():
+    """ShardedBFS at D = 1 over NCCL: the counts, coverage and the
+    counterexample trace of the same run on the CPU over gloo."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no interpret mode)")
+    import functools
+
+    from raft_tpu_torch.parallel.launch import run_sharded
+
+    params = RaftParams(n_servers=2, n_values=1, max_elections=2, max_restarts=0, msg_slots=16,
+                        election_quorum=1, replication_quorum=1)
+    inv = ("LeaderHasAllAckedValues", "NoLogDivergence")
+    kw = dict(engine_kw=dict(invariants=inv, chunk=256, frontier_cap=1024))
+    build = functools.partial(RaftModel, params)
+    _, rg = run_sharded(build, 1, device="cuda", **kw)
+    _, rc = run_sharded(build, 1, device="cpu", **kw)
+    assert rg.violation_invariant == "LeaderHasAllAckedValues" and rg.depth == 6
+    assert (rg.distinct, rg.total, rg.depth_counts, rg.coverage, rg.trace) == (
+        rc.distinct, rc.total, rc.depth_counts, rc.coverage, rc.trace)
 
 
 @pytest.mark.parametrize("n_servers,msg_slots", [(5, 24), (5, 320), (6, 24)])

@@ -124,4 +124,4 @@ def test_wrappers_route_by_device():
         "reconfig_apply", "reconfig_fold", "reconfig_predicates", "reconfig_sim_check",
         "joint_guard", "joint_apply", "joint_fold", "joint_predicates", "joint_sim_check",
         "slot_canon", "kreconfig_guard", "kreconfig_apply", "kreconfig_fold",
-        "kreconfig_predicates", "kreconfig_sim_check"}
+        "kreconfig_predicates", "kreconfig_sim_check", "owner_route"}
