@@ -14,7 +14,9 @@ ranks run nvcc on the same files.
 
 ``build`` makes the model in each rank (it must pickle: a class and its
 parameters, or ``CfgModel``). Rank 0's result is returned with the
-engine; the other ranks' copies are dropped.
+engine; the other ranks' copies are dropped. A spawned rank imports the
+caller's main module again, so a script that starts a run with D > 1 keeps
+its work under ``if __name__ == "__main__":``.
 """
 
 from __future__ import annotations
