@@ -759,8 +759,7 @@ POOL_ROWS = 1 << 21
 KERNEL_NAMES = {
     "canon_memo": ("canon_memo_kernel", "memo_insert_kernel"),
     "probe_runs": ("probe_runs_kernel",),
-    "compact_append": ("ct_count", "ct_scan", "ct_scatter", "ct_fill", "append_rows_kernel",
-                       "append_rows_strided_kernel"),
+    "compact_append": ("ct_count", "ct_scan", "ct_scatter", "ct_fill", "append_rows_kernel"),
     "merge_runs": ("merge_runs_kernel",),
     # raft_nf_*: the same kernels built with the network-fault groups
     "raft_guard": ("raft_guard_kernel", "raft_nf_guard_kernel"),
@@ -1226,12 +1225,14 @@ def owner_route_rows(torch, bfs, pool, rng) -> dict:
     check(max(errs) == 0.0, "owner_route differs from its plain version")
     print(f"[3] owner_route exact at D = 1, 2, 4, 8 on a Raft.cfg chunk ({n_valid} of {VC} lanes "
           f"valid; RC = {VC} and {small}, the latter overflowing)")
-    # bytes: the VC fingerprints and VC rows of W words read, the D * RC
-    # payload rows of W + 3 words and D * RC fingerprints written; ops: a
-    # u64 modulus and the partition's counting (~40) a lane, an index
-    # computation a written word
+    # bytes: the VC fingerprints read, and of the routed (valid) lanes only
+    # their rows of W words, sel and rank; the D * RC payload rows of W + 3
+    # words and D * RC fingerprints written (unfilled slots too: the output
+    # is zero-filled, as the reference's scatter is); ops: a u64 modulus and
+    # the partition's counting (~40) a lane, an index computation a written
+    # word
     D, RC = 1, VC
-    bm, by = bound(VC * 8 + VC * W * 4 + D * RC * (W + 3) * 4 + D * RC * 8,
+    bm, by = bound(VC * 8 + n_valid * (W * 4 + 8) + D * RC * (W + 3) * 4 + D * RC * 8,
                    VC * 40 + D * RC * (W + 3))
     return {"owner_route": dict(
         ms=time_ms(torch, lambda: owner_route(fps, flatc, sel, rank, lgid0, A, D, RC), iters=50),

@@ -9,11 +9,10 @@ dedup steps of ``raft_tpu/checker/device_bfs.py``. Three kernels live here:
   ``chunk_sort``      (csrc/chunk_sort.cu) one stable sort of the chunk's
                       fingerprints: the first-occurrence dedup and the
                       chunk's sorted run of new fingerprints;
-  ``compact_append``  (csrc/compact_append.cu) with three entry points:
-                      ``compact_indices`` (mask -> dense worklist),
+  ``compact_append``  (csrc/compact_append.cu) with two entry points:
+                      ``compact_indices`` (mask -> dense worklist) and
                       ``append_rows`` (cursor append into a buffer with a
-                      drop region past capacity) and ``append_rows_strided``
-                      (the same from rows of a wider source).
+                      drop region past capacity).
 
 Each wrapper launches its kernel on CUDA tensors and runs the plain
 PyTorch version beside it on CPU tensors. Fingerprints are enc int64
@@ -220,49 +219,30 @@ def append_rows(buf: torch.Tensor, src: torch.Tensor, esel: torch.Tensor,
     ``min(count, cap)``, where ``count`` is a one-element int64 tensor
     read on the device (the cursor never visits the host). ``buf`` is
     [cap + B, W] (or 1-D [cap + B]) with B = len(esel): rows past cap are
-    the drop region, bit-identical to ``emit_append``. The emit of
-    ``raft_tpu/checker/device_bfs.py:462-485``."""
-    if kernels.route(buf) == "cpu":
-        return append_rows_plain(buf, src, esel, count, cap)
-    k = kernels.COMPACT_APPEND
-    W = 1 if buf.ndim == 1 else buf.shape[1]
-    kernels.require(buf, torch.int32, "buf")
-    kernels.require(src, torch.int32, "src")
-    kernels.require(esel, torch.int32, "esel", ndim=1)
-    kernels.require(count, torch.int64, "count")
-    B = esel.numel()
-    if buf.shape[0] < cap + B or src.numel() != src.shape[0] * W:
-        raise ValueError("append_rows: buf needs cap + len(esel) rows of src's width")
-    rc = k.lib.append_rows(buf.data_ptr(), src.data_ptr(), src.shape[0],
-                           esel.data_ptr(), B, W, count.data_ptr(), cap,
-                           kernels.stream(buf.device))
-    k.launched(rc)
-
-
-def append_rows_strided(buf: torch.Tensor, src: torch.Tensor, esel: torch.Tensor,
-                        count: torch.Tensor, cap: int) -> None:
-    """``append_rows`` from a source whose rows need not be contiguous:
-    ``src`` is a 2-D int32 view with unit column stride (a column range of
-    wider rows, such as the sharded engine's received payload) whose width
-    is ``buf``'s (1 for a 1-D ``buf``). The emit of
+    the drop region, bit-identical to ``emit_append``. ``src`` is [n, W]
+    (or 1-D for a 1-D ``buf``), contiguous or a column range of wider
+    rows (unit column stride: the sharded engine's received payload). The
+    emit of ``raft_tpu/checker/device_bfs.py:462-485`` and
     ``raft_tpu/parallel/sharded.py:_cs_post`` (:661-684)."""
     W = 1 if buf.ndim == 1 else buf.shape[1]
-    if src.ndim != 2 or src.shape[1] != W or src.stride(1) != 1:
-        raise ValueError("append_rows_strided: src must be [n, W] with unit column stride")
+    rows = src.view(-1, 1) if src.ndim == 1 else src
+    if (rows.ndim != 2 or rows.shape[1] != W or rows.stride(1) != 1
+            or (rows.shape[0] > 1 and rows.stride(0) < W)):
+        raise ValueError("append_rows: src must be rows of buf's width with unit column stride")
     if kernels.route(buf) == "cpu":
-        return append_rows_plain(buf, src if buf.ndim == 2 else src[:, 0], esel, count, cap)
+        return append_rows_plain(buf, rows if buf.ndim == 2 else rows[:, 0], esel, count, cap)
     k = kernels.COMPACT_APPEND
     kernels.require(buf, torch.int32, "buf")
     kernels.require(esel, torch.int32, "esel", ndim=1)
     kernels.require(count, torch.int64, "count")
-    if not src.is_cuda or src.dtype != torch.int32:
-        raise TypeError("append_rows_strided: src must be a CUDA int32 tensor")
+    if not rows.is_cuda or rows.dtype != torch.int32:
+        raise TypeError("append_rows: src must be a CUDA int32 tensor")
     B = esel.numel()
     if buf.shape[0] < cap + B:
-        raise ValueError("append_rows_strided: buf needs cap + len(esel) rows")
-    rc = k.lib.append_rows_strided(buf.data_ptr(), src.data_ptr(), src.shape[0], src.stride(0),
-                                   esel.data_ptr(), B, W, count.data_ptr(), cap,
-                                   kernels.stream(buf.device))
+        raise ValueError("append_rows: buf needs cap + len(esel) rows")
+    rc = k.lib.append_rows(buf.data_ptr(), rows.data_ptr(), rows.shape[0], max(W, rows.stride(0)),
+                           esel.data_ptr(), B, W, count.data_ptr(), cap,
+                           kernels.stream(buf.device))
     k.launched(rc)
 
 

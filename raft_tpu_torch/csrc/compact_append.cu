@@ -14,12 +14,11 @@
 //                    cursor *count is read on the device; rows past cap are
 //                    the buffer's drop region, so the result is bit-identical
 //                    to emit_append at every cursor (exactly full and one
-//                    past full included).
-//   append_rows_strided  the same append from a source whose rows lie
-//                    src_stride words apart (a column range of a wider
-//                    row: the sharded engine's received payload rows,
-//                    raft_tpu/parallel/sharded.py:_cs_post :661-684). A
-//                    separate kernel, so append_rows's code is unchanged.
+//                    past full included). Source rows lie src_stride words
+//                    apart: W for a contiguous source, more for a column
+//                    range of wider rows (the sharded engine's received
+//                    payload, raft_tpu/parallel/sharded.py:_cs_post
+//                    :661-684).
 //
 // Design of compact_indices: a two-pass block scan. Pass 1 counts the set
 // lanes of each TILE; pass 2 (one block) scans the tile counts and stores
@@ -110,32 +109,8 @@ extern "C" int compact_indices(const bool* mask, int n, int* sel, int n_out, int
 }
 
 __global__ void append_rows_kernel(int* __restrict__ buf, const int* __restrict__ src, int n_src,
-                                   const int* __restrict__ esel, int B, int W,
+                                   int src_stride, const int* __restrict__ esel, int B, int W,
                                    const long long* __restrict__ count, long long cap) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)B * W) return;
-  long long j = e / W, c = e - j * W;
-  long long cur = *count;
-  long long start = cur < cap ? cur : cap;
-  int s = esel[j];
-  int v = (s >= 0 && s < n_src) ? src[(long long)s * W + c] : 0;
-  buf[(start + j) * W + c] = v;
-}
-
-extern "C" int append_rows(int* buf, const int* src, int n_src, const int* esel, int B,
-                           int W, const long long* count, long long cap, void* stream) {
-  long long n = (long long)B * W;
-  if (n == 0) return 0;
-  long long grid = (n + 255) / 256;
-  append_rows_kernel<<<(unsigned)grid, 256, 0, (cudaStream_t)stream>>>(
-      buf, src, n_src, esel, B, W, count, cap);
-  return (int)cudaGetLastError();
-}
-
-__global__ void append_rows_strided_kernel(int* __restrict__ buf, const int* __restrict__ src,
-                                           int n_src, int src_stride,
-                                           const int* __restrict__ esel, int B, int W,
-                                           const long long* __restrict__ count, long long cap) {
   long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)B * W) return;
   long long j = e / W, c = e - j * W;
@@ -146,14 +121,13 @@ __global__ void append_rows_strided_kernel(int* __restrict__ buf, const int* __r
   buf[(start + j) * W + c] = v;
 }
 
-extern "C" int append_rows_strided(int* buf, const int* src, int n_src, int src_stride,
-                                   const int* esel, int B, int W, const long long* count,
-                                   long long cap, void* stream) {
+extern "C" int append_rows(int* buf, const int* src, int n_src, int src_stride, const int* esel,
+                           int B, int W, const long long* count, long long cap, void* stream) {
   long long n = (long long)B * W;
   if (n == 0) return 0;
   if (src_stride < W) return (int)cudaErrorInvalidValue;
   long long grid = (n + 255) / 256;
-  append_rows_strided_kernel<<<(unsigned)grid, 256, 0, (cudaStream_t)stream>>>(
+  append_rows_kernel<<<(unsigned)grid, 256, 0, (cudaStream_t)stream>>>(
       buf, src, n_src, src_stride, esel, B, W, count, cap);
   return (int)cudaGetLastError();
 }

@@ -90,8 +90,10 @@ or_rank(const long long* __restrict__ fps, int VC, int D, int RC,
   for (int w = 0; w < OR_THREADS / 32; ++w) {
     if (warp == w) {
       const unsigned m = __match_any_sync(0xffffffffu, o);
+      const int before = o <= D ? cnt[o] : 0;
+      __syncwarp();  // every lane has read its owner's count before a leader adds to it
       if (o <= D) {
-        r = cnt[o] + __popc(m & ((1u << lane) - 1u));
+        r = before + __popc(m & ((1u << lane) - 1u));
         if (lane == __ffs(m) - 1) cnt[o] += __popc(m);
       }
     }

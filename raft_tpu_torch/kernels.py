@@ -61,8 +61,7 @@ _SIGNATURES = {
     },
     "compact_append": {
         "compact_indices": [_P, _I, _P, _I, _I, _P, _P, _I, _P],
-        "append_rows": [_P, _P, _I, _P, _I, _I, _P, _L, _P],
-        "append_rows_strided": [_P, _P, _I, _I, _P, _I, _I, _P, _L, _P],
+        "append_rows": [_P, _P, _I, _I, _P, _I, _I, _P, _L, _P],
     },
     "merge_runs": {
         "merge_runs": [_P, _L, _P, _L, _P, _L, _P],

@@ -58,13 +58,13 @@ from .. import resolve_device
 from ..checker.device_bfs import DeviceBFS
 from ..checker.lsm import pow2_at_least
 from ..checker.util import (
-    GROWTH, HEADROOM, I32_MAX, append_rows, append_rows_strided, chunk_sort,
+    GROWTH, HEADROOM, I32_MAX, append_rows, chunk_sort,
     compact_indices, next_cap, probe_runs, replay_chain,
 )
 from ..ops.hashing import INT64_MAX
 from ..resilience import ckpt as rckpt
 from ..resilience.errors import CapacityOverflow, CheckpointMismatch
-from .route import MAX_OWNERS, owner_route
+from .route import owner_route
 
 U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
 N_STATS = 7  # [wave new, jcount, cum generated, cum terminal, ovf bits, cum routed, cum memo hits]
@@ -144,9 +144,6 @@ class ShardedBFS:
         self.group = group
         self.D = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
-        if self.D > MAX_OWNERS:
-            raise ValueError(f"the owner route takes at most {MAX_OWNERS} shards, got D={self.D}")
-        assert self.D <= (1 << 16), "owner routing supports at most 2^16 shards"
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", self.rank % torch.cuda.device_count())
@@ -246,11 +243,11 @@ class ShardedBFS:
         lanes = torch.cat([order, fill])[pos.to(torch.int64)]
         frontier_ovf = stats[0] + n_new > self.FCAP
         journal_ovf = stats[1] + n_new > self.JCAP
-        append_rows_strided(st["next_buf"], recv_pay[:, :W], lanes, stats[0:1], self.FCAP)
+        append_rows(st["next_buf"], recv_pay[:, :W], lanes, stats[0:1], self.FCAP)
         jcur = stats[1:2]
         append_rows(st["jps"], self._shard_of_lane, lanes, jcur, self.JCAP)
-        append_rows_strided(st["jpl"], recv_pay[:, W:W + 1], lanes, jcur, self.JCAP)
-        append_rows_strided(st["jcand"], recv_pay[:, W + 1:W + 2], lanes, jcur, self.JCAP)
+        append_rows(st["jpl"], recv_pay[:, W:W + 1], lanes, jcur, self.JCAP)
+        append_rows(st["jcand"], recv_pay[:, W + 1:W + 2], lanes, jcur, self.JCAP)
         # the run's first n_new lanes are the survivors' fingerprints in
         # emit order; the int64 lane appends as two int32 words a row
         append_rows(st["jfp"].view(torch.int32).view(-1, 2), run.view(torch.int32).view(-1, 2),
@@ -258,9 +255,9 @@ class ShardedBFS:
         # the owner-side fold over the survivors' rows in emit order: the
         # journal index of row j is jcount + j, its rank the routed column
         blk = torch.empty((B, W), dtype=torch.int32, device=recv_pay.device)
-        append_rows_strided(blk, recv_pay[:, :W], lanes, self._zero1, 0)
+        append_rows(blk, recv_pay[:, :W], lanes, self._zero1, 0)
         rank_blk = torch.empty(B, dtype=torch.int32, device=recv_pay.device)
-        append_rows_strided(rank_blk, recv_pay[:, W + 2:W + 3], lanes, self._zero1, 0)
+        append_rows(rank_blk, recv_pay[:, W + 2:W + 3], lanes, self._zero1, 0)
         newp = self._iota_b < n_new
         self.model.chunk_fold(blk, newp, jcur, st["viol"], self.invariants, cov=st["cov"],
                               sel=self._iota_b, valid=newp, rank=rank_blk)

@@ -13,7 +13,8 @@ host's launch work hidden behind the queue): the guard, apply and fold
 kernels on a 4,096-state chunk of the depth-20 Raft.cfg frontier, of the
 depth-27 PullRaft stand-in frontier and of the depth-33 KRaft.cfg frontier,
 ``canon_memo`` on each chunk's worklist (cold: a fresh 2^21-row memo
-before every call; warm: every lane hits), the same on a chunk of the
+before every call; warm: every lane hits), ``append_rows`` emitting the
+chunk's valid rows (DeviceBFS's frontier emit), the same on a chunk of the
 depth-9 five-server Raft frontier (its canon ``canon_tiered``, the 2-word
 path, and ``canon_signatures`` on the worklist), and the guard and apply on
 one move of a 65,536-walk five-server FlexibleRaft simulate (the shapes of
@@ -39,7 +40,7 @@ import chip_smoke as cs
 from raft_tpu_torch import kernels
 from raft_tpu_torch.__main__ import load_setup, run_check
 from raft_tpu_torch.checker.simulate import Simulator, sim_pick
-from raft_tpu_torch.checker.util import I32_MAX, compact_indices
+from raft_tpu_torch.checker.util import I32_MAX, append_rows, compact_indices
 from raft_tpu_torch.ops import prng
 from raft_tpu_torch.ops.expand import apply, fold, guard
 from raft_tpu_torch.ops.hashing import INT64_MAX
@@ -83,12 +84,16 @@ def chunk_times(tag, bfs):
     jcount = torch.tensor([0], dtype=torch.int64, device=dev)
     invs = bfs.invariants
     viol = torch.full((len(invs),), I32_MAX, dtype=torch.int64, device=dev)
+    # DeviceBFS's emit of every valid lane's row into an empty frontier
+    esel, _ = compact_indices(new, bfs.VC, bfs.VC)
+    nbuf = torch.zeros((2 * bfs.VC, flatc.shape[1]), dtype=torch.int32, device=dev)
     out[tag] = dict(
         states=len(pool), valid=int(valid.sum()),
         guard_ms=device_ms(lambda: guard(model, batch, C, cov)),
         apply_ms=device_ms(lambda: apply(model, batch, sel)),
         fold_ms=device_ms(lambda: fold(model, flatc, new, jcount, viol, invs, cov=cov, sel=sel,
-                                       valid=valid, rank=rank)))
+                                       valid=valid, rank=rank)),
+        append_ms=device_ms(lambda: append_rows(nbuf, flatc, esel, jcount, bfs.VC)))
     memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
     canon = lambda: bfs.canon.fingerprints_memo(flatc, new, memo)  # noqa: E731
     out[tag]["canon_cold_ms"] = device_ms(canon, setup=lambda: memo.fill_(INT64_MAX))

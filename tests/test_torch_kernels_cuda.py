@@ -16,7 +16,7 @@ import torch
 
 from raft_tpu_torch.checker.lsm import merge_runs, merge_runs_plain
 from raft_tpu_torch.checker.util import (
-    append_rows, append_rows_plain, append_rows_strided, chunk_sort, chunk_sort_plain,
+    append_rows, append_rows_plain, chunk_sort, chunk_sort_plain,
     compact_indices, dense_prefix_sel, probe_runs, probe_runs_plain,
 )
 from raft_tpu_torch.models.joint_raft import JointRaftModel, JointRaftParams
@@ -161,8 +161,9 @@ def test_append_rows_strided(dev, count):
         if hi - lo == 1:
             buf = buf[:, 0].contiguous()
         bk = buf.to(dev)
-        append_rows_strided(bk, pay.to(dev)[:, lo:hi], esel.to(dev), cur.to(dev), 64)
-        append_rows_strided(buf, pay[:, lo:hi], esel, cur, 64)
+        # a column range of the payload rows: src_stride 12, not the width
+        append_rows(bk, pay.to(dev)[:, lo:hi], esel.to(dev), cur.to(dev), 64)
+        append_rows(buf, pay[:, lo:hi], esel, cur, 64)
         assert torch.equal(bk.cpu(), buf)
 
 

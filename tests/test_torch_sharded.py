@@ -2,8 +2,8 @@
 processes, spawned by ``parallel/launch.py``) against the reference's
 ``ShardedBFS`` at the same D on the conftest's virtual CPU mesh: distinct,
 total, terminal, depth counts, coverage and the per-wave all-to-all lanes
-on two-server Raft at D = 1, 2 and 4, and the sub-stepping cursor, buffer
-growth and the worklist and route-cap redos on tiny caps. The reference
+on two-server Raft at D = 1, 2 and 4 (the sub-stepping cursor, growth and
+the redos are held in test_torch_sharded_growth.py). The reference
 runs its dense path (``DenseShim``) without its canon memo, the two
 settings under which it runs on jax 0.9.0; the port keeps its memo, which
 preserves values."""
@@ -17,7 +17,6 @@ import torch
 
 from raft_tpu.models.raft import RaftParams, cached_model
 from raft_tpu.parallel.sharded import ShardedBFS as JaxShardedBFS
-from raft_tpu_torch.checker.device_bfs import DeviceBFS
 from raft_tpu_torch.convert import params_from_reference
 from raft_tpu_torch.models.raft import RaftModel
 from raft_tpu_torch.parallel.launch import run_sharded
@@ -68,29 +67,3 @@ def test_sharded_matches_reference_sharded(D):
     assert engine.grow_for_overflow(4 | 8) == {
         "route_cap": 2 * engine.RC, "frontier_cap": 2 * engine.FCAP,
         "max_frontier_cap": max(engine.MAX_FCAP, 4 * engine.FCAP)}
-
-
-def test_substeps_growth_and_redos_keep_the_counts():
-    """Chunks of 8 states (many sub-steps a wave), frontier and journal
-    caps that must grow, one worklist lane a state and two route slots a
-    pair (both overflow and are redone doubled), at MaxElections 2: the
-    counts, depth counts and coverage totals of the port's DeviceBFS (held
-    to the reference's dense engine by test_torch_device_bfs.py)."""
-    params = dataclasses.replace(PARAMS, max_elections=2)
-    pp = params_from_reference(dataclasses.asdict(params))
-    want = DeviceBFS(RaftModel(pp), invariants=INV, chunk=256, frontier_cap=1024,
-                     device="cpu").run()
-    tiny = dict(chunk=8, frontier_cap=8, seen_cap=64, journal_cap=8, valid_per_state=1,
-                route_cap=2)
-    _, res = run_sharded(functools.partial(RaftModel, pp), 2, device="cpu",
-                         engine_kw=dict(invariants=INV, **tiny))
-    assert (res.distinct, res.total, res.terminal, res.depth, res.depth_counts) == (
-        want.distinct, want.total, want.terminal, want.depth, want.depth_counts)
-    assert res.exhausted and res.violation_invariant is None
-    # enabled and fired do not depend on the discovery order; new-distinct
-    # per action does (the sharded emit is in fingerprint order)
-    assert [r[:2] for r in res.coverage] == [r[:2] for r in want.coverage]
-    assert sum(r[2] for r in res.coverage) == sum(r[2] for r in want.coverage)
-    st = res.stats
-    assert st["frontier_cap"] > 8 and st["journal_cap"] > 8
-    assert st["valid_cap"] > 8 and st["route_cap"] > 2 and st["redone_chunks"] > 0
