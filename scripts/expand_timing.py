@@ -14,7 +14,8 @@ kernels on a 4,096-state chunk of the depth-20 Raft.cfg frontier, of the
 depth-27 PullRaft stand-in frontier and of the depth-33 KRaft.cfg frontier,
 ``canon_memo`` on each chunk's worklist (cold: a fresh 2^21-row memo
 before every call; warm: every lane hits), ``append_rows`` emitting the
-chunk's valid rows (DeviceBFS's frontier emit), the same on a chunk of the
+chunk's valid rows (DeviceBFS's frontier emit), ``owner_route`` on the
+Raft.cfg chunk at D = 1 (the sharded engine's route), the same on a chunk of the
 depth-9 five-server Raft frontier (its canon ``canon_tiered``, the 2-word
 path, and ``canon_signatures`` on the worklist), and the guard and apply on
 one move of a 65,536-walk five-server FlexibleRaft simulate (the shapes of
@@ -101,6 +102,12 @@ def chunk_times(tag, bfs):
     out[tag]["canon_warm_ms"] = device_ms(canon)
     if bfs.canon.prune:
         out[tag]["signatures_ms"] = device_ms(lambda: bfs.canon.signatures(flatc))
+    if tag == "raft":
+        # the sharded engine's owner route of this chunk at D = 1, RC = VC
+        from raft_tpu_torch.parallel.route import owner_route
+        fps = canon()[0]
+        out[tag]["route_ms"] = device_ms(
+            lambda: owner_route(fps, flatc, sel, rank, 0, A, 1, bfs.VC))
 
 
 _, b, _ = run_check("Raft.cfg", text=cs.RAFT_CFG, device="cuda", chunk=cs.CHUNK, max_depth=20)
