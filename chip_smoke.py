@@ -1280,14 +1280,24 @@ def tier_pairs(torch, canon, states):
 
 def tiered_rows(torch, canon, flatc, selv, timed: bool) -> dict:
     """canon_tiered (memo cold, then warm) and canon_signatures against
-    their plain versions on one chunk's successor rows, exactly; with
-    ``timed`` their times and bounds (operations: ~12 integer ops per
-    fmix32 of the two streams of every pair tier_pairs counts; bytes: the
-    view lanes read once, each memo row the lanes map to read and written
-    once, the outputs written once)."""
+    their plain versions on one chunk's successor rows, exactly, and the
+    occupancy canon_tiered's build reaches at this layout; with ``timed``
+    their times and bounds (operations: ~12 integer ops per fmix32 of the
+    two streams of every pair tier_pairs counts; bytes: the view lanes
+    read once, each memo row the lanes map to read and written once, the
+    outputs written once). canon_tiered works on valid lanes only, so its
+    bounds count the valid lanes' rows and raw hashes; the count over every
+    lane (the bound of the one-thread-a-lane kernel before it) is kept
+    beside them (``*_all_lanes_ms``)."""
     from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
 
     dev = flatc.device
+    occ = canon.tier_occupancy(dev)
+    print(f"[3] canon_tiered, {'general' if canon.tier_general() else '2-word'} build at "
+          f"{canon.VL} view lanes: a tile of {occ['G']} threads a state, {occ['threads']} "
+          f"threads and {occ['smem_bytes']} shared bytes a block, {occ['blocks_per_sm']} "
+          f"blocks = {occ['warps_per_sm']} warps an SM "
+          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     memo_k = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
     memo_p = memo_k.clone()
     errs, hits = [], []
@@ -1312,13 +1322,17 @@ def tiered_rows(torch, canon, flatc, selv, timed: bool) -> dict:
         return {}
     B, VL = flatc.shape[0], canon.VL
     slots = torch.unique(memo_slot(canon.raw_fingerprints(flatc[selv]), memo_k.shape[0])).numel()
-    io_bytes = B * VL * 4 + B + 2 * slots * 16 + B * 8
-    # every lane hashes its raw key; a cold valid lane also its signatures
-    # and one permuted hash per admissible permutation; canon_signatures
-    # computes every lane's signatures
-    raw_ops = 24 * int(one_hash.sum())
-    cold_ops = raw_ops + 24 * int((sig + one_hash * n_adm)[selv].sum())
+    # a valid lane's row read and raw key hashed; a cold valid lane also
+    # its signatures and one permuted hash per admissible permutation; the
+    # mask read and the fingerprints written for every lane. canon_signatures
+    # reads every row and computes every lane's signatures
+    io_bytes = n * VL * 4 + B + 2 * slots * 16 + B * 8
+    io_all = B * VL * 4 + B + 2 * slots * 16 + B * 8
+    raw_ops = 24 * int(one_hash[selv].sum())
+    raw_all = 24 * int(one_hash.sum())
+    miss_ops = 24 * int((sig + one_hash * n_adm)[selv].sum())
     sig_ops = 24 * int(sig.sum())
+    cold, cold_by = bound(io_bytes, raw_ops + miss_ops)
     reset = lambda: memo_k.fill_(INT64_MAX)  # noqa: E731
     return {
         "canon_tiered": dict(
@@ -1327,16 +1341,15 @@ def tiered_rows(torch, canon, flatc, selv, timed: bool) -> dict:
             plain_ms=time_ms(torch, lambda: canon.fingerprints_memo_plain(flatc, selv, memo_k),
                              iters=3, setup=reset),
             warm_ms=time_ms(torch, lambda: canon.fingerprints_memo_cuda(flatc, selv, memo_k)),
-            bound_ms=max(io_bytes / MEM_BPS, cold_ops / INT32_OPS) * 1e3,
-            bound_by="operations" if cold_ops / INT32_OPS > io_bytes / MEM_BPS else "bytes",
-            warm_bound_ms=max(io_bytes / MEM_BPS, raw_ops / INT32_OPS) * 1e3, library_ms=None,
-            max_abs_err=max(errs), lanes=B),
+            bound_ms=cold, bound_by=cold_by, warm_bound_ms=bound(io_bytes, raw_ops)[0],
+            bound_all_lanes_ms=bound(io_all, raw_all + miss_ops)[0],
+            warm_bound_all_lanes_ms=bound(io_all, raw_all)[0], library_ms=None,
+            max_abs_err=max(errs), lanes=B, valid=n, warps_per_sm=occ["warps_per_sm"]),
         "canon_signatures": dict(
             ms=time_ms(torch, lambda: canon.signatures(flatc)),
             plain_ms=time_ms(torch, lambda: canon.signatures_plain(flatc), iters=3),
-            bound_ms=max((B * VL * 4 + B * canon.S * 8) / MEM_BPS, sig_ops / INT32_OPS) * 1e3,
-            bound_by="operations" if sig_ops / INT32_OPS > (B * VL * 4 + B * canon.S * 8)
-            / MEM_BPS else "bytes",
+            bound_ms=bound(B * VL * 4 + B * canon.S * 8, sig_ops)[0],
+            bound_by=bound(B * VL * 4 + B * canon.S * 8, sig_ops)[1],
             library_ms=None, max_abs_err=err_sig, lanes=B),
     }
 
@@ -1682,8 +1695,13 @@ def canon_memo_rows(torch, bfs, flatc, selv):
     on a chunk's successor rows of ``bfs``'s model and their
     server-permuted copies (the model's message remap kinds), memo cold
     then warm, exactly; the permuted rows keep their fingerprints. Prints
-    the cold kernel time."""
-    from raft_tpu_torch.ops.hashing import INT64_MAX
+    the kernel's cold and warm time on the valid rows and the cold bound:
+    bytes, each row and the mask read once, each memo row the rows map to
+    read and written once, the fingerprints written; operations, ~12
+    integer ops per fmix32 of each stream pair: canon_memo hashes every row
+    raw and under all P permutations (K non-bag lanes + NW + 1 per occupied
+    slot each), canon_tiered as tier_pairs counts it."""
+    from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
     from raft_tpu_torch.ops.symmetry import msg_perm_spec, permute_states
 
     model, canon, dev = bfs.model, bfs.canon, flatc.device
@@ -1709,8 +1727,21 @@ def canon_memo_rows(torch, bfs, flatc, selv):
           "fingerprints")
     ms = time_ms(torch, lambda: canon.fingerprints_memo_cuda(rows[:n], valid[:n], memo_k),
                  setup=lambda: memo_k.fill_(INT64_MAX))
+    warm = time_ms(torch, lambda: canon.fingerprints_memo_cuda(rows[:n], valid[:n], memo_k))
+    h, st = canon._host, rows[:n]
+    M, NW = h["M"], len(h["stream_offs"])
+    if canon.prune:
+        sig, one_hash, n_adm = tier_pairs(torch, canon, st)
+        ops = 24 * int((one_hash + sig + one_hash * n_adm).sum())
+    else:
+        w0 = h["stream_offs"][0]
+        occ = int((st[:, w0:w0 + M] != 1 << 30).sum())
+        ops = 24 * (n * canon._K + (NW + 1) * occ) * (1 + canon.P)
+    slots = torch.unique(memo_slot(canon.raw_fingerprints(st), memo_k.shape[0])).numel()
+    b, by = bound(n * canon.VL * 4 + n + 2 * slots * 16 + n * 8, ops)
     print(f"[3] {model.name} ({model.p.n_servers} servers): {kernel} exact on {n} successor "
-          f"rows and their permuted copies (the message remap {canon.spec}); cold {ms:.4f} ms")
+          f"rows and their permuted copies (the message remap {canon.spec}); cold {ms:.4f} ms, "
+          f"warm {warm:.4f} ms, bound {b:.4f} ms ({by})")
 
 
 def slot_canon_rows(torch, bfs, flatc, selv) -> dict:
@@ -3158,12 +3189,18 @@ def main() -> int:
     rows["probe_runs"] = dict(
         ms=time_ms(torch, lambda: probe_runs(q, runs), iters=50),
         plain_ms=time_ms(torch, lambda: probe_runs_plain(q, runs), iters=20),
-        library_ms=time_ms(torch, lambda: torch.searchsorted(seen, q), iters=50),
+        # torch.searchsorted of every query on each of the four runs the
+        # kernel probes, summed (the kernel stops at a query's first hit);
+        # the seen run's alone is kept beside it
+        library_ms=time_ms(torch, lambda: [torch.searchsorted(r, q) for r in runs], iters=50),
+        library_seen_run_ms=time_ms(torch, lambda: torch.searchsorted(seen, q), iters=50),
         bound_ms=max(probe_bytes / MEM_BPS, probe_ops / INT32_OPS) * 1e3,
         bound_by="operations" if probe_ops / INT32_OPS > probe_bytes / MEM_BPS else "bytes",
         max_abs_err=err,
     )
-    print(f"[3] probe_runs: {sectors} sectors of the runs read by {steps} search steps")
+    print(f"[3] probe_runs: {sectors} sectors of the runs read by {steps} search steps; "
+          f"torch.searchsorted on the four runs {rows['probe_runs']['library_ms']:.4f} ms, on "
+          f"the seen run alone {rows['probe_runs']['library_seen_run_ms']:.4f} ms")
 
     # compact_append: the [C*A] valid mask -> worklist, then a row append
     # at a cursor just below capacity so the overflow fires
@@ -3274,6 +3311,9 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
               + (f"; warm (all hits) {r['warm_ms']:.4f} ms" if "warm_ms" in r else "")
               + (f", bound {r['warm_bound_ms']:.4f} ms" if "warm_bound_ms" in r else "")
+              + (f"; bounds over all {r['lanes']} lanes ({r['valid']} valid): cold "
+                 f"{r['bound_all_lanes_ms']:.4f} ms, warm {r['warm_bound_all_lanes_ms']:.4f} ms; "
+                 f"{r['warps_per_sm']} warps an SM" if "bound_all_lanes_ms" in r else "")
               + (f"; append_rows {r['rows_ms']:.4f} ms vs plain {r['rows_plain_ms']:.4f}"
                  f" ms, bound {r['rows_bound_ms']:.4f} ms" if "rows_ms" in r else ""))
     print(json.dumps({"chunk_sort_five_servers": sort5}))

@@ -7,12 +7,28 @@
 // and _bag_streams :823), and the admissible set that _tier_pre (:1081),
 // _tier3_local (:1143) and _tier3_full (:1193) reach by three routes and
 // _masked_min(view, sig) (:1017) by brute force: the permutations that sort
-// the S signatures ascending as unsigned u64. Here one thread computes it
-// directly for one state: sort the signatures, split the sorted order into
-// tie groups, and enumerate the products of per-group permutations composed
+// the S signatures ascending as unsigned u64. Here it is computed directly
+// for one state: sort the signatures, split the sorted order into tie
+// groups, and enumerate the products of per-group permutations composed
 // with the sort (1 permutation for totally ordered signatures, S! for the
 // all-tied states near Init), hashing each with positional salts computed
 // from the permutation (no P x K tables).
+//
+// A state is canonicalized by a group of G members (canon_tiered.cu: G
+// threads of one tile). Member t of G takes a share of every sum: the
+// non-bag lanes j = t, t + G, ... and the bag slots m = t, t + G, ... of
+// each hash (ct_hash_part), and the (signature field, server) units u = t,
+// t + G, ... and the bag slots of each signature round (ct_sig_base_part,
+// ct_sig_round_part). The shares are combined by XOR (the non-bag streams)
+// and by addition mod 2^32 (the bag streams and the signature sums): both
+// commutative and associative, so every G gives the serial order's bits.
+// A group type supplies the combining: each(f) runs f(t, G) for the
+// member's own share (a tile) or for all G shares in turn (CtSerial, the
+// host build), sum() combines the members' partials and leaves the total
+// in every member (a tile's XOR butterfly; nothing for CtSerial, whose
+// shares accumulate in place). Every member then holds the same
+// signatures, the same admissible set and the same hashes, so the min
+// needs no reduction of its own.
 //
 // Every function is templated on NW, the key words of a message bag: NW = 2
 // is the path of the 2-word (hi, lo) bags, with at most CT_FAST_FIELDS plain
@@ -27,7 +43,8 @@
 // existed (scripts/expand_timing.py times the two, parent against change).
 //
 // Everything is plain C++ once CUDA's qualifiers are defined away, so the
-// same code also compiles for the host (tests/test_torch_canon_tiers.py).
+// same code also compiles for the host (tests/test_torch_canon_tiers.py
+// runs it with CtSerial at several G).
 //
 // The layout arrives as an int32 spec vector (ops/symmetry.py
 // Canonicalizer.tier_spec): the CT_* header; at CT_OFF_WORDS the key words'
@@ -67,6 +84,30 @@ enum { CT_MSG_SERVER, CT_MSG_SERVER_NIL, CT_MSG_BITMASK };
 
 struct CtPair {
   uint32_t a, b;
+};
+
+// a hash's partial streams: the non-bag pair (XOR-combined) and the bag
+// pair (added mod 2^32)
+struct CtHashPart {
+  uint32_t na, nb, ba, bb;
+};
+
+__device__ __forceinline__ void ct_hash_add(CtHashPart& acc, const CtHashPart& p) {
+  acc.na ^= p.na;
+  acc.nb ^= p.nb;
+  acc.ba += p.ba;
+  acc.bb += p.bb;
+}
+
+// the host's group: one thread runs all G shares, accumulating in place
+struct CtSerial {
+  int G;
+  template <class F>
+  void each(F f) {
+    for (int t = 0; t < G; ++t) f(t, G);
+  }
+  void sum(uint32_t*, uint32_t*, int) {}
+  void sum(CtHashPart&) {}
 };
 
 // the reference's _salt(offset, role): splitmix64 of offset * 256 + role +
@@ -114,16 +155,20 @@ __device__ __forceinline__ uint32_t ct_remap_bits(int x, const int* sigma, int S
   return y;
 }
 
-// hash of the view v under sigma (old server i -> new index sigma[i]);
-// remap=false with the identity is the raw key (no value remap at all)
+// share t of G of the hash of the view v under sigma (old server i -> new
+// index sigma[i]): the non-bag lanes j = t, t + G, ... and the bag slots
+// m = t, t + G, ...; remap=false with the identity is the raw key (no
+// value remap at all). ct_hash_final turns the combined shares into the
+// hash.
 template <int NW>
-__device__ uint64_t ct_hash(const int* sp, const int* v, const int* sigma, bool remap) {
+__device__ CtHashPart ct_hash_part(const int* sp, const int* v, const int* sigma, bool remap,
+                                   int t, int G) {
   const int S = sp[CT_S], K = sp[CT_K], n_plain = sp[CT_NPLAIN], n_val = sp[CT_NVAL];
   const int* ln = sp + sp[CT_OFF_LANES];
   const bool seeded = sp[CT_SEEDED] != 0;
   const uint32_t seed_a = (uint32_t)sp[CT_SEEDA], seed_b = (uint32_t)sp[CT_SEEDB];
   uint32_t na = 0, nb = 0;
-  for (int j = 0; j < K; ++j) {
+  for (int j = t; j < K; j += G) {
     const int* d = ln + 6 * j;
     const int pos = d[1] + (d[2] >= 0 ? sigma[d[2]] * d[3] : 0) +
                     (d[4] >= 0 ? sigma[d[4]] * d[5] : 0);
@@ -144,8 +189,6 @@ __device__ uint64_t ct_hash(const int* sp, const int* v, const int* sigma, bool 
     na ^= rt_mix32(xa * RT_KA + pa);
     nb ^= rt_mix32(xb * RT_KB + pb);
   }
-  na ^= (uint32_t)sp[CT_KA];
-  nb ^= (uint32_t)sp[CT_KB];
   // the bag: occupied slots hashed position-free and ADDED (mod 2^32); a
   // slot hashes its key words in stream order, then its count, each under
   // its stream's salt and seed xor. The 2-word path holds its two words,
@@ -161,7 +204,7 @@ __device__ uint64_t ct_hash(const int* sp, const int* v, const int* sigma, bool 
     const int hi_off = wd[0], lo_off = wd[1];
     const CtPair w0 = ct_salt(0, 20), w1 = ct_salt(1, 20), w2 = ct_salt(2, 20);
     const uint32_t sx0 = (uint32_t)wd[2], sx1 = (uint32_t)wd[3], sx2 = (uint32_t)wd[4];
-    for (int m = 0; m < sp[CT_M]; ++m) {
+    for (int m = t; m < sp[CT_M]; m += G) {
       const int hi = v[hi_off + m];
       if (hi == CT_EMPTY) continue;
       uint32_t w[2] = {(uint32_t)hi, (uint32_t)v[lo_off + m]};  // stream order
@@ -192,7 +235,7 @@ __device__ uint64_t ct_hash(const int* sp, const int* v, const int* sigma, bool 
     const int* sx = wd + nw;  // the stream xors, the count's last
     const CtPair wc = ct_salt(nw, 20);
     const uint32_t sxc = (uint32_t)sx[nw];
-    for (int m = 0; m < sp[CT_M]; ++m) {
+    for (int m = t; m < sp[CT_M]; m += G) {
       uint32_t w[CT_MAX_WORDS];
       if (!ct_words<NW>(sp, v, m, w)) continue;
       if (remap) {
@@ -228,7 +271,12 @@ __device__ uint64_t ct_hash(const int* sp, const int* v, const int* sigma, bool 
       bb += rt_mix32(b + RT_KA);
     }
   }
-  return rt_combine(na ^ ba, nb ^ bb);
+  return CtHashPart{na, nb, ba, bb};
+}
+
+// the hash from the combined shares of ct_hash_part
+__device__ __forceinline__ uint64_t ct_hash_final(const int* sp, const CtHashPart& h) {
+  return rt_combine(h.na ^ (uint32_t)sp[CT_KA] ^ h.ba, h.nb ^ (uint32_t)sp[CT_KB] ^ h.bb);
 }
 
 // add c onto the servers a message field value names (_scatter_by_server,
@@ -303,19 +351,21 @@ __device__ __forceinline__ CtPair ct_rec0(const int* sp, const uint32_t* words, 
   return CtPair{rt_mix32(r.a), rt_mix32(r.b)};
 }
 
-// the S permutation-equivariant server signatures of the view v
+// Signature round 0, share t of G: each (field q, server i) unit u = t,
+// t + G, ... of the S * NSIG adds its server's invariant content, each bag
+// slot m = t, t + G, ... its record (server fields zeroed) folded into the
+// servers it references, times its count, into aa/ab (S sums each). A
+// server-valued or member-set field's lane of server i is f[i * st] (st = 1
+// on the 2-word path)
 template <int NW>
-__device__ void ct_signatures(const int* sp, const int* v, uint64_t* sig) {
+__device__ void ct_sig_base_part(const int* sp, const int* v, int t, int G, uint32_t* aa,
+                                 uint32_t* ab) {
   constexpr int WMAX = NW ? NW : CT_MAX_WORDS;
   const int S = sp[CT_S], NF = sp[CT_NF], M = sp[CT_M];
   const int* fd = sp + sp[CT_OFF_FIELDS];
   const int* sg = sp + sp[CT_OFF_SIG];
-  uint32_t aa[CT_MAX_S], ab[CT_MAX_S], sa[CT_MAX_S], sb[CT_MAX_S];
-  for (int i = 0; i < S; ++i) aa[i] = ab[i] = 0;
-
-  // round 0: each server's invariant content. A server-valued or member-set
-  // field's lane of server i is f[i * st] (st = 1 on the 2-word path)
-  for (int q = 0; q < sp[CT_NSIG]; ++q) {
+  for (int u = t; u < sp[CT_NSIG] * S; u += G) {
+    const int q = u / S, i = u - q * S;
     const int* row = sg + 3 * q;
     const int kind = row[0] & 15, off = row[1];
     const int* f = v + row[2];
@@ -323,61 +373,51 @@ __device__ void ct_signatures(const int* sp, const int* v, uint64_t* sig) {
     if (kind == CT_PER_SERVER) {
       const int rest = row[0] >> 4;
       const CtPair s = ct_salt(off, 0);
-      for (int i = 0; i < S; ++i) {
-        uint32_t ha = 0, hb = 0;
-        for (int c = 0; c < rest; ++c) {
-          const uint32_t x = (uint32_t)f[i * rest + c];
-          ha ^= rt_mix32(x * RT_KA + (uint32_t)c * CT_PA);
-          hb ^= rt_mix32(x * RT_KB + (uint32_t)c * CT_PB);
-        }
-        ha ^= (uint32_t)rest * RT_KA;
-        hb ^= (uint32_t)rest * RT_KB;
-        aa[i] += rt_mix32(ha + s.a);
-        ab[i] += rt_mix32(hb + s.b);
+      uint32_t ha = 0, hb = 0;
+      for (int c = 0; c < rest; ++c) {
+        const uint32_t x = (uint32_t)f[i * rest + c];
+        ha ^= rt_mix32(x * RT_KA + (uint32_t)c * CT_PA);
+        hb ^= rt_mix32(x * RT_KB + (uint32_t)c * CT_PB);
       }
+      ha ^= (uint32_t)rest * RT_KA;
+      hb ^= (uint32_t)rest * RT_KB;
+      aa[i] += rt_mix32(ha + s.a);
+      ab[i] += rt_mix32(hb + s.b);
     } else if (kind == CT_PER_SERVER_VAL) {  // 0 = Nil, i + 1 = server i
       const CtPair s1 = ct_salt(off, 1), s2 = ct_salt(off, 2);
-      for (int i = 0; i < S; ++i) {
-        const int x = f[i * st];
-        const CtPair p = ct_pmix(x == 0 ? 0u : (x - 1 == i ? 1u : 2u), s1);
-        uint32_t indeg = 0;
-        for (int j = 0; j < S; ++j) indeg += (f[j * st] - 1 == i && f[j * st] > 0) ? 1u : 0u;
-        const CtPair d = ct_pmix(indeg, s2);
-        aa[i] += p.a + d.a;
-        ab[i] += p.b + d.b;
-      }
+      const int x = f[i * st];
+      const CtPair p = ct_pmix(x == 0 ? 0u : (x - 1 == i ? 1u : 2u), s1);
+      uint32_t indeg = 0;
+      for (int j = 0; j < S; ++j) indeg += (f[j * st] - 1 == i && f[j * st] > 0) ? 1u : 0u;
+      const CtPair d = ct_pmix(indeg, s2);
+      aa[i] += p.a + d.a;
+      ab[i] += p.b + d.b;
     } else if (kind == CT_BITMASK) {
       const CtPair s3 = ct_salt(off, 3), s4 = ct_salt(off, 4);
-      for (int i = 0; i < S; ++i) {
-        uint32_t pop = 0, col = 0;
-        for (int j = 0; j < S; ++j) {
-          pop += (uint32_t)((f[i * st] >> j) & 1);
-          col += (uint32_t)((f[j * st] >> i) & 1);
-        }
-        const CtPair p = ct_pmix(pop * 2u + (uint32_t)((f[i * st] >> i) & 1), s3);
-        const CtPair c = ct_pmix(col, s4);
-        aa[i] += p.a + c.a;
-        ab[i] += p.b + c.b;
+      uint32_t pop = 0, col = 0;
+      for (int j = 0; j < S; ++j) {
+        pop += (uint32_t)((f[i * st] >> j) & 1);
+        col += (uint32_t)((f[j * st] >> i) & 1);
       }
+      const CtPair p = ct_pmix(pop * 2u + (uint32_t)((f[i * st] >> i) & 1), s3);
+      const CtPair c = ct_pmix(col, s4);
+      aa[i] += p.a + c.a;
+      ab[i] += p.b + c.b;
     } else {  // CT_PAIR: the diagonal, then row and column multisets
       const CtPair s5 = ct_salt(off, 5), s6 = ct_salt(off, 6), s7 = ct_salt(off, 7);
-      for (int i = 0; i < S; ++i) {
-        const CtPair dg = ct_pmix((uint32_t)f[i * S + i], s5);
-        aa[i] += dg.a;
-        ab[i] += dg.b;
-        for (int j = 0; j < S; ++j) {
-          if (j == i) continue;
-          const CtPair r = ct_pmix((uint32_t)f[i * S + j], s6);
-          const CtPair c = ct_pmix((uint32_t)f[j * S + i], s7);
-          aa[i] += r.a + c.a;
-          ab[i] += r.b + c.b;
-        }
+      const CtPair dg = ct_pmix((uint32_t)f[i * S + i], s5);
+      aa[i] += dg.a;
+      ab[i] += dg.b;
+      for (int j = 0; j < S; ++j) {
+        if (j == i) continue;
+        const CtPair r = ct_pmix((uint32_t)f[i * S + j], s6);
+        const CtPair c = ct_pmix((uint32_t)f[j * S + i], s7);
+        aa[i] += r.a + c.a;
+        ab[i] += r.b + c.b;
       }
     }
   }
-  // messages, round 0: each record (server fields zeroed) folded into the
-  // servers it references, times its count
-  for (int m = 0; m < M; ++m) {
+  for (int m = t; m < M; m += G) {
     uint32_t w[WMAX];
     if (!ct_words<NW>(sp, v, m, w)) continue;
     const uint32_t cnt = (uint32_t)v[sp[CT_CNT] + m];
@@ -389,100 +429,129 @@ __device__ void ct_signatures(const int* sp, const int* v, uint64_t* sig) {
       ct_scatter<NW>(aa, ab, c, val, fd[4 * k + 3], S);
     }
   }
+}
+
+// Refinement round r (salts offset by rr = 32 r), share t of G: each unit
+// folds the neighbours' signatures sa/sb into its server, and each bag slot
+// gives each endpoint of its record the fold of the OTHER endpoints'
+// signatures, into aa/ab
+template <int NW>
+__device__ void ct_sig_round_part(const int* sp, const int* v, int rr, const uint32_t* sa,
+                                  const uint32_t* sb, int t, int G, uint32_t* aa,
+                                  uint32_t* ab) {
+  constexpr int WMAX = NW ? NW : CT_MAX_WORDS;
+  const int S = sp[CT_S], NF = sp[CT_NF], M = sp[CT_M];
+  const int* fd = sp + sp[CT_OFF_FIELDS];
+  const int* sg = sp + sp[CT_OFF_SIG];
+  for (int u = t; u < sp[CT_NSIG] * S; u += G) {
+    const int q = u / S, i = u - q * S;
+    const int* row = sg + 3 * q;
+    const int kind = row[0] & 15, off = row[1];
+    const int* f = v + row[2];
+    const int st = NW ? 1 : row[0] >> 4;
+    if (kind == CT_PER_SERVER_VAL) {
+      const int x = f[i * st];
+      if (x > 0 && x - 1 != i) {
+        const int tt = x - 1 < S - 1 ? x - 1 : S - 1;
+        const CtPair e = ct_xmix(sa[tt], sb[tt], ct_salt(off, 9 + rr));
+        aa[i] += e.a;
+        ab[i] += e.b;
+      }
+    } else if (kind == CT_BITMASK) {
+      const CtPair s = ct_salt(off, 10 + rr);
+      for (int j = 0; j < S; ++j)
+        if ((f[i * st] >> j) & 1) {
+          const CtPair e = ct_xmix(sa[j], sb[j], s);
+          aa[i] += e.a;
+          ab[i] += e.b;
+        }
+    } else if (kind == CT_PAIR) {
+      const CtPair s1 = ct_salt(off, 11 + rr), s2 = ct_salt(off, 12 + rr);
+      for (int j = 0; j < S; ++j) {
+        const uint32_t x = (uint32_t)f[i * S + j], y = (uint32_t)f[j * S + i];
+        aa[i] += rt_mix32(x * RT_KA + (sa[j] ^ s1.a)) + rt_mix32(y * RT_KA + (sa[j] ^ s2.a));
+        ab[i] += rt_mix32(x * RT_KB + (sb[j] ^ s1.b)) + rt_mix32(y * RT_KB + (sb[j] ^ s2.b));
+      }
+    }
+  }
+  // The 2-word path holds its fields' values and folds in arrays; the
+  // general path gathers each fold twice instead (with arrays of
+  // CT_MAX_FIELDS folds and the salts held in arrays, the -O3 build of the
+  // canon faulted with an illegal address on the card; a -G build and the
+  // host build did not)
+  for (int m = t; m < M; m += G) {
+    uint32_t w[WMAX];
+    if (!ct_words<NW>(sp, v, m, w)) continue;
+    const uint32_t cnt = (uint32_t)v[sp[CT_CNT] + m];
+    const CtPair rec0 = ct_rec0<NW>(sp, w, cnt);
+    CtPair osum{0u, 0u};
+    if constexpr (NW != 0) {
+      uint32_t val[CT_FAST_FIELDS];
+      CtPair fold[CT_FAST_FIELDS];
+      for (int k = 0; k < NF; ++k) {
+        val[k] = (w[fd[4 * k]] >> fd[4 * k + 1]) & (uint32_t)fd[4 * k + 2];
+        fold[k] = ct_gather_fold<NW>(sa, sb, val[k], fd[4 * k + 3], S, ct_salt(k, 13 + rr));
+        osum.a += fold[k].a;
+        osum.b += fold[k].b;
+      }
+      for (int k = 0; k < NF; ++k) {
+        const CtPair s = ct_salt(k, 14 + rr);
+        const CtPair c{cnt * rt_mix32(rec0.a + (osum.a - fold[k].a) + s.a),
+                       cnt * rt_mix32(rec0.b + (osum.b - fold[k].b) + s.b)};
+        ct_scatter<NW>(aa, ab, c, val[k], fd[4 * k + 3], S);
+      }
+    } else {
+      for (int k = 0; k < NF; ++k) {
+        const uint32_t val = (w[fd[4 * k]] >> fd[4 * k + 1]) & (uint32_t)fd[4 * k + 2];
+        const CtPair f = ct_gather_fold<NW>(sa, sb, val, fd[4 * k + 3], S, ct_salt(k, 13 + rr));
+        osum.a += f.a;
+        osum.b += f.b;
+      }
+      for (int k = 0; k < NF; ++k) {
+        const uint32_t val = (w[fd[4 * k]] >> fd[4 * k + 1]) & (uint32_t)fd[4 * k + 2];
+        const CtPair f = ct_gather_fold<NW>(sa, sb, val, fd[4 * k + 3], S, ct_salt(k, 13 + rr));
+        const CtPair s = ct_salt(k, 14 + rr);
+        const CtPair c{cnt * rt_mix32(rec0.a + (osum.a - f.a) + s.a),
+                       cnt * rt_mix32(rec0.b + (osum.b - f.b) + s.b)};
+        ct_scatter<NW>(aa, ab, c, val, fd[4 * k + 3], S);
+      }
+    }
+  }
+}
+
+// the S permutation-equivariant server signatures of the view v, computed
+// by the group g (every member gets all S)
+template <int NW, class Grp>
+__device__ void ct_signatures(const int* sp, const int* v, uint64_t* sig, Grp& g) {
+  const int S = sp[CT_S];
+  uint32_t aa[CT_MAX_S], ab[CT_MAX_S], sa[CT_MAX_S], sb[CT_MAX_S];
+  for (int i = 0; i < S; ++i) aa[i] = ab[i] = 0;
+  g.each([&](int t, int G) { ct_sig_base_part<NW>(sp, v, t, G, aa, ab); });
+  g.sum(aa, ab, S);
   for (int i = 0; i < S; ++i) {
     sa[i] = rt_mix32(aa[i]);
     sb[i] = rt_mix32(ab[i]);
   }
-
-  // refinement: fold the neighbours' signatures (round r's salts offset by 32 r)
   for (int r = 0; r < sp[CT_ROUNDS]; ++r) {
-    const int rr = 32 * r;
     for (int i = 0; i < S; ++i) aa[i] = ab[i] = 0;
-    for (int q = 0; q < sp[CT_NSIG]; ++q) {
-      const int* row = sg + 3 * q;
-      const int kind = row[0] & 15, off = row[1];
-      const int* f = v + row[2];
-      const int st = NW ? 1 : row[0] >> 4;
-      if (kind == CT_PER_SERVER_VAL) {
-        const CtPair s = ct_salt(off, 9 + rr);
-        for (int i = 0; i < S; ++i) {
-          const int x = f[i * st];
-          if (x > 0 && x - 1 != i) {
-            const int t = x - 1 < S - 1 ? x - 1 : S - 1;
-            const CtPair e = ct_xmix(sa[t], sb[t], s);
-            aa[i] += e.a;
-            ab[i] += e.b;
-          }
-        }
-      } else if (kind == CT_BITMASK) {
-        const CtPair s = ct_salt(off, 10 + rr);
-        for (int i = 0; i < S; ++i)
-          for (int j = 0; j < S; ++j)
-            if ((f[i * st] >> j) & 1) {
-              const CtPair e = ct_xmix(sa[j], sb[j], s);
-              aa[i] += e.a;
-              ab[i] += e.b;
-            }
-      } else if (kind == CT_PAIR) {
-        const CtPair s1 = ct_salt(off, 11 + rr), s2 = ct_salt(off, 12 + rr);
-        for (int i = 0; i < S; ++i)
-          for (int j = 0; j < S; ++j) {
-            const uint32_t x = (uint32_t)f[i * S + j], y = (uint32_t)f[j * S + i];
-            aa[i] += rt_mix32(x * RT_KA + (sa[j] ^ s1.a)) + rt_mix32(y * RT_KA + (sa[j] ^ s2.a));
-            ab[i] += rt_mix32(x * RT_KB + (sb[j] ^ s1.b)) + rt_mix32(y * RT_KB + (sb[j] ^ s2.b));
-          }
-      }
-    }
-    // per record: each endpoint gets the fold of the OTHER endpoints'
-    // signatures. The 2-word path holds its fields' values and folds in
-    // arrays; the general path gathers each fold twice instead (with arrays
-    // of CT_MAX_FIELDS folds and the salts held in arrays, the -O3 build of
-    // the canon faulted with an illegal address on the card; a -G build and
-    // the host build did not)
-    for (int m = 0; m < M; ++m) {
-      uint32_t w[WMAX];
-      if (!ct_words<NW>(sp, v, m, w)) continue;
-      const uint32_t cnt = (uint32_t)v[sp[CT_CNT] + m];
-      const CtPair rec0 = ct_rec0<NW>(sp, w, cnt);
-      CtPair osum{0u, 0u};
-      if constexpr (NW != 0) {
-        uint32_t val[CT_FAST_FIELDS];
-        CtPair fold[CT_FAST_FIELDS];
-        for (int k = 0; k < NF; ++k) {
-          val[k] = (w[fd[4 * k]] >> fd[4 * k + 1]) & (uint32_t)fd[4 * k + 2];
-          fold[k] = ct_gather_fold<NW>(sa, sb, val[k], fd[4 * k + 3], S, ct_salt(k, 13 + rr));
-          osum.a += fold[k].a;
-          osum.b += fold[k].b;
-        }
-        for (int k = 0; k < NF; ++k) {
-          const CtPair s = ct_salt(k, 14 + rr);
-          const CtPair c{cnt * rt_mix32(rec0.a + (osum.a - fold[k].a) + s.a),
-                         cnt * rt_mix32(rec0.b + (osum.b - fold[k].b) + s.b)};
-          ct_scatter<NW>(aa, ab, c, val[k], fd[4 * k + 3], S);
-        }
-      } else {
-        for (int k = 0; k < NF; ++k) {
-          const uint32_t val = (w[fd[4 * k]] >> fd[4 * k + 1]) & (uint32_t)fd[4 * k + 2];
-          const CtPair f = ct_gather_fold<NW>(sa, sb, val, fd[4 * k + 3], S, ct_salt(k, 13 + rr));
-          osum.a += f.a;
-          osum.b += f.b;
-        }
-        for (int k = 0; k < NF; ++k) {
-          const uint32_t val = (w[fd[4 * k]] >> fd[4 * k + 1]) & (uint32_t)fd[4 * k + 2];
-          const CtPair f = ct_gather_fold<NW>(sa, sb, val, fd[4 * k + 3], S, ct_salt(k, 13 + rr));
-          const CtPair s = ct_salt(k, 14 + rr);
-          const CtPair c{cnt * rt_mix32(rec0.a + (osum.a - f.a) + s.a),
-                         cnt * rt_mix32(rec0.b + (osum.b - f.b) + s.b)};
-          ct_scatter<NW>(aa, ab, c, val, fd[4 * k + 3], S);
-        }
-      }
-    }
+    g.each([&](int t, int G) { ct_sig_round_part<NW>(sp, v, 32 * r, sa, sb, t, G, aa, ab); });
+    g.sum(aa, ab, S);
     for (int i = 0; i < S; ++i) {
       sa[i] = rt_mix32(sa[i] + rt_mix32(aa[i]));
       sb[i] = rt_mix32(sb[i] + rt_mix32(ab[i]));
     }
   }
   for (int i = 0; i < S; ++i) sig[i] = rt_combine(sa[i], sb[i]);
+}
+
+// the hash of v under sigma, computed by the group g
+template <int NW, class Grp>
+__device__ __forceinline__ uint64_t ct_hash(const int* sp, const int* v, const int* sigma,
+                                            bool remap, Grp& g) {
+  CtHashPart h{0u, 0u, 0u, 0u};
+  g.each([&](int t, int G) { ct_hash_add(h, ct_hash_part<NW>(sp, v, sigma, remap, t, G)); });
+  g.sum(h);
+  return ct_hash_final(sp, h);
 }
 
 // std::next_permutation on n ints
@@ -504,12 +573,13 @@ __device__ __forceinline__ bool ct_next_perm(int* x, int n) {
   return i >= 0;
 }
 
-// the canonical fingerprint: min of ct_hash over the admissible permutations
-template <int NW>
-__device__ uint64_t ct_canon(const int* sp, const int* v) {
+// the canonical fingerprint: min of ct_hash over the admissible
+// permutations, computed by the group g (every member gets it)
+template <int NW, class Grp>
+__device__ uint64_t ct_canon(const int* sp, const int* v, Grp& g) {
   const int S = sp[CT_S];
   uint64_t sig[CT_MAX_S];
-  ct_signatures<NW>(sp, v, sig);
+  ct_signatures<NW>(sp, v, sig, g);
   int inv[CT_MAX_S], gstart[CT_MAX_S], sigma[CT_MAX_S];
   for (int i = 0; i < S; ++i) inv[i] = i;
   for (int i = 1; i < S; ++i)  // stable insertion sort of the servers by signature
@@ -524,20 +594,21 @@ __device__ uint64_t ct_canon(const int* sp, const int* v) {
   uint64_t best = ~0ull;
   for (;;) {  // each group's servers start ascending: the first permutation
     for (int k = 0; k < S; ++k) sigma[inv[k]] = k;
-    const uint64_t h = ct_hash<NW>(sp, v, sigma, true);
+    const uint64_t h = ct_hash<NW>(sp, v, sigma, true, g);
     best = h < best ? h : best;
-    int g = ng - 1;
-    for (; g >= 0; --g) {
-      const int a = gstart[g], b = g + 1 < ng ? gstart[g + 1] : S;
+    int q = ng - 1;  // the last tie group that has a next permutation
+    for (; q >= 0; --q) {
+      const int a = gstart[q], b = q + 1 < ng ? gstart[q + 1] : S;
       if (ct_next_perm(inv + a, b - a)) break;
     }
-    if (g < 0) break;
+    if (q < 0) break;
   }
   return best;
 }
 
-template <int NW>
-__device__ __forceinline__ uint64_t ct_raw(const int* sp, const int* v) {
+// the raw key: the hash under the identity without the value remap
+template <int NW, class Grp>
+__device__ __forceinline__ uint64_t ct_raw(const int* sp, const int* v, Grp& g) {
   const int ident[CT_MAX_S] = {0, 1, 2, 3, 4, 5, 6, 7};
-  return ct_hash<NW>(sp, v, ident, false);
+  return ct_hash<NW>(sp, v, ident, false, g);
 }

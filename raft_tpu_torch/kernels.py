@@ -55,6 +55,7 @@ _SIGNATURES = {
     "canon_tiered": {
         "canon_tiered": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
         "canon_signatures": [_P, _P, _I, _P, _I, _I, _P, _P],
+        "canon_tiered_occupancy": [_P, _I, _P],
     },
     "probe_runs": {
         "probe_runs": [_P, _I, _P, _P, _P, _I, _P],

@@ -808,6 +808,22 @@ class Canonicalizer:
             self._dev[key] = got
         return got
 
+    def tier_occupancy(self, dev: torch.device) -> dict:
+        """The launch shape ``canon_tiered`` takes for this layout on the
+        card ``dev`` (threads of a tile, threads and dynamic shared bytes a
+        block) and the occupancy it reaches there
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``: blocks and warps
+        an SM). Launches nothing."""
+        hspec, _spec = self._tier_table(dev)
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev):
+            lib = kernels.CANON_TIERED.lib
+            rc = lib.canon_tiered_occupancy(ctypes.cast(hspec, ctypes.c_void_p), len(hspec),
+                                            ctypes.cast(out, ctypes.c_void_p))
+        if rc:
+            raise RuntimeError(f"canon_tiered_occupancy: {lib.rt_error_string(rc).decode()}")
+        return dict(zip(("G", "threads", "smem_bytes", "blocks_per_sm", "warps_per_sm"), out))
+
     def fingerprints_memo_cuda(self, states, valid, memo):
         """Launch ``canon_memo`` (csrc/canon_memo.cu; S <= 4 or no
         symmetry) or ``canon_tiered`` (csrc/canon_tiered.cu; S >= 5) on

@@ -17,7 +17,9 @@ before every call; warm: every lane hits), ``append_rows`` emitting the
 chunk's valid rows (DeviceBFS's frontier emit), ``owner_route`` on the
 Raft.cfg chunk at D = 1 (the sharded engine's route), the same on a chunk of the
 depth-9 five-server Raft frontier (its canon ``canon_tiered``, the 2-word
-path, and ``canon_signatures`` on the worklist), and the guard and apply on
+path, and ``canon_signatures`` on the worklist), the same on a chunk of the
+depth-14 five-server AddRemove frontier (``canon_tiered``'s general path,
+cold and warm, beside the reconfiguration kernels), and the guard and apply on
 one move of a 65,536-walk five-server FlexibleRaft simulate (the shapes of
 ``chip_smoke.py`` phase 3 and its simulate). The inputs come from the
 checkout's own engine with fixed seeds, so every checkout times the same
@@ -124,6 +126,11 @@ del b
 _, b, _ = run_check("Raft.cfg", text=cs.RAFT5_CFG, device="cuda", chunk=cs.CHUNK,
                     msg_slots=cs.RAFT5_SLOTS, max_depth=cs.RAFT5_SAMPLE_DEPTH, caps=cs.RAFT5_CAPS)
 chunk_times("raft5", b)
+del b
+_, b, _ = run_check("RaftWithReconfigAddRemove.cfg", text=cs.ADDREMOVE5_CFG, device="cuda",
+                    chunk=cs.CHUNK, max_depth=cs.ADDREMOVE5_SAMPLE_DEPTH, lenient=True,
+                    caps=cs.RECONFIG_CAPS)
+chunk_times("addremove5", b)
 del b
 setup = load_setup("FlexibleRaft.cfg", text=cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)
 model = setup.model

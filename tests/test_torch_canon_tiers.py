@@ -170,26 +170,28 @@ def test_positional_salts_match_reference_tables():
 HOST_SRC = """\
 #include "canon_tiers.cuh"
 extern "C" int hdr_len() { return CT_HDR; }
+// every lane by a group of G shares run in turn and combined (CtSerial)
 template <int NW>
-void run(const int* spec, const int* states, int B, int W, long long* sig, long long* raw,
-         long long* canon) {
+void run(const int* spec, const int* states, int B, int W, int G, long long* sig,
+         long long* raw, long long* canon) {
   const int S = spec[CT_S];
+  CtSerial g{G};
   for (int b = 0; b < B; ++b) {
     const int* v = states + (long long)b * W;
     uint64_t s[CT_MAX_S];
-    ct_signatures<NW>(spec, v, s);
+    ct_signatures<NW>(spec, v, s, g);
     for (int i = 0; i < S; ++i) sig[b * S + i] = rt_enc(s[i]);
-    raw[b] = rt_enc(ct_raw<NW>(spec, v));
-    canon[b] = rt_enc(ct_canon<NW>(spec, v));
+    raw[b] = rt_enc(ct_raw<NW>(spec, v, g));
+    canon[b] = rt_enc(ct_canon<NW>(spec, v, g));
   }
 }
 // the kernel's two builds: the general path (NW = 0) or the 2-word one
-extern "C" void host_tiers(const int* spec, const int* states, int B, int W, long long* sig,
-                           long long* raw, long long* canon) {
+extern "C" void host_tiers(const int* spec, const int* states, int B, int W, int G,
+                           long long* sig, long long* raw, long long* canon) {
   if (spec[CT_GENERAL])
-    run<0>(spec, states, B, W, sig, raw, canon);
+    run<0>(spec, states, B, W, G, sig, raw, canon);
   else
-    run<2>(spec, states, B, W, sig, raw, canon);
+    run<2>(spec, states, B, W, G, sig, raw, canon);
 }
 """
 
@@ -209,11 +211,13 @@ def lib(tmp_path_factory):
     assert out.returncode == 0, out.stderr
     lib = ctypes.CDLL(str(so))
     P = ctypes.c_void_p
-    lib.host_tiers.argtypes = [P, P, ctypes.c_int, ctypes.c_int, P, P, P]
+    lib.host_tiers.argtypes = [P, P, ctypes.c_int, ctypes.c_int, ctypes.c_int, P, P, P]
     return lib
 
 
-def _host_run(lib, tc, batch):
+def _host_run(lib, tc, batch, G=1):
+    """(signatures, raw keys, fingerprints) of ``batch`` by the host build,
+    each lane's sums split into G shares and combined."""
     spec = tc.tier_spec()
     assert lib.hdr_len() == len(TIER_HEADER)  # the header's CT_* enum and TIER_HEADER agree
     B, W = batch.shape
@@ -221,7 +225,7 @@ def _host_run(lib, tc, batch):
     raw = np.zeros(B, np.int64)
     canon = np.zeros(B, np.int64)
     p = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
-    lib.host_tiers(p(spec), p(np.ascontiguousarray(batch)), B, W, p(sig), p(raw), p(canon))
+    lib.host_tiers(p(spec), p(np.ascontiguousarray(batch)), B, W, G, p(sig), p(raw), p(canon))
     return torch.from_numpy(sig), torch.from_numpy(raw), torch.from_numpy(canon)
 
 
@@ -244,3 +248,16 @@ def test_host_compiled_enumerates_every_admissible_permutation(lib):
     _, _, canon = _host_run(lib, tc, init)
     full = tc._hash(torch.from_numpy(init)[:, :tc.VL], remap=True).min(dim=0).values
     assert torch.equal(canon, full)
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+@pytest.mark.parametrize("layout", list(LAYOUTS), ids=["raft", "six_servers"])
+def test_host_group_shares_bit_identical(lib, layout, G):
+    # canon_tiered splits every hash and signature sum of a lane over a
+    # group of G threads (the 2-word build G = 8): the G shares, combined,
+    # give the reference's signatures, raw keys and fingerprints bit for bit
+    sig, raw, canon = _host_run(lib, _port(0, layout), _batch(layout), G)
+    ref = _ref(0, layout)
+    assert torch.equal(sig, ref["sig"])
+    assert torch.equal(raw, ref["raw"])
+    assert torch.equal(canon, ref["fps"])

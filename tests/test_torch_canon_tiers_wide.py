@@ -250,6 +250,19 @@ def test_host_compiled_tiers_match_reference(lib, name, seed):  # noqa: F811
     assert torch.equal(canon, ref_canon)
 
 
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+@pytest.mark.parametrize("name", list(PARAMS5))
+def test_host_group_shares_match_reference(lib, name, G):  # noqa: F811
+    # the general build's group (G = 32 threads on the card) splits every
+    # hash and signature sum over G shares; combined they equal the
+    # reference's bits
+    sig, raw, canon = _host_run(lib, _port(name, 0), _batch(name), G)
+    ref_raw, ref_canon = _ref_fps(name, 0)
+    assert torch.equal(sig, _ref_signatures(name))
+    assert torch.equal(raw, ref_raw)
+    assert torch.equal(canon, ref_canon)
+
+
 @pytest.mark.parametrize("name", list(PARAMS5))
 def test_canon_without_the_bitmask_remap_differs(name):
     """The remap matters at five servers too: a canon that treats the

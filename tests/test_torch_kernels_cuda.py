@@ -1465,6 +1465,72 @@ def test_canon_tiered_general_path_on_config5_rows(dev, name):
     assert torch.equal(apply(model, rows, sel), apply_plain(model, rows, sel))
 
 
+def _memo_cold_warm(canon, states, valid, dev):
+    """canon_tiered against its plain version through a 256-row memo,
+    cold then warm: fingerprints, memo rows and hit counts equal; returns
+    (fingerprints, [cold hits, warm hits])."""
+    mk = torch.full((1 << 8, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    mp = mk.clone()
+    hits = []
+    for _ in range(2):
+        fk, hk = canon.fingerprints_memo_cuda(states, valid, mk)
+        fp, hp = canon.fingerprints_memo_plain(states, valid, mp)
+        assert torch.equal(fk, fp) and torch.equal(mk, mp) and int(hk) == int(hp)
+        hits.append(int(hk))
+    return fk, hits
+
+
+@pytest.mark.parametrize("case", ["interleaved", "prefix", "all_invalid", "tied5", "tied6",
+                                  "config5_interleaved"])
+def test_canon_tiered_valid_lanes_and_ties(dev, case):
+    """canon_tiered works on valid lanes only, a tile of threads a lane:
+    a valid mask interleaved rather than a prefix (five-server Raft rows on
+    the 2-word build, five-server AddRemove rows on the general one), a
+    valid prefix (the blocks past it return at once) and an all-invalid
+    batch equal the plain version, memo cold and warm, hit
+    counts included; all-tied Init replicas at five and six servers (every
+    one of the S! permutations admissible) give the plain full-S! min. The
+    build reports at least one resident warp an SM."""
+    from raft_tpu_torch.checker.device_bfs import DeviceBFS
+    from raft_tpu_torch.ops.symmetry import Canonicalizer
+
+    if case == "config5_interleaved":
+        model = ReconfigRaftModel(CONFIG5_VARIANTS["reconfig"])
+        rows = _kraft_states(model, dev, depths=range(4, 10))
+    else:
+        n_servers = 6 if case == "tied6" else 5
+        model = RaftModel(RaftParams(n_servers=n_servers, n_values=2, max_elections=2,
+                                     max_restarts=0, msg_slots=24))
+        if case.startswith("tied"):
+            rows = np.repeat(model.init_states(), 300, axis=0)
+        else:
+            bfs = DeviceBFS(model, chunk=256, frontier_cap=1 << 14, max_seen_cap=1 << 20,
+                            canon_memo_cap=1 << 12, device=dev)
+            bfs.run(max_depth=6)
+            rows = bfs.frontier_rows.cpu().numpy()[:900]
+    canon = Canonicalizer.for_model(model)
+    assert canon.prune and canon.tier_general() == (case == "config5_interleaved")
+    assert canon.tier_occupancy(dev)["warps_per_sm"] >= 1
+    states = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+    B = states.shape[0]
+    if case == "all_invalid":
+        valid = torch.zeros(B, dtype=torch.bool, device=dev)
+    elif case.endswith("interleaved"):
+        valid = torch.arange(B, device=dev) % 3 != 1
+    elif case == "prefix":
+        valid = torch.arange(B, device=dev) < B // 3
+    else:
+        valid = torch.ones(B, dtype=torch.bool, device=dev)
+    fps, hits = _memo_cold_warm(canon, states, valid, dev)
+    if case == "all_invalid":
+        assert hits == [0, 0] and bool((fps == INT64_MAX).all())
+    else:
+        assert hits[1] > hits[0] and bool((fps[~valid] == INT64_MAX).all())
+    if case.startswith("tied"):
+        full = canon._hash(states[:, :canon.VL], remap=True).min(dim=0).values
+        assert torch.equal(fps, full) and len(set(fps.tolist())) == 1
+
+
 def test_config_bfs_simulate_liveness_card_equal_cpu(dev):
     """Both reconfiguration specs by BFS (counts, depth counts, coverage)
     and by simulation (walks, final states, journals), and AddRemove's
