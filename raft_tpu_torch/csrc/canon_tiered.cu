@@ -98,15 +98,22 @@ struct CtTile {
   }
 };
 
+// the tile of each build (scripts/canon_groups.py builds others to compare)
+#ifndef CT_G2
+#define CT_G2 8
+#endif
+#ifndef CT_GGEN
+#define CT_GGEN 32
+#endif
 template <int NW>
 struct CtBuild;
 template <>
 struct CtBuild<2> {
-  static constexpr int G = 8;
+  static constexpr int G = CT_G2;
 };
 template <>
 struct CtBuild<0> {
-  static constexpr int G = 32;
+  static constexpr int G = CT_GGEN;
 };
 
 __host__ __device__ __forceinline__ int ct_row_stride(int VL) { return VL | 1; }
