@@ -1333,6 +1333,7 @@ def tiered_rows(torch, canon, flatc, selv, timed: bool) -> dict:
     miss_ops = 24 * int((sig + one_hash * n_adm)[selv].sum())
     sig_ops = 24 * int(sig.sum())
     cold, cold_by = bound(io_bytes, raw_ops + miss_ops)
+    sig_b, sig_by = bound(B * VL * 4 + B * canon.S * 8, sig_ops)
     reset = lambda: memo_k.fill_(INT64_MAX)  # noqa: E731
     return {
         "canon_tiered": dict(
@@ -1348,9 +1349,7 @@ def tiered_rows(torch, canon, flatc, selv, timed: bool) -> dict:
         "canon_signatures": dict(
             ms=time_ms(torch, lambda: canon.signatures(flatc)),
             plain_ms=time_ms(torch, lambda: canon.signatures_plain(flatc), iters=3),
-            bound_ms=bound(B * VL * 4 + B * canon.S * 8, sig_ops)[0],
-            bound_by=bound(B * VL * 4 + B * canon.S * 8, sig_ops)[1],
-            library_ms=None, max_abs_err=err_sig, lanes=B),
+            bound_ms=sig_b, bound_by=sig_by, library_ms=None, max_abs_err=err_sig, lanes=B),
     }
 
 

@@ -39,11 +39,15 @@
 // permutations, are split: one path for totally ordered and all-tied
 // states) and the min. G is 8 on the 2-word build (327 view lanes at five
 // servers: 17 non-bag lanes and 8 bag slots a member, 32 states a block)
-// and 32 on the general build (922 and 1,221 view lanes, 250 and 325
-// non-bag lanes, 112 slots of 5- and 7-word keys: a warp a state, 8 states
-// a block). The spec vector goes to shared memory once a block, each
-// state's row (VL ints, odd stride) once a tile, read coalesced by the
-// tile. One thread of a tile probes the memo, the tile computes the canon
+// and 16 on the general build (922 and 1,221 view lanes, 250 and 325
+// non-bag lanes, 112 slots of 5- and 7-word keys: 16 states a block). Of
+// the tiles of 8, 16 and 32 these were the fastest on a cold chunk and
+// within 10% of the fastest on a warm one (scripts/canon_groups.py: the
+// cold chunk takes 1.3-1.7x longer at G = 32, whose butterflies and
+// per-member serial work, the sort and the permutation walk, cost more
+// than the warps it keeps resident). The spec vector goes to shared memory
+// once a block, each state's row (VL ints, odd stride) once a tile, read
+// coalesced by the tile. One thread of a tile probes the memo, the tile computes the canon
 // on a miss, and that thread claims the slot and writes the lane.
 //
 // Only valid lanes work. An invalid lane's tile writes its fingerprint
@@ -103,18 +107,10 @@ struct CtTile {
 #define CT_G2 8
 #endif
 #ifndef CT_GGEN
-#define CT_GGEN 32
+#define CT_GGEN 16
 #endif
 template <int NW>
-struct CtBuild;
-template <>
-struct CtBuild<2> {
-  static constexpr int G = CT_G2;
-};
-template <>
-struct CtBuild<0> {
-  static constexpr int G = CT_GGEN;
-};
+constexpr int ct_tile = NW ? CT_G2 : CT_GGEN;
 
 __host__ __device__ __forceinline__ int ct_row_stride(int VL) { return VL | 1; }
 
@@ -143,7 +139,7 @@ canon_tiered_kernel(const int* __restrict__ gspec, int spec_len, const int* __re
                     const long long* __restrict__ memo, int mcap, int* __restrict__ claim,
                     long long* __restrict__ fps, long long* __restrict__ raw_out,
                     int* __restrict__ slot_out, unsigned long long* __restrict__ n_hit) {
-  constexpr int G = CtBuild<NW>::G;
+  constexpr int G = ct_tile<NW>;
   extern __shared__ int smem[];
   __shared__ unsigned block_hits;
   cg::thread_block_tile<G> tile = cg::tiled_partition<G>(cg::this_thread_block());
@@ -198,7 +194,7 @@ __global__ void __launch_bounds__(CT_BLOCK)
 canon_signatures_kernel(const int* __restrict__ gspec, int spec_len,
                         const int* __restrict__ states, int B, int W,
                         long long* __restrict__ out) {
-  constexpr int G = CtBuild<NW>::G;
+  constexpr int G = ct_tile<NW>;
   extern __shared__ int smem[];
   cg::thread_block_tile<G> tile = cg::tiled_partition<G>(cg::this_thread_block());
   const long long b = (long long)blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
@@ -241,12 +237,6 @@ static cudaError_t ct_block(const void* kernel, int G, int spec_len, int VL, int
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 
-static const void* ct_kernel(const int* hspec, int* G) {
-  *G = hspec[CT_GENERAL] ? CtBuild<0>::G : CtBuild<2>::G;
-  return hspec[CT_GENERAL] ? (const void*)canon_tiered_kernel<0>
-                           : (const void*)canon_tiered_kernel<2>;
-}
-
 // hspec: the spec vector in host memory, spec: the same on the device
 extern "C" int canon_tiered(const int* hspec, const int* spec, int spec_len, const int* states,
                             int B, int W, const bool* valid, long long* memo, int mcap,
@@ -255,21 +245,17 @@ extern "C" int canon_tiered(const int* hspec, const int* spec, int spec_len, con
   if (!ct_spec_ok(hspec, spec_len) || W < hspec[CT_VL]) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  int G, nt;
+  const bool general = hspec[CT_GENERAL] != 0;
+  const auto kernel = general ? canon_tiered_kernel<0> : canon_tiered_kernel<2>;
+  const int G = general ? ct_tile<0> : ct_tile<2>;
+  int nt;
   size_t smem;
-  const void* kernel = ct_kernel(hspec, &G);
-  cudaError_t e = ct_block(kernel, G, spec_len, hspec[CT_VL], &nt, &smem);
+  cudaError_t e = ct_block((const void*)kernel, G, spec_len, hspec[CT_VL], &nt, &smem);
   if (e != cudaSuccess) return (int)e;
   const int per = nt / G;
-  const unsigned blocks = (unsigned)((B + per - 1) / per);
-  if (hspec[CT_GENERAL])
-    canon_tiered_kernel<0><<<blocks, nt, smem, s>>>(spec, spec_len, states, B, W, valid, memo,
-                                                    mcap, claim, fps, raw, slot,
-                                                    (unsigned long long*)n_hit);
-  else
-    canon_tiered_kernel<2><<<blocks, nt, smem, s>>>(spec, spec_len, states, B, W, valid, memo,
-                                                    mcap, claim, fps, raw, slot,
-                                                    (unsigned long long*)n_hit);
+  kernel<<<(B + per - 1) / per, nt, smem, s>>>(spec, spec_len, states, B, W, valid, memo, mcap,
+                                               claim, fps, raw, slot,
+                                               (unsigned long long*)n_hit);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   ct_memo_insert<<<(B + 255) / 256, 256, 0, s>>>(memo, claim, fps, raw, slot, B);
@@ -281,12 +267,14 @@ extern "C" int canon_tiered(const int* hspec, const int* spec, int spec_len, con
 // an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), warps an SM}
 extern "C" int canon_tiered_occupancy(const int* hspec, int spec_len, int* out) {
   if (!ct_spec_ok(hspec, spec_len)) return (int)cudaErrorInvalidValue;
-  int G, nt, nb;
+  const bool general = hspec[CT_GENERAL] != 0;
+  const auto kernel = general ? canon_tiered_kernel<0> : canon_tiered_kernel<2>;
+  const int G = general ? ct_tile<0> : ct_tile<2>;
+  int nt, nb;
   size_t smem;
-  const void* kernel = ct_kernel(hspec, &G);
-  cudaError_t e = ct_block(kernel, G, spec_len, hspec[CT_VL], &nt, &smem);
+  cudaError_t e = ct_block((const void*)kernel, G, spec_len, hspec[CT_VL], &nt, &smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, nt, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, (const void*)kernel, nt, smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = G;
   out[1] = nt;
@@ -301,19 +289,14 @@ extern "C" int canon_signatures(const int* hspec, const int* spec, int spec_len,
   if (!ct_spec_ok(hspec, spec_len) || W < hspec[CT_VL]) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const bool general = hspec[CT_GENERAL] != 0;
-  const int G = general ? CtBuild<0>::G : CtBuild<2>::G;
-  const void* kernel = general ? (const void*)canon_signatures_kernel<0>
-                               : (const void*)canon_signatures_kernel<2>;
+  const int G = general ? ct_tile<0> : ct_tile<2>;
+  const auto kernel = general ? canon_signatures_kernel<0> : canon_signatures_kernel<2>;
   int nt;
   size_t smem;
-  cudaError_t e = ct_block(kernel, G, spec_len, hspec[CT_VL], &nt, &smem);
+  cudaError_t e = ct_block((const void*)kernel, G, spec_len, hspec[CT_VL], &nt, &smem);
   if (e != cudaSuccess) return (int)e;
   const int per = nt / G;
-  const unsigned blocks = (unsigned)((B + per - 1) / per);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (general)
-    canon_signatures_kernel<0><<<blocks, nt, smem, s>>>(spec, spec_len, states, B, W, out);
-  else
-    canon_signatures_kernel<2><<<blocks, nt, smem, s>>>(spec, spec_len, states, B, W, out);
+  kernel<<<(B + per - 1) / per, nt, smem, (cudaStream_t)stream>>>(spec, spec_len, states, B, W,
+                                                                  out);
   return (int)cudaGetLastError();
 }

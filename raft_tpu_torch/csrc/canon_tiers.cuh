@@ -25,8 +25,8 @@
 // A group type supplies the combining: each(f) runs f(t, G) for the
 // member's own share (a tile) or for all G shares in turn (CtSerial, the
 // host build), sum() combines the members' partials and leaves the total
-// in every member (a tile's XOR butterfly; nothing for CtSerial, whose
-// shares accumulate in place). Every member then holds the same
+// in every member (a tile's __shfl_xor_sync butterfly; nothing for
+// CtSerial, whose shares accumulate in place). Every member then holds the same
 // signatures, the same admissible set and the same hashes, so the min
 // needs no reduction of its own.
 //

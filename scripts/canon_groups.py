@@ -11,10 +11,11 @@ library swapped in under ``kernels.CANON_TIERED``) with CUDA events around
 ITERS calls queued back to back: cold (a fresh 2^21-row memo before each
 call, its fill timed apart and taken off) and warm (every valid lane hits),
 on a 4,096-state chunk's worklist of the depth-9 five-server Raft frontier
-(the 2-word build) and of the depth-14 five-server AddRemove frontier (the
-general build), the shapes of ``chip_smoke.py`` phase 3. Every variant's
-fingerprints, memo and hit counts must equal the plain version's. Prints
-one JSON line per variant and build, with the occupancy each reaches
+(the 2-word build) and of the depth-14 five-server AddRemove and depth-12
+five-server JointConsensus frontiers (the general build), the shapes of
+``chip_smoke.py`` phase 3. Every variant's fingerprints, memo and hit
+counts must equal the plain version's. Prints one JSON line per variant and
+build, with the occupancy each reaches
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the card's name and
 power limit, and writes them to ``--out``.
 """
@@ -41,6 +42,8 @@ from raft_tpu_torch.checker.util import compact_indices  # noqa: E402
 from raft_tpu_torch.ops.expand import apply, guard  # noqa: E402
 from raft_tpu_torch.ops.hashing import INT64_MAX  # noqa: E402
 
+# (2-word tile, general tile): each build at 4 (2-word only) or 8 to 32
+# threads, with repeats to show the spread
 PAIRS = ((4, 8), (8, 16), (16, 32), (32, 32), (8, 32))
 ITERS = 50
 OUT_DIR = os.path.join(ROOT, "build", "canon_groups")
@@ -125,6 +128,10 @@ def main() -> int:
                         chunk=cs.CHUNK, max_depth=cs.ADDREMOVE5_SAMPLE_DEPTH, lenient=True,
                         caps=cs.RECONFIG_CAPS)
     chunks["addremove5"] = (b.canon, *chunk(b))
+    del b
+    _, b, _ = run_check("RaftWithReconfigJointConsensus.cfg", text=cs.JOINT5_CFG, device="cuda",
+                        chunk=cs.CHUNK, max_depth=cs.JOINT5_SAMPLE_DEPTH, caps=cs.JOINT_CAPS)
+    chunks["joint5"] = (b.canon, *chunk(b))
     del b
     lines = []
     for tag, (canon, rows, valid) in chunks.items():

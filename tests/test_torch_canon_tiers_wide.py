@@ -253,7 +253,7 @@ def test_host_compiled_tiers_match_reference(lib, name, seed):  # noqa: F811
 @pytest.mark.parametrize("G", [1, 4, 8, 32])
 @pytest.mark.parametrize("name", list(PARAMS5))
 def test_host_group_shares_match_reference(lib, name, G):  # noqa: F811
-    # the general build's group (G = 32 threads on the card) splits every
+    # the general build's group (G = 16 threads on the card) splits every
     # hash and signature sum over G shares; combined they equal the
     # reference's bits
     sig, raw, canon = _host_run(lib, _port(name, 0), _batch(name), G)
