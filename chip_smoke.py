@@ -583,7 +583,7 @@ JOINT5_PIN = dict(
               [2548, 2548, 1000], [35669, 46109, 20241], [8685, 8685, 1763], [3837, 3837, 499]],
 )
 # the card's runs: AddRemove to ADDREMOVE5_DEPTH (4i), the deepest that fits
-# 80 GB: depth 20 is 14,318,640 distinct in about 26 s, its 6,742,993-row
+# 80 GB: depth 20 is 14,318,640 distinct in about 9 s, its 6,742,993-row
 # frontier of 3,716 bytes held twice in buffers of ADDREMOVE5_CAPS's 9 x 2^20
 # rows; depth 21's (about 12.6 M rows) would not fit. Phase 3's sample
 # depths (wide waves: 140,061 and 299,270 states); JointConsensus card
