@@ -13,8 +13,10 @@ Phases, each of which fails the run on any mismatch:
      single PyTorch library call, beside the kernel's bound. The Raft
      expand kernels (raft_guard, raft_apply, raft_fold) are held the same
      way on a chunk of the depth-20 Raft.cfg frontier and on chunks of
-     reachable RaftFsync, FlexibleRaft and five-server states; chunk_sort
-     on a chunk of the Raft.cfg path and of the five-server path;
+     reachable RaftFsync, FlexibleRaft and five-server states; chunk_dedup
+     on a synthetic chunk (half its lanes present) against a 2^24-lane seen
+     run and three ladder runs, on a chunk of the Raft.cfg path and on one
+     of the five-server path against their seen runs;
      canon_tiered (memo cold and warm) and canon_signatures on a chunk of
      the depth-9 five-server frontier, canon_signatures on the Raft.cfg
      chunk too; sim_pick and raft_sim_check on a full-width FLEX5
@@ -758,14 +760,13 @@ POOL_ROWS = 1 << 21
 # device kernel names of each hand-written kernel (csrc/*.cu)
 KERNEL_NAMES = {
     "canon_memo": ("canon_memo_kernel", "memo_insert_kernel"),
-    "probe_runs": ("probe_runs_kernel",),
+    "chunk_dedup": ("cd_count", "cd_scatter", "cd_sort_probe"),
     "compact_append": ("ct_count", "ct_scan", "ct_scatter", "ct_fill", "append_rows_kernel"),
     "merge_runs": ("merge_runs_kernel",),
     # raft_nf_*: the same kernels built with the network-fault groups
     "raft_guard": ("raft_guard_kernel", "raft_nf_guard_kernel"),
     "raft_apply": ("raft_apply_kernel", "raft_nf_apply_kernel"),
     "raft_fold": ("raft_fold_lanes", "raft_fold_viol"),
-    "chunk_sort": ("cs_tile_sort", "cs_merge", "cs_flags", "cs_emit"),
     "canon_tiered": ("canon_tiered_kernel", "ct_memo_insert"),
     "canon_signatures": ("canon_signatures_kernel",),
     "sim_pick": ("sim_pick_kernel",),
@@ -791,8 +792,8 @@ KERNEL_NAMES = {
         ("sim_check", (f"{fam}_sim_check_kernel",)))},
 }
 # the kernels each path launches (canon_signatures serves the checks only)
-RAFT3_PATH = ("canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
-              "raft_apply", "raft_fold", "chunk_sort")
+RAFT3_PATH = ("canon_memo", "chunk_dedup", "compact_append", "merge_runs", "raft_guard",
+              "raft_apply", "raft_fold")
 RAFT5_PATH = tuple(k if k != "canon_memo" else "canon_tiered" for k in RAFT3_PATH)
 SHARDED_PATH = RAFT3_PATH + ("owner_route",)
 PULL_PATH = tuple(k.replace("raft_", "pull_") for k in RAFT3_PATH)
@@ -941,8 +942,9 @@ def exact(torch, a, b) -> float:
 
 
 def probe_sectors(torch, q, runs, int64_max):
-    """Replays probe_runs' lower-bound searches (its early exit at the
-    first hit included) with torch ops on the queries' device: returns
+    """Replays a lower-bound search of each query in each run in turn (the
+    early exit at the first hit included) with torch ops on the queries'
+    device: returns
     (fresh [n], distinct 32-byte sectors of the runs the searches read,
     search steps)."""
     fresh = q != int64_max
@@ -1146,9 +1148,7 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
 def chunk_lanes(torch, bfs, pool, rng):
     """One chunk of CHUNK states drawn from ``pool`` through the engine's
     own stages: the successor rows and their valid mask (guard, compact,
-    apply), their canonical fingerprints (a fresh 2^21-row memo) and
-    their fresh flags against ``bfs``'s seen run."""
-    from raft_tpu_torch.checker.util import probe_runs
+    apply) and their canonical fingerprints (a fresh 2^21-row memo)."""
     from raft_tpu_torch.ops.hashing import INT64_MAX
 
     dev = bfs.device
@@ -1159,32 +1159,69 @@ def chunk_lanes(torch, bfs, pool, rng):
     check(not bool(ex[8]), "the sampled chunk overflows its worklist")
     memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
     fps, _ = bfs._st_canon(flatc, selv, memo)
-    return flatc, selv, fps, probe_runs(fps, [bfs._seen])
+    return flatc, selv, fps
 
 
-def chunk_sort_row(torch, fps, fresh, run_len, timed: bool) -> dict:
-    """chunk_sort against its plain version (the two torch.sort calls it
-    replaces) on one chunk, exactly; with ``timed`` the times, torch.sort
-    with the index as the library call, and the bound: keys (8 B) and
-    fresh (1 B) read once, new (1 B) and the run (8 B) written once."""
-    from raft_tpu_torch.checker.util import chunk_sort, chunk_sort_plain
+def chunk_dedup_row(torch, fps, runs, run_len, timed: bool) -> dict:
+    """chunk_dedup against its plain version (the probe and the two
+    torch.sort calls it replaces) on one chunk and its runs, exactly, with
+    and without the order. With ``timed`` also: its run against the
+    replayed lower-bound searches of the chunk's distinct real keys; the
+    CUDA-event times of the kernel, the plain version and the library sum
+    (torch.sort, stable, with the index, plus torch.searchsorted of every
+    lane on each run) with each part; the wrapper's host time a call
+    (Python only, no sync, 50 calls); the CUDA launches of one call (a
+    profile's kernels); and the bound: the keys (8 B) read once, new (1 B)
+    and the run (8 B) written once, plus the 32-byte run sectors those
+    searches read (bytes) or ~6 integer operations a search step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raft_tpu_torch.checker.util import chunk_dedup, chunk_dedup_plain
     from raft_tpu_torch.ops.hashing import INT64_MAX
 
-    nk, rk = chunk_sort(fps, fresh, run_len)
-    np_, rp = chunk_sort_plain(fps, fresh, run_len)
-    err = max(exact(torch, nk, np_), exact(torch, rk, rp))
-    check(err == 0.0, "chunk_sort differs from its plain version")
-    n = fps.numel()
-    print(f"[3] chunk_sort exact on {n} lanes ({int(nk.sum())} new, "
+    nk, rk = chunk_dedup(fps, runs, run_len)
+    nko, rko, ok = chunk_dedup(fps, runs, run_len, with_order=True)
+    np_, rp, op = chunk_dedup_plain(fps, runs, run_len, with_order=True)
+    err = max(exact(torch, a, b) for a, b in ((nk, np_), (rk, rp), (nko, np_), (rko, rp),
+                                              (ok, op)))
+    check(err == 0.0, "chunk_dedup differs from its plain version")
+    n, n_new = fps.numel(), int(nk.sum())
+    distinct = torch.unique(fps[fps != INT64_MAX])
+    print(f"[3] chunk_dedup exact on {n} lanes against {len(runs)} runs ({n_new} new, "
+          f"{distinct.numel()} distinct real keys, "
           f"{int((fps == INT64_MAX).sum())} at the sentinel)")
     if not timed:
         return {}
+    fresh, sectors, steps = probe_sectors(torch, distinct, runs, INT64_MAX)
+    check(torch.equal(rk[:n_new], distinct[fresh]),
+          "chunk_dedup's run differs from the replayed searches")
+    nbytes = n * 8 + n + run_len * 8 + sectors * 32
+    ops = 6 * steps
+    parts = {"sort": lambda: torch.sort(fps, stable=True)}
+    for i, r in enumerate(runs):
+        parts[f"searchsorted_run{i}"] = lambda r=r: torch.searchsorted(r, fps)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(50):
+        chunk_dedup(fps, runs, run_len)
+    host_us = (time.perf_counter() - t) / 50 * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk_dedup(fps, runs, run_len)
+        torch.cuda.synchronize()
+    cuda = [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
     return dict(
-        ms=time_ms(torch, lambda: chunk_sort(fps, fresh, run_len), iters=50),
-        plain_ms=time_ms(torch, lambda: chunk_sort_plain(fps, fresh, run_len), iters=50),
-        library_ms=time_ms(torch, lambda: torch.sort(fps, stable=True), iters=50),
-        bound_ms=(n * 8 + n + n + run_len * 8) / MEM_BPS * 1e3, bound_by="bytes",
-        max_abs_err=err, lanes=n)
+        ms=time_ms(torch, lambda: chunk_dedup(fps, runs, run_len), iters=50),
+        plain_ms=time_ms(torch, lambda: chunk_dedup_plain(fps, runs, run_len), iters=50),
+        library_ms=time_ms(torch, lambda: [f() for f in parts.values()], iters=50),
+        library_parts_ms={k: time_ms(torch, f, iters=50) for k, f in parts.items()},
+        bound_ms=max(nbytes / MEM_BPS, ops / INT32_OPS) * 1e3,
+        bound_by="operations" if ops / INT32_OPS > nbytes / MEM_BPS else "bytes",
+        max_abs_err=err, lanes=n, runs=len(runs), new=n_new, distinct=distinct.numel(),
+        sectors=sectors, steps=steps, host_us_a_call=host_us,
+        launches_a_call=(sum(any(k in nm for k in KERNEL_NAMES["chunk_dedup"]) for nm in cuda)
+                         if cuda else "not measured: the tracer saw no device activity"))
 
 
 def owner_route_rows(torch, bfs, pool, rng) -> dict:
@@ -1815,7 +1852,7 @@ def family_kernel_rows(torch, rng, fam) -> dict:
         if family_of(bfs.model) == "kreconfig":
             kreconfig_arms(torch, bfs.model, edge)
         if k == 0:
-            flatc, selv, _fps, _fresh = chunk_lanes(torch, bfs, pool, rng)
+            flatc, selv, _fps = chunk_lanes(torch, bfs, pool, rng)
             if bfs._use_memo:
                 canon_memo_rows(torch, bfs, flatc, selv)
             else:  # KRaftWithReconfig's slot canon, timed
@@ -1856,7 +1893,7 @@ def five_canon_rows(torch, rng, fam) -> dict:
     tag = fam.get("five_tag")
     if tag:  # the family's expand kernels at five servers too
         expand_kernels(torch, bfs, pool, rng, timed=False)
-    flatc, selv, _fps, _fresh = chunk_lanes(torch, bfs, pool, rng)
+    flatc, selv, _fps = chunk_lanes(torch, bfs, pool, rng)
     if not tag:
         tiered_rows(torch, bfs.canon, flatc, selv, timed=False)
         return {}
@@ -2350,8 +2387,8 @@ def check_path(launches, path, chunks, expand_calls, sort_calls, name, replayed=
     fam = next(k for k in path if k.endswith("_guard")).rsplit("_", 1)[0]
     for k in path:
         check(launches[k] > 0, f"{name}: kernel {k} was never launched on the path")
-    for k, n in (("probe_runs", chunks), ("chunk_sort", chunks),
-                 (f"{fam}_guard", chunks + replayed), (f"{fam}_apply", chunks + replayed)):
+    for k, n in (("chunk_dedup", chunks), (f"{fam}_guard", chunks + replayed),
+                 (f"{fam}_apply", chunks + replayed)):
         check(launches[k] == n, f"{name}: {launches[k]} {k} launches != {chunks} chunks"
               + (f" + {replayed} replayed steps" if replayed else ""))
     fold = f"{fam}_fold"
@@ -2364,7 +2401,7 @@ def check_path(launches, path, chunks, expand_calls, sort_calls, name, replayed=
         check(launches[k] == 0, f"{name}: {k} launched off its path")
     check(expand_calls == 0, f"{name}: the plain expand ran {expand_calls} times")
     check(sort_calls == 0, f"{name}: torch sorted {sort_calls} times on the chunk path")
-    print(f"[{name}] {fam}_guard, {fam}_apply, probe_runs, chunk_sort: one launch per chunk"
+    print(f"[{name}] {fam}_guard, {fam}_apply, chunk_dedup: one launch per chunk"
           + (f" (the guard and apply also one per replayed step, {replayed})" if replayed else "")
           + f"; {canon}, {fold}: one per chunk and one for the initial states; no kernel off the "
           f"path; the plain expand called {expand_calls} times, torch sorts {sort_calls}")
@@ -3054,7 +3091,6 @@ def main() -> int:
     from raft_tpu_torch.checker.lsm import merge_runs, merge_runs_plain
     from raft_tpu_torch.checker.util import (
         append_rows, append_rows_plain, compact_indices, dense_prefix_sel,
-        probe_runs, probe_runs_plain,
     )
     from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
     from raft_tpu_torch.ops.packing import EMPTY
@@ -3159,7 +3195,8 @@ def main() -> int:
         library_ms=None, max_abs_err=max(errs),
     )
 
-    # probe_runs: a 2^24-lane seen run plus ladder runs, half the queries present
+    # chunk_dedup: VC lanes against a 2^24-lane seen run plus ladder runs
+    # of VC, 2 VC and 4 VC lanes (each half filled), half the lanes present
     def sorted_run(n_real, size):
         v = torch.randint(-(1 << 62), 1 << 62, (n_real,), dtype=torch.int64, device=dev)
         pad = torch.full((size - n_real,), INT64_MAX, dtype=torch.int64, device=dev)
@@ -3174,32 +3211,8 @@ def main() -> int:
     q[: VC // 2] = present[pick]
     q[-16:] = INT64_MAX
     q = q[torch.randperm(VC, device=dev)]
-    pk, pp = probe_runs(q, runs), probe_runs_plain(q, runs)
-    err = exact(torch, pk, pp)
-    check(err == 0.0, "probe_runs differs from its plain version")
-    check(0.45 * VC < (~pk).sum().item() < 0.55 * VC, "probe_runs: about half present")
-    # the queries read and the flags written once, plus the distinct
-    # 32-byte sectors of the runs that the searches of these queries read;
-    # ~6 integer ops per search step
-    fresh, sectors, steps = probe_sectors(torch, q, runs, INT64_MAX)
-    check(torch.equal(fresh, pk), "probe_runs differs from the replayed searches")
-    probe_bytes = VC * 8 + VC + sectors * 32
-    probe_ops = 6 * steps
-    rows["probe_runs"] = dict(
-        ms=time_ms(torch, lambda: probe_runs(q, runs), iters=50),
-        plain_ms=time_ms(torch, lambda: probe_runs_plain(q, runs), iters=20),
-        # torch.searchsorted of every query on each of the four runs the
-        # kernel probes, summed (the kernel stops at a query's first hit);
-        # the seen run's alone is kept beside it
-        library_ms=time_ms(torch, lambda: [torch.searchsorted(r, q) for r in runs], iters=50),
-        library_seen_run_ms=time_ms(torch, lambda: torch.searchsorted(seen, q), iters=50),
-        bound_ms=max(probe_bytes / MEM_BPS, probe_ops / INT32_OPS) * 1e3,
-        bound_by="operations" if probe_ops / INT32_OPS > probe_bytes / MEM_BPS else "bytes",
-        max_abs_err=err,
-    )
-    print(f"[3] probe_runs: {sectors} sectors of the runs read by {steps} search steps; "
-          f"torch.searchsorted on the four runs {rows['probe_runs']['library_ms']:.4f} ms, on "
-          f"the seen run alone {rows['probe_runs']['library_seen_run_ms']:.4f} ms")
+    rows["chunk_dedup"] = chunk_dedup_row(torch, q, runs, VC, timed=True)
+    check(0.45 * VC < rows["chunk_dedup"]["new"] < 0.55 * VC, "chunk_dedup: about half present")
 
     # compact_append: the [C*A] valid mask -> worklist, then a row append
     # at a cursor just below capacity so the overflow fires
@@ -3263,11 +3276,12 @@ def main() -> int:
         expand_kernels(torch, b, b.frontier_rows.cpu().numpy(), rng, timed=False)
         del b
 
-    # chunk_sort on a chunk of the Raft.cfg main path (timed); canon_tiered,
-    # canon_signatures and chunk_sort on a chunk of the five-server frontier
-    # at depth RAFT5_SAMPLE_DEPTH (timed)
-    flatc3, selv3, fps3, fresh3 = chunk_lanes(torch, bfs20, pool, rng)
-    rows["chunk_sort"] = chunk_sort_row(torch, fps3, fresh3, bfs20.R0, timed=True)
+    # chunk_dedup on a chunk of the Raft.cfg main path against its seen
+    # run (timed); canon_tiered, canon_signatures and chunk_dedup on a chunk
+    # of the five-server frontier at depth RAFT5_SAMPLE_DEPTH (timed)
+    flatc3, selv3, fps3 = chunk_lanes(torch, bfs20, pool, rng)
+    rows["chunk_dedup"]["raft_chunk"] = chunk_dedup_row(torch, fps3, [bfs20._seen], bfs20.R0,
+                                                        timed=True)
     # the signatures are defined for any server count: canon_signatures on
     # the Raft.cfg chunk too (its canon stays canon_memo's full-S! min)
     check(exact(torch, canon.signatures(flatc3), canon.signatures_plain(flatc3)) == 0.0,
@@ -3290,9 +3304,9 @@ def main() -> int:
     print(f"[3] sampled the depth-{RAFT5_SAMPLE_DEPTH} five-server frontier ({len(pool5)} "
           f"states) in {time.perf_counter() - t:.1f} s")
     expand_kernels(torch, bfs5s, pool5, rng, timed=False)
-    flatc5, selv5, fps5, fresh5 = chunk_lanes(torch, bfs5s, pool5, rng)
+    flatc5, selv5, fps5 = chunk_lanes(torch, bfs5s, pool5, rng)
     rows.update(tiered_rows(torch, bfs5s.canon, flatc5, selv5, timed=True))
-    sort5 = chunk_sort_row(torch, fps5, fresh5, bfs5s.R0, timed=True)
+    dedup5 = chunk_dedup_row(torch, fps5, [bfs5s._seen], bfs5s.R0, timed=True)
     del bfs5s, flatc5
     # the pull and KRaft kernels: chunks of the PullRaft, Variant2 and
     # KRaft.cfg frontiers, and edge rows
@@ -3315,7 +3329,7 @@ def main() -> int:
                  f"{r['warps_per_sm']} warps an SM" if "bound_all_lanes_ms" in r else "")
               + (f"; append_rows {r['rows_ms']:.4f} ms vs plain {r['rows_plain_ms']:.4f}"
                  f" ms, bound {r['rows_bound_ms']:.4f} ms" if "rows_ms" in r else ""))
-    print(json.dumps({"chunk_sort_five_servers": sort5}))
+    print(json.dumps({"chunk_dedup": rows["chunk_dedup"], "chunk_dedup_five_servers": dedup5}))
     print(json.dumps({"simulate_liveness_kernels": {
         k: rows[k] for k in ("sim_pick", "raft_sim_check", "hash_rows")}}))
 
@@ -3560,7 +3574,8 @@ def main() -> int:
     # ---- 10. results ----
     meta = {
         "canon_memo": ("raft_tpu_torch/csrc/canon_memo.cu", "raft_tpu/ops/symmetry.py:1230"),
-        "probe_runs": ("raft_tpu_torch/csrc/probe_runs.cu", "raft_tpu/checker/util.py:21"),
+        "chunk_dedup": ("raft_tpu_torch/csrc/chunk_dedup.cu",
+                        "raft_tpu/checker/device_bfs.py:401"),
         "compact_append": ("raft_tpu_torch/csrc/compact_append.cu",
                            "raft_tpu/checker/util.py:48"),
         "merge_runs": ("raft_tpu_torch/csrc/merge_runs.cu",
@@ -3569,8 +3584,6 @@ def main() -> int:
         "raft_apply": ("raft_tpu_torch/csrc/raft_expand.cu", "raft_tpu/models/base.py:426"),
         "raft_fold": ("raft_tpu_torch/csrc/raft_fold.cu",
                       "raft_tpu/checker/device_bfs.py:501"),
-        "chunk_sort": ("raft_tpu_torch/csrc/chunk_sort.cu",
-                       "raft_tpu/checker/device_bfs.py:413"),
         "canon_tiered": ("raft_tpu_torch/csrc/canon_tiered.cu",
                          "raft_tpu/ops/symmetry.py:1081"),
         "canon_signatures": ("raft_tpu_torch/csrc/canon_tiered.cu",

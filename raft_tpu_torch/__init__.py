@@ -14,8 +14,7 @@ find:
              and the cfg -> model registry
   checker/   the device-resident BFS engine (``DeviceBFS``), its sorted-
              run seen set (``merge_runs`` kernel) and the dedup / emit
-             helpers (``probe_runs``, ``chunk_sort`` and
-             ``compact_append`` kernels)
+             helpers (``chunk_dedup`` and ``compact_append`` kernels)
   parallel/  the sharded engine (``ShardedBFS`` over torch.distributed,
              one process a shard) and its ``owner_route`` kernel
   resilience/ crash-safe, mesh-portable checkpoints and the engines'

@@ -17,9 +17,9 @@ the run of 7) and ``_st_finish`` (5-6)):
      canon_tiered from five servers), or, for a model's own canonicalizer
      without a memo (KRaftWithReconfig), of the compacted lanes directly
      (the slot_canon kernel)
-  4. dedup: probe the seen run and this wave's ladder runs (probe_runs
-     kernel), then first occurrence within the chunk and the chunk's
-     sorted run of new fingerprints from one stable sort (chunk_sort)
+  4. dedup: one sort of the chunk's fingerprints, the first occurrences
+     probed against the seen run and this wave's ladder runs, and the
+     chunk's sorted run of new fingerprints (the chunk_dedup kernel)
   5. emit: append the survivors' rows at the device-side cursor of the
      next-frontier buffer, and their (parent gid, candidate) rows at the
      journal cursor (``append_rows``, the compact_append kernel)
@@ -55,8 +55,8 @@ from ..ops.symmetry import Canonicalizer
 from .bfs import CheckResult, Violation
 from .lsm import CanonMemo, merge_many, merge_runs, pow2_at_least
 from .util import (
-    GROWTH, HEADROOM, I32_MAX, append_rows, chunk_sort, compact_indices,
-    next_cap, probe_runs, replay_chain,
+    GROWTH, HEADROOM, I32_MAX, append_rows, chunk_dedup, compact_indices,
+    next_cap, replay_chain,
 )
 
 
@@ -226,11 +226,11 @@ class DeviceBFS:
                                                                  device=flatc.device)
 
     def _st_dedup(self, fps, runs):
-        """Stage 4: fresh against the seen run and this wave's ladder
-        runs, then the first occurrence within the chunk and the chunk's
-        new fingerprints as one sorted R0-lane run, from one stable sort
-        (``chunk_sort``). Returns (new, new_run)."""
-        return chunk_sort(fps, probe_runs(fps, runs), self.R0)
+        """Stage 4: the first occurrence within the chunk, fresh against
+        the seen run and this wave's ladder runs, and the chunk's new
+        fingerprints as one sorted R0-lane run (``chunk_dedup``). Returns
+        (new, new_run)."""
+        return chunk_dedup(fps, runs, self.R0)
 
     def _st_finish(self, next_buf, jparent, jcand, viol, stats, cov, ex, n_hit,
                    new, cursor: int, base_gid: int):

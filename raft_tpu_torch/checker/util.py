@@ -2,13 +2,12 @@
 of the chunk pipeline.
 
 Counterpart of ``raft_tpu/checker/util.py`` plus the lane-compaction and
-dedup steps of ``raft_tpu/checker/device_bfs.py``. Three kernels live here:
+dedup steps of ``raft_tpu/checker/device_bfs.py``. Two kernels live here:
 
-  ``probe_runs``      (csrc/probe_runs.cu) membership of each fingerprint
-                      in a set of sorted runs, folded with "fresh";
-  ``chunk_sort``      (csrc/chunk_sort.cu) one stable sort of the chunk's
-                      fingerprints: the first-occurrence dedup and the
-                      chunk's sorted run of new fingerprints;
+  ``chunk_dedup``     (csrc/chunk_dedup.cu) the dedup stage of a chunk:
+                      one sort of its fingerprints, the first occurrences
+                      probed against a set of sorted runs, and the chunk's
+                      sorted run of new fingerprints;
   ``compact_append``  (csrc/compact_append.cu) with two entry points:
                       ``compact_indices`` (mask -> dense worklist) and
                       ``append_rows`` (cursor append into a buffer with a
@@ -32,8 +31,8 @@ from ..ops.hashing import INT64_MAX, sort_fps, sort_fps_with_idx
 GROWTH = 4  # enlarge factor per growth step
 HEADROOM = 3  # grow when the next wave could need more than cap/HEADROOM
 I32_MAX = 2**31 - 1  # "no violation" sentinel in journal folds
-MAX_RUNS = 32  # runs one probe_runs launch takes (csrc/probe_runs.cu)
-CHUNK_SORT_TILE = 2048  # pairs one chunk_sort block sorts (csrc/chunk_sort.cu)
+MAX_RUNS = 32  # runs one chunk_dedup call takes (csrc/chunk_dedup.cu)
+_DEDUP_SCRATCH: dict[int, int] = {}  # lanes -> chunk_dedup's scratch words
 
 
 def next_cap(needed: int, cap: int, max_cap: int, growth: int, unit: int) -> int:
@@ -47,7 +46,7 @@ def next_cap(needed: int, cap: int, max_cap: int, growth: int, unit: int) -> int
     return min(new, eff_max)
 
 
-# ---------------- probe_runs ----------------
+# ---------------- chunk_dedup ----------------
 
 
 def probe_sorted(sorted_arr: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -59,44 +58,22 @@ def probe_sorted(sorted_arr: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
 
 
 def probe_runs_plain(fps: torch.Tensor, runs) -> torch.Tensor:
-    """fresh = (fp is a real fingerprint) and (fp is in no run)."""
+    """fresh = (fp is a real fingerprint) and (fp is in no run): the probe
+    of ``raft_tpu/checker/device_bfs.py:401 _st_dedup``."""
     fresh = fps != INT64_MAX
     for r in runs:
-        fresh = fresh & ~probe_sorted(r, fps)
+        if r.numel():
+            fresh = fresh & ~probe_sorted(r, fps)
     return fresh
-
-
-def probe_runs(fps: torch.Tensor, runs) -> torch.Tensor:
-    """``fps != INT64_MAX`` and absent from every sorted run in ``runs``
-    (each a 1-D enc int64 tensor, INT64_MAX-padded; an empty list or a
-    zero-length run answers "absent"). The dedup probe of
-    ``raft_tpu/checker/device_bfs.py:401 _st_dedup``."""
-    if kernels.route(fps) == "cpu":
-        return probe_runs_plain(fps, runs)
-    k = kernels.PROBE_RUNS
-    kernels.require(fps, torch.int64, "fps", ndim=1)
-    runs = [r for r in runs if r.numel()]
-    if len(runs) > MAX_RUNS:
-        raise ValueError(f"probe_runs takes at most {MAX_RUNS} runs")
-    for r in runs:
-        kernels.require(r, torch.int64, "run", ndim=1)
-    ptrs = (ctypes.c_longlong * MAX_RUNS)(*[r.data_ptr() for r in runs])
-    lens = (ctypes.c_longlong * MAX_RUNS)(*[r.numel() for r in runs])
-    out = torch.empty(fps.shape, dtype=torch.bool, device=fps.device)
-    rc = k.lib.probe_runs(ctypes.cast(ptrs, ctypes.c_void_p), len(runs),
-                          ctypes.cast(lens, ctypes.c_void_p), fps.data_ptr(),
-                          out.data_ptr(), fps.numel(), kernels.stream(fps.device))
-    k.launched(rc)
-    return out
-
-
-# ---------------- chunk_sort ----------------
 
 
 def chunk_sort_plain(fps: torch.Tensor, fresh: torch.Tensor, run_len: int,
                      with_order: bool = False):
-    """Plain version of ``chunk_sort``: the reference's two sorts
-    (``device_bfs.py:413-420`` first occurrence, ``:495`` run emit)."""
+    """The reference's two sorts over a chunk with its fresh mask
+    (``device_bfs.py:413-420`` first occurrence, ``:495`` run emit):
+    new = fresh and no earlier lane holds the fingerprint; the run of the
+    new fingerprints ascending, INT64_MAX-padded to ``run_len``; with
+    ``with_order`` also the stable sort's permutation (int32)."""
     rf, order = sort_fps_with_idx(fps)
     first_s = torch.ones_like(fresh)
     first_s[1:] = rf[1:] != rf[:-1]
@@ -109,45 +86,54 @@ def chunk_sort_plain(fps: torch.Tensor, fresh: torch.Tensor, run_len: int,
     return (new, run, order.to(torch.int32)) if with_order else (new, run)
 
 
-def chunk_sort(fps: torch.Tensor, fresh: torch.Tensor, run_len: int,
-               with_order: bool = False):
-    """First occurrence and the sorted run of a chunk's fingerprints.
+def chunk_dedup_plain(fps: torch.Tensor, runs, run_len: int, with_order: bool = False):
+    """Plain version of ``chunk_dedup``: the probe, then the two sorts."""
+    return chunk_sort_plain(fps, probe_runs_plain(fps, runs), run_len, with_order)
 
-    ``fps`` is enc int64 [n], ``fresh`` bool [n] (not in any seen run).
-    Returns ``(new, run)``: new[i] = fresh[i] and no lane before i holds
-    fps[i]; run = the fingerprints of the new lanes ascending, padded
-    with INT64_MAX to ``run_len`` (>= n) lanes. ``with_order`` also
-    returns the sort's permutation, int32 [n]: the lanes by fingerprint,
-    ties in lane order (``sort_u64_with_idx``'s index, which the sharded
-    engine emits in; the kernel leaves it in its scratch, no extra work)."""
-    if run_len < fps.numel():
-        raise ValueError("chunk_sort: run_len must be at least len(fps)")
-    if kernels.route(fps) == "cpu":
-        return chunk_sort_plain(fps, fresh, run_len, with_order)
-    k = kernels.CHUNK_SORT
+
+def chunk_dedup(fps: torch.Tensor, runs, run_len: int, with_order: bool = False):
+    """The dedup stage of a chunk (``raft_tpu/checker/device_bfs.py:401
+    _st_dedup`` and the run emit of ``:495``).
+
+    ``fps`` is enc int64 [n], ``runs`` sorted enc int64 runs padded with
+    INT64_MAX (the seen run and the wave's ladder; an empty list or a
+    zero-length run answers "absent"). Returns ``(new, run)``: new[i] =
+    fps[i] is a real fingerprint (not INT64_MAX), no lane before i holds it
+    and no run holds it; run = the new fingerprints ascending, padded with
+    INT64_MAX to ``run_len`` (>= n) lanes. ``with_order`` also returns the
+    lanes ordered by (fingerprint, lane), int32 [n]: the stable sort's
+    permutation, which the sharded engine emits in."""
     n = fps.numel()
+    if run_len < n:
+        raise ValueError("chunk_dedup: run_len must be at least len(fps)")
+    if kernels.route(fps) == "cpu":
+        return chunk_dedup_plain(fps, runs, run_len, with_order)
+    k = kernels.CHUNK_DEDUP
     kernels.require(fps, torch.int64, "fps", ndim=1)
-    kernels.require(fresh, torch.bool, "fresh", shape=(n,))
-    np_ = CHUNK_SORT_TILE
-    while np_ < n:
-        np_ <<= 1
+    runs = [r for r in runs if r.numel()]
+    if len(runs) > MAX_RUNS:
+        raise ValueError(f"chunk_dedup takes at most {MAX_RUNS} runs")
+    if n >= 2**31:
+        raise ValueError("chunk_dedup takes fewer than 2^31 lanes")
+    for r in runs:
+        kernels.require(r, torch.int64, "run", ndim=1)
+    words = _DEDUP_SCRATCH.get(n)
+    if words is None:
+        words = _DEDUP_SCRATCH[n] = k.lib.chunk_dedup_scratch(n)
     dev = fps.device
-    keys = torch.empty((2, np_), dtype=torch.int64, device=dev)
-    idx = torch.empty((2, np_), dtype=torch.int32, device=dev)
-    blk = torch.empty(max(1, -(-n // 1024)), dtype=torch.int32, device=dev)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
     new = torch.empty(n, dtype=torch.bool, device=dev)
     run = torch.empty(run_len, dtype=torch.int64, device=dev)
-    rc = k.lib.chunk_sort(fps.data_ptr(), fresh.data_ptr(), n, np_, keys[0].data_ptr(),
-                          idx[0].data_ptr(), keys[1].data_ptr(), idx[1].data_ptr(),
-                          blk.data_ptr(), new.data_ptr(), run.data_ptr(), run_len,
-                          kernels.stream(dev))
+    order = torch.empty(n, dtype=torch.int32, device=dev) if with_order else None
+    ptrs = (ctypes.c_longlong * MAX_RUNS)(*[r.data_ptr() for r in runs])
+    lens = (ctypes.c_longlong * MAX_RUNS)(*[r.numel() for r in runs])
+    rc = k.lib.chunk_dedup(ctypes.cast(ptrs, ctypes.c_void_p), len(runs),
+                           ctypes.cast(lens, ctypes.c_void_p), fps.data_ptr(), n,
+                           new.data_ptr(), run.data_ptr(), run_len,
+                           order.data_ptr() if with_order else None, scratch.data_ptr(), words,
+                           kernels.stream(dev))
     k.launched(rc)
-    if not with_order:
-        return new, run
-    # the merge passes ping-pong between the two scratch halves: after
-    # log2(np / tile) of them the sorted lane index is in half (that % 2)
-    merges = (np_ // CHUNK_SORT_TILE).bit_length() - 1
-    return new, run, idx[merges % 2, :n]
+    return (new, run, order) if with_order else (new, run)
 
 
 # ---------------- compact_append: indices ----------------

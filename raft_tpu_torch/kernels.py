@@ -57,8 +57,9 @@ _SIGNATURES = {
         "canon_signatures": [_P, _P, _I, _P, _I, _I, _P, _P],
         "canon_tiered_occupancy": [_P, _I, _P],
     },
-    "probe_runs": {
-        "probe_runs": [_P, _I, _P, _P, _P, _I, _P],
+    "chunk_dedup": {
+        "chunk_dedup": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _L, _P],
+        "chunk_dedup_scratch": [_I],
     },
     "compact_append": {
         "compact_indices": [_P, _I, _P, _I, _I, _P, _P, _I, _P],
@@ -66,9 +67,6 @@ _SIGNATURES = {
     },
     "merge_runs": {
         "merge_runs": [_P, _L, _P, _L, _P, _L, _P],
-    },
-    "chunk_sort": {
-        "chunk_sort": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     },
     "sim_step": {
         "sim_pick": [_P, _P, _I, _I, _U, _U, _U, _U, _U, _U, _I, _P, _P, _P, _P, _P, _P],
@@ -177,10 +175,9 @@ class Kernel:
 
 
 CANON_MEMO = Kernel("canon_memo")
-PROBE_RUNS = Kernel("probe_runs")
+CHUNK_DEDUP = Kernel("chunk_dedup")
 COMPACT_APPEND = Kernel("compact_append")
 MERGE_RUNS = Kernel("merge_runs")
-CHUNK_SORT = Kernel("chunk_sort")
 CANON_TIERED = Kernel("canon_tiered")
 CANON_SIGNATURES = Kernel("canon_signatures", source="canon_tiered")
 SIM_PICK = Kernel("sim_pick", source="sim_step")
@@ -207,7 +204,7 @@ RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY, KRECONFIG
     _family(prefix) for prefix in ("raft", "pull", "kraft", "reconfig", "joint", "kreconfig"))
 FAMILIES = (RAFT_FAMILY, PULL_FAMILY, KRAFT_FAMILY, RECONFIG_FAMILY, JOINT_FAMILY,
             KRECONFIG_FAMILY)
-ALL = (CANON_MEMO, PROBE_RUNS, COMPACT_APPEND, MERGE_RUNS, CHUNK_SORT, CANON_TIERED,
+ALL = (CANON_MEMO, CHUNK_DEDUP, COMPACT_APPEND, MERGE_RUNS, CANON_TIERED,
        CANON_SIGNATURES, SIM_PICK, HASH_ROWS, SLOT_CANON, OWNER_ROUTE,
        *(k for fam in FAMILIES for k in fam.values()))
 

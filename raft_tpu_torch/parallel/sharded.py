@@ -16,11 +16,11 @@ expands every shard's frontier in chunks; each chunk is
             fingerprints): block d of a send goes to shard d, received
             block d came from shard d, so the parent's shard is
             ``received row // RC`` and is never routed;
-  post      (the owner) ``probe_runs`` against the shard's seen run and
-            this wave's ladder, ``chunk_sort`` of the received
-            fingerprints with their lane index (first occurrence, the
-            chunk's sorted run), the survivors emitted in fingerprint
-            order into the next frontier and the four journal lanes
+  post      (the owner) ``chunk_dedup`` of the received fingerprints
+            against the shard's seen run and this wave's ladder, with their
+            lane order (first occurrence, the chunk's sorted run), the
+            survivors emitted in fingerprint order into the next frontier
+            and the four journal lanes
             (``compact_append``), the owner-side fold (new-distinct
             coverage by the routed rank column, the invariants; the
             family's fold kernel) and the run into the wave's ladder
@@ -58,8 +58,8 @@ from .. import resolve_device
 from ..checker.device_bfs import DeviceBFS
 from ..checker.lsm import pow2_at_least
 from ..checker.util import (
-    GROWTH, HEADROOM, I32_MAX, append_rows, chunk_sort,
-    compact_indices, next_cap, probe_runs, replay_chain,
+    GROWTH, HEADROOM, I32_MAX, append_rows, chunk_dedup,
+    compact_indices, next_cap, replay_chain,
 )
 from ..ops.hashing import INT64_MAX
 from ..resilience import ckpt as rckpt
@@ -234,8 +234,7 @@ class ShardedBFS:
         in place on the carries ``st``; returns the chunk's sorted run."""
         W, B = self.W, self.EPAD
         stats = st["stats"]
-        fresh = probe_runs(recv_fps, runs)
-        new, run, order = chunk_sort(recv_fps, fresh, self.R0, with_order=True)
+        new, run, order = chunk_dedup(recv_fps, runs, self.R0, with_order=True)
         # the survivors in fingerprint order (the reference's emit order):
         # their positions in the sorted order, then their received lanes
         pos, n_new = compact_indices(new[order.to(torch.int64)], B, B)

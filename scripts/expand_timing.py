@@ -15,7 +15,12 @@ depth-27 PullRaft stand-in frontier and of the depth-33 KRaft.cfg frontier,
 ``canon_memo`` on each chunk's worklist (cold: a fresh 2^21-row memo
 before every call; warm: every lane hits), ``append_rows`` emitting the
 chunk's valid rows (DeviceBFS's frontier emit), ``owner_route`` on the
-Raft.cfg chunk at D = 1 (the sharded engine's route), the same on a chunk of the
+Raft.cfg chunk at D = 1 (the sharded engine's route), the dedup stage
+(``DeviceBFS._st_dedup``, which both the parent and the change have) on each
+chunk's fingerprints against the engine's seen run plus three ladder runs
+of the stage's sizes (R0, 2 R0 and 4 R0 lanes, half filled from a fixed
+seed): its device ms and its host time a call (Python only, 50 calls
+without a sync), the same on a chunk of the
 depth-9 five-server Raft frontier (its canon ``canon_tiered``, the 2-word
 path, and ``canon_signatures`` on the worklist), the same on a chunk of the
 depth-14 five-server AddRemove frontier (``canon_tiered``'s general path,
@@ -35,7 +40,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import json, sys
+import json, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, ROOT)
@@ -72,6 +77,18 @@ def device_ms(fn, setup=None):
     return run(lambda: (setup(), fn())) - run(setup)
 
 
+# mean host us per call of fn: Python and the launches only, no sync
+def host_us(fn, calls=50):
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def chunk_times(tag, bfs):
     model, dev = bfs.model, bfs.device
     pool = bfs.frontier_rows.cpu().numpy()
@@ -104,10 +121,21 @@ def chunk_times(tag, bfs):
     out[tag]["canon_warm_ms"] = device_ms(canon)
     if bfs.canon.prune:
         out[tag]["signatures_ms"] = device_ms(lambda: bfs.canon.signatures(flatc))
+    # the dedup stage against the seen run and three half-filled ladder runs
+    fps = canon()[0]
+    lrng = np.random.default_rng(1)
+    runs = [bfs._seen]
+    for i in range(3):
+        size = bfs.R0 << i
+        v = np.sort(lrng.integers(-(1 << 62), 1 << 62, size // 2))
+        v = np.concatenate([v, np.full(size - size // 2, INT64_MAX)])
+        runs.append(torch.from_numpy(v).to(dev))
+    out[tag]["dedup_ms"] = device_ms(lambda: bfs._st_dedup(fps, runs))
+    out[tag]["dedup_host_us"] = host_us(lambda: bfs._st_dedup(fps, runs))
+    out[tag]["dedup_new"] = int(bfs._st_dedup(fps, runs)[0].sum())
     if tag == "raft":
         # the sharded engine's owner route of this chunk at D = 1, RC = VC
         from raft_tpu_torch.parallel.route import owner_route
-        fps = canon()[0]
         out[tag]["route_ms"] = device_ms(
             lambda: owner_route(fps, flatc, sel, rank, 0, A, 1, bfs.VC))
 

@@ -16,8 +16,8 @@ import torch
 
 from raft_tpu_torch.checker.lsm import merge_runs, merge_runs_plain
 from raft_tpu_torch.checker.util import (
-    append_rows, append_rows_plain, chunk_sort, chunk_sort_plain,
-    compact_indices, dense_prefix_sel, probe_runs, probe_runs_plain,
+    append_rows, append_rows_plain, chunk_dedup, chunk_dedup_plain,
+    compact_indices, dense_prefix_sel,
 )
 from raft_tpu_torch.models.joint_raft import JointRaftModel, JointRaftParams
 from raft_tpu_torch.models.kraft import KRaftModel, KRaftParams
@@ -73,17 +73,6 @@ def test_canon_memo(dev, msg_slots):
     assert torch.equal(canon.fingerprints(states), canon.canon_plain(states))
 
 
-def test_probe_runs(dev):
-    gen = torch.Generator().manual_seed(0)
-    runs = [_sorted(dev, 700, 1024, gen), _sorted(dev, 30, 64, gen)]
-    q = torch.randint(-(1 << 62), 1 << 62, (2000,), generator=gen).to(dev)
-    q[:500] = runs[0][:500]
-    q[500:520] = runs[1][:20]
-    q[-3:] = INT64_MAX
-    assert torch.equal(probe_runs(q, runs), probe_runs_plain(q, runs))
-    assert torch.equal(probe_runs(q, []), q != INT64_MAX)
-
-
 @pytest.mark.parametrize("n", [0, 1, 2047, 2048, 5000])
 def test_compact_indices(dev, n):
     mask = torch.rand(n, device=dev) < 0.3
@@ -120,34 +109,80 @@ def test_merge_runs(dev, target):
     assert torch.equal(merge_runs(a, a[:0], target), merge_runs_plain(a, a[:0], target))
 
 
-@pytest.mark.parametrize("n,run_len", [(0, 0), (0, 16), (1, 1), (2047, 2048), (2048, 2048),
-                                       (5000, 8192), (65536, 65536), (70000, 131072)])
-def test_chunk_sort(dev, n, run_len):
-    # many duplicates (a pool of n / 4 values over the whole int64 range)
-    # and INT64_MAX lanes; fresh is false on the sentinels
-    gen = torch.Generator().manual_seed(n)
-    pool = torch.randint(-(1 << 63), (1 << 63) - 1, (max(1, n // 4),), generator=gen)
-    fps = pool[torch.randint(0, len(pool), (n,), generator=gen)]
-    fps[torch.rand(n, generator=gen) < 0.1] = INT64_MAX
-    fresh = (torch.rand(n, generator=gen) < 0.7) & (fps != INT64_MAX)
-    fps, fresh = fps.to(dev), fresh.to(dev)
-    nk, rk = chunk_sort(fps, fresh, run_len)
-    np_, rp = chunk_sort_plain(fps, fresh, run_len)
+def _dedup_runs(dev, pool, n_runs, gen):
+    """n_runs sorted INT64_MAX-padded runs: each holds keys of its own and
+    part of ``pool``; the first has 2^20 lanes (a seen run: its slices are
+    sampled), the others 64 to 2,048 (ladder runs: staged whole)."""
+    runs = []
+    for r in range(n_runs):
+        size = (1 << 20) if r == 0 else 64 << (r % 6)
+        own = torch.randint(-(1 << 63), (1 << 63) - 1, (size // 2,), generator=gen)
+        part = pool[torch.rand(len(pool), generator=gen) < 0.3 / (r + 1)]
+        v = torch.unique(torch.cat([own, part]))
+        v = v[v != INT64_MAX]
+        pad = torch.full((size // 3 + 1,), INT64_MAX, dtype=torch.int64)
+        runs.append(torch.cat([v, pad]).to(dev))
+    return runs
+
+
+def _dedup_equal(fps, runs, run_len):
+    """chunk_dedup against chunk_dedup_plain, with and without the order,
+    one launch a call."""
+    from raft_tpu_torch import kernels
+
+    before = kernels.CHUNK_DEDUP.launches
+    nk, rk = chunk_dedup(fps, runs, run_len)
+    nko, rko, ok = chunk_dedup(fps, runs, run_len, with_order=True)
+    assert kernels.CHUNK_DEDUP.launches == before + 2
+    np_, rp, op = chunk_dedup_plain(fps, runs, run_len, with_order=True)
     assert torch.equal(nk, np_) and torch.equal(rk, rp)
+    assert torch.equal(nko, np_) and torch.equal(rko, rp) and torch.equal(ok, op)
+    return np_
 
 
-@pytest.mark.parametrize("n", [1, 2047, 5000])
-def test_chunk_sort_order(dev, n):
-    # the sort's permutation (the sharded emit order) equals the plain
-    # stable sort's: (fingerprint, lane) pairs order totally
-    gen = torch.Generator().manual_seed(n)
+@pytest.mark.parametrize("n_runs", [0, 1, 4, 32])
+@pytest.mark.parametrize("n", [0, 1, 2047, 2048, 2049, 5000, 65536, 262144])
+def test_chunk_dedup(dev, n, n_runs):
+    # many duplicates (a pool of n / 4 values over the whole int64 range),
+    # INT64_MAX lanes, and runs holding part of the pool
+    gen = torch.Generator().manual_seed(n + n_runs)
     pool = torch.randint(-(1 << 63), (1 << 63) - 1, (max(1, n // 4),), generator=gen)
     fps = pool[torch.randint(0, len(pool), (n,), generator=gen)]
     fps[torch.rand(n, generator=gen) < 0.1] = INT64_MAX
-    fresh = fps != INT64_MAX
-    nk, rk, ok = chunk_sort(fps.to(dev), fresh.to(dev), n, with_order=True)
-    np_, rp, op = chunk_sort_plain(fps, fresh, n, with_order=True)
-    assert torch.equal(nk.cpu(), np_) and torch.equal(rk.cpu(), rp) and torch.equal(ok.cpu(), op)
+    runs = _dedup_runs(dev, pool, n_runs, gen)
+    new = _dedup_equal(fps.to(dev), runs, n + 3 * (n % 2))
+    if n >= 2047 and n_runs:
+        assert 0 < int(new.sum()) < int((pool != INT64_MAX).sum())
+
+
+@pytest.mark.parametrize("kind", ["equal", "narrow", "sentinel", "every", "ends"])
+def test_chunk_dedup_skewed(dev, kind):
+    # buckets far past the 1,024 pairs sorted in registers (all lanes equal;
+    # every key in one bucket, merged in global scratch), all lanes at the
+    # sentinel, a run holding every key, keys at a run's first and last entry
+    gen = torch.Generator().manual_seed(11)
+    n = 70000
+    pool = torch.randint(-(1 << 63), (1 << 63) - 1, (n // 4,), generator=gen)
+    runs = _dedup_runs(dev, pool, 4, gen)
+    if kind == "equal":
+        fps = torch.full((n,), int(pool[0]), dtype=torch.int64)
+    elif kind == "narrow":
+        fps = torch.randint(0, 30000, (n,), generator=gen)
+        runs.append(torch.unique(fps[::3]).to(dev))
+    elif kind == "sentinel":
+        fps = torch.full((n,), INT64_MAX, dtype=torch.int64)
+    elif kind == "every":
+        fps = pool[torch.randint(0, len(pool), (n,), generator=gen)]
+        runs.append(torch.unique(fps).to(dev))
+    else:
+        r = runs[0].cpu()
+        last = r[r != INT64_MAX][-1]
+        fps = torch.where(torch.rand(n, generator=gen) < 0.5, r[0], last)
+    new = _dedup_equal(fps.to(dev), runs, n)
+    if kind in ("sentinel", "every", "ends"):
+        assert not bool(new.any())
+    elif kind == "equal":
+        assert int(new.sum()) == 1 and bool(new[0])
 
 
 @pytest.mark.parametrize("count", [0, 54, 70])

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's kernels (probe_runs,
+"""The plain PyTorch versions of the port's kernels (chunk_dedup's probe,
 compact_append, merge_runs) against the JAX reference's probe_sorted,
 dense_prefix_sel + emit_append and sort-concat, bit for bit."""
 
@@ -13,7 +13,7 @@ from raft_tpu.checker.util import probe_sorted as jax_probe_sorted
 from raft_tpu_torch import kernels
 from raft_tpu_torch.checker.lsm import merge_many, merge_runs, merge_runs_plain
 from raft_tpu_torch.checker.util import (
-    append_rows, compact_indices, dense_prefix_sel, emit_append, probe_runs,
+    append_rows, compact_indices, dense_prefix_sel, emit_append, probe_runs_plain,
 )
 from raft_tpu_torch.convert import fps_from_u64
 
@@ -39,9 +39,9 @@ def test_probe_runs_matches_probe_sorted():
     want = q != U64_MAX
     for r in runs:
         want &= ~np.asarray(jax_probe_sorted(jnp.asarray(r), jnp.asarray(q)))
-    got = probe_runs(fps_from_u64(q), [fps_from_u64(r) for r in runs])
+    got = probe_runs_plain(fps_from_u64(q), [fps_from_u64(r) for r in runs])
     assert np.array_equal(got.numpy(), want)
-    assert np.array_equal(probe_runs(fps_from_u64(q), []).numpy(), q != U64_MAX)
+    assert np.array_equal(probe_runs_plain(fps_from_u64(q), []).numpy(), q != U64_MAX)
 
 
 @pytest.mark.parametrize("density", [0.0, 0.05, 0.5, 1.0])
@@ -116,8 +116,8 @@ def test_wrappers_route_by_device():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.require(torch.zeros(3), torch.float32, "x")
     assert set(kernels.launch_counts()) == {
-        "canon_memo", "probe_runs", "compact_append", "merge_runs", "raft_guard",
-        "raft_apply", "raft_fold", "chunk_sort", "canon_tiered", "canon_signatures",
+        "canon_memo", "chunk_dedup", "compact_append", "merge_runs", "raft_guard",
+        "raft_apply", "raft_fold", "canon_tiered", "canon_signatures",
         "sim_pick", "raft_predicates", "raft_sim_check", "hash_rows", "pull_guard",
         "pull_apply", "pull_fold", "pull_predicates", "pull_sim_check", "kraft_guard",
         "kraft_apply", "kraft_fold", "kraft_predicates", "kraft_sim_check", "reconfig_guard",
