@@ -3196,9 +3196,11 @@ def main() -> int:
     )
 
     # chunk_dedup: VC lanes against a 2^24-lane seen run plus ladder runs
-    # of VC, 2 VC and 4 VC lanes (each half filled), half the lanes present
+    # of VC, 2 VC and 4 VC lanes (each half filled), half the lanes present;
+    # keys over the whole int64 range, as fingerprints (uniform 64-bit
+    # hashes) are
     def sorted_run(n_real, size):
-        v = torch.randint(-(1 << 62), 1 << 62, (n_real,), dtype=torch.int64, device=dev)
+        v = torch.randint(-(1 << 63), (1 << 63) - 1, (n_real,), dtype=torch.int64, device=dev)
         pad = torch.full((size - n_real,), INT64_MAX, dtype=torch.int64, device=dev)
         return torch.cat([torch.sort(v).values, pad])
 
@@ -3206,7 +3208,7 @@ def main() -> int:
     ladder = [sorted_run(n // 2, n) for n in (VC, VC << 1, VC << 2)]
     runs = [seen] + ladder
     present = torch.cat([seen[:8_000_000], *[r[: r.numel() // 2] for r in ladder]])
-    q = torch.randint(-(1 << 62), 1 << 62, (VC,), dtype=torch.int64, device=dev)
+    q = torch.randint(-(1 << 63), (1 << 63) - 1, (VC,), dtype=torch.int64, device=dev)
     pick = torch.randint(0, present.numel(), (VC // 2,), device=dev)
     q[: VC // 2] = present[pick]
     q[-16:] = INT64_MAX

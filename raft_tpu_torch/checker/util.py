@@ -110,13 +110,15 @@ def chunk_dedup(fps: torch.Tensor, runs, run_len: int, with_order: bool = False)
         return chunk_dedup_plain(fps, runs, run_len, with_order)
     k = kernels.CHUNK_DEDUP
     kernels.require(fps, torch.int64, "fps", ndim=1)
-    runs = [r for r in runs if r.numel()]
-    if len(runs) > MAX_RUNS:
-        raise ValueError(f"chunk_dedup takes at most {MAX_RUNS} runs")
     if n >= 2**31:
         raise ValueError("chunk_dedup takes fewer than 2^31 lanes")
+    live = []
     for r in runs:
-        kernels.require(r, torch.int64, "run", ndim=1)
+        if r.numel():
+            kernels.require(r, torch.int64, "run", ndim=1)
+            live.append(r)
+    if len(live) > MAX_RUNS:
+        raise ValueError(f"chunk_dedup takes at most {MAX_RUNS} runs")
     words = _DEDUP_SCRATCH.get(n)
     if words is None:
         words = _DEDUP_SCRATCH[n] = k.lib.chunk_dedup_scratch(n)
@@ -125,13 +127,12 @@ def chunk_dedup(fps: torch.Tensor, runs, run_len: int, with_order: bool = False)
     new = torch.empty(n, dtype=torch.bool, device=dev)
     run = torch.empty(run_len, dtype=torch.int64, device=dev)
     order = torch.empty(n, dtype=torch.int32, device=dev) if with_order else None
-    ptrs = (ctypes.c_longlong * MAX_RUNS)(*[r.data_ptr() for r in runs])
-    lens = (ctypes.c_longlong * MAX_RUNS)(*[r.numel() for r in runs])
-    rc = k.lib.chunk_dedup(ctypes.cast(ptrs, ctypes.c_void_p), len(runs),
-                           ctypes.cast(lens, ctypes.c_void_p), fps.data_ptr(), n,
-                           new.data_ptr(), run.data_ptr(), run_len,
-                           order.data_ptr() if with_order else None, scratch.data_ptr(), words,
-                           kernels.stream(dev))
+    # the runs' device pointers, then their lengths
+    spec = (ctypes.c_longlong * (2 * len(live)))(*[r.data_ptr() for r in live],
+                                                  *[r.numel() for r in live])
+    rc = k.lib.chunk_dedup(ctypes.addressof(spec), len(live), fps.data_ptr(), n, new.data_ptr(),
+                           run.data_ptr(), run_len, order.data_ptr() if with_order else None,
+                           scratch.data_ptr(), words, kernels.stream(dev))
     k.launched(rc)
     return (new, run, order) if with_order else (new, run)
 

@@ -58,7 +58,7 @@ _SIGNATURES = {
         "canon_tiered_occupancy": [_P, _I, _P],
     },
     "chunk_dedup": {
-        "chunk_dedup": [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _L, _P],
+        "chunk_dedup": [_P, _I, _P, _I, _P, _P, _I, _P, _P, _L, _P],
         "chunk_dedup_scratch": [_I],
     },
     "compact_append": {

@@ -5,9 +5,9 @@ _st_dedup's first occurrence (raft_tpu/checker/device_bfs.py:413-420,
 ``sort_u64_with_idx``) and _st_finish's run (:495, ``sort_u64``). A numpy
 replay of csrc/chunk_dedup.cu's design (buckets on the top key bits, one
 sort of (key, lane) pairs a bucket, only first occurrences probing the
-runs, each in the slice of the runs its tile of 256 sorted keys maps to,
-found by the kernel's 32-ary warp search, then staged whole or sampled
-every step-th entry) must give the same answer."""
+runs, each in the slice of the runs that its bucket's key range maps to,
+found by the kernel's 32-ary warp search, then staged whole in groups of
+runs or sampled every step-th entry) must give the same answer."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +24,10 @@ from raft_tpu_torch.convert import fps_from_u64
 torch.set_num_threads(1)
 
 # csrc/chunk_dedup.cu's geometry: a tile of sorted positions, the run
-# entries a block stages, the most buckets
-CD_T, CD_POOL, CD_MAX_LOG_B = 256, 2048, 12
+# entries a block stages, the entries a key reads at once between two
+# samples, the most buckets
+CD_T, CD_CAP, CD_POOL, CD_SCAN, CD_SPK, CD_MIN_SAMPLES, CD_MAX_LOG_B = (
+    256, 1024, 2048, 16, 2, 64, 12)
 
 
 def _reference(fps, runs, run_len):
@@ -46,16 +48,16 @@ def _reference(fps, runs, run_len):
     return np.asarray(new), run, np.asarray(order).astype(np.int32)
 
 
-def _warp_search(a, x, upper: bool) -> int:
-    """cd_warp_search: the first i with a[i] >= x (upper: > x), len(a)
-    when none, by 32 samples a level."""
+def _warp_search(a, x) -> int:
+    """cd_warp_search: the first i with a[i] >= x, len(a) when none, by 32
+    samples a level."""
     lo, hi = 0, len(a)
     while lo < hi:
         step = (hi - lo + 31) // 32
         pos = lo + np.arange(32) * step
         ok = pos < hi
         v = a[np.minimum(pos, hi - 1)]
-        below = ok & ((v <= x) if upper else (v < x))
+        below = ok & (v < x)
         c = int(below.sum())
         assert below[:c].all()  # the samples below x come first
         if c == 0:
@@ -66,31 +68,40 @@ def _warp_search(a, x, upper: bool) -> int:
     return lo
 
 
-def _probe_tile(keys, cand, runs):
+def _probe_tile(keys, cand, runs, bounds):
     """cd_probe over one tile: keys ascending (u64), cand the first
-    occurrences; returns fresh."""
+    occurrences (position p on thread p % CD_T), bounds each run's slice
+    of the bucket; returns fresh."""
     fresh = cand.copy()
-    if not cand.any():
-        return fresh
-    bounds = [(_warp_search(r, keys[0], False), _warp_search(r, keys[-1], True)) for r in runs]
-    for r, (lo, hi) in zip(runs, bounds):
-        if not fresh.any():
-            break
-        length = hi - lo
-        step = 1 if length <= CD_POOL else -(-length // CD_POOL)
-        pool = r[lo:hi:step]
-        assert len(pool) <= CD_POOL
+    r = 0
+    while r < len(runs) and fresh.any():
+        # a group: one sampled run, or the runs whose slices fit the pool together
+        total, r1, step = bounds[r][1] - bounds[r][0], r + 1, 1
+        if total > CD_POOL:  # CD_SPK samples a thread with a fresh key
+            nf = len({p % CD_T for p in np.nonzero(fresh)[0]})
+            step = -(-total // min(CD_POOL, max(CD_MIN_SAMPLES, CD_SPK * nf)))
+        else:
+            while r1 < len(runs) and total + bounds[r1][1] - bounds[r1][0] <= CD_POOL:
+                total += bounds[r1][1] - bounds[r1][0]
+                r1 += 1
+        pools = [runs[u][bounds[u][0]:bounds[u][1]:step] for u in range(r, r1)]
+        assert sum(map(len, pools)) <= CD_POOL
         for p in np.nonzero(fresh)[0]:
             q = keys[p]
-            plo = int(np.searchsorted(pool, q, "left"))
-            hit = plo < len(pool) and pool[plo] == q
-            if not hit and step > 1 and plo > 0:
-                glo = lo + (plo - 1) * step + 1
-                ghi = min(lo + plo * step, hi)
-                assert ghi - glo < step
-                g = glo + int(np.searchsorted(r[glo:ghi], q, "left"))
-                hit = g < ghi and r[g] == q
-            fresh[p] = not hit
+            for u, pool in zip(range(r, r1), pools):
+                a, (lo, hi) = runs[u], bounds[u]
+                plo = int(np.searchsorted(pool, q, "left"))
+                hit = plo < len(pool) and pool[plo] == q
+                if not hit and step > 1 and plo > 0:
+                    glo, ghi = lo + (plo - 1) * step + 1, min(lo + plo * step, hi)
+                    while ghi - glo > CD_SCAN:
+                        mid = (glo + ghi) // 2
+                        glo, ghi = (mid + 1, ghi) if a[mid] < q else (glo, mid + 1)
+                    hit = bool((a[glo:ghi] == q).any())
+                if hit:
+                    fresh[p] = False
+                    break
+        r = r1
     return fresh
 
 
@@ -102,15 +113,21 @@ def _replay(fps, runs, run_len):
     bucket = fps >> np.uint64(64 - log_b) if log_b else np.zeros(n, np.uint64)
     new = np.zeros(n, bool)
     order, emitted = [], []
-    for b in range(1 << log_b):
+    B = 1 << log_b
+    for b in range(B):
+        # the bucket's slice of each run: from its first key to the next
+        # bucket's, the last bucket's to the run's first U64_MAX
+        lo_key = np.uint64(b << (64 - log_b)) if log_b else np.uint64(0)
+        hi_key = np.uint64((b + 1) << (64 - log_b)) if b + 1 < B else U64_MAX
+        bounds = [(_warp_search(r, lo_key), _warp_search(r, hi_key)) for r in runs]
         lanes = np.nonzero(real & (bucket == np.uint64(b)))[0]
         lanes = lanes[np.lexsort((lanes, fps[lanes]))]
         keys = fps[lanes]
         first = np.ones(len(keys), bool)
         first[1:] = keys[1:] != keys[:-1]
-        for s0 in range(0, len(keys), CD_T):
-            tile = slice(s0, s0 + CD_T)
-            fresh = _probe_tile(keys[tile], first[tile], runs)
+        for s0 in range(0, len(keys), CD_CAP):
+            tile = slice(s0, s0 + CD_CAP)
+            fresh = _probe_tile(keys[tile], first[tile], runs, bounds)
             new[lanes[tile]] = fresh
             emitted.append(keys[tile][fresh])
         order.append(lanes)
@@ -190,8 +207,7 @@ def test_warp_search_matches_searchsorted():
     for size in (0, 1, 31, 32, 33, 1000, 1 << 16):
         a = np.sort(rng.integers(0, 50, size).astype(np.uint64))
         for x in np.concatenate([a[:40], np.arange(-1, 52, 5).clip(0).astype(np.uint64)]):
-            assert _warp_search(a, x, False) == np.searchsorted(a, x, "left")
-            assert _warp_search(a, x, True) == np.searchsorted(a, x, "right")
+            assert _warp_search(a, x) == np.searchsorted(a, x, "left")
 
 
 def test_chunk_dedup_refuses_bad_arguments():

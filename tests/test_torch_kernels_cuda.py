@@ -164,8 +164,8 @@ def test_chunk_dedup_skewed(dev, kind):
     n = 70000
     pool = torch.randint(-(1 << 63), (1 << 63) - 1, (n // 4,), generator=gen)
     runs = _dedup_runs(dev, pool, 4, gen)
-    if kind == "equal":
-        fps = torch.full((n,), int(pool[0]), dtype=torch.int64)
+    if kind == "equal":  # a key no run holds
+        fps = torch.full((n,), 12345, dtype=torch.int64)
     elif kind == "narrow":
         fps = torch.randint(0, 30000, (n,), generator=gen)
         runs.append(torch.unique(fps[::3]).to(dev))
