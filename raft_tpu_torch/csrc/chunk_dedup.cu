@@ -34,7 +34,7 @@
 //   cd_sort_probe  a block per bucket, taken in bucket order from an atomic
 //                  ticket. Sort: a bucket of at most CD_CAP pairs is a
 //                  bitonic network over the least power of two >= its size,
-//                  E = 1, 2 or 4 pairs a thread (element e * 256 + t):
+//                  E = 1, 2, 4 or 8 pairs a thread (element e * 256 + t):
 //                  strides below a warp by __shfl_xor_sync, strides of a
 //                  warp up to the block through shared memory, larger
 //                  strides between a thread's own registers. A larger
@@ -68,7 +68,7 @@
 
 #define MAX_RUNS 32
 #define CD_T 256             // threads of a cd_sort_probe block
-#define CD_CAP 1024          // pairs a bucket sorts in registers (E = CD_CAP / CD_T at most 4)
+#define CD_CAP 2048          // pairs a bucket sorts in registers (E = CD_CAP / CD_T at most 8)
 #define CD_E (CD_CAP / CD_T) // sorted positions a thread probes
 #define CD_POOL 2048         // run entries a block stages in shared memory
 #define CD_SCAN 16           // run entries a key reads at once between two samples
@@ -496,7 +496,8 @@ cd_sort_probe(CdRuns runs, int log_b, const long long* __restrict__ bounds,
   if (m <= CD_CAP) {
     if (m <= CD_T) cd_sort_piece<1>(ka + base, la + base, m, sk, si);
     else if (m <= 2 * CD_T) cd_sort_piece<2>(ka + base, la + base, m, sk, si);
-    else cd_sort_piece<4>(ka + base, la + base, m, sk, si);
+    else if (m <= 4 * CD_T) cd_sort_piece<4>(ka + base, la + base, m, sk, si);
+    else cd_sort_piece<CD_E>(ka + base, la + base, m, sk, si);
     K = sk;
     I = si;
   } else {  // pieces of CD_CAP sorted in place, then merged in global scratch
@@ -504,7 +505,7 @@ cd_sort_probe(CdRuns runs, int log_b, const long long* __restrict__ bounds,
     int *srcl = la + base, *dstl = lb + base;
     for (int c0 = 0; c0 < m; c0 += CD_CAP) {
       const int c = min(CD_CAP, m - c0);
-      cd_sort_piece<4>(srck + c0, srcl + c0, c, sk, si);
+      cd_sort_piece<CD_E>(srck + c0, srcl + c0, c, sk, si);
       for (int i = t; i < c; i += CD_T) {
         srck[c0 + i] = sk[i];
         srcl[c0 + i] = si[i];

@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 # entries a block stages, the entries a key reads at once between two
 # samples, the most buckets
 CD_T, CD_CAP, CD_POOL, CD_SCAN, CD_SPK, CD_MIN_SAMPLES, CD_MAX_LOG_B = (
-    256, 1024, 2048, 16, 2, 64, 12)
+    256, 2048, 2048, 16, 2, 64, 12)
 
 
 def _reference(fps, runs, run_len):

@@ -157,7 +157,7 @@ def test_chunk_dedup(dev, n, n_runs):
 
 @pytest.mark.parametrize("kind", ["equal", "narrow", "sentinel", "every", "ends"])
 def test_chunk_dedup_skewed(dev, kind):
-    # buckets far past the 1,024 pairs sorted in registers (all lanes equal;
+    # buckets far past the 2,048 pairs sorted in registers (all lanes equal;
     # every key in one bucket, merged in global scratch), all lanes at the
     # sentinel, a run holding every key, keys at a run's first and last entry
     gen = torch.Generator().manual_seed(11)
