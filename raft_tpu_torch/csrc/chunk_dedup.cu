@@ -13,19 +13,25 @@
 //   order[n]  (optional) the lanes ordered by (fingerprint as u64, lane).
 //
 // Design. Pairs (key, lane) order totally, so any correct sort is the
-// stable one. Fingerprints are uniform 64-bit hashes, so an MSD bucket pass
-// on the key's top log2(B) bits (B ~ n / 256 buckets) splits the chunk into
-// buckets of about 256 lanes that one block each sorts in registers; equal
-// keys share a bucket, so the first occurrence is a bucket-local test. The
-// sentinel lanes (INT64_MAX) form a last bucket of their own, kept in lane
-// order and never sorted or probed. Three launches at any n > 0:
+// stable one. An MSD bucket pass splits the chunk into B ~ n / 256 buckets,
+// contiguous key ranges that one block each sorts in registers; equal keys
+// share a bucket, so the first occurrence is a bucket-local test. Keys are
+// 64-bit hashes, but a canonical fingerprint is the least of a state's
+// permuted hashes, so they lean toward small values (the least of 24 puts
+// 9% of a four-server chunk below 2^56): a bucket is a run of fine bins
+// (the key's top CD_FINE_BITS) holding about 1/B of a sample of the lanes.
+// The sentinel lanes (INT64_MAX) form a last bucket of their own, kept in
+// lane order and never sorted or probed. Three launches at any n > 0:
 //
-//   cd_count       G blocks of lanes: each block's count per bucket (shared
-//                  memory atomics, the sentinel's by warp ballot) into a
-//                  [B + 1, G] matrix; the run filled with INT64_MAX; and
-//                  every run's slice of every bucket (from the first entry
-//                  at or above the bucket's first key to the next bucket's),
-//                  a 32-ary search by a warp each.
+//   cd_count       G blocks of lanes. Each block draws the same CD_SAMPLES
+//                  evenly spaced lanes, counts their real keys a fine bin
+//                  and maps fine bin f to bucket floor(samples below f * B /
+//                  real samples); counts its lanes per bucket (shared memory
+//                  atomics, the sentinel's by warp ballot) into a [B + 1, G]
+//                  matrix; fills the run with INT64_MAX; and finds every
+//                  run's slice of every bucket (from the first entry at or
+//                  above the bucket's first key to the next bucket's), a
+//                  32-ary search by a warp each.
 //   cd_scatter     the same blocks: each turns the matrix into its own
 //                  offset per bucket (block 0 also writes the bucket starts
 //                  and clears the look-back state), scatters its real lanes'
@@ -75,6 +81,9 @@
 #define CD_SPK 2             // samples of a long slice staged a thread with a fresh key
 #define CD_MIN_SAMPLES 64    // samples of a long slice staged at least
 #define CD_LANE_T 1024       // threads of a cd_count / cd_scatter block
+#define CD_FINE_BITS 12      // the fine bins a bucket is a run of: the key's top bits
+#define CD_FINE (1 << CD_FINE_BITS)
+#define CD_SAMPLES 4096      // lanes whose keys place the bucket boundaries
 #define CD_LANES 1024        // lanes a cd_count block takes at least
 #define CD_MAX_G 64          // cd_count blocks at most
 #define CD_MAX_LOG_B 12      // 4,096 buckets at most (cd_scatter's offsets in shared memory)
@@ -109,12 +118,13 @@ static CdGeom cd_geom(int n) {
 }
 
 // scratch layout (8-byte words first): keys a, keys b, look-back status,
-// the runs' bucket bounds, then lanes a, lanes b, the count matrix, the
-// bucket starts and the ticket
+// the runs' bucket bounds, the fine bins' buckets, then lanes a, lanes b,
+// the count matrix, the bucket starts and the ticket
 struct CdScratch {
   uint64_t *ka, *kb;
   unsigned long long* status;
   long long* bounds;
+  unsigned short* fine_bucket;
   int *la, *lb, *cnt, *bstart;
   unsigned* ticket;
 };
@@ -130,17 +140,18 @@ static long long cd_scratch_layout(int n, const CdGeom& g, char* base, CdScratch
   uint64_t* kb = (uint64_t*)take(8ll * n);
   unsigned long long* status = (unsigned long long*)take(8ll * g.B);
   long long* bounds = (long long*)take(8ll * MAX_RUNS * (g.B + 1));
+  unsigned short* fine_bucket = (unsigned short*)take(2ll * CD_FINE);
   int* la = (int*)take(4ll * n);
   int* lb = (int*)take(4ll * n);
   int* cnt = (int*)take(4ll * g.G * (g.B + 1));
   int* bstart = (int*)take(4ll * (g.B + 2));
   unsigned* ticket = (unsigned*)take(4);
-  if (s) *s = CdScratch{ka, kb, status, bounds, la, lb, cnt, bstart, ticket};
+  if (s) *s = CdScratch{ka, kb, status, bounds, fine_bucket, la, lb, cnt, bstart, ticket};
   return off;
 }
 
-__device__ __forceinline__ int cd_bucket(uint64_t u, int log_b) {
-  return log_b ? (int)(u >> (64 - log_b)) : 0;
+__device__ __forceinline__ int cd_fine(uint64_t u) {
+  return (int)(u >> (64 - CD_FINE_BITS));
 }
 
 __device__ __forceinline__ bool cd_less(uint64_t ka, int ia, uint64_t kb, int ib) {
@@ -175,8 +186,10 @@ __device__ __forceinline__ long long cd_warp_search(const long long* a, long lon
 
 __global__ void __launch_bounds__(CD_LANE_T)
 cd_count(const long long* __restrict__ fps, int n, int log_b, int L, int* __restrict__ cnt,
-         long long* __restrict__ run, int R, CdRuns runs, long long* __restrict__ bounds) {
+         long long* __restrict__ run, int R, CdRuns runs, long long* __restrict__ bounds,
+         unsigned short* __restrict__ fine_bucket) {
   __shared__ int hist[(1 << CD_MAX_LOG_B) + 1];
+  __shared__ int fine[CD_FINE];  // the samples' counts a fine bin, then its bucket
   __shared__ const long long* rptr[MAX_RUNS];
   __shared__ long long rlen[MAX_RUNS];
   const int B = 1 << log_b, t = threadIdx.x, g = blockIdx.x;
@@ -185,6 +198,36 @@ cd_count(const long long* __restrict__ fps, int n, int log_b, int L, int* __rest
     rlen[t] = runs.len[t];
   }
   for (int b = t; b <= B; b += CD_LANE_T) hist[b] = 0;
+  for (int f = t; f < CD_FINE; f += CD_LANE_T) fine[f] = 0;
+  __syncthreads();
+  // the buckets: fine bins (the key's top CD_FINE_BITS) merged so that each
+  // holds about 1/B of CD_SAMPLES evenly spaced lanes' real keys (every
+  // block the same; block 0 keeps them for cd_scatter)
+#pragma unroll
+  for (int k = 0; k < CD_SAMPLES / CD_LANE_T; ++k) {
+    const long long lane = (long long)(k * CD_LANE_T + t) * n / CD_SAMPLES;
+    const uint64_t u = n ? (uint64_t)fps[lane] ^ RT_SIGN : ~0ull;
+    if (u != ~0ull) atomicAdd(&fine[cd_fine(u)], 1);
+  }
+  __syncthreads();
+  {
+    constexpr int Q = CD_FINE / CD_LANE_T;  // consecutive fine bins a thread
+    int c[Q], sum = 0;
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      c[k] = fine[t * Q + k];
+      sum += c[k];
+    }
+    int nr;  // the real samples
+    int before = rt_block_exclusive_scan<int, CD_LANE_T>(sum, &nr);
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      const int bk = nr ? min(B - 1, (int)((long long)before * B / nr)) : 0;
+      fine[t * Q + k] = bk;
+      if (g == 0) fine_bucket[t * Q + k] = (unsigned short)bk;
+      before += c[k];
+    }
+  }
   __syncthreads();
   const int lo = g * L, hi = min(n, lo + L);
   for (int base = lo; base < hi; base += CD_LANE_T) {
@@ -192,7 +235,7 @@ cd_count(const long long* __restrict__ fps, int n, int log_b, int L, int* __rest
     const bool active = i < hi;
     const uint64_t u = active ? (uint64_t)fps[i] ^ RT_SIGN : 0;
     const bool sent = active && u == ~0ull;
-    if (active && !sent) atomicAdd(&hist[cd_bucket(u, log_b)], 1);
+    if (active && !sent) atomicAdd(&hist[fine[cd_fine(u)]], 1);
     const unsigned ws = __ballot_sync(0xffffffffu, sent);
     if ((t & 31) == 0 && ws) atomicAdd(&hist[B], __popc(ws));
   }
@@ -200,13 +243,20 @@ cd_count(const long long* __restrict__ fps, int n, int log_b, int L, int* __rest
   for (int b = t; b <= B; b += CD_LANE_T) cnt[b * gridDim.x + g] = hist[b];
   for (int p = g * CD_LANE_T + t; p < R; p += gridDim.x * CD_LANE_T) run[p] = RT_ENC_MAX;
   // each run's slice of each bucket: bounds[r][j] = the first index of run
-  // r at or above bucket j's first key, bounds[r][B] = its real length (the
-  // first INT64_MAX); a warp a bound
+  // r at or above bucket j's first key (that of its first fine bin; none:
+  // the run's real length, as for j = B, the first INT64_MAX); a warp a bound
   const int nw = gridDim.x * (CD_LANE_T / 32);
   for (int j = g * (CD_LANE_T / 32) + (t >> 5); j < runs.n * (B + 1); j += nw) {
     const int r = j / (B + 1), bd = j - r * (B + 1);
-    const long long x = bd == B ? RT_ENC_MAX
-                                : (long long)((log_b ? (uint64_t)bd << (64 - log_b) : 0) ^ RT_SIGN);
+    int f0 = 0, f1 = bd == B ? CD_FINE : bd ? CD_FINE : 0;  // the first fine bin of bucket bd
+    if (bd && bd < B) {
+      while (f0 < f1) {
+        const int mid = (f0 + f1) >> 1;
+        if (fine[mid] < bd) f0 = mid + 1; else f1 = mid;
+      }
+    }
+    const long long x = f1 == CD_FINE ? RT_ENC_MAX
+                                      : (long long)(((uint64_t)f1 << (64 - CD_FINE_BITS)) ^ RT_SIGN);
     const long long at = cd_warp_search(rptr[r], rlen[r], x);
     if ((t & 31) == 0) bounds[j] = at;
   }
@@ -214,12 +264,15 @@ cd_count(const long long* __restrict__ fps, int n, int log_b, int L, int* __rest
 
 __global__ void __launch_bounds__(CD_LANE_T)
 cd_scatter(const long long* __restrict__ fps, int n, int log_b, int L,
-           const int* __restrict__ cnt, int* __restrict__ bstart,
+           const unsigned short* __restrict__ fine_bucket, const int* __restrict__ cnt,
+           int* __restrict__ bstart,
            unsigned long long* __restrict__ status, unsigned* __restrict__ ticket,
            uint64_t* __restrict__ ka, int* __restrict__ la, bool* __restrict__ new_out,
            int* __restrict__ order) {
   __shared__ int off[(1 << CD_MAX_LOG_B) + 1], tot_s[(1 << CD_MAX_LOG_B) + 1];
+  __shared__ unsigned short fine[CD_FINE];
   const int B = 1 << log_b, nb = B + 1, t = threadIdx.x, g = blockIdx.x, G = gridDim.x;
+  for (int f = t; f < CD_FINE; f += CD_LANE_T) fine[f] = fine_bucket[f];
   // this block's offset of every bucket: the lanes of all buckets before
   // it plus those of this bucket in the blocks before this one. A warp
   // takes a bucket at a time, its G (<= 64) counts two a lane.
@@ -273,7 +326,7 @@ cd_scatter(const long long* __restrict__ fps, int n, int log_b, int L,
       if (order) order[off[B] + r] = i;
     }
     if (active && !sent) {
-      const int p = atomicAdd(&off[cd_bucket(u, log_b)], 1);
+      const int p = atomicAdd(&off[fine[cd_fine(u)]], 1);
       ka[p] = u;
       la[p] = i;
     }
@@ -642,11 +695,12 @@ extern "C" int chunk_dedup(const long long* run_spec, int n_runs, const long lon
     runs.ptr[r] = r < n_runs ? (const long long*)run_spec[r] : nullptr;
     runs.len[r] = r < n_runs ? run_spec[n_runs + r] : 0;
   }
-  cd_count<<<g.G, CD_LANE_T, 0, s>>>(fps, n, g.log_b, g.L, sc.cnt, run, R, runs, sc.bounds);
+  cd_count<<<g.G, CD_LANE_T, 0, s>>>(fps, n, g.log_b, g.L, sc.cnt, run, R, runs, sc.bounds,
+                                     sc.fine_bucket);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n == 0) return (int)e;
-  cd_scatter<<<g.G, CD_LANE_T, 0, s>>>(fps, n, g.log_b, g.L, sc.cnt, sc.bstart, sc.status,
-                                       sc.ticket, sc.ka, sc.la, new_out, order);
+  cd_scatter<<<g.G, CD_LANE_T, 0, s>>>(fps, n, g.log_b, g.L, sc.fine_bucket, sc.cnt, sc.bstart,
+                                       sc.status, sc.ticket, sc.ka, sc.la, new_out, order);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   cd_sort_probe<<<g.B, CD_T, 0, s>>>(runs, g.log_b, sc.bounds, sc.bstart, sc.ticket, sc.status,

@@ -20,11 +20,13 @@ Raft.cfg chunk at D = 1 (the sharded engine's route), the dedup stage
 chunk's fingerprints against the engine's seen run plus three ladder runs
 of the stage's sizes (R0, 2 R0 and 4 R0 lanes, half filled from a fixed
 seed): its device ms and its host time a call (Python only, 50 calls
-without a sync), the same on a chunk of the
-depth-9 five-server Raft frontier (its canon ``canon_tiered``, the 2-word
-path, and ``canon_signatures`` on the worklist), the same on a chunk of the
+without a sync), the same on a chunk of the depth-9 five-server Raft
+frontier (its canon ``canon_tiered``, the 2-word path, and
+``canon_signatures`` on the worklist), the same on a chunk of the
 depth-14 five-server AddRemove frontier (``canon_tiered``'s general path,
-cold and warm, beside the reconfiguration kernels), and the guard and apply on
+cold and warm, beside the reconfiguration kernels), the same on a chunk of the
+depth-11 four-server AddRemove frontier (``canon_memo``'s general path, whose
+fingerprints are the least of 24 permuted hashes), and the guard and apply on
 one move of a 65,536-walk five-server FlexibleRaft simulate (the shapes of
 ``chip_smoke.py`` phase 3 and its simulate). The inputs come from the
 checkout's own engine with fixed seeds, so every checkout times the same
@@ -159,6 +161,11 @@ _, b, _ = run_check("RaftWithReconfigAddRemove.cfg", text=cs.ADDREMOVE5_CFG, dev
                     chunk=cs.CHUNK, max_depth=cs.ADDREMOVE5_SAMPLE_DEPTH, lenient=True,
                     caps=cs.RECONFIG_CAPS)
 chunk_times("addremove5", b)
+del b
+_, b, _ = run_check("RaftWithReconfigAddRemove.cfg", text=cs.ADDREMOVE_CFG, device="cuda",
+                    chunk=cs.CHUNK, max_depth=cs.RECONFIG_SAMPLE_DEPTH, lenient=True,
+                    caps=cs.RECONFIG_CAPS)
+chunk_times("addremove4", b)
 del b
 setup = load_setup("FlexibleRaft.cfg", text=cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)
 model = setup.model

@@ -3,8 +3,9 @@ chunk_dedup_plain) against the JAX reference's own formulas, bit for bit:
 the probe of every run through raft_tpu/checker/util.py:21 probe_sorted,
 _st_dedup's first occurrence (raft_tpu/checker/device_bfs.py:413-420,
 ``sort_u64_with_idx``) and _st_finish's run (:495, ``sort_u64``). A numpy
-replay of csrc/chunk_dedup.cu's design (buckets on the top key bits, one
-sort of (key, lane) pairs a bucket, only first occurrences probing the
+replay of csrc/chunk_dedup.cu's design (buckets as runs of fine bins of the
+top key bits, equi-depth over a sample of the lanes; one sort of (key,
+lane) pairs a bucket, only first occurrences probing the
 runs, each in the slice of the runs that its bucket's key range maps to,
 found by the kernel's 32-ary warp search, then staged whole in groups of
 runs or sampled every step-th entry) must give the same answer."""
@@ -28,6 +29,7 @@ torch.set_num_threads(1)
 # samples, the most buckets
 CD_T, CD_CAP, CD_POOL, CD_SCAN, CD_SPK, CD_MIN_SAMPLES, CD_MAX_LOG_B = (
     256, 2048, 2048, 16, 2, 64, 12)
+CD_FINE_BITS, CD_SAMPLES = 12, 4096
 
 
 def _reference(fps, runs, run_len):
@@ -109,18 +111,30 @@ def _replay(fps, runs, run_len):
     """The kernel's design in numpy: (new, run, order)."""
     n = len(fps)
     log_b = min(max((max(n, 1) - 1).bit_length() - 8, 0), CD_MAX_LOG_B)
+    B = 1 << log_b
     real = fps != U64_MAX
-    bucket = fps >> np.uint64(64 - log_b) if log_b else np.zeros(n, np.uint64)
+    shift = np.uint64(64 - CD_FINE_BITS)
+    # fine bin f (the top bits) goes to bucket floor(samples below f * B /
+    # real samples), the samples CD_SAMPLES evenly spaced lanes' real keys
+    sample = fps[np.arange(CD_SAMPLES) * n // CD_SAMPLES] if n else np.zeros(0, np.uint64)
+    sample = sample[sample != U64_MAX]
+    counts = np.bincount((sample >> shift).astype(np.int64), minlength=1 << CD_FINE_BITS)
+    below = np.cumsum(counts) - counts
+    fine = np.minimum(B - 1, below * B // len(sample)) if len(sample) else 0 * below
+    bucket = fine[(fps >> shift).astype(np.int64)]
     new = np.zeros(n, bool)
     order, emitted = [], []
-    B = 1 << log_b
+
+    def first_key(j):  # bucket j's first key: that of its first fine bin
+        f = int(np.searchsorted(fine, j, "left")) if j < B else 1 << CD_FINE_BITS
+        return U64_MAX if f == 1 << CD_FINE_BITS else np.uint64(f) << shift
+
     for b in range(B):
         # the bucket's slice of each run: from its first key to the next
         # bucket's, the last bucket's to the run's first U64_MAX
-        lo_key = np.uint64(b << (64 - log_b)) if log_b else np.uint64(0)
-        hi_key = np.uint64((b + 1) << (64 - log_b)) if b + 1 < B else U64_MAX
-        bounds = [(_warp_search(r, lo_key), _warp_search(r, hi_key)) for r in runs]
-        lanes = np.nonzero(real & (bucket == np.uint64(b)))[0]
+        lo_key = first_key(b) if b else np.uint64(0)
+        bounds = [(_warp_search(a, lo_key), _warp_search(a, first_key(b + 1))) for a in runs]
+        lanes = np.nonzero(real & (bucket == b))[0]
         lanes = lanes[np.lexsort((lanes, fps[lanes]))]
         keys = fps[lanes]
         first = np.ones(len(keys), bool)
