@@ -21,7 +21,8 @@
 // 9% of a four-server chunk below 2^56): a bucket is a run of fine bins
 // (the key's top CD_FINE_BITS) holding about 1/B of a sample of the lanes.
 // The sentinel lanes (INT64_MAX) form a last bucket of their own, kept in
-// lane order and never sorted or probed. Three launches at any n > 0:
+// lane order and never sorted or probed. Three launches at any n > 0 (the
+// probe_runs and chunk_sort kernels it replaces took 9 at n = 65,536):
 //
 //   cd_count       G blocks of lanes. Each block draws the same CD_SAMPLES
 //                  evenly spaced lanes, counts their real keys a fine bin
