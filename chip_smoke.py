@@ -40,11 +40,15 @@ Phases, each of which fails the run on any mismatch:
      config appends (tests/test_torch_kernels_cuda.py config_edge_rows),
      with canon_memo's general path (N-word keys, the server_bitmask
      kind, up to 24 remap fields) on their successor rows and permuted
-     copies; canon_tiered's general path (memo cold and warm, fingerprint
-     seeds 0 and 0x5EED5EED) and canon_signatures on a chunk of each
-     five-server reconfiguration cfg's frontier (ADDREMOVE5_CFG,
-     JOINT5_CFG: 5- and 7-word keys, member-set fields, log fields of
-     several lanes a server; timed) and on their server-permuted copies;
+     copies; their apply (the group apply, G threads a worklist lane) also
+     printed with G, its resident warps an SM, its registers and stack
+     bytes and its bound's bytes and operations; canon_tiered's general
+     path (memo cold and warm, fingerprint seeds 0 and 0x5EED5EED) and
+     canon_signatures on a chunk of each five-server reconfiguration cfg's
+     frontier (ADDREMOVE5_CFG, JOINT5_CFG: 5- and 7-word keys, member-set
+     fields, log fields of several lanes a server; timed, with the family's
+     guard, apply and fold, the apply timed) and on their server-permuted
+     copies;
      raft_guard and raft_apply with the network-fault groups at
      Raft.cfg's width (A = 165) on a chunk of its --net-faults frontier
      (timed) and on edge rows with count-0, -1 and -2 records (both fault
@@ -754,6 +758,9 @@ MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 # H100 SXM 32-bit integer ops/s: 64 INT32 lanes per SM, half the 128 FP32
 # lanes behind the 67 TFLOP/s float32 rate (an upper rate, so a lower bound)
 INT32_OPS = 33.5e12
+# the families whose apply is the group apply (csrc/expand_driver.cuh
+# EXPAND_KERNELS_GROUP_APPLY: G threads a worklist lane)
+GROUP_APPLY = ("reconfig", "joint")
 CHUNK = 4096
 # the most frontier rows phase 3 copies to the host from one sampled wave
 POOL_ROWS = 1 << 21
@@ -1052,7 +1059,9 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
     also the CUDA-event times of each kernel and its plain version and the
     bounds. Returns {kernel: row}."""
     from raft_tpu_torch.checker.util import I32_MAX, compact_indices
-    from raft_tpu_torch.ops.expand import apply, apply_plain, fold, fold_plain, guard, guard_plain
+    from raft_tpu_torch.ops.expand import (
+        apply, apply_occupancy, apply_plain, fold, fold_plain, guard, guard_plain,
+    )
     from raft_tpu_torch.ops.hashing import INT64_MAX
 
     model, dev = bfs.model, bfs.device
@@ -1130,6 +1139,15 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
                 rank=rank), iters=20),
             bound_ms=fold_bytes / MEM_BPS * 1e3, bound_by="bytes"),
     }
+    if fam in GROUP_APPLY:
+        # the group apply: its launch shape, and its bound recounted with
+        # the operations beside the bytes, 3 a bag slot and key word of each
+        # put the worklist's lanes make (the guard's puts: sel holds every
+        # valid lane)
+        apply_ops = 3 * M * model.n_words * int(puts)
+        b, by = bound(apply_bytes, apply_ops)
+        rows[f"{fam}_apply"].update(bound_ms=b, bound_by=by, bytes=apply_bytes,
+                                    operations=apply_ops, **apply_occupancy(model))
     for r in rows.values():
         r.update(library_ms=None, max_abs_err=err)
     if fam != "raft":
@@ -1891,14 +1909,15 @@ def five_canon_rows(torch, rng, fam) -> dict:
           f"({bfs.frontier_rows.shape[0]} states) in {time.perf_counter() - t:.1f} s")
     del fr
     tag = fam.get("five_tag")
-    if tag:  # the family's expand kernels at five servers too
-        expand_kernels(torch, bfs, pool, rng, timed=False)
+    if tag:  # the family's expand kernels at five servers too, the apply timed
+        apply_row = expand_kernels(torch, bfs, pool, rng, timed=True)[f"{fam['prefix']}_apply"]
     flatc, selv, _fps = chunk_lanes(torch, bfs, pool, rng)
     if not tag:
         tiered_rows(torch, bfs.canon, flatc, selv, timed=False)
         return {}
     rows = {f"{k}[{tag}]": r for k, r in
             tiered_rows(torch, bfs.canon, flatc, selv, timed=True).items()}
+    rows[f"{fam['prefix']}_apply[{tag}]"] = apply_row
     tiered_rows(torch, Canonicalizer.for_model(bfs.model, seed=AUDIT_SEED), flatc, selv,
                 timed=False)
     canon_memo_rows(torch, bfs, flatc, selv)
@@ -3330,7 +3349,12 @@ def main() -> int:
                  f"{r['bound_all_lanes_ms']:.4f} ms, warm {r['warm_bound_all_lanes_ms']:.4f} ms; "
                  f"{r['warps_per_sm']} warps an SM" if "bound_all_lanes_ms" in r else "")
               + (f"; append_rows {r['rows_ms']:.4f} ms vs plain {r['rows_plain_ms']:.4f}"
-                 f" ms, bound {r['rows_bound_ms']:.4f} ms" if "rows_ms" in r else ""))
+                 f" ms, bound {r['rows_bound_ms']:.4f} ms" if "rows_ms" in r else "")
+              + (f"; G {r['G']} threads a lane, {r['warps_per_sm']} warps an SM "
+                 f"({r['registers']} registers, {r['stack_bytes']} stack bytes a thread); bound "
+                 f"from {r['bytes']} bytes ({r['bytes'] / MEM_BPS * 1e3:.4f} ms) and "
+                 f"{r['operations']} operations ({r['operations'] / INT32_OPS * 1e3:.4f} ms)"
+                 if "G" in r else ""))
     print(json.dumps({"chunk_dedup": rows["chunk_dedup"], "chunk_dedup_five_servers": dedup5}))
     print(json.dumps({"simulate_liveness_kernels": {
         k: rows[k] for k in ("sim_pick", "raft_sim_check", "hash_rows")}}))
@@ -3646,6 +3670,11 @@ def main() -> int:
                               "raft_tpu/models/base.py:217"),
         "pull_guard[fleet]": ("raft_tpu_torch/csrc/pull_expand.cu",
                               "raft_tpu/models/pull_raft.py:269"),
+        # the group apply at the five-server reconfiguration shapes
+        "reconfig_apply[addremove5]": ("raft_tpu_torch/csrc/reconfig_expand.cu",
+                                       "raft_tpu/models/base.py:426"),
+        "joint_apply[joint5]": ("raft_tpu_torch/csrc/joint_expand.cu",
+                                "raft_tpu/models/base.py:426"),
         # canon_tiered's general path (N-word keys, member-set fields) at
         # the five-server reconfiguration shapes
         **{f"{k}[{tag}]": (meta_src, f"raft_tpu/ops/symmetry.py:{line}")
@@ -3691,6 +3720,8 @@ def main() -> int:
                      "canon_tiered[addremove5]": five_report["launches"]["canon_tiered"],
                      "canon_tiered[joint5]": five_report["joint5"]["launches"]["canon_tiered"],
                      "canon_signatures[addremove5]": 0, "canon_signatures[joint5]": 0,
+                     "reconfig_apply[addremove5]": five_report["launches"]["reconfig_apply"],
+                     "joint_apply[joint5]": five_report["joint5"]["launches"]["joint_apply"],
                      # 4j's exhaustion
                      "owner_route": sharded_report["launches"]["owner_route"]}
     table = [
@@ -3700,7 +3731,7 @@ def main() -> int:
          "library_ms": r["library_ms"]}
         for k, r in rows.items()
     ]
-    check(len(table) == len(KERNEL_NAMES) + 8, f"{len(table)} kernels in the table")
+    check(len(table) == len(KERNEL_NAMES) + 10, f"{len(table)} kernels in the table")
     tags = list(phase_start)
     phase_s = {t: round(phase_start[n] - phase_start[t], 1) for t, n in zip(tags, tags[1:])}
     print(json.dumps({"phase_seconds": phase_s}))

@@ -228,6 +228,162 @@ __device__ void nw_bag_insert(int* words, int* cnt, int M, int nw, const WKey& k
   }
 }
 
+// ---- the same bag, its put split over a group of threads ----
+//
+// A group of G members shares one lane's put: member t takes the slots
+// m = t, t + G, ... of the probe (pos combined by sum, existed and
+// have_empty by OR) and of the count update, and the insert's shift moves
+// G slots a round from the top, each member reading its slot's lower
+// neighbour, then (after the group's barrier) writing it one slot up.
+// A group type supplies the combining:
+//   each(f)        f(t, G) for the member's own share (a warp tile, the
+//                  card's apply) or for all G shares in turn (serial);
+//   sum(x), any(b) the total over the members, in every member;
+//   sync()         the group's barrier, which also orders the members'
+//                  memory accesses (__syncwarp on the card);
+//   staged(r, w)   w(t, r(t)) with every member's r before any w;
+//   lead()         the member that makes the lane's scalar writes.
+// GrpOne is a group of one (a guard lane, or an apply with one thread a
+// lane); GrpSerial runs G shares on one thread (the host build of the
+// tests): its staged() runs r then w member by member in rank order, which
+// equals the barrier for the shift because member t reads the slot that
+// member t + 1 writes. The tile lives in expand_driver.cuh.
+//
+// Keys here are int32 words (IKey): the low 32 bits of WKey's int64 sum,
+// so nw_wrap's result, kept in registers where WKey's runtime word index
+// put it on the stack.
+
+struct GrpOne {
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    f(0, 1);
+  }
+  __device__ __forceinline__ int size() const { return 1; }
+  __device__ __forceinline__ int sum(int x) const { return x; }
+  __device__ __forceinline__ bool any(bool b) const { return b; }
+  __device__ __forceinline__ void sync() const {}
+  __device__ __forceinline__ bool lead() const { return true; }
+  template <class R, class Wr>
+  __device__ __forceinline__ void staged(R r, Wr w) const {
+    w(0, r(0));
+  }
+};
+
+struct GrpSerial {
+  int G;
+  template <class F>
+  void each(F f) const {
+    for (int t = 0; t < G; ++t) f(t, G);
+  }
+  int size() const { return G; }
+  int sum(int x) const { return x; }
+  bool any(bool b) const { return b; }
+  void sync() const {}
+  bool lead() const { return true; }
+  template <class R, class Wr>
+  void staged(R r, Wr w) const {
+    for (int t = 0; t < G; ++t) w(t, r(t));
+  }
+};
+
+struct IKey {
+  int w[NW_MAX_WORDS];
+};
+
+__device__ __forceinline__ IKey nw_ikey() {
+  IKey k;
+#pragma unroll
+  for (int w = 0; w < NW_MAX_WORDS; ++w) k.w[w] = 0;
+  return k;
+}
+
+// a slot's key words and count, as registers
+struct BagSlot {
+  int w[NW_MAX_WORDS];
+  int cnt;
+};
+
+template <class Gp>
+__device__ __forceinline__ Put nw_bag_probe_g(Gp g, const int* words, int M, int nw,
+                                              const IKey& k) {
+  int pos = 0;
+  bool existed = false, have_empty = false;
+  g.each([&](int t, int G) {
+    for (int m = t; m < M; m += G) {
+      bool less = false, tie = true;
+#pragma unroll
+      for (int w = 0; w < NW_MAX_WORDS; ++w) {
+        if (w >= nw) break;
+        const int x = words[w * M + m];
+        less = less || (tie && x < k.w[w]);
+        tie = tie && x == k.w[w];
+      }
+      existed |= tie;
+      have_empty |= words[m] == RA_EMPTY;
+      pos += less;
+    }
+  });
+  Put r;
+  r.pos = g.sum(pos);
+  r.existed = g.any(existed);
+  r.overflow = !r.existed && !g.any(have_empty);
+  return r;
+}
+
+// the insert half of wide_bag_put, in place, by the whole group (cnt may be
+// null: a guard's copy); ends with the group's barrier
+template <class Gp>
+__device__ __forceinline__ void nw_bag_insert_g(Gp g, int* words, int* cnt, int M, int nw,
+                                                const IKey& k, const Put& p) {
+  g.sync();  // the lane's earlier writes (the receipt's Discard) before the reads
+  if (p.existed) {
+    if (cnt)
+      g.each([&](int t, int G) {
+        for (int m = t; m < M; m += G) {
+          bool eq = true;
+#pragma unroll
+          for (int w = 0; w < NW_MAX_WORDS; ++w) {
+            if (w >= nw) break;
+            eq = eq && words[w * M + m] == k.w[w];
+          }
+          cnt[m] += eq;
+        }
+      });
+    g.sync();
+    return;
+  }
+  const int G = g.size();
+  for (int top = M - 1; top > p.pos; top -= G)  // slots top - t, G a round, from the top
+    g.staged(
+        [&](int t) {
+          BagSlot v;
+          const int x = top - t;
+          if (x > p.pos) {
+#pragma unroll
+            for (int w = 0; w < NW_MAX_WORDS; ++w)
+              if (w < nw) v.w[w] = words[w * M + x - 1];
+            if (cnt) v.cnt = cnt[x - 1];
+          }
+          return v;
+        },
+        [&](int t, const BagSlot& v) {
+          const int x = top - t;
+          if (x > p.pos) {
+#pragma unroll
+            for (int w = 0; w < NW_MAX_WORDS; ++w)
+              if (w < nw) words[w * M + x] = v.w[w];
+            if (cnt) cnt[x] = v.cnt;
+          }
+        });
+  if (p.pos < M && g.lead()) {  // slot pos was read before the last round's barrier
+#pragma unroll
+    for (int w = 0; w < NW_MAX_WORDS; ++w)
+      if (w < nw) words[w * M + p.pos] = k.w[w];
+    if (cnt) cnt[p.pos] = 1;
+  }
+  g.sync();
+}
+
 // ---- invariants (true = holds) over a family's fields ----
 
 // Where the invariants' fields sit in a row: the sizes, the offsets and

@@ -19,11 +19,18 @@
 // kraft_actions.cuh: with WRITE false it computes only (valid, rank, ovf)
 // and writes no successor lane; with WRITE true it also writes the
 // successor row `o`, a copy of the state `s` made by the caller, lane by
-// changed lane. RequestVote(i) puts a chain of up to S - 1 messages (one
-// per member), each put acting on the bag the previous one left, a put that
-// finds its message disabling the action (SendMultipleOnce); its guard lane
-// replays the chain on its own copy of the bag's key words (ConfigFamily
-// gives each RequestVote lane of a state a slot of CR_MAX_WORDS * M ints).
+// changed lane. Each also takes a group of threads (actions_common.cuh:
+// GrpOne for a guard lane, a warp tile for the apply, GrpSerial in the
+// host tests): every member computes the scalar part on the same inputs,
+// the lead member makes the scalar writes, and the bag put and the log
+// installs are split over the members. RequestVote(i) puts a chain of up
+// to S - 1 messages (one per member), each put acting on the bag the
+// previous one left, a put that finds its message disabling the action
+// (SendMultipleOnce); its guard lane replays the chain on its own copy of
+// the bag's key words (ConfigFamily gives each RequestVote lane of a state
+// a slot of CR_MAX_WORDS * M ints). Keys, key words and logs are read and
+// built with compile-time indices only (IKey, cr_unpack, CrInstall), so
+// they stay in registers.
 //
 // Message keys are N int32 words (N = the spec's NW, at most CR_MAX_WORDS):
 // a key is the SUM of (value << shift) into its word, computed in int32;
@@ -124,14 +131,29 @@ __device__ __forceinline__ int cr_lane(const int* row, int L, int l) {  // clamp
 
 // ---- message keys (ops/packing.py WidePacker) ----
 
-__device__ __forceinline__ void cr_pack(const int* sp, WKey& k, int f, long long v) {
+// add v << shift into the key's word at the triple of field f (int32
+// wraparound, as the plain versions pack); the word is picked by compares,
+// so the key stays in registers
+__device__ __forceinline__ void cr_pack(const int* sp, IKey& k, int f, int v) {
   const int* q = sp + CS_MSG + 3 * f;
-  k.w[q[0]] += (long long)((unsigned long long)v << q[1]);
+  const unsigned add = (unsigned)v << q[1];
+#pragma unroll
+  for (int w = 0; w < CR_MAX_WORDS; ++w)
+    if (q[0] == w) k.w[w] = (int)((unsigned)k.w[w] + add);
+}
+// slot m's key words (kw[w] for w < NW, 0 above)
+__device__ __forceinline__ void cr_key_words(const int* sp, const int* s, int m, int* kw) {
+  const int M = CFLD(M), NW = CFLD(NW);
+#pragma unroll
+  for (int w = 0; w < CR_MAX_WORDS; ++w) kw[w] = w < NW ? s[CFLD(W0) + w * M + m] : 0;
 }
 // a field of a key given as int words
 __device__ __forceinline__ int cr_unpack(const int* sp, const int* kw, int f) {
   const int* q = sp + CS_MSG + 3 * f;
-  return (kw[q[0]] >> q[1]) & q[2];
+  int x = kw[0];
+#pragma unroll
+  for (int w = 1; w < CR_MAX_WORDS; ++w) x = q[0] == w ? kw[w] : x;
+  return (x >> q[1]) & q[2];
 }
 
 // ---- the variants' config hooks ----
@@ -153,56 +175,67 @@ __device__ __forceinline__ int cr_members_slot() {
   return J ? E_X2 : E_X1;
 }
 
+// A log as the receipt and AdvanceCommitIndex see it: row(slot, lane) is
+// an entry field (0 for a slot past NE), computed where it is read, with no
+// array (a [slot][lane] array indexed at run time sits on the stack).
+
+// server i's own log in the state
+struct CrLogOf {
+  const int* sp;
+  const int* s;
+  int i;
+  __device__ __forceinline__ int operator()(int e, int l) const {
+    return e < sp[CS_NE] ? cr_log(sp, s, e, i)[l] : 0;
+  }
+};
+
 // The config fields of server `dst` from the entry at lane `pos` of the
-// log rows `row[slot][lane]` (index `idx` = pos + 1, or 0 when no config
-// entry): ConfigFor (JointConsensus :279-290) or the add/remove config
-// cache (AddRemove :734-739); committed = ci >= idx. Returns in_new: dst
-// in the entry's member set. Writes only with `write`.
-template <bool J>
-__device__ bool cr_config_from(const int* sp, int* o, int dst, int (*row)[CR_MAX_L],
-                               int idx, int ci, bool write) {
+// log `row` (index `idx` = pos + 1, or 0 when no config entry): ConfigFor
+// (JointConsensus :279-290) or the add/remove config cache (AddRemove
+// :734-739); committed = ci >= idx. Returns in_new: dst in the entry's
+// member set. Writes only with `write`.
+template <bool J, class Row>
+__device__ bool cr_config_from(const int* sp, int* o, int dst, const Row& row, int idx, int ci,
+                               bool write) {
   const int S = CFLD(S), L = CFLD(L);
   const int pos = ra_clamp(idx - 1, 0, L - 1);
-  const int members = row[cr_members_slot<J>()][pos];
+  const int members = row(cr_members_slot<J>(), pos);
   if (write) {
-    jx_set(o + CFLD(CID), S, dst, row[E_CID][pos]);
+    jx_set(o + CFLD(CID), S, dst, row(E_CID, pos));
     jx_set(o + CFLD(CMEM), S, dst, members);
     jx_set(o + CFLD(CCOMM), S, dst, ci >= idx);
     if (J) {
-      const bool joint = row[E_CMD][pos] == JC_OLDNEW;
+      const bool joint = row(E_CMD, pos) == JC_OLDNEW;
       jx_set(o + CFLD(CJOINT), S, dst, joint);
-      jx_set(o + CFLD(COLD), S, dst, joint ? row[E_X0][pos] : 0);
-      jx_set(o + CFLD(CNEW), S, dst, joint ? row[E_X1][pos] : 0);
+      jx_set(o + CFLD(COLD), S, dst, joint ? row(E_X0, pos) : 0);
+      jx_set(o + CFLD(CNEW), S, dst, joint ? row(E_X1, pos) : 0);
     }
   }
   return cr_bit(members, dst);
 }
 
 // the most recent config entry's index (lane + 1, 0 when none) among the
-// first `len` lanes of a command row
-template <bool J>
-__device__ __forceinline__ int cr_last_cfg(const int* cmd, int L, int len) {
+// first `len` lanes of a log
+template <bool J, class Row>
+__device__ __forceinline__ int cr_last_cfg(const Row& row, int L, int len) {
   int idx = 0;
   for (int l = 0; l < L; ++l)
-    if (l < len && cr_is_cfg<J>(cmd[l])) idx = l + 1;
+    if (l < len && cr_is_cfg<J>(row(E_CMD, l))) idx = l + 1;
   return idx;
 }
 
-// copy server i's log rows (NE slots, L lanes) into row[slot][lane]
-__device__ __forceinline__ void cr_load_log(const int* sp, const int* s, int i,
-                                            int (*row)[CR_MAX_L]) {
-  const int L = CFLD(L), NE = CFLD(NE);
-  for (int e = 0; e < CR_SLOTS; ++e)
-    for (int l = 0; l < L; ++l) row[e][l] = e < NE ? cr_log(sp, s, e, i)[l] : 0;
-}
-
 // ---- shared action groups ----
+//
+// Each takes the group of threads that shares the lane (GrpOne for a guard
+// lane): every member runs the scalar part on the same inputs, the lead
+// member makes the scalar writes, and the bag put and the log installs are
+// split over the group.
 
 // Restart(i) — JointConsensus :362-374 / AddRemove :346-358: keeps
 // config, currentTerm, votedFor and the log
-template <bool WRITE>
-__device__ bool cr_restart(const int* sp, const int* s, int* o, int i) {
-  if (WRITE) {
+template <bool WRITE, class Gp>
+__device__ bool cr_restart(Gp g, const int* sp, const int* s, int* o, int i) {
+  if (WRITE && g.lead()) {
     const int S = CFLD(S);
     o[CFLD(ST) + i] = CR_FOLLOWER;
     o[CFLD(VG) + i] = 0;
@@ -219,14 +252,14 @@ __device__ bool cr_restart(const int* sp, const int* s, int* o, int i) {
 
 // RequestVote(i) — JointConsensus :431-450 / AddRemove :425-444:
 // member-only; a RequestVoteRequest to each member, SendMultipleOnce
-template <bool WRITE>
-__device__ Guard cr_request_vote(const int* sp, const int* s, int* o, int i, int* bag) {
+template <bool WRITE, class Gp>
+__device__ Guard cr_request_vote(Gp g, const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = CFLD(S), L = CFLD(L), M = CFLD(M), NW = CFLD(NW);
   const int st = s[CFLD(ST) + i], members = s[CFLD(CMEM) + i];
-  Guard g{s[CFLD(ECTR)] < CFLD(MAX_ELECTIONS) && (st == CR_FOLLOWER || st == CR_CANDIDATE) &&
-              cr_bit(members, i),
-          CK_REQUESTVOTE, false};
-  if (!WRITE && !g.valid) return g;  // ovf is masked by valid
+  Guard gd{s[CFLD(ECTR)] < CFLD(MAX_ELECTIONS) && (st == CR_FOLLOWER || st == CR_CANDIDATE) &&
+               cr_bit(members, i),
+           CK_REQUESTVOTE, false};
+  if (!WRITE && !gd.valid) return gd;  // ovf is masked by valid
   const int new_term = s[CFLD(CT) + i] + 1;
   const int ll = s[CFLD(LL) + i];
   const int last_t = ll > 0 ? cr_lane(cr_log(sp, s, E_TERM, i), L, ll - 1) : 0;
@@ -243,35 +276,34 @@ __device__ Guard cr_request_vote(const int* sp, const int* s, int* o, int i, int
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
     if (!cr_bit(members, j)) continue;
-    WKey k = nw_key();
+    IKey k = nw_ikey();
     cr_pack(sp, k, CF_MTYPE, CR_RVREQ);
     cr_pack(sp, k, CF_MTERM, new_term);
     cr_pack(sp, k, CF_MLASTLOGTERM, last_t);
     cr_pack(sp, k, CF_MLASTLOGINDEX, ll);
     cr_pack(sp, k, CF_MSOURCE, i);
     cr_pack(sp, k, CF_MDEST, j);
-    nw_wrap(k);
-    const Put p = nw_bag_probe(words, M, NW, k);
-    g.valid = g.valid && !p.existed;
+    const Put p = nw_bag_probe_g(g, words, M, NW, k);  // on the bag the last put left
+    gd.valid = gd.valid && !p.existed;
     ovf = ovf || p.overflow;
-    nw_bag_insert(words, cnt, M, NW, k, p);
+    nw_bag_insert_g(g, words, cnt, M, NW, k, p);
   }
-  g.ovf = ovf && g.valid;
-  if (WRITE) {
+  gd.ovf = ovf && gd.valid;
+  if (WRITE && g.lead()) {
     o[CFLD(ST) + i] = CR_CANDIDATE;
     o[CFLD(CT) + i] = new_term;
     o[CFLD(VF) + i] = i + 1;
     o[CFLD(VG) + i] = 1 << i;
     o[CFLD(ECTR)] = s[CFLD(ECTR)] + 1;
   }
-  return g;
+  return gd;
 }
 
 // BecomeLeader(i) — AddRemove :505-518 (votesGranted a quorum of the
 // member set) / JointConsensus :511-528 (majorities of old and new while
 // joint)
-template <bool J, bool WRITE>
-__device__ bool cr_become_leader(const int* sp, const int* s, int* o, int i) {
+template <bool J, bool WRITE, class Gp>
+__device__ bool cr_become_leader(Gp g, const int* sp, const int* s, int* o, int i) {
   const int S = CFLD(S);
   const int vg = s[CFLD(VG) + i], members = s[CFLD(CMEM) + i];
   bool q = (vg & ~members) == 0 && 2 * cr_pop(vg, S) > cr_pop(members, S);
@@ -279,7 +311,7 @@ __device__ bool cr_become_leader(const int* sp, const int* s, int* o, int i) {
     const int old = s[CFLD(COLD) + i], nw = s[CFLD(CNEW) + i];
     q = 2 * cr_pop(vg & old, S) > cr_pop(old, S) && 2 * cr_pop(vg & nw, S) > cr_pop(nw, S);
   }
-  if (WRITE) {
+  if (WRITE && g.lead()) {
     o[CFLD(ST) + i] = CR_LEADER;
     for (int k = 0; k < S; ++k) {
       o[CFLD(NI) + i * S + k] = s[CFLD(LL) + i] + 1;
@@ -292,17 +324,17 @@ __device__ bool cr_become_leader(const int* sp, const int* s, int* o, int i) {
 
 // ClientRequest(i, v) — JointConsensus :535-550 / AddRemove :525-540 (the
 // acked gate and the per-term value counter); a log at max_log overflows
-template <bool J, bool WRITE>
-__device__ Guard cr_client_request(const int* sp, const int* s, int* o, int i, int v) {
+template <bool J, bool WRITE, class Gp>
+__device__ Guard cr_client_request(Gp g, const int* sp, const int* s, int* o, int i, int v) {
   const int L = CFLD(L);
   const int term = s[CFLD(CT) + i];
   const int tpos = ra_clamp(term - 1, 0, CFLD(MAX_TERM) - 1);
-  Guard g{s[CFLD(ST) + i] == CR_LEADER && s[CFLD(ACK) + v] == RA_ACK_NIL &&
-              s[CFLD(VALCTR) + tpos] < CFLD(MAX_VPT),
-          CK_CLIENTREQUEST, false};
+  Guard gd{s[CFLD(ST) + i] == CR_LEADER && s[CFLD(ACK) + v] == RA_ACK_NIL &&
+               s[CFLD(VALCTR) + tpos] < CFLD(MAX_VPT),
+           CK_CLIENTREQUEST, false};
   const int pos = s[CFLD(LL) + i];
-  g.ovf = g.valid && pos >= L;
-  if (WRITE) {
+  gd.ovf = gd.valid && pos >= L;
+  if (WRITE && g.lead()) {
     const int posc = ra_clamp(pos, 0, L - 1);
     o[sp[CS_LOG + E_TERM] + i * L + posc] = term;
     o[sp[CS_LOG + E_CMD] + i * L + posc] = cr_append_cmd<J>();
@@ -311,20 +343,20 @@ __device__ Guard cr_client_request(const int* sp, const int* s, int* o, int i, i
     o[CFLD(ACK) + v] = RA_ACK_FALSE;
     o[CFLD(VALCTR) + tpos] = s[CFLD(VALCTR) + tpos] + 1;
   }
-  return g;
+  return gd;
 }
 
 // AppendEntries(i, j) — JointConsensus :556-582 / AddRemove :546-572:
 // member- and snapshot-sentinel-gated; an empty request is send-once
-template <bool WRITE>
-__device__ Guard cr_append_entries(const int* sp, const int* s, int* o, int i, int j) {
+template <bool WRITE, class Gp>
+__device__ Guard cr_append_entries(Gp g, const int* sp, const int* s, int* o, int i, int j) {
   const int S = CFLD(S), L = CFLD(L), M = CFLD(M), NW = CFLD(NW), NE = CFLD(NE);
   const int ni = s[CFLD(NI) + i * S + j];
   const int pr = s[CFLD(PR) + i];
-  Guard g{s[CFLD(ST) + i] == CR_LEADER && cr_bit(s[CFLD(CMEM) + i], j) && ni >= 0 &&
-              !cr_bit(pr, j),
-          CK_APPENDENTRIES, false};
-  if (!WRITE && !g.valid) return g;
+  Guard gd{s[CFLD(ST) + i] == CR_LEADER && cr_bit(s[CFLD(CMEM) + i], j) && ni >= 0 &&
+               !cr_bit(pr, j),
+           CK_APPENDENTRIES, false};
+  if (!WRITE && !gd.valid) return gd;
   const int prev_idx = ni - 1;
   const int prev_term =
       prev_idx > 0 ? cr_log(sp, s, E_TERM, i)[ra_clamp(prev_idx - 1, 0, L - 1)] : 0;
@@ -334,7 +366,7 @@ __device__ Guard cr_append_entries(const int* sp, const int* s, int* o, int i, i
   const int epos = ra_clamp(ni - 1, 0, L - 1);
   const int ci = s[CFLD(CI) + i];
   const int mci = ci < last_entry ? ci : last_entry;
-  WKey k = nw_key();
+  IKey k = nw_ikey();
   cr_pack(sp, k, CF_MTYPE, CR_AEREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MPREVLOGINDEX, prev_idx > 0 ? prev_idx : 0);
@@ -344,30 +376,29 @@ __device__ Guard cr_append_entries(const int* sp, const int* s, int* o, int i, i
   cr_pack(sp, k, CF_MSOURCE, i);
   cr_pack(sp, k, CF_MDEST, j);
   for (int e = 0; e < NE; ++e) cr_pack(sp, k, CF_E + e, nent ? cr_log(sp, s, e, i)[epos] : 0);
-  nw_wrap(k);
-  const Put p = nw_bag_probe(s + CFLD(W0), M, NW, k);
-  g.valid = g.valid && (nent > 0 || !p.existed);
-  g.ovf = p.overflow && g.valid;
+  const Put p = nw_bag_probe_g(g, s + CFLD(W0), M, NW, k);
+  gd.valid = gd.valid && (nent > 0 || !p.existed);
+  gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
-    o[CFLD(PR) + i] = pr | (1 << j);
-    nw_bag_insert(o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    if (g.lead()) o[CFLD(PR) + i] = pr | (1 << j);
+    nw_bag_insert_g(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
-  return g;
+  return gd;
 }
 
 // SendSnapshot(i, j) — JointConsensus :885-901 / AddRemove :862-878: the
 // whole log in the request, lanes past its length zeroed; the put ignores
 // existed
-template <bool WRITE>
-__device__ Guard cr_send_snapshot(const int* sp, const int* s, int* o, int i, int j) {
+template <bool WRITE, class Gp>
+__device__ Guard cr_send_snapshot(Gp g, const int* sp, const int* s, int* o, int i, int j) {
   const int S = CFLD(S), L = CFLD(L), M = CFLD(M), NW = CFLD(NW), NE = CFLD(NE);
   const int members = s[CFLD(CMEM) + i];
-  Guard g{s[CFLD(ST) + i] == CR_LEADER && cr_bit(members, j) &&
-              s[CFLD(NI) + i * S + j] == CR_PENDING_SNAP_REQUEST,
-          CK_SENDSNAP, false};
-  if (!WRITE && !g.valid) return g;
+  Guard gd{s[CFLD(ST) + i] == CR_LEADER && cr_bit(members, j) &&
+               s[CFLD(NI) + i * S + j] == CR_PENDING_SNAP_REQUEST,
+           CK_SENDSNAP, false};
+  if (!WRITE && !gd.valid) return gd;
   const int ll = s[CFLD(LL) + i];
-  WKey k = nw_key();
+  IKey k = nw_ikey();
   cr_pack(sp, k, CF_MTYPE, CR_SNAPREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MCOMMITINDEX, s[CFLD(CI) + i]);
@@ -378,14 +409,13 @@ __device__ Guard cr_send_snapshot(const int* sp, const int* s, int* o, int i, in
   for (int l = 0; l < L; ++l)
     for (int e = 0; e < NE; ++e)
       cr_pack(sp, k, CF_LOG + l * CR_SLOTS + e, l < ll ? cr_log(sp, s, e, i)[l] : 0);
-  nw_wrap(k);
-  const Put p = nw_bag_probe(s + CFLD(W0), M, NW, k);
-  g.ovf = p.overflow && g.valid;
+  const Put p = nw_bag_probe_g(g, s + CFLD(W0), M, NW, k);
+  gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
-    o[CFLD(NI) + i * S + j] = CR_PENDING_SNAP_RESPONSE;
-    nw_bag_insert(o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    if (g.lead()) o[CFLD(NI) + i * S + j] = CR_PENDING_SNAP_RESPONSE;
+    nw_bag_insert_g(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
-  return g;
+  return gd;
 }
 
 // the commit quorum at log index idx (the leader counting itself): a
@@ -401,8 +431,8 @@ __device__ __forceinline__ bool cr_quorum(const int* match, int S, int i, int ma
 // re-derived from the most recent config entry, acked values committed,
 // and IsRemovedFromCluster (AddRemove :598-603: a RemoveServerCommand
 // without i; JointConsensus :606-611: a NewConfigCommand without i)
-template <bool J, bool WRITE>
-__device__ bool cr_advance_commit(const int* sp, const int* s, int* o, int i) {
+template <bool J, bool WRITE, class Gp>
+__device__ bool cr_advance_commit(Gp g, const int* sp, const int* s, int* o, int i) {
   const int S = CFLD(S), L = CFLD(L), V = CFLD(V);
   const int ll = s[CFLD(LL) + i], ci = s[CFLD(CI) + i];
   const int* match = s + CFLD(MI) + i * S;
@@ -418,7 +448,7 @@ __device__ bool cr_advance_commit(const int* sp, const int* s, int* o, int i) {
   const int new_ci =
       max_agree > 0 && cr_lane(lt, L, max_agree - 1) == s[CFLD(CT) + i] ? max_agree : ci;
   const bool valid = s[CFLD(ST) + i] == CR_LEADER && ci < new_ci;
-  if (WRITE) {
+  if (WRITE && g.lead()) {
     const int* cmd = cr_log(sp, s, E_CMD, i);
     const int* val = cr_log(sp, s, E_VAL, i);
     const int* mem = cr_log(sp, s, cr_members_slot<J>(), i);
@@ -433,9 +463,8 @@ __device__ bool cr_advance_commit(const int* sp, const int* s, int* o, int i) {
     for (int l = 0; l < L; ++l)
       removed |= l + 1 > ci && l + 1 <= new_ci && cmd[l] == (J ? JC_NEW : AR_REMOVE) &&
                  !cr_bit(mem[l], i);
-    int row[CR_SLOTS][CR_MAX_L];
-    cr_load_log(sp, s, i, row);
-    cr_config_from<J>(sp, o, i, row, cr_last_cfg<J>(cmd, L, ll), new_ci, true);
+    const CrLogOf row{sp, s, i};
+    cr_config_from<J>(sp, o, i, row, cr_last_cfg<J>(row, L, ll), new_ci, true);
     if (removed) {
       o[CFLD(ST) + i] = CR_NOTMEMBER;
       o[CFLD(VG) + i] = 0;
@@ -463,21 +492,22 @@ __device__ __forceinline__ bool cr_committed_in_term(const int* sp, const int* s
 
 // AppendAddServerCommandToLog(i, a) — :795-824 and
 // AppendRemoveServerCommandToLog(i, a) — :828-853
-template <bool WRITE>
-__device__ Guard ar_append_member(const int* sp, const int* s, int* o, int i, int a, bool add) {
+template <bool WRITE, class Gp>
+__device__ Guard ar_append_member(Gp g, const int* sp, const int* s, int* o, int i, int a,
+                                  bool add) {
   const int S = CFLD(S), L = CFLD(L);
   const int members = s[CFLD(CMEM) + i];
   const int size = cr_pop(members, S);
   const int ctr = add ? CFLD(ADDCTR) : CFLD(REMCTR);
-  Guard g{s[CFLD(ST) + i] == CR_LEADER &&
-              s[ctr] < (add ? CFLD(MAX_ADD) : CFLD(MAX_REMOVE)) &&
-              (add ? size < CFLD(MAX_CLUSTER) : size > CFLD(MIN_CLUSTER)) &&
-              s[CFLD(CCOMM) + i] > 0 && cr_bit(members, a) != add,
-          add ? CK_CONFIG_1 : CK_CONFIG_2, false};
-  if (!CFLD(THESIS_BUG)) g.valid = g.valid && cr_committed_in_term(sp, s, i);
+  Guard gd{s[CFLD(ST) + i] == CR_LEADER &&
+               s[ctr] < (add ? CFLD(MAX_ADD) : CFLD(MAX_REMOVE)) &&
+               (add ? size < CFLD(MAX_CLUSTER) : size > CFLD(MIN_CLUSTER)) &&
+               s[CFLD(CCOMM) + i] > 0 && cr_bit(members, a) != add,
+           add ? CK_CONFIG_1 : CK_CONFIG_2, false};
+  if (!CFLD(THESIS_BUG)) gd.valid = gd.valid && cr_committed_in_term(sp, s, i);
   const int pos = s[CFLD(LL) + i];
-  g.ovf = g.valid && pos >= L;
-  if (WRITE) {
+  gd.ovf = gd.valid && pos >= L;
+  if (WRITE && g.lead()) {
     const int nm = add ? (members | (1 << a)) : (members & ~(1 << a));
     const int new_id = s[CFLD(CID) + i] + 1;
     const int at = i * L + ra_clamp(pos, 0, L - 1);
@@ -494,13 +524,13 @@ __device__ Guard ar_append_member(const int* sp, const int* s, int* o, int i, in
     o[ctr] = s[ctr] + 1;
     if (add) o[CFLD(NI) + i * S + a] = CR_PENDING_SNAP_REQUEST;
   }
-  return g;
+  return gd;
 }
 
 // ResetWithSameIdentity(i) — :385-400; the CHOOSE of a leader is the
 // lowest index with IsCurrentLeader (:367-373)
-template <bool WRITE>
-__device__ bool ar_reset_identity(const int* sp, const int* s, int* o, int i) {
+template <bool WRITE, class Gp>
+__device__ bool ar_reset_identity(Gp g, const int* sp, const int* s, int* o, int i) {
   const int S = CFLD(S), L = CFLD(L), NE = CFLD(NE);
   const int* ct = s + CFLD(CT);
   int leader = -1;
@@ -511,16 +541,19 @@ __device__ bool ar_reset_identity(const int* sp, const int* s, int* o, int i) {
   }
   const int ld = leader < 0 ? 0 : leader;
   if (WRITE) {
-    o[CFLD(ST) + i] = CR_NOTMEMBER;
-    const int zero[] = {CFLD(CID), CFLD(CMEM), CFLD(CCOMM), CFLD(CT), CFLD(VF), CFLD(VG),
-                        CFLD(PR), CFLD(CI), CFLD(LL)};
-    for (int z : zero) o[z + i] = 0;
-    for (int k = 0; k < S; ++k) {
-      o[CFLD(NI) + i * S + k] = 1;
-      o[CFLD(MI) + i * S + k] = 0;
+    if (g.lead()) {
+      o[CFLD(ST) + i] = CR_NOTMEMBER;
+      const int zero[] = {CFLD(CID), CFLD(CMEM), CFLD(CCOMM), CFLD(CT), CFLD(VF), CFLD(VG),
+                          CFLD(PR), CFLD(CI), CFLD(LL)};
+      for (int z : zero) o[z + i] = 0;
+      for (int k = 0; k < S; ++k) {
+        o[CFLD(NI) + i * S + k] = 1;
+        o[CFLD(MI) + i * S + k] = 0;
+      }
     }
-    for (int e = 0; e < NE; ++e)
-      for (int l = 0; l < L; ++l) o[sp[CS_LOG + e] + i * L + l] = 0;
+    g.each([&](int t, int G) {  // the log, (slot, lane) pairs split over the group
+      for (int u = t; u < NE * L; u += G) o[sp[CS_LOG + u / L] + i * L + u % L] = 0;
+    });
   }
   return ct[i] > 0 && leader >= 0 && ld != i && !cr_bit(s[CFLD(CMEM) + ld], i) &&
          s[CFLD(CCOMM) + ld] > 0;
@@ -530,19 +563,19 @@ __device__ bool ar_reset_identity(const int* sp, const int* s, int* o, int i) {
 
 // AppendOldNewConfigToLog(i) for the (add, remove) member sets packed in
 // p1 (add in the low 16 bits) — :827-856
-template <bool WRITE>
-__device__ Guard jc_append_old_new(const int* sp, const int* s, int* o, int i, int p1) {
+template <bool WRITE, class Gp>
+__device__ Guard jc_append_old_new(Gp g, const int* sp, const int* s, int* o, int i, int p1) {
   const int S = CFLD(S), L = CFLD(L);
   const int add = p1 & 0xFFFF, rem = p1 >> 16;
   const int members = s[CFLD(CMEM) + i];
   // HasPendingConfigCommand (:246-248)
   const bool pending = s[CFLD(CCOMM) + i] == 0 || s[CFLD(CJOINT) + i] > 0;
-  Guard g{s[CFLD(ST) + i] == CR_LEADER && s[CFLD(RECCTR)] < CFLD(MAX_RECONFIGS) && !pending &&
-              (add & members) == 0 && (rem & members) == rem,
-          CK_CONFIG_1, false};
+  Guard gd{s[CFLD(ST) + i] == CR_LEADER && s[CFLD(RECCTR)] < CFLD(MAX_RECONFIGS) && !pending &&
+               (add & members) == 0 && (rem & members) == rem,
+           CK_CONFIG_1, false};
   const int pos = s[CFLD(LL) + i];
-  g.ovf = g.valid && pos >= L;
-  if (WRITE) {
+  gd.ovf = gd.valid && pos >= L;
+  if (WRITE && g.lead()) {
     const int old = members, nw = (members & ~rem) | add, jm = members | add;
     const int new_id = s[CFLD(RECCTR)] + 1;  // id = reconfigCtr + 1 (:839)
     const int at = i * L + ra_clamp(pos, 0, L - 1);
@@ -564,13 +597,13 @@ __device__ Guard jc_append_old_new(const int* sp, const int* s, int* o, int i, i
     for (int k = 0; k < S; ++k)
       if (cr_bit(nw, k) && !cr_bit(old, k)) o[CFLD(NI) + i * S + k] = CR_PENDING_SNAP_REQUEST;
   }
-  return g;
+  return gd;
 }
 
 // AppendNewConfigToLog(i) — :861-876: on the committed OldNew entry with no
 // later config command (CommittedOldNewWithoutNew :232-242)
-template <bool WRITE>
-__device__ Guard jc_append_new(const int* sp, const int* s, int* o, int i) {
+template <bool WRITE, class Gp>
+__device__ Guard jc_append_new(Gp g, const int* sp, const int* s, int* o, int i) {
   const int L = CFLD(L);
   const int* cmd = cr_log(sp, s, E_CMD, i);
   const int ll = s[CFLD(LL) + i], ci = s[CFLD(CI) + i];
@@ -579,11 +612,11 @@ __device__ Guard jc_append_new(const int* sp, const int* s, int* o, int i) {
     if (l < ll && cmd[l] == JC_OLDNEW) last_oldnew = l + 1;
     if (l < ll && cmd[l] == JC_NEW) last_new = l + 1;
   }
-  Guard g{s[CFLD(ST) + i] == CR_LEADER && last_oldnew > 0 && ci >= last_oldnew &&
-              last_new < last_oldnew,
-          CK_CONFIG_2, false};
-  g.ovf = g.valid && ll >= L;
-  if (WRITE) {
+  Guard gd{s[CFLD(ST) + i] == CR_LEADER && last_oldnew > 0 && ci >= last_oldnew &&
+               last_new < last_oldnew,
+           CK_CONFIG_2, false};
+  gd.ovf = gd.valid && ll >= L;
+  if (WRITE && g.lead()) {
     const int tpos = ra_clamp(last_oldnew - 1, 0, L - 1);
     const int nm = cr_log(sp, s, E_X1, i)[tpos];  // the entry's new set
     const int new_id = cr_log(sp, s, E_CID, i)[tpos];
@@ -600,46 +633,66 @@ __device__ Guard jc_append_new(const int* sp, const int* s, int* o, int i) {
     o[CFLD(CNEW) + i] = 0;
     o[CFLD(CCOMM) + i] = ci >= ll + 1;
   }
-  return g;
+  return gd;
 }
 
 // ---- the fused receipt ----
+
+// The log a receipt installs at its destination: an accepted
+// AppendEntries' (the destination's log, and when appending its lanes from
+// prev_idx on zeroed and the entry at lane app) or a SnapshotRequest's
+// (the sender's log packed in the key).
+struct CrInstall {
+  const int* sp;
+  const int* s;
+  const int* kw;
+  int dst, prev_idx, app;
+  bool snapshot, appending;
+  __device__ __forceinline__ int operator()(int e, int l) const {
+    if (e >= sp[CS_NE]) return 0;
+    if (snapshot) return cr_unpack(sp, kw, CF_LOG + l * CR_SLOTS + e);
+    if (appending && l == app) return cr_unpack(sp, kw, CF_E + e);
+    if (appending && l >= prev_idx) return 0;
+    return cr_log(sp, s, e, dst)[l];
+  }
+};
 
 // HandleMessage(slot m): UpdateTerm, Handle{RequestVote,AppendEntries,
 // Snapshot}{Request,Response} and Reject/AcceptAppendEntriesRequest —
 // JointConsensus :410-944 / AddRemove :404-921, pairwise disjoint for a
 // record; rank says which fired, -1 when none did.
-template <bool J, bool WRITE>
-__device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
+template <bool J, bool WRITE, class Gp>
+__device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, int m) {
   const int S = CFLD(S), L = CFLD(L), M = CFLD(M), NW = CFLD(NW), NE = CFLD(NE);
-  Guard g{false, -1, false};
+  const bool lw = WRITE && g.lead();
+  Guard gd{false, -1, false};
   int kw[CR_MAX_WORDS];
-  for (int w = 0; w < NW; ++w) kw[w] = s[CFLD(W0) + w * M + m];
-  if (kw[0] == RA_EMPTY) return g;
+  cr_key_words(sp, s, m, kw);
+  if (kw[0] == RA_EMPTY) return gd;
   const int mtype = cr_unpack(sp, kw, CF_MTYPE), mterm = cr_unpack(sp, kw, CF_MTERM);
   const int src = cr_unpack(sp, kw, CF_MSOURCE), dst = cr_unpack(sp, kw, CF_MDEST);
   const int cur = jx_get(s + CFLD(CT), S, dst), st = jx_get(s + CFLD(ST), S, dst);
   if (mterm > cur) {  // UpdateTerm (the count may be 0)
-    g.valid = true;
-    g.rank = CK_UPDATETERM;
-    if (WRITE) {
+    gd.valid = true;
+    gd.rank = CK_UPDATETERM;
+    if (lw) {
       jx_set(o + CFLD(CT), S, dst, mterm);
       jx_set(o + CFLD(ST), S, dst, CR_FOLLOWER);
       jx_set(o + CFLD(VF), S, dst, RA_NIL);
     }
-    return g;
+    return gd;
   }
-  if (s[CFLD(CNT) + m] <= 0) return g;  // the rest need a receivable record
+  if (s[CFLD(CNT) + m] <= 0) return gd;  // the rest need a receivable record
   const bool eq_term = mterm == cur;
   const int dclamp = jx_index(dst, S);
   const int ll = s[CFLD(LL) + dclamp];
   const int mci = cr_unpack(sp, kw, CF_MCOMMITINDEX);
 
   bool putb = false, dropb = false, ovf_extra = false;
-  WKey k = nw_key();
-  // the log rows the receipt installs (accept or snapshot), with their
-  // config entry's index and the commit watermark
-  int row[CR_SLOTS][CR_MAX_L];
+  IKey k = nw_ikey();
+  // the log the receipt installs (accept or snapshot), with its config
+  // entry's index and the commit watermark
+  CrInstall row{sp, s, kw, dclamp, 0, 0, false, false};
   bool install = false;
   int new_len = 0, cfg_idx = 0;
   bool grant = false;
@@ -653,7 +706,7 @@ __device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
     const int vf = jx_get(s + CFLD(VF), S, dst);
     grant = eq_term && logok && (vf == RA_NIL || vf == src + 1);
     putb = true;
-    g.rank = CK_HANDLE_RVREQ;
+    gd.rank = CK_HANDLE_RVREQ;
     cr_pack(sp, k, CF_MTYPE, CR_RVRESP);
     cr_pack(sp, k, CF_MTERM, cur);
     cr_pack(sp, k, CF_MVOTEGRANTED, grant);
@@ -661,7 +714,7 @@ __device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
     cr_pack(sp, k, CF_MDEST, src);
   } else if (mtype == CR_RVRESP) {  // HandleRequestVoteResponse
     dropb = eq_term && st == CR_CANDIDATE;
-    g.rank = CK_HANDLE_RVRESP;
+    gd.rank = CK_HANDLE_RVRESP;
   } else if (mtype == CR_AEREQ) {  // Reject / AcceptAppendEntriesRequest
     const int prev_idx = cr_unpack(sp, kw, CF_MPREVLOGINDEX);
     const int prev_term = cr_unpack(sp, kw, CF_MPREVLOGTERM);
@@ -677,7 +730,7 @@ __device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
                                                  : CR_RC_OK));
     if (rc != CR_RC_OK) {
       putb = true;
-      g.rank = CK_REJECT_AE;
+      gd.rank = CK_REJECT_AE;
       cr_pack(sp, k, CF_MTYPE, CR_AERESP);
       cr_pack(sp, k, CF_MTERM, cur);
       cr_pack(sp, k, CF_MRESULT, rc);
@@ -686,18 +739,12 @@ __device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
       cr_pack(sp, k, CF_MDEST, src);
     } else if (eq_term && (st == CR_FOLLOWER || st == CR_CANDIDATE) && logok && member) {
       putb = install = true;
-      g.rank = CK_ACCEPT_AE;
+      gd.rank = CK_ACCEPT_AE;
       const bool appending = nent != 0 && (ll == prev_idx || ll >= prev_idx + 1);
       new_len = appending ? prev_idx + 1 : ll;
-      cr_load_log(sp, s, dclamp, row);
-      if (appending) {
-        const int app = ra_clamp(prev_idx, 0, L - 1);
-        for (int e = 0; e < NE; ++e) {
-          for (int l = 0; l < L; ++l)
-            if (l >= prev_idx) row[e][l] = 0;
-          row[e][app] = cr_unpack(sp, kw, CF_E + e);
-        }
-      }
+      row.appending = appending;
+      row.prev_idx = prev_idx;
+      row.app = ra_clamp(prev_idx, 0, L - 1);
       ovf_extra = appending && prev_idx >= L;
       cr_pack(sp, k, CF_MTYPE, CR_AERESP);
       cr_pack(sp, k, CF_MTERM, cur);
@@ -708,15 +755,13 @@ __device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
     }
   } else if (mtype == CR_AERESP) {  // HandleAppendEntriesResponse
     dropb = eq_term && st == CR_LEADER;
-    g.rank = CK_HANDLE_AERESP;
+    gd.rank = CK_HANDLE_AERESP;
   } else if (mtype == CR_SNAPREQ) {  // HandleSnapshotRequest
     if (eq_term && st == CR_FOLLOWER) {
       putb = install = true;
-      g.rank = CK_HANDLE_SNAPREQ;
+      gd.rank = CK_HANDLE_SNAPREQ;
       new_len = cr_unpack(sp, kw, CF_MLOGLEN);
-      for (int e = 0; e < CR_SLOTS; ++e)
-        for (int l = 0; l < L; ++l)
-          row[e][l] = e < NE ? cr_unpack(sp, kw, CF_LOG + l * CR_SLOTS + e) : 0;
+      row.snapshot = true;
       cr_pack(sp, k, CF_MTYPE, CR_SNAPRESP);
       cr_pack(sp, k, CF_MTERM, cur);
       cr_pack(sp, k, CF_MSUCCESS, 1);
@@ -726,74 +771,82 @@ __device__ Guard cr_handle_message(const int* sp, const int* s, int* o, int m) {
     }
   } else if (mtype == CR_SNAPRESP) {  // HandleSnapshotResponse
     dropb = eq_term && jx_get2(s + CFLD(NI), S, S, dst, src) == CR_PENDING_SNAP_RESPONSE;
-    g.rank = CK_HANDLE_SNAPRESP;
+    gd.rank = CK_HANDLE_SNAPRESP;
   }
-  g.valid = putb || dropb;
-  if (!g.valid) {
-    g.rank = -1;
-    return g;
+  gd.valid = putb || dropb;
+  if (!gd.valid) {
+    gd.rank = -1;
+    return gd;
   }
   Put p{false, false, 0};
-  if (putb) {
-    nw_wrap(k);
-    p = nw_bag_probe(s + CFLD(W0), M, NW, k);
-  }
-  g.ovf = (putb && p.overflow) || ovf_extra;
-  if (install) cfg_idx = cr_last_cfg<J>(row[E_CMD], L, new_len);
+  if (putb) p = nw_bag_probe_g(g, s + CFLD(W0), M, NW, k);
+  gd.ovf = (putb && p.overflow) || ovf_extra;
+  if (install) cfg_idx = cr_last_cfg<J>(row, L, new_len);
 
   if (WRITE) {
-    if (mtype == CR_RVREQ && grant) jx_set(o + CFLD(VF), S, dst, src + 1);
-    if (mtype == CR_RVRESP && cr_unpack(sp, kw, CF_MVOTEGRANTED) > 0)
-      jx_set(o + CFLD(VG), S, dst, jx_get(s + CFLD(VG), S, dst) | (1 << src));
-    if (mtype == CR_AERESP) {
-      const int res = cr_unpack(sp, kw, CF_MRESULT), mm = cr_unpack(sp, kw, CF_MMATCHINDEX);
-      const int ni = jx_get2(s + CFLD(NI), S, S, dst, src);
-      const int ni_new = res == CR_RC_OK ? mm + 1
-                         : res == CR_RC_MISMATCH ? (ni - 1 > 1 ? ni - 1 : 1)
-                         : res == CR_RC_NEEDSNAP ? CR_PENDING_SNAP_REQUEST
-                                                 : ni;
-      jx_set2(o + CFLD(NI), S, S, dst, src, ni_new);
-      if (res == CR_RC_OK) jx_set2(o + CFLD(MI), S, S, dst, src, mm);
-      jx_set(o + CFLD(PR), S, dst, jx_get(s + CFLD(PR), S, dst) & ~(1 << src));
-    }
-    if (mtype == CR_SNAPRESP) {
-      const int mm = cr_unpack(sp, kw, CF_MMATCHINDEX);
-      jx_set2(o + CFLD(NI), S, S, dst, src, mm + 1);
-      jx_set2(o + CFLD(MI), S, S, dst, src, mm);
+    if (lw) {
+      if (mtype == CR_RVREQ && grant) jx_set(o + CFLD(VF), S, dst, src + 1);
+      if (mtype == CR_RVRESP && cr_unpack(sp, kw, CF_MVOTEGRANTED) > 0)
+        jx_set(o + CFLD(VG), S, dst, jx_get(s + CFLD(VG), S, dst) | (1 << src));
+      if (mtype == CR_AERESP) {
+        const int res = cr_unpack(sp, kw, CF_MRESULT), mm = cr_unpack(sp, kw, CF_MMATCHINDEX);
+        const int ni = jx_get2(s + CFLD(NI), S, S, dst, src);
+        const int ni_new = res == CR_RC_OK ? mm + 1
+                           : res == CR_RC_MISMATCH ? (ni - 1 > 1 ? ni - 1 : 1)
+                           : res == CR_RC_NEEDSNAP ? CR_PENDING_SNAP_REQUEST
+                                                   : ni;
+        jx_set2(o + CFLD(NI), S, S, dst, src, ni_new);
+        if (res == CR_RC_OK) jx_set2(o + CFLD(MI), S, S, dst, src, mm);
+        jx_set(o + CFLD(PR), S, dst, jx_get(s + CFLD(PR), S, dst) & ~(1 << src));
+      }
+      if (mtype == CR_SNAPRESP) {
+        const int mm = cr_unpack(sp, kw, CF_MMATCHINDEX);
+        jx_set2(o + CFLD(NI), S, S, dst, src, mm + 1);
+        jx_set2(o + CFLD(MI), S, S, dst, src, mm);
+      }
     }
     if (install) {
-      jx_set(o + CFLD(CI), S, dst, mci);
-      jx_set(o + CFLD(LL), S, dst, new_len);
-      for (int e = 0; e < NE; ++e)
-        for (int l = 0; l < L; ++l) jx_set2(o + sp[CS_LOG + e], S, L, dst, l, row[e][l]);
-      const bool in_new = cr_config_from<J>(sp, o, dst, row, cfg_idx, mci, true);
-      if (mtype == CR_AEREQ) jx_set(o + CFLD(ST), S, dst, in_new ? CR_FOLLOWER : CR_NOTMEMBER);
+      if (lw) {
+        jx_set(o + CFLD(CI), S, dst, mci);
+        jx_set(o + CFLD(LL), S, dst, new_len);
+        const bool in_new = cr_config_from<J>(sp, o, dst, row, cfg_idx, mci, true);
+        if (mtype == CR_AEREQ)
+          jx_set(o + CFLD(ST), S, dst, in_new ? CR_FOLLOWER : CR_NOTMEMBER);
+      }
+      g.each([&](int t, int G) {  // the log, (slot, lane) pairs split over the group
+        for (int u = t; u < NE * L; u += G)
+          jx_set2(o + sp[CS_LOG + u / L], S, L, dst, u % L, row(u / L, u % L));
+      });
     }
-    o[CFLD(CNT) + m] -= 1;  // the incoming Discard
-    if (putb) nw_bag_insert(o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    if (lw) o[CFLD(CNT) + m] -= 1;  // the incoming Discard
+    if (putb) nw_bag_insert_g(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
-  return g;
+  return gd;
 }
 
-// One candidate (a row of the model's candidate table) of one state; `bag`
-// is a RequestVote lane's guard scratch (NW * M ints), unused otherwise.
-template <bool J, bool WRITE>
-__device__ Guard cr_action(const int* sp, const int* s, int* o, const int* cd, int* bag) {
+// One candidate (a row of the model's candidate table) of one state, by
+// the group g; `bag` is a RequestVote guard lane's scratch (NW * M ints),
+// unused otherwise.
+template <bool J, bool WRITE, class Gp>
+__device__ Guard cr_action(Gp g, const int* sp, const int* s, int* o, const int* cd, int* bag) {
   const int p0 = cd[1], p1 = cd[2];
   switch (cd[0]) {
-    case CG_RESTART: return Guard{cr_restart<WRITE>(sp, s, o, p0), cd[3], false};
-    case CG_REQUEST_VOTE: return cr_request_vote<WRITE>(sp, s, o, p0, bag);
-    case CG_BECOME_LEADER: return Guard{cr_become_leader<J, WRITE>(sp, s, o, p0), cd[3], false};
-    case CG_CLIENT_REQUEST: return cr_client_request<J, WRITE>(sp, s, o, p0, p1);
-    case CG_ADVANCE_COMMIT: return Guard{cr_advance_commit<J, WRITE>(sp, s, o, p0), cd[3], false};
-    case CG_APPEND_ENTRIES: return cr_append_entries<WRITE>(sp, s, o, p0, p1);
-    case CG_SEND_SNAPSHOT: return cr_send_snapshot<WRITE>(sp, s, o, p0, p1);
-    case CG_HANDLE_MESSAGE: return cr_handle_message<J, WRITE>(sp, s, o, p0);
-    case CG_APPEND_ADD: return ar_append_member<WRITE>(sp, s, o, p0, p1, true);
-    case CG_APPEND_REMOVE: return ar_append_member<WRITE>(sp, s, o, p0, p1, false);
-    case CG_RESET_IDENTITY: return Guard{ar_reset_identity<WRITE>(sp, s, o, p0), cd[3], false};
-    case CG_APPEND_OLDNEW: return jc_append_old_new<WRITE>(sp, s, o, p0, p1);
-    case CG_APPEND_NEW: return jc_append_new<WRITE>(sp, s, o, p0);
+    case CG_RESTART: return Guard{cr_restart<WRITE>(g, sp, s, o, p0), cd[3], false};
+    case CG_REQUEST_VOTE: return cr_request_vote<WRITE>(g, sp, s, o, p0, bag);
+    case CG_BECOME_LEADER:
+      return Guard{cr_become_leader<J, WRITE>(g, sp, s, o, p0), cd[3], false};
+    case CG_CLIENT_REQUEST: return cr_client_request<J, WRITE>(g, sp, s, o, p0, p1);
+    case CG_ADVANCE_COMMIT:
+      return Guard{cr_advance_commit<J, WRITE>(g, sp, s, o, p0), cd[3], false};
+    case CG_APPEND_ENTRIES: return cr_append_entries<WRITE>(g, sp, s, o, p0, p1);
+    case CG_SEND_SNAPSHOT: return cr_send_snapshot<WRITE>(g, sp, s, o, p0, p1);
+    case CG_HANDLE_MESSAGE: return cr_handle_message<J, WRITE>(g, sp, s, o, p0);
+    case CG_APPEND_ADD: return ar_append_member<WRITE>(g, sp, s, o, p0, p1, true);
+    case CG_APPEND_REMOVE: return ar_append_member<WRITE>(g, sp, s, o, p0, p1, false);
+    case CG_RESET_IDENTITY:
+      return Guard{ar_reset_identity<WRITE>(g, sp, s, o, p0), cd[3], false};
+    case CG_APPEND_OLDNEW: return jc_append_old_new<WRITE>(g, sp, s, o, p0, p1);
+    case CG_APPEND_NEW: return jc_append_new<WRITE>(g, sp, s, o, p0);
   }
   return Guard{false, cd[3], false};
 }
@@ -810,10 +863,10 @@ __device__ __forceinline__ bool cr_entry_eq(const int* sp, const int* s, int i, 
 
 // MessagesAreValid — MessagePassing.tla:81-83
 __device__ bool cr_messages_are_valid(const int* sp, const int* s) {
-  const int M = CFLD(M), NW = CFLD(NW);
+  const int M = CFLD(M);
   for (int m = 0; m < M; ++m) {
     int kw[CR_MAX_WORDS];
-    for (int w = 0; w < NW; ++w) kw[w] = s[CFLD(W0) + w * M + m];
+    cr_key_words(sp, s, m, kw);
     if (kw[0] != RA_EMPTY && cr_unpack(sp, kw, CF_MSOURCE) == cr_unpack(sp, kw, CF_MDEST))
       return false;
   }
@@ -975,6 +1028,12 @@ __device__ bool cr_predicate(const int* sp, const int* s, int id) {
   return true;  // INV_TEST
 }
 
+// threads a worklist lane in the group apply of reconfig_apply and
+// joint_apply (scripts/apply_groups.py builds and times others)
+#ifndef CR_APPLY_G
+#define CR_APPLY_G 32
+#endif
+
 // A reconfiguration spec as the kernel drivers see it (J: JointConsensus):
 // where its spec keeps the sizes, the guard scratch of a state (a slot of
 // CR_MAX_WORDS * M ints for each RequestVote lane), its actions and its
@@ -991,7 +1050,14 @@ struct ConfigFamily {
   template <bool WRITE>
   __device__ __forceinline__ static Guard action(const int* sp, const int* s, int* o,
                                                  const int* cd, int* bag) {
-    return cr_action<J, WRITE>(sp, s, o, cd, bag);
+    return cr_action<J, WRITE>(GrpOne{}, sp, s, o, cd, bag);
+  }
+  // the successor row `o` (a copy of `s`) of one candidate, by the group g
+  // of threads that shares the lane (expand_driver.cuh's group apply)
+  template <class Gp>
+  __device__ __forceinline__ static void apply(Gp g, const int* sp, const int* s, int* o,
+                                               const int* cd) {
+    cr_action<J, true>(g, sp, s, o, cd, nullptr);
   }
   __device__ __forceinline__ static bool invariant(const int* sp, const int* s, int id) {
     return cr_predicate<J>(sp, s, id);

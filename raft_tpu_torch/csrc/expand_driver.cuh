@@ -41,6 +41,8 @@
 // and their C launchers prefix_guard and prefix_apply.
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include "actions_common.cuh"
 
 #define GUARD_STATES_TARGET 256
@@ -236,7 +238,150 @@ static int launch_apply(ApplyKernel kernel, size_t* opted_in, const int* states,
   return (int)cudaGetLastError();
 }
 
-#define EXPAND_KERNELS(P, F)                                                                  \
+// ---- the group apply: a group of G threads a worklist lane ----
+//
+// For families with wide rows and long per-lane work (the reconfiguration
+// pair: a Family with apply(g, sp, s, o, cd) over actions_common.cuh's
+// group helpers). A block of APPLY_GROUP_THREADS threads holds
+// APPLY_GROUP_THREADS / G lanes and stages only the spec vector, so the
+// resident warps an SM depend on the registers alone, not on W. The group
+// of lane j copies its source row straight into flatc row j (16-byte
+// loads and stores where the two rows share their alignment, else 4-byte;
+// coalesced either way, no division an element), or zeros there for a
+// drop lane, then the action edits the row in place in global memory,
+// with the tile's barrier (__syncwarp over its mask) between a member's
+// write and another member's read.
+
+#define APPLY_GROUP_THREADS 256
+
+namespace cg = cooperative_groups;
+
+// a tile of G threads of one warp as actions_common.cuh's group type
+template <int G>
+struct GrpTile {
+  mutable cg::thread_block_tile<G> tile;
+  template <class Fn>
+  __device__ __forceinline__ void each(Fn f) const {
+    f((int)tile.thread_rank(), G);
+  }
+  __device__ __forceinline__ int size() const { return G; }
+  __device__ __forceinline__ int sum(int x) const {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) x += tile.shfl_xor(x, o);
+    return x;
+  }
+  __device__ __forceinline__ bool any(bool b) const { return tile.any(b); }
+  __device__ __forceinline__ void sync() const { tile.sync(); }
+  __device__ __forceinline__ bool lead() const { return tile.thread_rank() == 0; }
+  template <class R, class Wr>
+  __device__ __forceinline__ void staged(R r, Wr w) const {
+    const int t = (int)tile.thread_rank();
+    const auto v = r(t);
+    tile.sync();
+    w(t, v);
+  }
+};
+
+// dst[0, W) = src[0, W) (src null: zeros) by member t of G
+template <int G>
+__device__ __forceinline__ void grp_copy_row(int* __restrict__ dst,
+                                             const int* __restrict__ src, int W, int t) {
+  const int dmis = (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+  const int smis = src ? (int)((reinterpret_cast<uintptr_t>(src) >> 2) & 3) : dmis;
+  int head = W, body = 0;  // a scalar head, then int4 quads, then a scalar tail
+  if (smis == dmis) {
+    head = min(W, (4 - dmis) & 3);
+    body = (W - head) >> 2;
+  }
+  for (int i = t; i < head; i += G) dst[i] = src ? src[i] : 0;
+  int4* d4 = reinterpret_cast<int4*>(dst + head);
+  const int4* s4 = src ? reinterpret_cast<const int4*>(src + head) : nullptr;
+#pragma unroll 4
+  for (int i = t; i < body; i += G) d4[i] = s4 ? s4[i] : make_int4(0, 0, 0, 0);
+  for (int i = head + 4 * body + t; i < W; i += G) dst[i] = src ? src[i] : 0;
+}
+
+template <class F, int G>
+__device__ __forceinline__ void apply_group_body(const int* __restrict__ states, int C,
+                                                 const int* __restrict__ sel, int VC,
+                                                 const int* __restrict__ spec,
+                                                 const int* __restrict__ cand,
+                                                 int* __restrict__ flatc) {
+  __shared__ int sp[F::SPEC_LEN];
+  for (int t = threadIdx.x; t < F::SPEC_LEN; t += blockDim.x) sp[t] = spec[t];
+  __syncthreads();
+  const GrpTile<G> g{cg::tiled_partition<G>(cg::this_thread_block())};
+  const long long j = (long long)blockIdx.x * (APPLY_GROUP_THREADS / G) + threadIdx.x / G;
+  if (j >= VC) return;  // the whole group
+  const int W = sp[F::I_W], A = sp[F::I_A];
+  const int f = sel[j];
+  const bool live = f >= 0 && f < (long long)C * A;
+  const int c = live ? f / A : 0, a = live ? f - c * A : 0;
+  const int* src = states + (long long)c * W;
+  int* o = flatc + j * W;
+  grp_copy_row<G>(o, live ? src : nullptr, W, (int)g.tile.thread_rank());
+  if (!live) return;
+  g.sync();
+  F::apply(g, sp, src, o, cand + 4 * a);
+}
+
+// states [C, W] int32; sel [VC] int32; flatc [VC, W] int32. Returns a
+// cudaError_t.
+template <class F, int G>
+static int launch_apply_group(ApplyKernel kernel, const int* states, int C, const int* sel,
+                              int VC, const int* spec, int spec_len, const int* cand, int W,
+                              int* flatc, void* stream) {
+  if (spec_len != F::SPEC_LEN) return (int)cudaErrorInvalidValue;
+  if (VC <= 0) return 0;
+  constexpr int lanes = APPLY_GROUP_THREADS / G;
+  const int blocks = (VC + lanes - 1) / lanes;
+  kernel<<<blocks, APPLY_GROUP_THREADS, 0, (cudaStream_t)stream>>>(states, C, sel, VC, spec,
+                                                                   cand, flatc);
+  return (int)cudaGetLastError();
+}
+
+// What the group apply's build reaches: out = {G, threads a block, resident
+// blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), warps an
+// SM, registers a thread, local (stack) bytes a thread}. The shared memory
+// is the spec vector alone, so the figures hold at every W.
+template <int G>
+static int apply_group_occupancy(ApplyKernel kernel, int* out) {
+  int nb;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, (const void*)kernel,
+                                                                APPLY_GROUP_THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, (const void*)kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = G;
+  out[1] = APPLY_GROUP_THREADS;
+  out[2] = nb;
+  out[3] = nb * APPLY_GROUP_THREADS / 32;
+  out[4] = fa.numRegs;
+  out[5] = (int)fa.localSizeBytes;
+  return 0;
+}
+
+// EXPAND_KERNELS with the group apply at G threads a lane in place of
+// apply_body (the guard is the same), plus the launcher P_apply_occupancy.
+#define EXPAND_KERNELS_GROUP_APPLY(P, F, G)                                                   \
+  EXPAND_GUARD(P, F)                                                                          \
+  __global__ void __launch_bounds__(APPLY_GROUP_THREADS)                                      \
+      P##_apply_kernel(const int* __restrict__ states, int C, const int* __restrict__ sel,    \
+                       int VC, const int* __restrict__ spec, const int* __restrict__ cand,    \
+                       int* __restrict__ flatc) {                                             \
+    apply_group_body<F, G>(states, C, sel, VC, spec, cand, flatc);                            \
+  }                                                                                           \
+  extern "C" int P##_apply(const int* states, int C, const int* sel, int VC, const int* spec, \
+                           int spec_len, const int* cand, int W, int* flatc, void* stream) {  \
+    return launch_apply_group<F, G>(P##_apply_kernel, states, C, sel, VC, spec, spec_len,     \
+                                    cand, W, flatc, stream);                                  \
+  }                                                                                           \
+  extern "C" int P##_apply_occupancy(int* out) {                                              \
+    return apply_group_occupancy<G>(P##_apply_kernel, out);                                   \
+  }
+
+#define EXPAND_GUARD(P, F)                                                                    \
   __global__ void P##_guard_kernel(const int* __restrict__ states, int C, int n_live,         \
                                    const int* __restrict__ spec,                              \
                                    const int* __restrict__ cand, int SPB,                     \
@@ -253,7 +398,10 @@ static int launch_apply(ApplyKernel kernel, size_t* opted_in, const int* states,
     static size_t opted_in = 48 * 1024; /* dynamic shared memory allowed so far */            \
     return launch_guard<F>(P##_guard_kernel, &opted_in, states, C, n_live, spec, spec_len,    \
                            cand, A, W, K, S, M, valid, rank, ovf, scal, cov, stream);         \
-  }                                                                                           \
+  }
+
+#define EXPAND_KERNELS(P, F)                                                                  \
+  EXPAND_GUARD(P, F)                                                                          \
   __global__ void P##_apply_kernel(const int* __restrict__ states, int C,                     \
                                    const int* __restrict__ sel, int VC,                       \
                                    const int* __restrict__ spec,                              \

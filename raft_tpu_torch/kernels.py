@@ -89,6 +89,9 @@ for _fam in ("raft", "pull", "kraft", "reconfig", "joint", "kreconfig"):
                                          f"{_fam}_sim_check": _SIM_CHECK}
 # raft_expand.cu's second build of the two, with the network-fault groups
 _SIGNATURES["raft_expand"].update(raft_nf_guard=_GUARD, raft_nf_apply=_APPLY)
+# the reconfiguration pair's group apply reports its launch shape
+for _fam in ("reconfig", "joint"):
+    _SIGNATURES[f"{_fam}_expand"][f"{_fam}_apply_occupancy"] = [_P]
 
 
 def nvcc_path() -> str:

@@ -36,6 +36,8 @@ plain versions through the model's ``guards``/``sparse_apply``/
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import kernels
@@ -119,6 +121,22 @@ def apply(model, states: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
         cand.data_ptr(), W, flatc.data_ptr(), kernels.stream(states.device))
     k.launched(rc)
     return flatc
+
+
+def apply_occupancy(model) -> dict:
+    """What the model's group apply (csrc/expand_driver.cuh
+    EXPAND_KERNELS_GROUP_APPLY: the reconfiguration pair's
+    ``reconfig_apply`` and ``joint_apply``) reaches on the current card:
+    threads a worklist lane (G), threads a block, resident blocks and warps
+    an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local (stack) bytes a thread. Launches nothing; at every row width."""
+    k = model.KERNELS["apply"]
+    out = (ctypes.c_int * 6)()
+    rc = getattr(k.lib, f"{k.name}_occupancy")(ctypes.cast(out, ctypes.c_void_p))
+    if rc:
+        raise RuntimeError(f"{k.name}_occupancy: {k.lib.rt_error_string(rc).decode()}")
+    return dict(zip(("G", "threads", "blocks_per_sm", "warps_per_sm", "registers",
+                     "stack_bytes"), out))
 
 
 # ---------------- fold ----------------

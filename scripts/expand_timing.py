@@ -26,9 +26,13 @@ frontier (its canon ``canon_tiered``, the 2-word path, and
 depth-14 five-server AddRemove frontier (``canon_tiered``'s general path,
 cold and warm, beside the reconfiguration kernels), the same on a chunk of the
 depth-11 four-server AddRemove frontier (``canon_memo``'s general path, whose
-fingerprints are the least of 24 permuted hashes), and the guard and apply on
-one move of a 65,536-walk five-server FlexibleRaft simulate (the shapes of
-``chip_smoke.py`` phase 3 and its simulate). The inputs come from the
+fingerprints are the least of 24 permuted hashes) and of the depth-10
+four-server JointConsensus frontier, and the guard and apply on one move of a
+65,536-walk simulate of five-server FlexibleRaft and of each four-server
+reconfiguration cfg (the shapes of ``chip_smoke.py`` phase 3 and its
+simulates); with ptxas' stack and spill figures of the reconfiguration
+pair's guard and apply kernels and, where the checkout has it, the group
+apply's occupancy. The inputs come from the
 checkout's own engine with fixed seeds, so every checkout times the same
 rows when the engines agree (their state counts are printed beside the
 times). Prints one JSON line per ROOT, and writes them all to ``--out``.
@@ -42,7 +46,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import json, sys, time
+import json, re, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, ROOT)
@@ -55,9 +59,29 @@ from raft_tpu_torch.ops import prng
 from raft_tpu_torch.ops.expand import apply, fold, guard
 from raft_tpu_torch.ops.hashing import INT64_MAX
 
-kernels.build_all()
+logs = kernels.build_all()
 out = {"root": ROOT}
 ITERS = 100
+
+
+# ptxas' figures (-Xptxas -v) of the reconfiguration pair's guard and apply
+# kernels: "N bytes stack frame, N bytes spill stores, N bytes spill loads"
+# (absent where the checkout's build was up to date)
+def ptxas_lines(log):
+    lines = log.splitlines()
+    found = {}
+    for i, line in enumerate(lines):
+        m = re.search(r"Function properties for (\S+)", line)
+        if m and ("apply_kernel" in m.group(1) or "guard_kernel" in m.group(1)):
+            found[m.group(1)] = lines[i + 1].strip() if i + 1 < len(lines) else ""
+    return found
+
+
+out["ptxas"] = {u: ptxas_lines(logs[u]) for u in ("reconfig_expand", "joint_expand")}
+try:  # the group apply's launch shape (checkouts that have it)
+    from raft_tpu_torch.ops.expand import apply_occupancy
+except ImportError:
+    apply_occupancy = None
 
 
 # mean ms per call of fn (after setup, whose own time is taken off) over
@@ -167,21 +191,38 @@ _, b, _ = run_check("RaftWithReconfigAddRemove.cfg", text=cs.ADDREMOVE_CFG, devi
                     caps=cs.RECONFIG_CAPS)
 chunk_times("addremove4", b)
 del b
-setup = load_setup("FlexibleRaft.cfg", text=cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)
-model = setup.model
-sim = Simulator(model, setup.invariants, walks=cs.SIM_WALKS, max_behavior_depth=cs.SIM_DEPTH,
-                seed=1, device="cuda")
-sim.start()
-for _ in range(10):
-    sim.step()
-states = sim.states
-valid, _rank, ovf, _ = guard(model, states, cs.SIM_WALKS, sim.cov)
-stats = torch.zeros(4, dtype=torch.int64, device=states.device)
-pick = sim_pick(valid, ovf, prng.split(sim.rng)[1], sim.init_pool.shape[0], stats)
-out["flex5_move"] = dict(
-    walks=cs.SIM_WALKS, valid=int(valid.sum()),
-    guard_ms=device_ms(lambda: guard(model, states, cs.SIM_WALKS, sim.cov)),
-    apply_ms=device_ms(lambda: apply(model, states, pick[2])))
+_, b, _ = run_check("RaftWithReconfigJointConsensus.cfg", text=cs.JOINT_CFG, device="cuda",
+                    chunk=cs.CHUNK, max_depth=cs.JOINT_SAMPLE_DEPTH, caps=cs.JOINT_CAPS)
+chunk_times("joint4", b)
+del b
+
+
+# the guard and apply on one move of a 65,536-walk simulate (ten moves from
+# Init, seed 1)
+def move_times(tag, spec, text, **kw):
+    setup = load_setup(spec, text=text, **kw)
+    model = setup.model
+    sim = Simulator(model, setup.invariants, walks=cs.SIM_WALKS,
+                    max_behavior_depth=cs.SIM_DEPTH, seed=1, device="cuda")
+    sim.start()
+    for _ in range(10):
+        sim.step()
+    states = sim.states
+    valid, _rank, ovf, _ = guard(model, states, cs.SIM_WALKS, sim.cov)
+    stats = torch.zeros(4, dtype=torch.int64, device=states.device)
+    pick = sim_pick(valid, ovf, prng.split(sim.rng)[1], sim.init_pool.shape[0], stats)
+    out[tag] = dict(
+        walks=cs.SIM_WALKS, valid=int(valid.sum()),
+        moved=int((pick[2] < cs.SIM_WALKS * model.A).sum()),
+        guard_ms=device_ms(lambda: guard(model, states, cs.SIM_WALKS, sim.cov)),
+        apply_ms=device_ms(lambda: apply(model, states, pick[2])))
+    if apply_occupancy is not None and tag != "flex5_move":
+        out[tag]["apply_occupancy"] = apply_occupancy(model)
+
+
+move_times("flex5_move", "FlexibleRaft.cfg", cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)
+move_times("addremove_move", "RaftWithReconfigAddRemove.cfg", cs.ADDREMOVE_CFG, lenient=True)
+move_times("joint_move", "RaftWithReconfigJointConsensus.cfg", cs.JOINT_CFG)
 print(json.dumps(out))
 """
 

@@ -1372,6 +1372,55 @@ def test_config_guard_apply_fold(dev, name):
         assert after[k] == before[k], k
 
 
+# five-server constants (tests/test_torch_canon_tiers_wide.py PARAMS5: 5- and
+# 7-word keys)
+CONFIG5_VARIANTS = {
+    "reconfig": dataclasses.replace(CONFIG_VARIANTS["reconfig"], n_servers=5,
+                                    init_cluster_size=3, max_add_reconfigs=2,
+                                    max_cluster_size=5, msg_slots=24),
+    "joint": dataclasses.replace(CONFIG_VARIANTS["joint"], n_servers=5, init_cluster_size=3,
+                                 max_reconfigs=2, msg_slots=24),
+}
+
+
+@pytest.mark.parametrize("servers", [3, 5])
+@pytest.mark.parametrize("name", list(CONFIG_VARIANTS))
+def test_config_group_apply_worklists(dev, name, servers):
+    """reconfig_apply / joint_apply (the group apply: G threads a worklist
+    lane) against apply_plain on reachable and edge rows, on the worklists
+    the engines give it: a BFS chunk's (the valid lanes first, then drop
+    lanes), a simulate move's (one lane a row, C = R, drops interleaved),
+    an empty one and random flat ids past C * A too; each call launches the
+    family's apply once and no other kernel."""
+    from raft_tpu_torch import kernels
+
+    p = (CONFIG_VARIANTS if servers == 3 else CONFIG5_VARIANTS)[name]
+    model = (JointRaftModel if isinstance(p, JointRaftParams) else ReconfigRaftModel)(p)
+    assert model.n_words == {(3, "reconfig"): 4, (3, "joint"): 4, (5, "reconfig"): 5,
+                             (5, "joint"): 7}[servers, name]
+    base = _kraft_states(model, dev, depths=range(3, 8 if servers == 3 else 6))
+    states = torch.from_numpy(config_edge_rows(model, base, seed=9)).to(dev)
+    C, A = states.shape[0], model.A
+    cov = torch.zeros((len(model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
+    valid = guard(model, states, C, cov)[0]
+    gen = torch.Generator().manual_seed(servers)
+    bfs_sel, _n = compact_indices(valid.reshape(-1), int(valid.sum()) + 257, C * A)
+    pick = (torch.rand((C, A), generator=gen).to(dev) * valid).argmax(1)
+    walk = valid.any(1) & (torch.rand(C, generator=gen).to(dev) < 0.8)
+    sim_sel = torch.where(walk, torch.arange(C, device=dev) * A + pick, C * A).to(torch.int32)
+    rnd = torch.randint(0, C * A + 50, (700,), generator=gen, dtype=torch.int32).to(dev)
+    assert bool((sim_sel == C * A).any()) and bool((sim_sel < C * A).any())
+    for sel in (bfs_sel, sim_sel, bfs_sel[:0], rnd):
+        sel = sel.contiguous()
+        before = kernels.launch_counts()
+        fk = apply(model, states, sel)
+        after = kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+            f"{name}_apply": 1}
+        fp = apply_plain(model, states, sel)
+        assert fk.shape == (sel.numel(), model.layout.W) and torch.equal(fk, fp)
+
+
 @pytest.mark.parametrize("name", list(CONFIG_VARIANTS))
 def test_config_predicates_and_sim_check(dev, name):
     """The family's predicates kernel on edge rows (every invariant and

@@ -13,10 +13,16 @@ predicates bit for bit (tolerance: none, the values are integers), on
 reachable states and the edge rows of ``config_edge_rows``
 (tests/test_torch_kernels_cuda.py): every HandleMessage arm, the snapshot
 pair, the config appends, ResetWithSameIdentity, RequestVote chains that
-overflow partway and logs at max_log. Skips without g++.
+overflow partway and logs at max_log. ``ConfigFamily<J>::apply`` (the
+action of the card's group apply, a group of G threads a lane) runs here
+with ``GrpSerial``, which runs the G members' shares of each bag put and
+log install in turn, at G in {1, 4, 8, 32}: on the same rows at three
+servers and on the five-server constants' (5 and 7 key words)
+at a small depth, against the dense expand too. Skips without g++.
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -27,8 +33,11 @@ import torch
 from raft_tpu_torch.models import config_common as cc
 from raft_tpu_torch.models.base import INVARIANT_IDS
 
+from conftest import collect_states
 from test_torch_actions_host import CSRC, SHIM
-from test_torch_reconfig import PARAMS, _edges, _pair
+from test_torch_canon_tiers_wide import PARAMS5
+from test_torch_kernels_cuda import config_edge_rows
+from test_torch_reconfig import PARAMS, _edges, _models, _oracle, _pair, dense_expand
 
 # one intra-op thread: tier-1 runs several test workers side by side, and
 # torch's default thread pool per worker oversubscribes the CPU
@@ -69,6 +78,23 @@ extern "C" void host_expand(int joint, const int* states, int C, const int* spec
   if (joint) expand<true>(states, C, spec, cand, A, write, succ, valid, rank, ovf);
   else expand<false>(states, C, spec, cand, A, write, succ, valid, rank, ovf);
 }
+template <bool J>
+static void group_apply(int G, const int* states, int C, const int* spec, const int* cand, int A,
+                        int* succ) {
+  const int W = spec[CS_W];
+  for (int c = 0; c < C; ++c)
+    for (int a = 0; a < A; ++a) {
+      const int* s = states + (long long)c * W;
+      int* o = succ + ((long long)c * A + a) * W;
+      for (int w = 0; w < W; ++w) o[w] = s[w];
+      ConfigFamily<J>::apply(GrpSerial{G}, spec, s, o, cand + 4 * a);
+    }
+}
+extern "C" void host_group_apply(int joint, int G, const int* states, int C, const int* spec,
+                                 const int* cand, int A, int* succ) {
+  if (joint) group_apply<true>(G, states, C, spec, cand, A, succ);
+  else group_apply<false>(G, states, C, spec, cand, A, succ);
+}
 extern "C" void host_predicate(int joint, const int* states, int C, const int* spec, int id,
                                bool* ok) {
   for (int c = 0; c < C; ++c) {
@@ -96,6 +122,7 @@ def lib(tmp_path_factory):
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.host_expand.argtypes = [I, P, I, P, P, I, I, P, P, P, P]
     lib.host_predicate.argtypes = [I, P, I, P, I, P]
+    lib.host_group_apply.argtypes = [I, I, P, I, P, P, I, P]
     return lib
 
 
@@ -171,3 +198,34 @@ def test_kernel_spec_layout(name):
     assert ids.tolist() == [5, INVARIANT_IDS["TestInv"], 17]
     with pytest.raises(KeyError, match="no kernel predicate"):
         tm.kernel_spec("cpu", ("ReconfigurationCompletes",))
+
+
+@functools.lru_cache(maxsize=None)
+def _edges5(name):
+    """config_edge_rows of reachable five-server states (PARAMS5, depth 4)
+    and their dense expand."""
+    jm, tm = _models(PARAMS5[name])
+    batch = np.stack([jm.encode(s) for s in collect_states(_oracle(PARAMS5[name]), 4, cap=24)])
+    rows = config_edge_rows(tm, batch.astype(np.int32), seed=len(name) + 5)
+    return tm, rows, dense_expand(jm, rows)
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+@pytest.mark.parametrize("servers", [3, 5])
+@pytest.mark.parametrize("name", list(PARAMS))
+def test_group_apply_matches_reference(lib, name, servers, G):
+    if servers == 3:
+        tm, (states, want) = _pair(name)[1], _edges(name)
+    else:
+        tm, states, want = _edges5(name)
+        assert tm.n_words == {"reconfig": 5, "joint": 7}[name]
+    spec, cand, _ = (np.ascontiguousarray(t.numpy()) for t in tm.kernel_spec("cpu"))
+    C, A, W = len(states), tm.A, tm.layout.W
+    succ = np.zeros((C, A, W), np.int32)
+    lib.host_group_apply(int(name == "joint"), G, _ptr(states), C, _ptr(spec), _ptr(cand), A,
+                         _ptr(succ))
+    assert np.array_equal(want[0], succ)
+    # the rows put into full and near-full bags, and install logs
+    hit = want[1] & want[3]
+    assert (hit & (want[2] == cc.R_REQUESTVOTE)).any()
+    assert (want[1] & (want[2] == cc.R_ACCEPT_AE)).any()
