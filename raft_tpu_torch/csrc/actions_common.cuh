@@ -233,57 +233,46 @@ __device__ void nw_bag_insert(int* words, int* cnt, int M, int nw, const WKey& k
 // A group of G members shares one lane's put: member t takes the slots
 // m = t, t + G, ... of the probe (pos combined by sum, existed and
 // have_empty by OR) and of the count update, and the insert's shift moves
-// G slots a round from the top, each member reading its slot's lower
-// neighbour, then (after the group's barrier) writing it one slot up.
-// A group type supplies the combining:
-//   each(f)        f(t, G) for the member's own share (a warp tile, the
-//                  card's apply) or for all G shares in turn (serial);
+// G slots a round from the top, member t reading slot top - t - 1, then
+// (after the group's barrier) writing it one slot up. A group type says
+// which members a thread runs and supplies the combining:
+//   lo(), hi()     the members [lo, hi) this thread runs: its own rank on
+//                  the card (a warp tile), all G in turn on the host;
+//   size()         G;
 //   sum(x), any(b) the total over the members, in every member;
 //   sync()         the group's barrier, which also orders the members'
 //                  memory accesses (__syncwarp on the card);
-//   staged(r, w)   w(t, r(t)) with every member's r before any w;
 //   lead()         the member that makes the lane's scalar writes.
-// GrpOne is a group of one (a guard lane, or an apply with one thread a
-// lane); GrpSerial runs G shares on one thread (the host build of the
-// tests): its staged() runs r then w member by member in rank order, which
-// equals the barrier for the shift because member t reads the slot that
-// member t + 1 writes. The tile lives in expand_driver.cuh.
+// GrpOne is a group of one (a guard lane); GrpSerial runs G members on one
+// thread (the host build of the tests), accumulating in place, where a
+// round's read, barrier and write run member by member in rank order: that
+// equals the barrier for the shift, since member t reads the slot that
+// member t + 1 writes. The tile lives in expand_driver.cuh. The members'
+// loops are plain loops, not lambdas: a lambda the compiler does not inline
+// takes the key's address and puts it on the stack.
 //
 // Keys here are int32 words (IKey): the low 32 bits of WKey's int64 sum,
-// so nw_wrap's result, kept in registers where WKey's runtime word index
-// put it on the stack.
+// so nw_wrap's result, indexed at compile time only, in registers.
 
 struct GrpOne {
-  template <class F>
-  __device__ __forceinline__ void each(F f) const {
-    f(0, 1);
-  }
+  __device__ __forceinline__ int lo() const { return 0; }
+  __device__ __forceinline__ int hi() const { return 1; }
   __device__ __forceinline__ int size() const { return 1; }
   __device__ __forceinline__ int sum(int x) const { return x; }
   __device__ __forceinline__ bool any(bool b) const { return b; }
   __device__ __forceinline__ void sync() const {}
   __device__ __forceinline__ bool lead() const { return true; }
-  template <class R, class Wr>
-  __device__ __forceinline__ void staged(R r, Wr w) const {
-    w(0, r(0));
-  }
 };
 
 struct GrpSerial {
   int G;
-  template <class F>
-  void each(F f) const {
-    for (int t = 0; t < G; ++t) f(t, G);
-  }
+  int lo() const { return 0; }
+  int hi() const { return G; }
   int size() const { return G; }
   int sum(int x) const { return x; }
   bool any(bool b) const { return b; }
   void sync() const {}
   bool lead() const { return true; }
-  template <class R, class Wr>
-  void staged(R r, Wr w) const {
-    for (int t = 0; t < G; ++t) w(t, r(t));
-  }
 };
 
 struct IKey {
@@ -297,32 +286,27 @@ __device__ __forceinline__ IKey nw_ikey() {
   return k;
 }
 
-// a slot's key words and count, as registers
-struct BagSlot {
-  int w[NW_MAX_WORDS];
-  int cnt;
-};
-
 template <class Gp>
 __device__ __forceinline__ Put nw_bag_probe_g(Gp g, const int* words, int M, int nw,
                                               const IKey& k) {
+  const int G = g.size();
   int pos = 0;
   bool existed = false, have_empty = false;
-  g.each([&](int t, int G) {
+  for (int t = g.lo(); t < g.hi(); ++t)
     for (int m = t; m < M; m += G) {
       bool less = false, tie = true;
 #pragma unroll
       for (int w = 0; w < NW_MAX_WORDS; ++w) {
-        if (w >= nw) break;
-        const int x = words[w * M + m];
-        less = less || (tie && x < k.w[w]);
-        tie = tie && x == k.w[w];
+        if (w < nw) {  // a predicate, not a break: the loop unrolls
+          const int x = words[w * M + m];
+          less = less || (tie && x < k.w[w]);
+          tie = tie && x == k.w[w];
+        }
       }
       existed |= tie;
       have_empty |= words[m] == RA_EMPTY;
       pos += less;
     }
-  });
   Put r;
   r.pos = g.sum(pos);
   r.existed = g.any(existed);
@@ -335,46 +319,38 @@ __device__ __forceinline__ Put nw_bag_probe_g(Gp g, const int* words, int M, int
 template <class Gp>
 __device__ __forceinline__ void nw_bag_insert_g(Gp g, int* words, int* cnt, int M, int nw,
                                                 const IKey& k, const Put& p) {
+  const int G = g.size();
   g.sync();  // the lane's earlier writes (the receipt's Discard) before the reads
   if (p.existed) {
     if (cnt)
-      g.each([&](int t, int G) {
+      for (int t = g.lo(); t < g.hi(); ++t)
         for (int m = t; m < M; m += G) {
           bool eq = true;
 #pragma unroll
-          for (int w = 0; w < NW_MAX_WORDS; ++w) {
-            if (w >= nw) break;
-            eq = eq && words[w * M + m] == k.w[w];
-          }
+          for (int w = 0; w < NW_MAX_WORDS; ++w)
+            if (w < nw) eq = eq && words[w * M + m] == k.w[w];
           cnt[m] += eq;
         }
-      });
     g.sync();
     return;
   }
-  const int G = g.size();
-  for (int top = M - 1; top > p.pos; top -= G)  // slots top - t, G a round, from the top
-    g.staged(
-        [&](int t) {
-          BagSlot v;
-          const int x = top - t;
-          if (x > p.pos) {
+  for (int top = M - 1; top > p.pos; top -= G)  // slot top - t, G a round, from the top
+    for (int t = g.lo(); t < g.hi(); ++t) {
+      const int x = top - t;
+      int v[NW_MAX_WORDS], c = 0;
+      if (x > p.pos) {
 #pragma unroll
-            for (int w = 0; w < NW_MAX_WORDS; ++w)
-              if (w < nw) v.w[w] = words[w * M + x - 1];
-            if (cnt) v.cnt = cnt[x - 1];
-          }
-          return v;
-        },
-        [&](int t, const BagSlot& v) {
-          const int x = top - t;
-          if (x > p.pos) {
+        for (int w = 0; w < NW_MAX_WORDS; ++w) v[w] = w < nw ? words[w * M + x - 1] : 0;
+        if (cnt) c = cnt[x - 1];
+      }
+      g.sync();  // every member's read of the round before any write
+      if (x > p.pos) {
 #pragma unroll
-            for (int w = 0; w < NW_MAX_WORDS; ++w)
-              if (w < nw) words[w * M + x] = v.w[w];
-            if (cnt) cnt[x] = v.cnt;
-          }
-        });
+        for (int w = 0; w < NW_MAX_WORDS; ++w)
+          if (w < nw) words[w * M + x] = v[w];
+        if (cnt) cnt[x] = c;
+      }
+    }
   if (p.pos < M && g.lead()) {  // slot pos was read before the last round's barrier
 #pragma unroll
     for (int w = 0; w < NW_MAX_WORDS; ++w)

@@ -132,27 +132,30 @@ __device__ __forceinline__ int cr_lane(const int* row, int L, int l) {  // clamp
 // ---- message keys (ops/packing.py WidePacker) ----
 
 // add v << shift into the key's word at the triple of field f (int32
-// wraparound, as the plain versions pack); the word is picked by compares,
-// so the key stays in registers
+// wraparound, as the plain versions pack). Every word takes an add, masked
+// to 0 but at the field's word: a conditional store or a select of words
+// would let the compiler index the key at run time, on the stack.
 __device__ __forceinline__ void cr_pack(const int* sp, IKey& k, int f, int v) {
   const int* q = sp + CS_MSG + 3 * f;
   const unsigned add = (unsigned)v << q[1];
 #pragma unroll
   for (int w = 0; w < CR_MAX_WORDS; ++w)
-    if (q[0] == w) k.w[w] = (int)((unsigned)k.w[w] + add);
+    k.w[w] = (int)((unsigned)k.w[w] + (add & (0u - (unsigned)(q[0] == w))));
 }
-// slot m's key words (kw[w] for w < NW, 0 above)
-__device__ __forceinline__ void cr_key_words(const int* sp, const int* s, int m, int* kw) {
+// slot m's key words (0 past NW)
+__device__ __forceinline__ IKey cr_key_words(const int* sp, const int* s, int m) {
   const int M = CFLD(M), NW = CFLD(NW);
+  IKey kw;
 #pragma unroll
-  for (int w = 0; w < CR_MAX_WORDS; ++w) kw[w] = w < NW ? s[CFLD(W0) + w * M + m] : 0;
+  for (int w = 0; w < CR_MAX_WORDS; ++w) kw.w[w] = w < NW ? s[CFLD(W0) + w * M + m] : 0;
+  return kw;
 }
-// a field of a key given as int words
-__device__ __forceinline__ int cr_unpack(const int* sp, const int* kw, int f) {
+// a field of a key (its word picked by masks, as cr_pack's)
+__device__ __forceinline__ int cr_unpack(const int* sp, const IKey& kw, int f) {
   const int* q = sp + CS_MSG + 3 * f;
-  int x = kw[0];
+  int x = 0;
 #pragma unroll
-  for (int w = 1; w < CR_MAX_WORDS; ++w) x = q[0] == w ? kw[w] : x;
+  for (int w = 0; w < CR_MAX_WORDS; ++w) x |= kw.w[w] & -(int)(q[0] == w);
   return (x >> q[1]) & q[2];
 }
 
@@ -195,7 +198,7 @@ struct CrLogOf {
 // :734-739); committed = ci >= idx. Returns in_new: dst in the entry's
 // member set. Writes only with `write`.
 template <bool J, class Row>
-__device__ bool cr_config_from(const int* sp, int* o, int dst, const Row& row, int idx, int ci,
+__device__ __forceinline__ bool cr_config_from(const int* sp, int* o, int dst, const Row& row, int idx, int ci,
                                bool write) {
   const int S = CFLD(S), L = CFLD(L);
   const int pos = ra_clamp(idx - 1, 0, L - 1);
@@ -551,9 +554,8 @@ __device__ bool ar_reset_identity(Gp g, const int* sp, const int* s, int* o, int
         o[CFLD(MI) + i * S + k] = 0;
       }
     }
-    g.each([&](int t, int G) {  // the log, (slot, lane) pairs split over the group
-      for (int u = t; u < NE * L; u += G) o[sp[CS_LOG + u / L] + i * L + u % L] = 0;
-    });
+    for (int t = g.lo(); t < g.hi(); ++t)  // the log, (slot, lane) pairs split over the group
+      for (int u = t; u < NE * L; u += g.size()) o[sp[CS_LOG + u / L] + i * L + u % L] = 0;
   }
   return ct[i] > 0 && leader >= 0 && ld != i && !cr_bit(s[CFLD(CMEM) + ld], i) &&
          s[CFLD(CCOMM) + ld] > 0;
@@ -645,7 +647,7 @@ __device__ Guard jc_append_new(Gp g, const int* sp, const int* s, int* o, int i)
 struct CrInstall {
   const int* sp;
   const int* s;
-  const int* kw;
+  IKey kw;  // a copy: a pointer to the words would put them on the stack
   int dst, prev_idx, app;
   bool snapshot, appending;
   __device__ __forceinline__ int operator()(int e, int l) const {
@@ -666,9 +668,8 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
   const int S = CFLD(S), L = CFLD(L), M = CFLD(M), NW = CFLD(NW), NE = CFLD(NE);
   const bool lw = WRITE && g.lead();
   Guard gd{false, -1, false};
-  int kw[CR_MAX_WORDS];
-  cr_key_words(sp, s, m, kw);
-  if (kw[0] == RA_EMPTY) return gd;
+  const IKey kw = cr_key_words(sp, s, m);
+  if (kw.w[0] == RA_EMPTY) return gd;
   const int mtype = cr_unpack(sp, kw, CF_MTYPE), mterm = cr_unpack(sp, kw, CF_MTERM);
   const int src = cr_unpack(sp, kw, CF_MSOURCE), dst = cr_unpack(sp, kw, CF_MDEST);
   const int cur = jx_get(s + CFLD(CT), S, dst), st = jx_get(s + CFLD(ST), S, dst);
@@ -813,10 +814,9 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
         if (mtype == CR_AEREQ)
           jx_set(o + CFLD(ST), S, dst, in_new ? CR_FOLLOWER : CR_NOTMEMBER);
       }
-      g.each([&](int t, int G) {  // the log, (slot, lane) pairs split over the group
-        for (int u = t; u < NE * L; u += G)
+      for (int t = g.lo(); t < g.hi(); ++t)  // the log, (slot, lane) pairs split over the group
+        for (int u = t; u < NE * L; u += g.size())
           jx_set2(o + sp[CS_LOG + u / L], S, L, dst, u % L, row(u / L, u % L));
-      });
     }
     if (lw) o[CFLD(CNT) + m] -= 1;  // the incoming Discard
     if (putb) nw_bag_insert_g(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
@@ -865,9 +865,8 @@ __device__ __forceinline__ bool cr_entry_eq(const int* sp, const int* s, int i, 
 __device__ bool cr_messages_are_valid(const int* sp, const int* s) {
   const int M = CFLD(M);
   for (int m = 0; m < M; ++m) {
-    int kw[CR_MAX_WORDS];
-    cr_key_words(sp, s, m, kw);
-    if (kw[0] != RA_EMPTY && cr_unpack(sp, kw, CF_MSOURCE) == cr_unpack(sp, kw, CF_MDEST))
+    const IKey kw = cr_key_words(sp, s, m);
+    if (kw.w[0] != RA_EMPTY && cr_unpack(sp, kw, CF_MSOURCE) == cr_unpack(sp, kw, CF_MDEST))
       return false;
   }
   return true;
@@ -1028,10 +1027,15 @@ __device__ bool cr_predicate(const int* sp, const int* s, int id) {
   return true;  // INV_TEST
 }
 
-// threads a worklist lane in the group apply of reconfig_apply and
-// joint_apply (scripts/apply_groups.py builds and times others)
+// the group apply of reconfig_apply and joint_apply: threads a worklist
+// lane, and resident blocks an SM asked of the register allocator (3: at
+// most 80 registers a thread, 24 warps an SM, against 96 registers and 16
+// warps unasked; scripts/apply_groups.py builds and times others)
 #ifndef CR_APPLY_G
 #define CR_APPLY_G 32
+#endif
+#ifndef CR_APPLY_BLOCKS
+#define CR_APPLY_BLOCKS 3
 #endif
 
 // A reconfiguration spec as the kernel drivers see it (J: JointConsensus):

@@ -38,7 +38,10 @@
 //
 // A family's source instantiates both with EXPAND_KERNELS(prefix, Family),
 // which defines the kernels prefix_guard_kernel and prefix_apply_kernel
-// and their C launchers prefix_guard and prefix_apply.
+// and their C launchers prefix_guard and prefix_apply. A family with wide
+// rows and long per-lane work (the reconfiguration pair) takes
+// EXPAND_KERNELS_GROUP_APPLY(prefix, Family, G) instead: the same guard,
+// and the group apply below, G threads a worklist lane.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -260,10 +263,8 @@ namespace cg = cooperative_groups;
 template <int G>
 struct GrpTile {
   mutable cg::thread_block_tile<G> tile;
-  template <class Fn>
-  __device__ __forceinline__ void each(Fn f) const {
-    f((int)tile.thread_rank(), G);
-  }
+  __device__ __forceinline__ int lo() const { return (int)tile.thread_rank(); }
+  __device__ __forceinline__ int hi() const { return (int)tile.thread_rank() + 1; }
   __device__ __forceinline__ int size() const { return G; }
   __device__ __forceinline__ int sum(int x) const {
 #pragma unroll
@@ -273,13 +274,6 @@ struct GrpTile {
   __device__ __forceinline__ bool any(bool b) const { return tile.any(b); }
   __device__ __forceinline__ void sync() const { tile.sync(); }
   __device__ __forceinline__ bool lead() const { return tile.thread_rank() == 0; }
-  template <class R, class Wr>
-  __device__ __forceinline__ void staged(R r, Wr w) const {
-    const int t = (int)tile.thread_rank();
-    const auto v = r(t);
-    tile.sync();
-    w(t, v);
-  }
 };
 
 // dst[0, W) = src[0, W) (src null: zeros) by member t of G
@@ -363,10 +357,11 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
 }
 
 // EXPAND_KERNELS with the group apply at G threads a lane in place of
-// apply_body (the guard is the same), plus the launcher P_apply_occupancy.
-#define EXPAND_KERNELS_GROUP_APPLY(P, F, G)                                                   \
+// apply_body (the guard is the same), B resident blocks an SM asked of the
+// register allocator (__launch_bounds__), plus the launcher P_apply_occupancy.
+#define EXPAND_KERNELS_GROUP_APPLY(P, F, G, B)                                                \
   EXPAND_GUARD(P, F)                                                                          \
-  __global__ void __launch_bounds__(APPLY_GROUP_THREADS)                                      \
+  __global__ void __launch_bounds__(APPLY_GROUP_THREADS, B)                                   \
       P##_apply_kernel(const int* __restrict__ states, int C, const int* __restrict__ sel,    \
                        int VC, const int* __restrict__ spec, const int* __restrict__ cand,    \
                        int* __restrict__ flatc) {                                             \

@@ -16,4 +16,4 @@
 #include "expand_driver.cuh"
 #include "config_actions.cuh"
 
-EXPAND_KERNELS_GROUP_APPLY(joint, JointFamily, CR_APPLY_G)
+EXPAND_KERNELS_GROUP_APPLY(joint, JointFamily, CR_APPLY_G, CR_APPLY_BLOCKS)

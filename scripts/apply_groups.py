@@ -6,7 +6,9 @@ lane).
     python scripts/apply_groups.py [--out FILE]
 
 Builds csrc/reconfig_expand.cu and csrc/joint_expand.cu with
-``-DCR_APPLY_G=g`` for each g of GROUPS, one nvcc each, all at once, into
+``-DCR_APPLY_G=g -DCR_APPLY_BLOCKS=b`` for each (g, b) of BUILDS
+(b: __launch_bounds__' resident blocks an SM, which caps the registers),
+one nvcc each, all at once, into
 build/apply_groups/, and times each library through the port's own
 wrapper (``ops.expand.apply``, the library swapped in under the model's
 apply kernel) with CUDA events around ITERS calls queued back to back, on
@@ -46,39 +48,41 @@ from raft_tpu_torch.checker.util import compact_indices  # noqa: E402
 from raft_tpu_torch.ops import prng  # noqa: E402
 from raft_tpu_torch.ops.expand import apply, apply_occupancy, apply_plain, guard  # noqa: E402
 
-GROUPS = (4, 8, 16, 32)
+# (G, CR_APPLY_BLOCKS): each G at the registers it takes, and G = 32 held
+# to 80 and 64 registers (three and four blocks of 256 threads an SM)
+BUILDS = ((4, 1), (8, 1), (16, 1), (32, 1), (32, 3), (32, 4))
 ITERS = 50
 PIECE = 2048  # walks a piece of the simulate move's plain comparison
 OUT_DIR = os.path.join(ROOT, "build", "apply_groups")
 
 
 def build() -> dict:
-    """One library per (family, G), compiled in parallel; with each its
+    """One library per (family, G, b), compiled in parallel; with each its
     apply kernel's ptxas line (stack frame and spill bytes)."""
     os.makedirs(OUT_DIR, exist_ok=True)
     procs = {}
     for fam in ("reconfig", "joint"):
         base = kernels.RECONFIG_FAMILY["apply"] if fam == "reconfig" else \
             kernels.JOINT_FAMILY["apply"]
-        for g in GROUPS:
-            so = os.path.join(OUT_DIR, f"lib{fam}_expand_{g}.so")
+        for g, b in BUILDS:
+            so = os.path.join(OUT_DIR, f"lib{fam}_expand_{g}_{b}.so")
             cmd = list(base.compile_cmd())
             cmd[cmd.index("-o") + 1] = so
-            cmd[1:1] = [f"-DCR_APPLY_G={g}"]
-            procs[fam, g] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True))
+            cmd[1:1] = [f"-DCR_APPLY_G={g}", f"-DCR_APPLY_BLOCKS={b}"]
+            procs[fam, g, b] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True))
     libs = {}
-    for (fam, g), (so, proc) in procs.items():
+    for (fam, g, b), (so, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {fam} G = {g}:\n{out}")
+            raise RuntimeError(f"nvcc failed for {fam} G = {g}, {b} blocks:\n{out}")
         lib = ctypes.CDLL(so)
         for fn, args in kernels._SIGNATURES[f"{fam}_expand"].items():
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
-        libs[fam, g] = (lib, ptxas_apply(out))
+        libs[fam, g, b] = (lib, ptxas_apply(out))
     return libs
 
 
@@ -171,11 +175,11 @@ def main() -> int:
         fam = "joint" if "Joint" in model.name else "reconfig"
         k = model.KERNELS["apply"]
         W = model.layout.W
-        for g in GROUPS:
-            lib, ptxas = libs[fam, g]
+        for g, b in BUILDS:
+            lib, ptxas = libs[fam, g, b]
             k._lib = lib
             exact = torch.equal(apply(model, states, sel), want)
-            line = dict(input=tag, kernel=k.name, G=g, W=W, lanes=sel.numel(),
+            line = dict(input=tag, kernel=k.name, G=g, min_blocks=b, W=W, lanes=sel.numel(),
                         valid=int((sel < states.shape[0] * model.A).sum()),
                         ms=device_ms(lambda: apply(model, states, sel)), exact=exact,
                         occupancy=apply_occupancy(model), ptxas=ptxas, card=smi)
