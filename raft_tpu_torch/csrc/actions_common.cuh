@@ -243,13 +243,12 @@ __device__ void nw_bag_insert(int* words, int* cnt, int M, int nw, const WKey& k
 //   sync()         the group's barrier, which also orders the members'
 //                  memory accesses (__syncwarp on the card);
 //   lead()         the member that makes the lane's scalar writes.
-// GrpOne is a group of one (a guard lane); GrpSerial runs G members on one
+// GrpOne is a group of one (a guard lane, whose puts take nw_bag_probe and
+// nw_bag_insert above); GrpSerial runs G members on one
 // thread (the host build of the tests), accumulating in place, where a
 // round's read, barrier and write run member by member in rank order: that
 // equals the barrier for the shift, since member t reads the slot that
-// member t + 1 writes. The tile lives in expand_driver.cuh. The members'
-// loops are plain loops, not lambdas: a lambda the compiler does not inline
-// takes the key's address and puts it on the stack.
+// member t + 1 writes. The tile lives in expand_driver.cuh.
 //
 // Keys here are int32 words (IKey): the low 32 bits of WKey's int64 sum,
 // so nw_wrap's result, indexed at compile time only, in registers.
@@ -314,23 +313,22 @@ __device__ __forceinline__ Put nw_bag_probe_g(Gp g, const int* words, int M, int
   return r;
 }
 
-// the insert half of wide_bag_put, in place, by the whole group (cnt may be
-// null: a guard's copy); ends with the group's barrier
+// the insert half of wide_bag_put, in place in a successor row, by the
+// whole group; ends with the group's barrier
 template <class Gp>
 __device__ __forceinline__ void nw_bag_insert_g(Gp g, int* words, int* cnt, int M, int nw,
                                                 const IKey& k, const Put& p) {
   const int G = g.size();
   g.sync();  // the lane's earlier writes (the receipt's Discard) before the reads
   if (p.existed) {
-    if (cnt)
-      for (int t = g.lo(); t < g.hi(); ++t)
-        for (int m = t; m < M; m += G) {
-          bool eq = true;
+    for (int t = g.lo(); t < g.hi(); ++t)
+      for (int m = t; m < M; m += G) {
+        bool eq = true;
 #pragma unroll
-          for (int w = 0; w < NW_MAX_WORDS; ++w)
-            if (w < nw) eq = eq && words[w * M + m] == k.w[w];
-          cnt[m] += eq;
-        }
+        for (int w = 0; w < NW_MAX_WORDS; ++w)
+          if (w < nw) eq = eq && words[w * M + m] == k.w[w];
+        cnt[m] += eq;
+      }
     g.sync();
     return;
   }
@@ -341,21 +339,21 @@ __device__ __forceinline__ void nw_bag_insert_g(Gp g, int* words, int* cnt, int 
       if (x > p.pos) {
 #pragma unroll
         for (int w = 0; w < NW_MAX_WORDS; ++w) v[w] = w < nw ? words[w * M + x - 1] : 0;
-        if (cnt) c = cnt[x - 1];
+        c = cnt[x - 1];
       }
       g.sync();  // every member's read of the round before any write
       if (x > p.pos) {
 #pragma unroll
         for (int w = 0; w < NW_MAX_WORDS; ++w)
           if (w < nw) words[w * M + x] = v[w];
-        if (cnt) cnt[x] = c;
+        cnt[x] = c;
       }
     }
   if (p.pos < M && g.lead()) {  // slot pos was read before the last round's barrier
 #pragma unroll
     for (int w = 0; w < NW_MAX_WORDS; ++w)
       if (w < nw) words[w * M + p.pos] = k.w[w];
-    if (cnt) cnt[p.pos] = 1;
+    cnt[p.pos] = 1;
   }
   g.sync();
 }

@@ -28,9 +28,9 @@
 // previous one left, a put that finds its message disabling the action
 // (SendMultipleOnce); its guard lane replays the chain on its own copy of
 // the bag's key words (ConfigFamily gives each RequestVote lane of a state
-// a slot of CR_MAX_WORDS * M ints). Keys, key words and logs are read and
-// built with compile-time indices only (IKey, cr_unpack, CrInstall), so
-// they stay in registers.
+// a slot of CR_MAX_WORDS * M ints). The apply's keys, key words and logs
+// are read and built with compile-time indices only (IKey, cr_unpack,
+// CrInstall), so they stay in registers.
 //
 // Message keys are N int32 words (N = the spec's NW, at most CR_MAX_WORDS):
 // a key is the SUM of (value << shift) into its word, computed in int32;
@@ -130,11 +130,43 @@ __device__ __forceinline__ int cr_lane(const int* row, int L, int l) {  // clamp
 }
 
 // ---- message keys (ops/packing.py WidePacker) ----
+//
+// Two forms, picked by the action's WRITE. The guard (a group of one)
+// keeps the forms it had before the group apply: an int64 WKey indexed by
+// a spec word and wrapped to int32 before its put, key words read at a
+// runtime index (CrWords), and actions_common.cuh's serial nw_bag_probe
+// and nw_bag_insert; a few bytes of stack, and the registers (so the
+// occupancy) of its one-thread lanes stay as they were. The apply takes
+// IKey for both, int32 words in registers, every word picked by masks (a
+// conditional store or a select of words lets the compiler index the key
+// at run time, on the stack), and the put split over its group
+// (nw_bag_probe_g, nw_bag_insert_g).
 
-// add v << shift into the key's word at the triple of field f (int32
-// wraparound, as the plain versions pack). Every word takes an add, masked
-// to 0 but at the field's word: a conditional store or a select of words
-// would let the compiler index the key at run time, on the stack.
+struct CrWords {  // a slot's key words, read at a runtime index
+  int w[CR_MAX_WORDS];
+};
+
+template <bool WRITE>
+struct CrForm {  // the guard's
+  typedef WKey Key;
+  typedef CrWords Words;
+};
+template <>
+struct CrForm<true> {  // the apply's
+  typedef IKey Key;
+  typedef IKey Words;
+};
+
+__device__ __forceinline__ void cr_key_init(WKey& k) { k = nw_key(); }
+__device__ __forceinline__ void cr_key_init(IKey& k) { k = nw_ikey(); }
+
+// add v << shift into the key's word at the triple of field f
+__device__ __forceinline__ void cr_pack(const int* sp, WKey& k, int f, long long v) {
+  const int* q = sp + CS_MSG + 3 * f;
+  k.w[q[0]] += (long long)((unsigned long long)v << q[1]);
+}
+// the same in int32 (the low 32 bits of WKey's sum): every word takes an
+// add, masked to 0 but at the field's word
 __device__ __forceinline__ void cr_pack(const int* sp, IKey& k, int f, int v) {
   const int* q = sp + CS_MSG + 3 * f;
   const unsigned add = (unsigned)v << q[1];
@@ -142,21 +174,51 @@ __device__ __forceinline__ void cr_pack(const int* sp, IKey& k, int f, int v) {
   for (int w = 0; w < CR_MAX_WORDS; ++w)
     k.w[w] = (int)((unsigned)k.w[w] + (add & (0u - (unsigned)(q[0] == w))));
 }
-// slot m's key words (0 past NW)
-__device__ __forceinline__ IKey cr_key_words(const int* sp, const int* s, int m) {
+
+// slot m's key words (CrWords: the first NW; IKey: 0 past NW)
+__device__ __forceinline__ void cr_key_words(const int* sp, const int* s, int m, CrWords& kw) {
   const int M = CFLD(M), NW = CFLD(NW);
-  IKey kw;
+  for (int w = 0; w < NW; ++w) kw.w[w] = s[CFLD(W0) + w * M + m];
+}
+__device__ __forceinline__ void cr_key_words(const int* sp, const int* s, int m, IKey& kw) {
+  const int M = CFLD(M), NW = CFLD(NW);
 #pragma unroll
   for (int w = 0; w < CR_MAX_WORDS; ++w) kw.w[w] = w < NW ? s[CFLD(W0) + w * M + m] : 0;
-  return kw;
 }
-// a field of a key (its word picked by masks, as cr_pack's)
+
+// a field of a key given as its words
+__device__ __forceinline__ int cr_unpack(const int* sp, const CrWords& kw, int f) {
+  const int* q = sp + CS_MSG + 3 * f;
+  return (kw.w[q[0]] >> q[1]) & q[2];
+}
 __device__ __forceinline__ int cr_unpack(const int* sp, const IKey& kw, int f) {
   const int* q = sp + CS_MSG + 3 * f;
   int x = 0;
 #pragma unroll
   for (int w = 0; w < CR_MAX_WORDS; ++w) x |= kw.w[w] & -(int)(q[0] == w);
   return (x >> q[1]) & q[2];
+}
+
+// a put's probe and insert: the guard's serial ones (its key wrapped to
+// int32 first), the apply's split over its group
+template <class Gp>
+__device__ __forceinline__ Put cr_probe(Gp, const int* words, int M, int nw, WKey& k) {
+  nw_wrap(k);
+  return nw_bag_probe(words, M, nw, k);
+}
+template <class Gp>
+__device__ __forceinline__ Put cr_probe(Gp g, const int* words, int M, int nw, IKey& k) {
+  return nw_bag_probe_g(g, words, M, nw, k);
+}
+template <class Gp>
+__device__ __forceinline__ void cr_insert(Gp, int* words, int* cnt, int M, int nw,
+                                          const WKey& k, const Put& p) {
+  nw_bag_insert(words, cnt, M, nw, k, p);
+}
+template <class Gp>
+__device__ __forceinline__ void cr_insert(Gp g, int* words, int* cnt, int M, int nw,
+                                          const IKey& k, const Put& p) {
+  nw_bag_insert_g(g, words, cnt, M, nw, k, p);
 }
 
 // ---- the variants' config hooks ----
@@ -279,17 +341,18 @@ __device__ Guard cr_request_vote(Gp g, const int* sp, const int* s, int* o, int 
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
     if (!cr_bit(members, j)) continue;
-    IKey k = nw_ikey();
+    typename CrForm<WRITE>::Key k;
+    cr_key_init(k);
     cr_pack(sp, k, CF_MTYPE, CR_RVREQ);
     cr_pack(sp, k, CF_MTERM, new_term);
     cr_pack(sp, k, CF_MLASTLOGTERM, last_t);
     cr_pack(sp, k, CF_MLASTLOGINDEX, ll);
     cr_pack(sp, k, CF_MSOURCE, i);
     cr_pack(sp, k, CF_MDEST, j);
-    const Put p = nw_bag_probe_g(g, words, M, NW, k);  // on the bag the last put left
+    const Put p = cr_probe(g, words, M, NW, k);  // on the bag the last put left
     gd.valid = gd.valid && !p.existed;
     ovf = ovf || p.overflow;
-    nw_bag_insert_g(g, words, cnt, M, NW, k, p);
+    cr_insert(g, words, cnt, M, NW, k, p);
   }
   gd.ovf = ovf && gd.valid;
   if (WRITE && g.lead()) {
@@ -369,7 +432,8 @@ __device__ Guard cr_append_entries(Gp g, const int* sp, const int* s, int* o, in
   const int epos = ra_clamp(ni - 1, 0, L - 1);
   const int ci = s[CFLD(CI) + i];
   const int mci = ci < last_entry ? ci : last_entry;
-  IKey k = nw_ikey();
+  typename CrForm<WRITE>::Key k;
+  cr_key_init(k);
   cr_pack(sp, k, CF_MTYPE, CR_AEREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MPREVLOGINDEX, prev_idx > 0 ? prev_idx : 0);
@@ -379,12 +443,12 @@ __device__ Guard cr_append_entries(Gp g, const int* sp, const int* s, int* o, in
   cr_pack(sp, k, CF_MSOURCE, i);
   cr_pack(sp, k, CF_MDEST, j);
   for (int e = 0; e < NE; ++e) cr_pack(sp, k, CF_E + e, nent ? cr_log(sp, s, e, i)[epos] : 0);
-  const Put p = nw_bag_probe_g(g, s + CFLD(W0), M, NW, k);
+  const Put p = cr_probe(g, s + CFLD(W0), M, NW, k);
   gd.valid = gd.valid && (nent > 0 || !p.existed);
   gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
     if (g.lead()) o[CFLD(PR) + i] = pr | (1 << j);
-    nw_bag_insert_g(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    cr_insert(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
   return gd;
 }
@@ -401,7 +465,8 @@ __device__ Guard cr_send_snapshot(Gp g, const int* sp, const int* s, int* o, int
            CK_SENDSNAP, false};
   if (!WRITE && !gd.valid) return gd;
   const int ll = s[CFLD(LL) + i];
-  IKey k = nw_ikey();
+  typename CrForm<WRITE>::Key k;
+  cr_key_init(k);
   cr_pack(sp, k, CF_MTYPE, CR_SNAPREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MCOMMITINDEX, s[CFLD(CI) + i]);
@@ -412,11 +477,11 @@ __device__ Guard cr_send_snapshot(Gp g, const int* sp, const int* s, int* o, int
   for (int l = 0; l < L; ++l)
     for (int e = 0; e < NE; ++e)
       cr_pack(sp, k, CF_LOG + l * CR_SLOTS + e, l < ll ? cr_log(sp, s, e, i)[l] : 0);
-  const Put p = nw_bag_probe_g(g, s + CFLD(W0), M, NW, k);
+  const Put p = cr_probe(g, s + CFLD(W0), M, NW, k);
   gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
     if (g.lead()) o[CFLD(NI) + i * S + j] = CR_PENDING_SNAP_RESPONSE;
-    nw_bag_insert_g(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    cr_insert(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
   return gd;
 }
@@ -644,10 +709,11 @@ __device__ Guard jc_append_new(Gp g, const int* sp, const int* s, int* o, int i)
 // AppendEntries' (the destination's log, and when appending its lanes from
 // prev_idx on zeroed and the entry at lane app) or a SnapshotRequest's
 // (the sender's log packed in the key).
+template <class KW>
 struct CrInstall {
   const int* sp;
   const int* s;
-  IKey kw;  // a copy: a pointer to the words would put them on the stack
+  KW kw;  // a copy: a pointer to the words would put them on the stack
   int dst, prev_idx, app;
   bool snapshot, appending;
   __device__ __forceinline__ int operator()(int e, int l) const {
@@ -668,7 +734,8 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
   const int S = CFLD(S), L = CFLD(L), M = CFLD(M), NW = CFLD(NW), NE = CFLD(NE);
   const bool lw = WRITE && g.lead();
   Guard gd{false, -1, false};
-  const IKey kw = cr_key_words(sp, s, m);
+  typename CrForm<WRITE>::Words kw;
+  cr_key_words(sp, s, m, kw);
   if (kw.w[0] == RA_EMPTY) return gd;
   const int mtype = cr_unpack(sp, kw, CF_MTYPE), mterm = cr_unpack(sp, kw, CF_MTERM);
   const int src = cr_unpack(sp, kw, CF_MSOURCE), dst = cr_unpack(sp, kw, CF_MDEST);
@@ -690,10 +757,11 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
   const int mci = cr_unpack(sp, kw, CF_MCOMMITINDEX);
 
   bool putb = false, dropb = false, ovf_extra = false;
-  IKey k = nw_ikey();
+  typename CrForm<WRITE>::Key k;
+  cr_key_init(k);
   // the log the receipt installs (accept or snapshot), with its config
   // entry's index and the commit watermark
-  CrInstall row{sp, s, kw, dclamp, 0, 0, false, false};
+  CrInstall<typename CrForm<WRITE>::Words> row{sp, s, kw, dclamp, 0, 0, false, false};
   bool install = false;
   int new_len = 0, cfg_idx = 0;
   bool grant = false;
@@ -780,7 +848,7 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
     return gd;
   }
   Put p{false, false, 0};
-  if (putb) p = nw_bag_probe_g(g, s + CFLD(W0), M, NW, k);
+  if (putb) p = cr_probe(g, s + CFLD(W0), M, NW, k);
   gd.ovf = (putb && p.overflow) || ovf_extra;
   if (install) cfg_idx = cr_last_cfg<J>(row, L, new_len);
 
@@ -819,7 +887,7 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
           jx_set2(o + sp[CS_LOG + u / L], S, L, dst, u % L, row(u / L, u % L));
     }
     if (lw) o[CFLD(CNT) + m] -= 1;  // the incoming Discard
-    if (putb) nw_bag_insert_g(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    if (putb) cr_insert(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
   return gd;
 }
@@ -865,7 +933,8 @@ __device__ __forceinline__ bool cr_entry_eq(const int* sp, const int* s, int i, 
 __device__ bool cr_messages_are_valid(const int* sp, const int* s) {
   const int M = CFLD(M);
   for (int m = 0; m < M; ++m) {
-    const IKey kw = cr_key_words(sp, s, m);
+    CrWords kw;
+    cr_key_words(sp, s, m, kw);
     if (kw.w[0] != RA_EMPTY && cr_unpack(sp, kw, CF_MSOURCE) == cr_unpack(sp, kw, CF_MDEST))
       return false;
   }

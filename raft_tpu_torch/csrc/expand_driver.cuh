@@ -40,8 +40,8 @@
 // which defines the kernels prefix_guard_kernel and prefix_apply_kernel
 // and their C launchers prefix_guard and prefix_apply. A family with wide
 // rows and long per-lane work (the reconfiguration pair) takes
-// EXPAND_KERNELS_GROUP_APPLY(prefix, Family, G) instead: the same guard,
-// and the group apply below, G threads a worklist lane.
+// EXPAND_KERNELS_GROUP_APPLY(prefix, Family, G, B) instead: the same
+// guard, and the group apply below, G threads a worklist lane.
 #pragma once
 
 #include <cooperative_groups.h>
