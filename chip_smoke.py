@@ -758,9 +758,6 @@ MEM_BPS = 3.35e12  # H100 SXM HBM3 bytes/s
 # H100 SXM 32-bit integer ops/s: 64 INT32 lanes per SM, half the 128 FP32
 # lanes behind the 67 TFLOP/s float32 rate (an upper rate, so a lower bound)
 INT32_OPS = 33.5e12
-# the families whose apply is the group apply (csrc/expand_driver.cuh
-# EXPAND_KERNELS_GROUP_APPLY: G threads a worklist lane)
-GROUP_APPLY = ("reconfig", "joint")
 CHUNK = 4096
 # the most frontier rows phase 3 copies to the host from one sampled wave
 POOL_ROWS = 1 << 21
@@ -1139,15 +1136,16 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
                 rank=rank), iters=20),
             bound_ms=fold_bytes / MEM_BPS * 1e3, bound_by="bytes"),
     }
-    if fam in GROUP_APPLY:
-        # the group apply: its launch shape, and its bound recounted with
-        # the operations beside the bytes, 3 a bag slot and key word of each
-        # put the worklist's lanes make (the guard's puts: sel holds every
-        # valid lane)
+    occ = apply_occupancy(model)
+    if occ is not None:
+        # a group apply (csrc/expand_driver.cuh EXPAND_KERNELS_GROUP_APPLY):
+        # its launch shape, and its bound recounted with the operations
+        # beside the bytes, 3 a bag slot and key word of each put the
+        # worklist's lanes make (the guard's puts: sel holds every valid lane)
         apply_ops = 3 * M * model.n_words * int(puts)
         b, by = bound(apply_bytes, apply_ops)
         rows[f"{fam}_apply"].update(bound_ms=b, bound_by=by, bytes=apply_bytes,
-                                    operations=apply_ops, **apply_occupancy(model))
+                                    operations=apply_ops, **occ)
     for r in rows.values():
         r.update(library_ms=None, max_abs_err=err)
     if fam != "raft":

@@ -276,6 +276,7 @@ struct GrpSerial {
 
 struct IKey {
   int w[NW_MAX_WORDS];
+  __device__ __forceinline__ int operator[](int i) const { return w[i]; }
 };
 
 __device__ __forceinline__ IKey nw_ikey() {

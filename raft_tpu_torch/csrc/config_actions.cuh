@@ -131,25 +131,21 @@ __device__ __forceinline__ int cr_lane(const int* row, int L, int l) {  // clamp
 
 // ---- message keys (ops/packing.py WidePacker) ----
 //
-// Two forms, picked by the action's WRITE. The guard (a group of one)
-// keeps the forms it had before the group apply: an int64 WKey indexed by
-// a spec word and wrapped to int32 before its put, key words read at a
-// runtime index (CrWords), and actions_common.cuh's serial nw_bag_probe
-// and nw_bag_insert; a few bytes of stack, and the registers (so the
-// occupancy) of its one-thread lanes stay as they were. The apply takes
-// IKey for both, int32 words in registers, every word picked by masks (a
-// conditional store or a select of words lets the compiler index the key
-// at run time, on the stack), and the put split over its group
-// (nw_bag_probe_g, nw_bag_insert_g).
-
-struct CrWords {  // a slot's key words, read at a runtime index
-  int w[CR_MAX_WORDS];
-};
+// Two forms, picked by the action's WRITE. The guard (a group of one) keeps
+// the forms it had before the group apply: an int64 WKey indexed by a spec
+// word and wrapped to int32 before its put, key words in an int array read at
+// a runtime index, actions_common.cuh's serial nw_bag_probe and nw_bag_insert,
+// and no installed log (CrInstall); a few bytes of stack, and the registers
+// (so the occupancy) of its one-thread lanes stay as they were. The apply
+// takes IKey for both, int32 words in registers, every word picked by masks (a
+// conditional store or a select of words lets the compiler index the key at
+// run time, on the stack), and the put split over its group (nw_bag_probe_g,
+// nw_bag_insert_g).
 
 template <bool WRITE>
 struct CrForm {  // the guard's
   typedef WKey Key;
-  typedef CrWords Words;
+  typedef int Words[CR_MAX_WORDS];
 };
 template <>
 struct CrForm<true> {  // the apply's
@@ -175,10 +171,10 @@ __device__ __forceinline__ void cr_pack(const int* sp, IKey& k, int f, int v) {
     k.w[w] = (int)((unsigned)k.w[w] + (add & (0u - (unsigned)(q[0] == w))));
 }
 
-// slot m's key words (CrWords: the first NW; IKey: 0 past NW)
-__device__ __forceinline__ void cr_key_words(const int* sp, const int* s, int m, CrWords& kw) {
+// slot m's key words (an array: the first NW; IKey: 0 past NW)
+__device__ __forceinline__ void cr_key_words(const int* sp, const int* s, int m, int* kw) {
   const int M = CFLD(M), NW = CFLD(NW);
-  for (int w = 0; w < NW; ++w) kw.w[w] = s[CFLD(W0) + w * M + m];
+  for (int w = 0; w < NW; ++w) kw[w] = s[CFLD(W0) + w * M + m];
 }
 __device__ __forceinline__ void cr_key_words(const int* sp, const int* s, int m, IKey& kw) {
   const int M = CFLD(M), NW = CFLD(NW);
@@ -187,9 +183,9 @@ __device__ __forceinline__ void cr_key_words(const int* sp, const int* s, int m,
 }
 
 // a field of a key given as its words
-__device__ __forceinline__ int cr_unpack(const int* sp, const CrWords& kw, int f) {
+__device__ __forceinline__ int cr_unpack(const int* sp, const int* kw, int f) {
   const int* q = sp + CS_MSG + 3 * f;
-  return (kw.w[q[0]] >> q[1]) & q[2];
+  return (kw[q[0]] >> q[1]) & q[2];
 }
 __device__ __forceinline__ int cr_unpack(const int* sp, const IKey& kw, int f) {
   const int* q = sp + CS_MSG + 3 * f;
@@ -260,8 +256,8 @@ struct CrLogOf {
 // :734-739); committed = ci >= idx. Returns in_new: dst in the entry's
 // member set. Writes only with `write`.
 template <bool J, class Row>
-__device__ __forceinline__ bool cr_config_from(const int* sp, int* o, int dst, const Row& row, int idx, int ci,
-                               bool write) {
+__device__ __forceinline__ bool cr_config_from(const int* sp, int* o, int dst, const Row& row,
+                                               int idx, int ci, bool write) {
   const int S = CFLD(S), L = CFLD(L);
   const int pos = ra_clamp(idx - 1, 0, L - 1);
   const int members = row(cr_members_slot<J>(), pos);
@@ -708,12 +704,12 @@ __device__ Guard jc_append_new(Gp g, const int* sp, const int* s, int* o, int i)
 // The log a receipt installs at its destination: an accepted
 // AppendEntries' (the destination's log, and when appending its lanes from
 // prev_idx on zeroed and the entry at lane app) or a SnapshotRequest's
-// (the sender's log packed in the key).
-template <class KW>
+// (the sender's log packed in the key). The apply's alone: the guard
+// computes no successor.
 struct CrInstall {
   const int* sp;
   const int* s;
-  KW kw;  // a copy: a pointer to the words would put them on the stack
+  IKey kw;  // a copy: a pointer to the words would put them on the stack
   int dst, prev_idx, app;
   bool snapshot, appending;
   __device__ __forceinline__ int operator()(int e, int l) const {
@@ -736,7 +732,7 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
   Guard gd{false, -1, false};
   typename CrForm<WRITE>::Words kw;
   cr_key_words(sp, s, m, kw);
-  if (kw.w[0] == RA_EMPTY) return gd;
+  if (kw[0] == RA_EMPTY) return gd;
   const int mtype = cr_unpack(sp, kw, CF_MTYPE), mterm = cr_unpack(sp, kw, CF_MTERM);
   const int src = cr_unpack(sp, kw, CF_MSOURCE), dst = cr_unpack(sp, kw, CF_MDEST);
   const int cur = jx_get(s + CFLD(CT), S, dst), st = jx_get(s + CFLD(ST), S, dst);
@@ -759,11 +755,10 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
   bool putb = false, dropb = false, ovf_extra = false;
   typename CrForm<WRITE>::Key k;
   cr_key_init(k);
-  // the log the receipt installs (accept or snapshot), with its config
-  // entry's index and the commit watermark
-  CrInstall<typename CrForm<WRITE>::Words> row{sp, s, kw, dclamp, 0, 0, false, false};
-  bool install = false;
-  int new_len = 0, cfg_idx = 0;
+  // the log the receipt installs (accept or snapshot): its length, and
+  // how it differs from the destination's (CrInstall)
+  bool install = false, snapshot = false, appending = false;
+  int new_len = 0, install_prev = 0;
   bool grant = false;
 
   if (mtype == CR_RVREQ) {  // HandleRequestVoteRequest
@@ -809,11 +804,9 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
     } else if (eq_term && (st == CR_FOLLOWER || st == CR_CANDIDATE) && logok && member) {
       putb = install = true;
       gd.rank = CK_ACCEPT_AE;
-      const bool appending = nent != 0 && (ll == prev_idx || ll >= prev_idx + 1);
+      appending = nent != 0 && (ll == prev_idx || ll >= prev_idx + 1);
       new_len = appending ? prev_idx + 1 : ll;
-      row.appending = appending;
-      row.prev_idx = prev_idx;
-      row.app = ra_clamp(prev_idx, 0, L - 1);
+      install_prev = prev_idx;
       ovf_extra = appending && prev_idx >= L;
       cr_pack(sp, k, CF_MTYPE, CR_AERESP);
       cr_pack(sp, k, CF_MTERM, cur);
@@ -830,7 +823,7 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
       putb = install = true;
       gd.rank = CK_HANDLE_SNAPREQ;
       new_len = cr_unpack(sp, kw, CF_MLOGLEN);
-      row.snapshot = true;
+      snapshot = true;
       cr_pack(sp, k, CF_MTYPE, CR_SNAPRESP);
       cr_pack(sp, k, CF_MTERM, cur);
       cr_pack(sp, k, CF_MSUCCESS, 1);
@@ -850,9 +843,8 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
   Put p{false, false, 0};
   if (putb) p = cr_probe(g, s + CFLD(W0), M, NW, k);
   gd.ovf = (putb && p.overflow) || ovf_extra;
-  if (install) cfg_idx = cr_last_cfg<J>(row, L, new_len);
 
-  if (WRITE) {
+  if constexpr (WRITE) {  // the apply's successor (its key words an IKey)
     if (lw) {
       if (mtype == CR_RVREQ && grant) jx_set(o + CFLD(VF), S, dst, src + 1);
       if (mtype == CR_RVRESP && cr_unpack(sp, kw, CF_MVOTEGRANTED) > 0)
@@ -875,6 +867,9 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
       }
     }
     if (install) {
+      const CrInstall row{sp, s, kw, dclamp, install_prev, ra_clamp(install_prev, 0, L - 1),
+                          snapshot, appending};
+      const int cfg_idx = cr_last_cfg<J>(row, L, new_len);
       if (lw) {
         jx_set(o + CFLD(CI), S, dst, mci);
         jx_set(o + CFLD(LL), S, dst, new_len);
@@ -933,9 +928,9 @@ __device__ __forceinline__ bool cr_entry_eq(const int* sp, const int* s, int i, 
 __device__ bool cr_messages_are_valid(const int* sp, const int* s) {
   const int M = CFLD(M);
   for (int m = 0; m < M; ++m) {
-    CrWords kw;
+    int kw[CR_MAX_WORDS];
     cr_key_words(sp, s, m, kw);
-    if (kw.w[0] != RA_EMPTY && cr_unpack(sp, kw, CF_MSOURCE) == cr_unpack(sp, kw, CF_MDEST))
+    if (kw[0] != RA_EMPTY && cr_unpack(sp, kw, CF_MSOURCE) == cr_unpack(sp, kw, CF_MDEST))
       return false;
   }
   return true;
@@ -1095,17 +1090,6 @@ __device__ bool cr_predicate(const int* sp, const int* s, int id) {
   }
   return true;  // INV_TEST
 }
-
-// the group apply of reconfig_apply and joint_apply: threads a worklist
-// lane, and resident blocks an SM asked of the register allocator (3: at
-// most 80 registers a thread, 24 warps an SM, against 96 registers and 16
-// warps unasked; scripts/apply_groups.py builds and times others)
-#ifndef CR_APPLY_G
-#define CR_APPLY_G 32
-#endif
-#ifndef CR_APPLY_BLOCKS
-#define CR_APPLY_BLOCKS 3
-#endif
 
 // A reconfiguration spec as the kernel drivers see it (J: JointConsensus):
 // where its spec keeps the sizes, the guard scratch of a state (a slot of

@@ -40,8 +40,8 @@
 // which defines the kernels prefix_guard_kernel and prefix_apply_kernel
 // and their C launchers prefix_guard and prefix_apply. A family with wide
 // rows and long per-lane work (the reconfiguration pair) takes
-// EXPAND_KERNELS_GROUP_APPLY(prefix, Family, G, B) instead: the same
-// guard, and the group apply below, G threads a worklist lane.
+// EXPAND_KERNELS_GROUP_APPLY(prefix, Family) instead: the same guard, and
+// the group apply below, a warp a worklist lane.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -241,21 +241,26 @@ static int launch_apply(ApplyKernel kernel, size_t* opted_in, const int* states,
   return (int)cudaGetLastError();
 }
 
-// ---- the group apply: a group of G threads a worklist lane ----
+// ---- the group apply: a warp a worklist lane ----
 //
 // For families with wide rows and long per-lane work (the reconfiguration
 // pair: a Family with apply(g, sp, s, o, cd) over actions_common.cuh's
 // group helpers). A block of APPLY_GROUP_THREADS threads holds
-// APPLY_GROUP_THREADS / G lanes and stages only the spec vector, so the
-// resident warps an SM depend on the registers alone, not on W. The group
-// of lane j copies its source row straight into flatc row j (16-byte
-// loads and stores where the two rows share their alignment, else 4-byte;
-// coalesced either way, no division an element), or zeros there for a
-// drop lane, then the action edits the row in place in global memory,
-// with the tile's barrier (__syncwarp over its mask) between a member's
-// write and another member's read.
+// APPLY_GROUP_THREADS / APPLY_GROUP_G lanes and stages only the spec
+// vector, so the resident warps an SM depend on the registers alone, not
+// on W. The group of lane j copies its source row straight into flatc row
+// j (16-byte loads and stores where the two rows share their alignment,
+// else 4-byte; coalesced either way, no division an element), or zeros
+// there for a drop lane, then the action edits the row in place in global
+// memory, with the tile's barrier (__syncwarp over its mask) between a
+// member's write and another member's read. A warp a lane, at three
+// resident blocks an SM asked of the register allocator (80 registers a
+// thread, 24 warps an SM): on the card the fastest of tiles of 4 to 32
+// threads at two to four blocks (PERF.md, PR 14).
 
 #define APPLY_GROUP_THREADS 256
+#define APPLY_GROUP_G 32
+#define APPLY_GROUP_BLOCKS 3
 
 namespace cg = cooperative_groups;
 
@@ -295,12 +300,13 @@ __device__ __forceinline__ void grp_copy_row(int* __restrict__ dst,
   for (int i = head + 4 * body + t; i < W; i += G) dst[i] = src ? src[i] : 0;
 }
 
-template <class F, int G>
+template <class F>
 __device__ __forceinline__ void apply_group_body(const int* __restrict__ states, int C,
                                                  const int* __restrict__ sel, int VC,
                                                  const int* __restrict__ spec,
                                                  const int* __restrict__ cand,
                                                  int* __restrict__ flatc) {
+  constexpr int G = APPLY_GROUP_G;
   __shared__ int sp[F::SPEC_LEN];
   for (int t = threadIdx.x; t < F::SPEC_LEN; t += blockDim.x) sp[t] = spec[t];
   __syncthreads();
@@ -321,13 +327,13 @@ __device__ __forceinline__ void apply_group_body(const int* __restrict__ states,
 
 // states [C, W] int32; sel [VC] int32; flatc [VC, W] int32. Returns a
 // cudaError_t.
-template <class F, int G>
+template <class F>
 static int launch_apply_group(ApplyKernel kernel, const int* states, int C, const int* sel,
                               int VC, const int* spec, int spec_len, const int* cand, int W,
                               int* flatc, void* stream) {
   if (spec_len != F::SPEC_LEN) return (int)cudaErrorInvalidValue;
   if (VC <= 0) return 0;
-  constexpr int lanes = APPLY_GROUP_THREADS / G;
+  constexpr int lanes = APPLY_GROUP_THREADS / APPLY_GROUP_G;
   const int blocks = (VC + lanes - 1) / lanes;
   kernel<<<blocks, APPLY_GROUP_THREADS, 0, (cudaStream_t)stream>>>(states, C, sel, VC, spec,
                                                                    cand, flatc);
@@ -338,7 +344,6 @@ static int launch_apply_group(ApplyKernel kernel, const int* states, int C, cons
 // blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), warps an
 // SM, registers a thread, local (stack) bytes a thread}. The shared memory
 // is the spec vector alone, so the figures hold at every W.
-template <int G>
 static int apply_group_occupancy(ApplyKernel kernel, int* out) {
   int nb;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, (const void*)kernel,
@@ -347,7 +352,7 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
   cudaFuncAttributes fa;
   e = cudaFuncGetAttributes(&fa, (const void*)kernel);
   if (e != cudaSuccess) return (int)e;
-  out[0] = G;
+  out[0] = APPLY_GROUP_G;
   out[1] = APPLY_GROUP_THREADS;
   out[2] = nb;
   out[3] = nb * APPLY_GROUP_THREADS / 32;
@@ -356,24 +361,23 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
   return 0;
 }
 
-// EXPAND_KERNELS with the group apply at G threads a lane in place of
-// apply_body (the guard is the same), B resident blocks an SM asked of the
-// register allocator (__launch_bounds__), plus the launcher P_apply_occupancy.
-#define EXPAND_KERNELS_GROUP_APPLY(P, F, G, B)                                                \
+// EXPAND_KERNELS with the group apply in place of apply_body (the guard is
+// the same), plus the launcher P_apply_occupancy.
+#define EXPAND_KERNELS_GROUP_APPLY(P, F)                                                      \
   EXPAND_GUARD(P, F)                                                                          \
-  __global__ void __launch_bounds__(APPLY_GROUP_THREADS, B)                                   \
+  __global__ void __launch_bounds__(APPLY_GROUP_THREADS, APPLY_GROUP_BLOCKS)                  \
       P##_apply_kernel(const int* __restrict__ states, int C, const int* __restrict__ sel,    \
                        int VC, const int* __restrict__ spec, const int* __restrict__ cand,    \
                        int* __restrict__ flatc) {                                             \
-    apply_group_body<F, G>(states, C, sel, VC, spec, cand, flatc);                            \
+    apply_group_body<F>(states, C, sel, VC, spec, cand, flatc);                               \
   }                                                                                           \
   extern "C" int P##_apply(const int* states, int C, const int* sel, int VC, const int* spec, \
                            int spec_len, const int* cand, int W, int* flatc, void* stream) {  \
-    return launch_apply_group<F, G>(P##_apply_kernel, states, C, sel, VC, spec, spec_len,     \
-                                    cand, W, flatc, stream);                                  \
+    return launch_apply_group<F>(P##_apply_kernel, states, C, sel, VC, spec, spec_len, cand,  \
+                                 W, flatc, stream);                                           \
   }                                                                                           \
   extern "C" int P##_apply_occupancy(int* out) {                                              \
-    return apply_group_occupancy<G>(P##_apply_kernel, out);                                   \
+    return apply_group_occupancy(P##_apply_kernel, out);                                      \
   }
 
 #define EXPAND_GUARD(P, F)                                                                    \

@@ -8,13 +8,13 @@
 // contract and design) over the actions of config_actions.cuh.
 //
 // joint_apply: the group apply of expand_driver.cuh, one launch a call: a
-// warp (G = CR_APPLY_G = 32 threads) a worklist lane, 256 threads a block,
-// the spec vector alone in shared memory, three resident blocks asked of
-// the register allocator (CR_APPLY_BLOCKS): 80 registers a thread (16
-// bytes of stack for 20 bytes of spills) and 24 warps an SM at every W
-// (1,042 here; 1,227 at five servers). The group copies the row and splits
-// the bag put; one lane a warp, so lanes on different action arms never
-// share one, and no ordering of the worklist by arm is needed.
+// warp (G = 32 threads) a worklist lane, 256 threads a block, the spec
+// vector alone in shared memory, three resident blocks asked of the
+// register allocator: 80 registers a thread (24 bytes of stack for 20 bytes
+// of spills) and 24 warps an SM at every W (1,042 here; 1,227 at five
+// servers). The group copies the row and splits the bag put; one lane a
+// warp, so lanes on different action arms never share one, and no ordering
+// of the worklist by arm is needed.
 //
 // Bound at the four-server cfg's shapes (C = 4,096 rows of W int32 lanes,
 // the [C, A] grid, VC = 65,536): joint_guard by bytes (the state rows
@@ -27,4 +27,4 @@
 #include "expand_driver.cuh"
 #include "config_actions.cuh"
 
-EXPAND_KERNELS_GROUP_APPLY(joint, JointFamily, CR_APPLY_G, CR_APPLY_BLOCKS)
+EXPAND_KERNELS_GROUP_APPLY(joint, JointFamily)

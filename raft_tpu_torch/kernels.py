@@ -89,9 +89,6 @@ for _fam in ("raft", "pull", "kraft", "reconfig", "joint", "kreconfig"):
                                          f"{_fam}_sim_check": _SIM_CHECK}
 # raft_expand.cu's second build of the two, with the network-fault groups
 _SIGNATURES["raft_expand"].update(raft_nf_guard=_GUARD, raft_nf_apply=_APPLY)
-# the reconfiguration pair's group apply reports its launch shape
-for _fam in ("reconfig", "joint"):
-    _SIGNATURES[f"{_fam}_expand"][f"{_fam}_apply_occupancy"] = [_P]
 
 
 def nvcc_path() -> str:
@@ -146,7 +143,11 @@ class Kernel:
                 if proc.returncode:
                     raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
             lib = ctypes.CDLL(self.library)
-            for fn, args in _SIGNATURES[self.unit].items():
+            sigs = dict(_SIGNATURES[self.unit])
+            occ = f"{self.name}_occupancy"  # a group apply's launch shape (expand_driver.cuh)
+            if occ not in sigs and hasattr(lib, occ):
+                sigs[occ] = [_P]
+            for fn, args in sigs.items():
                 getattr(lib, fn).argtypes = args
                 getattr(lib, fn).restype = ctypes.c_int
             lib.rt_error_string.argtypes = [ctypes.c_int]

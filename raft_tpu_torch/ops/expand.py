@@ -123,14 +123,17 @@ def apply(model, states: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return flatc
 
 
-def apply_occupancy(model) -> dict:
-    """What the model's group apply (csrc/expand_driver.cuh
-    EXPAND_KERNELS_GROUP_APPLY: the reconfiguration pair's
-    ``reconfig_apply`` and ``joint_apply``) reaches on the current card:
-    threads a worklist lane (G), threads a block, resident blocks and warps
-    an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
-    local (stack) bytes a thread. Launches nothing; at every row width."""
+def apply_occupancy(model) -> dict | None:
+    """What the model's apply reaches on the current card where it is a
+    group apply (csrc/expand_driver.cuh EXPAND_KERNELS_GROUP_APPLY, whose
+    library exports ``<name>_occupancy``): threads a worklist lane (G),
+    threads a block, resident blocks and warps an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and local
+    (stack) bytes a thread, at every row width. None for an apply that
+    sizes its blocks by W (``apply_body``). Launches nothing."""
     k = model.KERNELS["apply"]
+    if not hasattr(k.lib, f"{k.name}_occupancy"):
+        return None
     out = (ctypes.c_int * 6)()
     rc = getattr(k.lib, f"{k.name}_occupancy")(ctypes.cast(out, ctypes.c_void_p))
     if rc:

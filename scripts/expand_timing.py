@@ -30,12 +30,13 @@ fingerprints are the least of 24 permuted hashes) and of the depth-10
 four-server JointConsensus frontier, and the guard and apply on one move of a
 65,536-walk simulate of five-server FlexibleRaft and of each four-server
 reconfiguration cfg (the shapes of ``chip_smoke.py`` phase 3 and its
-simulates); with ptxas' stack and spill figures of the reconfiguration
-pair's guard and apply kernels and, where the checkout has it, the group
-apply's occupancy. The inputs come from the
-checkout's own engine with fixed seeds, so every checkout times the same
-rows when the engines agree (their state counts are printed beside the
-times). Prints one JSON line per ROOT, and writes them all to ``--out``.
+simulates); with ptxas' stack, spill and register figures of the
+reconfiguration pair's guard and apply kernels (both units compiled afresh)
+and, where the checkout has it, the group apply's occupancy. The inputs
+come from the checkout's own engine with fixed seeds, so every checkout
+times the same rows when the engines agree (their state counts are printed
+beside the times). Prints one JSON line per ROOT, and writes them all to
+``--out``.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import subprocess
 import sys
 
 CHILD = r"""
-import json, re, sys, time
+import json, os, re, subprocess, sys, time
 import numpy as np
 import torch
 sys.path.insert(0, ROOT)
@@ -59,25 +60,41 @@ from raft_tpu_torch.ops import prng
 from raft_tpu_torch.ops.expand import apply, fold, guard
 from raft_tpu_torch.ops.hashing import INT64_MAX
 
-logs = kernels.build_all()
+kernels.build_all()
 out = {"root": ROOT}
 ITERS = 100
 
 
 # ptxas' figures (-Xptxas -v) of the reconfiguration pair's guard and apply
-# kernels: "N bytes stack frame, N bytes spill stores, N bytes spill loads"
-# (absent where the checkout's build was up to date)
-def ptxas_lines(log):
-    lines = log.splitlines()
-    found = {}
-    for i, line in enumerate(lines):
-        m = re.search(r"Function properties for (\S+)", line)
-        if m and ("apply_kernel" in m.group(1) or "guard_kernel" in m.group(1)):
-            found[m.group(1)] = lines[i + 1].strip() if i + 1 < len(lines) else ""
-    return found
+# kernels: each unit compiled afresh by the checkout's own nvcc command, its
+# library written under build/raft_tpu_torch/ptxas/; {kernel: stack frame,
+# spill stores and loads (bytes), registers}
+def ptxas_figures(units=("reconfig_expand", "joint_expand")):
+    by_unit = {k.unit: k for k in kernels.ALL}
+    os.makedirs(os.path.join(kernels.BUILD_DIR, "ptxas"), exist_ok=True)
+    procs = []
+    for u in units:
+        cmd = by_unit[u].compile_cmd()
+        cmd[cmd.index("-o") + 1] = os.path.join(kernels.BUILD_DIR, "ptxas", f"lib{u}.so")
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    figs, cur = {}, None
+    for proc in procs:
+        for line in proc.communicate()[0].splitlines():
+            m = re.search(r"Function properties for _Z(\d+)(\w+)", line)
+            if m:
+                name = m.group(2)[:int(m.group(1))]
+                cur = figs.setdefault(name, {}) if name.endswith("_kernel") else None
+            elif cur is not None and "stack frame" in line:
+                cur.update(zip(("stack", "spill_stores", "spill_loads"),
+                               map(int, re.findall(r"(\d+) bytes", line))))
+            elif cur is not None and "Used" in line:
+                cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+                cur = None
+    return figs
 
 
-out["ptxas"] = {u: ptxas_lines(logs[u]) for u in ("reconfig_expand", "joint_expand")}
+out["ptxas"] = ptxas_figures()
 try:  # the group apply's launch shape (checkouts that have it)
     from raft_tpu_torch.ops.expand import apply_occupancy
 except ImportError:
@@ -216,8 +233,9 @@ def move_times(tag, spec, text, **kw):
         moved=int((pick[2] < cs.SIM_WALKS * model.A).sum()),
         guard_ms=device_ms(lambda: guard(model, states, cs.SIM_WALKS, sim.cov)),
         apply_ms=device_ms(lambda: apply(model, states, pick[2])))
-    if apply_occupancy is not None and tag != "flex5_move":
-        out[tag]["apply_occupancy"] = apply_occupancy(model)
+    occ = apply_occupancy(model) if apply_occupancy else None
+    if occ:
+        out[tag]["apply_occupancy"] = occ
 
 
 move_times("flex5_move", "FlexibleRaft.cfg", cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)
