@@ -851,19 +851,19 @@ RECONFIG_FAM = dict(prefix="reconfig", tag="4e", sim_tag="7d", cfg=ADDREMOVE_CFG
                     caps=RECONFIG_CAPS, second_chunk=CHUNK // 2, sim_moves=CONFIG_SIM_MOVES,
                     small_sim=CONFIG_SMALL_SIM, violation=RECONFIG_VIOLATION,
                     five_cfg=ADDREMOVE5_CFG, five_depth=ADDREMOVE5_SAMPLE_DEPTH,
-                    five_tag="addremove5")
+                    five_tag="addremove5", memo_tag="addremove4")
 JOINT_FAM = dict(RECONFIG_FAM, prefix="joint", tag="4f", sim_tag="7e", cfg=JOINT_CFG,
                  specs=(("RaftWithReconfigJointConsensus", JOINT_PIN, JOINT_SAMPLE_DEPTH),),
                  small=("RaftWithReconfigJointConsensus", CONFIG_SMALL_DEPTH),
                  small_cfg=JOINT_SMALL_CFG, path=JOINT_PATH, depth=JOINT_DEPTH, caps=JOINT_CAPS,
                  violation=None, five_cfg=JOINT5_CFG, five_depth=JOINT5_SAMPLE_DEPTH,
-                 five_tag="joint5")
+                 five_tag="joint5", memo_tag="joint4")
 # five-server AddRemove on the main path (4i): to a depth, its depth counts
 # held to the pin, no second chunk here (the parity gate runs it at the
 # pinned depth) and no card-against-CPU run of its own (five-server
 # JointConsensus takes that, five_reconfig_phase)
 ADDREMOVE5_FAM = dict({k: v for k, v in RECONFIG_FAM.items()
-                       if not k.startswith(("small", "five", "second"))},
+                       if not k.startswith(("small", "five", "second", "memo"))},
                       tag="4i", cfg=ADDREMOVE5_CFG,
                       specs=(("RaftWithReconfigAddRemove", ADDREMOVE5_PIN,
                               ADDREMOVE5_SAMPLE_DEPTH),),
@@ -1345,7 +1345,7 @@ def tiered_rows(torch, canon, flatc, selv, timed: bool) -> dict:
     from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
 
     dev = flatc.device
-    occ = canon.tier_occupancy(dev)
+    occ = canon.occupancy(dev)
     print(f"[3] canon_tiered, {'general' if canon.tier_general() else '2-word'} build at "
           f"{canon.VL} view lanes: a tile of {occ['G']} threads a state, {occ['threads']} "
           f"threads and {occ['smem_bytes']} shared bytes a block, {occ['blocks_per_sm']} "
@@ -1742,7 +1742,60 @@ def family_sim_rows(torch, fam) -> dict:
                        sim.jlen, setup.invariants, True, "a full-width simulate move")
 
 
-def canon_memo_rows(torch, bfs, flatc, selv):
+def memo_worklist(torch, canon, flatc, selv, label) -> dict:
+    """canon_memo on a chunk's worklist as the path gives it (the valid
+    prefix, then the invalid tail): against its plain version, memo cold
+    then warm, exactly (fingerprints, INT64_MAX on every invalid lane, memo
+    rows, hit counts); its build's launch shape and occupancy; its cold and
+    warm times and their bounds on the valid lanes: cold, the raw key and P
+    permuted hashes of each (K non-bag lanes + NW + 1 per occupied slot,
+    ~12 integer ops per fmix32 of each stream pair), or the bytes (each
+    valid row read once, the mask read and the fingerprints written for
+    every lane, each memo row the lanes map to read and written once); warm,
+    the raw keys alone and each memo row read."""
+    from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
+
+    dev = flatc.device
+    occ = canon.occupancy(dev)
+    memo_k = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    memo_p = memo_k.clone()
+    errs, hits = [], []
+    for _ in range(2):  # cold, then warm
+        fk, hk = canon.fingerprints_memo_cuda(flatc, selv, memo_k)
+        fp, hp = canon.fingerprints_memo_plain(flatc, selv, memo_p)
+        errs += [exact(torch, fk, fp), exact(torch, memo_k, memo_p), float(int(hk) != int(hp))]
+        hits.append(int(hk))
+    check(max(errs) == 0.0 and bool((fk[~selv] == INT64_MAX).all()),
+          f"{label}: canon_memo differs from its plain version on the worklist")
+    check(hits[1] > hits[0], f"{label}: canon_memo memo hits cold {hits[0]}, warm {hits[1]}")
+    fn = lambda: canon.fingerprints_memo_cuda(flatc, selv, memo_k)  # noqa: E731
+    cold = time_ms(torch, fn, setup=lambda: memo_k.fill_(INT64_MAX))
+    fn()
+    warm = time_ms(torch, fn)
+    B, n = flatc.shape[0], int(selv.sum())
+    st = flatc[selv]
+    h = canon._host
+    M, NW, w0 = h["M"], len(h["stream_offs"]), h["stream_offs"][0]
+    occ_slots = int((st[:, w0:w0 + M] != 1 << 30).sum())
+    raw_ops = 24 * (n * canon._K + (NW + 1) * occ_slots)
+    slots = torch.unique(memo_slot(canon.raw_fingerprints(st), memo_k.shape[0])).numel()
+    io = n * canon.VL * 4 + B + B * 8
+    cold_b, cold_by = bound(io + 2 * slots * 16, raw_ops * (1 + canon.P))
+    warm_b, warm_by = bound(io + slots * 16, raw_ops)
+    print(f"[3] {label}: canon_memo, {'general' if canon.memo_general() else '2-word'} build at "
+          f"{canon.VL} view lanes: a tile of {occ['G']} threads a state (a miss split by "
+          f"{'permutations' if occ['split'] else 'lanes'}), {occ['threads']} threads and "
+          f"{occ['smem_bytes']} shared bytes a block, {occ['blocks_per_sm']} blocks = "
+          f"{occ['warps_per_sm']} warps an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor); "
+          f"exact on the worklist ({n} valid of {B} lanes, hits cold {hits[0]}, warm "
+          f"{hits[1]}): cold {cold:.4f} ms (bound {cold_b:.4f}, {cold_by}), warm {warm:.4f} ms "
+          f"(bound {warm_b:.4f}, {warm_by})")
+    return dict(valid=n, lanes=B, cold_ms=cold, warm_ms=warm, cold_bound_ms=cold_b,
+                cold_bound_by=cold_by, warm_bound_ms=warm_b, warm_bound_by=warm_by,
+                occupancy=occ, max_abs_err=max(errs))
+
+
+def canon_memo_rows(torch, bfs, flatc, selv, tag=None) -> dict:
     """canon_memo (canon_tiered at five servers) against its plain version
     on a chunk's successor rows of ``bfs``'s model and their
     server-permuted copies (the model's message remap kinds), memo cold
@@ -1752,7 +1805,11 @@ def canon_memo_rows(torch, bfs, flatc, selv):
     read and written once, the fingerprints written; operations, ~12
     integer ops per fmix32 of each stream pair: canon_memo hashes every row
     raw and under all P permutations (K non-bag lanes + NW + 1 per occupied
-    slot each), canon_tiered as tier_pairs counts it."""
+    slot each), canon_tiered as tier_pairs counts it. canon_memo is also
+    held on the chunk's worklist itself (memo_worklist). With ``tag``
+    (canon_memo's general path) returns its row ``canon_memo[tag]`` of the
+    kernels line: the cold time on the valid rows, its plain version's, the
+    cold bound, and the worklist's figures."""
     from raft_tpu_torch.ops.hashing import INT64_MAX, memo_slot
     from raft_tpu_torch.ops.symmetry import msg_perm_spec, permute_states
 
@@ -1794,6 +1851,16 @@ def canon_memo_rows(torch, bfs, flatc, selv):
     print(f"[3] {model.name} ({model.p.n_servers} servers): {kernel} exact on {n} successor "
           f"rows and their permuted copies (the message remap {canon.spec}); cold {ms:.4f} ms, "
           f"warm {warm:.4f} ms, bound {b:.4f} ms ({by})")
+    if canon.prune:
+        return {}
+    work = memo_worklist(torch, canon, flatc, selv, model.name)
+    if tag is None:
+        return {}
+    plain = time_ms(torch, lambda: canon.fingerprints_memo_plain(rows[:n], valid[:n], memo_p),
+                    iters=3, setup=lambda: memo_p.fill_(INT64_MAX))
+    return {f"canon_memo[{tag}]": dict(ms=ms, warm_ms=warm, plain_ms=plain, bound_ms=b,
+                                       bound_by=by, library_ms=None, max_abs_err=max(errs),
+                                       worklist=work)}
 
 
 def slot_canon_rows(torch, bfs, flatc, selv) -> dict:
@@ -1870,7 +1937,7 @@ def family_kernel_rows(torch, rng, fam) -> dict:
         if k == 0:
             flatc, selv, _fps = chunk_lanes(torch, bfs, pool, rng)
             if bfs._use_memo:
-                canon_memo_rows(torch, bfs, flatc, selv)
+                rows.update(canon_memo_rows(torch, bfs, flatc, selv, fam.get("memo_tag")))
             else:  # KRaftWithReconfig's slot canon, timed
                 rows.update(slot_canon_rows(torch, bfs, flatc, selv))
         batch = torch.from_numpy(np.ascontiguousarray(
@@ -3209,6 +3276,9 @@ def main() -> int:
         warm_ms=time_ms(torch, lambda: canon.fingerprints_memo_cuda(st_base, valid, memo_k)),
         bound_ms=max(cold_bytes / MEM_BPS, cold_ops / INT32_OPS) * 1e3,
         bound_by="operations" if cold_ops / INT32_OPS > cold_bytes / MEM_BPS else "bytes",
+        # all hits: the raw keys alone, each memo row read once
+        warm_bound_ms=max((cold_bytes - slots * 16) / MEM_BPS,
+                          cold_ops / (1 + P) / INT32_OPS) * 1e3,
         library_ms=None, max_abs_err=max(errs),
     )
 
@@ -3299,6 +3369,8 @@ def main() -> int:
     # run (timed); canon_tiered, canon_signatures and chunk_dedup on a chunk
     # of the five-server frontier at depth RAFT5_SAMPLE_DEPTH (timed)
     flatc3, selv3, fps3 = chunk_lanes(torch, bfs20, pool, rng)
+    # canon_memo on the chunk's worklist: its valid prefix, then the invalid tail
+    rows["canon_memo"]["worklist"] = memo_worklist(torch, canon, flatc3, selv3, "Raft.cfg")
     rows["chunk_dedup"]["raft_chunk"] = chunk_dedup_row(torch, fps3, [bfs20._seen], bfs20.R0,
                                                         timed=True)
     # the signatures are defined for any server count: canon_signatures on
@@ -3598,6 +3670,12 @@ def main() -> int:
     # ---- 10. results ----
     meta = {
         "canon_memo": ("raft_tpu_torch/csrc/canon_memo.cu", "raft_tpu/ops/symmetry.py:1230"),
+        # canon_memo's general path (N-word keys, member-set fields, P = 24)
+        # at the four-server reconfiguration shapes
+        "canon_memo[addremove4]": ("raft_tpu_torch/csrc/canon_memo.cu",
+                                   "raft_tpu/ops/symmetry.py:1230"),
+        "canon_memo[joint4]": ("raft_tpu_torch/csrc/canon_memo.cu",
+                               "raft_tpu/ops/symmetry.py:1230"),
         "chunk_dedup": ("raft_tpu_torch/csrc/chunk_dedup.cu",
                         "raft_tpu/checker/device_bfs.py:401"),
         "compact_append": ("raft_tpu_torch/csrc/compact_append.cu",
@@ -3720,6 +3798,9 @@ def main() -> int:
                      "canon_signatures[addremove5]": 0, "canon_signatures[joint5]": 0,
                      "reconfig_apply[addremove5]": five_report["launches"]["reconfig_apply"],
                      "joint_apply[joint5]": five_report["joint5"]["launches"]["joint_apply"],
+                     # 4e's and 4f's runs
+                     "canon_memo[addremove4]": reconfig_report["launches"]["canon_memo"],
+                     "canon_memo[joint4]": joint_report["launches"]["canon_memo"],
                      # 4j's exhaustion
                      "owner_route": sharded_report["launches"]["owner_route"]}
     table = [
@@ -3729,7 +3810,7 @@ def main() -> int:
          "library_ms": r["library_ms"]}
         for k, r in rows.items()
     ]
-    check(len(table) == len(KERNEL_NAMES) + 10, f"{len(table)} kernels in the table")
+    check(len(table) == len(KERNEL_NAMES) + 12, f"{len(table)} kernels in the table")
     tags = list(phase_start)
     phase_s = {t: round(phase_start[n] - phase_start[t], 1) for t, n in zip(tags, tags[1:])}
     print(json.dumps({"phase_seconds": phase_s}))

@@ -25,8 +25,8 @@
 // A group type supplies the combining: each(f) runs f(t, G) for the
 // member's own share (a tile) or for all G shares in turn (CtSerial, the
 // host build), sum() combines the members' partials and leaves the total
-// in every member (a tile's __shfl_xor_sync butterfly; nothing for
-// CtSerial, whose shares accumulate in place). Every member then holds the same
+// in every member (a tile's __shfl_xor_sync butterfly, csrc/canon_tile.cuh;
+// nothing for CtSerial, whose shares accumulate in place). Every member then holds the same
 // signatures, the same admissible set and the same hashes, so the min
 // needs no reduction of its own.
 //
@@ -100,6 +100,7 @@ __device__ __forceinline__ void ct_hash_add(CtHashPart& acc, const CtHashPart& p
 }
 
 // the host's group: one thread runs all G shares, accumulating in place
+// (so a sum or a min over the members is already whole)
 struct CtSerial {
   int G;
   template <class F>
@@ -108,6 +109,7 @@ struct CtSerial {
   }
   void sum(uint32_t*, uint32_t*, int) {}
   void sum(CtHashPart&) {}
+  uint64_t min64(uint64_t x) { return x; }
 };
 
 // the reference's _salt(offset, role): splitmix64 of offset * 256 + role +

@@ -72,66 +72,8 @@ __device__ T rt_block_exclusive_scan(T v, T* total) {
 }
 
 #ifdef __CUDACC__
-// Stage the first VL lanes of the block's rows of the [B, W] states into
-// srow, one row per thread at stride VL + 1 so threads hit distinct banks,
-// zeros past B; returns this thread's row. The caller syncs the block.
-__device__ __forceinline__ const int* rt_stage_rows(int* srow, const int* __restrict__ states,
-                                                    int B, int W, int VL) {
-  const int stride = VL + 1;
-  const long long base = (long long)blockIdx.x * blockDim.x;
-  for (int e = threadIdx.x; e < (int)blockDim.x * VL; e += blockDim.x) {
-    const int r = e / VL, c = e - r * VL;
-    const long long row = base + r;
-    srow[r * stride + c] = row < B ? states[row * W + c] : 0;
-  }
-  return srow + threadIdx.x * stride;
-}
-
-// The canon memo protocol of canon_memo and canon_tiered, first launch, for
-// lane b (every thread of the block calls it: the hits are a warp ballot).
-// memo is a direct-mapped [mcap, 2] table of (raw key, fingerprint) enc
-// rows. A valid lane probes the row rt_memo_slot(raw); on a miss it takes
-// canon() as its fingerprint and claims the slot with atomicMax (the highest
-// lane wins). Without memoize the fingerprint is the raw key. Writes the
-// lane's fingerprint (RT_ENC_MAX when invalid), raw key and claimed slot
-// (-1: none) and adds the warp's hits to *n_hit.
-template <class Canon>
-__device__ __forceinline__ void rt_memo_lane(bool active, bool memoize, const bool* valid,
-                                             long long b, uint64_t raw,
-                                             const long long* __restrict__ memo, int mcap,
-                                             int* claim, long long* fps, long long* raw_out,
-                                             int* slot_out, unsigned long long* n_hit,
-                                             Canon canon) {
-  bool hit = false;
-  long long fp = RT_ENC_MAX, raw_enc = RT_ENC_MAX;
-  int slot = -1;
-  if (active) {
-    raw_enc = rt_enc(raw);
-    const bool ok = valid[b];
-    if (!memoize) {
-      fp = ok ? raw_enc : RT_ENC_MAX;
-    } else if (ok) {
-      const int s = rt_memo_slot(raw, mcap);
-      hit = memo[2 * (long long)s] == raw_enc && raw_enc != RT_ENC_MAX;
-      if (hit) {
-        fp = memo[2 * (long long)s + 1];
-      } else {
-        fp = rt_enc(canon());
-        slot = s;
-        atomicMax(&claim[s], (int)b);
-      }
-    }
-  }
-  const unsigned hits = __ballot_sync(0xffffffffu, hit);
-  if ((threadIdx.x & 31) == 0 && hits) atomicAdd(n_hit, (unsigned long long)__popc(hits));
-  if (active) {
-    fps[b] = fp;
-    raw_out[b] = raw_enc;
-    slot_out[b] = slot;
-  }
-}
-
-// The protocol's second launch, one thread per lane: each claimed slot's
+// The canon memo protocol's second launch (the first is ct_memo_tile of
+// canon_tile.cuh), one thread per lane: each claimed slot's
 // winner writes its whole row, then releases the claim, so no row is torn.
 __device__ __forceinline__ void rt_memo_insert_lane(long long* __restrict__ memo,
                                                     int* __restrict__ claim,
@@ -147,26 +89,6 @@ __device__ __forceinline__ void rt_memo_insert_lane(long long* __restrict__ memo
   claim[s] = -1;
 }
 
-// Rows per block of a kernel that stages one state row of VL + 1 ints per
-// thread beside fixed_bytes of tables in dynamic shared memory: the most of
-// 128, 64 and 32 rows that keeps the block within 64 KB (several blocks per
-// SM), else 32 rows up to the device's opt-in limit (cudaErrorInvalidValue
-// past it). Sets the kernel's dynamic shared-memory limit to *smem.
-static inline cudaError_t rt_rows_per_block(const void* kernel, size_t fixed_bytes, int VL,
-                                            int* threads, size_t* smem) {
-  int dev, optin;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  const size_t row = (size_t)(VL + 1) * 4;
-  int nt = 128;
-  while (nt > 32 && fixed_bytes + nt * row > 64 * 1024) nt >>= 1;
-  *threads = nt;
-  *smem = fixed_bytes + nt * row;
-  if (*smem > (size_t)optin) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-}
 #endif
 
 extern "C" const char* rt_error_string(int e) {

@@ -49,8 +49,8 @@ _PREDICATES = [_P, _L, _P, _I, _P, _I, _P, _P]
 _SIM_CHECK = [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P]
 _SIGNATURES = {
     "canon_memo": {
-        "canon_memo": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P,
-                       _P, _P, _P],
+        "canon_memo": [_P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+        "canon_memo_occupancy": [_P, _I, _P],
     },
     "canon_tiered": {
         "canon_tiered": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],

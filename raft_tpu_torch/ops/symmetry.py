@@ -84,8 +84,8 @@ PRUNE_FROM = 5  # layouts with this many servers take the admissible min
 MSG_SERVER_FIELDS = ("msource", "mdest")
 DEFAULT_SPEC = tuple((f, "server") for f in MSG_SERVER_FIELDS)
 MSG_KINDS = {"server": 0, "server_nil": 1, "server_bitmask": 2}  # codes shared with csrc/canon_*
-MAX_MSG_FIELDS = 32  # csrc/canon_memo.cu MAX_FIELDS
-MAX_BAG_WORDS = 8  # csrc/canon_memo.cu MAX_WORDS
+MAX_MSG_FIELDS = 32  # csrc/canon_tiers.cuh CT_MAX_FIELDS
+MAX_BAG_WORDS = 8  # csrc/canon_tiers.cuh CT_MAX_WORDS
 # codes shared with csrc/canon_tiers.cuh
 SIG_KINDS = {"per_server": 0, "per_server_val": 1, "server_bitmask": 2,
              "per_server_pair": 3}
@@ -712,48 +712,28 @@ class Canonicalizer:
         memo[slot[win]] = torch.stack([raw, fps], dim=1)[win]
         return fps, hit.sum()
 
-    # ---------------- the CUDA kernel ----------------
-
-    def _kernel_tables(self, dev: torch.device):
-        """(host int32 params, device int32 table buffer) of the kernel:
-        see csrc/canon_memo.cu for the layout."""
-        key = ("kernel", str(dev))
-        got = self._dev.get(key)
-        if got is None:
-            h = self._host
-            S, P, K = self.S, self.P, self._K
-            nw = len(h["stream_offs"])
-            params = [S, P, K, *self._groups, h["M"], h["cnt_off"], int(self.symmetry),
-                      len(h["fields"]), nw, self.VL, h["ka"], h["kb"], *h["stream_offs"],
-                      *h["wa"], *h["wb"], *h["sx"]]
-            for (_w, shift, mask, kind), k in zip(h["fields"], h["field_streams"]):
-                params += [k, shift, mask, kind]
-            pa, pb, xa, xb = h["perm"]
-            rpa, rpb, rxa, rxb = h["raw"]
-            buf = np.concatenate([
-                h["lanes"], pa.ravel(), pb.ravel(), xa.ravel(), xb.ravel(),
-                rpa.ravel(), rpb.ravel(), rxa.ravel(), rxb.ravel(),
-                h["valmap"].ravel(), h["pow2"].ravel(), h["perms"].ravel(),
-            ]).astype(np.uint32).view(np.int32)
-            hp = (ctypes.c_int * len(params))(
-                *np.asarray(params, np.uint32).view(np.int32).tolist())
-            got = (hp, torch.as_tensor(buf, device=dev))
-            self._dev[key] = got
-        return got
+    # ---------------- the CUDA kernels ----------------
 
     def tier_general(self) -> bool:
         """Whether csrc/canon_tiers.cuh takes its general path (N-word keys,
         up to 32 message fields of any kind, fields of r > 1 lanes a server)
         rather than the 2-word one (hi/lo keys, at most 4 plain or Nil-able
-        message fields, one lane a server)."""
+        message fields, one lane a server) for canon_tiered."""
+        return self.memo_general() or any(
+            f.kind in ("per_server_val", "server_bitmask") and f.size > self.S
+            for f in self._view_fields)
+
+    def memo_general(self) -> bool:
+        """Whether canon_memo takes its general build: the hash alone
+        (no signatures) takes the 2-word one for hi/lo keys with at most 4
+        plain or Nil-able message fields, whatever the view's fields."""
         h = self._host
         return (len(h["stream_offs"]) != 2 or len(h["fields"]) > TIER_FAST_FIELDS
-                or any(f[3] == MSG_KINDS["server_bitmask"] for f in h["fields"])
-                or any(f.kind in ("per_server_val", "server_bitmask") and f.size > self.S
-                       for f in self._view_fields))
+                or any(f[3] == MSG_KINDS["server_bitmask"] for f in h["fields"]))
 
-    def tier_spec(self) -> np.ndarray:
-        """The int32 spec vector of csrc/canon_tiers.cuh: the TIER_HEADER
+    def tier_spec(self, memo: bool = False) -> np.ndarray:
+        """The int32 spec vector of csrc/canon_tiers.cuh (``memo``: for
+        canon_memo, whose ``general`` is ``memo_general``): the TIER_HEADER
         scalars; at ``off_words`` the key words' slot offsets in stream
         order, then the N + 1 stream xors of the seeded bag hash (count
         last); per message server field (stream, shift, mask, kind); per
@@ -784,7 +764,8 @@ class Canonicalizer:
         total = off_lanes + 6 * self._K
         hdr = dict(
             S=S, VL=self.VL, K=self._K, n_plain=self._groups[0], n_val=self._groups[1],
-            n_bm=self._groups[2], n_words=nw, general=int(self.tier_general()),
+            n_bm=self._groups[2], n_words=nw,
+            general=int(self.memo_general() if memo else self.tier_general()),
             cnt_off=h["cnt_off"], M=h["M"], n_fields=len(fields), n_sig=len(sig),
             rounds=REFINE_ROUNDS, ka=h["ka"], kb=h["kb"], seeded=int(bool(self.seed)),
             seed_a=h["seed_salts"][0], seed_b=h["seed_salts"][1], off_words=off_words,
@@ -797,32 +778,37 @@ class Canonicalizer:
         assert len(vec) == total
         return (vec & M32).astype(np.uint32).view(np.int32)
 
-    def _tier_table(self, dev: torch.device):
-        """(host ctypes copy, device tensor) of the spec vector."""
-        key = ("tier", str(dev))
+    def _tier_table(self, dev: torch.device, memo: bool = False):
+        """(host ctypes copy, device tensor) of the spec vector (``memo``:
+        canon_memo's)."""
+        key = ("memo" if memo else "tier", str(dev))
         got = self._dev.get(key)
         if got is None:
-            spec = self.tier_spec()
+            spec = self.tier_spec(memo)
             got = ((ctypes.c_int * len(spec))(*spec.tolist()),
                    torch.as_tensor(spec, device=dev))
             self._dev[key] = got
         return got
 
-    def tier_occupancy(self, dev: torch.device) -> dict:
-        """The launch shape ``canon_tiered`` takes for this layout on the
-        card ``dev`` (threads of a tile, threads and dynamic shared bytes a
-        block) and the occupancy it reaches there
+    def occupancy(self, dev: torch.device) -> dict:
+        """The launch shape this layout's canon kernel (``canon_tiered``
+        when ``prune``, else ``canon_memo``) takes on the card ``dev``
+        (threads of a tile, threads and dynamic shared bytes a block) and
+        the occupancy it reaches there
         (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``: blocks and warps
-        an SM). Launches nothing."""
-        hspec, _spec = self._tier_table(dev)
-        out = (ctypes.c_int * 5)()
+        an SM); canon_memo's also its miss path's split (0: each hash's
+        lanes over the tile, 1: the permutations). Launches nothing."""
+        hspec, _spec = self._tier_table(dev, memo=not self.prune)
+        out = (ctypes.c_int * 6)()
+        name = "canon_tiered" if self.prune else "canon_memo"
         with torch.cuda.device(dev):
-            lib = kernels.CANON_TIERED.lib
-            rc = lib.canon_tiered_occupancy(ctypes.cast(hspec, ctypes.c_void_p), len(hspec),
-                                            ctypes.cast(out, ctypes.c_void_p))
+            lib = (kernels.CANON_TIERED if self.prune else kernels.CANON_MEMO).lib
+            rc = getattr(lib, f"{name}_occupancy")(ctypes.cast(hspec, ctypes.c_void_p),
+                                                   len(hspec), ctypes.cast(out, ctypes.c_void_p))
         if rc:
-            raise RuntimeError(f"canon_tiered_occupancy: {lib.rt_error_string(rc).decode()}")
-        return dict(zip(("G", "threads", "smem_bytes", "blocks_per_sm", "warps_per_sm"), out))
+            raise RuntimeError(f"{name}_occupancy: {lib.rt_error_string(rc).decode()}")
+        keys = ("G", "threads", "smem_bytes", "blocks_per_sm", "warps_per_sm", "split")
+        return dict(zip(keys if not self.prune else keys[:5], out))
 
     def fingerprints_memo_cuda(self, states, valid, memo):
         """Launch ``canon_memo`` (csrc/canon_memo.cu; S <= 4 or no
@@ -849,14 +835,13 @@ class Canonicalizer:
         args = (states.data_ptr(), B, W, valid.data_ptr(), memo.data_ptr(), MCAP,
                 claim.data_ptr(), fps.data_ptr(), raw.data_ptr(), slot.data_ptr(),
                 n_hit.data_ptr(), kernels.stream(dev))
+        hspec, spec = self._tier_table(dev, memo=not self.prune)
         if self.prune:
-            hspec, spec = self._tier_table(dev)
             rc = k.lib.canon_tiered(ctypes.cast(hspec, ctypes.c_void_p), spec.data_ptr(),
                                     spec.numel(), *args)
         else:
-            hp, buf = self._kernel_tables(dev)
-            rc = k.lib.canon_memo(ctypes.cast(hp, ctypes.c_void_p), len(hp), buf.data_ptr(),
-                                  buf.numel() * 4, *args)
+            rc = k.lib.canon_memo(ctypes.cast(hspec, ctypes.c_void_p), spec.data_ptr(),
+                                  spec.numel(), int(self.symmetry), *args)
         k.launched(rc)
         return fps, n_hit
 

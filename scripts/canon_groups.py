@@ -1,21 +1,29 @@
-"""Time canon_tiered at other tile sizes than its own, on one card, on the
-same inputs: the choice of G behind csrc/canon_tiered.cu's two builds.
+"""Time canon_tiered, or canon_memo, at other tile sizes (and canon_memo
+at both of its miss path's splits) than their own, on one card, on the
+same inputs: the choice of G behind csrc/canon_tiered.cu's and
+csrc/canon_memo.cu's two builds.
 
-    python scripts/canon_groups.py [--out FILE]
+    python scripts/canon_groups.py [--memo] [--out FILE]
 
 Builds csrc/canon_tiered.cu with ``-DCT_G2=g2 -DCT_GGEN=gg`` (the 2-word
-build's tile and the general build's) for each pair of PAIRS, one nvcc
-each, all at once, into build/canon_groups/, and times each library through
-the port's own wrapper (``Canonicalizer.fingerprints_memo_cuda``, the
-library swapped in under ``kernels.CANON_TIERED``) with CUDA events around
+build's tile and the general build's) for each pair of PAIRS, or with
+``--memo`` csrc/canon_memo.cu with ``-DCM_SPLIT=s -DCM_G2=g2 -DCM_GGEN=gg``
+for each of MEMO_VARIANTS (s 0: each hash's lanes split over the tile, 1:
+the permutations), one nvcc each, all at once, into build/canon_groups/,
+and times each library through the port's own wrapper
+(``Canonicalizer.fingerprints_memo_cuda``, the library swapped in under
+``kernels.CANON_TIERED`` or ``kernels.CANON_MEMO``) with CUDA events around
 ITERS calls queued back to back: cold (a fresh 2^21-row memo before each
 call, its fill timed apart and taken off) and warm (every valid lane hits),
-on a 4,096-state chunk's worklist of the depth-9 five-server Raft frontier
-(the 2-word build) and of the depth-14 five-server AddRemove and depth-12
-five-server JointConsensus frontiers (the general build), the shapes of
-``chip_smoke.py`` phase 3. Every variant's fingerprints, memo and hit
-counts must equal the plain version's. Prints one JSON line per variant and
-build, with the occupancy each reaches
+on a 4,096-state chunk's worklist: canon_tiered on the depth-9 five-server
+Raft frontier (the 2-word build) and the depth-14 five-server AddRemove and
+depth-12 five-server JointConsensus frontiers (the general build);
+canon_memo on the depth-20 Raft.cfg, depth-27 PullRaft and depth-33
+KRaft.cfg frontiers (the 2-word build) and the depth-11 four-server
+AddRemove and depth-10 four-server JointConsensus frontiers (the general
+build), the shapes of ``chip_smoke.py`` phase 3. Every variant's
+fingerprints, memo and hit counts must equal the plain version's. Prints
+one JSON line per variant and build, with the occupancy each reaches
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the card's name and
 power limit, and writes them to ``--out``.
 """
@@ -45,29 +53,35 @@ from raft_tpu_torch.ops.hashing import INT64_MAX  # noqa: E402
 # (2-word tile, general tile): each build at 4 (2-word only) or 8 to 32
 # threads, with repeats to show the spread
 PAIRS = ((4, 8), (8, 16), (16, 32), (32, 32), (8, 32))
+# canon_memo's (split, 2-word tile, general tile)
+MEMO_VARIANTS = tuple((s, g, g) for s in (0, 1) for g in (4, 8, 16, 32))
 ITERS = 50
 OUT_DIR = os.path.join(ROOT, "build", "canon_groups")
 
 
-def build(pairs) -> dict:
-    """One library per (g2, gg), compiled in parallel."""
+def build(kernel, variants) -> dict:
+    """One library of ``kernel``'s source per variant (canon_tiered: (g2,
+    gg); canon_memo: (split, g2, gg)), compiled in parallel."""
     os.makedirs(OUT_DIR, exist_ok=True)
-    base = kernels.CANON_TIERED.compile_cmd()
+    base = kernel.compile_cmd()
     procs = {}
-    for g2, gg in pairs:
-        so = os.path.join(OUT_DIR, f"libcanon_tiered_{g2}_{gg}.so")
+    for var in variants:
+        so = os.path.join(OUT_DIR, f"lib{kernel.unit}_{'_'.join(map(str, var))}.so")
         cmd = [a for a in base]
         cmd[cmd.index("-o") + 1] = so
-        cmd[1:1] = [f"-DCT_G2={g2}", f"-DCT_GGEN={gg}"]
-        procs[(g2, gg)] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True))
+        if len(var) == 3:
+            cmd[1:1] = [f"-DCM_SPLIT={var[0]}", f"-DCM_G2={var[1]}", f"-DCM_GGEN={var[2]}"]
+        else:
+            cmd[1:1] = [f"-DCT_G2={var[0]}", f"-DCT_GGEN={var[1]}"]
+        procs[var] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (so, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{out}")
         lib = ctypes.CDLL(so)
-        for fn, args in kernels._SIGNATURES["canon_tiered"].items():
+        for fn, args in kernels._SIGNATURES[kernel.unit].items():
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -111,36 +125,45 @@ def chunk(bfs):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--memo", action="store_true", help="canon_memo's variants")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("canon_groups.py needs a CUDA card", file=sys.stderr)
         return 1
     smi = cs.nvidia_smi()
-    libs = build(PAIRS)
+    kernel = kernels.CANON_MEMO if args.memo else kernels.CANON_TIERED
+    libs = build(kernel, MEMO_VARIANTS if args.memo else PAIRS)
+    runs = ((("raft", "Raft.cfg", dict(text=cs.RAFT_CFG, max_depth=20)),
+             ("pull", "PullRaft.cfg", dict(text=cs.PULL_CFG, max_depth=cs.PULL_SAMPLE_DEPTH,
+                                           lenient=True)),
+             ("kraft", "KRaft.cfg", dict(text=cs.KRAFT_CFG, max_depth=cs.KRAFT_SAMPLE_DEPTH)),
+             ("addremove4", "RaftWithReconfigAddRemove.cfg",
+              dict(text=cs.ADDREMOVE_CFG, max_depth=cs.RECONFIG_SAMPLE_DEPTH, lenient=True,
+                   caps=cs.RECONFIG_CAPS)),
+             ("joint4", "RaftWithReconfigJointConsensus.cfg",
+              dict(text=cs.JOINT_CFG, max_depth=cs.JOINT_SAMPLE_DEPTH, caps=cs.JOINT_CAPS)))
+            if args.memo else
+            (("raft5", "Raft.cfg", dict(text=cs.RAFT5_CFG, msg_slots=cs.RAFT5_SLOTS,
+                                        max_depth=cs.RAFT5_SAMPLE_DEPTH, caps=cs.RAFT5_CAPS)),
+             ("addremove5", "RaftWithReconfigAddRemove.cfg",
+              dict(text=cs.ADDREMOVE5_CFG, max_depth=cs.ADDREMOVE5_SAMPLE_DEPTH, lenient=True,
+                   caps=cs.RECONFIG_CAPS)),
+             ("joint5", "RaftWithReconfigJointConsensus.cfg",
+              dict(text=cs.JOINT5_CFG, max_depth=cs.JOINT5_SAMPLE_DEPTH, caps=cs.JOINT_CAPS))))
     chunks = {}
-    _, b, _ = run_check("Raft.cfg", text=cs.RAFT5_CFG, device="cuda", chunk=cs.CHUNK,
-                        msg_slots=cs.RAFT5_SLOTS, max_depth=cs.RAFT5_SAMPLE_DEPTH,
-                        caps=cs.RAFT5_CAPS)
-    chunks["raft5"] = (b.canon, *chunk(b))
-    del b
-    _, b, _ = run_check("RaftWithReconfigAddRemove.cfg", text=cs.ADDREMOVE5_CFG, device="cuda",
-                        chunk=cs.CHUNK, max_depth=cs.ADDREMOVE5_SAMPLE_DEPTH, lenient=True,
-                        caps=cs.RECONFIG_CAPS)
-    chunks["addremove5"] = (b.canon, *chunk(b))
-    del b
-    _, b, _ = run_check("RaftWithReconfigJointConsensus.cfg", text=cs.JOINT5_CFG, device="cuda",
-                        chunk=cs.CHUNK, max_depth=cs.JOINT5_SAMPLE_DEPTH, caps=cs.JOINT_CAPS)
-    chunks["joint5"] = (b.canon, *chunk(b))
-    del b
+    for tag, cfg, kw in runs:
+        _, b, _ = run_check(cfg, device="cuda", chunk=cs.CHUNK, **kw)
+        chunks[tag] = (b.canon, *chunk(b))
+        del b
     lines = []
     for tag, (canon, rows, valid) in chunks.items():
         memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=rows.device)
         mp = memo.clone()
         want = [canon.fingerprints_memo_plain(rows, valid, mp) for _ in range(2)]
-        general = canon.tier_general()
-        for (g2, gg), lib in libs.items():
-            kernels.CANON_TIERED._lib = lib
+        general = canon.memo_general() if args.memo else canon.tier_general()
+        for var, lib in libs.items():
+            kernel._lib = lib
             memo.fill_(INT64_MAX)
             got = [canon.fingerprints_memo_cuda(rows, valid, memo) for _ in range(2)]
             exact = all(torch.equal(f, wf) and int(h) == int(wh)
@@ -148,13 +171,15 @@ def main() -> int:
             fn = lambda: canon.fingerprints_memo_cuda(rows, valid, memo)  # noqa: E731
             cold = device_ms(fn, setup=lambda: memo.fill_(INT64_MAX))
             fn()
-            line = dict(chunk=tag, build="general" if general else "2-word",
-                        G=gg if general else g2, lanes=rows.shape[0], valid=int(valid.sum()),
-                        cold_ms=cold, warm_ms=device_ms(fn), exact=exact,
-                        occupancy=canon.tier_occupancy(rows.device), card=smi)
+            line = dict(chunk=tag, kernel=kernel.unit, build="general" if general else "2-word",
+                        G=var[-1] if general else var[-2], lanes=rows.shape[0],
+                        valid=int(valid.sum()), cold_ms=cold, warm_ms=device_ms(fn),
+                        exact=exact, occupancy=canon.occupancy(rows.device), card=smi)
+            if args.memo:
+                line["split"] = "permutations" if var[0] else "lanes"
             print(json.dumps(line), flush=True)
             lines.append(line)
-    kernels.CANON_TIERED._lib = None
+    kernel._lib = None
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

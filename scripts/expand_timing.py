@@ -31,8 +31,10 @@ four-server JointConsensus frontier, and the guard and apply on one move of a
 65,536-walk simulate of five-server FlexibleRaft and of each four-server
 reconfiguration cfg (the shapes of ``chip_smoke.py`` phase 3 and its
 simulates); with ptxas' stack, spill and register figures of the
-reconfiguration pair's guard and apply kernels (both units compiled afresh)
-and, where the checkout has it, the group apply's occupancy. The inputs
+reconfiguration pair's guard and apply kernels and of ``canon_memo``'s
+(the three units compiled afresh) and, where the checkout has them, the
+group apply's occupancy and each chunk's canon's (its tile, block shape and
+warps an SM). The inputs
 come from the checkout's own engine with fixed seeds, so every checkout
 times the same rows when the engines agree (their state counts are printed
 beside the times). Prints one JSON line per ROOT, and writes them all to
@@ -66,10 +68,11 @@ ITERS = 100
 
 
 # ptxas' figures (-Xptxas -v) of the reconfiguration pair's guard and apply
-# kernels: each unit compiled afresh by the checkout's own nvcc command, its
-# library written under build/raft_tpu_torch/ptxas/; {kernel: stack frame,
-# spill stores and loads (bytes), registers}
-def ptxas_figures(units=("reconfig_expand", "joint_expand")):
+# kernels and of canon_memo's: each unit compiled afresh by the checkout's
+# own nvcc command, its library written under build/raft_tpu_torch/ptxas/;
+# {kernel (with its template arguments, e.g. canon_memo_kernel<0>): stack
+# frame, spill stores and loads (bytes), registers}
+def ptxas_figures(units=("reconfig_expand", "joint_expand", "canon_memo")):
     by_unit = {k.unit: k for k in kernels.ALL}
     os.makedirs(os.path.join(kernels.BUILD_DIR, "ptxas"), exist_ok=True)
     procs = []
@@ -84,7 +87,10 @@ def ptxas_figures(units=("reconfig_expand", "joint_expand")):
             m = re.search(r"Function properties for _Z(\d+)(\w+)", line)
             if m:
                 name = m.group(2)[:int(m.group(1))]
-                cur = figs.setdefault(name, {}) if name.endswith("_kernel") else None
+                targs = re.match(r"I((?:Li\d+E)+)E", m.group(2)[int(m.group(1)):])
+                args = re.findall(r"Li(\d+)E", targs.group(1)) if targs else []
+                key = name + (f"<{','.join(args)}>" if args else "")
+                cur = figs.setdefault(key, {}) if name.endswith("_kernel") else None
             elif cur is not None and "stack frame" in line:
                 cur.update(zip(("stack", "spill_stores", "spill_loads"),
                                map(int, re.findall(r"(\d+) bytes", line))))
@@ -162,6 +168,9 @@ def chunk_times(tag, bfs):
     out[tag]["canon_cold_ms"] = device_ms(canon, setup=lambda: memo.fill_(INT64_MAX))
     canon()
     out[tag]["canon_warm_ms"] = device_ms(canon)
+    out[tag]["canon_valid"] = int(new.sum())
+    if hasattr(bfs.canon, "occupancy"):  # the canon's launch shape (checkouts that have it)
+        out[tag]["canon_occupancy"] = bfs.canon.occupancy(dev)
     if bfs.canon.prune:
         out[tag]["signatures_ms"] = device_ms(lambda: bfs.canon.signatures(flatc))
     # the dedup stage against the seen run and three half-filled ladder runs

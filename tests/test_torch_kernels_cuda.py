@@ -1491,6 +1491,71 @@ def test_canon_memo_on_config_rows(dev, name):
     assert torch.equal(fps[:n], fps[n:])
 
 
+# the four-server cfgs' constants (chip_smoke.py ADDREMOVE_CFG, JOINT_CFG) at
+# 24 message slots: canon_memo's general path at P = 24
+CONFIG4_VARIANTS = {
+    "reconfig": dataclasses.replace(CONFIG_VARIANTS["reconfig"], n_servers=4,
+                                    init_cluster_size=3, max_cluster_size=4, msg_slots=24),
+    "joint": dataclasses.replace(CONFIG_VARIANTS["joint"], n_servers=4, init_cluster_size=3,
+                                 max_reconfigs=2, msg_slots=24),
+}
+
+
+@pytest.mark.parametrize("case", ["raft2", "raft3", "raft3_raw", "kraft3", "addremove4",
+                                  "joint4", "joint4_raw", "all_invalid"])
+def test_canon_memo_worklist_invalid_tail(dev, case):
+    """canon_memo on a worklist as the BFS gives it (guard, compact and
+    apply of a chunk of reachable states: the valid prefix, then the
+    invalid tail) on both builds (the 2-word one at P = 2 and 6, KRaft's
+    Nil-able kind; the general one at four servers, P = 24), symmetry on
+    and off (``_raw``: the raw key), and on an all-invalid worklist: equal
+    to the plain version, memo cold then warm (fingerprints, INT64_MAX on
+    every invalid lane, memo rows, hit counts a state). The build reports
+    its tile, block shape and at least one resident warp an SM."""
+    from raft_tpu_torch.ops.symmetry import Canonicalizer
+
+    if case.startswith(("raft", "all")):
+        model = RaftModel(RaftParams(n_servers=2 if case == "raft2" else 3, n_values=1,
+                                     max_elections=2, max_restarts=0, msg_slots=24))
+    elif case == "kraft3":
+        model = KRaftModel(KRaftParams(n_servers=3, n_values=1, max_elections=2,
+                                       max_restarts=0, msg_slots=40))
+    else:
+        p = CONFIG4_VARIANTS["reconfig" if case == "addremove4" else "joint"]
+        model = (JointRaftModel if isinstance(p, JointRaftParams) else ReconfigRaftModel)(p)
+    pool = _kraft_states(model, dev, depths=range(4, 9))
+    batch = torch.from_numpy(pool[np.random.default_rng(3).integers(0, len(pool), 512)]).to(dev)
+    C, A = batch.shape[0], model.A
+    cov = torch.zeros((len(model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
+    valid = guard(model, batch, C, cov)[0]
+    if case == "all_invalid":
+        valid = torch.zeros_like(valid)
+    n_valid = int(valid.sum())
+    sel, _n = compact_indices(valid.reshape(-1), n_valid + 3000, C * A)
+    flatc = apply(model, batch, sel)
+    selv = sel < C * A
+    assert int(selv.sum()) == n_valid and not bool(selv[n_valid:].any())
+    canon = Canonicalizer.for_model(model, symmetry=not case.endswith("_raw"))
+    assert not canon.prune and canon.memo_general() == case.startswith(("addremove", "joint"))
+    occ = canon.occupancy(dev)
+    assert occ["warps_per_sm"] >= 1 and occ["threads"] % occ["G"] == 0
+    print(f"{case}: G {occ['G']}, {occ['threads']} threads a block, {occ['warps_per_sm']} warps "
+          f"an SM, split {occ['split']}")
+    mk = torch.full((1 << 8, 2), INT64_MAX, dtype=torch.int64, device=dev)
+    mp = mk.clone()
+    hits = []
+    for _ in range(2):
+        fk, hk = canon.fingerprints_memo_cuda(flatc, selv, mk)
+        fp, hp = canon.fingerprints_memo_plain(flatc, selv, mp)
+        assert torch.equal(fk, fp) and torch.equal(mk, mp) and int(hk) == int(hp)
+        hits.append(int(hk))
+    assert bool((fk[~selv] == INT64_MAX).all())
+    if case == "all_invalid" or case.endswith("_raw"):
+        assert hits == [0, 0]
+    else:
+        assert hits[1] > hits[0]
+
+
 # chip_smoke.py's ADDREMOVE5_CFG and JOINT5_CFG at 24 message slots
 CONFIG5_VARIANTS = {
     "reconfig": dataclasses.replace(CONFIG_VARIANTS["reconfig"], n_servers=5,
@@ -1594,7 +1659,7 @@ def test_canon_tiered_valid_lanes_and_ties(dev, case):
             rows = bfs.frontier_rows.cpu().numpy()[:900]
     canon = Canonicalizer.for_model(model)
     assert canon.prune and canon.tier_general() == (case == "config5_interleaved")
-    assert canon.tier_occupancy(dev)["warps_per_sm"] >= 1
+    assert canon.occupancy(dev)["warps_per_sm"] >= 1
     states = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
     B = states.shape[0]
     if case == "all_invalid":
