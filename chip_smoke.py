@@ -1783,9 +1783,8 @@ def memo_worklist(torch, canon, flatc, selv, label) -> dict:
     cold_b, cold_by = bound(io + 2 * slots * 16, raw_ops * (1 + canon.P))
     warm_b, warm_by = bound(io + slots * 16, raw_ops)
     print(f"[3] {label}: canon_memo, {'general' if canon.memo_general() else '2-word'} build at "
-          f"{canon.VL} view lanes: a tile of {occ['G']} threads a state (a miss split by "
-          f"{'permutations' if occ['split'] else 'lanes'}), {occ['threads']} threads and "
-          f"{occ['smem_bytes']} shared bytes a block, {occ['blocks_per_sm']} blocks = "
+          f"{canon.VL} view lanes: a tile of {occ['G']} threads a state, {occ['threads']} "
+          f"threads and {occ['smem_bytes']} shared bytes a block, {occ['blocks_per_sm']} blocks = "
           f"{occ['warps_per_sm']} warps an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor); "
           f"exact on the worklist ({n} valid of {B} lanes, hits cold {hits[0]}, warm "
           f"{hits[1]}): cold {cold:.4f} ms (bound {cold_b:.4f}, {cold_by}), warm {warm:.4f} ms "

@@ -30,9 +30,8 @@
 //   4. one member probes the direct-mapped memo row memo_slot(raw); a hit
 //      returns the row's fingerprint, and hits are counted a state;
 //   5. on a miss the tile computes the min over the P permutations, split
-//      over its members by CM_SPLIT (canon_memo.cuh: 0 splits each hash's
-//      lanes, 1 the permutations), then that member claims the slot with
-//      atomicMax of its lane index and writes the lane.
+//      over its members (canon_memo.cuh), then that member claims the slot
+//      with atomicMax of its lane index and writes the lane.
 // A second launch lets only each slot's winner write its whole row (key and
 // value) and release the claim, so no row is ever torn: CUDA promises no
 // 16-byte single-copy atomicity, and the reference writes key+value in one
@@ -43,9 +42,13 @@
 // Two builds: NW = 2 for the 2-word bags with at most four plain or Nil-able
 // message fields (Raft, pull, KRaft, --net-faults); NW = 0, the general one,
 // for N-word bags (up to CT_MAX_WORDS words) and the bitmask kind (up to
-// CT_MAX_FIELDS message fields): the spec's CT_GENERAL picks one. G and the
-// split of each build are fixed from a timed table (scripts/canon_groups.py
-// --memo builds the others: -DCM_G2, -DCM_GGEN, -DCM_SPLIT).
+// CT_MAX_FIELDS message fields): the spec's CT_GENERAL picks one. The
+// 2-word build takes tiles of 8 (P = 6: six members hash one permutation
+// each), the general one tiles of 32 (P = 24: one each; 8 states a block,
+// 40 KB of shared memory at the four-server JointConsensus rows, 4 blocks
+// and 32 warps an SM at 64 registers): of the tiles of 4 to 32 these were
+// the fastest cold on the chunks of scripts/canon_groups.py --memo (the
+// 2-word ones within 15% of each other, whose chunks take 0.03-0.1 ms).
 //
 // Bound: on a cold chunk, operations: per valid lane about (1 + P) hashes of
 // K non-bag lanes + NW + 1 streams per occupied slot, ~24 INT32 operations
@@ -55,14 +58,13 @@
 #include "canon_memo.cuh"
 #include "canon_tile.cuh"
 
+// the tile of each build (scripts/canon_groups.py --memo builds others to
+// compare)
 #ifndef CM_G2
 #define CM_G2 8
 #endif
 #ifndef CM_GGEN
-#define CM_GGEN 16
-#endif
-#ifndef CM_SPLIT
-#define CM_SPLIT 0
+#define CM_GGEN 32
 #endif
 template <int NW>
 constexpr int cm_tile = NW ? CM_G2 : CM_GGEN;
@@ -77,10 +79,7 @@ canon_memo_kernel(const int* __restrict__ gspec, int spec_len, int sym,
   ct_memo_tile<NW, cm_tile<NW>>(gspec, spec_len, sym != 0, states, B, W, valid, memo, mcap,
                                 claim, fps, raw_out, slot_out, n_hit,
                                 [](const int* sp, const int* v, CtTile<cm_tile<NW>>& g) {
-                                  if constexpr (CM_SPLIT != 0)
-                                    return cm_canon_perms<NW>(sp, v, g);
-                                  else
-                                    return cm_canon_lanes<NW>(sp, v, g);
+                                  return cm_canon<NW>(sp, v, g);
                                 });
 }
 
@@ -125,12 +124,11 @@ extern "C" int canon_memo(const int* hspec, const int* spec, int spec_len, int s
 
 // The launch shape canon_memo takes for this spec and what it reaches:
 // out = {G, threads a block, dynamic shared bytes a block, resident blocks
-// an SM, warps an SM, the miss path's split (0 lanes, 1 permutations)}
+// an SM, warps an SM}
 extern "C" int canon_memo_occupancy(const int* hspec, int spec_len, int* out) {
   if (!ct_spec_ok(hspec, spec_len)) return (int)cudaErrorInvalidValue;
   const bool general = hspec[CT_GENERAL] != 0;
   const auto kernel = general ? canon_memo_kernel<0> : canon_memo_kernel<2>;
-  out[5] = CM_SPLIT;
   return (int)ct_occupancy((const void*)kernel, general ? cm_tile<0> : cm_tile<2>, spec_len,
                            hspec[CT_VL], out);
 }

@@ -151,20 +151,22 @@ __device__ __forceinline__ bool ct_words(const int* sp, const int* v, int m, uin
 }
 
 // a member set under sigma: bit q moves to bit sigma[q], bits past S drop
-__device__ __forceinline__ uint32_t ct_remap_bits(int x, const int* sigma, int S) {
+template <class Sig>
+__device__ __forceinline__ uint32_t ct_remap_bits(int x, Sig sigma, int S) {
   uint32_t y = 0;
   for (int q = 0; q < S; ++q) y |= (uint32_t)((x >> q) & 1) << sigma[q];
   return y;
 }
 
 // share t of G of the hash of the view v under sigma (old server i -> new
-// index sigma[i]): the non-bag lanes j = t, t + G, ... and the bag slots
-// m = t, t + G, ...; remap=false with the identity is the raw key (no
-// value remap at all). ct_hash_final turns the combined shares into the
-// hash.
-template <int NW>
-__device__ CtHashPart ct_hash_part(const int* sp, const int* v, const int* sigma, bool remap,
-                                   int t, int G) {
+// index sigma[i]; an int array, or any type indexed so, e.g. canon_memo.cuh's
+// permutation packed in one register): the non-bag lanes j = t, t + G, ...
+// and the bag slots m = t, t + G, ...; remap=false with the identity is the
+// raw key (no value remap at all). ct_hash_final turns the combined shares
+// into the hash.
+template <int NW, class Sig>
+__device__ CtHashPart ct_hash_part(const int* sp, const int* v, Sig sigma, bool remap, int t,
+                                   int G) {
   const int S = sp[CT_S], K = sp[CT_K], n_plain = sp[CT_NPLAIN], n_val = sp[CT_NVAL];
   const int* ln = sp + sp[CT_OFF_LANES];
   const bool seeded = sp[CT_SEEDED] != 0;

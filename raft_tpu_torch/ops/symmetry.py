@@ -796,10 +796,9 @@ class Canonicalizer:
         (threads of a tile, threads and dynamic shared bytes a block) and
         the occupancy it reaches there
         (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``: blocks and warps
-        an SM); canon_memo's also its miss path's split (0: each hash's
-        lanes over the tile, 1: the permutations). Launches nothing."""
+        an SM). Launches nothing."""
         hspec, _spec = self._tier_table(dev, memo=not self.prune)
-        out = (ctypes.c_int * 6)()
+        out = (ctypes.c_int * 5)()
         name = "canon_tiered" if self.prune else "canon_memo"
         with torch.cuda.device(dev):
             lib = (kernels.CANON_TIERED if self.prune else kernels.CANON_MEMO).lib
@@ -807,8 +806,7 @@ class Canonicalizer:
                                                    len(hspec), ctypes.cast(out, ctypes.c_void_p))
         if rc:
             raise RuntimeError(f"{name}_occupancy: {lib.rt_error_string(rc).decode()}")
-        keys = ("G", "threads", "smem_bytes", "blocks_per_sm", "warps_per_sm", "split")
-        return dict(zip(keys if not self.prune else keys[:5], out))
+        return dict(zip(("G", "threads", "smem_bytes", "blocks_per_sm", "warps_per_sm"), out))
 
     def fingerprints_memo_cuda(self, states, valid, memo):
         """Launch ``canon_memo`` (csrc/canon_memo.cu; S <= 4 or no

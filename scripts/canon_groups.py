@@ -1,20 +1,19 @@
-"""Time canon_tiered, or canon_memo, at other tile sizes (and canon_memo
-at both of its miss path's splits) than their own, on one card, on the
-same inputs: the choice of G behind csrc/canon_tiered.cu's and
-csrc/canon_memo.cu's two builds.
+"""Time canon_tiered, or canon_memo, at other tile sizes than their own,
+on one card, on the same inputs: the choice of G behind
+csrc/canon_tiered.cu's and csrc/canon_memo.cu's two builds.
 
     python scripts/canon_groups.py [--memo] [--out FILE]
 
 Builds csrc/canon_tiered.cu with ``-DCT_G2=g2 -DCT_GGEN=gg`` (the 2-word
 build's tile and the general build's) for each pair of PAIRS, or with
-``--memo`` csrc/canon_memo.cu with ``-DCM_SPLIT=s -DCM_G2=g2 -DCM_GGEN=gg``
-for each of MEMO_VARIANTS (s 0: each hash's lanes split over the tile, 1:
-the permutations), one nvcc each, all at once, into build/canon_groups/,
+``--memo`` csrc/canon_memo.cu with ``-DCM_G2=g2 -DCM_GGEN=gg`` for each pair
+of MEMO_PAIRS, one nvcc each, all at once, into build/canon_groups/,
 and times each library through the port's own wrapper
 (``Canonicalizer.fingerprints_memo_cuda``, the library swapped in under
 ``kernels.CANON_TIERED`` or ``kernels.CANON_MEMO``) with CUDA events around
-ITERS calls queued back to back: cold (a fresh 2^21-row memo before each
-call, its fill timed apart and taken off) and warm (every valid lane hits),
+ITERS calls queued back to back, and with the kernels' own device time from
+a torch.profiler trace (``*_kernel_ms``): cold (a fresh 2^21-row memo before
+each call, its fill timed apart and taken off) and warm (every valid lane hits),
 on a 4,096-state chunk's worklist: canon_tiered on the depth-9 five-server
 Raft frontier (the 2-word build) and the depth-14 five-server AddRemove and
 depth-12 five-server JointConsensus frontiers (the general build);
@@ -53,28 +52,25 @@ from raft_tpu_torch.ops.hashing import INT64_MAX  # noqa: E402
 # (2-word tile, general tile): each build at 4 (2-word only) or 8 to 32
 # threads, with repeats to show the spread
 PAIRS = ((4, 8), (8, 16), (16, 32), (32, 32), (8, 32))
-# canon_memo's (split, 2-word tile, general tile)
-MEMO_VARIANTS = tuple((s, g, g) for s in (0, 1) for g in (4, 8, 16, 32))
+MEMO_PAIRS = ((4, 4), (8, 8), (16, 16), (32, 32))
 ITERS = 50
 OUT_DIR = os.path.join(ROOT, "build", "canon_groups")
 
 
-def build(kernel, variants) -> dict:
-    """One library of ``kernel``'s source per variant (canon_tiered: (g2,
-    gg); canon_memo: (split, g2, gg)), compiled in parallel."""
+def build(kernel, pairs) -> dict:
+    """One library of ``kernel``'s source per (2-word tile, general tile),
+    compiled in parallel."""
     os.makedirs(OUT_DIR, exist_ok=True)
     base = kernel.compile_cmd()
     procs = {}
-    for var in variants:
-        so = os.path.join(OUT_DIR, f"lib{kernel.unit}_{'_'.join(map(str, var))}.so")
+    prefix = "CM" if kernel.unit == "canon_memo" else "CT"
+    for g2, gg in pairs:
+        so = os.path.join(OUT_DIR, f"lib{kernel.unit}_{g2}_{gg}.so")
         cmd = [a for a in base]
         cmd[cmd.index("-o") + 1] = so
-        if len(var) == 3:
-            cmd[1:1] = [f"-DCM_SPLIT={var[0]}", f"-DCM_G2={var[1]}", f"-DCM_GGEN={var[2]}"]
-        else:
-            cmd[1:1] = [f"-DCT_G2={var[0]}", f"-DCT_GGEN={var[1]}"]
-        procs[var] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True))
+        cmd[1:1] = [f"-D{prefix}_G2={g2}", f"-D{prefix}_GGEN={gg}"]
+        procs[(g2, gg)] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (so, proc) in procs.items():
         out, _ = proc.communicate()
@@ -109,6 +105,26 @@ def device_ms(fn, setup=None) -> float:
     return run(lambda: (setup(), fn())) - run(setup)
 
 
+def kernel_ms(fn, names, setup=None, calls=20) -> float:
+    """Mean device ms a call of the kernels named ``names`` (the canon and
+    its memo insert) in a torch.profiler trace of ``calls`` calls: the
+    card's own time, which a call queued behind the wrapper's host work
+    hides from device_ms where the kernel is shorter than that work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            if setup is not None:
+                setup()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if any(n in e.key for n in names))
+    return us / 1e3 / calls
+
+
 def chunk(bfs):
     """A CHUNK-state chunk of ``bfs``'s frontier through guard, compact and
     apply: (worklist rows, valid prefix)."""
@@ -133,7 +149,7 @@ def main() -> int:
         return 1
     smi = cs.nvidia_smi()
     kernel = kernels.CANON_MEMO if args.memo else kernels.CANON_TIERED
-    libs = build(kernel, MEMO_VARIANTS if args.memo else PAIRS)
+    libs = build(kernel, MEMO_PAIRS if args.memo else PAIRS)
     runs = ((("raft", "Raft.cfg", dict(text=cs.RAFT_CFG, max_depth=20)),
              ("pull", "PullRaft.cfg", dict(text=cs.PULL_CFG, max_depth=cs.PULL_SAMPLE_DEPTH,
                                            lenient=True)),
@@ -162,21 +178,24 @@ def main() -> int:
         mp = memo.clone()
         want = [canon.fingerprints_memo_plain(rows, valid, mp) for _ in range(2)]
         general = canon.memo_general() if args.memo else canon.tier_general()
-        for var, lib in libs.items():
+        for (g2, gg), lib in libs.items():
             kernel._lib = lib
             memo.fill_(INT64_MAX)
             got = [canon.fingerprints_memo_cuda(rows, valid, memo) for _ in range(2)]
             exact = all(torch.equal(f, wf) and int(h) == int(wh)
                         for (f, h), (wf, wh) in zip(got, want)) and torch.equal(memo, mp)
             fn = lambda: canon.fingerprints_memo_cuda(rows, valid, memo)  # noqa: E731
-            cold = device_ms(fn, setup=lambda: memo.fill_(INT64_MAX))
+            reset = lambda: memo.fill_(INT64_MAX)  # noqa: E731
+            names = (("canon_memo_kernel", "memo_insert_kernel") if args.memo else
+                     ("canon_tiered_kernel", "ct_memo_insert"))
+            cold = device_ms(fn, setup=reset)
+            cold_k = kernel_ms(fn, names, setup=reset)
             fn()
             line = dict(chunk=tag, kernel=kernel.unit, build="general" if general else "2-word",
-                        G=var[-1] if general else var[-2], lanes=rows.shape[0],
+                        G=gg if general else g2, lanes=rows.shape[0],
                         valid=int(valid.sum()), cold_ms=cold, warm_ms=device_ms(fn),
+                        cold_kernel_ms=cold_k, warm_kernel_ms=kernel_ms(fn, names),
                         exact=exact, occupancy=canon.occupancy(rows.device), card=smi)
-            if args.memo:
-                line["split"] = "permutations" if var[0] else "lanes"
             print(json.dumps(line), flush=True)
             lines.append(line)
     kernel._lib = None

@@ -5,14 +5,13 @@ reference's ``Canonicalizer`` (raw keys and the full-S! min of
 bit (tolerance: none; every value is a hash).
 
 Each lane is computed by a serial group of G members (``CtSerial``: the G
-shares run in turn and combined as a tile's butterflies combine them), at
-G = 1 to 32, by both of the miss path's splits: each hash's lanes over the
-group (``cm_canon_lanes``) and the permutations over the group
-(``cm_canon_perms``), on both builds: the 2-word one (Raft at two and three
+shares run in turn and combined as a tile's butterflies combine them: the
+raw hash's lanes and slots, a miss's permutations), at G = 1 to 32, on both
+builds: the 2-word one (Raft at two and three
 servers, KRaft's Nil-able mleader) and the general one (the four-server
 AddRemove and JointConsensus stand-ins: N-word keys, the member-set bitmask
 kind, P = 24), at small constants. The samples are reachable states and
-their server-permuted copies. The driver below replays the kernel's memo
+their server-permuted copies. The C++ code below replays the kernel's memo
 protocol serially (an invalid lane writes INT64_MAX and slot -1 and reads no
 row, a valid one probes, a miss claims its slot and the highest lane wins,
 hits are counted a state) to hold the host build to
@@ -114,29 +113,29 @@ HOST_SRC = """\
 #include <vector>
 #include "canon_memo.cuh"
 // raw keys and canonical fingerprints of every lane by a serial group of G
-// shares, the miss path split by lanes (split 0) or by permutations (1)
+// shares
 template <int NW>
-void run(const int* spec, const int* states, int B, int W, int G, int split, long long* raw,
+void run(const int* spec, const int* states, int B, int W, int G, long long* raw,
          long long* canon) {
   CtSerial g{G};
   for (int b = 0; b < B; ++b) {
     const int* v = states + (long long)b * W;
     raw[b] = rt_enc(ct_raw<NW>(spec, v, g));
-    canon[b] = rt_enc(split ? cm_canon_perms<NW>(spec, v, g) : cm_canon_lanes<NW>(spec, v, g));
+    canon[b] = rt_enc(cm_canon<NW>(spec, v, g));
   }
 }
-extern "C" void host_canon(const int* spec, const int* states, int B, int W, int G, int split,
+extern "C" void host_canon(const int* spec, const int* states, int B, int W, int G,
                            long long* raw, long long* canon) {
   if (spec[CT_GENERAL])
-    run<0>(spec, states, B, W, G, split, raw, canon);
+    run<0>(spec, states, B, W, G, raw, canon);
   else
-    run<2>(spec, states, B, W, G, split, raw, canon);
+    run<2>(spec, states, B, W, G, raw, canon);
 }
 // the kernel's memo protocol replayed lane by lane (ct_memo_tile, then the
 // insert launch): fps, the memo updated in place, the hits a state
 template <int NW>
 long long memo_run(const int* spec, const int* states, const bool* valid, int B, int W, int G,
-                   int split, int sym, long long* memo, int mcap, long long* fps) {
+                   int sym, long long* memo, int mcap, long long* fps) {
   CtSerial g{G};
   std::vector<int> claim(mcap, -1), slot(B, -1);
   std::vector<long long> raw(B, RT_ENC_MAX);
@@ -154,7 +153,7 @@ long long memo_run(const int* spec, const int* states, const bool* valid, int B,
       ++hits;
       continue;
     }
-    fps[b] = rt_enc(split ? cm_canon_perms<NW>(spec, v, g) : cm_canon_lanes<NW>(spec, v, g));
+    fps[b] = rt_enc(cm_canon<NW>(spec, v, g));
     slot[b] = s;
     claim[s] = claim[s] > b ? claim[s] : b;
   }
@@ -166,14 +165,13 @@ long long memo_run(const int* spec, const int* states, const bool* valid, int B,
   return hits;
 }
 extern "C" long long host_memo(const int* spec, const int* states, const bool* valid, int B,
-                               int W, int G, int split, int sym, long long* memo, int mcap,
-                               long long* fps) {
-  return spec[CT_GENERAL]
-             ? memo_run<0>(spec, states, valid, B, W, G, split, sym, memo, mcap, fps)
-             : memo_run<2>(spec, states, valid, B, W, G, split, sym, memo, mcap, fps);
+                               int W, int G, int sym, long long* memo, int mcap, long long* fps) {
+  return spec[CT_GENERAL] ? memo_run<0>(spec, states, valid, B, W, G, sym, memo, mcap, fps)
+                          : memo_run<2>(spec, states, valid, B, W, G, sym, memo, mcap, fps);
 }
 extern "C" int host_nth_perm(int p, int S, int* sigma) {
-  cm_nth_perm(p, S, sigma);
+  const CmPerm c = cm_nth_perm(p, S);
+  for (int i = 0; i < S; ++i) sigma[i] = c[i];
   return 0;
 }
 """
@@ -194,8 +192,8 @@ def lib(tmp_path_factory):
     assert out.returncode == 0, out.stderr
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.host_canon.argtypes = [P, P, I, I, I, I, P, P]
-    lib.host_memo.argtypes = [P, P, P, I, I, I, I, I, P, I, P]
+    lib.host_canon.argtypes = [P, P, I, I, I, P, P]
+    lib.host_memo.argtypes = [P, P, P, I, I, I, I, P, I, P]
     lib.host_memo.restype = ctypes.c_longlong
     lib.host_nth_perm.argtypes = [I, I, P]
     return lib
@@ -205,12 +203,12 @@ def _p(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _host_canon(lib, tc, batch, G, split):
+def _host_canon(lib, tc, batch, G):
     """(raw keys, canonical fingerprints) of ``batch`` by the host build."""
     spec = tc.tier_spec(memo=True)
     B, W = batch.shape
     raw, canon = np.zeros(B, np.int64), np.zeros(B, np.int64)
-    lib.host_canon(_p(spec), _p(np.ascontiguousarray(batch)), B, W, G, split, _p(raw), _p(canon))
+    lib.host_canon(_p(spec), _p(np.ascontiguousarray(batch)), B, W, G, _p(raw), _p(canon))
     return torch.from_numpy(raw), torch.from_numpy(canon)
 
 
@@ -242,15 +240,13 @@ def test_nth_perm_enumerates_lexicographic_order(lib):
 @pytest.mark.parametrize("G", GROUPS)
 @pytest.mark.parametrize("name", LAYOUTS)
 def test_host_canon_bit_identical(lib, name, G):
-    # both splits of the miss path, the G shares combined, give the
-    # reference's raw keys and full-S! fingerprints bit for bit; the
-    # permuted copies keep their fingerprints
+    # the G shares combined give the reference's raw keys and full-S!
+    # fingerprints bit for bit; the permuted copies keep their fingerprints
     want_raw, want = _ref(name)
     batch = _sample(name)[2]
-    for split in (0, 1):
-        raw, canon = _host_canon(lib, _port(name), batch, G, split)
-        assert torch.equal(raw, want_raw)
-        assert torch.equal(canon, want)
+    raw, canon = _host_canon(lib, _port(name), batch, G)
+    assert torch.equal(raw, want_raw)
+    assert torch.equal(canon, want)
     n = len(batch) // 2
     assert torch.equal(canon[:n], canon[n:])
 
@@ -260,7 +256,7 @@ def test_host_canon_seeded(lib, name):
     # the second hash family (--collision-audit): seeded salts and stream
     # xors computed from the spec
     want_raw, want = _ref(name, seed=0x5EED5EED)
-    raw, canon = _host_canon(lib, _port(name, seed=0x5EED5EED), _sample(name)[2], 8, 1)
+    raw, canon = _host_canon(lib, _port(name, seed=0x5EED5EED), _sample(name)[2], 8)
     assert torch.equal(raw, want_raw) and torch.equal(canon, want)
 
 
@@ -277,11 +273,11 @@ def test_host_memo_protocol_equals_plain(lib, name, symmetry):
     valid = np.arange(len(states)) < B
     mk = np.full((64, 2), INT64_MAX, np.int64)
     mp = torch.from_numpy(mk.copy())
-    for split in (0, 1):
+    for G in (8, 32):  # the tiles of the two builds
         for _ in range(2):
             fps = np.zeros(len(states), np.int64)
             hk = lib.host_memo(_p(tc.tier_spec(memo=True)), _p(states), _p(valid), len(states), W,
-                               8, split, int(symmetry), _p(mk), 64, _p(fps))
+                               G, int(symmetry), _p(mk), 64, _p(fps))
             fp, hp = tc.fingerprints_memo_plain(torch.from_numpy(states),
                                                 torch.from_numpy(valid), mp)
             assert torch.equal(torch.from_numpy(fps), fp) and int(hk) == int(hp)

@@ -1540,7 +1540,7 @@ def test_canon_memo_worklist_invalid_tail(dev, case):
     occ = canon.occupancy(dev)
     assert occ["warps_per_sm"] >= 1 and occ["threads"] % occ["G"] == 0
     print(f"{case}: G {occ['G']}, {occ['threads']} threads a block, {occ['warps_per_sm']} warps "
-          f"an SM, split {occ['split']}")
+          "an SM")
     mk = torch.full((1 << 8, 2), INT64_MAX, dtype=torch.int64, device=dev)
     mp = mk.clone()
     hits = []
