@@ -1872,7 +1872,9 @@ def slot_canon_rows(torch, bfs, flatc, selv) -> dict:
     against about 24 INT32 operations a lane of each pair's hash, 3 a lane
     of its view build and the bag re-sort at the work a sort needs,
     M x ceil(log2 M) compare-exchanges of NW words (a compare and a select
-    a word), not the kernel's own M x M rank."""
+    a word); beside it the same bound on the work the kernel itself does
+    (``own_bound_ms``). Prints the kernel's tile, block shape and warps an
+    SM."""
     model, dev = bfs.model, flatc.device
     canon = bfs.canon
     errs = []
@@ -1894,13 +1896,29 @@ def slot_canon_rows(torch, bfs, flatc, selv) -> dict:
     nb = flatc.shape[0]
     sort_ops = 2 * NW * M * math.ceil(math.log2(M))
     b, by = bound(n * VL * 4 + nb + nb * 8, n * canon.P * (24 * VL + sort_ops + 3 * VL))
+    # the work the kernel itself does on these rows: sigma's lanes once a
+    # sigma, each pair's log values, acked and occupied keys (c of them, each
+    # ranked among the c at NW compares), the unused slots once a row
+    S, L, V = model.NS, model.p.max_log, model.p.n_values
+    c = (base[:, model.layout.sl("msg_w0")] != 1 << 30).sum(1)
+    nsig, ntau = len(canon.sig_table), len(canon.tau_table)
+    terms = (nsig * (21 * S + 5 * S * L + S * S)
+             + canon.P * (S * L + V + (NW + 1) * c) + (NW + 1) * (M - c))
+    own_ops = int((24 * terms + 2 * NW * canon.P * c * c).sum())
+    own_b, own_by = bound(n * VL * 4 + nb + nb * 8, own_ops)
+    occ = canon.occupancy(dev)
     row = dict(ms=time_ms(torch, lambda: canon.fingerprints(flatc, selv), iters=20),
                plain_ms=time_ms(torch, lambda: canon.fingerprints_plain(base), iters=3),
                bound_ms=b, bound_by=by, library_ms=None, max_abs_err=max(errs), rows=n,
-               pairs=canon.P)
-    print(f"[3] {model.name}: slot_canon exact on {n} valid successor rows of {nb} lanes "
-          f"(symmetry on, {canon.P} pairs, and off) and their permuted copies; "
-          f"{row['ms']:.4f} ms")
+               pairs=canon.P, own_bound_ms=own_b, own_bound_by=own_by,
+               occupied_slots=float(c.float().mean()), occupancy=occ)
+    print(f"[3] {model.name}: slot_canon exact on the worklist, {n} valid successor rows of "
+          f"{nb} lanes (symmetry on, {canon.P} pairs, and off) and their permuted copies; "
+          f"{row['ms']:.4f} ms (bound {b:.4f}, {by}; the kernel's own work "
+          f"{own_b:.4f}, {own_by}, {row['occupied_slots']:.1f} occupied slots a row); a tile of "
+          f"{occ['G']} threads a row in sub-tiles of {occ['sub_tile']}, {occ['threads']} threads "
+          f"and {occ['smem_bytes']} shared bytes a block, {occ['blocks_per_sm']} blocks = "
+          f"{occ['warps_per_sm']} warps an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     return {"slot_canon": row}
 
 

@@ -13,10 +13,11 @@ namespace cg = cooperative_groups;
 
 #define CT_BLOCK 256  // threads a block (fewer where the rows would not fit)
 
-// The tile's group type for canon_tiers.cuh: a member runs its own share,
-// sum() combines the members' partials by butterflies within the tile and
-// min64() takes the least of the members' values; both leave the result in
-// every member
+// The tile's group type for canon_tiers.cuh and slot_canon.cuh: a member
+// runs its own share, sum() (addition; the hash part's non-bag streams by
+// XOR) and xor2() combine the members' partials by butterflies within the
+// tile and min64() takes the least of the members' values, each leaving the
+// result in every member; sync() is the tile's barrier
 template <int G>
 struct CtTile {
   cg::thread_block_tile<G> tile;
@@ -43,6 +44,14 @@ struct CtTile {
       h.bb += tile.shfl_xor(h.bb, o);
     }
   }
+  __device__ __forceinline__ void xor2(uint32_t& a, uint32_t& b) {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) {
+      a ^= tile.shfl_xor(a, o);
+      b ^= tile.shfl_xor(b, o);
+    }
+  }
+  __device__ __forceinline__ void sync() { tile.sync(); }
   __device__ __forceinline__ uint64_t min64(uint64_t x) {
 #pragma unroll
     for (int o = G / 2; o > 0; o >>= 1) {

@@ -75,7 +75,8 @@ _SIGNATURES = {
         "hash_rows": [_P, _L, _I, _U, _U, _I, _P, _P],
     },
     "slot_canon": {
-        "slot_canon": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _U, _U, _I, _P, _P],
+        "slot_canon": [_P, _P, _I, _P, _L, _I, _P, _P, _I, _P, _I, _U, _U, _I, _P, _P],
+        "slot_canon_occupancy": [_P, _I, _I, _I, _P],
     },
     "owner_route": {
         "owner_route": [_P, _I, _P, _I, _P, _P, _I, _I, _L, _I, _I, _P, _I, _P, _P, _P, _P,

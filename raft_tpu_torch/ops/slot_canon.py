@@ -39,6 +39,7 @@ set to the INT64_MAX sentinel.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 
 import numpy as np
@@ -66,11 +67,12 @@ class SlotCanonicalizer:
         self.model = model
         self.symmetry, self.seed = symmetry, seed
         H, V = model.p.n_hosts, model.p.n_values
-        if symmetry:
-            pairs = [(s, t) for s in itertools.permutations(range(H))
-                     for t in itertools.permutations(range(V))]
-        else:
-            pairs = [(tuple(range(H)), tuple(range(V)))]
+        # the host and value permutations; the pairs are their product
+        sig = list(itertools.permutations(range(H))) if symmetry else [tuple(range(H))]
+        tau = list(itertools.permutations(range(V))) if symmetry else [tuple(range(V))]
+        self.sig_table = np.asarray(sig, np.int32).reshape(len(sig), H)
+        self.tau_table = np.asarray(tau, np.int32).reshape(len(tau), V)
+        pairs = [(s, t) for s in sig for t in tau]
         self.sigmas = np.asarray([s for s, _t in pairs], np.int64)
         self.taus = np.asarray([t for _s, t in pairs], np.int64)
         self.P = len(pairs)
@@ -191,31 +193,50 @@ class SlotCanonicalizer:
     # ---------------- the kernel ----------------
 
     def _tables(self, dev):
+        """(host ctypes copy of the spec vector, device sigma and tau
+        tables)."""
         key = str(dev)
         if key not in self._dev:
-            self._dev[key] = tuple(torch.tensor(a.reshape(-1), dtype=torch.int32, device=dev)
-                                   for a in (self.sigmas, self.taus))
+            spec = self.model._spec_vector()
+            self._dev[key] = ((ctypes.c_int * len(spec))(*spec),) + tuple(
+                torch.as_tensor(a, device=dev) for a in (self.sig_table, self.tau_table))
         return self._dev[key]
 
     def fingerprints_cuda(self, states: torch.Tensor, valid=None) -> torch.Tensor:
         k = kernels.SLOT_CANON
         m = self.model
-        N = states.shape[0]
-        kernels.require(states, torch.int32, "states", shape=(N, m.layout.W))
+        N, W = states.shape[0], m.layout.W
+        kernels.require(states, torch.int32, "states", shape=(N, W))
         if valid is not None:
             kernels.require(valid, torch.bool, "valid", shape=(N,))
         spec, _cand, _ids = m.kernel_spec(states.device)
-        sig, tau = self._tables(states.device)
+        hspec, sig, tau = self._tables(states.device)
         sa, sb = seed_salts(self.seed)
         out = torch.empty(N, dtype=torch.int64, device=states.device)
-        # a warp's shared memory: the canonical view and the remapped bag
-        warp_ints = m.layout.view_len + (m.n_words + 1) * m.p.msg_slots
-        rc = k.fn(states.data_ptr(), N, None if valid is None else valid.data_ptr(),
-                  spec.data_ptr(), spec.numel(), sig.data_ptr(), tau.data_ptr(), self.P,
-                  warp_ints, sa, sb, int(bool(self.seed)), out.data_ptr(),
-                  kernels.stream(states.device))
+        rc = k.fn(ctypes.cast(hspec, ctypes.c_void_p), spec.data_ptr(), spec.numel(),
+                  states.data_ptr(), N, W, None if valid is None else valid.data_ptr(),
+                  sig.data_ptr(), sig.shape[0], tau.data_ptr(), tau.shape[0], sa, sb,
+                  int(bool(self.seed)), out.data_ptr(), kernels.stream(states.device))
         k.launched(rc)
         return out
+
+    def occupancy(self, dev: torch.device) -> dict:
+        """The launch shape ``slot_canon`` takes for this model on the card
+        ``dev`` (threads of a row's tile and of each sub-tile, threads and
+        dynamic shared bytes a block) and the occupancy it reaches there
+        (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``: blocks and warps
+        an SM). Launches nothing."""
+        hspec, sig, tau = self._tables(dev)
+        out = (ctypes.c_int * 6)()
+        with torch.cuda.device(dev):
+            lib = kernels.SLOT_CANON.lib
+            rc = lib.slot_canon_occupancy(ctypes.cast(hspec, ctypes.c_void_p), len(hspec),
+                                          sig.shape[0], tau.shape[0],
+                                          ctypes.cast(out, ctypes.c_void_p))
+        if rc:
+            raise RuntimeError(f"slot_canon_occupancy: {lib.rt_error_string(rc).decode()}")
+        return dict(zip(("G", "threads", "smem_bytes", "blocks_per_sm", "warps_per_sm",
+                         "sub_tile"), out))
 
     def fingerprints(self, states: torch.Tensor, valid=None) -> torch.Tensor:
         """Canonical enc fingerprints int64 [N] of int32 [N, W] rows; with

@@ -1,8 +1,9 @@
-"""Time canon_tiered, or canon_memo, at other tile sizes than their own,
-on one card, on the same inputs: the choice of G behind
-csrc/canon_tiered.cu's and csrc/canon_memo.cu's two builds.
+"""Time canon_tiered, canon_memo or slot_canon at other tile sizes than
+their own, on one card, on the same inputs: the choice of G behind
+csrc/canon_tiered.cu's and csrc/canon_memo.cu's two builds and of the tile
+and sub-tile of csrc/slot_canon.cu.
 
-    python scripts/canon_groups.py [--memo] [--out FILE]
+    python scripts/canon_groups.py [--memo | --slot] [--out FILE]
 
 Builds csrc/canon_tiered.cu with ``-DCT_G2=g2 -DCT_GGEN=gg`` (the 2-word
 build's tile and the general build's) for each pair of PAIRS, or with
@@ -25,6 +26,13 @@ fingerprints, memo and hit counts must equal the plain version's. Prints
 one JSON line per variant and build, with the occupancy each reaches
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the card's name and
 power limit, and writes them to ``--out``.
+
+With ``--slot``: csrc/slot_canon.cu built with ``-DSC_G=g -DSC_GS=gs`` (a
+tile of g threads a row, its sigmas split over sub-tiles of gs) for each
+pair of SLOT_PAIRS, timed the same way through
+``SlotCanonicalizer.fingerprints`` on a 4,096-state chunk's worklist of the
+depth-11 KRaftWithReconfig frontier (the full cfg, 12 pairs), each
+variant's fingerprints equal to the plain version's.
 """
 
 from __future__ import annotations
@@ -53,22 +61,25 @@ from raft_tpu_torch.ops.hashing import INT64_MAX  # noqa: E402
 # threads, with repeats to show the spread
 PAIRS = ((4, 8), (8, 16), (16, 32), (32, 32), (8, 32))
 MEMO_PAIRS = ((4, 4), (8, 8), (16, 16), (32, 32))
+# slot_canon's (tile, sub-tile)
+SLOT_PAIRS = ((32, 32), (32, 16), (32, 8), (16, 16), (16, 8), (8, 8), (8, 4))
 ITERS = 50
 OUT_DIR = os.path.join(ROOT, "build", "canon_groups")
 
 
 def build(kernel, pairs) -> dict:
     """One library of ``kernel``'s source per (2-word tile, general tile),
-    compiled in parallel."""
+    or slot_canon's (tile, sub-tile), compiled in parallel."""
     os.makedirs(OUT_DIR, exist_ok=True)
     base = kernel.compile_cmd()
     procs = {}
-    prefix = "CM" if kernel.unit == "canon_memo" else "CT"
+    names = {"canon_memo": ("CM_G2", "CM_GGEN"), "canon_tiered": ("CT_G2", "CT_GGEN"),
+             "slot_canon": ("SC_G", "SC_GS")}[kernel.unit]
     for g2, gg in pairs:
         so = os.path.join(OUT_DIR, f"lib{kernel.unit}_{g2}_{gg}.so")
         cmd = [a for a in base]
         cmd[cmd.index("-o") + 1] = so
-        cmd[1:1] = [f"-D{prefix}_G2={g2}", f"-D{prefix}_GGEN={gg}"]
+        cmd[1:1] = [f"-D{names[0]}={g2}", f"-D{names[1]}={gg}"]
         procs[(g2, gg)] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.STDOUT, text=True))
     libs = {}
@@ -139,15 +150,42 @@ def chunk(bfs):
     return apply(model, batch, sel), sel < cs.CHUNK * model.A
 
 
+def slot_lines(smi) -> list:
+    """slot_canon's variants on the KRaftWithReconfig chunk."""
+    kernel = kernels.SLOT_CANON
+    libs = build(kernel, SLOT_PAIRS)
+    _, b, _ = run_check("KRaftWithReconfig.cfg", text=cs.KRAFT_RECONFIG_CFG, device="cuda",
+                        chunk=cs.CHUNK, max_depth=cs.KRECONFIG_SAMPLE_DEPTH, lenient=True,
+                        caps=cs.KRECONFIG_CAPS)
+    canon, (rows, valid) = b.canon, chunk(b)
+    del b
+    want = torch.where(valid, canon.fingerprints_plain(rows), INT64_MAX)
+    lines = []
+    for (g, gs), lib in libs.items():
+        kernel._lib = lib
+        fn = lambda: canon.fingerprints(rows, valid)  # noqa: E731
+        line = dict(chunk="kreconfig", kernel=kernel.unit, G=g, sub_tile=gs, lanes=rows.shape[0],
+                    valid=int(valid.sum()), pairs=canon.P, exact=torch.equal(fn(), want),
+                    ms=device_ms(fn), kernel_ms=kernel_ms(fn, ("slot_canon_kernel",)),
+                    occupancy=canon.occupancy(rows.device), card=smi)
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+    kernel._lib = None
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--memo", action="store_true", help="canon_memo's variants")
+    ap.add_argument("--slot", action="store_true", help="slot_canon's variants")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("canon_groups.py needs a CUDA card", file=sys.stderr)
         return 1
     smi = cs.nvidia_smi()
+    if args.slot:
+        return write_lines(slot_lines(smi), args.out)
     kernel = kernels.CANON_MEMO if args.memo else kernels.CANON_TIERED
     libs = build(kernel, MEMO_PAIRS if args.memo else PAIRS)
     runs = ((("raft", "Raft.cfg", dict(text=cs.RAFT_CFG, max_depth=20)),
@@ -199,9 +237,15 @@ def main() -> int:
             print(json.dumps(line), flush=True)
             lines.append(line)
     kernel._lib = None
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    return write_lines(lines, args.out)
+
+
+def write_lines(lines, out) -> int:
+    """Write the JSON lines to ``out`` (if given); 1 unless every variant
+    was exact."""
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             f.write("".join(json.dumps(x) + "\n" for x in lines))
     return 0 if all(x["exact"] for x in lines) else 1
 

@@ -27,12 +27,15 @@ depth-14 five-server AddRemove frontier (``canon_tiered``'s general path,
 cold and warm, beside the reconfiguration kernels), the same on a chunk of the
 depth-11 four-server AddRemove frontier (``canon_memo``'s general path, whose
 fingerprints are the least of 24 permuted hashes) and of the depth-10
-four-server JointConsensus frontier, and the guard and apply on one move of a
+four-server JointConsensus frontier, the same on a chunk of the depth-11
+KRaftWithReconfig frontier (the full cfg: ``slot_canon``, which has no
+memo, in place of the canon's cold and warm times), and the guard and apply
+on one move of a
 65,536-walk simulate of five-server FlexibleRaft and of each four-server
 reconfiguration cfg (the shapes of ``chip_smoke.py`` phase 3 and its
 simulates); with ptxas' stack, spill and register figures of the
-reconfiguration pair's guard and apply kernels and of ``canon_memo``'s
-(the three units compiled afresh) and, where the checkout has them, the
+reconfiguration pair's guard and apply kernels and of ``canon_memo``'s and
+``slot_canon``'s (the four units compiled afresh) and, where the checkout has them, the
 group apply's occupancy and each chunk's canon's (its tile, block shape and
 warps an SM). The inputs
 come from the checkout's own engine with fixed seeds, so every checkout
@@ -68,11 +71,11 @@ ITERS = 100
 
 
 # ptxas' figures (-Xptxas -v) of the reconfiguration pair's guard and apply
-# kernels and of canon_memo's: each unit compiled afresh by the checkout's
+# kernels and of canon_memo's and slot_canon's: each unit compiled afresh by the checkout's
 # own nvcc command, its library written under build/raft_tpu_torch/ptxas/;
 # {kernel (with its template arguments, e.g. canon_memo_kernel<0>): stack
 # frame, spill stores and loads (bytes), registers}
-def ptxas_figures(units=("reconfig_expand", "joint_expand", "canon_memo")):
+def ptxas_figures(units=("reconfig_expand", "joint_expand", "canon_memo", "slot_canon")):
     by_unit = {k.unit: k for k in kernels.ALL}
     os.makedirs(os.path.join(kernels.BUILD_DIR, "ptxas"), exist_ok=True)
     procs = []
@@ -163,18 +166,22 @@ def chunk_times(tag, bfs):
         fold_ms=device_ms(lambda: fold(model, flatc, new, jcount, viol, invs, cov=cov, sel=sel,
                                        valid=valid, rank=rank)),
         append_ms=device_ms(lambda: append_rows(nbuf, flatc, esel, jcount, bfs.VC)))
-    memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
-    canon = lambda: bfs.canon.fingerprints_memo(flatc, new, memo)  # noqa: E731
-    out[tag]["canon_cold_ms"] = device_ms(canon, setup=lambda: memo.fill_(INT64_MAX))
-    canon()
-    out[tag]["canon_warm_ms"] = device_ms(canon)
+    if hasattr(bfs.canon, "fingerprints_memo"):
+        memo = torch.full((1 << 21, 2), INT64_MAX, dtype=torch.int64, device=dev)
+        canon = lambda: bfs.canon.fingerprints_memo(flatc, new, memo)  # noqa: E731
+        out[tag]["canon_cold_ms"] = device_ms(canon, setup=lambda: memo.fill_(INT64_MAX))
+        canon()
+        out[tag]["canon_warm_ms"] = device_ms(canon)
+        fps = canon()[0]
+    else:  # KRaftWithReconfig's slot canon: no memo
+        out[tag]["canon_ms"] = device_ms(lambda: bfs.canon.fingerprints(flatc, new))
+        fps = bfs.canon.fingerprints(flatc, new)
     out[tag]["canon_valid"] = int(new.sum())
     if hasattr(bfs.canon, "occupancy"):  # the canon's launch shape (checkouts that have it)
         out[tag]["canon_occupancy"] = bfs.canon.occupancy(dev)
-    if bfs.canon.prune:
+    if getattr(bfs.canon, "prune", False):
         out[tag]["signatures_ms"] = device_ms(lambda: bfs.canon.signatures(flatc))
     # the dedup stage against the seen run and three half-filled ladder runs
-    fps = canon()[0]
     lrng = np.random.default_rng(1)
     runs = [bfs._seen]
     for i in range(3):
@@ -220,6 +227,11 @@ del b
 _, b, _ = run_check("RaftWithReconfigJointConsensus.cfg", text=cs.JOINT_CFG, device="cuda",
                     chunk=cs.CHUNK, max_depth=cs.JOINT_SAMPLE_DEPTH, caps=cs.JOINT_CAPS)
 chunk_times("joint4", b)
+del b
+_, b, _ = run_check("KRaftWithReconfig.cfg", text=cs.KRAFT_RECONFIG_CFG, device="cuda",
+                    chunk=cs.CHUNK, max_depth=cs.KRECONFIG_SAMPLE_DEPTH, lenient=True,
+                    caps=cs.KRECONFIG_CAPS)
+chunk_times("kreconfig", b)
 del b
 
 

@@ -1854,6 +1854,43 @@ def kreconfig_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
                                 .astype(np.int32))
 
 
+def kreconfig_bag_rows(model, st, seed):
+    """KRaftWithReconfig rows of ``st`` whose bags are empty (c = 0), full (c = M: random
+    unique keys of random fields), hold an unused slot with a key word after
+    EMPTY (word 1 = 5: ranked among the unused slots), or a slot whose word 0
+    lies above EMPTY (EMPTY + 3: every slot ranked under each pair)."""
+    rng = np.random.default_rng(seed)
+    lay, M, NW = model.layout, model.p.msg_slots, model.n_words
+    ws = [lay.sl(f"msg_w{k}") for k in range(NW)]
+    cs = lay.sl("msg_cnt")
+    empty, full = st[:24].copy(), st[:24].copy()
+    for r in empty:
+        for w in ws:
+            r[w] = EMPTY
+        r[cs] = 0
+    for r in full:
+        keys = sorted({tuple(int(x) for x in rng.integers(0, 1 << 29, NW)) for _ in range(M)})
+        while len(keys) < M:
+            keys = sorted(set(keys) | {tuple(int(x) for x in rng.integers(0, 1 << 29, NW))})
+        bag = np.array(keys[:M]).T
+        for k, w in enumerate(ws):
+            r[w] = bag[k]
+        r[cs] = rng.integers(0, 3, M)
+    odd = []
+    for r in st[:48]:
+        words = np.stack([r[w] for w in ws])
+        free = np.flatnonzero(words[0] == EMPTY)
+        if len(free) < 2:
+            continue
+        a = r.copy()  # an unused slot's word 1 after EMPTY, another's count
+        a[lay.fields["msg_w1"].offset + free[0]] = 5
+        a[lay.fields["msg_cnt"].offset + free[-1]] = 2
+        b = r.copy()  # a word 0 above EMPTY
+        b[lay.fields["msg_w0"].offset + free[0]] = EMPTY + 3
+        odd += [a, b]
+    return np.concatenate([empty, full, np.stack(odd)]).astype(np.int32)
+
+
 def kreconfig_forced_rows(model):
     """Rows built from Init that fire each receipt arm whatever states the
     rest of kreconfig_edge_rows was built from, and the ones a sample
@@ -2104,23 +2141,29 @@ def test_kreconfig_predicates_and_sim_check(dev):
 @pytest.mark.parametrize("n_values", [1, 2])
 def test_slot_canon(dev, n_values):
     """slot_canon against its plain version on reachable rows, their
-    successors and edge rows, symmetry on and off, seeds 0 and 3, with and
-    without a valid mask; a host- and value-permuted copy (a pair's
-    remapped, slot-sorted rows) keeps its fingerprint."""
+    successors, edge rows and kreconfig_bag_rows (full and empty bags,
+    unused slots out of order, a word 0 above EMPTY), symmetry on and off,
+    seeds 0 and 3, without a valid mask, with a random one and with a BFS
+    worklist's (a valid prefix, then an invalid tail), and on no rows; a
+    host- and value-permuted copy (a pair's remapped, slot-sorted rows)
+    keeps its fingerprint."""
     from raft_tpu_torch.ops.expand import apply
 
     model = _kreconfig_model(n_values=n_values)
     base = _kraft_states(model, dev, depths=range(3, 8))
-    rows = torch.from_numpy(np.concatenate([base, kreconfig_edge_rows(model, base, seed=7)])).to(
-        dev)
-    valid = torch.rand(rows.shape[0], device=dev) < 0.8
+    rows = torch.from_numpy(np.concatenate([base, kreconfig_edge_rows(model, base, seed=7),
+                                            kreconfig_bag_rows(model, base, seed=8)])).to(dev)
+    n = rows.shape[0]
+    valid = torch.rand(n, device=dev) < 0.8
+    work = torch.arange(n, device=dev) < n - n // 3  # a worklist: valid prefix, invalid tail
     for symmetry in (True, False):
         for seed in (0, 3):
             canon = model.make_canonicalizer(symmetry, seed=seed)
-            for v in (None, valid):
+            for v in (None, valid, work):
                 fk = canon.fingerprints(rows, v)
                 fp = canon.fingerprints(rows.cpu(), None if v is None else v.cpu())
                 assert torch.equal(fk.cpu(), fp), (symmetry, seed)
+            assert canon.fingerprints(rows[:0]).shape == (0,)
     canon = model.make_canonicalizer(True)
     reach = torch.from_numpy(base).to(dev)
     fps = canon.fingerprints(reach)

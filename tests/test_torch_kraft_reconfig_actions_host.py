@@ -8,9 +8,10 @@ tests/test_torch_actions_host.py. Each (state, candidate) pair goes through
 ``KReconfigFamily::action<false>`` (the guard, a chain lane with the
 scratch the kernel gives it) and ``action<true>`` (the apply), each state
 through ``KReconfigFamily::predicate`` (the invariants and the liveness
-predicates), and each row through the slot canon's pieces run as one lane
-(``sc_order``, ``sc_build_view``, ``sc_scatter_bag``, ``sc_hash_part``); the
-results must equal the dense ``jax.vmap(_expand1)``, the reference's
+predicates), and each row through the slot canon's device code as the
+kernel runs it, with serial groups at its own tiles
+(tests/test_torch_slot_canon_host.py's ``host_slot_canon``; that file runs
+every tile size); the results must equal the dense ``jax.vmap(_expand1)``, the reference's
 invariants and liveness predicates and ``SlotCanonicalizer.fingerprints``
 bit for bit (tolerance: none, the values are integers), on reachable
 states and the edge rows of ``kreconfig_edge_rows``
@@ -31,10 +32,10 @@ import torch
 from raft_tpu.models import kraft_reconfig as ref_kr
 from raft_tpu_torch.convert import fps_to_u64
 from raft_tpu_torch.models import kraft_reconfig as kr
-from raft_tpu_torch.ops.hashing import seed_salts
 
 from test_torch_actions_host import CSRC, SHIM
 from test_torch_kraft_reconfig import FULLP, _edges, _pair, reachable
+from test_torch_slot_canon_host import SLOT_DRIVER, host_fingerprints
 
 # one intra-op thread: tier-1 runs several test workers side by side, and
 # torch's default thread pool per worker oversubscribes the CPU
@@ -71,30 +72,6 @@ extern "C" void host_expand(const int* states, int C, const int* spec, const int
 extern "C" void host_predicate(const int* states, int C, const int* spec, int id, bool* ok) {
   for (int c = 0; c < C; ++c) ok[c] = KReconfigFamily::predicate(spec, states + c * spec[KC_W], id);
 }
-// slot_canon.cu's kernel body as one lane: the min over the pairs of each
-// row's canonical hash, as u64
-extern "C" void host_slot_canon(const int* states, int N, const int* spec, const int* sig,
-                                const int* tau, int P, unsigned sa, unsigned sb, int seeded,
-                                unsigned long long* out) {
-  const int VL = spec[KC_VL], M = spec[KC_M], NW = spec[KC_NW], H = spec[KC_N_HOSTS];
-  std::vector<int> cr(VL), keys((NW + 1) * M);
-  for (int n = 0; n < N; ++n) {
-    const int* s = states + (long long)n * spec[KC_W];
-    unsigned long long best = ~0ull;
-    for (int p = 0; p < P; ++p) {
-      int order[KC_MAX_S], inv[KC_MAX_S];
-      sc_order(spec, s, sig + p * H, order, inv);
-      sc_build_view(spec, s, sig + p * H, tau + p * spec[KC_V], order, inv, cr.data(),
-                    keys.data(), 0, 1);
-      sc_scatter_bag(spec, keys.data(), cr.data(), 0, 1);
-      uint32_t ha = 0, hb = 0;
-      sc_hash_part(spec, cr.data(), 0, 1, sa, sb, seeded, &ha, &hb);
-      const unsigned long long h = rt_combine(ha ^ (uint32_t)VL * RT_KA, hb ^ (uint32_t)VL * RT_KB);
-      best = h < best ? h : best;
-    }
-    out[n] = best;
-  }
-}
 """
 
 
@@ -105,7 +82,7 @@ def lib(tmp_path_factory):
         pytest.skip("needs a host C++ compiler to build the device code for the CPU")
     d = tmp_path_factory.mktemp("host_kreconfig_actions")
     (d / "cuda_runtime.h").write_text(SHIM)
-    (d / "driver.cpp").write_text(DRIVER)
+    (d / "driver.cpp").write_text(DRIVER + SLOT_DRIVER)
     so = d / "libhost_kreconfig_actions.so"
     out = subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{d}", f"-I{CSRC}",
                           "-o", str(so), str(d / "driver.cpp")],
@@ -115,7 +92,7 @@ def lib(tmp_path_factory):
     P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.host_expand.argtypes = [P, I, P, P, I, I, P, P, P, P]
     lib.host_predicate.argtypes = [P, I, P, I, P]
-    lib.host_slot_canon.argtypes = [P, I, P, P, P, I, U, U, I, P]
+    lib.host_slot_canon.argtypes = [P, ctypes.c_longlong, I, P, P, P, I, P, I, U, U, I, I, I, P]
     return lib
 
 
@@ -172,19 +149,13 @@ def test_device_slot_canon_matches_reference(lib, name):
     if name == "small":
         _jm, _tm, _b, (succs, valid, _r, _o) = _pair()
         rows = np.ascontiguousarray(np.concatenate([rows, succs[valid][::4]]))
-    spec = np.ascontiguousarray(tm.kernel_spec("cpu")[0].numpy())
     for symmetry in (True, False):
         for seed in (0, 3):
             canon = tm.make_canonicalizer(symmetry, seed=seed)
-            sig = np.ascontiguousarray(canon.sigmas.astype(np.int32))
-            tau = np.ascontiguousarray(canon.taus.astype(np.int32))
-            sa, sb = seed_salts(seed)
-            out = np.zeros(len(rows), np.uint64)
-            lib.host_slot_canon(_ptr(rows), len(rows), _ptr(spec), _ptr(sig), _ptr(tau),
-                                canon.P, sa, sb, int(bool(seed)), _ptr(out))
+            out = host_fingerprints(lib, tm, canon, rows, None, 32, 16)  # the kernel's tiles
             want = np.asarray(jax.device_get(
                 jm.make_canonicalizer(symmetry, seed=seed).fingerprints(rows)))
-            assert np.array_equal(out, want), (symmetry, seed)
+            assert np.array_equal(fps_to_u64(torch.from_numpy(out)), want), (symmetry, seed)
             assert np.array_equal(fps_to_u64(canon.fingerprints(torch.from_numpy(rows))), want)
 
 
