@@ -27,8 +27,12 @@
 //      hash combined by __shfl_xor_sync butterflies;
 //   5. a min across the tile by shuffles.
 // Nothing of the view is materialized: each element is hashed at the
-// position the pair moves it to. SC_G and SC_GS are the fastest of the
-// tiles timed by scripts/canon_groups.py --slot (PERF.md).
+// position the pair moves it to. Tiles of 16 in sub-tiles of 8 (two rows a
+// warp, 3 of the 6 sigmas a sub-tile at the full cfg), 64 registers for 4
+// blocks an SM (52 KB of shared memory a block at the full cfg, 32 warps):
+// the fastest of the tiles timed by scripts/canon_groups.py --slot (the
+// table in PERF.md). The register cap spills 16 bytes to the stack; no array
+// is indexed at run time (at 80 registers, uncapped, the stack is empty).
 //
 // Bound: bytes (each valid row's view lanes and the mask read once, 8 bytes
 // written a row) against the INT32 operations of P hashes of VL lanes a row
@@ -38,10 +42,13 @@
 #include "slot_canon.cuh"
 
 #ifndef SC_G
-#define SC_G 32
+#define SC_G 16
 #endif
 #ifndef SC_GS
-#define SC_GS 16
+#define SC_GS 8
+#endif
+#ifndef SC_MINB
+#define SC_MINB 4  // resident blocks an SM asked of ptxas (__launch_bounds__)
 #endif
 #define SC_BLOCK 256
 static_assert(SC_G <= 32 && SC_GS <= SC_G && SC_G % SC_GS == 0, "tiles of a warp at most");
@@ -66,7 +73,7 @@ __host__ __device__ __forceinline__ ScLayout sc_layout(const int* sp, int nsig, 
   return l;
 }
 
-__global__ void __launch_bounds__(SC_BLOCK)
+__global__ void __launch_bounds__(SC_BLOCK, SC_MINB)
 slot_canon_kernel(const int* __restrict__ gspec, const int* __restrict__ states, long long N,
                   int W, const bool* __restrict__ valid, const int* __restrict__ sig, int nsig,
                   const int* __restrict__ tau, int ntau, uint32_t sa, uint32_t sb, int seeded,

@@ -204,8 +204,9 @@ __device__ __forceinline__ void sc_remap(const int* sp, ScKey& k, ScPerm pm, uin
 __device__ __forceinline__ void sc_tables(const int* sp, const int* sig, int nsig, const int* tau,
                                           int ntau, int* sigp, int* taup, int* taba, int* tabb,
                                           int t, int nt) {
-  for (int i = t; i < nsig; i += nt) sigp[i] = (int)sc_pack_perm(sig + i * sp[KC_N_HOSTS], sp[KC_N_HOSTS]);
-  for (int j = t; j < ntau; j += nt) taup[j] = (int)sc_pack_perm(tau + j * sp[KC_V], sp[KC_V]);
+  const int H = sp[KC_N_HOSTS], V = sp[KC_V];
+  for (int i = t; i < nsig; i += nt) sigp[i] = (int)sc_pack_perm(sig + i * H, H);
+  for (int j = t; j < ntau; j += nt) taup[j] = (int)sc_pack_perm(tau + j * V, V);
   for (int e = t; e < sc_n_lanes(sp); e += nt) sc_lane_entry(sp, e, taba + e, tabb + e);
 }
 

@@ -27,9 +27,10 @@ one JSON line per variant and build, with the occupancy each reaches
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the card's name and
 power limit, and writes them to ``--out``.
 
-With ``--slot``: csrc/slot_canon.cu built with ``-DSC_G=g -DSC_GS=gs`` (a
-tile of g threads a row, its sigmas split over sub-tiles of gs) for each
-pair of SLOT_PAIRS, timed the same way through
+With ``--slot``: csrc/slot_canon.cu built with ``-DSC_G=g -DSC_GS=gs
+-DSC_MINB=b`` (a tile of g threads a row, its sigmas split over sub-tiles
+of gs, b resident blocks an SM asked of ptxas) for each of SLOT_PAIRS, its
+registers and stack printed, timed the same way through
 ``SlotCanonicalizer.fingerprints`` on a 4,096-state chunk's worklist of the
 depth-11 KRaftWithReconfig frontier (the full cfg, 12 pairs), each
 variant's fingerprints equal to the plain version's.
@@ -41,6 +42,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -61,32 +63,39 @@ from raft_tpu_torch.ops.hashing import INT64_MAX  # noqa: E402
 # threads, with repeats to show the spread
 PAIRS = ((4, 8), (8, 16), (16, 32), (32, 32), (8, 32))
 MEMO_PAIRS = ((4, 4), (8, 8), (16, 16), (32, 32))
-# slot_canon's (tile, sub-tile)
-SLOT_PAIRS = ((32, 32), (32, 16), (32, 8), (16, 16), (16, 8), (8, 8), (8, 4))
+# slot_canon's (tile, sub-tile, resident blocks an SM asked of ptxas)
+SLOT_PAIRS = ((32, 32, 1), (32, 16, 1), (32, 8, 1), (16, 16, 1), (16, 8, 1), (8, 8, 1),
+              (8, 4, 1), (32, 16, 4), (32, 8, 4), (16, 16, 4), (16, 8, 4), (16, 8, 5),
+              (16, 4, 4), (8, 4, 4))
 ITERS = 50
+PTXAS = {}  # each library's ptxas figures: the most registers and stack of its kernels
 OUT_DIR = os.path.join(ROOT, "build", "canon_groups")
 
 
 def build(kernel, pairs) -> dict:
     """One library of ``kernel``'s source per (2-word tile, general tile),
-    or slot_canon's (tile, sub-tile), compiled in parallel."""
+    or slot_canon's (tile, sub-tile, blocks an SM), compiled in parallel."""
     os.makedirs(OUT_DIR, exist_ok=True)
     base = kernel.compile_cmd()
     procs = {}
     names = {"canon_memo": ("CM_G2", "CM_GGEN"), "canon_tiered": ("CT_G2", "CT_GGEN"),
-             "slot_canon": ("SC_G", "SC_GS")}[kernel.unit]
-    for g2, gg in pairs:
-        so = os.path.join(OUT_DIR, f"lib{kernel.unit}_{g2}_{gg}.so")
+             "slot_canon": ("SC_G", "SC_GS", "SC_MINB")}[kernel.unit]
+    for key in pairs:
+        so = os.path.join(OUT_DIR, f"lib{kernel.unit}_{'_'.join(map(str, key))}.so")
         cmd = [a for a in base]
         cmd[cmd.index("-o") + 1] = so
-        cmd[1:1] = [f"-D{names[0]}={g2}", f"-D{names[1]}={gg}"]
-        procs[(g2, gg)] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True))
+        cmd[1:1] = [f"-D{n}={x}" for n, x in zip(names, key)]
+        procs[key] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True))
     libs = {}
     for key, (so, proc) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key}:\n{out}")
+        regs = re.findall(r"Used (\d+) registers", out)
+        stack = re.findall(r"(\d+) bytes stack frame", out)
+        PTXAS[key] = dict(registers=int(max(regs, key=int)) if regs else None,
+                          stack=int(max(stack, key=int)) if stack else None)
         lib = ctypes.CDLL(so)
         for fn, args in kernels._SIGNATURES[kernel.unit].items():
             getattr(lib, fn).argtypes = args
@@ -161,10 +170,11 @@ def slot_lines(smi) -> list:
     del b
     want = torch.where(valid, canon.fingerprints_plain(rows), INT64_MAX)
     lines = []
-    for (g, gs), lib in libs.items():
+    for (g, gs, minb), lib in libs.items():
         kernel._lib = lib
         fn = lambda: canon.fingerprints(rows, valid)  # noqa: E731
-        line = dict(chunk="kreconfig", kernel=kernel.unit, G=g, sub_tile=gs, lanes=rows.shape[0],
+        line = dict(chunk="kreconfig", kernel=kernel.unit, G=g, sub_tile=gs, min_blocks=minb,
+                    ptxas=PTXAS[(g, gs, minb)], lanes=rows.shape[0],
                     valid=int(valid.sum()), pairs=canon.P, exact=torch.equal(fn(), want),
                     ms=device_ms(fn), kernel_ms=kernel_ms(fn, ("slot_canon_kernel",)),
                     occupancy=canon.occupancy(rows.device), card=smi)

@@ -11,8 +11,9 @@ through ``KReconfigFamily::predicate`` (the invariants and the liveness
 predicates), and each row through the slot canon's device code as the
 kernel runs it, with serial groups at its own tiles
 (tests/test_torch_slot_canon_host.py's ``host_slot_canon``; that file runs
-every tile size); the results must equal the dense ``jax.vmap(_expand1)``, the reference's
-invariants and liveness predicates and ``SlotCanonicalizer.fingerprints``
+every tile size); the results must equal the dense ``jax.vmap(_expand1)``,
+the reference's invariants and liveness predicates and
+``SlotCanonicalizer.fingerprints``
 bit for bit (tolerance: none, the values are integers), on reachable
 states and the edge rows of ``kreconfig_edge_rows``
 (tests/test_torch_kernels_cuda.py): every receipt arm, chains that overflow
@@ -152,7 +153,7 @@ def test_device_slot_canon_matches_reference(lib, name):
     for symmetry in (True, False):
         for seed in (0, 3):
             canon = tm.make_canonicalizer(symmetry, seed=seed)
-            out = host_fingerprints(lib, tm, canon, rows, None, 32, 16)  # the kernel's tiles
+            out = host_fingerprints(lib, tm, canon, rows, None, 16, 8)  # the kernel's tiles
             want = np.asarray(jax.device_get(
                 jm.make_canonicalizer(symmetry, seed=seed).fingerprints(rows)))
             assert np.array_equal(fps_to_u64(torch.from_numpy(out)), want), (symmetry, seed)
