@@ -251,7 +251,9 @@ __device__ void nw_bag_insert(int* words, int* cnt, int M, int nw, const WKey& k
 // member t + 1 writes. The tile lives in expand_driver.cuh.
 //
 // Keys here are int32 words (IKey): the low 32 bits of WKey's int64 sum,
-// so nw_wrap's result, indexed at compile time only, in registers.
+// so nw_wrap's result, indexed at compile time only, in registers; MAXW (a
+// family's most key words, NW_MAX_WORDS unless given) bounds the unrolled
+// word loops.
 
 struct GrpOne {
   __device__ __forceinline__ int lo() const { return 0; }
@@ -286,7 +288,7 @@ __device__ __forceinline__ IKey nw_ikey() {
   return k;
 }
 
-template <class Gp>
+template <int MAXW = NW_MAX_WORDS, class Gp>
 __device__ __forceinline__ Put nw_bag_probe_g(Gp g, const int* words, int M, int nw,
                                               const IKey& k) {
   const int G = g.size();
@@ -296,7 +298,7 @@ __device__ __forceinline__ Put nw_bag_probe_g(Gp g, const int* words, int M, int
     for (int m = t; m < M; m += G) {
       bool less = false, tie = true;
 #pragma unroll
-      for (int w = 0; w < NW_MAX_WORDS; ++w) {
+      for (int w = 0; w < MAXW; ++w) {
         if (w < nw) {  // a predicate, not a break: the loop unrolls
           const int x = words[w * M + m];
           less = less || (tie && x < k.w[w]);
@@ -316,7 +318,7 @@ __device__ __forceinline__ Put nw_bag_probe_g(Gp g, const int* words, int M, int
 
 // the insert half of wide_bag_put, in place in a successor row, by the
 // whole group; ends with the group's barrier
-template <class Gp>
+template <int MAXW = NW_MAX_WORDS, class Gp>
 __device__ __forceinline__ void nw_bag_insert_g(Gp g, int* words, int* cnt, int M, int nw,
                                                 const IKey& k, const Put& p) {
   const int G = g.size();
@@ -326,7 +328,7 @@ __device__ __forceinline__ void nw_bag_insert_g(Gp g, int* words, int* cnt, int 
       for (int m = t; m < M; m += G) {
         bool eq = true;
 #pragma unroll
-        for (int w = 0; w < NW_MAX_WORDS; ++w)
+        for (int w = 0; w < MAXW; ++w)
           if (w < nw) eq = eq && words[w * M + m] == k.w[w];
         cnt[m] += eq;
       }
@@ -336,27 +338,109 @@ __device__ __forceinline__ void nw_bag_insert_g(Gp g, int* words, int* cnt, int 
   for (int top = M - 1; top > p.pos; top -= G)  // slot top - t, G a round, from the top
     for (int t = g.lo(); t < g.hi(); ++t) {
       const int x = top - t;
-      int v[NW_MAX_WORDS], c = 0;
+      int v[MAXW], c = 0;
       if (x > p.pos) {
 #pragma unroll
-        for (int w = 0; w < NW_MAX_WORDS; ++w) v[w] = w < nw ? words[w * M + x - 1] : 0;
+        for (int w = 0; w < MAXW; ++w) v[w] = w < nw ? words[w * M + x - 1] : 0;
         c = cnt[x - 1];
       }
       g.sync();  // every member's read of the round before any write
       if (x > p.pos) {
 #pragma unroll
-        for (int w = 0; w < NW_MAX_WORDS; ++w)
+        for (int w = 0; w < MAXW; ++w)
           if (w < nw) words[w * M + x] = v[w];
         cnt[x] = c;
       }
     }
   if (p.pos < M && g.lead()) {  // slot pos was read before the last round's barrier
 #pragma unroll
-    for (int w = 0; w < NW_MAX_WORDS; ++w)
+    for (int w = 0; w < MAXW; ++w)
       if (w < nw) words[w * M + p.pos] = k.w[w];
     cnt[p.pos] = 1;
   }
   g.sync();
+}
+
+// f(u) for u in [0, n), split over the group's members (a multi-lane write)
+template <class Gp, class Fn>
+__device__ __forceinline__ void grp_for(Gp g, int n, Fn f) {
+  for (int t = g.lo(); t < g.hi(); ++t)
+    for (int u = t; u < n; u += g.size()) f(u);
+}
+
+// ---- a put in the guard's form or the apply's ----
+//
+// Two forms, picked by the action's WRITE. The guard (a group of one) keeps
+// the forms it had before the group apply: an int64 WKey indexed by a spec
+// word and wrapped to int32 before its put, key words in an int array read
+// at a runtime index, the serial nw_bag_probe and nw_bag_insert; a few bytes
+// of stack, and the registers (so the occupancy) of its one-thread lanes stay
+// as they were. The apply takes IKey for both, int32 words in registers,
+// every word picked by masks (a conditional store or a select of words lets
+// the compiler index the key at run time, on the stack), and the put split
+// over its group. MAXW is the family's most key words; q a field's (word,
+// shift, mask) triple in a spec vector.
+
+template <bool WRITE, int MAXW>
+struct NwForm {  // the guard's
+  typedef WKey Key;
+  typedef int Words[MAXW];
+};
+template <int MAXW>
+struct NwForm<true, MAXW> {  // the apply's
+  typedef IKey Key;
+  typedef IKey Words;
+};
+
+__device__ __forceinline__ void nw_key_init(WKey& k) { k = nw_key(); }
+__device__ __forceinline__ void nw_key_init(IKey& k) { k = nw_ikey(); }
+
+// add v << shift into the key's word
+__device__ __forceinline__ void nw_pack_q(const int* q, WKey& k, long long v) {
+  k.w[q[0]] += (long long)((unsigned long long)v << q[1]);
+}
+// the same in int32 (the low 32 bits of WKey's sum): every word takes an
+// add, masked to 0 but at the field's word
+template <int MAXW>
+__device__ __forceinline__ void nw_pack_q(const int* q, IKey& k, int v) {
+  const unsigned add = (unsigned)v << q[1];
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w)
+    k.w[w] = (int)((unsigned)k.w[w] + (add & (0u - (unsigned)(q[0] == w))));
+}
+
+// a field of a key given as its words
+__device__ __forceinline__ int nw_unpack_q(const int* q, const int* kw) {
+  return (kw[q[0]] >> q[1]) & q[2];
+}
+template <int MAXW>
+__device__ __forceinline__ int nw_unpack_q(const int* q, const IKey& kw) {
+  int x = 0;
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w) x |= kw.w[w] & -(int)(q[0] == w);
+  return (x >> q[1]) & q[2];
+}
+
+// a put's probe and insert: the guard's serial ones (its key wrapped to
+// int32 first), the apply's split over its group
+template <int MAXW, class Gp>
+__device__ __forceinline__ Put nw_probe(Gp, const int* words, int M, int nw, WKey& k) {
+  nw_wrap(k);
+  return nw_bag_probe(words, M, nw, k);
+}
+template <int MAXW, class Gp>
+__device__ __forceinline__ Put nw_probe(Gp g, const int* words, int M, int nw, IKey& k) {
+  return nw_bag_probe_g<MAXW>(g, words, M, nw, k);
+}
+template <int MAXW, class Gp>
+__device__ __forceinline__ void nw_insert(Gp, int* words, int* cnt, int M, int nw,
+                                          const WKey& k, const Put& p) {
+  nw_bag_insert(words, cnt, M, nw, k, p);
+}
+template <int MAXW, class Gp>
+__device__ __forceinline__ void nw_insert(Gp g, int* words, int* cnt, int M, int nw,
+                                          const IKey& k, const Put& p) {
+  nw_bag_insert_g<MAXW>(g, words, cnt, M, nw, k, p);
 }
 
 // ---- invariants (true = holds) over a family's fields ----

@@ -131,44 +131,18 @@ __device__ __forceinline__ int cr_lane(const int* row, int L, int l) {  // clamp
 
 // ---- message keys (ops/packing.py WidePacker) ----
 //
-// Two forms, picked by the action's WRITE. The guard (a group of one) keeps
-// the forms it had before the group apply: an int64 WKey indexed by a spec
-// word and wrapped to int32 before its put, key words in an int array read at
-// a runtime index, actions_common.cuh's serial nw_bag_probe and nw_bag_insert,
-// and no installed log (CrInstall); a few bytes of stack, and the registers
-// (so the occupancy) of its one-thread lanes stay as they were. The apply
-// takes IKey for both, int32 words in registers, every word picked by masks (a
-// conditional store or a select of words lets the compiler index the key at
-// run time, on the stack), and the put split over its group (nw_bag_probe_g,
-// nw_bag_insert_g).
+// In the guard's form or the apply's (actions_common.cuh NwForm), picked by
+// the action's WRITE.
 
 template <bool WRITE>
-struct CrForm {  // the guard's
-  typedef WKey Key;
-  typedef int Words[CR_MAX_WORDS];
-};
-template <>
-struct CrForm<true> {  // the apply's
-  typedef IKey Key;
-  typedef IKey Words;
-};
-
-__device__ __forceinline__ void cr_key_init(WKey& k) { k = nw_key(); }
-__device__ __forceinline__ void cr_key_init(IKey& k) { k = nw_ikey(); }
+using CrForm = NwForm<WRITE, CR_MAX_WORDS>;
 
 // add v << shift into the key's word at the triple of field f
 __device__ __forceinline__ void cr_pack(const int* sp, WKey& k, int f, long long v) {
-  const int* q = sp + CS_MSG + 3 * f;
-  k.w[q[0]] += (long long)((unsigned long long)v << q[1]);
+  nw_pack_q(sp + CS_MSG + 3 * f, k, v);
 }
-// the same in int32 (the low 32 bits of WKey's sum): every word takes an
-// add, masked to 0 but at the field's word
 __device__ __forceinline__ void cr_pack(const int* sp, IKey& k, int f, int v) {
-  const int* q = sp + CS_MSG + 3 * f;
-  const unsigned add = (unsigned)v << q[1];
-#pragma unroll
-  for (int w = 0; w < CR_MAX_WORDS; ++w)
-    k.w[w] = (int)((unsigned)k.w[w] + (add & (0u - (unsigned)(q[0] == w))));
+  nw_pack_q<CR_MAX_WORDS>(sp + CS_MSG + 3 * f, k, v);
 }
 
 // slot m's key words (an array: the first NW; IKey: 0 past NW)
@@ -184,37 +158,10 @@ __device__ __forceinline__ void cr_key_words(const int* sp, const int* s, int m,
 
 // a field of a key given as its words
 __device__ __forceinline__ int cr_unpack(const int* sp, const int* kw, int f) {
-  const int* q = sp + CS_MSG + 3 * f;
-  return (kw[q[0]] >> q[1]) & q[2];
+  return nw_unpack_q(sp + CS_MSG + 3 * f, kw);
 }
 __device__ __forceinline__ int cr_unpack(const int* sp, const IKey& kw, int f) {
-  const int* q = sp + CS_MSG + 3 * f;
-  int x = 0;
-#pragma unroll
-  for (int w = 0; w < CR_MAX_WORDS; ++w) x |= kw.w[w] & -(int)(q[0] == w);
-  return (x >> q[1]) & q[2];
-}
-
-// a put's probe and insert: the guard's serial ones (its key wrapped to
-// int32 first), the apply's split over its group
-template <class Gp>
-__device__ __forceinline__ Put cr_probe(Gp, const int* words, int M, int nw, WKey& k) {
-  nw_wrap(k);
-  return nw_bag_probe(words, M, nw, k);
-}
-template <class Gp>
-__device__ __forceinline__ Put cr_probe(Gp g, const int* words, int M, int nw, IKey& k) {
-  return nw_bag_probe_g(g, words, M, nw, k);
-}
-template <class Gp>
-__device__ __forceinline__ void cr_insert(Gp, int* words, int* cnt, int M, int nw,
-                                          const WKey& k, const Put& p) {
-  nw_bag_insert(words, cnt, M, nw, k, p);
-}
-template <class Gp>
-__device__ __forceinline__ void cr_insert(Gp g, int* words, int* cnt, int M, int nw,
-                                          const IKey& k, const Put& p) {
-  nw_bag_insert_g(g, words, cnt, M, nw, k, p);
+  return nw_unpack_q<CR_MAX_WORDS>(sp + CS_MSG + 3 * f, kw);
 }
 
 // ---- the variants' config hooks ----
@@ -338,17 +285,17 @@ __device__ Guard cr_request_vote(Gp g, const int* sp, const int* s, int* o, int 
     const int j = (i + d) % S;
     if (!cr_bit(members, j)) continue;
     typename CrForm<WRITE>::Key k;
-    cr_key_init(k);
+    nw_key_init(k);
     cr_pack(sp, k, CF_MTYPE, CR_RVREQ);
     cr_pack(sp, k, CF_MTERM, new_term);
     cr_pack(sp, k, CF_MLASTLOGTERM, last_t);
     cr_pack(sp, k, CF_MLASTLOGINDEX, ll);
     cr_pack(sp, k, CF_MSOURCE, i);
     cr_pack(sp, k, CF_MDEST, j);
-    const Put p = cr_probe(g, words, M, NW, k);  // on the bag the last put left
+    const Put p = nw_probe<CR_MAX_WORDS>(g, words, M, NW, k);  // on the bag the last put left
     gd.valid = gd.valid && !p.existed;
     ovf = ovf || p.overflow;
-    cr_insert(g, words, cnt, M, NW, k, p);
+    nw_insert<CR_MAX_WORDS>(g, words, cnt, M, NW, k, p);
   }
   gd.ovf = ovf && gd.valid;
   if (WRITE && g.lead()) {
@@ -429,7 +376,7 @@ __device__ Guard cr_append_entries(Gp g, const int* sp, const int* s, int* o, in
   const int ci = s[CFLD(CI) + i];
   const int mci = ci < last_entry ? ci : last_entry;
   typename CrForm<WRITE>::Key k;
-  cr_key_init(k);
+  nw_key_init(k);
   cr_pack(sp, k, CF_MTYPE, CR_AEREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MPREVLOGINDEX, prev_idx > 0 ? prev_idx : 0);
@@ -439,12 +386,12 @@ __device__ Guard cr_append_entries(Gp g, const int* sp, const int* s, int* o, in
   cr_pack(sp, k, CF_MSOURCE, i);
   cr_pack(sp, k, CF_MDEST, j);
   for (int e = 0; e < NE; ++e) cr_pack(sp, k, CF_E + e, nent ? cr_log(sp, s, e, i)[epos] : 0);
-  const Put p = cr_probe(g, s + CFLD(W0), M, NW, k);
+  const Put p = nw_probe<CR_MAX_WORDS>(g, s + CFLD(W0), M, NW, k);
   gd.valid = gd.valid && (nent > 0 || !p.existed);
   gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
     if (g.lead()) o[CFLD(PR) + i] = pr | (1 << j);
-    cr_insert(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    nw_insert<CR_MAX_WORDS>(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
   return gd;
 }
@@ -462,7 +409,7 @@ __device__ Guard cr_send_snapshot(Gp g, const int* sp, const int* s, int* o, int
   if (!WRITE && !gd.valid) return gd;
   const int ll = s[CFLD(LL) + i];
   typename CrForm<WRITE>::Key k;
-  cr_key_init(k);
+  nw_key_init(k);
   cr_pack(sp, k, CF_MTYPE, CR_SNAPREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MCOMMITINDEX, s[CFLD(CI) + i]);
@@ -473,11 +420,11 @@ __device__ Guard cr_send_snapshot(Gp g, const int* sp, const int* s, int* o, int
   for (int l = 0; l < L; ++l)
     for (int e = 0; e < NE; ++e)
       cr_pack(sp, k, CF_LOG + l * CR_SLOTS + e, l < ll ? cr_log(sp, s, e, i)[l] : 0);
-  const Put p = cr_probe(g, s + CFLD(W0), M, NW, k);
+  const Put p = nw_probe<CR_MAX_WORDS>(g, s + CFLD(W0), M, NW, k);
   gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
     if (g.lead()) o[CFLD(NI) + i * S + j] = CR_PENDING_SNAP_RESPONSE;
-    cr_insert(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    nw_insert<CR_MAX_WORDS>(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
   return gd;
 }
@@ -754,7 +701,7 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
 
   bool putb = false, dropb = false, ovf_extra = false;
   typename CrForm<WRITE>::Key k;
-  cr_key_init(k);
+  nw_key_init(k);
   // the log the receipt installs (accept or snapshot): its length, and
   // how it differs from the destination's (CrInstall)
   bool install = false, snapshot = false, appending = false;
@@ -841,7 +788,7 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
     return gd;
   }
   Put p{false, false, 0};
-  if (putb) p = cr_probe(g, s + CFLD(W0), M, NW, k);
+  if (putb) p = nw_probe<CR_MAX_WORDS>(g, s + CFLD(W0), M, NW, k);
   gd.ovf = (putb && p.overflow) || ovf_extra;
 
   if constexpr (WRITE) {  // the apply's successor (its key words an IKey)
@@ -882,7 +829,7 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
           jx_set2(o + sp[CS_LOG + u / L], S, L, dst, u % L, row(u / L, u % L));
     }
     if (lw) o[CFLD(CNT) + m] -= 1;  // the incoming Discard
-    if (putb) cr_insert(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
+    if (putb) nw_insert<CR_MAX_WORDS>(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
   }
   return gd;
 }

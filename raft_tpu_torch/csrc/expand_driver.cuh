@@ -39,9 +39,9 @@
 // A family's source instantiates both with EXPAND_KERNELS(prefix, Family),
 // which defines the kernels prefix_guard_kernel and prefix_apply_kernel
 // and their C launchers prefix_guard and prefix_apply. A family with wide
-// rows and long per-lane work (the reconfiguration pair) takes
-// EXPAND_KERNELS_GROUP_APPLY(prefix, Family) instead: the same guard, and
-// the group apply below, a warp a worklist lane.
+// rows and long per-lane work (the reconfiguration pair, KRaftWithReconfig)
+// takes EXPAND_KERNELS_GROUP_APPLY(prefix, Family) instead: the same guard,
+// and the group apply below, a warp a worklist lane.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -244,8 +244,8 @@ static int launch_apply(ApplyKernel kernel, size_t* opted_in, const int* states,
 // ---- the group apply: a warp a worklist lane ----
 //
 // For families with wide rows and long per-lane work (the reconfiguration
-// pair: a Family with apply(g, sp, s, o, cd) over actions_common.cuh's
-// group helpers). A block of APPLY_GROUP_THREADS threads holds
+// pair, KRaftWithReconfig: a Family with apply(g, sp, s, o, cd) over
+// actions_common.cuh's group helpers). A block of APPLY_GROUP_THREADS threads holds
 // APPLY_GROUP_THREADS / APPLY_GROUP_G lanes and stages only the spec
 // vector, so the resident warps an SM depend on the registers alone, not
 // on W. The group of lane j copies its source row straight into flatc row

@@ -16,11 +16,20 @@
 // and writes no successor lane; with WRITE true it also writes the
 // successor row `o`, a copy of the state `s` made by the caller, lane by
 // changed lane, whether the candidate is enabled or not (a receipt lane
-// where no branch fires writes nothing). RequestVote(i) and BecomeLeader(i)
-// each put a chain of up to NS - 1 messages (one per config member), a put
-// that finds its message disabling the action (SendMultipleOnce); a guard
-// lane of either replays its chain on its own copy of the bag's key words
-// (KReconfigFamily gives each of the 2 * NS chain lanes of a state a slot).
+// where no branch fires writes nothing). Each also takes a group of threads
+// (actions_common.cuh, as config_actions.cuh's do: GrpOne for a guard lane,
+// a warp tile for the apply, GrpSerial in the host tests): every member
+// computes the scalar part on the same inputs, the lead member makes the
+// scalar writes, and the bag puts and the multi-lane writes are split over
+// the members. RequestVote(i) and BecomeLeader(i) each put a chain of up to
+// NS - 1 messages (one per config member), each put acting on the bag the
+// previous one left, a put that finds its message disabling the action
+// (SendMultipleOnce); a guard lane of either replays its chain on its own
+// copy of the bag's key words (KReconfigFamily gives each of the 2 * NS
+// chain lanes of a state a slot). The apply's keys, key words and logs are
+// read and built with compile-time indices only (IKey, KcFetchLog), so they
+// stay in registers; the guard keeps its int64 keys, key-word array and
+// materialized log (actions_common.cuh NwForm).
 //
 // The state is a row of NS identity slots (a `used` mask): leader,
 // votedFor, pf_dest, log_who, mleader and e_who hold slot + 1 (0 = Nil),
@@ -39,8 +48,8 @@
 //   - every key is computed in int32 (the reference's _pack casts);
 //   - the thirteen receipt branches are disjoint; the incoming Discard and
 //     the branch's reply collapse into one put, whose existed (read on the
-//     bag before the put: the discard changed only a count) disables only
-//     the four FetchRequest replies;
+//     state's bag: the discard changes only a count) disables only the four
+//     FetchRequest replies, so their writes wait for it;
 //   - the two CASE chains (MaybeTransition, MaybeHandleCommonResponse)
 //     take their first matching arm.
 #pragma once
@@ -133,16 +142,40 @@ __device__ __forceinline__ int kc_used_mask(const int* sp, const int* s) {
   return mask;
 }
 
-// ---- message keys (actions_common.cuh WKey and the N-word bag) ----
+// ---- message keys (actions_common.cuh: the N-word bag, NwForm) ----
+//
+// In the guard's form or the apply's, picked by the action's WRITE: the
+// apply's keys and key words are IKey, every word picked by masks over
+// KC_MAX_WORDS, so they stay in registers.
+
+template <bool WRITE>
+using KcForm = NwForm<WRITE, KC_MAX_WORDS>;
 
 __device__ __forceinline__ void kc_pack(const int* sp, WKey& k, int f, long long v) {
-  const int* q = sp + KC_MSG + 3 * f;
-  k.w[q[0]] += (long long)((unsigned long long)v << q[1]);
+  nw_pack_q(sp + KC_MSG + 3 * f, k, v);
 }
-// a field of a key given as int words
+__device__ __forceinline__ void kc_pack(const int* sp, IKey& k, int f, int v) {
+  nw_pack_q<KC_MAX_WORDS>(sp + KC_MSG + 3 * f, k, v);
+}
+// a field of a key given as its words
 __device__ __forceinline__ int kc_unpack(const int* sp, const int* kw, int f) {
-  const int* q = sp + KC_MSG + 3 * f;
-  return (kw[q[0]] >> q[1]) & q[2];
+  return nw_unpack_q(sp + KC_MSG + 3 * f, kw);
+}
+__device__ __forceinline__ int kc_unpack(const int* sp, const IKey& kw, int f) {
+  return nw_unpack_q<KC_MAX_WORDS>(sp + KC_MSG + 3 * f, kw);
+}
+// slot m's key words (the slot clamped; 0 past NW)
+__device__ __forceinline__ void kc_key_words(const int* sp, const int* s, int m, int* kw) {
+  const int M = KFD(M);
+  for (int w = 0; w < KC_MAX_WORDS; ++w) kw[w] = 0;
+  for (int w = 0; w < KFD(NW); ++w) kw[w] = jx_get(s + KFD(W0) + w * M, M, m);
+}
+__device__ __forceinline__ void kc_key_words(const int* sp, const int* s, int m, IKey& kw) {
+  const int M = KFD(M), NW = KFD(NW);
+  kw = nw_ikey();
+#pragma unroll
+  for (int w = 0; w < KC_MAX_WORDS; ++w)
+    kw.w[w] = w < NW ? jx_get(s + KFD(W0) + w * M, M, m) : 0;
 }
 
 // ---- the transition machine (:599-715) ----
@@ -210,9 +243,35 @@ __device__ __forceinline__ void kc_set_sle(const int* sp, int* o, int i, KSle v)
   kc_set(sp, o, KC_LED, i, v.ld);
 }
 
-// pendingFetch[i] := Nil (its six lanes)
-__device__ __forceinline__ void kc_clear_pf(const int* sp, int* o, int i) {
-  for (int f = KC_PF_ACT; f <= KC_PF_OBS; ++f) kc_set(sp, o, f, i, 0);
+// pendingFetch[i] := Nil (its six lanes), split over the group
+template <class Gp>
+__device__ __forceinline__ void kc_clear_pf(Gp g, const int* sp, int* o, int i) {
+  grp_for(g, KC_PF_OBS - KC_PF_ACT + 1, [&](int u) { kc_set(sp, o, KC_PF_ACT + u, i, 0); });
+}
+
+// endOffset[i][q] := v(q) for every slot q, split over the group
+template <class Gp, class Fn>
+__device__ __forceinline__ void kc_set_eo_row(Gp g, const int* sp, int* o, int i, Fn v) {
+  const int S = KFD(S);
+  grp_for(g, S, [&](int q) { jx_set2(o + KFD(EO), S, S, i, q, v(q)); });
+}
+
+// slot i's log entry at lane pos := a config command's (cmd, epoch, cfgid,
+// who, members; its value lane untouched), the lanes split over the group
+template <class Gp>
+__device__ __forceinline__ void kc_put_cfg_entry(Gp g, const int* sp, int* o, int i, int pos,
+                                                 int cmd, int epoch, int cfgid, int who,
+                                                 int members) {
+  const int S = KFD(S), L = KFD(L);
+  grp_for(g, KE_N, [&](int e) {
+    if (e == KE_VAL) return;
+    const int v = e == KE_CMD     ? cmd
+                  : e == KE_EPOCH ? epoch
+                  : e == KE_CFGID ? cfgid
+                  : e == KE_WHO   ? who
+                                  : members;
+    jx_set2(o + sp[KC_LOG + e], S, L, i, pos, v);
+  });
 }
 
 // ---- log-position and config math (:498-777) over log rows of L lanes ----
@@ -249,6 +308,16 @@ __device__ __forceinline__ int kc_most_recent_reconfig(const int* cmd, int L, in
       best = l + 1;
   return best;
 }
+// the same over a log given as row(e, l)
+template <class Row>
+__device__ __forceinline__ int kc_last_reconfig(const Row& row, int L, int len) {
+  int best = 0;
+  for (int l = 0; l < L; ++l) {
+    const int c = row(KE_CMD, l);
+    if (l < len && (c == KC_C_INIT || c == KC_C_ADD || c == KC_C_REMOVE)) best = l + 1;
+  }
+  return best;
+}
 
 // LeaderHasCommittedOffsetsInCurrentEpoch — :774-777
 __device__ __forceinline__ bool kc_committed_in_epoch(const int* sp, const int* s, int i) {
@@ -260,26 +329,34 @@ __device__ __forceinline__ bool kc_committed_in_epoch(const int* sp, const int* 
   return false;
 }
 
+
 // ---- action groups ----
+//
+// Each takes the group of threads that shares the lane (GrpOne for a guard
+// lane): every member runs the scalar part on the same inputs, the lead
+// member makes the scalar writes, and the bag puts and the multi-lane
+// writes (a log install, a config entry, an endOffset row, pendingFetch)
+// are split over the group.
 
 // RestartWithState — :873-896: a leader restarts as Resigned (voter) or
 // Unattached (observer); keeps epoch, role, votedFor and the log
-template <bool WRITE>
-__device__ bool kc_restart(const int* sp, const int* s, int* o, int i) {
+template <bool WRITE, class Gp>
+__device__ bool kc_restart(Gp g, const int* sp, const int* s, int* o, int i) {
   const int st = kc_get(sp, s, KC_ST, i);
   if (WRITE) {
-    const int S = KFD(S);
-    const bool was_leader = st == KC_LEADER;
-    kc_set(sp, o, KC_ST, i,
-           was_leader ? (kc_get(sp, s, KC_ROLE, i) == KC_R_VOTER ? KC_RESIGNED : KC_UNATTACHED)
-                      : st);
-    kc_set(sp, o, KC_LED, i, was_leader ? RA_NIL : kc_get(sp, s, KC_LED, i));
-    kc_set(sp, o, KC_VG, i, 0);
-    kc_set(sp, o, KC_EODOM, i, kc_used_mask(sp, s));
-    for (int k = 0; k < S; ++k) jx_set2(o + KFD(EO), S, S, i, k, 0);
-    kc_set(sp, o, KC_HWM, i, 0);
-    kc_clear_pf(sp, o, i);
-    o[KFD(RCTR)] = s[KFD(RCTR)] + 1;
+    if (g.lead()) {
+      const bool was_leader = st == KC_LEADER;
+      kc_set(sp, o, KC_ST, i,
+             was_leader ? (kc_get(sp, s, KC_ROLE, i) == KC_R_VOTER ? KC_RESIGNED : KC_UNATTACHED)
+                        : st);
+      kc_set(sp, o, KC_LED, i, was_leader ? RA_NIL : kc_get(sp, s, KC_LED, i));
+      kc_set(sp, o, KC_VG, i, 0);
+      kc_set(sp, o, KC_EODOM, i, kc_used_mask(sp, s));
+      kc_set(sp, o, KC_HWM, i, 0);
+      o[KFD(RCTR)] = s[KFD(RCTR)] + 1;
+    }
+    kc_set_eo_row(g, sp, o, i, [](int) { return 0; });
+    kc_clear_pf(g, sp, o, i);
   }
   return s[KFD(RCTR)] < KFD(MAX_RESTARTS) && kc_get(sp, s, KC_USED, i) > 0 && st != KC_DEAD;
 }
@@ -295,16 +372,16 @@ __device__ __forceinline__ int* kc_chain_words(const int* sp, const int* s, int*
 
 // RequestVote — :932-955: a Voter of its own config; a RequestVoteRequest
 // to each config member, SendMultipleOnce
-template <bool WRITE>
-__device__ Guard kc_request_vote(const int* sp, const int* s, int* o, int i, int* bag) {
+template <bool WRITE, class Gp>
+__device__ Guard kc_request_vote(Gp g, const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = KFD(S), L = KFD(L), M = KFD(M), NW = KFD(NW);
   const int st = kc_get(sp, s, KC_ST, i), members = kc_get(sp, s, KC_CM, i);
-  Guard g{s[KFD(ECTR)] < KFD(MAX_ELECTIONS) && kc_get(sp, s, KC_USED, i) > 0 &&
-              kc_get(sp, s, KC_ROLE, i) == KC_R_VOTER &&
-              (st == KC_FOLLOWER || st == KC_CANDIDATE || st == KC_UNATTACHED) &&
-              kc_bit(members, i),
-          KQ_REQUESTVOTE, false};
-  if (!WRITE && !g.valid) return g;  // ovf is masked by valid
+  Guard gd{s[KFD(ECTR)] < KFD(MAX_ELECTIONS) && kc_get(sp, s, KC_USED, i) > 0 &&
+               kc_get(sp, s, KC_ROLE, i) == KC_R_VOTER &&
+               (st == KC_FOLLOWER || st == KC_CANDIDATE || st == KC_UNATTACHED) &&
+               kc_bit(members, i),
+           KQ_REQUESTVOTE, false};
+  if (!WRITE && !gd.valid) return gd;  // ovf is masked by valid
   const int new_ep = kc_get(sp, s, KC_EP, i) + 1;
   const int ll = kc_get(sp, s, KC_LL, i);
   const int last_ep = kc_last_epoch(kc_log(sp, s, KE_EPOCH, i), L, ll);
@@ -314,42 +391,44 @@ __device__ Guard kc_request_vote(const int* sp, const int* s, int* o, int i, int
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
     if (!kc_bit(members, j)) continue;
-    WKey k = nw_key();
+    typename KcForm<WRITE>::Key k;
+    nw_key_init(k);
     kc_pack(sp, k, KM_MTYPE, KC_RVREQ);
     kc_pack(sp, k, KM_MEPOCH, new_ep);
     kc_pack(sp, k, KM_MLASTLOGEPOCH, last_ep);
     kc_pack(sp, k, KM_MLASTLOGOFFSET, ll);
     kc_pack(sp, k, KM_MSOURCE, i);
     kc_pack(sp, k, KM_MDEST, j);
-    nw_wrap(k);
-    const Put p = nw_bag_probe(words, M, NW, k);
-    g.valid = g.valid && !p.existed;
+    const Put p = nw_probe<KC_MAX_WORDS>(g, words, M, NW, k);  // on the bag the last put left
+    gd.valid = gd.valid && !p.existed;
     ovf = ovf || p.overflow;
-    nw_bag_insert(words, cnt, M, NW, k, p);
+    nw_insert<KC_MAX_WORDS>(g, words, cnt, M, NW, k, p);
   }
-  g.ovf = ovf && g.valid;
+  gd.ovf = ovf && gd.valid;
   if (WRITE) {
-    kc_set(sp, o, KC_ST, i, KC_CANDIDATE);
-    kc_set(sp, o, KC_EP, i, new_ep);
-    kc_set(sp, o, KC_LED, i, RA_NIL);
-    kc_set(sp, o, KC_VF, i, i + 1);
-    kc_set(sp, o, KC_VG, i, 1 << i);
-    kc_clear_pf(sp, o, i);
-    o[KFD(ECTR)] = s[KFD(ECTR)] + 1;
+    if (g.lead()) {
+      kc_set(sp, o, KC_ST, i, KC_CANDIDATE);
+      kc_set(sp, o, KC_EP, i, new_ep);
+      kc_set(sp, o, KC_LED, i, RA_NIL);
+      kc_set(sp, o, KC_VF, i, i + 1);
+      kc_set(sp, o, KC_VG, i, 1 << i);
+      o[KFD(ECTR)] = s[KFD(ECTR)] + 1;
+    }
+    kc_clear_pf(g, sp, o, i);
   }
-  return g;
+  return gd;
 }
 
 // BecomeLeader — :1056-1071: a quorum of the candidate's own config;
 // BeginQuorumRequests to its members, SendMultipleOnce; endOffset reset
-template <bool WRITE>
-__device__ Guard kc_become_leader(const int* sp, const int* s, int* o, int i, int* bag) {
+template <bool WRITE, class Gp>
+__device__ Guard kc_become_leader(Gp g, const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = KFD(S), M = KFD(M), NW = KFD(NW);
   const int members = kc_get(sp, s, KC_CM, i), vg = kc_get(sp, s, KC_VG, i);
-  Guard g{kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_ST, i) == KC_CANDIDATE &&
-              (vg & ~members) == 0 && 2 * kc_pop(vg, S) > kc_pop(members, S),
-          KQ_BECOMELEADER, false};
-  if (!WRITE && !g.valid) return g;
+  Guard gd{kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_ST, i) == KC_CANDIDATE &&
+               (vg & ~members) == 0 && 2 * kc_pop(vg, S) > kc_pop(members, S),
+           KQ_BECOMELEADER, false};
+  if (!WRITE && !gd.valid) return gd;
   const int ep = kc_get(sp, s, KC_EP, i);
   int* words = kc_chain_words(sp, s, o, bag, WRITE);
   int* cnt = WRITE ? o + KFD(CNT) : nullptr;
@@ -357,41 +436,43 @@ __device__ Guard kc_become_leader(const int* sp, const int* s, int* o, int i, in
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
     if (!kc_bit(members, j)) continue;
-    WKey k = nw_key();
+    typename KcForm<WRITE>::Key k;
+    nw_key_init(k);
     kc_pack(sp, k, KM_MTYPE, KC_BQREQ);
     kc_pack(sp, k, KM_MEPOCH, ep);
     kc_pack(sp, k, KM_MSOURCE, i);
     kc_pack(sp, k, KM_MDEST, j);
-    nw_wrap(k);
-    const Put p = nw_bag_probe(words, M, NW, k);
-    g.valid = g.valid && !p.existed;
+    const Put p = nw_probe<KC_MAX_WORDS>(g, words, M, NW, k);
+    gd.valid = gd.valid && !p.existed;
     ovf = ovf || p.overflow;
-    nw_bag_insert(words, cnt, M, NW, k, p);
+    nw_insert<KC_MAX_WORDS>(g, words, cnt, M, NW, k, p);
   }
-  g.ovf = ovf && g.valid;
+  gd.ovf = ovf && gd.valid;
   if (WRITE) {
-    kc_set(sp, o, KC_ST, i, KC_LEADER);
-    kc_set(sp, o, KC_LED, i, i + 1);
-    kc_set(sp, o, KC_EODOM, i, kc_used_mask(sp, s));
-    for (int k = 0; k < S; ++k) jx_set2(o + KFD(EO), S, S, i, k, 0);
+    if (g.lead()) {
+      kc_set(sp, o, KC_ST, i, KC_LEADER);
+      kc_set(sp, o, KC_LED, i, i + 1);
+      kc_set(sp, o, KC_EODOM, i, kc_used_mask(sp, s));
+    }
+    kc_set_eo_row(g, sp, o, i, [](int) { return 0; });
   }
-  return g;
+  return gd;
 }
 
 // ClientRequest — :1110-1126: bounded per epoch by valueCtr; a log at
 // max_log overflows
-template <bool WRITE>
-__device__ Guard kc_client_request(const int* sp, const int* s, int* o, int i, int v) {
+template <bool WRITE, class Gp>
+__device__ Guard kc_client_request(Gp g, const int* sp, const int* s, int* o, int i, int v) {
   const int S = KFD(S), L = KFD(L), V = KFD(V);
   const int ep = kc_get(sp, s, KC_EP, i);
   const int epc = ra_clamp(ep - 1, 0, KFD(MAX_EPOCH) - 1);
-  Guard g{kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_ST, i) == KC_LEADER &&
-              jx_get(s + KFD(ACK), V, v) == RA_ACK_NIL &&
-              s[KFD(VALCTR) + epc] < KFD(MAX_VPE),
-          KQ_CLIENTREQUEST, false};
+  Guard gd{kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_ST, i) == KC_LEADER &&
+               jx_get(s + KFD(ACK), V, v) == RA_ACK_NIL &&
+               s[KFD(VALCTR) + epc] < KFD(MAX_VPE),
+           KQ_CLIENTREQUEST, false};
   const int pos = kc_get(sp, s, KC_LL, i);
-  g.ovf = g.valid && pos >= L;
-  if (WRITE) {
+  gd.ovf = gd.valid && pos >= L;
+  if (WRITE && g.lead()) {
     const int posc = ra_clamp(pos, 0, L - 1);
     jx_set2(o + sp[KC_LOG + KE_CMD], S, L, i, posc, KC_C_APPEND);
     jx_set2(o + sp[KC_LOG + KE_EPOCH], S, L, i, posc, ep);
@@ -400,26 +481,27 @@ __device__ Guard kc_client_request(const int* sp, const int* s, int* o, int i, i
     jx_set(o + KFD(ACK), V, v, RA_ACK_FALSE);
     o[KFD(VALCTR) + epc] = s[KFD(VALCTR) + epc] + 1;
   }
-  return g;
+  return gd;
 }
 
 // SendFetchRequest — :1137-1169: a known-leader follower's fetch, or an
 // Unattached observer probing a voter of its config; an unrestricted send
-template <bool WRITE>
-__device__ Guard kc_send_fetch(const int* sp, const int* s, int* o, int i, int j) {
+template <bool WRITE, class Gp>
+__device__ Guard kc_send_fetch(Gp g, const int* sp, const int* s, int* o, int i, int j) {
   const int L = KFD(L), M = KFD(M), NW = KFD(NW);
   const int st = kc_get(sp, s, KC_ST, i), role = kc_get(sp, s, KC_ROLE, i);
   const bool path_a = kc_get(sp, s, KC_LED, i) == j + 1 && st == KC_FOLLOWER;
   const bool path_b = role == KC_R_OBSERVER && st == KC_UNATTACHED &&
                       kc_bit(kc_get(sp, s, KC_CM, i), j);
-  Guard g{kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_USED, j) > 0 &&
-              kc_get(sp, s, KC_PF_ACT, i) == 0 && (path_a || path_b),
-          KQ_SENDFETCH, false};
-  if (!WRITE && !g.valid) return g;
+  Guard gd{kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_USED, j) > 0 &&
+               kc_get(sp, s, KC_PF_ACT, i) == 0 && (path_a || path_b),
+           KQ_SENDFETCH, false};
+  if (!WRITE && !gd.valid) return gd;
   const int ep = kc_get(sp, s, KC_EP, i), ll = kc_get(sp, s, KC_LL, i);
   const int last_ep = kc_last_epoch(kc_log(sp, s, KE_EPOCH, i), L, ll);
   const int obs = role == KC_R_OBSERVER;
-  WKey k = nw_key();
+  typename KcForm<WRITE>::Key k;
+  nw_key_init(k);
   kc_pack(sp, k, KM_MTYPE, KC_FETCHREQ);
   kc_pack(sp, k, KM_MEPOCH, ep);
   kc_pack(sp, k, KM_MFETCHOFFSET, ll);
@@ -427,147 +509,212 @@ __device__ Guard kc_send_fetch(const int* sp, const int* s, int* o, int i, int j
   kc_pack(sp, k, KM_MOBSERVER, obs);
   kc_pack(sp, k, KM_MSOURCE, i);
   kc_pack(sp, k, KM_MDEST, j);
-  nw_wrap(k);
-  const Put p = nw_bag_probe(s + KFD(W0), M, NW, k);
-  g.ovf = p.overflow && g.valid;
+  const Put p = nw_probe<KC_MAX_WORDS>(g, s + KFD(W0), M, NW, k);
+  gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
-    kc_set(sp, o, KC_PF_ACT, i, 1);
-    kc_set(sp, o, KC_PF_EP, i, ep);
-    kc_set(sp, o, KC_PF_OFF, i, ll);
-    kc_set(sp, o, KC_PF_LE, i, last_ep);
-    kc_set(sp, o, KC_PF_DEST, i, j + 1);
-    kc_set(sp, o, KC_PF_OBS, i, obs);
-    nw_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
+    if (g.lead()) {
+      kc_set(sp, o, KC_PF_ACT, i, 1);
+      kc_set(sp, o, KC_PF_EP, i, ep);
+      kc_set(sp, o, KC_PF_OFF, i, ll);
+      kc_set(sp, o, KC_PF_LE, i, last_ep);
+      kc_set(sp, o, KC_PF_DEST, i, j + 1);
+      kc_set(sp, o, KC_PF_OBS, i, obs);
+    }
+    nw_insert<KC_MAX_WORDS>(g, o + KFD(W0), o + KFD(CNT), M, NW, k, p);
   }
-  return g;
+  return gd;
 }
 
 // StartNewServer(h, j) — :1492-1511: a fresh [h, diskIdGen + 1] observer in
 // the next free slot, its first fetch (mepoch 0) to a current leader j;
 // endOffset's domain = the servers before the spawn
-template <bool WRITE>
-__device__ Guard kc_start_new_server(const int* sp, const int* s, int* o, int h, int j) {
+template <bool WRITE, class Gp>
+__device__ Guard kc_start_new_server(Gp g, const int* sp, const int* s, int* o, int h, int j) {
   const int S = KFD(S), M = KFD(M), NW = KFD(NW);
   int n_used = 0;
   for (int k = 0; k < S; ++k) n_used += s[KFD(USED) + k] > 0;
-  Guard g{n_used < S && kc_get(sp, s, KC_USED, j) > 0 && kc_get(sp, s, KC_ST, j) == KC_LEADER,
-          KQ_STARTNEWSERVER, false};
-  if (!WRITE && !g.valid) return g;
+  Guard gd{n_used < S && kc_get(sp, s, KC_USED, j) > 0 && kc_get(sp, s, KC_ST, j) == KC_LEADER,
+           KQ_STARTNEWSERVER, false};
+  if (!WRITE && !gd.valid) return gd;
   const int slot = ra_clamp(n_used, 0, S - 1);
   const int disk = s[KFD(DIG)] + 1;
-  WKey k = nw_key();
+  typename KcForm<WRITE>::Key k;
+  nw_key_init(k);
   kc_pack(sp, k, KM_MTYPE, KC_FETCHREQ);
   kc_pack(sp, k, KM_MOBSERVER, 1);
   kc_pack(sp, k, KM_MSOURCE, slot);
   kc_pack(sp, k, KM_MDEST, j);
-  nw_wrap(k);
-  const Put p = nw_bag_probe(s + KFD(W0), M, NW, k);
-  g.ovf = p.overflow && g.valid;
+  const Put p = nw_probe<KC_MAX_WORDS>(g, s + KFD(W0), M, NW, k);
+  gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
-    const int old_mask = kc_used_mask(sp, s);
-    kc_set(sp, o, KC_USED, slot, 1);
-    kc_set(sp, o, KC_HOST, slot, h);
-    kc_set(sp, o, KC_DISK, slot, disk);
-    kc_set(sp, o, KC_ROLE, slot, KC_R_OBSERVER);
-    const int zero[] = {KC_ST, KC_EP, KC_LED, KC_VF, KC_VG, KC_CID, KC_CM, KC_CCOMM, KC_LL,
-                        KC_HWM, KC_PF_EP, KC_PF_OFF, KC_PF_LE};
-    for (int f : zero) kc_set(sp, o, f, slot, 0);
-    kc_set(sp, o, KC_EODOM, slot, old_mask);
-    for (int q = 0; q < S; ++q) jx_set2(o + KFD(EO), S, S, slot, q, 0);
-    kc_set(sp, o, KC_PF_ACT, slot, 1);
-    kc_set(sp, o, KC_PF_DEST, slot, j + 1);
-    kc_set(sp, o, KC_PF_OBS, slot, 1);
-    o[KFD(DIG)] = disk;
-    nw_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
+    if (g.lead()) {
+      kc_set(sp, o, KC_USED, slot, 1);
+      kc_set(sp, o, KC_HOST, slot, h);
+      kc_set(sp, o, KC_DISK, slot, disk);
+      kc_set(sp, o, KC_ROLE, slot, KC_R_OBSERVER);
+      const int zero[] = {KC_ST, KC_EP, KC_LED, KC_VF, KC_VG, KC_CID, KC_CM, KC_CCOMM, KC_LL,
+                          KC_HWM, KC_PF_EP, KC_PF_OFF, KC_PF_LE};
+      for (int f : zero) kc_set(sp, o, f, slot, 0);
+      kc_set(sp, o, KC_EODOM, slot, kc_used_mask(sp, s));
+      kc_set(sp, o, KC_PF_ACT, slot, 1);
+      kc_set(sp, o, KC_PF_DEST, slot, j + 1);
+      kc_set(sp, o, KC_PF_OBS, slot, 1);
+      o[KFD(DIG)] = disk;
+    }
+    kc_set_eo_row(g, sp, o, slot, [](int) { return 0; });
+    nw_insert<KC_MAX_WORDS>(g, o + KFD(W0), o + KFD(CNT), M, NW, k, p);
   }
-  return g;
+  return gd;
 }
 
 // SendJoinRequest — :1524-1538: an observer outside its config asks its
 // known leader; send-once (the constant _addReconfigCtr gate, :1526)
-template <bool WRITE>
-__device__ Guard kc_send_join(const int* sp, const int* s, int* o, int i, int j) {
+template <bool WRITE, class Gp>
+__device__ Guard kc_send_join(Gp g, const int* sp, const int* s, int* o, int i, int j) {
   const int M = KFD(M), NW = KFD(NW);
-  Guard g{KFD(MAX_ADD) > 0 && kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_USED, j) > 0 &&
-              kc_get(sp, s, KC_ROLE, i) == KC_R_OBSERVER &&
-              !kc_bit(kc_get(sp, s, KC_CM, i), i) && kc_get(sp, s, KC_LED, i) == j + 1,
-          KQ_SENDJOIN, false};
-  if (!WRITE && !g.valid) return g;
-  WKey k = nw_key();
+  Guard gd{KFD(MAX_ADD) > 0 && kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_USED, j) > 0 &&
+               kc_get(sp, s, KC_ROLE, i) == KC_R_OBSERVER &&
+               !kc_bit(kc_get(sp, s, KC_CM, i), i) && kc_get(sp, s, KC_LED, i) == j + 1,
+           KQ_SENDJOIN, false};
+  if (!WRITE && !gd.valid) return gd;
+  typename KcForm<WRITE>::Key k;
+  nw_key_init(k);
   kc_pack(sp, k, KM_MTYPE, KC_JOINREQ);
   kc_pack(sp, k, KM_MEPOCH, kc_get(sp, s, KC_EP, i));
   kc_pack(sp, k, KM_MDEST, j);
   kc_pack(sp, k, KM_MSOURCE, i);
-  nw_wrap(k);
-  const Put p = nw_bag_probe(s + KFD(W0), M, NW, k);
-  g.valid = g.valid && !p.existed;
-  g.ovf = p.overflow && g.valid;
-  if (WRITE) nw_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
-  return g;
+  const Put p = nw_probe<KC_MAX_WORDS>(g, s + KFD(W0), M, NW, k);
+  gd.valid = gd.valid && !p.existed;
+  gd.ovf = p.overflow && gd.valid;
+  if (WRITE) nw_insert<KC_MAX_WORDS>(g, o + KFD(W0), o + KFD(CNT), M, NW, k, p);
+  return gd;
 }
 
 // HandleRemoveRequest(i, r) — :1699-1724: an admin removal appends a
 // RemoveServerCommand; a self-removing leader becomes an observer and
 // stays leader
-template <bool WRITE>
-__device__ Guard kc_handle_remove(const int* sp, const int* s, int* o, int i, int r) {
+template <bool WRITE, class Gp>
+__device__ Guard kc_handle_remove(Gp g, const int* sp, const int* s, int* o, int i, int r) {
   const int S = KFD(S), L = KFD(L);
   const int members = kc_get(sp, s, KC_CM, i);
   const bool check_ok = kc_get(sp, s, KC_ST, i) == KC_LEADER && kc_bit(members, r) &&
                         kc_get(sp, s, KC_CCOMM, i) > 0 && kc_committed_in_epoch(sp, s, i);
-  Guard g{kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_USED, r) > 0 &&
-              s[KFD(RMCTR)] < KFD(MAX_REMOVE) && check_ok &&
-              kc_pop(members, S) > KFD(MIN_CLUSTER),
-          KQ_HANDLE_REMOVE, false};
+  Guard gd{kc_get(sp, s, KC_USED, i) > 0 && kc_get(sp, s, KC_USED, r) > 0 &&
+               s[KFD(RMCTR)] < KFD(MAX_REMOVE) && check_ok &&
+               kc_pop(members, S) > KFD(MIN_CLUSTER),
+           KQ_HANDLE_REMOVE, false};
   const int pos = kc_get(sp, s, KC_LL, i);
-  g.ovf = g.valid && pos >= L;
+  gd.ovf = gd.valid && pos >= L;
   if (WRITE) {
-    const int posc = ra_clamp(pos, 0, L - 1);
     const int nm = members & ~(1 << r), cid = kc_get(sp, s, KC_CID, i) + 1;
-    const int vals[KE_N] = {KC_C_REMOVE, kc_get(sp, s, KC_EP, i), -1, cid, r + 1, nm};
-    for (int e = 0; e < KE_N; ++e)
-      if (e != KE_VAL) jx_set2(o + sp[KC_LOG + e], S, L, i, posc, vals[e]);
-    kc_set(sp, o, KC_LL, i, pos + 1);
-    kc_set(sp, o, KC_CID, i, cid);
-    kc_set(sp, o, KC_CM, i, nm);
-    kc_set(sp, o, KC_CCOMM, i, kc_get(sp, s, KC_HWM, i) >= pos + 1);
-    kc_set(sp, o, KC_ROLE, i, i == r ? KC_R_OBSERVER : kc_get(sp, s, KC_ROLE, i));
-    o[KFD(RMCTR)] = s[KFD(RMCTR)] + 1;
+    kc_put_cfg_entry(g, sp, o, i, ra_clamp(pos, 0, L - 1), KC_C_REMOVE, kc_get(sp, s, KC_EP, i),
+                     cid, r + 1, nm);
+    if (g.lead()) {
+      kc_set(sp, o, KC_LL, i, pos + 1);
+      kc_set(sp, o, KC_CID, i, cid);
+      kc_set(sp, o, KC_CM, i, nm);
+      kc_set(sp, o, KC_CCOMM, i, kc_get(sp, s, KC_HWM, i) >= pos + 1);
+      kc_set(sp, o, KC_ROLE, i, i == r ? KC_R_OBSERVER : kc_get(sp, s, KC_ROLE, i));
+      o[KFD(RMCTR)] = s[KFD(RMCTR)] + 1;
+    }
   }
-  return g;
+  return gd;
 }
 
+// The log a FetchResponse leaves at its destination dst, as row(e, l) (the
+// apply's): dst's log with, on success, the message's entry at lane `app`
+// (-1: none appended), or, diverging, only its first `cut` lanes kept (the
+// rest 0). Computed where it is read: an array of it indexed at run time
+// would sit on the stack.
+struct KcFetchLog {
+  const int* sp;
+  const int* s;
+  IKey kw;  // a copy: a pointer to the words would put them on the stack
+  int dst, app, cut;
+  __device__ __forceinline__ int operator()(int e, int l) const {
+    if (l == app) return kc_unpack(sp, kw, KM_E + e);
+    return l < cut ? kc_log(sp, s, e, dst)[l] : 0;
+  }
+};
+
 // MaybeSwitchConfigurations (:753-771) on slot dst after a fetch response:
-// the config from the log's most recent reconfig entry (rows[e][l], len
+// the config from the log's most recent reconfig entry (row(e, l), len
 // lanes, that entry at offset cfg_off), the Voter <-> Observer flip on a
 // membership change, endOffset's domain padded to every used slot; leader
 // and the default state from MaybeHandleCommonResponse (mh)
-__device__ void kc_maybe_switch(const int* sp, const int* s, int* o, int dst,
-                                int (*rows)[KC_MAX_L], int len, int cfg_off, int mhwm, KSle mh) {
+template <class Gp, class Row>
+__device__ void kc_maybe_switch(Gp g, const int* sp, const int* s, int* o, int dst,
+                                const Row& row, int len, int cfg_off, int mhwm, KSle mh) {
   const int S = KFD(S), L = KFD(L);
-  const int lane = ra_clamp(cfg_off - 1, 0, L - 1);
-  const int cm = rows[KE_MEMBERS][lane];
-  const bool member = kc_bit(cm, dst);
-  const int role = kc_get(sp, s, KC_ROLE, dst);
-  const bool demote = role == KC_R_VOTER && !member, promote = role == KC_R_OBSERVER && member;
-  kc_set(sp, o, KC_LED, dst, mh.ld);
-  kc_set(sp, o, KC_CID, dst, rows[KE_CFGID][lane]);
-  kc_set(sp, o, KC_CM, dst, cm);
-  kc_set(sp, o, KC_CCOMM, dst, mhwm >= cfg_off);
-  kc_set(sp, o, KC_ROLE, dst, demote ? KC_R_OBSERVER : (promote ? KC_R_VOTER : role));
-  kc_set(sp, o, KC_ST, dst, (demote || promote) ? KC_FOLLOWER : mh.st);
-  kc_set(sp, o, KC_EODOM, dst, kc_get(sp, s, KC_EODOM, dst) | kc_used_mask(sp, s));
-  for (int e = 0; e < KE_N; ++e)
-    for (int l = 0; l < L; ++l) jx_set2(o + sp[KC_LOG + e], S, L, dst, l, rows[e][l]);
-  kc_set(sp, o, KC_LL, dst, len);
-  kc_clear_pf(sp, o, dst);
+  if (g.lead()) {
+    const int lane = ra_clamp(cfg_off - 1, 0, L - 1);
+    const int cm = row(KE_MEMBERS, lane);
+    const bool member = kc_bit(cm, dst);
+    const int role = kc_get(sp, s, KC_ROLE, dst);
+    const bool demote = role == KC_R_VOTER && !member, promote = role == KC_R_OBSERVER && member;
+    kc_set(sp, o, KC_LED, dst, mh.ld);
+    kc_set(sp, o, KC_CID, dst, row(KE_CFGID, lane));
+    kc_set(sp, o, KC_CM, dst, cm);
+    kc_set(sp, o, KC_CCOMM, dst, mhwm >= cfg_off);
+    kc_set(sp, o, KC_ROLE, dst, demote ? KC_R_OBSERVER : (promote ? KC_R_VOTER : role));
+    kc_set(sp, o, KC_ST, dst, (demote || promote) ? KC_FOLLOWER : mh.st);
+    kc_set(sp, o, KC_EODOM, dst, kc_get(sp, s, KC_EODOM, dst) | kc_used_mask(sp, s));
+    kc_set(sp, o, KC_LL, dst, len);
+  }
+  grp_for(g, KE_N * L, [&](int u) {  // the log, (entry field, lane) pairs
+    const int e = u / L, l = u - e * L;
+    jx_set2(o + sp[KC_LOG + e], S, L, dst, l, row(e, l));
+  });
+  kc_clear_pf(g, sp, o, dst);
+}
+
+// AcceptFetchRequestFromVoter's successor (:1286-1342) at the leader dst,
+// made once its reply is known to be new: the acked values committed by the
+// new hwm, the config re-derived when it advanced, IsRemovedFromCluster's
+// step down (`leaves`), endOffset's row with [dst][src] := foff
+template <class Gp>
+__device__ void kc_accept_voter(Gp g, const int* sp, const int* s, int* o, int dst, int src,
+                                int foff, int new_hwm, bool leaves) {
+  const int S = KFD(S), L = KFD(L), V = KFD(V);
+  const int hwm = kc_get(sp, s, KC_HWM, dst);
+  const bool advanced = new_hwm > hwm;
+  if (g.lead()) {
+    const int* cmd = kc_log(sp, s, KE_CMD, dst);
+    const int* val = kc_log(sp, s, KE_VAL, dst);
+    for (int v = 0; v < V; ++v) {
+      bool committed = false;
+      for (int l = 0; l < L; ++l)
+        committed |=
+            l + 1 > hwm && l + 1 <= new_hwm && cmd[l] == KC_C_APPEND && val[l] == v + 1;
+      if (advanced && s[KFD(ACK) + v] == RA_ACK_FALSE && committed) o[KFD(ACK) + v] = RA_ACK_TRUE;
+    }
+    if (advanced) {
+      const int cfg_off = kc_most_recent_reconfig(cmd, L, kc_get(sp, s, KC_LL, dst));
+      const int lane = ra_clamp(cfg_off - 1, 0, L - 1);
+      kc_set(sp, o, KC_CID, dst, kc_log(sp, s, KE_CFGID, dst)[lane]);
+      kc_set(sp, o, KC_CM, dst, kc_log(sp, s, KE_MEMBERS, dst)[lane]);
+      kc_set(sp, o, KC_CCOMM, dst, new_hwm >= cfg_off);
+    }
+    if (leaves) {
+      kc_set(sp, o, KC_ROLE, dst, KC_R_OBSERVER);
+      kc_set(sp, o, KC_ST, dst, KC_UNATTACHED);
+      kc_set(sp, o, KC_LED, dst, RA_NIL);
+      kc_set(sp, o, KC_VG, dst, 0);
+    }
+    kc_set(sp, o, KC_EODOM, dst,
+           leaves ? kc_used_mask(sp, s) : (kc_get(sp, s, KC_EODOM, dst) | (1 << src)));
+    kc_set(sp, o, KC_HWM, dst, leaves ? 0 : (advanced ? new_hwm : hwm));
+  }
+  const int* eo = s + KFD(EO) + jx_index(dst, S) * S;
+  kc_set_eo_row(g, sp, o, dst, [&](int q) { return leaves ? 0 : (q == src ? foff : eo[q]); });
 }
 
 // the fields a FetchResponse shares (:1203): the responder's epoch, leader
 // and endpoints, and the request it answers as the correlation (its
 // source and dest implied, swapped)
-__device__ __forceinline__ void kc_pack_fetch_resp(const int* sp, WKey& k, int cur, int leader,
-                                                   int hwm, int dst, int src, const int* kw) {
+template <class Key, class Words>
+__device__ __forceinline__ void kc_pack_fetch_resp(const int* sp, Key& k, int cur, int leader,
+                                                   int hwm, int dst, int src, const Words& kw) {
   kc_pack(sp, k, KM_MTYPE, KC_FETCHRESP);
   kc_pack(sp, k, KM_MEPOCH, cur);
   kc_pack(sp, k, KM_MLEADER, leader);
@@ -586,18 +733,19 @@ __device__ __forceinline__ void kc_pack_fetch_resp(const int* sp, WKey& k, int c
 // trio Success/Diverging/NonSuccess, Accept/RejectJoinRequest and
 // HandleRejectJoinResponse's Discard arm); rank says which one fired, -1
 // when none did.
-template <bool WRITE>
-__device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
-  const int S = KFD(S), L = KFD(L), M = KFD(M), V = KFD(V), NW = KFD(NW);
-  Guard g{false, -1, false};
-  int kw[KC_MAX_WORDS] = {0, 0, 0};
-  for (int w = 0; w < NW; ++w) kw[w] = jx_get(s + KFD(W0) + w * M, M, m);
+template <bool WRITE, class Gp>
+__device__ Guard kc_handle_message(Gp g, const int* sp, const int* s, int* o, int m) {
+  const int S = KFD(S), L = KFD(L), M = KFD(M), NW = KFD(NW);
+  const bool lw = WRITE && g.lead();
+  Guard gd{false, -1, false};
+  typename KcForm<WRITE>::Words kw;
+  kc_key_words(sp, s, m, kw);
   // ReceivableMessage (:471-477): occupied, a count > 0, a live dest
-  if (kw[0] == RA_EMPTY || jx_get(s + KFD(CNT), M, m) <= 0) return g;
+  if (kw[0] == RA_EMPTY || jx_get(s + KFD(CNT), M, m) <= 0) return gd;
   const int mtype = kc_unpack(sp, kw, KM_MTYPE), mepoch = kc_unpack(sp, kw, KM_MEPOCH);
   const int src = kc_unpack(sp, kw, KM_MSOURCE), dst = kc_unpack(sp, kw, KM_MDEST);
   const int st = kc_get(sp, s, KC_ST, dst);
-  if (kc_get(sp, s, KC_USED, dst) <= 0 || st == KC_DEAD) return g;
+  if (kc_get(sp, s, KC_USED, dst) <= 0 || st == KC_DEAD) return gd;
   const int cur = kc_get(sp, s, KC_EP, dst), led = kc_get(sp, s, KC_LED, dst);
   const int role = kc_get(sp, s, KC_ROLE, dst), hwm = kc_get(sp, s, KC_HWM, dst);
   const int ll = kc_get(sp, s, KC_LL, dst), members = kc_get(sp, s, KC_CM, dst);
@@ -609,9 +757,13 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
   bool b_acc_v = false, b_acc_o = false, b_ok = false, b_divr = false, b_err = false;
   bool b_jacc = false, b_jrej = false, b_jrr = false;
   bool put_branch = false, extra_ovf = false;
-  WKey k = nw_key();
+  typename KcForm<WRITE>::Key k;
+  nw_key_init(k);
   KSle mh{st, cur, led};
   bool handled = false;
+  // AcceptFetchRequestFromVoter's successor, written after the put's probe
+  int foff = 0, new_hwm = hwm;
+  bool leaves = false;
 
   if (mtype == KC_RVREQ) {
     // HandleRequestVoteRequest (:967-1018)
@@ -637,16 +789,18 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
     kc_pack(sp, k, KM_MSOURCE, dst);
     kc_pack(sp, k, KM_MDEST, src);
     if (WRITE && !rv_err) {
-      kc_set_sle(sp, o, dst, f);
-      if (grant) kc_set(sp, o, KC_VF, dst, src + 1);
-      if (f.st != st) kc_clear_pf(sp, o, dst);
+      if (lw) {
+        kc_set_sle(sp, o, dst, f);
+        if (grant) kc_set(sp, o, KC_VF, dst, src + 1);
+      }
+      if (f.st != st) kc_clear_pf(g, sp, o, dst);
     }
   } else if (mtype == KC_RVRESP) {
     // HandleRequestVoteResponse (:1025-1050; the Voter gate added)
     mh = kc_mhcr(sp, s, dst, kc_unpack(sp, kw, KM_MLEADER), mepoch,
                  kc_unpack(sp, kw, KM_MERROR), &handled);
     b_rvresp = role == KC_R_VOTER && (handled || st == KC_CANDIDATE);
-    if (WRITE && b_rvresp) {
+    if (lw && b_rvresp) {
       if (handled) kc_set_sle(sp, o, dst, mh);
       if (kc_unpack(sp, kw, KM_MVOTEGRANTED) > 0 && !handled)
         kc_set(sp, o, KC_VG, dst, kc_get(sp, s, KC_VG, dst) | (1 << src));
@@ -656,8 +810,8 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
     // is not answered
     b_bqreq = mepoch >= cur && role == KC_R_VOTER;
     if (WRITE && b_bqreq) {
-      kc_set_sle(sp, o, dst, kc_maybe_transition(sp, s, dst, src + 1, mepoch));
-      kc_clear_pf(sp, o, dst);
+      if (lw) kc_set_sle(sp, o, dst, kc_maybe_transition(sp, s, dst, src + 1, mepoch));
+      kc_clear_pf(g, sp, o, dst);
     }
   } else if (mtype == KC_FETCHREQ) {
     // the FetchRequest branches (:1195-1376)
@@ -665,7 +819,7 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
     const int ferr = !is_leader ? KC_E_NOTLEADER
                                 : (mepoch < cur ? KC_E_FENCED
                                                 : (mepoch > cur ? KC_E_UNKNOWN_LEADER : KC_E_NONE));
-    const int foff = kc_unpack(sp, kw, KM_MFETCHOFFSET);
+    foff = kc_unpack(sp, kw, KM_MFETCHOFFSET);
     const int flep = kc_unpack(sp, kw, KM_MLASTFETCHEDEPOCH);
     int eo_off, eo_ep;
     kc_end_offset_for_epoch(ep_row, L, ll, flep, &eo_off, &eo_ep);
@@ -688,8 +842,6 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
       const int offset = foff + 1;
       const bool have = offset <= ll;
       const int epos = ra_clamp(offset - 1, 0, L - 1);
-      int new_hwm = hwm;
-      bool leaves = false;
       const bool voter = kc_unpack(sp, kw, KM_MOBSERVER) == 0;
       if (voter) {
         // AcceptFetchRequestFromVoter (:1286-1342). NewHighwaterMark
@@ -724,40 +876,6 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
       kc_pack(sp, k, KM_NENTRIES, have);
       for (int e = 0; e < KE_N; ++e)
         kc_pack(sp, k, KM_E + e, have ? kc_log(sp, s, e, dst)[epos] : 0);
-      if (WRITE && voter) {
-        // the acc_v successor, kept for after the existed check
-        const bool advanced = new_hwm > hwm;
-        const int* cmd = kc_log(sp, s, KE_CMD, dst);
-        const int* val = kc_log(sp, s, KE_VAL, dst);
-        int* ack = o + KFD(ACK);
-        for (int v = 0; v < V; ++v) {
-          bool committed = false;
-          for (int l = 0; l < L; ++l)
-            committed |= l + 1 > hwm && l + 1 <= new_hwm && cmd[l] == KC_C_APPEND &&
-                         val[l] == v + 1;
-          if (advanced && s[KFD(ACK) + v] == RA_ACK_FALSE && committed) ack[v] = RA_ACK_TRUE;
-        }
-        // the staged writes are undone below if the reply existed
-        if (advanced) {
-          const int cfg_off = kc_most_recent_reconfig(cmd, L, ll);
-          const int lane = ra_clamp(cfg_off - 1, 0, L - 1);
-          kc_set(sp, o, KC_CID, dst, kc_log(sp, s, KE_CFGID, dst)[lane]);
-          kc_set(sp, o, KC_CM, dst, kc_log(sp, s, KE_MEMBERS, dst)[lane]);
-          kc_set(sp, o, KC_CCOMM, dst, new_hwm >= cfg_off);
-        }
-        if (leaves) {
-          kc_set(sp, o, KC_ROLE, dst, KC_R_OBSERVER);
-          kc_set(sp, o, KC_ST, dst, KC_UNATTACHED);
-          kc_set(sp, o, KC_LED, dst, RA_NIL);
-          kc_set(sp, o, KC_VG, dst, 0);
-        }
-        kc_set(sp, o, KC_EODOM, dst,
-               leaves ? kc_used_mask(sp, s) : (kc_get(sp, s, KC_EODOM, dst) | (1 << src)));
-        const int* eo = s + KFD(EO) + jx_index(dst, S) * S;
-        for (int q = 0; q < S; ++q)
-          jx_set2(o + KFD(EO), S, S, dst, q, leaves ? 0 : (q == src ? foff : eo[q]));
-        kc_set(sp, o, KC_HWM, dst, leaves ? 0 : (advanced ? new_hwm : hwm));
-      }
     }
   } else if (mtype == KC_FETCHRESP) {
     // the FetchResponse branches (:1383-1483): the correlation match
@@ -772,42 +890,60 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
                       kc_get(sp, s, KC_PF_OBS, dst) == kc_unpack(sp, kw, KM_COBSERVER) &&
                       kc_get(sp, s, KC_PF_DEST, dst) == src + 1;
     const int mhwm = kc_unpack(sp, kw, KM_MHWM);
-    int rows[KE_N][KC_MAX_L];
-    for (int e = 0; e < KE_N; ++e)
-      for (int l = 0; l < L; ++l) rows[e][l] = kc_log(sp, s, e, dst)[l];
-    if (!handled && corr && mres == KC_RES_OK) {
-      // HandleSuccessFetchResponse (:1383-1409); a log at max_log overflows
-      const bool app = kc_unpack(sp, kw, KM_NENTRIES) > 0;
-      if (app)
-        for (int e = 0; e < KE_N; ++e)
-          rows[e][ra_clamp(ll, 0, L - 1)] = kc_unpack(sp, kw, KM_E + e);
-      const int len = ll + app;
-      const int cfg_off = kc_most_recent_reconfig(rows[KE_CMD], L, len);
-      b_ok = cfg_off > 0;
-      extra_ovf = b_ok && app && ll >= L;
-      if (WRITE && b_ok) {
-        kc_maybe_switch(sp, s, o, dst, rows, len, cfg_off, mhwm, mh);
-        kc_set(sp, o, KC_HWM, dst, mhwm);
+    if constexpr (WRITE) {  // the log the response leaves, computed where read
+      if (!handled && corr && mres == KC_RES_OK) {
+        // HandleSuccessFetchResponse (:1383-1409); a log at max_log overflows
+        const bool app = kc_unpack(sp, kw, KM_NENTRIES) > 0;
+        const KcFetchLog row{sp, s, kw, dst, app ? ra_clamp(ll, 0, L - 1) : -1, L};
+        const int len = ll + app;
+        const int cfg_off = kc_last_reconfig(row, L, len);
+        b_ok = cfg_off > 0;
+        extra_ovf = b_ok && app && ll >= L;
+        if (b_ok) {
+          kc_maybe_switch(g, sp, s, o, dst, row, len, cfg_off, mhwm, mh);
+          if (lw) kc_set(sp, o, KC_HWM, dst, mhwm);
+        }
+      } else if (!handled && corr && mres == KC_RES_DIVERGING) {
+        // HandleDivergingFetchResponse (:1419-1445): truncate, refresh the
+        // config from the truncated log; the hwm is not updated
+        const int hco = kc_highest_common_offset(ep_row, L, ll,
+                                                 kc_unpack(sp, kw, KM_MDIVENDOFFSET),
+                                                 kc_unpack(sp, kw, KM_MDIVEPOCH));
+        const KcFetchLog row{sp, s, kw, dst, -1, hco};
+        const int cfg_off = kc_last_reconfig(row, L, hco);
+        b_divr = cfg_off > 0;
+        if (b_divr) kc_maybe_switch(g, sp, s, o, dst, row, hco, cfg_off, mhwm, mh);
+      } else if (handled && corr) {
+        // HandleNonSuccessFetchResponse (:1459-1483)
+        b_err = true;
+        if (lw) {
+          kc_set_sle(sp, o, dst, mh);
+          if (kc_unpack(sp, kw, KM_MERROR) == KC_E_UNKNOWN_MEMBER)
+            kc_set(sp, o, KC_ROLE, dst, KC_R_OBSERVER);
+        }
+        kc_clear_pf(g, sp, o, dst);
       }
-    } else if (!handled && corr && mres == KC_RES_DIVERGING) {
-      // HandleDivergingFetchResponse (:1419-1445): truncate, refresh the
-      // config from the truncated log; the hwm is not updated
-      const int hco = kc_highest_common_offset(ep_row, L, ll,
-                                               kc_unpack(sp, kw, KM_MDIVENDOFFSET),
-                                               kc_unpack(sp, kw, KM_MDIVEPOCH));
+    } else {  // the guard's form: the log as an array, read for its commands
+      int rows[KE_N][KC_MAX_L];
       for (int e = 0; e < KE_N; ++e)
-        for (int l = 0; l < L; ++l) rows[e][l] = l < hco ? rows[e][l] : 0;
-      const int cfg_off = kc_most_recent_reconfig(rows[KE_CMD], L, hco);
-      b_divr = cfg_off > 0;
-      if (WRITE && b_divr) kc_maybe_switch(sp, s, o, dst, rows, hco, cfg_off, mhwm, mh);
-    } else if (handled && corr) {
-      // HandleNonSuccessFetchResponse (:1459-1483)
-      b_err = true;
-      if (WRITE) {
-        kc_set_sle(sp, o, dst, mh);
-        if (kc_unpack(sp, kw, KM_MERROR) == KC_E_UNKNOWN_MEMBER)
-          kc_set(sp, o, KC_ROLE, dst, KC_R_OBSERVER);
-        kc_clear_pf(sp, o, dst);
+        for (int l = 0; l < L; ++l) rows[e][l] = kc_log(sp, s, e, dst)[l];
+      if (!handled && corr && mres == KC_RES_OK) {
+        const bool app = kc_unpack(sp, kw, KM_NENTRIES) > 0;
+        if (app)
+          for (int e = 0; e < KE_N; ++e)
+            rows[e][ra_clamp(ll, 0, L - 1)] = kc_unpack(sp, kw, KM_E + e);
+        const int cfg_off = kc_most_recent_reconfig(rows[KE_CMD], L, ll + app);
+        b_ok = cfg_off > 0;
+        extra_ovf = b_ok && app && ll >= L;
+      } else if (!handled && corr && mres == KC_RES_DIVERGING) {
+        const int hco = kc_highest_common_offset(ep_row, L, ll,
+                                                 kc_unpack(sp, kw, KM_MDIVENDOFFSET),
+                                                 kc_unpack(sp, kw, KM_MDIVEPOCH));
+        for (int e = 0; e < KE_N; ++e)
+          for (int l = 0; l < L; ++l) rows[e][l] = l < hco ? rows[e][l] : 0;
+        b_divr = kc_most_recent_reconfig(rows[KE_CMD], L, hco) > 0;
+      } else if (handled && corr) {
+        b_err = true;
       }
     }
   } else if (mtype == KC_JOINREQ) {
@@ -822,16 +958,16 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
       kc_pack(sp, k, KM_MRESULT, KC_RES_OK);
       kc_pack(sp, k, KM_MERROR, KC_E_NONE);
       if (WRITE) {
-        const int posc = ra_clamp(ll, 0, L - 1), cid = kc_get(sp, s, KC_CID, dst) + 1;
-        const int add = members | (1 << src);
-        const int vals[KE_N] = {KC_C_ADD, cur, -1, cid, src + 1, add};
-        for (int e = 0; e < KE_N; ++e)
-          if (e != KE_VAL) jx_set2(o + sp[KC_LOG + e], S, L, dst, posc, vals[e]);
-        kc_set(sp, o, KC_LL, dst, ll + 1);
-        kc_set(sp, o, KC_CID, dst, cid);
-        kc_set(sp, o, KC_CM, dst, add);
-        kc_set(sp, o, KC_CCOMM, dst, hwm >= ll + 1);
-        kc_set(sp, o, KC_EODOM, dst, kc_get(sp, s, KC_EODOM, dst) | (1 << src));
+        const int cid = kc_get(sp, s, KC_CID, dst) + 1, add = members | (1 << src);
+        kc_put_cfg_entry(g, sp, o, dst, ra_clamp(ll, 0, L - 1), KC_C_ADD, cur, cid, src + 1,
+                         add);
+        if (lw) {
+          kc_set(sp, o, KC_LL, dst, ll + 1);
+          kc_set(sp, o, KC_CID, dst, cid);
+          kc_set(sp, o, KC_CM, dst, add);
+          kc_set(sp, o, KC_CCOMM, dst, hwm >= ll + 1);
+          kc_set(sp, o, KC_EODOM, dst, kc_get(sp, s, KC_EODOM, dst) | (1 << src));
+        }
       }
     } else if (notleader || already) {
       // RejectJoinRequest (:1605-1623): only NotLeader/AlreadyMember are
@@ -854,22 +990,18 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
 
   // the shared Reply: the response put once into the bag whose slot m is
   // discarded; a FetchRequest reply already in the bag disables its branch
-  // (MessagePassing.tla:72-79)
+  // (MessagePassing.tla:72-79). The probe reads the state's bag, so the
+  // voter's successor is written only once its reply is known new.
   Put p{false, false, 0};
   if (put_branch) {
-    nw_wrap(k);
-    p = nw_bag_probe(s + KFD(W0), M, NW, k);
-    if (p.existed && (b_reject || b_div || b_acc_v || b_acc_o)) {
-      if (WRITE && b_acc_v) {  // undo the staged AcceptFetchRequestFromVoter writes
-        const int W = KFD(W);
-        for (int t = 0; t < W; ++t) o[t] = s[t];
-      }
+    p = nw_probe<KC_MAX_WORDS>(g, s + KFD(W0), M, NW, k);
+    if (p.existed && (b_reject || b_div || b_acc_v || b_acc_o))
       b_reject = b_div = b_acc_v = b_acc_o = false;
-    }
   }
+  if (WRITE && b_acc_v) kc_accept_voter(g, sp, s, o, dst, src, foff, new_hwm, leaves);
   const bool putb = b_rvreq || b_reject || b_div || b_acc_v || b_acc_o || b_jacc || b_jrej;
   const bool dropb = b_rvresp || b_bqreq || b_ok || b_divr || b_err || b_jrr;
-  g.valid = putb || dropb;
+  gd.valid = putb || dropb;
   const bool flags[] = {b_rvreq, b_rvresp, b_bqreq, b_reject, b_div, b_acc_v, b_acc_o,
                         b_ok, b_divr, b_err, b_jacc, b_jrej, b_jrr};
   const int ranks[] = {KQ_HANDLE_RVREQ, KQ_HANDLE_RVRESP, KQ_ACCEPT_BQREQ, KQ_REJECT_FETCH,
@@ -877,30 +1009,31 @@ __device__ Guard kc_handle_message(const int* sp, const int* s, int* o, int m) {
                        KQ_HANDLE_FETCH_OK, KQ_HANDLE_FETCH_DIV, KQ_HANDLE_FETCH_NONSUCCESS,
                        KQ_ACCEPT_JOIN, KQ_REJECT_JOIN, KQ_HANDLE_REJECT_JOIN};
   for (int b = 0; b < 13; ++b)
-    if (flags[b]) g.rank = ranks[b];
-  g.ovf = (putb && p.overflow) || ((b_ok || b_jacc) && extra_ovf);
-  if (WRITE && g.valid) {
-    o[KFD(CNT) + m] -= 1;  // the incoming Discard
-    if (putb) nw_bag_insert(o + KFD(W0), o + KFD(CNT), M, NW, k, p);
+    if (flags[b]) gd.rank = ranks[b];
+  gd.ovf = (putb && p.overflow) || ((b_ok || b_jacc) && extra_ovf);
+  if (WRITE && gd.valid) {
+    if (lw) o[KFD(CNT) + m] -= 1;  // the incoming Discard
+    if (putb) nw_insert<KC_MAX_WORDS>(g, o + KFD(W0), o + KFD(CNT), M, NW, k, p);
   }
-  return g;
+  return gd;
 }
 
-// One candidate (a row of the model's candidate table) of one state; `bag`
-// is a chain lane's guard scratch (NW * M ints), unused otherwise.
-template <bool WRITE>
-__device__ Guard kc_action(const int* sp, const int* s, int* o, const int* cd, int* bag) {
+// One candidate (a row of the model's candidate table) of one state, by
+// the group g; `bag` is a chain lane's guard scratch (NW * M ints), unused
+// otherwise.
+template <bool WRITE, class Gp>
+__device__ Guard kc_action(Gp g, const int* sp, const int* s, int* o, const int* cd, int* bag) {
   const int p0 = cd[1], p1 = cd[2];
   switch (cd[0]) {
-    case KG2_RESTART: return Guard{kc_restart<WRITE>(sp, s, o, p0), cd[3], false};
-    case KG2_REQUEST_VOTE: return kc_request_vote<WRITE>(sp, s, o, p0, bag);
-    case KG2_BECOME_LEADER: return kc_become_leader<WRITE>(sp, s, o, p0, bag);
-    case KG2_CLIENT_REQUEST: return kc_client_request<WRITE>(sp, s, o, p0, p1);
-    case KG2_SEND_FETCH: return kc_send_fetch<WRITE>(sp, s, o, p0, p1);
-    case KG2_START_NEW_SERVER: return kc_start_new_server<WRITE>(sp, s, o, p0, p1);
-    case KG2_SEND_JOIN: return kc_send_join<WRITE>(sp, s, o, p0, p1);
-    case KG2_HANDLE_REMOVE: return kc_handle_remove<WRITE>(sp, s, o, p0, p1);
-    case KG2_HANDLE_MESSAGE: return kc_handle_message<WRITE>(sp, s, o, p0);
+    case KG2_RESTART: return Guard{kc_restart<WRITE>(g, sp, s, o, p0), cd[3], false};
+    case KG2_REQUEST_VOTE: return kc_request_vote<WRITE>(g, sp, s, o, p0, bag);
+    case KG2_BECOME_LEADER: return kc_become_leader<WRITE>(g, sp, s, o, p0, bag);
+    case KG2_CLIENT_REQUEST: return kc_client_request<WRITE>(g, sp, s, o, p0, p1);
+    case KG2_SEND_FETCH: return kc_send_fetch<WRITE>(g, sp, s, o, p0, p1);
+    case KG2_START_NEW_SERVER: return kc_start_new_server<WRITE>(g, sp, s, o, p0, p1);
+    case KG2_SEND_JOIN: return kc_send_join<WRITE>(g, sp, s, o, p0, p1);
+    case KG2_HANDLE_REMOVE: return kc_handle_remove<WRITE>(g, sp, s, o, p0, p1);
+    case KG2_HANDLE_MESSAGE: return kc_handle_message<WRITE>(g, sp, s, o, p0);
   }
   return Guard{false, cd[3], false};
 }
@@ -1032,7 +1165,14 @@ struct KReconfigFamily {
   template <bool WRITE>
   __device__ __forceinline__ static Guard action(const int* sp, const int* s, int* o,
                                                  const int* cd, int* bag) {
-    return kc_action<WRITE>(sp, s, o, cd, bag);
+    return kc_action<WRITE>(GrpOne{}, sp, s, o, cd, bag);
+  }
+  // the successor row `o` (a copy of `s`) of one candidate, by the group g
+  // of threads that shares the lane (expand_driver.cuh's group apply)
+  template <class Gp>
+  __device__ __forceinline__ static void apply(Gp g, const int* sp, const int* s, int* o,
+                                               const int* cd) {
+    kc_action<true>(g, sp, s, o, cd, nullptr);
   }
   __device__ __forceinline__ static bool invariant(const int* sp, const int* s, int id) {
     return kc_invariant(sp, s, id);

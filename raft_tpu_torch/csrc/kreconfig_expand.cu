@@ -11,7 +11,12 @@
 // bytes (the state rows read, valid/rank/ovf written) ahead of the bag-slot
 // compares of the lanes that put a message; kreconfig_apply by bytes, the
 // VC x W int32 successor block it writes.
+//
+// kreconfig_apply is the group apply (EXPAND_KERNELS_GROUP_APPLY: a warp a
+// worklist lane, no row staged in shared memory, so its warps an SM do not
+// depend on W; the chain puts, the receipt's reply and the log installs
+// split over the warp), kreconfig_guard the one-thread-a-lane guard.
 #include "expand_driver.cuh"
 #include "kreconfig_actions.cuh"
 
-EXPAND_KERNELS(kreconfig, KReconfigFamily)
+EXPAND_KERNELS_GROUP_APPLY(kreconfig, KReconfigFamily)

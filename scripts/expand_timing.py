@@ -31,11 +31,12 @@ four-server JointConsensus frontier, the same on a chunk of the depth-11
 KRaftWithReconfig frontier (the full cfg: ``slot_canon``, which has no
 memo, in place of the canon's cold and warm times), and the guard and apply
 on one move of a
-65,536-walk simulate of five-server FlexibleRaft and of each four-server
-reconfiguration cfg (the shapes of ``chip_smoke.py`` phase 3 and its
-simulates); with ptxas' stack, spill and register figures of the
-reconfiguration pair's guard and apply kernels and of ``canon_memo``'s and
-``slot_canon``'s (the four units compiled afresh) and, where the checkout has them, the
+65,536-walk simulate of five-server FlexibleRaft, of each four-server
+reconfiguration cfg and of KRaftWithReconfig's full cfg (the shapes of
+``chip_smoke.py`` phase 3 and its simulates); with ptxas' stack, spill and
+register figures of the reconfiguration pair's and KRaftWithReconfig's
+guard and apply kernels and of ``canon_memo``'s and ``slot_canon``'s (the
+five units compiled afresh) and, where the checkout has them, the
 group apply's occupancy and each chunk's canon's (its tile, block shape and
 warps an SM). The inputs
 come from the checkout's own engine with fixed seeds, so every checkout
@@ -70,12 +71,14 @@ out = {"root": ROOT}
 ITERS = 100
 
 
-# ptxas' figures (-Xptxas -v) of the reconfiguration pair's guard and apply
-# kernels and of canon_memo's and slot_canon's: each unit compiled afresh by the checkout's
+# ptxas' figures (-Xptxas -v) of the reconfiguration pair's and
+# KRaftWithReconfig's guard and apply kernels and of canon_memo's and
+# slot_canon's: each unit compiled afresh by the checkout's
 # own nvcc command, its library written under build/raft_tpu_torch/ptxas/;
 # {kernel (with its template arguments, e.g. canon_memo_kernel<0>): stack
 # frame, spill stores and loads (bytes), registers}
-def ptxas_figures(units=("reconfig_expand", "joint_expand", "canon_memo", "slot_canon")):
+def ptxas_figures(units=("reconfig_expand", "joint_expand", "kreconfig_expand", "canon_memo",
+                         "slot_canon")):
     by_unit = {k.unit: k for k in kernels.ALL}
     os.makedirs(os.path.join(kernels.BUILD_DIR, "ptxas"), exist_ok=True)
     procs = []
@@ -262,6 +265,7 @@ def move_times(tag, spec, text, **kw):
 move_times("flex5_move", "FlexibleRaft.cfg", cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)
 move_times("addremove_move", "RaftWithReconfigAddRemove.cfg", cs.ADDREMOVE_CFG, lenient=True)
 move_times("joint_move", "RaftWithReconfigJointConsensus.cfg", cs.JOINT_CFG)
+move_times("kreconfig_move", "KRaftWithReconfig.cfg", cs.KRAFT_RECONFIG_CFG, lenient=True)
 print(json.dumps(out))
 """
 

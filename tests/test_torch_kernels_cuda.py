@@ -28,7 +28,7 @@ from raft_tpu_torch.models.pull_raft import (
     R_REQUESTVOTE as R_PULL_REQUESTVOTE, PullRaftModel, PullRaftParams,
 )
 from raft_tpu_torch.ops.expand import (
-    apply, apply_plain, fold, fold_plain, guard, guard_plain,
+    apply, apply_occupancy, apply_plain, fold, fold_plain, guard, guard_plain,
 )
 from raft_tpu_torch.ops.hashing import INT64_MAX
 from raft_tpu_torch.ops.packing import EMPTY
@@ -1400,10 +1400,22 @@ def test_config_group_apply_worklists(dev, name, servers):
                              (5, "joint"): 7}[servers, name]
     base = _kraft_states(model, dev, depths=range(3, 8 if servers == 3 else 6))
     states = torch.from_numpy(config_edge_rows(model, base, seed=9)).to(dev)
+    check_group_apply_worklists(model, states, f"{name}_apply", seed=servers)
+
+
+def check_group_apply_worklists(model, states, kernel: str, seed: int) -> None:
+    """The group apply ``kernel`` against apply_plain on ``states`` (on the
+    card), on the worklists the engines give it: a BFS chunk's (the valid
+    lanes first, then drop lanes), a simulate move's (one lane a row, C = R,
+    drops interleaved), an empty one and random flat ids past C * A too;
+    each call launches ``kernel`` once and no other kernel."""
+    from raft_tpu_torch import kernels
+
+    dev = states.device
     C, A = states.shape[0], model.A
     cov = torch.zeros((len(model.ACTION_NAMES), 3), dtype=torch.int64, device=dev)
     valid = guard(model, states, C, cov)[0]
-    gen = torch.Generator().manual_seed(servers)
+    gen = torch.Generator().manual_seed(seed)
     bfs_sel, _n = compact_indices(valid.reshape(-1), int(valid.sum()) + 257, C * A)
     pick = (torch.rand((C, A), generator=gen).to(dev) * valid).argmax(1)
     walk = valid.any(1) & (torch.rand(C, generator=gen).to(dev) < 0.8)
@@ -1415,8 +1427,7 @@ def test_config_group_apply_worklists(dev, name, servers):
         before = kernels.launch_counts()
         fk = apply(model, states, sel)
         after = kernels.launch_counts()
-        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
-            f"{name}_apply": 1}
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {kernel: 1}
         fp = apply_plain(model, states, sel)
         assert fk.shape == (sel.numel(), model.layout.W) and torch.equal(fk, fp)
 
@@ -2099,6 +2110,23 @@ def test_kreconfig_guard_apply_fold(dev):
     for k in ("raft_guard", "pull_guard", "kraft_guard", "reconfig_guard", "joint_guard",
               "canon_memo", "canon_tiered"):
         assert after[k] == before[k], k
+
+
+def test_kreconfig_group_apply_worklists(dev):
+    """kreconfig_apply (the group apply: G threads a worklist lane) against
+    apply_plain on reachable rows, kreconfig_edge_rows (chains into full and
+    near-full bags, logs at max_log, every receipt arm) and
+    kreconfig_bag_rows, on a BFS chunk's, a simulate move's, an empty and a
+    random worklist, one kreconfig_apply launch a call and no other kernel;
+    its occupancy entry names a group of threads a lane."""
+    model = _kreconfig_model()
+    base = _kraft_states(model, dev, depths=range(3, 9))
+    rows = np.concatenate([kreconfig_edge_rows(model, base, seed=11),
+                           kreconfig_bag_rows(model, base, seed=12)])
+    states = torch.from_numpy(rows).to(dev)
+    check_group_apply_worklists(model, states, "kreconfig_apply", seed=3)
+    occ = apply_occupancy(model)
+    assert occ is not None and occ["G"] > 1 and occ["warps_per_sm"] > 0
 
 
 def test_kreconfig_predicates_and_sim_check(dev):

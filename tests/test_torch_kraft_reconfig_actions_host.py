@@ -22,6 +22,7 @@ partway, logs at max_log. Skips without g++.
 
 import ctypes
 import dataclasses
+import functools
 import shutil
 import subprocess
 
@@ -33,9 +34,11 @@ import torch
 from raft_tpu.models import kraft_reconfig as ref_kr
 from raft_tpu_torch.convert import fps_to_u64
 from raft_tpu_torch.models import kraft_reconfig as kr
+from raft_tpu_torch.ops.packing import EMPTY
 
 from test_torch_actions_host import CSRC, SHIM
-from test_torch_kraft_reconfig import FULLP, _edges, _pair, reachable
+from test_torch_kernels_cuda import kreconfig_bag_rows
+from test_torch_kraft_reconfig import FULLP, _edges, _pair, dense_expand, reachable
 from test_torch_slot_canon_host import SLOT_DRIVER, host_fingerprints
 
 # one intra-op thread: tier-1 runs several test workers side by side, and
@@ -70,6 +73,17 @@ extern "C" void host_expand(const int* states, int C, const int* spec, const int
       ovf[c * A + a] = g.ovf;
     }
 }
+extern "C" void host_group_apply(int G, const int* states, int C, const int* spec,
+                                 const int* cand, int A, int* succ) {
+  const int W = spec[KC_W];
+  for (int c = 0; c < C; ++c)
+    for (int a = 0; a < A; ++a) {
+      const int* s = states + (long long)c * W;
+      int* o = succ + ((long long)c * A + a) * W;
+      for (int w = 0; w < W; ++w) o[w] = s[w];
+      KReconfigFamily::apply(GrpSerial{G}, spec, s, o, cand + 4 * a);
+    }
+}
 extern "C" void host_predicate(const int* states, int C, const int* spec, int id, bool* ok) {
   for (int c = 0; c < C; ++c) ok[c] = KReconfigFamily::predicate(spec, states + c * spec[KC_W], id);
 }
@@ -93,6 +107,7 @@ def lib(tmp_path_factory):
     P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.host_expand.argtypes = [P, I, P, P, I, I, P, P, P, P]
     lib.host_predicate.argtypes = [P, I, P, I, P]
+    lib.host_group_apply.argtypes = [I, P, I, P, P, I, P]
     lib.host_slot_canon.argtypes = [P, ctypes.c_longlong, I, P, P, P, I, P, I, U, U, I, I, I, P]
     return lib
 
@@ -121,6 +136,91 @@ def test_device_actions_match_reference(lib):
     hit = want[1] & want[3]
     for r in (kr.KR_REQUESTVOTE, kr.KR_BECOMELEADER, kr.KR_CLIENTREQUEST, kr.KR_ACCEPT_JOIN):
         assert (hit & (want[2] == r)).any(), r
+
+
+def _existed_rows(tm, rows, want, limit=8):
+    """Copies of ``rows`` in which a voter's fetch that the leader accepts
+    (a valid AcceptFetchRequestFromVoter lane of ``want``, the dense expand
+    of ``rows``) finds its reply already in the bag: the reply (the one key
+    the successor's bag gains) put into a free slot beforehand, count 1.
+    Returns (rows, lanes): each copy's (row, candidate) lane of that fetch,
+    where the branch is disabled and the successor is the state itself."""
+    lay, M = tm.layout, tm.p.msg_slots
+    ws = [lay.sl(f"msg_w{k}") for k in range(tm.n_words)]
+    cs = lay.sl("msg_cnt")
+    cand = tm.kernel_spec("cpu")[1].numpy()
+    succ, valid, rank, _ovf = want
+
+    def keys(r):
+        return [tuple(int(r[w][m]) for w in ws) for m in range(M)]
+
+    out, lanes = [], []
+    for c, a in zip(*np.nonzero(valid & (rank == kr.KR_ACCEPT_FETCH_VOTER))):
+        before = keys(rows[c])
+        new = [k for k in keys(succ[c, a]) if k[0] != EMPTY and k not in before]
+        if len(new) != 1 or before[-1][0] != EMPTY:  # the reply, and a free slot for it
+            continue
+        req = before[cand[a, 1]]
+        count = {k: int(n) for k, n in zip(before, rows[c][cs])}
+        bag = sorted([k for k in before if k[0] != EMPTY] + new)
+        r = rows[c].copy()
+        words = np.full((len(ws), M), EMPTY)
+        words[:, :len(bag)] = np.array(bag).T
+        for k, w in enumerate(ws):
+            r[w] = words[k]
+        r[cs] = [count.get(k, 1) for k in bag] + [0] * (M - len(bag))
+        m = bag.index(req)
+        lanes.append((len(out), int(np.flatnonzero((cand[:, 0] == kr.GROUP_IDS["HandleMessage"])
+                                                   & (cand[:, 1] == m))[0])))
+        out.append(r)
+        if len(out) == limit:
+            break
+    return np.stack(out).astype(np.int32), lanes
+
+
+@functools.lru_cache(maxsize=None)
+def _group_rows():
+    """The rows the group apply is held on: kreconfig_edge_rows of the
+    reachable batch (the reachable rows, chains into full and near-full
+    bags, logs at max_log, every receipt arm, the forced rows),
+    kreconfig_bag_rows (empty and full bags, unused slots with other
+    words) and _existed_rows; with their dense expand and the existed
+    rows' lanes (indices into the whole)."""
+    jm, tm, batch = reachable()
+    rows, want = _edges()
+    bag = kreconfig_bag_rows(tm, batch, seed=4)
+    ex, lanes = _existed_rows(tm, rows, want)
+    more = np.concatenate([bag, ex])
+    mwant = dense_expand(jm, more)
+    base = len(rows) + len(bag)
+    return (np.ascontiguousarray(np.concatenate([rows, more])),
+            [np.concatenate(x) for x in zip(want, mwant)],
+            [(base + i, a) for i, a in lanes])
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+def test_group_apply_matches_reference(lib, G):
+    """``KReconfigFamily::apply``, the action of the card's group apply (a
+    group of G threads a worklist lane), run with ``GrpSerial`` (the G
+    members' shares of each bag put and multi-lane write in turn), against
+    the dense expand bit for bit on every (row, candidate) lane."""
+    _jm, tm, _batch, _dense = _pair()
+    states, want, existed = _group_rows()
+    spec, cand, _ = (np.ascontiguousarray(t.numpy()) for t in tm.kernel_spec("cpu"))
+    C, A, W = len(states), tm.A, tm.layout.W
+    succ = np.zeros((C, A, W), np.int32)
+    lib.host_group_apply(G, _ptr(states), C, _ptr(spec), _ptr(cand), A, _ptr(succ))
+    assert np.array_equal(want[0], succ)
+    # the rows reach the chains' overflows, both FetchResponse log installs,
+    # a join at max_log, and accepted voters' fetches whose reply existed
+    valid, rank, ovf = want[1:]
+    for r in (kr.KR_REQUESTVOTE, kr.KR_BECOMELEADER, kr.KR_ACCEPT_JOIN):
+        assert (valid & ovf & (rank == r)).any(), r
+    for r in (kr.KR_HANDLE_FETCH_OK, kr.KR_HANDLE_FETCH_DIV):
+        assert (valid & (rank == r)).any(), r
+    assert existed
+    for c, a in existed:
+        assert not valid[c, a] and np.array_equal(succ[c, a], states[c])
 
 
 def test_device_predicates_match_reference(lib):
