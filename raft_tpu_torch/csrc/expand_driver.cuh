@@ -256,8 +256,9 @@ static int launch_apply(ApplyKernel kernel, size_t* opted_in, const int* states,
 // member's write and another member's read. A warp a lane, at three
 // resident blocks an SM asked of the register allocator (80 registers a
 // thread, 24 warps an SM): on the card the fastest of tiles of 4 to 32
-// threads; four blocks read mixed against three, with more spills
-// (PERF.md's group-size table).
+// threads for the reconfiguration pair, and for KRaftWithReconfig within
+// 5% of the fastest of tiles of 8 to 32 at 2 to 4 blocks; four blocks read
+// mixed against three, with more spills (PERF.md's tile tables).
 
 #define APPLY_GROUP_THREADS 256
 #define APPLY_GROUP_G 32
