@@ -1057,7 +1057,8 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
     bounds. Returns {kernel: row}."""
     from raft_tpu_torch.checker.util import I32_MAX, compact_indices
     from raft_tpu_torch.ops.expand import (
-        apply, apply_occupancy, apply_plain, fold, fold_plain, guard, guard_plain,
+        apply, apply_occupancy, apply_plain, fold, fold_plain, guard, guard_occupancy,
+        guard_plain,
     )
     from raft_tpu_torch.ops.hashing import INT64_MAX
 
@@ -1136,6 +1137,15 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
                 rank=rank), iters=20),
             bound_ms=fold_bytes / MEM_BPS * 1e3, bound_by="bytes"),
     }
+    occ = guard_occupancy(model)
+    if occ is not None:
+        # the group guard (csrc/expand_driver.cuh EXPAND_KERNELS_GROUP): its
+        # launch shape, and its bound recounted with the operations counted
+        # per key word, 3 a bag slot and key word of each put
+        guard_ops = 3 * M * model.n_words * int(puts)
+        b, by = bound(guard_bytes, guard_ops)
+        rows[f"{fam}_guard"].update(bound_ms=b, bound_by=by, bytes=guard_bytes,
+                                    operations=guard_ops, per="state", **occ)
     occ = apply_occupancy(model)
     if occ is not None:
         # a group apply (csrc/expand_driver.cuh EXPAND_KERNELS_GROUP_APPLY):
@@ -3437,7 +3447,7 @@ def main() -> int:
                  f"{r['warps_per_sm']} warps an SM" if "bound_all_lanes_ms" in r else "")
               + (f"; append_rows {r['rows_ms']:.4f} ms vs plain {r['rows_plain_ms']:.4f}"
                  f" ms, bound {r['rows_bound_ms']:.4f} ms" if "rows_ms" in r else "")
-              + (f"; G {r['G']} threads a lane, {r['warps_per_sm']} warps an SM "
+              + (f"; G {r['G']} threads a {r.get('per', 'lane')}, {r['warps_per_sm']} warps an SM "
                  f"({r['registers']} registers, {r['stack_bytes']} stack bytes a thread); bound "
                  f"from {r['bytes']} bytes ({r['bytes'] / MEM_BPS * 1e3:.4f} ms) and "
                  f"{r['operations']} operations ({r['operations'] / INT32_OPS * 1e3:.4f} ms)"

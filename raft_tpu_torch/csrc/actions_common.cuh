@@ -242,39 +242,27 @@ __device__ void nw_bag_insert(int* words, int* cnt, int M, int nw, const WKey& k
 //   sum(x), any(b) the total over the members, in every member;
 //   sync()         the group's barrier, which also orders the members'
 //                  memory accesses (__syncwarp on the card);
-//   lead()         the member that makes the lane's scalar writes.
-// GrpOne is a group of one (a guard lane, whose puts take nw_bag_probe and
-// nw_bag_insert above); GrpSerial runs G members on one
-// thread (the host build of the tests), accumulating in place, where a
-// round's read, barrier and write run member by member in rank order: that
-// equals the barrier for the shift, since member t reads the slot that
-// member t + 1 writes. The tile lives in expand_driver.cuh.
+//   lead()         the member that makes the lane's scalar writes;
+// and, for the group guard (guard_state below), where each member holds a
+// lane of its own in a slot (member t in slot t - lo(); NM slots a thread):
+//   ballot(bits)   the members' bits (each thread's members' bits at their
+//                  ranks) ORed over the group;
+//   orr(x)         x ORed over the group;
+//   own(u)         the slot of member u in this thread, or -1;
+//   pick_key(rq, u, nw)  member u's key, in every member.
+// GrpOne is a group of one (KRaftWithReconfig's guard lanes, whose puts
+// take nw_bag_probe and nw_bag_insert above); GrpRecord a guard lane of the
+// group guard, run by its member alone, which keeps its put for the group;
+// GrpSerial runs G members on one thread (the host build of the tests),
+// accumulating in place, where a round's read, barrier and write run member
+// by member in rank order: that equals the barrier for the shift, since
+// member t reads the slot that member t + 1 writes. The tile lives in
+// expand_driver.cuh.
 //
 // Keys here are int32 words (IKey): the low 32 bits of WKey's int64 sum,
 // so nw_wrap's result, indexed at compile time only, in registers; MAXW (a
 // family's most key words, NW_MAX_WORDS unless given) bounds the unrolled
 // word loops.
-
-struct GrpOne {
-  __device__ __forceinline__ int lo() const { return 0; }
-  __device__ __forceinline__ int hi() const { return 1; }
-  __device__ __forceinline__ int size() const { return 1; }
-  __device__ __forceinline__ int sum(int x) const { return x; }
-  __device__ __forceinline__ bool any(bool b) const { return b; }
-  __device__ __forceinline__ void sync() const {}
-  __device__ __forceinline__ bool lead() const { return true; }
-};
-
-struct GrpSerial {
-  int G;
-  int lo() const { return 0; }
-  int hi() const { return G; }
-  int size() const { return G; }
-  int sum(int x) const { return x; }
-  bool any(bool b) const { return b; }
-  void sync() const {}
-  bool lead() const { return true; }
-};
 
 struct IKey {
   int w[NW_MAX_WORDS];
@@ -286,6 +274,63 @@ __device__ __forceinline__ IKey nw_ikey() {
 #pragma unroll
   for (int w = 0; w < NW_MAX_WORDS; ++w) k.w[w] = 0;
   return k;
+}
+
+// a guard lane's one bag put, kept for its group to run (guard_state)
+struct PutReq {
+  IKey k;
+  bool want;   // a put of key k; then valid &= !(gate && existed) and
+  bool gate;   // ovf = (overflow || extra) && valid (nw_put_finish)
+  bool extra;
+  bool chain;  // a chain of puts, run by the group (the family's chain)
+};
+
+struct GrpOne {
+  __device__ __forceinline__ int lo() const { return 0; }
+  __device__ __forceinline__ int hi() const { return 1; }
+  __device__ __forceinline__ int size() const { return 1; }
+  __device__ __forceinline__ int sum(int x) const { return x; }
+  __device__ __forceinline__ bool any(bool b) const { return b; }
+  __device__ __forceinline__ void sync() const {}
+  __device__ __forceinline__ bool lead() const { return true; }
+};
+
+struct GrpRecord : GrpOne {
+  PutReq* rq;
+  __device__ __forceinline__ explicit GrpRecord(PutReq* r) : rq(r) {}
+};
+
+struct GrpSerial {
+  static constexpr int NM = 32;  // slots a thread: all G members
+  int G;
+  int lo() const { return 0; }
+  int hi() const { return G; }
+  int size() const { return G; }
+  int sum(int x) const { return x; }
+  bool any(bool b) const { return b; }
+  void sync() const {}
+  bool lead() const { return true; }
+  unsigned ballot(unsigned bits) const { return bits; }
+  unsigned orr(unsigned x) const { return x; }
+  int own(int u) const { return u; }
+  template <int MAXW>
+  IKey pick_key(const PutReq* rq, int u, int) const { return rq[u].k; }
+};
+
+// lowest set bit (1-based, 0 for none) and population count
+__device__ __forceinline__ int grp_ffs(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __ffs(x);
+#else
+  return __builtin_ffs(x);
+#endif
+}
+__device__ __forceinline__ int grp_popc(unsigned x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
 }
 
 template <int MAXW = NW_MAX_WORDS, class Gp>
@@ -317,13 +362,14 @@ __device__ __forceinline__ Put nw_bag_probe_g(Gp g, const int* words, int M, int
 }
 
 // the insert half of wide_bag_put, in place in a successor row, by the
-// whole group; ends with the group's barrier
-template <int MAXW = NW_MAX_WORDS, class Gp>
+// whole group; ends with the group's barrier. CNT false: keys only (a
+// guard's copy of them; cnt unused, p.existed false)
+template <int MAXW = NW_MAX_WORDS, bool CNT = true, class Gp>
 __device__ __forceinline__ void nw_bag_insert_g(Gp g, int* words, int* cnt, int M, int nw,
                                                 const IKey& k, const Put& p) {
   const int G = g.size();
   g.sync();  // the lane's earlier writes (the receipt's Discard) before the reads
-  if (p.existed) {
+  if (CNT && p.existed) {
     for (int t = g.lo(); t < g.hi(); ++t)
       for (int m = t; m < M; m += G) {
         bool eq = true;
@@ -342,21 +388,21 @@ __device__ __forceinline__ void nw_bag_insert_g(Gp g, int* words, int* cnt, int 
       if (x > p.pos) {
 #pragma unroll
         for (int w = 0; w < MAXW; ++w) v[w] = w < nw ? words[w * M + x - 1] : 0;
-        c = cnt[x - 1];
+        if (CNT) c = cnt[x - 1];
       }
       g.sync();  // every member's read of the round before any write
       if (x > p.pos) {
 #pragma unroll
         for (int w = 0; w < MAXW; ++w)
           if (w < nw) words[w * M + x] = v[w];
-        cnt[x] = c;
+        if (CNT) cnt[x] = c;
       }
     }
   if (p.pos < M && g.lead()) {  // slot pos was read before the last round's barrier
 #pragma unroll
     for (int w = 0; w < MAXW; ++w)
       if (w < nw) words[w * M + p.pos] = k.w[w];
-    cnt[p.pos] = 1;
+    if (CNT) cnt[p.pos] = 1;
   }
   g.sync();
 }
@@ -368,10 +414,131 @@ __device__ __forceinline__ void grp_for(Gp g, int n, Fn f) {
     for (int u = t; u < n; u += g.size()) f(u);
 }
 
+// A lane's one bag put as its action reads it: existed and overflow on the
+// bag before the put; a message that exists disables a send-once lane
+// (gate), and extra is an overflow besides the bag's (a log at max_log)
+__device__ __forceinline__ void nw_put_finish(Guard& gd, const Put& p, bool gate, bool extra) {
+  gd.valid = gd.valid && !(gate && p.existed);
+  gd.ovf = (p.overflow || extra) && gd.valid;
+}
+// the probe by the group of the lane (the apply), or, for a GrpRecord guard
+// lane, the put kept for the group guard (the lane finishes in guard_state)
+template <int MAXW, class Gp>
+__device__ __forceinline__ Put nw_put(Gp g, const int* words, int M, int nw, const IKey& k,
+                                      Guard& gd, bool gate, bool extra) {
+  const Put p = nw_bag_probe_g<MAXW>(g, words, M, nw, k);
+  nw_put_finish(gd, p, gate, extra);
+  return p;
+}
+template <int MAXW>
+__device__ __forceinline__ Put nw_put(GrpRecord g, const int*, int, int, const IKey& k, Guard&,
+                                      bool gate, bool extra) {
+  g.rq->k = k;
+  g.rq->want = true;
+  g.rq->gate = gate;
+  g.rq->extra = extra;
+  return Put{false, false, 0};
+}
+
+// ---- the group guard's work on one state ----
+//
+// A group of G members (expand_driver.cuh's tile on the card, GrpSerial on
+// the host) takes one state's A candidate lanes in rounds, member t the
+// lanes t, t + G, ... Each round every member runs its own lane alone
+// (F::lane: the action with a GrpRecord, its scalar part, the put it makes
+// kept as a PutReq); then the group runs the round's puts one after
+// another in rank order (the key passed round from its member, the probe
+// split over the group on the state's bag, the lane finished by its
+// member: nw_put_finish), then the round's chains (F::chain, on the
+// group's `scratch`). Writes lane a's valid (masked by live), rank and ovf
+// at valid[a], rank[a], ovf[a], hands each rank's valid lanes of a round to
+// fired(k, n) (in the lead) and returns the state's sums, the same in every
+// member. F gives the spec's indices of A, K, M, NW and the bag (I_A, I_K,
+// I_M, I_NW, I_BAG) and its most key words (MAX_WORDS).
+struct GuardSums {
+  unsigned en;  // the ranks of the valid lanes
+  int n_valid;  // valid lanes
+  bool ovf;     // a valid lane overflows
+};
+
+template <class F, class Gp, class Fired>
+__device__ __forceinline__ GuardSums guard_state(Gp g, const int* sp, const int* s,
+                                                 const int* cand, bool live, int* scratch,
+                                                 bool* valid, int* rank, bool* ovf, Fired fired) {
+  constexpr int NM = Gp::NM, MAXW = F::MAX_WORDS;
+  const int G = g.size(), A = sp[F::I_A], K = sp[F::I_K];
+  const int M = sp[F::I_M], NW = sp[F::I_NW];
+  const int* words = s + sp[F::I_BAG];
+  GuardSums sums{0u, 0, false};
+  for (int a0 = 0; a0 < A; a0 += G) {
+    Guard gd[NM];
+    PutReq rq[NM];
+    unsigned want = 0, chain = 0;
+    for (int t = g.lo(); t < g.hi(); ++t) {  // each member's own lane, alone
+      const int x = t - g.lo();
+      rq[x].want = rq[x].chain = false;
+      gd[x] = a0 + t < A ? F::lane(sp, s, cand + 4 * (a0 + t), rq[x]) : Guard{false, -1, false};
+      want |= (unsigned)rq[x].want << t;
+      chain |= (unsigned)rq[x].chain << t;
+    }
+    for (unsigned need = g.ballot(want); need; need &= need - 1) {  // the puts, in turn
+      const int u = grp_ffs(need) - 1;
+      const Put p =
+          nw_bag_probe_g<MAXW>(g, words, M, NW, g.template pick_key<MAXW>(rq, u, NW));
+      const int x = g.own(u);
+      if (x >= 0) nw_put_finish(gd[x], p, rq[x].gate, rq[x].extra);
+    }
+    for (unsigned need = g.ballot(chain); need; need &= need - 1) {  // the chains, in turn
+      const int u = grp_ffs(need) - 1;
+      Guard c{true, 0, false};
+      F::chain(g, sp, s, cand + 4 * (a0 + u), scratch, c);
+      const int x = g.own(u);
+      if (x >= 0) {
+        gd[x].valid = gd[x].valid && c.valid;
+        gd[x].ovf = c.ovf && gd[x].valid;
+      }
+    }
+    unsigned vm = 0, en = 0;
+    bool o = false;
+    for (int t = g.lo(); t < g.hi(); ++t) {
+      const int x = t - g.lo(), a = a0 + t;
+      if (a >= A) continue;
+      const bool v = gd[x].valid && live;
+      valid[a] = v;
+      rank[a] = gd[x].rank;
+      ovf[a] = gd[x].ovf;
+      if (v) {
+        vm |= 1u << t;
+        o = o || gd[x].ovf;
+        if (gd[x].rank >= 0 && gd[x].rank < K) en |= 1u << gd[x].rank;
+      }
+    }
+    vm = g.ballot(vm);
+    en = g.orr(en);
+    const bool round_ovf = g.any(o);
+    sums.n_valid += grp_popc(vm);
+    sums.en |= en;
+    sums.ovf = sums.ovf || round_ovf;
+    for (unsigned e = en; e; e &= e - 1) {  // fired: the round's valid lanes of each rank
+      const int k = grp_ffs(e) - 1;
+      unsigned hit = 0;
+      for (int t = g.lo(); t < g.hi(); ++t) {
+        const int x = t - g.lo();
+        hit |= (unsigned)(a0 + t < A && gd[x].valid && live && gd[x].rank == k) << t;
+      }
+      const int n = grp_popc(g.ballot(hit));
+      if (g.lead()) fired(k, n);
+    }
+  }
+  return sums;
+}
+
 // ---- a put in the guard's form or the apply's ----
 //
-// Two forms, picked by the action's WRITE. The guard (a group of one) keeps
-// the forms it had before the group apply: an int64 WKey indexed by a spec
+// Two forms, picked by the action's WRITE (KRaftWithReconfig's actions; the
+// reconfiguration pair's take IKey in both, config_actions.cuh). The guard
+// (a group of one) keeps the forms it had before the group apply: an int64
+// WKey indexed by a spec
 // word and wrapped to int32 before its put, key words in an int array read
 // at a runtime index, the serial nw_bag_probe and nw_bag_insert; a few bytes
 // of stack, and the registers (so the occupancy) of its one-thread lanes stay

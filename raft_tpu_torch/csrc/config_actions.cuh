@@ -19,18 +19,19 @@
 // kraft_actions.cuh: with WRITE false it computes only (valid, rank, ovf)
 // and writes no successor lane; with WRITE true it also writes the
 // successor row `o`, a copy of the state `s` made by the caller, lane by
-// changed lane. Each also takes a group of threads (actions_common.cuh:
-// GrpOne for a guard lane, a warp tile for the apply, GrpSerial in the
-// host tests): every member computes the scalar part on the same inputs,
-// the lead member makes the scalar writes, and the bag put and the log
-// installs are split over the members. RequestVote(i) puts a chain of up
-// to S - 1 messages (one per member), each put acting on the bag the
-// previous one left, a put that finds its message disabling the action
-// (SendMultipleOnce); its guard lane replays the chain on its own copy of
-// the bag's key words (ConfigFamily gives each RequestVote lane of a state
-// a slot of CR_MAX_WORDS * M ints). The apply's keys, key words and logs
-// are read and built with compile-time indices only (IKey, cr_unpack,
-// CrInstall), so they stay in registers.
+// changed lane. Each also takes a group of threads (actions_common.cuh: a
+// warp tile for the apply, GrpSerial in the host tests): every member
+// computes the scalar part on the same inputs, the lead member makes the
+// scalar writes, and the bag put and the log installs are split over the
+// members. The guard runs a lane with a GrpRecord, a group of one that
+// keeps the lane's put (nw_put) for the group guard (actions_common.cuh
+// guard_state), which runs it split over its tile. RequestVote(i) puts a
+// chain of up to S - 1 messages (one per member), each put acting on the
+// bag the previous one left, a put that finds its message disabling the
+// action (SendMultipleOnce); the group guard replays a lane's chain on its
+// tile's one copy of the bag's key words (ConfigFamily::chain). Keys, key
+// words and logs are read and built with compile-time indices only (IKey,
+// cr_unpack, CrInstall), so they stay in registers.
 //
 // Message keys are N int32 words (N = the spec's NW, at most CR_MAX_WORDS):
 // a key is the SUM of (value << shift) into its word, computed in int32;
@@ -130,17 +131,8 @@ __device__ __forceinline__ int cr_lane(const int* row, int L, int l) {  // clamp
 }
 
 // ---- message keys (ops/packing.py WidePacker) ----
-//
-// In the guard's form or the apply's (actions_common.cuh NwForm), picked by
-// the action's WRITE.
-
-template <bool WRITE>
-using CrForm = NwForm<WRITE, CR_MAX_WORDS>;
 
 // add v << shift into the key's word at the triple of field f
-__device__ __forceinline__ void cr_pack(const int* sp, WKey& k, int f, long long v) {
-  nw_pack_q(sp + CS_MSG + 3 * f, k, v);
-}
 __device__ __forceinline__ void cr_pack(const int* sp, IKey& k, int f, int v) {
   nw_pack_q<CR_MAX_WORDS>(sp + CS_MSG + 3 * f, k, v);
 }
@@ -260,50 +252,61 @@ __device__ bool cr_restart(Gp g, const int* sp, const int* s, int* o, int i) {
 
 // RequestVote(i) — JointConsensus :431-450 / AddRemove :425-444:
 // member-only; a RequestVoteRequest to each member, SendMultipleOnce
-template <bool WRITE, class Gp>
-__device__ Guard cr_request_vote(Gp g, const int* sp, const int* s, int* o, int i, int* bag) {
+__device__ __forceinline__ Guard cr_rv_gate(const int* sp, const int* s, int i) {
+  const int st = s[CFLD(ST) + i];
+  return Guard{s[CFLD(ECTR)] < CFLD(MAX_ELECTIONS) && (st == CR_FOLLOWER || st == CR_CANDIDATE) &&
+                   cr_bit(s[CFLD(CMEM) + i], i),
+               CK_REQUESTVOTE, false};
+}
+
+// RequestVote(i)'s chain of puts, one a member j != i in turn, each on the
+// bag the one before left: in place in the successor's `words` and `cnt`
+// (the apply), or, with CNT false, in a guard tile's copy of the state's
+// key words (cnt unused), where it stops at the first message that exists.
+// gd.valid falls when a put finds its message; gd.ovf: a put overflowed.
+template <bool CNT, class Gp>
+__device__ __forceinline__ void cr_rv_chain(Gp g, const int* sp, const int* s, int i, int* words,
+                                            int* cnt, Guard& gd) {
   const int S = CFLD(S), L = CFLD(L), M = CFLD(M), NW = CFLD(NW);
-  const int st = s[CFLD(ST) + i], members = s[CFLD(CMEM) + i];
-  Guard gd{s[CFLD(ECTR)] < CFLD(MAX_ELECTIONS) && (st == CR_FOLLOWER || st == CR_CANDIDATE) &&
-               cr_bit(members, i),
-           CK_REQUESTVOTE, false};
-  if (!WRITE && !gd.valid) return gd;  // ovf is masked by valid
+  const int members = s[CFLD(CMEM) + i];
   const int new_term = s[CFLD(CT) + i] + 1;
   const int ll = s[CFLD(LL) + i];
   const int last_t = ll > 0 ? cr_lane(cr_log(sp, s, E_TERM, i), L, ll - 1) : 0;
-  int* words;
-  int* cnt = nullptr;
-  if (WRITE) {
-    words = o + CFLD(W0);
-    cnt = o + CFLD(CNT);
-  } else {
-    words = bag;
-    for (int t = 0; t < NW * M; ++t) bag[t] = s[CFLD(W0) + t];
-  }
   bool ovf = false;
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
     if (!cr_bit(members, j)) continue;
-    typename CrForm<WRITE>::Key k;
-    nw_key_init(k);
+    IKey k = nw_ikey();
     cr_pack(sp, k, CF_MTYPE, CR_RVREQ);
     cr_pack(sp, k, CF_MTERM, new_term);
     cr_pack(sp, k, CF_MLASTLOGTERM, last_t);
     cr_pack(sp, k, CF_MLASTLOGINDEX, ll);
     cr_pack(sp, k, CF_MSOURCE, i);
     cr_pack(sp, k, CF_MDEST, j);
-    const Put p = nw_probe<CR_MAX_WORDS>(g, words, M, NW, k);  // on the bag the last put left
+    const Put p = nw_bag_probe_g<CR_MAX_WORDS>(g, words, M, NW, k);  // on the bag the last put left
     gd.valid = gd.valid && !p.existed;
     ovf = ovf || p.overflow;
-    nw_insert<CR_MAX_WORDS>(g, words, cnt, M, NW, k, p);
+    if (!CNT && !gd.valid) break;
+    nw_bag_insert_g<CR_MAX_WORDS, CNT>(g, words, cnt, M, NW, k, p);
   }
   gd.ovf = ovf && gd.valid;
-  if (WRITE && g.lead()) {
-    o[CFLD(ST) + i] = CR_CANDIDATE;
-    o[CFLD(CT) + i] = new_term;
-    o[CFLD(VF) + i] = i + 1;
-    o[CFLD(VG) + i] = 1 << i;
-    o[CFLD(ECTR)] = s[CFLD(ECTR)] + 1;
+}
+
+// the guard (a GrpRecord lane): the gate, the chain left to the group guard
+template <bool WRITE, class Gp>
+__device__ Guard cr_request_vote(Gp g, const int* sp, const int* s, int* o, int i) {
+  Guard gd = cr_rv_gate(sp, s, i);
+  if constexpr (!WRITE) {
+    g.rq->chain = gd.valid;
+  } else {
+    cr_rv_chain<true>(g, sp, s, i, o + CFLD(W0), o + CFLD(CNT), gd);
+    if (g.lead()) {
+      o[CFLD(ST) + i] = CR_CANDIDATE;
+      o[CFLD(CT) + i] = s[CFLD(CT) + i] + 1;
+      o[CFLD(VF) + i] = i + 1;
+      o[CFLD(VG) + i] = 1 << i;
+      o[CFLD(ECTR)] = s[CFLD(ECTR)] + 1;
+    }
   }
   return gd;
 }
@@ -375,8 +378,7 @@ __device__ Guard cr_append_entries(Gp g, const int* sp, const int* s, int* o, in
   const int epos = ra_clamp(ni - 1, 0, L - 1);
   const int ci = s[CFLD(CI) + i];
   const int mci = ci < last_entry ? ci : last_entry;
-  typename CrForm<WRITE>::Key k;
-  nw_key_init(k);
+  IKey k = nw_ikey();
   cr_pack(sp, k, CF_MTYPE, CR_AEREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MPREVLOGINDEX, prev_idx > 0 ? prev_idx : 0);
@@ -386,9 +388,7 @@ __device__ Guard cr_append_entries(Gp g, const int* sp, const int* s, int* o, in
   cr_pack(sp, k, CF_MSOURCE, i);
   cr_pack(sp, k, CF_MDEST, j);
   for (int e = 0; e < NE; ++e) cr_pack(sp, k, CF_E + e, nent ? cr_log(sp, s, e, i)[epos] : 0);
-  const Put p = nw_probe<CR_MAX_WORDS>(g, s + CFLD(W0), M, NW, k);
-  gd.valid = gd.valid && (nent > 0 || !p.existed);
-  gd.ovf = p.overflow && gd.valid;
+  const Put p = nw_put<CR_MAX_WORDS>(g, s + CFLD(W0), M, NW, k, gd, nent == 0, false);
   if (WRITE) {
     if (g.lead()) o[CFLD(PR) + i] = pr | (1 << j);
     nw_insert<CR_MAX_WORDS>(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
@@ -408,8 +408,7 @@ __device__ Guard cr_send_snapshot(Gp g, const int* sp, const int* s, int* o, int
            CK_SENDSNAP, false};
   if (!WRITE && !gd.valid) return gd;
   const int ll = s[CFLD(LL) + i];
-  typename CrForm<WRITE>::Key k;
-  nw_key_init(k);
+  IKey k = nw_ikey();
   cr_pack(sp, k, CF_MTYPE, CR_SNAPREQ);
   cr_pack(sp, k, CF_MTERM, s[CFLD(CT) + i]);
   cr_pack(sp, k, CF_MCOMMITINDEX, s[CFLD(CI) + i]);
@@ -420,8 +419,7 @@ __device__ Guard cr_send_snapshot(Gp g, const int* sp, const int* s, int* o, int
   for (int l = 0; l < L; ++l)
     for (int e = 0; e < NE; ++e)
       cr_pack(sp, k, CF_LOG + l * CR_SLOTS + e, l < ll ? cr_log(sp, s, e, i)[l] : 0);
-  const Put p = nw_probe<CR_MAX_WORDS>(g, s + CFLD(W0), M, NW, k);
-  gd.ovf = p.overflow && gd.valid;
+  const Put p = nw_put<CR_MAX_WORDS>(g, s + CFLD(W0), M, NW, k, gd, false, false);
   if (WRITE) {
     if (g.lead()) o[CFLD(NI) + i * S + j] = CR_PENDING_SNAP_RESPONSE;
     nw_insert<CR_MAX_WORDS>(g, o + CFLD(W0), o + CFLD(CNT), M, NW, k, p);
@@ -677,7 +675,7 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
   const int S = CFLD(S), L = CFLD(L), M = CFLD(M), NW = CFLD(NW), NE = CFLD(NE);
   const bool lw = WRITE && g.lead();
   Guard gd{false, -1, false};
-  typename CrForm<WRITE>::Words kw;
+  IKey kw;
   cr_key_words(sp, s, m, kw);
   if (kw[0] == RA_EMPTY) return gd;
   const int mtype = cr_unpack(sp, kw, CF_MTYPE), mterm = cr_unpack(sp, kw, CF_MTERM);
@@ -700,8 +698,7 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
   const int mci = cr_unpack(sp, kw, CF_MCOMMITINDEX);
 
   bool putb = false, dropb = false, ovf_extra = false;
-  typename CrForm<WRITE>::Key k;
-  nw_key_init(k);
+  IKey k = nw_ikey();
   // the log the receipt installs (accept or snapshot): its length, and
   // how it differs from the destination's (CrInstall)
   bool install = false, snapshot = false, appending = false;
@@ -787,9 +784,9 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
     gd.rank = -1;
     return gd;
   }
+  gd.ovf = ovf_extra;
   Put p{false, false, 0};
-  if (putb) p = nw_probe<CR_MAX_WORDS>(g, s + CFLD(W0), M, NW, k);
-  gd.ovf = (putb && p.overflow) || ovf_extra;
+  if (putb) p = nw_put<CR_MAX_WORDS>(g, s + CFLD(W0), M, NW, k, gd, false, ovf_extra);
 
   if constexpr (WRITE) {  // the apply's successor (its key words an IKey)
     if (lw) {
@@ -835,14 +832,13 @@ __device__ Guard cr_handle_message(Gp g, const int* sp, const int* s, int* o, in
 }
 
 // One candidate (a row of the model's candidate table) of one state, by
-// the group g; `bag` is a RequestVote guard lane's scratch (NW * M ints),
-// unused otherwise.
+// the group g (a GrpRecord for the guard).
 template <bool J, bool WRITE, class Gp>
-__device__ Guard cr_action(Gp g, const int* sp, const int* s, int* o, const int* cd, int* bag) {
+__device__ Guard cr_action(Gp g, const int* sp, const int* s, int* o, const int* cd) {
   const int p0 = cd[1], p1 = cd[2];
   switch (cd[0]) {
     case CG_RESTART: return Guard{cr_restart<WRITE>(g, sp, s, o, p0), cd[3], false};
-    case CG_REQUEST_VOTE: return cr_request_vote<WRITE>(g, sp, s, o, p0, bag);
+    case CG_REQUEST_VOTE: return cr_request_vote<WRITE>(g, sp, s, o, p0);
     case CG_BECOME_LEADER:
       return Guard{cr_become_leader<J, WRITE>(g, sp, s, o, p0), cd[3], false};
     case CG_CLIENT_REQUEST: return cr_client_request<J, WRITE>(g, sp, s, o, p0, p1);
@@ -1039,29 +1035,38 @@ __device__ bool cr_predicate(const int* sp, const int* s, int id) {
 }
 
 // A reconfiguration spec as the kernel drivers see it (J: JointConsensus):
-// where its spec keeps the sizes, the guard scratch of a state (a slot of
-// CR_MAX_WORDS * M ints for each RequestVote lane), its actions and its
+// where its spec keeps the sizes and the bag, its guard lanes and chains
+// (the group guard, expand_driver.cuh guard_group_body over
+// actions_common.cuh guard_state), its actions (the group apply) and its
 // predicates.
 template <bool J>
 struct ConfigFamily {
   static constexpr int SPEC_LEN = CS_LEN;
-  static constexpr int BAG_WORDS = CR_MAX_WORDS;  // the most key words of a bag
+  static constexpr int MAX_WORDS = CR_MAX_WORDS;  // the most key words of a bag
   static constexpr int I_S = CS_S, I_M = CS_M, I_W = CS_W, I_A = CS_A, I_K = CS_K;
-  __host__ __device__ __forceinline__ static int scratch_slots(int S) { return S; }
-  __device__ __forceinline__ static int scratch_slot(const int* cd) {
-    return cd[0] == CG_REQUEST_VOTE ? cd[1] : -1;
+  static constexpr int I_NW = CS_NW, I_BAG = CS_W0;
+  // one candidate's guard, run by its member alone: (valid, rank, ovf) but
+  // for its put, kept in rq
+  __device__ __forceinline__ static Guard lane(const int* sp, const int* s, const int* cd,
+                                               PutReq& rq) {
+    return cr_action<J, false>(GrpRecord(&rq), sp, s, nullptr, cd);
   }
-  template <bool WRITE>
-  __device__ __forceinline__ static Guard action(const int* sp, const int* s, int* o,
-                                                 const int* cd, int* bag) {
-    return cr_action<J, WRITE>(GrpOne{}, sp, s, o, cd, bag);
+  // RequestVote's chain of the lane cd by the group g, on its copy of the
+  // state's key words in `scratch` (NW * M ints): gd.valid and gd.ovf
+  template <class Gp>
+  __device__ __forceinline__ static void chain(Gp g, const int* sp, const int* s, const int* cd,
+                                               int* scratch, Guard& gd) {
+    g.sync();  // the group's reads of the last chain's copy before this one
+    grp_for(g, CFLD(NW) * CFLD(M), [&](int u) { scratch[u] = s[CFLD(W0) + u]; });
+    g.sync();
+    cr_rv_chain<false>(g, sp, s, cd[1], scratch, nullptr, gd);
   }
   // the successor row `o` (a copy of `s`) of one candidate, by the group g
   // of threads that shares the lane (expand_driver.cuh's group apply)
   template <class Gp>
   __device__ __forceinline__ static void apply(Gp g, const int* sp, const int* s, int* o,
                                                const int* cd) {
-    cr_action<J, true>(g, sp, s, o, cd, nullptr);
+    cr_action<J, true>(g, sp, s, o, cd);
   }
   __device__ __forceinline__ static bool invariant(const int* sp, const int* s, int id) {
     return cr_predicate<J>(sp, s, id);

@@ -39,9 +39,10 @@
 // A family's source instantiates both with EXPAND_KERNELS(prefix, Family),
 // which defines the kernels prefix_guard_kernel and prefix_apply_kernel
 // and their C launchers prefix_guard and prefix_apply. A family with wide
-// rows and long per-lane work (the reconfiguration pair, KRaftWithReconfig)
-// takes EXPAND_KERNELS_GROUP_APPLY(prefix, Family) instead: the same guard,
-// and the group apply below, a warp a worklist lane.
+// rows and long per-lane work takes the group apply below, a warp a
+// worklist lane: KRaftWithReconfig with the same guard
+// (EXPAND_KERNELS_GROUP_APPLY), the reconfiguration pair with the group
+// guard below too, a tile of threads a state (EXPAND_KERNELS_GROUP).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -281,6 +282,23 @@ struct GrpTile {
   __device__ __forceinline__ bool any(bool b) const { return tile.any(b); }
   __device__ __forceinline__ void sync() const { tile.sync(); }
   __device__ __forceinline__ bool lead() const { return tile.thread_rank() == 0; }
+  // the group guard's (actions_common.cuh guard_state): a thread is one
+  // member, in slot 0
+  static constexpr int NM = 1;
+  __device__ __forceinline__ unsigned ballot(unsigned bits) const { return tile.ballot(bits != 0); }
+  __device__ __forceinline__ unsigned orr(unsigned x) const {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1) x |= tile.shfl_xor(x, o);
+    return x;
+  }
+  __device__ __forceinline__ int own(int u) const { return u == (int)tile.thread_rank() ? 0 : -1; }
+  template <int MAXW>
+  __device__ __forceinline__ IKey pick_key(const PutReq* rq, int u, int nw) const {
+    IKey k;
+#pragma unroll
+    for (int w = 0; w < MAXW; ++w) k.w[w] = w < nw ? tile.shfl(rq[0].k.w[w], u) : 0;
+    return k;
+  }
 };
 
 // dst[0, W) = src[0, W) (src null: zeros) by member t of G
@@ -363,10 +381,8 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
   return 0;
 }
 
-// EXPAND_KERNELS with the group apply in place of apply_body (the guard is
-// the same), plus the launcher P_apply_occupancy.
-#define EXPAND_KERNELS_GROUP_APPLY(P, F)                                                      \
-  EXPAND_GUARD(P, F)                                                                          \
+// the group apply's kernel and its launchers P_apply and P_apply_occupancy
+#define EXPAND_APPLY_GROUP(P, F)                                                              \
   __global__ void __launch_bounds__(APPLY_GROUP_THREADS, APPLY_GROUP_BLOCKS)                  \
       P##_apply_kernel(const int* __restrict__ states, int C, const int* __restrict__ sel,    \
                        int VC, const int* __restrict__ spec, const int* __restrict__ cand,    \
@@ -381,6 +397,171 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
   extern "C" int P##_apply_occupancy(int* out) {                                              \
     return apply_group_occupancy(P##_apply_kernel, out);                                      \
   }
+
+// EXPAND_KERNELS with the group apply in place of apply_body (the guard is
+// the same)
+#define EXPAND_KERNELS_GROUP_APPLY(P, F) \
+  EXPAND_GUARD(P, F)                     \
+  EXPAND_APPLY_GROUP(P, F)
+
+// ---- the group guard: a tile of threads a state ----
+//
+// For the reconfiguration pair (a Family with lane(sp, s, cd, rq) and
+// chain(g, sp, s, cd, scratch, gd), the spec indices guard_state reads and
+// MAX_WORDS). A block of GUARD_GROUP_THREADS threads holds
+// GUARD_GROUP_THREADS / GUARD_GROUP_G tiles, one state each, and stages the
+// spec vector and one chain scratch a tile (MAX_WORDS * M ints: the
+// launcher's arguments do not carry the spec's NW, so a copy of NW * M ints
+// is made in a slot sized for the most words); the state row is read
+// straight from global memory through the cache. The tile runs
+// actions_common.cuh's guard_state: member t the candidate lanes t, t + G,
+// ... (the candidate table holds each action group as one run, so a
+// round's members mostly share an arm), each bag probe split over the tile
+// (M / G slots a member), RequestVote's chains one after another on the
+// tile's copy; the state's valid lanes, enabled ranks and terminal flag by
+// ballots and shuffles, one shared atomic a tile for each, and the
+// block's sums to cov and scal with one atomic each.
+
+#ifndef GUARD_GROUP_G
+#define GUARD_GROUP_G 32
+#endif
+#ifndef GUARD_GROUP_BLOCKS
+#define GUARD_GROUP_BLOCKS 3
+#endif
+#ifndef GUARD_GROUP_STAGE
+#define GUARD_GROUP_STAGE 0
+#endif
+#define GUARD_GROUP_THREADS 256
+
+template <class F>
+__device__ __forceinline__ void guard_group_body(const int* __restrict__ states, int C,
+                                                 int n_live, const int* __restrict__ spec,
+                                                 const int* __restrict__ cand,
+                                                 bool* __restrict__ valid, int* __restrict__ rank,
+                                                 bool* __restrict__ ovf,
+                                                 unsigned long long* __restrict__ scal,
+                                                 unsigned long long* __restrict__ cov) {
+  constexpr int G = GUARD_GROUP_G, T = GUARD_GROUP_THREADS / G;
+  extern __shared__ int smem[];
+  int* sp = smem;
+  int* scratch = smem + F::SPEC_LEN;  // T x MAX_WORDS * M chain copies
+  __shared__ int en_n[RA_MAX_K], fired[RA_MAX_K];
+  __shared__ int n_gen, term, any_ovf;
+  for (int t = threadIdx.x; t < F::SPEC_LEN; t += blockDim.x) sp[t] = spec[t];
+  for (int t = threadIdx.x; t < RA_MAX_K; t += blockDim.x) en_n[t] = fired[t] = 0;
+  if (threadIdx.x == 0) n_gen = term = any_ovf = 0;
+  __syncthreads();
+  const int W = sp[F::I_W], A = sp[F::I_A], M = sp[F::I_M], K = sp[F::I_K];
+  const GrpTile<G> g{cg::tiled_partition<G>(cg::this_thread_block())};
+  const int tl = threadIdx.x / G;
+  const int c = blockIdx.x * T + tl;
+  if (c < C) {  // the whole tile
+    const long long lane0 = (long long)c * A;
+    const bool live = c < n_live;
+    const int* row = states + (long long)c * W;
+#if GUARD_GROUP_STAGE
+    int* staged = scratch + T * F::MAX_WORDS * M + tl * W;
+    grp_copy_row<G>(staged, row, W, (int)g.tile.thread_rank());
+    g.sync();
+    row = staged;
+#endif
+    const GuardSums r = guard_state<F>(
+        g, sp, row, cand, live, scratch + tl * F::MAX_WORDS * M,
+        valid + lane0, rank + lane0, ovf + lane0, [&](int k, int n) { atomicAdd(&fired[k], n); });
+    if (g.lead()) {
+      if (r.n_valid) atomicAdd(&n_gen, r.n_valid);
+      if (live && !r.n_valid) atomicAdd(&term, 1);
+      if (r.ovf) any_ovf = 1;
+      for (unsigned e = r.en; e; e &= e - 1) atomicAdd(&en_n[__ffs(e) - 1], 1);
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    if (en_n[k]) atomicAdd(&cov[3 * k + 0], (unsigned long long)en_n[k]);
+    if (fired[k]) atomicAdd(&cov[3 * k + 1], (unsigned long long)fired[k]);
+  }
+  if (threadIdx.x == 0) {
+    if (n_gen) atomicAdd(&scal[0], (unsigned long long)n_gen);
+    if (term) atomicAdd(&scal[1], (unsigned long long)term);
+    if (any_ovf) atomicOr(&scal[2], 1ull);
+  }
+}
+
+// the group guard's dynamic shared memory at M message slots and W lanes
+template <class F>
+static size_t guard_group_smem(int M, int W) {
+  return sizeof(int) * (F::SPEC_LEN + (size_t)(GUARD_GROUP_THREADS / GUARD_GROUP_G) *
+                                          (F::MAX_WORDS * M + GUARD_GROUP_STAGE * W));
+}
+
+// launch_guard's contract (the same arguments; S unused)
+template <class F>
+static int launch_guard_group(GuardKernel kernel, size_t* opted_in, const int* states, int C,
+                              int n_live, const int* spec, int spec_len, const int* cand, int A,
+                              int W, int K, int M, bool* valid, int* rank, bool* ovf, long long* scal,
+                              long long* cov, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (spec_len != F::SPEC_LEN || K > RA_MAX_K || A <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(scal, 0, 3 * sizeof(long long), s);
+  if (e != cudaSuccess) return (int)e;
+  if (C <= 0) return 0;
+  const size_t smem = guard_group_smem<F>(M, W);
+  e = opt_in((const void*)kernel, smem, opted_in);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int T = GUARD_GROUP_THREADS / GUARD_GROUP_G;
+  kernel<<<(C + T - 1) / T, GUARD_GROUP_THREADS, smem, s>>>(
+      states, C, n_live, spec, cand, T, valid, rank, ovf, (unsigned long long*)scal,
+      (unsigned long long*)cov);
+  return (int)cudaGetLastError();
+}
+
+// What the group guard's build reaches at M message slots and W lanes: out = {G,
+// threads a block, resident blocks an SM, warps an SM, registers a thread,
+// local (stack) bytes a thread}.
+static int guard_group_occupancy(GuardKernel kernel, size_t* opted_in, size_t smem, int* out) {
+  cudaError_t e = opt_in((const void*)kernel, smem, opted_in);
+  if (e != cudaSuccess) return (int)e;
+  int nb;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, (const void*)kernel,
+                                                    GUARD_GROUP_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes fa;
+  e = cudaFuncGetAttributes(&fa, (const void*)kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = GUARD_GROUP_G;
+  out[1] = GUARD_GROUP_THREADS;
+  out[2] = nb;
+  out[3] = nb * GUARD_GROUP_THREADS / 32;
+  out[4] = fa.numRegs;
+  out[5] = (int)fa.localSizeBytes;
+  return 0;
+}
+
+// The group guard and the group apply, with the launchers P_guard,
+// P_guard_occupancy(M, W, out), P_apply and P_apply_occupancy.
+#define EXPAND_KERNELS_GROUP(P, F)                                                            \
+  __global__ void __launch_bounds__(GUARD_GROUP_THREADS, GUARD_GROUP_BLOCKS)                  \
+      P##_guard_kernel(const int* __restrict__ states, int C, int n_live,                     \
+                       const int* __restrict__ spec, const int* __restrict__ cand, int,       \
+                       bool* __restrict__ valid, int* __restrict__ rank,                      \
+                       bool* __restrict__ ovf, unsigned long long* __restrict__ scal,         \
+                       unsigned long long* __restrict__ cov) {                                \
+    guard_group_body<F>(states, C, n_live, spec, cand, valid, rank, ovf, scal, cov);          \
+  }                                                                                           \
+  static size_t P##_guard_opted_in = 48 * 1024; /* dynamic shared memory allowed so far */    \
+  extern "C" int P##_guard(const int* states, int C, int n_live, const int* spec,             \
+                           int spec_len, const int* cand, int A, int W, int K, int, int M,    \
+                           bool* valid, int* rank, bool* ovf, long long* scal, long long* cov, \
+                           void* stream) {                                                    \
+    return launch_guard_group<F>(P##_guard_kernel, &P##_guard_opted_in, states, C, n_live,    \
+                                 spec, spec_len, cand, A, W, K, M, valid, rank, ovf, scal,    \
+                                 cov, stream);                                                \
+  }                                                                                           \
+  extern "C" int P##_guard_occupancy(int M, int W, int* out) {                                \
+    return guard_group_occupancy(P##_guard_kernel, &P##_guard_opted_in,                       \
+                                 guard_group_smem<F>(M, W), out);                             \
+  }                                                                                           \
+  EXPAND_APPLY_GROUP(P, F)
 
 #define EXPAND_GUARD(P, F)                                                                    \
   __global__ void P##_guard_kernel(const int* __restrict__ states, int C, int n_live,         \

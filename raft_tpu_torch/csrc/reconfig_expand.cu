@@ -7,6 +7,13 @@
 // RaftWithReconfigAddRemove: the drivers of expand_driver.cuh (their
 // contract and design) over the actions of config_actions.cuh.
 //
+// reconfig_guard: the group guard of expand_driver.cuh, one launch a call: a
+// tile of GUARD_GROUP_G threads a state, 256 threads a block, the spec vector
+// and one chain copy a tile in shared memory, the state row read through
+// the cache; each bag probe (AppendEntries, SendSnapshot, the receipt's
+// reply, RequestVote's chain) split over the tile, the chains one after
+// another on the tile's copy.
+//
 // reconfig_apply: the group apply of expand_driver.cuh, one launch a call:
 // a warp (G = 32 threads) a worklist lane, 256 threads a block, the spec
 // vector alone in shared memory, three resident blocks asked of the
@@ -27,4 +34,4 @@
 #include "expand_driver.cuh"
 #include "config_actions.cuh"
 
-EXPAND_KERNELS_GROUP_APPLY(reconfig, ReconfigFamily)
+EXPAND_KERNELS_GROUP(reconfig, ReconfigFamily)

@@ -90,6 +90,10 @@ for _fam in ("raft", "pull", "kraft", "reconfig", "joint", "kreconfig"):
                                          f"{_fam}_sim_check": _SIM_CHECK}
 # raft_expand.cu's second build of the two, with the network-fault groups
 _SIGNATURES["raft_expand"].update(raft_nf_guard=_GUARD, raft_nf_apply=_APPLY)
+# the group guard's launch shape at M message slots and W lanes (expand_driver.cuh
+# EXPAND_KERNELS_GROUP: the reconfiguration pair)
+for _fam in ("reconfig", "joint"):
+    _SIGNATURES[f"{_fam}_expand"][f"{_fam}_guard_occupancy"] = [_I, _I, _P]
 
 
 def nvcc_path() -> str:

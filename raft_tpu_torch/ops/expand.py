@@ -95,6 +95,25 @@ def guard(model, states: torch.Tensor, n_live: int, cov: torch.Tensor):
     return valid, rank, ovf, scal
 
 
+def guard_occupancy(model) -> dict | None:
+    """What the model's guard reaches on the current card where it is the
+    group guard (csrc/expand_driver.cuh EXPAND_KERNELS_GROUP, whose library
+    exports ``<name>_occupancy``): threads a state (G), threads a block,
+    resident blocks and warps an SM at the model's message slots and row
+    width (its shared memory grows with them), registers and local (stack)
+    bytes a thread. None for a guard of ``guard_body``. Launches nothing."""
+    k = model.KERNELS["guard"]
+    if not hasattr(k.lib, f"{k.name}_occupancy"):
+        return None
+    out = (ctypes.c_int * 6)()
+    rc = getattr(k.lib, f"{k.name}_occupancy")(model.p.msg_slots, model.layout.W,
+                                                ctypes.cast(out, ctypes.c_void_p))
+    if rc:
+        raise RuntimeError(f"{k.name}_occupancy: {k.lib.rt_error_string(rc).decode()}")
+    return dict(zip(("G", "threads", "blocks_per_sm", "warps_per_sm", "registers",
+                     "stack_bytes"), out))
+
+
 # ---------------- apply ----------------
 
 

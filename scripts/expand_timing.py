@@ -37,8 +37,8 @@ reconfiguration cfg and of KRaftWithReconfig's full cfg (the shapes of
 register figures of the reconfiguration pair's and KRaftWithReconfig's
 guard and apply kernels and of ``canon_memo``'s and ``slot_canon``'s (the
 five units compiled afresh) and, where the checkout has them, the
-group apply's occupancy and each chunk's canon's (its tile, block shape and
-warps an SM). The inputs
+group guard's and the group apply's occupancy and each chunk's canon's (its
+tile, block shape and warps an SM). The inputs
 come from the checkout's own engine with fixed seeds, so every checkout
 times the same rows when the engines agree (their state counts are printed
 beside the times). Prints one JSON line per ROOT, and writes them all to
@@ -111,6 +111,10 @@ try:  # the group apply's launch shape (checkouts that have it)
     from raft_tpu_torch.ops.expand import apply_occupancy
 except ImportError:
     apply_occupancy = None
+try:  # the group guard's (checkouts that have it)
+    from raft_tpu_torch.ops.expand import guard_occupancy
+except ImportError:
+    guard_occupancy = None
 
 
 # mean ms per call of fn (after setup, whose own time is taken off) over
@@ -180,6 +184,9 @@ def chunk_times(tag, bfs):
         out[tag]["canon_ms"] = device_ms(lambda: bfs.canon.fingerprints(flatc, new))
         fps = bfs.canon.fingerprints(flatc, new)
     out[tag]["canon_valid"] = int(new.sum())
+    occ = guard_occupancy(model) if guard_occupancy else None
+    if occ:
+        out[tag]["guard_occupancy"] = occ
     if hasattr(bfs.canon, "occupancy"):  # the canon's launch shape (checkouts that have it)
         out[tag]["canon_occupancy"] = bfs.canon.occupancy(dev)
     if getattr(bfs.canon, "prune", False):
@@ -260,6 +267,9 @@ def move_times(tag, spec, text, **kw):
     occ = apply_occupancy(model) if apply_occupancy else None
     if occ:
         out[tag]["apply_occupancy"] = occ
+    occ = guard_occupancy(model) if guard_occupancy else None
+    if occ:
+        out[tag]["guard_occupancy"] = occ
 
 
 move_times("flex5_move", "FlexibleRaft.cfg", cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)

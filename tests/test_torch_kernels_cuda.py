@@ -686,6 +686,41 @@ def config_edge_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
         np.int32))
 
 
+def config_chain_pushoff_rows(model, st: np.ndarray, seed: int) -> np.ndarray:
+    """Copies of reachable states ``st`` of a reconfiguration model whose
+    server 0 can start an election (every server a Follower and a member,
+    no election spent) into a full bag whose last slot holds the
+    RequestVoteRequest from 0 to 2 and whose other slots hold random keys
+    below the one from 0 to 1: the chain's first put (to 1) overflows and
+    pushes the key to 2 off the end, so its second put must not find it
+    (the lane stays enabled, and overflows)."""
+    rng = np.random.default_rng(seed)
+    lay, p, pk = model.layout, model.p, model.packer
+    S, L, M, NW = p.n_servers, p.max_log, p.msg_slots, model.n_words
+    ws = [lay.sl(f"msg_w{k}") for k in range(NW)]
+    rows = st.copy()
+    for r in rows:
+        r[lay.sl("state")] = 0
+        r[lay.sl("config_members")] = (1 << S) - 1
+        r[lay.fields["electionCtr"].offset] = 0
+        ll = int(r[lay.sl("log_len")][0])
+        lt = int(r[lay.sl("log_term")][ll - 1]) if ll > 0 else 0
+        k1, k2 = (pk.pack(mtype=1, mterm=int(r[lay.sl("currentTerm")][0]) + 1, msource=0,
+                          mdest=j, mlastLogTerm=lt, mlastLogIndex=ll) for j in (1, 2))
+        assert k1 < k2
+        keys = set()
+        while len(keys) < M - 1:  # random keys below k1
+            w = int(rng.integers(0, NW))
+            if k1[w] > 0:
+                keys.add(tuple(k1[:w]) + (int(rng.integers(0, k1[w])),)
+                         + tuple(int(x) for x in rng.integers(0, 1 << 20, NW - w - 1)))
+        bag = np.array(sorted(keys) + [k2]).T
+        for k in range(NW):
+            r[ws[k]] = bag[k]
+        r[lay.sl("msg_cnt")] = rng.integers(0, 3, M)
+    return np.ascontiguousarray(rows.astype(np.int32))
+
+
 def _edge_states(model, dev, seed):
     """``edge_rows`` of reachable states (the frontiers of depths 3 to 7
     of the port's BFS on the card), on the card."""
@@ -1401,6 +1436,49 @@ def test_config_group_apply_worklists(dev, name, servers):
     base = _kraft_states(model, dev, depths=range(3, 8 if servers == 3 else 6))
     states = torch.from_numpy(config_edge_rows(model, base, seed=9)).to(dev)
     check_group_apply_worklists(model, states, f"{name}_apply", seed=servers)
+
+
+@pytest.mark.parametrize("servers", [3, 5])
+@pytest.mark.parametrize("name", list(CONFIG_VARIANTS))
+def test_config_group_guard_worklists(dev, name, servers):
+    """reconfig_guard / joint_guard (the group guard: a tile of threads a
+    state) against guard_plain, cov and scal included: on a BFS chunk's
+    states (reachable rows, config_edge_rows and config_chain_pushoff_rows)
+    with a dead tail and without, on a 65,536-walk simulate move's states,
+    and on an empty chunk; each call launches the family's guard once and
+    no other kernel; its occupancy entry names a tile of threads a state."""
+    from raft_tpu_torch import kernels
+    from raft_tpu_torch.checker.simulate import Simulator
+    from raft_tpu_torch.ops.expand import guard_occupancy
+
+    p = (CONFIG_VARIANTS if servers == 3 else CONFIG5_VARIANTS)[name]
+    model = (JointRaftModel if isinstance(p, JointRaftParams) else ReconfigRaftModel)(p)
+    K = len(model.ACTION_NAMES)
+    base = _kraft_states(model, dev, depths=range(3, 8 if servers == 3 else 6))
+    chunk = torch.from_numpy(np.concatenate([
+        config_edge_rows(model, base, seed=13),
+        config_chain_pushoff_rows(model, base[:40], seed=14)])).to(dev)
+    sim = Simulator(model, tuple(model.invariants), walks=65_536, max_behavior_depth=20,
+                    seed=1, device=dev)
+    sim.start()
+    for _ in range(6):
+        sim.step()
+    cases = [(chunk, len(chunk)), (chunk, len(chunk) - 37), (sim.states, 65_536),
+             (chunk[:0], 0)]
+    for states, n_live in cases:
+        cov_k = torch.randint(0, 9, (K, 3), dtype=torch.int64, device=dev)
+        cov_p = cov_k.clone()
+        before = kernels.launch_counts()
+        gk = guard(model, states, n_live, cov_k)
+        after = kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+            f"{name}_guard": 1}
+        gp = guard_plain(model, states, n_live, cov_p)
+        for a, b in zip(gk, gp):
+            assert torch.equal(a, b)
+        assert torch.equal(cov_k, cov_p)
+    occ = guard_occupancy(model)
+    assert occ is not None and occ["G"] > 1 and occ["warps_per_sm"] > 0
 
 
 def check_group_apply_worklists(model, states, kernel: str, seed: int) -> None:

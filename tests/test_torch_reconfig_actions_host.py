@@ -3,22 +3,27 @@ config_actions.cuh) against the JAX reference, on the CPU.
 
 As tests/test_torch_kraft_actions_host.py does for kraft_actions.cuh: the
 header builds with a host C++ compiler behind the shim of
-tests/test_torch_actions_host.py, and each (state, candidate) pair goes
-through ``ConfigFamily<J>::action<false>`` (the guard, with a RequestVote
-lane's scratch as the kernel gives it) and ``action<true>`` (the apply),
-and each state through ``ConfigFamily<J>::predicate`` (the invariants and
-ReconfigurationCompletes' P and Q); the results must equal the dense
+tests/test_torch_actions_host.py. Each state goes through the group
+guard's per-state work (actions_common.cuh ``guard_state`` over
+``ConfigFamily<J>``: each member's lane alone, then the bag probes and
+RequestVote's chains run by the group) and each (state, candidate) pair
+through ``ConfigFamily<J>::apply`` (the action of the card's group apply),
+both with ``GrpSerial``, which runs the G members' shares of each probe,
+chain put and log install in turn, at G in {1, 4, 8, 32}; each state also
+through ``ConfigFamily<J>::predicate`` (the invariants and
+ReconfigurationCompletes' P and Q). The results must equal the dense
 ``jax.vmap(_expand1)``, the reference's invariants and its liveness
-predicates bit for bit (tolerance: none, the values are integers), on
-reachable states and the edge rows of ``config_edge_rows``
+predicates bit for bit (tolerance: none, the values are integers), and the
+guard's per-state sums (the enabled ranks, the valid-lane and fired counts,
+terminal and overflow) the plain version's (``guard_plain``), on reachable
+states and the edge rows of ``config_edge_rows``
 (tests/test_torch_kernels_cuda.py): every HandleMessage arm, the snapshot
 pair, the config appends, ResetWithSameIdentity, RequestVote chains that
-overflow partway and logs at max_log. ``ConfigFamily<J>::apply`` (the
-action of the card's group apply, a group of G threads a lane) runs here
-with ``GrpSerial``, which runs the G members' shares of each bag put and
-log install in turn, at G in {1, 4, 8, 32}: on the same rows at three
-servers and on the five-server constants' (5 and 7 key words)
-at a small depth, against the dense expand too. Skips without g++.
+overflow partway and logs at max_log; the guard also on
+``config_chain_pushoff_rows`` (a full bag where the chain's first put
+pushes off the key its second put names). At three servers and on the
+five-server constants' (5 and 7 key words) at a small depth. Skips without
+g++.
 """
 
 import ctypes
@@ -32,11 +37,12 @@ import torch
 
 from raft_tpu_torch.models import config_common as cc
 from raft_tpu_torch.models.base import INVARIANT_IDS
+from raft_tpu_torch.ops.expand import guard_plain
 
 from conftest import collect_states
 from test_torch_actions_host import CSRC, SHIM
 from test_torch_canon_tiers_wide import PARAMS5
-from test_torch_kernels_cuda import config_edge_rows
+from test_torch_kernels_cuda import config_chain_pushoff_rows, config_edge_rows
 from test_torch_reconfig import PARAMS, _edges, _models, _oracle, _pair, dense_expand
 
 # one intra-op thread: tier-1 runs several test workers side by side, and
@@ -47,36 +53,34 @@ DRIVER = """\
 #include <vector>
 #include "config_actions.cuh"
 extern "C" int spec_len() { return CS_LEN; }
+// the group guard's per-state work on each state (live: c < n_live), a
+// group of G: valid/rank/ovf [C, A], and per state its enabled-rank mask,
+// valid lanes and overflow; fired [K] added into
 template <bool J>
-static void expand(const int* states, int C, const int* spec, const int* cand, int A, int write,
-                   int* succ, bool* valid, int* rank, bool* ovf) {
+static void group_guard(int G, const int* states, int C, int n_live, const int* spec,
+                        const int* cand, bool* valid, int* rank, bool* ovf, unsigned* en,
+                        int* n_valid, bool* any_ovf, long long* fired) {
   typedef ConfigFamily<J> F;
-  const int W = spec[CS_W], M = spec[CS_M];
-  std::vector<int> scratch(F::scratch_slots(spec[CS_S]) * F::BAG_WORDS * M);  // one state's
-  for (int c = 0; c < C; ++c)
-    for (int a = 0; a < A; ++a) {
-      const int* s = states + (long long)c * W;
-      int* o = succ + ((long long)c * A + a) * W;
-      const int* cd = cand + 4 * a;
-      Guard g;
-      if (write) {
-        for (int w = 0; w < W; ++w) o[w] = s[w];
-        g = F::template action<true>(spec, s, o, cd, nullptr);
-      } else {
-        const int slot = F::scratch_slot(cd);
-        int* bag = slot >= 0 ? scratch.data() + slot * F::BAG_WORDS * M : nullptr;
-        g = F::template action<false>(spec, s, nullptr, cd, bag);
-      }
-      valid[c * A + a] = g.valid;
-      rank[c * A + a] = g.rank;
-      ovf[c * A + a] = g.ovf;
-    }
+  const int W = spec[CS_W], A = spec[CS_A];
+  std::vector<int> scratch(F::MAX_WORDS * spec[CS_M]);  // the group's chain copy
+  for (int c = 0; c < C; ++c) {
+    const long long l0 = (long long)c * A;
+    const GuardSums r = guard_state<F>(GrpSerial{G}, spec, states + (long long)c * W, cand,
+                                       c < n_live, scratch.data(), valid + l0, rank + l0,
+                                       ovf + l0, [&](int k, int n) { fired[k] += n; });
+    en[c] = r.en;
+    n_valid[c] = r.n_valid;
+    any_ovf[c] = r.ovf;
+  }
 }
-extern "C" void host_expand(int joint, const int* states, int C, const int* spec,
-                            const int* cand, int A, int write, int* succ, bool* valid, int* rank,
-                            bool* ovf) {
-  if (joint) expand<true>(states, C, spec, cand, A, write, succ, valid, rank, ovf);
-  else expand<false>(states, C, spec, cand, A, write, succ, valid, rank, ovf);
+extern "C" void host_group_guard(int joint, int G, const int* states, int C, int n_live,
+                                 const int* spec, const int* cand, bool* valid, int* rank,
+                                 bool* ovf, unsigned* en, int* n_valid, bool* any_ovf,
+                                 long long* fired) {
+  if (joint) group_guard<true>(G, states, C, n_live, spec, cand, valid, rank, ovf, en, n_valid,
+                               any_ovf, fired);
+  else group_guard<false>(G, states, C, n_live, spec, cand, valid, rank, ovf, en, n_valid,
+                          any_ovf, fired);
 }
 template <bool J>
 static void group_apply(int G, const int* states, int C, const int* spec, const int* cand, int A,
@@ -120,7 +124,7 @@ def lib(tmp_path_factory):
     assert out.returncode == 0, out.stderr
     lib = ctypes.CDLL(str(so))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.host_expand.argtypes = [I, P, I, P, P, I, I, P, P, P, P]
+    lib.host_group_guard.argtypes = [I, I, P, I, I, P, P, P, P, P, P, P, P, P]
     lib.host_predicate.argtypes = [I, P, I, P, I, P]
     lib.host_group_apply.argtypes = [I, I, P, I, P, P, I, P]
     return lib
@@ -130,23 +134,41 @@ def _ptr(a):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
+def _group_guard(lib, name, tm, states, n_live, G):
+    """The group guard's per-state work on ``states`` (GrpSerial of G):
+    (valid, rank, ovf, enabled-rank mask, valid lanes and overflow a state,
+    fired a rank)."""
+    spec, cand, _ = (np.ascontiguousarray(t.numpy()) for t in tm.kernel_spec("cpu"))
+    C, A, K = len(states), tm.A, len(tm.ACTION_NAMES)
+    valid, rank, ovf = np.zeros((C, A), bool), np.zeros((C, A), np.int32), np.zeros((C, A), bool)
+    en, n_valid, any_ovf = np.zeros(C, np.uint32), np.zeros(C, np.int32), np.zeros(C, bool)
+    fired = np.zeros(K, np.int64)
+    lib.host_group_guard(int(name == "joint"), G, _ptr(states), C, n_live, _ptr(spec),
+                         _ptr(cand), _ptr(valid), _ptr(rank), _ptr(ovf), _ptr(en),
+                         _ptr(n_valid), _ptr(any_ovf), _ptr(fired))
+    return valid, rank, ovf, en, n_valid, any_ovf, fired
+
+
+def _group_apply(lib, name, tm, states, G):
+    spec, cand, _ = (np.ascontiguousarray(t.numpy()) for t in tm.kernel_spec("cpu"))
+    C, A, W = len(states), tm.A, tm.layout.W
+    succ = np.zeros((C, A, W), np.int32)
+    lib.host_group_apply(int(name == "joint"), G, _ptr(states), C, _ptr(spec), _ptr(cand), A,
+                         _ptr(succ))
+    return succ
+
+
 @pytest.mark.parametrize("name", list(PARAMS))
 def test_device_actions_match_reference(lib, name):
     _jm, tm, _batch, _dense = _pair(name)
     assert lib.spec_len() == cc.SPEC_LEN  # the header's CS_*/CF_* enums and SPEC_SCALARS agree
     states, want = _edges(name)
-    spec, cand, _ = (np.ascontiguousarray(t.numpy()) for t in tm.kernel_spec("cpu"))
-    C, A, W = len(states), tm.A, tm.layout.W
-    joint = int(name == "joint")
-    for write in (0, 1):
-        succ = np.zeros((C, A, W), np.int32)
-        valid, rank, ovf = np.zeros((C, A), bool), np.zeros((C, A), np.int32), np.zeros((C, A), bool)
-        lib.host_expand(joint, _ptr(states), C, _ptr(spec), _ptr(cand), A, write, _ptr(succ),
-                        _ptr(valid), _ptr(rank), _ptr(ovf))
-        for label, w, g in zip(("valid", "rank", "ovf"), want[1:], (valid, rank, ovf)):
-            assert np.array_equal(w, g), (label, write)
-        if write:
-            assert np.array_equal(want[0], succ)
+    C = len(states)
+    # the guard and the apply as groups of one
+    valid, rank, ovf = _group_guard(lib, name, tm, states, C, 1)[:3]
+    for label, w, g in zip(("valid", "rank", "ovf"), want[1:], (valid, rank, ovf)):
+        assert np.array_equal(w, g), label
+    assert np.array_equal(want[0], _group_apply(lib, name, tm, states, 1))
     # every Next disjunct fires on these rows, and RequestVote's chain,
     # ClientRequest and an accepted entry overflow
     assert set(np.unique(want[2][want[1]]).tolist()) == set(range(len(tm.ACTION_NAMES)))
@@ -219,13 +241,61 @@ def test_group_apply_matches_reference(lib, name, servers, G):
     else:
         tm, states, want = _edges5(name)
         assert tm.n_words == {"reconfig": 5, "joint": 7}[name]
-    spec, cand, _ = (np.ascontiguousarray(t.numpy()) for t in tm.kernel_spec("cpu"))
-    C, A, W = len(states), tm.A, tm.layout.W
-    succ = np.zeros((C, A, W), np.int32)
-    lib.host_group_apply(int(name == "joint"), G, _ptr(states), C, _ptr(spec), _ptr(cand), A,
-                         _ptr(succ))
-    assert np.array_equal(want[0], succ)
+    assert np.array_equal(want[0], _group_apply(lib, name, tm, states, G))
     # the rows put into full and near-full bags, and install logs
     hit = want[1] & want[3]
     assert (hit & (want[2] == cc.R_REQUESTVOTE)).any()
     assert (want[1] & (want[2] == cc.R_ACCEPT_AE)).any()
+
+
+@functools.lru_cache(maxsize=None)
+def _pushoff(name, servers):
+    """config_chain_pushoff_rows of reachable states, their dense expand."""
+    jp = PARAMS[name] if servers == 3 else PARAMS5[name]
+    jm, tm = _models(jp)
+    base = _pair(name)[2][:12] if servers == 3 else _edges5(name)[1][:12]
+    rows = config_chain_pushoff_rows(tm, base, seed=servers)
+    return rows, dense_expand(jm, rows)
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+@pytest.mark.parametrize("servers", [3, 5])
+@pytest.mark.parametrize("name", list(PARAMS))
+def test_group_guard_matches_reference(lib, name, servers, G):
+    """The group guard's per-state work (GrpSerial of G) against the dense
+    expand and the plain version: valid/rank/ovf a lane (a dead tail of 5
+    states), each state's enabled ranks and terminal flag, the fired
+    counts and the chunk's overflow, bit for bit."""
+    if servers == 3:
+        tm, (states, want) = _pair(name)[1], _edges(name)
+    else:
+        tm, states, want = _edges5(name)
+    rows, pwant = _pushoff(name, servers)
+    states = np.ascontiguousarray(np.concatenate([states, rows]))
+    want = [np.concatenate([a, b]) for a, b in zip(want, pwant)]
+    C, K = len(states), len(tm.ACTION_NAMES)
+    n_live = C - 5
+    valid, rank, ovf, en, n_valid, any_ovf, fired = _group_guard(lib, name, tm, states, n_live,
+                                                                 G)
+    live = np.arange(C) < n_live
+    assert np.array_equal(want[1] & live[:, None], valid)
+    assert np.array_equal(want[2], rank) and np.array_equal(want[3], ovf)
+    ranks = np.where(valid, want[2], K)
+    want_en = np.array([sum(1 << int(k) for k in set(r.tolist()) - {K}) for r in ranks])
+    assert np.array_equal(want_en, en)
+    assert np.array_equal(live & (n_valid == 0), live & ~valid.any(1))  # terminal
+    assert np.array_equal(any_ovf, (valid & ovf).any(1))
+    # the plain version's sums: fired and enabled per rank, n_gen, terminal
+    cov = torch.zeros((K, 3), dtype=torch.int64)
+    gp = guard_plain(tm, torch.from_numpy(states), n_live, cov)
+    assert np.array_equal(gp[0].numpy(), valid) and np.array_equal(gp[1].numpy(), rank)
+    assert np.array_equal(gp[2].numpy(), ovf)
+    assert np.array_equal(cov[:, 1].numpy(), fired)
+    assert np.array_equal(cov[:, 0].numpy(), [int((en >> k & 1).sum()) for k in range(K)])
+    assert gp[3].tolist() == [int(n_valid.sum()), int((live & (n_valid == 0)).sum()),
+                              int(any_ovf.any())]
+    # the push-off rows: server 0's RequestVote stays enabled and overflows
+    rv0 = [a for a, b in enumerate(tm.bindings) if b == ("RequestVote", (0,))]
+    assert len(rv0) == 1
+    tail = slice(C - len(rows), n_live)
+    assert valid[tail, rv0[0]].all() and ovf[tail, rv0[0]].all()
