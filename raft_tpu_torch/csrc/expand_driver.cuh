@@ -408,30 +408,28 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
 //
 // For the reconfiguration pair (a Family with lane(sp, s, cd, rq) and
 // chain(g, sp, s, cd, scratch, gd), the spec indices guard_state reads and
-// MAX_WORDS). A block of GUARD_GROUP_THREADS threads holds
-// GUARD_GROUP_THREADS / GUARD_GROUP_G tiles, one state each, and stages the
-// spec vector and one chain scratch a tile (MAX_WORDS * M ints: the
-// launcher's arguments do not carry the spec's NW, so a copy of NW * M ints
-// is made in a slot sized for the most words); the state row is read
-// straight from global memory through the cache. The tile runs
+// MAX_WORDS). A block of GUARD_GROUP_THREADS threads (fewer where a row and
+// a scratch a tile would overrun the shared memory) holds a tile of
+// GUARD_GROUP_G threads for each of its states, and stages in
+// shared memory the spec vector and, a tile, its state's row (copied once,
+// coalesced) and one chain scratch (MAX_WORDS * M ints: the launcher's
+// arguments do not carry the spec's NW, so a copy of NW * M ints is made in
+// a slot sized for the most words). The tile runs
 // actions_common.cuh's guard_state: member t the candidate lanes t, t + G,
 // ... (the candidate table holds each action group as one run, so a
 // round's members mostly share an arm), each bag probe split over the tile
 // (M / G slots a member), RequestVote's chains one after another on the
 // tile's copy; the state's valid lanes, enabled ranks and terminal flag by
 // ballots and shuffles, one shared atomic a tile for each, and the
-// block's sums to cov and scal with one atomic each.
+// block's sums to cov and scal with one atomic each. A warp a state, the
+// row staged, three resident blocks asked of the register allocator (80
+// registers a thread, 24 warps an SM): on the card the fastest of tiles of
+// 8 to 32 threads at 2 to 4 blocks, with the row staged or read through the
+// cache, on the four-server chunks and simulate moves (PERF.md).
 
-#ifndef GUARD_GROUP_G
-#define GUARD_GROUP_G 32
-#endif
-#ifndef GUARD_GROUP_BLOCKS
-#define GUARD_GROUP_BLOCKS 3
-#endif
-#ifndef GUARD_GROUP_STAGE
-#define GUARD_GROUP_STAGE 0
-#endif
 #define GUARD_GROUP_THREADS 256
+#define GUARD_GROUP_G 32
+#define GUARD_GROUP_BLOCKS 3
 
 template <class F>
 __device__ __forceinline__ void guard_group_body(const int* __restrict__ states, int C,
@@ -441,10 +439,11 @@ __device__ __forceinline__ void guard_group_body(const int* __restrict__ states,
                                                  bool* __restrict__ ovf,
                                                  unsigned long long* __restrict__ scal,
                                                  unsigned long long* __restrict__ cov) {
-  constexpr int G = GUARD_GROUP_G, T = GUARD_GROUP_THREADS / G;
+  constexpr int G = GUARD_GROUP_G;
+  const int T = blockDim.x / G;
   extern __shared__ int smem[];
   int* sp = smem;
-  int* scratch = smem + F::SPEC_LEN;  // T x MAX_WORDS * M chain copies
+  int* scratch = smem + F::SPEC_LEN;  // T x MAX_WORDS * M chain copies, then T x W rows
   __shared__ int en_n[RA_MAX_K], fired[RA_MAX_K];
   __shared__ int n_gen, term, any_ovf;
   for (int t = threadIdx.x; t < F::SPEC_LEN; t += blockDim.x) sp[t] = spec[t];
@@ -458,13 +457,9 @@ __device__ __forceinline__ void guard_group_body(const int* __restrict__ states,
   if (c < C) {  // the whole tile
     const long long lane0 = (long long)c * A;
     const bool live = c < n_live;
-    const int* row = states + (long long)c * W;
-#if GUARD_GROUP_STAGE
-    int* staged = scratch + T * F::MAX_WORDS * M + tl * W;
-    grp_copy_row<G>(staged, row, W, (int)g.tile.thread_rank());
+    int* row = scratch + T * F::MAX_WORDS * M + tl * W;
+    grp_copy_row<G>(row, states + (long long)c * W, W, (int)g.tile.thread_rank());
     g.sync();
-    row = staged;
-#endif
     const GuardSums r = guard_state<F>(
         g, sp, row, cand, live, scratch + tl * F::MAX_WORDS * M,
         valid + lane0, rank + lane0, ovf + lane0, [&](int k, int n) { atomicAdd(&fired[k], n); });
@@ -487,11 +482,19 @@ __device__ __forceinline__ void guard_group_body(const int* __restrict__ states,
   }
 }
 
-// the group guard's dynamic shared memory at M message slots and W lanes
+// the group guard's block at M message slots and W lanes: its threads
+// (GUARD_GROUP_THREADS, halved while its dynamic shared memory exceeds the
+// card's opt-in limit) and that shared memory
 template <class F>
-static size_t guard_group_smem(int M, int W) {
-  return sizeof(int) * (F::SPEC_LEN + (size_t)(GUARD_GROUP_THREADS / GUARD_GROUP_G) *
-                                          (F::MAX_WORDS * M + GUARD_GROUP_STAGE * W));
+static void guard_group_shape(int M, int W, int* threads, size_t* smem) {
+  auto smem_of = [&](int t) {
+    return sizeof(int) * (F::SPEC_LEN + (size_t)(t / GUARD_GROUP_G) * (F::MAX_WORDS * M + W));
+  };
+  const size_t limit = (size_t)max_smem_optin();
+  int t = GUARD_GROUP_THREADS;
+  while (t > GUARD_GROUP_G && smem_of(t) > limit) t /= 2;
+  *threads = t;
+  *smem = smem_of(t);
 }
 
 // launch_guard's contract (the same arguments; S unused)
@@ -505,11 +508,13 @@ static int launch_guard_group(GuardKernel kernel, size_t* opted_in, const int* s
   cudaError_t e = cudaMemsetAsync(scal, 0, 3 * sizeof(long long), s);
   if (e != cudaSuccess) return (int)e;
   if (C <= 0) return 0;
-  const size_t smem = guard_group_smem<F>(M, W);
+  int threads;
+  size_t smem;
+  guard_group_shape<F>(M, W, &threads, &smem);
   e = opt_in((const void*)kernel, smem, opted_in);
   if (e != cudaSuccess) return (int)e;
-  constexpr int T = GUARD_GROUP_THREADS / GUARD_GROUP_G;
-  kernel<<<(C + T - 1) / T, GUARD_GROUP_THREADS, smem, s>>>(
+  const int T = threads / GUARD_GROUP_G;
+  kernel<<<(C + T - 1) / T, threads, smem, s>>>(
       states, C, n_live, spec, cand, T, valid, rank, ovf, (unsigned long long*)scal,
       (unsigned long long*)cov);
   return (int)cudaGetLastError();
@@ -518,20 +523,23 @@ static int launch_guard_group(GuardKernel kernel, size_t* opted_in, const int* s
 // What the group guard's build reaches at M message slots and W lanes: out = {G,
 // threads a block, resident blocks an SM, warps an SM, registers a thread,
 // local (stack) bytes a thread}.
-static int guard_group_occupancy(GuardKernel kernel, size_t* opted_in, size_t smem, int* out) {
+template <class F>
+static int guard_group_occupancy(GuardKernel kernel, size_t* opted_in, int M, int W, int* out) {
+  int threads;
+  size_t smem;
+  guard_group_shape<F>(M, W, &threads, &smem);
   cudaError_t e = opt_in((const void*)kernel, smem, opted_in);
   if (e != cudaSuccess) return (int)e;
   int nb;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, (const void*)kernel,
-                                                    GUARD_GROUP_THREADS, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, (const void*)kernel, threads, smem);
   if (e != cudaSuccess) return (int)e;
   cudaFuncAttributes fa;
   e = cudaFuncGetAttributes(&fa, (const void*)kernel);
   if (e != cudaSuccess) return (int)e;
   out[0] = GUARD_GROUP_G;
-  out[1] = GUARD_GROUP_THREADS;
+  out[1] = threads;
   out[2] = nb;
-  out[3] = nb * GUARD_GROUP_THREADS / 32;
+  out[3] = nb * threads / 32;
   out[4] = fa.numRegs;
   out[5] = (int)fa.localSizeBytes;
   return 0;
@@ -558,8 +566,7 @@ static int guard_group_occupancy(GuardKernel kernel, size_t* opted_in, size_t sm
                                  cov, stream);                                                \
   }                                                                                           \
   extern "C" int P##_guard_occupancy(int M, int W, int* out) {                                \
-    return guard_group_occupancy(P##_guard_kernel, &P##_guard_opted_in,                       \
-                                 guard_group_smem<F>(M, W), out);                             \
+    return guard_group_occupancy<F>(P##_guard_kernel, &P##_guard_opted_in, M, W, out);       \
   }                                                                                           \
   EXPAND_APPLY_GROUP(P, F)
 

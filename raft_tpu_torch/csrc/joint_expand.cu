@@ -8,11 +8,12 @@
 // contract and design) over the actions of config_actions.cuh.
 //
 // joint_guard: the group guard of expand_driver.cuh, one launch a call: a
-// tile of GUARD_GROUP_G threads a state, 256 threads a block, the spec vector
-// and one chain copy a tile in shared memory, the state row read through
-// the cache; each bag probe (AppendEntries, SendSnapshot, the receipt's
-// reply, RequestVote's chain) split over the tile, the chains one after
-// another on the tile's copy.
+// warp (G = 32 threads) a state, 256 threads a block, the spec vector and,
+// a tile, its row and one chain copy in shared memory, three resident blocks
+// asked of the register allocator: 80 registers a thread (48 bytes of
+// stack), 24 warps an SM at the four- and five-server cfgs' widths. Each bag
+// probe (AppendEntries, SendSnapshot, the receipt's reply, RequestVote's
+// chain) is split over the warp, the chains one after another on its copy.
 //
 // joint_apply: the group apply of expand_driver.cuh, one launch a call: a
 // warp (G = 32 threads) a worklist lane, 256 threads a block, the spec

@@ -1479,6 +1479,21 @@ def test_config_group_guard_worklists(dev, name, servers):
         assert torch.equal(cov_k, cov_p)
     occ = guard_occupancy(model)
     assert occ is not None and occ["G"] > 1 and occ["warps_per_sm"] > 0
+    if servers == 5:
+        return
+    # 600 message slots: a block of fewer tiles, its rows and copies in
+    # shared memory
+    wide = (JointRaftModel if isinstance(p, JointRaftParams) else ReconfigRaftModel)(
+        dataclasses.replace(p, msg_slots=600))
+    assert guard_occupancy(wide)["threads"] < occ["threads"]
+    rows = torch.from_numpy(config_edge_rows(
+        wide, _kraft_states(wide, dev, depths=range(3, 6)), seed=15)).to(dev)
+    cov_k = torch.zeros((K, 3), dtype=torch.int64, device=dev)
+    cov_p = cov_k.clone()
+    for a, b in zip(guard(wide, rows, len(rows) - 3, cov_k),
+                    guard_plain(wide, rows, len(rows) - 3, cov_p)):
+        assert torch.equal(a, b)
+    assert torch.equal(cov_k, cov_p)
 
 
 def check_group_apply_worklists(model, states, kernel: str, seed: int) -> None:
