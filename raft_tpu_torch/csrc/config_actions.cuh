@@ -292,7 +292,8 @@ __device__ __forceinline__ void cr_rv_chain(Gp g, const int* sp, const int* s, i
   gd.ovf = ovf && gd.valid;
 }
 
-// the guard (a GrpRecord lane): the gate, the chain left to the group guard
+// RequestVote(i) as an action: the apply runs the gate and the chain; the
+// guard (a GrpRecord lane) the gate alone, and leaves the chain to its group
 template <bool WRITE, class Gp>
 __device__ Guard cr_request_vote(Gp g, const int* sp, const int* s, int* o, int i) {
   Guard gd = cr_rv_gate(sp, s, i);
@@ -1043,7 +1044,7 @@ template <bool J>
 struct ConfigFamily {
   static constexpr int SPEC_LEN = CS_LEN;
   static constexpr int MAX_WORDS = CR_MAX_WORDS;  // the most key words of a bag
-  static constexpr int I_S = CS_S, I_M = CS_M, I_W = CS_W, I_A = CS_A, I_K = CS_K;
+  static constexpr int I_M = CS_M, I_W = CS_W, I_A = CS_A, I_K = CS_K;
   static constexpr int I_NW = CS_NW, I_BAG = CS_W0;
   // one candidate's guard, run by its member alone: (valid, rank, ovf) but
   // for its put, kept in rq

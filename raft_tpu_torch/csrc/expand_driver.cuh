@@ -408,24 +408,23 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
 //
 // For the reconfiguration pair (a Family with lane(sp, s, cd, rq) and
 // chain(g, sp, s, cd, scratch, gd), the spec indices guard_state reads and
-// MAX_WORDS). A block of GUARD_GROUP_THREADS threads (fewer where a row and
-// a scratch a tile would overrun the shared memory) holds a tile of
-// GUARD_GROUP_G threads for each of its states, and stages in
-// shared memory the spec vector and, a tile, its state's row (copied once,
-// coalesced) and one chain scratch (MAX_WORDS * M ints: the launcher's
-// arguments do not carry the spec's NW, so a copy of NW * M ints is made in
-// a slot sized for the most words). The tile runs
-// actions_common.cuh's guard_state: member t the candidate lanes t, t + G,
-// ... (the candidate table holds each action group as one run, so a
-// round's members mostly share an arm), each bag probe split over the tile
-// (M / G slots a member), RequestVote's chains one after another on the
-// tile's copy; the state's valid lanes, enabled ranks and terminal flag by
-// ballots and shuffles, one shared atomic a tile for each, and the
-// block's sums to cov and scal with one atomic each. A warp a state, the
-// row staged, three resident blocks asked of the register allocator (80
-// registers a thread, 24 warps an SM): on the card the fastest of tiles of
-// 8 to 32 threads at 2 to 4 blocks, with the row staged or read through the
-// cache, on the four-server chunks and simulate moves (PERF.md).
+// MAX_WORDS). A block of GUARD_GROUP_THREADS threads (fewer where its
+// shared memory would overrun the card's) holds a tile of GUARD_GROUP_G
+// threads for each of its states, and stages in shared memory the spec
+// vector and, a tile, its state's row (copied once, coalesced) and one
+// chain scratch (MAX_WORDS * M ints: the launcher's arguments do not carry
+// the spec's NW, so a copy of NW * M ints is made in a slot sized for the
+// most words). The tile runs actions_common.cuh's guard_state: member t the
+// candidate lanes t, t + G, ... (the candidate table holds each action
+// group as one run, so a round's members mostly share an arm), each bag
+// probe split over the tile (M / G slots a member), RequestVote's chains
+// one after another on the tile's copy; the state's valid lanes, enabled
+// ranks and terminal flag by ballots and shuffles, one shared atomic a tile
+// for each, and the block's sums to cov and scal with one atomic each. A
+// warp a state, the row staged and three resident blocks asked of the
+// register allocator (80 registers a thread, 24 warps an SM) were the
+// fastest on the card of tiles of 8 to 32 threads at 2 to 4 blocks, the row
+// staged or read through the cache (PERF.md's tile table).
 
 #define GUARD_GROUP_THREADS 256
 #define GUARD_GROUP_G 32

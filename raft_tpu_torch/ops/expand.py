@@ -102,12 +102,16 @@ def guard_occupancy(model) -> dict | None:
     resident blocks and warps an SM at the model's message slots and row
     width (its shared memory grows with them), registers and local (stack)
     bytes a thread. None for a guard of ``guard_body``. Launches nothing."""
-    k = model.KERNELS["guard"]
+    return _occupancy(model.KERNELS["guard"], model.p.msg_slots, model.layout.W)
+
+
+def _occupancy(k, *args) -> dict | None:
+    """``<k.name>_occupancy(*args, out)`` of a group kernel's library as a
+    dict, or None where the library has no such launcher."""
     if not hasattr(k.lib, f"{k.name}_occupancy"):
         return None
     out = (ctypes.c_int * 6)()
-    rc = getattr(k.lib, f"{k.name}_occupancy")(model.p.msg_slots, model.layout.W,
-                                                ctypes.cast(out, ctypes.c_void_p))
+    rc = getattr(k.lib, f"{k.name}_occupancy")(*args, ctypes.cast(out, ctypes.c_void_p))
     if rc:
         raise RuntimeError(f"{k.name}_occupancy: {k.lib.rt_error_string(rc).decode()}")
     return dict(zip(("G", "threads", "blocks_per_sm", "warps_per_sm", "registers",
@@ -150,15 +154,7 @@ def apply_occupancy(model) -> dict | None:
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and local
     (stack) bytes a thread, at every row width. None for an apply that
     sizes its blocks by W (``apply_body``). Launches nothing."""
-    k = model.KERNELS["apply"]
-    if not hasattr(k.lib, f"{k.name}_occupancy"):
-        return None
-    out = (ctypes.c_int * 6)()
-    rc = getattr(k.lib, f"{k.name}_occupancy")(ctypes.cast(out, ctypes.c_void_p))
-    if rc:
-        raise RuntimeError(f"{k.name}_occupancy: {k.lib.rt_error_string(rc).decode()}")
-    return dict(zip(("G", "threads", "blocks_per_sm", "warps_per_sm", "registers",
-                     "stack_bytes"), out))
+    return _occupancy(model.KERNELS["apply"])
 
 
 # ---------------- fold ----------------
