@@ -13,7 +13,10 @@ Phases, each of which fails the run on any mismatch:
      single PyTorch library call, beside the kernel's bound. The Raft
      expand kernels (raft_guard, raft_apply, raft_fold) are held the same
      way on a chunk of the depth-20 Raft.cfg frontier and on chunks of
-     reachable RaftFsync, FlexibleRaft and five-server states; chunk_dedup
+     reachable RaftFsync, FlexibleRaft and five-server states (raft_apply,
+     like kraft_apply and the reconfiguration applies below, is the group
+     apply, G threads a worklist lane, printed with G, its warps an SM,
+     registers, stack bytes and its bound's bytes and operations); chunk_dedup
      on a synthetic chunk (half its lanes present) against a 2^24-lane seen
      run and three ladder runs, on a chunk of the Raft.cfg path and on one
      of the five-server path against their seen runs;
@@ -979,6 +982,12 @@ def family_of(model) -> str:
     return model.KERNELS["guard"].name.rsplit("_", 1)[0]
 
 
+def key_words(model) -> int:
+    """The words of a message key: a WidePacker family's n_words; Raft,
+    KRaft and the pull family pack theirs in two (hi, lo)."""
+    return getattr(model, "n_words", 2)
+
+
 def expand_puts(torch, model, batch, valid, rank):
     """The message puts the valid lanes of a [C, A] guard grid over the
     [C, W] rows ``batch`` make, counted from the data: RequestVote makes
@@ -1142,7 +1151,7 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
         # the group guard (csrc/expand_driver.cuh EXPAND_KERNELS_GROUP): its
         # launch shape, and its bound recounted with the operations counted
         # per key word, 3 a bag slot and key word of each put
-        guard_ops = 3 * M * model.n_words * int(puts)
+        guard_ops = 3 * M * key_words(model) * int(puts)
         b, by = bound(guard_bytes, guard_ops)
         rows[f"{fam}_guard"].update(bound_ms=b, bound_by=by, bytes=guard_bytes,
                                     operations=guard_ops, per="state", **occ)
@@ -1152,7 +1161,7 @@ def expand_kernels(torch, bfs, pool, rng, timed: bool) -> dict:
         # its launch shape, and its bound recounted with the operations
         # beside the bytes, 3 a bag slot and key word of each put the
         # worklist's lanes make (the guard's puts: sel holds every valid lane)
-        apply_ops = 3 * M * model.n_words * int(puts)
+        apply_ops = 3 * M * key_words(model) * int(puts)
         b, by = bound(apply_bytes, apply_ops)
         rows[f"{fam}_apply"].update(bound_ms=b, bound_by=by, bytes=apply_bytes,
                                     operations=apply_ops, **occ)

@@ -250,8 +250,8 @@ __device__ void nw_bag_insert(int* words, int* cnt, int M, int nw, const WKey& k
 //   orr(x)         x ORed over the group;
 //   own(u)         the slot of member u in this thread, or -1;
 //   pick_key(rq, u, nw)  member u's key, in every member.
-// GrpOne is a group of one (KRaftWithReconfig's guard lanes, whose puts
-// take nw_bag_probe and nw_bag_insert above); GrpRecord a guard lane of the
+// GrpOne is a group of one (the guard lanes of guard_body, whose puts take
+// the serial probes and inserts above); GrpRecord a guard lane of the
 // group guard, run by its member alone, which keeps its put for the group;
 // GrpSerial runs G members on one thread (the host build of the tests),
 // accumulating in place, where a round's read, barrier and write run member
@@ -412,6 +412,96 @@ template <class Gp, class Fn>
 __device__ __forceinline__ void grp_for(Gp g, int n, Fn f) {
   for (int t = g.lo(); t < g.hi(); ++t)
     for (int u = t; u < n; u += g.size()) f(u);
+}
+
+// ---- the 2-word (hi, lo) bag, its put split over a group ----
+//
+// ra_bag_probe and ra_bag_insert above with the slots split as the N-word
+// put's are (member t the slots t, t + G, ...; the shift G slots a round
+// from the top): the Raft and KRaft group apply's. The semantics stay
+// ra_bag_probe's: the key's words compared as long long against the row's
+// int32 words (a RequestVote key of Raft is int64 and may compare unequal
+// to every slot), hi, lo and cnt at separate field offsets.
+
+template <class Gp>
+__device__ __forceinline__ Put ra_bag_probe_g(Gp g, const int* hi, const int* lo, int M,
+                                              const Key& k) {
+  const int G = g.size();
+  const long long khi = k.w[1], klo = k.w[0];
+  int pos = 0;
+  bool existed = false, have_empty = false;
+  for (int t = g.lo(); t < g.hi(); ++t)
+    for (int m = t; m < M; m += G) {
+      const long long h = hi[m], l = lo[m];
+      existed |= (h == khi) && (l == klo);
+      have_empty |= h == RA_EMPTY;
+      pos += (h < khi) || (h == khi && l < klo);
+    }
+  Put r;
+  r.pos = g.sum(pos);
+  r.existed = g.any(existed);
+  r.overflow = !r.existed && !g.any(have_empty);
+  return r;
+}
+
+// the insert half, in place in a successor row, by the whole group; starts
+// and ends with the group's barrier (the lane's earlier writes, a receipt's
+// Discard or the chain's last put, before its reads)
+template <class Gp>
+__device__ __forceinline__ void ra_bag_insert_g(Gp g, int* hi, int* lo, int* cnt, int M,
+                                                const Key& k, const Put& p) {
+  const int G = g.size();
+  const long long khi = k.w[1], klo = k.w[0];
+  g.sync();
+  if (p.existed) {
+    for (int t = g.lo(); t < g.hi(); ++t)
+      for (int m = t; m < M; m += G)
+        cnt[m] += ((long long)hi[m] == khi && (long long)lo[m] == klo);
+    g.sync();
+    return;
+  }
+  for (int top = M - 1; top > p.pos; top -= G)  // slot top - t, G a round, from the top
+    for (int t = g.lo(); t < g.hi(); ++t) {
+      const int x = top - t;
+      int h = 0, l = 0, c = 0;
+      if (x > p.pos) {
+        h = hi[x - 1];
+        l = lo[x - 1];
+        c = cnt[x - 1];
+      }
+      g.sync();  // every member's read of the round before any write
+      if (x > p.pos) {
+        hi[x] = h;
+        lo[x] = l;
+        cnt[x] = c;
+      }
+    }
+  if (p.pos < M && g.lead()) {  // slot pos was read before the last round's barrier
+    hi[p.pos] = (int)khi;
+    lo[p.pos] = (int)klo;
+    cnt[p.pos] = 1;
+  }
+  g.sync();
+}
+
+// A 2-word put's probe and insert as an action takes them: a guard lane (a
+// group of one) keeps the serial ones, so its code stays as it was; the
+// apply's group splits them.
+__device__ __forceinline__ Put ra_probe(GrpOne, const int* hi, const int* lo, int M, const Key& k) {
+  return ra_bag_probe(hi, lo, M, k);
+}
+template <class Gp>
+__device__ __forceinline__ Put ra_probe(Gp g, const int* hi, const int* lo, int M, const Key& k) {
+  return ra_bag_probe_g(g, hi, lo, M, k);
+}
+__device__ __forceinline__ void ra_insert(GrpOne, int* hi, int* lo, int* cnt, int M,
+                                          const Key& k, const Put& p) {
+  ra_bag_insert(hi, lo, cnt, M, k, p);
+}
+template <class Gp>
+__device__ __forceinline__ void ra_insert(Gp g, int* hi, int* lo, int* cnt, int M, const Key& k,
+                                          const Put& p) {
+  ra_bag_insert_g(g, hi, lo, cnt, M, k, p);
 }
 
 // A lane's one bag put as its action reads it: existed and overflow on the

@@ -26,7 +26,8 @@
 // bags, the most an N-word family takes for its WidePacker bags;
 // Family::scratch_slot(cd) is a lane's slot, or -1) in shared memory and
 // runs one thread per lane; per-block counts go to
-// global memory with one atomic each. apply: a block owns up to 64
+// global memory with one atomic each. apply (apply_body, the pull
+// family's; the others take the group apply below): a block owns up to 64
 // worklist lanes (fewer where a row is too wide for 64 in shared memory);
 // it copies the lanes' source rows into shared memory (coalesced), each
 // thread applies its action to its row in place (the actions write only
@@ -38,14 +39,15 @@
 //
 // A family's source instantiates both with EXPAND_KERNELS(prefix, Family),
 // which defines the kernels prefix_guard_kernel and prefix_apply_kernel
-// and their C launchers prefix_guard and prefix_apply. A family with wide
-// rows and long per-lane work takes the group apply below, a warp a
-// worklist lane: KRaftWithReconfig with the same guard
+// and their C launchers prefix_guard and prefix_apply (the pull family's).
+// The others take the group apply below, a tile of threads a worklist lane:
+// Raft (both builds), KRaft and KRaftWithReconfig with the same guard
 // (EXPAND_KERNELS_GROUP_APPLY), the reconfiguration pair with the group
 // guard below too, a tile of threads a state (EXPAND_KERNELS_GROUP).
 #pragma once
 
 #include <cooperative_groups.h>
+#include <type_traits>
 
 #include "actions_common.cuh"
 
@@ -242,30 +244,36 @@ static int launch_apply(ApplyKernel kernel, size_t* opted_in, const int* states,
   return (int)cudaGetLastError();
 }
 
-// ---- the group apply: a warp a worklist lane ----
+// ---- the group apply: a tile of threads a worklist lane ----
 //
-// For families with wide rows and long per-lane work (the reconfiguration
-// pair, KRaftWithReconfig: a Family with apply(g, sp, s, o, cd) over
-// actions_common.cuh's group helpers). A block of APPLY_GROUP_THREADS threads holds
-// APPLY_GROUP_THREADS / APPLY_GROUP_G lanes and stages only the spec
+// For every family but the pull family (a Family with apply(g, sp, s, o, cd)
+// over actions_common.cuh's group helpers). A block of APPLY_GROUP_THREADS
+// threads holds APPLY_GROUP_THREADS / G lanes and stages only the spec
 // vector, so the resident warps an SM depend on the registers alone, not
 // on W. The group of lane j copies its source row straight into flatc row
 // j (16-byte loads and stores where the two rows share their alignment,
 // else 4-byte; coalesced either way, no division an element), or zeros
 // there for a drop lane, then the action edits the row in place in global
 // memory, with the tile's barrier (__syncwarp over its mask) between a
-// member's write and another member's read. A warp a lane, at three
-// resident blocks an SM asked of the register allocator (80 registers a
-// thread, 24 warps an SM): on the card the fastest of tiles of 4 to 32
-// threads for the reconfiguration pair, and for KRaftWithReconfig within
-// 5% of the fastest of tiles of 8 to 32 at 2 to 4 blocks; four blocks read
-// mixed against three, with more spills (PERF.md's tile tables).
+// member's write and another member's read. The tile (G threads a lane)
+// and the resident blocks an SM asked of the register allocator are the
+// family's (F::APPLY_G, F::APPLY_BLOCKS), (32, 3) where it names none:
+// chosen on the card from timed tables of G 4 to 32 at 2 to 4 blocks
+// (PERF.md's tile tables).
 
 #define APPLY_GROUP_THREADS 256
-#define APPLY_GROUP_G 32
-#define APPLY_GROUP_BLOCKS 3
 
 namespace cg = cooperative_groups;
+
+// a family's group-apply tile: (F::APPLY_G, F::APPLY_BLOCKS), else (32, 3)
+template <class F, class = void>
+struct ApplyTile {
+  static constexpr int G = 32, BLOCKS = 3;
+};
+template <class F>
+struct ApplyTile<F, std::void_t<decltype(F::APPLY_G), decltype(F::APPLY_BLOCKS)>> {
+  static constexpr int G = F::APPLY_G, BLOCKS = F::APPLY_BLOCKS;
+};
 
 // a tile of G threads of one warp as actions_common.cuh's group type
 template <int G>
@@ -326,7 +334,7 @@ __device__ __forceinline__ void apply_group_body(const int* __restrict__ states,
                                                  const int* __restrict__ spec,
                                                  const int* __restrict__ cand,
                                                  int* __restrict__ flatc) {
-  constexpr int G = APPLY_GROUP_G;
+  constexpr int G = ApplyTile<F>::G;
   __shared__ int sp[F::SPEC_LEN];
   for (int t = threadIdx.x; t < F::SPEC_LEN; t += blockDim.x) sp[t] = spec[t];
   __syncthreads();
@@ -353,7 +361,7 @@ static int launch_apply_group(ApplyKernel kernel, const int* states, int C, cons
                               int* flatc, void* stream) {
   if (spec_len != F::SPEC_LEN) return (int)cudaErrorInvalidValue;
   if (VC <= 0) return 0;
-  constexpr int lanes = APPLY_GROUP_THREADS / APPLY_GROUP_G;
+  constexpr int lanes = APPLY_GROUP_THREADS / ApplyTile<F>::G;
   const int blocks = (VC + lanes - 1) / lanes;
   kernel<<<blocks, APPLY_GROUP_THREADS, 0, (cudaStream_t)stream>>>(states, C, sel, VC, spec,
                                                                    cand, flatc);
@@ -364,6 +372,7 @@ static int launch_apply_group(ApplyKernel kernel, const int* states, int C, cons
 // blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), warps an
 // SM, registers a thread, local (stack) bytes a thread}. The shared memory
 // is the spec vector alone, so the figures hold at every W.
+template <class F>
 static int apply_group_occupancy(ApplyKernel kernel, int* out) {
   int nb;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, (const void*)kernel,
@@ -372,7 +381,7 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
   cudaFuncAttributes fa;
   e = cudaFuncGetAttributes(&fa, (const void*)kernel);
   if (e != cudaSuccess) return (int)e;
-  out[0] = APPLY_GROUP_G;
+  out[0] = ApplyTile<F>::G;
   out[1] = APPLY_GROUP_THREADS;
   out[2] = nb;
   out[3] = nb * APPLY_GROUP_THREADS / 32;
@@ -383,7 +392,7 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
 
 // the group apply's kernel and its launchers P_apply and P_apply_occupancy
 #define EXPAND_APPLY_GROUP(P, F)                                                              \
-  __global__ void __launch_bounds__(APPLY_GROUP_THREADS, APPLY_GROUP_BLOCKS)                  \
+  __global__ void __launch_bounds__(APPLY_GROUP_THREADS, ApplyTile<F>::BLOCKS)                \
       P##_apply_kernel(const int* __restrict__ states, int C, const int* __restrict__ sel,    \
                        int VC, const int* __restrict__ spec, const int* __restrict__ cand,    \
                        int* __restrict__ flatc) {                                             \
@@ -395,7 +404,7 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
                                  W, flatc, stream);                                           \
   }                                                                                           \
   extern "C" int P##_apply_occupancy(int* out) {                                              \
-    return apply_group_occupancy(P##_apply_kernel, out);                                      \
+    return apply_group_occupancy<F>(P##_apply_kernel, out);                                   \
   }
 
 // EXPAND_KERNELS with the group apply in place of apply_body (the guard is

@@ -10,16 +10,21 @@
 // candidate) pair at a time: the layout, message packing and bounds come
 // from the model's int32 spec vector (KRaftModel.kernel_spec).
 //
-// Every action group is one function templated on WRITE, as in
-// pull_actions.cuh: with WRITE false it computes only (valid, rank, ovf)
-// and writes no successor lane; with WRITE true it also writes the
-// successor row `o`, a copy of the state `s` made by the caller, lane by
-// changed lane, whether the candidate is enabled or not. RequestVote(i)
-// and BecomeLeader(i) each put a chain of S - 1 messages, each put acting
-// on the bag the previous one left, and a put that finds its message in
-// the bag disables the action (SendMultipleOnce, KRaft.tla:199-201); a
-// guard lane of either replays its chain on its own copy of the bag's keys
-// (KRaftFamily gives each of the 2 * S chain lanes of a state a slot).
+// Every action group is one function templated on WRITE and on the group
+// type Gp of actions_common.cuh (as raft_actions.cuh's): with WRITE false
+// it computes only (valid, rank, ovf) and writes no successor lane; with
+// WRITE true it also writes the successor row `o`, a copy of the state `s`
+// made by the caller, lane by changed lane, whether the candidate is
+// enabled or not. The guard runs an action as a group of one (GrpOne); the
+// group apply on G threads that share the lane, the lead making the scalar
+// writes, the members splitting a server's endOffset row, a log's lanes and
+// each bag put (ra_probe, ra_insert). RequestVote(i) and BecomeLeader(i)
+// each put a chain of S - 1 messages, each put acting on the bag the
+// previous one left, and a put that finds its message in the bag disables
+// the action (SendMultipleOnce, KRaft.tla:199-201); a guard lane of either
+// replays its chain on its own copy of the bag's keys (KRaftFamily gives
+// each of the 2 * S chain lanes of a state a slot), the apply on the
+// successor's own bag.
 //
 // Bit-identity rules the code keeps (properties of the reference, which
 // indexes with traced values, and of the plain version):
@@ -187,31 +192,33 @@ __device__ __forceinline__ int kr_highest_common_offset(const int* lt, int L, in
 
 // Restart(i) — KRaft.tla:423-432: keeps currentEpoch, votedFor and the log;
 // loses leader belief, votes, endOffset, hwm and pendingFetch
-template <bool WRITE>
-__device__ bool kr_restart(const int* sp, const int* s, int* o, int i) {
+template <bool WRITE, class Gp>
+__device__ bool kr_restart(Gp g, const int* sp, const int* s, int* o, int i) {
   if (WRITE) {
     const int S = KFLD(S);
-    jx_set(o + KFLD(ST), S, i, KR_FOLLOWER);
-    jx_set(o + KFLD(LEADER), S, i, RA_NIL);
-    jx_set(o + KFLD(VG), S, i, 0);
-    for (int k = 0; k < S; ++k) jx_set2(o + KFLD(EO), S, S, i, k, 0);
-    jx_set(o + KFLD(HWM), S, i, 0);
-    kr_clear_pf(sp, o, i);
-    o[KFLD(RCTR)] = s[KFLD(RCTR)] + 1;
+    if (g.lead()) {
+      jx_set(o + KFLD(ST), S, i, KR_FOLLOWER);
+      jx_set(o + KFLD(LEADER), S, i, RA_NIL);
+      jx_set(o + KFLD(VG), S, i, 0);
+      jx_set(o + KFLD(HWM), S, i, 0);
+      kr_clear_pf(sp, o, i);
+      o[KFLD(RCTR)] = s[KFLD(RCTR)] + 1;
+    }
+    grp_for(g, S, [&](int k) { jx_set2(o + KFLD(EO), S, S, i, k, 0); });
   }
   return s[KFLD(RCTR)] < KFLD(MAX_RESTARTS);
 }
 
 // RequestVote(i) — KRaft.tla:439-456 (fused Timeout + RequestVote, from
 // Follower, Candidate or Unattached): a request to each peer, send-once
-template <bool WRITE>
-__device__ Guard kr_request_vote(const int* sp, const int* s, int* o, int i, int* bag) {
+template <bool WRITE, class Gp>
+__device__ Guard kr_request_vote(Gp g, const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = KFLD(S), L = KFLD(L), M = KFLD(M);
   const int st = jx_get(s + KFLD(ST), S, i);
-  Guard g{s[KFLD(ECTR)] < KFLD(MAX_ELECTIONS) &&
-              (st == KR_FOLLOWER || st == KR_CANDIDATE || st == KR_UNATTACHED),
-          KK_REQUESTVOTE, false};
-  if (!WRITE && !g.valid) return g;  // ovf is masked by valid
+  Guard gd{s[KFLD(ECTR)] < KFLD(MAX_ELECTIONS) &&
+               (st == KR_FOLLOWER || st == KR_CANDIDATE || st == KR_UNATTACHED),
+           KK_REQUESTVOTE, false};
+  if (!WRITE && !gd.valid) return gd;  // ovf is masked by valid
   const int new_ep = jx_get(s + KFLD(EP), S, i) + 1;
   const int ll = jx_get(s + KFLD(LL), S, i);
   const int last_ep = kr_last_epoch(s + KFLD(LT) + jx_index(i, S) * L, L, ll);
@@ -227,13 +234,13 @@ __device__ Guard kr_request_vote(const int* sp, const int* s, int* o, int i, int
     kr_pack(sp, k, KF_MSOURCE, i);
     kr_pack(sp, k, KF_MDEST, j);
     k = ra_wrap32(k);
-    const Put p = ra_bag_probe(b.hi, b.lo, M, k);
-    g.valid = g.valid && !p.existed;
+    const Put p = ra_probe(g, b.hi, b.lo, M, k);
+    gd.valid = gd.valid && !p.existed;
     ovf = ovf || p.overflow;
-    ra_bag_insert(b.hi, b.lo, b.cnt, M, k, p);
+    ra_insert(g, b.hi, b.lo, b.cnt, M, k, p);
   }
-  g.ovf = ovf && g.valid;
-  if (WRITE) {
+  gd.ovf = ovf && gd.valid;
+  if (WRITE && g.lead()) {
     jx_set(o + KFLD(ST), S, i, KR_CANDIDATE);
     jx_set(o + KFLD(EP), S, i, new_ep);
     jx_set(o + KFLD(LEADER), S, i, RA_NIL);
@@ -242,19 +249,19 @@ __device__ Guard kr_request_vote(const int* sp, const int* s, int* o, int i, int
     kr_clear_pf(sp, o, i);
     o[KFLD(ECTR)] = s[KFLD(ECTR)] + 1;
   }
-  return g;
+  return gd;
 }
 
 // BecomeLeader(i) — KRaft.tla:546-558: a BeginQuorumRequest to each peer,
 // send-once
-template <bool WRITE>
-__device__ Guard kr_become_leader(const int* sp, const int* s, int* o, int i, int* bag) {
+template <bool WRITE, class Gp>
+__device__ Guard kr_become_leader(Gp g, const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = KFLD(S), M = KFLD(M);
   const int vg = jx_get(s + KFLD(VG), S, i);
   int votes = 0;
   for (int k = 0; k < S; ++k) votes += (vg >> k) & 1;
-  Guard g{jx_get(s + KFLD(ST), S, i) == KR_CANDIDATE && 2 * votes > S, KK_BECOMELEADER, false};
-  if (!WRITE && !g.valid) return g;
+  Guard gd{jx_get(s + KFLD(ST), S, i) == KR_CANDIDATE && 2 * votes > S, KK_BECOMELEADER, false};
+  if (!WRITE && !gd.valid) return gd;
   const int ep = jx_get(s + KFLD(EP), S, i);
   const ChainBag b = ra_chain_bag(s, o, bag, KFLD(HI), KFLD(LO), KFLD(CNT), M, WRITE);
   bool ovf = false;
@@ -266,47 +273,49 @@ __device__ Guard kr_become_leader(const int* sp, const int* s, int* o, int i, in
     kr_pack(sp, k, KF_MSOURCE, i);
     kr_pack(sp, k, KF_MDEST, j);
     k = ra_wrap32(k);
-    const Put p = ra_bag_probe(b.hi, b.lo, M, k);
-    g.valid = g.valid && !p.existed;
+    const Put p = ra_probe(g, b.hi, b.lo, M, k);
+    gd.valid = gd.valid && !p.existed;
     ovf = ovf || p.overflow;
-    ra_bag_insert(b.hi, b.lo, b.cnt, M, k, p);
+    ra_insert(g, b.hi, b.lo, b.cnt, M, k, p);
   }
-  g.ovf = ovf && g.valid;
+  gd.ovf = ovf && gd.valid;
   if (WRITE) {
-    jx_set(o + KFLD(ST), S, i, KR_LEADER);
-    jx_set(o + KFLD(LEADER), S, i, i + 1);
-    for (int k = 0; k < S; ++k) jx_set2(o + KFLD(EO), S, S, i, k, 0);
+    if (g.lead()) {
+      jx_set(o + KFLD(ST), S, i, KR_LEADER);
+      jx_set(o + KFLD(LEADER), S, i, i + 1);
+    }
+    grp_for(g, S, [&](int k) { jx_set2(o + KFLD(EO), S, S, i, k, 0); });
   }
-  return g;
+  return gd;
 }
 
 // ClientRequest(i, v) — KRaft.tla:594-603; a log at max_log overflows
-template <bool WRITE>
-__device__ Guard kr_client_request(const int* sp, const int* s, int* o, int i, int v) {
+template <bool WRITE, class Gp>
+__device__ Guard kr_client_request(Gp g, const int* sp, const int* s, int* o, int i, int v) {
   const int S = KFLD(S), L = KFLD(L), V = KFLD(V);
-  Guard g{jx_get(s + KFLD(ST), S, i) == KR_LEADER && jx_get(s + KFLD(ACK), V, v) == RA_ACK_NIL,
-          KK_CLIENTREQUEST, false};
+  Guard gd{jx_get(s + KFLD(ST), S, i) == KR_LEADER && jx_get(s + KFLD(ACK), V, v) == RA_ACK_NIL,
+           KK_CLIENTREQUEST, false};
   const int pos = jx_get(s + KFLD(LL), S, i);
-  g.ovf = g.valid && pos >= L;
-  if (WRITE) {
+  gd.ovf = gd.valid && pos >= L;
+  if (WRITE && g.lead()) {
     const int posc = ra_clamp(pos, 0, L - 1);
     jx_set2(o + KFLD(LT), S, L, i, posc, jx_get(s + KFLD(EP), S, i));
     jx_set2(o + KFLD(LV), S, L, i, posc, v + 1);
     jx_set(o + KFLD(LL), S, i, pos + 1);
     jx_set(o + KFLD(ACK), V, v, RA_ACK_FALSE);
   }
-  return g;
+  return gd;
 }
 
 // SendFetchRequest(i, j) — KRaft.tla:607-624: an unrestricted send (its
 // put ignores existed); the pendingFetch[i] = Nil gate is the flow control
-template <bool WRITE>
-__device__ Guard kr_send_fetch(const int* sp, const int* s, int* o, int i, int j) {
+template <bool WRITE, class Gp>
+__device__ Guard kr_send_fetch(Gp g, const int* sp, const int* s, int* o, int i, int j) {
   const int S = KFLD(S), L = KFLD(L), M = KFLD(M);
-  Guard g{jx_get(s + KFLD(ST), S, i) == KR_FOLLOWER &&
-              jx_get(s + KFLD(LEADER), S, i) == j + 1 && jx_get(s + KFLD(PF_EP), S, i) == 0,
-          KK_SENDFETCH, false};
-  if (!WRITE && !g.valid) return g;
+  Guard gd{jx_get(s + KFLD(ST), S, i) == KR_FOLLOWER &&
+               jx_get(s + KFLD(LEADER), S, i) == j + 1 && jx_get(s + KFLD(PF_EP), S, i) == 0,
+           KK_SENDFETCH, false};
+  if (!WRITE && !gd.valid) return gd;
   const int ep = jx_get(s + KFLD(EP), S, i), ll = jx_get(s + KFLD(LL), S, i);
   const int last_ep = kr_last_epoch(s + KFLD(LT) + jx_index(i, S) * L, L, ll);
   Key k{{0, 0}};
@@ -317,16 +326,18 @@ __device__ Guard kr_send_fetch(const int* sp, const int* s, int* o, int i, int j
   kr_pack(sp, k, KF_MSOURCE, i);
   kr_pack(sp, k, KF_MDEST, j);
   k = ra_wrap32(k);
-  const Put p = ra_bag_probe(s + KFLD(HI), s + KFLD(LO), M, k);
-  g.ovf = p.overflow && g.valid;
+  const Put p = ra_probe(g, s + KFLD(HI), s + KFLD(LO), M, k);
+  gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
-    jx_set(o + KFLD(PF_EP), S, i, ep);
-    jx_set(o + KFLD(PF_OFF), S, i, ll);
-    jx_set(o + KFLD(PF_LE), S, i, last_ep);
-    jx_set(o + KFLD(PF_DEST), S, i, j + 1);
-    ra_bag_insert(o + KFLD(HI), o + KFLD(LO), o + KFLD(CNT), M, k, p);
+    if (g.lead()) {
+      jx_set(o + KFLD(PF_EP), S, i, ep);
+      jx_set(o + KFLD(PF_OFF), S, i, ll);
+      jx_set(o + KFLD(PF_LE), S, i, last_ep);
+      jx_set(o + KFLD(PF_DEST), S, i, j + 1);
+    }
+    ra_insert(g, o + KFLD(HI), o + KFLD(LO), o + KFLD(CNT), M, k, p);
   }
-  return g;
+  return gd;
 }
 
 // the correlation-carrying fields of a FetchResponse (KRaft.tla:649): the
@@ -351,13 +362,13 @@ __device__ __forceinline__ void kr_pack_fetch_resp(const int* sp, Key& k, int ep
 // HandleSuccess/Diverging/ErrorFetchResponse), mutually exclusive for a
 // record (they partition on mtype, then on the error, the fetch position
 // and mresult); rank says which one fired, -1 when none did.
-template <bool WRITE>
-__device__ Guard kr_handle_message(const int* sp, const int* s, int* o, int m) {
+template <bool WRITE, class Gp>
+__device__ Guard kr_handle_message(Gp g, const int* sp, const int* s, int* o, int m) {
   const int S = KFLD(S), L = KFLD(L), M = KFLD(M), V = KFLD(V);
-  Guard g{false, -1, false};
+  Guard gd{false, -1, false};
   const int khi = jx_get(s + KFLD(HI), M, m), klo = jx_get(s + KFLD(LO), M, m);
   // every branch needs a receivable record (KRaft.tla:230-235)
-  if (khi == RA_EMPTY || jx_get(s + KFLD(CNT), M, m) <= 0) return g;
+  if (khi == RA_EMPTY || jx_get(s + KFLD(CNT), M, m) <= 0) return gd;
   const int mtype = kr_unpack(sp, khi, klo, KF_MTYPE);
   const int mepoch = kr_unpack(sp, khi, klo, KF_MEPOCH);
   const int src = kr_unpack(sp, khi, klo, KF_MSOURCE);
@@ -505,7 +516,7 @@ __device__ Guard kr_handle_message(const int* sp, const int* s, int* o, int m) {
   Put p{false, false, 0};
   if (put_branch) {
     k = ra_wrap32(k);
-    p = ra_bag_probe(s + KFLD(HI), s + KFLD(LO), M, k);
+    p = ra_probe(g, s + KFLD(HI), s + KFLD(LO), M, k);
     b_reject = b_reject && !p.existed;
     b_div = b_div && !p.existed;
     b_accept = b_accept && !p.existed;
@@ -514,40 +525,44 @@ __device__ Guard kr_handle_message(const int* sp, const int* s, int* o, int m) {
   const bool dropb = b_rvresp || b_ok || b_divr || b_err;  // Discard only
   const bool app = b_ok && kr_unpack(sp, khi, klo, KF_NENTRIES) > 0;
 
-  g.valid = putb || dropb;
-  if (b_rvreq) g.rank = KK_HANDLE_RVREQ;
-  if (b_rvresp) g.rank = KK_HANDLE_RVRESP;
-  if (b_reject) g.rank = KK_REJECT_FETCH;
-  if (b_div) g.rank = KK_DIVERGING_FETCH;
-  if (b_accept) g.rank = KK_ACCEPT_FETCH;
-  if (b_bqreq) g.rank = KK_HANDLE_BQREQ;
-  if (b_ok) g.rank = KK_HANDLE_FETCH_OK;
-  if (b_divr) g.rank = KK_HANDLE_FETCH_DIV;
-  if (b_err) g.rank = KK_HANDLE_FETCH_ERR;
-  g.ovf = (putb && p.overflow) || (app && ll >= L);
+  gd.valid = putb || dropb;
+  if (b_rvreq) gd.rank = KK_HANDLE_RVREQ;
+  if (b_rvresp) gd.rank = KK_HANDLE_RVRESP;
+  if (b_reject) gd.rank = KK_REJECT_FETCH;
+  if (b_div) gd.rank = KK_DIVERGING_FETCH;
+  if (b_accept) gd.rank = KK_ACCEPT_FETCH;
+  if (b_bqreq) gd.rank = KK_HANDLE_BQREQ;
+  if (b_ok) gd.rank = KK_HANDLE_FETCH_OK;
+  if (b_divr) gd.rank = KK_HANDLE_FETCH_DIV;
+  if (b_err) gd.rank = KK_HANDLE_FETCH_ERR;
+  gd.ovf = (putb && p.overflow) || (app && ll >= L);
 
-  if (WRITE && g.valid) {
-    if (w_sle) kr_set_sle(sp, o, dst, nxt);
-    if (b_rvreq && rv_grant) jx_set(o + KFLD(VF), S, dst, src + 1);
-    if (b_rvresp && granted_bit)
-      jx_set(o + KFLD(VG), S, dst, jx_get(s + KFLD(VG), S, dst) | (1 << src));
-    if (clear_pf) kr_clear_pf(sp, o, dst);
+  if (WRITE && gd.valid) {
+    const bool lw = g.lead();
+    if (lw) {
+      if (w_sle) kr_set_sle(sp, o, dst, nxt);
+      if (b_rvreq && rv_grant) jx_set(o + KFLD(VF), S, dst, src + 1);
+      if (b_rvresp && granted_bit)
+        jx_set(o + KFLD(VG), S, dst, jx_get(s + KFLD(VG), S, dst) | (1 << src));
+      if (clear_pf) kr_clear_pf(sp, o, dst);
+    }
     if (b_accept) {
       const int* eo = s + KFLD(EO) + jx_index(dst, S) * S;
       int s_w = src;
       const bool wrote = jx_in(s_w, S);
-      for (int q = 0; q < S; ++q)
+      grp_for(g, S, [&](int q) {
         jx_set2(o + KFLD(EO), S, S, dst, q, (wrote && q == s_w) ? foff : eo[q]);
-      jx_set(o + KFLD(HWM), S, dst, new_hwm);
+      });
+      if (lw) jx_set(o + KFLD(HWM), S, dst, new_hwm);
       // acked: FALSE -> TRUE for values committed in (hwm, new_hwm]
       // (KRaft.tla:721-724)
-      for (int v = 0; v < V; ++v) {
+      grp_for(g, V, [&](int v) {
         bool committed = false;
         for (int l = 0; l < L; ++l) committed |= l + 1 > hwm && l + 1 <= new_hwm && lv[l] == v + 1;
         if (s[KFLD(ACK) + v] == RA_ACK_FALSE && committed) o[KFLD(ACK) + v] = RA_ACK_TRUE;
-      }
+      });
     }
-    if (b_ok) {  // HandleSuccessFetchResponse (KRaft.tla:742-757)
+    if (b_ok && lw) {  // HandleSuccessFetchResponse (KRaft.tla:742-757)
       jx_set(o + KFLD(HWM), S, dst, kr_unpack(sp, khi, klo, KF_MHWM));
       if (app) {
         const int apos = ra_clamp(ll, 0, L - 1);
@@ -560,30 +575,31 @@ __device__ Guard kr_handle_message(const int* sp, const int* s, int* o, int m) {
       const int hco = kr_highest_common_offset(
           lt, L, ll, kr_unpack(sp, khi, klo, KF_MDIVENDOFFSET),
           kr_unpack(sp, khi, klo, KF_MDIVEPOCH));
-      for (int l = 0; l < L; ++l) {
+      grp_for(g, L, [&](int l) {
         jx_set2(o + KFLD(LT), S, L, dst, l, l < hco ? lt[l] : 0);
         jx_set2(o + KFLD(LV), S, L, dst, l, l < hco ? lv[l] : 0);
-      }
-      jx_set(o + KFLD(LL), S, dst, hco);
+      });
+      if (lw) jx_set(o + KFLD(LL), S, dst, hco);
     }
-    o[KFLD(CNT) + m] -= 1;  // the incoming Discard
-    if (putb) ra_bag_insert(o + KFLD(HI), o + KFLD(LO), o + KFLD(CNT), M, k, p);
+    if (lw) o[KFLD(CNT) + m] -= 1;  // the incoming Discard
+    if (putb) ra_insert(g, o + KFLD(HI), o + KFLD(LO), o + KFLD(CNT), M, k, p);
   }
-  return g;
+  return gd;
 }
 
-// One candidate (a row of the model's candidate table) of one state; `bag`
-// is a chain lane's guard scratch (2 * M ints), unused otherwise.
-template <bool WRITE>
-__device__ Guard kr_action(const int* sp, const int* s, int* o, const int* cd, int* bag) {
+// One candidate (a row of the model's candidate table) of one state, by the
+// group g; `bag` is a chain lane's guard scratch (2 * M ints), unused
+// otherwise.
+template <bool WRITE, class Gp>
+__device__ Guard kr_action(Gp g, const int* sp, const int* s, int* o, const int* cd, int* bag) {
   const int p0 = cd[1], p1 = cd[2];
   switch (cd[0]) {
-    case KG_RESTART: return Guard{kr_restart<WRITE>(sp, s, o, p0), cd[3], false};
-    case KG_REQUEST_VOTE: return kr_request_vote<WRITE>(sp, s, o, p0, bag);
-    case KG_BECOME_LEADER: return kr_become_leader<WRITE>(sp, s, o, p0, bag);
-    case KG_CLIENT_REQUEST: return kr_client_request<WRITE>(sp, s, o, p0, p1);
-    case KG_SEND_FETCH: return kr_send_fetch<WRITE>(sp, s, o, p0, p1);
-    case KG_HANDLE_MESSAGE: return kr_handle_message<WRITE>(sp, s, o, p0);
+    case KG_RESTART: return Guard{kr_restart<WRITE>(g, sp, s, o, p0), cd[3], false};
+    case KG_REQUEST_VOTE: return kr_request_vote<WRITE>(g, sp, s, o, p0, bag);
+    case KG_BECOME_LEADER: return kr_become_leader<WRITE>(g, sp, s, o, p0, bag);
+    case KG_CLIENT_REQUEST: return kr_client_request<WRITE>(g, sp, s, o, p0, p1);
+    case KG_SEND_FETCH: return kr_send_fetch<WRITE>(g, sp, s, o, p0, p1);
+    case KG_HANDLE_MESSAGE: return kr_handle_message<WRITE>(g, sp, s, o, p0);
   }
   return Guard{false, cd[3], false};
 }
@@ -628,12 +644,15 @@ __device__ __forceinline__ bool kr_predicate(const int* sp, const int* s, int id
 
 // KRaft as the kernel drivers see it: where its spec keeps the sizes, the
 // guard scratch of a state (a slot of 2 * M ints for each of its 2 * S
-// chain lanes, RequestVote(i) and BecomeLeader(i)), its actions and its
-// predicates.
+// chain lanes, RequestVote(i) and BecomeLeader(i)), its actions, the group
+// apply's tile and its predicates.
 struct KRaftFamily {
   static constexpr int SPEC_LEN = KS_LEN;
   static constexpr int BAG_WORDS = 2;  // (hi, lo) keys
   static constexpr int I_S = KS_S, I_M = KS_M, I_W = KS_W, I_A = KS_A, I_K = KS_K;
+  // the group apply's threads a worklist lane and resident blocks an SM
+  // (expand_driver.cuh), from the timed table in PERF.md
+  static constexpr int APPLY_G = 32, APPLY_BLOCKS = 3;
   __host__ __device__ __forceinline__ static int scratch_slots(int S) { return 2 * S; }
   __device__ __forceinline__ static int scratch_slot(const int* cd) {
     if (cd[0] == KG_REQUEST_VOTE) return 2 * cd[1];
@@ -642,7 +661,14 @@ struct KRaftFamily {
   }
   template <bool WRITE>
   __device__ __forceinline__ static Guard action(const int* sp, const int* s, int* o, const int* cd, int* bag) {
-    return kr_action<WRITE>(sp, s, o, cd, bag);
+    return kr_action<WRITE>(GrpOne{}, sp, s, o, cd, bag);
+  }
+  // the successor row `o` (a copy of `s`) of one candidate, by the group g
+  // of threads that shares the lane (expand_driver.cuh's group apply)
+  template <class Gp>
+  __device__ __forceinline__ static void apply(Gp g, const int* sp, const int* s, int* o,
+                                               const int* cd) {
+    kr_action<true>(g, sp, s, o, cd, nullptr);
   }
   __device__ __forceinline__ static bool invariant(const int* sp, const int* s, int id) {
     return kr_invariant(sp, s, id);

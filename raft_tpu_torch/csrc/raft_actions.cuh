@@ -14,15 +14,24 @@
 // packing and flags come from the model's int32 spec vector
 // (RaftModel.kernel_spec), so one build serves all three.
 //
-// Every action group is one function templated on WRITE. With WRITE false
-// it computes only (valid, rank, ovf) and never touches a successor lane:
-// the counterpart of the reference's jaxpr dead-code elimination
-// (raft_tpu/models/base.py:347-356). With WRITE true it also writes the
-// successor row `o`, which the caller has filled with a copy of the state
-// `s`, so an action writes only the lanes it changes. Reads always come
-// from `s`. A guard of RequestVote replays its S - 1 puts on a private
-// copy of the bag's keys: the caller hands it `bag`, 2 * M ints of scratch
-// (sized from the model, so the message slots have no fixed cap).
+// Every action group is one function templated on WRITE and on the group
+// type Gp of actions_common.cuh. With WRITE false it computes only (valid,
+// rank, ovf) and never touches a successor lane: the counterpart of the
+// reference's jaxpr dead-code elimination (raft_tpu/models/base.py:347-356).
+// With WRITE true it also writes the successor row `o`, which the caller
+// has filled with a copy of the state `s`, so an action writes only the
+// lanes it changes. Reads always come from `s`, except a put's, which reads
+// the bag it writes. The guard runs an action as a group of one (GrpOne:
+// the serial probe and insert). The group apply runs it on a group of G
+// threads that shares the lane: every member computes the scalar part, the
+// lead (g.lead()) makes the scalar writes, the members split the writes of
+// several lanes (grp_for: log entries, a server's nextIndex/matchIndex row)
+// and each bag put (ra_probe, ra_insert: M / G slots a member), and the
+// insert's barriers order a member's write to the row in global memory
+// before another member's read of it. A guard of RequestVote replays its
+// S - 1 puts on a private copy of the bag's keys: the caller hands it
+// `bag`, 2 * M ints of scratch (sized from the model, so the message slots
+// have no fixed cap); the apply runs them on the successor's own bag.
 //
 // The one-hot helpers, message keys, the bag and the invariants it shares
 // with the other families are in actions_common.cuh; RaftFamily, at the
@@ -101,41 +110,43 @@ __device__ __forceinline__ int ra_last_term(const int* sp, const int* s, int i) 
 // ---- action groups ----
 
 // Restart(i) — Raft.tla:226-235 (RaftFsync.tla:203-218 truncates to fsyncIndex)
-template <bool WRITE>
-__device__ bool ra_restart(const int* sp, const int* s, int* o, int i) {
+template <bool WRITE, class Gp>
+__device__ bool ra_restart(Gp g, const int* sp, const int* s, int* o, int i) {
   const bool valid = s[FLD(RCTR)] < CONST(MAX_RESTARTS);
   if (WRITE) {
     const int S = FLD(S), L = FLD(L);
-    ra_set(o + FLD(ST), S, i, RA_FOLLOWER);
-    ra_set(o + FLD(VG), S, i, 0);
-    for (int k = 0; k < S; ++k) {
+    if (g.lead()) {
+      ra_set(o + FLD(ST), S, i, RA_FOLLOWER);
+      ra_set(o + FLD(VG), S, i, 0);
+      ra_set(o + FLD(CI), S, i, 0);
+      o[FLD(RCTR)] = s[FLD(RCTR)] + 1;
+      if (FLD(HAS_PENDING)) ra_set(o + FLD(PR), S, i, 0);
+    }
+    grp_for(g, S, [&](int k) {
       ra_set2(o + FLD(NI), S, S, i, k, 1);
       ra_set2(o + FLD(MI), S, S, i, k, 0);
-    }
-    ra_set(o + FLD(CI), S, i, 0);
-    o[FLD(RCTR)] = s[FLD(RCTR)] + 1;
-    if (FLD(HAS_PENDING)) ra_set(o + FLD(PR), S, i, 0);
+    });
     if (FLD(HAS_FSYNC)) {
       const int ll = ra_at(s + FLD(LL), S, i), fs = ra_at(s + FLD(FS), S, i);
       const int new_ll = ll < fs ? ll : fs;
-      for (int l = 0; l < L; ++l) {
+      grp_for(g, L, [&](int l) {
         const bool keep = l < new_ll;
         ra_set2(o + FLD(LT), S, L, i, l, keep ? ra_at2(s + FLD(LT), S, L, i, l) : 0);
         ra_set2(o + FLD(LV), S, L, i, l, keep ? ra_at2(s + FLD(LV), S, L, i, l) : 0);
-      }
-      ra_set(o + FLD(LL), S, i, new_ll);
+      });
+      if (g.lead()) ra_set(o + FLD(LL), S, i, new_ll);
     }
   }
   return valid;
 }
 
 // Timeout(i) — RaftFsync.tla:222-230
-template <bool WRITE>
-__device__ bool ra_timeout(const int* sp, const int* s, int* o, int i) {
+template <bool WRITE, class Gp>
+__device__ bool ra_timeout(Gp g, const int* sp, const int* s, int* o, int i) {
   const int S = FLD(S);
   const int st = ra_at(s + FLD(ST), S, i);
   const bool valid = s[FLD(ECTR)] < CONST(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE);
-  if (WRITE) {
+  if (WRITE && g.lead()) {
     ra_set(o + FLD(ST), S, i, RA_CANDIDATE);
     ra_set(o + FLD(CT), S, i, ra_at(s + FLD(CT), S, i) + 1);
     ra_set(o + FLD(VF), S, i, i + 1);
@@ -158,39 +169,40 @@ __device__ __forceinline__ Key ra_rv_key(const int* sp, int term, int last_t, in
 }
 
 // RequestVote(i, j) — RaftFsync.tla:234-243 (send-once)
-template <bool WRITE>
-__device__ Guard ra_request_vote_pair(const int* sp, const int* s, int* o, int i, int j) {
+template <bool WRITE, class Gp>
+__device__ Guard ra_request_vote_pair(Gp g, const int* sp, const int* s, int* o, int i, int j) {
   const int S = FLD(S), M = FLD(M);
-  Guard g{ra_at(s + FLD(ST), S, i) == RA_CANDIDATE, 0, false};
+  Guard gd{ra_at(s + FLD(ST), S, i) == RA_CANDIDATE, 0, false};
   const Key k = ra_rv_key(sp, ra_at(s + FLD(CT), S, i), ra_last_term(sp, s, i),
                           ra_at(s + FLD(LL), S, i), i, j);
-  if (g.valid || WRITE) {
-    const Put p = ra_bag_probe(s + FLD(HI), s + FLD(LO), M, k);
-    g.valid = g.valid && !p.existed;
-    g.ovf = p.overflow && g.valid;
-    if (WRITE) ra_bag_insert(o + FLD(HI), o + FLD(LO), o + FLD(CNT), M, k, p);
+  if (gd.valid || WRITE) {
+    const Put p = ra_probe(g, s + FLD(HI), s + FLD(LO), M, k);
+    gd.valid = gd.valid && !p.existed;
+    gd.ovf = p.overflow && gd.valid;
+    if (WRITE) ra_insert(g, o + FLD(HI), o + FLD(LO), o + FLD(CNT), M, k, p);
   }
-  return g;
+  return gd;
 }
 
 // AdvanceFsyncIndex(i) — RaftFsync.tla:339-343
-template <bool WRITE>
-__device__ bool ra_advance_fsync(const int* sp, const int* s, int* o, int i) {
+template <bool WRITE, class Gp>
+__device__ bool ra_advance_fsync(Gp g, const int* sp, const int* s, int* o, int i) {
   const int S = FLD(S);
   const int fs = ra_at(s + FLD(FS), S, i);
-  if (WRITE) ra_set(o + FLD(FS), S, i, fs + 1);
+  if (WRITE && g.lead()) ra_set(o + FLD(FS), S, i, fs + 1);
   return fs < ra_at(s + FLD(LL), S, i);
 }
 
 // RequestVote(i) — Raft.tla:242-257 (Timeout fused with sends to every peer).
 // The puts act one after another on the bag the previous put left, so a
 // guard lane replays them on a private copy of the keys in `bag` (2 * M
-// ints: hi, then lo).
-template <bool WRITE>
-__device__ Guard ra_request_vote(const int* sp, const int* s, int* o, int i, int* bag) {
+// ints: hi, then lo); the apply's group puts them on the successor's bag,
+// one after another, each split over the group.
+template <bool WRITE, class Gp>
+__device__ Guard ra_request_vote(Gp g, const int* sp, const int* s, int* o, int i, int* bag) {
   const int S = FLD(S), M = FLD(M);
   const int st = ra_at(s + FLD(ST), S, i);
-  Guard g{s[FLD(ECTR)] < CONST(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE), 0, false};
+  Guard gd{s[FLD(ECTR)] < CONST(MAX_ELECTIONS) && (st == RA_FOLLOWER || st == RA_CANDIDATE), 0, false};
   const int new_term = ra_at(s + FLD(CT), S, i) + 1;
   const int last_t = ra_last_term(sp, s, i), ll = ra_at(s + FLD(LL), S, i);
   int* bh;
@@ -201,7 +213,7 @@ __device__ Guard ra_request_vote(const int* sp, const int* s, int* o, int i, int
     bl = o + FLD(LO);
     bc = o + FLD(CNT);
   } else {
-    if (!g.valid) return g;  // ovf is masked by valid: nothing else to learn
+    if (!gd.valid) return gd;  // ovf is masked by valid: nothing else to learn
     bh = bag;
     bl = bag + M;
     bc = nullptr;
@@ -214,25 +226,25 @@ __device__ Guard ra_request_vote(const int* sp, const int* s, int* o, int i, int
   for (int d = 1; d < S; ++d) {
     const int j = (i + d) % S;
     const Key k = ra_rv_key(sp, new_term, last_t, ll, i, j);
-    const Put p = ra_bag_probe(bh, bl, M, k);
-    g.valid = g.valid && !p.existed;
+    const Put p = ra_probe(g, bh, bl, M, k);
+    gd.valid = gd.valid && !p.existed;
     ovf = ovf || p.overflow;
-    ra_bag_insert(bh, bl, bc, M, k, p);
+    ra_insert(g, bh, bl, bc, M, k, p);
   }
-  g.ovf = ovf && g.valid;
-  if (WRITE) {
+  gd.ovf = ovf && gd.valid;
+  if (WRITE && g.lead()) {
     ra_set(o + FLD(ST), S, i, RA_CANDIDATE);
     ra_set(o + FLD(CT), S, i, new_term);
     ra_set(o + FLD(VF), S, i, i + 1);
     ra_set(o + FLD(VG), S, i, 1 << i);
     o[FLD(ECTR)] = s[FLD(ECTR)] + 1;
   }
-  return g;
+  return gd;
 }
 
 // BecomeLeader(i) — Raft.tla:289-300 (FlexibleRaft.tla:260-269)
-template <bool WRITE>
-__device__ bool ra_become_leader(const int* sp, const int* s, int* o, int i) {
+template <bool WRITE, class Gp>
+__device__ bool ra_become_leader(Gp g, const int* sp, const int* s, int* o, int i) {
   const int S = FLD(S);
   const int vg = ra_at(s + FLD(VG), S, i);
   int votes = 0;
@@ -240,38 +252,40 @@ __device__ bool ra_become_leader(const int* sp, const int* s, int* o, int i) {
   const bool quorum = FLD(EQ) >= 0 ? votes >= FLD(EQ) : 2 * votes > S;
   if (WRITE) {
     const int nrow = ra_at(s + FLD(LL), S, i) + 1;
-    ra_set(o + FLD(ST), S, i, RA_LEADER);
-    for (int k = 0; k < S; ++k) {
+    if (g.lead()) {
+      ra_set(o + FLD(ST), S, i, RA_LEADER);
+      if (FLD(HAS_PENDING)) ra_set(o + FLD(PR), S, i, 0);
+    }
+    grp_for(g, S, [&](int k) {
       ra_set2(o + FLD(NI), S, S, i, k, nrow);
       ra_set2(o + FLD(MI), S, S, i, k, 0);
-    }
-    if (FLD(HAS_PENDING)) ra_set(o + FLD(PR), S, i, 0);
+    });
   }
   return ra_at(s + FLD(ST), S, i) == RA_CANDIDATE && quorum;
 }
 
 // ClientRequest(i, v) — Raft.tla:304-313
-template <bool WRITE>
-__device__ Guard ra_client_request(const int* sp, const int* s, int* o, int i, int v) {
+template <bool WRITE, class Gp>
+__device__ Guard ra_client_request(Gp g, const int* sp, const int* s, int* o, int i, int v) {
   const int S = FLD(S), L = FLD(L), V = FLD(V);
-  Guard g{ra_at(s + FLD(ST), S, i) == RA_LEADER && ra_at(s + FLD(ACK), V, v) == RA_ACK_NIL, 0,
-          false};
+  Guard gd{ra_at(s + FLD(ST), S, i) == RA_LEADER && ra_at(s + FLD(ACK), V, v) == RA_ACK_NIL, 0,
+           false};
   const int pos = ra_at(s + FLD(LL), S, i);
-  g.ovf = g.valid && pos >= L;
-  if (WRITE) {
+  gd.ovf = gd.valid && pos >= L;
+  if (WRITE && g.lead()) {
     const int posc = ra_clamp(pos, 0, L - 1);
     ra_set2(o + FLD(LT), S, L, i, posc, ra_at(s + FLD(CT), S, i));
     ra_set2(o + FLD(LV), S, L, i, posc, v + 1);
     ra_set(o + FLD(LL), S, i, pos + 1);
     ra_set(o + FLD(ACK), V, v, RA_ACK_FALSE);
   }
-  return g;
+  return gd;
 }
 
 // AdvanceCommitIndex(i) — Raft.tla:320-344 (RaftFsync.tla:313-315 drops the
 // leader from Agree above its fsyncIndex under LeaderFsyncBeforeIncludeInQuorum)
-template <bool WRITE>
-__device__ bool ra_advance_commit(const int* sp, const int* s, int* o, int i) {
+template <bool WRITE, class Gp>
+__device__ bool ra_advance_commit(Gp g, const int* sp, const int* s, int* o, int i) {
   const int S = FLD(S), L = FLD(L), V = FLD(V);
   const int ll = ra_at(s + FLD(LL), S, i), ci = ra_at(s + FLD(CI), S, i);
   const int ct = ra_at(s + FLD(CT), S, i);
@@ -290,25 +304,25 @@ __device__ bool ra_advance_commit(const int* sp, const int* s, int* o, int i) {
   const int term_at = ra_at2(s + FLD(LT), S, L, i, ra_clamp(max_agree - 1, 0, L - 1));
   const int new_ci = (max_agree > 0 && term_at == ct) ? max_agree : ci;
   if (WRITE) {
-    ra_set(o + FLD(CI), S, i, new_ci);
-    for (int v = 0; v < V; ++v) {
+    if (g.lead()) ra_set(o + FLD(CI), S, i, new_ci);
+    grp_for(g, V, [&](int v) {
       bool committed = false;
       for (int l = 0; l < L; ++l)
         committed |= l + 1 > ci && l + 1 <= new_ci && ra_at2(s + FLD(LV), S, L, i, l) == v + 1;
       if (s[FLD(ACK) + v] == RA_ACK_FALSE && committed) o[FLD(ACK) + v] = RA_ACK_TRUE;
-    }
+    });
   }
   return ra_at(s + FLD(ST), S, i) == RA_LEADER && ci < new_ci;
 }
 
 // AppendEntries(i, j) — Raft.tla:263-285 (FlexibleRaft.tla:236-256 has no
 // pendingResponse gate; RaftFsync.tla:261-263 the fsync-before-send gate)
-template <bool WRITE>
-__device__ Guard ra_append_entries(const int* sp, const int* s, int* o, int i, int j) {
+template <bool WRITE, class Gp>
+__device__ Guard ra_append_entries(Gp g, const int* sp, const int* s, int* o, int i, int j) {
   const int S = FLD(S), L = FLD(L), M = FLD(M);
-  Guard g{ra_at(s + FLD(ST), S, i) == RA_LEADER, 0, false};
+  Guard gd{ra_at(s + FLD(ST), S, i) == RA_LEADER, 0, false};
   const int pr = FLD(HAS_PENDING) ? ra_at(s + FLD(PR), S, i) : 0;
-  if (FLD(HAS_PENDING)) g.valid = g.valid && ((pr >> j) & 1) == 0;
+  if (FLD(HAS_PENDING)) gd.valid = gd.valid && ((pr >> j) & 1) == 0;
   const int ni = ra_at2(s + FLD(NI), S, S, i, j);
   const int prev_idx = ni - 1;
   const int prev_term =
@@ -316,13 +330,13 @@ __device__ Guard ra_append_entries(const int* sp, const int* s, int* o, int i, i
   const int ll = ra_at(s + FLD(LL), S, i);
   const int last_entry = ll < ni ? ll : ni;
   if (FLD(HAS_FSYNC) && FLD(FS_BEFORE_AE))
-    g.valid = g.valid && ra_at(s + FLD(FS), S, i) >= last_entry;
+    gd.valid = gd.valid && ra_at(s + FLD(FS), S, i) >= last_entry;
   const int nent = last_entry >= ni;
   const int epos = ra_clamp(ni - 1, 0, L - 1);
   const int eterm = nent ? ra_at2(s + FLD(LT), S, L, i, epos) : 0;
   const int evalue = nent ? ra_at2(s + FLD(LV), S, L, i, epos) : 0;
   const int ci = ra_at(s + FLD(CI), S, i);
-  if (!g.valid && !WRITE) return g;
+  if (!gd.valid && !WRITE) return gd;
   Key k{{0, 0}};
   ra_pack(sp, k, MF_MTYPE, RA_AEREQ);
   ra_pack(sp, k, MF_MTERM, ra_at(s + FLD(CT), S, i));
@@ -334,30 +348,30 @@ __device__ Guard ra_append_entries(const int* sp, const int* s, int* o, int i, i
   ra_pack(sp, k, MF_MCOMMITINDEX, ci < last_entry ? ci : last_entry);
   ra_pack(sp, k, MF_MSOURCE, i);
   ra_pack(sp, k, MF_MDEST, j);
-  const Put p = ra_bag_probe(s + FLD(HI), s + FLD(LO), M, k);
+  const Put p = ra_probe(g, s + FLD(HI), s + FLD(LO), M, k);
   if (FLD(STRICT))
-    g.valid = g.valid && !p.existed;  // FlexibleRaft.tla:127-129
+    gd.valid = gd.valid && !p.existed;  // FlexibleRaft.tla:127-129
   else
-    g.valid = g.valid && (nent > 0 || !p.existed);  // Raft.tla:145-149
-  g.ovf = p.overflow && g.valid;
+    gd.valid = gd.valid && (nent > 0 || !p.existed);  // Raft.tla:145-149
+  gd.ovf = p.overflow && gd.valid;
   if (WRITE) {
-    ra_bag_insert(o + FLD(HI), o + FLD(LO), o + FLD(CNT), M, k, p);
-    if (FLD(HAS_PENDING)) ra_set(o + FLD(PR), S, i, pr | (1 << j));
+    ra_insert(g, o + FLD(HI), o + FLD(LO), o + FLD(CNT), M, k, p);
+    if (FLD(HAS_PENDING) && g.lead()) ra_set(o + FLD(PR), S, i, pr | (1 << j));
   }
-  return g;
+  return gd;
 }
 
 // HandleMessage(slot m): the six receipt disjuncts of Next (Raft.tla:534-539),
 // mutually exclusive for a fixed record; rank says which one fired
 // (rank base + 0..5 in Next order), -1 when none did.
-template <bool WRITE>
-__device__ Guard ra_handle_message(const int* sp, const int* s, int* o, int m, int rank0) {
+template <bool WRITE, class Gp>
+__device__ Guard ra_handle_message(Gp g, const int* sp, const int* s, int* o, int m, int rank0) {
   const int S = FLD(S), L = FLD(L), M = FLD(M);
-  Guard g{false, -1, false};
+  Guard gd{false, -1, false};
   const int khi = ra_at(s + FLD(HI), M, m), klo = ra_at(s + FLD(LO), M, m);
   const int kcnt = ra_at(s + FLD(CNT), M, m);
   const bool occupied = khi != RA_EMPTY;
-  if (!occupied) return g;  // every branch needs a record in the domain
+  if (!occupied) return gd;  // every branch needs a record in the domain
   const int mtype = ra_unpack(sp, khi, klo, MF_MTYPE);
   const int mterm = ra_unpack(sp, khi, klo, MF_MTERM);
   const int src = ra_unpack(sp, khi, klo, MF_MSOURCE);
@@ -428,7 +442,7 @@ __device__ Guard ra_handle_message(const int* sp, const int* s, int* o, int m, i
     ra_pack(sp, k, MF_MSOURCE, dst);
     ra_pack(sp, k, MF_MDEST, src);
     k = ra_wrap32(k);
-    p = ra_bag_probe(s + FLD(HI), s + FLD(LO), M, k);
+    p = ra_probe(g, s + FLD(HI), s + FLD(LO), M, k);
     if (FLD(STRICT)) {  // FlexibleRaft Reply (FlexibleRaft.tla:148-151)
       b_rvreq = b_rvreq && !p.existed;
       b_reject = b_reject && !p.existed;
@@ -438,32 +452,35 @@ __device__ Guard ra_handle_message(const int* sp, const int* s, int* o, int m, i
   const bool putb = b_rvreq || b_reject || b_accept;
   const bool dropb = b_rvresp || b_aeresp;  // Discard only, no response
 
-  g.valid = b_upd || b_rvreq || b_rvresp || b_reject || b_accept || b_aeresp;
-  if (b_upd) g.rank = rank0 + 0;
-  if (b_rvreq) g.rank = rank0 + 1;
-  if (b_rvresp) g.rank = rank0 + 2;
-  if (b_reject) g.rank = rank0 + 3;
-  if (b_accept) g.rank = rank0 + 4;
-  if (b_aeresp) g.rank = rank0 + 5;
-  g.ovf = (b_rvreq && p.overflow) || (b_reject && p.overflow) ||
-          (b_accept && (p.overflow || ac_ovf));
+  gd.valid = b_upd || b_rvreq || b_rvresp || b_reject || b_accept || b_aeresp;
+  if (b_upd) gd.rank = rank0 + 0;
+  if (b_rvreq) gd.rank = rank0 + 1;
+  if (b_rvresp) gd.rank = rank0 + 2;
+  if (b_reject) gd.rank = rank0 + 3;
+  if (b_accept) gd.rank = rank0 + 4;
+  if (b_aeresp) gd.rank = rank0 + 5;
+  gd.ovf = (b_rvreq && p.overflow) || (b_reject && p.overflow) ||
+           (b_accept && (p.overflow || ac_ovf));
 
   if (WRITE) {
-    if (b_upd) {
-      ra_set(o + FLD(CT), S, dst, mterm);
-      ra_set(o + FLD(VF), S, dst, RA_NIL);
-    } else if (b_rvreq && grant) {
-      ra_set(o + FLD(VF), S, dst, src + 1);
+    const bool lw = g.lead();
+    if (lw) {
+      if (b_upd) {
+        ra_set(o + FLD(CT), S, dst, mterm);
+        ra_set(o + FLD(VF), S, dst, RA_NIL);
+      } else if (b_rvreq && grant) {
+        ra_set(o + FLD(VF), S, dst, src + 1);
+      }
+      if (b_upd || b_accept) ra_set(o + FLD(ST), S, dst, RA_FOLLOWER);
+      if (b_rvresp && ra_unpack(sp, khi, klo, MF_MVOTEGRANTED) > 0)
+        ra_set(o + FLD(VG), S, dst, ra_at(s + FLD(VG), S, dst) | (1 << src));
     }
-    if (b_upd || b_accept) ra_set(o + FLD(ST), S, dst, RA_FOLLOWER);
-    if (b_rvresp && ra_unpack(sp, khi, klo, MF_MVOTEGRANTED) > 0)
-      ra_set(o + FLD(VG), S, dst, ra_at(s + FLD(VG), S, dst) | (1 << src));
     if (b_accept) {
       const int evalue = ra_unpack(sp, khi, klo, MF_EVALUE);
-      ra_set(o + FLD(CI), S, dst, ra_unpack(sp, khi, klo, MF_MCOMMITINDEX));
+      if (lw) ra_set(o + FLD(CI), S, dst, ra_unpack(sp, khi, klo, MF_MCOMMITINDEX));
       if (appending || needs_trunc) {
         const int app_pos = ra_clamp(prev_idx, 0, L - 1);
-        for (int l = 0; l < L; ++l) {
+        grp_for(g, L, [&](int l) {
           const bool keep = l < prev_idx;
           int t = keep ? ra_at2(s + FLD(LT), S, L, dst, l) : 0;
           int v = keep ? ra_at2(s + FLD(LV), S, L, dst, l) : 0;
@@ -473,13 +490,15 @@ __device__ Guard ra_handle_message(const int* sp, const int* s, int* o, int m, i
           }
           ra_set2(o + FLD(LT), S, L, dst, l, t);
           ra_set2(o + FLD(LV), S, L, dst, l, v);
-        }
+        });
       }
-      ra_set(o + FLD(LL), S, dst, new_ll);
-      if (FLD(HAS_FSYNC) && FLD(FS_REPLY))  // FollowerFsyncBeforeReply (RaftFsync.tla:468-470)
-        ra_set(o + FLD(FS), S, dst, new_ll);
+      if (lw) {
+        ra_set(o + FLD(LL), S, dst, new_ll);
+        if (FLD(HAS_FSYNC) && FLD(FS_REPLY))  // FollowerFsyncBeforeReply (RaftFsync.tla:468-470)
+          ra_set(o + FLD(FS), S, dst, new_ll);
+      }
     }
-    if (b_aeresp) {
+    if (b_aeresp && lw) {
       const int mmatch = ra_unpack(sp, khi, klo, MF_MMATCHINDEX);
       const bool succ = ra_unpack(sp, khi, klo, MF_MSUCCESS) > 0;
       const int ni = ra_at2(s + FLD(NI), S, S, dst, src);
@@ -488,67 +507,68 @@ __device__ Guard ra_handle_message(const int* sp, const int* s, int* o, int m, i
       if (FLD(HAS_PENDING))
         ra_set(o + FLD(PR), S, dst, ra_at(s + FLD(PR), S, dst) & ~(1 << src));
     }
-    if (putb || dropb) o[FLD(CNT) + m] -= 1;  // the incoming Discard (Raft.tla:170-176)
-    if (putb) ra_bag_insert(o + FLD(HI), o + FLD(LO), o + FLD(CNT), M, k, p);
+    if ((putb || dropb) && lw) o[FLD(CNT) + m] -= 1;  // the incoming Discard (Raft.tla:170-176)
+    if (putb) ra_insert(g, o + FLD(HI), o + FLD(LO), o + FLD(CNT), M, k, p);
   }
-  return g;
+  return gd;
 }
 
 // DuplicateMessage(m) — Raft.tla:508-515: one more delivery of a record in
 // the bag's domain, while it has 1 <= count < max_msg_copies (the bound the
 // reference puts on the unbounded TLA+ action).
-template <bool WRITE>
-__device__ bool ra_duplicate_message(const int* sp, const int* s, int* o, int m) {
+template <bool WRITE, class Gp>
+__device__ bool ra_duplicate_message(Gp g, const int* sp, const int* s, int* o, int m) {
   const int M = FLD(M);
   const int cnt = ra_at(s + FLD(CNT), M, m);
-  if (WRITE) ra_set(o + FLD(CNT), M, m, cnt + 1);
+  if (WRITE && g.lead()) ra_set(o + FLD(CNT), M, m, cnt + 1);
   return ra_at(s + FLD(HI), M, m) != RA_EMPTY && cnt >= 1 && cnt < FLD(MAX_MSG_COPIES);
 }
 
 // DropMessage(m) — Raft.tla:517-523: one delivery of a receivable record
 // discarded; the domain keeps the record at count 0, as a receipt's Discard
 // does.
-template <bool WRITE>
-__device__ bool ra_drop_message(const int* sp, const int* s, int* o, int m) {
+template <bool WRITE, class Gp>
+__device__ bool ra_drop_message(Gp g, const int* sp, const int* s, int* o, int m) {
   const int M = FLD(M);
   const int cnt = ra_at(s + FLD(CNT), M, m);
-  if (WRITE) ra_set(o + FLD(CNT), M, m, cnt - 1);
+  if (WRITE && g.lead()) ra_set(o + FLD(CNT), M, m, cnt - 1);
   return ra_at(s + FLD(HI), M, m) != RA_EMPTY && cnt >= 1;
 }
 
-// One candidate (a row of the model's candidate table) of one state; `bag`
-// is the scratch of a RequestVote guard (2 * M ints), unused otherwise.
-// FAULTS compiles the network-fault groups in; a model without them runs
-// the instantiation without (RaftFamily), whose code the fault arms would
-// otherwise reshape (they cost a five-server guard some 9% when present).
-template <bool WRITE, bool FAULTS>
-__device__ Guard ra_action(const int* sp, const int* s, int* o, const int* cd, int* bag) {
+// One candidate (a row of the model's candidate table) of one state, by the
+// group g; `bag` is the scratch of a RequestVote guard (2 * M ints), unused
+// otherwise. FAULTS compiles the network-fault groups in; a model without
+// them runs the instantiation without (RaftFamily), whose code the fault
+// arms would otherwise reshape (they cost a five-server guard some 9% when
+// present).
+template <bool WRITE, bool FAULTS, class Gp>
+__device__ Guard ra_action(Gp g, const int* sp, const int* s, int* o, const int* cd, int* bag) {
   const int p0 = cd[1], p1 = cd[2];
-  Guard g{false, cd[3], false};
+  Guard gd{false, cd[3], false};
   if constexpr (FAULTS) {
     if (cd[0] == G_DUPLICATE_MESSAGE) {
-      g.valid = ra_duplicate_message<WRITE>(sp, s, o, p0);
-      return g;
+      gd.valid = ra_duplicate_message<WRITE>(g, sp, s, o, p0);
+      return gd;
     }
     if (cd[0] == G_DROP_MESSAGE) {
-      g.valid = ra_drop_message<WRITE>(sp, s, o, p0);
-      return g;
+      gd.valid = ra_drop_message<WRITE>(g, sp, s, o, p0);
+      return gd;
     }
   }
   switch (cd[0]) {
-    case G_RESTART: g.valid = ra_restart<WRITE>(sp, s, o, p0); break;
-    case G_TIMEOUT: g.valid = ra_timeout<WRITE>(sp, s, o, p0); break;
-    case G_REQUEST_VOTE_PAIR: g = ra_request_vote_pair<WRITE>(sp, s, o, p0, p1); break;
-    case G_REQUEST_VOTE: g = ra_request_vote<WRITE>(sp, s, o, p0, bag); break;
-    case G_BECOME_LEADER: g.valid = ra_become_leader<WRITE>(sp, s, o, p0); break;
-    case G_CLIENT_REQUEST: g = ra_client_request<WRITE>(sp, s, o, p0, p1); break;
-    case G_ADVANCE_COMMIT: g.valid = ra_advance_commit<WRITE>(sp, s, o, p0); break;
-    case G_APPEND_ENTRIES: g = ra_append_entries<WRITE>(sp, s, o, p0, p1); break;
-    case G_ADVANCE_FSYNC: g.valid = ra_advance_fsync<WRITE>(sp, s, o, p0); break;
-    case G_HANDLE_MESSAGE: return ra_handle_message<WRITE>(sp, s, o, p0, cd[3]);
+    case G_RESTART: gd.valid = ra_restart<WRITE>(g, sp, s, o, p0); break;
+    case G_TIMEOUT: gd.valid = ra_timeout<WRITE>(g, sp, s, o, p0); break;
+    case G_REQUEST_VOTE_PAIR: gd = ra_request_vote_pair<WRITE>(g, sp, s, o, p0, p1); break;
+    case G_REQUEST_VOTE: gd = ra_request_vote<WRITE>(g, sp, s, o, p0, bag); break;
+    case G_BECOME_LEADER: gd.valid = ra_become_leader<WRITE>(g, sp, s, o, p0); break;
+    case G_CLIENT_REQUEST: gd = ra_client_request<WRITE>(g, sp, s, o, p0, p1); break;
+    case G_ADVANCE_COMMIT: gd.valid = ra_advance_commit<WRITE>(g, sp, s, o, p0); break;
+    case G_APPEND_ENTRIES: gd = ra_append_entries<WRITE>(g, sp, s, o, p0, p1); break;
+    case G_ADVANCE_FSYNC: gd.valid = ra_advance_fsync<WRITE>(g, sp, s, o, p0); break;
+    case G_HANDLE_MESSAGE: return ra_handle_message<WRITE>(g, sp, s, o, p0, cd[3]);
   }
-  if (cd[0] != G_HANDLE_MESSAGE) g.rank = cd[3];
-  return g;
+  if (cd[0] != G_HANDLE_MESSAGE) gd.rank = cd[3];
+  return gd;
 }
 
 // ---- invariants (true = holds): actions_common.cuh over Raft's fields ----
@@ -574,19 +594,30 @@ __device__ __forceinline__ bool ra_predicate(const int* sp, const int* s, int id
 // The Raft family as the kernel drivers see it: where its spec keeps the
 // sizes, the guard scratch of a state (a slot of 2 * M ints for each
 // RequestVote(i) lane's replay of its S - 1 puts), its actions (with the
-// network-fault groups where FAULTS) and its predicates.
+// network-fault groups where FAULTS), the group apply's tile and its
+// predicates.
 template <bool FAULTS>
 struct RaftFamilyT {
   static constexpr int SPEC_LEN = SP_LEN;
   static constexpr int BAG_WORDS = 2;  // (hi, lo) keys
   static constexpr int I_S = SP_S, I_M = SP_M, I_W = SP_W, I_A = SP_A, I_K = SP_K;
+  // the group apply's threads a worklist lane and resident blocks an SM
+  // (expand_driver.cuh), from the timed table in PERF.md
+  static constexpr int APPLY_G = 32, APPLY_BLOCKS = 3;
   __host__ __device__ __forceinline__ static int scratch_slots(int S) { return S; }
   __device__ __forceinline__ static int scratch_slot(const int* cd) {
     return cd[0] == G_REQUEST_VOTE ? cd[1] : -1;
   }
   template <bool WRITE>
   __device__ __forceinline__ static Guard action(const int* sp, const int* s, int* o, const int* cd, int* bag) {
-    return ra_action<WRITE, FAULTS>(sp, s, o, cd, bag);
+    return ra_action<WRITE, FAULTS>(GrpOne{}, sp, s, o, cd, bag);
+  }
+  // the successor row `o` (a copy of `s`) of one candidate, by the group g
+  // of threads that shares the lane (expand_driver.cuh's group apply)
+  template <class Gp>
+  __device__ __forceinline__ static void apply(Gp g, const int* sp, const int* s, int* o,
+                                               const int* cd) {
+    ra_action<true, FAULTS>(g, sp, s, o, cd, nullptr);
   }
   __device__ __forceinline__ static bool invariant(const int* sp, const int* s, int id) {
     return ra_invariant(sp, s, id);

@@ -89,7 +89,9 @@ for _fam in ("raft", "pull", "kraft", "reconfig", "joint", "kreconfig"):
     _SIGNATURES[f"{_fam}_predicates"] = {f"{_fam}_predicates": _PREDICATES,
                                          f"{_fam}_sim_check": _SIM_CHECK}
 # raft_expand.cu's second build of the two, with the network-fault groups
-_SIGNATURES["raft_expand"].update(raft_nf_guard=_GUARD, raft_nf_apply=_APPLY)
+# (its group apply's launch shape too: the first build's is found by name)
+_SIGNATURES["raft_expand"].update(raft_nf_guard=_GUARD, raft_nf_apply=_APPLY,
+                                  raft_nf_apply_occupancy=[_P])
 # the group guard's launch shape at M message slots and W lanes (expand_driver.cuh
 # EXPAND_KERNELS_GROUP: the reconfiguration pair)
 for _fam in ("reconfig", "joint"):

@@ -105,15 +105,17 @@ def guard_occupancy(model) -> dict | None:
     return _occupancy(model.KERNELS["guard"], model.p.msg_slots, model.layout.W)
 
 
-def _occupancy(k, *args) -> dict | None:
-    """``<k.name>_occupancy(*args, out)`` of a group kernel's library as a
-    dict, or None where the library has no such launcher."""
-    if not hasattr(k.lib, f"{k.name}_occupancy"):
+def _occupancy(k, *args, variant: str = "") -> dict | None:
+    """``<name>_occupancy(*args, out)`` of a group kernel's library as a
+    dict (the name of the kernel's launcher, or of its ``variant``'s), or
+    None where the library has no such launcher."""
+    name = k.launcher(variant).__name__ + "_occupancy"
+    if not hasattr(k.lib, name):
         return None
     out = (ctypes.c_int * 6)()
-    rc = getattr(k.lib, f"{k.name}_occupancy")(*args, ctypes.cast(out, ctypes.c_void_p))
+    rc = getattr(k.lib, name)(*args, ctypes.cast(out, ctypes.c_void_p))
     if rc:
-        raise RuntimeError(f"{k.name}_occupancy: {k.lib.rt_error_string(rc).decode()}")
+        raise RuntimeError(f"{name}: {k.lib.rt_error_string(rc).decode()}")
     return dict(zip(("G", "threads", "blocks_per_sm", "warps_per_sm", "registers",
                      "stack_bytes"), out))
 
@@ -153,8 +155,10 @@ def apply_occupancy(model) -> dict | None:
     threads a block, resident blocks and warps an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and local
     (stack) bytes a thread, at every row width. None for an apply that
-    sizes its blocks by W (``apply_body``). Launches nothing."""
-    return _occupancy(model.KERNELS["apply"])
+    sizes its blocks by W (``apply_body``). A model's build of the kernel
+    (``raft_nf_apply`` for a Raft model with net_faults) is the one read.
+    Launches nothing."""
+    return _occupancy(model.KERNELS["apply"], variant=model.KERNEL_VARIANT)
 
 
 # ---------------- fold ----------------

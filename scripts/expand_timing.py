@@ -11,7 +11,9 @@ name), which builds that checkout's kernels and times, with CUDA events
 around ITERS calls issued back to back (the card's time per call, the
 host's launch work hidden behind the queue): the guard, apply and fold
 kernels on a 4,096-state chunk of the depth-20 Raft.cfg frontier, of the
-depth-27 PullRaft stand-in frontier and of the depth-33 KRaft.cfg frontier,
+depth-12 Raft.cfg ``--net-faults`` frontier (``raft_nf_guard`` and
+``raft_nf_apply``, the fault build), of the depth-27 PullRaft stand-in
+frontier and of the depth-33 KRaft.cfg frontier,
 ``canon_memo`` on each chunk's worklist (cold: a fresh 2^21-row memo
 before every call; warm: every lane hits), ``append_rows`` emitting the
 chunk's valid rows (DeviceBFS's frontier emit), ``owner_route`` on the
@@ -31,12 +33,14 @@ four-server JointConsensus frontier, the same on a chunk of the depth-11
 KRaftWithReconfig frontier (the full cfg: ``slot_canon``, which has no
 memo, in place of the canon's cold and warm times), and the guard and apply
 on one move of a
-65,536-walk simulate of five-server FlexibleRaft, of each four-server
+65,536-walk simulate of five-server FlexibleRaft, of KRaft.cfg, of Raft.cfg
+with ``--net-faults``, of each four-server
 reconfiguration cfg and of KRaftWithReconfig's full cfg (the shapes of
 ``chip_smoke.py`` phase 3 and its simulates); with ptxas' stack, spill and
-register figures of the reconfiguration pair's and KRaftWithReconfig's
-guard and apply kernels and of ``canon_memo``'s and ``slot_canon``'s (the
-five units compiled afresh) and, where the checkout has them, the
+register figures of the Raft (both builds), KRaft, reconfiguration pair's
+and KRaftWithReconfig's guard and apply kernels and of ``canon_memo``'s and
+``slot_canon``'s (the seven units compiled afresh) and, where the checkout
+has them, the
 group guard's and the group apply's occupancy and each chunk's canon's (its
 tile, block shape and warps an SM). The inputs
 come from the checkout's own engine with fixed seeds, so every checkout
@@ -71,14 +75,14 @@ out = {"root": ROOT}
 ITERS = 100
 
 
-# ptxas' figures (-Xptxas -v) of the reconfiguration pair's and
-# KRaftWithReconfig's guard and apply kernels and of canon_memo's and
-# slot_canon's: each unit compiled afresh by the checkout's
+# ptxas' figures (-Xptxas -v) of Raft's (both builds), KRaft's, the
+# reconfiguration pair's and KRaftWithReconfig's guard and apply kernels and
+# of canon_memo's and slot_canon's: each unit compiled afresh by the checkout's
 # own nvcc command, its library written under build/raft_tpu_torch/ptxas/;
 # {kernel (with its template arguments, e.g. canon_memo_kernel<0>): stack
 # frame, spill stores and loads (bytes), registers}
-def ptxas_figures(units=("reconfig_expand", "joint_expand", "kreconfig_expand", "canon_memo",
-                         "slot_canon")):
+def ptxas_figures(units=("raft_expand", "kraft_expand", "reconfig_expand", "joint_expand",
+                         "kreconfig_expand", "canon_memo", "slot_canon")):
     by_unit = {k.unit: k for k in kernels.ALL}
     os.makedirs(os.path.join(kernels.BUILD_DIR, "ptxas"), exist_ok=True)
     procs = []
@@ -187,6 +191,9 @@ def chunk_times(tag, bfs):
     occ = guard_occupancy(model) if guard_occupancy else None
     if occ:
         out[tag]["guard_occupancy"] = occ
+    occ = apply_occupancy(model) if apply_occupancy else None
+    if occ:
+        out[tag]["apply_occupancy"] = occ
     if hasattr(bfs.canon, "occupancy"):  # the canon's launch shape (checkouts that have it)
         out[tag]["canon_occupancy"] = bfs.canon.occupancy(dev)
     if getattr(bfs.canon, "prune", False):
@@ -211,6 +218,10 @@ def chunk_times(tag, bfs):
 
 _, b, _ = run_check("Raft.cfg", text=cs.RAFT_CFG, device="cuda", chunk=cs.CHUNK, max_depth=20)
 chunk_times("raft", b)
+del b
+_, b, _ = run_check("Raft.cfg", text=cs.RAFT_CFG, device="cuda", chunk=cs.CHUNK,
+                    max_depth=cs.NF_SAMPLE_DEPTH, caps=cs.NF_CAPS, net_faults=True)
+chunk_times("raft_nf", b)
 del b
 _, b, _ = run_check("PullRaft.cfg", text=cs.PULL_CFG, device="cuda", chunk=cs.CHUNK,
                     max_depth=cs.PULL_SAMPLE_DEPTH, lenient=True)
@@ -273,6 +284,8 @@ def move_times(tag, spec, text, **kw):
 
 
 move_times("flex5_move", "FlexibleRaft.cfg", cs.FLEX5_CFG, msg_slots=cs.RAFT5_SLOTS)
+move_times("kraft_move", "KRaft.cfg", cs.KRAFT_CFG)
+move_times("raft_nf_move", "Raft.cfg", cs.RAFT_CFG, net_faults=True)
 move_times("addremove_move", "RaftWithReconfigAddRemove.cfg", cs.ADDREMOVE_CFG, lenient=True)
 move_times("joint_move", "RaftWithReconfigJointConsensus.cfg", cs.JOINT_CFG)
 move_times("kreconfig_move", "KRaftWithReconfig.cfg", cs.KRAFT_RECONFIG_CFG, lenient=True)

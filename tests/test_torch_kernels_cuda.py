@@ -779,7 +779,7 @@ def test_raft_guard_apply_fold(dev, name):
 
 def test_raft_guard_apply_wide_rows(dev):
     """A bag of 320 slots (rows over 1,000 lanes): the guard's RequestVote
-    scratch and the apply's rows per block are sized from the model, so
+    scratch is sized from the model and the group apply stages no row, so
     neither refuses it, and both still equal their plain versions."""
     model = RaftModel(dataclasses.replace(VARIANTS["core"], msg_slots=320))
     init = np.repeat(model.init_states(), 64, axis=0)
@@ -798,6 +798,35 @@ def test_raft_guard_apply_wide_rows(dev):
     assert bool(valid.any())
     sel, _ = compact_indices(valid.reshape(-1), int(valid.sum()) + 5, C * A)
     assert torch.equal(apply(model, states, sel), apply_plain(model, states, sel))
+
+
+RAFT_GROUP_VARIANTS = {
+    **{name: VARIANTS[name] for name in ("core", "fsync", "flexible")},
+    "net_faults": dataclasses.replace(VARIANTS["core"], net_faults=True),
+}
+
+
+@pytest.mark.parametrize("servers", [3, 5])
+@pytest.mark.parametrize("name", list(RAFT_GROUP_VARIANTS))
+def test_raft_group_apply_worklists(dev, name, servers):
+    """raft_apply and its fault build raft_nf_apply (the group apply: G
+    threads a worklist lane) against apply_plain on reachable and edge rows
+    (full bags, logs at max_log, scrambled servers; net_fault_rows' count-0
+    to -2 records for the fault build), on a BFS chunk's worklist, a
+    simulate move's, an empty one and random flat ids past C * A; one
+    raft_apply launch a call (the fault build counts as raft_apply) and no
+    other kernel; its occupancy entry names a tile of threads a lane."""
+    p = RAFT_GROUP_VARIANTS[name]
+    if servers == 5:
+        p = VARIANTS["five"] if name == "core" else dataclasses.replace(
+            p, n_servers=5, msg_slots=24)
+    model = RaftModel(p)
+    states = _edge_states(model, dev, seed=servers + len(name))
+    if p.net_faults:
+        states = torch.from_numpy(net_fault_rows(model, states.cpu().numpy(), seed=6)).to(dev)
+    check_group_apply_worklists(model, states, "raft_apply", seed=servers)
+    occ = apply_occupancy(model)
+    assert occ is not None and occ["G"] > 1 and occ["warps_per_sm"] > 0
 
 
 def test_raft_fold_finds_first_bad_lane(dev):
@@ -1220,6 +1249,21 @@ def test_kraft_guard_apply_fold(dev, name):
         assert after[k] > before[k], k
     for k in ("raft_guard", "raft_apply", "raft_fold", "pull_guard", "pull_apply", "pull_fold"):
         assert after[k] == before[k], k
+
+
+@pytest.mark.parametrize("name", list(KRAFT_VARIANTS))
+def test_kraft_group_apply_worklists(dev, name):
+    """kraft_apply (the group apply: G threads a worklist lane) against
+    apply_plain on reachable rows and kraft_edge_rows (chains into full and
+    near-full bags, logs at max_log, every arm of both CASE chains, replies
+    already in the bag), on a BFS chunk's, a simulate move's, an empty and a
+    random worklist, one kraft_apply launch a call and no other kernel; its
+    occupancy entry names a tile of threads a lane."""
+    model = KRaftModel(KRAFT_VARIANTS[name])
+    states = torch.from_numpy(kraft_edge_rows(model, _kraft_states(model, dev), seed=5)).to(dev)
+    check_group_apply_worklists(model, states, "kraft_apply", seed=7)
+    occ = apply_occupancy(model)
+    assert occ is not None and occ["G"] > 1 and occ["warps_per_sm"] > 0
 
 
 @pytest.mark.parametrize("name", list(KRAFT_VARIANTS))

@@ -5,8 +5,10 @@ As tests/test_torch_pull_actions_host.py does for pull_actions.cuh: the
 header builds with a host C++ compiler behind the shim of
 tests/test_torch_actions_host.py, and each (state, candidate) pair goes
 through ``KRaftFamily::action<false>`` (the guard, with the chain lanes'
-scratch the kernel gives them) and ``KRaftFamily::action<true>`` (the
-apply), and each state through ``KRaftFamily::invariant`` and
+scratch the kernel gives them), ``KRaftFamily::action<true>`` (the apply as
+a group of one) and ``KRaftFamily::apply`` (the action of the card's group
+apply) with ``GrpSerial`` groups of G = 1, 4, 8 and 32 members, and each
+state through ``KRaftFamily::invariant`` and
 ``KRaftFamily::predicate`` (ValueAllOrNothing); the results must equal the
 dense ``jax.vmap(_expand1)``, the reference's invariants and its
 ``_live_value_all_or_nothing`` bit for bit, on reachable states and the
@@ -14,13 +16,16 @@ edge rows of ``kraft_edge_rows`` (tests/test_torch_kernels_cuda.py):
 perturbed lanes, full bags with count-0 records, chains that overflow
 partway, logs at max_log, scrambled servers with FetchResponses that match
 a pendingFetch (every arm of both CASE chains), and FetchResponses already
-in the bag. Skips without g++.
+in the bag; the group apply also on rows where a reply's key is already in
+the bag. Skips without g++.
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -31,7 +36,7 @@ from raft_tpu_torch.models.kraft import (
     GROUP_IDS, KRAFT_INVARIANT_IDS, MSG_FIELDS, SPEC_LEN, SPEC_OFFSETS, SPEC_SCALARS,
 )
 
-from test_torch_actions_host import CSRC, SHIM
+from test_torch_actions_host import CSRC, SHIM, existed_rows
 from test_torch_kraft import PARAMS, _edges, _pair
 
 # one intra-op thread: tier-1 runs several test workers side by side, and
@@ -65,6 +70,19 @@ extern "C" void host_expand(const int* states, int C, const int* spec, const int
       ovf[c * A + a] = g.ovf;
     }
 }
+// the group apply's action: every (state, candidate) lane's successor row by
+// a serial group of G members
+extern "C" void host_group_apply(int G, const int* states, int C, const int* spec,
+                                 const int* cand, int A, int* succ) {
+  const int W = spec[KS_W];
+  for (int c = 0; c < C; ++c)
+    for (int a = 0; a < A; ++a) {
+      const int* s = states + (long long)c * W;
+      int* o = succ + ((long long)c * A + a) * W;
+      for (int w = 0; w < W; ++w) o[w] = s[w];
+      KRaftFamily::apply(GrpSerial{G}, spec, s, o, cand + 4 * a);
+    }
+}
 extern "C" void host_predicate(const int* states, int C, const int* spec, int id, bool* ok) {
   for (int c = 0; c < C; ++c)
     ok[c] = KRaftFamily::predicate(spec, states + (long long)c * spec[KS_W], id);
@@ -89,6 +107,7 @@ def lib(tmp_path_factory):
     P = ctypes.c_void_p
     lib.host_expand.argtypes = [P, ctypes.c_int, P, P, ctypes.c_int, ctypes.c_int, P, P, P, P]
     lib.host_predicate.argtypes = [P, ctypes.c_int, P, ctypes.c_int, P]
+    lib.host_group_apply.argtypes = [ctypes.c_int, P, ctypes.c_int, P, P, ctypes.c_int, P]
     return lib
 
 
@@ -142,6 +161,50 @@ def test_device_actions_match_reference(lib, name):
     hit = want[1] & want[3]
     for r in (kr.K_REQUESTVOTE, kr.K_BECOMELEADER, kr.K_CLIENTREQUEST, kr.K_HANDLE_FETCH_OK):
         assert (hit & (want[2] == r)).any(), r
+
+
+@functools.lru_cache(maxsize=None)
+def _group_rows(name):
+    """kraft_edge_rows of the reachable batch and their existed_rows (a
+    reply or a fetch request already in the bag), with their dense expand
+    and the existed rows' lanes."""
+    jm, tm, _batch, _dense = _pair(name)
+    rows, want = _edges(name)
+    ex, lanes = existed_rows(tm, rows, want, (
+        kr.K_HANDLE_RVREQ, kr.K_HANDLE_BQREQ, kr.K_REJECT_FETCH, kr.K_DIVERGING_FETCH,
+        kr.K_ACCEPT_FETCH, kr.K_SENDFETCH), GROUP_IDS["HandleMessage"])
+    rows = np.ascontiguousarray(np.concatenate([rows, ex]))
+    want = [np.asarray(x) for x in jax.device_get(jm.expand(rows))]
+    base = len(rows) - len(ex)
+    return rows, want, [(base + i, a) for i, a in lanes]
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+@pytest.mark.parametrize("name", list(PARAMS))
+def test_group_apply_matches_reference(lib, name, G):
+    """``KRaftFamily::apply``, the action of the card's group apply (a tile
+    of G threads a worklist lane), run with ``GrpSerial`` (the G members'
+    shares of each bag put and multi-lane write in turn), against the
+    dense expand bit for bit on every (row, candidate) lane; the rows reach
+    both chains into full bags, a receipt's discard followed by an
+    overflowing put, puts whose key existed and logs at max_log."""
+    _jm, tm, _batch, _dense = _pair(name)
+    rows, want, existed = _group_rows(name)
+    spec, cand, _ = (np.ascontiguousarray(t.numpy()) for t in tm.kernel_spec("cpu"))
+    C, A, W = len(rows), tm.A, tm.layout.W
+    succ = np.zeros((C, A, W), np.int32)
+    lib.host_group_apply(G, _ptr(rows), C, _ptr(spec), _ptr(cand), A, _ptr(succ))
+    assert np.array_equal(want[0], succ)
+    valid, rank, ovf = want[1:]
+    hit = valid & ovf
+    for r in (kr.K_REQUESTVOTE, kr.K_BECOMELEADER, kr.K_CLIENTREQUEST, kr.K_HANDLE_FETCH_OK):
+        assert (hit & (rank == r)).any(), r
+    assert (hit & np.isin(rank, (kr.K_HANDLE_RVREQ, kr.K_HANDLE_BQREQ, kr.K_ACCEPT_FETCH))).any()
+    lay = tm.layout
+    assert existed
+    for c, a in existed:  # the successor's bag gained no key
+        assert np.array_equal(succ[c, a, lay.sl("msg_hi")], rows[c, lay.sl("msg_hi")])
+        assert np.array_equal(succ[c, a, lay.sl("msg_lo")], rows[c, lay.sl("msg_lo")])
 
 
 @pytest.mark.parametrize("name", list(PARAMS))

@@ -6,7 +6,8 @@ the anchor (its guard-first path is broken under the installed jax, so
 the reference's engines run through ``DenseShim``): the port's plain
 expand and the device code of csrc/raft_actions.cuh (built for the CPU
 with g++, as tests/test_torch_actions_host.py does) on reachable states
-and on rows whose delivery counts cover 0, 1, max_msg_copies and beyond;
+and on rows whose delivery counts cover 0, 1, max_msg_copies and beyond
+(the device code's group apply too, with serial groups of 1 to 32);
 the port's DeviceBFS on the CPU against the reference's dense DeviceBFS;
 the registry's and the CLI's gate for the specs without the actions.
 """
@@ -31,7 +32,7 @@ from raft_tpu_torch.ops.packing import EMPTY
 from raft_tpu_torch.utils.cfg import CfgError, parse_cfg
 
 from test_expand_sparse import DenseShim
-from test_torch_actions_host import _ptr, lib  # noqa: F401 - the g++-built device code
+from test_torch_actions_host import _ptr, check_group_apply, lib  # noqa: F401 - the g++-built device code
 from test_torch_kernels_cuda import net_fault_rows
 
 # one intra-op thread: tier-1 runs several test workers side by side
@@ -152,6 +153,21 @@ def test_device_code_matches_reference(lib, name):  # noqa: F811
             assert np.array_equal(w, g), (label, write)
         if write:
             assert np.array_equal(want[0], succ)
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_group_apply_matches_reference(lib, name, G):  # noqa: F811
+    """RaftFaultFamily::apply, the action of the card's raft_nf_apply (a tile
+    of G threads a worklist lane), with a serial group of G members, equals
+    the reference's dense expand on every (state, candidate) pair, the fault
+    groups' lanes included."""
+    jm, tm, rows = _pair(name)
+    want = [np.asarray(x) for x in jax.device_get(jm.expand(rows))]
+    check_group_apply(lib, tm, rows, want, G, 1)
+    valid, rank = want[1], want[2]
+    for r in (tm._r_dup, tm._r_drop):
+        assert (valid & (rank == r)).any(), tm.ACTION_NAMES[r]
 
 
 def test_fault_semantics():
