@@ -651,8 +651,9 @@ struct KRaftFamily {
   static constexpr int BAG_WORDS = 2;  // (hi, lo) keys
   static constexpr int I_S = KS_S, I_M = KS_M, I_W = KS_W, I_A = KS_A, I_K = KS_K;
   // the group apply's threads a worklist lane and resident blocks an SM
-  // (expand_driver.cuh), from the timed table in PERF.md
-  static constexpr int APPLY_G = 32, APPLY_BLOCKS = 3;
+  // (expand_driver.cuh): 32 and 4, the fastest of G 4-32 at 2-4 blocks on
+  // KRaft.cfg's chunk and move (PERF.md's tile table)
+  static constexpr int APPLY_G = 32, APPLY_BLOCKS = 4;
   __host__ __device__ __forceinline__ static int scratch_slots(int S) { return 2 * S; }
   __device__ __forceinline__ static int scratch_slot(const int* cd) {
     if (cd[0] == KG_REQUEST_VOTE) return 2 * cd[1];

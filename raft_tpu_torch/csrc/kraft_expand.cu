@@ -7,8 +7,10 @@
 //
 // kraft_guard: guard_body, a thread a (state, candidate) lane. kraft_apply:
 // the group apply of expand_driver.cuh (EXPAND_KERNELS_GROUP_APPLY), one
-// launch a call: a tile of KRaftFamily::APPLY_G threads a worklist lane, 256
-// threads a block, the spec vector alone in shared memory; the tile copies
+// launch a call: a warp (KRaftFamily::APPLY_G = 32 threads) a worklist
+// lane, 256 threads a block, four resident blocks asked of the register
+// allocator (64 registers a thread, 32 warps an SM), the spec vector alone
+// in shared memory; the tile copies
 // the row into flatc, its lead makes the scalar writes, its members split
 // the endOffset and log rows and each bag put (RequestVote's and
 // BecomeLeader's S - 1 one after another on the successor's bag).

@@ -602,8 +602,10 @@ struct RaftFamilyT {
   static constexpr int BAG_WORDS = 2;  // (hi, lo) keys
   static constexpr int I_S = SP_S, I_M = SP_M, I_W = SP_W, I_A = SP_A, I_K = SP_K;
   // the group apply's threads a worklist lane and resident blocks an SM
-  // (expand_driver.cuh), from the timed table in PERF.md
-  static constexpr int APPLY_G = 32, APPLY_BLOCKS = 3;
+  // (expand_driver.cuh): 16 and 4, the fastest of G 4-32 at 2-4 blocks on
+  // the Raft.cfg, --net-faults and FLEX5 inputs (its rows narrow, 48 int4
+  // quads at W = 192; PERF.md's tile table)
+  static constexpr int APPLY_G = 16, APPLY_BLOCKS = 4;
   __host__ __device__ __forceinline__ static int scratch_slots(int S) { return S; }
   __device__ __forceinline__ static int scratch_slot(const int* cd) {
     return cd[0] == G_REQUEST_VOTE ? cd[1] : -1;

@@ -9,12 +9,14 @@
 //
 // raft_guard: guard_body, a thread a (state, candidate) lane. raft_apply:
 // the group apply of expand_driver.cuh (EXPAND_KERNELS_GROUP_APPLY), one
-// launch a call: a tile of RaftFamilyT::APPLY_G threads a worklist lane,
-// 256 threads a block, the spec vector alone in shared memory (no row
-// staged, so no W refuses it and its warps an SM do not depend on W); the
-// tile copies the row into flatc, its lead makes the scalar writes, its
-// members split the log and nextIndex/matchIndex rows and each bag put
-// (RequestVote's S - 1 one after another on the successor's bag).
+// launch a call: a tile of 16 threads (RaftFamilyT::APPLY_G) a worklist
+// lane, 256 threads a block, four resident blocks asked of the register
+// allocator (64 registers a thread, 32 warps an SM), the spec vector alone
+// in shared memory (no row staged, so no W refuses it and its warps an SM
+// do not depend on W); the tile copies the row into flatc, its lead makes
+// the scalar writes, its members split the log and nextIndex/matchIndex
+// rows and each bag put (RequestVote's S - 1 one after another on the
+// successor's bag).
 //
 // Bound at the main path's shapes (C = 4096, A = 69, W = 192, VC = 65,536):
 // raft_guard by bytes (the state rows read, valid/rank/ovf written) ahead

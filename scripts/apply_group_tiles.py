@@ -94,8 +94,8 @@ def build() -> dict:
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         ptxas = {m.group(1): m.group(2).strip() + "; " + m.group(3).strip() for m in re.finditer(
-            r"Function properties for _Z\d+(\w+_apply_kernel)\w*\s*\n\s*(.*)\n(?:.*\n)*?.*?(Used .*)",
-            out)}
+            r"Function properties for _Z\d+(\w+_apply_kernel)\w*\s*\n\s*(.*)\n"
+            r"(?:.*\n)*?.*?(Used .*)", out)}
         libs[g, b, unit] = (lib, ptxas)
     return libs
 

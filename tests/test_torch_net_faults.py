@@ -32,7 +32,9 @@ from raft_tpu_torch.ops.packing import EMPTY
 from raft_tpu_torch.utils.cfg import CfgError, parse_cfg
 
 from test_expand_sparse import DenseShim
-from test_torch_actions_host import _ptr, check_group_apply, lib  # noqa: F401 - the g++-built device code
+from test_torch_actions_host import (  # noqa: F401 - lib: the g++-built device code
+    _ptr, check_group_apply, lib,
+)
 from test_torch_kernels_cuda import net_fault_rows
 
 # one intra-op thread: tier-1 runs several test workers side by side
