@@ -47,7 +47,6 @@
 #pragma once
 
 #include <cooperative_groups.h>
-#include <type_traits>
 
 #include "actions_common.cuh"
 
@@ -257,23 +256,12 @@ static int launch_apply(ApplyKernel kernel, size_t* opted_in, const int* states,
 // memory, with the tile's barrier (__syncwarp over its mask) between a
 // member's write and another member's read. The tile (G threads a lane)
 // and the resident blocks an SM asked of the register allocator are the
-// family's (F::APPLY_G, F::APPLY_BLOCKS), (32, 3) where it names none:
-// chosen on the card from timed tables of G 4 to 32 at 2 to 4 blocks
-// (PERF.md's tile tables).
+// family's (F::APPLY_G, F::APPLY_BLOCKS), chosen on the card from timed
+// tables of G 4 to 32 at 2 to 4 blocks (PERF.md's tile tables).
 
 #define APPLY_GROUP_THREADS 256
 
 namespace cg = cooperative_groups;
-
-// a family's group-apply tile: (F::APPLY_G, F::APPLY_BLOCKS), else (32, 3)
-template <class F, class = void>
-struct ApplyTile {
-  static constexpr int G = 32, BLOCKS = 3;
-};
-template <class F>
-struct ApplyTile<F, std::void_t<decltype(F::APPLY_G), decltype(F::APPLY_BLOCKS)>> {
-  static constexpr int G = F::APPLY_G, BLOCKS = F::APPLY_BLOCKS;
-};
 
 // a tile of G threads of one warp as actions_common.cuh's group type
 template <int G>
@@ -334,7 +322,7 @@ __device__ __forceinline__ void apply_group_body(const int* __restrict__ states,
                                                  const int* __restrict__ spec,
                                                  const int* __restrict__ cand,
                                                  int* __restrict__ flatc) {
-  constexpr int G = ApplyTile<F>::G;
+  constexpr int G = F::APPLY_G;
   __shared__ int sp[F::SPEC_LEN];
   for (int t = threadIdx.x; t < F::SPEC_LEN; t += blockDim.x) sp[t] = spec[t];
   __syncthreads();
@@ -361,7 +349,7 @@ static int launch_apply_group(ApplyKernel kernel, const int* states, int C, cons
                               int* flatc, void* stream) {
   if (spec_len != F::SPEC_LEN) return (int)cudaErrorInvalidValue;
   if (VC <= 0) return 0;
-  constexpr int lanes = APPLY_GROUP_THREADS / ApplyTile<F>::G;
+  constexpr int lanes = APPLY_GROUP_THREADS / F::APPLY_G;
   const int blocks = (VC + lanes - 1) / lanes;
   kernel<<<blocks, APPLY_GROUP_THREADS, 0, (cudaStream_t)stream>>>(states, C, sel, VC, spec,
                                                                    cand, flatc);
@@ -381,7 +369,7 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
   cudaFuncAttributes fa;
   e = cudaFuncGetAttributes(&fa, (const void*)kernel);
   if (e != cudaSuccess) return (int)e;
-  out[0] = ApplyTile<F>::G;
+  out[0] = F::APPLY_G;
   out[1] = APPLY_GROUP_THREADS;
   out[2] = nb;
   out[3] = nb * APPLY_GROUP_THREADS / 32;
@@ -392,7 +380,7 @@ static int apply_group_occupancy(ApplyKernel kernel, int* out) {
 
 // the group apply's kernel and its launchers P_apply and P_apply_occupancy
 #define EXPAND_APPLY_GROUP(P, F)                                                              \
-  __global__ void __launch_bounds__(APPLY_GROUP_THREADS, ApplyTile<F>::BLOCKS)                \
+  __global__ void __launch_bounds__(APPLY_GROUP_THREADS, F::APPLY_BLOCKS)                     \
       P##_apply_kernel(const int* __restrict__ states, int C, const int* __restrict__ sel,    \
                        int VC, const int* __restrict__ spec, const int* __restrict__ cand,    \
                        int* __restrict__ flatc) {                                             \
