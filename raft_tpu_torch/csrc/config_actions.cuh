@@ -1047,7 +1047,7 @@ struct ConfigFamily {
   static constexpr int I_M = CS_M, I_W = CS_W, I_A = CS_A, I_K = CS_K;
   static constexpr int I_NW = CS_NW, I_BAG = CS_W0;
   // the group apply's threads a worklist lane and resident blocks an SM
-  // (expand_driver.cuh; PERF.md's tile table of PR 14)
+  // (expand_driver.cuh; PERF.md's tile tables)
   static constexpr int APPLY_G = 32, APPLY_BLOCKS = 3;
   // one candidate's guard, run by its member alone: (valid, rank, ovf) but
   // for its put, kept in rq

@@ -1157,7 +1157,7 @@ struct KReconfigFamily {
   static constexpr int BAG_WORDS = KC_MAX_WORDS;
   static constexpr int I_S = KC_S, I_M = KC_M, I_W = KC_W, I_A = KC_A, I_K = KC_K;
   // the group apply's threads a worklist lane and resident blocks an SM
-  // (expand_driver.cuh; PERF.md's tile table of PR 17)
+  // (expand_driver.cuh; PERF.md's tile tables)
   static constexpr int APPLY_G = 32, APPLY_BLOCKS = 3;
   __host__ __device__ __forceinline__ static int scratch_slots(int S) { return 2 * S; }
   __device__ __forceinline__ static int scratch_slot(const int* cd) {
